@@ -6,11 +6,18 @@ It needs one CUDA card, ``nvcc`` and the port package beside it; without
 them it exits non-zero and prints no result. It imports nothing of JAX or
 of ``kubeflow_tpu``. Phases, each fatal on failure:
 
-1. build both CUDA kernels from ``kubeflow_tpu_torch/ops/csrc`` (one
-   ``nvcc`` each, in parallel) and print the card's name and power limit;
-2. hold each kernel against its plain PyTorch version on the card at the
-   serving shapes (paged attention: bf16 within atol 8e-3, f32 within
-   atol 1e-5; sampler: token-identical), timed with CUDA events;
+1. build the CUDA kernels from ``kubeflow_tpu_torch/ops/csrc`` (one
+   ``nvcc`` per source, all in parallel) and print the card's name and
+   power limit;
+2. hold each kernel against its plain PyTorch version on the card, timed
+   with CUDA events: paged attention at the serving shapes (bf16 within
+   atol 8e-3, f32 within atol 1e-5), the sampler (token-identical), and
+   the flash forward, dQ and dK/dV kernels (B=2, H=16, D=64, S=2048 and
+   a ragged 1000, causal and not, with and without ``kv_len``, and the
+   training case S=8192 bf16 causal; lse within 1e-5; f32 within 1e-5
+   on out and 1e-4 on gradients; bf16 within a norm-relative error of
+   4e-4, which a bf16 fault in each output must exceed), timed at the
+   training case beside ``scaled_dot_product_attention`` (timed only);
 3. serve the full-width engine-bench LM (vocab 32000, d_model 1024, 8
    layers, 16 heads, max_seq_len 2048; random weights from a numpy seed,
    written as a model-store export) through the port's ``ModelServer``
@@ -19,7 +26,15 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
    tokens) and require both kernels to have launched during that run;
 4. run the same greedy requests through the engine in f32 with the
    kernel and with the gather path (TF32 off) and require identical
-   token streams.
+   token streams;
+5. train the long-context LM (the same width, seq 8192, batch 2, bf16
+   compute over f32 params, flash attention, remat) for 4 steps of
+   ``make_lm_train_step`` and require the three flash kernels to have
+   launched (forward 16 per step with remat, dQ 8, dK/dV 8), a finite
+   loss near ln(32000) that falls, and every parameter updated;
+6. one f32 train step (TF32 off) of a 2-layer model at seq 512 with
+   flash and with dense attention from the same weights: loss,
+   gradients and updated parameters within 1e-5.
 
 The last three lines of standard output are the ``nvidia-smi`` name and
 power limit, the ``{"kernels": [...]}`` record, and ``{"ok": true, ...}``.
@@ -41,9 +56,13 @@ sys.path.insert(0, HERE)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM bf16 dense tensor cores
 SEED = 0
 BENCH = dict(vocab_size=32000, d_model=1024, n_layers=8, n_heads=16,
              n_kv_heads=16, d_ff=4096, max_seq_len=2048)
+# the long-context training bench (bench/suite.py:bench_longcontext)
+TRAIN = dict(BENCH, max_seq_len=8192, attention_impl="flash", remat=True)
+TRAIN_BATCH, TRAIN_STEPS = 2, 4
 
 
 class SmokeFailure(RuntimeError):
@@ -258,6 +277,254 @@ def check_sampler_kernel(device):
             "library_ms": None}
 
 
+def flash_inputs(B, S, H, D, dtype, device, seed, masked):
+    """q, k, v and a cotangent; with ``masked``, kv_len holds a zero row
+    and a ragged one, and the cotangent is zero at padded q rows, as the
+    masked LM loss weights make it."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v, g = (torch.randn((B, S, H, D), generator=gen).to(device, dtype)
+                  for _ in range(4))
+    lens = None
+    if masked:
+        lens = torch.tensor([0] + [S - 77] * (B - 1), dtype=torch.int32,
+                            device=device)
+        live = torch.arange(S, device=device)[None, :] < lens[:, None]
+        g = g * live[:, :, None, None].to(dtype)
+    return q, k, v, g, lens
+
+
+def flash_kernels(q, k, v, g, *, causal, kv_len):
+    """(out, lse, dq, dk, dv, delta) through the three wrappers; delta is
+    the autograd function's plain op."""
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    kw = dict(causal=causal, kv_len=kv_len)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = fa.flash_delta(g, out)
+    dq = fa.flash_bwd_dq(q, k, v, g, lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse, delta, **kw)
+    return out, lse, dq, dk, dv, delta
+
+
+def over_heads(fn, q, k, v, g, lse, delta, step):
+    """``fn`` on ``step`` heads at a time, its outputs joined on the head
+    dim: the plain versions hold (B, H, S, S) f32 scores, which at S=8192
+    and 16 heads would take ~35 GB."""
+    import torch
+
+    parts = []
+    for h in range(0, q.shape[2], step):
+        sl = slice(h, h + step)
+        parts.append(fn(q[:, :, sl], k[:, :, sl], v[:, :, sl], g[:, :, sl],
+                        lse[:, sl], delta[:, sl]))
+    return tuple(torch.cat(ts, dim=1 if ts[0].dim() == 3 else 2)
+                 for ts in zip(*parts))
+
+
+def flash_plain(causal, kv_len):
+    """The plain versions on the same inputs as the kernels: the
+    backward passes read the kernel forward's lse and delta, so each
+    kernel is held to its own plain version alone."""
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    kw = dict(causal=causal, kv_len=kv_len)
+
+    def fn(q, k, v, g, lse, delta):
+        return (*fa.flash_fwd_plain(q, k, v, **kw),
+                fa.flash_bwd_dq_plain(q, k, v, g, lse, delta, **kw),
+                *fa.flash_bwd_dkv_plain(q, k, v, g, lse, delta, **kw))
+    return fn
+
+
+def flash_faults(causal, kv_len):
+    """The plain arithmetic with one bf16 fault in each output, which
+    the bf16 limit must reject: out with P left unrounded before P·V; dq
+    and dk from dS rounded to bf16; dv from P rounded to bf16 before
+    Pᵀ·dO."""
+    import torch
+
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    bf = torch.bfloat16
+
+    def fn(q, k, v, g, lse, delta):
+        scale = q.shape[-1] ** -0.5
+        out = fa.flash_fwd_plain(q.float(), k.float(), v.float(),
+                                 causal=causal, kv_len=kv_len)[0].to(bf)
+        p, ds = fa._grad_parts(q, k, v, g, lse, delta, causal, scale,
+                               kv_len)
+        ds = ds.to(bf).float()
+        dq = (torch.einsum("bhst,bthd->bshd", ds, k.float()) * scale)
+        dk = torch.einsum("bhst,bshd->bthd", ds, q.float() * scale)
+        dv = torch.einsum("bhst,bshd->bthd", p.to(bf).float(), g.float())
+        return out, dq.to(bf), dk.to(bf), dv.to(bf)
+    return fn
+
+
+def norm_err(a, b) -> float:
+    """||a - b|| / ||b|| over the whole tensor, in f32."""
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+# bf16 outputs: norm-relative error limit, between the kernels' own
+# reading against their plain versions and the faults of flash_faults
+# (PERF.md, Findings, gives both readings)
+FLASH_BF16_NORM_LIMIT = 4e-4
+
+
+def compare_flash(B, S, H, D, dtype, device, seed, *, causal, masked,
+                  step=16):
+    """Hold the three kernels against their plain versions on one case;
+    returns ({name: max abs err}, kernel inputs and outputs)."""
+    import torch
+
+    q, k, v, g, lens = flash_inputs(B, S, H, D, dtype, device, seed, masked)
+    got = flash_kernels(q, k, v, g, causal=causal, kv_len=lens)
+    lse, delta = got[1], got[5]
+    want = over_heads(flash_plain(causal, lens), q, k, v, g, lse, delta,
+                      step)
+    lens_txt = f"[0,{S - 77}]" if masked else None
+    label = (f"S={S} {str(dtype)[6:]} causal={causal} kv_len={lens_txt}")
+    want = dict(zip(("out", "lse", "dq", "dk", "dv"), want))
+    errs, parts = {}, []
+    for (name, b), a in zip(want.items(), got):
+        check(bool(torch.isfinite(a.float()).all()),
+              f"flash {label}: non-finite {name}")
+        err = (a.float() - b.float()).abs().max().item()
+        errs[name] = err
+        # lse is f32 from f32 sums in both dtypes (and -1e30 on a
+        # zero-length row, which a relative bound would swallow)
+        if dtype == torch.float32 or name == "lse":
+            tol = 1e-5 if name in ("out", "lse") else 1e-4
+            check(err <= tol, f"flash {label}: {name} max abs err {err} "
+                              f"> {tol}")
+            parts.append(f"{name} {err:.2e}/{tol:.0e}")
+        else:
+            rel = norm_err(a, b)
+            check(rel <= FLASH_BF16_NORM_LIMIT,
+                  f"flash {label}: {name} norm err {rel} > "
+                  f"{FLASH_BF16_NORM_LIMIT}")
+            parts.append(f"{name} max {err:.2e} norm {rel:.2e}/"
+                         f"{FLASH_BF16_NORM_LIMIT:.0e}")
+    print(f"flash {label}: " + " ".join(parts), flush=True)
+    if dtype == torch.bfloat16:
+        faults = over_heads(flash_faults(causal, lens), q, k, v, g, lse,
+                            delta, step)
+        readings = []
+        for name, bad in zip(("out", "dq", "dk", "dv"), faults):
+            rel = norm_err(bad, want[name])
+            check(rel > FLASH_BF16_NORM_LIMIT,
+                  f"flash {label}: the {name} fault passes the bf16 "
+                  f"limit ({rel})")
+            readings.append(f"{name} {rel:.2e}")
+        print("  faults rejected: " + " ".join(readings), flush=True)
+        del faults
+    return errs, (q, k, v, g, lse, delta)
+
+
+def flash_bytes_ops(B, S, H, D, el, causal):
+    """Bytes each pass must move and flops it must do at (B, S, H, D):
+    inputs read once, outputs written once; flops over the live (q, key)
+    pairs, S(S+1)/2 causal (4 D each forward, 6 D dQ, 8 D dK/dV)."""
+    n = B * S * H * D * el
+    stats = B * H * S * 4                      # lse or delta, f32
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    return {"flash_fwd": (3 * n + n + stats, 4 * pairs * D),
+            "flash_bwd_dq": (4 * n + 2 * stats + n, 6 * pairs * D),
+            "flash_bwd_dkv": (4 * n + 2 * stats + 2 * n, 8 * pairs * D)}
+
+
+def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4):
+    """The three flash kernels against their plain versions: causal and
+    not, with and without kv_len, f32 and bf16, at S=2048 and a ragged
+    1000, then the training path's own case (bf16, causal, S_main) with
+    the plain versions run ``step`` heads at a time. Then each is timed
+    there beside the bound, its plain version and PyTorch's fused
+    attention (timed only)."""
+    import torch
+
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    owner = {"out": "flash_fwd", "lse": "flash_fwd", "dq": "flash_bwd_dq",
+             "dk": "flash_bwd_dkv", "dv": "flash_bwd_dkv"}
+    cases = [(S, dtype, causal, masked)
+             for S in (2048, 1000)
+             for dtype in (torch.float32, torch.bfloat16)
+             for causal in (True, False) for masked in (False, True)]
+    cases.append((S_main, torch.bfloat16, True, False))
+    for seed, (S, dtype, causal, masked) in enumerate(cases, SEED + 1):
+        errs, main = compare_flash(B, S, H, D, dtype, device, seed,
+                                   causal=causal, masked=masked,
+                                   step=step if S == S_main else H)
+        for name, err in errs.items():
+            worst[owner[name]] = max(worst[owner[name]], err)
+        torch.cuda.empty_cache()
+    # timing on the training path's case (the last one compared)
+    q, k, v, g, lse, delta = main
+    ms = {"flash_fwd": time_ms(lambda: fa.flash_fwd(q, k, v)),
+          "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(
+              q, k, v, g, lse, delta)),
+          "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv(
+              q, k, v, g, lse, delta))}
+    # PyTorch's fused attention on the same inputs, as a yardstick only
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+    o_lib = sdpa(qt, kt, vt, is_causal=True)
+    g_lib = g.transpose(1, 2)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), g_lib, retain_graph=True))
+    library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
+               "flash_bwd_dkv": lib_bwd}
+    del qt, kt, vt, o_lib
+    torch.cuda.empty_cache()
+
+    def plain_fn(fn):
+        return lambda: over_heads(fn, q, k, v, g, lse, delta, step)
+    plain = {
+        "flash_fwd": plain_fn(lambda q, k, v, g, lse, delta:
+                              fa.flash_fwd_plain(q, k, v)),
+        "flash_bwd_dq": plain_fn(lambda q, k, v, g, lse, delta: (
+            fa.flash_bwd_dq_plain(q, k, v, g, lse, delta),)),
+        "flash_bwd_dkv": plain_fn(lambda q, k, v, g, lse, delta:
+                                  fa.flash_bwd_dkv_plain(q, k, v, g, lse,
+                                                         delta))}
+    plain = {name: time_ms(fn, iters=5, warmup=1)
+             for name, fn in plain.items()}
+    work = flash_bytes_ops(B, S_main, H, D, 2, True)
+    records = []
+    lib_call = {"flash_fwd": "forward", "flash_bwd_dq": "backward, dq+dk+dv",
+                "flash_bwd_dkv": "backward, dq+dk+dv"}
+    for name, line in (("flash_fwd", 188), ("flash_bwd_dq", 369),
+                       ("flash_bwd_dkv", 422)):
+        nbytes, flops = work[name]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3
+        print(f"{name} bf16 causal B={B} H={H} S={S_main} D={D}: "
+              f"kernel_ms={ms[name]:.4f} "
+              f"({flops / ms[name] / 1e9:.1f} TFLOP/s) "
+              f"bound_ms={max(t_bytes, t_ops):.4f} "
+              f"(bf16 tensor cores; f32 FMA bound "
+              f"{flops / F32_FLOPS * 1e3:.4f}) "
+              f"plain_ms={plain[name]:.4f} ({step} heads per call) "
+              f"library_ms={library[name]:.4f} (scaled_dot_product_"
+              f"attention {lib_call[name]})", flush=True)
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "kubeflow_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": f"kubeflow_tpu/ops/attention.py:{line}",
+            "max_abs_err": worst[name], "ms": ms[name],
+            "plain_ms": plain[name], "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library[name]})
+    return records
+
+
 # -- phase 3: serving end to end --------------------------------------------
 
 
@@ -340,8 +607,7 @@ def serve_phase(base: str, cfg, device, *, n_requests=8, prompt_len=300,
         for t in threads:
             t.join()
         wall = time.perf_counter() - t0
-        launches = {m.__name__.rsplit(".", 1)[-1]: m.launches
-                    for m in ops.KERNEL_MODULES}
+        launches = ops.launch_counts()
         check(not errors, "; ".join(errors))
         ttfts = []
         for i, (payload, ttft) in enumerate(results):
@@ -406,6 +672,140 @@ def parity_phase(base: str, cfg, device, *, n=4, max_new=24,
     return streams["kernel"]
 
 
+# -- phase 5: long-context training ------------------------------------------
+
+
+def train_setup(device):
+    """The slice's configuration on ``device``: (config, train state,
+    the fixed numpy token batch), as ``bench_longcontext`` builds them."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.train import create_train_state, make_optimizer
+
+    cfg = TransformerConfig(**TRAIN, dtype="bfloat16")
+    state = create_train_state(
+        cfg, convert.random_params(cfg, SEED),
+        make_optimizer(3e-4, warmup_steps=5, decay_steps=100),
+        device=device)
+    tokens = np.random.default_rng(SEED + 2).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_seq_len)).astype(np.int32)
+    return cfg, state, tokens
+
+
+def train_flops(cfg, n_params: int) -> int:
+    """Flops of one step, by ``bench_longcontext``'s count (:510-512):
+    6·N·tokens plus the causal attention matmuls, remat excluded."""
+    S = cfg.max_seq_len
+    return (6 * n_params * TRAIN_BATCH * S
+            + 6 * cfg.n_layers * TRAIN_BATCH * S * S * cfg.d_model)
+
+
+def train_phase(device, *, steps=TRAIN_STEPS):
+    """The slice's configuration: 4 steps on one fixed numpy batch."""
+    import math
+
+    import torch
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.train import make_lm_train_step
+
+    t0 = time.perf_counter()
+    cfg, state, tokens = train_setup(device)
+    S = cfg.max_seq_len
+    before = {n: p.detach().clone() for n, p in
+              state.module.named_parameters()}
+    n_params = sum(p.numel() for p in before.values())
+    print(f"train state built: {time.perf_counter() - t0:.1f}s, "
+          f"{n_params} params", flush=True)
+    step = make_lm_train_step()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, tokens)
+        losses.append(float(m["loss"]))        # syncs the step
+        times.append(time.perf_counter() - t0)
+    launches = ops.launch_counts()
+    per_step = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+                "flash_bwd_dkv": cfg.n_layers}
+    for name, n in per_step.items():
+        check(launches[name] == n * steps,
+              f"train: {name} launched {launches[name]} times, expected "
+              f"{n * steps} ({n} per step)")
+    check(all(math.isfinite(x) for x in losses), f"train: losses {losses}")
+    ln_v = math.log(cfg.vocab_size)
+    check(abs(losses[0] - ln_v) <= 1.5,
+          f"train: step-1 loss {losses[0]} not within ln(V)={ln_v:.3f}"
+          f" +- 1.5")
+    check(losses[-1] < losses[0],
+          f"train: loss did not fall: {losses}")
+    unchanged = [n for n, p in state.module.named_parameters()
+                 if torch.equal(p.detach(), before[n])]
+    check(not unchanged, f"train: parameters not updated: {unchanged}")
+    step_s = sum(times[1:]) / (steps - 1)      # step 1 warms up
+    return {"losses": losses, "step_ms": [t * 1e3 for t in times],
+            "mean_step_ms": step_s * 1e3,
+            "tokens_per_s": TRAIN_BATCH * S / step_s,
+            "mfu": train_flops(cfg, n_params) / step_s / BF16_FLOPS,
+            "launches": launches,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "grad_norm": float(m["grad_norm"])}
+
+
+# -- phase 6: flash vs dense training parity in f32 -------------------------
+
+
+def train_parity_phase(device):
+    """One f32 step (TF32 off) with flash and with dense attention from
+    the same weights and batch. lr 1e-5 with no warmup: AdamW's first
+    update is about lr * sign(g) for every entry, so an entry whose
+    gradient sign differs moves 2e-5 apart and fails the 1e-5 check."""
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.train import (
+        create_train_state,
+        make_lm_train_step,
+        make_optimizer,
+        next_token_loss,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = dict(vocab_size=32000, d_model=256, n_layers=2, n_heads=4,
+                n_kv_heads=4, d_ff=1024, max_seq_len=512, dtype="float32",
+                remat=True)
+    params = convert.random_params(TransformerConfig(**base), SEED + 3)
+    tokens = np.random.default_rng(SEED + 4).integers(
+        0, 32000, (2, 512)).astype(np.int32)
+    res = {}
+    for impl in ("flash", "dense"):
+        cfg = TransformerConfig(**base, attention_impl=impl)
+        state = create_train_state(cfg, params, make_optimizer(
+            1e-5, warmup_steps=0), device=device)
+        model = state.module
+        toks = torch.as_tensor(tokens, device=device)
+        grads = torch.autograd.grad(next_token_loss(model(toks), toks),
+                                    state.params)
+        state, m = make_lm_train_step()(state, tokens)
+        res[impl] = (float(m["loss"]), float(m["grad_norm"]), grads,
+                     [p.detach() for p in state.params])
+    (lf, nf, gf, pf), (ld, nd, gd, pd) = res["flash"], res["dense"]
+    g_err = max((a - b).abs().max().item() for a, b in zip(gf, gd))
+    p_err = max((a - b).abs().max().item() for a, b in zip(pf, pd))
+    check(abs(lf - ld) <= 1e-5, f"parity: loss {lf} vs {ld}")
+    check(abs(nf - nd) <= 1e-5 * nd, f"parity: grad_norm {nf} vs {nd}")
+    check(g_err <= 1e-5, f"parity: gradients differ by {g_err}")
+    check(p_err <= 1e-5, f"parity: updated params differ by {p_err}")
+    return {"loss": (lf, ld), "grad_norm": (nf, nd), "grad_err": g_err,
+            "param_err": p_err}
+
+
 def main() -> int:
     import torch
 
@@ -423,15 +823,18 @@ def main() -> int:
     print(f"device: {kind} | {ident}", flush=True)
 
     t0 = time.perf_counter()
-    logs = _build.build(["paged_attention", "fused_sample"])
+    logs = _build.build(["paged_attention", "fused_sample",
+                         "flash_attention"])
     print(f"phase 1 build: {time.perf_counter() - t0:.1f}s", flush=True)
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  [{name}] {line.strip()}", flush=True)
 
-    kernels = [check_paged_kernel(device), check_sampler_kernel(device)]
+    kernels = [check_paged_kernel(device), check_sampler_kernel(device),
+               *check_flash_kernels(device)]
     print("phase 2 kernels vs plain: ok", flush=True)
+    torch.cuda.empty_cache()
 
     cfg = TransformerConfig(**BENCH, dtype="bfloat16")
     with tempfile.TemporaryDirectory(prefix="kftpu-smoke-") as base:
@@ -439,10 +842,8 @@ def main() -> int:
         write_export(base, cfg)
         print(f"export written: {time.perf_counter() - t0:.1f}s", flush=True)
         serve = serve_phase(base, cfg, device)
-        for kern in kernels:
-            key = {"paged_decode_attention": "paged_attention",
-                   "fused_sample": "sampling"}[kern["name"]]
-            kern["launches"] = serve["launches"][key]
+        for kern in kernels[:2]:
+            kern["launches"] = serve["launches"][kern["name"]]
             check(kern["launches"] > 0,
                   f"{kern['name']} never launched on the serving path")
         ttft = serve["ttft_s"]
@@ -455,6 +856,25 @@ def main() -> int:
         streams = parity_phase(base, cfg, device)
         print(f"phase 4 f32 kernel == gather greedy streams "
               f"({len(streams)} x {len(streams[0])} tokens)", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    train = train_phase(device)
+    for kern in kernels[2:]:
+        kern["launches"] = train["launches"][kern["name"]]
+    print(f"phase 5 train ({kind} | {ident}): vocab 32000, d_model 1024, "
+          f"8 layers, 16 heads, seq 8192, batch 2, bf16/f32, flash+remat: "
+          f"losses={train['losses']} step_ms={train['step_ms']} "
+          f"mean_step_ms={train['mean_step_ms']:.1f} "
+          f"tokens_per_s={train['tokens_per_s']:.1f} "
+          f"mfu={train['mfu']:.4f} peak_gb={train['peak_gb']:.2f} "
+          f"grad_norm={train['grad_norm']:.4f} "
+          f"launches={train['launches']}", flush=True)
+    torch.cuda.empty_cache()
+    par = train_parity_phase(device)
+    print(f"phase 6 f32 flash vs dense train step: loss {par['loss']} "
+          f"grad_norm {par['grad_norm']} max grad err "
+          f"{par['grad_err']:.2e} max param err {par['param_err']:.2e}",
+          flush=True)
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(ident)
     print(json.dumps({"kernels": kernels}))

@@ -26,6 +26,7 @@ from kubeflow_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
 )
+from kubeflow_tpu_torch.utils.device import resolve_device
 
 
 def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -95,6 +96,16 @@ def to_module(config: TransformerConfig, params: Mapping[str, Any], *,
     model = model.to(device).eval()
     model.requires_grad_(False)
     return model
+
+
+def to_trainable(config: TransformerConfig, params: Mapping[str, Any], *,
+                 device=None, return_hidden: bool = False) -> Transformer:
+    """A loaded port ``Transformer`` on ``device`` (CUDA unless ``"cpu"``
+    is asked for), left trainable: every parameter requires a gradient
+    and the module is in train mode."""
+    model = Transformer(config, return_hidden=return_hidden)
+    load_params(model, params)
+    return model.to(resolve_device(device)).train()
 
 
 def random_params(config: TransformerConfig, seed: int, *,

@@ -13,8 +13,17 @@ The bf16 rounding points are the reference's: projections are
 ``x @ w.to(dtype)``; rope runs in the activation dtype; attention scores
 come from an einsum in the activation dtype and are then widened to f32;
 probabilities are cast back before the value product; RMSNorm runs in
-f32. (Compute-dtype copies of the f32 weights are made once and reused,
-which rounds exactly as casting on every call would.)
+f32. Where no gradient is wanted, compute-dtype copies of the f32
+weights are made once and reused (rounding exactly as casting on every
+call would); under autograd the cast stays in the graph, so gradients
+reach the f32 parameters as they do through JAX's ``w.astype(dtype)``.
+
+Training (no cache): ``attention_impl="flash"`` runs the CUDA flash
+kernels through :func:`~kubeflow_tpu_torch.ops.attention.flash_attention`
+(their plain versions on CPU tensors); ``"auto"`` is flash on CUDA and
+dense elsewhere, as the reference picks flash on the TPU and dense
+elsewhere. ``remat=True`` recomputes each block in the backward
+(``torch.utils.checkpoint``, the reference's ``nn.remat(Block)``).
 
 Decode mode (a :class:`PagedKVCache` passed to :meth:`Transformer.forward`)
 is the PAGED cache of ``_paged_decode_attend``: a pool of ``kv_pages``
@@ -36,7 +45,7 @@ functional cache update, without the copy).
   exact attention math.
 
 Not yet ported (later slices, see ROADMAP.md): the dense decode cache,
-MoE, and the flash/blockwise/ring/ulysses attention cores.
+MoE, and the blockwise/ring/ulysses attention cores.
 """
 
 from __future__ import annotations
@@ -47,9 +56,11 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.ops.attention import (
     NEG_INF,
+    flash_attention,
     gqa_repeat,
     reference_attention,
 )
@@ -81,8 +92,9 @@ class TransformerConfig:
     """The reference's fields, one for one, so exports parse unchanged.
 
     The tile knobs (``attention_block_*``, ``paged_head_block``) are TPU
-    tuning and drive nothing here; ``seq_axis``/``rules``/``remat``/
-    ``scan_layers`` are accepted for the same reason. ``ragged_decode``
+    tuning and drive nothing here; ``seq_axis``/``rules``/
+    ``scan_layers`` are accepted for the same reason. ``remat`` recomputes
+    each block in the backward of a training forward. ``ragged_decode``
     only selects between dense-cache write paths; the paged cache takes
     per-row positions for every ``S``.
     """
@@ -178,9 +190,12 @@ class PagedKVCache:
 
 
 def _compute(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``w.to(dtype)``, made once per weight version and reused."""
+    """``w.to(dtype)``: in the autograd graph when a gradient is wanted,
+    else made once per weight version and reused."""
     if w.dtype == dtype:
         return w
+    if torch.is_grad_enabled() and w.requires_grad:
+        return w.to(dtype)
     hit = getattr(w, "_kftpu_compute", None)
     if (hit is not None and hit[0] == w._version and hit[1] == dtype
             and hit[2].device == w.device):
@@ -266,12 +281,18 @@ class Attention(nn.Module):
         if kv is not None:
             out = self._paged_decode_attend(q, k, v, kv, step)
         else:
-            if c.attention_impl not in ("dense", "auto"):
-                raise _not_ported(f"attention_impl={c.attention_impl!r}")
+            impl = c.attention_impl
+            if impl == "auto":
+                impl = "flash" if x.device.type == "cuda" else "dense"
+            if impl not in ("dense", "flash"):
+                raise _not_ported(f"attention_impl={impl!r}")
             q = apply_rope(q, sin, cos)
             k = apply_rope(k, sin, cos)
             k, v = gqa_repeat(q, k, v)
-            out = reference_attention(q, k, v, causal=c.causal)
+            if impl == "flash":
+                out = flash_attention(q, k, v, c.causal)
+            else:
+                out = reference_attention(q, k, v, causal=c.causal)
         B, S = out.shape[:2]
         wo = _compute(self.o_proj, c.dtype)
         return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
@@ -404,8 +425,12 @@ class Transformer(nn.Module):
         x = embed[tokens.long()]
         if cache is None:
             sin, cos = self._tables(S, dev)
+            remat = c.remat and torch.is_grad_enabled()
             for blk in self.blocks:
-                x = blk(x, sin, cos)
+                if remat:
+                    x = checkpoint(blk, x, sin, cos, use_reentrant=False)
+                else:
+                    x = blk(x, sin, cos)
         else:
             step = self._decode_step(cache, S, dev)
             for i, blk in enumerate(self.blocks):

@@ -1,0 +1,284 @@
+"""Flash attention kernels: the forward (out and lse), dQ and dK/dV passes.
+
+Counterpart of the three Pallas kernels of
+``kubeflow_tpu/ops/attention.py`` (``_flash_fwd_kernel``,
+``_flash_bwd_dq_kernel``, ``_flash_bwd_dkv_kernel``). The CUDA kernels
+live in ``csrc/flash_attention.cu``; its source note says what bounds
+them and how they are laid out. The autograd function that strings them
+together is ``ops/attention.py:flash_attention``.
+
+- :func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv` — the
+  wrappers. A CUDA tensor launches the kernel (or raises); a CPU tensor
+  takes the plain version. No fallback in between.
+- ``*_plain`` — the plain PyTorch versions: the same arithmetic on
+  whole (S, S) score matrices. Scores come from q pre-scaled in f32;
+  masked scores are ``NEG_INF`` (finite); the forward's online softmax
+  steps over the kernel's key tiles and rounds P to the V dtype before
+  P·V; the backward recomputes ``P = exp(s - lse)`` and keeps dS in
+  f32.
+
+Tensors are ``(B, S, H, D)`` (K and V already GQA-repeated, as at the
+model's call site); ``lse`` and ``delta`` are ``(B, H, S)`` f32;
+``kv_len`` is an optional ``(B,)`` int32 valid length per batch row.
+
+``launches`` counts kernel launches by kernel name (never plain calls).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from kubeflow_tpu_torch.ops.attention import NEG_INF
+
+launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+HEAD_DIMS = (64, 128)   # the head dims the CUDA kernels are built for
+BLOCK_K = 64            # the forward kernel's key tile (kBK in csrc)
+
+
+def _scale(q: torch.Tensor, sm_scale: Optional[float]) -> float:
+    return sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Where the sums run: f32, or f64 for f64 inputs (the plain path's
+    ``gradcheck``)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    return t.to(_acc_dtype(t.dtype))
+
+
+def _check(q, k, v, *extra, kv_len=None) -> None:
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, S, H, D), got {tuple(q.shape)}")
+    for name, t in (("k", k), ("v", v)) + tuple(
+            (f"input {i}", t) for i, t in enumerate(extra)):
+        if t.shape != q.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != q shape "
+                             f"{tuple(q.shape)} (repeat GQA heads first)")
+        if t.dtype != q.dtype:
+            raise TypeError("q, k, v and dO must share one dtype")
+    if q.dtype not in (torch.float32, torch.bfloat16, torch.float64):
+        raise TypeError(f"dtype {q.dtype} not supported (f32, bf16; f64 "
+                        "on the CPU)")
+    if kv_len is not None and kv_len.shape != (q.shape[0],):
+        raise ValueError(f"kv_len must be ({q.shape[0]},)")
+    devs = {t.device for t in (q, k, v) + tuple(extra)}
+    if kv_len is not None:
+        devs.add(kv_len.device)
+    if len(devs) != 1:
+        raise ValueError(f"all inputs must be on one device, got {devs}")
+
+
+def flash_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``delta = Σ_d dO·O`` per row, ``(B, H, S)`` in f32 (f64 for f64
+    inputs): the plain op the backward passes read beside ``lse``."""
+    acc = _acc_dtype(out.dtype)
+    return (g.to(acc) * out.to(acc)).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def _scores(q, k, causal: bool, scale: float, kv_len):
+    """Masked f32 scores (B, H, S, T) from q pre-scaled in f32."""
+    s = torch.einsum("bshd,bthd->bhst", _wide(q) * scale, _wide(k))
+    S, T = q.shape[1], k.shape[1]
+    pos = torch.arange(T, device=q.device)
+    if causal:
+        live = pos[None, :] <= torch.arange(S, device=q.device)[:, None]
+        s = s.masked_fill(~live[None, None], NEG_INF)
+    if kv_len is not None:
+        valid = pos[None, :] < kv_len.long()[:, None]
+        s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    return s
+
+
+def flash_fwd_plain(q, k, v, *, causal: bool = True,
+                    sm_scale: Optional[float] = None, kv_len=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`flash_fwd` (see the module docstring).
+
+    The online softmax runs over key tiles of ``BLOCK_K`` as the kernel
+    (and the Pallas kernel) runs it, so P is rounded to the V dtype at
+    the same running max and a bf16 result can be held to the kernel
+    within f32 summation order."""
+    s = _scores(q, k, causal, _scale(q, sm_scale), kv_len)
+    B, H, S, T = s.shape
+    m = torch.full((B, H, S, 1), NEG_INF, dtype=s.dtype, device=s.device)
+    den = torch.zeros_like(m)
+    acc = torch.zeros((B, H, S, q.shape[-1]), dtype=s.dtype, device=s.device)
+    for t0 in range(0, T, BLOCK_K):
+        st = s[..., t0:t0 + BLOCK_K]
+        m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        p = torch.exp(st - m_new)
+        alpha = torch.exp(m - m_new)
+        den = den * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhst,bthd->bhsd", _wide(p.to(v.dtype)),
+            _wide(v[:, t0:t0 + BLOCK_K]))
+        m = m_new
+    den = den.clamp_min(1e-30)
+    out = (acc / den).transpose(1, 2).to(q.dtype)
+    return out, (m + torch.log(den))[..., 0]
+
+
+def _grad_parts(q, k, v, g, lse, delta, causal, scale, kv_len):
+    s = _scores(q, k, causal, scale, kv_len)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bshd,bthd->bhst", _wide(g), _wide(v))
+    return p, p * (dp - delta[..., None])
+
+
+def flash_bwd_dq_plain(q, k, v, g, lse, delta, *, causal: bool = True,
+                       sm_scale: Optional[float] = None, kv_len=None
+                       ) -> torch.Tensor:
+    """Plain version of :func:`flash_bwd_dq`."""
+    scale = _scale(q, sm_scale)
+    _, ds = _grad_parts(q, k, v, g, lse, delta, causal, scale, kv_len)
+    dq = torch.einsum("bhst,bthd->bshd", ds, _wide(k)) * scale
+    return dq.to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, g, lse, delta, *, causal: bool = True,
+                        sm_scale: Optional[float] = None, kv_len=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`flash_bwd_dkv`."""
+    scale = _scale(q, sm_scale)
+    p, ds = _grad_parts(q, k, v, g, lse, delta, causal, scale, kv_len)
+    dv = torch.einsum("bhst,bshd->bthd", p, _wide(g))
+    dk = torch.einsum("bhst,bshd->bthd", ds, _wide(q) * scale)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# -- the CUDA kernels --------------------------------------------------------
+
+
+def _lib():
+    from kubeflow_tpu_torch.ops import _build
+
+    lib = _build.load("flash_attention")
+    if lib.kftpu_flash_fwd.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.kftpu_flash_fwd.argtypes = [p] * 7 + [i] * 4 + [f, i, i, p]
+        lib.kftpu_flash_bwd_dq.argtypes = [p] * 9 + [i] * 4 + [f, i, i, p]
+        lib.kftpu_flash_bwd_dkv.argtypes = [p] * 10 + [i] * 4 + [f, i, i, p]
+        for fn in (lib.kftpu_flash_fwd, lib.kftpu_flash_bwd_dq,
+                   lib.kftpu_flash_bwd_dkv):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _cuda_args(q, tensors, kv_len):
+    """Check what the kernels take; returns (strides array, kv_len
+    pointer, dims) for the launch."""
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B, S, H, D = q.shape
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dtype {q.dtype} not supported by the CUDA "
+                        "kernels (f32, bf16)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not supported by the CUDA kernels "
+                         f"(built for {HEAD_DIMS})")
+    for t in tensors:
+        if t.stride(-1) != 1:
+            raise ValueError("the head dim of q/k/v/dO must be contiguous")
+    strides = (ctypes.c_longlong * (3 * len(tensors)))(
+        *[st for t in tensors for st in (t.stride(0), t.stride(1),
+                                         t.stride(2))])
+    if kv_len is not None:
+        if kv_len.dtype != torch.int32 or not kv_len.is_contiguous():
+            raise TypeError("kv_len must be a contiguous int32 tensor")
+        len_ptr = kv_len.data_ptr()
+    else:
+        len_ptr = None
+    return strides, len_ptr, (B, H, S, D)
+
+
+def _launch(name: str, fn, *args) -> None:
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    launches[name] += 1
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def flash_fwd(q, k, v, *, causal: bool = True,
+              sm_scale: Optional[float] = None, kv_len=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash forward: ``(out, lse)``, out ``(B, S, H, D)`` in q's dtype,
+    lse ``(B, H, S)`` f32."""
+    _check(q, k, v, kv_len=kv_len)
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, causal=causal, sm_scale=sm_scale,
+                               kv_len=kv_len)
+    strides, len_ptr, (B, H, S, D) = _cuda_args(q, (q, k, v), kv_len)
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        _launch("flash_fwd", lib.kftpu_flash_fwd, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), len_ptr, out.data_ptr(), lse.data_ptr(),
+                strides, B, H, S, D, float(_scale(q, sm_scale)),
+                int(causal), int(q.dtype == torch.bfloat16), _stream(q))
+    return out, lse
+
+
+def _bwd_check(q, k, v, g, lse, delta, kv_len):
+    _check(q, k, v, g, kv_len=kv_len)
+    B, S, H, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        want = _acc_dtype(q.dtype)
+        if t.shape != (B, H, S) or t.dtype != want:
+            raise ValueError(f"{name} must be ({B}, {H}, {S}) {want}")
+        if t.device != q.device:
+            raise ValueError(f"{name} must be on {q.device}")
+        if q.device.type == "cuda" and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def flash_bwd_dq(q, k, v, g, lse, delta, *, causal: bool = True,
+                 sm_scale: Optional[float] = None, kv_len=None
+                 ) -> torch.Tensor:
+    """dQ of flash attention from the forward's ``lse`` and
+    ``delta = Σ_d dO·O`` (both ``(B, H, S)`` f32); ``g`` is dO."""
+    _bwd_check(q, k, v, g, lse, delta, kv_len)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, g, lse, delta, causal=causal,
+                                  sm_scale=sm_scale, kv_len=kv_len)
+    strides, len_ptr, (B, H, S, D) = _cuda_args(q, (q, k, v, g), kv_len)
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        _launch("flash_bwd_dq", lib.kftpu_flash_bwd_dq, q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), len_ptr, dq.data_ptr(), strides, B, H, S,
+                D, float(_scale(q, sm_scale)), int(causal),
+                int(q.dtype == torch.bfloat16), _stream(q))
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal: bool = True,
+                  sm_scale: Optional[float] = None, kv_len=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dK, dV)`` of flash attention; arguments as :func:`flash_bwd_dq`."""
+    _bwd_check(q, k, v, g, lse, delta, kv_len)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal=causal,
+                                   sm_scale=sm_scale, kv_len=kv_len)
+    strides, len_ptr, (B, H, S, D) = _cuda_args(q, (q, k, v, g), kv_len)
+    dk = torch.empty((B, S, H, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, S, H, D), dtype=v.dtype, device=q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        _launch("flash_bwd_dkv", lib.kftpu_flash_bwd_dkv, q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), len_ptr, dk.data_ptr(), dv.data_ptr(),
+                strides, B, H, S, D, float(_scale(q, sm_scale)),
+                int(causal), int(q.dtype == torch.bfloat16), _stream(q))
+    return dk, dv

@@ -16,7 +16,7 @@ its source note says what bounds it and how it is laid out.
   the kernel does. Where the engine's safety contract holds (sentinel
   entries only past a row's causal frontier) it equals the gather core.
 
-``launches`` counts kernel launches (never plain calls).
+``launches`` counts kernel launches by kernel name (never plain calls).
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import torch
 
 from kubeflow_tpu_torch.ops.attention import NEG_INF, gqa_repeat
 
-launches = 0
+launches = {"paged_decode_attention": 0}
 _MAX_SMEM = 48 * 1024  # default dynamic shared memory, no opt-in needed
 _SPLIT_TOKENS = 128    # keys per split block (scripts/port_paged_sweep.py)
 
@@ -172,6 +172,5 @@ def paged_decode_attention(q, k_pages, v_pages, pages, positions, *,
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"cudaError {rc}")
-    global launches
-    launches += 1
+    launches["paged_decode_attention"] += 1
     return out

@@ -16,7 +16,7 @@ it from per-row keys outside the kernel): callers draw it per row from
 ``(seed, step)`` (:func:`gumbel_noise`), so a row's stream never depends
 on its co-tenants, and tests hand both packages the same noise.
 
-``launches`` counts kernel launches (never plain calls).
+``launches`` counts kernel launches by kernel name (never plain calls).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ _SEARCH_ITERS = 32
 _INT_MIN = -(2 ** 31)
 _INT_MAX = 2 ** 31 - 1
 
-launches = 0
+launches = {"fused_sample": 0}
 
 
 def _ordered_bits(x: torch.Tensor) -> torch.Tensor:
@@ -189,6 +189,5 @@ def fused_sample(logits, noise, temperature, top_k, top_p):
     if rc != 0:
         raise RuntimeError(f"fused_sample kernel launch failed: "
                            f"cudaError {rc}")
-    global launches
-    launches += 1
+    launches["fused_sample"] += 1
     return out

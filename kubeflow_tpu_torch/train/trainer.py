@@ -1,0 +1,229 @@
+"""LM training: optimizer, train state, next-token losses, the train step.
+
+PyTorch port of the LM half of ``kubeflow_tpu/train/trainer.py``:
+``make_optimizer`` (:73-92), ``next_token_loss`` (:118-123),
+``chunked_next_token_loss`` (:132-172) and ``make_lm_train_step``
+(:175-236). The step runs eagerly on the device of the state's
+parameters; there is no mesh yet (data parallelism is ROADMAP Queue A).
+
+The optimizer is optax's chain written in plain tensor ops, with optax's
+numerics:
+
+- ``clip_by_global_norm``: updates become ``(g / norm) * max_norm`` only
+  when ``norm >= max_norm`` (no ``+1e-6`` as in
+  ``torch.nn.utils.clip_grad_norm_``);
+- ``adamw``: ``eps`` outside the square root, bias correction at the
+  incremented count, weight decay on every parameter (optax's default
+  mask: the norm scales and the embedding too);
+- ``warmup_cosine_decay_schedule`` from 0, read at the update count
+  BEFORE it is incremented, so the first update has learning rate 0.
+
+Parameters, moments and the update are kept in place (the reference
+returns new arrays).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """``clip_by_global_norm`` then ``adamw`` on a warmup-cosine schedule
+    (the reference's ``make_optimizer``)."""
+
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    decay_steps: int = 10_000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_clip: float = 1.0
+    eps: float = 1e-8
+
+    def schedule(self, count: int) -> float:
+        """``optax.warmup_cosine_decay_schedule(0, lr, warmup, decay)``
+        at update count ``count``."""
+        peak, warm = self.learning_rate, self.warmup_steps
+        if count < warm:
+            return peak * (count / warm)
+        span = self.decay_steps - warm
+        t = min(count - warm, span)
+        return peak * 0.5 * (1.0 + math.cos(math.pi * t / span))
+
+    def init(self, params: Sequence[torch.Tensor]) -> Dict[str, Any]:
+        return {"count": 0,
+                "mu": [torch.zeros_like(p) for p in params],
+                "nu": [torch.zeros_like(p) for p in params]}
+
+    @torch.no_grad()
+    def apply(self, params: Sequence[torch.Tensor],
+              grads: Sequence[torch.Tensor], state: Dict[str, Any],
+              grad_norm: Optional[torch.Tensor] = None) -> None:
+        """One update of ``params`` in place from ``grads``; advances
+        ``state``. ``grad_norm`` is the global norm of ``grads`` when
+        the caller has it."""
+        if grad_norm is None:
+            grad_norm = global_norm(grads)
+        keep = grad_norm < self.grad_clip
+        lr = self.schedule(state["count"])
+        count = state["count"] + 1
+        c1 = 1.0 - self.b1 ** count
+        c2 = 1.0 - self.b2 ** count
+        for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
+            g = torch.where(keep, g, (g / grad_norm) * self.grad_clip)
+            mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+            nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
+            upd = (mu / c1) / ((nu / c2).sqrt() + self.eps)
+            upd.add_(p, alpha=self.weight_decay)
+            p.add_(upd, alpha=-lr)
+        state["count"] = count
+
+
+def make_optimizer(learning_rate: float = 3e-4, *, warmup_steps: int = 100,
+                   decay_steps: int = 10_000, weight_decay: float = 0.1,
+                   b1: float = 0.9, b2: float = 0.95,
+                   grad_clip: float = 1.0) -> Optimizer:
+    """The reference's ``make_optimizer``: same arguments, same
+    defaults, ``decay_steps`` raised to at least ``warmup_steps + 1``."""
+    return Optimizer(learning_rate=learning_rate, warmup_steps=warmup_steps,
+                     decay_steps=max(decay_steps, warmup_steps + 1),
+                     weight_decay=weight_decay, b1=b1, b2=b2,
+                     grad_clip=grad_clip)
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``optax.global_norm``: sqrt of the sum of squares of every leaf."""
+    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The module, the optimizer and its state, and the step count."""
+
+    module: nn.Module
+    tx: Optimizer
+    opt_state: Dict[str, Any]
+    step: int = 0
+
+    @classmethod
+    def create(cls, module: nn.Module, tx: Optimizer) -> "TrainState":
+        params = [p for p in module.parameters() if p.requires_grad]
+        return cls(module=module, tx=tx, opt_state=tx.init(params))
+
+    @property
+    def params(self) -> List[torch.Tensor]:
+        return [p for p in self.module.parameters() if p.requires_grad]
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.module.parameters()).device
+
+    def apply_gradients(self, grads: Sequence[torch.Tensor],
+                        grad_norm: Optional[torch.Tensor] = None
+                        ) -> "TrainState":
+        self.tx.apply(self.params, grads, self.opt_state, grad_norm)
+        self.step += 1
+        return self
+
+
+def create_train_state(config, params: Mapping[str, Any], tx: Optimizer, *,
+                       device=None, return_hidden: bool = False
+                       ) -> TrainState:
+    """A :class:`TrainState` over a trainable port ``Transformer`` loaded
+    from a JAX-layout param tree, on ``device`` (CUDA unless ``"cpu"``
+    is asked for)."""
+    from kubeflow_tpu_torch.models import convert
+
+    model = convert.to_trainable(config, params, device=device,
+                                 return_hidden=return_hidden)
+    return TrainState.create(model, tx)
+
+
+def next_token_loss(logits: torch.Tensor,
+                    tokens: torch.Tensor) -> torch.Tensor:
+    """Causal LM loss: predict ``tokens[:, 1:]`` from ``logits[:, :-1]``."""
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    tgt = tokens[:, 1:].long()
+    return -torch.gather(logp, -1, tgt[..., None])[..., 0].mean()
+
+
+def _chunk_ll(h: torch.Tensor, embed: torch.Tensor, tgt: torch.Tensor,
+              softcap: float) -> torch.Tensor:
+    logits = (h @ embed.to(h.dtype).t()).float()
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    logp = torch.log_softmax(logits, dim=-1)
+    return torch.gather(logp, -1, tgt[..., None]).sum()
+
+
+def chunked_next_token_loss(hidden: torch.Tensor, embed: torch.Tensor,
+                            tokens: torch.Tensor, *, chunk: int = 4096,
+                            softcap: float = 0.0) -> torch.Tensor:
+    """:func:`next_token_loss` from HIDDEN states, with the vocab
+    projection done per ``chunk`` positions and recomputed in the
+    backward (``torch.utils.checkpoint``), so only ``(B, chunk, V)``
+    logits live at once. The head's math: tied-embedding product in
+    the activation dtype, f32 softmax, optional softcap. The last chunk
+    is short where the reference pads it and masks the padding out;
+    the sum is the same."""
+    B, S, _ = hidden.shape
+    n = S - 1
+    tgt = tokens[:, 1:].long()
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, n, chunk):
+        c1 = min(c0 + chunk, n)
+        total = total + checkpoint(_chunk_ll, hidden[:, c0:c1], embed,
+                                   tgt[:, c0:c1], softcap,
+                                   use_reentrant=False)
+    return -total / (B * n)
+
+
+def make_lm_train_step(*, moe_aux_weight: float = 0.01,
+                       loss_chunk: Optional[int] = None,
+                       logits_softcap: float = 0.0):
+    """The LM train step: ``step(state, tokens) -> (state, metrics)``.
+
+    ``metrics`` holds ``loss`` (the LM loss, a 0-dim tensor on the
+    device), ``grad_norm`` (the global norm of the raw gradients, before
+    clipping) and ``step`` (the count after this update). ``tokens`` go
+    to the device of the state's parameters.
+
+    ``loss_chunk``: long-context mode. The module must return
+    post-final-norm hidden states (``Transformer(config,
+    return_hidden=True)``) and the loss projects to the vocab per chunk
+    (:func:`chunked_next_token_loss`); pass the model's
+    ``logits_softcap`` here, as the hidden-states model never applies
+    it. ``moe_aux_weight`` is accepted for the reference's signature:
+    the port has no MoE yet, so there is no auxiliary loss.
+    """
+    del moe_aux_weight
+
+    def step(state: TrainState, tokens) -> Tuple[TrainState, Dict[str, Any]]:
+        model = state.module
+        tokens = torch.as_tensor(tokens, device=state.device)
+        if loss_chunk and not getattr(model, "return_hidden", False):
+            raise ValueError("loss_chunk needs a model that returns hidden "
+                             "states (return_hidden=True)")
+        params = state.params
+        out = model(tokens)
+        if loss_chunk:
+            embed = dict(model.named_parameters())["token_embed"]
+            loss = chunked_next_token_loss(out, embed, tokens,
+                                           chunk=loss_chunk,
+                                           softcap=logits_softcap)
+        else:
+            loss = next_token_loss(out, tokens)
+        grads = torch.autograd.grad(loss, params)
+        grad_norm = global_norm(grads)
+        state.apply_gradients(grads, grad_norm)
+        return state, {"loss": loss.detach(), "grad_norm": grad_norm,
+                       "step": state.step}
+
+    return step

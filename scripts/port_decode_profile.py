@@ -102,8 +102,8 @@ def main() -> int:
            "device_idle_share": max(0.0, 1 - busy / (wall * 1e3)),
            "port_kernels_ms": port,
            "port_kernel_launches": {
-               "paged_decode_attention": ops.paged_attention.launches,
-               "fused_sample": ops.sampling.launches},
+               k: n for k, n in ops.launch_counts().items()
+               if k in ("paged_decode_attention", "fused_sample")},
            "top_kernels_ms": top}
     eng.close()
     print(json.dumps(out, indent=1))

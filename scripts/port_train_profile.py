@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Where the time goes in one train step of the PyTorch port, on one GPU.
+
+Builds the long-context training configuration of ``chip_smoke.py``
+(``bench/suite.py:bench_longcontext``: vocab 32000, d_model 1024, 8
+layers, 16 heads, seq 8192, batch 2, bf16 compute over f32 params,
+flash attention with remat; random weights from a numpy seed), takes two
+warm-up steps of ``make_lm_train_step``, and profiles the next step with
+``torch.profiler``. Prints, and writes to
+``chiprun_out/port_train_profile.json``:
+
+- step wall time, tokens/s and MFU (``bench_longcontext``'s flop count
+  over 989 TFLOP/s, bf16 dense);
+- device busy time (sum of kernel time) and the idle share of the wall;
+- device time by class (the three flash kernels, GEMMs, everything
+  else) and by kernel name (top 15), and the flash kernels' launches.
+
+Usage: ``python3 scripts/port_train_profile.py`` (needs CUDA).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(HERE))
+
+FLASH = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+GEMM = ("gemm", "cutlass", "xmma", "nvjet", "sm90_", "cublas")
+
+
+def kernel_class(name: str) -> str:
+    if any(k in name for k in FLASH):
+        return "flash"
+    if any(k in name.lower() for k in GEMM):
+        return "gemm"
+    return "other"
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("needs CUDA", file=sys.stderr)
+        return 1
+    from chip_smoke import BF16_FLOPS, TRAIN_BATCH, train_flops, train_setup
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.train import make_lm_train_step
+
+    ident = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+    cfg, state, tokens = train_setup(torch.device("cuda", 0))
+    S = cfg.max_seq_len
+    step = make_lm_train_step()
+    for _ in range(2):                          # warm-up
+        state, m = step(state, tokens)
+    float(m["loss"])
+    ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, tokens)
+        float(m["loss"])
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for evt in prof.key_averages():
+        dt = getattr(evt, "device_time_total", None)
+        if dt is None:
+            dt = getattr(evt, "cuda_time_total", 0)
+        if dt and evt.device_type.name == "CUDA":
+            by_name[evt.key] = by_name.get(evt.key, 0.0) + dt / 1e3  # ms
+    busy = sum(by_name.values())
+    by_class = {}
+    for name, ms in by_name.items():
+        cls = kernel_class(name)
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+    n_params = sum(p.numel() for p in state.params)
+    out = {"device": ident, "step_wall_ms": wall * 1e3,
+           "tokens_per_s": TRAIN_BATCH * S / wall,
+           "mfu": train_flops(cfg, n_params) / wall / BF16_FLOPS,
+           "loss": float(m["loss"]),
+           "device_busy_ms": busy,
+           "device_idle_share": max(0.0, 1 - busy / (wall * 1e3)),
+           "device_ms_by_class": by_class,
+           "flash_kernels_ms": {k: sum(v for n, v in by_name.items()
+                                       if k in n) for k in FLASH},
+           "flash_launches": {k: n for k, n in ops.launch_counts().items()
+                              if k.startswith("flash")},
+           "top_kernels_ms": sorted(by_name.items(),
+                                    key=lambda kv: -kv[1])[:15]}
+    print(json.dumps(out, indent=1))
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open("chiprun_out/port_train_profile.json", "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from kubeflow_tpu_torch.ops import attention as att
+from kubeflow_tpu_torch.ops import flash_attention as fa
 from kubeflow_tpu_torch.ops import paged_attention as pa
 from kubeflow_tpu_torch.ops import sampling as sm
 
@@ -54,11 +56,11 @@ def test_paged_kernel_matches_plain(cuda, QH, KH, dtype, atol):
     q, k, v, pages, positions = (torch.from_numpy(a).to(cuda)
                                  for a in _paged_inputs(QH, KH))
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-    before = pa.launches
+    before = pa.launches["paged_decode_attention"]
     got = pa.paged_decode_attention(q, k, v, pages, positions)
     torch.cuda.synchronize()
     want = pa.paged_decode_attention_plain(q, k, v, pages, positions)
-    assert pa.launches == before + 1
+    assert pa.launches["paged_decode_attention"] == before + 1
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
     assert (got[-1] == 0).all()
 
@@ -72,10 +74,10 @@ def test_sampler_kernel_matches_plain(cuda):
             torch.tensor(TOPP, device=cuda))
     for step in range(3):
         g = sm.gumbel_noise(range(8), [step] * 8, 32000, device=cuda)
-        before = sm.launches
+        before = sm.launches["fused_sample"]
         got = sm.fused_sample(logits, g, *args)
         torch.cuda.synchronize()
-        assert sm.launches == before + 1
+        assert sm.launches["fused_sample"] == before + 1
         assert torch.equal(got, sm.fused_sample_plain(logits, g, *args))
 
 
@@ -97,7 +99,8 @@ def test_engine_kernel_and_gather_streams_match(cuda):
                            paged_attention_impl=impl, sampler_impl="fused",
                            kv_page_size=8, prefill_chunk_tokens=8,
                            autostart=False, device=cuda)
-        paged0, sampler0 = pa.launches, sm.launches
+        paged0 = pa.launches["paged_decode_attention"]
+        sampler0 = sm.launches["fused_sample"]
         reqs = [eng.submit(p, max_new=12) for p in prompts]
         sampled = eng.submit([1, 2, 3], max_new=6, temperature=0.9,
                              top_k=20, top_p=0.9, seed=3)
@@ -105,8 +108,94 @@ def test_engine_kernel_and_gather_streams_match(cuda):
             eng.run_once(timeout=0.01)
         streams[impl] = [r.result() for r in reqs]
         assert len(sampled.result()) == 6
-        assert (pa.launches > paged0) == (impl == "kernel")
-        assert sm.launches > sampler0
+        assert ((pa.launches["paged_decode_attention"] > paged0)
+                == (impl == "kernel"))
+        assert sm.launches["fused_sample"] > sampler0
         eng.close()
         eng._pool.check_idle()
     assert streams["kernel"] == streams["gather"]
+
+
+def _flash_inputs(cuda, S, D, dtype, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((2, S, 4, D))
+                                   .astype(np.float32)).to(cuda, dtype)
+                  for _ in range(4))
+    return q, k, v, g
+
+
+@pytest.mark.parametrize("S,D", [(256, 64), (200, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain(cuda, S, D, causal, masked, dtype):
+    """Forward (out, lse), dQ and dK/dV against their plain versions on
+    the same inputs: lse within 1e-5; f32 within 1e-5 (out) and 1e-4
+    (gradients); bf16 within a norm-relative error of 4e-4, the limit of
+    ``chip_smoke.py`` (one bf16 fault such as P left unrounded reads
+    ~2e-3). ``kv_len`` holds a zero row."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, g = _flash_inputs(cuda, S, D, dtype, seed=S + D)
+    lens = (torch.tensor([0, S - 37], dtype=torch.int32, device=cuda)
+            if masked else None)
+    kw = dict(causal=causal, kv_len=lens)
+    before = dict(fa.launches)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = fa.flash_delta(g, out)
+    dq = fa.flash_bwd_dq(q, k, v, g, lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert all(fa.launches[n] == before[n] + 1 for n in before)
+    want = (*fa.flash_fwd_plain(q, k, v, **kw),
+            fa.flash_bwd_dq_plain(q, k, v, g, lse, delta, **kw),
+            *fa.flash_bwd_dkv_plain(q, k, v, g, lse, delta, **kw))
+    atols = (1e-5, 1e-5, 1e-4, 1e-4, 1e-4)
+    for name, got, ref, atol in zip(("out", "lse", "dq", "dk", "dv"),
+                                    (out, lse, dq, dk, dv), want, atols):
+        got, ref = got.float(), ref.float()
+        assert torch.isfinite(got).all(), name
+        if dtype == torch.bfloat16 and name != "lse":   # lse is f32
+            rel = ((got - ref).norm() / ref.norm()).item()
+            assert rel <= 4e-4, f"{name}: norm err {rel} > 4e-4"
+        else:
+            err = (got - ref).abs().max().item()
+            assert err <= atol, f"{name}: {err} > {atol}"
+
+
+def test_flash_attention_grads_match_dense(cuda):
+    """The autograd function on the card against autodiff through the
+    dense oracle (f32, TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, g = _flash_inputs(cuda, 300, 64, torch.float32, seed=9)
+    grads = []
+    for fn in (att.flash_attention, att.reference_attention):
+        x = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        (fn(*x) * g).sum().backward()
+        grads.append([t.grad for t in x])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+def test_flash_kernels_read_strides_and_refuse_what_they_lack(cuda):
+    """q/k/v/dO read through their (B, S, H, D) strides give the
+    contiguous result bit for bit; unsupported head dims and dtypes
+    raise instead of launching."""
+    q, k, v, g = _flash_inputs(cuda, 130, 64, torch.bfloat16, seed=11)
+    strided = [t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in (q, k, v, g)]
+    assert not strided[0].is_contiguous()
+    got = [fa.flash_fwd(*strided[:3])]
+    want = [fa.flash_fwd(q, k, v)]
+    for res, (a, b, c, d) in ((got, strided), (want, (q, k, v, g))):
+        out, lse = res[0]
+        delta = fa.flash_delta(d, out)
+        res += [fa.flash_bwd_dq(a, b, c, d, lse, delta),
+                *fa.flash_bwd_dkv(a, b, c, d, lse, delta)]
+    torch.cuda.synchronize()
+    for a, b in zip([*got[0], *got[1:]], [*want[0], *want[1:]]):
+        assert torch.equal(a, b)
+    q32, k32, v32, _ = _flash_inputs(cuda, 64, 32, torch.float32, seed=12)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_fwd(q32, k32, v32)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_fwd(q.half(), k.half(), v.half())

@@ -1,0 +1,176 @@
+"""Port flash attention (plain path) against the JAX Pallas kernels.
+
+The same numpy-seeded q/k/v go through ``kubeflow_tpu.ops.attention``'s
+``flash_attention`` (its Pallas kernels in interpret mode, as
+``tests/test_ops.py`` runs them on the CPU) and the port's
+``ops.attention.flash_attention`` on CPU tensors, which takes the plain
+versions of the three kernels. f32 forward (out and lse) within 1e-5,
+gradients within 1e-4 (``tests/test_ops.py``'s own); bf16 gradients at
+that file's ``atol=0.15, rtol=0.1``. The JAX kernels need S to divide
+by their tiles; ragged S is held against ``reference_attention``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kubeflow_tpu.ops import attention as jatt
+from kubeflow_tpu_torch.ops import attention as att
+from kubeflow_tpu_torch.ops import flash_attention as fa
+
+torch.set_num_threads(2)
+BLOCKS = [(16, 16), (32, 16), (16, 32)]
+
+
+def _np_qkv(B=2, S=64, H=4, D=16, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((B, S, H, D)).astype(np.float32)
+                 for _ in range(4))  # q, k, v and a cotangent
+
+
+def _torch(*arrays, dtype=torch.float32, grad=False):
+    return tuple(torch.from_numpy(a).to(dtype).requires_grad_(grad)
+                 for a in arrays)
+
+
+def _jax(*arrays, dtype=jnp.float32):
+    return tuple(jnp.asarray(a, dtype) for a in arrays)
+
+
+def _port_grads(q, k, v, w, *, causal, kv_len=None, dtype=torch.float32):
+    tq, tk, tv = _torch(q, k, v, dtype=dtype, grad=True)
+    out = att.flash_attention(tq, tk, tv, causal, kv_len=kv_len)
+    (out.float() * torch.from_numpy(w)).sum().backward()
+    return out, (tq.grad, tk.grad, tv.grad)
+
+
+def _jax_grads(fn, q, k, v, w, dtype=jnp.float32):
+    jq, jk, jv = _jax(q, k, v, dtype=dtype)
+    return jax.grad(lambda q, k, v: jnp.sum(
+        fn(q, k, v).astype(jnp.float32) * w), argnums=(0, 1, 2))(jq, jk, jv)
+
+
+@pytest.mark.parametrize("bq,bk", BLOCKS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_forward_out_and_lse_match_pallas(causal, bq, bk):
+    q, k, v, _ = _np_qkv()
+    want, want_lse = jatt._flash_fwd(*_jax(q, k, v), causal=causal,
+                                     block_q=bq, block_k=bk, sm_scale=None,
+                                     interpret=True)
+    got, lse = fa.flash_fwd(*_torch(q, k, v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+    B, S, H, _ = q.shape
+    np.testing.assert_allclose(lse.numpy().reshape(B * H, S, 1),
+                               np.asarray(want_lse), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("bq,bk", BLOCKS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_gradients_match_pallas(causal, bq, bk):
+    q, k, v, w = _np_qkv(seed=1)
+    _, got = _port_grads(q, k, v, w, causal=causal)
+    want = _jax_grads(lambda q, k, v: jatt.flash_attention(
+        q, k, v, causal, bq, bk, None, True), q, k, v, w)
+    for g, r, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-4,
+                                   rtol=0, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_kv_len_matches_pallas(causal):
+    """The padding mask in the forward and both backward passes;
+    cotangent zero at padded q rows, as ``tests/test_ops.py`` has it."""
+    q, k, v, w = _np_qkv(seed=2)
+    lens = np.asarray([40, 64], np.int32)
+    w = w * (np.arange(64)[None, :] < lens[:, None])[..., None, None]
+    out, got = _port_grads(q, k, v, w, causal=causal,
+                           kv_len=torch.from_numpy(lens))
+    jl = jnp.asarray(lens)
+    fn = (lambda q, k, v: jatt.flash_attention(q, k, v, causal, 16, 16,
+                                               None, True, jl))
+    ref = np.asarray(jatt.reference_attention(*_jax(q, k, v), causal=causal,
+                                              kv_len=jl))
+    np.testing.assert_allclose(out.detach().numpy()[0, :40], ref[0, :40],
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(out.detach().numpy()[1], ref[1], atol=1e-5,
+                               rtol=0)
+    for g, r, name in zip(got, _jax_grads(fn, q, k, v, w), "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-4,
+                                   rtol=0, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_zero_length_row_averages_v(causal):
+    """A batch row with kv_len = 0 has every key masked: NEG_INF is
+    finite, so it averages V uniformly, as ``reference_attention`` does
+    (with -inf it would be inf - inf = NaN)."""
+    q, k, v, _ = _np_qkv(seed=3)
+    lens = np.asarray([0, 37], np.int32)
+    got, lse = fa.flash_fwd(*_torch(q, k, v), causal=causal,
+                            kv_len=torch.from_numpy(lens))
+    ref = np.asarray(jatt.reference_attention(
+        *_jax(q, k, v), causal=causal, kv_len=jnp.asarray(lens)))
+    assert np.isfinite(got.numpy()).all() and np.isfinite(lse.numpy()).all()
+    np.testing.assert_allclose(got.numpy()[0], np.broadcast_to(
+        v.mean(axis=1, keepdims=True)[0], v.shape[1:]), atol=1e-5)
+    np.testing.assert_allclose(got.numpy()[0], ref[0], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy()[1, :37], ref[1, :37], atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ragged_seq_matches_reference(causal):
+    """Any S: the port masks the ragged edge, where the JAX kernels need
+    S to divide by their tiles (and the JAX model falls back to
+    blockwise). Held against autodiff through ``reference_attention``."""
+    q, k, v, w = _np_qkv(S=45, seed=4)
+    out, got = _port_grads(q, k, v, w, causal=causal)
+    ref = np.asarray(jatt.reference_attention(*_jax(q, k, v), causal=causal))
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=1e-5, rtol=0)
+    want = _jax_grads(lambda q, k, v: jatt.reference_attention(
+        q, k, v, causal=causal), q, k, v, w)
+    for g, r, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-4,
+                                   rtol=0, err_msg=f"d{name}")
+
+
+def test_bf16_gradients_track_pallas():
+    q, k, v, w = _np_qkv(seed=5)
+    out, got = _port_grads(q, k, v, w, causal=True, dtype=torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    want = _jax_grads(lambda q, k, v: jatt.flash_attention(
+        q, k, v, True, 16, 16, None, True), q, k, v, w, dtype=jnp.bfloat16)
+    for g, r, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(r, np.float32), atol=0.15,
+                                   rtol=0.1, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_path_gradcheck_float64(causal):
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 11, 2, 8)))
+               .requires_grad_(True) for _ in range(3))
+    lens = torch.tensor([7, 11], dtype=torch.int32)
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: att.flash_attention(q, k, v, causal, kv_len=lens),
+        (q, k, v))
+
+
+def test_cpu_tensors_count_no_launch_and_checks_raise():
+    q, k, v, g = _torch(*_np_qkv(S=16))
+    before = dict(fa.launches)
+    out, lse = fa.flash_fwd(q, k, v)
+    delta = fa.flash_delta(g, out)
+    fa.flash_bwd_dq(q, k, v, g, lse, delta)
+    fa.flash_bwd_dkv(q, k, v, g, lse, delta)
+    assert fa.launches == before
+    with pytest.raises(ValueError, match="GQA"):
+        fa.flash_fwd(q, k[:, :, :2], v)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_bwd_dq(q, k, v, g, lse[:, :, :8], delta)

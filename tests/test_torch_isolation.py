@@ -73,9 +73,14 @@ def test_entry_points_need_cuda_unless_cpu_is_explicit(tmp_path):
     from kubeflow_tpu_torch.serving import model_store as store
     from kubeflow_tpu_torch.serving.engine import DecodeEngine
     from kubeflow_tpu_torch.serving.server import ModelServer
+    from kubeflow_tpu_torch.train import create_train_state, make_optimizer
 
     cfg = tiny_config()
     params = convert.random_params(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.to_trainable(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_train_state(cfg, params, make_optimizer())
     with pytest.raises(RuntimeError, match="CUDA"):
         DecodeEngine(cfg, params, autostart=False)
     store.export_model(str(tmp_path / "lm"), "transformer", params,
@@ -87,6 +92,8 @@ def test_entry_points_need_cuda_unless_cpu_is_explicit(tmp_path):
     # the explicit CPU opt-in works
     eng = DecodeEngine(cfg, params, autostart=False, device="cpu")
     eng.close()
+    state = create_train_state(cfg, params, make_optimizer(), device="cpu")
+    assert state.device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

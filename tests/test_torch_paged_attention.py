@@ -97,13 +97,13 @@ def test_plain_is_the_gather_core_where_the_contract_holds():
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
-    before = pa.launches
+    before = pa.launches["paged_decode_attention"]
     q, k, v, pages, positions = (torch.from_numpy(a)
                                  for a in _inputs(4, 2))
     got = pa.paged_decode_attention(q, k, v, pages, positions)
     want = pa.paged_decode_attention_plain(q, k, v, pages, positions)
     assert torch.equal(got, want)
-    assert pa.launches == before
+    assert pa.launches["paged_decode_attention"] == before
 
 
 def test_wrapper_checks_inputs():

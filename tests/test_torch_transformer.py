@@ -52,6 +52,29 @@ def test_logits_match_jax(scan_layers):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_logits_match_jax(causal):
+    """``attention_impl="flash"``: the port's flash path (the kernels'
+    plain versions on CPU tensors) against the JAX model's Pallas
+    kernels in interpret mode, full forward."""
+    jc, params, toks = _jax_setup(seed=7, attention_impl="flash",
+                                  causal=causal, max_seq_len=16)
+    toks = np.concatenate([toks, toks[:, :4]], axis=1)   # S = 16
+    want = np.asarray(JaxTransformer(jc).apply({"params": params}, toks))
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    model = convert.to_module(
+        _port_config(jc, attention_impl="flash", causal=causal), tree,
+        device="cpu")
+    assert model.config.attention_impl == "flash"
+    got = model(torch.from_numpy(toks)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    dense = convert.to_module(_port_config(jc, attention_impl="auto",
+                                           causal=causal),
+                              tree, device="cpu")  # "auto": dense on CPU
+    np.testing.assert_allclose(dense(torch.from_numpy(toks)).numpy(), want,
+                               atol=ATOL, rtol=0)
+
+
 def test_softcap_and_return_hidden_match_jax():
     jc, params, toks = _jax_setup(seed=1, logits_softcap=5.0)
     tree = jax.tree_util.tree_map(np.asarray, params)
@@ -183,7 +206,8 @@ def test_unported_configs_raise():
         Transformer(tiny_config(n_experts=4))
     with pytest.raises(NotImplementedError, match="dense decode"):
         init_cache(tiny_config(), 1, device="cpu")
-    model = Transformer(dataclasses.replace(tiny_config(),
-                                            attention_impl="flash"))
-    with pytest.raises(NotImplementedError, match="flash"):
-        model(torch.zeros((1, 4), dtype=torch.int32))
+    for impl in ("blockwise", "ring"):
+        model = Transformer(dataclasses.replace(tiny_config(),
+                                                attention_impl=impl))
+        with pytest.raises(NotImplementedError, match=impl):
+            model(torch.zeros((1, 4), dtype=torch.int32))
