@@ -34,7 +34,24 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
    loss near ln(32000) that falls, and every parameter updated;
 6. one f32 train step (TF32 off) of a 2-layer model at seq 512 with
    flash and with dense attention from the same weights: loss,
-   gradients and updated parameters within 1e-5.
+   gradients and updated parameters within 1e-5;
+7. train ResNet-50 as ``bench/suite.py:bench_resnet50`` runs it with
+   ``KFTPU_RESNET_FUSED_BN=1`` (batch 256 of 224x224 images, bf16
+   compute and BN over f32 params, the space_to_depth stem, SGD 0.1 with
+   momentum 0.9; random weights from a numpy seed) for 5 steps of
+   ``make_image_train_step`` and require both bnconv kernels to have
+   launched 16 times a step, finite losses near ln(1000) that fall, the
+   running statistics moved and every parameter updated; then the same run
+   unfused from the same weights, for the card's fused-vs-unfused rate;
+8. one f32 train step (TF32 off) of a small ResNet fused and unfused
+   from the same weights: loss, gradients and updated parameters within
+   the limits of ``resnet_parity_phase``.
+
+Phase 2 also holds the bnconv forward and dW kernels, and the autograd
+function's four gradients, against their plain versions at the four
+ResNet-50 sites (bf16 and f32) and at ragged shapes: bf16 outputs within
+a norm-relative error of 4e-4, which a bf16 fault in each must exceed,
+f32 within 1e-5; each kernel is timed at every site.
 
 The last three lines of standard output are the ``nvidia-smi`` name and
 power limit, the ``{"kernels": [...]}`` record, and ``{"ok": true, ...}``.
@@ -525,6 +542,187 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4):
     return records
 
 
+# the ResNet-50 sites of the fused BN + ReLU + 1x1 conv at batch 256:
+# (M = pixels, K, N, blocks in the stage); M*K*N is the same at each
+RESNET50_SITES = ((802816, 64, 256, 3), (200704, 128, 512, 4),
+                  (50176, 256, 1024, 6), (12544, 512, 2048, 3))
+# norm-relative limits: bf16 outputs between the kernels' own reading
+# against their plain versions (f32 sums in another order, which can
+# move an output across a bf16 rounding) and the faults of
+# bnconv_faults; f32 outputs differ by summation order only (PERF.md,
+# Findings, gives the readings)
+BNCONV_BF16_LIMIT = 4e-4
+BNCONV_F32_LIMIT = 1e-5
+
+
+def bnconv_inputs(M, K, N, dtype, device, seed):
+    """x, a, b, w and a cotangent dz: a and b as a trained BN leaves
+    them (scales near one, shifts that zero ~40% of y), w at 1x1-conv
+    init scale."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((M, K), generator=gen).to(device, dtype)
+    a = (0.5 + torch.rand((K,), generator=gen)).to(device)
+    b = (0.3 * torch.randn((K,), generator=gen) - 0.1).to(device)
+    w = (torch.randn((K, N), generator=gen) * K ** -0.5).to(device, dtype)
+    dz = torch.randn((M, N), generator=gen).to(device, dtype)
+    return x, a, b, w, dz
+
+
+def bnconv_faults(x, a, b, w, dz, act_dtype):
+    """The plain arithmetic with one bf16 fault in each output, which
+    the bf16 limit must reject: out and dW from y left unrounded (f32
+    products of the unrounded activation); dx from dy rounded to bf16
+    before the mask, as autodiff through the unfused ops rounds it."""
+    import torch
+
+    del act_dtype   # the fault skips its rounding
+    xhat = x.float() * a + b
+    y32 = torch.clamp_min(xhat, 0.0)
+    out = (y32 @ w.float()).to(x.dtype)
+    dw = (y32.t() @ dz.float()).to(w.dtype)
+    dy = (dz.float() @ w.float().t()).to(x.dtype).float()
+    dx = (torch.where(xhat > 0, dy, 0.0) * a).to(x.dtype)
+    return out, dw, dx
+
+
+def compare_bnconv(M, K, N, dtype, device, seed, act_dtype=None):
+    """Hold both kernels, and the autograd function's four gradients
+    (kernel forward and dW) against their plain versions on one case;
+    returns ({kernel: max abs err}, the inputs)."""
+    import torch
+
+    from kubeflow_tpu_torch.ops import bnconv as bc
+
+    x, a, b, w, dz = bnconv_inputs(M, K, N, dtype, device, seed)
+    ins = [t.clone().requires_grad_(True) for t in (x, a, b, w)]
+    out = bc.fused_scale_relu_matmul(*ins, act_dtype)
+    grads = torch.autograd.grad(out, ins, dz)
+    got = {"out": out.detach(), "dx": grads[0], "da": grads[1],
+           "db": grads[2], "dw": grads[3],
+           "dw_f32": bc.bnconv_dw(x, a, b, dz, act_dtype)}
+    want = dict(zip(("dx", "da", "db", "dw"), bc.fused_vjp(
+        x, a, b, w, dz, act_dtype, dw_fn=bc.bnconv_dw_plain)))
+    want["out"] = bc.bnconv_fwd_plain(x, a, b, w, act_dtype)
+    want["dw_f32"] = bc.bnconv_dw_plain(x, a, b, dz, act_dtype)
+    torch.cuda.synchronize()
+    act = "" if act_dtype is None else f" act {str(act_dtype)[6:]}"
+    label = f"({M}, {K}, {N}) {str(dtype)[6:]}{act}"
+    errs, parts = {"bnconv_fwd": 0.0, "bnconv_dw": 0.0}, []
+    for name, got_t in got.items():
+        check(bool(torch.isfinite(got_t.float()).all()),
+              f"bnconv {label}: non-finite {name}")
+        err = (got_t.float() - want[name].float()).abs().max().item()
+        owner = "bnconv_fwd" if name == "out" else "bnconv_dw"
+        errs[owner] = max(errs[owner], err)
+        limit = (BNCONV_BF16_LIMIT if got_t.dtype == torch.bfloat16
+                 else BNCONV_F32_LIMIT)
+        rel = norm_err(got_t, want[name])
+        check(rel <= limit, f"bnconv {label}: {name} norm err {rel} > "
+                            f"{limit}")
+        parts.append(f"{name} {rel:.2e}")
+    print(f"bnconv {label}: norm errs {' '.join(parts)} (limits bf16 "
+          f"{BNCONV_BF16_LIMIT:.0e}, f32 {BNCONV_F32_LIMIT:.0e})",
+          flush=True)
+    if dtype == torch.bfloat16 or act_dtype == torch.bfloat16:
+        readings = []
+        for name, bad in zip(("out", "dw", "dx"),
+                             bnconv_faults(x, a, b, w, dz, act_dtype)):
+            if name == "dx" and dtype != torch.bfloat16:
+                continue        # an f32 dy has no bf16 rounding to skip
+            limit = (BNCONV_BF16_LIMIT if bad.dtype == torch.bfloat16
+                     else BNCONV_F32_LIMIT)
+            rel = norm_err(bad, want[name])
+            check(rel > limit, f"bnconv {label}: the {name} fault passes "
+                               f"the limit ({rel} <= {limit})")
+            readings.append(f"{name} {rel:.2e}")
+        print("  faults rejected: " + " ".join(readings), flush=True)
+    return errs, (x, a, b, w, dz)
+
+
+def bnconv_bytes_ops(M, K, N, el):
+    """Bytes each kernel must move and flops it must do at one site:
+    x, the (K,) a and b, w or dz read once, out or dW written once."""
+    x, ab = M * K * el, 2 * K * 4
+    return {"bnconv_fwd": (x + ab + K * N * el + M * N * el, 2 * M * K * N),
+            "bnconv_dw": (x + ab + M * N * el + K * N * el, 2 * M * K * N)}
+
+
+def check_bnconv_kernels(device):
+    """Both bnconv kernels against their plain versions at the four
+    ResNet-50 sites (bf16, as the path runs them, and f32), a ragged
+    shape (f32 with a bf16 activation too), then each timed at every
+    site beside its bound, its plain version and a bare bf16
+    ``torch.matmul`` of a precomputed y (for scale: no PyTorch call
+    computes either function). Per-step figures sum the 16 sites."""
+    import torch
+
+    from kubeflow_tpu_torch.ops import bnconv as bc
+
+    bf, f32 = torch.bfloat16, torch.float32
+    worst = {"bnconv_fwd": 0.0, "bnconv_dw": 0.0}
+    cases = [(M, K, N, dt, None) for M, K, N, _ in RESNET50_SITES
+             for dt in (bf, f32)]
+    cases += [(1000, 72, 200, bf, None), (1000, 72, 200, f32, None),
+              (1000, 72, 200, f32, bf), (77, 20, 40, bf, None)]
+    for seed, (M, K, N, dt, act) in enumerate(cases, SEED + 40):
+        errs, _ = compare_bnconv(M, K, N, dt, device, seed, act)
+        for name, err in errs.items():
+            worst[name] = max(worst[name], err)
+        torch.cuda.empty_cache()
+    per_step = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                           ops_ms=0.0, matmul_ms=0.0)
+                for name in worst}
+    for M, K, N, blocks in RESNET50_SITES:
+        x, a, b, w, dz = bnconv_inputs(M, K, N, bf, device, SEED + 60)
+        y = bc.activation(x, a, b)
+        fns = {"bnconv_fwd": (lambda: bc.bnconv_fwd(x, a, b, w),
+                              lambda: bc.bnconv_fwd_plain(x, a, b, w),
+                              lambda: torch.matmul(y, w)),
+               "bnconv_dw": (lambda: bc.bnconv_dw(x, a, b, dz, None, bf),
+                             lambda: bc.bnconv_dw_plain(x, a, b, dz, None,
+                                                        bf),
+                             lambda: torch.matmul(y.t(), dz))}
+        work = bnconv_bytes_ops(M, K, N, 2)
+        for name, (kernel, plain, matmul) in fns.items():
+            ms, plain_ms = time_ms(kernel), time_ms(plain, iters=5)
+            matmul_ms = time_ms(matmul)
+            nbytes, flops = work[name]
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / BF16_FLOPS * 1e3
+            print(f"{name} bf16 ({M}, {K}, {N}): kernel_ms={ms:.4f} "
+                  f"bound_ms={max(t_bytes, t_ops):.4f} ({nbytes} B, "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s, "
+                  f"{nbytes / ms / 1e9:.2f} TB/s) plain_ms={plain_ms:.4f} "
+                  f"bf16 matmul of y alone {matmul_ms:.4f}", flush=True)
+            acc = per_step[name]
+            for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                             ("bound_ms", max(t_bytes, t_ops)),
+                             ("bytes_ms", t_bytes), ("ops_ms", t_ops),
+                             ("matmul_ms", matmul_ms)):
+                acc[key] += blocks * val
+        del x, a, b, w, dz, y
+        torch.cuda.empty_cache()
+    records = []
+    for name, line in (("bnconv_fwd", 79), ("bnconv_dw", 100)):
+        acc = per_step[name]
+        print(f"{name} per step (16 sites): kernel_ms={acc['ms']:.4f} "
+              f"bound_ms={acc['bound_ms']:.4f} plain_ms="
+              f"{acc['plain_ms']:.4f} bf16 matmul of y alone "
+              f"{acc['matmul_ms']:.4f}", flush=True)
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "kubeflow_tpu_torch/ops/csrc/bnconv.cu",
+            "replaces": f"kubeflow_tpu/ops/bnconv.py:{line}",
+            "max_abs_err": worst[name], "ms": acc["ms"],
+            "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
+            "bound_by": ("bytes" if acc["bytes_ms"] >= acc["ops_ms"]
+                         else "operations"),
+            "library_ms": None})
+    return records
+
+
 # -- phase 3: serving end to end --------------------------------------------
 
 
@@ -806,6 +1004,218 @@ def train_parity_phase(device):
             "param_err": p_err}
 
 
+# -- phase 7: ResNet-50 training ----------------------------------------------
+
+# bench/suite.py:bench_resnet50 with KFTPU_RESNET_FUSED_BN=1
+RESNET_BATCH, RESNET_STEPS = 256, 5
+
+
+def resnet50_train_flops_per_image(stem: str) -> float:
+    """Analytic fwd+bwd flops per 224^2 image, 3 x forward
+    (bench/suite.py:62-70): the 7x7-stem forward is ~4.11 GFLOP; the
+    space_to_depth stem's 2x2 conv replaces its 0.236 GFLOP stem conv
+    with 0.077 GFLOP."""
+    fwd = 4.11e9 if stem == "conv" else 4.11e9 - 0.236e9 + 0.077e9
+    return 3.0 * fwd
+
+
+def resnet_setup(device, *, fused=True):
+    """``bench_resnet50``'s configuration on ``device``: (config, train
+    state, images, labels). ResNet-50 with bf16 compute and BN over f32
+    params, the space_to_depth stem, ``optax.sgd(0.1, momentum=0.9)``;
+    random weights from a numpy seed (bn3 scales zero), the same in
+    both layouts; one batch of 256 random-normal 224x224x3 bf16 images
+    and labels in [0, 1000), made on the host from a seed and kept on
+    the card, reused every step as the bench reuses its batch."""
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.resnet import ResNetConfig
+    from kubeflow_tpu_torch.train import create_image_train_state, make_sgd
+
+    variables = convert.random_resnet_params(
+        ResNetConfig(fused_bn_conv=True), SEED)
+    if not fused:
+        variables = convert.unfuse_bn_conv(variables)
+    cfg = ResNetConfig(num_classes=1000, fused_bn_conv=fused)
+    state = create_image_train_state(cfg, variables,
+                                     make_sgd(0.1, momentum=0.9),
+                                     device=device)
+    rng = np.random.default_rng(SEED + 5)
+    images = torch.from_numpy(rng.standard_normal(
+        (RESNET_BATCH, 224, 224, 3), dtype=np.float32)).to(
+            device, torch.bfloat16)
+    labels = torch.from_numpy(rng.integers(0, 1000, RESNET_BATCH)).to(device)
+    return cfg, state, images, labels
+
+
+def resnet_phase(device, *, fused=True, steps=RESNET_STEPS):
+    """``steps`` steps of ``make_image_train_step``; with ``fused``, the
+    slice's path: each bnconv kernel launched 16 times a step, finite
+    losses with the first within ln(1000) +- 1.5, running statistics
+    moved and every parameter updated."""
+    import math
+
+    import torch
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.train import make_image_train_step
+
+    t0 = time.perf_counter()
+    cfg, state, images, labels = resnet_setup(device, fused=fused)
+    model = state.module
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: s.clone() for n, s in state.batch_stats.items()}
+    n_params = sum(p.numel() for p in before.values())
+    print(f"resnet50 state built (fused_bn_conv={fused}): "
+          f"{time.perf_counter() - t0:.1f}s, {n_params} params", flush=True)
+    step = make_image_train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, accs, times = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, images, labels)
+        losses.append(float(m["loss"]))          # syncs the step
+        times.append(time.perf_counter() - t0)
+        accs.append(float(m["accuracy"]))
+    launches = ops.launch_counts()
+    check(all(math.isfinite(x) for x in losses),
+          f"resnet50: losses {losses}")
+    n_sites = sum(cfg.stage_sizes)
+    for name in ("bnconv_fwd", "bnconv_dw"):
+        want = n_sites * steps if fused else 0
+        check(launches[name] == want,
+              f"resnet50 (fused_bn_conv={fused}): {name} launched "
+              f"{launches[name]} times, expected {want}")
+    if fused:
+        ln_c = math.log(cfg.num_classes)
+        check(abs(losses[0] - ln_c) <= 1.5,
+              f"resnet50: step-1 loss {losses[0]} not within "
+              f"ln(1000)={ln_c:.3f} +- 1.5")
+        check(losses[-1] < losses[0],
+              f"resnet50: loss did not fall on the fixed batch: {losses}")
+        # an update below f32 resolution at the parameter's size rounds
+        # away (bn3 scales start at zero, so the gradients behind them
+        # are tiny for the first steps); the momentum trace shows it was
+        # applied all the same
+        traces = dict(zip([n for n, _ in model.named_parameters()],
+                          state.opt_state["trace"]))
+        same = [n for n, p in model.named_parameters()
+                if torch.equal(p.detach(), before[n])]
+        unchanged = [n for n in same if not traces[n].abs().max() > 0]
+        check(not unchanged, f"resnet50: parameters not updated: "
+                             f"{unchanged[:8]}")
+        rounded = {n: (0.1 * traces[n].abs().max()).item() for n in same}
+        still = [n for n, s in state.batch_stats.items()
+                 if torch.equal(s, stats0[n])]
+        check(not still, f"resnet50: running statistics not moved: "
+                         f"{still[:8]}")
+    step_s = sum(times[1:]) / (steps - 1)        # step 1 warms up
+    flops = resnet50_train_flops_per_image(cfg.stem) * RESNET_BATCH
+    return {"losses": losses, "accuracy": accs,
+            "rounded_away": rounded if fused else {},
+            "step_ms": [t * 1e3 for t in times],
+            "mean_step_ms": step_s * 1e3,
+            "images_per_s": RESNET_BATCH / step_s,
+            "mfu": flops / step_s / BF16_FLOPS,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches}
+
+
+# -- phase 8: fused vs unfused ResNet step in f32 ----------------------------
+
+
+# f32 limits of the fused-vs-unfused step. The forwards differ in
+# summation order only (~3e-6 of the logits), but an element of a block
+# output within that of zero takes the other side of its ReLU, and its
+# whole gradient moves: at 262,144 elements in the last block one such
+# flip moves every gradient below it by ~0.2% of its norm (the port's
+# two layouts on the CPU read 2.4e-3 and 8.5e-3 per leaf, two seeds;
+# the card, with no flip, 8.0e-6). A wiring fault (a wrong layout, a
+# lost rounding, a dropped split) moves the leaves it touches by ~1.
+# Parameters move by lr times gradients.
+RESNET_PARITY_LOSS = 1e-5
+RESNET_PARITY_GRAD = 2e-2
+RESNET_PARITY_PARAM = 1e-3
+
+
+def resnet_parity_phase(device):
+    """One f32 train step (TF32 off in matmul and cuDNN) of a small
+    ResNet (stages 1-1-1-1, width 64, 128x128 images, batch 8), fused and
+    unfused from the same weights with bn3's scales randomised (at zero
+    no gradient reaches the fused sites). The loss, every gradient and
+    every updated parameter agree within the limits below, and the
+    fused step launches both kernels at its 4 sites."""
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.resnet import ResNetConfig
+    from kubeflow_tpu_torch.train import (
+        create_image_train_state,
+        make_image_train_step,
+        make_sgd,
+        softmax_cross_entropy,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = dict(stage_sizes=(1, 1, 1, 1), num_classes=100, width=64,
+                dtype="float32", bn_dtype="float32")
+    variables = convert.random_resnet_params(
+        ResNetConfig(**base, fused_bn_conv=True), SEED + 6)
+    rng = np.random.default_rng(SEED + 7)
+    flat = convert.flatten(variables)
+    for key in flat:
+        if key.endswith("bn3/scale"):
+            flat[key] = rng.standard_normal(flat[key].shape).astype(
+                np.float32)
+    variables = convert.unflatten(flat)
+    images = torch.from_numpy(rng.standard_normal(
+        (8, 128, 128, 3), dtype=np.float32)).to(device)
+    labels = torch.from_numpy(rng.integers(0, 100, 8)).to(device)
+    res = {}
+    for fused in (True, False):
+        tree = variables if fused else convert.unfuse_bn_conv(variables)
+        cfg = ResNetConfig(**base, fused_bn_conv=fused)
+        state = create_image_train_state(cfg, tree, make_sgd(
+            0.1, momentum=0.9), device=device)
+        grads = torch.autograd.grad(
+            softmax_cross_entropy(state.module(images), labels),
+            state.params)
+        grads = convert.flatten(convert.resnet_grads(state.module, grads))
+        ops.reset_launches()
+        state, m = make_image_train_step()(state, images, labels)
+        launches = ops.launch_counts()
+        params = convert.flatten(convert.resnet_variables(state.module))
+        if fused:
+            grads = convert.flatten(convert.unfuse_bn_conv(
+                convert.unflatten(grads)))
+            params = convert.flatten(convert.unfuse_bn_conv(
+                convert.unflatten(params)))
+            for name in ("bnconv_fwd", "bnconv_dw"):
+                check(launches[name] == 4, f"parity: {name} launched "
+                                           f"{launches[name]} times, not 4")
+        res[fused] = (float(m["loss"]), grads, params)
+    (lf, gf, pf), (lu, gu, pu) = res[True], res[False]
+    check(gf.keys() == gu.keys() and pf.keys() == pu.keys(),
+          "parity: the fused and unfused trees differ")
+    g_err = max(float(np.linalg.norm(gf[k] - gu[k]) / np.linalg.norm(gu[k]))
+                for k in gu)
+    p_err = max(float(np.abs(pf[k] - pu[k]).max()) for k in pu)
+    check(abs(lf - lu) <= RESNET_PARITY_LOSS,
+          f"parity: loss {lf} vs {lu}")
+    check(g_err <= RESNET_PARITY_GRAD,
+          f"parity: a gradient differs by {g_err} of its norm")
+    check(p_err <= RESNET_PARITY_PARAM,
+          f"parity: updated params/statistics differ by {p_err}")
+    return {"loss": (lf, lu), "grad_err": g_err, "param_err": p_err}
+
+
 def main() -> int:
     import torch
 
@@ -824,7 +1234,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = _build.build(["paged_attention", "fused_sample",
-                         "flash_attention"])
+                         "flash_attention", "bnconv"])
     print(f"phase 1 build: {time.perf_counter() - t0:.1f}s", flush=True)
     for name, text in logs.items():
         for line in text.splitlines():
@@ -832,7 +1242,7 @@ def main() -> int:
                 print(f"  [{name}] {line.strip()}", flush=True)
 
     kernels = [check_paged_kernel(device), check_sampler_kernel(device),
-               *check_flash_kernels(device)]
+               *check_flash_kernels(device), *check_bnconv_kernels(device)]
     print("phase 2 kernels vs plain: ok", flush=True)
     torch.cuda.empty_cache()
 
@@ -859,7 +1269,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.empty_cache()
     train = train_phase(device)
-    for kern in kernels[2:]:
+    for kern in kernels[2:5]:
         kern["launches"] = train["launches"][kern["name"]]
     print(f"phase 5 train ({kind} | {ident}): vocab 32000, d_model 1024, "
           f"8 layers, 16 heads, seq 8192, batch 2, bf16/f32, flash+remat: "
@@ -875,6 +1285,33 @@ def main() -> int:
           f"grad_norm {par['grad_norm']} max grad err "
           f"{par['grad_err']:.2e} max param err {par['param_err']:.2e}",
           flush=True)
+    torch.cuda.empty_cache()
+    res = resnet_phase(device)
+    for kern in kernels[5:]:
+        kern["launches"] = res["launches"][kern["name"]]
+    print(f"phase 7 resnet50 train ({kind} | {ident}): batch 256, bf16/f32, "
+          f"space_to_depth stem, fused_bn_conv=True, sgd 0.1 m 0.9: "
+          f"losses={res['losses']} accuracy={res['accuracy']} "
+          f"step_ms={res['step_ms']} mean_step_ms={res['mean_step_ms']:.1f} "
+          f"images_per_s={res['images_per_s']:.1f} mfu={res['mfu']:.4f} "
+          f"peak_gb={res['peak_gb']:.2f} launches={res['launches']}; "
+          f"updates rounded away in f32 (largest lr*|trace|): "
+          f"{res['rounded_away']}", flush=True)
+    torch.cuda.empty_cache()
+    unf = resnet_phase(device, fused=False)
+    print(f"phase 7 resnet50 unfused, same weights ({kind} | {ident}): "
+          f"losses={unf['losses']} step_ms={unf['step_ms']} "
+          f"mean_step_ms={unf['mean_step_ms']:.1f} images_per_s="
+          f"{unf['images_per_s']:.1f} mfu={unf['mfu']:.4f} peak_gb="
+          f"{unf['peak_gb']:.2f}; fused/unfused images/s "
+          f"{res['images_per_s'] / unf['images_per_s']:.4f}", flush=True)
+    torch.cuda.empty_cache()
+    rpar = resnet_parity_phase(device)
+    print(f"phase 8 f32 fused vs unfused resnet train step: loss "
+          f"{rpar['loss']} max grad err {rpar['grad_err']:.2e} (of each "
+          f"gradient's norm; limit {RESNET_PARITY_GRAD:.0e}) max "
+          f"param err {rpar['param_err']:.2e} (limit "
+          f"{RESNET_PARITY_PARAM:.0e})", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(ident)
     print(json.dumps({"kernels": kernels}))

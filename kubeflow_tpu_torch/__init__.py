@@ -4,20 +4,26 @@ The JAX package (``kubeflow_tpu/``) is the reference: every module here
 mirrors a module there by name and is tested against it. This package
 imports ``torch``, numpy and yaml, never ``jax`` or ``kubeflow_tpu``.
 
-Layout (slices: paged LM serving, LM training):
+Layout (slices: paged LM serving, LM training, ResNet training):
 
 - ``models/transformer.py`` — the decoder LM, with the paged decode cache,
   flash attention and remat;
+- ``models/resnet.py`` — the ResNet family, with the fused BN-apply +
+  ReLU + 1x1 conv;
 - ``models/decode.py`` — prefill chunks, decode steps, the sampler;
-- ``models/convert.py`` — JAX param trees / ``params.npz`` → port modules;
+- ``models/convert.py`` — JAX param trees / ``params.npz`` and ResNet
+  variables → port modules, and back for ResNet;
 - ``ops/paged_attention.py`` + ``ops/csrc/paged_attention.cu``,
-  ``ops/sampling.py`` + ``ops/csrc/fused_sample.cu`` and
-  ``ops/flash_attention.py`` + ``ops/csrc/flash_attention.cu`` — the
-  CUDA kernels (serving; the flash forward, dQ and dK/dV of training),
-  each beside its plain PyTorch version;
+  ``ops/sampling.py`` + ``ops/csrc/fused_sample.cu``,
+  ``ops/flash_attention.py`` + ``ops/csrc/flash_attention.cu`` and
+  ``ops/bnconv.py`` + ``ops/csrc/bnconv.cu`` — the CUDA kernels
+  (serving; the flash forward, dQ and dK/dV of LM training; the fused
+  BN + ReLU + 1x1 conv and its dW of ResNet training), each beside its
+  plain PyTorch version;
 - ``ops/_build.py`` — builds ``ops/csrc/*.cu`` with ``nvcc`` at first use;
 - ``serving/`` — page allocator, decode engine, model store, HTTP server;
-- ``train/`` — optimizer, train state, losses, the LM train step.
+- ``train/`` — optimizers, train state, losses, the LM and image train
+  steps.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

@@ -1,4 +1,4 @@
-"""Carry JAX ``Transformer`` weights into the port's modules.
+"""Carry JAX ``Transformer`` and ``ResNet`` weights into the port's modules.
 
 A JAX param tree arrives as numpy: a nested dict (``jax.tree_util`` leaves
 through ``np.asarray``) or the flat ``/``-joined keys of a model-store
@@ -13,6 +13,14 @@ No transposes anywhere: the port keeps the reference's einsum layouts
 port parameter ``blocks.{i}.<path>`` is JAX leaf ``blocks/<path>[i]`` or
 ``block_{i}/<path>`` with dots for slashes, and top-level names map
 one for one.
+
+A JAX ``ResNet`` arrives as its variables, ``{"params": ...,
+"batch_stats": ...}`` (nested or flat), in the fused (``bn2conv3``) or
+unfused layout. Port parameter ``a.b.kernel`` is ``params/a/b/kernel``
+and BN buffer ``a.b.mean`` is ``batch_stats/a/b/mean``; conv kernels are
+moved from flax's ``(kh, kw, I, O)`` to torch's ``(O, I, kh, kw)``, the
+fused layer's ``(1, 1, C, F)`` kernel becomes its ``(C, F)`` matrix, and
+the Dense kernel stays ``(in, out)``. :func:`resnet_variables` goes back.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.models.resnet import ResNet, ResNetConfig
 from kubeflow_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
@@ -143,3 +152,156 @@ def random_params(config: TransformerConfig, seed: int, *,
             for i in range(L):
                 flat[f"block_{i}/{norm}"] = np.ones(D, np.float32)
     return flat
+
+
+# -- ResNet ------------------------------------------------------------------
+
+
+def _resnet_tensors(model: ResNet):
+    """(JAX key, port name, tensor) for every parameter and BN buffer."""
+    for kind, items in (("params", model.named_parameters()),
+                        ("batch_stats", model.named_buffers())):
+        for name, t in items:
+            yield f"{kind}/{name.replace('.', '/')}", name, t
+
+
+def _jax_shape(name: str, shape) -> tuple:
+    """The JAX leaf shape of port tensor ``name`` of ``shape``."""
+    shape = tuple(shape)
+    if len(shape) == 4:                      # (O, I, kh, kw)
+        O, I, kh, kw = shape
+        return (kh, kw, I, O)
+    if name.endswith("bn2conv3.kernel"):     # (C, F)
+        return (1, 1) + shape
+    return shape
+
+
+def _from_jax(name: str, src: torch.Tensor, shape) -> torch.Tensor:
+    if len(shape) == 4:
+        return src.permute(3, 2, 0, 1)
+    if name.endswith("bn2conv3.kernel"):
+        return src.reshape(tuple(shape))
+    return src
+
+
+def _to_jax(name: str, t: torch.Tensor) -> torch.Tensor:
+    if t.dim() == 4:
+        return t.permute(2, 3, 1, 0)
+    if name.endswith("bn2conv3.kernel"):
+        return t.reshape(1, 1, *t.shape)
+    return t
+
+
+def load_resnet(model: ResNet, variables: Mapping[str, Any]) -> ResNet:
+    """Copy JAX ResNet variables (``params`` + ``batch_stats``) into
+    ``model`` in place; every port tensor must be found with its shape,
+    and every JAX leaf used. Returns ``model``."""
+    flat = flatten(variables)
+    used = set()
+    with torch.no_grad():
+        for key, name, t in _resnet_tensors(model):
+            if key not in flat:
+                raise KeyError(f"leaf {key!r} (for {name}) not in the JAX "
+                               f"variables")
+            src = _from_jax(name, _as_tensor(flat[key]), t.shape)
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"{key}: shape {tuple(flat[key].shape)} "
+                                 f"does not fit port {name} "
+                                 f"{tuple(t.shape)}")
+            t.copy_(src.to(device=t.device, dtype=t.dtype))
+            used.add(key)
+    extra = sorted(set(flat) - used)
+    if extra:
+        raise KeyError(f"JAX leaves with no port tensor: {extra[:8]}")
+    return model
+
+
+def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """Flat ``/``-joined keys → nested dict (the inverse of
+    :func:`flatten`)."""
+    tree: Dict[str, Any] = {}
+    for key, val in flat.items():
+        node = tree
+        *path, leaf = key.split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = val
+    return tree
+
+
+def resnet_variables(model: ResNet) -> Dict[str, Any]:
+    """The module's weights and BN statistics as nested JAX-layout
+    variables of f32 numpy arrays (the inverse of :func:`load_resnet`)."""
+    flat = {key: np.array(_to_jax(name, t.detach()).float().cpu().numpy())
+            for key, name, t in _resnet_tensors(model)}
+    return unflatten(flat)
+
+
+def resnet_grads(model: ResNet, grads) -> Dict[str, Any]:
+    """Gradients aligned with ``model.parameters()`` as a nested
+    JAX-layout ``{"params": ...}`` tree of f32 numpy arrays."""
+    names = [name for name, _ in model.named_parameters()]
+    return unflatten({
+        f"params/{name.replace('.', '/')}":
+            np.array(_to_jax(name, g.detach()).float().cpu().numpy())
+        for name, g in zip(names, grads)})
+
+
+def unfuse_bn_conv(variables: Mapping[str, Any]) -> Dict[str, Any]:
+    """Fused-layout ResNet variables in the unfused layout: each block's
+    ``bn2conv3`` becomes ``bn2`` (scale, bias and statistics) and
+    ``conv3`` (the kernel), the same weights."""
+    flat = {}
+    for key, val in flatten(variables).items():
+        if "/bn2conv3/" in key:
+            part = "conv3" if key.endswith("/kernel") else "bn2"
+            key = key.replace("/bn2conv3/", f"/{part}/")
+        flat[key] = val
+    return unflatten(flat)
+
+
+def _place(model: ResNet, device) -> ResNet:
+    # NHWC bytes for the 4-D conv kernels too, as the activations are
+    return model.to(device=resolve_device(device),
+                    memory_format=torch.channels_last)
+
+
+def resnet_to_module(config: ResNetConfig, variables: Mapping[str, Any], *,
+                     device) -> ResNet:
+    """A loaded, frozen port ``ResNet`` in eval mode on ``device``."""
+    model = _place(load_resnet(ResNet(config), variables), device).eval()
+    model.requires_grad_(False)
+    return model
+
+
+def resnet_to_trainable(config: ResNetConfig, variables: Mapping[str, Any],
+                        *, device=None) -> ResNet:
+    """A loaded port ``ResNet`` on ``device`` (CUDA unless ``"cpu"`` is
+    asked for), in train mode with every parameter trainable."""
+    return _place(load_resnet(ResNet(config), variables), device).train()
+
+
+def random_resnet_params(config: ResNetConfig,
+                         seed: int) -> Dict[str, Any]:
+    """Random JAX-layout ResNet variables from a numpy seed: every kernel
+    normal(0, fan_in**-0.5) (the scale of flax's lecun_normal), BN scales
+    one except bn3's, which are zero as in the reference, biases zero,
+    running means zero and variances one; all f32."""
+    with torch.device("meta"):
+        model = ResNet(config)
+    rng = np.random.default_rng(seed)
+    flat: Dict[str, np.ndarray] = {}
+    for key, name, t in _resnet_tensors(model):
+        shape = _jax_shape(name, t.shape)
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "kernel":
+            std = float(np.prod(shape[:-1])) ** -0.5
+            arr = rng.standard_normal(shape, dtype=np.float32) * np.float32(
+                std)
+        elif leaf == "var" or (leaf == "scale" and
+                               not name.endswith("bn3.scale")):
+            arr = np.ones(shape, np.float32)
+        else:                                # biases, means, bn3 scales
+            arr = np.zeros(shape, np.float32)
+        flat[key] = arr
+    return unflatten(flat)

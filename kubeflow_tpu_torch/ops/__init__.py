@@ -9,6 +9,7 @@ launch (``ops/_build.py``).
 from typing import Dict
 
 from kubeflow_tpu_torch.ops import (  # noqa: F401
+    bnconv,
     flash_attention,
     paged_attention,
     sampling,
@@ -19,7 +20,7 @@ from kubeflow_tpu_torch.ops.attention import (  # noqa: F401
     reference_attention,
 )
 
-KERNEL_MODULES = (paged_attention, sampling, flash_attention)
+KERNEL_MODULES = (paged_attention, sampling, flash_attention, bnconv)
 
 
 def reset_launches() -> None:

@@ -1,12 +1,17 @@
-"""Training of the port (second slice: the LM train step)."""
+"""Training of the port: the LM and image (ResNet) train steps."""
 
 from kubeflow_tpu_torch.train.trainer import (  # noqa: F401
     Optimizer,
+    Sgd,
     TrainState,
     chunked_next_token_loss,
+    create_image_train_state,
     create_train_state,
     global_norm,
+    make_image_train_step,
     make_lm_train_step,
     make_optimizer,
+    make_sgd,
     next_token_loss,
+    softmax_cross_entropy,
 )

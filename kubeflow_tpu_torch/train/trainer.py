@@ -1,10 +1,12 @@
-"""LM training: optimizer, train state, next-token losses, the train step.
+"""Training: optimizers, train state, losses, the LM and image train steps.
 
-PyTorch port of the LM half of ``kubeflow_tpu/train/trainer.py``:
-``make_optimizer`` (:73-92), ``next_token_loss`` (:118-123),
-``chunked_next_token_loss`` (:132-172) and ``make_lm_train_step``
-(:175-236). The step runs eagerly on the device of the state's
-parameters; there is no mesh yet (data parallelism is ROADMAP Queue A).
+PyTorch port of ``kubeflow_tpu/train/trainer.py``: ``make_optimizer``
+(:73-92), ``next_token_loss`` (:118-123), ``softmax_cross_entropy``
+(:126-129), ``chunked_next_token_loss`` (:132-172),
+``make_lm_train_step`` (:175-236) and ``make_image_train_step``
+(:338-382), with ``optax.sgd`` as :class:`Sgd`. Steps run eagerly on the
+device of the state's parameters; there is no mesh yet (data parallelism
+is ROADMAP Queue A).
 
 The optimizer is optax's chain written in plain tensor ops, with optax's
 numerics:
@@ -18,8 +20,13 @@ numerics:
 - ``warmup_cosine_decay_schedule`` from 0, read at the update count
   BEFORE it is incremented, so the first update has learning rate 0.
 
+:class:`Sgd` is ``optax.sgd``: the trace ``t = g + momentum * t``
+(``optax.trace``, nesterov ``g + momentum * t`` as the update), then the
+update ``-lr * t`` added to the parameter.
+
 Parameters, moments and the update are kept in place (the reference
-returns new arrays).
+returns new arrays). BN statistics live in the module's buffers, written
+by the train-mode forward (the reference's ``mutable=["batch_stats"]``).
 """
 
 from __future__ import annotations
@@ -98,6 +105,43 @@ def make_optimizer(learning_rate: float = 3e-4, *, warmup_steps: int = 100,
                      grad_clip=grad_clip)
 
 
+@dataclasses.dataclass(frozen=True)
+class Sgd:
+    """``optax.sgd(learning_rate, momentum, nesterov)``, with the
+    :class:`Optimizer` interface."""
+
+    learning_rate: float
+    momentum: Optional[float] = None
+    nesterov: bool = False
+
+    def init(self, params: Sequence[torch.Tensor]) -> Dict[str, Any]:
+        return {"trace": [torch.zeros_like(p) for p in params]
+                if self.momentum else []}
+
+    @torch.no_grad()
+    def apply(self, params: Sequence[torch.Tensor],
+              grads: Sequence[torch.Tensor], state: Dict[str, Any],
+              grad_norm: Optional[torch.Tensor] = None) -> None:
+        """One update of ``params`` in place; ``grad_norm`` is unused
+        (the :class:`Optimizer` signature)."""
+        del grad_norm
+        step = -self.learning_rate
+        for i, (p, g) in enumerate(zip(params, grads)):
+            upd = g
+            if self.momentum:
+                t = state["trace"][i]
+                t.mul_(self.momentum).add_(g)
+                upd = g + self.momentum * t if self.nesterov else t
+            p.add_(upd * step)
+
+
+def make_sgd(learning_rate: float, momentum: Optional[float] = None,
+             nesterov: bool = False) -> Sgd:
+    """``optax.sgd``: same arguments, same defaults."""
+    return Sgd(learning_rate=learning_rate, momentum=momentum,
+               nesterov=nesterov)
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """``optax.global_norm``: sqrt of the sum of squares of every leaf."""
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
@@ -108,18 +152,25 @@ class TrainState:
     """The module, the optimizer and its state, and the step count."""
 
     module: nn.Module
-    tx: Optimizer
+    tx: Any
     opt_state: Dict[str, Any]
     step: int = 0
 
     @classmethod
-    def create(cls, module: nn.Module, tx: Optimizer) -> "TrainState":
+    def create(cls, module: nn.Module, tx) -> "TrainState":
         params = [p for p in module.parameters() if p.requires_grad]
         return cls(module=module, tx=tx, opt_state=tx.init(params))
 
     @property
     def params(self) -> List[torch.Tensor]:
         return [p for p in self.module.parameters() if p.requires_grad]
+
+    @property
+    def batch_stats(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The module's BN statistics by buffer name, or None for a
+        module without any (as the reference's ``batch_stats=None``)."""
+        stats = dict(self.module.named_buffers())
+        return stats or None
 
     @property
     def device(self) -> torch.device:
@@ -144,6 +195,24 @@ def create_train_state(config, params: Mapping[str, Any], tx: Optimizer, *,
     model = convert.to_trainable(config, params, device=device,
                                  return_hidden=return_hidden)
     return TrainState.create(model, tx)
+
+
+def create_image_train_state(config, variables: Mapping[str, Any], tx, *,
+                             device=None) -> TrainState:
+    """A :class:`TrainState` over a trainable port ``ResNet`` loaded from
+    JAX-layout variables (``params`` + ``batch_stats``), on ``device``
+    (CUDA unless ``"cpu"`` is asked for)."""
+    from kubeflow_tpu_torch.models import convert
+
+    model = convert.resnet_to_trainable(config, variables, device=device)
+    return TrainState.create(model, tx)
+
+
+def softmax_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of integer ``labels`` under f32 ``logits``."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, labels.long()[..., None])[..., 0].mean()
 
 
 def next_token_loss(logits: torch.Tensor,
@@ -224,6 +293,31 @@ def make_lm_train_step(*, moe_aux_weight: float = 0.01,
         grad_norm = global_norm(grads)
         state.apply_gradients(grads, grad_norm)
         return state, {"loss": loss.detach(), "grad_norm": grad_norm,
+                       "step": state.step}
+
+    return step
+
+
+def make_image_train_step():
+    """The classifier train step: ``step(state, images, labels) ->
+    (state, metrics)``, with BN statistics updated by the train-mode
+    forward when the module has any. ``metrics`` holds ``loss`` and
+    ``accuracy`` (0-dim tensors on the device) and ``step`` (the count
+    after this update). ``images`` and ``labels`` go to the device of
+    the state's parameters."""
+
+    def step(state: TrainState, images, labels
+             ) -> Tuple[TrainState, Dict[str, Any]]:
+        images = torch.as_tensor(images, device=state.device)
+        labels = torch.as_tensor(labels, device=state.device).long()
+        params = state.params
+        logits = state.module(images, train=True)
+        loss = softmax_cross_entropy(logits, labels)
+        with torch.no_grad():
+            acc = (logits.argmax(dim=-1) == labels).float().mean()
+        grads = torch.autograd.grad(loss, params)
+        state.apply_gradients(grads)
+        return state, {"loss": loss.detach(), "accuracy": acc,
                        "step": state.step}
 
     return step

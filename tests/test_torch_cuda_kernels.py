@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from kubeflow_tpu_torch.ops import attention as att
+from kubeflow_tpu_torch.ops import bnconv as bc
 from kubeflow_tpu_torch.ops import flash_attention as fa
 from kubeflow_tpu_torch.ops import paged_attention as pa
 from kubeflow_tpu_torch.ops import sampling as sm
@@ -199,3 +200,128 @@ def test_flash_kernels_read_strides_and_refuse_what_they_lack(cuda):
         fa.flash_fwd(q32, k32, v32)
     with pytest.raises(TypeError, match="dtype"):
         fa.flash_fwd(q.half(), k.half(), v.half())
+
+
+def _bnconv_inputs(cuda, M, K, N, dtype, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale=1.0, shift=0.0, dt=dtype):
+        arr = (rng.standard_normal(shape) * scale + shift).astype(np.float32)
+        return torch.from_numpy(arr).to(cuda, dt)
+    return (t((M, K)), t((K,), 0.3, 1.0, torch.float32),
+            t((K,), 0.3, -0.1, torch.float32), t((K, N), K ** -0.5),
+            t((M, N)))
+
+
+def _norm_err(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+@pytest.mark.parametrize("M,K,N", [(4096, 64, 256), (300, 512, 2048),
+                                   (1000, 72, 200), (77, 20, 40)])
+@pytest.mark.parametrize("dtype,act", [(torch.bfloat16, None),
+                                       (torch.float32, None),
+                                       (torch.float32, torch.bfloat16)],
+                         ids=["bf16", "f32", "f32_act_bf16"])
+def test_bnconv_kernels_match_plain(cuda, M, K, N, dtype, act):
+    """The forward and dW kernels against their plain versions (TF32
+    off): bf16 outputs within a norm-relative 4e-4 and f32 within 1e-5,
+    the limits of ``chip_smoke.py`` (a bf16 fault such as y left
+    unrounded reads ~2.5e-3); ragged shapes and the tensor-core and FMA
+    paths both; dW in f32 and in bf16."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, a, b, w, dz = _bnconv_inputs(cuda, M, K, N, dtype, seed=M + K + N)
+    before = dict(bc.launches)
+    out = bc.bnconv_fwd(x, a, b, w, act)
+    dw32 = bc.bnconv_dw(x, a, b, dz, act)
+    dw16 = bc.bnconv_dw(x, a, b, dz, act, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert bc.launches["bnconv_fwd"] == before["bnconv_fwd"] + 1
+    assert bc.launches["bnconv_dw"] == before["bnconv_dw"] + 2
+    assert out.dtype == dtype and dw32.dtype == torch.float32
+    for got, want in ((out, bc.bnconv_fwd_plain(x, a, b, w, act)),
+                      (dw32, bc.bnconv_dw_plain(x, a, b, dz, act)),
+                      (dw16, bc.bnconv_dw_plain(x, a, b, dz, act,
+                                                torch.bfloat16))):
+        assert torch.isfinite(got.float()).all()
+        limit = 4e-4 if got.dtype == torch.bfloat16 else 1e-5
+        assert _norm_err(got, want) <= limit
+
+
+def test_bnconv_autograd_matches_the_plain_backward(cuda):
+    """The autograd function on the card (kernel forward and dW) against
+    the same backward with the plain dW: dx, da, db bit for bit, dW in
+    bf16 within 4e-4."""
+    x, a, b, w, dz = _bnconv_inputs(cuda, 2048, 128, 512, torch.bfloat16, 5)
+    ins = [t.clone().requires_grad_(True) for t in (x, a, b, w)]
+    got = torch.autograd.grad(bc.fused_scale_relu_matmul(*ins), ins, dz)
+    want = bc.fused_vjp(x, a, b, w, dz, None, dw_fn=bc.bnconv_dw_plain)
+    for g, r in zip(got[:3], want[:3]):
+        assert torch.equal(g, r)
+    assert got[3].dtype == torch.bfloat16
+    assert _norm_err(got[3], want[3]) <= 4e-4
+
+
+def test_bnconv_kernels_refuse_what_they_lack(cuda):
+    x, a, b, w, dz = _bnconv_inputs(cuda, 256, 64, 128, torch.bfloat16, 6)
+    with pytest.raises(ValueError, match="contiguous"):
+        bc.bnconv_fwd(x.t().contiguous().t(), a, b, w)
+    with pytest.raises(TypeError, match="dtype"):
+        bc.bnconv_fwd(x.half(), a, b, w.half())
+    with pytest.raises(TypeError, match="dtype"):
+        bc.bnconv_dw(x, a, b, dz.float())
+    with pytest.raises(TypeError, match="act_dtype"):
+        bc.bnconv_fwd(x, a, b, w, torch.float16)
+
+
+def test_resnet_fused_step_launches_and_matches_unfused(cuda):
+    """One f32 step (TF32 off) of a small ResNet, fused and unfused from
+    the same weights: the fused step launches both kernels at its two
+    sites, and the loss, gradients and parameters agree within the
+    limits of ``chip_smoke.py`` phase 8 (ReLU flips of near-zero
+    elements move whole gradient entries)."""
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.resnet import ResNetConfig
+    from kubeflow_tpu_torch.train import (
+        create_image_train_state,
+        make_image_train_step,
+        make_sgd,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = dict(stage_sizes=(1, 1), num_classes=10, width=32,
+                dtype="float32", bn_dtype="float32")
+    variables = convert.random_resnet_params(
+        ResNetConfig(**base, fused_bn_conv=True), 8)
+    flat = convert.flatten(variables)
+    rng = np.random.default_rng(9)
+    for key in flat:
+        if key.endswith("bn3/scale"):
+            flat[key] = rng.standard_normal(flat[key].shape).astype(
+                np.float32)
+    variables = convert.unflatten(flat)
+    images = torch.from_numpy(rng.standard_normal(
+        (8, 64, 64, 3)).astype(np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.integers(0, 10, 8)).to(cuda)
+    out = {}
+    for fused in (True, False):
+        tree = variables if fused else convert.unfuse_bn_conv(variables)
+        state = create_image_train_state(
+            ResNetConfig(**base, fused_bn_conv=fused), tree,
+            make_sgd(0.1, momentum=0.9), device=cuda)
+        before = dict(bc.launches)
+        state, m = make_image_train_step()(state, images, labels)
+        torch.cuda.synchronize()
+        n = bc.launches["bnconv_fwd"] - before["bnconv_fwd"]
+        assert n == (2 if fused else 0)
+        assert bc.launches["bnconv_dw"] - before["bnconv_dw"] == n
+        tree = convert.resnet_variables(state.module)
+        if fused:
+            tree = convert.unfuse_bn_conv(tree)
+        out[fused] = (float(m["loss"]), convert.flatten(tree))
+    (lf, pf), (lu, pu) = out[True], out[False]
+    assert abs(lf - lu) <= 1e-5
+    for key, val in pu.items():
+        assert np.abs(pf[key] - val).max() <= 1e-3, key

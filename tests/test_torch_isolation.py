@@ -73,10 +73,25 @@ def test_entry_points_need_cuda_unless_cpu_is_explicit(tmp_path):
     from kubeflow_tpu_torch.serving import model_store as store
     from kubeflow_tpu_torch.serving.engine import DecodeEngine
     from kubeflow_tpu_torch.serving.server import ModelServer
-    from kubeflow_tpu_torch.train import create_train_state, make_optimizer
+    from kubeflow_tpu_torch.models.resnet import ResNetConfig
+    from kubeflow_tpu_torch.train import (
+        create_image_train_state,
+        create_train_state,
+        make_optimizer,
+        make_sgd,
+    )
 
     cfg = tiny_config()
     params = convert.random_params(cfg, seed=0)
+    rcfg = ResNetConfig(stage_sizes=(1,), num_classes=4, width=8,
+                        fused_bn_conv=True)
+    variables = convert.random_resnet_params(rcfg, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.resnet_to_trainable(rcfg, variables)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.resnet_to_module(rcfg, variables, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_image_train_state(rcfg, variables, make_sgd(0.1))
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.to_trainable(cfg, params)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -94,6 +109,9 @@ def test_entry_points_need_cuda_unless_cpu_is_explicit(tmp_path):
     eng.close()
     state = create_train_state(cfg, params, make_optimizer(), device="cpu")
     assert state.device.type == "cpu"
+    state = create_image_train_state(rcfg, variables, make_sgd(0.1),
+                                     device="cpu")
+    assert state.device.type == "cpu" and state.batch_stats
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
