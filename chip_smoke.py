@@ -17,7 +17,9 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
    training case S=8192 bf16 causal; lse within 1e-5; f32 within 1e-5
    on out and 1e-4 on gradients; bf16 within a norm-relative error of
    4e-4, which a bf16 fault in each output must exceed), timed at the
-   training case beside ``scaled_dot_product_attention`` (timed only);
+   training case beside ``scaled_dot_product_attention`` (timed only),
+   with each flash kernel's ptxas registers and spills (the bf16
+   tensor-core kernels at D=64 must not spill);
 3. serve the full-width engine-bench LM (vocab 32000, d_model 1024, 8
    layers, 16 heads, max_seq_len 2048; random weights from a numpy seed,
    written as a model-store export) through the port's ``ModelServer``
@@ -454,16 +456,60 @@ def flash_bytes_ops(B, S, H, D, el, causal):
             "flash_bwd_dkv": (4 * n + 2 * stats + 2 * n, 8 * pairs * D)}
 
 
-def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4):
+def ptxas_kernels(log: str) -> dict:
+    """``{(kernel, variant): (registers, spill stores, spill loads)}``
+    from nvcc's ``-Xptxas -v`` lines; variant is the mangled template
+    arguments (``Li64E`` for the bf16 mma kernels at D = 64, ``fLi64E``
+    for f32, ``13__nv_bfloat16Li64E`` for the bf16 dQ)."""
+    import re
+
+    out, entry, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z\w*?(flash_[a-z_]+_kernel)"
+                      r"I(\w*?Li\d+E)E", line)
+        if m:
+            entry, spills = (m.group(1), m.group(2)), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry] = (int(m.group(1)), *spills)
+            entry = None
+    return out
+
+
+def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
+                        build_log=""):
     """The three flash kernels against their plain versions: causal and
     not, with and without kv_len, f32 and bf16, at S=2048 and a ragged
     1000, then the training path's own case (bf16, causal, S_main) with
     the plain versions run ``step`` heads at a time. Then each is timed
     there beside the bound, its plain version and PyTorch's fused
-    attention (timed only)."""
+    attention (timed only). ``build_log`` is nvcc's output for
+    ``flash_attention.cu``: each kernel's registers and spills are
+    printed, and the bf16 tensor-core kernels at D = 64 (the training
+    path's) must not spill."""
     import torch
 
     from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    regs = ptxas_kernels(build_log)
+    for (name, variant), (n_regs, st, ld) in sorted(regs.items()):
+        print(f"  ptxas {name}<{variant}>: {n_regs} registers, spill "
+              f"stores {st} B, spill loads {ld} B", flush=True)
+        if "mma" in name and variant == "Li64E":
+            check(st == 0 and ld == 0,
+                  f"{name} at D=64 spills ({st} B stored, {ld} B loaded)")
+    if build_log:
+        check(any("mma" in name for name, _ in regs),
+              "no ptxas lines for the flash mma kernels in the build log")
+    else:
+        print("  ptxas: flash_attention was built before this run (no "
+              "compiler log)", flush=True)
 
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     owner = {"out": "flash_fwd", "lse": "flash_fwd", "dq": "flash_bwd_dq",
@@ -1242,7 +1288,9 @@ def main() -> int:
                 print(f"  [{name}] {line.strip()}", flush=True)
 
     kernels = [check_paged_kernel(device), check_sampler_kernel(device),
-               *check_flash_kernels(device), *check_bnconv_kernels(device)]
+               *check_flash_kernels(device,
+                                    build_log=logs["flash_attention"]),
+               *check_bnconv_kernels(device)]
     print("phase 2 kernels vs plain: ok", flush=True)
     torch.cuda.empty_cache()
 

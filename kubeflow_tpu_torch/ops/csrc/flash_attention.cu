@@ -2,53 +2,94 @@
 // plain C interface.
 //
 // Replaces: kubeflow_tpu/ops/attention.py
-// - flash_fwd_kernel      <- _flash_fwd_kernel (Pallas body :188,
-//                            pallas_call :345, wrapper _flash_fwd :306);
-// - flash_bwd_dq_kernel   <- _flash_bwd_dq_kernel (:369, call :530);
-// - flash_bwd_dkv_kernel  <- _flash_bwd_dkv_kernel (:422, call :560).
-// They compute what the Pallas kernels compute: scores from q pre-scaled
-// in f32, the finite NEG_INF = -1e30 for masked scores (a row whose keys
-// are all masked averages V uniformly, with no inf - inf), an online
-// softmax whose l is clamped at 1e-30 and whose lse = m + log(l) is
-// saved; the forward rounds P to the V dtype before P.V; the backward
-// recomputes P = exp(s - lse), keeps dS = P * (dO.V^T - delta) in f32,
-// scales dQ at the end and takes dK from the pre-scaled q.
+// - flash_fwd_mma_kernel (bf16), flash_fwd_kernel (f32)
+//     <- _flash_fwd_kernel (Pallas body :188, pallas_call :345, wrapper
+//        _flash_fwd :306);
+// - flash_bwd_dq_kernel (bf16 and f32) <- _flash_bwd_dq_kernel (:369,
+//     call :530);
+// - flash_bwd_dkv_mma_kernel (bf16), flash_bwd_dkv_kernel (f32)
+//     <- _flash_bwd_dkv_kernel (:422, call :560).
+// They compute what the Pallas kernels compute: f32 scores, the finite
+// NEG_INF = -1e30 for masked scores (a row whose keys are all masked
+// averages V uniformly, with no inf - inf), an online softmax whose l is
+// clamped at 1e-30 and whose lse = m + log(l) is saved; the forward
+// rounds P to the V dtype before P.V; the backward recomputes
+// P = exp(s - lse), keeps P and dS = P * (dO.V^T - delta) in f32 for
+// dV = P^T.dO and dK = dS^T.q, and scales dQ and dK once. The FMA
+// kernels score from q pre-scaled in f32, (q * scale).k; the mma kernels
+// scale the f32 product of the bf16 inputs, (q.k) * scale. For D = 64 the
+// scale 0.125 is a power of two and the two are the same number; for
+// D = 128 they differ at the f32 ulp.
 //
-// What bounds them on H100: operations. Per (q row, key) pair the forward
-// does 4*D flops, dQ 6*D and dK/dV 8*D, against 2-4 bytes read per D
-// values of a whole tile that is reused 64 times: at S = 8192 the
+// What bounds them on H100: operations. Per live (q row, key) pair the
+// forward does 4*D flops, dQ 6*D and dK/dV 8*D, against 2-4 bytes read per
+// D values of a whole tile that is reused 64 times: at S = 8192 the
 // intensity is thousands of flops per byte, far above the card's ~295
-// flop/byte ridge. The floor is the causal flops over the tensor-core
-// rate; these kernels run on the f32 FMA units (67 TFLOP/s), so their
-// own ceiling is that rate.
+// flop/byte ridge. The floor is the causal flops over the bf16
+// tensor-core rate (989 TFLOP/s).
 //
-// Design, and what it does about that bound:
+// Design common to all five kernels:
 // - Pallas carries acc/m/l across a SEQUENTIAL kv grid axis; Hopper
 //   blocks run in no order. So the forward and dQ use one block per
-//   (q tile, batch*head) that loops over the kv tiles inside the block,
-//   and dK/dV one block per (kv tile, batch*head) that loops over the q
-//   tiles from the first live one. Each output is owned by one block:
-//   no atomics, deterministic sums.
+//   (batch*head, q tile) that loops over the kv tiles inside the block,
+//   and dK/dV one block per (batch*head, kv tile) that loops over the q
+//   tiles from the first live one (kv tile 0, which walks the most, is
+//   launched first). Each output is owned by one block: no atomics,
+//   deterministic sums.
 // - Causal loop limits are the reference's _last_live_kv (:152) and
 //   _first_live_q (:160); the per-position masks are its
-//   _causal_block_mask and _pad_mask (:167, :177). All three kernels use
-//   the same expressions, so the backward's P is the forward's. A batch
-//   row with kv_len == 0 has every key masked: its loops cover every
-//   tile, so it averages over all S keys, as reference_attention does.
-// - Tiles of 64 x 64: the block's 256 threads each own a 4 x 4 score
-//   micro-tile (rows ty*4+r, keys tx+16c) and a 4 x D/16 slice of the
-//   output, so every shared-memory value a thread loads feeds 4 FMAs.
-//   Tiles are staged in shared memory as f32 rows padded to D+1 floats,
-//   so reading one column across 16 lanes hits 16 banks.
-// - The causal forward and dQ grids put batch*head on x and walk q tiles
-//   from the last (most kv tiles) to the first, so the longest blocks
-//   start first and the short ones fill the tail.
+//   _causal_block_mask and _pad_mask (:167, :177). All kernels use the
+//   same expressions, so the backward's P is the forward's. A batch row
+//   with kv_len == 0 has every key masked: its loops cover every tile, so
+//   it averages over all S keys, as reference_attention does.
+// - Tiles of 64 q rows by 64 keys (kBK is BLOCK_K of the plain forward).
+//   The causal forward and dQ grids put batch*head on x and walk q tiles
+//   from the last (most kv tiles) to the first.
 // - Inputs are read through their (B, S, H, D) strides (no head-fusing
 //   transpose); the ragged edge is masked, so any S works: keys past S
 //   are zero in shared memory and get P = 0, q rows past S are never
 //   stored and give P = 0 in dK/dV.
-// - Not yet: tensor-core dots (wgmma / mma.sync), TMA or cp.async
-//   staging, in-kernel GQA.
+//
+// bf16 forward and dK/dV: the tensor cores (mma.sync m16n8k16, f32
+// accumulate), 4 warps a block.
+// - Staging: tiles are copied as bf16 by cp.async.cg (16 bytes a copy;
+//   the zero-fill form for rows past S) into a 2-stage ring, so tile
+//   j + 1 loads while tile j computes. Rows are padded to D + 8 elements:
+//   the 8 rows of an ldmatrix phase start 16 bytes apart in the banks, so
+//   the reads are free of conflicts. Rows must start on 16 bytes; the
+//   wrapper (ops/flash_attention.py) refuses inputs whose base pointer or
+//   (b, s, h) strides break that.
+// - Forward: each warp owns 16 q rows; Q is loaded into registers once
+//   (ldmatrix). S = Q.K^T reads K non-transposed (the "col" B operand);
+//   the masks (causal diagonal, ragged edge, kv_len) run only on the tiles
+//   that need them; the online softmax runs on the accumulator fragments,
+//   row max and sum over the 4 lanes that share a row (shfl_xor). P is
+//   rounded to bf16 in registers and those registers are the A operand of
+//   P.V, with V read by ldmatrix.trans.
+// - dK/dV: each warp owns 16 keys; K and V fragments stay in registers at
+//   D = 64, and are re-read from shared memory at D = 128, where holding
+//   them as well as the dK and dV accumulators would spill. Q, dO, lse and
+//   delta of each q tile ride the ring. S^T = K.Q^T and dP^T = V.dO^T run
+//   on the tensor cores from exact bf16 inputs, 16 q columns at a time;
+//   P^T = exp(S^T * scale - lse) and dS^T = P^T * (dP^T - delta) stay in
+//   f32 registers. The reference keeps both in f32, and rounding either to
+//   bf16 is a fault (chip_smoke.py:flash_faults reads ~2e-3 against the
+//   4e-4 limit). So each is split into hi = bf16(x) and lo = bf16(x - hi),
+//   and both go through the mma into one f32 accumulator: ~16 mantissa
+//   bits. That is 6 GEMMs' worth of tensor-core work a tile instead of 4;
+//   the bound stays the algorithm's 8*D flops a pair.
+// - Long sums: the tensor cores truncate where an mma adds into its
+//   accumulator, and over S = 8192 that bias moved dV by 4.1e-4 of its
+//   norm, past the 4e-4 limit. So the products of one kv tile (forward)
+//   or of 16 q rows (dK/dV) go to fresh fragments, and the FMA units add
+//   those to the running f32 sums, rounding to nearest (the forward's as
+//   O = O * alpha + P.V, 64 output columns at a time).
+// f32 (all three passes) and bf16 dQ: the FMA kernels (the f32 units,
+// 67 TFLOP/s): 256 threads, each owning a 4 x 4 score micro-tile (rows
+// ty*4+r, keys tx+16c) and a 4 x D/16 slice of the output; tiles staged
+// synchronously in shared memory as f32 rows padded to D + 1 floats.
+// Not yet: wgmma with TMA-staged tiles and a producer warp; dQ on the
+// tensor cores; in-kernel GQA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,8 +104,14 @@ constexpr int kBK = 64;         // keys per tile (BLOCK_K of the plain forward)
 constexpr int kThreads = 256;   // 16 x 16: ty = tid / 16, tx = tid % 16
 constexpr int kPT = kBK + 1;    // padded row of a score tile
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarpsTC = 4;             // tensor-core kernels: warps a block
+constexpr int kThreadsTC = 32 * kWarpsTC;
 
 static_assert(kBQ == 64 && kBK == 64, "the 4 x 4 micro-tiles assume 64");
+static_assert(kBQ == 16 * kWarpsTC && kBK == 16 * kWarpsTC,
+              "each warp of a tensor-core kernel owns 16 rows");
+
+typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -129,9 +176,144 @@ __device__ __forceinline__ void stage(float* dst, int ld, const T* base,
 }
 
 // ---------------------------------------------------------------------------
-// Forward: out = softmax(q k^T * scale) v, lse per row.
-// grid (B*H, n_q); shared: q (kBQ x D+1), k (kBK x D+1), v (kBK x D),
-// p (kBQ x kBK+1), all f32.
+// Tensor-core helpers (ldmatrix / mma as in bnconv.cu; cp.async staging)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a.b (a fresh accumulator: C is zero).
+__device__ __forceinline__ void mma_bf16_new(float (&c)[4],
+                                             const unsigned (&a)[4],
+                                             unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+// 16 bytes global -> shared; with valid == false the 16 bytes are zeros
+// (src-size 0: nothing is read from src).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ unsigned bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// Two f32 as one bf16x2 register: a in the low half (the lower column of
+// an mma fragment), b in the high half.
+__device__ __forceinline__ unsigned pack_bf16(float a, float b) {
+  return bf16x2_bits(__floats2bfloat162_rn(a, b));
+}
+
+// a ~ hi + lo with hi = bf16(a), lo = bf16(a - hi) (a - hi is exact in
+// f32): about 16 mantissa bits in two bf16 operands.
+__device__ __forceinline__ void split_bf16(float a, float b, unsigned& hi,
+                                           unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
+// Max and sum over the 4 lanes of a quad (one row of an mma fragment).
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
+}
+
+// Start the copy of ROWS rows of a (B, S, H, D) bf16 tensor, from sequence
+// position s0, into dst (row stride D + 8 elements); rows past S are
+// zero-filled and read nothing (their source is clamped to row 0).
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* base,
+                                          long long s_stride, int s0,
+                                          int S) {
+  constexpr int kChunks = D / 8;  // 16-byte copies a row
+  static_assert(ROWS * kChunks % kThreadsTC == 0, "whole rounds of copies");
+#pragma unroll
+  for (int it = 0; it < ROWS * kChunks / kThreadsTC; ++it) {
+    const int e = threadIdx.x + it * kThreadsTC;
+    const int r = e / kChunks, c = e % kChunks, s = s0 + r;
+    const bool ok = s < S;
+    cp_async16(dst + r * (D + 8) + c * 8,
+               base + (ok ? (long long)s * s_stride : 0) + c * 8, ok);
+  }
+}
+
+// Start the copy of kBQ f32 values of a dense (B, H, S) row (lse: threads
+// 0..63; delta: threads 64..127) from position s0; zeros past S.
+static_assert(kThreadsTC == 2 * kBQ, "one thread a stat");
+__device__ __forceinline__ void load_stats(float* lse_dst, float* delta_dst,
+                                           const float* lse_row,
+                                           const float* delta_row, int s0,
+                                           int S) {
+  const int e = threadIdx.x % kBQ, s = s0 + e;
+  const bool ok = s < S;
+  if (threadIdx.x < kBQ)
+    cp_async4(lse_dst + e, lse_row + (ok ? s : 0), ok);
+  else
+    cp_async4(delta_dst + e, delta_row + (ok ? s : 0), ok);
+}
+
+// ---------------------------------------------------------------------------
+// Forward on the FMA units (f32 inputs; bf16 runs flash_fwd_mma_kernel):
+// out = softmax(q k^T * scale) v, lse per row. grid (B*H, n_q); shared:
+// q (kBQ x D+1), k (kBK x D+1), v (kBK x D), p (kBQ x kBK+1), all f32.
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -254,8 +436,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// dQ: dq = scale * sum_j dS_j k_j, dS = P * (dO v^T - delta).
-// grid (B*H, n_q); shared: q, dO, k, v (each 64 x D+1), dS (kBQ x kBK+1).
+// dQ on the FMA units (f32 and bf16 inputs):
+// dq = scale * sum_j dS_j k_j, dS = P * (dO v^T - delta). grid (B*H, n_q);
+// shared: q, dO, k, v (each 64 x D+1), dS (kBQ x kBK+1).
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -375,10 +558,10 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// dK/dV: dv = sum_i P_i^T dO_i, dk = sum_i dS_i^T (q_i * scale).
-// grid (B*H, n_kv); this block owns kv tile j and walks the q tiles.
-// Shared: k, v, q, dO (each 64 x D+1), P^T and dS^T (kBK x kBQ+1),
-// lse and delta of the q tile.
+// dK/dV on the FMA units (f32 inputs; bf16 runs flash_bwd_dkv_mma_kernel):
+// dv = sum_i P_i^T dO_i, dk = sum_i dS_i^T (q_i * scale). grid (B*H, n_kv);
+// this block owns kv tile j and walks the q tiles. Shared: k, v, q, dO
+// (each 64 x D+1), P^T and dS^T (kBK x kBQ+1), lse and delta of the q tile.
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -512,6 +695,395 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 forward on the tensor cores.
+// grid (B*H, n_q), kThreadsTC threads; warp w owns q rows 16w..16w+15.
+// Shared (bf16, rows of D + 8): q (kBQ), k and v rings (2 x kBK each).
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC)
+    flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const int* __restrict__ kv_len, bf16* __restrict__ out,
+                         float* __restrict__ lse, Layout lq, Layout lk,
+                         Layout lv, int H, int S, float scale, int causal) {
+  constexpr int LDS = D + 8;
+  constexpr int KD = D / 16;    // k-steps of S = Q.K^T
+  constexpr int ND = D / 8;     // 8-wide column tiles of the output
+  constexpr int NK = kBK / 8;   // 8-wide key tiles of S
+  constexpr int kOut = ND < 8 ? ND : 8;  // output tiles a P.V chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + kBQ * LDS;
+  bf16* vs = ks + 2 * kBK * LDS;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int n_q = gridDim.y;
+  const int i = causal ? n_q - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int q0 = i * kBQ;
+  const int lane = threadIdx.x % 32, w0 = (threadIdx.x / 32) * 16;
+  const int g = lane >> 2, t = lane & 3;  // fragment row and column pair
+  const int limit = kv_len ? kv_len[b] : S;
+  const int n_kv = (S + kBK - 1) / kBK;
+  const int j_end =
+      (causal && limit > 0) ? min(n_kv, last_live_kv(i) + 1) : n_kv;
+
+  const bf16* kb = k + row_base(lk, b, h);
+  const bf16* vb = v + row_base(lv, b, h);
+  load_tile<D, kBQ>(qs, q + row_base(lq, b, h), lq.s, q0, S);
+  load_tile<D, kBK>(ks, kb, lk.s, 0, S);
+  load_tile<D, kBK>(vs, vb, lv.s, 0, S);
+  cp_async_commit();
+
+  // rows g and g + 8 of the warp's 16: m, l, and the output fragments
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  unsigned qf[KD][4];
+
+  for (int j = 0; j < j_end; ++j) {
+    const int stage = j & 1;
+    if (j + 1 < j_end) {  // the next tile loads while this one computes
+      load_tile<D, kBK>(ks + (stage ^ 1) * kBK * LDS, kb, lk.s,
+                        (j + 1) * kBK, S);
+      load_tile<D, kBK>(vs + (stage ^ 1) * kBK * LDS, vb, lv.s,
+                        (j + 1) * kBK, S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd)
+        ldsm_x4(qf[kd], qs + (w0 + (lane & 15)) * LDS + kd * 16 +
+                            (lane >> 4) * 8);
+    }
+    const bf16* kt = ks + stage * kBK * LDS;
+    const bf16* vt = vs + stage * kBK * LDS;
+    const int k0 = j * kBK;
+
+    // S = Q.K^T: key tiles 2n and 2n + 1 from one ldmatrix.x4 of K rows
+    float s[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+#pragma unroll
+      for (int n = 0; n < NK / 2; ++n) {
+        unsigned r[4];
+        ldsm_x4(r, kt + (n * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS +
+                       kd * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * n], qf[kd], r[0], r[1]);
+        mma_bf16(s[2 * n + 1], qf[kd], r[2], r[3]);
+      }
+    }
+
+    // scale, then the masks on the tiles that need them; keys past S do
+    // not exist (-inf: out of the max, P = 0)
+    const bool edge = (causal && k0 + kBK - 1 > q0) || k0 + kBK > S ||
+                      k0 + kBK > limit;
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] *= scale;
+        if (edge) {
+          const int qpos = q0 + w0 + g + (e >> 1) * 8;
+          const int kpos = k0 + n * 8 + 2 * t + (e & 1);
+          s[n][e] = kpos < S ? mask_score(s[n][e], qpos, kpos, limit, causal)
+                             : -INFINITY;
+        }
+      }
+
+    // online softmax on the fragments; P rounded to bf16 becomes the A
+    // operand of P.V (key tiles 2kk, 2kk + 1 are k-step kk)
+    float alpha[2], mn[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      mn[r] = fmaxf(m[r], quad_max(mx));
+      alpha[r] = expf(m[r] - mn[r]);
+    }
+    unsigned pf[kBK / 16][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[e] = expf(s[n][e] - mn[e >> 1]);
+      sum[0] += p[0] + p[1];  // l sums the f32 values
+      sum[1] += p[2] + p[3];
+      pf[n >> 1][(n & 1) * 2] = pack_bf16(p[0], p[1]);
+      pf[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+      m[r] = mn[r];
+    }
+
+    // O = O * alpha + P.V (V rows are the k dim, read transposed). The
+    // tile's P.V goes to fresh fragments, 64 columns at a time, and is
+    // added to O in f32: the tensor cores truncate where they add into
+    // an accumulator, a bias that would grow over a long kv loop.
+#pragma unroll
+    for (int c0 = 0; c0 < ND; c0 += kOut) {
+      float pv[kOut][4];
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+#pragma unroll
+        for (int n = 0; n < kOut / 2; ++n) {
+          unsigned r[4];
+          ldsm_x4_t(r, vt + (kk * 16 + (lane & 15)) * LDS + (c0 + 2 * n) * 8 +
+                           (lane >> 4) * 8);
+          if (kk == 0) {
+            mma_bf16_new(pv[2 * n], pf[kk], r[0], r[1]);
+            mma_bf16_new(pv[2 * n + 1], pf[kk], r[2], r[3]);
+          } else {
+            mma_bf16(pv[2 * n], pf[kk], r[0], r[1]);
+            mma_bf16(pv[2 * n + 1], pf[kk], r[2], r[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kOut; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[c0 + n][e] = fmaf(o[c0 + n][e], alpha[e >> 1], pv[n][e]);
+    }
+    __syncthreads();  // this stage is free for the load two tiles on
+  }
+
+  const long long o_row = (long long)H * D;  // out is (B, S, H, D) dense
+  bf16* ob = out + ((long long)b * S * H + h) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = q0 + w0 + g + r * 8;
+    if (qpos >= S) continue;
+    const float lc = fmaxf(l[r], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(ob + qpos * o_row + n * 8 + 2 * t) =
+          __floats2bfloat162_rn(o[n][2 * r] / lc, o[n][2 * r + 1] / lc);
+    if (t == 0) lse[(long long)bh * S + qpos] = m[r] + logf(lc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dK/dV on the tensor cores.
+// grid (B*H, n_kv), kThreadsTC threads; warp w owns keys 16w..16w+15 of
+// kv tile j and walks the q tiles. Shared (bf16, rows of D + 8): k, v
+// (kBK each), q and dO rings (2 x kBQ each); f32 lse and delta rings.
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC)
+    flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             const bf16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             const int* __restrict__ kv_len,
+                             bf16* __restrict__ dk, bf16* __restrict__ dv,
+                             Layout lq, Layout lk, Layout lv, Layout lo, int H,
+                             int S, float scale, int causal) {
+  constexpr int LDS = D + 8;
+  constexpr int KD = D / 16;    // k-steps of S^T = K.Q^T and dP^T = V.dO^T
+  constexpr int ND = D / 8;     // 8-wide column tiles of dK and dV
+  constexpr bool kKVRegs = D <= 64;   // K/V fragments held in registers
+  // the q-column loop unrolls only where K/V sit in registers: unrolled at
+  // D = 128 it keeps every iteration's addresses live and spills
+  constexpr int kUnrollC = kKVRegs ? kBQ / 16 : 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + kBK * LDS;
+  bf16* qs = vs + kBK * LDS;
+  bf16* gs = qs + 2 * kBQ * LDS;
+  float* lse_s = reinterpret_cast<float*>(gs + 2 * kBQ * LDS);
+  float* delta_s = lse_s + 2 * kBQ;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int j = blockIdx.y;
+  const int k0 = j * kBK;
+  const int lane = threadIdx.x % 32, w0 = (threadIdx.x / 32) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const int limit = kv_len ? kv_len[b] : S;
+  const int n_q = (S + kBQ - 1) / kBQ;
+  const int i_start = (causal && limit > 0) ? first_live_q(j) : 0;
+
+  const bf16* qb = q + row_base(lq, b, h);
+  const bf16* gb = dout + row_base(lo, b, h);
+  const float* lse_row = lse + (long long)bh * S;
+  const float* delta_row = delta + (long long)bh * S;
+  load_tile<D, kBK>(ks, k + row_base(lk, b, h), lk.s, k0, S);
+  load_tile<D, kBK>(vs, v + row_base(lv, b, h), lv.s, k0, S);
+  load_tile<D, kBQ>(qs, qb, lq.s, i_start * kBQ, S);
+  load_tile<D, kBQ>(gs, gb, lo.s, i_start * kBQ, S);
+  load_stats(lse_s, delta_s, lse_row, delta_row, i_start * kBQ, S);
+  cp_async_commit();
+
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  unsigned kf[kKVRegs ? KD : 1][4], vf[kKVRegs ? KD : 1][4];
+
+  for (int i = i_start; i < n_q; ++i) {
+    const int stage = (i - i_start) & 1;
+    if (i + 1 < n_q) {  // the next q tile loads while this one computes
+      const int nxt = stage ^ 1, s0 = (i + 1) * kBQ;
+      load_tile<D, kBQ>(qs + nxt * kBQ * LDS, qb, lq.s, s0, S);
+      load_tile<D, kBQ>(gs + nxt * kBQ * LDS, gb, lo.s, s0, S);
+      load_stats(lse_s + nxt * kBQ, delta_s + nxt * kBQ, lse_row,
+                 delta_row, s0, S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (kKVRegs) {
+      if (i == i_start) {
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd) {
+          const int off = (w0 + (lane & 15)) * LDS + kd * 16 + (lane >> 4) * 8;
+          ldsm_x4(kf[kd], ks + off);
+          ldsm_x4(vf[kd], vs + off);
+        }
+      }
+    }
+    const bf16* qt = qs + stage * kBQ * LDS;
+    const bf16* gt = gs + stage * kBQ * LDS;
+    const float* lt = lse_s + stage * kBQ;
+    const float* dt = delta_s + stage * kBQ;
+    const int q0 = i * kBQ;
+    const bool edge = (causal && k0 + kBK - 1 > q0) || q0 + kBQ > S ||
+                      k0 + kBK > limit;
+
+#pragma unroll kUnrollC
+    for (int c = 0; c < kBQ / 16; ++c) {  // 16 q columns at a time
+      // S^T and dP^T: 16 keys x 16 q, as q tiles 0 and 1 of 8
+      float st[2][4], dpt[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        unsigned ak[4], av[4], rq[4], rg[4];
+        if constexpr (kKVRegs) {
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            ak[x] = kf[kd][x];
+            av[x] = vf[kd][x];
+          }
+        } else {
+          const int off = (w0 + (lane & 15)) * LDS + kd * 16 + (lane >> 4) * 8;
+          ldsm_x4(ak, ks + off);
+          ldsm_x4(av, vs + off);
+        }
+        const int boff = (c * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS +
+                         kd * 16 + ((lane >> 3) & 1) * 8;
+        ldsm_x4(rq, qt + boff);
+        ldsm_x4(rg, gt + boff);
+        mma_bf16(st[0], ak, rq[0], rq[1]);
+        mma_bf16(st[1], ak, rq[2], rq[3]);
+        mma_bf16(dpt[0], av, rg[0], rg[1]);
+        mma_bf16(dpt[1], av, rg[2], rg[3]);
+      }
+
+      // P^T and dS^T in f32, then each split into hi + lo bf16 A operands
+      // (k = these 16 q: q tile n holds registers 2n and 2n + 1)
+      unsigned ph[4], pl[4], dh[4], dl[4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int qc = c * 16 + n * 8 + 2 * t;  // column of e = 0 and 2
+        const float2 l2 = *reinterpret_cast<const float2*>(lt + qc);
+        const float2 d2 = *reinterpret_cast<const float2*>(dt + qc);
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lq_e = (e & 1) ? l2.y : l2.x;
+          const float dq_e = (e & 1) ? d2.y : d2.x;
+          float sc = st[n][e] * scale;
+          if (edge) {
+            const int qpos = q0 + qc + (e & 1);
+            const int kpos = k0 + w0 + g + (e >> 1) * 8;
+            sc = mask_score(sc, qpos, kpos, limit, causal);
+            p[e] = qpos < S ? expf(sc - lq_e) : 0.f;
+          } else {
+            p[e] = expf(sc - lq_e);
+          }
+          ds[e] = p[e] * (dpt[n][e] - dq_e);
+        }
+        split_bf16(p[0], p[1], ph[2 * n], pl[2 * n]);
+        split_bf16(p[2], p[3], ph[2 * n + 1], pl[2 * n + 1]);
+        split_bf16(ds[0], ds[1], dh[2 * n], dl[2 * n]);
+        split_bf16(ds[2], ds[3], dh[2 * n + 1], dl[2 * n + 1]);
+      }
+
+      // dV += P^T.dO and dK += dS^T.q over these 16 q rows (read
+      // transposed: q rows are the k dim). hi and lo go to fresh
+      // fragments that are added to dV and dK in f32: the tensor cores
+      // truncate where they add into an accumulator, a bias that over a
+      // long q loop moved dV by ~4e-4 of its norm at S = 8192.
+#pragma unroll
+      for (int n = 0; n < ND / 2; ++n) {
+        unsigned rg[4], rq[4];
+        const int boff = (c * 16 + (lane & 15)) * LDS + n * 16 +
+                         (lane >> 4) * 8;
+        ldsm_x4_t(rg, gt + boff);
+        ldsm_x4_t(rq, qt + boff);
+        float pv[4][4];
+        mma_bf16_new(pv[0], ph, rg[0], rg[1]);
+        mma_bf16(pv[0], pl, rg[0], rg[1]);
+        mma_bf16_new(pv[1], ph, rg[2], rg[3]);
+        mma_bf16(pv[1], pl, rg[2], rg[3]);
+        mma_bf16_new(pv[2], dh, rq[0], rq[1]);
+        mma_bf16(pv[2], dl, rq[0], rq[1]);
+        mma_bf16_new(pv[3], dh, rq[2], rq[3]);
+        mma_bf16(pv[3], dl, rq[2], rq[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dva[2 * n][e] += pv[0][e];
+          dva[2 * n + 1][e] += pv[1][e];
+          dka[2 * n][e] += pv[2][e];
+          dka[2 * n + 1][e] += pv[3][e];
+        }
+      }
+    }
+    __syncthreads();  // this stage is free for the load two tiles on
+  }
+
+  const long long o_row = (long long)H * D;
+  const long long base = ((long long)b * S * H + h) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kpos = k0 + w0 + g + r * 8;
+    if (kpos >= S) continue;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const long long at = base + kpos * o_row + n * 8 + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
+          dka[n][2 * r] * scale, dka[n][2 * r + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+          __floats2bfloat162_rn(dva[n][2 * r], dva[n][2 * r + 1]);
+    }
+  }
+}
+
 // Shared memory of each kernel, in bytes.
 size_t fwd_smem(int D) {
   return (size_t)((kBQ + kBK) * (D + 1) + kBK * D + kBQ * kPT) * 4;
@@ -522,6 +1094,13 @@ size_t dq_smem(int D) {
 size_t dkv_smem(int D) {
   return (size_t)(2 * (kBQ + kBK) * (D + 1) + 2 * kBK * (kBQ + 1) +
                   2 * kBQ) * 4;
+}
+size_t fwd_mma_smem(int D) {  // q, 2-stage k and v rings
+  return (size_t)(kBQ + 4 * kBK) * (D + 8) * sizeof(bf16);
+}
+size_t dkv_mma_smem(int D) {  // k, v, 2-stage q and dO rings; lse, delta
+  return (size_t)(2 * kBK + 4 * kBQ) * (D + 8) * sizeof(bf16) +
+         4 * kBQ * sizeof(float);
 }
 
 Layout layout(const long long* st) { return Layout{st[0], st[1], st[2]}; }
@@ -546,6 +1125,24 @@ int launch_fwd(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(kv_len),
       static_cast<T*>(out), static_cast<float*>(lse), layout(strides),
+      layout(strides + 3), layout(strides + 6), H, S, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_fwd_mma(const void* q, const void* k, const void* v,
+                   const void* kv_len, void* out, void* lse,
+                   const long long* strides, int B, int H, int S, float scale,
+                   int causal, cudaStream_t stream) {
+  static_assert(sizeof(T) == sizeof(bf16), "the mma kernels are bf16");
+  const size_t smem = fwd_mma_smem(D);
+  cudaError_t err = allow_smem(flash_fwd_mma_kernel<D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  flash_fwd_mma_kernel<D><<<grid, kThreadsTC, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const int*>(kv_len),
+      static_cast<bf16*>(out), static_cast<float*>(lse), layout(strides),
       layout(strides + 3), layout(strides + 6), H, S, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -588,23 +1185,45 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One dispatch over (dtype, head dim) for the three entry points.
-#define KFTPU_FLASH_DISPATCH(FN, ...)                                  \
-  do {                                                                 \
-    if (is_bf16 && D == 64) return FN<__nv_bfloat16, 64>(__VA_ARGS__); \
-    if (is_bf16 && D == 128)                                           \
-      return FN<__nv_bfloat16, 128>(__VA_ARGS__);                      \
-    if (!is_bf16 && D == 64) return FN<float, 64>(__VA_ARGS__);        \
-    if (!is_bf16 && D == 128) return FN<float, 128>(__VA_ARGS__);      \
-    return static_cast<int>(cudaErrorInvalidValue);                    \
+template <typename T, int D>
+int launch_dkv_mma(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   const void* kv_len, void* dk, void* dv,
+                   const long long* strides, int B, int H, int S, float scale,
+                   int causal, cudaStream_t stream) {
+  static_assert(sizeof(T) == sizeof(bf16), "the mma kernels are bf16");
+  const size_t smem = dkv_mma_smem(D);
+  cudaError_t err = allow_smem(flash_bwd_dkv_mma_kernel<D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (S + kBK - 1) / kBK);
+  flash_bwd_dkv_mma_kernel<D><<<grid, kThreadsTC, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(kv_len), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), layout(strides), layout(strides + 3),
+      layout(strides + 6), layout(strides + 9), H, S, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One dispatch over (dtype, head dim) for the three entry points: BF16
+// launches bf16 inputs, F32 f32 ones.
+#define KFTPU_FLASH_DISPATCH(BF16, F32, ...)                             \
+  do {                                                                   \
+    if (is_bf16 && D == 64) return BF16<bf16, 64>(__VA_ARGS__);          \
+    if (is_bf16 && D == 128) return BF16<bf16, 128>(__VA_ARGS__);        \
+    if (!is_bf16 && D == 64) return F32<float, 64>(__VA_ARGS__);         \
+    if (!is_bf16 && D == 128) return F32<float, 128>(__VA_ARGS__);       \
+    return static_cast<int>(cudaErrorInvalidValue);                      \
   } while (0)
 
 }  // namespace
 
 // strides: 3 element strides (b, s, h) each of q, k, v; out is a dense
 // (B, S, H, D) tensor in q's dtype, lse a dense (B, H, S) f32 tensor;
-// kv_len is (B,) int32 or null. Returns cudaGetLastError() after the
-// launch (0 = cudaSuccess).
+// kv_len is (B,) int32 or null. bf16 rows must start on 16 bytes (the
+// wrapper checks). Returns cudaGetLastError() after the launch
+// (0 = cudaSuccess).
 extern "C" int kftpu_flash_fwd(const void* q, const void* k, const void* v,
                                const void* kv_len, void* out, void* lse,
                                const long long* strides, int B, int H, int S,
@@ -612,8 +1231,8 @@ extern "C" int kftpu_flash_fwd(const void* q, const void* k, const void* v,
                                void* stream) {
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  KFTPU_FLASH_DISPATCH(launch_fwd, q, k, v, kv_len, out, lse, strides, B, H,
-                       S, scale, causal, s);
+  KFTPU_FLASH_DISPATCH(launch_fwd_mma, launch_fwd, q, k, v, kv_len, out, lse,
+                       strides, B, H, S, scale, causal, s);
 }
 
 // strides: (b, s, h) of q, k, v and dO; lse and delta are dense (B, H, S)
@@ -626,11 +1245,12 @@ extern "C" int kftpu_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   int causal, int is_bf16, void* stream) {
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  KFTPU_FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, kv_len, dq,
-                       strides, B, H, S, scale, causal, s);
+  KFTPU_FLASH_DISPATCH(launch_dq, launch_dq, q, k, v, dout, lse, delta,
+                       kv_len, dq, strides, B, H, S, scale, causal, s);
 }
 
-// As kftpu_flash_bwd_dq; dk and dv are dense (B, S, H, D) tensors.
+// As kftpu_flash_bwd_dq (bf16 rows on 16 bytes, as kftpu_flash_fwd); dk
+// and dv are dense (B, S, H, D) tensors.
 extern "C" int kftpu_flash_bwd_dkv(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
@@ -640,6 +1260,6 @@ extern "C" int kftpu_flash_bwd_dkv(const void* q, const void* k,
                                    int is_bf16, void* stream) {
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  KFTPU_FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, kv_len, dk, dv,
-                       strides, B, H, S, scale, causal, s);
+  KFTPU_FLASH_DISPATCH(launch_dkv_mma, launch_dkv, q, k, v, dout, lse, delta,
+                       kv_len, dk, dv, strides, B, H, S, scale, causal, s);
 }

@@ -21,6 +21,10 @@ Tensors are ``(B, S, H, D)`` (K and V already GQA-repeated, as at the
 model's call site); ``lse`` and ``delta`` are ``(B, H, S)`` f32;
 ``kv_len`` is an optional ``(B,)`` int32 valid length per batch row.
 
+The bf16 forward and dK/dV kernels stage rows with 16-byte copies:
+their wrappers raise (:func:`check_rows_16b`) on a bf16 input whose rows
+do not start on 16 bytes, rather than copy it.
+
 ``launches`` counts kernel launches by kernel name (never plain calls).
 """
 
@@ -170,9 +174,26 @@ def _lib():
     return lib
 
 
-def _cuda_args(q, tensors, kv_len):
-    """Check what the kernels take; returns (strides array, kv_len
-    pointer, dims) for the launch."""
+def check_rows_16b(tensors) -> None:
+    """The bf16 forward and dK/dV kernels copy each head-dim row in
+    16-byte pieces (``cp.async``): raise unless every row of every tensor
+    starts on 16 bytes, i.e. its base pointer and its (b, s, h) strides
+    (in bytes, over dims longer than 1) are multiples of 16."""
+    for t in tensors:
+        el = t.element_size()
+        strides = [st * el for st, n in zip(t.stride()[:3], t.shape[:3])
+                   if n > 1]
+        if t.data_ptr() % 16 or any(st % 16 for st in strides):
+            raise ValueError(
+                "the bf16 flash kernels read rows that start on 16 bytes: "
+                f"got base address {t.data_ptr()} and (b, s, h) strides "
+                f"{tuple(t.stride()[:3])} of {el}-byte elements")
+
+
+def _cuda_args(q, tensors, kv_len, rows_16b=False):
+    """Check what the kernels take (with ``rows_16b``, that bf16 rows
+    start on 16 bytes); returns (strides array, kv_len pointer, dims) for
+    the launch."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     B, S, H, D = q.shape
@@ -185,6 +206,8 @@ def _cuda_args(q, tensors, kv_len):
     for t in tensors:
         if t.stride(-1) != 1:
             raise ValueError("the head dim of q/k/v/dO must be contiguous")
+    if rows_16b and q.dtype == torch.bfloat16:
+        check_rows_16b(tensors)
     strides = (ctypes.c_longlong * (3 * len(tensors)))(
         *[st for t in tensors for st in (t.stride(0), t.stride(1),
                                          t.stride(2))])
@@ -217,7 +240,8 @@ def flash_fwd(q, k, v, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal=causal, sm_scale=sm_scale,
                                kv_len=kv_len)
-    strides, len_ptr, (B, H, S, D) = _cuda_args(q, (q, k, v), kv_len)
+    strides, len_ptr, (B, H, S, D) = _cuda_args(q, (q, k, v), kv_len,
+                                                rows_16b=True)
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     lib = _lib()
@@ -271,7 +295,8 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal=causal,
                                    sm_scale=sm_scale, kv_len=kv_len)
-    strides, len_ptr, (B, H, S, D) = _cuda_args(q, (q, k, v, g), kv_len)
+    strides, len_ptr, (B, H, S, D) = _cuda_args(q, (q, k, v, g), kv_len,
+                                                rows_16b=True)
     dk = torch.empty((B, S, H, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, S, H, D), dtype=v.dtype, device=q.device)
     lib = _lib()

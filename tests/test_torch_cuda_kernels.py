@@ -125,7 +125,8 @@ def _flash_inputs(cuda, S, D, dtype, seed):
     return q, k, v, g
 
 
-@pytest.mark.parametrize("S,D", [(256, 64), (200, 128)])
+@pytest.mark.parametrize("S,D", [(256, 64), (200, 128), (1000, 64),
+                                 (512, 128)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -134,7 +135,8 @@ def test_flash_kernels_match_plain(cuda, S, D, causal, masked, dtype):
     the same inputs: lse within 1e-5; f32 within 1e-5 (out) and 1e-4
     (gradients); bf16 within a norm-relative error of 4e-4, the limit of
     ``chip_smoke.py`` (one bf16 fault such as P left unrounded reads
-    ~2e-3). ``kv_len`` holds a zero row."""
+    ~2e-3). ``kv_len`` holds a zero row; S = 1000 has a ragged last
+    tile; D = 128 runs the bf16 kernels' shared-memory K/V variant."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, g = _flash_inputs(cuda, S, D, dtype, seed=S + D)
     lens = (torch.tensor([0, S - 37], dtype=torch.int32, device=cuda)
@@ -200,6 +202,54 @@ def test_flash_kernels_read_strides_and_refuse_what_they_lack(cuda):
         fa.flash_fwd(q32, k32, v32)
     with pytest.raises(TypeError, match="dtype"):
         fa.flash_fwd(q.half(), k.half(), v.half())
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bf16_kernels_are_deterministic(cuda, D):
+    """Two calls of the bf16 forward and dK/dV on the same inputs give
+    bit-identical outputs: each output tile is owned by one block, with
+    no atomics."""
+    q, k, v, g = _flash_inputs(cuda, 1000, D, torch.bfloat16, seed=13)
+    lens = torch.tensor([0, 963], dtype=torch.int32, device=cuda)
+    runs = []
+    for _ in range(2):
+        out, lse = fa.flash_fwd(q, k, v, kv_len=lens)
+        delta = fa.flash_delta(g, out)
+        runs.append((out, lse, *fa.flash_bwd_dkv(q, k, v, g, lse, delta,
+                                                 kv_len=lens)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_flash_bf16_kernels_refuse_rows_off_16_bytes(cuda):
+    """The bf16 forward and dK/dV stage rows with 16-byte copies: a view
+    whose base address or row stride is not a multiple of 16 bytes
+    raises instead of launching; f32 inputs, read by the FMA kernels,
+    take such a view."""
+    B, S, H, D = 2, 130, 4, 64
+    q, k, v, g = _flash_inputs(cuda, S, D, torch.bfloat16, seed=14)
+    out, lse = fa.flash_fwd(q, k, v)
+    delta = fa.flash_delta(g, out)
+    flat = torch.zeros(B * S * H * D + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:].view(B, S, H, D)      # base 2 bytes off
+    shifted.copy_(q)
+    wide = torch.zeros(B, S, H, D + 4, dtype=torch.bfloat16, device=cuda)
+    odd_stride = wide[..., :D]               # rows 136 bytes apart
+    odd_stride.copy_(q)
+    for bad in (shifted, odd_stride):
+        launched = dict(fa.launches)
+        with pytest.raises(ValueError, match="16 bytes"):
+            fa.flash_fwd(bad, k, v)
+        with pytest.raises(ValueError, match="16 bytes"):
+            fa.flash_bwd_dkv(bad, k, v, g, lse, delta)
+        assert fa.launches == launched
+    wide32 = torch.zeros(B, S, H, D + 1, device=cuda)
+    wide32[..., :D].copy_(q.float())
+    want = fa.flash_fwd(q.float(), k.float(), v.float())[0]
+    got = fa.flash_fwd(wide32[..., :D], k.float(), v.float())[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def _bnconv_inputs(cuda, M, K, N, dtype, seed):

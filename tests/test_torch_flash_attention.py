@@ -174,3 +174,46 @@ def test_cpu_tensors_count_no_launch_and_checks_raise():
         fa.flash_fwd(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="lse"):
         fa.flash_bwd_dq(q, k, v, g, lse[:, :, :8], delta)
+
+
+def test_bf16_row_check_refuses_rows_off_16_bytes():
+    """``check_rows_16b`` (the bf16 kernels' cp.async contract) passes
+    the model's views and refuses a base address or a (b, s, h) stride
+    that is not a multiple of 16 bytes; a dim of length 1 never steps."""
+    x = torch.zeros(2, 16, 4, 64, dtype=torch.bfloat16)
+    fused = torch.zeros(2, 16, 3 * 4 * 64, dtype=torch.bfloat16)
+    fa.check_rows_16b([x, x.transpose(1, 2).contiguous().transpose(1, 2),
+                       fused[..., 256:512].view(2, 16, 4, 64),
+                       torch.zeros(1, 16, 1, 64, dtype=torch.bfloat16)
+                       .as_strided((1, 16, 1, 64), (3, 64, 5, 1))])
+    flat = torch.zeros(2 * 16 * 4 * 64 + 1, dtype=torch.bfloat16)
+    for bad in (flat[1:].view(2, 16, 4, 64),
+                torch.zeros(2, 16, 4, 68, dtype=torch.bfloat16)[..., :64],
+                fused[..., 4:260].view(2, 16, 4, 64)):
+        with pytest.raises(ValueError, match="16 bytes"):
+            fa.check_rows_16b([x, bad])
+
+
+def test_zero_length_causal_row_follows_the_reference_not_pallas_tiles():
+    """A ``kv_len = 0`` row under ``causal=True``: the Pallas kernels
+    average V over the keys of the kv tiles up to their causal tile
+    limit (a set that depends on the tile size); ``reference_attention``
+    and the port average over all S keys. The row is padding (its output
+    is unspecified), so the port keeps the reference's rule; the live row
+    beside it agrees with both."""
+    q, k, v, _ = _np_qkv(seed=3)
+    lens = np.asarray([0, 37], np.int32)
+    jl = jnp.asarray(lens)
+    pallas = np.asarray(jatt.flash_attention(*_jax(q, k, v), True, 16, 16,
+                                             None, True, jl))
+    ref = np.asarray(jatt.reference_attention(*_jax(q, k, v), causal=True,
+                                              kv_len=jl))
+    got = fa.flash_fwd(*_torch(q, k, v), causal=True,
+                       kv_len=torch.from_numpy(lens))[0].numpy()
+    np.testing.assert_allclose(got[0], ref[0], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got[1, :37], ref[1, :37], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(pallas[1, :37], ref[1, :37], atol=1e-5, rtol=0)
+    gap = np.abs(pallas[0] - ref[0]).max()
+    assert gap > 0.1, f"the Pallas zero row now matches the reference ({gap})"
+    print(f"kv_len=0 causal row, S=64, tiles 16: Pallas vs reference max "
+          f"abs {gap:.4f}")
