@@ -10,8 +10,10 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
    ``nvcc`` per source, all in parallel) and print the card's name and
    power limit;
 2. hold each kernel against its plain PyTorch version on the card, timed
-   with CUDA events: paged attention at the serving shapes (bf16 within
-   atol 8e-3, f32 within atol 1e-5), the sampler (token-identical), and
+   with CUDA events: paged attention at two lengths, ragged rows up to
+   2048 tokens and phase 3's 251-363 (bf16 within atol 8e-3, f32 within
+   atol 1e-5, GQA included; repeat calls bit-identical, the fused fold's
+   counters back at zero), the sampler (token-identical), and
    the flash forward, dQ and dK/dV kernels (B=2, H=16, D=64, S=2048 and
    a ragged 1000, causal and not, with and without ``kv_len``, and the
    training case S=8192 bf16 causal; lse within 1e-5; f32 within 1e-5
@@ -185,6 +187,36 @@ def paged_bytes_ops(q, k, pages, pos, P, ps):
     return nbytes, flops
 
 
+def paged_serving_inputs(B, QH, KH, Dh, ps, n_log, dtype, device, seed):
+    """Rows as phase 3's serving run leaves them: positions drawn from
+    251-363 (prompts of 251-300 tokens plus up to 64 new), each row's
+    pages up to its frontier mapped from a shuffled pool, the rest the
+    sentinel."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    P = B * n_log
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((B, QH, Dh), generator=gen).to(device, dtype)
+    k = torch.randn((P, ps, KH, Dh), generator=gen).to(device, dtype)
+    v = torch.randn((P, ps, KH, Dh), generator=gen).to(device, dtype)
+    perm = rng.permutation(P).astype(np.int32)
+    pos = rng.integers(251, 364, size=B).astype(np.int32)
+    pages = np.full((B, n_log), P, np.int32)
+    for b in range(B):
+        n = int(pos[b]) // ps + 1
+        pages[b, :n] = perm[b * n_log:b * n_log + n]
+    return (q, k, v, torch.as_tensor(pages, device=device),
+            torch.as_tensor(pos, device=device), P)
+
+
+# the paged kernel's two timed shapes (B=8, Dh=64, page 64, 32 logical
+# pages, bf16): phase 2's ragged rows up to the full 2048 context, and
+# phase 3's serving lengths
+PAGED_SHAPES = {"phase2": paged_inputs, "serving": paged_serving_inputs}
+
+
 def check_paged_kernel(device):
     import torch
 
@@ -201,33 +233,49 @@ def check_paged_kernel(device):
              ("bf16_gqa", 16, 4, torch.bfloat16, 8e-3),
              ("f32", 16, 16, torch.float32, 1e-5),
              ("f32_gqa", 16, 4, torch.float32, 1e-5)]
-    for label, QH, KH, dtype, atol in cases:
-        q, k, v, pages, pos, P = paged_inputs(8, QH, KH, 64, 64, 32, dtype,
-                                              device, seed=SEED + QH + KH)
-        got = pa.paged_decode_attention(q, k, v, pages, pos)
-        want = pa.paged_decode_attention_plain(q, k, v, pages, pos)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        check(bool(torch.isfinite(got.float()).all()),
-              f"paged {label}: non-finite output")
-        check(err <= atol, f"paged {label}: max abs err {err} > {atol}")
-        check(got[-1].float().abs().max().item() == 0.0,
-              f"paged {label}: all-sentinel row is not zeros")
-        typical = want[:-1].float().abs().mean().item()
-        print(f"paged_attention {label}: max_abs_err={err:.3e} "
-              f"(atol {atol}) mean_abs_out={typical:.3e}", flush=True)
-        results[label] = (q, k, v, pages, pos, P, err)
-    q, k, v, pages, pos, P, err = results["bf16"]
-    kernel_ms = time_ms(lambda: pa.paged_decode_attention(q, k, v, pages,
-                                                          pos))
-    plain_ms = time_ms(lambda: pa.paged_decode_attention_plain(
-        q, k, v, pages, pos))
-    nbytes, flops = paged_bytes_ops(q, k, pages, pos, P, k.shape[1])
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    print(f"paged_attention bf16 B=8 QH=KH=16 Dh=64 ps=64 n_log=32: "
-          f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={max(t_bytes, t_ops):.4f} ({nbytes} B)", flush=True)
+    for shape, make in PAGED_SHAPES.items():
+        for label, QH, KH, dtype, atol in cases:
+            q, k, v, pages, pos, P = make(8, QH, KH, 64, 64, 32, dtype,
+                                          device, seed=SEED + QH + KH)
+            got = pa.paged_decode_attention(q, k, v, pages, pos)
+            want = pa.paged_decode_attention_plain(q, k, v, pages, pos)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"paged {shape} {label}: non-finite output")
+            check(err <= atol,
+                  f"paged {shape} {label}: max abs err {err} > {atol}")
+            if shape == "phase2":
+                check(got[-1].float().abs().max().item() == 0.0,
+                      f"paged {label}: all-sentinel row is not zeros")
+            again = pa.paged_decode_attention(q, k, v, pages, pos)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again),
+                  f"paged {shape} {label}: a repeat call differs")
+            counters, _ = pa.device_scratch(q.device, 0, 0)
+            check(int(counters.abs().sum()) == 0,
+                  f"paged {shape} {label}: fold counters not reset")
+            typical = want.float().abs().mean().item()
+            print(f"paged_attention {shape} {label}: max_abs_err={err:.3e} "
+                  f"(atol {atol}) mean_abs_out={typical:.3e}; repeat call "
+                  f"bit-identical", flush=True)
+            results[shape, label] = (q, k, v, pages, pos, P, err)
+    timed = {}
+    for shape in PAGED_SHAPES:
+        q, k, v, pages, pos, P, _ = results[shape, "bf16"]
+        kernel_ms = time_ms(lambda: pa.paged_decode_attention(
+            q, k, v, pages, pos))
+        plain_ms = time_ms(lambda: pa.paged_decode_attention_plain(
+            q, k, v, pages, pos))
+        nbytes, flops = paged_bytes_ops(q, k, pages, pos, P, k.shape[1])
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS * 1e3
+        timed[shape] = (kernel_ms, plain_ms, t_bytes, t_ops)
+        print(f"paged_attention {shape} bf16 B=8 QH=KH=16 Dh=64 ps=64 "
+              f"n_log=32 pos={pos.tolist()}: kernel_ms={kernel_ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={max(t_bytes, t_ops):.4f} "
+              f"({nbytes} B)", flush=True)
+    kernel_ms, plain_ms, t_bytes, t_ops = timed["phase2"]
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "kubeflow_tpu_torch/ops/csrc/paged_attention.cu",
             "replaces": "kubeflow_tpu/ops/paged_attention.py:69",
@@ -460,7 +508,7 @@ def ptxas_kernels(log: str) -> dict:
     """``{(kernel, variant): (registers, spill stores, spill loads)}``
     from nvcc's ``-Xptxas -v`` lines; variant is the mangled template
     arguments (``Li64E`` for the bf16 mma kernels at D = 64, ``fLi64E``
-    for f32, ``13__nv_bfloat16Li64E`` for the bf16 dQ)."""
+    for the f32 FMA kernels)."""
     import re
 
     out, entry, spills = {}, None, (0, 0)
@@ -505,8 +553,11 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
             check(st == 0 and ld == 0,
                   f"{name} at D=64 spills ({st} B stored, {ld} B loaded)")
     if build_log:
-        check(any("mma" in name for name, _ in regs),
-              "no ptxas lines for the flash mma kernels in the build log")
+        missing = {"flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                   "flash_bwd_dkv_mma_kernel"} - {
+                       name for name, variant in regs if variant == "Li64E"}
+        check(not missing, f"no ptxas lines at D=64 for {sorted(missing)} "
+                           "in the build log")
     else:
         print("  ptxas: flash_attention was built before this run (no "
               "compiler log)", flush=True)
@@ -526,8 +577,12 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
         for name, err in errs.items():
             worst[owner[name]] = max(worst[owner[name]], err)
         torch.cuda.empty_cache()
-    # timing on the training path's case (the last one compared)
+    # the training path's case (the last one compared): dQ is owned by
+    # one block per q tile, so a repeat call is bit-identical; then timing
     q, k, v, g, lse, delta = main
+    check(torch.equal(fa.flash_bwd_dq(q, k, v, g, lse, delta),
+                      fa.flash_bwd_dq(q, k, v, g, lse, delta)),
+          "flash_bwd_dq: a repeat call differs")
     ms = {"flash_fwd": time_ms(lambda: fa.flash_fwd(q, k, v)),
           "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(
               q, k, v, g, lse, delta)),

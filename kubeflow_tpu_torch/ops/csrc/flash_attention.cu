@@ -5,8 +5,8 @@
 // - flash_fwd_mma_kernel (bf16), flash_fwd_kernel (f32)
 //     <- _flash_fwd_kernel (Pallas body :188, pallas_call :345, wrapper
 //        _flash_fwd :306);
-// - flash_bwd_dq_kernel (bf16 and f32) <- _flash_bwd_dq_kernel (:369,
-//     call :530);
+// - flash_bwd_dq_mma_kernel (bf16), flash_bwd_dq_kernel (f32)
+//     <- _flash_bwd_dq_kernel (:369, call :530, wrapper _flash_bwd :482);
 // - flash_bwd_dkv_mma_kernel (bf16), flash_bwd_dkv_kernel (f32)
 //     <- _flash_bwd_dkv_kernel (:422, call :560).
 // They compute what the Pallas kernels compute: f32 scores, the finite
@@ -50,14 +50,14 @@
 //   are zero in shared memory and get P = 0, q rows past S are never
 //   stored and give P = 0 in dK/dV.
 //
-// bf16 forward and dK/dV: the tensor cores (mma.sync m16n8k16, f32
+// bf16 (all three passes): the tensor cores (mma.sync m16n8k16, f32
 // accumulate), 4 warps a block.
 // - Staging: tiles are copied as bf16 by cp.async.cg (16 bytes a copy;
 //   the zero-fill form for rows past S) into a 2-stage ring, so tile
 //   j + 1 loads while tile j computes. Rows are padded to D + 8 elements:
 //   the 8 rows of an ldmatrix phase start 16 bytes apart in the banks, so
 //   the reads are free of conflicts. Rows must start on 16 bytes; the
-//   wrapper (ops/flash_attention.py) refuses inputs whose base pointer or
+//   wrappers (ops/flash_attention.py) refuse inputs whose base pointer or
 //   (b, s, h) strides break that.
 // - Forward: each warp owns 16 q rows; Q is loaded into registers once
 //   (ldmatrix). S = Q.K^T reads K non-transposed (the "col" B operand);
@@ -78,18 +78,27 @@
 //   and both go through the mma into one f32 accumulator: ~16 mantissa
 //   bits. That is 6 GEMMs' worth of tensor-core work a tile instead of 4;
 //   the bound stays the algorithm's 8*D flops a pair.
+// - dQ, the forward's mirror: each warp owns 16 q rows, Q and dO
+//   fragments in registers at D = 64 (re-read from shared memory at
+//   D = 128), lse and delta of its rows g and g + 8 in registers; K and V
+//   ride the ring. S = Q.K^T (summed in the forward's order: the
+//   forward's S bit for bit) and dP = dO.V^T read K and V non-transposed;
+//   P = exp(S * scale - lse) and dS = P * (dP - delta) stay in f32
+//   registers, and dS, split into hi + lo, is the A operand of dS.K with K
+//   read by ldmatrix.trans: 4 GEMMs' worth a tile for the algorithm's
+//   6*D flops a pair.
 // - Long sums: the tensor cores truncate where an mma adds into its
 //   accumulator, and over S = 8192 that bias moved dV by 4.1e-4 of its
-//   norm, past the 4e-4 limit. So the products of one kv tile (forward)
-//   or of 16 q rows (dK/dV) go to fresh fragments, and the FMA units add
-//   those to the running f32 sums, rounding to nearest (the forward's as
-//   O = O * alpha + P.V, 64 output columns at a time).
-// f32 (all three passes) and bf16 dQ: the FMA kernels (the f32 units,
-// 67 TFLOP/s): 256 threads, each owning a 4 x 4 score micro-tile (rows
-// ty*4+r, keys tx+16c) and a 4 x D/16 slice of the output; tiles staged
-// synchronously in shared memory as f32 rows padded to D + 1 floats.
-// Not yet: wgmma with TMA-staged tiles and a producer warp; dQ on the
-// tensor cores; in-kernel GQA.
+//   norm, past the 4e-4 limit. So the products of one kv tile (forward,
+//   dQ) or of 16 q rows (dK/dV) go to fresh fragments, and the FMA units
+//   add those to the running f32 sums, rounding to nearest (the
+//   forward's as O = O * alpha + P.V, 64 output columns at a time).
+// f32 (all three passes): the FMA kernels (the f32 units, 67 TFLOP/s):
+// 256 threads, each owning a 4 x 4 score micro-tile (rows ty*4+r, keys
+// tx+16c) and a 4 x D/16 slice of the output; tiles staged synchronously
+// in shared memory as f32 rows padded to D + 1 floats.
+// Not yet: wgmma with TMA-staged tiles and a producer warp; in-kernel
+// GQA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,19 +122,12 @@ static_assert(kBQ == 16 * kWarpsTC && kBK == 16 * kWarpsTC,
 
 typedef __nv_bfloat16 bf16;
 
+// The FMA kernels' element conversions (they run f32 inputs only).
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Element strides of a (B, S, H, D) tensor; the head dim is contiguous.
 struct Layout {
@@ -436,7 +438,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// dQ on the FMA units (f32 and bf16 inputs):
+// dQ on the FMA units (f32 inputs; bf16 runs flash_bwd_dq_mma_kernel):
 // dq = scale * sum_j dS_j k_j, dS = P * (dO v^T - delta). grid (B*H, n_q);
 // shared: q, dO, k, v (each 64 x D+1), dS (kBQ x kBK+1).
 // ---------------------------------------------------------------------------
@@ -1084,6 +1086,212 @@ __global__ void __launch_bounds__(kThreadsTC)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dQ on the tensor cores.
+// grid (B*H, n_q), kThreadsTC threads; warp w owns q rows 16w..16w+15 of
+// q tile i and walks the kv tiles. Shared (bf16, rows of D + 8): q and dO
+// (kBQ each), k and v rings (2 x kBK each).
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC)
+    flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const bf16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            const int* __restrict__ kv_len,
+                            bf16* __restrict__ dq, Layout lq, Layout lk,
+                            Layout lv, Layout lo, int H, int S, float scale,
+                            int causal) {
+  constexpr int LDS = D + 8;
+  constexpr int KD = D / 16;    // k-steps of S = Q.K^T and dP = dO.V^T
+  constexpr int ND = D / 8;     // 8-wide column tiles of dQ
+  constexpr int NK = kBK / 8;   // 8-wide key tiles of S and dP
+  constexpr int kOut = ND < 8 ? ND : 8;  // dQ tiles a dS.K chunk
+  constexpr bool kQRegs = D <= 64;       // Q/dO fragments held in registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* gs = qs + kBQ * LDS;
+  bf16* ks = gs + kBQ * LDS;
+  bf16* vs = ks + 2 * kBK * LDS;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int n_q = gridDim.y;
+  const int i = causal ? n_q - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int q0 = i * kBQ;
+  const int lane = threadIdx.x % 32, w0 = (threadIdx.x / 32) * 16;
+  const int g = lane >> 2, t = lane & 3;  // fragment row and column pair
+  const int limit = kv_len ? kv_len[b] : S;
+  const int n_kv = (S + kBK - 1) / kBK;
+  const int j_end =
+      (causal && limit > 0) ? min(n_kv, last_live_kv(i) + 1) : n_kv;
+
+  const bf16* kb = k + row_base(lk, b, h);
+  const bf16* vb = v + row_base(lv, b, h);
+  load_tile<D, kBQ>(qs, q + row_base(lq, b, h), lq.s, q0, S);
+  load_tile<D, kBQ>(gs, dout + row_base(lo, b, h), lo.s, q0, S);
+  load_tile<D, kBK>(ks, kb, lk.s, 0, S);
+  load_tile<D, kBK>(vs, vb, lv.s, 0, S);
+  cp_async_commit();
+
+  // lse and delta of rows g and g + 8 (rows past S are never stored)
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = q0 + w0 + g + r * 8;
+    const bool in = qpos < S;
+    lse_r[r] = in ? lse[(long long)bh * S + qpos] : 0.f;
+    delta_r[r] = in ? delta[(long long)bh * S + qpos] : 0.f;
+  }
+  float dqa[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+  unsigned qf[kQRegs ? KD : 1][4], gf[kQRegs ? KD : 1][4];
+
+  for (int j = 0; j < j_end; ++j) {
+    const int stage = j & 1;
+    if (j + 1 < j_end) {  // the next tile loads while this one computes
+      load_tile<D, kBK>(ks + (stage ^ 1) * kBK * LDS, kb, lk.s,
+                        (j + 1) * kBK, S);
+      load_tile<D, kBK>(vs + (stage ^ 1) * kBK * LDS, vb, lv.s,
+                        (j + 1) * kBK, S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (kQRegs) {
+      if (j == 0) {
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd) {
+          const int off = (w0 + (lane & 15)) * LDS + kd * 16 + (lane >> 4) * 8;
+          ldsm_x4(qf[kd], qs + off);
+          ldsm_x4(gf[kd], gs + off);
+        }
+      }
+    }
+    const bf16* kt = ks + stage * kBK * LDS;
+    const bf16* vt = vs + stage * kBK * LDS;
+    const int k0 = j * kBK;
+
+    // S = Q.K^T and dP = dO.V^T: key tiles 2n and 2n + 1 from one
+    // ldmatrix.x4 of K (V) rows; S sums in the forward's order, so it is
+    // the forward's S bit for bit
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      unsigned aq[4], ag[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          aq[x] = qf[kd][x];
+          ag[x] = gf[kd][x];
+        }
+      } else {
+        const int off = (w0 + (lane & 15)) * LDS + kd * 16 + (lane >> 4) * 8;
+        ldsm_x4(aq, qs + off);
+        ldsm_x4(ag, gs + off);
+      }
+#pragma unroll
+      for (int n = 0; n < NK / 2; ++n) {
+        unsigned rk[4], rv[4];
+        const int boff = (n * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS +
+                         kd * 16 + ((lane >> 3) & 1) * 8;
+        ldsm_x4(rk, kt + boff);
+        ldsm_x4(rv, vt + boff);
+        mma_bf16(s[2 * n], aq, rk[0], rk[1]);
+        mma_bf16(s[2 * n + 1], aq, rk[2], rk[3]);
+        mma_bf16(dp[2 * n], ag, rv[0], rv[1]);
+        mma_bf16(dp[2 * n + 1], ag, rv[2], rv[3]);
+      }
+    }
+
+    // P = exp(S * scale - lse) and dS = P * (dP - delta) in f32, the masks
+    // only on the tiles that need them (keys past S: P = 0); dS split into
+    // hi + lo bf16 A operands of dS.K (key tiles 2kk, 2kk + 1 are k-step
+    // kk)
+    const bool edge = (causal && k0 + kBK - 1 > q0) || k0 + kBK > S ||
+                      k0 + kBK > limit;
+    unsigned dh[kBK / 16][4], dl[kBK / 16][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float sc = s[n][e] * scale, p;
+        if (edge) {
+          const int qpos = q0 + w0 + g + r * 8;
+          const int kpos = k0 + n * 8 + 2 * t + (e & 1);
+          sc = mask_score(sc, qpos, kpos, limit, causal);
+          p = kpos < S ? expf(sc - lse_r[r]) : 0.f;
+        } else {
+          p = expf(sc - lse_r[r]);
+        }
+        ds[e] = p * (dp[n][e] - delta_r[r]);
+      }
+      split_bf16(ds[0], ds[1], dh[n >> 1][(n & 1) * 2],
+                 dl[n >> 1][(n & 1) * 2]);
+      split_bf16(ds[2], ds[3], dh[n >> 1][(n & 1) * 2 + 1],
+                 dl[n >> 1][(n & 1) * 2 + 1]);
+    }
+
+    // dQ += dS.K (K rows are the k dim, read transposed). hi and lo go to
+    // fresh fragments, 64 columns at a time, that the FMA units add to dQ
+    // rounding to nearest: the tensor cores truncate where they add into
+    // an accumulator, a bias that would grow over the kv loop.
+#pragma unroll
+    for (int c0 = 0; c0 < ND; c0 += kOut) {
+      float pv[kOut][4];
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+#pragma unroll
+        for (int n = 0; n < kOut / 2; ++n) {
+          unsigned r[4];
+          ldsm_x4_t(r, kt + (kk * 16 + (lane & 15)) * LDS + (c0 + 2 * n) * 8 +
+                           (lane >> 4) * 8);
+          if (kk == 0) {
+            mma_bf16_new(pv[2 * n], dh[kk], r[0], r[1]);
+            mma_bf16_new(pv[2 * n + 1], dh[kk], r[2], r[3]);
+          } else {
+            mma_bf16(pv[2 * n], dh[kk], r[0], r[1]);
+            mma_bf16(pv[2 * n + 1], dh[kk], r[2], r[3]);
+          }
+          mma_bf16(pv[2 * n], dl[kk], r[0], r[1]);
+          mma_bf16(pv[2 * n + 1], dl[kk], r[2], r[3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kOut; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dqa[c0 + n][e] += pv[n][e];
+    }
+    __syncthreads();  // this stage is free for the load two tiles on
+  }
+
+  const long long o_row = (long long)H * D;  // dq is (B, S, H, D) dense
+  bf16* ob = dq + ((long long)b * S * H + h) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = q0 + w0 + g + r * 8;
+    if (qpos >= S) continue;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(ob + qpos * o_row + n * 8 + 2 * t) =
+          __floats2bfloat162_rn(dqa[n][2 * r] * scale,
+                                dqa[n][2 * r + 1] * scale);
+  }
+}
+
 // Shared memory of each kernel, in bytes.
 size_t fwd_smem(int D) {
   return (size_t)((kBQ + kBK) * (D + 1) + kBK * D + kBQ * kPT) * 4;
@@ -1101,6 +1309,9 @@ size_t fwd_mma_smem(int D) {  // q, 2-stage k and v rings
 size_t dkv_mma_smem(int D) {  // k, v, 2-stage q and dO rings; lse, delta
   return (size_t)(2 * kBK + 4 * kBQ) * (D + 8) * sizeof(bf16) +
          4 * kBQ * sizeof(float);
+}
+size_t dq_mma_smem(int D) {  // q, dO, 2-stage k and v rings
+  return (size_t)(2 * kBQ + 4 * kBK) * (D + 8) * sizeof(bf16);
 }
 
 Layout layout(const long long* st) { return Layout{st[0], st[1], st[2]}; }
@@ -1163,6 +1374,27 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const int*>(kv_len), static_cast<T*>(dq), layout(strides),
       layout(strides + 3), layout(strides + 6), layout(strides + 9), H, S,
       scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dq_mma(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  const void* kv_len, void* dq, const long long* strides,
+                  int B, int H, int S, float scale, int causal,
+                  cudaStream_t stream) {
+  static_assert(sizeof(T) == sizeof(bf16), "the mma kernels are bf16");
+  const size_t smem = dq_mma_smem(D);
+  cudaError_t err = allow_smem(flash_bwd_dq_mma_kernel<D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  flash_bwd_dq_mma_kernel<D><<<grid, kThreadsTC, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(kv_len), static_cast<bf16*>(dq),
+      layout(strides), layout(strides + 3), layout(strides + 6),
+      layout(strides + 9), H, S, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1236,7 +1468,8 @@ extern "C" int kftpu_flash_fwd(const void* q, const void* k, const void* v,
 }
 
 // strides: (b, s, h) of q, k, v and dO; lse and delta are dense (B, H, S)
-// f32; dq is a dense (B, S, H, D) tensor in q's dtype.
+// f32; dq is a dense (B, S, H, D) tensor in q's dtype. bf16 rows on 16
+// bytes, as kftpu_flash_fwd.
 extern "C" int kftpu_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, const void* kv_len,
@@ -1245,12 +1478,11 @@ extern "C" int kftpu_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   int causal, int is_bf16, void* stream) {
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  KFTPU_FLASH_DISPATCH(launch_dq, launch_dq, q, k, v, dout, lse, delta,
+  KFTPU_FLASH_DISPATCH(launch_dq_mma, launch_dq, q, k, v, dout, lse, delta,
                        kv_len, dq, strides, B, H, S, scale, causal, s);
 }
 
-// As kftpu_flash_bwd_dq (bf16 rows on 16 bytes, as kftpu_flash_fwd); dk
-// and dv are dense (B, S, H, D) tensors.
+// As kftpu_flash_bwd_dq; dk and dv are dense (B, S, H, D) tensors.
 extern "C" int kftpu_flash_bwd_dkv(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,

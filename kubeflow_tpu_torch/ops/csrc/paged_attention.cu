@@ -13,36 +13,45 @@
 // K and V row once (Dh values per KV head) and does 4*Dh flops per key
 // and q head: at Dh = 64 that is ~1 flop per byte, far below the card's
 // ~295 flop/byte ridge, so the floor is live K/V bytes over 3.35 TB/s.
-// Reaching it takes many loads in flight on every SM.
+// Reaching it takes many loads in flight on every SM, and, at the short
+// rows of a serving batch (a few hundred keys), few dependent steps
+// between the launch and the last byte.
 //
 // Design, and what it does about that bound:
 // - The TPU kernel walks (row, page) on a sequential grid and carries
 //   m/l/acc in VMEM scratch from one grid step to the next. Hopper blocks
-//   run in no order, so the page walk is split instead (split-KV, as in
-//   flash decoding): grid (B, KH, n_splits), each block takes `pps`
-//   consecutive logical pages of one row and one KV head and writes a
-//   partial (m, l, acc) for its `group` q heads; a second small kernel
-//   folds the splits of each (row, q head). The wrapper sizes a split at
-//   about 128 keys (scripts/port_paged_sweep.py): at B = 8, KH = 16 and
-//   2048 tokens that is 2048 blocks instead of 128, so every SM has
-//   loads in flight, and a short row still spreads over several blocks.
-// - Splits past the causal frontier exit at once, and sentinel pages and
-//   keys past pos are never loaded: the bytes read are the live keys'.
-// - Loads: each key is read by Dh*sizeof(T)/16 neighbouring lanes with
-//   one 16-byte load each (a bf16 Dh = 64 row is 128 contiguous bytes, 8
-//   lanes), so a warp reads whole rows; the token stride is KH*Dh. The
-//   q slice each lane needs stays in registers. Each lane issues the
-//   loads of kUnroll keys before it uses any, and the split's page ids
-//   are staged in shared memory first, so no load waits on another.
-// - Scores for the split are staged in shared memory (group x pps*ps
-//   f32); the softmax of a split is exact over the split, and the fold
-//   rescales the splits by exp(m_split - m). The P.V sums run in
-//   registers per lane, then across lanes by shuffles and across warps
-//   in shared memory.
-// - Probabilities are rounded to the K/V dtype before the P.V product,
-//   as the reference's p.astype(v.dtype) does; l sums the unrounded f32
-//   values, as the reference does.
-// - Not yet: TMA/cp.async staging, tensor-core dots, a persistent grid.
+//   run in no order, so the page walk is split (split-KV, as in flash
+//   decoding): grid (B, KH, n_splits), each block takes `pps` consecutive
+//   logical pages of one row and one KV head (the wrapper sizes a split
+//   at about _SPLIT_TOKENS keys, scripts/port_paged_sweep.py). Splits
+//   past the causal frontier exit at once.
+// - One pass over HBM: the block stages its split's page ids in shared
+//   memory, then issues cp.async copies (16 bytes each) of the K AND V
+//   rows of its keys up to pos into a 2-stage ring (8 KB of K and 8 KB
+//   of V a stage: 64 keys at bf16, Dh = 64), both stages before it waits
+//   on either, so a split of 128 such keys (32 KB) is in flight at once;
+//   a longer split streams through the ring, each stage refilled as soon
+//   as it is consumed. Keys on sentinel pages are never staged.
+// - Scores, the softmax and P.V run from shared memory with no block-wide
+//   step between them: each key row is read by Dh*sizeof(T)/16
+//   neighbouring lanes (a lane group), 16 bytes each (conflict-free: a
+//   warp reads whole contiguous rows); the q slice each lane needs stays
+//   in registers, the dot is finished by shuffles within the group, and
+//   each group keeps its own online softmax (m, l and its slice of acc)
+//   over the kKeys keys it takes from each stage. At the end the groups
+//   are folded within the warp by shuffles and across warps in shared
+//   memory; a row's only split writes out directly.
+// - Probabilities are rounded to the K/V dtype before the P.V product
+//   (at the running max, as the Pallas kernel rounds at its per-page
+//   running max); l sums the unrounded f32 values, as the reference does.
+// - The fold is fused: each split writes its partial (m, l, acc) to a
+//   workspace, fences, and draws a ticket from a per-(row, KV head)
+//   counter. The block that draws the last live ticket folds the live
+//   splits in split order (so the result does not depend on which block
+//   finished last: repeat calls are bit-identical), writes out, and resets
+//   the counter to 0 for the next call. One launch a call.
+// - Not yet: TMA staging, tensor-core dots for large GQA groups, a
+//   persistent grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,7 +63,6 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;  // keys in flight per lane
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -71,7 +79,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// 16-byte vector load of N elements, widened to f32.
+// 16-byte vector load of N elements (global or shared), widened to f32.
 template <typename T>
 struct Vec;
 template <>
@@ -98,65 +106,97 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
 __device__ __forceinline__ int live_pages(int pos, int ps, int n_log) {
   return pos >= 0 ? min(n_log, pos / ps + 1) : 0;
 }
 
+// 16 bytes global -> shared, around the L1.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Keys a lane group takes from each ring stage.
+constexpr int kKeys = 4;
+
+// Keys a ring stage holds: kKeys for each lane group of Dh * el / 16
+// lanes, so a stage of K (or of V) is always 4 * 128 * 16 = 8 KB.
+__host__ __device__ __forceinline__ int stage_rows(int Dh, int el) {
+  return kKeys * kThreads / (Dh * el / 16);
+}
+
+// Dynamic shared memory of one block: the 2-stage K and V ring (32 KB),
+// which once drained holds the cross-warp partials (kWarps x group x
+// (Dh + 2) f32), then the split's page ids (pps ints).
+__host__ __device__ __forceinline__ size_t ring_bytes(int group, int Dh,
+                                                      int el) {
+  const size_t ring = (size_t)4 * stage_rows(Dh, el) * Dh * el;
+  const size_t red = (size_t)kWarps * group * (Dh + 2) * sizeof(float);
+  return ring > red ? ring : red;
+}
+__host__ __device__ __forceinline__ size_t smem_bytes(int group, int Dh,
+                                                      int el, int pps) {
+  return ring_bytes(group, Dh, el) + (size_t)pps * sizeof(int);
+}
+
 // One (row, KV head, split). G is a compile-time bound on the q-head
-// group (1, 2, 4 or 8); `group` <= G is the real one.
-// Dynamic shared memory: s (group x cap), red (kWarps x group x Dh),
-// m and l (group each) in f32, then the split's page ids (pps ints);
-// cap = pps * ps.
+// group (1, 2, 4 or 8); `group` <= G is the real one. Each lane group
+// (the lpt lanes that read one key row) keeps its own online softmax (m,
+// l and its Dh slice of acc per q head) over the keys it takes, kKeys a
+// stage; the lane groups are folded at the end, within the warp by
+// shuffles and across warps in shared memory.
 // Workspace: ws_acc[((b*KH + kh)*n_splits + sp)*group + g][Dh] and
-// ws_ml[...][2] = (m, l) of that split.
+// ws_ml[...][2] = (m, l) of that split; counters[b*KH + kh] counts the
+// splits of (b, kh) that have written theirs, 0 between calls.
 template <typename T, int G>
-__global__ void __launch_bounds__(kThreads) paged_split_kernel(
+__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ pages,
-    const int* __restrict__ positions, float* __restrict__ ws_acc,
-    float* __restrict__ ws_ml, int QH, int KH, int Dh, int P, int ps,
+    const int* __restrict__ positions, T* __restrict__ out,
+    float* __restrict__ ws_acc, float* __restrict__ ws_ml,
+    unsigned* __restrict__ counters, int QH, int KH, int Dh, int P, int ps,
     int n_log, int pps, int n_splits, float scale) {
   constexpr int VN = Vec<T>::N;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int is_last;
   const int b = blockIdx.x;
   const int kh = blockIdx.y;
   const int sp = blockIdx.z;
-  const int pos = positions[b];
-  const int page0 = sp * pps;
-  const int n_live = live_pages(pos, ps, n_log);
-  if (page0 >= n_live) return;  // past the causal frontier: block-uniform
   const int group = QH / KH;
-  const int cap = pps * ps;
-  const int split_tokens = min(pps, n_live - page0) * ps;
-  const int lpt = Dh / VN;          // lanes per key row (power of two)
-  const int tpb = kThreads / lpt;   // keys per block per pass
+  const int lpt = Dh / VN;          // lanes per key row: 16-byte chunks
+  const int tpb = kThreads / lpt;   // lane groups a block
+  const int rows = kKeys * tpb;     // keys a ring stage
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int sub = tid & (lpt - 1);  // this lane's Dh slice
-  const int slot = tid / lpt;       // this lane's key within a pass
-  float* s_s = smem;
-  float* red = s_s + group * cap;
-  float* m_s = red + kWarps * group * Dh;
-  float* l_s = m_s + group;
-  int* pg_s = reinterpret_cast<int*>(l_s + group);  // the split's pages
+  const int slot = tid / lpt;       // this lane's group
+  T* ks = reinterpret_cast<T*>(smem_raw);
+  T* vs = ks + 2 * rows * Dh;
+  int* pg_s = reinterpret_cast<int*>(
+      smem_raw + ring_bytes(group, Dh, (int)sizeof(T)));
+  // the drained ring: per warp and q head, acc (Dh), then m and l
+  float* red = reinterpret_cast<float*>(smem_raw);
 
+  // the split's page ids, the row's position and the q slices, loaded
+  // together
+  const int page0 = sp * pps;
   const int* prow = pages + (size_t)b * n_log;
-  for (int i = tid; i < split_tokens / ps; i += kThreads)
+  for (int i = tid; i < pps && page0 + i < n_log; i += kThreads)
     pg_s[i] = prow[page0 + i];
-
+  const int pos = positions[b];
   float qr[G][VN];
   const size_t q_off = ((size_t)b * QH + (size_t)kh * group) * Dh + sub * VN;
 #pragma unroll
@@ -168,247 +208,281 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
       for (int i = 0; i < VN; ++i) qr[g][i] = 0.f;
     }
   }
-  __syncthreads();
+  const int n_live = live_pages(pos, ps, n_log);
+  const int n_sp = (n_live + pps - 1) / pps;  // live splits of the row
+  T* ob = out + ((size_t)b * QH + (size_t)kh * group) * Dh;
+  if (sp >= n_sp) {  // past the causal frontier: block-uniform
+    if (n_sp == 0 && sp == 0) {  // no live page at all: zeros
+      for (int i = tid; i < group * Dh; i += kThreads) ob[i] = from_f32<T>(0.f);
+    }
+    return;
+  }
+  __syncthreads();  // pg_s
 
-  const size_t tok_stride = (size_t)KH * Dh;
-  const size_t head_off = (size_t)kh * Dh + sub * VN;
   const int pos0 = page0 * ps;  // kv position of the split's first key
-  // Row offset of key t of the split, or -1 where it does not attend
-  // (past the split, on a sentinel page, or past pos).
-  auto row_of = [&](int t) -> long long {
-    if (t >= split_tokens || pos0 + t > pos) return -1;
+  // keys of the split up to pos (those past it are never staged)
+  const int n_tok = min(min(pps, n_live - page0) * ps, pos + 1 - pos0);
+  const int n_st = (n_tok + rows - 1) / rows;
+  const size_t tok_stride = (size_t)KH * Dh;
+  // a key's page, or -1 where it is past the split's keys or unmapped
+  auto page_of = [&](int t) {
+    if (t >= n_tok) return -1;
     const int page = pg_s[t / ps];
-    if (page < 0 || page >= P) return -1;
-    return (long long)(((size_t)page * ps + t % ps) * tok_stride + head_off);
+    return page >= 0 && page < P ? page : -1;
   };
 
-  // -- scores: s = (q . k) * scale, -inf for keys that do not attend -----
-  // kUnroll keys per lane per pass, all loads issued before any use
-  for (int base = 0; base < split_tokens; base += kUnroll * tpb) {
-    float kf[kUnroll][VN];
-    long long row[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      row[u] = row_of(base + u * tpb + slot);
-      if (row[u] >= 0) Vec<T>::load(k + row[u], kf[u]);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = base + u * tpb + slot;
-      float part[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        part[g] = 0.f;
-        if (row[u] >= 0) {
-#pragma unroll
-          for (int i = 0; i < VN; ++i) part[g] += qr[g][i] * kf[u][i];
-        }
-      }
-      // every lane of the warp runs the same passes, so the shuffles
-      // see the whole warp
-      for (int o = lpt >> 1; o > 0; o >>= 1) {
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-          part[g] += __shfl_xor_sync(kFull, part[g], o);
-      }
-      if (sub == 0 && t < split_tokens) {
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          if (g < group)
-            s_s[g * cap + t] = row[u] >= 0 ? part[g] * scale : -INFINITY;
-        }
+  // start the copies of stage st's K and V rows (16 bytes each; the rows
+  // of unmapped pages are not staged)
+  auto stage_copy = [&](int st) {
+    T* kd = ks + (st & 1) * rows * Dh;
+    T* vd = vs + (st & 1) * rows * Dh;
+    const int t0 = st * rows;
+    for (int e = tid; e < rows * lpt; e += kThreads) {
+      const int r = e / lpt, c = e - r * lpt, t = t0 + r;
+      const int page = page_of(t);
+      if (page >= 0) {
+        const size_t off = ((size_t)page * ps + t % ps) * tok_stride +
+                           (size_t)kh * Dh + c * VN;
+        cp_async16(kd + r * Dh + c * VN, k + off);
+        cp_async16(vd + r * Dh + c * VN, v + off);
       }
     }
-  }
-  __syncthreads();
+    cp_async_commit();
+  };
+  stage_copy(0);
+  if (n_st > 1) stage_copy(1);
 
-  // -- softmax of the split, one warp per q head of the group -----------
-  for (int g = warp; g < group; g += kWarps) {
-    float* sg = s_s + g * cap;
-    float mx = -INFINITY;
-    for (int t = lane; t < split_tokens; t += 32) mx = fmaxf(mx, sg[t]);
-    mx = warp_max(mx);
-    const bool any = mx != -INFINITY;  // false: every page was a sentinel
-    float sum = 0.f;
-    for (int t = lane; t < split_tokens; t += 32) {
-      const float p = any ? expf(sg[t] - mx) : 0.f;  // exp(-inf) = 0
-      sum += p;
-      sg[t] = to_f32(from_f32<T>(p));  // p.astype(v.dtype)
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      m_s[g] = any ? mx : kNegInf;
-      l_s[g] = sum;
-    }
-  }
-  __syncthreads();
-
-  // -- acc = p @ V over the split's live keys ---------------------------
-  float acc[G][VN];
+  float m[G], l[G], acc[G][VN];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
 #pragma unroll
     for (int i = 0; i < VN; ++i) acc[g][i] = 0.f;
   }
-  for (int base = 0; base < split_tokens; base += kUnroll * tpb) {
-    float vf[kUnroll][VN];
-    long long row[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      row[u] = row_of(base + u * tpb + slot);
-      if (row[u] >= 0) Vec<T>::load(v + row[u], vf[u]);
+  for (int st = 0; st < n_st; ++st) {
+    if (st + 1 < n_st) {
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    const T* kt = ks + (st & 1) * rows * Dh;
+    const T* vt = vs + (st & 1) * rows * Dh;
+
+    // this lane group's keys r = slot + u * tpb of the stage: scores
+    // s = (q . k) * scale, -inf where the key does not attend
+    bool live[kKeys];
+    float x[kKeys][VN], s[kKeys][G];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (row[u] < 0) continue;
-      const int t = base + u * tpb + slot;
+    for (int u = 0; u < kKeys; ++u) {
+      const int r = slot + u * tpb;
+      live[u] = page_of(st * rows + r) >= 0;
+      if (live[u]) Vec<T>::load(kt + r * Dh + sub * VN, x[u]);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const float p = g < group ? s_s[g * cap + t] : 0.f;
+        s[u][g] = 0.f;
+        if (live[u]) {
 #pragma unroll
-        for (int i = 0; i < VN; ++i) acc[g][i] += p * vf[u][i];
+          for (int i = 0; i < VN; ++i) s[u][g] += qr[g][i] * x[u][i];
+        }
+      }
+    }
+    // the dot over the group's lanes; every lane of a warp runs this
+    for (int o = lpt >> 1; o > 0; o >>= 1) {
+#pragma unroll
+      for (int u = 0; u < kKeys; ++u)
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          s[u][g] += __shfl_xor_sync(kFull, s[u][g], o);
+    }
+#pragma unroll
+    for (int u = 0; u < kKeys; ++u) {
+      const int r = slot + u * tpb;
+      if (live[u]) Vec<T>::load(vt + r * Dh + sub * VN, x[u]);
+    }
+
+    // online softmax step over these keys; P rounded to the K/V dtype
+    // before P.V, l sums the unrounded values
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float mx = m[g];
+#pragma unroll
+      for (int u = 0; u < kKeys; ++u) {
+        s[u][g] = live[u] ? s[u][g] * scale : -INFINITY;
+        mx = fmaxf(mx, s[u][g]);
+      }
+      const float alpha = expf(m[g] - mx);  // m starts finite: no nan
+      m[g] = mx;
+      l[g] *= alpha;
+#pragma unroll
+      for (int i = 0; i < VN; ++i) acc[g][i] *= alpha;
+#pragma unroll
+      for (int u = 0; u < kKeys; ++u) {
+        const float p = expf(s[u][g] - mx);  // exp(-inf) = 0
+        l[g] += p;
+        const float pr = to_f32(from_f32<T>(p));  // p.astype(v.dtype)
+        if (live[u]) {
+#pragma unroll
+          for (int i = 0; i < VN; ++i) acc[g][i] += pr * x[u][i];
+        }
+      }
+    }
+    __syncthreads();  // stage st & 1 is free
+    if (st + 2 < n_st) stage_copy(st + 2);
+  }
+
+  // fold the lane groups: within the warp (lanes of the same slice), then
+  // across warps in shared memory, always in the same order
+  for (int o = lpt; o < 32; o <<= 1) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float mb = __shfl_xor_sync(kFull, m[g], o);
+      const float lb = __shfl_xor_sync(kFull, l[g], o);
+      const float mm = fmaxf(m[g], mb);
+      const float wa = expf(m[g] - mm), wb = expf(mb - mm);
+      l[g] = l[g] * wa + lb * wb;
+      m[g] = mm;
+#pragma unroll
+      for (int i = 0; i < VN; ++i) {
+        const float ab = __shfl_xor_sync(kFull, acc[g][i], o);
+        acc[g][i] = acc[g][i] * wa + ab * wb;
       }
     }
   }
-  // lanes holding the same Dh slice: fold across the warp's keys
-  for (int o = 16; o >= lpt; o >>= 1) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-#pragma unroll
-      for (int i = 0; i < VN; ++i)
-        acc[g][i] += __shfl_xor_sync(kFull, acc[g][i], o);
-    }
-  }
+  const int stride = group * (Dh + 2);  // floats a warp
   if (lane < lpt) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       if (g < group) {
+        float* rg = red + warp * stride + g * (Dh + 2);
 #pragma unroll
-        for (int i = 0; i < VN; ++i)
-          red[(warp * group + g) * Dh + sub * VN + i] = acc[g][i];
+        for (int i = 0; i < VN; ++i) rg[sub * VN + i] = acc[g][i];
+        if (sub == 0) {
+          rg[Dh] = m[g];
+          rg[Dh + 1] = l[g];
+        }
       }
     }
   }
   __syncthreads();
-  const size_t ws = (((size_t)b * KH + kh) * n_splits + sp) * group;
+  const size_t row_kh = (size_t)b * KH + kh;
+  const size_t ws = (row_kh * n_splits + sp) * group;
   for (int i = tid; i < group * Dh; i += kThreads) {
-    float a = 0.f;
+    const int g = i / Dh, d = i - g * Dh;
+    float mm = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) a += red[w * group * Dh + i];
-    ws_acc[ws * Dh + i] = a;
-  }
-  if (tid < group) {
-    ws_ml[(ws + tid) * 2] = m_s[tid];
-    ws_ml[(ws + tid) * 2 + 1] = l_s[tid];
-  }
-}
-
-// Fold the live splits of one (row, q head): grid (B, QH), Dh threads.
-template <typename T>
-__global__ void paged_combine_kernel(const float* __restrict__ ws_acc,
-                                     const float* __restrict__ ws_ml,
-                                     const int* __restrict__ positions,
-                                     T* __restrict__ out, int QH, int KH,
-                                     int Dh, int ps, int n_log, int pps,
-                                     int n_splits) {
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int group = QH / KH;
-  const int kh = h / group;
-  const int g = h - kh * group;
-  const int n_sp = (live_pages(positions[b], ps, n_log) + pps - 1) / pps;
-  const size_t base = ((size_t)b * KH + kh) * n_splits;
-  float m = kNegInf;
-  for (int s = 0; s < n_sp; ++s)
-    m = fmaxf(m, ws_ml[((base + s) * group + g) * 2]);
-  float l = 0.f;
-  for (int s = 0; s < n_sp; ++s) {
-    const size_t i = ((base + s) * group + g) * 2;
-    l += ws_ml[i + 1] * expf(ws_ml[i] - m);
-  }
-  for (int d = threadIdx.x; d < Dh; d += blockDim.x) {
-    float a = 0.f;
-    for (int s = 0; s < n_sp; ++s) {
-      const size_t i = (base + s) * group + g;
-      a += ws_acc[i * Dh + d] * expf(ws_ml[i * 2] - m);
+    for (int w = 0; w < kWarps; ++w)
+      mm = fmaxf(mm, red[w * stride + g * (Dh + 2) + Dh]);
+    float a = 0.f, ls = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float* rg = red + w * stride + g * (Dh + 2);
+      const float wt = expf(rg[Dh] - mm);
+      a += rg[d] * wt;
+      ls += rg[Dh + 1] * wt;
     }
-    out[((size_t)b * QH + h) * Dh + d] = from_f32<T>(a / fmaxf(l, 1e-30f));
+    if (n_sp == 1) {  // the row's only split: nothing to fold
+      ob[i] = from_f32<T>(a / fmaxf(ls, 1e-30f));
+    } else {
+      ws_acc[ws * Dh + i] = a;
+      if (d == 0) {
+        ws_ml[(ws + g) * 2] = mm;
+        ws_ml[(ws + g) * 2 + 1] = ls;
+      }
+    }
   }
+  if (n_sp == 1) return;
+
+  // -- the fold: the last live split of (b, kh) to finish ----------------
+  __threadfence();  // this thread's partials reach L2 before the ticket
+  __syncthreads();
+  if (tid == 0)
+    is_last = atomicAdd(counters + row_kh, 1u) == (unsigned)(n_sp - 1);
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const size_t base = row_kh * n_splits;
+  for (int i = tid; i < group * Dh; i += kThreads) {
+    const int g = i / Dh, d = i - g * Dh;
+    float mm = kNegInf;
+    for (int s = 0; s < n_sp; ++s)
+      mm = fmaxf(mm, __ldcg(ws_ml + ((base + s) * group + g) * 2));
+    float ls = 0.f, a = 0.f;
+    for (int s = 0; s < n_sp; ++s) {  // in split order
+      const size_t j = (base + s) * group + g;
+      const float wt = expf(__ldcg(ws_ml + j * 2) - mm);
+      ls += __ldcg(ws_ml + j * 2 + 1) * wt;
+      a += __ldcg(ws_acc + j * Dh + d) * wt;
+    }
+    ob[i] = from_f32<T>(a / fmaxf(ls, 1e-30f));
+  }
+  if (tid == 0) counters[row_kh] = 0u;  // ready for the next call
 }
 
 template <typename T, int G>
-void launch_split(dim3 grid, size_t smem, cudaStream_t s, const void* q,
-                  const void* k, const void* v, const void* pages,
-                  const void* positions, void* ws_acc, void* ws_ml, int QH,
-                  int KH, int Dh, int P, int ps, int n_log, int pps,
-                  int n_splits, float scale) {
-  paged_split_kernel<T, G><<<grid, kThreads, smem, s>>>(
+int launch_group(dim3 grid, size_t smem, cudaStream_t s, const void* q,
+                 const void* k, const void* v, const void* pages,
+                 const void* positions, void* out, void* ws_acc, void* ws_ml,
+                 void* counters, int QH, int KH, int Dh, int P, int ps,
+                 int n_log, int pps, int n_splits, float scale) {
+  paged_decode_kernel<T, G><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(pages),
-      static_cast<const int*>(positions), static_cast<float*>(ws_acc),
-      static_cast<float*>(ws_ml), QH, KH, Dh, P, ps, n_log, pps, n_splits,
-      scale);
+      static_cast<const int*>(positions), static_cast<T*>(out),
+      static_cast<float*>(ws_acc), static_cast<float*>(ws_ml),
+      static_cast<unsigned*>(counters), QH, KH, Dh, P, ps, n_log, pps,
+      n_splits, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* pages,
            const void* positions, void* out, void* ws_acc, void* ws_ml,
-           int B, int QH, int KH, int Dh, int P, int ps, int n_log, int pps,
-           float scale, cudaStream_t s, size_t smem) {
+           void* counters, int B, int QH, int KH, int Dh, int P, int ps,
+           int n_log, int pps, float scale, cudaStream_t s) {
   const int group = QH / KH;
   const int n_splits = (n_log + pps - 1) / pps;
   const dim3 grid(B, KH, n_splits);
-  if (group <= 1)
-    launch_split<T, 1>(grid, smem, s, q, k, v, pages, positions, ws_acc,
-                       ws_ml, QH, KH, Dh, P, ps, n_log, pps, n_splits, scale);
-  else if (group <= 2)
-    launch_split<T, 2>(grid, smem, s, q, k, v, pages, positions, ws_acc,
-                       ws_ml, QH, KH, Dh, P, ps, n_log, pps, n_splits, scale);
-  else if (group <= 4)
-    launch_split<T, 4>(grid, smem, s, q, k, v, pages, positions, ws_acc,
-                       ws_ml, QH, KH, Dh, P, ps, n_log, pps, n_splits, scale);
-  else if (group <= 8)
-    launch_split<T, 8>(grid, smem, s, q, k, v, pages, positions, ws_acc,
-                       ws_ml, QH, KH, Dh, P, ps, n_log, pps, n_splits, scale);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  paged_combine_kernel<T><<<dim3(B, QH), Dh, 0, s>>>(
-      static_cast<const float*>(ws_acc), static_cast<const float*>(ws_ml),
-      static_cast<const int*>(positions), static_cast<T*>(out), QH, KH, Dh,
-      ps, n_log, pps, n_splits);
-  return static_cast<int>(cudaGetLastError());
+  const size_t smem = smem_bytes(group, Dh, (int)sizeof(T), pps);
+#define KFTPU_PAGED_GROUP(G)                                                \
+  return launch_group<T, G>(grid, smem, s, q, k, v, pages, positions, out,  \
+                            ws_acc, ws_ml, counters, QH, KH, Dh, P, ps,     \
+                            n_log, pps, n_splits, scale)
+  if (group <= 1) KFTPU_PAGED_GROUP(1);
+  if (group <= 2) KFTPU_PAGED_GROUP(2);
+  if (group <= 4) KFTPU_PAGED_GROUP(4);
+  if (group <= 8) KFTPU_PAGED_GROUP(8);
+#undef KFTPU_PAGED_GROUP
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Dynamic shared memory of one split block.
-extern "C" size_t kftpu_paged_decode_smem_bytes(int group, int Dh, int ps,
+// Dynamic shared memory of one block.
+extern "C" size_t kftpu_paged_decode_smem_bytes(int group, int Dh, int el,
                                                 int pps) {
-  return (size_t)(group * pps * ps + kWarps * group * Dh + 2 * group) *
-             sizeof(float) +
-         (size_t)pps * sizeof(int);
+  return smem_bytes(group, Dh, el, pps);
 }
 
 // Largest q-head group the kernel takes.
 extern "C" int kftpu_paged_decode_max_group() { return 8; }
 
 // ws_acc: B*KH*n_splits*group*Dh f32, ws_ml: B*KH*n_splits*group*2 f32,
-// n_splits = ceil(n_log / pps). Returns cudaGetLastError() after the
-// launches (0 = cudaSuccess).
+// n_splits = ceil(n_log / pps); counters: B*KH uint32, zero on entry and
+// left zero on exit. Returns cudaGetLastError() after the launch
+// (0 = cudaSuccess).
 extern "C" int kftpu_paged_decode_attention(
     const void* q, const void* k, const void* v, const void* pages,
-    const void* positions, void* out, void* ws_acc, void* ws_ml, int B,
-    int QH, int KH, int Dh, int P, int ps, int n_log, int pps, float scale,
-    int is_bf16, void* stream) {
+    const void* positions, void* out, void* ws_acc, void* ws_ml,
+    void* counters, int B, int QH, int KH, int Dh, int P, int ps, int n_log,
+    int pps, float scale, int is_bf16, void* stream) {
   if (B == 0) return 0;
-  const size_t smem = kftpu_paged_decode_smem_bytes(QH / KH, Dh, ps, pps);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch<__nv_bfloat16>(q, k, v, pages, positions, out, ws_acc,
-                                 ws_ml, B, QH, KH, Dh, P, ps, n_log, pps,
-                                 scale, s, smem);
-  return launch<float>(q, k, v, pages, positions, out, ws_acc, ws_ml, B, QH,
-                       KH, Dh, P, ps, n_log, pps, scale, s, smem);
+                                 ws_ml, counters, B, QH, KH, Dh, P, ps,
+                                 n_log, pps, scale, s);
+  return launch<float>(q, k, v, pages, positions, out, ws_acc, ws_ml,
+                       counters, B, QH, KH, Dh, P, ps, n_log, pps, scale, s);
 }

@@ -21,9 +21,9 @@ Tensors are ``(B, S, H, D)`` (K and V already GQA-repeated, as at the
 model's call site); ``lse`` and ``delta`` are ``(B, H, S)`` f32;
 ``kv_len`` is an optional ``(B,)`` int32 valid length per batch row.
 
-The bf16 forward and dK/dV kernels stage rows with 16-byte copies:
-their wrappers raise (:func:`check_rows_16b`) on a bf16 input whose rows
-do not start on 16 bytes, rather than copy it.
+The bf16 kernels (forward, dQ and dK/dV) stage rows with 16-byte
+copies: their wrappers raise (:func:`check_rows_16b`) on a bf16 input
+whose rows do not start on 16 bytes, rather than copy it.
 
 ``launches`` counts kernel launches by kernel name (never plain calls).
 """
@@ -175,10 +175,10 @@ def _lib():
 
 
 def check_rows_16b(tensors) -> None:
-    """The bf16 forward and dK/dV kernels copy each head-dim row in
-    16-byte pieces (``cp.async``): raise unless every row of every tensor
-    starts on 16 bytes, i.e. its base pointer and its (b, s, h) strides
-    (in bytes, over dims longer than 1) are multiples of 16."""
+    """The bf16 flash kernels copy each head-dim row in 16-byte pieces
+    (``cp.async``): raise unless every row of every tensor starts on 16
+    bytes, i.e. its base pointer and its (b, s, h) strides (in bytes,
+    over dims longer than 1) are multiples of 16."""
     for t in tensors:
         el = t.element_size()
         strides = [st * el for st, n in zip(t.stride()[:3], t.shape[:3])
@@ -275,7 +275,8 @@ def flash_bwd_dq(q, k, v, g, lse, delta, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, g, lse, delta, causal=causal,
                                   sm_scale=sm_scale, kv_len=kv_len)
-    strides, len_ptr, (B, H, S, D) = _cuda_args(q, (q, k, v, g), kv_len)
+    strides, len_ptr, (B, H, S, D) = _cuda_args(q, (q, k, v, g), kv_len,
+                                                rows_16b=True)
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):

@@ -22,7 +22,7 @@ its source note says what bounds it and how it is laid out.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -89,7 +89,7 @@ def _lib():
     fn = lib.kftpu_paged_decode_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 8 + [ctypes.c_float, i, p]
+        fn.argtypes = [p] * 9 + [i] * 8 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
         sm = lib.kftpu_paged_decode_smem_bytes
         sm.argtypes = [i, i, i, i]
@@ -100,18 +100,43 @@ def _lib():
     return lib
 
 
-def _pages_per_split(lib, group: int, Dh: int, ps: int) -> int:
+def _pages_per_split(lib, group: int, Dh: int, el: int, ps: int) -> int:
     """Logical pages per split block: about ``_SPLIT_TOKENS`` keys, fewer
     where the block's shared memory would pass ``_MAX_SMEM``."""
     pps = max(1, _SPLIT_TOKENS // ps)
     while pps > 1 and lib.kftpu_paged_decode_smem_bytes(
-            group, Dh, ps, pps) > _MAX_SMEM:
+            group, Dh, el, pps) > _MAX_SMEM:
         pps //= 2
-    smem = lib.kftpu_paged_decode_smem_bytes(group, Dh, ps, pps)
+    smem = lib.kftpu_paged_decode_smem_bytes(group, Dh, el, pps)
     if smem > _MAX_SMEM:
         raise ValueError(f"group {group} x Dh {Dh} x page {ps} needs "
                          f"{smem} B of shared memory (max {_MAX_SMEM})")
     return pps
+
+
+# device -> (fold counters, split workspace), kept between calls
+_scratch: Dict[Tuple[str, Optional[int]], Tuple[torch.Tensor,
+                                               torch.Tensor]] = {}
+
+
+def device_scratch(device: torch.device, n_counters: int, n_ws: int):
+    """The fused fold's buffers on ``device``: ``n_counters`` (or more)
+    int32 counters, zeroed once when allocated, and ``n_ws`` (or more)
+    f32 of split workspace. Both are kept per device and grown, never
+    shrunk; a grown counter buffer is a new zeroed one.
+
+    The kernel leaves every counter it draws from at 0 (the last split
+    of each (row, KV head) resets it), and calls on one stream run in
+    order, so each call finds its counters at 0 and the workspace free.
+    The contract: on one device, calls run on one stream at a time."""
+    key = (device.type, device.index)
+    counters, ws = _scratch.get(key, (None, None))
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
+    if ws is None or ws.numel() < n_ws:
+        ws = torch.empty(n_ws, dtype=torch.float32, device=device)
+    _scratch[key] = (counters, ws)
+    return counters, ws
 
 
 def paged_decode_attention(q, k_pages, v_pages, pages, positions, *,
@@ -124,7 +149,10 @@ def paged_decode_attention(q, k_pages, v_pages, pages, positions, *,
     - ``positions``: ``(B,)`` int32, each row's query position (keys
       ``<= positions[b]`` attend).
 
-    Returns ``(B, QH, Dh)`` in ``q.dtype``.
+    Returns ``(B, QH, Dh)`` in ``q.dtype``. On a CUDA device the kernel
+    is one launch that folds its splits itself, through counters and a
+    workspace kept per device (:func:`device_scratch`): calls on one
+    device must run on one stream at a time.
     """
     _check(q, k_pages, v_pages, pages, positions)
     if q.device.type == "cpu":
@@ -139,7 +167,8 @@ def paged_decode_attention(q, k_pages, v_pages, pages, positions, *,
     B, QH, Dh = q.shape
     P, ps, KH, _ = k_pages.shape
     n_log = pages.shape[1]
-    vec = 16 // q.element_size()
+    el = q.element_size()
+    vec = 16 // el
     lanes = Dh // vec
     if Dh % vec or lanes & (lanes - 1) or lanes > 32:
         raise ValueError(f"head dim {Dh} must be {vec} x a power of two "
@@ -152,23 +181,21 @@ def paged_decode_attention(q, k_pages, v_pages, pages, positions, *,
     if group > lib.kftpu_paged_decode_max_group():
         raise ValueError(f"q-head group {group} exceeds the kernel's "
                          f"{lib.kftpu_paged_decode_max_group()}")
-    pps = _pages_per_split(lib, group, Dh, ps)
+    pps = _pages_per_split(lib, group, Dh, el, ps)
     n_splits = -(-n_log // pps)
     scale = sm_scale if sm_scale is not None else Dh ** -0.5
     out = torch.empty_like(q)
-    # per-split partials (acc, and m/l), folded by the second kernel
-    ws_acc = torch.empty((B, KH, n_splits, group, Dh), dtype=torch.float32,
-                         device=q.device)
-    ws_ml = torch.empty((B, KH, n_splits, group, 2), dtype=torch.float32,
-                        device=q.device)
+    # per-split partials (acc, then m/l), folded by the last split
+    n_part = B * KH * n_splits * group
+    counters, ws = device_scratch(q.device, B * KH, n_part * (Dh + 2))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.kftpu_paged_decode_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             pages.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            ws_acc.data_ptr(), ws_ml.data_ptr(), B, QH, KH, Dh, P, ps,
-            n_log, pps, float(scale), int(q.dtype == torch.bfloat16),
-            stream)
+            ws.data_ptr(), ws.data_ptr() + n_part * Dh * 4,
+            counters.data_ptr(), B, QH, KH, Dh, P, ps, n_log, pps,
+            float(scale), int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"cudaError {rc}")

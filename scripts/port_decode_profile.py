@@ -88,8 +88,7 @@ def main() -> int:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + dt / 1e3  # ms
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    kernels = {"paged_decode_attention": ("paged_split_kernel",
-                                          "paged_combine_kernel"),
+    kernels = {"paged_decode_attention": ("paged_decode_kernel",),
                "fused_sample": ("fused_sample_kernel",)}
     port = {k: sum(v for n, v in by_name.items()
                    if any(part in n for part in parts))

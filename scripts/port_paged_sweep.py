@@ -1,73 +1,107 @@
 #!/usr/bin/env python3
-"""Split size of the port's paged decode kernel, swept on one GPU.
+"""The port's paged decode kernel timed on one GPU: over split sizes, or
+against another checkout's kernel.
 
 ``kubeflow_tpu_torch/ops/csrc/paged_attention.cu`` splits each row's
-live pages into blocks of about ``_SPLIT_TOKENS`` keys. This script times
-the kernel (``chip_smoke.time_ms``: CUDA events, cold L2, device time
-only) for several split sizes at two shapes of the serving model (B=8,
-QH=KH=16, Dh=64, page 64, 32 logical pages, bf16): rows at their full
-2048-token context, and rows at 280-340 tokens as in ``chip_smoke.py``'s
-serving phase. Prints one JSON line per point with the bound of its
-shape (live K/V bytes over 3.35 TB/s).
+live pages into blocks of about ``_SPLIT_TOKENS`` keys. Every point is
+timed with ``chip_smoke.time_ms`` (CUDA events, cold L2, device time
+only) at ``chip_smoke.py``'s two timed shapes of the serving model (B=8,
+QH=KH=16, Dh=64, page 64, 32 logical pages, bf16): phase 2's ragged rows
+up to the full 2048-token context, and phase 3's serving lengths
+(positions 251-363). Prints one JSON line per point, with the card's
+name and power limit and the bound of its shape (live K/V bytes over
+3.35 TB/s), and one for the floor of the timing itself: ``time_ms`` of
+a one-element fill, a launch that moves nothing.
 
-Usage: ``python3 scripts/port_paged_sweep.py`` (needs CUDA).
+Usage (needs CUDA):
+
+- ``python3 scripts/port_paged_sweep.py`` sweeps the split size;
+- ``python3 scripts/port_paged_sweep.py --against DIR`` times DIR's
+  kernel (another checkout's root, e.g. the parent commit unpacked by
+  ``git archive``) and this checkout's at their own split sizes, in
+  turns (DIR, this, this, DIR), each in a process of its own.
 """
 
 from __future__ import annotations
 
+import argparse
+import importlib.util
 import json
 import os
 import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.dirname(HERE))
+ROOT = os.path.dirname(HERE)
+
+
+def _smoke():
+    """This checkout's ``chip_smoke`` (inputs, bounds and timing), loaded
+    by path: with ``--tree`` the package on ``sys.path`` is another's."""
+    spec = importlib.util.spec_from_file_location(
+        "port_paged_sweep_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _points(splits, tree):
+    import torch
+
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+
+    smoke = _smoke()
+    dev = torch.device("cuda", 0)
+    ident = smoke.gpu_identity()
+    one = torch.empty(1, device=dev)
+    print(json.dumps({"device": ident, "tree": tree, "shape": "floor",
+                      "kernel_ms": smoke.time_ms(one.zero_)}), flush=True)
+    default = pa._SPLIT_TOKENS
+    try:
+        for shape, make in smoke.PAGED_SHAPES.items():
+            q, k, v, pages, pos, P = make(8, 16, 16, 64, 64, 32,
+                                          torch.bfloat16, dev,
+                                          seed=smoke.SEED + 32)
+            want = pa.paged_decode_attention_plain(q, k, v, pages, pos)
+            nbytes, _ = smoke.paged_bytes_ops(q, k, pages, pos, P, 64)
+            for split in splits or (default,):
+                pa._SPLIT_TOKENS = split
+                got = pa.paged_decode_attention(q, k, v, pages, pos)
+                err = (got.float() - want.float()).abs().max().item()
+                ms = smoke.time_ms(
+                    lambda: pa.paged_decode_attention(q, k, v, pages, pos))
+                print(json.dumps({
+                    "device": ident, "tree": tree, "shape": shape,
+                    "split_tokens": split, "kernel_ms": ms,
+                    "bound_ms": nbytes / smoke.HBM_BYTES_PER_S * 1e3,
+                    "max_abs_err": err}), flush=True)
+    finally:
+        pa._SPLIT_TOKENS = default
 
 
 def main() -> int:
-    import numpy as np
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", metavar="DIR",
+                    help="time DIR's kernel and this one's in turns")
+    ap.add_argument("--tree", metavar="DIR",
+                    help="time DIR's kernel only (one turn of --against)")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("needs CUDA", file=sys.stderr)
         return 1
-    import chip_smoke
-    from kubeflow_tpu_torch.ops import paged_attention as pa
-
-    dev = torch.device("cuda", 0)
-    ident = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True,
-        text=True).stdout.strip()
-    B, H, Dh, ps, n_log = 8, 16, 64, 64, 32
-    P = B * n_log
-    gen = torch.Generator(device="cpu").manual_seed(0)
-    q = torch.randn((B, H, Dh), generator=gen).to(dev, torch.bfloat16)
-    k = torch.randn((P, ps, H, Dh), generator=gen).to(dev, torch.bfloat16)
-    v = torch.randn((P, ps, H, Dh), generator=gen).to(dev, torch.bfloat16)
-    pages = torch.arange(P, dtype=torch.int32, device=dev).reshape(B, n_log)
-    rng = np.random.default_rng(0)
-    shapes = {"full_2048": np.full(B, n_log * ps - 1),
-              "serving_280_340": rng.integers(280, 341, size=B)}
-    default = pa._SPLIT_TOKENS
-    try:
-        for label, pos_np in shapes.items():
-            pos = torch.as_tensor(pos_np.astype(np.int32), device=dev)
-            want = pa.paged_decode_attention_plain(q, k, v, pages, pos)
-            nbytes, _ = chip_smoke.paged_bytes_ops(q, k, pages, pos, P, ps)
-            for split in (64, 128, 256, 512, 1024):
-                pa._SPLIT_TOKENS = split
-                got = pa.paged_decode_attention(q, k, v, pages, pos)
-                err = (got.float() - want.float()).abs().max().item()
-                ms = chip_smoke.time_ms(
-                    lambda: pa.paged_decode_attention(q, k, v, pages, pos))
-                print(json.dumps({
-                    "device": ident, "shape": label, "split_tokens": split,
-                    "kernel_ms": ms,
-                    "bound_ms": nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3,
-                    "max_abs_err": err}), flush=True)
-    finally:
-        pa._SPLIT_TOKENS = default
+    if args.against:
+        other = os.path.abspath(args.against)
+        for tree in (other, ROOT, ROOT, other):
+            rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                 "--tree", tree]).returncode
+            if rc:
+                return rc
+        return 0
+    sys.path.insert(0, os.path.abspath(args.tree or ROOT))
+    _points(None if args.tree else (64, 128, 256, 512, 1024),
+            args.tree or ROOT)
     return 0
 
 

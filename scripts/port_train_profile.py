@@ -29,9 +29,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 
-# the flash kernels' symbols: bf16 forward and dK/dV on the tensor cores
-# (*_mma_kernel), dQ and the f32 passes on the FMA units
-FLASH = ("flash_fwd_mma_kernel", "flash_fwd_kernel", "flash_bwd_dq_kernel",
+# the flash kernels' symbols: bf16 on the tensor cores (*_mma_kernel),
+# f32 on the FMA units
+FLASH = ("flash_fwd_mma_kernel", "flash_fwd_kernel",
+         "flash_bwd_dq_mma_kernel", "flash_bwd_dq_kernel",
          "flash_bwd_dkv_mma_kernel", "flash_bwd_dkv_kernel")
 GEMM = ("gemm", "cutlass", "xmma", "nvjet", "sm90_", "cublas")
 

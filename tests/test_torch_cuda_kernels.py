@@ -50,20 +50,81 @@ def _paged_inputs(QH, KH, *, B=5, Dh=64, ps=16, n_log=6, P=40, seed=0):
     return q, k, v, pages, positions
 
 
-@pytest.mark.parametrize("QH,KH", [(8, 2), (16, 16)])
+def _paged_serving_inputs(QH, KH, *, B=8, Dh=64, ps=64, n_log=32, seed=1):
+    """Rows at serving lengths (positions 251-363, as the chip smoke's
+    serving phase): each row's pages up to its frontier mapped from a
+    shuffled pool, the rest the sentinel."""
+    rng = np.random.default_rng(seed)
+    P = B * n_log
+    q = rng.normal(size=(B, QH, Dh)).astype(np.float32)
+    k = rng.normal(size=(P, ps, KH, Dh)).astype(np.float32)
+    v = rng.normal(size=(P, ps, KH, Dh)).astype(np.float32)
+    perm = rng.permutation(P).astype(np.int32)
+    positions = rng.integers(251, 364, size=B).astype(np.int32)
+    pages = np.full((B, n_log), P, np.int32)
+    for b in range(B):
+        n = int(positions[b]) // ps + 1
+        pages[b, :n] = perm[b * n_log:b * n_log + n]
+    return q, k, v, pages, positions
+
+
+def _paged_case(cuda, inputs, dtype):
+    q, k, v, pages, positions = (torch.from_numpy(a).to(cuda)
+                                 for a in inputs)
+    return q.to(dtype), k.to(dtype), v.to(dtype), pages, positions
+
+
+@pytest.mark.parametrize("shape,QH,KH", [("ragged", 8, 2),
+                                         ("ragged", 16, 16),
+                                         ("ragged", 16, 2),
+                                         ("serving", 16, 16),
+                                         ("serving", 16, 2)])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
                                         (torch.bfloat16, 8e-3)])
-def test_paged_kernel_matches_plain(cuda, QH, KH, dtype, atol):
-    q, k, v, pages, positions = (torch.from_numpy(a).to(cuda)
-                                 for a in _paged_inputs(QH, KH))
-    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+def test_paged_kernel_matches_plain(cuda, shape, QH, KH, dtype, atol):
+    """One launch a call against the plain version: ragged rows with an
+    all-sentinel row (zeros), and rows at serving lengths; GQA groups of
+    4 and of 8 (the kernel's largest)."""
+    make = _paged_inputs if shape == "ragged" else _paged_serving_inputs
+    q, k, v, pages, positions = _paged_case(cuda, make(QH, KH), dtype)
     before = pa.launches["paged_decode_attention"]
     got = pa.paged_decode_attention(q, k, v, pages, positions)
     torch.cuda.synchronize()
     want = pa.paged_decode_attention_plain(q, k, v, pages, positions)
     assert pa.launches["paged_decode_attention"] == before + 1
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
-    assert (got[-1] == 0).all()
+    if shape == "ragged":
+        assert (got[-1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_repeats_bit_for_bit_and_resets_its_counters(cuda,
+                                                                  dtype):
+    """The fused fold sums the splits in split order, whichever split
+    finishes last, and the last split of each (row, KV head) leaves its
+    counter at zero for the next call: repeat calls, also at another
+    split size (other grids over the same counters), are bit-identical."""
+    q, k, v, pages, positions = _paged_case(
+        cuda, _paged_serving_inputs(16, 4, seed=2), dtype)
+    runs = [pa.paged_decode_attention(q, k, v, pages, positions)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    counters, _ = pa.device_scratch(q.device, 0, 0)
+    assert int(counters.abs().sum()) == 0
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    default = pa._SPLIT_TOKENS
+    try:
+        pa._SPLIT_TOKENS = 64
+        other = pa.paged_decode_attention(q, k, v, pages, positions)
+    finally:
+        pa._SPLIT_TOKENS = default
+    again = pa.paged_decode_attention(q, k, v, pages, positions)
+    torch.cuda.synchronize()
+    assert int(counters.abs().sum()) == 0
+    assert torch.equal(again, runs[0])
+    torch.testing.assert_close(other.float(), runs[0].float(),
+                               atol=1e-5 if dtype == torch.float32 else 8e-3,
+                               rtol=0)
 
 
 def test_sampler_kernel_matches_plain(cuda):
@@ -206,25 +267,27 @@ def test_flash_kernels_read_strides_and_refuse_what_they_lack(cuda):
 
 @pytest.mark.parametrize("D", [64, 128])
 def test_flash_bf16_kernels_are_deterministic(cuda, D):
-    """Two calls of the bf16 forward and dK/dV on the same inputs give
-    bit-identical outputs: each output tile is owned by one block, with
-    no atomics."""
+    """Two calls of the bf16 forward, dQ and dK/dV on the same inputs
+    give bit-identical outputs: each output tile is owned by one block,
+    with no atomics."""
     q, k, v, g = _flash_inputs(cuda, 1000, D, torch.bfloat16, seed=13)
     lens = torch.tensor([0, 963], dtype=torch.int32, device=cuda)
     runs = []
     for _ in range(2):
         out, lse = fa.flash_fwd(q, k, v, kv_len=lens)
         delta = fa.flash_delta(g, out)
-        runs.append((out, lse, *fa.flash_bwd_dkv(q, k, v, g, lse, delta,
-                                                 kv_len=lens)))
+        runs.append((out, lse,
+                     fa.flash_bwd_dq(q, k, v, g, lse, delta, kv_len=lens),
+                     *fa.flash_bwd_dkv(q, k, v, g, lse, delta,
+                                       kv_len=lens)))
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
 
 
 def test_flash_bf16_kernels_refuse_rows_off_16_bytes(cuda):
-    """The bf16 forward and dK/dV stage rows with 16-byte copies: a view
-    whose base address or row stride is not a multiple of 16 bytes
+    """The bf16 forward, dQ and dK/dV stage rows with 16-byte copies: a
+    view whose base address or row stride is not a multiple of 16 bytes
     raises instead of launching; f32 inputs, read by the FMA kernels,
     take such a view."""
     B, S, H, D = 2, 130, 4, 64
@@ -241,6 +304,8 @@ def test_flash_bf16_kernels_refuse_rows_off_16_bytes(cuda):
         launched = dict(fa.launches)
         with pytest.raises(ValueError, match="16 bytes"):
             fa.flash_fwd(bad, k, v)
+        with pytest.raises(ValueError, match="16 bytes"):
+            fa.flash_bwd_dq(bad, k, v, g, lse, delta)
         with pytest.raises(ValueError, match="16 bytes"):
             fa.flash_bwd_dkv(bad, k, v, g, lse, delta)
         assert fa.launches == launched

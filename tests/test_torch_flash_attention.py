@@ -217,3 +217,29 @@ def test_zero_length_causal_row_follows_the_reference_not_pallas_tiles():
     assert gap > 0.1, f"the Pallas zero row now matches the reference ({gap})"
     print(f"kv_len=0 causal row, S=64, tiles 16: Pallas vs reference max "
           f"abs {gap:.4f}")
+
+
+@pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv"])
+def test_every_kernel_wrapper_asks_for_16_byte_rows(monkeypatch, wrapper):
+    """All three bf16 kernels stage rows with cp.async, so each wrapper
+    hands its launch arguments to ``_cuda_args`` with ``rows_16b``
+    (checked on ``meta`` tensors, which take the kernel branch here)."""
+    seen = {}
+
+    class _Stop(Exception):
+        pass
+
+    def fake(q, tensors, kv_len, rows_16b=False):
+        seen["rows_16b"] = rows_16b
+        raise _Stop
+
+    monkeypatch.setattr(fa, "_cuda_args", fake)
+    q, k, v, g = (torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16,
+                              device="meta") for _ in range(4))
+    stats = torch.zeros(1, 2, 8, device="meta")
+    args = (q, k, v) if wrapper == "flash_fwd" else (q, k, v, g, stats,
+                                                     stats)
+    with pytest.raises(_Stop):
+        getattr(fa, wrapper)(*args)
+    assert seen == {"rows_16b": True}

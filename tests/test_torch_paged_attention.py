@@ -117,3 +117,28 @@ def test_wrapper_checks_inputs():
         pa.paged_decode_attention(q[:, :3], k, v, pages, positions)
     with pytest.raises(ValueError, match="positions"):
         pa.paged_decode_attention(q, k, v, pages, positions[:2])
+
+
+def test_fold_scratch_is_kept_per_device_zeroed_and_grown():
+    """The fused fold's counters and workspace (``device_scratch``): one
+    pair per device, kept between calls, reused while large enough, and
+    replaced by larger ones (counters zeroed) when a call needs more."""
+    cpu, meta = torch.device("cpu"), torch.device("meta")
+    try:
+        counters, ws = pa.device_scratch(cpu, 8, 100)
+        assert counters.dtype == torch.int32 and ws.dtype == torch.float32
+        assert counters.numel() == 8 and ws.numel() == 100
+        assert int(counters.abs().sum()) == 0
+        same = pa.device_scratch(cpu, 4, 50)
+        assert same[0] is counters and same[1] is ws
+        counters[0] = 3                  # a fold left mid-way, say
+        grown, ws2 = pa.device_scratch(cpu, 16, 60)
+        assert grown is not counters and grown.numel() == 16
+        assert int(grown.abs().sum()) == 0 and ws2 is ws
+        assert pa.device_scratch(cpu, 0, 0)[0] is grown
+        other, _ = pa.device_scratch(meta, 2, 2)   # another device's own
+        assert other.device == meta and other.numel() == 2
+        assert pa.device_scratch(cpu, 0, 0)[0] is grown
+    finally:
+        for dev in (cpu, meta):
+            pa._scratch.pop((dev.type, dev.index), None)
