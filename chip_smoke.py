@@ -55,7 +55,13 @@ Phase 2 also holds the bnconv forward and dW kernels, and the autograd
 function's four gradients, against their plain versions at the four
 ResNet-50 sites (bf16 and f32) and at ragged shapes: bf16 outputs within
 a norm-relative error of 4e-4, which a bf16 fault in each must exceed,
-f32 within 1e-5; each kernel is timed at every site.
+f32 within 1e-5, bf16 repeat calls bit-identical; it prints the wgmma
+kernels' ptxas registers (a spill fails) and times each kernel at every
+site. And it runs the inputs the kernels once refused through them, at
+the same limits: flash at head dims 32, 80 and 96 (zero-padded) and 256
+(timed at B=2, H=16, S=2048, causal; 320 must still raise), paged decode
+at a GQA group of 16, at Dh=96 (bf16) and Dh=256 (f32), and the sampler
+at Llama-3's 128,256-token vocabulary (token-identical, timed).
 
 The last three lines of standard output are the ``nvidia-smi`` name and
 power limit, the ``{"kernels": [...]}`` record, and ``{"ok": true, ...}``.
@@ -260,6 +266,36 @@ def check_paged_kernel(device):
                   f"(atol {atol}) mean_abs_out={typical:.3e}; repeat call "
                   f"bit-identical", flush=True)
             results[shape, label] = (q, k, v, pages, pos, P, err)
+    # (label, QH, KH, Dh, dtype, atol): inputs the kernel once refused, a
+    # GQA group of 16 (two blocks of 8 q heads), Dh = 96 at bf16 (lanes
+    # rounded up to 16), Dh = 256 at f32 (two 16-byte slices a lane)
+    wide = [("gqa16_bf16", 32, 2, 64, torch.bfloat16, 8e-3),
+            ("dh96_bf16", 16, 16, 96, torch.bfloat16, 8e-3),
+            ("dh256_f32", 16, 16, 256, torch.float32, 1e-5)]
+    for label, QH, KH, Dh, dtype, atol in wide:
+        q, k, v, pages, pos, P = paged_inputs(8, QH, KH, Dh, 64, 32, dtype,
+                                              device, seed=SEED + QH + Dh)
+        before = pa.launches["paged_decode_attention"]
+        got = pa.paged_decode_attention(q, k, v, pages, pos)
+        again = pa.paged_decode_attention(q, k, v, pages, pos)
+        want = pa.paged_decode_attention_plain(q, k, v, pages, pos)
+        torch.cuda.synchronize()
+        check(pa.launches["paged_decode_attention"] == before + 2,
+              f"paged {label}: the kernel did not launch")
+        err = (got.float() - want.float()).abs().max().item()
+        check(bool(torch.isfinite(got.float()).all()),
+              f"paged {label}: non-finite output")
+        check(err <= atol, f"paged {label}: max abs err {err} > {atol}")
+        check(got[-1].float().abs().max().item() == 0.0,
+              f"paged {label}: all-sentinel row is not zeros")
+        check(torch.equal(got, again), f"paged {label}: a repeat call differs")
+        counters, _ = pa.device_scratch(q.device, 0, 0)
+        check(int(counters.abs().sum()) == 0,
+              f"paged {label}: fold counters not reset")
+        print(f"paged_attention phase2 {label} QH={QH} KH={KH} Dh={Dh}: "
+              f"max_abs_err={err:.3e} (atol {atol}); repeat call "
+              f"bit-identical", flush=True)
+        results["phase2", label] = (q, k, v, pages, pos, P, err)
     timed = {}
     for shape in PAGED_SHAPES:
         q, k, v, pages, pos, P, _ = results[shape, "bf16"]
@@ -319,6 +355,27 @@ def check_sampler_kernel(device):
               f"{want.tolist()}")
     print(f"fused_sample B={B} V={V}: token-identical over 4 noise draws "
           f"({got.tolist()})", flush=True)
+    # Llama-3's vocabulary, past the shared-memory row: the row lives in
+    # a device-memory workspace
+    big, _, _, _ = sampler_inputs(device, V=128256, seed=SEED + 1)
+    for seed in range(2):
+        noise_big = sm.gumbel_noise(list(range(B)), [seed] * B, 128256,
+                                    device=device)
+        before = sm.launches["fused_sample"]
+        got_big = sm.fused_sample(big, noise_big, temp, top_k, top_p)
+        want_big = sm.fused_sample_plain(big, noise_big, temp, top_k, top_p)
+        torch.cuda.synchronize()
+        check(sm.launches["fused_sample"] == before + 1,
+              "fused_sample at V=128256 did not launch")
+        check(torch.equal(got_big, want_big),
+              f"fused_sample V=128256 differs from plain: "
+              f"{got_big.tolist()} vs {want_big.tolist()}")
+    big_ms = time_ms(lambda: sm.fused_sample(big, noise_big, temp, top_k,
+                                             top_p))
+    print(f"fused_sample B={B} V=128256 (row in device memory): "
+          f"token-identical over 2 noise draws ({got_big.tolist()}); "
+          f"kernel_ms={big_ms:.4f}", flush=True)
+    del big, noise_big
     kernel_ms = time_ms(lambda: sm.fused_sample(logits, noise, temp, top_k,
                                                 top_p))
     plain_ms = time_ms(lambda: sm.fused_sample_plain(logits, noise, temp,
@@ -454,7 +511,8 @@ def compare_flash(B, S, H, D, dtype, device, seed, *, causal, masked,
     want = over_heads(flash_plain(causal, lens), q, k, v, g, lse, delta,
                       step)
     lens_txt = f"[0,{S - 77}]" if masked else None
-    label = (f"S={S} {str(dtype)[6:]} causal={causal} kv_len={lens_txt}")
+    label = (f"S={S} D={D} {str(dtype)[6:]} causal={causal} "
+             f"kv_len={lens_txt}")
     want = dict(zip(("out", "lse", "dq", "dk", "dv"), want))
     errs, parts = {}, []
     for (name, b), a in zip(want.items(), got):
@@ -504,19 +562,23 @@ def flash_bytes_ops(B, S, H, D, el, causal):
             "flash_bwd_dkv": (4 * n + 2 * stats + 2 * n, 8 * pairs * D)}
 
 
-def ptxas_kernels(log: str) -> dict:
-    """``{(kernel, variant): (registers, spill stores, spill loads)}``
-    from nvcc's ``-Xptxas -v`` lines; variant is the mangled template
-    arguments (``Li64E`` for the bf16 mma kernels at D = 64, ``fLi64E``
-    for the f32 FMA kernels)."""
+def ptxas_kernels(log: str,
+                  pattern: str = r"(flash_[a-z_]+_kernel)I(\w*?Li\d+E)E"
+                  ) -> dict:
+    """``{key: (registers, spill stores, spill loads)}`` from nvcc's
+    ``-Xptxas -v`` lines, for the entry points whose mangled names match
+    ``pattern``; the key is its group, or the tuple of its groups. By
+    default the flash kernels, keyed (kernel, variant): variant is the
+    mangled template arguments (``Li64E`` for the bf16 mma kernels at
+    D = 64, ``fLi64E`` for the f32 FMA kernels)."""
     import re
 
     out, entry, spills = {}, None, (0, 0)
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '_Z\w*?(flash_[a-z_]+_kernel)"
-                      r"I(\w*?Li\d+E)E", line)
+        m = re.search(r"Compiling entry function '_Z\w*?" + pattern, line)
         if m:
-            entry, spills = (m.group(1), m.group(2)), (0, 0)
+            entry = m.groups() if len(m.groups()) > 1 else m.group(1)
+            spills = (0, 0)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -577,6 +639,44 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
         for name, err in errs.items():
             worst[owner[name]] = max(worst[owner[name]], err)
         torch.cuda.empty_cache()
+    # head dims the kernels are not built for (zero-padded to 64 or 128),
+    # and D = 256 (its own build, the FMA kernels) at S = 2048, timed
+    for seed, d_pad in enumerate((32, 80, 96), SEED + 30):
+        before = dict(fa.launches)
+        compare_flash(B, 1000, 4, d_pad, torch.bfloat16, device, seed,
+                      causal=True, masked=True)
+        check(all(fa.launches[n] == before[n] + 1 for n in before),
+              f"flash D={d_pad}: a kernel did not launch")
+    before = dict(fa.launches)
+    _, wide = compare_flash(B, 2048, H, 256, torch.bfloat16, device,
+                                  SEED + 33, causal=True, masked=False,
+                                  step=4)
+    check(all(fa.launches[n] == before[n] + 1 for n in before),
+          "flash D=256: a kernel did not launch")
+    wq, wk, wv, wg, wlse, wdelta = wide
+    ms256 = {"flash_fwd": time_ms(lambda: fa.flash_fwd(wq, wk, wv)),
+             "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(
+                 wq, wk, wv, wg, wlse, wdelta)),
+             "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv(
+                 wq, wk, wv, wg, wlse, wdelta))}
+    work256 = flash_bytes_ops(B, 2048, H, 256, 2, True)
+    for name, t in ms256.items():
+        nbytes, flops = work256[name]
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+        print(f"{name} bf16 causal B={B} H={H} S=2048 D=256 (FMA kernel): "
+              f"kernel_ms={t:.4f} ({flops / t / 1e9:.1f} TFLOP/s) "
+              f"bound_ms={bound:.4f} (f32 FMA bound "
+              f"{flops / F32_FLOPS * 1e3:.4f})", flush=True)
+    del wide, wq, wk, wv, wg, wlse, wdelta
+    torch.cuda.empty_cache()
+    with_320 = torch.zeros((1, 64, 1, 320), dtype=torch.bfloat16,
+                           device=device)
+    try:
+        fa.flash_fwd(with_320, with_320, with_320)
+    except ValueError as e:
+        print(f"flash D=320 refused: {e}", flush=True)
+    else:
+        raise SmokeFailure("flash at D=320 did not raise")
     # the training path's case (the last one compared): dQ is owned by
     # one block per q tile, so a repeat call is bit-identical; then timing
     q, k, v, g, lse, delta = main
@@ -723,6 +823,14 @@ def compare_bnconv(M, K, N, dtype, device, seed, act_dtype=None):
         check(rel <= limit, f"bnconv {label}: {name} norm err {rel} > "
                             f"{limit}")
         parts.append(f"{name} {rel:.2e}")
+    if dtype == torch.bfloat16:
+        # each output tile is owned by one block and dW's splits fold in
+        # split order: repeat calls are bit-identical
+        check(torch.equal(bc.bnconv_fwd(x, a, b, w, act_dtype), got["out"])
+              and torch.equal(bc.bnconv_dw(x, a, b, dz, act_dtype),
+                              got["dw_f32"]),
+              f"bnconv {label}: a repeat call differs")
+        parts.append("repeat bit-identical")
     print(f"bnconv {label}: norm errs {' '.join(parts)} (limits bf16 "
           f"{BNCONV_BF16_LIMIT:.0e}, f32 {BNCONV_F32_LIMIT:.0e})",
           flush=True)
@@ -750,16 +858,32 @@ def bnconv_bytes_ops(M, K, N, el):
             "bnconv_dw": (x + ab + M * N * el + K * N * el, 2 * M * K * N)}
 
 
-def check_bnconv_kernels(device):
+def check_bnconv_kernels(device, build_log=""):
     """Both bnconv kernels against their plain versions at the four
     ResNet-50 sites (bf16, as the path runs them, and f32), a ragged
     shape (f32 with a bf16 activation too), then each timed at every
     site beside its bound, its plain version and a bare bf16
     ``torch.matmul`` of a precomputed y (for scale: no PyTorch call
-    computes either function). Per-step figures sum the 16 sites."""
+    computes either function). Per-step figures sum the 16 sites.
+    ``build_log`` is nvcc's output for ``bnconv.cu``: the bf16 wgmma
+    kernels' registers and spills are printed, and a spill fails."""
     import torch
 
     from kubeflow_tpu_torch.ops import bnconv as bc
+
+    wgmma = ("bnconv_fwd_wgmma_kernel", "bnconv_dw_wgmma_kernel")
+    if build_log:
+        regs = ptxas_kernels(build_log, r"(bnconv_(?:fwd|dw)_wgmma_kernel)")
+        check(set(regs) == set(wgmma),
+              f"no ptxas lines for {sorted(set(wgmma) - set(regs))}")
+        for name, (n_regs, st, ld) in sorted(regs.items()):
+            print(f"  ptxas {name}: {n_regs} registers, spill stores {st} "
+                  f"B, spill loads {ld} B", flush=True)
+            check(st == 0 and ld == 0,
+                  f"{name} spills ({st} B stored, {ld} B loaded)")
+    else:
+        print("  ptxas: bnconv was built before this run (no compiler log)",
+              flush=True)
 
     bf, f32 = torch.bfloat16, torch.float32
     worst = {"bnconv_fwd": 0.0, "bnconv_dw": 0.0}
@@ -1345,7 +1469,7 @@ def main() -> int:
     kernels = [check_paged_kernel(device), check_sampler_kernel(device),
                *check_flash_kernels(device,
                                     build_log=logs["flash_attention"]),
-               *check_bnconv_kernels(device)]
+               *check_bnconv_kernels(device, build_log=logs["bnconv"])]
     print("phase 2 kernels vs plain: ok", flush=True)
     torch.cuda.empty_cache()
 

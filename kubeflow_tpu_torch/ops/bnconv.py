@@ -27,7 +27,10 @@ x is ``(M, K)`` (pixels, channels), a and b ``(K,)`` f32, w ``(K, N)`` in
 x's dtype, the cotangent dz ``(M, N)`` in x's dtype. ``act_dtype`` is
 the dtype the unfused model materialises the BN output in (its
 ``bn_dtype``; default x's dtype). The kernels take every M, K and N (the
-reference falls back to XLA where its TPU blocks do not tile).
+reference falls back to XLA where its TPU blocks do not tile): the bf16
+kernels read x, w and dz by TMA, which needs rows on 16 bytes, so the
+wrappers zero-pad K and N to a multiple of 8 where they are not (a copy
+on ragged shapes only; ResNet-50's are multiples of 64).
 
 ``launches`` counts kernel launches by kernel name (never plain calls).
 """
@@ -41,9 +44,10 @@ import torch
 
 launches = {"bnconv_fwd": 0, "bnconv_dw": 0}
 
-# blocks of the dW kernel to aim for per SM (2 resident, 2 waves), over
-# which the rows of x are split
-_DW_BLOCKS_PER_SM = 4
+# blocks of the dW kernel to aim for per SM, over which the rows of x are
+# split: bf16, one wave of the wgmma kernel (one block fits an SM); f32,
+# two waves of two resident FMA blocks
+_DW_BLOCKS_PER_SM = {True: 1, False: 4}
 
 
 def _act(x: torch.Tensor, act_dtype: Optional[torch.dtype]) -> torch.dtype:
@@ -97,18 +101,32 @@ def _lib():
     lib = _build.load("bnconv")
     if lib.kftpu_bnconv_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.kftpu_bnconv_fwd.argtypes = [p] * 5 + [i] * 6 + [p]
-        lib.kftpu_bnconv_dw.argtypes = [p] * 6 + [i] * 9 + [p]
-        lib.kftpu_bnconv_geometry.argtypes = [i, p, p]
+        lib.kftpu_bnconv_fwd.argtypes = [p] * 5 + [i] * 5 + [p]
+        lib.kftpu_bnconv_dw.argtypes = [p] * 6 + [i] * 8 + [p]
+        lib.kftpu_bnconv_geometry.argtypes = [i, p, p, p]
         for fn in (lib.kftpu_bnconv_fwd, lib.kftpu_bnconv_dw,
                    lib.kftpu_bnconv_geometry):
             fn.restype = ctypes.c_int
     return lib
 
 
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _pad2(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """``t`` zero-padded to ``(rows, cols)``; ``t`` itself where it has
+    that shape and starts on 16 bytes."""
+    if tuple(t.shape) == (rows, cols) and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros((rows, cols))
+    out[:t.shape[0], :t.shape[1]] = t
+    return out
+
+
 def _cuda_args(x, a, b, other, act_dtype):
-    """Check what the kernels take; returns (a, b as contiguous f32,
-    is_bf16, round_act, vec flags)."""
+    """Check what the kernels take; returns (a, b as f32 zero-padded to
+    whole 64-channel stages, is_bf16, round_act)."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -122,16 +140,14 @@ def _cuda_args(x, a, b, other, act_dtype):
                         "(f32, bf16)")
     if not (x.is_contiguous() and other.is_contiguous()):
         raise ValueError("x and w/dz must be contiguous (rows of channels)")
-    a = a.float().contiguous()
-    b = b.float().contiguous()
+    K = x.shape[1]
+    ab = torch.zeros((2, _round_up(K, 64)), dtype=torch.float32,
+                     device=x.device)
+    ab[0, :K] = a
+    ab[1, :K] = b
     is_bf16 = x.dtype == torch.bfloat16
     round_act = int(act == torch.bfloat16 and not is_bf16)
-
-    def aligned(*ts):
-        return all(t.data_ptr() % 16 == 0 for t in ts)
-    vec = (int(x.shape[1] % 8 == 0 and aligned(x, a, b))
-           | 2 * int(other.shape[1] % 8 == 0 and aligned(other)))
-    return a, b, int(is_bf16), round_act, vec
+    return ab[0], ab[1], int(is_bf16), round_act
 
 
 def _launch(name: str, fn, *args) -> None:
@@ -150,31 +166,31 @@ def bnconv_fwd(x, a, b, w, act_dtype=None) -> torch.Tensor:
     _check(x, a, b, w, x.shape[1], "w")
     if x.device.type == "cpu":
         return bnconv_fwd_plain(x, a, b, w, act_dtype)
-    a, b, is_bf16, round_act, vec = _cuda_args(x, a, b, w, act_dtype)
+    a, b, is_bf16, round_act = _cuda_args(x, a, b, w, act_dtype)
     (M, K), N = x.shape, w.shape[1]
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    if M == 0 or N == 0:
-        return out
-    if K == 0:
-        return out.zero_()
+    if M == 0 or N == 0 or K == 0:
+        return torch.zeros((M, N), dtype=x.dtype, device=x.device)
+    Kp, Np = (_round_up(K, 8), _round_up(N, 8)) if is_bf16 else (K, N)
+    x, w = _pad2(x, M, Kp), _pad2(w, Kp, Np)
+    out = torch.empty((M, Np), dtype=x.dtype, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         _launch("bnconv_fwd", lib.kftpu_bnconv_fwd, x.data_ptr(),
                 a.data_ptr(), b.data_ptr(), w.data_ptr(), out.data_ptr(),
-                M, K, N, is_bf16, round_act, vec, _stream(x))
-    return out
+                M, Kp, Np, is_bf16, round_act, _stream(x))
+    return out if Np == N else out[:, :N].contiguous()
 
 
 def _splits(lib, dev, M: int, K: int, N: int, is_bf16: int
             ) -> Tuple[int, int]:
     """(splits, chunk): rows of x per block of the dW kernel, a multiple
     of its step, so that the tiles of dW times the splits fill the card."""
-    tile, step = ctypes.c_int(), ctypes.c_int()
-    lib.kftpu_bnconv_geometry(is_bf16, ctypes.byref(tile),
-                              ctypes.byref(step))
-    tiles = -(-K // tile.value) * -(-N // tile.value)
+    tile_k, tile_n, step = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    lib.kftpu_bnconv_geometry(is_bf16, ctypes.byref(tile_k),
+                              ctypes.byref(tile_n), ctypes.byref(step))
+    tiles = -(-K // tile_k.value) * -(-N // tile_n.value)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    want = max(1, (_DW_BLOCKS_PER_SM * sms) // tiles)
+    want = max(1, (_DW_BLOCKS_PER_SM[bool(is_bf16)] * sms) // tiles)
     steps = -(-M // step.value)
     chunk = -(-steps // min(want, steps)) * step.value
     return -(-M // chunk), chunk
@@ -187,25 +203,24 @@ def bnconv_dw(x, a, b, dz, act_dtype=None,
     _check(x, a, b, dz, x.shape[0], "dz")
     if x.device.type == "cpu":
         return bnconv_dw_plain(x, a, b, dz, act_dtype, out_dtype)
-    a, b, is_bf16, round_act, vec = _cuda_args(x, a, b, dz, act_dtype)
+    a, b, is_bf16, round_act = _cuda_args(x, a, b, dz, act_dtype)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"out_dtype {out_dtype} not supported (f32, bf16)")
     (M, K), N = x.shape, dz.shape[1]
-    out = torch.empty((K, N), dtype=out_dtype, device=x.device)
-    if K == 0 or N == 0:
-        return out
-    if M == 0:
-        return out.zero_()
+    if M == 0 or N == 0 or K == 0:
+        return torch.zeros((K, N), dtype=out_dtype, device=x.device)
+    Kp, Np = (_round_up(K, 8), _round_up(N, 8)) if is_bf16 else (K, N)
+    x, dz = _pad2(x, M, Kp), _pad2(dz, M, Np)
+    out = torch.empty((Kp, Np), dtype=out_dtype, device=x.device)
     lib = _lib()
-    splits, chunk = _splits(lib, x.device, M, K, N, is_bf16)
-    ws = torch.empty((splits, K, N), dtype=torch.float32, device=x.device)
+    splits, chunk = _splits(lib, x.device, M, Kp, Np, is_bf16)
+    ws = torch.empty((splits, Kp, Np), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         _launch("bnconv_dw", lib.kftpu_bnconv_dw, x.data_ptr(),
                 a.data_ptr(), b.data_ptr(), dz.data_ptr(), ws.data_ptr(),
-                out.data_ptr(), M, K, N, splits, chunk, is_bf16,
-                int(out_dtype == torch.bfloat16), round_act, vec,
-                _stream(x))
-    return out
+                out.data_ptr(), M, Kp, Np, splits, chunk, is_bf16,
+                int(out_dtype == torch.bfloat16), round_act, _stream(x))
+    return out if (Kp, Np) == (K, N) else out[:K, :N].contiguous()
 
 
 # -- the autograd function ---------------------------------------------------

@@ -2,10 +2,12 @@
 // (sm_90a): the forward and dW kernels, plain C interface.
 //
 // Replaces: kubeflow_tpu/ops/bnconv.py
-// - bnconv_fwd_{mma,fma}_kernel <- _fwd_kernel (Pallas body :79,
-//   pallas_call :153): out = relu(x * a + b) @ w;
-// - bnconv_dw_{mma,fma}_kernel + bnconv_fold_kernel <- _dw_kernel (:100,
-//   pallas_call :199): dW = relu(x * a + b)^T @ dz.
+// - bnconv_fwd_wgmma_kernel (bf16), bnconv_fwd_fma_kernel (f32)
+//     <- _fwd_kernel (Pallas body :79, pallas_call :153):
+//        out = relu(x * a + b) @ w;
+// - bnconv_dw_wgmma_kernel (bf16), bnconv_dw_fma_kernel (f32), then
+//   bnconv_fold_kernel <- _dw_kernel (:100, pallas_call :199):
+//        dW = relu(x * a + b)^T @ dz.
 // x is (M, K) rows of pixels with the channels contiguous, a and b are
 // (K,) f32, w is (K, N), dz is (M, N). Both kernels compute y the
 // reference's way in an A-operand prologue: y = max(x*a + b, 0) in f32
@@ -13,37 +15,65 @@
 // a contracted fma would round once where the reference rounds twice),
 // rounded to bf16 when the activation dtype is bf16, then to x's dtype;
 // products accumulate in f32. The forward writes x's dtype; dW is summed
-// in f32 and written in w's dtype by the fold.
+// in f32 and written in w's dtype by the fold, in split order: repeat
+// calls are bit-identical.
 //
-// What bounds them on H100: bytes. Every site of ResNet-50 does M*K*N =
-// 1.3e10 multiply-adds over 66-514 MB of x and out (or x and dz): ~26
-// GFLOP is 0.027 ms on the bf16 tensor cores, the bytes 0.02-0.15 ms.
+// What bounds them on H100. Every ResNet-50 site does M*K*N = 1.3e10
+// multiply-adds: 26.3 GFLOP, 0.0266 ms on the bf16 tensor cores. Sites
+// 0-2 ((802816, 64, 256), (200704, 128, 512), (50176, 256, 1024)) are
+// bound by bytes: x and out (or x and dz) are 514, 257 and 129 MB, 0.153,
+// 0.077 and 0.039 ms at 3.35 TB/s; at site 0 the 411 MB the forward
+// writes are most of it. Site 3 ((12544, 512, 2048)) moves 64 MB
+// (0.019 ms) and is bound by operations.
 //
-// Design, and what it does about that bound:
-// - bf16 runs on the tensor cores (mma.sync m16n8k16, f32 accumulate),
-//   so the arithmetic stays well below the memory time. The y tile is
-//   written to shared memory as bf16 after the prologue and read with
-//   ldmatrix, exactly as a plain bf16 GEMM reads its A tile; x and out
-//   (or x and dz) cross device memory once per block tile. f32 inputs
-//   run on the FMA units (64 x 64 tiles, a 4 x 4 micro-tile a thread),
-//   keeping f32 parity with the plain version.
-// - Block tiles are 128 x 128 (bf16) with a 32-deep contraction step;
-//   8 warps each own 64 x 32 of the tile. The forward grid walks the N
-//   tiles of one M tile together, so the x tile is read from device
-//   memory once and from L2 for the other N tiles.
-// - The Pallas dW kernel carries its sum across a sequential M grid axis.
-//   Hopper blocks run in no order, and one block per (K tile, N tile)
-//   would leave 2 blocks for 802,816 rows at ResNet-50's first stage. So
-//   M is split across blocks, each writing an f32 partial tile to a
-//   workspace, and a fold kernel sums the partials in a fixed order and
-//   casts (deterministic, no atomics; the split-and-fold of
-//   paged_attention.cu).
-// - Any M, K and N: rows and channels past the edge are zero in shared
-//   memory (y is set to 0 there, not relu(b)); 16-byte loads where K or N
-//   is a multiple of 8 and the pointers are aligned, scalar loads
-//   otherwise. The TPU's 128-lane block floor does not apply.
-// - Not yet: cp.async/TMA staging with a multi-stage ring, wgmma.
+// bf16 design (both kernels), and what it does about those bounds:
+// - Warp-specialised blocks of three warpgroups: one producer warp
+//   feeds a 4-stage shared-memory ring by TMA (cp.async.bulk.tensor,
+//   128-byte swizzle, completion on an mbarrier per stage: a full/empty
+//   pair guards each stage), so device memory always has the next
+//   stages in flight while two consumer warpgroups compute. The
+//   producer gives its registers to the consumers (setmaxnreg).
+// - The consumers run wgmma.mma_async (m64n128k16, f32 accumulate). The
+//   A operand is y, made in registers: the raw x tile is read from the
+//   swizzled stage with ldmatrix (transposed for dW, where A = y^T), the
+//   BN affine, ReLU and rounding are applied per channel, and the packed
+//   bf16 registers are wgmma's register A operand, so y never reaches
+//   shared or device memory. B (w for the forward, dz for dW) is read
+//   from the stage by descriptor, N-major through the transpose bit, as
+//   TMA left it: no transposed copy of w or dz is made.
+// - Forward: a persistent grid of one block per SM walks the 128 x 128
+//   output tiles M-major (the N tiles of one row of x are neighbours, so
+//   x is read from device memory once and w, at most 2 MB, stays in L2);
+//   the producer runs ahead across tiles, so one tile's epilogue overlaps
+//   the next tiles' loads. Each consumer warpgroup writes its 64 x 128
+//   tile to shared memory and one thread stores it by TMA; the warpgroup
+//   goes on to the next tile while the stores drain (at site 0 the
+//   output is 80% of the bytes).
+// - dW: a 64-channel x 256-column tile (each consumer warpgroup takes
+//   128 columns), so the K = 64 sites compute no zero rows. The Pallas
+//   kernel carries its sum over a sequential M grid axis; here M is split
+//   across the blocks (one wave on the card), each writing an f32 partial
+//   tile, and the fold sums the partials in a fixed order (no atomics).
+//   Each 64-row stage's products go to fresh accumulators that the FMA
+//   units add to the running f32 sums: the tensor cores truncate where
+//   they add into an accumulator, and a chain over a split's thousands
+//   of rows would carry that bias (the repair the flash kernels use).
+// - TMA needs rows on 16 bytes: the wrapper zero-pads K (and N) to a
+//   multiple of 8 where they are not, and a and b to whole 64-channel
+//   stages, so channels past K give y = 0. Rows and columns past the
+//   edges are zero-filled by TMA and never stored.
+// - Measured on an H100 SXM at 700 W (scripts/port_bnconv_sweep.py):
+//   storing the forward's tile with 16-byte stores from the consumers
+//   cost 11-14% a step against the TMA stores; making the next stage's
+//   y while this stage's wgmma runs (two A register sets) moved neither
+//   kernel by more than 3%, so the simpler loop stays. At 128 x 128
+//   tiles every site moves 411 MB of operands from L2 into the SMs
+//   (M*K*N*2*(1/128 + 1/128) bytes), which is what holds sites 1-3 at
+//   2-3x their bound; a wider tile is the next lever.
+// f32 inputs run on the FMA units (64 x 64 tiles, a 4 x 4 micro-tile a
+// thread), keeping f32 parity with the plain version.
 
+#include <cuda.h>  // CUtensorMap; the encoder is fetched through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,21 +82,29 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // FMA kernels and the fold
 
-// tensor-core path (bf16): block tile kR x kC, contraction step kKC
-constexpr int kR = 128;
-constexpr int kC = 128;
-constexpr int kKC = 32;
-constexpr int kLdRow = kKC + 8;   // a [row][kc] tile (forward A)
-constexpr int kLdWide = kC + 8;   // a [kc][128] tile (B; dW's A)
+// wgmma kernels: two consumer warpgroups and one producer warpgroup
+constexpr int kWG = 128;
+constexpr int kTCThreads = 3 * kWG;
+constexpr int kStages = 4;
+constexpr int kSw = 64;               // bf16 values in a 128-byte row
+constexpr int kBox = kSw * kSw * 2;   // a 64 x 64 bf16 TMA box, bytes
+constexpr int kFwdBM = 128, kFwdBN = 128;   // forward output tile
+constexpr int kDwBK = 64, kDwBN = 256;      // dW output tile (K x N)
+constexpr int kDwStep = 64;                 // dW rows of x a stage
+constexpr int kFwdStage = kFwdBM * 128 + 2 * kBox;   // x tile + 2 w boxes
+constexpr int kDwStage = kBox + 4 * kBox;            // x box + 4 dz boxes
+// forward: the ring, then each consumer warpgroup's output staging (two
+// 64 x 64 boxes), then the barriers
+constexpr int kFwdSmem = kStages * kFwdStage + 2 * 2 * kBox +
+                         2 * kStages * 8 + 1024;
+constexpr int kDwSmem = kStages * kDwStage + 2 * kStages * 8 + 1024;
 
 // FMA path (f32): block tile kFR x kFC, contraction step kFK
 constexpr int kFR = 64;
 constexpr int kFC = 64;
 constexpr int kFK = 16;
-
-static_assert(kR == kC, "the dW A tile reuses the B tile's row stride");
 
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put(bf16* p, float v) {
@@ -82,274 +120,435 @@ __device__ __forceinline__ float bn_relu(float v, float a, float b,
   return t;
 }
 
-// ---------------------------------------------------------------------------
-// Tensor-core helpers
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+// Two packed bf16 x values (low, high) through the prologue, packed again.
+__device__ __forceinline__ uint32_t bn_relu2(uint32_t v, float a0, float b0,
+                                             float a1, float b1) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+  __nv_bfloat162 r = __floats2bfloat162_rn(bn_relu(f.x, a0, b0, 0),
+                                           bn_relu(f.y, a1, b1, 0));
+  return *reinterpret_cast<uint32_t*>(&r);
 }
 
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+// ---------------------------------------------------------------------------
+// Hopper helpers: mbarriers, TMA, ldmatrix, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 2-D TMA box (coordinates innermost first) into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One 2-D TMA box from shared memory to global (rows and columns past
+// the tensor's edges are not written), in this thread's bulk group.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// ... and have completed
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// this thread's shared-memory writes, visible to TMA
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      : "r"(addr));
 }
 
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      : "r"(addr));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
+// Byte offset of 16-byte chunk `chunk` of row `row` in a tile of
+// 128-byte rows written by TMA with the 128-byte swizzle.
+__device__ __forceinline__ uint32_t sw128(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+// wgmma descriptor of an N-major (transposed) bf16 B operand in 128-byte
+// swizzled 64 x 64 boxes: 8-row groups of K 1024 bytes apart (SBO), the
+// next 64 columns one box further on (LBO).
+__device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(kBox >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of the accumulators
+// across the asynchronous wgmma.
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128 f32, the m64n128 fragment) = (accumulate ? d : 0) + A.B:
+// A (64 x 16) in registers (the mma.m16n8k16 A fragment of each warp's
+// 16 rows), B (16 x 128) N-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc, int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,"
+      "%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
+      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,"
+      "%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
+      "{%64,%65,%66,%67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
 }
 
-// Eight consecutive bf16 of a row-major (rows, cols) matrix from (row,
-// col); zero past either edge. vec: cols % 8 == 0 and 16-byte aligned.
-__device__ __forceinline__ uint4 load8(const bf16* src, long long row,
-                                       long long rows, int cols, int col,
-                                       bool vec) {
-  if (vec && row < rows && col + 8 <= cols)
-    return *reinterpret_cast<const uint4*>(src + row * cols + col);
-  uint4 out;
-  bf16* o = reinterpret_cast<bf16*>(&out);
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    o[i] = (row < rows && col + i < cols) ? src[row * cols + col + i]
-                                          : __float2bfloat16_rn(0.f);
-  return out;
+// Shared memory of a wgmma kernel: the ring from a 1024-byte boundary
+// (the 128-byte swizzle's period), as a shared-window address.
+__device__ __forceinline__ uint32_t ring_base(unsigned char* smem) {
+  const uint32_t s = smem_u32(smem);
+  return (s + 1023) & ~1023u;
 }
 
-// Eight consecutive y = bn_relu(x) of row `row` from channel `col`, as
-// bf16; zero past either edge.
-__device__ __forceinline__ uint4 load8_y(const bf16* x, const float* a,
-                                         const float* b, long long row,
-                                         long long rows, int K, int col,
-                                         bool vec, int round_act) {
-  uint4 out;
-  bf16* o = reinterpret_cast<bf16*>(&out);
-  if (vec && row < rows && col + 8 <= K) {
-    uint4 raw = *reinterpret_cast<const uint4*>(x + row * K + col);
-    const bf16* xv = reinterpret_cast<const bf16*>(&raw);
-    const float4 a0 = *reinterpret_cast<const float4*>(a + col);
-    const float4 a1 = *reinterpret_cast<const float4*>(a + col + 4);
-    const float4 b0 = *reinterpret_cast<const float4*>(b + col);
-    const float4 b1 = *reinterpret_cast<const float4*>(b + col + 4);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      o[i] = __float2bfloat16_rn(
-          bn_relu(__bfloat162float(xv[i]), av[i], bv[i], round_act));
-    return out;
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float t = 0.f;
-    if (row < rows && col + i < K)
-      t = bn_relu(__bfloat162float(x[row * K + col + i]), a[col + i],
-                  b[col + i], round_act);
-    o[i] = __float2bfloat16_rn(t);
-  }
-  return out;
-}
-
-// One kKC-deep step of the block's product from shared memory. Warp w
-// owns rows wr..wr+63 and columns wc..wc+31 of the kR x kC tile.
-// sB is [kc][kLdWide]. A is sA[row][kLdRow] (forward), or, with kTransA,
-// sA[kc][kLdWide] holding A transposed (dW: A = y^T, stored as y).
-template <bool kTransA>
-__device__ __forceinline__ void mma_step(float (&acc)[4][4][4],
-                                         const bf16* sA, const bf16* sB,
-                                         int wr, int wc, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kKC; kk += 16) {
-    unsigned af[4][4];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      const int r0 = wr + mi * 16;
-      if (kTransA)
-        // matrix j = lane / 8: contraction rows +8 for j >= 2, A rows +8
-        // for odd j (a0a1, a2a3, a4a5, a6a7 of the fragment)
-        ldsm_x4_t(af[mi], sA + (kk + (lane & 7) + ((lane >> 4) << 3)) *
-                                   kLdWide +
-                              r0 + ((lane >> 3) & 1) * 8);
-      else
-        ldsm_x4(af[mi], sA + (r0 + (lane & 15)) * kLdRow + kk +
-                            (lane >> 4) * 8);
-    }
-    unsigned bfr[4][2];
-#pragma unroll
-    for (int nj = 0; nj < 2; ++nj) {
-      unsigned r[4];
-      ldsm_x4_t(r, sB + (kk + (lane & 15)) * kLdWide + wc + nj * 16 +
-                       (lane >> 4) * 8);
-      bfr[2 * nj][0] = r[0];
-      bfr[2 * nj][1] = r[1];
-      bfr[2 * nj + 1][0] = r[2];
-      bfr[2 * nj + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-        mma_bf16(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
-  }
-}
-
-// Store a pair (v0, v1) at (row, col) and (row, col + 1) of a row-major
-// (rows, N) matrix, within its edges.
-__device__ __forceinline__ void store2(bf16* dst, long long row,
-                                       long long rows, int N, int col,
-                                       float v0, float v1) {
-  if (row >= rows || col >= N) return;
-  bf16* p = dst + row * N + col;
-  if ((N & 1) == 0) {   // col is even, so p is 4-byte aligned
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-  } else {
-    p[0] = __float2bfloat16_rn(v0);
-    if (col + 1 < N) p[1] = __float2bfloat16_rn(v1);
-  }
-}
-
-__device__ __forceinline__ void store2(float* dst, long long row,
-                                       long long rows, int N, int col,
-                                       float v0, float v1) {
-  if (row >= rows || col >= N) return;
-  float* p = dst + row * N + col;
-  if ((N & 1) == 0) {
-    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-  } else {
-    p[0] = v0;
-    if (col + 1 < N) p[1] = v1;
-  }
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---------------------------------------------------------------------------
 // Forward, bf16: out (M, N) = relu(x*a + b) (M, K) @ w (K, N).
-// grid: one block per (M tile, N tile), N tiles of one M tile adjacent.
+// Persistent: block i takes output tiles i, i + grid, ... (M-major).
+// Threads 0-255 are the consumer warpgroups (rows 0-63 and 64-127 of a
+// tile), 256-383 the producer warpgroup (one thread issues the copies).
+// Stage s: x tile (128 rows x 64 channels), then two w boxes (64 channels
+// x 64 columns each). A consumer warpgroup writes its 64 x 128 result to
+// its staging (two 64 x 64 boxes, swizzled as TMA reads them) and one
+// thread stores them by TMA; the warpgroup goes on to the next tile while
+// the stores drain, and waits for them only before it writes the staging
+// again.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-    bnconv_fwd_mma_kernel(const bf16* __restrict__ x,
-                          const float* __restrict__ a,
-                          const float* __restrict__ b,
-                          const bf16* __restrict__ w, bf16* __restrict__ out,
-                          int M, int K, int N, int round_act, int vec) {
-  __shared__ __align__(16) bf16 sA[kR * kLdRow];
-  __shared__ __align__(16) bf16 sB[kKC * kLdWide];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wr = (warp >> 2) * 64, wc = (warp & 3) * 32;
-  const int tiles_n = (N + kC - 1) / kC;
-  const long long m0 = (long long)(blockIdx.x / tiles_n) * kR;
-  const int n0 = (blockIdx.x % tiles_n) * kC;
-  const bool vec_x = vec & 1, vec_w = vec & 2;
+__global__ void __launch_bounds__(kTCThreads, 1)
+    bnconv_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                            const __grid_constant__ CUtensorMap map_w,
+                            const __grid_constant__ CUtensorMap map_out,
+                            const float* __restrict__ a,
+                            const float* __restrict__ b, int M, int K,
+                            int N) {
+  extern __shared__ unsigned char smem[];
+  const uint32_t ring = ring_base(smem);
+  const uint32_t staging = ring + kStages * kFwdStage;
+  const uint32_t bars = staging + 2 * 2 * kBox;
+  unsigned char* gen = smem + (ring - smem_u32(smem));  // generic view
+  const int tiles_n = (N + kFwdBN - 1) / kFwdBN;
+  const int tiles = ((M + kFwdBM - 1) / kFwdBM) * tiles_n;
+  const int n_k = (K + kSw - 1) / kSw;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kKC) {
-    __syncthreads();
-    // y tile: kR rows x kKC channels, 8 channels a thread-step
-    for (int e = threadIdx.x; e < kR * kKC / 8; e += kThreads) {
-      const int r = e / (kKC / 8), c = (e % (kKC / 8)) * 8;
-      *reinterpret_cast<uint4*>(sA + r * kLdRow + c) =
-          load8_y(x, a, b, m0 + r, M, K, k0 + c, vec_x, round_act);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // one arrival per consumer warp
     }
-    // w tile: kKC rows x kC columns
-    for (int e = threadIdx.x; e < kKC * kC / 8; e += kThreads) {
-      const int r = e / (kC / 8), c = (e % (kC / 8)) * 8;
-      *reinterpret_cast<uint4*>(sB + r * kLdWide + c) =
-          load8(w, k0 + r, K, N, n0 + c, vec_w);
-    }
-    __syncthreads();
-    mma_step<false>(acc, sA, sB, wr, wc, lane);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const long long row = m0 + wr + mi * 16 + (lane >> 2);
-      const int col = n0 + wc + ni * 8 + (lane & 3) * 2;
-      store2(out, row, M, N, col, acc[mi][ni][0], acc[mi][ni][1]);
-      store2(out, row + 8, M, N, col, acc[mi][ni][2], acc[mi][ni][3]);
+  if (threadIdx.x >= 2 * kWG) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 2 * kWG) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / tiles_n) * kFwdBM;
+        const int n0 = (tile % tiles_n) * kFwdBN;
+        const int nbox = min(2, (N - n0 + kSw - 1) / kSw);
+        for (int kc = 0; kc < n_k; ++kc, ++it) {
+          const int s = it % kStages;
+          mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(full(s), kFwdBM * 128 + nbox * kBox);
+          const uint32_t st = ring + s * kFwdStage;
+          tma_load(st, &map_x, full(s), kc * kSw, m0);
+          for (int j = 0; j < nbox; ++j)
+            tma_load(st + kFwdBM * 128 + j * kBox, &map_w, full(s),
+                     n0 + j * kSw, kc * kSw);
+        }
+      }
     }
+  } else {
+    // ---- consumers ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = threadIdx.x / kWG, tw = threadIdx.x % kWG;
+    const int warp = tw / 32, lane = tw % 32, g = lane >> 2, t = lane & 3;
+    const int row = wg * 64 + warp * 16 + (lane & 15);  // ldmatrix row
+    const uint32_t st_wg = staging + wg * 2 * kBox;
+    unsigned char* st_gen = gen + (st_wg - ring);
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile / tiles_n) * kFwdBM;
+      const int n0 = (tile % tiles_n) * kFwdBN;
+      float acc[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      for (int kc = 0; kc < n_k; ++kc, ++it) {
+        const int s = it % kStages;
+        // this thread's channels of the stage: 16j + 2t (+1) and +8 (+9)
+        float2 av[4][2], bv[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int c = kc * kSw + 16 * j + 2 * t + 8 * h;
+            av[j][h] = __ldg(reinterpret_cast<const float2*>(a + c));
+            bv[j][h] = __ldg(reinterpret_cast<const float2*>(b + c));
+          }
+        mbar_wait(full(s), (it / kStages) & 1);
+        const uint32_t st = ring + s * kFwdStage;
+        uint32_t af[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          ldsm_x4(af[j], st + sw128(row, 2 * j + (lane >> 4)));
+          // registers 0, 1: channels 16j + 2t (+1); 2, 3: + 8
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int h = r >> 1;
+            af[j][r] = bn_relu2(af[j][r], av[j][h].x, bv[j][h].x,
+                                av[j][h].y, bv[j][h].y);
+          }
+        }
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          wgmma_m64n128(acc, af[j],
+                        desc_b(st + kFwdBM * 128 + j * 16 * 128),
+                        kc > 0 || j > 0);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(s));
+      }
+
+      // epilogue: bf16 into the staging (column j of the fragment is
+      // chunk j % 8 of box j / 8), then TMA stores
+      if (tw == 0) bulk_wait_read();  // the last tile's stores have read it
+      bar_sync(1 + wg, kWG);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = warp * 16 + g + 8 * h;
+          *reinterpret_cast<__nv_bfloat162*>(
+              st_gen + (j >> 3) * kBox + sw128(r, j & 7) + 4 * t) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * h],
+                                    acc[4 * j + 2 * h + 1]);
+        }
+      fence_async_smem();
+      bar_sync(1 + wg, kWG);
+      if (tw == 0 && m0 + wg * 64 < M) {
+        for (int box = 0; box < 2 && n0 + box * kSw < N; ++box)
+          tma_store(&map_out, st_wg + box * kBox, n0 + box * kSw,
+                    m0 + wg * 64);
+        bulk_commit();
+      }
+    }
+    if (tw == 0) bulk_wait();
+  }
 }
 
 // ---------------------------------------------------------------------------
-// dW, bf16: partial dW (K, N) of rows [split*chunk, (split+1)*chunk) into
-// ws[split] (f32). grid: splits x (K tiles x N tiles), the tiles of one
-// split adjacent so they share its rows of x and dz through L2.
+// dW, bf16: the partial dW (K, N) of rows [split*chunk, (split+1)*chunk)
+// into ws[split] (f32). grid: splits x (K tiles x N tiles), the tiles of
+// one split adjacent so they share its rows of x and dz through L2.
+// Consumer warpgroup wg owns columns 128wg..128wg+127 of the 64 x 256
+// tile; A = y^T (the tile's 64 channels x 16 rows a step) from the x box
+// by ldmatrix.trans, B = dz (16 rows x 128 columns) from its two boxes.
+// Stage s: x box (64 rows x 64 channels), then four dz boxes (64 rows x
+// 64 columns each).
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-    bnconv_dw_mma_kernel(const bf16* __restrict__ x,
-                         const float* __restrict__ a,
-                         const float* __restrict__ b,
-                         const bf16* __restrict__ dz, float* __restrict__ ws,
-                         int M, int K, int N, int chunk, int round_act,
-                         int vec) {
-  __shared__ __align__(16) bf16 sA[kKC * kLdWide];   // y rows: [m][k]
-  __shared__ __align__(16) bf16 sB[kKC * kLdWide];   // dz rows: [m][n]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wr = (warp >> 2) * 64, wc = (warp & 3) * 32;
-  const int tiles_n = (N + kC - 1) / kC;
-  const int tiles = ((K + kR - 1) / kR) * tiles_n;
+__global__ void __launch_bounds__(kTCThreads, 1)
+    bnconv_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                           const __grid_constant__ CUtensorMap map_dz,
+                           const float* __restrict__ a,
+                           const float* __restrict__ b,
+                           float* __restrict__ ws, int M, int K, int N,
+                           int chunk) {
+  extern __shared__ unsigned char smem[];
+  const uint32_t ring = ring_base(smem);
+  const uint32_t bars = ring + kStages * kDwStage;
+  const int tiles_n = (N + kDwBN - 1) / kDwBN;
+  const int tiles = ((K + kDwBK - 1) / kDwBK) * tiles_n;
   const int tile = blockIdx.x % tiles, split = blockIdx.x / tiles;
-  const int k0 = (tile / tiles_n) * kR, n0 = (tile % tiles_n) * kC;
+  const int k0 = (tile / tiles_n) * kDwBK, n0 = (tile % tiles_n) * kDwBN;
   const long long ms = (long long)split * chunk;
   const long long me = ms + chunk < M ? ms + chunk : M;
-  const bool vec_x = vec & 1, vec_z = vec & 2;
+  const int n_st = (int)((me - ms + kDwStep - 1) / kDwStep);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  for (long long m0 = ms; m0 < me; m0 += kKC) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < kKC * kR / 8; e += kThreads) {
-      const int r = e / (kR / 8), c = (e % (kR / 8)) * 8;
-      *reinterpret_cast<uint4*>(sA + r * kLdWide + c) =
-          load8_y(x, a, b, m0 + r, me, K, k0 + c, vec_x, round_act);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);
     }
-    for (int e = threadIdx.x; e < kKC * kC / 8; e += kThreads) {
-      const int r = e / (kC / 8), c = (e % (kC / 8)) * 8;
-      *reinterpret_cast<uint4*>(sB + r * kLdWide + c) =
-          load8(dz, m0 + r, me, N, n0 + c, vec_z);
-    }
-    __syncthreads();
-    mma_step<true>(acc, sA, sB, wr, wc, lane);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float* part = ws + (long long)split * K * N;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const long long row = k0 + wr + mi * 16 + (lane >> 2);
-      const int col = n0 + wc + ni * 8 + (lane & 3) * 2;
-      store2(part, row, K, N, col, acc[mi][ni][0], acc[mi][ni][1]);
-      store2(part, row + 8, K, N, col, acc[mi][ni][2], acc[mi][ni][3]);
+  if (threadIdx.x >= 2 * kWG) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 2 * kWG) {
+      const int nbox = min(4, (N - n0 + kSw - 1) / kSw);
+      for (int it = 0; it < n_st; ++it) {
+        const int s = it % kStages;
+        const int m = (int)(ms + (long long)it * kDwStep);
+        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), kBox + nbox * kBox);
+        const uint32_t st = ring + s * kDwStage;
+        tma_load(st, &map_x, full(s), k0, m);
+        for (int j = 0; j < nbox; ++j)
+          tma_load(st + kBox + j * kBox, &map_dz, full(s), n0 + j * kSw, m);
+      }
     }
+  } else {
+    // ---- consumers ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = threadIdx.x / kWG, tw = threadIdx.x % kWG;
+    const int warp = tw / 32, lane = tw % 32, g = lane >> 2, t = lane & 3;
+    // this thread's two channels (rows g and g + 8 of the warp's 16)
+    const int ch = k0 + warp * 16 + g;
+    const float a0 = a[ch], b0 = b[ch], a1 = a[ch + 8], b1 = b[ch + 8];
+    // ldmatrix.trans: rows of x (the contraction) and the channel chunk
+    const int xr = ((lane >> 4) << 3) + (lane & 7);
+    const int xc = 2 * warp + ((lane >> 3) & 1);
+    float sum[64], fresh[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sum[i] = fresh[i] = 0.f;
+    for (int it = 0; it < n_st; ++it) {
+      const int s = it % kStages;
+      mbar_wait(full(s), (it / kStages) & 1);
+      const uint32_t st = ring + s * kDwStage;
+      uint32_t af[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ldsm_x4_t(af[j], st + sw128(16 * j + xr, xc));
+        // registers 0, 2: channel ch; 1, 3: channel ch + 8
+        af[j][0] = bn_relu2(af[j][0], a0, b0, a0, b0);
+        af[j][1] = bn_relu2(af[j][1], a1, b1, a1, b1);
+        af[j][2] = bn_relu2(af[j][2], a0, b0, a0, b0);
+        af[j][3] = bn_relu2(af[j][3], a1, b1, a1, b1);
+      }
+      fence_regs(fresh);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wgmma_m64n128(fresh, af[j],
+                      desc_b(st + kBox + 2 * wg * kBox + j * 16 * 128),
+                      j > 0);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(fresh);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sum[i] += fresh[i];
+    }
+
+    float* part = ws + (long long)split * K * N;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = ch + 8 * h;
+        const int n = n0 + wg * 128 + 8 * j + 2 * t;
+        if (k < K && n < N)
+          *reinterpret_cast<float2*>(part + (long long)k * N + n) =
+              make_float2(sum[4 * j + 2 * h], sum[4 * j + 2 * h + 1]);
+      }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -493,29 +692,94 @@ __global__ void __launch_bounds__(kThreads)
 
 long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
+// cuTensorMapEncodeTiled, looked up in libcuda through the runtime's
+// entry-point query (no link against libcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault) == cudaSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+#endif
+  }
+  return fn;
+}
+
+// A row-major (rows, cols) bf16 matrix as TMA boxes of box_rows rows x 64
+// columns with the 128-byte swizzle (cols % 8 == 0, ptr on 16 bytes);
+// past its edges a box reads zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, long long rows, int cols,
+                int box_rows) {
+  const EncodeTiledFn enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kSw, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 1;
+  return sms;
+}
+
 }  // namespace
 
 extern "C" {
 
-// The dW kernels' block tile edge and contraction step, for the caller's
-// choice of splits (a chunk is a multiple of the step).
-int kftpu_bnconv_geometry(int is_bf16, int* tile, int* step) {
-  *tile = is_bf16 ? kR : kFR;
-  *step = is_bf16 ? kKC : kFK;
+// The dW kernels' block tile (channels x columns) and rows a step, for
+// the caller's choice of splits (a chunk is a multiple of the step).
+int kftpu_bnconv_geometry(int is_bf16, int* tile_k, int* tile_n, int* step) {
+  *tile_k = is_bf16 ? kDwBK : kFR;
+  *tile_n = is_bf16 ? kDwBN : kFC;
+  *step = is_bf16 ? kDwStep : kFK;
   return 0;
 }
 
-// out (M, N) in x's dtype. vec: bit 0 when K % 8 == 0 and x, a, b are
-// 16-byte aligned; bit 1 when N % 8 == 0 and w is.
+// out (M, N) in x's dtype. bf16: K % 8 == 0 and N % 8 == 0, x and w on
+// 16 bytes, a and b hold ceil(K / 64) * 64 values (zeros past K).
 int kftpu_bnconv_fwd(const void* x, const float* a, const float* b,
                      const void* w, void* out, int M, int K, int N,
-                     int is_bf16, int round_act, int vec, void* stream) {
+                     int is_bf16, int round_act, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    const long long blocks = cdiv(M, kR) * cdiv(N, kC);
-    bnconv_fwd_mma_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-        static_cast<const bf16*>(x), a, b, static_cast<const bf16*>(w),
-        static_cast<bf16*>(out), M, K, N, round_act, vec);
+    CUtensorMap mx, mw, mo;
+    if (K % 8 || N % 8 || !tensor_map(&mx, x, M, K, kFwdBM) ||
+        !tensor_map(&mw, w, K, N, kSw) || !tensor_map(&mo, out, M, N, 64))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err = cudaFuncSetAttribute(
+        bnconv_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kFwdSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long tiles = cdiv(M, kFwdBM) * cdiv(N, kFwdBN);
+    const int sms = sm_count();
+    bnconv_fwd_wgmma_kernel<<<(unsigned)(tiles < sms ? tiles : sms),
+                              kTCThreads, kFwdSmem, s>>>(
+        mx, mw, mo, a, b, M, K, N);
   } else {
     const long long blocks = cdiv(M, kFR) * cdiv(N, kFC);
     bnconv_fwd_fma_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
@@ -526,18 +790,27 @@ int kftpu_bnconv_fwd(const void* x, const float* a, const float* b,
 }
 
 // dW (K, N) in f32 or bf16 (out_bf16) via the workspace ws (splits, K, N)
-// f32; rows [s*chunk, (s+1)*chunk) go to split s. vec as for the forward,
-// bit 1 for dz.
+// f32; rows [s*chunk, (s+1)*chunk) go to split s, chunk a multiple of the
+// step. bf16: K % 8 == 0 and N % 8 == 0, x and dz on 16 bytes, a and b
+// as for the forward.
 int kftpu_bnconv_dw(const void* x, const float* a, const float* b,
                     const void* dz, float* ws, void* out, int M, int K,
                     int N, int splits, int chunk, int is_bf16, int out_bf16,
-                    int round_act, int vec, void* stream) {
+                    int round_act, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    const long long blocks = cdiv(K, kR) * cdiv(N, kC) * splits;
-    bnconv_dw_mma_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-        static_cast<const bf16*>(x), a, b, static_cast<const bf16*>(dz), ws,
-        M, K, N, chunk, round_act, vec);
+    CUtensorMap mx, mdz;
+    if (K % 8 || N % 8 || chunk % kDwStep ||
+        !tensor_map(&mx, x, M, K, kDwStep) ||
+        !tensor_map(&mdz, dz, M, N, kDwStep))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err = cudaFuncSetAttribute(
+        bnconv_dw_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kDwSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long blocks = cdiv(K, kDwBK) * cdiv(N, kDwBN) * splits;
+    bnconv_dw_wgmma_kernel<<<(unsigned)blocks, kTCThreads, kDwSmem, s>>>(
+        mx, mdz, a, b, ws, M, K, N, chunk);
   } else {
     const long long blocks = cdiv(K, kFR) * cdiv(N, kFC) * splits;
     bnconv_dw_fma_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(

@@ -97,8 +97,18 @@
 // 256 threads, each owning a 4 x 4 score micro-tile (rows ty*4+r, keys
 // tx+16c) and a 4 x D/16 slice of the output; tiles staged synchronously
 // in shared memory as f32 rows padded to D + 1 floats.
+// Head dims: the kernels are built for D = 64, 128 and 256. The wrapper
+// (ops/flash_attention.py:pad_head_dim) zero-pads any other D <= 256 to
+// the next of them and slices the results back: zero columns add nothing
+// to q.k^T or to delta = rowsum(dO.O), and the padded output and gradient
+// columns come out zero. The copies cost memory traffic (the LM path runs
+// D = 64 and takes none), and the repair does not redesign the kernels.
+// At D = 256 bf16 runs the FMA kernels as well: the mma kernels' dK and
+// dV accumulators alone would take 256 registers a thread. There the FMA
+// dQ and dK/dV kernels share one shared-memory buffer between two tiles
+// (see each kernel), since their four f32 tiles pass the 227 KB limit.
 // Not yet: wgmma with TMA-staged tiles and a producer warp; in-kernel
-// GQA.
+// GQA; D > 256 (no public model uses it; the wrapper refuses it).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,12 +132,17 @@ static_assert(kBQ == 16 * kWarpsTC && kBK == 16 * kWarpsTC,
 
 typedef __nv_bfloat16 bf16;
 
-// The FMA kernels' element conversions (they run f32 inputs only).
+// The FMA kernels' element conversions (f32 inputs, and bf16 at D = 256).
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 // Element strides of a (B, S, H, D) tensor; the head dim is contiguous.
 struct Layout {
@@ -438,9 +453,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// dQ on the FMA units (f32 inputs; bf16 runs flash_bwd_dq_mma_kernel):
-// dq = scale * sum_j dS_j k_j, dS = P * (dO v^T - delta). grid (B*H, n_q);
-// shared: q, dO, k, v (each 64 x D+1), dS (kBQ x kBK+1).
+// dQ on the FMA units (f32 inputs, bf16 at D = 256; bf16 at D <= 128 runs
+// flash_bwd_dq_mma_kernel): dq = scale * sum_j dS_j k_j,
+// dS = P * (dO v^T - delta). grid (B*H, n_q); shared: q, dO, k, v (each
+// 64 x D+1), dS (kBQ x kBK+1). At D = 256 the four tiles pass the 227 KB
+// a block may take, so k and v share one buffer: dP = dO.v^T runs first,
+// then k replaces v for S = q.k^T and dS.k (each sum in the same order).
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -454,11 +472,12 @@ __global__ void __launch_bounds__(kThreads)
                         int S, float scale, int causal) {
   constexpr int LD = D + 1;
   constexpr int C = D / 16;
+  constexpr bool kShare = D > 128;
   extern __shared__ float smem[];
   float* qs = smem;
   float* dos = qs + kBQ * LD;
   float* ks = dos + kBQ * LD;
-  float* vs = ks + kBK * LD;
+  float* vs = kShare ? ks : ks + kBK * LD;
   float* dss = vs + kBK * LD;
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
@@ -489,7 +508,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < j_end; ++j) {
     const int k0 = j * kBK;
     __syncthreads();
-    stage<T, D>(ks, LD, kb, lk.s, k0, S, kBK, 1.f);
+    if (!kShare) stage<T, D>(ks, LD, kb, lk.s, k0, S, kBK, 1.f);
     stage<T, D>(vs, LD, vb, lv.s, k0, S, kBK, 1.f);
     __syncthreads();
 
@@ -498,26 +517,56 @@ __global__ void __launch_bounds__(kThreads)
     for (int r = 0; r < 4; ++r)
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.f;
+    if constexpr (kShare) {
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], g[4], bk[4], bv[4];
+      for (int d = 0; d < D; ++d) {
+        float g[4], bv[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        a[r] = qs[(ty * 4 + r) * LD + d];
-        g[r] = dos[(ty * 4 + r) * LD + d];
+        for (int r = 0; r < 4; ++r) g[r] = dos[(ty * 4 + r) * LD + d];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) bv[c] = vs[(tx + 16 * c) * LD + d];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) dp[r][c] = fmaf(g[r], bv[c], dp[r][c]);
       }
+      __syncthreads();  // v is read: k takes its place
+      stage<T, D>(ks, LD, kb, lk.s, k0, S, kBK, 1.f);
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float a[4], bk[4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        bk[c] = ks[(tx + 16 * c) * LD + d];
-        bv[c] = vs[(tx + 16 * c) * LD + d];
+        for (int r = 0; r < 4; ++r) a[r] = qs[(ty * 4 + r) * LD + d];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) bk[c] = ks[(tx + 16 * c) * LD + d];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[r][c] = fmaf(a[r], bk[c], s[r][c]);
       }
+    } else {
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float a[4], g[4], bk[4], bv[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+        for (int r = 0; r < 4; ++r) {
+          a[r] = qs[(ty * 4 + r) * LD + d];
+          g[r] = dos[(ty * 4 + r) * LD + d];
+        }
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          s[r][c] = fmaf(a[r], bk[c], s[r][c]);
-          dp[r][c] = fmaf(g[r], bv[c], dp[r][c]);
+          bk[c] = ks[(tx + 16 * c) * LD + d];
+          bv[c] = vs[(tx + 16 * c) * LD + d];
         }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            s[r][c] = fmaf(a[r], bk[c], s[r][c]);
+            dp[r][c] = fmaf(g[r], bv[c], dp[r][c]);
+          }
+      }
     }
 
 #pragma unroll
@@ -560,10 +609,13 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// dK/dV on the FMA units (f32 inputs; bf16 runs flash_bwd_dkv_mma_kernel):
-// dv = sum_i P_i^T dO_i, dk = sum_i dS_i^T (q_i * scale). grid (B*H, n_kv);
-// this block owns kv tile j and walks the q tiles. Shared: k, v, q, dO
-// (each 64 x D+1), P^T and dS^T (kBK x kBQ+1), lse and delta of the q tile.
+// dK/dV on the FMA units (f32 inputs, bf16 at D = 256; bf16 at D <= 128
+// runs flash_bwd_dkv_mma_kernel): dv = sum_i P_i^T dO_i,
+// dk = sum_i dS_i^T (q_i * scale). grid (B*H, n_kv); this block owns kv
+// tile j and walks the q tiles. Shared: k, v, q, dO (each 64 x D+1), P^T
+// and dS^T (kBK x kBQ+1), lse and delta of the q tile. At D = 256 q and
+// dO share one buffer: dO for dP^T = v.dO^T, then q for S^T and dK, then
+// dO again for dV (each sum in the same order).
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -578,11 +630,12 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int LD = D + 1;
   constexpr int C = D / 16;
   constexpr int kPQ = kBQ + 1;
+  constexpr bool kShare = D > 128;
   extern __shared__ float smem[];
   float* ks = smem;
   float* vs = ks + kBK * LD;
   float* qs = vs + kBK * LD;
-  float* dos = qs + kBQ * LD;
+  float* dos = kShare ? qs : qs + kBQ * LD;
   float* pt = dos + kBQ * LD;
   float* dst = pt + kBK * kPQ;
   float* lse_s = dst + kBK * kPQ;
@@ -609,7 +662,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = i_start; i < n_q; ++i) {
     const int q0 = i * kBQ;
     __syncthreads();
-    stage<T, D>(qs, LD, qb, lq.s, q0, S, kBQ, scale);
+    if (!kShare) stage<T, D>(qs, LD, qb, lq.s, q0, S, kBQ, scale);
     stage<T, D>(dos, LD, gb, lo.s, q0, S, kBQ, 1.f);
     for (int e = threadIdx.x; e < kBQ; e += kThreads) {
       const int qpos = q0 + e;
@@ -624,26 +677,56 @@ __global__ void __launch_bounds__(kThreads)
     for (int r = 0; r < 4; ++r)
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.f;
+    if constexpr (kShare) {
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], bv[4], bq[4], bg[4];
+      for (int d = 0; d < D; ++d) {
+        float bv[4], bg[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        a[r] = ks[(ty * 4 + r) * LD + d];
-        bv[r] = vs[(ty * 4 + r) * LD + d];
+        for (int r = 0; r < 4; ++r) bv[r] = vs[(ty * 4 + r) * LD + d];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) bg[c] = dos[(tx + 16 * c) * LD + d];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) dp[r][c] = fmaf(bv[r], bg[c], dp[r][c]);
       }
+      __syncthreads();  // dO is read: q takes its place
+      stage<T, D>(qs, LD, qb, lq.s, q0, S, kBQ, scale);
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float a[4], bq[4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        bq[c] = qs[(tx + 16 * c) * LD + d];
-        bg[c] = dos[(tx + 16 * c) * LD + d];
+        for (int r = 0; r < 4; ++r) a[r] = ks[(ty * 4 + r) * LD + d];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) bq[c] = qs[(tx + 16 * c) * LD + d];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[r][c] = fmaf(a[r], bq[c], s[r][c]);
       }
+    } else {
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float a[4], bv[4], bq[4], bg[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+        for (int r = 0; r < 4; ++r) {
+          a[r] = ks[(ty * 4 + r) * LD + d];
+          bv[r] = vs[(ty * 4 + r) * LD + d];
+        }
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          s[r][c] = fmaf(a[r], bq[c], s[r][c]);
-          dp[r][c] = fmaf(bv[r], bg[c], dp[r][c]);
+          bq[c] = qs[(tx + 16 * c) * LD + d];
+          bg[c] = dos[(tx + 16 * c) * LD + d];
         }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            s[r][c] = fmaf(a[r], bq[c], s[r][c]);
+            dp[r][c] = fmaf(bv[r], bg[c], dp[r][c]);
+          }
+      }
     }
 
 #pragma unroll
@@ -660,26 +743,58 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
+    if constexpr (kShare) {
 #pragma unroll 4
-    for (int qq = 0; qq < kBQ; ++qq) {
-      float pr[4], dr[4], g[C], qv[C];
+      for (int qq = 0; qq < kBQ; ++qq) {
+        float dr[4], qv[C];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        pr[r] = pt[(ty * 4 + r) * kPQ + qq];
-        dr[r] = dst[(ty * 4 + r) * kPQ + qq];
+        for (int r = 0; r < 4; ++r) dr[r] = dst[(ty * 4 + r) * kPQ + qq];
+#pragma unroll
+        for (int c = 0; c < C; ++c) qv[c] = qs[qq * LD + tx + 16 * c];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            dk_acc[r][c] = fmaf(dr[r], qv[c], dk_acc[r][c]);
       }
+      __syncthreads();  // q is read: dO again
+      stage<T, D>(dos, LD, gb, lo.s, q0, S, kBQ, 1.f);
+      __syncthreads();
+#pragma unroll 4
+      for (int qq = 0; qq < kBQ; ++qq) {
+        float pr[4], g[C];
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        g[c] = dos[qq * LD + tx + 16 * c];
-        qv[c] = qs[qq * LD + tx + 16 * c];
+        for (int r = 0; r < 4; ++r) pr[r] = pt[(ty * 4 + r) * kPQ + qq];
+#pragma unroll
+        for (int c = 0; c < C; ++c) g[c] = dos[qq * LD + tx + 16 * c];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            dv_acc[r][c] = fmaf(pr[r], g[c], dv_acc[r][c]);
       }
+    } else {
+#pragma unroll 4
+      for (int qq = 0; qq < kBQ; ++qq) {
+        float pr[4], dr[4], g[C], qv[C];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+        for (int r = 0; r < 4; ++r) {
+          pr[r] = pt[(ty * 4 + r) * kPQ + qq];
+          dr[r] = dst[(ty * 4 + r) * kPQ + qq];
+        }
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          dv_acc[r][c] = fmaf(pr[r], g[c], dv_acc[r][c]);
-          dk_acc[r][c] = fmaf(dr[r], qv[c], dk_acc[r][c]);
+          g[c] = dos[qq * LD + tx + 16 * c];
+          qv[c] = qs[qq * LD + tx + 16 * c];
         }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            dv_acc[r][c] = fmaf(pr[r], g[c], dv_acc[r][c]);
+            dk_acc[r][c] = fmaf(dr[r], qv[c], dk_acc[r][c]);
+          }
+      }
     }
   }
 
@@ -1296,12 +1411,13 @@ __global__ void __launch_bounds__(kThreadsTC)
 size_t fwd_smem(int D) {
   return (size_t)((kBQ + kBK) * (D + 1) + kBK * D + kBQ * kPT) * 4;
 }
-size_t dq_smem(int D) {
-  return (size_t)(2 * (kBQ + kBK) * (D + 1) + kBQ * kPT) * 4;
+size_t dq_smem(int D) {  // k and v share a buffer at D > 128
+  return (size_t)((2 * kBQ + (D > 128 ? 1 : 2) * kBK) * (D + 1) +
+                  kBQ * kPT) * 4;
 }
-size_t dkv_smem(int D) {
-  return (size_t)(2 * (kBQ + kBK) * (D + 1) + 2 * kBK * (kBQ + 1) +
-                  2 * kBQ) * 4;
+size_t dkv_smem(int D) {  // q and dO share a buffer at D > 128
+  return (size_t)((2 * kBK + (D > 128 ? 1 : 2) * kBQ) * (D + 1) +
+                  2 * kBK * (kBQ + 1) + 2 * kBQ) * 4;
 }
 size_t fwd_mma_smem(int D) {  // q, 2-stage k and v rings
   return (size_t)(kBQ + 4 * kBK) * (D + 8) * sizeof(bf16);
@@ -1439,13 +1555,17 @@ int launch_dkv_mma(const void* q, const void* k, const void* v,
 }
 
 // One dispatch over (dtype, head dim) for the three entry points: BF16
-// launches bf16 inputs, F32 f32 ones.
-#define KFTPU_FLASH_DISPATCH(BF16, F32, ...)                             \
+// launches bf16 inputs at D = 64 and 128 (the tensor-core kernels), FMA
+// f32 inputs, and bf16 ones at D = 256, where the mma kernels' fragments
+// would not fit the registers.
+#define KFTPU_FLASH_DISPATCH(BF16, FMA, ...)                             \
   do {                                                                   \
     if (is_bf16 && D == 64) return BF16<bf16, 64>(__VA_ARGS__);          \
     if (is_bf16 && D == 128) return BF16<bf16, 128>(__VA_ARGS__);        \
-    if (!is_bf16 && D == 64) return F32<float, 64>(__VA_ARGS__);         \
-    if (!is_bf16 && D == 128) return F32<float, 128>(__VA_ARGS__);       \
+    if (is_bf16 && D == 256) return FMA<bf16, 256>(__VA_ARGS__);         \
+    if (!is_bf16 && D == 64) return FMA<float, 64>(__VA_ARGS__);         \
+    if (!is_bf16 && D == 128) return FMA<float, 128>(__VA_ARGS__);       \
+    if (!is_bf16 && D == 256) return FMA<float, 256>(__VA_ARGS__);       \
     return static_cast<int>(cudaErrorInvalidValue);                      \
   } while (0)
 

@@ -33,9 +33,13 @@
 //   a row samples the same token on every run.
 // - Greedy rows skip both searches (their result never reads them),
 //   and so do rows whose filter is off (k_eff == V, or p >= 1).
-// - The row must fit shared memory: V <= 57,000 or so; the wrapper
-//   refuses larger vocabularies (a multi-pass variant over L2 is later
-//   work, ROADMAP Queue B).
+// - Any vocabulary. Where the scaled row does not fit shared memory (V
+//   past ~57,000 f32 values: Llama-3's 128,256, Qwen2's 152,064) it lives
+//   in a (B, V) f32 workspace in device memory that the wrapper
+//   allocates, and the same passes run from there through L2 (a
+//   128,256-entry row is 513 KB; eight rows fit the 50 MB L2 many times
+//   over). That is one template parameter of the one kernel, not a
+//   second algorithm; vocabularies that fit keep the shared-memory row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,14 +93,19 @@ __device__ __forceinline__ V block_reduce(V v, V* scratch, Op op) {
   return r;
 }
 
+// kGlobalRow: the scaled row lives in ws (B rows of V floats) instead of
+// shared memory.
+template <bool kGlobalRow>
 __global__ void __launch_bounds__(kThreads) fused_sample_kernel(
     const float* __restrict__ logits, const float* __restrict__ noise,
     const float* __restrict__ temperature, const int* __restrict__ top_k,
-    const float* __restrict__ top_p, int* __restrict__ out, int V) {
-  extern __shared__ float row[];  // the scaled row, V floats
+    const float* __restrict__ top_p, int* __restrict__ out, float* ws,
+    int V) {
+  extern __shared__ float row_s[];  // the scaled row, V floats
   __shared__ float fscratch[kWarps];
   __shared__ int iscratch[kWarps];
   const int b = blockIdx.x;
+  float* row = kGlobalRow ? ws + (size_t)b * V : row_s;
   const int tid = threadIdx.x;
   const float* lrow = logits + (size_t)b * V;
   const float temp = temperature[b];
@@ -206,25 +215,33 @@ extern "C" int kftpu_fused_sample_init() {
   // static scratch: two kWarps-wide arrays
   const int smem = optin - 2 * kWarps * 4;
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fused_sample_kernel,
+    err = cudaFuncSetAttribute(fused_sample_kernel<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
   return smem / (int)sizeof(float);
 }
 
-// Returns cudaGetLastError() after the launch (0 = cudaSuccess).
+// ws: null to keep the scaled row in shared memory (V at most what
+// kftpu_fused_sample_init returned), else a (B, V) f32 workspace that
+// holds it. Returns cudaGetLastError() after the launch (0 =
+// cudaSuccess).
 extern "C" int kftpu_fused_sample(const void* logits, const void* noise,
                                   const void* temperature, const void* top_k,
-                                  const void* top_p, void* out, int B, int V,
-                                  void* stream) {
+                                  const void* top_p, void* out, void* ws,
+                                  int B, int V, void* stream) {
   if (B == 0) return 0;
-  const size_t smem = (size_t)V * sizeof(float);
-  fused_sample_kernel<<<B, kThreads, smem,
-                        reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logits), static_cast<const float*>(noise),
-      static_cast<const float*>(temperature),
-      static_cast<const int*>(top_k), static_cast<const float*>(top_p),
-      static_cast<int*>(out), V);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(logits);
+  const float* n = static_cast<const float*>(noise);
+  const float* t = static_cast<const float*>(temperature);
+  const int* k = static_cast<const int*>(top_k);
+  const float* p = static_cast<const float*>(top_p);
+  if (ws == nullptr)
+    fused_sample_kernel<false><<<B, kThreads, (size_t)V * sizeof(float), s>>>(
+        l, n, t, k, p, static_cast<int*>(out), nullptr, V);
+  else
+    fused_sample_kernel<true><<<B, kThreads, 0, s>>>(
+        l, n, t, k, p, static_cast<int*>(out), static_cast<float*>(ws), V);
   return static_cast<int>(cudaGetLastError());
 }

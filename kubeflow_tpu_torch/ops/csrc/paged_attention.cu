@@ -50,6 +50,14 @@
 //   splits in split order (so the result does not depend on which block
 //   finished last: repeat calls are bit-identical), writes out, and resets
 //   the counter to 0 for the next call. One launch a call.
+// - Any GQA group and head dim (up to 256): a group past 8 q heads is
+//   taken in blocks of at most 8 on the grid's y axis (the reference's
+//   head_block), each with its own workspace rows and counter, re-reading
+//   the KV head's pages. A key row's lanes are rounded up to a power of
+//   two, the idle ones masked (Dh = 96 at bf16: 12 chunks on 16 lanes),
+//   and at f32 past 128 each lane takes two 16-byte slices of a row, with
+//   half the keys a stage, so the ring stays within 32 KB. The serving
+//   shape (group 1, Dh 64) takes one block of one head and one slice.
 // - Not yet: TMA staging, tensor-core dots for large GQA groups, a
 //   persistent grid.
 
@@ -128,22 +136,43 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Keys a lane group takes from each ring stage.
 constexpr int kKeys = 4;
+// q heads a block takes at most (the reference's head_block); a larger
+// GQA group is split over blocks of the grid's y axis
+constexpr int kMaxGroup = 8;
 
-// Keys a ring stage holds: kKeys for each lane group of Dh * el / 16
-// lanes, so a stage of K (or of V) is always 4 * 128 * 16 = 8 KB.
-__host__ __device__ __forceinline__ int stage_rows(int Dh, int el) {
-  return kKeys * kThreads / (Dh * el / 16);
+// A key row's 16-byte chunks, the 16-byte slices each lane takes (two
+// where a row has more than 32 chunks: Dh = 256 at f32), and the lanes
+// that read one key row (a lane group): the chunks over the slices,
+// rounded up to a power of two; the lanes past the row idle.
+__host__ __device__ __forceinline__ int row_chunks(int Dh, int el) {
+  return Dh * el / 16;
+}
+__host__ __device__ __forceinline__ int row_slices(int Dh, int el) {
+  return row_chunks(Dh, el) > 32 ? 2 : 1;
+}
+__host__ __device__ __forceinline__ int row_lanes(int Dh, int el) {
+  const int ns = row_slices(Dh, el);
+  const int need = (row_chunks(Dh, el) + ns - 1) / ns;
+  int lanes = 1;
+  while (lanes < need) lanes <<= 1;
+  return lanes;
 }
 
-// Dynamic shared memory of one block: the 2-stage K and V ring (32 KB),
-// which once drained holds the cross-warp partials (kWarps x group x
-// (Dh + 2) f32), then the split's page ids (pps ints).
+// Keys a ring stage holds: kKeys / slices for each lane group, so a stage
+// of K (or of V) is 8 KB where a row fills its lanes (16 * 128 * 4 bytes).
+__host__ __device__ __forceinline__ int stage_rows(int Dh, int el) {
+  return kKeys / row_slices(Dh, el) * (kThreads / row_lanes(Dh, el));
+}
+
+// Dynamic shared memory of one block: the 2-stage K and V ring, which
+// once drained holds the cross-warp partials (kWarps x heads x (Dh + 2)
+// f32), then the split's page ids (pps ints).
 __host__ __device__ __forceinline__ size_t ring_bytes(int group, int Dh,
                                                       int el) {
+  const int heads = group < kMaxGroup ? group : kMaxGroup;
   const size_t ring = (size_t)4 * stage_rows(Dh, el) * Dh * el;
-  const size_t red = (size_t)kWarps * group * (Dh + 2) * sizeof(float);
+  const size_t red = (size_t)kWarps * heads * (Dh + 2) * sizeof(float);
   return ring > red ? ring : red;
 }
 __host__ __device__ __forceinline__ size_t smem_bytes(int group, int Dh,
@@ -151,37 +180,47 @@ __host__ __device__ __forceinline__ size_t smem_bytes(int group, int Dh,
   return ring_bytes(group, Dh, el) + (size_t)pps * sizeof(int);
 }
 
-// One (row, KV head, split). G is a compile-time bound on the q-head
-// group (1, 2, 4 or 8); `group` <= G is the real one. Each lane group
-// (the lpt lanes that read one key row) keeps its own online softmax (m,
-// l and its Dh slice of acc per q head) over the keys it takes, kKeys a
-// stage; the lane groups are folded at the end, within the warp by
-// shuffles and across warps in shared memory.
-// Workspace: ws_acc[((b*KH + kh)*n_splits + sp)*group + g][Dh] and
-// ws_ml[...][2] = (m, l) of that split; counters[b*KH + kh] counts the
-// splits of (b, kh) that have written theirs, 0 between calls.
-template <typename T, int G>
+// One (row, KV head, head block, split). The q-head group of a KV head is
+// taken in blocks of at most kMaxGroup heads (n_hb of them, grid y =
+// KH * n_hb); each re-reads the KV head's pages. G is a compile-time
+// bound on a block's heads (1, 2, 4 or 8), NS the 16-byte slices a lane
+// takes of a key row, kMasked whether some lanes of a key row idle (Dh =
+// 96 at bf16; without them the serving shape runs no edge checks). Each
+// lane group (the lpt lanes that read one key row) keeps its own online
+// softmax (m, l and its slices of acc per q head) over the keys it
+// takes, kKeys / NS a stage; the lane groups are folded at the end,
+// within the warp by shuffles and across warps in shared memory.
+// Workspace, per unit u = (b*KH + kh)*n_hb + hb:
+// ws_acc[(u*n_splits + sp)*HB + g][Dh] and ws_ml[...][2] = (m, l) of that
+// split, HB = min(group, kMaxGroup); counters[u] counts the splits of the
+// unit that have written theirs, 0 between calls.
+template <typename T, int G, int NS, bool kMasked>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ pages,
     const int* __restrict__ positions, T* __restrict__ out,
     float* __restrict__ ws_acc, float* __restrict__ ws_ml,
     unsigned* __restrict__ counters, int QH, int KH, int Dh, int P, int ps,
-    int n_log, int pps, int n_splits, float scale) {
+    int n_log, int pps, int n_splits, int n_hb, int lpt, float scale) {
   constexpr int VN = Vec<T>::N;
+  constexpr int KK = kKeys / NS;    // keys a lane group takes a stage
+  constexpr int SV = NS * VN;       // values a lane holds of a row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int is_last;
   const int b = blockIdx.x;
-  const int kh = blockIdx.y;
+  const int kh = blockIdx.y / n_hb;
+  const int hb = blockIdx.y - kh * n_hb;
   const int sp = blockIdx.z;
   const int group = QH / KH;
-  const int lpt = Dh / VN;          // lanes per key row: 16-byte chunks
+  const int HB = min(group, kMaxGroup);    // heads a block (ws stride)
+  const int gb = min(HB, group - hb * kMaxGroup);  // this block's heads
+  const int chunks = Dh / VN;       // 16-byte chunks of a key row
   const int tpb = kThreads / lpt;   // lane groups a block
-  const int rows = kKeys * tpb;     // keys a ring stage
+  const int rows = KK * tpb;        // keys a ring stage
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int sub = tid & (lpt - 1);  // this lane's Dh slice
+  const int sub = tid & (lpt - 1);  // this lane's chunks: sub + j * lpt
   const int slot = tid / lpt;       // this lane's group
   T* ks = reinterpret_cast<T*>(smem_raw);
   T* vs = ks + 2 * rows * Dh;
@@ -197,23 +236,26 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   for (int i = tid; i < pps && page0 + i < n_log; i += kThreads)
     pg_s[i] = prow[page0 + i];
   const int pos = positions[b];
-  float qr[G][VN];
-  const size_t q_off = ((size_t)b * QH + (size_t)kh * group) * Dh + sub * VN;
+  const size_t head0 = (size_t)b * QH + (size_t)kh * group + hb * kMaxGroup;
+  float qr[G][SV];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (g < group) {
-      Vec<T>::load(q + q_off + (size_t)g * Dh, qr[g]);
-    } else {
+  for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int i = 0; i < VN; ++i) qr[g][i] = 0.f;
+    for (int j = 0; j < NS; ++j) {
+      const int c = sub + j * lpt;
+      if (g < gb && (!kMasked || c < chunks)) {
+        Vec<T>::load(q + (head0 + g) * Dh + c * VN, qr[g] + j * VN);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VN; ++i) qr[g][j * VN + i] = 0.f;
+      }
     }
-  }
   const int n_live = live_pages(pos, ps, n_log);
   const int n_sp = (n_live + pps - 1) / pps;  // live splits of the row
-  T* ob = out + ((size_t)b * QH + (size_t)kh * group) * Dh;
+  T* ob = out + head0 * Dh;
   if (sp >= n_sp) {  // past the causal frontier: block-uniform
     if (n_sp == 0 && sp == 0) {  // no live page at all: zeros
-      for (int i = tid; i < group * Dh; i += kThreads) ob[i] = from_f32<T>(0.f);
+      for (int i = tid; i < gb * Dh; i += kThreads) ob[i] = from_f32<T>(0.f);
     }
     return;
   }
@@ -237,8 +279,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     T* kd = ks + (st & 1) * rows * Dh;
     T* vd = vs + (st & 1) * rows * Dh;
     const int t0 = st * rows;
-    for (int e = tid; e < rows * lpt; e += kThreads) {
-      const int r = e / lpt, c = e - r * lpt, t = t0 + r;
+    for (int e = tid; e < rows * chunks; e += kThreads) {
+      const int r = e / chunks, c = e - r * chunks, t = t0 + r;
       const int page = page_of(t);
       if (page >= 0) {
         const size_t off = ((size_t)page * ps + t % ps) * tok_stride +
@@ -252,13 +294,28 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   stage_copy(0);
   if (n_st > 1) stage_copy(1);
 
-  float m[G], l[G], acc[G][VN];
+  // this lane's slices of a key row from shared memory; zeros on the
+  // lanes past the row
+  auto row_load = [&](const T* rowp, float* dst) {
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int c = sub + j * lpt;
+      if (!kMasked || c < chunks) {
+        Vec<T>::load(rowp + c * VN, dst + j * VN);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VN; ++i) dst[j * VN + i] = 0.f;
+      }
+    }
+  };
+
+  float m[G], l[G], acc[G][SV];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < VN; ++i) acc[g][i] = 0.f;
+    for (int i = 0; i < SV; ++i) acc[g][i] = 0.f;
   }
   for (int st = 0; st < n_st; ++st) {
     if (st + 1 < n_st) {
@@ -272,34 +329,34 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 
     // this lane group's keys r = slot + u * tpb of the stage: scores
     // s = (q . k) * scale, -inf where the key does not attend
-    bool live[kKeys];
-    float x[kKeys][VN], s[kKeys][G];
+    bool live[KK];
+    float x[KK][SV], s[KK][G];
 #pragma unroll
-    for (int u = 0; u < kKeys; ++u) {
+    for (int u = 0; u < KK; ++u) {
       const int r = slot + u * tpb;
       live[u] = page_of(st * rows + r) >= 0;
-      if (live[u]) Vec<T>::load(kt + r * Dh + sub * VN, x[u]);
+      if (live[u]) row_load(kt + r * Dh, x[u]);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         s[u][g] = 0.f;
         if (live[u]) {
 #pragma unroll
-          for (int i = 0; i < VN; ++i) s[u][g] += qr[g][i] * x[u][i];
+          for (int i = 0; i < SV; ++i) s[u][g] += qr[g][i] * x[u][i];
         }
       }
     }
     // the dot over the group's lanes; every lane of a warp runs this
     for (int o = lpt >> 1; o > 0; o >>= 1) {
 #pragma unroll
-      for (int u = 0; u < kKeys; ++u)
+      for (int u = 0; u < KK; ++u)
 #pragma unroll
         for (int g = 0; g < G; ++g)
           s[u][g] += __shfl_xor_sync(kFull, s[u][g], o);
     }
 #pragma unroll
-    for (int u = 0; u < kKeys; ++u) {
+    for (int u = 0; u < KK; ++u) {
       const int r = slot + u * tpb;
-      if (live[u]) Vec<T>::load(vt + r * Dh + sub * VN, x[u]);
+      if (live[u]) row_load(vt + r * Dh, x[u]);
     }
 
     // online softmax step over these keys; P rounded to the K/V dtype
@@ -308,7 +365,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     for (int g = 0; g < G; ++g) {
       float mx = m[g];
 #pragma unroll
-      for (int u = 0; u < kKeys; ++u) {
+      for (int u = 0; u < KK; ++u) {
         s[u][g] = live[u] ? s[u][g] * scale : -INFINITY;
         mx = fmaxf(mx, s[u][g]);
       }
@@ -316,15 +373,15 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
       m[g] = mx;
       l[g] *= alpha;
 #pragma unroll
-      for (int i = 0; i < VN; ++i) acc[g][i] *= alpha;
+      for (int i = 0; i < SV; ++i) acc[g][i] *= alpha;
 #pragma unroll
-      for (int u = 0; u < kKeys; ++u) {
+      for (int u = 0; u < KK; ++u) {
         const float p = expf(s[u][g] - mx);  // exp(-inf) = 0
         l[g] += p;
         const float pr = to_f32(from_f32<T>(p));  // p.astype(v.dtype)
         if (live[u]) {
 #pragma unroll
-          for (int i = 0; i < VN; ++i) acc[g][i] += pr * x[u][i];
+          for (int i = 0; i < SV; ++i) acc[g][i] += pr * x[u][i];
         }
       }
     }
@@ -344,20 +401,26 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
       l[g] = l[g] * wa + lb * wb;
       m[g] = mm;
 #pragma unroll
-      for (int i = 0; i < VN; ++i) {
+      for (int i = 0; i < SV; ++i) {
         const float ab = __shfl_xor_sync(kFull, acc[g][i], o);
         acc[g][i] = acc[g][i] * wa + ab * wb;
       }
     }
   }
-  const int stride = group * (Dh + 2);  // floats a warp
+  const int stride = gb * (Dh + 2);  // floats a warp
   if (lane < lpt) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      if (g < group) {
+      if (g < gb) {
         float* rg = red + warp * stride + g * (Dh + 2);
 #pragma unroll
-        for (int i = 0; i < VN; ++i) rg[sub * VN + i] = acc[g][i];
+        for (int j = 0; j < NS; ++j) {
+          const int c = sub + j * lpt;
+          if (!kMasked || c < chunks) {
+#pragma unroll
+            for (int i = 0; i < VN; ++i) rg[c * VN + i] = acc[g][j * VN + i];
+          }
+        }
         if (sub == 0) {
           rg[Dh] = m[g];
           rg[Dh + 1] = l[g];
@@ -366,9 +429,9 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     }
   }
   __syncthreads();
-  const size_t row_kh = (size_t)b * KH + kh;
-  const size_t ws = (row_kh * n_splits + sp) * group;
-  for (int i = tid; i < group * Dh; i += kThreads) {
+  const size_t unit = ((size_t)b * KH + kh) * n_hb + hb;
+  const size_t ws = (unit * n_splits + sp) * HB;
+  for (int i = tid; i < gb * Dh; i += kThreads) {
     const int g = i / Dh, d = i - g * Dh;
     float mm = kNegInf;
 #pragma unroll
@@ -394,67 +457,70 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
   if (n_sp == 1) return;
 
-  // -- the fold: the last live split of (b, kh) to finish ----------------
+  // -- the fold: the last live split of the unit to finish ---------------
   __threadfence();  // this thread's partials reach L2 before the ticket
   __syncthreads();
   if (tid == 0)
-    is_last = atomicAdd(counters + row_kh, 1u) == (unsigned)(n_sp - 1);
+    is_last = atomicAdd(counters + unit, 1u) == (unsigned)(n_sp - 1);
   __syncthreads();
   if (!is_last) return;
   __threadfence();
-  const size_t base = row_kh * n_splits;
-  for (int i = tid; i < group * Dh; i += kThreads) {
+  const size_t base = unit * n_splits;
+  for (int i = tid; i < gb * Dh; i += kThreads) {
     const int g = i / Dh, d = i - g * Dh;
     float mm = kNegInf;
     for (int s = 0; s < n_sp; ++s)
-      mm = fmaxf(mm, __ldcg(ws_ml + ((base + s) * group + g) * 2));
+      mm = fmaxf(mm, __ldcg(ws_ml + ((base + s) * HB + g) * 2));
     float ls = 0.f, a = 0.f;
     for (int s = 0; s < n_sp; ++s) {  // in split order
-      const size_t j = (base + s) * group + g;
+      const size_t j = (base + s) * HB + g;
       const float wt = expf(__ldcg(ws_ml + j * 2) - mm);
       ls += __ldcg(ws_ml + j * 2 + 1) * wt;
       a += __ldcg(ws_acc + j * Dh + d) * wt;
     }
     ob[i] = from_f32<T>(a / fmaxf(ls, 1e-30f));
   }
-  if (tid == 0) counters[row_kh] = 0u;  // ready for the next call
+  if (tid == 0) counters[unit] = 0u;  // ready for the next call
 }
 
-template <typename T, int G>
+template <typename T, int G, int NS, bool kMasked>
 int launch_group(dim3 grid, size_t smem, cudaStream_t s, const void* q,
                  const void* k, const void* v, const void* pages,
                  const void* positions, void* out, void* ws_acc, void* ws_ml,
                  void* counters, int QH, int KH, int Dh, int P, int ps,
-                 int n_log, int pps, int n_splits, float scale) {
-  paged_decode_kernel<T, G><<<grid, kThreads, smem, s>>>(
+                 int n_log, int pps, int n_splits, int n_hb, int lpt,
+                 float scale) {
+  paged_decode_kernel<T, G, NS, kMasked><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(pages),
       static_cast<const int*>(positions), static_cast<T*>(out),
       static_cast<float*>(ws_acc), static_cast<float*>(ws_ml),
       static_cast<unsigned*>(counters), QH, KH, Dh, P, ps, n_log, pps,
-      n_splits, scale);
+      n_splits, n_hb, lpt, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int NS, bool kMasked>
 int launch(const void* q, const void* k, const void* v, const void* pages,
            const void* positions, void* out, void* ws_acc, void* ws_ml,
            void* counters, int B, int QH, int KH, int Dh, int P, int ps,
            int n_log, int pps, float scale, cudaStream_t s) {
+  const int lpt = row_lanes(Dh, (int)sizeof(T));
   const int group = QH / KH;
+  const int n_hb = (group + kMaxGroup - 1) / kMaxGroup;
+  const int heads = group < kMaxGroup ? group : kMaxGroup;
   const int n_splits = (n_log + pps - 1) / pps;
-  const dim3 grid(B, KH, n_splits);
+  const dim3 grid(B, KH * n_hb, n_splits);
   const size_t smem = smem_bytes(group, Dh, (int)sizeof(T), pps);
-#define KFTPU_PAGED_GROUP(G)                                                \
-  return launch_group<T, G>(grid, smem, s, q, k, v, pages, positions, out,  \
-                            ws_acc, ws_ml, counters, QH, KH, Dh, P, ps,     \
-                            n_log, pps, n_splits, scale)
-  if (group <= 1) KFTPU_PAGED_GROUP(1);
-  if (group <= 2) KFTPU_PAGED_GROUP(2);
-  if (group <= 4) KFTPU_PAGED_GROUP(4);
-  if (group <= 8) KFTPU_PAGED_GROUP(8);
+#define KFTPU_PAGED_GROUP(G)                                              \
+  return launch_group<T, G, NS, kMasked>(                                 \
+      grid, smem, s, q, k, v, pages, positions, out, ws_acc, ws_ml,       \
+      counters, QH, KH, Dh, P, ps, n_log, pps, n_splits, n_hb, lpt, scale)
+  if (heads <= 1) KFTPU_PAGED_GROUP(1);
+  if (heads <= 2) KFTPU_PAGED_GROUP(2);
+  if (heads <= 4) KFTPU_PAGED_GROUP(4);
+  KFTPU_PAGED_GROUP(8);
 #undef KFTPU_PAGED_GROUP
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -465,13 +531,13 @@ extern "C" size_t kftpu_paged_decode_smem_bytes(int group, int Dh, int el,
   return smem_bytes(group, Dh, el, pps);
 }
 
-// Largest q-head group the kernel takes.
-extern "C" int kftpu_paged_decode_max_group() { return 8; }
-
-// ws_acc: B*KH*n_splits*group*Dh f32, ws_ml: B*KH*n_splits*group*2 f32,
-// n_splits = ceil(n_log / pps); counters: B*KH uint32, zero on entry and
-// left zero on exit. Returns cudaGetLastError() after the launch
-// (0 = cudaSuccess).
+// Any q-head group (in blocks of kMaxGroup heads); Dh a multiple of 16
+// bytes of the dtype, at most 256 (32 lanes x 2 slices of 16 bytes at
+// f32, 32 lanes x 1 at bf16). ws_acc: B*KH*n_hb*n_splits*HB*Dh f32, ws_ml:
+// B*KH*n_hb*n_splits*HB*2 f32, with n_hb = ceil(group / 8), HB =
+// min(group, 8), n_splits = ceil(n_log / pps); counters: B*KH*n_hb
+// uint32, zero on entry and left zero on exit. Returns cudaGetLastError()
+// after the launch (0 = cudaSuccess).
 extern "C" int kftpu_paged_decode_attention(
     const void* q, const void* k, const void* v, const void* pages,
     const void* positions, void* out, void* ws_acc, void* ws_ml,
@@ -479,10 +545,25 @@ extern "C" int kftpu_paged_decode_attention(
     int pps, float scale, int is_bf16, void* stream) {
   if (B == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, pages, positions, out, ws_acc,
-                                 ws_ml, counters, B, QH, KH, Dh, P, ps,
-                                 n_log, pps, scale, s);
-  return launch<float>(q, k, v, pages, positions, out, ws_acc, ws_ml,
-                       counters, B, QH, KH, Dh, P, ps, n_log, pps, scale, s);
+  const int el = is_bf16 ? 2 : 4;
+  if (Dh % (16 / el) || row_chunks(Dh, el) > 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ns = row_slices(Dh, el);
+  const bool masked = row_chunks(Dh, el) != ns * row_lanes(Dh, el);
+#define KFTPU_PAGED_LAUNCH(T, NS, MASKED)                                  \
+  return launch<T, NS, MASKED>(q, k, v, pages, positions, out, ws_acc,    \
+                               ws_ml, counters, B, QH, KH, Dh, P, ps,     \
+                               n_log, pps, scale, s)
+  if (is_bf16) {
+    if (ns != 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (masked) KFTPU_PAGED_LAUNCH(__nv_bfloat16, 1, true);
+    KFTPU_PAGED_LAUNCH(__nv_bfloat16, 1, false);
+  }
+  if (ns == 2) {
+    if (masked) KFTPU_PAGED_LAUNCH(float, 2, true);
+    KFTPU_PAGED_LAUNCH(float, 2, false);
+  }
+  if (masked) KFTPU_PAGED_LAUNCH(float, 1, true);
+  KFTPU_PAGED_LAUNCH(float, 1, false);
+#undef KFTPU_PAGED_LAUNCH
 }

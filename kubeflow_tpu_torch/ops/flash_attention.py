@@ -25,6 +25,13 @@ The bf16 kernels (forward, dQ and dK/dV) stage rows with 16-byte
 copies: their wrappers raise (:func:`check_rows_16b`) on a bf16 input
 whose rows do not start on 16 bytes, rather than copy it.
 
+The kernels are built for the head dims of ``HEAD_DIMS``. Any other
+``D <= 256`` runs at the next of them: the wrappers zero-pad q, k, v
+and dO along D (:func:`pad_head_dim`), take the scale from the true D,
+and slice the results back (:func:`unpad_head_dim`). Zero columns add
+nothing to the scores or to ``delta``, and the padded output and
+gradient columns come out zero, so this is exact. ``D > 256`` raises.
+
 ``launches`` counts kernel launches by kernel name (never plain calls).
 """
 
@@ -38,12 +45,38 @@ import torch
 from kubeflow_tpu_torch.ops.attention import NEG_INF
 
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-HEAD_DIMS = (64, 128)   # the head dims the CUDA kernels are built for
+HEAD_DIMS = (64, 128, 256)   # the head dims the CUDA kernels are built for
 BLOCK_K = 64            # the forward kernel's key tile (kBK in csrc)
 
 
 def _scale(q: torch.Tensor, sm_scale: Optional[float]) -> float:
     return sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+
+
+def padded_head_dim(D: int) -> int:
+    """The built head dim a ``D``-wide input runs at: the smallest of
+    ``HEAD_DIMS`` that holds it. Raises past the largest (no public
+    model has a wider head)."""
+    for width in HEAD_DIMS:
+        if D <= width:
+            return width
+    raise ValueError(f"head dim {D} not supported by the CUDA kernels "
+                     f"(at most {HEAD_DIMS[-1]})")
+
+
+def pad_head_dim(tensors, width: int) -> tuple:
+    """Each ``(B, S, H, D)`` tensor zero-padded along D to ``width`` (the
+    tensor itself where D is already ``width``)."""
+    return tuple(t if t.shape[-1] == width else
+                 torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+                 for t in tensors)
+
+
+def unpad_head_dim(tensors, D: int) -> tuple:
+    """Each tensor's first ``D`` columns of its last dim, contiguous (the
+    tensor itself where it is ``D`` wide)."""
+    return tuple(t if t.shape[-1] == D else t[..., :D].contiguous()
+                 for t in tensors)
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -201,8 +234,8 @@ def _cuda_args(q, tensors, kv_len, rows_16b=False):
         raise TypeError(f"dtype {q.dtype} not supported by the CUDA "
                         "kernels (f32, bf16)")
     if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not supported by the CUDA kernels "
-                         f"(built for {HEAD_DIMS})")
+        raise ValueError(f"head dim {D} must be padded to one of "
+                         f"{HEAD_DIMS} first (pad_head_dim)")
     for t in tensors:
         if t.stride(-1) != 1:
             raise ValueError("the head dim of q/k/v/dO must be contiguous")
@@ -240,6 +273,8 @@ def flash_fwd(q, k, v, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal=causal, sm_scale=sm_scale,
                                kv_len=kv_len)
+    scale, D0 = float(_scale(q, sm_scale)), q.shape[-1]
+    q, k, v = pad_head_dim((q, k, v), padded_head_dim(D0))
     strides, len_ptr, (B, H, S, D) = _cuda_args(q, (q, k, v), kv_len,
                                                 rows_16b=True)
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
@@ -248,9 +283,9 @@ def flash_fwd(q, k, v, *, causal: bool = True,
     with torch.cuda.device(q.device):
         _launch("flash_fwd", lib.kftpu_flash_fwd, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), len_ptr, out.data_ptr(), lse.data_ptr(),
-                strides, B, H, S, D, float(_scale(q, sm_scale)),
-                int(causal), int(q.dtype == torch.bfloat16), _stream(q))
-    return out, lse
+                strides, B, H, S, D, scale, int(causal),
+                int(q.dtype == torch.bfloat16), _stream(q))
+    return unpad_head_dim((out,), D0)[0], lse
 
 
 def _bwd_check(q, k, v, g, lse, delta, kv_len):
@@ -275,6 +310,8 @@ def flash_bwd_dq(q, k, v, g, lse, delta, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, g, lse, delta, causal=causal,
                                   sm_scale=sm_scale, kv_len=kv_len)
+    scale, D0 = float(_scale(q, sm_scale)), q.shape[-1]
+    q, k, v, g = pad_head_dim((q, k, v, g), padded_head_dim(D0))
     strides, len_ptr, (B, H, S, D) = _cuda_args(q, (q, k, v, g), kv_len,
                                                 rows_16b=True)
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
@@ -283,9 +320,9 @@ def flash_bwd_dq(q, k, v, g, lse, delta, *, causal: bool = True,
         _launch("flash_bwd_dq", lib.kftpu_flash_bwd_dq, q.data_ptr(),
                 k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), len_ptr, dq.data_ptr(), strides, B, H, S,
-                D, float(_scale(q, sm_scale)), int(causal),
-                int(q.dtype == torch.bfloat16), _stream(q))
-    return dq
+                D, scale, int(causal), int(q.dtype == torch.bfloat16),
+                _stream(q))
+    return unpad_head_dim((dq,), D0)[0]
 
 
 def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal: bool = True,
@@ -296,6 +333,8 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal=causal,
                                    sm_scale=sm_scale, kv_len=kv_len)
+    scale, D0 = float(_scale(q, sm_scale)), q.shape[-1]
+    q, k, v, g = pad_head_dim((q, k, v, g), padded_head_dim(D0))
     strides, len_ptr, (B, H, S, D) = _cuda_args(q, (q, k, v, g), kv_len,
                                                 rows_16b=True)
     dk = torch.empty((B, S, H, D), dtype=k.dtype, device=q.device)
@@ -305,6 +344,6 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal: bool = True,
         _launch("flash_bwd_dkv", lib.kftpu_flash_bwd_dkv, q.data_ptr(),
                 k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), len_ptr, dk.data_ptr(), dv.data_ptr(),
-                strides, B, H, S, D, float(_scale(q, sm_scale)),
-                int(causal), int(q.dtype == torch.bfloat16), _stream(q))
-    return dk, dv
+                strides, B, H, S, D, scale, int(causal),
+                int(q.dtype == torch.bfloat16), _stream(q))
+    return unpad_head_dim((dk, dv), D0)

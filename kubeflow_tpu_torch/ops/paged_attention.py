@@ -29,6 +29,8 @@ import torch
 from kubeflow_tpu_torch.ops.attention import NEG_INF, gqa_repeat
 
 launches = {"paged_decode_attention": 0}
+MAX_HEAD_DIM = 256     # the kernel's widest head (32 lanes x 2 x 16 bytes)
+MAX_HEAD_BLOCK = 8     # q heads a block takes (kMaxGroup in csrc)
 _MAX_SMEM = 48 * 1024  # default dynamic shared memory, no opt-in needed
 _SPLIT_TOKENS = 128    # keys per split block (scripts/port_paged_sweep.py)
 
@@ -94,9 +96,6 @@ def _lib():
         sm = lib.kftpu_paged_decode_smem_bytes
         sm.argtypes = [i, i, i, i]
         sm.restype = ctypes.c_size_t
-        mg = lib.kftpu_paged_decode_max_group
-        mg.argtypes = []
-        mg.restype = ctypes.c_int
     return lib
 
 
@@ -126,8 +125,9 @@ def device_scratch(device: torch.device, n_counters: int, n_ws: int):
     shrunk; a grown counter buffer is a new zeroed one.
 
     The kernel leaves every counter it draws from at 0 (the last split
-    of each (row, KV head) resets it), and calls on one stream run in
-    order, so each call finds its counters at 0 and the workspace free.
+    of each (row, KV head, head block) resets it), and calls on one
+    stream run in order, so each call finds its counters at 0 and the
+    workspace free.
     The contract: on one device, calls run on one stream at a time."""
     key = (device.type, device.index)
     counters, ws = _scratch.get(key, (None, None))
@@ -169,25 +169,25 @@ def paged_decode_attention(q, k_pages, v_pages, pages, positions, *,
     n_log = pages.shape[1]
     el = q.element_size()
     vec = 16 // el
-    lanes = Dh // vec
-    if Dh % vec or lanes & (lanes - 1) or lanes > 32:
-        raise ValueError(f"head dim {Dh} must be {vec} x a power of two "
-                         f"<= 32 (16-byte row slices) for the CUDA kernel")
+    if Dh % vec or Dh > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {Dh} must be a multiple of {vec} (16-"
+                         f"byte row slices) and at most {MAX_HEAD_DIM} for "
+                         "the CUDA kernel")
     for t in (q, k_pages, v_pages):
         if t.data_ptr() % 16:
             raise ValueError("q/k/v must be 16-byte aligned")
     lib = _lib()
     group = QH // KH
-    if group > lib.kftpu_paged_decode_max_group():
-        raise ValueError(f"q-head group {group} exceeds the kernel's "
-                         f"{lib.kftpu_paged_decode_max_group()}")
     pps = _pages_per_split(lib, group, Dh, el, ps)
     n_splits = -(-n_log // pps)
     scale = sm_scale if sm_scale is not None else Dh ** -0.5
     out = torch.empty_like(q)
-    # per-split partials (acc, then m/l), folded by the last split
-    n_part = B * KH * n_splits * group
-    counters, ws = device_scratch(q.device, B * KH, n_part * (Dh + 2))
+    # per-split partials (acc, then m/l) of each block of at most
+    # MAX_HEAD_BLOCK q heads, folded by the unit's last split
+    n_hb = -(-group // MAX_HEAD_BLOCK)
+    n_part = B * KH * n_hb * n_splits * min(group, MAX_HEAD_BLOCK)
+    counters, ws = device_scratch(q.device, B * KH * n_hb,
+                                  n_part * (Dh + 2))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.kftpu_paged_decode_attention(

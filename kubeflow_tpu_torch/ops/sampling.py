@@ -131,7 +131,7 @@ def _lib():
     fn = lib.kftpu_fused_sample
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, p]
         fn.restype = ctypes.c_int
         init = lib.kftpu_fused_sample_init
         init.argtypes = []
@@ -178,14 +178,15 @@ def fused_sample(logits, noise, temperature, top_k, top_p):
     lib = _lib()
     with torch.cuda.device(dev):
         max_v = _device_max_vocab(lib, torch.cuda.current_device())
-        if V > max_v:
-            raise ValueError(f"vocab {V} exceeds the kernel's shared-"
-                             f"memory row ({max_v} f32 values)")
+        # a row past the shared-memory row lives in device memory
+        ws = (torch.empty((B, V), dtype=torch.float32, device=dev)
+              if V > max_v else None)
         out = torch.empty((B,), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.kftpu_fused_sample(
             logits.data_ptr(), noise.data_ptr(), temp.data_ptr(),
-            k.data_ptr(), p.data_ptr(), out.data_ptr(), B, V, stream)
+            k.data_ptr(), p.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), B, V, stream)
     if rc != 0:
         raise RuntimeError(f"fused_sample kernel launch failed: "
                            f"cudaError {rc}")

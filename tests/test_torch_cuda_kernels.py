@@ -127,6 +127,30 @@ def test_paged_kernel_repeats_bit_for_bit_and_resets_its_counters(cuda,
                                rtol=0)
 
 
+@pytest.mark.parametrize("QH,KH,Dh,dtype,atol", [
+    (32, 2, 64, torch.bfloat16, 8e-3), (32, 2, 64, torch.float32, 1e-5),
+    (8, 2, 96, torch.bfloat16, 8e-3), (8, 2, 96, torch.float32, 1e-5),
+    (4, 4, 256, torch.float32, 1e-5), (4, 4, 256, torch.bfloat16, 8e-3)])
+def test_paged_kernel_takes_any_group_and_head_dim(cuda, QH, KH, Dh, dtype,
+                                                   atol):
+    """A GQA group of 16 (two blocks of 8 q heads, each re-reading the KV
+    head's pages), Dh = 96 (12 chunks on 16 lanes, 4 idle) and Dh = 256
+    (two 16-byte slices a lane at f32): one launch against the plain
+    version, repeat calls bit-identical, counters back at zero."""
+    q, k, v, pages, positions = _paged_case(
+        cuda, _paged_inputs(QH, KH, Dh=Dh, seed=QH + Dh), dtype)
+    before = pa.launches["paged_decode_attention"]
+    got = pa.paged_decode_attention(q, k, v, pages, positions)
+    again = pa.paged_decode_attention(q, k, v, pages, positions)
+    torch.cuda.synchronize()
+    assert pa.launches["paged_decode_attention"] == before + 2
+    want = pa.paged_decode_attention_plain(q, k, v, pages, positions)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert torch.equal(got, again) and (got[-1] == 0).all()
+    counters, _ = pa.device_scratch(q.device, 0, 0)
+    assert int(counters.abs().sum()) == 0
+
+
 def test_sampler_kernel_matches_plain(cuda):
     rng = np.random.default_rng(4)
     logits = torch.from_numpy((3.0 * rng.normal(size=(8, 32000)))
@@ -136,6 +160,26 @@ def test_sampler_kernel_matches_plain(cuda):
             torch.tensor(TOPP, device=cuda))
     for step in range(3):
         g = sm.gumbel_noise(range(8), [step] * 8, 32000, device=cuda)
+        before = sm.launches["fused_sample"]
+        got = sm.fused_sample(logits, g, *args)
+        torch.cuda.synchronize()
+        assert sm.launches["fused_sample"] == before + 1
+        assert torch.equal(got, sm.fused_sample_plain(logits, g, *args))
+
+
+def test_sampler_kernel_past_the_shared_memory_row(cuda):
+    """V = 128,256 (Llama-3): the scaled row lives in a device-memory
+    workspace, the same passes run from there; token-identical to the
+    plain version on the same noise."""
+    V = 128256
+    rng = np.random.default_rng(5)
+    logits = torch.from_numpy((3.0 * rng.normal(size=(8, V)))
+                              .astype(np.float32)).to(cuda)
+    args = (torch.tensor(TEMPS, device=cuda),
+            torch.tensor(TOPK, dtype=torch.int32, device=cuda),
+            torch.tensor(TOPP, device=cuda))
+    for step in range(2):
+        g = sm.gumbel_noise(range(8), [step] * 8, V, device=cuda)
         before = sm.launches["fused_sample"]
         got = sm.fused_sample(logits, g, *args)
         torch.cuda.synchronize()
@@ -226,6 +270,43 @@ def test_flash_kernels_match_plain(cuda, S, D, causal, masked, dtype):
             assert err <= atol, f"{name}: {err} > {atol}"
 
 
+@pytest.mark.parametrize("D", [32, 80, 96, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_take_every_head_dim_to_256(cuda, D, dtype):
+    """Head dims the kernels are not built for run zero-padded to the
+    next built one (64, 128, 256) and sliced back; D = 256 runs its own
+    build (the FMA kernels, also for bf16). Each pass launches its kernel
+    once and matches its plain version at the limits of
+    ``test_flash_kernels_match_plain``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S = 200
+    q, k, v, g = _flash_inputs(cuda, S, D, dtype, seed=D)
+    lens = torch.tensor([0, S - 37], dtype=torch.int32, device=cuda)
+    kw = dict(causal=True, kv_len=lens)
+    before = dict(fa.launches)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = fa.flash_delta(g, out)
+    dq = fa.flash_bwd_dq(q, k, v, g, lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert all(fa.launches[n] == before[n] + 1 for n in before)
+    want = (*fa.flash_fwd_plain(q, k, v, **kw),
+            fa.flash_bwd_dq_plain(q, k, v, g, lse, delta, **kw),
+            *fa.flash_bwd_dkv_plain(q, k, v, g, lse, delta, **kw))
+    atols = (1e-5, 1e-5, 1e-4, 1e-4, 1e-4)
+    for name, got, ref, atol in zip(("out", "lse", "dq", "dk", "dv"),
+                                    (out, lse, dq, dk, dv), want, atols):
+        assert got.shape == ref.shape, name
+        got, ref = got.float(), ref.float()
+        assert torch.isfinite(got).all(), name
+        if dtype == torch.bfloat16 and name != "lse":
+            rel = ((got - ref).norm() / ref.norm()).item()
+            assert rel <= 4e-4, f"{name}: norm err {rel} > 4e-4"
+        else:
+            err = (got - ref).abs().max().item()
+            assert err <= atol, f"{name}: {err} > {atol}"
+
+
 def test_flash_attention_grads_match_dense(cuda):
     """The autograd function on the card against autodiff through the
     dense oracle (f32, TF32 off)."""
@@ -242,8 +323,8 @@ def test_flash_attention_grads_match_dense(cuda):
 
 def test_flash_kernels_read_strides_and_refuse_what_they_lack(cuda):
     """q/k/v/dO read through their (B, S, H, D) strides give the
-    contiguous result bit for bit; unsupported head dims and dtypes
-    raise instead of launching."""
+    contiguous result bit for bit; head dims past 256 and unsupported
+    dtypes raise instead of launching."""
     q, k, v, g = _flash_inputs(cuda, 130, 64, torch.bfloat16, seed=11)
     strided = [t.transpose(1, 2).contiguous().transpose(1, 2)
                for t in (q, k, v, g)]
@@ -258,9 +339,11 @@ def test_flash_kernels_read_strides_and_refuse_what_they_lack(cuda):
     torch.cuda.synchronize()
     for a, b in zip([*got[0], *got[1:]], [*want[0], *want[1:]]):
         assert torch.equal(a, b)
-    q32, k32, v32, _ = _flash_inputs(cuda, 64, 32, torch.float32, seed=12)
+    q32, k32, v32, _ = _flash_inputs(cuda, 64, 320, torch.float32, seed=12)
+    launched = dict(fa.launches)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_fwd(q32, k32, v32)
+    assert fa.launches == launched
     with pytest.raises(TypeError, match="dtype"):
         fa.flash_fwd(q.half(), k.half(), v.half())
 
@@ -362,6 +445,27 @@ def test_bnconv_kernels_match_plain(cuda, M, K, N, dtype, act):
         assert torch.isfinite(got.float()).all()
         limit = 4e-4 if got.dtype == torch.bfloat16 else 1e-5
         assert _norm_err(got, want) <= limit
+
+
+@pytest.mark.parametrize("M,K,N", [(8192, 64, 256), (77, 20, 40),
+                                   (1000, 72, 200)])
+def test_bnconv_kernels_repeat_bit_for_bit(cuda, M, K, N):
+    """The bf16 wgmma forward and dW: repeat calls give bit-identical
+    outputs (each output tile is owned by one block; dW's splits are
+    folded in split order, with no atomics), at a K = 64 site shape with
+    a reduced M and at ragged shapes (padded to 16-byte rows)."""
+    x, a, b, w, dz = _bnconv_inputs(cuda, M, K, N, torch.bfloat16, 7)
+    before = dict(bc.launches)
+    outs = [bc.bnconv_fwd(x, a, b, w) for _ in range(2)]
+    dws = [bc.bnconv_dw(x, a, b, dz, None, torch.bfloat16)
+           for _ in range(2)]
+    dw32 = [bc.bnconv_dw(x, a, b, dz) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert bc.launches["bnconv_fwd"] == before["bnconv_fwd"] + 2
+    assert bc.launches["bnconv_dw"] == before["bnconv_dw"] + 4
+    for pair in (outs, dws, dw32):
+        assert torch.equal(pair[0], pair[1])
+    assert outs[0].shape == (M, N) and dws[0].shape == (K, N)
 
 
 def test_bnconv_autograd_matches_the_plain_backward(cuda):

@@ -137,6 +137,39 @@ def test_ragged_seq_matches_reference(causal):
                                    rtol=0, err_msg=f"d{name}")
 
 
+@pytest.mark.parametrize("D", [16, 80, 96])
+def test_padded_head_dim_matches_reference(D):
+    """The CUDA path's head-dim repair on the plain versions: q, k, v and
+    dO zero-padded along D to the next built width (``pad_head_dim``),
+    run with the true D's scale, and sliced back (``unpad_head_dim``)
+    equal JAX's ``reference_attention`` and its gradients (f32, 1e-5);
+    the padded columns come out exactly zero. Past 256 the width is
+    refused."""
+    q, k, v, w = _np_qkv(S=48, D=D, seed=20 + D)
+    width = fa.padded_head_dim(D)
+    assert width in fa.HEAD_DIMS and width > D
+    padded = fa.pad_head_dim(_torch(q, k, v, w), width)
+    assert all(t.shape[-1] == width for t in padded)
+    pq, pk, pv, pg = padded
+    kw = dict(causal=True, sm_scale=D ** -0.5)
+    out, lse = fa.flash_fwd_plain(pq, pk, pv, **kw)
+    delta = fa.flash_delta(pg, out)
+    dq = fa.flash_bwd_dq_plain(pq, pk, pv, pg, lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv_plain(pq, pk, pv, pg, lse, delta, **kw)
+    for t in (out, dq, dk, dv):
+        assert (t[..., D:] == 0).all()
+    got = fa.unpad_head_dim((out, dq, dk, dv), D)
+    assert all(t.shape == q.shape and t.is_contiguous() for t in got)
+    ref = np.asarray(jatt.reference_attention(*_jax(q, k, v), causal=True))
+    want = _jax_grads(lambda q, k, v: jatt.reference_attention(
+        q, k, v, causal=True), q, k, v, w)
+    for g, r, name in zip(got, (ref, *want), ("out", "dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-5,
+                                   rtol=0, err_msg=name)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.padded_head_dim(320)
+
+
 def test_bf16_gradients_track_pallas():
     q, k, v, w = _np_qkv(seed=5)
     out, got = _port_grads(q, k, v, w, causal=True, dtype=torch.bfloat16)

@@ -49,9 +49,14 @@ def _both(q, k, v, pages, positions):
     return got.numpy(), want
 
 
-@pytest.mark.parametrize("QH,KH", [(4, 4), (4, 2), (8, 2)])
-def test_plain_matches_jax_kernel(QH, KH):
-    got, want = _both(*_inputs(QH, KH, seed=QH + KH))
+@pytest.mark.parametrize("QH,KH,Dh", [
+    pytest.param(4, 4, 16, id="4-4"), pytest.param(4, 2, 16, id="4-2"),
+    pytest.param(8, 2, 16, id="8-2"),
+    # a Llama-style GQA group of 16 (the kernel takes it in blocks of 8),
+    # and a head dim that is not 16 bytes x a power of two
+    pytest.param(32, 2, 16, id="32-2"), pytest.param(8, 2, 96, id="8-2-Dh96")])
+def test_plain_matches_jax_kernel(QH, KH, Dh):
+    got, want = _both(*_inputs(QH, KH, Dh=Dh, seed=QH + KH))
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
     assert (got[4] == 0).all()              # all-sentinel row: zeros
 

@@ -59,6 +59,27 @@ def test_fused_plain_matches_jax_token_for_token(V, scale, seed):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_fused_plain_matches_jax_at_a_llama3_vocab():
+    """V = 128,256 (Llama-3), past the CUDA kernel's shared-memory row:
+    the plain version still picks JAX's token on the same noise (two
+    rows, both filters, to keep the interpreter fast)."""
+    V, temps, topk, topp = 128256, [0.8, 1.1], [50, 0], [0.9, 0.7]
+    rng = np.random.default_rng(7)
+    logits = (3.0 * rng.normal(size=(2, V))).astype(np.float32)
+    keys = jax.vmap(lambda s: jax.random.fold_in(jax.random.key(s), 3))(
+        jnp.arange(2) + 70)
+    want = np.asarray(jax_fused(
+        jnp.asarray(logits), keys, temperature=jnp.asarray(temps),
+        top_k=jnp.asarray(topk, jnp.int32), top_p=jnp.asarray(topp),
+        interpret=True))
+    got = sm.fused_sample(torch.from_numpy(logits),
+                          torch.from_numpy(_jax_noise(keys, V)),
+                          torch.tensor(temps),
+                          torch.tensor(topk, dtype=torch.int32),
+                          torch.tensor(topp))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_fused_greedy_and_ties_take_first_index():
     logits = torch.tensor([[1.0, 3.0, 3.0, 0.0], [2.0, 2.0, 2.0, 2.0]])
     noise = torch.zeros_like(logits)
