@@ -13,7 +13,11 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
    with CUDA events: paged attention at two lengths, ragged rows up to
    2048 tokens and phase 3's 251-363 (bf16 within atol 8e-3, f32 within
    atol 1e-5, GQA included; repeat calls bit-identical, the fused fold's
-   counters back at zero), the sampler (token-identical), and
+   counters back at zero), the sampler (token-identical to its plain
+   version on the shared adversarial rows of ``tests/sampler_rows.py``
+   at V=32000 and 128,256, all at once and each alone, on two of them
+   past the clusters' shared memory, and on random rows at B=8 and 1;
+   its ptxas registers printed, a spill fails), and
    the flash forward, dQ and dK/dV kernels (B=2, H=16, D=64, S=2048 and
    a ragged 1000, causal and not, with and without ``kv_len``, and the
    training case S=8192 bf16 causal; lse within 1e-5; f32 within 1e-5
@@ -58,8 +62,9 @@ a norm-relative error of 4e-4, which a bf16 fault in each must exceed,
 f32 within 1e-5, bf16 repeat calls bit-identical; it prints the wgmma
 kernels' ptxas registers (a spill fails) and times each kernel at every
 site. And it runs the inputs the kernels once refused through them, at
-the same limits: flash at head dims 32, 80 and 96 (zero-padded) and 256
-(timed at B=2, H=16, S=2048, causal; 320 must still raise), paged decode
+the same limits: flash at head dims 32, 80 and 96 (zero-padded), 256, and
+past it 320 and 512 on the wide kernels (f32 and bf16; 256 and 512
+timed at B=2, H=16, S=2048, causal), paged decode
 at a GQA group of 16, at Dh=96 (bf16) and Dh=256 (f32), and the sampler
 at Llama-3's 128,256-token vocabulary (token-identical, timed).
 
@@ -337,61 +342,147 @@ def sampler_inputs(device, B=8, V=32000, seed=SEED):
     return logits, temp, top_k, top_p
 
 
-def check_sampler_kernel(device):
+def sampler_rows():
+    """``tests/sampler_rows.py`` (the shared adversarial rows and their
+    float64 oracle; numpy only), loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "sampler_rows", os.path.join(HERE, "tests", "sampler_rows.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# past the 8 slices a cluster holds in shared memory (~315,000 values): the
+# cluster keeps its slices in the device-memory workspace
+SAMPLER_BIG_V = 2 ** 19 + 3
+
+
+def sampler_bytes_ops(logits, temp, top_k, top_p) -> tuple:
+    """Bytes the sampler must move and operations it must do on these rows:
+    each logit read once, the noise only where a row keeps a value (the
+    float64 oracle's support), the per-row parameters and the token; per
+    element a division and the final draw, and per radix pass over it a
+    key and a compare (top-k, 4 passes) or a key, an exp and an add (top-p,
+    4 passes and a max)."""
+    import numpy as np
+
+    oracle = sampler_rows().oracle_support
+    x, t, k, p = (a.cpu().numpy() for a in (logits, temp, top_k, top_p))
+    B, V = x.shape
+    kept = sum(len(oracle(x[r], t[r], k[r], p[r])) for r in range(B)
+               if t[r] > 0)
+    nbytes = B * V * 4 + kept * 4 + B * (4 + 4 + 4) + B * 4
+    sampled = t > 0
+    kf = int((sampled & (k > 0) & (k < V)).sum())
+    pf = int((sampled & (p < 1)).sum())
+    flops = V * (B + 2 * 4 * kf + (3 * 4 + 1) * pf + 2 * int(sampled.sum()))
+    return nbytes, flops
+
+
+def check_sampler_kernel(device, build_log=""):
+    """The cluster sampler against its plain version, token for token: the
+    shared adversarial rows at V = 32000 and 128,256 (all rows at once and
+    each alone, B = 1) and two of them past the clusters' shared memory
+    (B = 2); random rows at B = 8 and B = 1. Prints its ptxas registers
+    (a spill fails) and times it at B = 8 and B = 1 (V = 32000) and at
+    V = 128,256."""
     import torch
 
     from kubeflow_tpu_torch.ops import sampling as sm
+
+    regs = ptxas_kernels(build_log, r"(fused_sample_kernel)I(Lb[01]E)E")
+    for (name, variant), (n_regs, st, ld) in sorted(regs.items()):
+        print(f"  ptxas {name}<{variant}>: {n_regs} registers, spill "
+              f"stores {st} B, spill loads {ld} B", flush=True)
+        check(st == 0 and ld == 0,
+              f"{name}<{variant}> spills ({st} B stored, {ld} B loaded)")
+    if build_log:
+        check(len(regs) == 2, "no ptxas lines for both fused_sample_kernel "
+                              "variants in the build log")
+    else:
+        print("  ptxas: fused_sample was built before this run (no "
+              "compiler log)", flush=True)
+    held = 0
+
+    def hold(logits, noise, *args):
+        nonlocal held
+        before = sm.launches["fused_sample"]
+        got = sm.fused_sample(logits, noise, *args)
+        want = sm.fused_sample_plain(logits, noise, *args)
+        torch.cuda.synchronize()
+        check(sm.launches["fused_sample"] == before + 1,
+              f"fused_sample B={logits.shape[0]} V={logits.shape[1]} did "
+              "not launch")
+        check(torch.equal(got, want),
+              f"fused_sample B={logits.shape[0]} V={logits.shape[1]} "
+              f"differs from plain: {got.tolist()} vs {want.tolist()}")
+        held += 1
+        return got
+
+    rows = sampler_rows()
+    for V in (32000, 128256, SAMPLER_BIG_V):
+        names, *arrays = rows.adversarial_rows(V, seed=SEED + 7)
+        pick = (list(range(len(names))) if V != SAMPLER_BIG_V else
+                [names.index("ties_straddle_k_top_p"),
+                 names.index("masked_tail_top_p")])
+        x, temp, top_k, top_p = (torch.from_numpy(a[pick]).to(device)
+                                 for a in arrays)
+        R = len(pick)
+        for draw in range(2):
+            noise = sm.gumbel_noise(list(range(R)), [draw] * R, V,
+                                    device=device)
+            hold(x, noise, temp, top_k, top_p)
+            if V != SAMPLER_BIG_V:
+                for r in range(R):
+                    hold(x[r:r + 1], noise[r:r + 1], temp[r:r + 1],
+                         top_k[r:r + 1], top_p[r:r + 1])
+        print(f"fused_sample adversarial rows V={V} "
+              f"({', '.join(names[i] for i in pick)}): token-identical "
+              f"over 2 noise draws, B={R}" + (" and each row alone"
+                                              if V != SAMPLER_BIG_V else
+                                              " (slices in device memory)"),
+              flush=True)
+        del x, noise
+    torch.cuda.empty_cache()
 
     logits, temp, top_k, top_p = sampler_inputs(device)
     B, V = logits.shape
     for seed in range(4):
         noise = sm.gumbel_noise(list(range(B)), [seed] * B, V,
                                 device=device)
-        got = sm.fused_sample(logits, noise, temp, top_k, top_p)
-        want = sm.fused_sample_plain(logits, noise, temp, top_k, top_p)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want),
-              f"fused_sample differs from plain: {got.tolist()} vs "
-              f"{want.tolist()}")
+        got = hold(logits, noise, temp, top_k, top_p)
+        hold(logits[4:5], noise[4:5], temp[4:5], top_k[4:5], top_p[4:5])
     print(f"fused_sample B={B} V={V}: token-identical over 4 noise draws "
-          f"({got.tolist()})", flush=True)
-    # Llama-3's vocabulary, past the shared-memory row: the row lives in
-    # a device-memory workspace
+          f"({got.tolist()}), and its row 4 alone", flush=True)
     big, _, _, _ = sampler_inputs(device, V=128256, seed=SEED + 1)
     for seed in range(2):
         noise_big = sm.gumbel_noise(list(range(B)), [seed] * B, 128256,
                                     device=device)
-        before = sm.launches["fused_sample"]
-        got_big = sm.fused_sample(big, noise_big, temp, top_k, top_p)
-        want_big = sm.fused_sample_plain(big, noise_big, temp, top_k, top_p)
-        torch.cuda.synchronize()
-        check(sm.launches["fused_sample"] == before + 1,
-              "fused_sample at V=128256 did not launch")
-        check(torch.equal(got_big, want_big),
-              f"fused_sample V=128256 differs from plain: "
-              f"{got_big.tolist()} vs {want_big.tolist()}")
+        got_big = hold(big, noise_big, temp, top_k, top_p)
     big_ms = time_ms(lambda: sm.fused_sample(big, noise_big, temp, top_k,
                                              top_p))
-    print(f"fused_sample B={B} V=128256 (row in device memory): "
+    big_bytes, big_ops = sampler_bytes_ops(big, temp, top_k, top_p)
+    print(f"fused_sample B={B} V=128256 (row on chip, 64 KB a CTA): "
           f"token-identical over 2 noise draws ({got_big.tolist()}); "
-          f"kernel_ms={big_ms:.4f}", flush=True)
+          f"kernel_ms={big_ms:.4f} bound_ms="
+          f"{max(big_bytes / HBM_BYTES_PER_S, big_ops / F32_FLOPS) * 1e3:.4f}",
+          flush=True)
     del big, noise_big
+    one = [a[4:5].contiguous() for a in (logits, noise, temp, top_k, top_p)]
+    one_ms = time_ms(lambda: sm.fused_sample(*one))
     kernel_ms = time_ms(lambda: sm.fused_sample(logits, noise, temp, top_k,
                                                 top_p))
     plain_ms = time_ms(lambda: sm.fused_sample_plain(logits, noise, temp,
                                                      top_k, top_p))
-    greedy = (temp <= 0).cpu()
-    n_sampled = int((~greedy).sum())
-    nbytes = (B * V * 4 + n_sampled * V * 4       # logits; noise if read
-              + B * (4 + 4 + 4) + B * 4)          # per-row params, out
-    kf = int(((top_k > 0) & (top_k < V)).cpu()[~greedy].sum())
-    pf = int((top_p < 1).cpu()[~greedy].sum())
-    # per element: a compare per k pass; exp + add per p pass (+ max, z)
-    flops = V * (B + 32 * kf + (2 * 32 + 4) * pf + 2 * n_sampled)
+    nbytes, flops = sampler_bytes_ops(logits, temp, top_k, top_p)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
-    print(f"fused_sample: kernel_ms={kernel_ms:.4f} plain_ms="
-          f"{plain_ms:.4f} bound_ms={max(t_bytes, t_ops):.4f}", flush=True)
+    print(f"fused_sample: {held} calls token-identical; kernel_ms="
+          f"{kernel_ms:.4f} (B=1: {one_ms:.4f}) plain_ms={plain_ms:.4f} "
+          f"bound_ms={max(t_bytes, t_ops):.4f} ({nbytes} B, {flops} "
+          "operations)", flush=True)
     return {"name": "fused_sample", "route": "cuda",
             "source": "kubeflow_tpu_torch/ops/csrc/fused_sample.cu",
             "replaces": "kubeflow_tpu/ops/sampling.py:77",
@@ -639,44 +730,50 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
         for name, err in errs.items():
             worst[owner[name]] = max(worst[owner[name]], err)
         torch.cuda.empty_cache()
-    # head dims the kernels are not built for (zero-padded to 64 or 128),
-    # and D = 256 (its own build, the FMA kernels) at S = 2048, timed
+    # head dims the kernels are not built for (zero-padded to 64 or 128)
     for seed, d_pad in enumerate((32, 80, 96), SEED + 30):
         before = dict(fa.launches)
         compare_flash(B, 1000, 4, d_pad, torch.bfloat16, device, seed,
                       causal=True, masked=True)
         check(all(fa.launches[n] == before[n] + 1 for n in before),
               f"flash D={d_pad}: a kernel did not launch")
-    before = dict(fa.launches)
-    _, wide = compare_flash(B, 2048, H, 256, torch.bfloat16, device,
-                                  SEED + 33, causal=True, masked=False,
-                                  step=4)
-    check(all(fa.launches[n] == before[n] + 1 for n in before),
-          "flash D=256: a kernel did not launch")
-    wq, wk, wv, wg, wlse, wdelta = wide
-    ms256 = {"flash_fwd": time_ms(lambda: fa.flash_fwd(wq, wk, wv)),
-             "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(
-                 wq, wk, wv, wg, wlse, wdelta)),
-             "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv(
-                 wq, wk, wv, wg, wlse, wdelta))}
-    work256 = flash_bytes_ops(B, 2048, H, 256, 2, True)
-    for name, t in ms256.items():
-        nbytes, flops = work256[name]
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-        print(f"{name} bf16 causal B={B} H={H} S=2048 D=256 (FMA kernel): "
-              f"kernel_ms={t:.4f} ({flops / t / 1e9:.1f} TFLOP/s) "
-              f"bound_ms={bound:.4f} (f32 FMA bound "
-              f"{flops / F32_FLOPS * 1e3:.4f})", flush=True)
-    del wide, wq, wk, wv, wg, wlse, wdelta
-    torch.cuda.empty_cache()
-    with_320 = torch.zeros((1, 64, 1, 320), dtype=torch.bfloat16,
-                           device=device)
-    try:
-        fa.flash_fwd(with_320, with_320, with_320)
-    except ValueError as e:
-        print(f"flash D=320 refused: {e}", flush=True)
-    else:
-        raise SmokeFailure("flash at D=320 did not raise")
+    # D = 256 (its own build, the FMA kernels) and, past it, the wide
+    # kernels: D = 320 and 512, f32 and bf16, at S = 1000 with kv_len;
+    # then 256 and 512 in bf16 at B=2, H=16, S=2048, causal, timed
+    for seed, (d_wide, dtype) in enumerate(
+            [(d, t) for d in (320, 512)
+             for t in (torch.float32, torch.bfloat16)], SEED + 34):
+        before = dict(fa.launches)
+        compare_flash(B, 1000, 4, d_wide, dtype, device, seed, causal=True,
+                      masked=True)
+        check(all(fa.launches[n] == before[n] + 1 for n in before),
+              f"flash D={d_wide} {dtype}: a kernel did not launch")
+    wide_ms = {}
+    for seed, d_wide in ((SEED + 33, 256), (SEED + 38, 512)):
+        before = dict(fa.launches)
+        _, wide = compare_flash(B, 2048, H, d_wide, torch.bfloat16, device,
+                                seed, causal=True, masked=False, step=4)
+        check(all(fa.launches[n] == before[n] + 1 for n in before),
+              f"flash D={d_wide}: a kernel did not launch")
+        wq, wk, wv, wg, wlse, wdelta = wide
+        wide_ms[d_wide] = {
+            "flash_fwd": time_ms(lambda: fa.flash_fwd(wq, wk, wv)),
+            "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(
+                wq, wk, wv, wg, wlse, wdelta)),
+            "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv(
+                wq, wk, wv, wg, wlse, wdelta))}
+        work = flash_bytes_ops(B, 2048, H, d_wide, 2, True)
+        kind = "FMA kernel" if d_wide == 256 else "wide FMA kernel"
+        for name, t in wide_ms[d_wide].items():
+            nbytes, flops = work[name]
+            bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+            print(f"{name} bf16 causal B={B} H={H} S=2048 D={d_wide} "
+                  f"({kind}): kernel_ms={t:.4f} "
+                  f"({flops / t / 1e9:.1f} TFLOP/s) bound_ms={bound:.4f} "
+                  f"(f32 FMA bound {flops / F32_FLOPS * 1e3:.4f})",
+                  flush=True)
+        del wide, wq, wk, wv, wg, wlse, wdelta
+        torch.cuda.empty_cache()
     # the training path's case (the last one compared): dQ is owned by
     # one block per q tile, so a repeat call is bit-identical; then timing
     q, k, v, g, lse, delta = main
@@ -1466,7 +1563,8 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  [{name}] {line.strip()}", flush=True)
 
-    kernels = [check_paged_kernel(device), check_sampler_kernel(device),
+    kernels = [check_paged_kernel(device),
+               check_sampler_kernel(device, build_log=logs["fused_sample"]),
                *check_flash_kernels(device,
                                     build_log=logs["flash_attention"]),
                *check_bnconv_kernels(device, build_log=logs["bnconv"])]

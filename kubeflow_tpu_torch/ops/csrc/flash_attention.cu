@@ -99,16 +99,19 @@
 // in shared memory as f32 rows padded to D + 1 floats.
 // Head dims: the kernels are built for D = 64, 128 and 256. The wrapper
 // (ops/flash_attention.py:pad_head_dim) zero-pads any other D <= 256 to
-// the next of them and slices the results back: zero columns add nothing
-// to q.k^T or to delta = rowsum(dO.O), and the padded output and gradient
-// columns come out zero. The copies cost memory traffic (the LM path runs
-// D = 64 and takes none), and the repair does not redesign the kernels.
-// At D = 256 bf16 runs the FMA kernels as well: the mma kernels' dK and
-// dV accumulators alone would take 256 registers a thread. There the FMA
-// dQ and dK/dV kernels share one shared-memory buffer between two tiles
+// the next of them, and any D > 256 to a multiple of 64, and slices the
+// results back: zero columns add nothing to q.k^T or to
+// delta = rowsum(dO.O), and the padded output and gradient columns come out
+// zero. The copies cost memory traffic (the LM path runs D = 64 and takes
+// none). At D = 256 bf16 runs the FMA kernels as well: the mma kernels' dK
+// and dV accumulators alone would take 256 registers a thread. There the
+// FMA dQ and dK/dV kernels share one shared-memory buffer between two tiles
 // (see each kernel), since their four f32 tiles pass the 227 KB limit.
-// Not yet: wgmma with TMA-staged tiles and a producer warp; in-kernel
-// GQA; D > 256 (no public model uses it; the wrapper refuses it).
+// Past 256, f32 and bf16 run the *_wide_kernel FMA kernels, which sum the
+// scores over 64-wide slices of D and give each block one slice of up to
+// 256 output columns (grid z), recomputing the scores for it: no upper
+// limit on D, at D / 256 times the score work (see the wide kernels).
+// Not yet: wgmma with TMA-staged tiles and a producer warp; in-kernel GQA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -813,6 +816,389 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// Head dims past 256 (any multiple of 64; the wrapper pads D to one) on the
+// FMA units, f32 and bf16 alike. A 64-row tile of such a head does not fit
+// beside its peers (fwd_smem at D = 512 would be ~410 KB), so:
+// - the score products S = q.k^T (and dP = dO.v^T) are summed over 64-wide
+//   slices of D staged in turn (kDC columns; the same order d = 0..D-1 as
+//   the kernels above, so S is theirs);
+// - each block owns one slice of up to kSlice output columns, chosen by
+//   grid z, and recomputes the scores for it: O[:, c] = softmax(S).V[:, c],
+//   dQ[:, c] = scale * sum dS.K[:, c], dK[:, c] = sum dS^T.(q * scale)[:, c],
+//   dV[:, c] = sum P^T.dO[:, c]. delta comes in summed over the full D.
+// The recomputation costs D / kSlice times the score work, the price of
+// having no upper limit on D.
+// ---------------------------------------------------------------------------
+
+constexpr int kDC = 64;      // D columns per score-sum slice
+constexpr int kSlice = 256;  // output columns per block
+constexpr int kLDC = kDC + 1;
+
+// Stage n_rows rows of columns [c0, c0 + width) (width <= kSlice) of a
+// (B, S, H, D) tensor as f32 * mul into dst (row stride ld); rows past S
+// are zero.
+template <typename T>
+__device__ __forceinline__ void stage_cols(float* dst, int ld, const T* base,
+                                           long long s_stride, int s0, int S,
+                                           int n_rows, int c0, int width,
+                                           float mul) {
+  for (int e = threadIdx.x; e < n_rows * kSlice; e += kThreads) {
+    const int r = e / kSlice, d = e % kSlice, s = s0 + r;
+    if (d < width)
+      dst[r * ld + d] =
+          s < S ? to_f32(base[(long long)s * s_stride + c0 + d]) * mul : 0.f;
+  }
+}
+
+// s[r][c] += sum over one kDC slice of a[row r] * b[row c] (4 x 4 micro-tile
+// of rows ty*4+r against rows tx+16c).
+__device__ __forceinline__ void slice_products(const float* as,
+                                               const float* bs, int tx,
+                                               int ty, float (&s)[4][4]) {
+#pragma unroll 8
+  for (int d = 0; d < kDC; ++d) {
+    float a[4], bk[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[r] = as[(ty * 4 + r) * kLDC + d];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) bk[c] = bs[(tx + 16 * c) * kLDC + d];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[r][c] = fmaf(a[r], bk[c], s[r][c]);
+  }
+}
+
+// acc[r][c] += sum over 64 rows kk of w[row ty*4+r][kk] * x[kk][tx + 16c]
+// (w: ld kPT; x: ld kSlice + 1).
+__device__ __forceinline__ void tile_times_slice(
+    const float* w, const float* x, int tx, int ty,
+    float (&acc)[4][kSlice / 16]) {
+#pragma unroll 4
+  for (int kk = 0; kk < 64; ++kk) {
+    float wr[4], xv[kSlice / 16];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) wr[r] = w[(ty * 4 + r) * kPT + kk];
+#pragma unroll
+    for (int c = 0; c < kSlice / 16; ++c)
+      xv[c] = x[kk * (kSlice + 1) + tx + 16 * c];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < kSlice / 16; ++c)
+        acc[r][c] = fmaf(wr[r], xv[c], acc[r][c]);
+  }
+}
+
+// Forward, D > 256. grid (B*H, n_q, ceil(D / kSlice)); shared: q and k
+// slices (64 x kLDC each), the v columns (kBK x kSlice+1), p (kBQ x kPT).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const int* __restrict__ kv_len, T* __restrict__ out,
+                          float* __restrict__ lse, Layout lq, Layout lk,
+                          Layout lv, int H, int S, int D, float scale,
+                          int causal) {
+  constexpr int C = kSlice / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* ks = qs + kBQ * kLDC;
+  float* vs = ks + kBK * kLDC;
+  float* ps = vs + kBK * (kSlice + 1);
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int n_q = gridDim.y;
+  const int i = causal ? n_q - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int q0 = i * kBQ;
+  const int c0 = blockIdx.z * kSlice, W = min(kSlice, D - c0);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int limit = kv_len ? kv_len[b] : S;
+  const int n_kv = (S + kBK - 1) / kBK;
+  const int j_end =
+      (causal && limit > 0) ? min(n_kv, last_live_kv(i) + 1) : n_kv;
+
+  const T* qb = q + row_base(lq, b, h);
+  const T* kb = k + row_base(lk, b, h);
+  const T* vb = v + row_base(lv, b, h);
+
+  float m[4], l[4], acc[4][C];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[r][c] = 0.f;
+  }
+
+  for (int j = 0; j < j_end; ++j) {
+    const int k0 = j * kBK;
+    float s[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kDC) {
+      __syncthreads();  // the last slice's (and tile's) readers are done
+      stage<T, kDC>(qs, kLDC, qb + d0, lq.s, q0, S, kBQ, scale);
+      stage<T, kDC>(ks, kLDC, kb + d0, lk.s, k0, S, kBK, 1.f);
+      __syncthreads();
+      slice_products(qs, ks, tx, ty, s);
+    }
+    stage_cols<T>(vs, kSlice + 1, vb, lv.s, k0, S, kBK, c0, W, 1.f);
+
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int qpos = q0 + ty * 4 + r;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kpos = k0 + tx + 16 * c;
+        s[r][c] = mask_score(s[r][c], qpos, kpos, limit, causal);
+        if (kpos < S) mx = fmaxf(mx, s[r][c]);
+      }
+      const float m_new = fmaxf(m[r], row_max(mx));
+      const float alpha = expf(m[r] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kpos = k0 + tx + 16 * c;
+        const float p = kpos < S ? expf(s[r][c] - m_new) : 0.f;
+        sum += p;
+        ps[(ty * 4 + r) * kPT + tx + 16 * c] = to_f32(from_f32<T>(p));
+      }
+      l[r] = l[r] * alpha + row_sum(sum);
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[r][c] *= alpha;
+    }
+    __syncthreads();
+    tile_times_slice(ps, vs, tx, ty, acc);
+  }
+
+  const long long o_row = (long long)H * D;
+  T* ob = out + ((long long)b * S * H + h) * D + c0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int qpos = q0 + ty * 4 + r;
+    if (qpos >= S) continue;
+    const float lc = fmaxf(l[r], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (tx + 16 * c < W)
+        ob[qpos * o_row + tx + 16 * c] = from_f32<T>(acc[r][c] / lc);
+    if (tx == 0 && blockIdx.z == 0)
+      lse[(long long)bh * S + qpos] = m[r] + logf(lc);
+  }
+}
+
+// dQ, D > 256. grid (B*H, n_q, ceil(D / kSlice)); shared: q, dO, k, v
+// slices (64 x kLDC each), the k columns (kBK x kSlice+1), dS (kBQ x kPT).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             const int* __restrict__ kv_len,
+                             T* __restrict__ dq, Layout lq, Layout lk,
+                             Layout lv, Layout lo, int H, int S, int D,
+                             float scale, int causal) {
+  constexpr int C = kSlice / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* dos = qs + kBQ * kLDC;
+  float* ks = dos + kBQ * kLDC;
+  float* vs = ks + kBK * kLDC;
+  float* kcols = vs + kBK * kLDC;
+  float* dss = kcols + kBK * (kSlice + 1);
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int n_q = gridDim.y;
+  const int i = causal ? n_q - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int q0 = i * kBQ;
+  const int c0 = blockIdx.z * kSlice, W = min(kSlice, D - c0);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int limit = kv_len ? kv_len[b] : S;
+  const int n_kv = (S + kBK - 1) / kBK;
+  const int j_end =
+      (causal && limit > 0) ? min(n_kv, last_live_kv(i) + 1) : n_kv;
+
+  const T* qb = q + row_base(lq, b, h);
+  const T* gb = dout + row_base(lo, b, h);
+  const T* kb = k + row_base(lk, b, h);
+  const T* vb = v + row_base(lv, b, h);
+  float lse_r[4], delta_r[4], acc[4][C];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int qpos = q0 + ty * 4 + r;
+    const bool in = qpos < S;
+    lse_r[r] = in ? lse[(long long)bh * S + qpos] : 0.f;
+    delta_r[r] = in ? delta[(long long)bh * S + qpos] : 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[r][c] = 0.f;
+  }
+
+  for (int j = 0; j < j_end; ++j) {
+    const int k0 = j * kBK;
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kDC) {
+      __syncthreads();
+      stage<T, kDC>(qs, kLDC, qb + d0, lq.s, q0, S, kBQ, scale);
+      stage<T, kDC>(dos, kLDC, gb + d0, lo.s, q0, S, kBQ, 1.f);
+      stage<T, kDC>(ks, kLDC, kb + d0, lk.s, k0, S, kBK, 1.f);
+      stage<T, kDC>(vs, kLDC, vb + d0, lv.s, k0, S, kBK, 1.f);
+      __syncthreads();
+      slice_products(qs, ks, tx, ty, s);
+      slice_products(dos, vs, tx, ty, dp);
+    }
+    stage_cols<T>(kcols, kSlice + 1, kb, lk.s, k0, S, kBK, c0, W, 1.f);
+
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int qpos = q0 + ty * 4 + r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kpos = k0 + tx + 16 * c;
+        const float sc = mask_score(s[r][c], qpos, kpos, limit, causal);
+        const float p = kpos < S ? expf(sc - lse_r[r]) : 0.f;
+        dss[(ty * 4 + r) * kPT + tx + 16 * c] = p * (dp[r][c] - delta_r[r]);
+      }
+    }
+    __syncthreads();
+    tile_times_slice(dss, kcols, tx, ty, acc);
+  }
+
+  const long long o_row = (long long)H * D;
+  T* ob = dq + ((long long)b * S * H + h) * D + c0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int qpos = q0 + ty * 4 + r;
+    if (qpos >= S) continue;
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (tx + 16 * c < W)
+        ob[qpos * o_row + tx + 16 * c] = from_f32<T>(acc[r][c] * scale);
+  }
+}
+
+// dK/dV, D > 256. grid (B*H, n_kv, ceil(D / kSlice)); this block owns kv
+// tile j and output columns [c0, c0 + W), and walks the q tiles. Shared:
+// k, v, q, dO slices (64 x kLDC each), one buffer of kBQ x kSlice+1 for
+// the q columns (for dK) and then the dO columns (for dV), P^T and dS^T
+// (kBK x kBQ+1), lse and delta of the q tile.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_wide_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              const T* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              const int* __restrict__ kv_len,
+                              T* __restrict__ dk, T* __restrict__ dv,
+                              Layout lq, Layout lk, Layout lv, Layout lo,
+                              int H, int S, int D, float scale, int causal) {
+  constexpr int C = kSlice / 16;
+  constexpr int kPQ = kBQ + 1;
+  static_assert(kPQ == kPT, "tile_times_slice reads rows of kPT");
+  extern __shared__ float smem[];
+  float* ks = smem;
+  float* vs = ks + kBK * kLDC;
+  float* qs = vs + kBK * kLDC;
+  float* dos = qs + kBQ * kLDC;
+  float* cols = dos + kBQ * kLDC;
+  float* pt = cols + kBQ * (kSlice + 1);
+  float* dst = pt + kBK * kPQ;
+  float* lse_s = dst + kBK * kPQ;
+  float* delta_s = lse_s + kBQ;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int j = blockIdx.y;
+  const int k0 = j * kBK;
+  const int c0 = blockIdx.z * kSlice, W = min(kSlice, D - c0);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int limit = kv_len ? kv_len[b] : S;
+  const int n_q = (S + kBQ - 1) / kBQ;
+  const int i_start = (causal && limit > 0) ? first_live_q(j) : 0;
+
+  const T* qb = q + row_base(lq, b, h);
+  const T* gb = dout + row_base(lo, b, h);
+  const T* kb = k + row_base(lk, b, h);
+  const T* vb = v + row_base(lv, b, h);
+  float dk_acc[4][C], dv_acc[4][C];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < C; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
+
+  for (int i = i_start; i < n_q; ++i) {
+    const int q0 = i * kBQ;
+    // transposed tiles: rows are this block's keys, columns the q rows
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kDC) {
+      __syncthreads();
+      stage<T, kDC>(ks, kLDC, kb + d0, lk.s, k0, S, kBK, 1.f);
+      stage<T, kDC>(vs, kLDC, vb + d0, lv.s, k0, S, kBK, 1.f);
+      stage<T, kDC>(qs, kLDC, qb + d0, lq.s, q0, S, kBQ, scale);
+      stage<T, kDC>(dos, kLDC, gb + d0, lo.s, q0, S, kBQ, 1.f);
+      if (d0 == 0)
+        for (int e = threadIdx.x; e < kBQ; e += kThreads) {
+          const int qpos = q0 + e;
+          lse_s[e] = qpos < S ? lse[(long long)bh * S + qpos] : 0.f;
+          delta_s[e] = qpos < S ? delta[(long long)bh * S + qpos] : 0.f;
+        }
+      __syncthreads();
+      slice_products(ks, qs, tx, ty, s);
+      slice_products(vs, dos, tx, ty, dp);
+    }
+    stage_cols<T>(cols, kSlice + 1, qb, lq.s, q0, S, kBQ, c0, W, scale);
+
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int kpos = k0 + ty * 4 + r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int qcol = tx + 16 * c, qpos = q0 + qcol;
+        const float sc = mask_score(s[r][c], qpos, kpos, limit, causal);
+        const float p = qpos < S ? expf(sc - lse_s[qcol]) : 0.f;
+        pt[(ty * 4 + r) * kPQ + qcol] = p;
+        dst[(ty * 4 + r) * kPQ + qcol] = p * (dp[r][c] - delta_s[qcol]);
+      }
+    }
+    __syncthreads();
+    tile_times_slice(dst, cols, tx, ty, dk_acc);
+    __syncthreads();  // the q columns are read: the dO columns replace them
+    stage_cols<T>(cols, kSlice + 1, gb, lo.s, q0, S, kBQ, c0, W, 1.f);
+    __syncthreads();
+    tile_times_slice(pt, cols, tx, ty, dv_acc);
+  }
+
+  const long long o_row = (long long)H * D;
+  const long long base = ((long long)b * S * H + h) * D + c0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int kpos = k0 + ty * 4 + r;
+    if (kpos >= S) continue;
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (tx + 16 * c < W) {
+        dk[base + kpos * o_row + tx + 16 * c] = from_f32<T>(dk_acc[r][c]);
+        dv[base + kpos * o_row + tx + 16 * c] = from_f32<T>(dv_acc[r][c]);
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // bf16 forward on the tensor cores.
 // grid (B*H, n_q), kThreadsTC threads; warp w owns q rows 16w..16w+15.
 // Shared (bf16, rows of D + 8): q (kBQ), k and v rings (2 x kBK each).
@@ -1430,6 +1816,17 @@ size_t dq_mma_smem(int D) {  // q, dO, 2-stage k and v rings
   return (size_t)(2 * kBQ + 4 * kBK) * (D + 8) * sizeof(bf16);
 }
 
+size_t fwd_wide_smem() {  // q, k slices; v columns; p
+  return (size_t)(2 * 64 * kLDC + kBK * (kSlice + 1) + kBQ * kPT) * 4;
+}
+size_t dq_wide_smem() {  // q, dO, k, v slices; k columns; dS
+  return (size_t)(4 * 64 * kLDC + kBK * (kSlice + 1) + kBQ * kPT) * 4;
+}
+size_t dkv_wide_smem() {  // k, v, q, dO slices; q/dO columns; P^T, dS^T
+  return (size_t)(4 * 64 * kLDC + kBQ * (kSlice + 1) + 2 * kBK * (kBQ + 1) +
+                  2 * kBQ) * 4;
+}
+
 Layout layout(const long long* st) { return Layout{st[0], st[1], st[2]}; }
 
 template <typename Kernel>
@@ -1554,6 +1951,72 @@ int launch_dkv_mma(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_fwd_wide(const void* q, const void* k, const void* v,
+                    const void* kv_len, void* out, void* lse,
+                    const long long* strides, int B, int H, int S, int D,
+                    float scale, int causal, cudaStream_t stream) {
+  const size_t smem = fwd_wide_smem();
+  cudaError_t err = allow_smem(flash_fwd_wide_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (S + kBQ - 1) / kBQ, (D + kSlice - 1) / kSlice);
+  flash_fwd_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(kv_len),
+      static_cast<T*>(out), static_cast<float*>(lse), layout(strides),
+      layout(strides + 3), layout(strides + 6), H, S, D, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dq_wide(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   const void* kv_len, void* dq, const long long* strides,
+                   int B, int H, int S, int D, float scale, int causal,
+                   cudaStream_t stream) {
+  const size_t smem = dq_wide_smem();
+  cudaError_t err = allow_smem(flash_bwd_dq_wide_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (S + kBQ - 1) / kBQ, (D + kSlice - 1) / kSlice);
+  flash_bwd_dq_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(kv_len), static_cast<T*>(dq), layout(strides),
+      layout(strides + 3), layout(strides + 6), layout(strides + 9), H, S, D,
+      scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dkv_wide(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    const void* kv_len, void* dk, void* dv,
+                    const long long* strides, int B, int H, int S, int D,
+                    float scale, int causal, cudaStream_t stream) {
+  const size_t smem = dkv_wide_smem();
+  cudaError_t err = allow_smem(flash_bwd_dkv_wide_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (S + kBK - 1) / kBK, (D + kSlice - 1) / kSlice);
+  flash_bwd_dkv_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(kv_len), static_cast<T*>(dk),
+      static_cast<T*>(dv), layout(strides), layout(strides + 3),
+      layout(strides + 6), layout(strides + 9), H, S, D, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// D > 256 (a multiple of kDC): the wide kernels, f32 and bf16.
+#define KFTPU_FLASH_WIDE(WIDE, ...)                                      \
+  do {                                                                   \
+    if (D > 256) {                                                       \
+      if (D % kDC) return static_cast<int>(cudaErrorInvalidValue);       \
+      return is_bf16 ? WIDE<bf16>(__VA_ARGS__) : WIDE<float>(__VA_ARGS__); \
+    }                                                                    \
+  } while (0)
+
 // One dispatch over (dtype, head dim) for the three entry points: BF16
 // launches bf16 inputs at D = 64 and 128 (the tensor-core kernels), FMA
 // f32 inputs, and bf16 ones at D = 256, where the mma kernels' fragments
@@ -1583,6 +2046,8 @@ extern "C" int kftpu_flash_fwd(const void* q, const void* k, const void* v,
                                void* stream) {
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  KFTPU_FLASH_WIDE(launch_fwd_wide, q, k, v, kv_len, out, lse, strides, B, H,
+                   S, D, scale, causal, s);
   KFTPU_FLASH_DISPATCH(launch_fwd_mma, launch_fwd, q, k, v, kv_len, out, lse,
                        strides, B, H, S, scale, causal, s);
 }
@@ -1598,6 +2063,8 @@ extern "C" int kftpu_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   int causal, int is_bf16, void* stream) {
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  KFTPU_FLASH_WIDE(launch_dq_wide, q, k, v, dout, lse, delta, kv_len, dq,
+                   strides, B, H, S, D, scale, causal, s);
   KFTPU_FLASH_DISPATCH(launch_dq_mma, launch_dq, q, k, v, dout, lse, delta,
                        kv_len, dq, strides, B, H, S, scale, causal, s);
 }
@@ -1612,6 +2079,8 @@ extern "C" int kftpu_flash_bwd_dkv(const void* q, const void* k,
                                    int is_bf16, void* stream) {
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  KFTPU_FLASH_WIDE(launch_dkv_wide, q, k, v, dout, lse, delta, kv_len, dk,
+                   dv, strides, B, H, S, D, scale, causal, s);
   KFTPU_FLASH_DISPATCH(launch_dkv_mma, launch_dkv, q, k, v, dout, lse, delta,
                        kv_len, dk, dv, strides, B, H, S, scale, causal, s);
 }

@@ -25,12 +25,14 @@ The bf16 kernels (forward, dQ and dK/dV) stage rows with 16-byte
 copies: their wrappers raise (:func:`check_rows_16b`) on a bf16 input
 whose rows do not start on 16 bytes, rather than copy it.
 
-The kernels are built for the head dims of ``HEAD_DIMS``. Any other
-``D <= 256`` runs at the next of them: the wrappers zero-pad q, k, v
-and dO along D (:func:`pad_head_dim`), take the scale from the true D,
-and slice the results back (:func:`unpad_head_dim`). Zero columns add
-nothing to the scores or to ``delta``, and the padded output and
-gradient columns come out zero, so this is exact. ``D > 256`` raises.
+The kernels are built for the head dims of ``HEAD_DIMS``, and past
+the largest for any multiple of ``WIDE_STEP`` (the wide kernels, which
+sum the scores over 64-wide slices of D). Any other D runs at the next
+of those widths: the wrappers zero-pad q, k, v and dO along D
+(:func:`pad_head_dim`), take the scale from the true D, and slice the
+results back (:func:`unpad_head_dim`). Zero columns add nothing to the
+scores or to ``delta``, and the padded output and gradient columns come
+out zero, so this is exact. No head dim is refused.
 
 ``launches`` counts kernel launches by kernel name (never plain calls).
 """
@@ -46,6 +48,7 @@ from kubeflow_tpu_torch.ops.attention import NEG_INF
 
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 HEAD_DIMS = (64, 128, 256)   # the head dims the CUDA kernels are built for
+WIDE_STEP = 64          # past HEAD_DIMS[-1], any multiple of it (kDC in csrc)
 BLOCK_K = 64            # the forward kernel's key tile (kBK in csrc)
 
 
@@ -55,13 +58,12 @@ def _scale(q: torch.Tensor, sm_scale: Optional[float]) -> float:
 
 def padded_head_dim(D: int) -> int:
     """The built head dim a ``D``-wide input runs at: the smallest of
-    ``HEAD_DIMS`` that holds it. Raises past the largest (no public
-    model has a wider head)."""
+    ``HEAD_DIMS`` that holds it, and past the largest, ``D`` rounded up
+    to a multiple of ``WIDE_STEP``."""
     for width in HEAD_DIMS:
         if D <= width:
             return width
-    raise ValueError(f"head dim {D} not supported by the CUDA kernels "
-                     f"(at most {HEAD_DIMS[-1]})")
+    return -(-D // WIDE_STEP) * WIDE_STEP
 
 
 def pad_head_dim(tensors, width: int) -> tuple:
@@ -233,9 +235,9 @@ def _cuda_args(q, tensors, kv_len, rows_16b=False):
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dtype {q.dtype} not supported by the CUDA "
                         "kernels (f32, bf16)")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} must be padded to one of "
-                         f"{HEAD_DIMS} first (pad_head_dim)")
+    if padded_head_dim(D) != D:
+        raise ValueError(f"head dim {D} must be padded to "
+                         f"{padded_head_dim(D)} first (pad_head_dim)")
     for t in tensors:
         if t.stride(-1) != 1:
             raise ValueError("the head dim of q/k/v/dO must be contiguous")

@@ -1,13 +1,18 @@
 """Fused temperature → top-k → top-p → Gumbel-max sampler.
 
 Counterpart of ``kubeflow_tpu/ops/sampling.py``. Both filters reduce to
-per-row value thresholds found EXACTLY by a 32-step binary search over
-the ordered-int encoding of f32, so the sampler keeps full-vocab support
-without a sort. The CUDA kernel (``csrc/fused_sample.cu``) replaces the
-Pallas ``_fused_sample_kernel``.
+per-row value thresholds over the ordered-int encoding of f32, found
+EXACTLY without a sort, so the sampler keeps full-vocab support. The
+CUDA kernel (``csrc/fused_sample.cu``) replaces the Pallas
+``_fused_sample_kernel``: one thread-block cluster per row finds each
+threshold by a radix select (four 8-bit digits) over histograms merged
+through the cluster's shared memory; the plain version keeps the
+reference's 32-step binary searches.
 
 - :func:`fused_sample` — the wrapper. A CUDA tensor launches the kernel
-  (or raises); a CPU tensor takes the plain version.
+  (or raises: a cluster launch the device refuses is an error, never a
+  fall back to the plain version); a CPU tensor takes the plain
+  version.
 - :func:`fused_sample_plain` — the plain PyTorch version, the reference
   kernel's arithmetic written out over a ``(B, V)`` batch.
 
@@ -121,7 +126,7 @@ def gumbel_noise(seeds: Sequence[int], steps: Sequence[int], V: int, *,
     return torch.stack(rows)
 
 
-_max_vocab: dict = {}  # device index → largest V the kernel takes there
+_max_vocab: dict = {}  # device index → largest V with the row on chip
 
 
 def _lib():
@@ -140,11 +145,17 @@ def _lib():
 
 
 def _device_max_vocab(lib, index: int) -> int:
-    """Prepare the kernel on the current device once; its largest V."""
+    """Prepare the kernel on the current device once; the largest V whose
+    row its clusters hold in shared memory. Raises if the device cannot
+    hold a cluster of it."""
     if index not in _max_vocab:
         rc = lib.kftpu_fused_sample_init()
         if rc < 0:
             raise RuntimeError(f"fused_sample init failed: cudaError {-rc}")
+        if rc == 0:
+            raise RuntimeError("fused_sample: no cluster of the kernel fits "
+                               "this device (cudaOccupancyMaxActiveClusters "
+                               "is 0)")
         _max_vocab[index] = rc
     return _max_vocab[index]
 
@@ -178,7 +189,7 @@ def fused_sample(logits, noise, temperature, top_k, top_p):
     lib = _lib()
     with torch.cuda.device(dev):
         max_v = _device_max_vocab(lib, torch.cuda.current_device())
-        # a row past the shared-memory row lives in device memory
+        # a row past the clusters' shared memory lives in device memory
         ws = (torch.empty((B, V), dtype=torch.float32, device=dev)
               if V > max_v else None)
         out = torch.empty((B,), dtype=torch.int32, device=dev)

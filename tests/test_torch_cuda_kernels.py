@@ -168,8 +168,8 @@ def test_sampler_kernel_matches_plain(cuda):
 
 
 def test_sampler_kernel_past_the_shared_memory_row(cuda):
-    """V = 128,256 (Llama-3): the scaled row lives in a device-memory
-    workspace, the same passes run from there; token-identical to the
+    """V = 128,256 (Llama-3), past one block's shared memory: each of the
+    row's 8 cluster CTAs holds a 64 KB slice; token-identical to the
     plain version on the same noise."""
     V = 128256
     rng = np.random.default_rng(5)
@@ -185,6 +185,75 @@ def test_sampler_kernel_past_the_shared_memory_row(cuda):
         torch.cuda.synchronize()
         assert sm.launches["fused_sample"] == before + 1
         assert torch.equal(got, sm.fused_sample_plain(logits, g, *args))
+
+
+def _sampler_case(cuda, logits, temp, top_k, top_p):
+    return (torch.from_numpy(np.ascontiguousarray(logits)).to(cuda),
+            torch.from_numpy(temp).to(cuda),
+            torch.from_numpy(top_k).to(cuda),
+            torch.from_numpy(top_p).to(cuda))
+
+
+def _hold_sampler(logits, args, noise):
+    before = sm.launches["fused_sample"]
+    got = sm.fused_sample(logits, noise, *args)
+    torch.cuda.synchronize()
+    assert sm.launches["fused_sample"] == before + 1
+    want = sm.fused_sample_plain(logits, noise, *args)
+    assert torch.equal(got, want), (got.tolist(), want.tolist())
+    return got
+
+
+@pytest.mark.parametrize("V", [64, 32000, 128256])
+def test_sampler_kernel_holds_the_adversarial_rows(cuda, V):
+    """The shared adversarial rows (``tests/sampler_rows.py``) all at once
+    and each alone (B = 1): token-identical to the plain version on two
+    Gumbel draws, and on spike probes (noise at one index alone) at the
+    first support indices of the float64 oracle and at random others."""
+    from sampler_rows import adversarial_rows, oracle_support
+
+    names, logits, temp, top_k, top_p = adversarial_rows(V, seed=3)
+    x, *args = _sampler_case(cuda, logits, temp, top_k, top_p)
+    gen = torch.Generator(device="cpu").manual_seed(V)
+    for _ in range(2):
+        u = torch.rand(x.shape, generator=gen).clamp_min(1e-20)
+        noise = (-torch.log(-torch.log(u))).to(cuda)
+        _hold_sampler(x, args, noise)
+        for r in range(len(names)):
+            _hold_sampler(x[r:r + 1], [a[r:r + 1] for a in args],
+                          noise[r:r + 1])
+    rng = np.random.default_rng(V)
+    rows, at = [], []
+    for r in range(len(names)):
+        sup = oracle_support(logits[r], temp[r], top_k[r], top_p[r])
+        for j in [*sup[:8], *rng.integers(0, V, size=8)]:
+            rows.append(r)
+            at.append(int(j))
+    rows = torch.tensor(rows, device=cuda)
+    spikes = torch.zeros((len(at), V), device=cuda)
+    spikes[torch.arange(len(at)), torch.tensor(at)] = 1e5
+    _hold_sampler(x[rows].contiguous(), [a[rows].contiguous() for a in args],
+                  spikes)
+
+
+def test_sampler_kernel_past_the_clusters_shared_memory(cuda):
+    """A row past 8 x a block's shared memory (V = 2^19 + 3, B = 2) keeps
+    its slices in the device-memory workspace; the same passes, the same
+    tokens as the plain version."""
+    from sampler_rows import adversarial_rows
+
+    V = 2 ** 19 + 3
+    names, logits, temp, top_k, top_p = adversarial_rows(V, seed=4)
+    pick = [names.index("ties_straddle_k_top_p"),
+            names.index("masked_tail_top_p")]
+    x, *args = _sampler_case(cuda, logits[pick], temp[pick], top_k[pick],
+                             top_p[pick])
+    sm.fused_sample(x[:1, :64].contiguous(), torch.zeros_like(x[:1, :64]),
+                    *[a[:1] for a in args])
+    assert sm._max_vocab[torch.cuda.current_device()] < V
+    for step in range(2):
+        _hold_sampler(x, args, sm.gumbel_noise([1, 2], [step] * 2, V,
+                                               device=cuda))
 
 
 def test_engine_kernel_and_gather_streams_match(cuda):
@@ -270,16 +339,11 @@ def test_flash_kernels_match_plain(cuda, S, D, causal, masked, dtype):
             assert err <= atol, f"{name}: {err} > {atol}"
 
 
-@pytest.mark.parametrize("D", [32, 80, 96, 256])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernels_take_every_head_dim_to_256(cuda, D, dtype):
-    """Head dims the kernels are not built for run zero-padded to the
-    next built one (64, 128, 256) and sliced back; D = 256 runs its own
-    build (the FMA kernels, also for bf16). Each pass launches its kernel
-    once and matches its plain version at the limits of
-    ``test_flash_kernels_match_plain``."""
+def _hold_head_dim(cuda, D, dtype, S=200):
+    """Each pass at head dim D (causal, a zero and a ragged ``kv_len``)
+    launches its kernel once and matches its plain version at the limits
+    of ``test_flash_kernels_match_plain``."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    S = 200
     q, k, v, g = _flash_inputs(cuda, S, D, dtype, seed=D)
     lens = torch.tensor([0, S - 37], dtype=torch.int32, device=cuda)
     kw = dict(causal=True, kv_len=lens)
@@ -307,6 +371,24 @@ def test_flash_kernels_take_every_head_dim_to_256(cuda, D, dtype):
             assert err <= atol, f"{name}: {err} > {atol}"
 
 
+@pytest.mark.parametrize("D", [32, 80, 96, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_take_every_head_dim_to_256(cuda, D, dtype):
+    """Head dims the kernels are not built for run zero-padded to the
+    next built one (64, 128, 256) and sliced back; D = 256 runs its own
+    build (the FMA kernels, also for bf16)."""
+    _hold_head_dim(cuda, D, dtype)
+
+
+@pytest.mark.parametrize("D", [320, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_take_head_dims_past_256(cuda, D, dtype):
+    """Past 256 the wide FMA kernels run (scores summed over 64-wide
+    slices of D, 256 output columns a block; 512 takes two blocks of
+    columns), for f32 and bf16 alike."""
+    _hold_head_dim(cuda, D, dtype)
+
+
 def test_flash_attention_grads_match_dense(cuda):
     """The autograd function on the card against autodiff through the
     dense oracle (f32, TF32 off)."""
@@ -323,8 +405,8 @@ def test_flash_attention_grads_match_dense(cuda):
 
 def test_flash_kernels_read_strides_and_refuse_what_they_lack(cuda):
     """q/k/v/dO read through their (B, S, H, D) strides give the
-    contiguous result bit for bit; head dims past 256 and unsupported
-    dtypes raise instead of launching."""
+    contiguous result bit for bit; a head dim past 256 launches (the wide
+    kernels) and an unsupported dtype raises instead of launching."""
     q, k, v, g = _flash_inputs(cuda, 130, 64, torch.bfloat16, seed=11)
     strided = [t.transpose(1, 2).contiguous().transpose(1, 2)
                for t in (q, k, v, g)]
@@ -341,11 +423,15 @@ def test_flash_kernels_read_strides_and_refuse_what_they_lack(cuda):
         assert torch.equal(a, b)
     q32, k32, v32, _ = _flash_inputs(cuda, 64, 320, torch.float32, seed=12)
     launched = dict(fa.launches)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_fwd(q32, k32, v32)
-    assert fa.launches == launched
+    out32, _ = fa.flash_fwd(q32, k32, v32)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_fwd"] == launched["flash_fwd"] + 1
+    assert torch.allclose(out32, fa.flash_fwd_plain(q32, k32, v32)[0],
+                          atol=1e-5, rtol=0)
+    launched = dict(fa.launches)
     with pytest.raises(TypeError, match="dtype"):
         fa.flash_fwd(q.half(), k.half(), v.half())
+    assert fa.launches == launched
 
 
 @pytest.mark.parametrize("D", [64, 128])

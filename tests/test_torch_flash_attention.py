@@ -137,17 +137,22 @@ def test_ragged_seq_matches_reference(causal):
                                    rtol=0, err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("D", [16, 80, 96])
+@pytest.mark.parametrize("D", [16, 80, 96, 300, 320, 576])
 def test_padded_head_dim_matches_reference(D):
     """The CUDA path's head-dim repair on the plain versions: q, k, v and
-    dO zero-padded along D to the next built width (``pad_head_dim``),
-    run with the true D's scale, and sliced back (``unpad_head_dim``)
-    equal JAX's ``reference_attention`` and its gradients (f32, 1e-5);
-    the padded columns come out exactly zero. Past 256 the width is
-    refused."""
+    dO zero-padded along D to the width the kernels run (the next of
+    ``HEAD_DIMS``, past 256 the next multiple of ``WIDE_STEP``) by
+    ``pad_head_dim``, run with the true D's scale, and sliced back
+    (``unpad_head_dim``) equal JAX's ``reference_attention`` and its
+    gradients (f32, 1e-5); the padded columns come out exactly zero.
+    320 and 576 are widths of their own (no padding)."""
     q, k, v, w = _np_qkv(S=48, D=D, seed=20 + D)
     width = fa.padded_head_dim(D)
-    assert width in fa.HEAD_DIMS and width > D
+    assert fa.padded_head_dim(width) == width and width >= D
+    if D <= fa.HEAD_DIMS[-1]:
+        assert width in fa.HEAD_DIMS and width > D
+    else:
+        assert width % fa.WIDE_STEP == 0 and width - D < fa.WIDE_STEP
     padded = fa.pad_head_dim(_torch(q, k, v, w), width)
     assert all(t.shape[-1] == width for t in padded)
     pq, pk, pv, pg = padded
@@ -159,15 +164,36 @@ def test_padded_head_dim_matches_reference(D):
     for t in (out, dq, dk, dv):
         assert (t[..., D:] == 0).all()
     got = fa.unpad_head_dim((out, dq, dk, dv), D)
-    assert all(t.shape == q.shape and t.is_contiguous() for t in got)
+    assert all(t.shape == q.shape for t in got)
+    if width > D:   # a slice is copied; at width == D the tensor itself
+        assert all(t.is_contiguous() for t in got)
     ref = np.asarray(jatt.reference_attention(*_jax(q, k, v), causal=True))
     want = _jax_grads(lambda q, k, v: jatt.reference_attention(
         q, k, v, causal=True), q, k, v, w)
     for g, r, name in zip(got, (ref, *want), ("out", "dq", "dk", "dv")):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-5,
                                    rtol=0, err_msg=name)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.padded_head_dim(320)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_path_past_256_matches_reference(causal):
+    """D = 320 through the port's autograd function (the plain passes on
+    the CPU, as the wide kernels run them on the card): out and the three
+    gradients equal JAX's ``reference_attention`` and its autodiff within
+    1e-5, with a ``kv_len`` that masks a ragged tail."""
+    q, k, v, w = _np_qkv(S=40, D=320, seed=31)
+    lens = torch.tensor([40, 29], dtype=torch.int32)
+    out, got = _port_grads(q, k, v, w, causal=causal, kv_len=lens)
+    jl = jnp.asarray(lens.numpy())
+
+    def ref_fn(q, k, v):
+        return jatt.reference_attention(q, k, v, causal=causal, kv_len=jl)
+    ref = np.asarray(ref_fn(*_jax(q, k, v)))
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=1e-5, rtol=0)
+    want = _jax_grads(ref_fn, q, k, v, w)
+    for g, r, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-5,
+                                   rtol=0, err_msg=f"d{name}")
 
 
 def test_bf16_gradients_track_pallas():

@@ -15,9 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from kubeflow_tpu.ops import sampling as jsm
 from kubeflow_tpu.ops.sampling import fused_sample as jax_fused
 from kubeflow_tpu_torch.models.decode import sample_logits
 from kubeflow_tpu_torch.ops import sampling as sm
+from sampler_rows import adversarial_rows, oracle_support
 
 torch.set_num_threads(2)
 
@@ -78,6 +80,74 @@ def test_fused_plain_matches_jax_at_a_llama3_vocab():
                           torch.tensor(topk, dtype=torch.int32),
                           torch.tensor(topp))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _jax_kernel(logits, noise, temp, top_k, top_p):
+    """The reference's Pallas kernel (interpret mode) on given noise: its
+    ``pallas_call`` as ``ops/sampling.py:fused_sample`` makes it, with the
+    noise handed in instead of drawn from keys."""
+    import functools
+
+    import jax.experimental.pallas as pl
+
+    B, V = logits.shape
+    Vp = -(-V // jsm.LANE) * jsm.LANE
+    pad = ((0, 0), (0, Vp - V))
+    row = pl.BlockSpec((1, Vp), lambda b: (b, 0))
+    one = pl.BlockSpec((1, 1), lambda b: (b, 0))
+    out = pl.pallas_call(
+        functools.partial(jsm._fused_sample_kernel, V=V), grid=(B,),
+        in_specs=[row, row, one, one, one], out_specs=one,
+        out_shape=jax.ShapeDtypeStruct((B, 1), jnp.int32), interpret=True,
+    )(jnp.pad(jnp.asarray(logits), pad), jnp.pad(jnp.asarray(noise), pad),
+      *(jnp.asarray(a).reshape(B, 1) for a in (temp, top_k, top_p)))
+    return np.asarray(out[:, 0])
+
+
+def _port(logits, noise, temp, top_k, top_p):
+    return sm.fused_sample(*(torch.from_numpy(np.ascontiguousarray(a))
+                             for a in (logits, noise, temp, top_k,
+                                       top_p))).numpy()
+
+
+@pytest.mark.parametrize("V", [96, 200])
+def test_adversarial_rows_support_and_tokens_match_jax(V):
+    """The shared adversarial rows (``tests/sampler_rows.py``: ties at
+    the k boundary, +0.0/-0.0, all-equal rows, k = 1 and V - 1, p tiny and
+    1 - 1e-7, underflowing masses, a -1e30 tail) through the reference's
+    Pallas kernel and the port's plain version.
+
+    - Support: one probe per (row, index) with a spike of noise at that
+      index alone; the index is drawn iff it is kept (a kept -1e30 value
+      cannot win, so the oracle's support is taken without them). Both
+      give the float64 sort oracle's support.
+    - Tokens: three draws of Gumbel noise, token for token."""
+    names, logits, temp, top_k, top_p = adversarial_rows(V, seed=V)
+    R = len(names)
+    rep = lambda a: np.repeat(a, V, axis=0)  # noqa: E731
+    spikes = np.tile(1e5 * np.eye(V, dtype=np.float32), (R, 1))
+    args = (rep(logits), spikes, rep(temp), rep(top_k), rep(top_p))
+    drawn = {"jax": _jax_kernel(*args), "port": _port(*args)}
+    for name, tokens in drawn.items():
+        hit = (tokens.reshape(R, V) == np.arange(V)[None, :])
+        for r, row in enumerate(names):
+            want = [j for j in oracle_support(logits[r], temp[r], top_k[r],
+                                              top_p[r])
+                    if logits[r, j] > -1e29]
+            if temp[r] <= 0:   # greedy: the argmax whatever the noise
+                assert set(tokens[r * V:(r + 1) * V]) == set(want), row
+                continue
+            assert np.flatnonzero(hit[r]).tolist() == want, (name, row)
+    rng = np.random.default_rng(V + 1)
+    for _ in range(3):
+        u = rng.uniform(1e-20, 1.0, size=logits.shape)
+        noise = (-np.log(-np.log(u))).astype(np.float32)
+        want = _jax_kernel(logits, noise, temp, top_k, top_p)
+        got = _port(logits, noise, temp, top_k, top_p)
+        np.testing.assert_array_equal(got, want)
+        for r in range(R):
+            assert got[r] in oracle_support(logits[r], temp[r], top_k[r],
+                                            top_p[r]), names[r]
 
 
 def test_fused_greedy_and_ties_take_first_index():
