@@ -53,7 +53,27 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
    unfused from the same weights, for the card's fused-vs-unfused rate;
 8. one f32 train step (TF32 off) of a small ResNet fused and unfused
    from the same weights: loss, gradients and updated parameters within
-   the limits of ``resnet_parity_phase``.
+   the limits of ``resnet_parity_phase``;
+9. drive the dense engine (the reference's default) at
+   ``bench/suite.py:bench_decode_engine``'s configuration (the phase-3
+   widths at max_seq_len 256; random weights from a numpy seed; 48
+   requests of 128 prompt tokens and 128 new through 32 slots, 64 steps
+   a host round-trip, burst admission in batches of 8): a greedy, a
+   fused-sampled (temperature 0.8, top_k 40, top_p 0.95) and a
+   bounded-sampled burst, each after the reference bench's warm-up;
+   require 128 in-range tokens for every request, batch prefills, the
+   sampler launched on the fused burst and the paged kernel never, and
+   print tokens/s, the first wave's TTFT (until the 32nd first token
+   reaches its request's queue), steps, batch prefills and peak memory;
+   then a second fused burst holds every sampler call the engine makes
+   (the sampled steps at (32, 32000), the batch prefills' first tokens)
+   against the plain sampler on the same inputs, token for token, and
+   its streams against the timed burst's;
+10. the phase-3 export in f32 (TF32 off) through the dense engine with
+    burst admission, the paged engine with its kernel, the unary
+    ``LoadedModel.generate`` and a default ``ModelServer`` (no
+    ``KFTPU_PAGED``, ``decode_slots=0``) ``:generate``: four identical
+    greedy streams.
 
 Phase 2 also holds the bnconv forward and dW kernels, and the autograd
 function's four gradients, against their plain versions at the four
@@ -70,12 +90,17 @@ at Llama-3's 128,256-token vocabulary (token-identical, timed).
 
 The last three lines of standard output are the ``nvidia-smi`` name and
 power limit, the ``{"kernels": [...]}`` record, and ``{"ok": true, ...}``.
+In the record, a kernel's ``launches`` sums the paths that run it and
+``launches_by_path`` gives each path's own count (zeroed just before
+that path, read just after).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import queue
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1090,6 +1115,8 @@ def serve_phase(base: str, cfg, device, *, n_requests=8, prompt_len=300,
     from kubeflow_tpu_torch import ops
     from kubeflow_tpu_torch.serving.server import ModelServer
 
+    saved = {k: os.environ.get(k) for k in ("KFTPU_PAGED",
+                                             "KFTPU_SAMPLER_IMPL")}
     os.environ["KFTPU_PAGED"] = "1"
     os.environ["KFTPU_SAMPLER_IMPL"] = "fused"
     server = ModelServer(base, port=0, decode_slots=8,
@@ -1147,24 +1174,28 @@ def serve_phase(base: str, cfg, device, *, n_requests=8, prompt_len=300,
                 "ttft_s": ttfts, "launches": launches}
     finally:
         server.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 # -- phase 4: kernel vs gather greedy parity in f32 -------------------------
 
 
-def parity_phase(base: str, cfg, device, *, n=4, max_new=24,
-                 prompt_len=200):
+def load_f32(base: str, cfg, device):
+    """The export's weights in an f32 model, TF32 off: (config, model)."""
     import dataclasses
 
     import torch
+    import yaml
 
     from kubeflow_tpu_torch.models import convert
-    from kubeflow_tpu_torch.serving.engine import DecodeEngine
     from kubeflow_tpu_torch.serving.model_store import (
         MODEL_FILE,
         read_params,
     )
-    import yaml
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1172,7 +1203,15 @@ def parity_phase(base: str, cfg, device, *, n=4, max_new=24,
     with open(os.path.join(vdir, MODEL_FILE)) as f:
         meta = yaml.safe_load(f)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    model = convert.to_module(cfg32, read_params(vdir, meta), device=device)
+    return cfg32, convert.to_module(cfg32, read_params(vdir, meta),
+                                    device=device)
+
+
+def parity_phase(base: str, cfg, device, *, n=4, max_new=24,
+                 prompt_len=200):
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+
+    cfg32, model = load_f32(base, cfg, device)
     prompts = prompts_for(n, prompt_len, cfg.vocab_size, seed=SEED + 7)
     streams = {}
     for impl in ("kernel", "gather"):
@@ -1538,6 +1577,279 @@ def resnet_parity_phase(device):
     return {"loss": (lf, lu), "grad_err": g_err, "param_err": p_err}
 
 
+# -- phase 9: the dense engine at bench_decode_engine's configuration -------
+
+# kubeflow_tpu/bench/suite.py:bench_decode_engine (:836) and
+# engine_bench_setup (:666): 48 requests of 128 prompt tokens and 128
+# new through 32 slots, 64 steps a host round-trip, bursts of 8
+DENSE = dict(BENCH, max_seq_len=256)
+DENSE_REQUESTS, DENSE_PROMPT, DENSE_NEW = 48, 128, 128
+DENSE_SLOTS, DENSE_SYNC, DENSE_BATCH = 32, 64, 8
+DENSE_SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.95)
+
+
+def dense_setup(device):
+    """(config, model, prompts (48, 128)) from numpy seeds."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig(**DENSE, dtype="bfloat16")
+    model = convert.to_module(cfg, convert.random_params(cfg, SEED),
+                              device=device)
+    prompts = np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab_size, (DENSE_REQUESTS, DENSE_PROMPT), dtype=np.int32)
+    return cfg, model, prompts
+
+
+def drain(eng) -> None:
+    while eng.active_count or eng.pending_count:
+        eng.run_once(timeout=0.01)
+
+
+def dense_engine(cfg, model, device, sampler_impl=None):
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+
+    return DecodeEngine(cfg, model, slots=DENSE_SLOTS,
+                        steps_per_sync=DENSE_SYNC,
+                        admit_batch_max=DENSE_BATCH,
+                        sampler_impl=sampler_impl, paged=False,
+                        autostart=False, device=device)
+
+
+def dense_warm(eng, prompts, kw) -> None:
+    """The reference bench's warm-up: bursts of 1, 2, 4 and 8 requests
+    of ``steps_per_sync + 1`` tokens (every batch-prefill shape)."""
+    n = 1
+    while True:
+        warms = [eng.submit(prompts[i], max_new=DENSE_SYNC + 1, **kw)
+                 for i in range(n)]
+        drain(eng)
+        for w in warms:
+            w.result()
+        if n >= min(eng.admit_batch_max, eng.slots):
+            return
+        n *= 2
+
+
+class StampedQueue(queue.Queue):
+    """A request's token queue that notes when its first item arrives."""
+
+    def __init__(self):
+        super().__init__()
+        self.first_put = None
+
+    def put(self, item, *args, **kwargs):
+        if self.first_put is None:
+            self.first_put = time.perf_counter()
+        super().put(item, *args, **kwargs)
+
+
+def dense_burst(eng, prompts, kw):
+    """Submit every prompt (seed = its index), drive the engine through
+    ``run_once`` until it is idle; (requests, streams, t0). Each request's
+    queue stamps its first token's arrival (``StampedQueue``)."""
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new=DENSE_NEW, seed=i, **kw)
+            for i, p in enumerate(prompts)]
+    for r in reqs:              # nothing is queued before the first run_once
+        r.out = StampedQueue()
+    drain(eng)
+    return reqs, [r.result() for r in reqs], t0
+
+
+def hold_dense_sampler(eng, prompts, kw, want) -> dict:
+    """The fused burst again, every sampler call of the engine held
+    against ``fused_sample_plain`` on the same inputs (token-identical);
+    the streams must equal the timed burst's. Returns the calls held,
+    by shape."""
+    import collections
+
+    import torch
+
+    from kubeflow_tpu_torch.ops import sampling as sm
+    from kubeflow_tpu_torch.serving import engine as engine_mod
+
+    shapes = collections.Counter()
+
+    def held(logits, noise, temp, top_k, top_p):
+        got = sm.fused_sample(logits, noise, temp, top_k, top_p)
+        ref = sm.fused_sample_plain(logits, noise, temp, top_k, top_p)
+        check(torch.equal(got, ref),
+              f"dense path: fused_sample {tuple(logits.shape)} differs "
+              f"from plain: {got.tolist()} vs {ref.tolist()}")
+        shapes["x".join(map(str, logits.shape))] += 1
+        return got
+
+    engine_mod.fused_sample = held
+    try:
+        _, streams, _ = dense_burst(eng, prompts, kw)
+    finally:
+        engine_mod.fused_sample = sm.fused_sample
+    check(streams == want, "the held fused burst's streams differ from "
+                           "the timed burst's (same seeds)")
+    return dict(shapes)
+
+
+def dense_run(cfg, model, prompts, device, *, sampler_impl=None,
+              sampled=False):
+    """One burst of 48 requests through a fresh dense engine after its
+    warm-up. The first wave's TTFT is the wall from the first submit
+    until the 32nd first token reached its request's queue (the
+    reference bench's burst TTFT). Launch counts are zeroed just before
+    the burst and read just after. A fused run then holds the sampler
+    against its plain version on the dense path's own calls."""
+    import statistics
+
+    import torch
+
+    from kubeflow_tpu_torch import ops
+
+    eng = dense_engine(cfg, model, device, sampler_impl)
+    check(not eng.paged, "the dense engine came up paged")
+    kw = DENSE_SAMPLED if sampled else {}
+    dense_warm(eng, prompts, kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps0, bp0 = eng.steps_total, eng.batch_prefills
+    ops.reset_launches()
+    reqs, toks, t0 = dense_burst(eng, prompts, kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    for i, t in enumerate(toks):
+        check(len(t) == DENSE_NEW, f"dense request {i}: {len(t)} tokens")
+        check(all(0 <= x < cfg.vocab_size for x in t),
+              f"dense request {i}: token out of range")
+    firsts = [(r.out.first_put - t0) * 1e3 for r in reqs[:DENSE_SLOTS]]
+    out = {"tokens_per_s": DENSE_REQUESTS * DENSE_NEW / wall,
+           "wall_s": wall, "ttft_ms": max(firsts),
+           "ttft_ms_median": statistics.median(firsts),
+           "steps": eng.steps_total - steps0,
+           "batch_prefills": eng.batch_prefills - bp0,
+           "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches, "sampler": eng.sampler_impl}
+    check(out["batch_prefills"] > 0, "the burst admitted no batch prefill")
+    check(launches["paged_decode_attention"] == 0,
+          "the paged kernel launched on the dense path")
+    if eng.sampler_impl == "fused":
+        out["held"] = hold_dense_sampler(eng, prompts, kw, toks)
+    eng.close()
+    return out
+
+
+def dense_phase(device):
+    """Greedy (the default bounded sampler), fused-sampled and
+    bounded-sampled runs; the fused run must launch the sampler, and
+    every one of its calls on a second burst must match the plain
+    sampler."""
+    import torch
+
+    cfg, model, prompts = dense_setup(device)
+    runs = {"greedy": dense_run(cfg, model, prompts, device),
+            "fused": dense_run(cfg, model, prompts, device,
+                               sampler_impl="fused", sampled=True),
+            "bounded": dense_run(cfg, model, prompts, device,
+                                 sampled=True)}
+    check(runs["fused"]["sampler"] == "fused"
+          and runs["bounded"]["sampler"] == "bounded",
+          f"samplers: {runs['fused']['sampler']}, "
+          f"{runs['bounded']['sampler']}")
+    check(runs["fused"]["launches"]["fused_sample"] > 0,
+          "fused_sample never launched on the dense path")
+    check(f"{DENSE_SLOTS}x{DENSE['vocab_size']}" in runs["fused"]["held"],
+          f"no sampled step held at ({DENSE_SLOTS}, {DENSE['vocab_size']}):"
+          f" {runs['fused']['held']}")
+    del model
+    torch.cuda.empty_cache()
+    return runs
+
+
+# -- phase 10: dense, paged and unary greedy parity in f32 --------------------
+
+
+def f32_export(base: str) -> None:
+    """Beside the export ``lm``, ``lm32``: the same weights file under an
+    f32 config, for the server's f32 unary run."""
+    import yaml
+
+    from kubeflow_tpu_torch.serving.model_store import MODEL_FILE
+
+    src, dst = (os.path.join(base, m, "1") for m in ("lm", "lm32"))
+    os.makedirs(dst)
+    os.link(os.path.join(src, "params.npz"),
+            os.path.join(dst, "params.npz"))
+    with open(os.path.join(src, MODEL_FILE)) as f:
+        meta = yaml.safe_load(f)
+    meta["config"]["dtype"] = "float32"
+    with open(os.path.join(dst, MODEL_FILE), "w") as f:
+        yaml.safe_dump(meta, f)
+
+
+def dense_parity_phase(base: str, cfg, device, *, n=4, max_new=24,
+                       prompt_len=200):
+    """The phase-3 export in f32 (TF32 off) through the dense engine with
+    burst admission, the paged engine with its kernel, the unary
+    ``LoadedModel.generate``, and a default ``ModelServer`` (no
+    ``KFTPU_PAGED``, ``decode_slots=0``): four identical greedy streams
+    (every path decodes at batch 4)."""
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+    from kubeflow_tpu_torch.serving.model_store import LoadedModel
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    cfg32, model = load_f32(base, cfg, device)
+    prompts = prompts_for(n, prompt_len, cfg.vocab_size, seed=SEED + 7)
+    streams = {}
+    for mode in ("dense", "paged"):
+        ops.reset_launches()
+        eng = DecodeEngine(cfg32, model, slots=n, paged=mode == "paged",
+                           paged_attention_impl="kernel", autostart=False,
+                           device=device)
+        reqs = [eng.submit(p, max_new=max_new) for p in prompts]
+        drain(eng)
+        streams[mode] = [r.result() for r in reqs]
+        launched = ops.launch_counts()["paged_decode_attention"]
+        check(launched == 0 if mode == "dense" else launched > 0,
+              f"{mode}: paged kernel launches {launched}")
+        if mode == "dense":
+            check(eng.batch_prefills == 1, "phase 10: no burst admission")
+        eng.close()
+    lens = np.asarray([len(p) for p in prompts], np.int32)
+    padded = np.zeros((n, 256), np.int32)
+    for i, p in enumerate(prompts):
+        padded[i, :len(p)] = p
+    loaded = LoadedModel(kind="transformer", version=1, lm_config=cfg32,
+                         lm_params=model, max_seq_len=cfg32.max_seq_len,
+                         vocab_size=cfg32.vocab_size)
+    streams["unary"] = loaded.generate(padded, lens, max_new, 0.0, 0,
+                                       greedy=True).tolist()
+    del model, loaded
+    torch.cuda.empty_cache()
+    os.environ.pop("KFTPU_PAGED", None)
+    f32_export(base)
+    server = ModelServer(base, port=0, device=device)
+    port = server.start()
+    try:
+        check(server.repo.engine_for("lm32", server.repo.get("lm32"))
+              is None, "the default ModelServer built a decode engine")
+        out, _ = _post(f"http://127.0.0.1:{port}/v1/models/lm32:generate",
+                       {"prompt_tokens": prompts, "max_new_tokens": max_new},
+                       False)
+        streams["server"] = out["tokens"]
+    finally:
+        server.stop()
+    for mode in ("paged", "unary", "server"):
+        check(streams[mode] == streams["dense"],
+              f"f32 greedy streams differ, dense vs {mode}: "
+              f"{streams['dense']} vs {streams[mode]}")
+    return streams["dense"]
+
+
 def main() -> int:
     import torch
 
@@ -1572,30 +1884,42 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     cfg = TransformerConfig(**BENCH, dtype="bfloat16")
-    with tempfile.TemporaryDirectory(prefix="kftpu-smoke-") as base:
-        t0 = time.perf_counter()
-        write_export(base, cfg)
-        print(f"export written: {time.perf_counter() - t0:.1f}s", flush=True)
-        serve = serve_phase(base, cfg, device)
-        for kern in kernels[:2]:
-            kern["launches"] = serve["launches"][kern["name"]]
-            check(kern["launches"] > 0,
-                  f"{kern['name']} never launched on the serving path")
-        ttft = serve["ttft_s"]
-        print(f"phase 3 serving ({kind} | {ident}): 8 concurrent "
-              f":generate x 64 tokens, prompts ~300: "
-              f"tokens_per_s={serve['tokens_per_s']:.1f} "
-              f"wall_s={serve['wall_s']:.3f} "
-              f"ttft_ms_stream={[round(t * 1e3, 1) for t in ttft]} "
-              f"launches={serve['launches']}", flush=True)
-        streams = parity_phase(base, cfg, device)
-        print(f"phase 4 f32 kernel == gather greedy streams "
-              f"({len(streams)} x {len(streams[0])} tokens)", flush=True)
+    # the phase-3 export, read again by phase 10
+    base = tempfile.mkdtemp(prefix="kftpu-smoke-")
+    try:
+        return run_phases(device, kind, ident, cfg, base, kernels, t_start)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
+    import torch
+
+    t0 = time.perf_counter()
+    write_export(base, cfg)
+    print(f"export written: {time.perf_counter() - t0:.1f}s", flush=True)
+    serve = serve_phase(base, cfg, device)
+    for kern in kernels[:2]:
+        kern["launches"] = serve["launches"][kern["name"]]
+        kern["launches_by_path"] = {"paged_serving": kern["launches"]}
+        check(kern["launches"] > 0,
+              f"{kern['name']} never launched on the serving path")
+    ttft = serve["ttft_s"]
+    print(f"phase 3 serving ({kind} | {ident}): 8 concurrent "
+          f":generate x 64 tokens, prompts ~300: "
+          f"tokens_per_s={serve['tokens_per_s']:.1f} "
+          f"wall_s={serve['wall_s']:.3f} "
+          f"ttft_ms_stream={[round(t * 1e3, 1) for t in ttft]} "
+          f"launches={serve['launches']}", flush=True)
+    streams = parity_phase(base, cfg, device)
+    print(f"phase 4 f32 kernel == gather greedy streams "
+          f"({len(streams)} x {len(streams[0])} tokens)", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.empty_cache()
     train = train_phase(device)
     for kern in kernels[2:5]:
         kern["launches"] = train["launches"][kern["name"]]
+        kern["launches_by_path"] = {"lm_train": kern["launches"]}
     print(f"phase 5 train ({kind} | {ident}): vocab 32000, d_model 1024, "
           f"8 layers, 16 heads, seq 8192, batch 2, bf16/f32, flash+remat: "
           f"losses={train['losses']} step_ms={train['step_ms']} "
@@ -1614,6 +1938,7 @@ def main() -> int:
     res = resnet_phase(device)
     for kern in kernels[5:]:
         kern["launches"] = res["launches"][kern["name"]]
+        kern["launches_by_path"] = {"resnet_train": kern["launches"]}
     print(f"phase 7 resnet50 train ({kind} | {ident}): batch 256, bf16/f32, "
           f"space_to_depth stem, fused_bn_conv=True, sgd 0.1 m 0.9: "
           f"losses={res['losses']} accuracy={res['accuracy']} "
@@ -1637,6 +1962,31 @@ def main() -> int:
           f"gradient's norm; limit {RESNET_PARITY_GRAD:.0e}) max "
           f"param err {rpar['param_err']:.2e} (limit "
           f"{RESNET_PARITY_PARAM:.0e})", flush=True)
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dense = dense_phase(device)
+    # "launches" sums the serving paths; each path's own count beside it
+    for kern in kernels[:2]:
+        n = dense["fused"]["launches"][kern["name"]]
+        kern["launches_by_path"]["dense_serving"] = n
+        kern["launches"] += n
+    for run, r in dense.items():
+        print(f"phase 9 dense engine, {run} ({kind} | {ident}): vocab "
+              f"32000, d_model 1024, 8 layers, max_seq_len 256, bf16/f32; "
+              f"48 requests x 128 prompt + 128 new, 32 slots, "
+              f"steps_per_sync 64, bursts of 8, sampler {r['sampler']}: "
+              f"tokens_per_s={r['tokens_per_s']:.1f} "
+              f"wall_s={r['wall_s']:.3f} first_wave_ttft_ms="
+              f"{r['ttft_ms']:.1f} (median {r['ttft_ms_median']:.1f}) "
+              f"steps={r['steps']} batch_prefills={r['batch_prefills']} "
+              f"peak_gb={r['peak_gb']:.3f} launches={r['launches']}"
+              + (f"; a second burst's sampler calls token-identical to "
+                 f"plain, by shape: {r['held']}" if "held" in r else ""),
+              flush=True)
+    streams = dense_parity_phase(base, cfg, device)
+    print(f"phase 10 f32 greedy streams: dense (burst) == paged kernel == "
+          f"unary generate == default ModelServer :generate "
+          f"({len(streams)} x {len(streams[0])} tokens)", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(ident)
     print(json.dumps({"kernels": kernels}))

@@ -7,6 +7,7 @@ from kubeflow_tpu_torch.models.resnet import (  # noqa: F401
     resnet50,
 )
 from kubeflow_tpu_torch.models.transformer import (  # noqa: F401
+    DenseKVCache,
     PagedKVCache,
     Transformer,
     TransformerConfig,

@@ -1,44 +1,66 @@
-"""Autoregressive decoding over the paged KV cache, and the sampler.
+"""Autoregressive decoding over the dense or the paged KV cache, and the
+sampler.
 
-PyTorch port of ``kubeflow_tpu/models/decode.py`` (paged half). The
-reference threads a flax ``cache`` collection through jitted functions;
-here the cache is a :class:`~kubeflow_tpu_torch.models.transformer.
-PagedKVCache` of explicit tensors — K/V pools ``(L, P, ps, KH, Dh)``,
-``positions (B,)``, ``pages (B, n_log)`` — and every function updates
-it IN PLACE (the reference returns a new cache; the port saves the
-copy). Functions still return the cache so call sites read alike.
+PyTorch port of ``kubeflow_tpu/models/decode.py``. The reference threads
+a flax ``cache`` collection through jitted functions; here the cache is
+explicit tensors, and every function updates it IN PLACE (the reference
+returns a new cache; the port saves the copy). Functions still return
+the cache so call sites read alike.
+
+- :class:`~kubeflow_tpu_torch.models.transformer.DenseKVCache`: K/V rows
+  ``(L, B, max_seq_len, KH, Dh)`` and ``positions (B,)``. A prefill
+  starts from a fresh cache (:func:`init_cache`) at position 0, like the
+  reference's, which always starts from a new one.
+- :class:`~kubeflow_tpu_torch.models.transformer.PagedKVCache`: K/V
+  pools ``(L, P, ps, KH, Dh)``, ``positions (B,)``, ``pages (B, n_log)``.
 
 Sampling takes its randomness as Gumbel noise ``(B, V)``
 (:func:`kubeflow_tpu_torch.ops.sampling.gumbel_noise`): a categorical
 draw is ``argmax(logits + gumbel)``, the identity ``jax.random.
 categorical`` is built on, so the same noise gives the same token in
-every sampler and tests can inject it.
+every sampler and tests can inject it. :func:`generate` draws its noise
+from ``(seed, step)``: reproducible per seed, but not the bits
+``jax.random`` draws.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from kubeflow_tpu_torch.models.transformer import (
+    DenseKVCache,
     PagedKVCache,
     Transformer,
     TransformerConfig,
 )
 from kubeflow_tpu_torch.ops.attention import NEG_INF
+from kubeflow_tpu_torch.ops.sampling import noise_seed, uniform_to_gumbel
+
+Cache = Union[DenseKVCache, PagedKVCache]
 
 
 def init_cache(config: TransformerConfig, batch: int, *,
-               device) -> PagedKVCache:
-    """An empty paged cache, every row DISARMED: position ``max_seq_len``
-    and an all-sentinel page table, so writes drop and nothing live is
-    read until :func:`arm_slot` points a row at real pages."""
+               device) -> Cache:
+    """An empty decode cache for ``batch`` rows.
+
+    ``kv_page_size == 0``: the dense cache, zeros at position 0.
+    Otherwise the paged cache, every row DISARMED: position
+    ``max_seq_len`` and an all-sentinel page table, so writes drop and
+    nothing live is read until :func:`arm_slot` points a row at real
+    pages."""
     c = config
     if not c.kv_page_size:
-        raise NotImplementedError(
-            "the dense decode cache is not ported yet; set kv_page_size "
-            "(see ROADMAP.md Queue A)")
+        shape = (c.n_layers, batch, c.max_seq_len, c.n_kv_heads,
+                 c.head_dim)
+        return DenseKVCache(
+            k=torch.zeros(shape, dtype=c.dtype, device=device),
+            v=torch.zeros(shape, dtype=c.dtype, device=device),
+            positions=torch.zeros((batch,), dtype=torch.int32,
+                                  device=device))
     shape = (c.n_layers, c.kv_pages, c.kv_page_size, c.n_kv_heads,
              c.head_dim)
     n_log = c.max_seq_len // c.kv_page_size
@@ -70,19 +92,48 @@ def copy_page(cache: PagedKVCache, src: int, dst: int) -> PagedKVCache:
     return cache
 
 
-def prefill(model: Transformer, cache: PagedKVCache, tokens: torch.Tensor,
-            true_len=None) -> Tuple[torch.Tensor, PagedKVCache]:
-    """Run right-padded prompts ``(B, S)`` through rows whose tables are
-    armed at position 0, then pull each row's position back to its true
-    length (scalar or ``(B,)``). Returns each row's last real token's
+def _lengths(x, B: int, device) -> torch.Tensor:
+    n = torch.as_tensor(x, dtype=torch.int32, device=device)
+    if n.dim() > 1:
+        raise ValueError("lengths must be a scalar or a (B,) vector")
+    return torch.broadcast_to(n, (B,))
+
+
+def prefill(model: Transformer, cache: Cache, tokens: torch.Tensor,
+            true_len=None) -> Tuple[torch.Tensor, Cache]:
+    """Run right-padded prompts ``(B, S)`` through rows at position 0 (a
+    fresh dense cache, or paged rows armed at 0), then pull each row's
+    position back to its true length (scalar or ``(B,)``; default
+    ``S``): its generated tokens overwrite the pad tail, which stays
+    causally masked until then. Returns each row's last real token's
     logits ``(B, V)``."""
     B, S = tokens.shape
-    lens = torch.broadcast_to(torch.as_tensor(
-        S if true_len is None else true_len, dtype=torch.int32,
-        device=tokens.device), (B,))
+    lens = _lengths(S if true_len is None else true_len, B, tokens.device)
     logits = model(tokens, cache)
     cache.positions.copy_(lens)
     last = logits[torch.arange(B, device=tokens.device), lens.long() - 1]
+    return last, cache
+
+
+def prefill_continue(model: Transformer, cache: Cache,
+                     tokens: torch.Tensor, suffix_len, total_len
+                     ) -> Tuple[torch.Tensor, Cache]:
+    """Extend a prefilled cache by a right-padded suffix ``(B, S)``.
+
+    The prefix-caching primitive: ``cache`` holds a prompt prefix with
+    its positions at the prefix length (rows sharing a start take the
+    slice write; per-row starts need ``config.ragged_decode``);
+    ``suffix_len`` is each row's true suffix length and ``total_len``
+    its full prompt length. Returns the last real token's logits with
+    the cache positioned at ``total_len`` — :func:`prefill`'s contract
+    at the suffix's cost."""
+    B = tokens.shape[0]
+    suffix = _lengths(suffix_len, B, tokens.device)
+    total = _lengths(total_len, B, tokens.device)
+    logits = model(tokens, cache)
+    cache.positions.copy_(total)
+    last = logits[torch.arange(B, device=tokens.device),
+                  suffix.long() - 1]
     return last, cache
 
 
@@ -105,8 +156,8 @@ def prefill_chunk(model: Transformer, cache: PagedKVCache,
     return logits[:, int(true_n) - 1], cache
 
 
-def decode_step(model: Transformer, cache: PagedKVCache,
-                token: torch.Tensor) -> Tuple[torch.Tensor, PagedKVCache]:
+def decode_step(model: Transformer, cache: Cache,
+                token: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
     """One token per row in, its logits ``(B, V)`` out; every row's
     position advances by one."""
     return model(token[:, None], cache)[:, 0], cache
@@ -182,3 +233,87 @@ def sample_logits(logits: torch.Tensor, gumbel: torch.Tensor, *,
     masked = torch.where(keep, scaled, NEG_INF)
     sampled = torch.argmax(masked + gumbel, dim=-1)
     return torch.where(greedy_row, argmax, sampled).to(torch.int32)
+
+
+def _batch_gumbel(seed: int, step: int, B: int, V: int,
+                  device) -> torch.Tensor:
+    """``(B, V)`` Gumbel noise from one generator seeded by ``(seed,
+    step)``: the rows of a batch draw apart, as the reference's one key
+    over the ``(B, V)`` categorical does."""
+    gen = torch.Generator(device=torch.device(device))
+    gen.manual_seed(noise_seed(seed, step))
+    return uniform_to_gumbel(torch.rand((B, V), generator=gen,
+                                        device=device))
+
+
+@torch.no_grad()
+def generate(model: Transformer, prompt: torch.Tensor, *,
+             max_new_tokens: int, true_len=None, temperature=0.0,
+             top_k=0, top_p=1.0, seed: Optional[int] = None
+             ) -> torch.Tensor:
+    """Prefill + decode over a fresh dense cache; ``(B, max_new_tokens)``
+    int32 on the prompt's device.
+
+    ``prompt`` is ``(B, S)`` right-padded with true lengths ``true_len``
+    (scalar or ``(B,)``, default ``S``). ``temperature`` 0 is greedy;
+    otherwise rows sample through :func:`sample_logits` (exact path),
+    ``top_k``/``top_p`` as scalars or ``(B,)``, with noise drawn from
+    ``(seed, step)``. Validation is the reference's: a sampled run needs
+    a seed, ``temperature >= 0``, ``top_k >= 0``, ``top_p`` in (0, 1],
+    and the prompt plus the new tokens must fit ``max_seq_len``."""
+    c = model.config
+    greedy = isinstance(temperature, (int, float)) and temperature == 0.0
+    if not greedy:
+        if seed is None:
+            raise ValueError("sampling (temperature > 0) needs a seed")
+        if isinstance(temperature, (int, float)) and temperature < 0:
+            raise ValueError("temperature must be >= 0")
+    if isinstance(top_k, int) and top_k < 0:
+        raise ValueError("top_k must be >= 0 (0 = no filter)")
+    if isinstance(top_p, (int, float)) and not 0.0 < top_p <= 1.0:
+        raise ValueError("top_p must be in (0, 1]")
+    B, S = prompt.shape
+    start = S if true_len is None else int(np.max(np.asarray(
+        true_len.cpu() if isinstance(true_len, torch.Tensor)
+        else true_len)))
+    if start + max_new_tokens > c.max_seq_len:
+        raise ValueError(
+            f"prompt length {start} + max_new_tokens {max_new_tokens} "
+            f"exceeds max_seq_len {c.max_seq_len}: cache writes past the "
+            "end would be dropped")
+    dev = prompt.device
+    cache = init_cache(dataclasses.replace(c, kv_page_size=0), B,
+                       device=dev)
+
+    def pick(logits, step):
+        if greedy:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        noise = _batch_gumbel(seed, step, B, logits.shape[-1], dev)
+        return sample_logits(logits, noise, temperature=temperature,
+                             top_k=top_k, top_p=top_p)
+
+    logits, cache = prefill(model, cache, prompt, true_len)
+    tok = pick(logits, 0)
+    out = [tok]
+    for step in range(1, max_new_tokens):
+        logits, cache = decode_step(model, cache, tok)
+        tok = pick(logits, step)
+        out.append(tok)
+    return torch.stack(out, dim=1)
+
+
+def make_generate(config: TransformerConfig, *, max_new_tokens: int,
+                  temperature=0.0, top_k=0, top_p=1.0):
+    """A generate closure ``(model, prompt, true_len, seed) -> tokens``
+    with the sampling settings fixed (the reference's jitted closure);
+    ``model`` must carry ``config``."""
+
+    def fn(model: Transformer, prompt: torch.Tensor, true_len,
+           seed: Optional[int]) -> torch.Tensor:
+        if model.config != config:
+            raise ValueError("model config differs from the closure's")
+        return generate(model, prompt, max_new_tokens=max_new_tokens,
+                        true_len=true_len, temperature=temperature,
+                        top_k=top_k, top_p=top_p, seed=seed)
+
+    return fn

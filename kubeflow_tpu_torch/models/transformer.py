@@ -25,11 +25,30 @@ dense elsewhere, as the reference picks flash on the TPU and dense
 elsewhere. ``remat=True`` recomputes each block in the backward
 (``torch.utils.checkpoint``, the reference's ``nn.remat(Block)``).
 
-Decode mode (a :class:`PagedKVCache` passed to :meth:`Transformer.forward`)
-is the PAGED cache of ``_paged_decode_attend``: a pool of ``kv_pages``
-pages of ``kv_page_size`` tokens per layer, shared by the batch through
-a per-row page table. The pools are updated IN PLACE (the reference's
-functional cache update, without the copy).
+Decode mode takes a cache in :meth:`Transformer.forward`; its type
+picks the reference's attention core, and the cache is updated IN PLACE
+(the reference's functional cache update, without the copy).
+
+A :class:`DenseKVCache` is ``_decode_attend``'s dense cache: K/V rows
+``(L, B, max_seq_len, KH, Dh)`` where token ``t`` of a row sits at
+position ``t``, and a per-row write position. Three write cases, as in
+the reference: a single-token step writes each row at its own position;
+``ragged_decode`` multi-token forwards write each row from its own
+start; other multi-token forwards (prefill) share row 0's start, which
+is clamped so the slice fits as ``dynamic_update_slice`` clamps it.
+Attention then runs over all of ``max_seq_len`` under the causal bound
+``kv_pos <= q_pos``. The reference drops per-row writes past
+``max_seq_len`` (its scatter's out-of-bounds rule); torch raises on
+them, so they are removed without a host sync: each write targets its
+position modulo ``max_seq_len`` (distinct within a row, since a forward
+spans at most ``max_seq_len`` tokens) and keeps the value already there
+when its position is out of range. Rope gathers clamp to the last
+position; the rows that read a clamped value are past their context and
+nothing reads their output (the reference fills NaN there).
+
+A :class:`PagedKVCache` is the PAGED cache of ``_paged_decode_attend``:
+a pool of ``kv_pages`` pages of ``kv_page_size`` tokens per layer, shared
+by the batch through a per-row page table.
 
 - Writes scatter each token to ``(pages[b, pos // ps], pos % ps)``. The
   reference relies on ``scatter(mode="drop")`` for writes through the
@@ -44,8 +63,8 @@ functional cache update, without the copy).
   ``jnp.take(mode="clip")`` does, and are causally masked) before the
   exact attention math.
 
-Not yet ported (later slices, see ROADMAP.md): the dense decode cache,
-MoE, and the blockwise/ring/ulysses attention cores.
+Not yet ported (later slices, see ROADMAP.md): MoE, and the
+blockwise/ring/ulysses attention cores.
 """
 
 from __future__ import annotations
@@ -95,8 +114,8 @@ class TransformerConfig:
     tuning and drive nothing here; ``seq_axis``/``rules``/
     ``scan_layers`` are accepted for the same reason. ``remat`` recomputes
     each block in the backward of a training forward. ``ragged_decode``
-    only selects between dense-cache write paths; the paged cache takes
-    per-row positions for every ``S``.
+    selects the dense cache's per-row multi-token write; the paged cache
+    takes per-row positions for every ``S``.
     """
 
     vocab_size: int = 32000
@@ -189,6 +208,16 @@ class PagedKVCache:
     attention_impl: str = "auto"
 
 
+@dataclasses.dataclass
+class DenseKVCache:
+    """The dense decode cache as explicit tensors (the reference's flax
+    ``cache`` collection in dense mode)."""
+
+    k: torch.Tensor          # (L, B, Smax, KH, Dh), activation dtype
+    v: torch.Tensor          # (L, B, Smax, KH, Dh)
+    positions: torch.Tensor  # (B,) int32: each row's next write position
+
+
 def _compute(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``w.to(dtype)``: in the autograd graph when a gradient is wanted,
     else made once per weight version and reused."""
@@ -256,6 +285,19 @@ class _DecodeStep:
     use_kernel: bool
 
 
+@dataclasses.dataclass
+class _DenseStep:
+    """Per-forward dense-cache quantities every layer shares."""
+
+    q_pos: torch.Tensor          # (B, S), or (1, S) when rows share a start
+    sin: torch.Tensor            # broadcastable to q, activation dtype
+    cos: torch.Tensor
+    # per-row writes: (rows, positions mod Smax, in range); or, for a
+    # shared start, (None, the S positions the slice covers, None)
+    write: Tuple[Optional[torch.Tensor], torch.Tensor,
+                 Optional[torch.Tensor]]
+
+
 class Attention(nn.Module):
     def __init__(self, c: TransformerConfig) -> None:
         super().__init__()
@@ -278,7 +320,9 @@ class Attention(nn.Module):
         q = self._proj(x, self.q_proj)
         k = self._proj(x, self.k_proj)
         v = self._proj(x, self.v_proj)
-        if kv is not None:
+        if isinstance(step, _DenseStep):
+            out = self._dense_decode_attend(q, k, v, kv, step)
+        elif kv is not None:
             out = self._paged_decode_attend(q, k, v, kv, step)
         else:
             impl = c.attention_impl
@@ -296,6 +340,21 @@ class Attention(nn.Module):
         B, S = out.shape[:2]
         wo = _compute(self.o_proj, c.dtype)
         return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+
+    def _dense_decode_attend(self, q, k, v, kv, step: _DenseStep):
+        ck, cv = kv
+        q = _rotate(q, step.sin, step.cos)
+        k = _rotate(k, step.sin, step.cos)
+        rows, dest, valid = step.write
+        if rows is None:
+            ck.index_copy_(1, dest, k)
+            cv.index_copy_(1, dest, v)
+        else:
+            # an out-of-range write keeps the value at its (wrapped) target
+            keep = valid[..., None, None]
+            ck[rows, dest] = torch.where(keep, k, ck[rows, dest])
+            cv[rows, dest] = torch.where(keep, v, cv[rows, dest])
+        return _cache_attend(q, ck, cv, step.q_pos, self.c.head_dim)
 
     def _paged_decode_attend(self, q, k, v, kv, step: _DecodeStep):
         c = self.c
@@ -319,14 +378,22 @@ class Attention(nn.Module):
         # gather each row's logical view (B, Smax, KH, Dh)
         kc = ck[step.read_pages].reshape(B, Smax, KH, Dh)
         vc = cv[step.read_pages].reshape(B, Smax, KH, Dh)
-        kc, vc = gqa_repeat(q, kc, vc)
-        logits = torch.einsum("bshd,bthd->bhst", q, kc).float()
-        logits = logits * (Dh ** -0.5)
-        kv_pos = torch.arange(Smax, device=q.device)
-        mask = kv_pos[None, None, :] <= step.q_pos[:, :, None]  # (B,S,T)
-        logits = logits.masked_fill(~mask[:, None], NEG_INF)
-        probs = torch.softmax(logits, dim=-1).to(q.dtype)
-        return torch.einsum("bhst,bthd->bshd", probs, vc)
+        return _cache_attend(q, kc, vc, step.q_pos, Dh)
+
+
+def _cache_attend(q, kc, vc, q_pos, Dh: int) -> torch.Tensor:
+    """Exact attention of ``q`` over every cache position ``(B, Smax)``
+    under the causal bound ``kv_pos <= q_pos``: scores in the activation
+    dtype widened to f32, probabilities cast back before the value
+    product (the reference's rounding points)."""
+    kc, vc = gqa_repeat(q, kc, vc)
+    logits = torch.einsum("bshd,bthd->bhst", q, kc).float()
+    logits = logits * (Dh ** -0.5)
+    kv_pos = torch.arange(kc.shape[1], device=q.device)
+    mask = kv_pos[None, None, :] <= q_pos[:, :, None]  # (B or 1, S, T)
+    logits = logits.masked_fill(~mask[:, None], NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhst,bthd->bshd", probs, vc)
 
 
 class Mlp(nn.Module):
@@ -361,8 +428,8 @@ class Block(nn.Module):
 class Transformer(nn.Module):
     """``forward(tokens)`` → logits ``(B, S, V)`` f32 (or the final-norm
     hidden states with ``return_hidden=True``); ``forward(tokens,
-    cache)`` runs decode mode over a :class:`PagedKVCache` and advances
-    its positions by ``S``."""
+    cache)`` runs decode mode over a :class:`DenseKVCache` or a
+    :class:`PagedKVCache` and advances its positions by ``S``."""
 
     def __init__(self, config: TransformerConfig,
                  return_hidden: bool = False) -> None:
@@ -387,6 +454,34 @@ class Transformer(nn.Module):
             self._rope[key] = rope_tables(n, c.head_dim, c.rope_theta,
                                           device)
         return self._rope[key]
+
+    def _dense_step(self, cache: DenseKVCache, S: int,
+                    device) -> _DenseStep:
+        c = self.config
+        Smax = c.max_seq_len
+        if cache.k.shape[2] != Smax:
+            raise ValueError(f"dense cache rows of {cache.k.shape[2]} do "
+                             f"not span max_seq_len {Smax}")
+        sin_full, cos_full = self._tables(Smax, device)
+        ar = torch.arange(S, device=device)
+        pos = cache.positions.long()
+        if S == 1 or c.ragged_decode:
+            q_pos = pos[:, None] + ar[None, :]               # (B, S)
+            safe = q_pos.clamp(max=Smax - 1)
+            sin = sin_full[safe][:, :, None, :].to(c.dtype)
+            cos = cos_full[safe][:, :, None, :].to(c.dtype)
+            rows = torch.arange(pos.shape[0], device=device)[:, None]
+            write = (rows, q_pos % Smax, q_pos < Smax)
+        else:
+            # rows share row 0's start; the slice is clamped to fit
+            idx = pos[0]
+            start = idx.clamp(0, Smax - S)
+            span = start + ar
+            sin = sin_full[span][None, :, None, :].to(c.dtype)
+            cos = cos_full[span][None, :, None, :].to(c.dtype)
+            q_pos = (idx + ar)[None, :]
+            write = (None, span, None)
+        return _DenseStep(q_pos=q_pos, sin=sin, cos=cos, write=write)
 
     def _decode_step(self, cache: PagedKVCache, S: int,
                      device) -> _DecodeStep:
@@ -417,7 +512,7 @@ class Transformer(nn.Module):
                            use_kernel=use_kernel)
 
     def forward(self, tokens: torch.Tensor,
-                cache: Optional[PagedKVCache] = None) -> torch.Tensor:
+                cache: Optional[Any] = None) -> torch.Tensor:
         c = self.config
         B, S = tokens.shape
         dev = tokens.device
@@ -431,6 +526,11 @@ class Transformer(nn.Module):
                     x = checkpoint(blk, x, sin, cos, use_reentrant=False)
                 else:
                     x = blk(x, sin, cos)
+        elif isinstance(cache, DenseKVCache):
+            step = self._dense_step(cache, S, dev)
+            for i, blk in enumerate(self.blocks):
+                x = blk(x, None, None, (cache.k[i], cache.v[i]), step)
+            cache.positions.add_(S)
         else:
             step = self._decode_step(cache, S, dev)
             for i, blk in enumerate(self.blocks):

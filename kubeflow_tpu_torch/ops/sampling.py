@@ -109,6 +109,24 @@ def fused_sample_plain(logits, noise, temperature, top_k, top_p):
     return out.to(torch.int32)
 
 
+_M64 = (1 << 64) - 1
+
+
+def noise_seed(seed: int, step: int) -> int:
+    """The generator seed of ``(seed, step)``: the packed pair through
+    splitmix64's finaliser, so its low 32 bits (all the CPU generator
+    keeps) depend on both halves."""
+    z = ((((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
+         + 0x9E3779B97F4A7C15) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return z ^ (z >> 31)
+
+
+def uniform_to_gumbel(u: torch.Tensor) -> torch.Tensor:
+    return -torch.log(-torch.log(u.clamp_min(1e-20)))
+
+
 def gumbel_noise(seeds: Sequence[int], steps: Sequence[int], V: int, *,
                  device) -> torch.Tensor:
     """``(B, V)`` f32 Gumbel noise, row ``i`` drawn from a generator
@@ -119,11 +137,9 @@ def gumbel_noise(seeds: Sequence[int], steps: Sequence[int], V: int, *,
     rows = []
     for seed, step in zip(seeds, steps):
         gen = torch.Generator(device=dev)
-        gen.manual_seed(((int(seed) & 0xFFFFFFFF) << 32)
-                        | (int(step) & 0xFFFFFFFF))
-        u = torch.rand((V,), generator=gen, device=dev).clamp_min(1e-20)
-        rows.append(-torch.log(-torch.log(u)))
-    return torch.stack(rows)
+        gen.manual_seed(noise_seed(seed, step))
+        rows.append(torch.rand((V,), generator=gen, device=dev))
+    return uniform_to_gumbel(torch.stack(rows))
 
 
 _max_vocab: dict = {}  # device index → largest V with the row on chip

@@ -1,8 +1,26 @@
-"""Continuous-batching decode engine over the paged KV cache.
+"""Continuous-batching decode engine over the dense or the paged KV cache.
 
-PyTorch port of ``kubeflow_tpu/serving/engine.py`` (its paged mode): one
-engine per loaded LM version; concurrent generate requests share ONE
-decode step over ``slots`` rows, forever.
+PyTorch port of ``kubeflow_tpu/serving/engine.py``: one engine per
+loaded LM version; concurrent generate requests share ONE decode step
+over ``slots`` rows, forever. Idle rows decode garbage that nothing
+reads.
+
+Dense mode (the default, as in the reference): the cache is
+``slots`` full-context rows (``models/transformer.py:DenseKVCache``).
+
+- **admission** prefills the prompt at batch 1 into a fresh row (one
+  power-of-two prompt bucket per shape) and copies the row into a free
+  slot; a **burst** of pending requests sharing a prompt bucket prefills
+  as ONE batch of up to ``admit_batch_max`` rows, then each row is
+  copied into its slot. The batch prefill finishes (its tokens reach
+  the host) before any copy, so its failure leaves the engine cache
+  intact and the members retry on the row path; a failed copy has
+  half-written the cache, fails the chunk and closes the engine;
+- a **prefix LRU**, budgeted in bytes, keeps prefilled prompt prefixes
+  as 1-row caches; a hit continues a COPY of the stored row by the
+  suffix, so a stored entry never changes.
+
+Paged mode (``paged=True`` / ``KFTPU_PAGED=1``):
 
 - **admission** is page-map surgery: reserve the request's worst case
   in the page pool (``serving/kvpool.py``), map shared prefix pages
@@ -11,21 +29,29 @@ decode step over ``slots`` rows, forever.
 - **chunked prefill** feeds the prompt into the pool one fixed-width
   chunk per scheduler cycle, interleaved with co-tenant decode steps,
   so a long admission never stalls decode for more than one chunk;
+- **retirement** frees the slot's pages and disarms its row.
+
+Both modes:
+
 - **step**: every slot advances ``steps_per_sync`` tokens per host
   round-trip; an all-greedy batch takes the argmax step and skips the
   sampler; otherwise rows sample through the configured sampler with
   Gumbel noise keyed on ``(seed, step)`` alone, so a request's tokens
-  never depend on its co-tenants;
-- **retirement** frees the slot's pages and disarms its row.
+  never depend on its co-tenants or its row;
+- **recovery**: a failed device call (paged admission, prefill chunks
+  and retirement; the step in both modes) rebuilds a zeroed cache (and
+  a fresh page pool) and replays every in-flight stream, prompt plus
+  emitted tokens, sampling on at its preserved step index, up to
+  ``recoveries`` times; then the engine closes.
 
-Left for later slices (ROADMAP.md): the dense cache, burst batch
-prefill, the dense prefix LRU, cache recovery, mesh/TP serving, tracing
-spans and the request ledger.
+Left for later slices (ROADMAP.md): mesh/TP serving, tracing spans and
+the request ledger.
 
-Environment switches (as in the reference): ``KFTPU_PAGED`` (the port
-defaults it to 1 — the dense mode is not ported, and 0 raises),
-``KFTPU_PAGED_ATTN``, ``KFTPU_SAMPLER_IMPL``, ``KFTPU_SAMPLER_BOUND``,
-``KFTPU_KV_PAGE_SIZE``, ``KFTPU_KV_PAGES``, ``KFTPU_PREFILL_CHUNK``.
+Environment switches (as in the reference): ``KFTPU_PAGED`` (default
+0), ``KFTPU_ADMIT_BATCH`` (8), ``KFTPU_ENGINE_RECOVERIES`` (2),
+``KFTPU_PREFIX_CACHE_BYTES``, ``KFTPU_PAGED_ATTN``,
+``KFTPU_SAMPLER_IMPL``, ``KFTPU_SAMPLER_BOUND``, ``KFTPU_KV_PAGE_SIZE``,
+``KFTPU_KV_PAGES``, ``KFTPU_PREFILL_CHUNK``.
 """
 
 from __future__ import annotations
@@ -48,12 +74,18 @@ from kubeflow_tpu_torch.models.decode import (
     copy_page,
     decode_step,
     init_cache,
+    prefill,
     prefill_chunk,
+    prefill_continue,
     sample_logits,
 )
-from kubeflow_tpu_torch.models.transformer import Transformer
+from kubeflow_tpu_torch.models.transformer import DenseKVCache, Transformer
 from kubeflow_tpu_torch.ops.sampling import fused_sample, gumbel_noise
-from kubeflow_tpu_torch.serving.kvpool import PagePool, PrefixPageStore
+from kubeflow_tpu_torch.serving.kvpool import (
+    OutOfPages,
+    PagePool,
+    PrefixPageStore,
+)
 from kubeflow_tpu_torch.utils import DEFAULT_REGISTRY
 from kubeflow_tpu_torch.utils.clock import Clock
 from kubeflow_tpu_torch.utils.device import resolve_device
@@ -116,6 +148,26 @@ class EngineClosed(RuntimeError):
     """The engine was shut down (version rollover) — retryable."""
 
 
+class _CacheInvalidated(RuntimeError):
+    """A burst's row copy failed after half-writing the engine cache: no
+    row-path retry can succeed against it. Raised through ``run_once``
+    so the loop closes the engine."""
+
+
+def pow2_bucket(n: int, cap: int) -> int:
+    """Round ``n`` up to a power of two, capped at ``cap`` (itself a
+    bucket even when not a power of two); ``n <= 0`` buckets to 1. The
+    shared prompt bucketing of the unary path and engine admission."""
+    if cap < 1:
+        raise ValueError(f"pow2_bucket cap must be >= 1, got {cap}")
+    if n >= cap:
+        return cap
+    b = 1
+    while b < n:
+        b *= 2
+    return min(b, cap)
+
+
 @dataclasses.dataclass
 class _Request:
     prompt: np.ndarray           # (S,) int32, true length
@@ -125,8 +177,11 @@ class _Request:
     top_p: float
     seed: int
     eos_id: Optional[int]
-    prefix_len: int = 0          # leading prompt tokens to share as pages
+    prefix_len: int = 0          # leading prompt tokens to share
     t_submit: float = 0.0
+    # the queue wait is observed once: a failed burst retries its
+    # members on the row path
+    _wait_noted: bool = False
     out: "queue.Queue[Any]" = dataclasses.field(default_factory=queue.Queue)
     error: Optional[Exception] = None
     _seen: List[int] = dataclasses.field(default_factory=list)
@@ -155,16 +210,24 @@ class _Request:
 class _Slot:
     req: _Request
     produced: int = 0
+    # every token emitted, in order: a recovery replays prompt + these
+    emitted: List[int] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
 class _PrefillJob:
-    """A slot mid-chunked-prefill."""
+    """A slot mid-chunked-prefill (paged mode)."""
 
     req: _Request
     slot: int
-    next: int                 # next prompt position to feed
+    tokens: np.ndarray        # the token sequence to prefill
+    next: int                 # next position to feed
     chunks: int = 0
+    # a recovery replay resumes a live stream: its sample continues at
+    # the preserved step index and delivery count
+    fold0: int = 0
+    produced0: int = 0
+    store_prefix: int = 0     # prefix tokens to pin in the trie after
     last_tok: int = 0         # sampled next token, set by the final chunk
 
 
@@ -180,6 +243,9 @@ class DecodeEngine:
     JAX-layout param tree (nested or flat numpy; ``models/convert.py``).
     ``submit()`` is thread-safe and returns a handle whose ``stream()``
     yields tokens as steps complete; ``close()`` drains the engine.
+    ``precompile=True`` runs both step paths once at construction (on
+    the card: the sampler's build and the first GEMM setups), so the
+    first greedy/sampled switch never pauses live streams.
     """
 
     def __init__(self, config, params, *, slots: int = 8,
@@ -188,23 +254,25 @@ class DecodeEngine:
                  prefix_cache_bytes: Optional[int] = None,
                  sampler_bound: Optional[int] = None,
                  sampler_impl: Optional[str] = None,
+                 admit_batch_max: Optional[int] = None,
                  paged: Optional[bool] = None,
                  kv_page_size: Optional[int] = None,
                  kv_pages: Optional[int] = None,
                  paged_attention_impl: Optional[str] = None,
                  prefill_chunk_tokens: Optional[int] = None,
                  prefill_chunks_per_cycle: int = 1,
+                 recoveries: Optional[int] = None,
+                 precompile: bool = False,
                  autostart: bool = True, name: str = "",
                  clock: Optional[Clock] = None,
                  device=None) -> None:
         self.device = resolve_device(device)
         if paged is None:
-            paged = os.environ.get("KFTPU_PAGED", "1") not in ("0", "")
-        if not paged:
-            raise NotImplementedError(
-                "the dense decode engine is not ported to "
-                "kubeflow_tpu_torch yet (ROADMAP.md Queue A); use paged")
-        self.paged = True
+            paged = os.environ.get("KFTPU_PAGED", "0") not in ("0", "")
+        self.paged = bool(paged)
+        if recoveries is None:
+            recoveries = _env_int("KFTPU_ENGINE_RECOVERIES", 2)
+        self._recoveries_left = max(0, int(recoveries))
         self.config = config
         self.slots = slots
         self.clock: Clock = clock if clock is not None else time.monotonic
@@ -220,32 +288,49 @@ class DecodeEngine:
                 f"unknown sampler_impl {sampler_impl!r}; valid: auto, "
                 "bounded, exact_sort, fused")
         self.sampler_impl = sampler_impl
-        # paged geometry: page size = largest power-of-two divisor of
-        # max_seq_len up to 64; the pool defaults to full provisioning
         Smax = config.max_seq_len
-        if kv_page_size is None:
-            kv_page_size = _env_int("KFTPU_KV_PAGE_SIZE", 0)
-        if not kv_page_size:
-            kv_page_size = 1
-            while kv_page_size < 64 and Smax % (kv_page_size * 2) == 0:
-                kv_page_size *= 2
-        self.kv_page_size = int(kv_page_size)
-        self._n_logical = Smax // self.kv_page_size
-        if kv_pages is None:
-            kv_pages = _env_int("KFTPU_KV_PAGES", slots * self._n_logical)
-        self.kv_pages = int(kv_pages)
-        if prefill_chunk_tokens is None:
-            prefill_chunk_tokens = _env_int("KFTPU_PREFILL_CHUNK",
-                                            min(256, Smax))
-        self.prefill_chunk_tokens = max(1, int(prefill_chunk_tokens))
-        self.prefill_chunks_per_cycle = max(1, int(prefill_chunks_per_cycle))
-        if paged_attention_impl is None:
-            paged_attention_impl = os.environ.get("KFTPU_PAGED_ATTN", "auto")
-        self.paged_attention_impl = paged_attention_impl
-        self._cfg = dataclasses.replace(
-            config, kv_page_size=self.kv_page_size, kv_pages=self.kv_pages,
-            paged_attention_impl=paged_attention_impl)
-        self._cfg.validate()
+        if self.paged:
+            # page size = largest power-of-two divisor of max_seq_len up
+            # to 64; the pool defaults to full provisioning
+            if kv_page_size is None:
+                kv_page_size = _env_int("KFTPU_KV_PAGE_SIZE", 0)
+            if not kv_page_size:
+                kv_page_size = 1
+                while kv_page_size < 64 and Smax % (kv_page_size * 2) == 0:
+                    kv_page_size *= 2
+            self.kv_page_size = int(kv_page_size)
+            self._n_logical = Smax // self.kv_page_size
+            if kv_pages is None:
+                kv_pages = _env_int("KFTPU_KV_PAGES",
+                                    slots * self._n_logical)
+            self.kv_pages = int(kv_pages)
+            if prefill_chunk_tokens is None:
+                prefill_chunk_tokens = _env_int("KFTPU_PREFILL_CHUNK",
+                                                min(256, Smax))
+            self.prefill_chunk_tokens = max(1, int(prefill_chunk_tokens))
+            self.prefill_chunks_per_cycle = max(
+                1, int(prefill_chunks_per_cycle))
+            if paged_attention_impl is None:
+                paged_attention_impl = os.environ.get("KFTPU_PAGED_ATTN",
+                                                      "auto")
+            self.paged_attention_impl = paged_attention_impl
+            self._cfg = dataclasses.replace(
+                config, kv_page_size=self.kv_page_size,
+                kv_pages=self.kv_pages,
+                paged_attention_impl=paged_attention_impl)
+            self._cfg.validate()
+        else:
+            self.kv_page_size = 0
+            self.kv_pages = 0
+            self.paged_attention_impl = "gather"
+            self._cfg = dataclasses.replace(config, kv_page_size=0,
+                                            kv_pages=0)
+        # burst admission: same-bucket pending requests prefill as ONE
+        # batch of up to this many rows (<= 1: every request takes the
+        # row path)
+        if admit_batch_max is None:
+            admit_batch_max = _env_int("KFTPU_ADMIT_BATCH", 8)
+        self.admit_batch_max = int(admit_batch_max)
         self.steps_per_sync = max(1, int(steps_per_sync))
         self.name = name or "model"
         _slots_g.set(self.slots, model=self.name)
@@ -255,15 +340,22 @@ class DecodeEngine:
         else:
             self._model = convert.to_module(config, params,
                                             device=self.device)
-        self._cache = init_cache(self._cfg, slots, device=self.device)
+        self._cache = self._fresh_cache()
         # test hooks, as in the reference: device-side page surgery
         self._arm = arm_slot
         self._copy_page = copy_page
 
         itemsize = torch.finfo(self._cfg.dtype).bits // 8
-        self._page_bytes = (2 * config.n_layers * self.kv_page_size
-                            * config.n_kv_heads * config.head_dim * itemsize)
-        self._prefix_row_bytes = self._page_bytes * self._n_logical
+        kv_row = (2 * config.n_layers * config.n_kv_heads
+                  * config.head_dim * itemsize)
+        if self.paged:
+            self._page_bytes = kv_row * self.kv_page_size
+            self._prefix_row_bytes = self._page_bytes * self._n_logical
+        else:
+            # a stored prefix row is a 1-row cache: K/V over the whole
+            # context plus an int32 position a layer (the reference's
+            # cache leaves)
+            self._prefix_row_bytes = kv_row * Smax + 4 * config.n_layers
         if prefix_cache_bytes is None:
             env = os.environ.get("KFTPU_PREFIX_CACHE_BYTES")
             prefix_cache_bytes = (int(env) if env else
@@ -271,6 +363,10 @@ class DecodeEngine:
                                   * self._prefix_row_bytes)
         self._prefix_budget_bytes = max(0, int(prefix_cache_bytes))
         _prefix_budget_g.set(self._prefix_budget_bytes, model=self.name)
+        # dense prefix LRU: (len, token bytes) -> 1-row cache
+        self._prefix_store: "collections.OrderedDict[Any, DenseKVCache]" \
+            = collections.OrderedDict()
+        self.prefix_cache_bytes = 0
 
         self._pending: "queue.Queue[_Request]" = queue.Queue()
         self._active: List[Optional[_Slot]] = [None] * slots
@@ -287,42 +383,81 @@ class DecodeEngine:
         self.steps_total = 0
         self.tokens_total = 0
         self.greedy_steps = 0
+        self.batch_prefills = 0
         self.prefill_chunks = 0
+        self.recoveries = 0
         self.prefix_hits = 0
         self.prefix_misses = 0
         self.prefix_pages_shared = 0
         self.cow_splits = 0
-        self._pool = PagePool(self.kv_pages, self.kv_page_size, slots,
-                              self._n_logical)
-        self._prefix_pages = PrefixPageStore(
-            self._pool, self._prefix_budget_bytes // max(1, self._page_bytes))
+        # paged mode's scheduler state (empty in dense mode)
         self._prefilling: "collections.OrderedDict[int, _PrefillJob]" = \
             collections.OrderedDict()
         self._waiting: "collections.deque[_Request]" = collections.deque()
-        # host-authoritative per-slot position (device values drift for
-        # idle and mid-prefill rows by design)
-        self._pos_host = np.zeros((slots,), np.int64)
-        self._slot_budget = np.zeros((slots,), np.int64)
+        if self.paged:
+            self._pool = PagePool(self.kv_pages, self.kv_page_size, slots,
+                                  self._n_logical)
+            self._prefix_pages = PrefixPageStore(
+                self._pool,
+                self._prefix_budget_bytes // max(1, self._page_bytes))
+            # host-authoritative per-slot position (device values drift
+            # for idle and mid-prefill rows by design)
+            self._pos_host = np.zeros((slots,), np.int64)
+            self._slot_budget = np.zeros((slots,), np.int64)
+        if precompile:
+            self._precompile_steps()
         if autostart:
             self.start()
 
+    def _fresh_cache(self):
+        """A zeroed engine cache (paged: every row disarmed)."""
+        return init_cache(self._cfg, self.slots, device=self.device)
+
+    @torch.no_grad()
+    def _precompile_steps(self) -> None:
+        """Run both step paths once on the empty batch; the junk lands in
+        rows admission overwrites (dense) or writes nowhere (paged rows
+        are disarmed)."""
+        B = self.slots
+        toks = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        zeros = np.zeros((B,), np.int64)
+        self._cache, _ = self._step_greedy(self._cache, toks)
+        self._cache, _ = self._step(self._cache, toks, zeros, zeros,
+                                    np.ones((B,), np.float32),
+                                    np.zeros((B,), np.int32),
+                                    np.ones((B,), np.float32))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     # -- sampling ----------------------------------------------------------
 
-    def _sample_rows(self, logits, seeds, folds, temps, tks, tps):
+    def _sampling(self, temps, tks, tps):
+        """The rows that sample, and the per-row settings on the device."""
+        dev = self.device
+        return ([i for i, t in enumerate(temps) if t > 0.0],
+                torch.as_tensor(np.asarray(temps, np.float32), device=dev),
+                torch.as_tensor(np.asarray(tks, np.int32), device=dev),
+                torch.as_tensor(np.asarray(tps, np.float32), device=dev))
+
+    def _sample_rows(self, logits, seeds, folds, temps, tks, tps, *,
+                     settings=None):
         """Per-row sampling under the ``(seed, step)`` contract; (B, V)
         logits in, (B,) int32 tokens out. Noise is drawn only for rows
-        that sample (greedy rows never read it)."""
+        that sample (greedy rows never read it). ``settings`` is
+        :meth:`_sampling` of the same rows, made once for many steps."""
+        rows, temp_t, tk_t, tp_t = (settings if settings is not None
+                                    else self._sampling(temps, tks, tps))
         B, V = logits.shape
         dev = logits.device
-        noise = torch.zeros((B, V), dtype=torch.float32, device=dev)
-        rows = [i for i in range(B) if temps[i] > 0.0]
-        if rows:
-            noise[rows] = gumbel_noise([seeds[i] for i in rows],
-                                       [folds[i] for i in rows], V,
-                                       device=dev)
-        temp_t = torch.as_tensor(temps, dtype=torch.float32, device=dev)
-        tk_t = torch.as_tensor(tks, dtype=torch.int32, device=dev)
-        tp_t = torch.as_tensor(tps, dtype=torch.float32, device=dev)
+        drawn = iter(gumbel_noise([seeds[i] for i in rows],
+                                  [folds[i] for i in rows], V, device=dev)
+                     if rows else ())
+        zero = torch.zeros((V,), dtype=torch.float32, device=dev)
+        # rows stacked in order: a host-side row index would be a
+        # blocking copy to the card (a sync) every step
+        sampled = set(rows)
+        noise = torch.stack([next(drawn) if i in sampled else zero
+                             for i in range(B)])
         if self.sampler_impl == "fused":
             return fused_sample(logits.float().contiguous(), noise, temp_t,
                                 tk_t, tp_t)
@@ -330,6 +465,87 @@ class DecodeEngine:
                  and self.sampler_bound > 0 else None)
         return sample_logits(logits, noise, temperature=temp_t, top_k=tk_t,
                              top_p=tp_t, bound=bound)
+
+    # -- device programs (instance attributes, so tests inject faults) -----
+
+    def _step(self, cache, tokens, seeds, step_idx, temps, top_k, top_p):
+        """``steps_per_sync`` sampled decode steps; returns (cache,
+        (K, B) int32 tokens on the device)."""
+        settings = self._sampling(temps, top_k, top_p)
+        outs = []
+        for t in range(self.steps_per_sync):
+            logits, cache = decode_step(self._model, cache, tokens)
+            tokens = self._sample_rows(logits, seeds, step_idx + t, temps,
+                                       top_k, top_p, settings=settings)
+            outs.append(tokens)
+        return cache, torch.stack(outs)
+
+    def _step_greedy(self, cache, tokens):
+        """The all-greedy step: argmax only, no sampler."""
+        outs = []
+        for _ in range(self.steps_per_sync):
+            logits, cache = decode_step(self._model, cache, tokens)
+            tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+            outs.append(tokens)
+        return cache, torch.stack(outs)
+
+    def _prefill(self, prompt, true_len, temperature, top_k, top_p, seed,
+                 fold):
+        """Row prefill of a padded ``(1, S)`` prompt into a fresh 1-row
+        cache, and its next token sampled at ``(seed, fold)``."""
+        cache = init_cache(self._cfg, 1, device=self.device)
+        logits, cache = prefill(self._model, cache, self._on(prompt),
+                                [int(true_len)])
+        tok = self._sample_rows(logits, [seed], [fold], [temperature],
+                                [top_k], [top_p])
+        return tok, cache
+
+    def _continue(self, pcache, suffix, suffix_len, total_len, temperature,
+                  top_k, top_p, seed):
+        """A prefix row continued by a padded ``(1, S)`` suffix, and the
+        first token at ``(seed, 0)``. Continues a COPY: stored prefix
+        rows never change."""
+        row = DenseKVCache(k=pcache.k.clone(), v=pcache.v.clone(),
+                           positions=pcache.positions.clone())
+        logits, row = prefill_continue(self._model, row, self._on(suffix),
+                                       [int(suffix_len)], [int(total_len)])
+        tok = self._sample_rows(logits, [seed], [0], [temperature],
+                                [top_k], [top_p])
+        return tok, row
+
+    def _prefill_batch(self, prompts, true_lens, temps, top_ks, top_ps,
+                       seeds):
+        """Burst admission: same-bucket prompts ``(B, S)`` prefill
+        together with ragged lengths; each row's first token at
+        ``(seed, 0)``, as the row path samples it."""
+        cache = init_cache(self._cfg, prompts.shape[0], device=self.device)
+        logits, cache = prefill(self._model, cache, self._on(prompts),
+                                self._on(true_lens))
+        toks = self._sample_rows(logits, seeds, np.zeros_like(seeds), temps,
+                                 top_ks, top_ps)
+        return toks, cache
+
+    def _insert(self, engine_cache, row_cache, slot: int):
+        """Copy a 1-row cache into ``slot`` of the engine cache."""
+        engine_cache.k[:, slot] = row_cache.k[:, 0]
+        engine_cache.v[:, slot] = row_cache.v[:, 0]
+        engine_cache.positions[slot] = row_cache.positions[0]
+        return engine_cache
+
+    def _insert_rows(self, engine_cache, batch_cache, slot_ids, valid):
+        """Copy every valid batch-prefill row into its slot at once (pad
+        rows stay out)."""
+        rows = np.flatnonzero(valid)
+        src = torch.as_tensor(rows, dtype=torch.long, device=self.device)
+        dst = torch.as_tensor(np.asarray(slot_ids)[rows], dtype=torch.long,
+                              device=self.device)
+        engine_cache.k[:, dst] = batch_cache.k[:, src]
+        engine_cache.v[:, dst] = batch_cache.v[:, src]
+        engine_cache.positions[dst] = batch_cache.positions[src]
+        return engine_cache
+
+    def _on(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x, np.int32), device=self.device)
 
     # -- public API --------------------------------------------------------
 
@@ -344,17 +560,26 @@ class DecodeEngine:
             raise ValueError(
                 f"prompt {prompt.size} + max_new {max_new} exceeds "
                 f"context {self.config.max_seq_len}")
-        need = self._pool.pages_needed(prompt.size + max_new)
-        if need > self._pool.pages_total:
-            raise ValueError(
-                f"prompt {prompt.size} + max_new {max_new} needs {need} KV "
-                f"pages but the pool holds only {self._pool.pages_total} — "
-                f"raise kv_pages or shrink the request")
+        if self.paged:
+            # a request past the whole pool could never reserve: it would
+            # wedge the FIFO head of line forever
+            need = self._pool.pages_needed(prompt.size + max_new)
+            if need > self._pool.pages_total:
+                raise ValueError(
+                    f"prompt {prompt.size} + max_new {max_new} needs "
+                    f"{need} KV pages but the pool holds only "
+                    f"{self._pool.pages_total} — raise kv_pages or shrink "
+                    f"the request")
         prefix_len = int(prefix_len)
         if prefix_len and not 0 < prefix_len < prompt.size:
             raise ValueError(
                 f"prefix_len {prefix_len} must be in (0, prompt length "
                 f"{prompt.size}) — the suffix may not be empty")
+        if (not self.paged
+                and self._prefix_budget_bytes < self._prefix_row_bytes):
+            # one full-context row alone busts the byte budget: serve
+            # the full prefill
+            prefix_len = 0
         req = _Request(prompt=prompt, max_new=max_new,
                        temperature=float(temperature), top_k=int(top_k),
                        top_p=float(top_p), seed=int(seed), eos_id=eos_id,
@@ -413,11 +638,14 @@ class DecodeEngine:
         return self._pending.qsize() + len(self._waiting)
 
     def snapshot(self) -> dict:
-        """Occupancy snapshot (same keys as the reference's paged engine)."""
-        return {"active_slots": self.active_count,
+        """Occupancy snapshot (the reference's keys; paged mode adds the
+        page pool's)."""
+        snap = {"active_slots": self.active_count,
                 "pending": self.pending_count,
                 "slots": self.slots,
-                "closed": self.closed,
+                "closed": self.closed}
+        if self.paged:
+            snap.update({
                 "paged": True,
                 "page_size": self.kv_page_size,
                 "pages_total": self._pool.pages_total,
@@ -430,12 +658,14 @@ class DecodeEngine:
                 "prefix_hits": self.prefix_hits,
                 "prefix_misses": self.prefix_misses,
                 "prefix_pages_shared": self.prefix_pages_shared,
-                "cow_splits": self.cow_splits}
+                "cow_splits": self.cow_splits})
+        return snap
 
     # -- the scheduler cycle -------------------------------------------------
 
     def _emit(self, slot: _Slot, token: int) -> None:
         slot.produced += 1
+        slot.emitted.append(token)
         self.tokens_total += 1
         _tokens_total.inc(model=self.name)
         slot.req.out.put(token)
@@ -447,13 +677,29 @@ class DecodeEngine:
             slot.req.out.put(_END)
         return done
 
+    def _note_queue_wait(self, req: _Request) -> None:
+        if not req._wait_noted:
+            req._wait_noted = True
+            _queue_wait_h.observe(max(0.0, self.clock() - req.t_submit),
+                                  model=self.name)
+
     @torch.no_grad()
     def run_once(self, timeout: float = 0.1) -> bool:
         """One admit + prefill-chunk + step cycle; True if work happened.
         The background loop calls this forever; tests call it directly
-        (``autostart=False``) for deterministic schedules."""
-        worked = self._admit_paged(timeout)
-        worked = self._prefill_tick() or worked
+        (``autostart=False``) for deterministic schedules. A failed
+        device call is recovered in place while the budget lasts."""
+        if self.paged:
+            try:
+                worked = self._admit_paged(timeout)
+                worked = self._prefill_tick() or worked
+            except Exception:  # noqa: BLE001 — the cache may be half-written
+                log.exception("paged admission/prefill failed")
+                if self._maybe_recover("paged admission/prefill"):
+                    return True
+                raise
+        else:
+            worked = self._admit_dense(timeout)
         with self._lock:
             active = [(i, s) for i, s in enumerate(self._active)
                       if s is not None]
@@ -462,41 +708,244 @@ class DecodeEngine:
         # greedy rows ignore seeds and filters, so an all-greedy batch
         # takes the argmax step, bit-identical, without the sampler
         all_greedy = all(s.req.temperature <= 0.0 for _, s in active)
-        self._ensure_pages(i for i, _ in active)
-        K = self.steps_per_sync
-        tokens = torch.as_tensor(self._tokens, device=self.device)
-        outs = []
-        for t in range(K):
-            logits, _ = decode_step(self._model, self._cache, tokens)
+        try:
+            if self.paged:
+                self._ensure_pages(i for i, _ in active)
+            tokens = torch.as_tensor(self._tokens, device=self.device)
             if all_greedy:
-                tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+                self._cache, toks = self._step_greedy(self._cache, tokens)
             else:
-                tokens = self._sample_rows(
-                    logits, self._seeds, self._stepidx + t, self._temps,
-                    self._topk, self._topp)
-            outs.append(tokens)
-        toks = torch.stack(outs).cpu().numpy()  # (K, B): one host sync
+                self._cache, toks = self._step(
+                    self._cache, tokens, self._seeds, self._stepidx,
+                    self._temps, self._topk, self._topp)
+            # (K, B): one host sync a round-trip; it also surfaces a
+            # device failure while recovery can still replay
+            toks = toks.cpu().numpy()
+        except Exception:  # noqa: BLE001
+            log.exception("decode step failed")
+            if self._maybe_recover("decode step"):
+                return True
+            raise
+        K = toks.shape[0]
         self.steps_total += K
         if all_greedy:
             self.greedy_steps += K
         _steps_total.inc(K, model=self.name)
         self._stepidx += K
         self._tokens = toks[-1].copy()
-        self._pos_host[[i for i, _ in active]] += K
+        if self.paged:
+            self._pos_host[[i for i, _ in active]] += K
         retired: List[int] = []
         for i, slot in active:
             for t in range(K):
                 tok = int(toks[t, i])
                 self._emit(slot, tok)
                 if self._finished(slot, tok):
+                    # tokens past EOS or the budget are discarded
                     with self._lock:
                         self._active[i] = None
                     retired.append(i)
                     break
-        for i in retired:
-            self._retire_paged(i)
+        if self.paged and retired:
+            # after the emit loop, so a failure here replays streams
+            # whose accounting is complete
+            try:
+                for i in retired:
+                    self._retire_paged(i)
+            except Exception:  # noqa: BLE001
+                log.exception("paged retirement failed")
+                if not self._maybe_recover("paged retirement"):
+                    raise
         _occupancy.set(self.active_count, model=self.name)
         return True
+
+    # -- dense admission ---------------------------------------------------
+
+    def _admit_dense(self, timeout: float) -> bool:
+        """Move pending requests into free slots. A burst sharing a prompt
+        bucket admits through one batch prefill; singletons and prefix
+        requests take the row path."""
+        admitted = False
+        with self._lock:
+            free = [i for i, s in enumerate(self._active) if s is None]
+            block = len(free) == self.slots
+        batchable: List[tuple] = []
+        for slot in free:
+            try:
+                req = self._pending.get(block=block and not admitted,
+                                        timeout=timeout)
+            except queue.Empty:
+                break
+            admitted = True
+            if req.prefix_len or self.admit_batch_max <= 1:
+                self._admit_row_safe(req, slot)
+            else:
+                batchable.append((req, slot))
+        groups: dict = {}
+        for req, slot in batchable:
+            b = pow2_bucket(req.prompt.size, self.config.max_seq_len)
+            groups.setdefault(b, []).append((req, slot))
+        chunks = [(bucket, members[i:i + self.admit_batch_max])
+                  for bucket, members in groups.items()
+                  for i in range(0, len(members), self.admit_batch_max)]
+        for n, (bucket, chunk) in enumerate(chunks):
+            if len(chunk) == 1:
+                self._admit_row_safe(*chunk[0])
+                continue
+            try:
+                self._admit_batch(bucket, chunk)
+            except _CacheInvalidated:
+                # the later chunks are off the queue and in no slot, so
+                # the loop's _fail_all cannot reach them
+                for _, rest in chunks[n + 1:]:
+                    for req, _slot in rest:
+                        req.error = EngineClosed(
+                            "engine cache invalidated during admission")
+                        req.out.put(_END)
+                raise
+            except Exception:  # noqa: BLE001
+                # the engine cache is intact (the prefill finished
+                # before any copy): each member retries alone
+                log.exception("batched admission failed; retrying %d "
+                              "request(s) individually", len(chunk))
+                for req, slot in chunk:
+                    self._admit_row_safe(req, slot)
+        _queue_depth.set(self._pending.qsize(), model=self.name)
+        _occupancy.set(self.active_count, model=self.name)
+        return admitted
+
+    def _admit_row_safe(self, req: _Request, slot: int) -> None:
+        """Row-path admission whose failure reaches THIS request only."""
+        try:
+            self._admit_one(req, slot)
+        except Exception as e:  # noqa: BLE001 — surfaced to the caller
+            req.error = e
+            req.out.put(_END)
+
+    def _admit_one(self, req: _Request, slot: int) -> None:
+        """Prefill the request's prompt (through the prefix LRU when it
+        names a prefix) and copy the row into ``slot``."""
+        self._note_queue_wait(req)
+        S = req.prompt.size
+        Smax = self.config.max_seq_len
+        if req.prefix_len:
+            N = req.prefix_len
+            pcache = self._prefix_cache_row(req.prompt[:N])
+            suf = S - N
+            sbucket = pow2_bucket(suf, Smax)
+            if N + sbucket > Smax:
+                # a padded suffix would pass the context end and clamp
+                # its write start: serve the exact length
+                sbucket = suf
+            padded = np.zeros((1, sbucket), np.int32)
+            padded[0, :suf] = req.prompt[N:]
+            tok, row = self._continue(pcache, padded, suf, S,
+                                      req.temperature, req.top_k,
+                                      req.top_p, req.seed)
+        else:
+            padded = np.zeros((1, pow2_bucket(S, Smax)), np.int32)
+            padded[0, :S] = req.prompt
+            tok, row = self._prefill(padded, S, req.temperature, req.top_k,
+                                     req.top_p, req.seed, 0)
+        self._cache = self._insert(self._cache, row, slot)
+        self._finalize_admission(req, slot, int(tok[0]))
+
+    def _prefix_cache_row(self, prefix: np.ndarray) -> DenseKVCache:
+        """The 1-row cache holding this prefilled prefix (LRU, byte
+        budget)."""
+        key = (prefix.size, prefix.tobytes())
+        cached = self._prefix_store.get(key)
+        if cached is not None:
+            self._prefix_store.move_to_end(key)
+            self.prefix_hits += 1
+            _prefix_hits.inc(model=self.name)
+            return cached
+        self.prefix_misses += 1
+        _prefix_misses.inc(model=self.name)
+        N = prefix.size
+        padded = np.zeros((1, pow2_bucket(N, self.config.max_seq_len)),
+                          np.int32)
+        padded[0, :N] = prefix
+        _, pcache = self._prefill(padded, N, 0.0, 0, 1.0, 0, 0)
+        # evict LRU until the new row fits (submit() routed away prefixes
+        # that never can)
+        while (self._prefix_store and self.prefix_cache_bytes
+               + self._prefix_row_bytes > self._prefix_budget_bytes):
+            self._prefix_store.popitem(last=False)
+            self.prefix_cache_bytes -= self._prefix_row_bytes
+        if (self.prefix_cache_bytes + self._prefix_row_bytes
+                <= self._prefix_budget_bytes):
+            self._prefix_store[key] = pcache
+            self.prefix_cache_bytes += self._prefix_row_bytes
+        _prefix_bytes_g.set(self.prefix_cache_bytes, model=self.name)
+        return pcache
+
+    def _admit_batch(self, bucket: int, members: List[tuple]) -> None:
+        """One prefill for same-bucket requests, then the rows' copies
+        into their slots. Rows pad to a power-of-two batch; pad rows are
+        length-1 junk nothing copies. Token-identical to the row path:
+        the same ragged lengths and ``(seed, 0)`` sampling."""
+        k = len(members)
+        for req, _slot in members:
+            self._note_queue_wait(req)
+        bb = pow2_bucket(k, min(self.slots, self.admit_batch_max))
+        prompts = np.zeros((bb, bucket), np.int32)
+        lens = np.ones((bb,), np.int32)
+        temps = np.zeros((bb,), np.float32)
+        tks = np.zeros((bb,), np.int32)
+        tps = np.ones((bb,), np.float32)
+        seeds = np.zeros((bb,), np.int64)
+        slot_ids = np.zeros((bb,), np.int64)
+        valid = np.zeros((bb,), bool)
+        for i, (req, slot) in enumerate(members):
+            S = req.prompt.size
+            prompts[i, :S] = req.prompt
+            lens[i] = S
+            temps[i] = req.temperature
+            tks[i] = req.top_k
+            tps[i] = req.top_p
+            seeds[i] = req.seed
+            slot_ids[i] = slot
+            valid[i] = True
+        toks, bcache = self._prefill_batch(prompts, lens, temps, tks, tps,
+                                           seeds)
+        # the host copy finishes the prefill BEFORE any row lands in the
+        # engine cache: its failure surfaces here, the cache intact
+        toks = toks.cpu().numpy()
+        try:
+            self._cache = self._insert_rows(self._cache, bcache, slot_ids,
+                                            valid)
+        except Exception as e:  # noqa: BLE001 — the cache is half-written
+            for req, _ in members:
+                req.error = EngineClosed(
+                    "engine cache invalidated during admission")
+                req.out.put(_END)
+            raise _CacheInvalidated(str(e)) from e
+        self.batch_prefills += 1
+        for i, (req, slot) in enumerate(members):
+            self._finalize_admission(req, slot, int(toks[i]))
+
+    def _finalize_admission(self, req: _Request, slot: int,
+                            first: int) -> None:
+        """Emit the prefill-sampled first token and arm the slot's
+        host-side step state (row and batch paths alike)."""
+        st = _Slot(req=req)
+        self._emit(st, first)
+        if not self._finished(st, first):
+            with self._lock:
+                self._active[slot] = st
+        self._arm_host(slot, req, first, fold=1)
+
+    def _arm_host(self, slot: int, req: _Request, token: int,
+                  fold: int) -> None:
+        self._tokens[slot] = token
+        self._seeds[slot] = req.seed
+        self._stepidx[slot] = fold
+        self._temps[slot] = req.temperature
+        self._topk[slot] = req.top_k
+        self._topp[slot] = req.top_p
+
+    # -- paged admission and chunked prefill ---------------------------------
 
     def _admit_paged(self, timeout: float) -> bool:
         """Place pending requests into free slots, strict FIFO: a request
@@ -564,10 +1013,11 @@ class DecodeEngine:
             _cow_splits_c.inc(model=self.name)
             start += match.tail_len
         pool.ensure(slot, S)  # prompt pages; decode pages grow lazily
-        _queue_wait_h.observe(max(0.0, self.clock() - req.t_submit),
-                              model=self.name)
+        self._note_queue_wait(req)
         self._arm(self._cache, slot, start, pool.table_row(slot))
-        self._prefilling[slot] = _PrefillJob(req=req, slot=slot, next=start)
+        self._prefilling[slot] = _PrefillJob(
+            req=req, slot=slot, tokens=req.prompt, next=start,
+            store_prefix=req.prefix_len)
         self._pos_host[slot] = start
         self._slot_budget[slot] = S + req.max_new
         self._export_page_gauges()
@@ -601,23 +1051,21 @@ class DecodeEngine:
         return True
 
     def _run_chunk(self, job: _PrefillJob) -> bool:
-        """One chunk for one slot; True when the prompt is in the pool
-        (``job.last_tok`` then holds the sampled next token)."""
+        """One chunk for one slot; True when the job's tokens are in the
+        pool (``job.last_tok`` then holds the sampled next token)."""
         req = job.req
         C = self.prefill_chunk_tokens
-        total = int(req.prompt.size)
+        total = int(job.tokens.size)
         n = min(C, total - job.next)
         padded = np.zeros((1, C), np.int32)
-        padded[0, :n] = req.prompt[job.next:job.next + n]
+        padded[0, :n] = job.tokens[job.next:job.next + n]
         final = job.next + n >= total
-        logits, _ = prefill_chunk(
-            self._model, self._cache,
-            torch.as_tensor(padded, device=self.device), job.slot,
-            job.next, n)
+        logits, _ = prefill_chunk(self._model, self._cache,
+                                  self._on(padded), job.slot, job.next, n)
         if final:
             job.last_tok = int(self._sample_rows(
-                logits, [req.seed], [0], [req.temperature], [req.top_k],
-                [req.top_p])[0])
+                logits, [req.seed], [job.fold0], [req.temperature],
+                [req.top_k], [req.top_p])[0])
         job.next += n
         job.chunks += 1
         self.prefill_chunks += 1
@@ -628,20 +1076,16 @@ class DecodeEngine:
         """Prompt fully in the pool: emit the sampled token, arm the
         slot's host-side decode state, pin shareable prefix pages."""
         req, slot = job.req, job.slot
-        if req.prefix_len:
-            self._prefix_pages.store(req.prompt, req.prefix_len, slot)
+        if job.store_prefix:
+            self._prefix_pages.store(req.prompt, job.store_prefix, slot)
             _prefix_bytes_g.set(
                 self._prefix_pages.pages_held * self._page_bytes,
                 model=self.name)
-        st = _Slot(req=req)
+        st = _Slot(req=req, produced=job.produced0,
+                   emitted=[int(t) for t in job.tokens[req.prompt.size:]])
         self._emit(st, job.last_tok)
-        self._tokens[slot] = job.last_tok
-        self._seeds[slot] = req.seed
-        self._stepidx[slot] = 1
-        self._temps[slot] = req.temperature
-        self._topk[slot] = req.top_k
-        self._topp[slot] = req.top_p
-        self._pos_host[slot] = req.prompt.size
+        self._arm_host(slot, req, job.last_tok, fold=job.fold0 + 1)
+        self._pos_host[slot] = job.tokens.size
         if self._finished(st, job.last_tok):
             self._retire_paged(slot)
         else:
@@ -677,14 +1121,109 @@ class DecodeEngine:
         self._slot_budget[slot] = 0
         self._export_page_gauges()
 
+    # -- cache recovery ----------------------------------------------------
+
+    def _maybe_recover(self, where: str) -> bool:
+        """A device call failed mid-way and may have half-written the
+        cache. While the budget lasts, rebuild it from zeros and replay
+        every in-flight stream; False once the budget is spent or the
+        rebuild itself fails."""
+        if self._recoveries_left <= 0:
+            return False
+        self._recoveries_left -= 1
+        try:
+            self._rebuild_and_replay()
+        except Exception:  # noqa: BLE001 — recovery itself failed
+            log.exception("cache recovery after %s failure failed; "
+                          "closing engine", where)
+            return False
+        self.recoveries += 1
+        log.warning("recovered engine cache after %s failure (%d "
+                    "recover(s) left)", where, self._recoveries_left)
+        return True
+
+    def _rebuild_and_replay(self) -> None:
+        with self._lock:
+            live = [(i, s) for i, s in enumerate(self._active)
+                    if s is not None]
+            self._active = [None] * self.slots
+        # a new cache: the failed call may have half-written the old one
+        self._cache = self._fresh_cache()
+        replays = [(i, st.req,
+                    np.concatenate([st.req.prompt,
+                                    np.asarray(st.emitted, np.int32)]),
+                    st.produced, int(self._stepidx[i])) for i, st in live]
+        if not self.paged:
+            for args in replays:
+                self._replay_dense(*args)
+            return
+        # the old pool mapped the old cache and its prefix pages died
+        # with it; interrupted prefill jobs restart from token 0
+        jobs = list(self._prefilling.values())
+        self._prefilling = collections.OrderedDict()
+        self._pool = PagePool(self.kv_pages, self.kv_page_size, self.slots,
+                              self._n_logical)
+        self._prefix_pages = PrefixPageStore(
+            self._pool, self._prefix_pages.budget_pages)
+        self._pos_host[:] = 0
+        self._slot_budget[:] = 0
+        self._export_page_gauges()
+        for args in replays + [(j.slot, j.req, j.tokens, j.produced0,
+                                j.fold0) for j in jobs]:
+            try:
+                self._replay_paged(*args)
+            except OutOfPages:
+                # replays reserve without prefix sharing: a load that only
+                # fit shared fails just the streams that no longer fit
+                log.warning("slot %d replay does not fit the rebuilt pool; "
+                            "failing it retryably", args[0])
+                args[1].error = EngineClosed(
+                    "engine cache recovered; stream evicted — retry")
+                args[1].out.put(_END)
+
+    def _replay_paged(self, slot: int, req: _Request, tokens: np.ndarray,
+                      produced: int, fold: int) -> None:
+        pool = self._pool
+        budget = req.prompt.size + req.max_new
+        pool.reserve(slot, pool.pages_needed(budget))
+        pool.ensure(slot, int(tokens.size))
+        self._arm(self._cache, slot, 0, pool.table_row(slot))
+        self._prefilling[slot] = _PrefillJob(
+            req=req, slot=slot, tokens=tokens, next=0, fold0=fold,
+            produced0=produced)
+        self._pos_host[slot] = 0
+        self._slot_budget[slot] = budget
+        self._export_page_gauges()
+
+    def _replay_dense(self, slot: int, req: _Request, tokens: np.ndarray,
+                      produced: int, fold: int) -> None:
+        """One bucketed prefill of (prompt + emitted) refills the row and
+        samples the stream's next token at the preserved step index."""
+        L = int(tokens.size)
+        padded = np.zeros((1, pow2_bucket(L, self.config.max_seq_len)),
+                          np.int32)
+        padded[0, :L] = tokens
+        tok, row = self._prefill(padded, L, req.temperature, req.top_k,
+                                 req.top_p, req.seed, fold)
+        self._cache = self._insert(self._cache, row, slot)
+        tok = int(tok[0])
+        st = _Slot(req=req, produced=produced,
+                   emitted=[int(t) for t in tokens[req.prompt.size:]])
+        self._emit(st, tok)
+        self._arm_host(slot, req, tok, fold=fold + 1)
+        if not self._finished(st, tok):
+            with self._lock:
+                self._active[slot] = st
+
     def _loop(self) -> None:
         while not self._stop.is_set():
             try:
                 self.run_once()
             except Exception:  # noqa: BLE001
-                # no cache recovery in this slice: a failed step closes
-                # the engine, every request fails retryably, and the
-                # repository builds a fresh engine on the next request
+                # the recovery budget is spent (or a burst's copies
+                # half-wrote the cache): close the engine; every request
+                # fails retryably and the repository builds a fresh
+                # engine on the next request
                 log.exception("decode engine step failed; closing engine")
                 self._stop.set()
                 self._fail_all(EngineClosed("decode engine step failed"))

@@ -11,7 +11,8 @@ records are honoured:
 - ``cast_leaves``: leaves npz cannot hold (bf16) stored as f32 with
   their dtype recorded, restored at load.
 
-This slice serves the ``transformer`` kind only.
+This slice serves the ``transformer`` kind only; a loaded version
+carries the unary path's :meth:`LoadedModel.generate`.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 import yaml
 
-from kubeflow_tpu_torch.models import convert
+from kubeflow_tpu_torch.models import convert, decode
 from kubeflow_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
@@ -140,6 +141,27 @@ class LoadedModel:
     lm_params: Transformer   # the loaded module, on the serving device
     max_seq_len: int
     vocab_size: int
+
+    def generate(self, prompt, true_len, max_new: int, temperature,
+                 seed: int, *, greedy: bool, top_k=0, top_p=1.0,
+                 filtered: bool = False) -> np.ndarray:
+        """The unary path's batch generate (the reference's jitted
+        closure): ``(B, S)`` right-padded prompts with lengths ``(B,)``
+        → ``(B, max_new)`` int32 tokens. ``greedy`` and ``filtered``
+        decide, as there, whether the temperature and the filters are
+        read at all."""
+        dev = self.lm_params.token_embed.device
+        out = decode.generate(
+            self.lm_params,
+            torch.as_tensor(np.asarray(prompt, np.int32), device=dev),
+            max_new_tokens=int(max_new),
+            true_len=torch.as_tensor(np.asarray(true_len, np.int32),
+                                     device=dev),
+            temperature=0.0 if greedy else float(temperature),
+            top_k=int(top_k) if filtered else 0,
+            top_p=float(top_p) if filtered else 1.0,
+            seed=int(seed))
+        return out.cpu().numpy()
 
 
 def load_version(base_path: str, version: int, *,

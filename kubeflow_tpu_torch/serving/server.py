@@ -1,4 +1,5 @@
-"""LM model server for the port: ``:generate`` through the decode engine.
+"""LM model server for the port: ``:generate``, unary or through the
+decode engine.
 
 PyTorch port of the generate half of ``kubeflow_tpu/serving/server.py``,
 with the same request and response JSON:
@@ -8,13 +9,18 @@ with the same request and response JSON:
 - ``POST /v1/models/<name>[/versions/<v>]:generate`` with
   ``{"prompt_tokens": [[...], ...], "max_new_tokens", "temperature",
   "top_k", "top_p", "seed", "eos_id", "prefix_len", "true_len",
-  "stream"}`` — each prompt row becomes one engine request sharing the
-  decode batch; ``stream: true`` answers with JSON lines over chunked
+  "stream"}``; ``stream: true`` answers with JSON lines over chunked
   transfer, one ``{"tokens": [...]}`` per decode position.
 
+With ``decode_slots`` 0 (the default, as in the reference) a request is
+served UNARY: the batch is padded to a prompt bucket, a new-token bucket
+and a batch bucket, and one ``LoadedModel.generate`` decodes it;
+``eos_id`` and ``prefix_len`` need the engine and answer 400. With
+``decode_slots`` > 0 each prompt row becomes one engine request sharing
+the decode batch.
+
 Not in this slice (ROADMAP.md): ``:predict`` for the non-LM kinds,
-speculative decoding, gRPC, the unary (engine-less) generate path,
-tracing spans and the request ledger.
+speculative decoding, gRPC, tracing spans and the request ledger.
 """
 
 from __future__ import annotations
@@ -29,7 +35,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
-from kubeflow_tpu_torch.serving.engine import DecodeEngine, EngineClosed
+from kubeflow_tpu_torch.serving.engine import (
+    DecodeEngine,
+    EngineClosed,
+    pow2_bucket,
+)
 from kubeflow_tpu_torch.serving.model_store import (
     LoadedModel,
     list_versions,
@@ -47,7 +57,22 @@ _gen_latency = DEFAULT_REGISTRY.gauge(
     "kftpu_serving_generate_last_latency_seconds", "last generate latency")
 
 
-def _parse(model: LoadedModel, body: Dict[str, Any], max_batch_size: int):
+_PAD_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
+
+
+def _pad_batch(arr: np.ndarray, max_batch: int) -> Tuple[np.ndarray, int]:
+    """Pad the leading dim up to a fixed bucket (one shape per bucket)."""
+    n = arr.shape[0]
+    bucket = next((b for b in _PAD_BUCKETS if b >= n and b <= max_batch),
+                  max_batch)
+    if n == bucket:
+        return arr, n
+    pad = np.zeros((bucket - n,) + arr.shape[1:], arr.dtype)
+    return np.concatenate([arr, pad], axis=0), n
+
+
+def _parse(model: LoadedModel, body: Dict[str, Any], max_batch_size: int,
+           unary: bool):
     """Validate a generate body; (error tuple, None) or (None, args)."""
     prompts = body.get("prompt_tokens")
     if prompts is None:
@@ -89,6 +114,9 @@ def _parse(model: LoadedModel, body: Dict[str, Any], max_batch_size: int):
         return (400, {"error": "top_p must be in (0, 1]"}), None
     if not -2**31 <= seed < 2**31:
         return (400, {"error": "seed must fit in int32"}), None
+    if prefix_len and unary:
+        return (400, {"error": "prefix_len requires the decode engine "
+                               "(server started with decode_slots=0)"}), None
     if prefix_len and not 0 < prefix_len < min(row_lens):
         return (400, {"error": f"prefix_len {prefix_len} must be in "
                                f"(0, shortest prompt row "
@@ -102,6 +130,11 @@ def _parse(model: LoadedModel, body: Dict[str, Any], max_batch_size: int):
         if not 0 <= eos_id < model.vocab_size:
             return (400, {"error": f"eos_id must be in [0, "
                                    f"{model.vocab_size})"}), None
+        if unary:
+            # only the engine watches for EOS
+            return (400, {"error": "eos_id requires the decode engine "
+                                   "(server started with decode_slots=0)"}
+                    ), None
     if arr.shape[0] > max_batch_size:
         return (400, {"error": f"batch {arr.shape[0]} exceeds max "
                                f"{max_batch_size}"}), None
@@ -120,17 +153,22 @@ def _parse(model: LoadedModel, body: Dict[str, Any], max_batch_size: int):
 
 
 def run_generate(model: LoadedModel, body: Dict[str, Any],
-                 max_batch_size: int, *, engine: DecodeEngine,
+                 max_batch_size: int, *,
+                 engine: Optional[DecodeEngine] = None,
                  model_name: str = "", stream: bool = False
                  ) -> Tuple[int, Dict[str, Any]]:
-    """The generate core: validation, one engine request per prompt row
-    (row ``i`` samples from ``seed + i``), then a dense ``(B, max_new)``
-    token matrix — EOS-finished rows right-padded with their final token
-    — or, with ``stream=True``, a ``token_stream`` iterator of per-step
-    rows. Returns (http status, payload)."""
-    err, a = _parse(model, body, max_batch_size)
+    """The generate core: validation, then a dense ``(B, max_new)``
+    token matrix or, with ``stream=True``, a ``token_stream`` iterator
+    of per-step rows. Without an engine the batch is served unary;
+    with one, each prompt row is one engine request (row ``i`` samples
+    from ``seed + i``) and EOS-finished rows are right-padded with their
+    final token. Returns (http status, payload)."""
+    err, a = _parse(model, body, max_batch_size, engine is None)
     if err is not None:
         return err
+    if engine is None:
+        return _run_generate_unary(model, a, max_batch_size,
+                                   model_name=model_name, stream=stream)
     t0 = time.perf_counter()
     try:
         reqs = [engine.submit(
@@ -184,21 +222,70 @@ def run_generate(model: LoadedModel, body: Dict[str, Any],
                  "tokens_per_sec": round(sum(map(len, rows)) / dt, 1)}
 
 
+def _run_generate_unary(model: LoadedModel, a: Dict[str, Any],
+                        max_batch_size: int, *, model_name: str,
+                        stream: bool) -> Tuple[int, Dict[str, Any]]:
+    """The engine-less half of :func:`run_generate`: one padded batch
+    through ``model.generate``. The prompt pads to a power-of-two
+    bucket; the new tokens to a power of two no larger than the context
+    left after the longest prompt (or the exact ask where only that
+    fits: :func:`_parse` refused any ask past the context); the rows to
+    a batch bucket, filler rows of length 1."""
+    arr, row_lens, max_new = a["arr"], a["row_lens"], a["max_new"]
+    true_len = max(row_lens)
+    ctx = model.max_seq_len
+    bucket = pow2_bucket(true_len, ctx)
+    new_bucket = pow2_bucket(max_new, 1 << 30)
+    while new_bucket > ctx - true_len:
+        new_bucket //= 2
+    new_bucket = max(new_bucket, max_new)
+    padded = np.zeros((arr.shape[0], bucket), np.int32)
+    padded[:, :arr.shape[1]] = arr
+    padded, n = _pad_batch(padded, max_batch_size)
+    lens = np.ones((padded.shape[0],), np.int32)
+    lens[:n] = row_lens
+    temperature = a["temperature"]
+    greedy = temperature == 0.0
+    t0 = time.perf_counter()
+    try:
+        out = model.generate(
+            padded, lens, new_bucket, temperature, a["seed"],
+            greedy=greedy, top_k=a["top_k"], top_p=a["top_p"],
+            filtered=(a["top_k"] > 0 or a["top_p"] < 1.0) and not greedy
+        )[:n, :max_new]
+    except (TypeError, ValueError) as e:
+        return 400, {"error": f"generate failed: {type(e).__name__}: {e}"}
+    except Exception as e:  # noqa: BLE001 — model or runtime fault
+        return 500, {"error": f"generate failed: {type(e).__name__}: {e}"}
+    dt = time.perf_counter() - t0
+    _gen_requests.inc(model=model_name)
+    _gen_latency.set(dt, model=model_name)
+    if stream:
+        return 200, {"token_stream": (out[:, t].tolist()
+                                      for t in range(out.shape[1])),
+                     "model_version": str(model.version)}
+    return 200, {"tokens": out.tolist(),
+                 "model_version": str(model.version),
+                 "tokens_per_sec": round(out.size / dt, 1)}
+
+
 class ModelRepository:
     """Transformer models under ``<base>/<name>/<version>/``, newest
-    served (or ``pin_version``), each version with one decode engine."""
+    served (or ``pin_version``); with ``decode_slots`` > 0 each version
+    gets one decode engine. ``warmup`` (as in the reference) builds each
+    engine with ``precompile``: both step paths run once before the
+    first request, so no request pays their first call's set-up (on the
+    card: the sampler kernel's build and the first GEMMs')."""
 
-    def __init__(self, base_path: str, *, decode_slots: int = 8,
+    def __init__(self, base_path: str, *, decode_slots: int = 0,
                  decode_steps_per_sync: int = 1,
                  pin_version: Optional[int] = None,
-                 poll_interval_s: float = 10.0, device=None) -> None:
+                 poll_interval_s: float = 10.0, warmup: bool = False,
+                 device=None) -> None:
         self.device = resolve_device(device)
-        if decode_slots < 1:
-            raise NotImplementedError(
-                "the unary (engine-less) generate path is not ported yet; "
-                "decode_slots must be >= 1 (ROADMAP.md Queue A)")
         self.base_path = base_path
         self.decode_slots = decode_slots
+        self.warmup = warmup
         self.decode_steps_per_sync = decode_steps_per_sync
         self.pin_version = pin_version
         self.poll_interval_s = poll_interval_s
@@ -261,9 +348,13 @@ class ModelRepository:
             self._pinned[(name, version)] = loaded
         return loaded
 
-    def engine_for(self, name: str, model: LoadedModel) -> DecodeEngine:
+    def engine_for(self, name: str,
+                   model: LoadedModel) -> Optional[DecodeEngine]:
         """The version's engine, built on first use; a self-closed engine
-        (failed step) is replaced by a fresh one."""
+        (failed step) is replaced by a fresh one. None when the
+        repository serves unary (``decode_slots`` <= 0)."""
+        if self.decode_slots <= 0:
+            return None
         key = (name, model.version)
         with self._engine_create_lock:
             with self._lock:
@@ -273,7 +364,8 @@ class ModelRepository:
             eng = DecodeEngine(model.lm_config, model.lm_params,
                                slots=self.decode_slots,
                                steps_per_sync=self.decode_steps_per_sync,
-                               name=name, device=self.device)
+                               precompile=self.warmup, name=name,
+                               device=self.device)
             with self._lock:
                 self._engines[key] = eng
             return eng
@@ -311,13 +403,14 @@ class ModelRepository:
 class ModelServer:
     def __init__(self, base_path: str, *, port: int = 8500,
                  max_batch_size: int = 8, poll_interval_s: float = 10.0,
-                 pin_version: Optional[int] = None, decode_slots: int = 8,
-                 decode_steps_per_sync: int = 1, device=None) -> None:
+                 pin_version: Optional[int] = None, warmup: bool = False,
+                 decode_slots: int = 0, decode_steps_per_sync: int = 1,
+                 device=None) -> None:
         self.repo = ModelRepository(
             base_path, decode_slots=decode_slots,
             decode_steps_per_sync=decode_steps_per_sync,
             pin_version=pin_version, poll_interval_s=poll_interval_s,
-            device=device)
+            warmup=warmup, device=device)
         self.port = port
         self.max_batch_size = max_batch_size
         self._httpd: Optional[ThreadingHTTPServer] = None

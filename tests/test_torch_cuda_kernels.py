@@ -291,6 +291,54 @@ def test_engine_kernel_and_gather_streams_match(cuda):
     assert streams["kernel"] == streams["gather"]
 
 
+def test_dense_engine_fused_sampler_matches_plain(cuda, monkeypatch):
+    """The dense engine with ``sampler_impl="fused"`` on the card: the
+    sampler kernel launches at the row prefill, the burst's batch
+    prefill and every sampled step, never the paged kernel, and the
+    tokens are those of the same engine with the sampler's plain
+    version swapped in (the same noise: the engine draws it from each
+    row's ``(seed, step)``)."""
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.transformer import tiny_config
+    from kubeflow_tpu_torch.serving import engine as engine_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tiny_config()
+    model = convert.to_module(cfg, convert.random_params(cfg, 0),
+                              device=cuda)
+    kw = dict(temperature=0.9, top_k=20, top_p=0.9)
+
+    def run():
+        eng = engine_mod.DecodeEngine(cfg, model, slots=4,
+                                      steps_per_sync=3,
+                                      sampler_impl="fused",
+                                      autostart=False, device=cuda)
+        assert not eng.paged
+        burst = [eng.submit([3 + i, 2, 9], max_new=10, seed=i, **kw)
+                 for i in range(3)]
+        while eng.active_count or eng.pending_count:
+            eng.run_once(timeout=0.01)
+        row = eng.submit([5, 11, 17, 4, 4], max_new=7, seed=9, **kw)
+        greedy = eng.submit([1, 2], max_new=7)
+        while eng.active_count or eng.pending_count:
+            eng.run_once(timeout=0.01)
+        assert eng.batch_prefills == 1
+        return [r.result() for r in burst + [row, greedy]]
+
+    paged0 = pa.launches["paged_decode_attention"]
+    sampler0 = sm.launches["fused_sample"]
+    got = run()
+    torch.cuda.synchronize()
+    assert sm.launches["fused_sample"] - sampler0 >= 1 + 1 + 3
+    assert pa.launches["paged_decode_attention"] == paged0
+    monkeypatch.setattr(engine_mod, "fused_sample", sm.fused_sample_plain)
+    sampler0 = sm.launches["fused_sample"]
+    want = run()
+    assert sm.launches["fused_sample"] == sampler0
+    assert got == want
+    assert all(0 <= t < cfg.vocab_size for row in got for t in row)
+
+
 def _flash_inputs(cuda, S, D, dtype, seed):
     rng = np.random.default_rng(seed)
     q, k, v, g = (torch.from_numpy(rng.standard_normal((2, S, 4, D))

@@ -200,8 +200,11 @@ def test_all_greedy_batch_takes_the_argmax_step(lm):
 
 def test_env_switches(lm, monkeypatch):
     monkeypatch.setenv("KFTPU_PAGED", "0")
-    with pytest.raises(NotImplementedError, match="dense"):
-        _port_env(lm)
+    dense = _port_env(lm)
+    assert (dense.paged, dense.kv_page_size) == (False, 0)
+    r = dense.submit(P_LONG, max_new=6)
+    _drain(dense, 20)
+    assert r.result() == lm[2][1]
     monkeypatch.setenv("KFTPU_PAGED", "1")
     monkeypatch.setenv("KFTPU_KV_PAGE_SIZE", "4")
     monkeypatch.setenv("KFTPU_KV_PAGES", "20")

@@ -4,8 +4,8 @@
   (plain, ``quantize=True``, and bf16 leaves carried as ``cast_leaves``)
   load in the port with the same weights, and the port's own exports
   load in the JAX package.
-- ``POST :generate`` on the port's ``ModelServer`` returns the JAX paged
-  engine's greedy tokens, dense and streamed.
+- ``POST :generate`` on the port's ``ModelServer`` with a paged engine
+  returns the JAX paged engine's greedy tokens, dense and streamed.
 """
 
 import json
@@ -103,7 +103,9 @@ def test_http_generate_returns_jax_engine_tokens(tmp_path, jax_lm,
         jeng.run_once(timeout=0.01)
     want = [r.result() for r in jreqs]
 
-    # the JAX engine's page and chunk sizes, through the server's knobs
+    # the JAX engine's paged mode, page and chunk sizes, through the
+    # server's knobs
+    monkeypatch.setenv("KFTPU_PAGED", "1")
     monkeypatch.setenv("KFTPU_KV_PAGE_SIZE", "8")
     monkeypatch.setenv("KFTPU_PREFILL_CHUNK", "4")
     server = ModelServer(str(tmp_path), port=0, decode_slots=4,
