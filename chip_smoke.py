@@ -25,7 +25,10 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
    4e-4, which a bf16 fault in each output must exceed), timed at the
    training case beside ``scaled_dot_product_attention`` (timed only),
    with each flash kernel's ptxas registers and spills (the bf16
-   tensor-core kernels at D=64 must not spill);
+   tensor-core kernels at D=64 must not spill); and BERT's shape (B=16,
+   S=512, H=12, D=64, bf16, non-causal, with and without ``kv_len``),
+   timed unmasked beside ``scaled_dot_product_attention(is_causal=False)``
+   (the ``bert_shape`` entry of rows 3-5 of the record);
 3. serve the full-width engine-bench LM (vocab 32000, d_model 1024, 8
    layers, 16 heads, max_seq_len 2048; random weights from a numpy seed,
    written as a model-store export) through the port's ``ModelServer``
@@ -73,11 +76,30 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
     burst admission, the paged engine with its kernel, the unary
     ``LoadedModel.generate`` and a default ``ModelServer`` (no
     ``KFTPU_PAGED``, ``decode_slots=0``) ``:generate``: four identical
-    greedy streams.
+    greedy streams;
+11. train BERT-base as ``bench/suite.py:bench_bert`` does (batch 16, seq
+    512, bf16 compute over f32 params, remat, ``attention_impl="auto"``,
+    ``make_optimizer(1e-4, warmup_steps=10, decay_steps=1000)``; random
+    weights and one fixed batch with 15 % weights from numpy seeds) for 5
+    steps of ``make_mlm_train_step`` and require the flash kernels to
+    have launched 24 / 12 / 12 times a step (forward with remat, dQ,
+    dK/dV), finite losses near ln(30522) that fall, and every parameter
+    updated;
+12. one f32 MLM step (TF32 off) of a 2-layer BERT at BERT-base's widths
+    and seq 512 with ``seq_lengths`` [512, 377, 64, 1], with flash and
+    with dense attention from the same weights: loss, gradients and
+    updated parameters within 1e-5;
+13. ``examples.bert.main`` at its defaults (BERT-base, batch 8, seq 128):
+    4 steps with a checkpoint every 2 and the profiler on steps 1-2, a
+    restart to 6 steps, and an unbroken 6-step run; the restart resumes
+    at step 4, the step-4 checkpoint restores into a fresh state bit for
+    bit, steps 5-6 take the unbroken run's losses within 1e-5 relative,
+    and the trace names the three flash kernels.
 
-Phase 2 also holds the bnconv forward and dW kernels, and the autograd
-function's four gradients, against their plain versions at the four
-ResNet-50 sites (bf16 and f32) and at ragged shapes: bf16 outputs within
+Each phase prints its seconds. Phase 2 also holds the bnconv forward and
+dW kernels, and the autograd function's four gradients, against their
+plain versions at the four ResNet-50 sites (bf16 and f32) and at ragged
+shapes: bf16 outputs within
 a norm-relative error of 4e-4, which a bf16 fault in each must exceed,
 f32 within 1e-5, bf16 repeat calls bit-identical; it prints the wgmma
 kernels' ptxas registers (a spill fails) and times each kernel at every
@@ -92,7 +114,9 @@ The last three lines of standard output are the ``nvidia-smi`` name and
 power limit, the ``{"kernels": [...]}`` record, and ``{"ok": true, ...}``.
 In the record, a kernel's ``launches`` sums the paths that run it and
 ``launches_by_path`` gives each path's own count (zeroed just before
-that path, read just after).
+that path, read just after): ``paged_serving`` and ``dense_serving``
+(rows 1-2), ``lm_train``, ``bert_train`` and ``bert_entry`` (rows 3-5),
+``resnet_train`` (rows 6-7).
 """
 
 from __future__ import annotations
@@ -1850,6 +1874,378 @@ def dense_parity_phase(base: str, cfg, device, *, n=4, max_new=24,
     return streams["dense"]
 
 
+# -- phase 2, BERT's shape: the flash kernels non-causal at (16, 512, 12, 64)
+
+
+# bench/suite.py:bench_bert (:366): BERT-base at batch 16, seq 512
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 16, 512, 5
+
+
+def check_flash_bert_shape(device) -> dict:
+    """The three flash kernels against their plain versions at BERT's
+    shape (B=16, S=512, H=12, D=64, bf16, non-causal) and the entry
+    point's (B=8, S=128), with and without kv_len, at phase 2's limits;
+    then each timed unmasked at BERT's shape beside its
+    bound, its plain version and ``scaled_dot_product_attention``
+    (``is_causal=False``, forward and backward). Returns ``{kernel:
+    {max_abs_err, ms, bound_ms, bound_by, plain_ms, library_ms}}``."""
+    import torch
+
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, D = BERT_BATCH, BERT_SEQ, 12, 64
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    owner = {"out": "flash_fwd", "lse": "flash_fwd", "dq": "flash_bwd_dq",
+             "dk": "flash_bwd_dkv", "dv": "flash_bwd_dkv"}
+    # the entry point's default (batch 8, seq 128: one 64-row tile pair)
+    # first, then BERT's bench shape, the unmasked case last
+    for seed, (b, s, masked) in enumerate(
+            ((8, 128, True), (8, 128, False), (B, S, True), (B, S, False)),
+            SEED + 40):
+        errs, case = compare_flash(b, s, H, D, torch.bfloat16, device, seed,
+                                   causal=False, masked=masked, step=H)
+        for name, err in errs.items():
+            worst[owner[name]] = max(worst[owner[name]], err)
+    q, k, v, g, lse, delta = case                  # the unmasked case
+    kw = dict(causal=False)
+    ms = {"flash_fwd": time_ms(lambda: fa.flash_fwd(q, k, v, **kw)),
+          "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(
+              q, k, v, g, lse, delta, **kw)),
+          "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv(
+              q, k, v, g, lse, delta, **kw))}
+    plain = {
+        "flash_fwd": time_ms(lambda: fa.flash_fwd_plain(q, k, v, **kw),
+                             iters=5, warmup=1),
+        "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq_plain(
+            q, k, v, g, lse, delta, **kw), iters=5, warmup=1),
+        "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv_plain(
+            q, k, v, g, lse, delta, **kw), iters=5, warmup=1)}
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=False))
+    o_lib = sdpa(qt, kt, vt, is_causal=False)
+    g_lib = g.transpose(1, 2)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), g_lib, retain_graph=True))
+    library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
+               "flash_bwd_dkv": lib_bwd}
+    work = flash_bytes_ops(B, S, H, D, 2, False)
+    out = {}
+    for name in ms:
+        nbytes, flops = work[name]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3
+        out[name] = {"max_abs_err": worst[name], "ms": ms[name],
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations",
+                     "plain_ms": plain[name], "library_ms": library[name]}
+        print(f"{name} bf16 non-causal B={B} H={H} S={S} D={D} (BERT): "
+              f"kernel_ms={ms[name]:.4f} "
+              f"({flops / ms[name] / 1e9:.1f} TFLOP/s) "
+              f"bound_ms={max(t_bytes, t_ops):.4f} "
+              f"plain_ms={plain[name]:.4f} library_ms={library[name]:.4f} "
+              f"(scaled_dot_product_attention, is_causal=False, "
+              f"{'forward' if name == 'flash_fwd' else 'backward'})",
+              flush=True)
+    del q, k, v, g, qt, kt, vt, o_lib, case
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 11: BERT-base masked-LM training ----------------------------------
+
+
+def bert_train_flops(cfg, n_params: int) -> int:
+    """Flops of one step by ``bench_bert``'s count (:412-414):
+    6·N·tokens plus the attention matmuls, 12·L·B·S²·d, remat
+    excluded."""
+    tokens = BERT_BATCH * BERT_SEQ
+    return (6 * n_params * tokens
+            + 12 * cfg.n_layers * BERT_BATCH * BERT_SEQ * BERT_SEQ
+            * cfg.d_model)
+
+
+def bert_setup(device):
+    """``bench_bert``'s configuration on ``device``: (config, train
+    state, (tokens, labels, weights)). BERT-base (bf16 compute over f32
+    params, remat, ``attention_impl="auto"``: the flash kernels on the
+    card), ``make_optimizer(1e-4, warmup_steps=10, decay_steps=1000)``,
+    random weights from a numpy seed, and one batch of 16 x 512 uniform
+    tokens and labels with 15 % weights, made from a seed and kept on
+    the card, reused every step as the bench reuses its batch."""
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.bert import bert_base
+    from kubeflow_tpu_torch.train import (
+        create_bert_train_state,
+        make_optimizer,
+    )
+
+    cfg = bert_base()
+    state = create_bert_train_state(
+        cfg, convert.random_bert_params(cfg, SEED + 6),
+        make_optimizer(1e-4, warmup_steps=10, decay_steps=1000),
+        device=device)
+    rng = np.random.default_rng(SEED + 7)
+    shape = (BERT_BATCH, BERT_SEQ)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape).astype(
+        np.int32)).to(device)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape).astype(
+        np.int32)).to(device)
+    weights = torch.from_numpy((rng.random(shape) < 0.15).astype(
+        np.float32)).to(device)
+    return cfg, state, (tokens, labels, weights)
+
+
+def bert_phase(device, *, steps=BERT_STEPS):
+    """``steps`` steps of ``make_mlm_train_step`` on :func:`bert_setup`'s
+    state and batch. Flash must launch 24 / 12 / 12 times a step
+    (forward with remat, dQ, dK/dV); losses finite, the first within
+    ln(30522) +- 1.5, falling; every parameter updated."""
+    import math
+
+    import torch
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.train import make_mlm_train_step
+
+    t0 = time.perf_counter()
+    cfg, state, batch = bert_setup(device)
+    model = state.module
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    n_params = sum(p.numel() for p in before.values())
+    print(f"bert-base state built: {time.perf_counter() - t0:.1f}s, "
+          f"{n_params} params", flush=True)
+    step = make_mlm_train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    ops.reset_launches()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, *batch)
+        losses.append(float(m["loss"]))        # syncs the step
+        times.append(time.perf_counter() - t0)
+    launches = ops.launch_counts()
+    L = cfg.n_layers
+    for name, n in (("flash_fwd", 2 * L), ("flash_bwd_dq", L),
+                    ("flash_bwd_dkv", L)):
+        check(launches[name] == n * steps,
+              f"bert: {name} launched {launches[name]} times, expected "
+              f"{n * steps} ({n} per step)")
+    check(all(math.isfinite(x) for x in losses), f"bert: losses {losses}")
+    ln_v = math.log(cfg.vocab_size)
+    check(abs(losses[0] - ln_v) <= 1.5,
+          f"bert: step-1 loss {losses[0]} not within ln(V)={ln_v:.3f} "
+          f"+- 1.5")
+    check(losses[-1] < losses[0], f"bert: loss did not fall: {losses}")
+    unchanged = [n for n, p in model.named_parameters()
+                 if torch.equal(p.detach(), before[n])]
+    check(not unchanged, f"bert: parameters not updated: {unchanged}")
+    step_s = sum(times[1:]) / (steps - 1)      # step 1 warms up
+    return {"losses": losses, "step_ms": [t * 1e3 for t in times],
+            "mean_step_ms": step_s * 1e3,
+            "tokens_per_s": BERT_BATCH * BERT_SEQ / step_s,
+            "mfu": bert_train_flops(cfg, n_params) / step_s / BF16_FLOPS,
+            "base_gb": base_gb,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "grad_norm": float(m["grad_norm"]), "launches": launches}
+
+
+# -- phase 12: BERT flash vs dense MLM step in f32, with padding -------------
+
+
+def bert_parity_phase(device):
+    """One f32 MLM step (TF32 off) of a 2-layer BERT at BERT-base's
+    widths, seq 512, rows of 512, 377, 64 and 1 valid tokens
+    (``seq_lengths``; the loss weights zero the padding), with flash and
+    with dense attention from the same weights: loss, gradients and
+    updated parameters within 1e-5. lr 1e-5 with no warmup, as in phase
+    6."""
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.bert import BertConfig
+    from kubeflow_tpu_torch.train import (
+        create_bert_train_state,
+        global_norm,
+        make_optimizer,
+        masked_lm_loss,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = dict(n_layers=2, dtype="float32", remat=True)
+    cfg = BertConfig(**base)
+    params = convert.random_bert_params(cfg, SEED + 8)
+    lengths = [512, 377, 64, 1]
+    rng = np.random.default_rng(SEED + 9)
+    shape = (len(lengths), BERT_SEQ)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(
+        device)
+    live = np.arange(BERT_SEQ)[None, :] < np.array(lengths)[:, None]
+    w = (rng.random(shape) < 0.15) & live
+    w[:, 0] = True                    # every row has a weighted position
+    weights = torch.from_numpy(w.astype(np.float32)).to(device)
+    tokens = torch.where(weights > 0, 103, labels)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    res = {}
+    for impl in ("flash", "dense"):
+        state = create_bert_train_state(
+            BertConfig(**base, attention_impl=impl), params,
+            make_optimizer(1e-5, warmup_steps=0), device=device)
+        loss = masked_lm_loss(state.module(tokens, seq_lengths=lens),
+                              labels, weights)
+        grads = torch.autograd.grad(loss, state.params)
+        norm = global_norm(grads)
+        state.apply_gradients(grads, norm)
+        res[impl] = (loss.item(), norm.item(), grads,
+                     [p.detach() for p in state.params])
+    (lf, nf, gf, pf), (ld, nd, gd, pd) = res["flash"], res["dense"]
+    g_err = max((a - b).abs().max().item() for a, b in zip(gf, gd))
+    p_err = max((a - b).abs().max().item() for a, b in zip(pf, pd))
+    check(abs(lf - ld) <= 1e-5, f"bert parity: loss {lf} vs {ld}")
+    check(abs(nf - nd) <= 1e-5 * nd, f"bert parity: grad_norm {nf} vs {nd}")
+    check(g_err <= 1e-5, f"bert parity: gradients differ by {g_err}")
+    check(p_err <= 1e-5, f"bert parity: updated params differ by {p_err}")
+    return {"loss": (lf, ld), "grad_norm": (nf, nd), "grad_err": g_err,
+            "param_err": p_err}
+
+
+# -- phase 13: the BERT entry point, checkpoint/resume and the profiler ------
+
+
+def _bert_main(argv, env):
+    """``examples.bert.main(argv)`` with the env contract ``env`` set
+    around the call; returns its last loss."""
+    from kubeflow_tpu_torch.examples import bert as bert_example
+
+    keys = ("KFTPU_CHECKPOINT_DIR", "KFTPU_RESULTS_DIR", "KFTPU_JOB_NAME",
+            "KFTPU_PROFILE_DIR", "KFTPU_PROFILE_START",
+            "KFTPU_PROFILE_STEPS")
+    saved = {k: os.environ.pop(k, None) for k in keys}
+    os.environ.update(env)
+    try:
+        return bert_example.main(argv)
+    finally:
+        for k in keys:
+            os.environ.pop(k, None)
+            if saved[k] is not None:
+                os.environ[k] = saved[k]
+
+
+def _losses(results: str, job: str) -> dict:
+    with open(os.path.join(results, f"{job}.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return {r["step"]: r["loss"] for r in recs if "done" not in r}
+
+
+def bert_entry_phase(device):
+    """``python -m kubeflow_tpu_torch.examples.bert`` at its defaults
+    (BERT-base, batch 8, seq 128) on the card: 4 steps with a checkpoint
+    every 2 and the profiler on steps 1-2, a restart to 6 steps, and an
+    unbroken 6-step run. The restart resumes at step 4; a restore of the
+    step-4 checkpoint into a fresh state on the card equals the saved
+    tensors bit for bit; steps 5-6 take the unbroken run's losses within
+    1e-5 relative; the trace names the three flash kernels."""
+    import torch
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.bert import BertConfig
+    from kubeflow_tpu_torch.train import (
+        create_bert_train_state,
+        make_optimizer,
+    )
+    from kubeflow_tpu_torch.train.checkpoint import (
+        STATE_FILE,
+        CheckpointManager,
+    )
+
+    work = tempfile.mkdtemp(prefix="kftpu-bert-")
+    try:
+        ckpt, results = (os.path.join(work, d) for d in ("ckpt", "results"))
+        prof = os.path.join(work, "profile")
+        argv = ["--log-every", "1", "--checkpoint-every", "2"]
+        env = {"KFTPU_CHECKPOINT_DIR": ckpt, "KFTPU_RESULTS_DIR": results}
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        _bert_main(argv + ["--steps", "4"], dict(
+            env, KFTPU_JOB_NAME="first", KFTPU_PROFILE_DIR=prof,
+            KFTPU_PROFILE_START="1", KFTPU_PROFILE_STEPS="2"))
+        t_first = time.perf_counter() - t0
+        check(CheckpointManager(ckpt).all_steps() == [2, 4],
+              f"bert entry: checkpoints {os.listdir(ckpt)}")
+        resumed = _bert_main(argv + ["--steps", "6"],
+                             dict(env, KFTPU_JOB_NAME="restart"))
+        unbroken = _bert_main(
+            ["--log-every", "1", "--checkpoint-every", "100", "--steps",
+             "6"], {"KFTPU_CHECKPOINT_DIR": os.path.join(work, "ckpt2"),
+                    "KFTPU_RESULTS_DIR": results,
+                    "KFTPU_JOB_NAME": "unbroken"})
+        launches = ops.launch_counts()
+        first = _losses(results, "first")
+        restart = _losses(results, "restart")
+        want = _losses(results, "unbroken")
+        check(sorted(first) == [1, 2, 3, 4] and sorted(restart) == [5, 6],
+              f"bert entry: the restart did not resume at step 4 "
+              f"({sorted(first)}, {sorted(restart)})")
+        rel = {s: abs(restart[s] - want[s]) / abs(want[s]) for s in (5, 6)}
+        rel["6 unrounded"] = abs(resumed - unbroken) / abs(unbroken)
+        check(all(r <= 1e-5 for r in rel.values()),
+              f"bert entry: resumed losses {restart} ({resumed}) vs "
+              f"unbroken {want} ({unbroken})")
+        check(all(abs(first[s] - want[s]) <= 1e-5 * abs(want[s])
+                  for s in first),
+              f"bert entry: first run {first} vs unbroken {want}")
+        # the step-4 checkpoint restored into a fresh state on the card
+        cfg = BertConfig(max_seq_len=128)
+        state = create_bert_train_state(
+            cfg, convert.random_bert_params(cfg, 1),
+            make_optimizer(), device=device)
+        CheckpointManager(ckpt).restore(state, step=4)
+        saved = torch.load(os.path.join(ckpt, "4", STATE_FILE),
+                           map_location="cpu", weights_only=True)
+        pairs = [(t, saved["module"][k]) for k, t in
+                 state.module.state_dict().items()]
+        for key in ("mu", "nu"):
+            pairs += list(zip(state.opt_state[key], saved["opt_state"][key]))
+        differ = sum(not torch.equal(t.cpu(), s) for t, s in pairs)
+        check(differ == 0 and state.step == 4 and
+              state.opt_state["count"] == 4,
+              f"bert entry: {differ} of {len(pairs)} restored tensors "
+              f"differ from the saved ones")
+        # the last checkpoints of the resumed and the unbroken run
+        a = torch.load(os.path.join(ckpt, "6", STATE_FILE),
+                       weights_only=True)
+        b = torch.load(os.path.join(work, "ckpt2", "6", STATE_FILE),
+                       weights_only=True)
+        param_diff = max((a["module"][k] - b["module"][k]).abs().max().item()
+                         for k in a["module"])
+        traces = [os.path.join(prof, f) for f in os.listdir(prof)]
+        check(len(traces) == 1, f"bert entry: traces {traces}")
+        with open(traces[0]) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        kernels = {n: sorted(x for x in names if n in x)
+                   for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        check(all(kernels.values()),
+              f"bert entry: the trace lacks a flash kernel: {kernels}")
+        return {"first_losses": first, "restart_losses": restart,
+                "unbroken_losses": want, "rel_err": rel,
+                "param_diff": param_diff, "restored": len(pairs),
+                "trace_kernels": kernels, "launches": launches,
+                "trace_mb": os.path.getsize(traces[0]) / 1e6,
+                "first_run_s": t_first}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1875,12 +2271,19 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  [{name}] {line.strip()}", flush=True)
 
+    t0 = time.perf_counter()
     kernels = [check_paged_kernel(device),
                check_sampler_kernel(device, build_log=logs["fused_sample"]),
                *check_flash_kernels(device,
                                     build_log=logs["flash_attention"]),
                *check_bnconv_kernels(device, build_log=logs["bnconv"])]
-    print("phase 2 kernels vs plain: ok", flush=True)
+    bert_shape = check_flash_bert_shape(device)
+    for kern in kernels[2:5]:
+        kern["bert_shape"] = bert_shape[kern["name"]]
+        kern["max_abs_err"] = max(kern["max_abs_err"],
+                                  bert_shape[kern["name"]]["max_abs_err"])
+    print(f"phase 2 kernels vs plain: ok ({time.perf_counter() - t0:.1f}s)",
+          flush=True)
     torch.cuda.empty_cache()
 
     cfg = TransformerConfig(**BENCH, dtype="bfloat16")
@@ -1894,6 +2297,14 @@ def main() -> int:
 
 def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
     import torch
+
+    laps = [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        """Print the seconds since the last lap: one phase's time."""
+        laps.append(time.perf_counter())
+        print(f"phase {phase} seconds: {laps[-1] - laps[-2]:.1f}",
+              flush=True)
 
     t0 = time.perf_counter()
     write_export(base, cfg)
@@ -1911,9 +2322,11 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
           f"wall_s={serve['wall_s']:.3f} "
           f"ttft_ms_stream={[round(t * 1e3, 1) for t in ttft]} "
           f"launches={serve['launches']}", flush=True)
+    lap("3")
     streams = parity_phase(base, cfg, device)
     print(f"phase 4 f32 kernel == gather greedy streams "
           f"({len(streams)} x {len(streams[0])} tokens)", flush=True)
+    lap("4")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.empty_cache()
     train = train_phase(device)
@@ -1928,12 +2341,14 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
           f"mfu={train['mfu']:.4f} peak_gb={train['peak_gb']:.2f} "
           f"grad_norm={train['grad_norm']:.4f} "
           f"launches={train['launches']}", flush=True)
+    lap("5")
     torch.cuda.empty_cache()
     par = train_parity_phase(device)
     print(f"phase 6 f32 flash vs dense train step: loss {par['loss']} "
           f"grad_norm {par['grad_norm']} max grad err "
           f"{par['grad_err']:.2e} max param err {par['param_err']:.2e}",
           flush=True)
+    lap("6")
     torch.cuda.empty_cache()
     res = resnet_phase(device)
     for kern in kernels[5:]:
@@ -1955,6 +2370,7 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
           f"{unf['images_per_s']:.1f} mfu={unf['mfu']:.4f} peak_gb="
           f"{unf['peak_gb']:.2f}; fused/unfused images/s "
           f"{res['images_per_s'] / unf['images_per_s']:.4f}", flush=True)
+    lap("7")
     torch.cuda.empty_cache()
     rpar = resnet_parity_phase(device)
     print(f"phase 8 f32 fused vs unfused resnet train step: loss "
@@ -1962,6 +2378,7 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
           f"gradient's norm; limit {RESNET_PARITY_GRAD:.0e}) max "
           f"param err {rpar['param_err']:.2e} (limit "
           f"{RESNET_PARITY_PARAM:.0e})", flush=True)
+    lap("8")
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
     dense = dense_phase(device)
@@ -1983,10 +2400,57 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
               + (f"; a second burst's sampler calls token-identical to "
                  f"plain, by shape: {r['held']}" if "held" in r else ""),
               flush=True)
+    lap("9")
     streams = dense_parity_phase(base, cfg, device)
     print(f"phase 10 f32 greedy streams: dense (burst) == paged kernel == "
           f"unary generate == default ModelServer :generate "
           f"({len(streams)} x {len(streams[0])} tokens)", flush=True)
+    lap("10")
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bert = bert_phase(device)
+    for kern in kernels[2:5]:
+        n = bert["launches"][kern["name"]]
+        kern["launches_by_path"]["bert_train"] = n
+        kern["launches"] += n
+    print(f"phase 11 bert-base MLM train ({kind} | {ident}): vocab 30522, "
+          f"d_model 768, 12 layers, 12 heads, d_ff 3072, batch "
+          f"{BERT_BATCH}, seq {BERT_SEQ}, bf16/f32, remat, "
+          f"attention_impl=auto (flash): losses={bert['losses']} "
+          f"step_ms={bert['step_ms']} "
+          f"mean_step_ms={bert['mean_step_ms']:.1f} "
+          f"tokens_per_s={bert['tokens_per_s']:.1f} "
+          f"mfu={bert['mfu']:.4f} peak_gb={bert['peak_gb']:.2f} (of "
+          f"which {bert['base_gb']:.2f} allocated before the steps) "
+          f"grad_norm={bert['grad_norm']:.4f} "
+          f"launches={bert['launches']}", flush=True)
+    lap("11")
+    torch.cuda.empty_cache()
+    bpar = bert_parity_phase(device)
+    print(f"phase 12 f32 bert MLM step, flash vs dense, seq_lengths "
+          f"[512, 377, 64, 1]: loss {bpar['loss']} grad_norm "
+          f"{bpar['grad_norm']} max grad err {bpar['grad_err']:.2e} max "
+          f"param err {bpar['param_err']:.2e}", flush=True)
+    lap("12")
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    entry = bert_entry_phase(device)
+    for kern in kernels[2:5]:
+        n = entry["launches"][kern["name"]]
+        kern["launches_by_path"]["bert_entry"] = n
+        kern["launches"] += n
+    print(f"phase 13 examples.bert.main ({kind} | {ident}): BERT-base, "
+          f"batch 8, seq 128; 4 steps (checkpoints 2, 4; profiler steps "
+          f"1-2; {entry['first_run_s']:.1f}s), restart to 6, unbroken 6: "
+          f"losses first={entry['first_losses']} "
+          f"restart={entry['restart_losses']} "
+          f"unbroken={entry['unbroken_losses']} rel_err="
+          f"{entry['rel_err']}; restored {entry['restored']} tensors bit "
+          f"for bit; resumed vs unbroken step-6 params max diff "
+          f"{entry['param_diff']:.2e}; trace {entry['trace_mb']:.1f} MB "
+          f"names {entry['trace_kernels']}; launches={entry['launches']}",
+          flush=True)
+    lap("13")
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(ident)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,14 @@
-"""Models of the port: the decoder LM and the ResNet family."""
+"""Models of the port: the decoder LM, the BERT encoder and the ResNet
+family."""
 
+from kubeflow_tpu_torch.models.bert import (  # noqa: F401
+    Bert,
+    BertConfig,
+    bert_base,
+    bert_large,
+    bert_tiny,
+    mask_tokens,
+)
 from kubeflow_tpu_torch.models.resnet import (  # noqa: F401
     ResNet,
     ResNetConfig,

@@ -1,4 +1,4 @@
-"""Carry JAX ``Transformer`` and ``ResNet`` weights into the port's modules.
+"""Carry JAX ``Transformer``, ``Bert`` and ``ResNet`` weights into the port.
 
 A JAX param tree arrives as numpy: a nested dict (``jax.tree_util`` leaves
 through ``np.asarray``) or the flat ``/``-joined keys of a model-store
@@ -12,7 +12,9 @@ No transposes anywhere: the port keeps the reference's einsum layouts
 (``(D, H, Dh)``, ``(H, Dh, D)``, ``(D, F)``, ``(F, D)``, ``(V, D)``), so
 port parameter ``blocks.{i}.<path>`` is JAX leaf ``blocks/<path>[i]`` or
 ``block_{i}/<path>`` with dots for slashes, and top-level names map
-one for one.
+one for one. A JAX ``Bert`` is the same tree plus ``type_embed`` and
+``mlm_transform`` (:func:`bert_to_module`, :func:`bert_to_trainable`);
+:func:`bert_params` goes back, in either layer layout.
 
 A JAX ``ResNet`` arrives as its variables, ``{"params": ...,
 "batch_stats": ...}`` (nested or flat), in the fused (``bn2conv3``) or
@@ -30,6 +32,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.models.bert import Bert, BertConfig
 from kubeflow_tpu_torch.models.resnet import ResNet, ResNetConfig
 from kubeflow_tpu_torch.models.transformer import (
     Transformer,
@@ -59,22 +62,30 @@ def _as_tensor(x: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
-def _source_key(name: str, flat: Mapping[str, Any]):
-    """(JAX key, layer index or None) for one port parameter name."""
+def _jax_key(name: str, scan_layers: bool):
+    """(JAX key, layer index or None) of port parameter ``name`` in the
+    scanned (stacked ``blocks/...``) or unrolled layout."""
     parts = name.split(".")
     if parts[0] != "blocks":
         return "/".join(parts), None
     i, rest = int(parts[1]), "/".join(parts[2:])
-    unrolled = f"block_{i}/{rest}"
-    if unrolled in flat:
-        return unrolled, None
-    return f"blocks/{rest}", i
+    if scan_layers:
+        return f"blocks/{rest}", i
+    return f"block_{i}/{rest}", None
 
 
-def load_params(model: Transformer, params: Mapping[str, Any]) -> Transformer:
-    """Copy a JAX param tree (nested or flat, scanned or unrolled) into
-    ``model`` in place; every port parameter must be found, with its
-    exact shape. Returns ``model``."""
+def _source_key(name: str, flat: Mapping[str, Any]):
+    """(JAX key, layer index or None) for one port parameter name, in
+    the layout ``flat`` holds."""
+    unrolled = _jax_key(name, scan_layers=False)
+    return unrolled if unrolled[0] in flat else _jax_key(name, True)
+
+
+def load_params(model: torch.nn.Module,
+                params: Mapping[str, Any]) -> torch.nn.Module:
+    """Copy a JAX param tree (nested or flat, scanned or unrolled) into a
+    port ``Transformer`` or ``Bert`` in place; every port parameter must
+    be found, with its exact shape. Returns ``model``."""
     flat = flatten(params)
     used = set()
     with torch.no_grad():
@@ -117,41 +128,83 @@ def to_trainable(config: TransformerConfig, params: Mapping[str, Any], *,
     return model.to(resolve_device(device)).train()
 
 
+def _random_flat(model: torch.nn.Module, d_model: int, seed: int, *,
+                 scan_layers: bool) -> Dict[str, np.ndarray]:
+    """Random f32 weights for ``model`` (built on the meta device) in the
+    JAX package's flat layout, scanned or unrolled, from a numpy seed:
+    normal(0, d_model**-0.5) for every matrix (the reference's
+    initializer scale), ones for the norm scales. A stacked leaf is drawn
+    whole, at its first layer."""
+    rng = np.random.default_rng(seed)
+    std = np.float32(d_model ** -0.5)
+    L = len(model.blocks)
+    flat: Dict[str, np.ndarray] = {}
+    for name, p in model.named_parameters():
+        key, layer = _jax_key(name, scan_layers)
+        if key in flat:
+            continue
+        shape = (L,) + tuple(p.shape) if layer is not None else tuple(p.shape)
+        if name.endswith(".scale"):
+            flat[key] = np.ones(shape, np.float32)
+        else:
+            flat[key] = rng.standard_normal(shape, dtype=np.float32) * std
+    return flat
+
+
 def random_params(config: TransformerConfig, seed: int, *,
                   scan_layers: bool = True) -> Dict[str, np.ndarray]:
-    """Random f32 weights in the JAX package's flat layout, from a numpy
-    seed: normal(0, d_model**-0.5) for every matrix (the reference's
-    initializer scale), ones for the norm scales."""
-    c = config
-    rng = np.random.default_rng(seed)
-    D, F, H, KH, Dh = c.d_model, c.d_ff, c.n_heads, c.n_kv_heads, c.head_dim
-    std = D ** -0.5
+    """Random f32 ``Transformer`` weights (:func:`_random_flat`)."""
+    with torch.device("meta"):
+        model = Transformer(config)
+    return _random_flat(model, config.d_model, seed,
+                        scan_layers=scan_layers)
 
-    def normal(*shape):
-        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
 
-    layer_shapes = {
-        "attn/q_proj": (D, H, Dh), "attn/k_proj": (D, KH, Dh),
-        "attn/v_proj": (D, KH, Dh), "attn/o_proj": (H, Dh, D),
-        "mlp/gate_proj": (D, F), "mlp/up_proj": (D, F),
-        "mlp/down_proj": (F, D),
-    }
-    flat: Dict[str, np.ndarray] = {"token_embed": normal(c.vocab_size, D),
-                                   "final_norm/scale": np.ones(D, np.float32)}
-    L = c.n_layers
-    for key, shape in layer_shapes.items():
-        if scan_layers:
-            flat[f"blocks/{key}"] = normal(L, *shape)
+# -- BERT --------------------------------------------------------------------
+
+
+def bert_to_module(config: BertConfig, params: Mapping[str, Any], *,
+                   device) -> Bert:
+    """A loaded, frozen port ``Bert`` in eval mode on ``device``."""
+    model = load_params(Bert(config), params)
+    model = model.to(resolve_device(device)).eval()
+    model.requires_grad_(False)
+    return model
+
+
+def bert_to_trainable(config: BertConfig, params: Mapping[str, Any], *,
+                      device=None) -> Bert:
+    """A loaded port ``Bert`` on ``device`` (CUDA unless ``"cpu"`` is
+    asked for), in train mode with every parameter trainable."""
+    return load_params(Bert(config), params).to(
+        resolve_device(device)).train()
+
+
+def random_bert_params(config: BertConfig,
+                       seed: int) -> Dict[str, np.ndarray]:
+    """Random f32 ``Bert`` weights (:func:`_random_flat`) in the layout
+    ``config.scan_layers`` names."""
+    with torch.device("meta"):
+        model = Bert(config)
+    return _random_flat(model, config.d_model, seed,
+                        scan_layers=config.scan_layers)
+
+
+def bert_params(model: torch.nn.Module, *,
+               scan_layers: bool = True) -> Dict[str, Any]:
+    """A port ``Bert`` or ``Transformer``'s parameters as a nested
+    JAX-layout param tree of f32 numpy arrays (the inverse of
+    :func:`load_params`), in the scanned or the unrolled layout."""
+    flat: Dict[str, Any] = {}
+    for name, p in model.named_parameters():
+        key, layer = _jax_key(name, scan_layers)
+        arr = p.detach().float().cpu().numpy()
+        if layer is None:
+            flat[key] = np.array(arr)
         else:
-            for i in range(L):
-                flat[f"block_{i}/{key}"] = normal(*shape)
-    for norm in ("attn_norm/scale", "mlp_norm/scale"):
-        if scan_layers:
-            flat[f"blocks/{norm}"] = np.ones((L, D), np.float32)
-        else:
-            for i in range(L):
-                flat[f"block_{i}/{norm}"] = np.ones(D, np.float32)
-    return flat
+            flat.setdefault(key, []).append(arr)
+    return unflatten({k: np.stack(v) if isinstance(v, list) else v
+                      for k, v in flat.items()})
 
 
 # -- ResNet ------------------------------------------------------------------

@@ -24,6 +24,9 @@ kernels through :func:`~kubeflow_tpu_torch.ops.attention.flash_attention`
 dense elsewhere, as the reference picks flash on the TPU and dense
 elsewhere. ``remat=True`` recomputes each block in the backward
 (``torch.utils.checkpoint``, the reference's ``nn.remat(Block)``).
+:func:`run_blocks` runs a block stack for training; it carries the
+per-row ``kv_len`` padding mask of the BERT encoder (``models/bert.py``)
+to the dense and flash cores, and any other core refuses it.
 
 Decode mode takes a cache in :meth:`Transformer.forward`; its type
 picks the reference's attention core, and the cache is updated IN PLACE
@@ -315,7 +318,11 @@ class Attention(nn.Module):
         return (x @ w.reshape(D, -1)).reshape(B, S, w.shape[1], w.shape[2])
 
     def forward(self, x, sin, cos, kv=None,
-                step: Optional[_DecodeStep] = None):
+                step: Optional[_DecodeStep] = None,
+                kv_len: Optional[torch.Tensor] = None):
+        """``kv_len`` (training forward only) is the per-row valid-length
+        padding mask, ``(B,)`` int32 on x's device: keys at or past a
+        row's length are masked in every attention."""
         c = self.c
         q = self._proj(x, self.q_proj)
         k = self._proj(x, self.k_proj)
@@ -328,15 +335,20 @@ class Attention(nn.Module):
             impl = c.attention_impl
             if impl == "auto":
                 impl = "flash" if x.device.type == "cuda" else "dense"
+            if kv_len is not None and impl not in ("dense", "flash"):
+                raise ValueError(
+                    f"kv_len padding mask is not supported by "
+                    f"attention_impl={impl!r} (dense and flash only)")
             if impl not in ("dense", "flash"):
                 raise _not_ported(f"attention_impl={impl!r}")
             q = apply_rope(q, sin, cos)
             k = apply_rope(k, sin, cos)
             k, v = gqa_repeat(q, k, v)
             if impl == "flash":
-                out = flash_attention(q, k, v, c.causal)
+                out = flash_attention(q, k, v, c.causal, kv_len=kv_len)
             else:
-                out = reference_attention(q, k, v, causal=c.causal)
+                out = reference_attention(q, k, v, causal=c.causal,
+                                          kv_len=kv_len)
         B, S = out.shape[:2]
         wo = _compute(self.o_proj, c.dtype)
         return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
@@ -420,9 +432,25 @@ class Block(nn.Module):
         self.mlp_norm = RMSNorm(c.d_model, param_dtype=c.param_dtype)
         self.mlp = Mlp(c)
 
-    def forward(self, x, sin, cos, kv=None, step=None):
-        x = x + self.attn(self.attn_norm(x), sin, cos, kv, step)
+    def forward(self, x, sin, cos, kv=None, step=None, kv_len=None):
+        x = x + self.attn(self.attn_norm(x), sin, cos, kv, step, kv_len)
         return x + self.mlp(self.mlp_norm(x))
+
+
+def run_blocks(blocks, x, sin, cos, *, remat: bool,
+               kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The training forward of a block stack (the reference's scanned or
+    unrolled ``Block`` over ``aux = (sin, cos[, kv_len])``); with
+    ``remat`` and autograd on, each block is recomputed in the backward
+    (``torch.utils.checkpoint``, the mask passed through)."""
+    remat = remat and torch.is_grad_enabled()
+    for blk in blocks:
+        if remat:
+            x = checkpoint(blk, x, sin, cos, kv_len=kv_len,
+                           use_reentrant=False)
+        else:
+            x = blk(x, sin, cos, kv_len=kv_len)
+    return x
 
 
 class Transformer(nn.Module):
@@ -520,12 +548,7 @@ class Transformer(nn.Module):
         x = embed[tokens.long()]
         if cache is None:
             sin, cos = self._tables(S, dev)
-            remat = c.remat and torch.is_grad_enabled()
-            for blk in self.blocks:
-                if remat:
-                    x = checkpoint(blk, x, sin, cos, use_reentrant=False)
-                else:
-                    x = blk(x, sin, cos)
+            x = run_blocks(self.blocks, x, sin, cos, remat=c.remat)
         elif isinstance(cache, DenseKVCache):
             step = self._dense_step(cache, S, dev)
             for i, blk in enumerate(self.blocks):

@@ -1,17 +1,21 @@
-"""Training of the port: the LM and image (ResNet) train steps."""
+"""Training of the port: the LM, MLM (BERT) and image (ResNet) train steps,
+and checkpoints."""
 
 from kubeflow_tpu_torch.train.trainer import (  # noqa: F401
     Optimizer,
     Sgd,
     TrainState,
     chunked_next_token_loss,
+    create_bert_train_state,
     create_image_train_state,
     create_train_state,
     global_norm,
     make_image_train_step,
     make_lm_train_step,
+    make_mlm_train_step,
     make_optimizer,
     make_sgd,
+    masked_lm_loss,
     next_token_loss,
     softmax_cross_entropy,
 )

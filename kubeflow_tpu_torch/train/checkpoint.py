@@ -1,0 +1,202 @@
+"""Checkpoint and resume of a train state.
+
+PyTorch port of ``kubeflow_tpu/train/checkpoint.py``, whose policy it
+keeps: step-numbered directories ``<dir>/<step>/``, keep-N retention,
+resume from the latest step, an asynchronous save, and a missing
+explicit step that raises instead of restoring another.
+
+A state is a :class:`~kubeflow_tpu_torch.train.trainer.TrainState` (the
+module's parameters and buffers, the optimizer state — AdamW's ``mu``,
+``nu`` and ``count``, or SGD's ``trace`` — and the step) or a nested
+dict/list of tensors and numbers. ``save`` copies every tensor to the
+host before it returns, so the training loop may update the state in
+place at once; a thread then writes the copy with ``torch.save`` into
+``<dir>/.tmp-<step>-<pid>/`` and renames it to ``<dir>/<step>/`` when
+the file is complete (orbax finalises the same way), so a crash mid-save
+never leaves a directory that reads as a step. ``restore`` reads the
+file back with ``torch.load(weights_only=True)`` (no pickle) and copies
+each tensor into the given state's tensor, on its device, bit for bit.
+
+The step list is read from the directory on every call: a manager sees
+steps that another process wrote.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import shutil
+import threading
+from typing import Any, List, Optional, Tuple
+
+import torch
+
+log = logging.getLogger(__name__)
+
+STATE_FILE = "state.pt"
+
+
+def _tree(state: Any) -> Any:
+    """The saved structure of ``state``: a train state as ``{"module",
+    "opt_state", "step"}``, any other tree as it is."""
+    from kubeflow_tpu_torch.train.trainer import TrainState
+
+    if isinstance(state, TrainState):
+        return {"module": dict(state.module.state_dict(keep_vars=True)),
+                "opt_state": state.opt_state, "step": state.step}
+    return state
+
+
+def _to_host(tree: Any) -> Any:
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_host(v) for v in tree]
+    if isinstance(tree, (bool, int, float)) or tree is None:
+        return tree
+    raise TypeError(f"cannot checkpoint a {type(tree).__name__}")
+
+
+def _load_into(target: Any, saved: Any, path: str) -> Any:
+    """``saved`` copied into ``target``'s tensors in place; returns the
+    tree with its numbers replaced by the saved ones."""
+    if isinstance(target, torch.Tensor):
+        if not isinstance(saved, torch.Tensor) or (
+                saved.shape != target.shape or saved.dtype != target.dtype):
+            raise ValueError(f"checkpoint {path}: {_describe(saved)} does "
+                             f"not fit {_describe(target)}")
+        with torch.no_grad():
+            target.copy_(saved)
+        return target
+    if isinstance(target, dict):
+        if not isinstance(saved, dict) or set(saved) != set(target):
+            raise ValueError(f"checkpoint {path}: keys differ")
+        for k in target:
+            target[k] = _load_into(target[k], saved[k], f"{path}/{k}")
+        return target
+    if isinstance(target, (list, tuple)):
+        if not isinstance(saved, list) or len(saved) != len(target):
+            raise ValueError(f"checkpoint {path}: lengths differ")
+        out = [_load_into(t, v, f"{path}/{i}")
+               for i, (t, v) in enumerate(zip(target, saved))]
+        if isinstance(target, list):
+            target[:] = out
+            return target
+        return tuple(out)
+    return saved
+
+
+def _describe(x: Any) -> str:
+    if isinstance(x, torch.Tensor):
+        return f"{tuple(x.shape)} {x.dtype}"
+    return type(x).__name__
+
+
+class CheckpointManager:
+    """Save and restore train states under ``<dir>/<step>/``."""
+
+    def __init__(self, directory: str, *, keep: int = 3) -> None:
+        if keep < 1:
+            raise ValueError("keep must be >= 1")
+        self.directory = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, step: int, state: Any, *, wait: bool = False) -> None:
+        """Copy ``state`` to the host now and write it in the background;
+        ``wait`` blocks until it is on disk (end of training, tests).
+        A save waits for the one before it."""
+        self.wait()
+        snapshot = _to_host(_tree(state))
+        self._writer = threading.Thread(
+            target=self._write, args=(int(step), snapshot),
+            name=f"checkpoint-{step}", daemon=True)
+        self._writer.start()
+        if wait:
+            self.wait()
+
+    def _write(self, step: int, snapshot: Any) -> None:
+        tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
+        final = os.path.join(self.directory, str(step))
+        try:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save(snapshot, os.path.join(tmp, STATE_FILE))
+            if os.path.isdir(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)
+            for old in self.all_steps()[:-self.keep]:
+                shutil.rmtree(os.path.join(self.directory, str(old)),
+                              ignore_errors=True)
+        except Exception as e:  # noqa: BLE001 — raised again by wait()
+            self._error = e
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def wait(self) -> None:
+        """Block until the save in flight is on disk; raise its error."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError(f"checkpoint save under {self.directory} "
+                               f"failed") from err
+
+    def all_steps(self) -> List[int]:
+        """Every step with a complete checkpoint, ascending."""
+        try:
+            names = os.listdir(self.directory)
+        except FileNotFoundError:
+            return []
+        return sorted(int(n) for n in names if n.isdigit() and
+                      os.path.isfile(os.path.join(self.directory, n,
+                                                  STATE_FILE)))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def reload(self) -> None:
+        """The reference's refresh of a cached step list: here every call
+        reads the directory, so there is nothing to refresh."""
+
+    def restore(self, state: Any, step: Optional[int] = None) -> Any:
+        """Copy the checkpoint of ``step`` (default: the latest) into
+        ``state`` in place and return it. A missing explicit step raises
+        ``FileNotFoundError`` naming the steps there are."""
+        if step is None:
+            step = self.latest_step()
+            if step is None:
+                raise FileNotFoundError(
+                    f"no checkpoint under {self.directory}")
+        elif step not in self.all_steps():
+            raise FileNotFoundError(
+                f"no checkpoint for step {step} under {self.directory} "
+                f"(have {self.all_steps()})")
+        saved = torch.load(
+            os.path.join(self.directory, str(step), STATE_FILE),
+            map_location="cpu", weights_only=True)
+        tree = _tree(state)
+        loaded = _load_into(tree, saved, str(step))
+        if tree is not state:          # a train state
+            state.opt_state = loaded["opt_state"]
+            state.step = loaded["step"]
+            return state
+        return loaded
+
+    def restore_or_init(self, state: Any) -> Tuple[Any, int]:
+        """Resume from the latest checkpoint, else keep the fresh state.
+        Returns ``(state, start_step)``: the same code runs on the first
+        start and on every resume."""
+        step = self.latest_step()
+        if step is None:
+            return state, 0
+        log.info("resuming from %s step %d", self.directory, step)
+        return self.restore(state, step), step
+
+    def close(self) -> None:
+        self.wait()

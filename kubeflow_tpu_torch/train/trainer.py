@@ -1,9 +1,10 @@
-"""Training: optimizers, train state, losses, the LM and image train steps.
+"""Training: optimizers, train state, losses, the LM, MLM and image steps.
 
 PyTorch port of ``kubeflow_tpu/train/trainer.py``: ``make_optimizer``
 (:73-92), ``next_token_loss`` (:118-123), ``softmax_cross_entropy``
 (:126-129), ``chunked_next_token_loss`` (:132-172),
-``make_lm_train_step`` (:175-236) and ``make_image_train_step``
+``make_lm_train_step`` (:175-236), ``masked_lm_loss`` (:248-254),
+``make_mlm_train_step`` (:257-291) and ``make_image_train_step``
 (:338-382), with ``optax.sgd`` as :class:`Sgd`. Steps run eagerly on the
 device of the state's parameters; there is no mesh yet (data parallelism
 is ROADMAP Queue A).
@@ -197,6 +198,17 @@ def create_train_state(config, params: Mapping[str, Any], tx: Optimizer, *,
     return TrainState.create(model, tx)
 
 
+def create_bert_train_state(config, params: Mapping[str, Any],
+                            tx: Optimizer, *, device=None) -> TrainState:
+    """A :class:`TrainState` over a trainable port ``Bert`` loaded from a
+    JAX-layout param tree, on ``device`` (CUDA unless ``"cpu"`` is asked
+    for)."""
+    from kubeflow_tpu_torch.models import convert
+
+    return TrainState.create(
+        convert.bert_to_trainable(config, params, device=device), tx)
+
+
 def create_image_train_state(config, variables: Mapping[str, Any], tx, *,
                              device=None) -> TrainState:
     """A :class:`TrainState` over a trainable port ``ResNet`` loaded from
@@ -289,6 +301,40 @@ def make_lm_train_step(*, moe_aux_weight: float = 0.01,
                                            softcap=logits_softcap)
         else:
             loss = next_token_loss(out, tokens)
+        grads = torch.autograd.grad(loss, params)
+        grad_norm = global_norm(grads)
+        state.apply_gradients(grads, grad_norm)
+        return state, {"loss": loss.detach(), "grad_norm": grad_norm,
+                       "step": state.step}
+
+    return step
+
+
+def masked_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+                   weights: torch.Tensor) -> torch.Tensor:
+    """The MLM objective: cross-entropy at the weighted positions, over
+    ``max(sum(weights), 1)``."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return -(ll * weights).sum() / weights.sum().clamp_min(1.0)
+
+
+def make_mlm_train_step():
+    """The masked-LM train step: ``step(state, tokens, labels, weights)
+    -> (state, metrics)``. ``tokens`` are the corrupted inputs,
+    ``labels`` the originals and ``weights`` mark the masked positions;
+    all go to the device of the state's parameters. ``metrics`` holds
+    ``loss``, ``grad_norm`` (of the raw gradients) and ``step``, as in
+    :func:`make_lm_train_step`."""
+
+    def step(state: TrainState, tokens, labels, weights
+             ) -> Tuple[TrainState, Dict[str, Any]]:
+        dev = state.device
+        tokens = torch.as_tensor(tokens, device=dev)
+        labels = torch.as_tensor(labels, device=dev)
+        weights = torch.as_tensor(weights, device=dev, dtype=torch.float32)
+        params = state.params
+        loss = masked_lm_loss(state.module(tokens), labels, weights)
         grads = torch.autograd.grad(loss, params)
         grad_norm = global_norm(grads)
         state.apply_gradients(grads, grad_norm)

@@ -6,16 +6,18 @@ Builds the long-context training configuration of ``chip_smoke.py``
 layers, 16 heads, seq 8192, batch 2, bf16 compute over f32 params,
 flash attention with remat; random weights from a numpy seed), takes two
 warm-up steps of ``make_lm_train_step``, and profiles the next step with
-``torch.profiler``. Prints, and writes to
-``chiprun_out/port_train_profile.json``:
+``torch.profiler``. With ``--bert`` it builds phase 11's BERT-base
+configuration instead (``bench/suite.py:bench_bert``: batch 16, seq 512,
+the flash kernels non-causal) and profiles ``make_mlm_train_step``.
+Prints, and writes to ``chiprun_out/port_train_profile[_bert].json``:
 
-- step wall time, tokens/s and MFU (``bench_longcontext``'s flop count
-  over 989 TFLOP/s, bf16 dense);
+- step wall time, tokens/s and MFU (the bench's flop count over 989
+  TFLOP/s, bf16 dense);
 - device busy time (sum of kernel time) and the idle share of the wall;
 - device time by class (the three flash kernels, GEMMs, everything
   else) and by kernel name (top 15), and the flash kernels' launches.
 
-Usage: ``python3 scripts/port_train_profile.py`` (needs CUDA).
+Usage: ``python3 scripts/port_train_profile.py [--bert]`` (needs CUDA).
 """
 
 from __future__ import annotations
@@ -52,25 +54,36 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs CUDA", file=sys.stderr)
         return 1
-    from chip_smoke import BF16_FLOPS, TRAIN_BATCH, train_flops, train_setup
+    import chip_smoke as cs
     from kubeflow_tpu_torch import ops
-    from kubeflow_tpu_torch.train import make_lm_train_step
+    from kubeflow_tpu_torch.train import (
+        make_lm_train_step,
+        make_mlm_train_step,
+    )
 
     ident = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip()
-    cfg, state, tokens = train_setup(torch.device("cuda", 0))
-    S = cfg.max_seq_len
-    step = make_lm_train_step()
+    device = torch.device("cuda", 0)
+    bert = "--bert" in sys.argv[1:]
+    if bert:
+        cfg, state, batch = cs.bert_setup(device)
+        tokens_per_step = cs.BERT_BATCH * cs.BERT_SEQ
+        step, flops = make_mlm_train_step(), cs.bert_train_flops
+    else:
+        cfg, state, tokens = cs.train_setup(device)
+        batch = (tokens,)
+        tokens_per_step = cs.TRAIN_BATCH * cfg.max_seq_len
+        step, flops = make_lm_train_step(), cs.train_flops
     for _ in range(2):                          # warm-up
-        state, m = step(state, tokens)
+        state, m = step(state, *batch)
     float(m["loss"])
     ops.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, m = step(state, tokens)
+        state, m = step(state, *batch)
         float(m["loss"])
         wall = time.perf_counter() - t0
     by_name = {}
@@ -86,9 +99,10 @@ def main() -> int:
         cls = kernel_class(name)
         by_class[cls] = by_class.get(cls, 0.0) + ms
     n_params = sum(p.numel() for p in state.params)
-    out = {"device": ident, "step_wall_ms": wall * 1e3,
-           "tokens_per_s": TRAIN_BATCH * S / wall,
-           "mfu": train_flops(cfg, n_params) / wall / BF16_FLOPS,
+    out = {"device": ident, "config": "bert" if bert else "lm",
+           "step_wall_ms": wall * 1e3,
+           "tokens_per_s": tokens_per_step / wall,
+           "mfu": flops(cfg, n_params) / wall / cs.BF16_FLOPS,
            "loss": float(m["loss"]),
            "device_busy_ms": busy,
            "device_idle_share": max(0.0, 1 - busy / (wall * 1e3)),
@@ -101,7 +115,8 @@ def main() -> int:
                                     key=lambda kv: -kv[1])[:15]}
     print(json.dumps(out, indent=1))
     os.makedirs("chiprun_out", exist_ok=True)
-    with open("chiprun_out/port_train_profile.json", "w") as f:
+    name = "port_train_profile_bert" if bert else "port_train_profile"
+    with open(f"chiprun_out/{name}.json", "w") as f:
         json.dump(out, f, indent=1)
     return 0
 

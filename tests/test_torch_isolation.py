@@ -3,8 +3,9 @@
 - importing ``kubeflow_tpu_torch`` and every submodule, in a fresh
   interpreter, loads no ``jax*``/``flax*``/``kubeflow_tpu.*`` module;
 - an AST scan of the package and ``chip_smoke.py`` finds no such import;
-- the entry points refuse to run without CUDA unless ``device="cpu"``
-  is passed explicitly.
+- the entry points (serving, the train states, the BERT entry point and
+  its launcher) refuse to run without CUDA unless ``device="cpu"`` is
+  passed explicitly.
 """
 
 import ast
@@ -112,6 +113,45 @@ def test_entry_points_need_cuda_unless_cpu_is_explicit(tmp_path):
     state = create_image_train_state(rcfg, variables, make_sgd(0.1),
                                      device="cpu")
     assert state.device.type == "cpu" and state.batch_stats
+
+
+def test_bert_entry_points_need_cuda_unless_cpu_is_explicit(
+        tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is usable")
+    from kubeflow_tpu_torch.examples import bert as bert_example
+    from kubeflow_tpu_torch.examples.common import launcher_init
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.bert import bert_tiny
+    from kubeflow_tpu_torch.train import (
+        create_bert_train_state,
+        make_optimizer,
+    )
+
+    cfg = bert_tiny()
+    params = convert.random_bert_params(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.bert_to_trainable(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.bert_to_module(cfg, params, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_bert_train_state(cfg, params, make_optimizer())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launcher_init()
+    monkeypatch.setenv("KFTPU_CHECKPOINT_DIR", str(tmp_path / "ckpt"))
+    tiny = ["--steps", "1", "--vocab-size", "64", "--d-model", "32",
+            "--n-layers", "1", "--n-heads", "2", "--d-ff", "32",
+            "--seq-len", "8", "--per-device-batch", "1"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bert_example.main(tiny)
+    assert not (tmp_path / "ckpt").exists()
+    # the explicit CPU opt-in works
+    assert launcher_init(device="cpu")[1].type == "cpu"
+    state = create_bert_train_state(cfg, params, make_optimizer(),
+                                    device="cpu")
+    assert state.device.type == "cpu"
+    loss = bert_example.main(tiny + ["--device", "cpu"])
+    assert loss == loss and (tmp_path / "ckpt" / "1").is_dir()
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
