@@ -40,9 +40,14 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
    token streams;
 5. train the long-context LM (the same width, seq 8192, batch 2, bf16
    compute over f32 params, flash attention, remat) for 4 steps of
-   ``make_lm_train_step`` and require the three flash kernels to have
-   launched (forward 16 per step with remat, dQ 8, dK/dV 8), a finite
-   loss near ln(32000) that falls, and every parameter updated;
+   ``make_lm_train_step`` through the step telemetry
+   (``make_step_telemetry(sync=True)``) and require the three flash
+   kernels to have launched (forward 16 per step with remat, dQ 8,
+   dK/dV 8), a finite loss near ln(32000) that falls, every parameter
+   updated, and the telemetry's median step (of steps 2-4) within 10%
+   of the phase's own
+   (it also prints the telemetry's tokens/s, MFU from the FLOP probe,
+   recompiles and the HBM sampler's peak);
 6. one f32 train step (TF32 off) of a 2-layer model at seq 512 with
    flash and with dense attention from the same weights: loss,
    gradients and updated parameters within 1e-5;
@@ -94,7 +99,21 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
     restart to 6 steps, and an unbroken 6-step run; the restart resumes
     at step 4, the step-4 checkpoint restores into a fresh state bit for
     bit, steps 5-6 take the unbroken run's losses within 1e-5 relative,
-    and the trace names the three flash kernels.
+    and the trace names the three flash kernels;
+14. ``examples.lm.main`` at its defaults (d_model 768, 12 layers, vocab
+    32000, seq 512, batch 8, dense attention): 6 steps with a
+    checkpoint every 3, a 16-token sample, the export and a 2-layer
+    draft distilled 20 steps and exported with ``draft_of: lm@1``; a
+    restart at 6 that trains nothing and still exports; and 3 steps
+    restarted to 6, whose steps 4-6 take the 6-step run's losses within
+    1e-5 relative; losses within 1.0 of ln(32000);
+15. the same entry point with ``--n-experts 8`` (top-2, dense dispatch)
+    for 4 steps: finite losses, a nonzero auxiliary loss, and a gradient
+    on the router and every expert's weights in every layer;
+16. a ``ModelServer`` over phase 14's store pairs the draft: 4 prompts
+    of 32 tokens, 64 new, greedy, with ``speculative: true, draft_len:
+    4`` and without; at f32 (TF32 off) token-identical, with the round
+    stats and the four speculative counters; at bf16 timed.
 
 Each phase prints its seconds. Phase 2 also holds the bnconv forward and
 dW kernels, and the autograd function's four gradients, against their
@@ -116,7 +135,9 @@ In the record, a kernel's ``launches`` sums the paths that run it and
 ``launches_by_path`` gives each path's own count (zeroed just before
 that path, read just after): ``paged_serving`` and ``dense_serving``
 (rows 1-2), ``lm_train``, ``bert_train`` and ``bert_entry`` (rows 3-5),
-``resnet_train`` (rows 6-7).
+``resnet_train`` (rows 6-7), and on every row ``lm_entry``,
+``moe_train`` and ``spec_serving`` (phases 14-16: the reference's dense,
+greedy defaults launch none of the kernels, which those phases require).
 """
 
 from __future__ import annotations
@@ -125,6 +146,7 @@ import json
 import os
 import queue
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1286,12 +1308,16 @@ def train_flops(cfg, n_params: int) -> int:
 
 
 def train_phase(device, *, steps=TRAIN_STEPS):
-    """The slice's configuration: 4 steps on one fixed numpy batch."""
+    """The slice's configuration: 4 steps on one fixed numpy batch,
+    through the step telemetry (``make_step_telemetry(sync=True)``: the
+    card synchronized before each step's end, the first step under the
+    FLOP counter, the HBM sampler after each step)."""
     import math
 
     import torch
 
     from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.examples.common import make_step_telemetry
     from kubeflow_tpu_torch.train import make_lm_train_step
 
     t0 = time.perf_counter()
@@ -1302,7 +1328,8 @@ def train_phase(device, *, steps=TRAIN_STEPS):
     n_params = sum(p.numel() for p in before.values())
     print(f"train state built: {time.perf_counter() - t0:.1f}s, "
           f"{n_params} params", flush=True)
-    step = make_lm_train_step()
+    telem = make_step_telemetry(tokens_per_step=TRAIN_BATCH * S, sync=True)
+    step = telem.wrap(make_lm_train_step())
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     losses, times = [], []
@@ -1312,6 +1339,20 @@ def train_phase(device, *, steps=TRAIN_STEPS):
         losses.append(float(m["loss"]))        # syncs the step
         times.append(time.perf_counter() - t0)
     launches = ops.launch_counts()
+    summary = telem.summary()
+    telem_s = [r.duration for r in telem.recorder.records()]
+    # the median of steps 2.. (step 1 is the FLOP probe and warms up):
+    # the phase's own times also hold the telemetry's bookkeeping and
+    # whatever the interpreter does around it (a garbage collection)
+    own_med = statistics.median(times[1:])
+    telem_med = statistics.median(telem_s[1:])
+    check(abs(telem_med - own_med) <= 0.1 * own_med,
+          f"train: telemetry steps {telem_s} s vs the phase's own "
+          f"{times} s")
+    check(summary["recompiles"] == 0 and telem.flops_per_step,
+          f"train: telemetry {summary}, flops {telem.flops_per_step}")
+    hbm = telem.hbm_sampler.beacon_fields()
+    check(hbm.get("peakBytes", 0) > 0, f"train: no HBM sample ({hbm})")
     per_step = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
                 "flash_bwd_dkv": cfg.n_layers}
     for name, n in per_step.items():
@@ -1335,7 +1376,13 @@ def train_phase(device, *, steps=TRAIN_STEPS):
             "mfu": train_flops(cfg, n_params) / step_s / BF16_FLOPS,
             "launches": launches,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "grad_norm": float(m["grad_norm"])}
+            "grad_norm": float(m["grad_norm"]),
+            "telemetry": dict(summary, own_median_step_s=own_med,
+                              median_step_s=telem_med, step_s=telem_s,
+                              own_step_s=times,
+                              tokens_per_s=telem._rates()["tokens_per_sec"],
+                              flops_per_step=telem.flops_per_step,
+                              hbm_peak_gb=hbm["peakBytes"] / 1e9)}
 
 
 # -- phase 6: flash vs dense training parity in f32 -------------------------
@@ -2246,6 +2293,348 @@ def bert_entry_phase(device):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# -- phase 14: the LM entry point at its defaults ----------------------------
+
+
+def _reset_peak(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb(device) -> float:
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return 0.0
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _lm_main(argv, env):
+    """``examples.lm.main(argv)`` with the env contract ``env`` set
+    around the call; returns its last loss."""
+    from kubeflow_tpu_torch.examples import lm as lm_example
+
+    keys = ("KFTPU_CHECKPOINT_DIR", "KFTPU_RESULTS_DIR", "KFTPU_JOB_NAME",
+            "KFTPU_PROFILE_DIR")
+    saved = {k: os.environ.pop(k, None) for k in keys}
+    os.environ.update(env)
+    try:
+        return lm_example.main(argv)
+    finally:
+        for k in keys:
+            os.environ.pop(k, None)
+            if saved[k] is not None:
+                os.environ[k] = saved[k]
+
+
+def _records(results: str, job: str) -> list:
+    with open(os.path.join(results, f"{job}.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def lm_entry_phase(device, store: str, *, size=(), vocab=32000):
+    """``python -m kubeflow_tpu_torch.examples.lm`` at its defaults (d
+    768, 12 layers, 12 heads, d_ff 3072, vocab 32000, seq 512, batch 8;
+    dense attention, bf16 over f32 params, remat) on the card:
+
+    - 6 steps with a checkpoint every 3, a 16-token sample, the export
+      to ``<store>/lm`` and a 2-layer draft distilled 20 steps and
+      exported as ``<store>/lm-draft`` (``draft_of: lm@1``);
+    - a restart at ``--steps 6``: it trains nothing and still exports;
+    - 3 steps, restarted to 6: steps 4-6 take the 6-step run's losses
+      within 1e-5 relative.
+
+    Losses finite and within 1.0 of ln(32000); the sample 16 ids in
+    range. ``size`` (extra flags) and ``vocab`` shrink the run for a
+    rehearsal on the CPU. Returns the numbers phase 14 prints."""
+    import math
+
+    import yaml
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.serving.model_store import MODEL_FILE
+
+    work = tempfile.mkdtemp(prefix="kftpu-lm-")
+    try:
+        results = os.path.join(work, "results")
+        ckpt_a, ckpt_b = (os.path.join(work, d) for d in ("a", "b"))
+        _reset_peak(device)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        flags = ["--device", str(device), *size]
+        _lm_main(flags + ["--steps", "6", "--checkpoint-every", "3",
+                  "--log-every", "1", "--generate", "16", "--export",
+                  os.path.join(store, "lm"), "--draft-layers", "2",
+                  "--draft-distill-steps", "20"],
+                 {"KFTPU_CHECKPOINT_DIR": ckpt_a,
+                  "KFTPU_RESULTS_DIR": results, "KFTPU_JOB_NAME": "a"})
+        t_full = time.perf_counter() - t0
+        peak_gb = _peak_gb(device)
+        launches = ops.launch_counts()
+        check(not any(launches.values()),
+              f"lm entry: kernels launched on the dense default path: "
+              f"{launches}")
+        recs = _records(results, "a")
+        losses = {r["step"]: r["loss"] for r in recs if "loss" in r}
+        ln_v = math.log(vocab)
+        check(sorted(losses) == [1, 2, 3, 4, 5, 6] and all(
+            math.isfinite(x) and abs(x - ln_v) <= 1.0
+            for x in losses.values()),
+            f"lm entry: losses {losses} (ln V = {ln_v:.4f})")
+        sample = next(r["sample_tokens"] for r in recs
+                      if "sample_tokens" in r)
+        check(len(sample) == 16 and all(0 <= t < vocab for t in sample),
+              f"lm entry: sample {sample}")
+        with open(os.path.join(store, "lm-draft", "1", MODEL_FILE)) as f:
+            meta = yaml.safe_load(f)
+        check(meta.get("draft_of") == "lm@1"
+              and meta["config"]["n_layers"] == 2
+              and os.path.isfile(os.path.join(store, "lm", "1",
+                                              MODEL_FILE)),
+              f"lm entry: exports {os.listdir(store)}, draft meta {meta}")
+        draft_loss = next(r["draft_distill_loss"] for r in recs
+                          if "draft_distill_loss" in r)
+        last = next(r for r in reversed(recs) if "loss" in r)
+        # the restart after the last checkpoint: no step, still exports
+        again = os.path.join(work, "again", "lm")
+        _lm_main(flags + ["--steps", "6", "--export", again],
+                 {"KFTPU_CHECKPOINT_DIR": ckpt_a,
+                  "KFTPU_RESULTS_DIR": results,
+                  "KFTPU_JOB_NAME": "a-done"})
+        done = _records(results, "a-done")
+        check(done[0].get("done") and done[0]["step"] == 6
+              and not any("loss" in r for r in done)
+              and done[-1].get("exported") == os.path.join(again, "1"),
+              f"lm entry: the done restart logged {done}")
+        # 3 steps, then a restart to 6, against the 6-step run
+        argv = flags + ["--log-every", "1", "--checkpoint-every", "3"]
+        env = {"KFTPU_CHECKPOINT_DIR": ckpt_b, "KFTPU_RESULTS_DIR": results}
+        _lm_main(argv + ["--steps", "3"], dict(env, KFTPU_JOB_NAME="b"))
+        _lm_main(argv + ["--steps", "6"], dict(env, KFTPU_JOB_NAME="b6"))
+        b6 = [r for r in _records(results, "b6") if "loss" in r]
+        resumed = {r["step"]: r["loss"] for r in b6}
+        check(sorted(resumed) == [4, 5, 6],
+              f"lm entry: the restart logged steps {sorted(resumed)}")
+        rel = {s: abs(resumed[s] - losses[s]) / abs(losses[s])
+               for s in resumed}
+        check(all(r <= 1e-5 for r in rel.values()),
+              f"lm entry: resumed {resumed} vs unbroken {losses}")
+        # the FLOP probe's cost: the restart's first step runs under the
+        # counter in a warm process, against run a's p50 (unprobed)
+        return {"losses": losses, "resumed": resumed, "rel_err": rel,
+                "probe_step_s": b6[0]["step_p50_step_s"],
+                "sample": sample, "draft_loss": draft_loss,
+                "tokens_per_s": last["tokens_per_sec"],
+                "mfu": last.get("step_mfu"),
+                "p50_step_s": last["step_p50_step_s"],
+                "p99_step_s": last["step_p99_step_s"],
+                "recompiles": last["step_recompiles"], "peak_gb": peak_gb,
+                "full_run_s": t_full, "launches": launches}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# -- phase 15: the LM entry point with MoE ------------------------------------
+
+
+def lm_moe_phase(device, *, steps=4, size=()):
+    """``examples.lm.main --n-experts 8`` (k = 2, dense dispatch) for 4
+    steps at the entry point's other defaults. The first step's state
+    and batch also go through one forward and backward of the loss the
+    step optimizes (LM loss + 0.01 · aux): the aux term must be nonzero
+    and the router and every expert's three weights in every layer must
+    get a nonzero gradient. Losses finite. ``size`` shrinks the run for
+    a rehearsal on the CPU."""
+    import math
+
+    import torch
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.examples import lm as lm_example
+    from kubeflow_tpu_torch.train.trainer import next_token_loss
+
+    seen = {}
+    real = lm_example.make_lm_train_step
+
+    def probed(**kw):
+        step = real(**kw)
+
+        def run(state, tokens):
+            if not seen:
+                model = state.module
+                toks = torch.as_tensor(tokens, device=state.device)
+                out, aux = model(toks, return_aux=True)
+                total = next_token_loss(out, toks) + 0.01 * aux
+                names = [n for n, _ in model.named_parameters()]
+                grads = torch.autograd.grad(total, state.params)
+                seen["aux"] = float(aux.detach())
+                seen["zero"] = [
+                    (n, e) for n, g in zip(names, grads) if ".moe." in n
+                    for e in range(g.shape[0] if "router" not in n
+                                   else 1)
+                    if not bool((g[e] if "router" not in n else g).any())]
+                seen["moe_tensors"] = sum(".moe." in n for n in names)
+                seen["layers"] = len(model.blocks)
+                del out, aux, total, grads
+            return step(state, tokens)
+
+        return run
+
+    work = tempfile.mkdtemp(prefix="kftpu-moe-")
+    lm_example.make_lm_train_step = probed
+    try:
+        _reset_peak(device)
+        ops.reset_launches()
+        _lm_main(["--device", str(device), *size, "--steps", str(steps),
+                  "--n-experts", "8", "--log-every", "1"],
+                 {"KFTPU_RESULTS_DIR": work, "KFTPU_JOB_NAME": "moe"})
+        launches = ops.launch_counts()
+        recs = [r for r in _records(work, "moe") if "loss" in r]
+    finally:
+        lm_example.make_lm_train_step = real
+        shutil.rmtree(work, ignore_errors=True)
+    losses = [r["loss"] for r in recs]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"moe: losses {losses}")
+    check(seen.get("aux", 0.0) > 0, f"moe: aux term {seen.get('aux')}")
+    check(seen["moe_tensors"] == 4 * seen["layers"] and not seen["zero"],
+          f"moe: {seen['moe_tensors']} MoE tensors; zero gradients at "
+          f"{seen['zero'][:8]}")
+    check(not any(launches.values()), f"moe: kernels launched {launches}")
+    return {"losses": losses, "aux": seen["aux"],
+            "p50_step_s": recs[-1]["step_p50_step_s"],
+            "tokens_per_s": recs[-1]["tokens_per_sec"],
+            "peak_gb": _peak_gb(device), "launches": launches}
+
+
+# -- phase 16: speculative serving of phase 14's pair -------------------------
+
+
+def _spec_request(base, prompts, max_new, **extra):
+    body = dict({"prompt_tokens": prompts, "max_new_tokens": max_new},
+                **extra)
+    t0 = time.perf_counter()
+    out, _ = _post(f"{base}/v1/models/lm:generate", body, False)
+    return out, time.perf_counter() - t0
+
+
+def spec_serving_phase(device, store: str, *, n=4, prompt_len=32,
+                       max_new=64, draft_len=4, vocab=32000):
+    """A ``ModelServer`` over phase 14's store pairs ``lm-draft`` with
+    ``lm`` at load. 4 prompts of 32 tokens, 64 new, greedy:
+
+    - f32 (TF32 off; the same weights under f32 configs): the
+      ``speculative: true, draft_len: 4`` tokens equal the plain
+      request's token for token, the response carries the round stats
+      and the four speculative counters move by them; the target as its
+      own draft (``speculative_generate_jit``) accepts every proposal
+      and gives the same tokens;
+    - bf16 (the exports as they are): both requests timed, after one
+      warm-up each; exactness is the reference's guarantee at f32 only.
+    """
+    import numpy as np
+    import torch
+    import yaml
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.models.decode import speculative_generate_jit
+    from kubeflow_tpu_torch.serving.model_store import MODEL_FILE
+    from kubeflow_tpu_torch.serving.server import ModelServer
+    from kubeflow_tpu_torch.utils import DEFAULT_REGISTRY
+
+    rng = np.random.default_rng(SEED + 16)
+    prompts = rng.integers(0, vocab, (n, prompt_len)).tolist()
+    f32 = tempfile.mkdtemp(prefix="kftpu-spec32-")
+    counters = {k: DEFAULT_REGISTRY.counter(
+        f"kftpu_serving_speculative_{k}_total")
+        for k in ("requests", "draft_tokens", "accepted_tokens")}
+    out = {}
+    try:
+        for name in ("lm", "lm-draft"):
+            src, dst = (os.path.join(d, name, "1") for d in (store, f32))
+            os.makedirs(dst)
+            os.link(os.path.join(src, "params.npz"),
+                    os.path.join(dst, "params.npz"))
+            with open(os.path.join(src, MODEL_FILE)) as f:
+                meta = yaml.safe_load(f)
+            meta["config"]["dtype"] = "float32"
+            with open(os.path.join(dst, MODEL_FILE), "w") as f:
+                yaml.safe_dump(meta, f)
+        ops.reset_launches()
+        for label, root in (("f32", f32), ("bf16", store)):
+            server = ModelServer(root, port=0, device=device)
+            port = server.start()
+            base = f"http://127.0.0.1:{port}"
+            try:
+                pair = server.repo.get("lm").draft
+                check(pair is not None and pair.ref == "lm-draft@1",
+                      f"spec {label}: draft pair {pair}")
+                before = {k: c.get(model="lm") for k, c in
+                          counters.items()}
+                spec_kw = dict(speculative=True, draft_len=draft_len)
+                if label == "bf16":       # warm-ups, untimed
+                    _spec_request(base, prompts, max_new)
+                    _spec_request(base, prompts, max_new, **spec_kw)
+                plain, t_plain = _spec_request(base, prompts, max_new)
+                spec, t_spec = _spec_request(base, prompts, max_new,
+                                             **spec_kw)
+                st = spec["speculative"]
+                check({"rounds", "draft_tokens", "accepted"} <= set(st)
+                      and st["draft_tokens"] == st["rounds"] * draft_len,
+                      f"spec {label}: stats {st}")
+                moved = {k: c.get(model="lm") - before[k]
+                         for k, c in counters.items()}
+                if label == "f32":
+                    check(moved == {"requests": 1,
+                                    "draft_tokens": st["draft_tokens"],
+                                    "accepted_tokens": st["accepted"]},
+                          f"spec f32: counters moved {moved}, stats {st}")
+                    check(spec["tokens"] == plain["tokens"],
+                          f"spec f32: speculative {spec['tokens']} vs "
+                          f"plain {plain['tokens']}")
+                    # the target as its own draft: every proposal is
+                    # accepted, each round rolls back nothing. As in the
+                    # reference, "accepted" sums the rows while
+                    # "draft_tokens" counts one row's proposals
+                    model = server.repo.get("lm").lm_params
+                    toks, perfect = speculative_generate_jit(
+                        model, model,
+                        torch.tensor(prompts, dtype=torch.int32,
+                                     device=device),
+                        max_new_tokens=max_new, draft_len=draft_len)
+                    check(toks.tolist() == plain["tokens"]
+                          and perfect["accepted"]
+                          == n * perfect["draft_tokens"] > 0,
+                          f"spec f32, perfect draft: {perfect}, "
+                          f"{toks.tolist()} vs {plain['tokens']}")
+                    out["perfect_draft"] = perfect
+                else:       # the warm-up and the timed request
+                    check(moved["requests"] == 2,
+                          f"spec bf16: counters moved {moved}")
+                toks = n * max_new
+                out[label] = {
+                    "plain_tokens_per_s": toks / t_plain,
+                    "spec_tokens_per_s": toks / t_spec,
+                    "rounds": st["rounds"], "accepted": st["accepted"],
+                    "draft_tokens": st["draft_tokens"],
+                    "acceptance_rate": st["acceptance_rate"],
+                    "accepted_per_proposal":
+                        st["accepted"] / (n * st["draft_tokens"]),
+                    "same_tokens": spec["tokens"] == plain["tokens"]}
+            finally:
+                server.stop()
+                del server
+        out["launches"] = ops.launch_counts()
+        check(not any(out["launches"].values()),
+              f"spec: kernels launched {out['launches']}")
+        return out
+    finally:
+        shutil.rmtree(f32, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2341,6 +2730,21 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
           f"mfu={train['mfu']:.4f} peak_gb={train['peak_gb']:.2f} "
           f"grad_norm={train['grad_norm']:.4f} "
           f"launches={train['launches']}", flush=True)
+    tel = train["telemetry"]
+    print(f"phase 5 step telemetry ({kind} | {ident}): "
+          f"tokens_per_s={tel['tokens_per_s']:.1f} (rolling, the "
+          f"FLOP-probe step included; "
+          f"{TRAIN_BATCH * TRAIN['max_seq_len'] / tel['p50_step_s']:.1f} "
+          f"at the p50 step) "
+          f"p50_step_s={tel['p50_step_s']} p99_step_s={tel['p99_step_s']} "
+          f"median of steps 2-4 {tel['median_step_s']:.6f} s (the "
+          f"phase's own {tel['own_median_step_s']:.6f}; steps "
+          f"{tel['step_s']} against {tel['own_step_s']}) "
+          f"mfu={tel.get('mfu')} from {tel['flops_per_step']:.4e} "
+          f"FLOP/step counted by FlopCounterMode (flash attention excluded:"
+          f" its autograd function registers no flop formula) "
+          f"recompiles={tel['recompiles']} "
+          f"hbm_peak_gb={tel['hbm_peak_gb']:.2f}", flush=True)
     lap("5")
     torch.cuda.empty_cache()
     par = train_parity_phase(device)
@@ -2451,6 +2855,65 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
           f"names {entry['trace_kernels']}; launches={entry['launches']}",
           flush=True)
     lap("13")
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    store = os.path.join(base, "lm-store")
+    lm = lm_entry_phase(device, store)
+    print(f"phase 14 examples.lm.main ({kind} | {ident}): d_model 768, 12 "
+          f"layers, 12 heads, d_ff 3072, vocab 32000, seq 512, batch 8, "
+          f"dense attention, bf16/f32, remat; 6 steps (checkpoints 3, 6; "
+          f"sample, export, 2-layer draft distilled 20 steps; "
+          f"{lm['full_run_s']:.1f}s), done-restart, 3 + restart to 6: "
+          f"losses={lm['losses']} resumed={lm['resumed']} "
+          f"rel_err={lm['rel_err']} tokens_per_s={lm['tokens_per_s']:.1f} "
+          f"(the log line's, from the first step on: the FLOP probe and "
+          f"a checkpoint included; {8 * 512 / lm['p50_step_s']:.1f} at "
+          f"the p50 step) "
+          f"mfu={lm['mfu']} p50_step_s={lm['p50_step_s']} "
+          f"p99_step_s={lm['p99_step_s']} recompiles={lm['recompiles']} "
+          f"probe_step_s={lm['probe_step_s']} (the restart's first step, "
+          f"under the FLOP counter) "
+          f"peak_gb={lm['peak_gb']:.2f} draft_distill_loss="
+          f"{lm['draft_loss']} sample={lm['sample']} "
+          f"launches={lm['launches']}", flush=True)
+    lap("14")
+    torch.cuda.empty_cache()
+    moe = lm_moe_phase(device)
+    print(f"phase 15 examples.lm.main --n-experts 8 ({kind} | {ident}): "
+          f"k=2, dense dispatch, the phase-14 widths, 4 steps: "
+          f"losses={moe['losses']} aux={moe['aux']:.6f} (router and every "
+          f"expert of every layer with a gradient) "
+          f"p50_step_s={moe['p50_step_s']} "
+          f"tokens_per_s={moe['tokens_per_s']:.1f} "
+          f"peak_gb={moe['peak_gb']:.2f} launches={moe['launches']}",
+          flush=True)
+    lap("15")
+    torch.cuda.empty_cache()
+    spec = spec_serving_phase(device, store)
+    for label in ("f32", "bf16"):
+        r = spec[label]
+        print(f"phase 16 speculative :generate, {label} ({kind} | "
+              f"{ident}): 4 prompts x 32 tokens, 64 new, greedy, "
+              f"draft_len 4, draft lm-draft@1 (2 layers): "
+              f"plain_tokens_per_s={r['plain_tokens_per_s']:.1f} "
+              f"spec_tokens_per_s={r['spec_tokens_per_s']:.1f} "
+              f"rounds={r['rounds']} accepted={r['accepted']}/"
+              f"{r['draft_tokens']} acceptance_rate="
+              f"{r['acceptance_rate']} (the reference's accepted over one "
+              f"row's proposals; per proposal "
+              f"{r['accepted_per_proposal']:.4f}) "
+              f"same_tokens={r['same_tokens']}",
+              flush=True)
+    print(f"phase 16 f32, the target as its own draft: "
+          f"{spec['perfect_draft']} (every proposal accepted, tokens "
+          f"equal the plain request's)", flush=True)
+    lap("16")
+    for kern in kernels:
+        for path, res in (("lm_entry", lm), ("moe_train", moe),
+                          ("spec_serving", spec)):
+            n = res["launches"][kern["name"]]
+            kern["launches_by_path"][path] = n
+            kern["launches"] += n
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(ident)
     print(json.dumps({"kernels": kernels}))

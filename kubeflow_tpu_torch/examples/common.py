@@ -3,7 +3,8 @@
 PyTorch port of ``kubeflow_tpu/examples/common.py``: ``setup_logging``,
 ``log_metrics`` (the scrape contract: one JSON line a record on stdout,
 and ``<KFTPU_RESULTS_DIR>/<KFTPU_JOB_NAME>.jsonl`` when the operator sets
-a results directory), ``checkpoint_dir`` and ``launcher_init``.
+a results directory), ``checkpoint_dir``, ``launcher_init`` and
+``make_step_telemetry``.
 
 ``launcher_init`` parses the operator's env contract and resolves the
 device. It brings up one process on one device: a job of more than one
@@ -79,3 +80,47 @@ def launcher_init(*, pp: int = 1, tp: Optional[int] = None, device=None
 
 def checkpoint_dir(default: str = "") -> str:
     return os.environ.get("KFTPU_CHECKPOINT_DIR", default)
+
+
+def make_step_telemetry(*, tokens_per_step: int = 0,
+                        examples_per_step: int = 0, client=None,
+                        **kwargs):
+    """A :class:`~kubeflow_tpu_torch.obs.steps.StepTelemetry` wired from
+    the operator's env contract: job/namespace/uid identity (so the step
+    spans join the operator's trace), the worker index, and an
+    ``HbmSampler`` of the card's allocator (silent on the CPU).
+
+    Inside a TpuJob gang (``KFTPU_JOB_NAME`` set, ``KFTPU_BEACONS`` not
+    0) beacons go to ``client`` through ``kube_beacon_sink``. The port
+    has no Kubernetes client of its own yet, so with none given beacons
+    are off and the log says so; the reference builds its
+    ``HttpKubeClient`` there. ``n_chips`` is 1: the port runs one
+    process on one card (:func:`launcher_init`)."""
+    from kubeflow_tpu_torch.obs.steps import (
+        ENV_JOB_UID,
+        StepTelemetry,
+        kube_beacon_sink,
+    )
+    from kubeflow_tpu_torch.obs.xprof import HbmSampler
+
+    penv = dist.from_env()
+    job_uid = os.environ.get(ENV_JOB_UID, "")
+    sink = None
+    if penv.job_name and os.environ.get("KFTPU_BEACONS", "1") != "0":
+        if client is None:
+            logging.info("step telemetry: no cluster client, beacons off "
+                         "for job %s", penv.job_name)
+        else:
+            sink = kube_beacon_sink(client, penv.namespace, penv.job_name,
+                                    penv.process_id, job_uid=job_uid)
+    kwargs.setdefault("beacon_every", 10)
+    kwargs.setdefault("span_every", 10)
+    kwargs.setdefault("n_chips", 1)
+    if "hbm_sampler" not in kwargs:
+        kwargs["hbm_sampler"] = HbmSampler(
+            namespace=penv.namespace, job=penv.job_name,
+            worker=penv.process_id)
+    return StepTelemetry(
+        job=penv.job_name, namespace=penv.namespace, uid=job_uid,
+        worker=penv.process_id, tokens_per_step=tokens_per_step,
+        examples_per_step=examples_per_step, beacon_sink=sink, **kwargs)

@@ -88,13 +88,16 @@ def load_params(model: torch.nn.Module,
     be found, with its exact shape. Returns ``model``."""
     flat = flatten(params)
     used = set()
+    leaves: Dict[str, torch.Tensor] = {}  # a stacked leaf, converted once
     with torch.no_grad():
         for name, p in model.named_parameters():
             key, layer = _source_key(name, flat)
             if key not in flat:
                 raise KeyError(f"param {key!r} (for {name}) not in the "
                                f"JAX tree")
-            src = _as_tensor(flat[key])
+            if key not in leaves:
+                leaves[key] = _as_tensor(flat[key])
+            src = leaves[key]
             if layer is not None:
                 src = src[layer]
             if tuple(src.shape) != tuple(p.shape):
@@ -111,9 +114,9 @@ def load_params(model: torch.nn.Module,
 def to_module(config: TransformerConfig, params: Mapping[str, Any], *,
               device) -> Transformer:
     """A loaded, frozen port ``Transformer`` on ``device``."""
-    model = Transformer(config)
-    load_params(model, params)
-    model = model.to(device).eval()
+    with torch.device(resolve_device(device)):
+        model = Transformer(config)
+    load_params(model, params).eval()
     model.requires_grad_(False)
     return model
 
@@ -123,9 +126,9 @@ def to_trainable(config: TransformerConfig, params: Mapping[str, Any], *,
     """A loaded port ``Transformer`` on ``device`` (CUDA unless ``"cpu"``
     is asked for), left trainable: every parameter requires a gradient
     and the module is in train mode."""
-    model = Transformer(config, return_hidden=return_hidden)
-    load_params(model, params)
-    return model.to(resolve_device(device)).train()
+    with torch.device(resolve_device(device)):
+        model = Transformer(config, return_hidden=return_hidden)
+    return load_params(model, params).train()
 
 
 def _random_flat(model: torch.nn.Module, d_model: int, seed: int, *,

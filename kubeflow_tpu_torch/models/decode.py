@@ -14,6 +14,10 @@ the cache so call sites read alike.
 - :class:`~kubeflow_tpu_torch.models.transformer.PagedKVCache`: K/V
   pools ``(L, P, ps, KH, Dh)``, ``positions (B,)``, ``pages (B, n_log)``.
 
+Greedy speculative decoding (:func:`speculative_generate`) runs a small
+draft model beside the target over two dense caches and rolls rejected
+proposals back by resetting each row's write position.
+
 Sampling takes its randomness as Gumbel noise ``(B, V)``
 (:func:`kubeflow_tpu_torch.ops.sampling.gumbel_noise`): a categorical
 draw is ``argmax(logits + gumbel)``, the identity ``jax.random.
@@ -163,6 +167,15 @@ def decode_step(model: Transformer, cache: Cache,
     return model(token[:, None], cache)[:, 0], cache
 
 
+def _longest(true_len, width: int) -> int:
+    """The longest true prompt length (``width`` when none is given)."""
+    if true_len is None:
+        return width
+    if isinstance(true_len, torch.Tensor):
+        true_len = true_len.cpu()
+    return int(np.max(np.asarray(true_len)))
+
+
 def _per_row(x, B: int, dtype, device) -> torch.Tensor:
     return torch.broadcast_to(torch.as_tensor(x, dtype=dtype,
                                               device=device), (B,))
@@ -273,9 +286,7 @@ def generate(model: Transformer, prompt: torch.Tensor, *,
     if isinstance(top_p, (int, float)) and not 0.0 < top_p <= 1.0:
         raise ValueError("top_p must be in (0, 1]")
     B, S = prompt.shape
-    start = S if true_len is None else int(np.max(np.asarray(
-        true_len.cpu() if isinstance(true_len, torch.Tensor)
-        else true_len)))
+    start = _longest(true_len, S)
     if start + max_new_tokens > c.max_seq_len:
         raise ValueError(
             f"prompt length {start} + max_new_tokens {max_new_tokens} "
@@ -317,3 +328,149 @@ def make_generate(config: TransformerConfig, *, max_new_tokens: int,
                         top_k=top_k, top_p=top_p, seed=seed)
 
     return fn
+
+
+# -- speculative decoding ------------------------------------------------------
+
+
+def _spec_validate(config: TransformerConfig,
+                   draft_config: TransformerConfig, prompt_width: int,
+                   max_new_tokens: int, k: int, true_len) -> None:
+    """The reference's eager checks: ``draft_len >= 1``, one vocabulary,
+    and slack for ``k`` in-flight proposals past the output in both
+    contexts (from the longest TRUE prompt when lengths are given)."""
+    if k < 1:
+        raise ValueError("draft_len must be >= 1")
+    if config.vocab_size != draft_config.vocab_size:
+        raise ValueError("draft and target must share a vocabulary")
+    start = _longest(true_len, prompt_width)
+    for name, c in (("target", config), ("draft", draft_config)):
+        if start + max_new_tokens + k > c.max_seq_len:
+            raise ValueError(
+                f"prompt {start} + max_new_tokens {max_new_tokens} + "
+                f"draft_len {k} exceeds {name} max_seq_len "
+                f"{c.max_seq_len} (speculation needs slack for "
+                "in-flight proposals)")
+
+
+def _spec_round(model: Transformer, draft: Transformer,
+                t_cache: DenseKVCache, d_cache: DenseKVCache,
+                pending: torch.Tensor, k: int):
+    """One propose-verify-rollback round (the reference's
+    ``_spec_round_body``): the draft proposes ``x1..xk`` greedily, the
+    target verifies ``(pending, x1..x_{k-1})`` in ONE forward that writes
+    each row from its own position, and both caches roll back to the
+    accepted length by resetting positions (token t sits at slot t, so
+    the stale tail is overwritten before it can be attended).
+
+    Returns ``(out (B, k), m (B,), new_pending (B,), n (B,))``: the
+    emitted tokens (the first ``m`` of each row are real), and ``n`` the
+    accepted proposals. A row whose writes would pass ``max_seq_len``
+    (a fast row of a ragged batch overshooting) writes nothing there;
+    only its discarded tail depends on it."""
+    B = pending.shape[0]
+    dev = pending.device
+    tok, xs = pending, []
+    for _ in range(k):
+        logits, _ = decode_step(draft, d_cache, tok)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        xs.append(tok)
+    xs = torch.stack(xs, dim=1)                               # (B, k)
+    seq = torch.cat([pending[:, None], xs[:, :k - 1]], dim=1)
+    preds = torch.argmax(model(seq, t_cache, ragged=True),
+                         dim=-1).to(torch.int32)              # (B, k)
+    n = torch.cumprod((xs == preds).to(torch.int32), dim=1).sum(dim=1)
+    idx = torch.arange(k, device=dev)[None, :]
+    rows = torch.arange(B, device=dev)
+    correction = preds[rows, n.clamp(max=k - 1)]
+    out = torch.where(idx < n[:, None], xs, 0)
+    out = torch.where(idx == n[:, None], correction[:, None], out)
+    m = torch.where(n < k, n + 1, k)
+    new_pending = torch.where(n < k, correction, xs[:, k - 1])
+    # the verify advanced every row k slots and the draft k slots; only
+    # (pending, x1..x_n) are valid: n+1 on a rejection, all k on a full
+    # acceptance (x_k was proposed, never written)
+    delta = (k - n - 1).clamp(min=0).to(torch.int32)
+    t_cache.positions.sub_(delta)
+    d_cache.positions.sub_(delta)
+    return out, m, new_pending, n
+
+
+@torch.no_grad()
+def speculative_generate(model: Transformer, draft: Transformer,
+                         prompt: torch.Tensor, *, max_new_tokens: int,
+                         draft_len: int = 4, true_len=None):
+    """Greedy speculative decoding: the draft proposes ``draft_len``
+    tokens a round, the target verifies them in one multi-token forward,
+    and every accepted token costs the target 1/draft_len of a step.
+
+    The output is ``generate(model, prompt, ...)``'s greedy stream token
+    for token at f32 (a proposal is accepted iff it equals the target's
+    argmax); at bf16 the k-token verify and the 1-token step may resolve
+    a near-tie differently, as in the reference. Ragged rows
+    (``true_len`` ``(B,)``) accept independently; a finished row keeps
+    stepping until the slowest row is done.
+
+    Returns ``(tokens (B, max_new_tokens) int32, stats)``, ``stats =
+    {"rounds", "draft_tokens": rounds * draft_len, "accepted"}`` as
+    Python ints. One host sync a round decides whether another runs."""
+    B, S = prompt.shape
+    k = int(draft_len)
+    _spec_validate(model.config, draft.config, S, max_new_tokens, k,
+                   true_len)
+    dev = prompt.device
+    t_cache = init_cache(dataclasses.replace(model.config, kv_page_size=0),
+                         B, device=dev)
+    d_cache = init_cache(dataclasses.replace(draft.config, kv_page_size=0),
+                         B, device=dev)
+    t_logits, t_cache = prefill(model, t_cache, prompt, true_len)
+    _, d_cache = prefill(draft, d_cache, prompt, true_len)
+    first = torch.argmax(t_logits, dim=-1).to(torch.int32)
+    # slack: a row one short of max_new can still emit k tokens
+    cap = max_new_tokens + k + 1
+    out_buf = torch.zeros((B, cap), dtype=torch.int32, device=dev)
+    out_buf[:, 0] = first
+    counts = torch.ones((B,), dtype=torch.int64, device=dev)
+    rows = torch.arange(B, device=dev)[:, None]
+    idx = torch.arange(k, device=dev)[None, :]
+    pending = first
+    rounds = 0
+    accepted = torch.zeros((), dtype=torch.int64, device=dev)
+    while int(counts.min()) < max_new_tokens:
+        out, m, pending, n = _spec_round(model, draft, t_cache, d_cache,
+                                         pending, k)
+        # rows past their count write into the buffer's slack columns
+        pos = (counts[:, None] + idx).clamp(max=cap - 1)
+        keep = idx < m[:, None]
+        out_buf[rows.expand_as(pos)[keep], pos[keep]] = out[keep]
+        counts += m
+        accepted += n.sum()
+        rounds += 1
+    stats = {"rounds": rounds, "draft_tokens": rounds * k,
+             "accepted": int(accepted)}
+    return out_buf[:, :max_new_tokens], stats
+
+
+def speculative_generate_fused(model: Transformer, draft: Transformer,
+                               prompt: torch.Tensor, *,
+                               max_new_tokens: int, draft_len: int = 4,
+                               true_len=None):
+    """The reference's one-program variant. Eager PyTorch has no
+    traced loop to fuse the rounds into, so this is
+    :func:`speculative_generate`: the same round math, tokens and
+    stats."""
+    return speculative_generate(model, draft, prompt,
+                                max_new_tokens=max_new_tokens,
+                                draft_len=draft_len, true_len=true_len)
+
+
+def speculative_generate_jit(model: Transformer, draft: Transformer,
+                             prompt: torch.Tensor, *, max_new_tokens: int,
+                             draft_len: int = 4, true_len=None):
+    """The serving entry (the reference's cached compiled program with
+    eager validation): :func:`speculative_generate`, whose slack
+    ``ValueError`` fires before any device work and whose stats are
+    Python ints."""
+    return speculative_generate(model, draft, prompt,
+                                max_new_tokens=max_new_tokens,
+                                draft_len=draft_len, true_len=true_len)

@@ -66,8 +66,17 @@ by the batch through a per-row page table.
   ``jnp.take(mode="clip")`` does, and are causally masked) before the
   exact attention math.
 
-Not yet ported (later slices, see ROADMAP.md): MoE, and the
-blockwise/ring/ulysses attention cores.
+MoE (``n_experts > 0``) replaces each block's MLP with
+:class:`MoeMlp`: the reference's exact dense top-k dispatch, or with
+``moe_capacity_factor > 0`` its capacity dispatch on one device
+(:mod:`kubeflow_tpu_torch.ops.moe`). The reference ``sow``s each layer's
+Switch auxiliary loss into a ``"losses"`` collection; here a training
+forward returns it when asked (``return_aux=True``: the sum over the
+layers, as the reference's train step sums the collection), so nothing
+about it outlives the call.
+
+Not yet ported (later slices, see ROADMAP.md): the blockwise/ring/ulysses
+attention cores.
 """
 
 from __future__ import annotations
@@ -408,6 +417,14 @@ def _cache_attend(q, kc, vc, q_pos, Dh: int) -> torch.Tensor:
     return torch.einsum("bhst,bthd->bshd", probs, vc)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)``, ``jax.nn.silu``'s formula. Not
+    ``torch.nn.functional.silu``: under ``FlopCounterMode`` (the step
+    telemetry's FLOP probe) its backward decomposes and rounds
+    differently, so a probed step would not equal an unprobed one."""
+    return x * torch.sigmoid(x)
+
+
 class Mlp(nn.Module):
     def __init__(self, c: TransformerConfig) -> None:
         super().__init__()
@@ -419,38 +436,114 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.c.dtype
-        h = (torch.nn.functional.silu(x @ _compute(self.gate_proj, dt))
+        h = (silu(x @ _compute(self.gate_proj, dt))
              * (x @ _compute(self.up_proj, dt)))
         return h @ _compute(self.down_proj, dt)
 
 
+class MoeMlp(nn.Module):
+    """The reference's ``MoeMlp``: a router ``(D, E)`` kept in f32 and
+    ``E`` SwiGLU experts ``(E, D, F)``/``(E, F, D)``. ``forward`` returns
+    ``(y, aux)``, ``aux`` the layer's Switch load-balance loss.
+
+    Dense dispatch (``moe_capacity_factor == 0``): each token keeps its
+    top ``experts_per_token`` router logits, softmaxed over those k; the
+    combine weights are cast to the compute dtype, every expert runs on
+    every token (``bsd,edf->bsef``) and the combine masks the outputs.
+    Ties between router logits are possible: ``jax.lax.top_k`` and
+    ``torch.topk`` may break them differently, so parity tests draw
+    random f32 router logits, where a tie has probability zero."""
+
+    def __init__(self, c: TransformerConfig) -> None:
+        super().__init__()
+        self.c = c
+        D, F, E, pd = c.d_model, c.d_ff, c.n_experts, c.param_dtype
+        self.router = nn.Parameter(torch.empty(D, E, dtype=torch.float32))
+        self.gate_proj = nn.Parameter(torch.empty(E, D, F, dtype=pd))
+        self.up_proj = nn.Parameter(torch.empty(E, D, F, dtype=pd))
+        self.down_proj = nn.Parameter(torch.empty(E, F, D, dtype=pd))
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        c = self.c
+        dt, E, K = c.dtype, c.n_experts, c.experts_per_token
+        wg = _compute(self.gate_proj, dt)
+        wu = _compute(self.up_proj, dt)
+        wd = _compute(self.down_proj, dt)
+        gate_logits = x.float() @ self.router              # (B, S, E)
+        if c.moe_capacity_factor > 0:
+            from kubeflow_tpu_torch.ops.moe import capacity_moe
+
+            B, S, D = x.shape
+
+            def expert_fn(xe):                             # (E, C, D)
+                h = torch.einsum("ecd,edf->ecf", xe, wg)
+                u = torch.einsum("ecd,edf->ecf", xe, wu)
+                return torch.einsum("ecf,efd->ecd", silu(h) * u, wd)
+
+            y, aux = capacity_moe(
+                x.reshape(B * S, D), gate_logits.reshape(B * S, E),
+                expert_fn, k=K, capacity_factor=c.moe_capacity_factor)
+            return y.reshape(B, S, D), aux
+        weights, idx = torch.topk(gate_logits, K, dim=-1)
+        weights = torch.softmax(weights, dim=-1)           # (B, S, K)
+        onehot = torch.nn.functional.one_hot(idx, E).float()
+        combine = (onehot * weights[..., None]).sum(dim=2).to(dt)
+        h = torch.einsum("bsd,edf->bsef", x, wg)
+        u = torch.einsum("bsd,edf->bsef", x, wu)
+        h = silu(h) * u
+        y = torch.einsum("bsef,efd->bsed", h, wd)
+        y = torch.einsum("bsed,bse->bsd", y, combine)
+        # Switch load balance: E * sum(fraction routed * mean router prob)
+        probs = torch.softmax(gate_logits, dim=-1)
+        density = (combine.float() > 0).float().mean(dim=(0, 1))
+        mean_prob = probs.mean(dim=(0, 1))
+        return y, E * (density * mean_prob).sum()
+
+
 class Block(nn.Module):
+    """``forward`` returns ``(x, aux)``: ``aux`` is the MoE layer's
+    load-balance loss, None for a dense MLP."""
+
     def __init__(self, c: TransformerConfig) -> None:
         super().__init__()
         self.attn_norm = RMSNorm(c.d_model, param_dtype=c.param_dtype)
         self.attn = Attention(c)
         self.mlp_norm = RMSNorm(c.d_model, param_dtype=c.param_dtype)
-        self.mlp = Mlp(c)
+        if c.n_experts:
+            self.moe = MoeMlp(c)
+        else:
+            self.mlp = Mlp(c)
 
     def forward(self, x, sin, cos, kv=None, step=None, kv_len=None):
         x = x + self.attn(self.attn_norm(x), sin, cos, kv, step, kv_len)
-        return x + self.mlp(self.mlp_norm(x))
+        h = self.mlp_norm(x)
+        if hasattr(self, "moe"):
+            y, aux = self.moe(h)
+            return x + y, aux
+        return x + self.mlp(h), None
 
 
 def run_blocks(blocks, x, sin, cos, *, remat: bool,
-               kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+               kv_len: Optional[torch.Tensor] = None,
+               return_aux: bool = False):
     """The training forward of a block stack (the reference's scanned or
     unrolled ``Block`` over ``aux = (sin, cos[, kv_len])``); with
     ``remat`` and autograd on, each block is recomputed in the backward
-    (``torch.utils.checkpoint``, the mask passed through)."""
+    (``torch.utils.checkpoint``, the mask passed through). With
+    ``return_aux`` it returns ``(x, aux)``, ``aux`` the sum of the MoE
+    layers' load-balance losses (0.0 without MoE)."""
     remat = remat and torch.is_grad_enabled()
+    total: Any = 0.0
     for blk in blocks:
         if remat:
-            x = checkpoint(blk, x, sin, cos, kv_len=kv_len,
-                           use_reentrant=False)
+            x, aux = checkpoint(blk, x, sin, cos, kv_len=kv_len,
+                                use_reentrant=False)
         else:
-            x = blk(x, sin, cos, kv_len=kv_len)
-    return x
+            x, aux = blk(x, sin, cos, kv_len=kv_len)
+        if aux is not None:
+            total = total + aux
+    return (x, total) if return_aux else x
 
 
 class Transformer(nn.Module):
@@ -463,8 +556,6 @@ class Transformer(nn.Module):
                  return_hidden: bool = False) -> None:
         super().__init__()
         config.validate()
-        if config.n_experts:
-            raise _not_ported("MoE (n_experts > 0)")
         self.config = config
         self.return_hidden = return_hidden
         self.token_embed = nn.Parameter(torch.empty(
@@ -483,8 +574,8 @@ class Transformer(nn.Module):
                                           device)
         return self._rope[key]
 
-    def _dense_step(self, cache: DenseKVCache, S: int,
-                    device) -> _DenseStep:
+    def _dense_step(self, cache: DenseKVCache, S: int, device,
+                    ragged: bool) -> _DenseStep:
         c = self.config
         Smax = c.max_seq_len
         if cache.k.shape[2] != Smax:
@@ -493,7 +584,7 @@ class Transformer(nn.Module):
         sin_full, cos_full = self._tables(Smax, device)
         ar = torch.arange(S, device=device)
         pos = cache.positions.long()
-        if S == 1 or c.ragged_decode:
+        if S == 1 or ragged:
             q_pos = pos[:, None] + ar[None, :]               # (B, S)
             safe = q_pos.clamp(max=Smax - 1)
             sin = sin_full[safe][:, :, None, :].to(c.dtype)
@@ -539,34 +630,41 @@ class Transformer(nn.Module):
                            read_pages=pages.clamp(0, P - 1),
                            use_kernel=use_kernel)
 
-    def forward(self, tokens: torch.Tensor,
-                cache: Optional[Any] = None) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, cache: Optional[Any] = None,
+                *, ragged: bool = False, return_aux: bool = False):
+        """``ragged`` makes a dense-cache multi-token forward write each
+        row from its own position, as ``ragged_decode`` does (the
+        speculative verify). ``return_aux`` (training forward) returns
+        ``(out, aux)``, ``aux`` the summed MoE load-balance loss."""
         c = self.config
         B, S = tokens.shape
         dev = tokens.device
         embed = _compute(self.token_embed, c.dtype)
         x = embed[tokens.long()]
+        aux: Any = 0.0
         if cache is None:
             sin, cos = self._tables(S, dev)
-            x = run_blocks(self.blocks, x, sin, cos, remat=c.remat)
+            x, aux = run_blocks(self.blocks, x, sin, cos, remat=c.remat,
+                                return_aux=True)
         elif isinstance(cache, DenseKVCache):
-            step = self._dense_step(cache, S, dev)
+            step = self._dense_step(cache, S, dev,
+                                    ragged or c.ragged_decode)
             for i, blk in enumerate(self.blocks):
-                x = blk(x, None, None, (cache.k[i], cache.v[i]), step)
+                x, _ = blk(x, None, None, (cache.k[i], cache.v[i]), step)
             cache.positions.add_(S)
         else:
             step = self._decode_step(cache, S, dev)
             for i, blk in enumerate(self.blocks):
                 kv = (cache.k[i], cache.v[i], cache.pages, cache.positions)
-                x = blk(x, None, None, kv, step)
+                x, _ = blk(x, None, None, kv, step)
             cache.positions.add_(S)
         x = self.final_norm(x)
         if self.return_hidden:
-            return x
+            return (x, aux) if return_aux else x
         logits = (x @ embed.t()).float()
         if c.logits_softcap:
             logits = c.logits_softcap * torch.tanh(logits / c.logits_softcap)
-        return logits
+        return (logits, aux) if return_aux else logits
 
 
 def tiny_config(**overrides) -> TransformerConfig:

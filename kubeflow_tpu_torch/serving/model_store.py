@@ -12,7 +12,10 @@ records are honoured:
   their dtype recorded, restored at load.
 
 This slice serves the ``transformer`` kind only; a loaded version
-carries the unary path's :meth:`LoadedModel.generate`.
+carries the unary path's :meth:`LoadedModel.generate`. An export with
+``draft_of: "<model>[@<version>]"`` in its ``model.yaml`` is a
+speculative-decoding draft of that model: :func:`find_draft_for` finds
+it and the server pairs it as one :class:`DraftPair`.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import tempfile
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,14 +77,20 @@ def _quantize_leaf(arr: np.ndarray):
 
 def export_model(path: str, kind: str, params: Dict[str, Any], *,
                  config: Optional[Dict[str, Any]] = None, version: int = 1,
-                 quantize: bool = False) -> str:
+                 quantize: bool = False,
+                 draft_of: Optional[str] = None) -> str:
     """Write ``<path>/<version>/{model.yaml,params.npz}``; returns the
     version dir. ``params`` is a flat (``/``-joined) or nested dict of
     numpy f32 arrays in the JAX layout (``models/convert.py``). The yaml
-    is written last and atomically: its presence publishes the version."""
+    is written last and atomically: its presence publishes the version.
+    ``draft_of="<model>"`` or ``"<model>@<version>"`` marks the export as
+    that model's speculative draft (an unversioned pairing follows the
+    target's served version)."""
     vdir = os.path.join(path, str(version))
     os.makedirs(vdir, exist_ok=True)
     meta: Dict[str, Any] = {"kind": kind, "config": config or {}}
+    if draft_of:
+        meta["draft_of"] = str(draft_of)
     flat = {k: np.asarray(v) for k, v in convert.flatten(params).items()}
     if quantize:
         stored: Dict[str, np.ndarray] = {}
@@ -133,6 +142,18 @@ def read_params(vdir: str, meta: Dict[str, Any]) -> Dict[str, Any]:
     return raw
 
 
+@dataclasses.dataclass(frozen=True)
+class DraftPair:
+    """A paired speculative draft. Immutable and swapped through ONE
+    ``LoadedModel.draft`` reference, so a request snapshots config,
+    module and ref together across a repair or detach by the poll
+    thread."""
+
+    config: TransformerConfig
+    params: Transformer      # the loaded draft module
+    ref: str                 # "<draft name>@<version>"
+
+
 @dataclasses.dataclass
 class LoadedModel:
     kind: str
@@ -141,6 +162,8 @@ class LoadedModel:
     lm_params: Transformer   # the loaded module, on the serving device
     max_seq_len: int
     vocab_size: int
+    # the paired draft (server.py:ModelRepository._attach_draft), or None
+    draft: Optional[DraftPair] = None
 
     def generate(self, prompt, true_len, max_new: int, temperature,
                  seed: int, *, greedy: bool, top_k=0, top_p=1.0,
@@ -181,3 +204,28 @@ def load_version(base_path: str, version: int, *,
     return LoadedModel(kind=kind, version=version, lm_config=config,
                        lm_params=model, max_seq_len=config.max_seq_len,
                        vocab_size=config.vocab_size)
+
+
+def find_draft_for(store_root: str, target_name: str,
+                   target_version: int) -> Optional[Tuple[str, int]]:
+    """The store sibling declaring itself this target's draft:
+    ``model.yaml`` carries ``draft_of: "<target>"`` (follows the target
+    across versions) or ``"<target>@<version>"`` (pinned). Returns
+    ``(draft_name, draft_version)`` — the newest matching version of the
+    first matching model name — or None."""
+    if not os.path.isdir(store_root):
+        return None
+    want = {target_name, f"{target_name}@{target_version}"}
+    for d in sorted(os.listdir(store_root)):
+        mdir = os.path.join(store_root, d)
+        if d == target_name or not os.path.isdir(mdir):
+            continue
+        for v in reversed(list_versions(mdir)):
+            try:
+                with open(os.path.join(mdir, str(v), MODEL_FILE)) as f:
+                    meta = yaml.safe_load(f) or {}
+            except (OSError, yaml.YAMLError):
+                continue  # a mid-write or corrupt sibling
+            if isinstance(meta, dict) and meta.get("draft_of") in want:
+                return d, v
+    return None

@@ -9,8 +9,9 @@ with the same request and response JSON:
 - ``POST /v1/models/<name>[/versions/<v>]:generate`` with
   ``{"prompt_tokens": [[...], ...], "max_new_tokens", "temperature",
   "top_k", "top_p", "seed", "eos_id", "prefix_len", "true_len",
-  "stream"}``; ``stream: true`` answers with JSON lines over chunked
-  transfer, one ``{"tokens": [...]}`` per decode position.
+  "stream", "speculative", "draft_len"}``; ``stream: true`` answers with
+  JSON lines over chunked transfer, one ``{"tokens": [...]}`` per decode
+  position.
 
 With ``decode_slots`` 0 (the default, as in the reference) a request is
 served UNARY: the batch is padded to a prompt bucket, a new-token bucket
@@ -19,8 +20,17 @@ and a batch bucket, and one ``LoadedModel.generate`` decodes it;
 ``decode_slots`` > 0 each prompt row becomes one engine request sharing
 the decode batch.
 
+``speculative: true`` routes a greedy request through the model's
+paired draft (an export declaring ``draft_of`` this model, paired at
+load and re-paired, repaired or detached on later polls): the draft
+proposes ``draft_len`` tokens a round and the target verifies them in
+one forward (``models/decode.py:speculative_generate``). The response
+adds ``speculative: {draft, draft_len, rounds, draft_tokens, accepted,
+acceptance_rate}``; without a draft, or with sampling, streaming,
+``eos_id`` or ``prefix_len``, it answers 400 with the reference's error.
+
 Not in this slice (ROADMAP.md): ``:predict`` for the non-LM kinds,
-speculative decoding, gRPC, tracing spans and the request ledger.
+gRPC, tracing spans and the request ledger.
 """
 
 from __future__ import annotations
@@ -34,14 +44,18 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
+from kubeflow_tpu_torch.models import decode
 from kubeflow_tpu_torch.serving.engine import (
     DecodeEngine,
     EngineClosed,
     pow2_bucket,
 )
 from kubeflow_tpu_torch.serving.model_store import (
+    DraftPair,
     LoadedModel,
+    find_draft_for,
     list_versions,
     load_version,
 )
@@ -55,6 +69,18 @@ _gen_requests = DEFAULT_REGISTRY.counter(
     "kftpu_serving_generate_requests_total", "generate requests")
 _gen_latency = DEFAULT_REGISTRY.gauge(
     "kftpu_serving_generate_last_latency_seconds", "last generate latency")
+_spec_requests = DEFAULT_REGISTRY.counter(
+    "kftpu_serving_speculative_requests_total",
+    "generate requests served through a speculative draft pair")
+_spec_draft_tokens = DEFAULT_REGISTRY.counter(
+    "kftpu_serving_speculative_draft_tokens_total",
+    "draft tokens proposed to the target verifier")
+_spec_accepted_tokens = DEFAULT_REGISTRY.counter(
+    "kftpu_serving_speculative_accepted_tokens_total",
+    "draft tokens the target verifier accepted")
+_spec_rate = DEFAULT_REGISTRY.gauge(
+    "kftpu_serving_speculative_last_acceptance_rate",
+    "acceptance rate (accepted/proposed) of the last speculative request")
 
 
 _PAD_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
@@ -142,11 +168,6 @@ def _parse(model: LoadedModel, body: Dict[str, Any], max_batch_size: int,
     if real.min() < 0 or real.max() >= model.vocab_size:
         return (400, {"error": f"token ids must be in [0, "
                                f"{model.vocab_size})"}), None
-    over = [n for n in row_lens if n + max_new > model.max_seq_len]
-    if over:
-        return (400, {"error": f"prompt ({max(over)}) + max_new_tokens "
-                               f"({max_new}) exceed the model context "
-                               f"({model.max_seq_len})"}), None
     return None, dict(arr=arr, row_lens=row_lens, max_new=max_new,
                       temperature=temperature, top_k=top_k, top_p=top_p,
                       seed=seed, eos_id=eos_id, prefix_len=prefix_len)
@@ -166,6 +187,15 @@ def run_generate(model: LoadedModel, body: Dict[str, Any],
     err, a = _parse(model, body, max_batch_size, engine is None)
     if err is not None:
         return err
+    if body.get("speculative"):
+        return _run_generate_speculative(model, body, a,
+                                         model_name=model_name,
+                                         stream=stream)
+    over = [n for n in a["row_lens"] if n + a["max_new"] > model.max_seq_len]
+    if over:
+        return 400, {"error": f"prompt ({max(over)}) + max_new_tokens "
+                              f"({a['max_new']}) exceed the model context "
+                              f"({model.max_seq_len})"}
     if engine is None:
         return _run_generate_unary(model, a, max_batch_size,
                                    model_name=model_name, stream=stream)
@@ -269,13 +299,101 @@ def _run_generate_unary(model: LoadedModel, a: Dict[str, Any],
                  "tokens_per_sec": round(out.size / dt, 1)}
 
 
+def _run_generate_speculative(model: LoadedModel, body: Dict[str, Any],
+                              a: Dict[str, Any], *, model_name: str,
+                              stream: bool) -> Tuple[int, Dict[str, Any]]:
+    """The ``speculative: true`` half of :func:`run_generate`: the
+    reference's checks in its order, then the paired draft proposes and
+    the target verifies (``speculative_generate_jit``). Greedy output
+    equals the plain path token for token at f32 (at bf16 up to argmax
+    near-ties). The prompt pads to a power-of-two bucket and the new
+    tokens to a power of two within ``min(target ctx, draft ctx) -
+    prompt - draft_len`` (or the exact ask where only that fits); the
+    batch is served at its exact size, since filler rows would enter
+    the acceptance rate."""
+    try:
+        draft_len = int(body.get("draft_len", 4))
+    except (TypeError, ValueError):
+        return 400, {"error": "draft_len must be an int"}
+    if not 1 <= draft_len <= 16:
+        return 400, {"error": "draft_len must be in [1, 16]"}
+    draft = model.draft  # one atomic snapshot (see DraftPair)
+    if draft is None:
+        return 400, {"error": f"model {model_name!r} has no paired "
+                              "speculative draft (export one with "
+                              "export_model(..., draft_of=...); see "
+                              "kubeflow_tpu/train/distill.py)"}
+    if a["temperature"] != 0.0:
+        return 400, {"error": "speculative decoding is greedy-only "
+                              "(temperature must be 0)"}
+    if stream:
+        return 400, {"error": "speculative decoding does not stream "
+                              "(tokens emit in verified chunks)"}
+    if a["eos_id"] is not None or a["prefix_len"]:
+        return 400, {"error": "eos_id/prefix_len require the engine "
+                              "path; drop 'speculative' to use them"}
+    arr, max_new = a["arr"], a["max_new"]
+    lens = np.asarray(a["row_lens"], np.int32)
+    true_len = int(lens.max())
+    ctx = model.max_seq_len
+    bucket = pow2_bucket(true_len, ctx)
+    budget = max(min(ctx, draft.config.max_seq_len) - true_len - draft_len,
+                 0)
+    new_bucket = pow2_bucket(max_new, 1 << 30)
+    while new_bucket > budget:
+        new_bucket //= 2
+    if new_bucket < max_new <= budget:
+        new_bucket = max_new
+    if bucket < true_len or new_bucket < max_new:
+        return 400, {"error": f"prompt ({true_len}) + max_new_tokens "
+                              f"({max_new}) + draft_len ({draft_len}) "
+                              f"exceed the model context ({ctx}); "
+                              "speculation needs slack for in-flight "
+                              "proposals"}
+    padded = np.zeros((arr.shape[0], bucket), np.int32)
+    padded[:, :arr.shape[1]] = arr
+    dev = model.lm_params.token_embed.device
+    t0 = time.perf_counter()
+    try:
+        toks, stats = decode.speculative_generate_jit(
+            model.lm_params, draft.params,
+            torch.as_tensor(padded, device=dev), max_new_tokens=new_bucket,
+            draft_len=draft_len, true_len=torch.as_tensor(lens, device=dev))
+    except ValueError as e:
+        return 400, {"error": f"generate failed: {e}"}
+    except Exception as e:  # noqa: BLE001 — model or runtime fault
+        return 500, {"error": f"generate failed: {type(e).__name__}: {e}"}
+    out = toks.cpu().numpy()[:, :max_new]
+    dt = time.perf_counter() - t0
+    rate = stats["accepted"] / max(stats["draft_tokens"], 1)
+    _gen_requests.inc(model=model_name)
+    _gen_latency.set(dt, model=model_name)
+    _spec_requests.inc(model=model_name)
+    _spec_draft_tokens.inc(stats["draft_tokens"], model=model_name)
+    _spec_accepted_tokens.inc(stats["accepted"], model=model_name)
+    _spec_rate.set(rate, model=model_name)
+    return 200, {"tokens": out.tolist(),
+                 "model_version": str(model.version),
+                 "tokens_per_sec": round(out.size / dt, 1),
+                 "speculative": {
+                     "draft": draft.ref,
+                     "draft_len": draft_len,
+                     "rounds": stats["rounds"],
+                     "draft_tokens": stats["draft_tokens"],
+                     "accepted": stats["accepted"],
+                     "acceptance_rate": round(rate, 3),
+                 }}
+
+
 class ModelRepository:
     """Transformer models under ``<base>/<name>/<version>/``, newest
     served (or ``pin_version``); with ``decode_slots`` > 0 each version
     gets one decode engine. ``warmup`` (as in the reference) builds each
     engine with ``precompile``: both step paths run once before the
     first request, so no request pays their first call's set-up (on the
-    card: the sampler kernel's build and the first GEMMs')."""
+    card: the sampler kernel's build and the first GEMMs'). Every poll
+    pairs each served model with its speculative draft, if the store
+    holds one (:meth:`_attach_draft`)."""
 
     def __init__(self, base_path: str, *, decode_slots: int = 0,
                  decode_steps_per_sync: int = 1,
@@ -292,6 +410,7 @@ class ModelRepository:
         self._models: Dict[str, LoadedModel] = {}
         self._pinned: Dict[Tuple[str, int], LoadedModel] = {}
         self._engines: Dict[Tuple[str, int], DecodeEngine] = {}
+        self._draft_scans: Dict[str, Any] = {}
         self._lock = threading.Lock()
         self._engine_create_lock = threading.Lock()
         self._stop = threading.Event()
@@ -318,9 +437,12 @@ class ModelRepository:
             with self._lock:
                 current = self._models.get(name)
             if current is not None and current.version == latest:
+                # drafts pair, change or detach without a version bump
+                self._attach_draft(name, current)
                 continue
             log.info("loading model %s version %d", name, latest)
             loaded = load_version(mdir, latest, device=self.device)
+            self._attach_draft(name, loaded)
             with self._lock:
                 self._models[name] = loaded
                 stale = [k for k in self._engines
@@ -329,6 +451,58 @@ class ModelRepository:
                 retired = [self._engines.pop(k) for k in stale]
             for eng in retired:
                 eng.close()
+
+    def _store_signature(self) -> Any:
+        """A cheap change marker for the store (one mtime a model dir),
+        so a poll skips the draft scan when nothing was exported."""
+        try:
+            return tuple(
+                (d, os.path.getmtime(os.path.join(self.base_path, d)))
+                for d in sorted(os.listdir(self.base_path))
+                if os.path.isdir(os.path.join(self.base_path, d)))
+        except OSError:
+            return None
+
+    def _attach_draft(self, name: str, loaded: LoadedModel) -> None:
+        """Pair the store sibling declaring ``draft_of`` this model, as
+        one :class:`DraftPair` swap; replace it when a newer draft
+        appears and detach it when its export is gone. Best-effort: a
+        broken draft never stops its target from serving."""
+        sig = (loaded.version, self._store_signature())
+        if self._draft_scans.get(name) == sig:
+            return
+        self._draft_scans[name] = sig
+        try:
+            pair = find_draft_for(self.base_path, name, loaded.version)
+        except Exception:  # noqa: BLE001 — never abort the poll
+            log.warning("draft scan failed for %s", name, exc_info=True)
+            return
+        if pair is None:
+            if loaded.draft is not None:
+                log.info("draft %s for model %s removed — detaching",
+                         loaded.draft.ref, name)
+                loaded.draft = None
+            return
+        dname, dver = pair
+        if loaded.draft is not None and \
+                loaded.draft.ref == f"{dname}@{dver}":
+            return
+        try:
+            d = load_version(os.path.join(self.base_path, dname), dver,
+                             device=self.device)
+        except Exception:  # noqa: BLE001
+            log.exception("failed to load draft %s@%d for %s", dname, dver,
+                          name)
+            return
+        if d.vocab_size != loaded.vocab_size:
+            log.warning("draft %s@%d vocab %d != target %s vocab %d — "
+                        "ignoring", dname, dver, d.vocab_size, name,
+                        loaded.vocab_size)
+            return
+        loaded.draft = DraftPair(config=d.lm_config, params=d.lm_params,
+                                 ref=f"{dname}@{dver}")
+        log.info("paired speculative draft %s with model %s@%d",
+                 loaded.draft.ref, name, loaded.version)
 
     def get(self, name: str,
             version: Optional[int] = None) -> Optional[LoadedModel]:
@@ -376,10 +550,14 @@ class ModelRepository:
             return None
         with self._lock:
             served = self._models.get(name)
-        return {"model_version_status": [
+        out: Dict[str, Any] = {"model_version_status": [
             {"version": str(v),
              "state": "AVAILABLE" if served and served.version == v
              else "END_OF_LIFE"} for v in versions]}
+        draft = served.draft if served is not None else None
+        if draft is not None:
+            out["speculative_draft"] = draft.ref
+        return out
 
     def start_polling(self) -> None:
         def loop():

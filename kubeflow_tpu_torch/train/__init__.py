@@ -2,6 +2,7 @@
 and checkpoints."""
 
 from kubeflow_tpu_torch.train.trainer import (  # noqa: F401
+    AdamW,
     Optimizer,
     Sgd,
     TrainState,

@@ -10,7 +10,7 @@ device of the state's parameters; there is no mesh yet (data parallelism
 is ROADMAP Queue A).
 
 The optimizer is optax's chain written in plain tensor ops, with optax's
-numerics:
+numerics (:class:`AdamW` is bare ``optax.adamw``):
 
 - ``clip_by_global_norm``: updates become ``(g / norm) * max_norm`` only
   when ``norm >= max_norm`` (no ``+1e-6`` as in
@@ -77,21 +77,38 @@ class Optimizer:
         """One update of ``params`` in place from ``grads``; advances
         ``state``. ``grad_norm`` is the global norm of ``grads`` when
         the caller has it."""
-        if grad_norm is None:
+        clip = math.isfinite(self.grad_clip)
+        if clip and grad_norm is None:
             grad_norm = global_norm(grads)
-        keep = grad_norm < self.grad_clip
+        keep = grad_norm < self.grad_clip if clip else None
         lr = self.schedule(state["count"])
         count = state["count"] + 1
         c1 = 1.0 - self.b1 ** count
         c2 = 1.0 - self.b2 ** count
         for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
-            g = torch.where(keep, g, (g / grad_norm) * self.grad_clip)
+            if clip:
+                g = torch.where(keep, g, (g / grad_norm) * self.grad_clip)
             mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
             nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
             upd = (mu / c1) / ((nu / c2).sqrt() + self.eps)
             upd.add_(p, alpha=self.weight_decay)
             p.add_(upd, alpha=-lr)
         state["count"] = count
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW(Optimizer):
+    """``optax.adamw(learning_rate)`` at optax's defaults: b1 0.9, b2
+    0.999, eps 1e-8, weight decay 1e-4 on every parameter, a constant
+    learning rate and no clipping (the draft distillation's optimizer,
+    ``train/distill.py``)."""
+
+    b2: float = 0.999
+    weight_decay: float = 1e-4
+    grad_clip: float = math.inf
+
+    def schedule(self, count: int) -> float:
+        return self.learning_rate
 
 
 def make_optimizer(learning_rate: float = 3e-4, *, warmup_steps: int = 100,
@@ -281,10 +298,10 @@ def make_lm_train_step(*, moe_aux_weight: float = 0.01,
     return_hidden=True)``) and the loss projects to the vocab per chunk
     (:func:`chunked_next_token_loss`); pass the model's
     ``logits_softcap`` here, as the hidden-states model never applies
-    it. ``moe_aux_weight`` is accepted for the reference's signature:
-    the port has no MoE yet, so there is no auxiliary loss.
+    it. The gradient is that of ``loss + moe_aux_weight * aux``, ``aux``
+    the MoE layers' summed load-balance loss (0 without MoE); ``loss``
+    in the metrics is the LM loss alone, as the reference reports it.
     """
-    del moe_aux_weight
 
     def step(state: TrainState, tokens) -> Tuple[TrainState, Dict[str, Any]]:
         model = state.module
@@ -293,7 +310,7 @@ def make_lm_train_step(*, moe_aux_weight: float = 0.01,
             raise ValueError("loss_chunk needs a model that returns hidden "
                              "states (return_hidden=True)")
         params = state.params
-        out = model(tokens)
+        out, aux = model(tokens, return_aux=True)
         if loss_chunk:
             embed = dict(model.named_parameters())["token_embed"]
             loss = chunked_next_token_loss(out, embed, tokens,
@@ -301,7 +318,7 @@ def make_lm_train_step(*, moe_aux_weight: float = 0.01,
                                            softcap=logits_softcap)
         else:
             loss = next_token_loss(out, tokens)
-        grads = torch.autograd.grad(loss, params)
+        grads = torch.autograd.grad(loss + moe_aux_weight * aux, params)
         grad_norm = global_norm(grads)
         state.apply_gradients(grads, grad_norm)
         return state, {"loss": loss.detach(), "grad_norm": grad_norm,

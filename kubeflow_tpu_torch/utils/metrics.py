@@ -1,10 +1,11 @@
 """Prometheus-style metrics for the port: counters, gauges, histograms.
 
 A trimmed copy of ``kubeflow_tpu/utils/metrics.py``: the registry, the
-three metric kinds the engine and server use, and the classic 0.0.4
-text exposition (the port records no trace exemplars yet). Series
-names, help strings and label keys are the JAX package's, so the edge
-poller scrapes a GPU replica unchanged.
+three metric kinds the engine, the server and the step telemetry use,
+``STEP_TIME_BUCKETS``, and the classic 0.0.4 text exposition (the port
+records no trace exemplars yet, so its exposition is the reference's
+without them). Series names, help strings and label keys are the JAX
+package's, so the edge poller scrapes a GPU replica unchanged.
 """
 
 from __future__ import annotations
@@ -64,6 +65,12 @@ class Metric:
 
 DEFAULT_BUCKETS: Tuple[float, ...] = (
     0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+
+# train-step wall times: sub-10 ms steps through minutes-long stalls,
+# which DEFAULT_BUCKETS would fold into +Inf
+STEP_TIME_BUCKETS: Tuple[float, ...] = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
+    2.5, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0)
 
 
 def _fmt_bound(b: float) -> str:

@@ -8,8 +8,11 @@ flash attention with remat; random weights from a numpy seed), takes two
 warm-up steps of ``make_lm_train_step``, and profiles the next step with
 ``torch.profiler``. With ``--bert`` it builds phase 11's BERT-base
 configuration instead (``bench/suite.py:bench_bert``: batch 16, seq 512,
-the flash kernels non-causal) and profiles ``make_mlm_train_step``.
-Prints, and writes to ``chiprun_out/port_train_profile[_bert].json``:
+the flash kernels non-causal) and profiles ``make_mlm_train_step``;
+with ``--lm-entry``, the LM entry point's defaults (``examples/lm.py``:
+d_model 768, 12 layers, seq 512, batch 8, dense attention with remat;
+step 3's batch of ``batch_for_step``). Prints, and writes as
+``port_train_profile[_bert|_lm_entry].json`` in the output directory:
 
 - step wall time, tokens/s and MFU (the bench's flop count over 989
   TFLOP/s, bf16 dense);
@@ -17,7 +20,8 @@ Prints, and writes to ``chiprun_out/port_train_profile[_bert].json``:
 - device time by class (the three flash kernels, GEMMs, everything
   else) and by kernel name (top 15), and the flash kernels' launches.
 
-Usage: ``python3 scripts/port_train_profile.py [--bert]`` (needs CUDA).
+Usage: ``python3 scripts/port_train_profile.py [--bert | --lm-entry]``
+(needs CUDA).
 """
 
 from __future__ import annotations
@@ -47,6 +51,30 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
+def lm_entry_setup(device):
+    """``examples/lm.py``'s state at its defaults and a batch of it."""
+    from kubeflow_tpu_torch.examples.lm import batch_for_step
+    from kubeflow_tpu_torch.models.convert import random_params
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.train import create_train_state, make_optimizer
+
+    cfg = TransformerConfig(vocab_size=32000, d_model=768, n_layers=12,
+                            n_heads=12, n_kv_heads=12, d_ff=3072,
+                            max_seq_len=512)
+    state = create_train_state(
+        cfg, random_params(cfg, 0),
+        make_optimizer(3e-4, warmup_steps=20, decay_steps=101),
+        device=device)
+    return cfg, state, batch_for_step(3, 8, 512, cfg.vocab_size)
+
+
+def lm_entry_flops(cfg, n_params: int) -> int:
+    """6·N·tokens plus the causal attention products, remat excluded
+    (``train_flops``'s count at batch 8)."""
+    B, S = 8, cfg.max_seq_len
+    return 6 * n_params * B * S + 6 * cfg.n_layers * B * S * S * cfg.d_model
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -67,7 +95,13 @@ def main() -> int:
         text=True).stdout.strip()
     device = torch.device("cuda", 0)
     bert = "--bert" in sys.argv[1:]
-    if bert:
+    entry = "--lm-entry" in sys.argv[1:]
+    if entry:
+        cfg, state, tokens = lm_entry_setup(device)
+        batch = (tokens,)
+        tokens_per_step = tokens.numel()
+        step, flops = make_lm_train_step(), lm_entry_flops
+    elif bert:
         cfg, state, batch = cs.bert_setup(device)
         tokens_per_step = cs.BERT_BATCH * cs.BERT_SEQ
         step, flops = make_mlm_train_step(), cs.bert_train_flops
@@ -99,7 +133,8 @@ def main() -> int:
         cls = kernel_class(name)
         by_class[cls] = by_class.get(cls, 0.0) + ms
     n_params = sum(p.numel() for p in state.params)
-    out = {"device": ident, "config": "bert" if bert else "lm",
+    config = "lm_entry" if entry else "bert" if bert else "lm"
+    out = {"device": ident, "config": config,
            "step_wall_ms": wall * 1e3,
            "tokens_per_s": tokens_per_step / wall,
            "mfu": flops(cfg, n_params) / wall / cs.BF16_FLOPS,
@@ -115,7 +150,8 @@ def main() -> int:
                                     key=lambda kv: -kv[1])[:15]}
     print(json.dumps(out, indent=1))
     os.makedirs("chiprun_out", exist_ok=True)
-    name = "port_train_profile_bert" if bert else "port_train_profile"
+    name = ("port_train_profile" if config == "lm"
+            else f"port_train_profile_{config}")
     with open(f"chiprun_out/{name}.json", "w") as f:
         json.dump(out, f, indent=1)
     return 0

@@ -169,3 +169,29 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                          capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=""))
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_the_lm_slice_is_scanned_and_needs_cuda(tmp_path, monkeypatch):
+    """The slice's new modules are among the sources scanned above, and
+    the LM entry point, like BERT's, refuses to run without CUDA unless
+    ``--device cpu`` is passed."""
+    scanned = {str(p.relative_to(PKG)) for p in _sources()
+               if PKG in p.parents}
+    for mod in ("obs/steps.py", "obs/trace.py", "obs/export.py",
+                "obs/xprof.py", "ops/moe.py", "train/distill.py",
+                "examples/lm.py"):
+        assert mod in scanned, mod
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is usable")
+    from kubeflow_tpu_torch.examples import lm as lm_example
+
+    monkeypatch.setenv("KFTPU_CHECKPOINT_DIR", str(tmp_path / "ckpt"))
+    monkeypatch.delenv("KFTPU_PROFILE_DIR", raising=False)
+    tiny = ["--steps", "1", "--vocab-size", "64", "--d-model", "32",
+            "--n-layers", "1", "--n-heads", "2", "--d-ff", "32",
+            "--seq-len", "8", "--per-device-batch", "1"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm_example.main(tiny)
+    assert not (tmp_path / "ckpt").exists()
+    loss = lm_example.main(tiny + ["--device", "cpu"])
+    assert loss == loss and (tmp_path / "ckpt" / "1").is_dir()
