@@ -35,6 +35,10 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
    with the paged cache and the fused sampler, POST 8 concurrent
    ``:generate`` requests (greedy and sampled, ~300-token prompts, 64 new
    tokens) and require both kernels to have launched during that run;
+   the engine gets a fresh ``RequestLedger`` and tracer: 8 records that
+   tile their wall clock, each with prefill and decode seconds and 64
+   tokens, each trace's ``engine.*`` spans under its
+   ``serving.generate`` span;
 4. run the same greedy requests through the engine in f32 with the
    kernel and with the gather path (TF32 off) and require identical
    token streams;
@@ -76,7 +80,10 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
    then a second fused burst holds every sampler call the engine makes
    (the sampled steps at (32, 32000), the batch prefills' first tokens)
    against the plain sampler on the same inputs, token for token, and
-   its streams against the timed burst's;
+   its streams against the timed burst's; each engine's fresh
+   ``RequestLedger`` holds 48 tiling records of 128 tokens, and the
+   first wave's TTFT read off it (``bench/suite.py:
+   ledger_burst_ttft_ms``) is within 5% of the queue-based reading;
 10. the phase-3 export in f32 (TF32 off) through the dense engine with
     burst admission, the paged engine with its kernel, the unary
     ``LoadedModel.generate`` and a default ``ModelServer`` (no
@@ -113,7 +120,29 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
 16. a ``ModelServer`` over phase 14's store pairs the draft: 4 prompts
     of 32 tokens, 64 new, greedy, with ``speculative: true, draft_len:
     4`` and without; at f32 (TF32 off) token-identical, with the round
-    stats and the four speculative counters; at bf16 timed.
+    stats and the four speculative counters; at bf16 timed;
+17. ``:predict`` through one ``ModelServer`` (``warmup=True``) over
+    exports written by the port's ``export_model`` from numpy seeds:
+    ``mnist``, ResNet-50 (``bench_resnet50``'s widths, bf16 over f32,
+    the ``conv`` stem) fused and the same weights unfused, BERT-base
+    (bf16, ``attention_impl="auto"``) and phase 3's LM. Every padded
+    bucket of the image kinds warmed; mnist at batch 1, 3 and 8 held to
+    the same weights on the CPU; 8 ResNet images over HTTP launching the
+    bnconv forward 16 times a fused call; BERT at (1, 128) over HTTP and
+    (8, 512) in process launching the flash forward 12 times a call; no
+    backward kernel ever; the LM's last-position argmax at (2, 64) equal
+    to ``:generate``'s greedy first token; a wrong-shaped ResNet request
+    400; an id past BERT's vocabulary the reference's NaN sequence, the
+    card serving on. Each kind's request wall p50 over 5 calls and its
+    split (JSON decode, host to device, forward by CUDA events, device
+    to host, JSON encode) and peak memory are printed. Before it, both
+    kernels are held to their plain versions and timed at the shapes
+    ``:predict`` gives them, without autograd (bnconv at the four sites
+    at batch 1 and 8, flash at (1, 128) and (8, 512));
+18. f32 (TF32 off) ``:predict`` parity from the same weights: ResNet-50
+    fused against unfused (the same top-1 for 8 images, logits within
+    1e-4 of their max-abs) and BERT-base flash against dense (logits
+    within 1e-5).
 
 Each phase prints its seconds. Phase 2 also holds the bnconv forward and
 dW kernels, and the autograd function's four gradients, against their
@@ -137,7 +166,9 @@ that path, read just after): ``paged_serving`` and ``dense_serving``
 (rows 1-2), ``lm_train``, ``bert_train`` and ``bert_entry`` (rows 3-5),
 ``resnet_train`` (rows 6-7), and on every row ``lm_entry``,
 ``moe_train`` and ``spec_serving`` (phases 14-16: the reference's dense,
-greedy defaults launch none of the kernels, which those phases require).
+greedy defaults launch none of the kernels, which those phases require)
+and ``predict`` (phase 17's calls). The flash forward and bnconv forward
+rows also carry ``predict_shapes``: their times at the inference shapes.
 """
 
 from __future__ import annotations
@@ -152,6 +183,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1173,6 +1205,8 @@ def serve_phase(base: str, cfg, device, *, n_requests=8, prompt_len=300,
         # warm-up: engine build, first cuBLAS handles; not counted
         _post(url, {"prompt_tokens": [[1, 2, 3]], "max_new_tokens": 2},
               False)
+        led, col = fresh_trace(server.repo.engine_for(
+            "lm", server.repo.get("lm")))
         prompts = prompts_for(n_requests, prompt_len, cfg.vocab_size)
         bodies = []
         for i, p in enumerate(prompts):
@@ -1215,9 +1249,36 @@ def serve_phase(base: str, cfg, device, *, n_requests=8, prompt_len=300,
             check(len(toks) == max_new, f"request {i}: {len(toks)} tokens")
             check(all(0 <= t < cfg.vocab_size for t in toks),
                   f"request {i}: token out of range")
+        recs = led.records("lm")
+        check(len(recs) == n_requests, f"{len(recs)} ledger records for "
+                                       f"{n_requests} requests")
+        ledger_records(led, [r.rid for r in recs], max_new)
+        check(all(r.chunks >= 1 for r in recs), "a paged record counts no "
+                                                "prefill chunk")
+        from kubeflow_tpu_torch.obs.trace import DEFAULT_COLLECTOR
+
+        for rec in recs:
+            # the handler's span continues into the engine's: one trace
+            # a request, the ledger keyed by it
+            root = [s for s in DEFAULT_COLLECTOR.trace(rec.rid)
+                    if s.name == "serving.generate"]
+            spans = {s.name: s for s in col.trace(rec.rid)}
+            check(len(root) == 1 and root[0].attrs.get("http.status")
+                  == 200, f"record {rec.rid}: serving spans {root}")
+            for name in ("engine.queue_wait", "engine.admit",
+                         "engine.prefill_chunk", "engine.first_token",
+                         "engine.decode"):
+                check(name in spans, f"trace {rec.rid}: no {name} "
+                                     f"({sorted(spans)})")
+            check(spans["engine.queue_wait"].parent_id == root[0].span_id,
+                  f"trace {rec.rid}: engine.queue_wait is not a child of "
+                  f"serving.generate")
         return {"wall_s": wall,
                 "tokens_per_s": n_requests * max_new / wall,
-                "ttft_s": ttfts, "launches": launches}
+                "ttft_s": ttfts, "launches": launches,
+                "ledger_p50_s": ledger_p50(recs),
+                "ledger_ttft_ms": sorted(round(r.ttft_ms, 1)
+                                         for r in recs)}
     finally:
         server.stop()
         for k, v in saved.items():
@@ -1779,6 +1840,7 @@ def dense_run(cfg, model, prompts, device, *, sampler_impl=None,
 
     eng = dense_engine(cfg, model, device, sampler_impl)
     check(not eng.paged, "the dense engine came up paged")
+    led, _ = fresh_trace(eng)
     kw = DENSE_SAMPLED if sampled else {}
     dense_warm(eng, prompts, kw)
     torch.cuda.synchronize()
@@ -1794,8 +1856,17 @@ def dense_run(cfg, model, prompts, device, *, sampler_impl=None,
         check(all(0 <= x < cfg.vocab_size for x in t),
               f"dense request {i}: token out of range")
     firsts = [(r.out.first_put - t0) * 1e3 for r in reqs[:DENSE_SLOTS]]
+    recs = ledger_records(led, [r.rid for r in reqs], DENSE_NEW)
+    # the reference bench's burst TTFT, off the ledger, against the
+    # phase's own reading at the requests' queues
+    ledger_ttft = ledger_burst_ttft_ms(led, reqs[:DENSE_SLOTS])
+    check(abs(ledger_ttft - max(firsts)) <= 0.05 * max(firsts),
+          f"first-wave TTFT: ledger {ledger_ttft:.2f} ms vs queues "
+          f"{max(firsts):.2f} ms")
     out = {"tokens_per_s": DENSE_REQUESTS * DENSE_NEW / wall,
            "wall_s": wall, "ttft_ms": max(firsts),
+           "ledger_ttft_ms": ledger_ttft,
+           "ledger_p50_s": ledger_p50(recs),
            "ttft_ms_median": statistics.median(firsts),
            "steps": eng.steps_total - steps0,
            "batch_prefills": eng.batch_prefills - bp0,
@@ -1894,9 +1965,8 @@ def dense_parity_phase(base: str, cfg, device, *, n=4, max_new=24,
     padded = np.zeros((n, 256), np.int32)
     for i, p in enumerate(prompts):
         padded[i, :len(p)] = p
-    loaded = LoadedModel(kind="transformer", version=1, lm_config=cfg32,
-                         lm_params=model, max_seq_len=cfg32.max_seq_len,
-                         vocab_size=cfg32.vocab_size)
+    loaded = LoadedModel(kind="transformer", version=1, module=model,
+                         apply=lambda m, x: m(x))
     streams["unary"] = loaded.generate(padded, lens, max_new, 0.0, 0,
                                        greedy=True).tolist()
     del model, loaded
@@ -2635,6 +2705,579 @@ def spec_serving_phase(device, store: str, *, n=4, prompt_len=32,
         shutil.rmtree(f32, ignore_errors=True)
 
 
+# -- the request ledger on the serving phases (3 and 9) ----------------------
+
+
+def fresh_trace(eng):
+    """Give ``eng`` a fresh ledger and a tracer into a fresh collector on
+    its own clock: (ledger, collector)."""
+    from kubeflow_tpu_torch.obs.requests import RequestLedger
+    from kubeflow_tpu_torch.obs.trace import SpanCollector, Tracer
+
+    led, col = RequestLedger(), SpanCollector()
+    eng.rledger = led
+    eng.tracer = Tracer(col, clock=eng.clock)
+    return led, col
+
+
+def ledger_records(led, rids, tokens: int) -> list:
+    """The finished records of ``rids``: each tiles its wall clock
+    exactly, has prefill and decode seconds and ``tokens`` tokens."""
+    from kubeflow_tpu_torch.obs.requests import DECODE, PREFILL, check_tiling
+
+    check(led.live_count() == 0, f"{led.live_count()} records left live")
+    by_rid = {r.rid: r for r in led.records()}
+    recs = []
+    for i, rid in enumerate(rids):
+        rec = by_rid.get(rid)
+        check(rec is not None, f"request {i}: no ledger record")
+        try:
+            check_tiling(rec)
+        except AssertionError as e:
+            raise SmokeFailure(f"request {i}: record does not tile: {e}")
+        check(PREFILL in rec.seconds and DECODE in rec.seconds,
+              f"request {i}: phases {sorted(rec.seconds)}")
+        check(rec.tokens == tokens,
+              f"request {i}: {rec.tokens} tokens recorded, not {tokens}")
+        recs.append(rec)
+    return recs
+
+
+def ledger_p50(recs) -> dict:
+    """Median seconds of each phase over the records that have it."""
+    phases = sorted({p for r in recs for p in r.seconds})
+    return {p: round(statistics.median(r.seconds[p] for r in recs
+                                       if p in r.seconds), 6)
+            for p in phases}
+
+
+def ledger_burst_ttft_ms(led, wave) -> float:
+    """The reference bench's burst TTFT off the ledger
+    (``bench/suite.py:ledger_burst_ttft_ms``): wall from the wave's first
+    submit until every member held its first token."""
+    ttfts = [led.ttft_ms(r.rid) for r in wave]
+    check(all(f is not None for f in ttfts), "a wave member has no TTFT")
+    return (max(r.t_submit + f / 1e3 for r, f in zip(wave, ttfts))
+            - min(r.t_submit for r in wave)) * 1e3
+
+
+# -- phase 17: :predict for every servable kind through one ModelServer ------
+
+
+PREDICT_CALLS = 5
+PREDICT_BUCKETS = (1, 2, 4, 8)
+# bench/suite.py:bench_resnet50's widths and dtypes, the serving stem
+RESNET_SERVING = dict(stage_sizes=[3, 4, 6, 3], num_classes=1000, width=64,
+                      dtype="bfloat16", param_dtype="float32",
+                      bn_dtype="bfloat16", stem="conv")
+# bench/suite.py:bench_bert's widths (BERT-base)
+BERT_SERVING = dict(vocab_size=30522, d_model=768, n_layers=12, n_heads=12,
+                    d_ff=3072, max_seq_len=512, dtype="bfloat16",
+                    param_dtype="float32", attention_impl="auto")
+
+
+def randomized_bn(variables, seed):
+    """ResNet variables with every BN scale near one (bn3's too, which
+    the reference's init zeroes, so that the fused layer's output is not
+    multiplied away), shifts and running means small, running variances
+    in [0.5, 1.5)."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models import convert
+
+    rng = np.random.default_rng(seed)
+    flat = convert.flatten(variables)
+    for key, arr in flat.items():
+        if key.endswith("/scale"):
+            arr = 1.0 + 0.2 * rng.standard_normal(arr.shape)
+        elif key.endswith("/bias") or key.endswith("/mean"):
+            arr = 0.1 * rng.standard_normal(arr.shape)
+        elif key.endswith("/var"):
+            arr = 0.5 + rng.random(arr.shape)
+        flat[key] = np.asarray(arr, np.float32)
+    return convert.unflatten(flat)
+
+
+def resnet_serving_variables():
+    """Fused-layout ResNet-50 variables (conv stem) from a numpy seed."""
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.resnet import ResNetConfig
+
+    cfg = ResNetConfig(**{**RESNET_SERVING, "stage_sizes":
+                          tuple(RESNET_SERVING["stage_sizes"])},
+                       fused_bn_conv=True)
+    return randomized_bn(convert.random_resnet_params(cfg, SEED + 70),
+                         SEED + 71)
+
+
+def write_predict_store(root: str, base: str, image: int = 224) -> None:
+    """``mnist``; ResNet-50 fused (``resnet50``) and the same weights
+    unfused (``resnet50u``); BERT-base (``bert``); and phase 3's LM
+    export (``lm``, linked), all random from numpy seeds and written by
+    the port's ``export_model``."""
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.bert import BertConfig
+    from kubeflow_tpu_torch.serving.model_store import export_model
+
+    os.makedirs(root, exist_ok=True)
+    export_model(os.path.join(root, "mnist"), "mnist",
+                 convert.random_mnist_params(SEED + 72))
+    variables = resnet_serving_variables()
+    shape = (image, image, 3)
+    export_model(os.path.join(root, "resnet50"), "resnet", variables,
+                 config=dict(RESNET_SERVING, fused_bn_conv=True),
+                 input_shape=shape)
+    export_model(os.path.join(root, "resnet50u"), "resnet",
+                 convert.unfuse_bn_conv(variables),
+                 config=dict(RESNET_SERVING, fused_bn_conv=False),
+                 input_shape=shape)
+    export_model(os.path.join(root, "bert"), "bert",
+                 convert.random_bert_params(BertConfig(**BERT_SERVING),
+                                            SEED + 73),
+                 config=BERT_SERVING)
+    os.symlink(os.path.join(base, "lm"), os.path.join(root, "lm"))
+
+
+def _post_raw(url, raw: bytes) -> tuple:
+    """(status, response bytes, seconds) of one POST of an encoded body,
+    an HTTP error's included; the seconds end when the response's last
+    byte is read (the client's own JSON work lies outside)."""
+    req = urllib.request.Request(url, data=raw, headers={
+        "Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            code, data = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        code, data = e.code, e.read()
+    return code, data, time.perf_counter() - t0
+
+
+def _post_status(url, body) -> tuple:
+    """(status, JSON body) of one POST, an HTTP error's included."""
+    code, data, _ = _post_raw(url, json.dumps(body).encode())
+    return code, json.loads(data)
+
+
+def predict_split(loaded, raw: bytes, max_batch: int) -> dict:
+    """One request's server-side work in process, split as the handler
+    runs it: JSON decode (and the f32 cast and batch padding), host to
+    device, the forward (CUDA events), device to host, JSON encode."""
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch.serving.server import _pad_batch
+
+    t0 = time.perf_counter()
+    arr = np.asarray(json.loads(raw)["instances"])
+    if arr.dtype == np.float64:
+        arr = arr.astype(np.float32)
+    padded, n = _pad_batch(arr, max_batch)
+    t1 = time.perf_counter()
+    x = torch.as_tensor(padded).to(loaded.device)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    y = loaded.forward(x)
+    end.record()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    out = y.float().cpu().numpy()[:n]
+    t4 = time.perf_counter()
+    json.dumps({"predictions": out.tolist(),
+                "model_version": str(loaded.version)})
+    t5 = time.perf_counter()
+    return {"decode_ms": (t1 - t0) * 1e3, "h2d_ms": (t2 - t1) * 1e3,
+            "forward_ms": start.elapsed_time(end),
+            "forward_wall_ms": (t3 - t2) * 1e3, "d2h_ms": (t4 - t3) * 1e3,
+            "encode_ms": (t5 - t4) * 1e3}
+
+
+def counted(totals: dict, fn, *, want=None):
+    """``fn()`` with the launch counts zeroed just before it and read just
+    after, added into ``totals`` (the predict path's record); the call
+    must launch ``want`` (kernel: count). Returns ``fn()``'s result."""
+    from kubeflow_tpu_torch import ops
+
+    ops.reset_launches()
+    result = fn()
+    launched = ops.launch_counts()
+    for kern, n in launched.items():
+        totals[kern] += n
+    for kern, n in (want or {}).items():
+        check(launched[kern] == n,
+              f"a :predict call launched {kern} {launched[kern]} times, "
+              f"not {n}")
+    return result
+
+
+def predict_timed(server, url, name, body, totals, want) -> dict:
+    """``PREDICT_CALLS`` HTTP calls of one body through :func:`counted`:
+    request wall p50, the in-process split's p50s and peak memory."""
+    import torch
+
+    raw = json.dumps(body).encode()
+    loaded = server.repo.get(name)
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(PREDICT_CALLS):
+        code, data, wall = counted(totals, lambda: _post_raw(url, raw),
+                                   want=want)
+        walls.append(wall)
+        check(code == 200, f"{name} :predict answered {code}: "
+                           f"{data[:300]!r}")
+    last = json.loads(data)
+    peak = torch.cuda.max_memory_allocated()
+    splits = [predict_split(loaded, raw, server.max_batch_size)
+              for _ in range(PREDICT_CALLS)]
+    out = {"wall_ms": statistics.median(walls) * 1e3,
+           "request_mb": len(raw) / 2 ** 20,
+           "peak_gb": peak / 2 ** 30,
+           "transient_gb": (peak - base_bytes) / 2 ** 30,
+           "predictions": last["predictions"]}
+    for key in splits[0]:
+        out[key] = statistics.median(s[key] for s in splits)
+    return out
+
+
+def check_predict_kernels(device) -> dict:
+    """The bnconv forward and the flash forward at the shapes ``:predict``
+    gives them, under ``torch.inference_mode`` (no autograd): bnconv at
+    the four ResNet-50 sites at batch 1 (M = 3136, 784, 196, 49: no
+    multiple of the 128-row tile but the first) and batch 8, flash at
+    BERT-base's (1, 128) and (8, 512), non-causal; bf16 against the plain
+    versions at phase 2's limits, then timed beside bound and plain
+    version; bnconv beside a bf16 ``torch.matmul`` of a precomputed y
+    (``matmul_ms``, for scale: no PyTorch call computes the function),
+    flash beside ``scaled_dot_product_attention`` (``library_ms``).
+    Per-call figures sum the 16 bnconv sites; flash is one layer's
+    call."""
+    import torch
+
+    from kubeflow_tpu_torch.ops import bnconv as bc
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    bf = torch.bfloat16
+    out = {}
+    with torch.inference_mode():
+        for batch in (1, 8):
+            acc = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                       ops_ms=0.0, matmul_ms=0.0, max_abs_err=0.0)
+            for seed, (M, K, N, blocks) in enumerate(RESNET50_SITES,
+                                                     SEED + 80):
+                M = M // RESNET_BATCH * batch
+                x, a, b, w, _ = bnconv_inputs(M, K, N, bf, device, seed)
+                got = bc.bnconv_fwd(x, a, b, w)
+                want = bc.bnconv_fwd_plain(x, a, b, w)
+                torch.cuda.synchronize()
+                rel = norm_err(got, want)
+                check(bool(torch.isfinite(got.float()).all())
+                      and rel <= BNCONV_BF16_LIMIT,
+                      f"bnconv_fwd inference ({M}, {K}, {N}): norm err "
+                      f"{rel} > {BNCONV_BF16_LIMIT}")
+                acc["max_abs_err"] = max(acc["max_abs_err"], (
+                    got.float() - want.float()).abs().max().item())
+                y = bc.activation(x, a, b)
+                nbytes, flops = bnconv_bytes_ops(M, K, N, 2)["bnconv_fwd"]
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = flops / BF16_FLOPS * 1e3
+                ms = time_ms(lambda: bc.bnconv_fwd(x, a, b, w))
+                plain_ms = time_ms(lambda: bc.bnconv_fwd_plain(x, a, b, w),
+                                   iters=5)
+                matmul_ms = time_ms(lambda: torch.matmul(y, w))
+                print(f"bnconv_fwd inference bf16 ({M}, {K}, {N}), batch "
+                      f"{batch}: norm err {rel:.2e} kernel_ms={ms:.4f} "
+                      f"bound_ms={max(t_bytes, t_ops):.4f} ({nbytes} B) "
+                      f"plain_ms={plain_ms:.4f} bf16 matmul of y alone "
+                      f"{matmul_ms:.4f}", flush=True)
+                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                                 ("bound_ms", max(t_bytes, t_ops)),
+                                 ("bytes_ms", t_bytes), ("ops_ms", t_ops),
+                                 ("matmul_ms", matmul_ms)):
+                    acc[key] += blocks * val
+            acc["bound_by"] = ("bytes" if acc.pop("bytes_ms")
+                               >= acc.pop("ops_ms") else "operations")
+            out[f"bnconv_fwd_b{batch}"] = acc
+            print(f"bnconv_fwd inference per call (16 sites), batch "
+                  f"{batch}: kernel_ms={acc['ms']:.4f} bound_ms="
+                  f"{acc['bound_ms']:.4f} plain_ms={acc['plain_ms']:.4f} "
+                  f"matmul of y alone {acc['matmul_ms']:.4f}", flush=True)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        for seed, (B, S) in enumerate(((1, 128), (8, 512)), SEED + 90):
+            H, D = 12, 64
+            q, k, v, _, _ = flash_inputs(B, S, H, D, bf, device, seed,
+                                         masked=False)
+            got, lse = fa.flash_fwd(q, k, v, causal=False)
+            want, want_lse = fa.flash_fwd_plain(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            rel = norm_err(got, want)
+            lse_err = (lse - want_lse).abs().max().item()
+            check(rel <= FLASH_BF16_NORM_LIMIT and lse_err <= 1e-5,
+                  f"flash_fwd inference ({B}, {S}): norm err {rel}, lse "
+                  f"err {lse_err}")
+            nbytes, flops = flash_bytes_ops(B, S, H, D, 2,
+                                            False)["flash_fwd"]
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / BF16_FLOPS * 1e3
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            rec = {"max_abs_err": (got.float() - want.float()).abs().max()
+                   .item(),
+                   "ms": time_ms(lambda: fa.flash_fwd(q, k, v,
+                                                      causal=False)),
+                   "plain_ms": time_ms(lambda: fa.flash_fwd_plain(
+                       q, k, v, causal=False), iters=5),
+                   "library_ms": time_ms(lambda: sdpa(qt, kt, vt,
+                                                      is_causal=False)),
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops
+                   else "operations"}
+            out[f"flash_fwd_b{B}_s{S}"] = rec
+            print(f"flash_fwd inference bf16 non-causal B={B} S={S} H=12 "
+                  f"D=64: norm err {rel:.2e} kernel_ms={rec['ms']:.4f} "
+                  f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) "
+                  f"plain_ms={rec['plain_ms']:.4f} library_ms="
+                  f"{rec['library_ms']:.4f} (scaled_dot_product_attention)",
+                  flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def predict_phase(device, base: str, *, image: int = 224,
+                  bert_big=(8, 512)) -> dict:
+    """Phase 17: one ``ModelServer`` (``warmup=True``) over
+    :func:`write_predict_store`'s exports answers ``:predict`` for every
+    kind, each call's launches checked (bnconv forward 16 a fused
+    ResNet-50 call, flash forward 12 a BERT-base call, no backward
+    kernel ever); the LM's last-position argmax equals the greedy first
+    token of ``:generate``; a wrong shape answers 400 and an id past the
+    vocabulary the reference's NaN row, the card serving on after it.
+    ``image`` and ``bert_big`` (and the module's ``RESNET_SERVING`` and
+    ``BERT_SERVING``) shrink for a rehearsal on the CPU."""
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.serving.model_store import build_model
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    root = os.path.join(base, "predict-store")
+    t0 = time.perf_counter()
+    write_predict_store(root, base, image)
+    export_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    server = ModelServer(root, port=0, warmup=True, poll_interval_s=3600,
+                         device=device)
+    load_s = time.perf_counter() - t0
+    port = server.start()
+
+    def url(name, verb="predict"):
+        return f"http://127.0.0.1:{port}/v1/models/{name}:{verb}"
+
+    totals = {name: 0 for name in ("paged_decode_attention", "fused_sample",
+                                   "flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv", "bnconv_fwd",
+                                   "bnconv_dw")}
+    none = {k: 0 for k in totals}
+    # off the card the wrappers take their plain versions: no launches
+    on_card = torch.device(device).type == "cuda"
+    fused_call = dict(none, bnconv_fwd=16 * on_card)
+    bert_call = dict(none, flash_fwd=12 * on_card)
+    res = {"export_s": export_s, "load_s": load_s, "kinds": {}}
+    try:
+        warmed = server.repo.warmed
+        want_warm = {("mnist", 1): 4, ("resnet50", 1): 4,
+                     ("resnet50u", 1): 4, ("bert", 1): 0, ("lm", 1): 0}
+        check(server.repo.warmup_batches == PREDICT_BUCKETS
+              and warmed == want_warm,
+              f"warm-up: {warmed} != {want_warm} over "
+              f"{server.repo.warmup_batches}")
+        rng = np.random.default_rng(SEED + 74)
+
+        # mnist at batch 1, 3 and 8 (3 pads to the 4 bucket), held
+        # against the same weights on the CPU
+        mnist_cpu = convert.load_servable(
+            "mnist", build_model("mnist", {})[0],
+            convert.flatten(convert.random_mnist_params(SEED + 72)),
+            device="cpu")
+        for n in (1, 3, 8):
+            x = rng.standard_normal((n, 28, 28, 1)).astype(np.float32)
+            code, body = counted(totals, lambda: _post_status(
+                url("mnist"), {"instances": x.tolist()}), want=none)
+            check(code == 200, f"mnist batch {n}: {code} {body}")
+            got = np.asarray(body["predictions"], np.float32)
+            with torch.no_grad():
+                want = mnist_cpu(torch.from_numpy(x)).numpy()
+            scale = float(np.abs(want).max())
+            err = float(np.abs(got - want).max())
+            check(got.shape == (n, 10) and err <= 2e-3 * scale,
+                  f"mnist batch {n}: shape {got.shape}, max err {err} "
+                  f"(of {scale}; TF32 convolutions allowed)")
+        res["kinds"]["mnist 8"] = predict_timed(
+            server, url("mnist"), "mnist", {"instances": x.tolist()},
+            totals, none)
+
+        images = rng.standard_normal((8, image, image, 3)).astype(
+            np.float32)
+        body = {"instances": images.tolist()}
+        fused = predict_timed(server, url("resnet50"), "resnet50", body,
+                              totals, fused_call)
+        unfused = predict_timed(server, url("resnet50u"), "resnet50u", body,
+                                totals, none)
+        lf = np.asarray(fused["predictions"], np.float32)
+        lu = np.asarray(unfused["predictions"], np.float32)
+        classes = RESNET_SERVING["num_classes"]
+        check(lf.shape == lu.shape == (8, classes) and np.isfinite(lf).all()
+              and np.isfinite(lu).all(), f"resnet logits {lf.shape}")
+        res["resnet_bf16_rel"] = float(np.abs(lf - lu).max()
+                                       / np.abs(lu).max())
+        res["resnet_bf16_top1_same"] = int(
+            (lf.argmax(1) == lu.argmax(1)).sum())
+        res["kinds"]["resnet50 fused 8"] = fused
+        res["kinds"]["resnet50 unfused 8"] = unfused
+        code, body = counted(totals, lambda: _post_status(
+            url("resnet50"), {"instances": images[:2, :image // 2].tolist()}),
+            want=none)
+        check(code == 400, f"wrong-shaped resnet request: {code} {body}")
+
+        V = BERT_SERVING["vocab_size"]
+        toks = rng.integers(0, V, (1, 128))
+        bert = predict_timed(server, url("bert"), "bert",
+                             {"instances": toks.tolist()}, totals,
+                             bert_call)
+        lb = np.asarray(bert["predictions"], np.float32)
+        check(lb.shape == (1, 128, V) and np.isfinite(lb).all(),
+              f"bert logits {lb.shape}")
+        res["kinds"]["bert 1x128"] = bert
+        loaded = server.repo.get("bert")
+        big = rng.integers(0, V, bert_big)
+        t0 = time.perf_counter()
+        lbig = counted(totals, lambda: loaded.predict(big), want=bert_call)
+        res["bert_8x512_predict_s"] = time.perf_counter() - t0
+        check(lbig.shape == (*bert_big, V) and np.isfinite(lbig).all(),
+              f"bert {bert_big} logits {lbig.shape}")
+        del lbig
+        # an id past the vocabulary: the reference's jnp.take reads a NaN
+        # row, and every logit of that sequence is NaN (attention is
+        # bidirectional); no device assert: the card serves on
+        bad = toks.copy()
+        bad[0, 5] = V
+        code, body = counted(totals, lambda: _post_status(
+            url("bert"), {"instances": np.concatenate(
+                [bad, toks]).tolist()}), want=bert_call)
+        check(code == 200, f"bert out-of-vocabulary id: {code} {body}")
+        lnan = np.asarray(body["predictions"], np.float32)
+        check(np.isnan(lnan[0]).all() and np.isfinite(lnan[1]).all(),
+              "bert out-of-vocabulary id: not the reference's answer (a "
+              "NaN sequence beside a finite one)")
+        code, body = counted(totals, lambda: _post_status(
+            url("bert"), {"instances": toks.tolist()}), want=bert_call)
+        torch.cuda.synchronize()
+        check(code == 200 and np.isfinite(
+            np.asarray(body["predictions"], np.float32)).all(),
+            f"bert after the out-of-vocabulary id: {code}")
+
+        lm_vocab = server.repo.get("lm").vocab_size
+        prompts = rng.integers(0, lm_vocab, (2, 64))
+        lm = predict_timed(server, url("lm"), "lm",
+                           {"instances": prompts.tolist()}, totals, none)
+        ll = np.asarray(lm["predictions"], np.float32)
+        check(ll.shape == (2, 64, lm_vocab) and np.isfinite(ll).all(),
+              f"lm logits {ll.shape}")
+        code, body = counted(totals, lambda: _post_status(
+            url("lm", "generate"), {"prompt_tokens": prompts.tolist(),
+                                    "max_new_tokens": 1}), want=none)
+        check(code == 200, f"lm :generate {code} {body}")
+        first = [row[0] for row in body["tokens"]]
+        top = ll[:, -1].argmax(-1).tolist()
+        gaps = [float(np.diff(np.sort(r)[-2:])[0]) for r in ll[:, -1]]
+        check(first == top, f"lm: :predict argmax {top} != :generate's "
+                            f"first tokens {first} (top-2 gaps {gaps})")
+        res["lm_first_tokens"] = first
+        res["lm_top2_gaps"] = gaps
+        res["kinds"]["lm 2x64"] = lm
+    finally:
+        server.stop()
+    for r in res["kinds"].values():
+        r.pop("predictions")
+    res["launches"] = totals
+    return res
+
+
+def predict_parity_phase(device, *, image: int = 224) -> dict:
+    """Phase 18, f32 with TF32 off: ResNet-50 fused against unfused from
+    the same weights (the same top-1 for 8 images, logits within 1e-4 of
+    their max-abs) and BERT-base flash against dense from the same
+    weights (logits within 1e-5), each through ``build_model`` and the
+    store's loader, the kernels launching on the fused and flash runs
+    only."""
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.bert import BertConfig
+    from kubeflow_tpu_torch.serving.model_store import LoadedModel, \
+        build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def serve(kind, cfg, flat):
+        module, apply = build_model(kind, cfg)
+        module = convert.load_servable(kind, module, flat, device=device)
+        return LoadedModel(kind=kind, version=1, module=module, apply=apply)
+
+    out = {}
+    on_card = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(SEED + 75)
+    variables = resnet_serving_variables()
+    f32 = dict(RESNET_SERVING, dtype="float32", bn_dtype="float32")
+    images = rng.standard_normal((8, image, image, 3)).astype(np.float32)
+    logits = {}
+    for fused in (True, False):
+        v = variables if fused else convert.unfuse_bn_conv(variables)
+        model = serve("resnet", dict(f32, fused_bn_conv=fused),
+                      convert.flatten(v))
+        ops.reset_launches()
+        logits[fused] = model.predict(images)
+        n = ops.launch_counts()["bnconv_fwd"]
+        check(n == (16 if fused and on_card else 0),
+              f"f32 resnet fused={fused}: "
+                                         f"bnconv_fwd launched {n}")
+        del model
+        torch.cuda.empty_cache()
+    scale = float(np.abs(logits[False]).max())
+    err = float(np.abs(logits[True] - logits[False]).max())
+    same = (logits[True].argmax(1) == logits[False].argmax(1))
+    check(bool(same.all()), f"f32 resnet fused/unfused top-1 differs: "
+                            f"{same.tolist()}")
+    check(err <= 1e-4 * scale, f"f32 resnet fused/unfused max err {err} > "
+                               f"1e-4 x {scale}")
+    out["resnet"] = {"max_err": err, "max_abs": scale}
+    bcfg = dict(BERT_SERVING, dtype="float32")
+    flat = convert.random_bert_params(BertConfig(**bcfg), SEED + 76)
+    toks = rng.integers(0, bcfg["vocab_size"], (2, 128))
+    for impl in ("flash", "dense"):
+        model = serve("bert", dict(bcfg, attention_impl=impl), flat)
+        ops.reset_launches()
+        logits[impl] = model.predict(toks)
+        n = ops.launch_counts()["flash_fwd"]
+        check(n == (12 if impl == "flash" and on_card else 0),
+              f"f32 bert {impl}: flash_fwd launched {n}")
+        del model
+        torch.cuda.empty_cache()
+    err = float(np.abs(logits["flash"] - logits["dense"]).max())
+    scale = float(np.abs(logits["dense"]).max())
+    check(err <= 1e-5, f"f32 bert flash/dense max err {err} > 1e-5 (logits "
+                       f"max-abs {scale})")
+    out["bert"] = {"max_err": err, "max_abs": scale}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2711,6 +3354,11 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
           f"wall_s={serve['wall_s']:.3f} "
           f"ttft_ms_stream={[round(t * 1e3, 1) for t in ttft]} "
           f"launches={serve['launches']}", flush=True)
+    print(f"phase 3 request ledger: 8 records tile, each with prefill and "
+          f"decode and 64 tokens, each engine.* span under its "
+          f"serving.generate; p50 seconds by phase "
+          f"{serve['ledger_p50_s']} ttft_ms {serve['ledger_ttft_ms']}",
+          flush=True)
     lap("3")
     streams = parity_phase(base, cfg, device)
     print(f"phase 4 f32 kernel == gather greedy streams "
@@ -2804,6 +3452,11 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
               + (f"; a second burst's sampler calls token-identical to "
                  f"plain, by shape: {r['held']}" if "held" in r else ""),
               flush=True)
+        print(f"phase 9 request ledger, {run}: 48 records tile, each with "
+              f"prefill, decode and 128 tokens; first-wave TTFT off the "
+              f"ledger {r['ledger_ttft_ms']:.2f} ms (queues "
+              f"{r['ttft_ms']:.2f} ms); p50 seconds by phase "
+              f"{r['ledger_p50_s']}", flush=True)
     lap("9")
     streams = dense_parity_phase(base, cfg, device)
     print(f"phase 10 f32 greedy streams: dense (burst) == paged kernel == "
@@ -2908,9 +3561,51 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
           f"{spec['perfect_draft']} (every proposal accepted, tokens "
           f"equal the plain request's)", flush=True)
     lap("16")
+    torch.cuda.empty_cache()
+    inference = check_predict_kernels(device)
+    for kern in kernels:
+        if kern["name"] == "flash_fwd":
+            kern["predict_shapes"] = {k: v for k, v in inference.items()
+                                      if k.startswith("flash_fwd")}
+        elif kern["name"] == "bnconv_fwd":
+            kern["predict_shapes"] = {k: v for k, v in inference.items()
+                                      if k.startswith("bnconv_fwd")}
+    pred = predict_phase(device, base)
+    print(f"phase 17 :predict ({kind} | {ident}): one ModelServer, "
+          f"warmup=True (buckets {PREDICT_BUCKETS} warmed for mnist, "
+          f"resnet50, resnet50u), exports {pred['export_s']:.1f}s, load "
+          f"and warm-up {pred['load_s']:.1f}s; mnist 1/3/8 held to the "
+          f"CPU; a wrong-shaped resnet request 400; an id past BERT's "
+          f"vocabulary the NaN sequence, the card serving on; bert (8, "
+          f"512) in process {pred['bert_8x512_predict_s']:.3f}s; lm "
+          f"argmax == :generate's first tokens {pred['lm_first_tokens']} "
+          f"(top-2 gaps {pred['lm_top2_gaps']}); resnet fused vs unfused "
+          f"bf16 logits: max err {pred['resnet_bf16_rel']:.3e} of "
+          f"max-abs, top-1 same for {pred['resnet_bf16_top1_same']}/8; "
+          f"launches={pred['launches']}", flush=True)
+    for label, r in pred["kinds"].items():
+        print(f"phase 17 {label} ({kind} | {ident}): request "
+              f"{r['request_mb']:.2f} MB, wall p50 {r['wall_ms']:.2f} ms; "
+              f"in process p50: json decode {r['decode_ms']:.2f} ms, host "
+              f"to device {r['h2d_ms']:.3f} ms, forward "
+              f"{r['forward_ms']:.3f} ms (CUDA events; wall "
+              f"{r['forward_wall_ms']:.3f}), device to host "
+              f"{r['d2h_ms']:.3f} ms, json encode {r['encode_ms']:.2f} ms; "
+              f"peak {r['peak_gb']:.3f} GB ({r['transient_gb']:.3f} GB "
+              f"above the loaded models)", flush=True)
+    lap("17")
+    torch.cuda.empty_cache()
+    ppar = predict_parity_phase(device)
+    print(f"phase 18 f32 :predict parity (TF32 off): resnet50 fused vs "
+          f"unfused, 8 images: top-1 same, max err "
+          f"{ppar['resnet']['max_err']:.3e} (limit 1e-4 x max-abs "
+          f"{ppar['resnet']['max_abs']:.4f}); bert-base flash vs dense, "
+          f"(2, 128): max err {ppar['bert']['max_err']:.3e} (limit 1e-5; "
+          f"max-abs {ppar['bert']['max_abs']:.4f})", flush=True)
+    lap("18")
     for kern in kernels:
         for path, res in (("lm_entry", lm), ("moe_train", moe),
-                          ("spec_serving", spec)):
+                          ("spec_serving", spec), ("predict", pred)):
             n = res["launches"][kern["name"]]
             kern["launches_by_path"][path] = n
             kern["launches"] += n

@@ -31,6 +31,7 @@ from kubeflow_tpu_torch.models.transformer import (
     _compute,
     rope_tables,
     run_blocks,
+    take_rows,
     torch_dtype,
 )
 
@@ -130,14 +131,14 @@ class Bert(nn.Module):
         dt, dev = c.dtype, tokens.device
         S = tokens.shape[1]
         embed = _compute(self.token_embed, dt)
-        x = embed[tokens.long()]
+        x = take_rows(embed, tokens)
         if c.type_vocab_size:
             types = _compute(self.type_embed, dt)
             # no types: every position is segment 0, as the reference's
             # zeros_like(tokens) makes it
             x = x + (types[0] if token_types is None
-                     else types[torch.as_tensor(token_types,
-                                                device=dev).long()])
+                     else take_rows(types, torch.as_tensor(token_types,
+                                                           device=dev)))
         kv_len = None
         if seq_lengths is not None:
             kv_len = torch.as_tensor(seq_lengths, device=dev).to(

@@ -23,6 +23,12 @@ and BN buffer ``a.b.mean`` is ``batch_stats/a/b/mean``; conv kernels are
 moved from flax's ``(kh, kw, I, O)`` to torch's ``(O, I, kh, kw)``, the
 fused layer's ``(1, 1, C, F)`` kernel becomes its ``(C, F)`` matrix, and
 the Dense kernel stays ``(in, out)``. :func:`resnet_variables` goes back.
+
+A model-store servable (``serving/model_store.py:build_model``, built
+without weights) is filled by :func:`load_servable`: the ResNet loader
+for a ``resnet`` export, :func:`load_params` for ``mnist`` (flax's
+names and layouts, kept by ``models/mnist.py``), ``bert`` and
+``transformer``.
 """
 
 from __future__ import annotations
@@ -360,4 +366,44 @@ def random_resnet_params(config: ResNetConfig,
         else:                                # biases, means, bn3 scales
             arr = np.zeros(shape, np.float32)
         flat[key] = arr
+    return unflatten(flat)
+
+
+# -- servables (the model store's kinds) ---------------------------------------
+
+
+def load_servable(kind: str, model: torch.nn.Module,
+                  flat: Mapping[str, Any], *, device) -> torch.nn.Module:
+    """Fill a servable built without weights (on the meta device, as
+    ``serving/model_store.py:build_model`` builds it) with a model-store
+    export's leaves: frozen, in eval mode, on ``device``. A ``resnet``
+    export holds ``params/...`` and ``batch_stats/...`` (its activations
+    and 4-D kernels then go channels-last); the other kinds hold their
+    param tree."""
+    model = model.to_empty(device=resolve_device(device))
+    if kind == "resnet":
+        model = load_resnet(model, flat).to(memory_format=torch.channels_last)
+    else:
+        load_params(model, flat)
+    model.eval().requires_grad_(False)
+    return model
+
+
+def random_mnist_params(seed: int) -> Dict[str, Any]:
+    """Random f32 ``MnistCnn`` params in flax's layout from a numpy seed:
+    kernels normal(0, fan_in**-0.5), biases zero."""
+    from kubeflow_tpu_torch.models.mnist import MnistCnn
+
+    with torch.device("meta"):
+        model = MnistCnn()
+    rng = np.random.default_rng(seed)
+    flat: Dict[str, np.ndarray] = {}
+    for name, p in model.named_parameters():
+        shape = tuple(p.shape)
+        if name.endswith(".kernel"):
+            std = np.float32(float(np.prod(shape[:-1])) ** -0.5)
+            flat[name.replace(".", "/")] = rng.standard_normal(
+                shape, dtype=np.float32) * std
+        else:
+            flat[name.replace(".", "/")] = np.zeros(shape, np.float32)
     return unflatten(flat)

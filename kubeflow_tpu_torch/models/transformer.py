@@ -230,6 +230,21 @@ class DenseKVCache:
     positions: torch.Tensor  # (B,) int32: each row's next write position
 
 
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, ids, axis=0)`` as the reference's embeddings
+    read it: an id in ``[-V, 0)`` wraps to ``id + V``, and any other id
+    outside ``[0, V)`` gives a row of NaN. The gather reads a clamped id,
+    so a bad id from a request never reaches the card as an
+    out-of-range index (a device-side assert would poison the CUDA
+    context of every model the process serves)."""
+    V = table.shape[0]
+    idx = ids.long()
+    idx = torch.where(idx < 0, idx + V, idx)
+    rows = table[idx.clamp(0, V - 1)]
+    bad = (idx < 0) | (idx >= V)
+    return rows.masked_fill(bad[..., None], float("nan"))
+
+
 def _compute(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``w.to(dtype)``: in the autograd graph when a gradient is wanted,
     else made once per weight version and reused."""
@@ -640,7 +655,7 @@ class Transformer(nn.Module):
         B, S = tokens.shape
         dev = tokens.device
         embed = _compute(self.token_embed, c.dtype)
-        x = embed[tokens.long()]
+        x = take_rows(embed, tokens)
         aux: Any = 0.0
         if cache is None:
             sin, cos = self._tables(S, dev)

@@ -44,8 +44,18 @@ Both modes:
   emitted tokens, sampling on at its preserved step index, up to
   ``recoveries`` times; then the engine closes.
 
-Left for later slices (ROADMAP.md): mesh/TP serving, tracing spans and
-the request ledger.
+Tracing and the request ledger, as in the reference: ``submit``
+captures the caller's span context (the serving handler's span, which
+continues the request's ``traceparent``), and the engine parents its
+spans on it: ``engine.queue_wait``, ``engine.admit`` with its
+``engine.prefill`` (or, paged, one ``engine.prefill_chunk`` a chunk),
+``engine.first_token``, ``engine.decode``, and, paged, one
+``engine.step`` a shared step. Every request is one
+``RequestLedger`` record keyed by its trace id; its phase marks ride
+the clock reads the engine already takes, and the per-token emit reads
+no clock (one timestamp a sync batch).
+
+Left for later slices (ROADMAP.md): mesh/TP serving.
 
 Environment switches (as in the reference): ``KFTPU_PAGED`` (default
 0), ``KFTPU_ADMIT_BATCH`` (8), ``KFTPU_ENGINE_RECOVERIES`` (2),
@@ -57,6 +67,7 @@ Environment switches (as in the reference): ``KFTPU_PAGED`` (default
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import logging
 import os
@@ -80,6 +91,13 @@ from kubeflow_tpu_torch.models.decode import (
     sample_logits,
 )
 from kubeflow_tpu_torch.models.transformer import DenseKVCache, Transformer
+from kubeflow_tpu_torch.obs import requests as reqobs
+from kubeflow_tpu_torch.obs.trace import (
+    SpanContext,
+    Tracer,
+    current_context,
+    profiler_annotator,
+)
 from kubeflow_tpu_torch.ops.sampling import fused_sample, gumbel_noise
 from kubeflow_tpu_torch.serving.kvpool import (
     OutOfPages,
@@ -178,7 +196,11 @@ class _Request:
     seed: int
     eos_id: Optional[int]
     prefix_len: int = 0          # leading prompt tokens to share
+    # the submitting thread's span context: engine spans parent on it
+    ctx: Optional[SpanContext] = None
     t_submit: float = 0.0
+    # the ledger key: the propagated trace id, else a synthetic one
+    rid: str = ""
     # the queue wait is observed once: a failed burst retries its
     # members on the row path
     _wait_noted: bool = False
@@ -210,6 +232,7 @@ class _Request:
 class _Slot:
     req: _Request
     produced: int = 0
+    t_decode0: float = 0.0       # the decode span's start
     # every token emitted, in order: a recovery replays prompt + these
     emitted: List[int] = dataclasses.field(default_factory=list)
 
@@ -222,6 +245,7 @@ class _PrefillJob:
     slot: int
     tokens: np.ndarray        # the token sequence to prefill
     next: int                 # next position to feed
+    t_admit: float = 0.0      # the chunked admit span's start
     chunks: int = 0
     # a recovery replay resumes a live stream: its sample continues at
     # the preserved step index and delivery count
@@ -245,7 +269,10 @@ class DecodeEngine:
     yields tokens as steps complete; ``close()`` drains the engine.
     ``precompile=True`` runs both step paths once at construction (on
     the card: the sampler's build and the first GEMM setups), so the
-    first greedy/sampled switch never pauses live streams.
+    first greedy/sampled switch never pauses live streams. ``tracer``
+    (default: one on the engine's clock, into the process collector)
+    and ``request_ledger`` (default :data:`~kubeflow_tpu_torch.obs.
+    requests.DEFAULT_LEDGER`) receive the spans and the records.
     """
 
     def __init__(self, config, params, *, slots: int = 8,
@@ -265,6 +292,8 @@ class DecodeEngine:
                  precompile: bool = False,
                  autostart: bool = True, name: str = "",
                  clock: Optional[Clock] = None,
+                 tracer: Optional[Tracer] = None,
+                 request_ledger: Optional[reqobs.RequestLedger] = None,
                  device=None) -> None:
         self.device = resolve_device(device)
         if paged is None:
@@ -276,6 +305,12 @@ class DecodeEngine:
         self.config = config
         self.slots = slots
         self.clock: Clock = clock if clock is not None else time.monotonic
+        # spans on the engine's clock, mirrored onto the profiler's host
+        # timeline while one records
+        self.tracer = tracer if tracer is not None else Tracer(
+            clock=self.clock, annotator=profiler_annotator())
+        self.rledger = (request_ledger if request_ledger is not None
+                        else reqobs.DEFAULT_LEDGER)
         if sampler_bound is None:
             sampler_bound = _env_int("KFTPU_SAMPLER_BOUND", 64)
         self.sampler_bound = int(sampler_bound)
@@ -583,9 +618,16 @@ class DecodeEngine:
         req = _Request(prompt=prompt, max_new=max_new,
                        temperature=float(temperature), top_k=int(top_k),
                        top_p=float(top_p), seed=int(seed), eos_id=eos_id,
-                       prefix_len=prefix_len, t_submit=self.clock())
+                       prefix_len=prefix_len, ctx=current_context(),
+                       t_submit=self.clock())
+        # the record opens BEFORE the queue put: the engine thread may
+        # admit the request at once, and its marks must find it
+        req.rid = (req.ctx.trace_id if req.ctx is not None
+                   else reqobs.synthetic_rid())
+        self.rledger.start(req.rid, t=req.t_submit, model=self.name)
         with self._lock:
             if self._stop.is_set():
+                self.rledger.finish(req.rid, req.t_submit)
                 raise EngineClosed("decode engine closed")
             self._pending.put(req)
         _queue_depth.set(self._pending.qsize(), model=self.name)
@@ -618,9 +660,11 @@ class DecodeEngine:
                     failed.append(self._pending.get_nowait())
                 except queue.Empty:
                     break
+        t_fail = self.clock()
         for req in failed:
             req.error = error
             req.out.put(_END)
+            self.rledger.finish(req.rid, t_fail)
 
     @property
     def closed(self) -> bool:
@@ -663,25 +707,46 @@ class DecodeEngine:
 
     # -- the scheduler cycle -------------------------------------------------
 
-    def _emit(self, slot: _Slot, token: int) -> None:
+    def _emit(self, slot: _Slot, token: int, t: float) -> None:
+        """The per-token hot path. ``t`` is a timestamp the caller
+        already read (``run_once`` stamps every token of a sync batch
+        with one step-end time); neither this method nor the ledger
+        reads a clock here."""
         slot.produced += 1
         slot.emitted.append(token)
         self.tokens_total += 1
         _tokens_total.inc(model=self.name)
+        self.rledger.emit(slot.req.rid, t)
         slot.req.out.put(token)
 
-    def _finished(self, slot: _Slot, token: int) -> bool:
+    def _finished(self, slot: _Slot, token: int, t: float) -> bool:
         done = (slot.produced >= slot.req.max_new or
                 (slot.req.eos_id is not None and token == slot.req.eos_id))
         if done:
             slot.req.out.put(_END)
+            # the last token: fold the record on the same timestamp
+            self.rledger.finish(slot.req.rid, t)
         return done
 
-    def _note_queue_wait(self, req: _Request) -> None:
-        if not req._wait_noted:
-            req._wait_noted = True
-            _queue_wait_h.observe(max(0.0, self.clock() - req.t_submit),
-                                  model=self.name)
+    def _note_queue_wait(self, req: _Request) -> float:
+        """Close the request's queue phase (once: a failed burst retries
+        its members on the row path): the histogram with the trace as
+        exemplar, the ``engine.queue_wait`` span, and the ledger's mark
+        of admission, all on one timestamp. Returns now."""
+        now = self.clock()
+        if req._wait_noted:
+            return now
+        req._wait_noted = True
+        _queue_wait_h.observe(
+            max(0.0, now - req.t_submit),
+            exemplar_trace_id=(req.ctx.trace_id
+                               if req.ctx is not None else None),
+            model=self.name)
+        self.tracer.record("engine.queue_wait", start=req.t_submit,
+                           end=now, parent=req.ctx,
+                           attrs={"model": self.name})
+        self.rledger.mark(req.rid, reqobs.ADMISSION, now)
+        return now
 
     @torch.no_grad()
     def run_once(self, timeout: float = 0.1) -> bool:
@@ -708,6 +773,7 @@ class DecodeEngine:
         # greedy rows ignore seeds and filters, so an all-greedy batch
         # takes the argmax step, bit-identical, without the sampler
         all_greedy = all(s.req.temperature <= 0.0 for _, s in active)
+        t_step0 = self.clock()
         try:
             if self.paged:
                 self._ensure_pages(i for i, _ in active)
@@ -726,6 +792,9 @@ class DecodeEngine:
             if self._maybe_recover("decode step"):
                 return True
             raise
+        # one clock read a sync batch, after the host copy: when every
+        # token of it became visible. The emits below all ride it
+        t_step_end = self.clock()
         K = toks.shape[0]
         self.steps_total += K
         if all_greedy:
@@ -735,16 +804,26 @@ class DecodeEngine:
         self._tokens = toks[-1].copy()
         if self.paged:
             self._pos_host[[i for i, _ in active]] += K
+            # one span a shared step: chunk spans between step spans
+            # bound any decode stall
+            self.tracer.record(
+                "engine.step", start=t_step0, end=t_step_end,
+                attrs={"model": self.name, "rows": len(active), "k": K})
         retired: List[int] = []
         for i, slot in active:
             for t in range(K):
                 tok = int(toks[t, i])
-                self._emit(slot, tok)
-                if self._finished(slot, tok):
+                self._emit(slot, tok, t_step_end)
+                if self._finished(slot, tok, t_step_end):
                     # tokens past EOS or the budget are discarded
                     with self._lock:
                         self._active[i] = None
                     retired.append(i)
+                    self.tracer.record(
+                        "engine.decode", start=slot.t_decode0,
+                        end=t_step_end, parent=slot.req.ctx,
+                        attrs={"model": self.name,
+                               "tokens": slot.produced})
                     break
         if self.paged and retired:
             # after the emit loop, so a failure here replays streams
@@ -797,11 +876,13 @@ class DecodeEngine:
             except _CacheInvalidated:
                 # the later chunks are off the queue and in no slot, so
                 # the loop's _fail_all cannot reach them
+                t_fail = self.clock()
                 for _, rest in chunks[n + 1:]:
                     for req, _slot in rest:
                         req.error = EngineClosed(
                             "engine cache invalidated during admission")
                         req.out.put(_END)
+                        self.rledger.finish(req.rid, t_fail)
                 raise
             except Exception:  # noqa: BLE001
                 # the engine cache is intact (the prefill finished
@@ -821,6 +902,7 @@ class DecodeEngine:
         except Exception as e:  # noqa: BLE001 — surfaced to the caller
             req.error = e
             req.out.put(_END)
+            self.rledger.finish(req.rid, self.clock())
 
     def _admit_one(self, req: _Request, slot: int) -> None:
         """Prefill the request's prompt (through the prefix LRU when it
@@ -828,26 +910,38 @@ class DecodeEngine:
         self._note_queue_wait(req)
         S = req.prompt.size
         Smax = self.config.max_seq_len
-        if req.prefix_len:
-            N = req.prefix_len
-            pcache = self._prefix_cache_row(req.prompt[:N])
-            suf = S - N
-            sbucket = pow2_bucket(suf, Smax)
-            if N + sbucket > Smax:
-                # a padded suffix would pass the context end and clamp
-                # its write start: serve the exact length
-                sbucket = suf
-            padded = np.zeros((1, sbucket), np.int32)
-            padded[0, :suf] = req.prompt[N:]
-            tok, row = self._continue(pcache, padded, suf, S,
-                                      req.temperature, req.top_k,
-                                      req.top_p, req.seed)
-        else:
-            padded = np.zeros((1, pow2_bucket(S, Smax)), np.int32)
-            padded[0, :S] = req.prompt
-            tok, row = self._prefill(padded, S, req.temperature, req.top_k,
-                                     req.top_p, req.seed, 0)
-        self._cache = self._insert(self._cache, row, slot)
+        with self.tracer.span("engine.admit", parent=req.ctx, attrs={
+                "model": self.name, "slot": slot,
+                "prompt_tokens": int(S), "batched": False}):
+            # the prefill phase opens here (a prefix row's prefill is
+            # prefill work too)
+            self.rledger.mark(req.rid, reqobs.PREFILL, self.clock())
+            if req.prefix_len:
+                N = req.prefix_len
+                pcache = self._prefix_cache_row(req.prompt[:N])
+                suf = S - N
+                sbucket = pow2_bucket(suf, Smax)
+                if N + sbucket > Smax:
+                    # a padded suffix would pass the context end and
+                    # clamp its write start: serve the exact length
+                    sbucket = suf
+                padded = np.zeros((1, sbucket), np.int32)
+                padded[0, :suf] = req.prompt[N:]
+                with self.tracer.span("engine.prefill", attrs={
+                        "prompt_tokens": int(S), "prefix_len": int(N)}):
+                    tok, row = self._continue(pcache, padded, suf, S,
+                                              req.temperature, req.top_k,
+                                              req.top_p, req.seed)
+            else:
+                bucket = pow2_bucket(S, Smax)
+                padded = np.zeros((1, bucket), np.int32)
+                padded[0, :S] = req.prompt
+                with self.tracer.span("engine.prefill", attrs={
+                        "prompt_tokens": int(S), "bucket": bucket}):
+                    tok, row = self._prefill(padded, S, req.temperature,
+                                             req.top_k, req.top_p,
+                                             req.seed, 0)
+            self._cache = self._insert(self._cache, row, slot)
         self._finalize_admission(req, slot, int(tok[0]))
 
     def _prefix_cache_row(self, prefix: np.ndarray) -> DenseKVCache:
@@ -886,6 +980,7 @@ class DecodeEngine:
         length-1 junk nothing copies. Token-identical to the row path:
         the same ragged lengths and ``(seed, 0)`` sampling."""
         k = len(members)
+        t0 = self.clock()
         for req, _slot in members:
             self._note_queue_wait(req)
         bb = pow2_bucket(k, min(self.slots, self.admit_batch_max))
@@ -907,31 +1002,65 @@ class DecodeEngine:
             seeds[i] = req.seed
             slot_ids[i] = slot
             valid[i] = True
-        toks, bcache = self._prefill_batch(prompts, lens, temps, tks, tps,
-                                           seeds)
-        # the host copy finishes the prefill BEFORE any row lands in the
-        # engine cache: its failure surfaces here, the cache intact
-        toks = toks.cpu().numpy()
+        # the shared prefill is annotated on the profiler's timeline
+        # here and recorded below as a child of each member's admit span
+        # (a live span would be an orphan root: the engine thread has no
+        # active span)
+        ann = (self.tracer.annotator("engine.prefill")
+               if self.tracer.annotator is not None
+               else contextlib.nullcontext())
+        p0 = self.clock()
+        for req, _slot in members:
+            self.rledger.mark(req.rid, reqobs.PREFILL, p0)
+        with ann:
+            toks, bcache = self._prefill_batch(prompts, lens, temps, tks,
+                                               tps, seeds)
+            # the host copy finishes the prefill BEFORE any row lands in
+            # the engine cache: its failure surfaces here, the cache
+            # intact
+            toks = toks.cpu().numpy()
+        p1 = self.clock()
         try:
             self._cache = self._insert_rows(self._cache, bcache, slot_ids,
                                             valid)
         except Exception as e:  # noqa: BLE001 — the cache is half-written
+            t_fail = self.clock()
             for req, _ in members:
                 req.error = EngineClosed(
                     "engine cache invalidated during admission")
                 req.out.put(_END)
+                self.rledger.finish(req.rid, t_fail)
             raise _CacheInvalidated(str(e)) from e
         self.batch_prefills += 1
+        t1 = self.clock()
         for i, (req, slot) in enumerate(members):
-            self._finalize_admission(req, slot, int(toks[i]))
+            adm = self.tracer.record(
+                "engine.admit", start=t0, end=t1, parent=req.ctx,
+                attrs={"model": self.name, "slot": slot,
+                       "prompt_tokens": int(lens[i]), "batched": True,
+                       "batch": k})
+            self.tracer.record(
+                "engine.prefill", start=p0, end=p1, parent=adm,
+                attrs={"prompt_tokens": int(lens[i]), "bucket": bucket,
+                       "batched": True, "batch": k})
+            self._finalize_admission(req, slot, int(toks[i]), t1)
 
-    def _finalize_admission(self, req: _Request, slot: int,
-                            first: int) -> None:
+    def _finalize_admission(self, req: _Request, slot: int, first: int,
+                            t: Optional[float] = None) -> None:
         """Emit the prefill-sampled first token and arm the slot's
-        host-side step state (row and batch paths alike)."""
-        st = _Slot(req=req)
-        self._emit(st, first)
-        if not self._finished(st, first):
+        host-side step state (row and batch paths alike). ``t`` is the
+        caller's timestamp (the batch path stamps its members once); the
+        row path reads its own."""
+        t = t if t is not None else self.clock()
+        st = _Slot(req=req, t_decode0=t)
+        # the TTFT span: one a request
+        self.tracer.record(
+            "engine.first_token", start=req.t_submit, end=t,
+            parent=req.ctx,
+            attrs={"model": self.name,
+                   "ttft_ms": round((t - req.t_submit) * 1000.0, 3)})
+        self._emit(st, first, t)
+        if not self._finished(st, first, t):
             with self._lock:
                 self._active[slot] = st
         self._arm_host(slot, req, first, fold=1)
@@ -1013,11 +1142,11 @@ class DecodeEngine:
             _cow_splits_c.inc(model=self.name)
             start += match.tail_len
         pool.ensure(slot, S)  # prompt pages; decode pages grow lazily
-        self._note_queue_wait(req)
+        now = self._note_queue_wait(req)
         self._arm(self._cache, slot, start, pool.table_row(slot))
         self._prefilling[slot] = _PrefillJob(
             req=req, slot=slot, tokens=req.prompt, next=start,
-            store_prefix=req.prefix_len)
+            t_admit=now, store_prefix=req.prefix_len)
         self._pos_host[slot] = start
         self._slot_budget[slot] = S + req.max_new
         self._export_page_gauges()
@@ -1060,6 +1189,11 @@ class DecodeEngine:
         padded = np.zeros((1, C), np.int32)
         padded[0, :n] = job.tokens[job.next:job.next + n]
         final = job.next + n >= total
+        t0 = self.clock()
+        if job.chunks == 0:
+            # the record's prefill phase runs from the first chunk to
+            # the first token
+            self.rledger.mark(req.rid, reqobs.PREFILL, t0)
         logits, _ = prefill_chunk(self._model, self._cache,
                                   self._on(padded), job.slot, job.next, n)
         if final:
@@ -1070,23 +1204,42 @@ class DecodeEngine:
         job.chunks += 1
         self.prefill_chunks += 1
         _prefill_chunks_c.inc(model=self.name)
+        self.rledger.note_chunk(req.rid)
+        self.tracer.record(
+            "engine.prefill_chunk", start=t0, end=self.clock(),
+            parent=req.ctx,
+            attrs={"model": self.name, "slot": job.slot,
+                   "tokens": int(n), "final": final})
         return final
 
     def _finalize_paged(self, job: _PrefillJob) -> None:
         """Prompt fully in the pool: emit the sampled token, arm the
         slot's host-side decode state, pin shareable prefix pages."""
         req, slot = job.req, job.slot
+        now = self.clock()
         if job.store_prefix:
             self._prefix_pages.store(req.prompt, job.store_prefix, slot)
             _prefix_bytes_g.set(
                 self._prefix_pages.pages_held * self._page_bytes,
                 model=self.name)
-        st = _Slot(req=req, produced=job.produced0,
+        self.tracer.record(
+            "engine.admit", start=job.t_admit, end=now, parent=req.ctx,
+            attrs={"model": self.name, "slot": slot,
+                   "prompt_tokens": int(req.prompt.size),
+                   "chunked": True, "chunks": job.chunks})
+        st = _Slot(req=req, produced=job.produced0, t_decode0=now,
                    emitted=[int(t) for t in job.tokens[req.prompt.size:]])
-        self._emit(st, job.last_tok)
+        if job.produced0 == 0:
+            # a recovery replay's first token reached its client long ago
+            self.tracer.record(
+                "engine.first_token", start=req.t_submit, end=now,
+                parent=req.ctx,
+                attrs={"model": self.name,
+                       "ttft_ms": round((now - req.t_submit) * 1000.0, 3)})
+        self._emit(st, job.last_tok, now)
         self._arm_host(slot, req, job.last_tok, fold=job.fold0 + 1)
         self._pos_host[slot] = job.tokens.size
-        if self._finished(st, job.last_tok):
+        if self._finished(st, job.last_tok, now):
             self._retire_paged(slot)
         else:
             with self._lock:
@@ -1101,9 +1254,17 @@ class DecodeEngine:
             need = min(int(self._pos_host[i]) + K,
                        int(self._slot_budget[i]), Smax)
             if self._pool.ensure(i, need):
+                # page growth stalls this stream's decode: clock reads on
+                # growth only, never on the per-token emit path
+                t0 = self.clock()
                 self._arm(self._cache, i, int(self._pos_host[i]),
                           self._pool.table_row(i))
                 self._export_page_gauges()
+                with self._lock:
+                    st = self._active[i]
+                if st is not None:
+                    self.rledger.stall(st.req.rid, reqobs.KV_FAULT, t0,
+                                       self.clock())
 
     def _export_page_gauges(self) -> None:
         _kv_pages_g.set(self._pool.pages_in_use, model=self.name)
@@ -1180,6 +1341,7 @@ class DecodeEngine:
                 args[1].error = EngineClosed(
                     "engine cache recovered; stream evicted — retry")
                 args[1].out.put(_END)
+                self.rledger.finish(args[1].rid, self.clock())
 
     def _replay_paged(self, slot: int, req: _Request, tokens: np.ndarray,
                       produced: int, fold: int) -> None:
@@ -1189,8 +1351,8 @@ class DecodeEngine:
         pool.ensure(slot, int(tokens.size))
         self._arm(self._cache, slot, 0, pool.table_row(slot))
         self._prefilling[slot] = _PrefillJob(
-            req=req, slot=slot, tokens=tokens, next=0, fold0=fold,
-            produced0=produced)
+            req=req, slot=slot, tokens=tokens, next=0,
+            t_admit=self.clock(), fold0=fold, produced0=produced)
         self._pos_host[slot] = 0
         self._slot_budget[slot] = budget
         self._export_page_gauges()
@@ -1207,11 +1369,12 @@ class DecodeEngine:
                                  req.top_p, req.seed, fold)
         self._cache = self._insert(self._cache, row, slot)
         tok = int(tok[0])
-        st = _Slot(req=req, produced=produced,
+        t_now = self.clock()
+        st = _Slot(req=req, produced=produced, t_decode0=t_now,
                    emitted=[int(t) for t in tokens[req.prompt.size:]])
-        self._emit(st, tok)
+        self._emit(st, tok, t_now)
         self._arm_host(slot, req, tok, fold=fold + 1)
-        if not self._finished(st, tok):
+        if not self._finished(st, tok, t_now):
             with self._lock:
                 self._active[slot] = st
 

@@ -11,11 +11,17 @@ records are honoured:
 - ``cast_leaves``: leaves npz cannot hold (bf16) stored as f32 with
   their dtype recorded, restored at load.
 
-This slice serves the ``transformer`` kind only; a loaded version
-carries the unary path's :meth:`LoadedModel.generate`. An export with
-``draft_of: "<model>[@<version>]"`` in its ``model.yaml`` is a
-speculative-decoding draft of that model: :func:`find_draft_for` finds
-it and the server pairs it as one :class:`DraftPair`.
+The four servable kinds of the reference's ``build_model``: ``mnist``,
+``resnet``, ``bert`` and ``transformer``. A loaded version carries
+:meth:`LoadedModel.predict` (host → device, the forward under
+``torch.inference_mode``, device → host) and, for the ``transformer``
+kind, the unary path's :meth:`LoadedModel.generate`. ``export_model``
+records the per-sample ``input_shape``/``input_dtype`` (the reference's
+defaults for ``mnist`` and ``resnet``), which the server warms and
+checks requests against. An export with ``draft_of:
+"<model>[@<version>]"`` in its ``model.yaml`` is a speculative-decoding
+draft of that model: :func:`find_draft_for` finds it and the server
+pairs it as one :class:`DraftPair`.
 """
 
 from __future__ import annotations
@@ -23,13 +29,16 @@ from __future__ import annotations
 import dataclasses
 import os
 import tempfile
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import yaml
 
 from kubeflow_tpu_torch.models import convert, decode
+from kubeflow_tpu_torch.models.bert import Bert, BertConfig
+from kubeflow_tpu_torch.models.mnist import MnistCnn
+from kubeflow_tpu_torch.models.resnet import ResNet, ResNetConfig
 from kubeflow_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
@@ -41,6 +50,39 @@ MODEL_FILE = "model.yaml"
 PARAMS_FILE = "params.npz"
 _QUANT_MIN_ELEMS = 4096
 _QUANT_SCALE_SUFFIX = "::scale"
+
+# per-sample input shapes for warm-up when the exporter does not say
+_DEFAULT_INPUT_SHAPES: Dict[str, Tuple[int, ...]] = {
+    "mnist": (28, 28, 1),
+    "resnet": (224, 224, 3),
+}
+
+Apply = Callable[[torch.nn.Module, torch.Tensor], torch.Tensor]
+
+
+def build_model(kind: str, config: Dict[str, Any]
+                ) -> Tuple[torch.nn.Module, Apply]:
+    """A servable by kind name, without weights (on the meta device):
+    ``(module, apply)``, ``apply(module, x)`` its inference forward. As
+    the reference's: a ``resnet`` config's stem defaults to ``"conv"``
+    here, not to ``ResNetConfig``'s default, because exports made before
+    the space-to-depth stem existed hold ``stem_conv`` params; dtype
+    names (``"bfloat16"``) become torch dtypes in the configs."""
+    with torch.device("meta"):
+        if kind == "mnist":
+            return MnistCnn(), lambda m, x: m(x)
+        if kind == "resnet":
+            cfg = ResNetConfig(**{
+                **config, "stem": config.get("stem", "conv"),
+                "stage_sizes": tuple(config.get("stage_sizes",
+                                                (3, 4, 6, 3)))})
+            return ResNet(cfg), lambda m, x: m(x, train=False)
+        if kind == "bert":
+            return Bert(BertConfig(**config)), lambda m, x: m(x)
+        if kind == "transformer":
+            return (Transformer(TransformerConfig(**config)),
+                    lambda m, x: m(x))
+    raise ValueError(f"unknown model kind {kind!r}")
 
 
 def transformer_export_config(config: TransformerConfig,
@@ -77,12 +119,19 @@ def _quantize_leaf(arr: np.ndarray):
 
 def export_model(path: str, kind: str, params: Dict[str, Any], *,
                  config: Optional[Dict[str, Any]] = None, version: int = 1,
+                 input_shape: Optional[Tuple[int, ...]] = None,
+                 input_dtype: str = "float32",
                  quantize: bool = False,
                  draft_of: Optional[str] = None) -> str:
     """Write ``<path>/<version>/{model.yaml,params.npz}``; returns the
     version dir. ``params`` is a flat (``/``-joined) or nested dict of
-    numpy f32 arrays in the JAX layout (``models/convert.py``). The yaml
-    is written last and atomically: its presence publishes the version.
+    numpy f32 arrays in the JAX layout (``models/convert.py``); a
+    ``resnet`` export's are its variables (``params`` and
+    ``batch_stats``). ``input_shape`` (without the batch dim; the
+    reference's default for ``mnist`` and ``resnet``) and
+    ``input_dtype`` let the server warm every padded batch bucket and
+    refuse a wrong-shaped request with a 400. The yaml is written last
+    and atomically: its presence publishes the version.
     ``draft_of="<model>"`` or ``"<model>@<version>"`` marks the export as
     that model's speculative draft (an unversioned pairing follows the
     target's served version)."""
@@ -91,6 +140,11 @@ def export_model(path: str, kind: str, params: Dict[str, Any], *,
     meta: Dict[str, Any] = {"kind": kind, "config": config or {}}
     if draft_of:
         meta["draft_of"] = str(draft_of)
+    if input_shape is None:
+        input_shape = _DEFAULT_INPUT_SHAPES.get(kind)
+    if input_shape is not None:
+        meta["input_shape"] = [int(d) for d in input_shape]
+        meta["input_dtype"] = input_dtype
     flat = {k: np.asarray(v) for k, v in convert.flatten(params).items()}
     if quantize:
         stored: Dict[str, np.ndarray] = {}
@@ -154,16 +208,92 @@ class DraftPair:
     ref: str                 # "<draft name>@<version>"
 
 
+# the kinds whose input is token ids (B, S)
+TOKEN_KINDS = ("bert", "transformer")
+
+
 @dataclasses.dataclass
 class LoadedModel:
     kind: str
     version: int
-    lm_config: TransformerConfig
-    lm_params: Transformer   # the loaded module, on the serving device
-    max_seq_len: int
-    vocab_size: int
+    module: torch.nn.Module  # the loaded model, on the serving device
+    apply: Apply             # its inference forward (build_model)
+    input_shape: Optional[Tuple[int, ...]] = None  # per sample
+    input_dtype: str = "float32"
     # the paired draft (server.py:ModelRepository._attach_draft), or None
     draft: Optional[DraftPair] = None
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.module.parameters()).device
+
+    # the transformer kind's config and module (the unary path's and the
+    # decode engine's) and its bounds; None for the other kinds
+
+    @property
+    def lm_config(self) -> Optional[TransformerConfig]:
+        return self.module.config if self.kind == "transformer" else None
+
+    @property
+    def lm_params(self) -> Optional[Transformer]:
+        return self.module if self.kind == "transformer" else None
+
+    @property
+    def max_seq_len(self) -> Optional[int]:
+        cfg = self.lm_config
+        return cfg.max_seq_len if cfg is not None else None
+
+    @property
+    def vocab_size(self) -> Optional[int]:
+        cfg = self.lm_config
+        return cfg.vocab_size if cfg is not None else None
+
+    def input_error(self, shape: Tuple[int, ...],
+                    dtype: np.dtype) -> Optional[str]:
+        """Why a ``(B, ...)`` batch of ``dtype`` cannot run, or None.
+        The reference's JAX forward raises TypeError or ValueError
+        (a 400) on such input; torch raises RuntimeError, the type of an
+        execution fault, or reads a float id as an integer, so the port
+        checks before the launch."""
+        if self.input_shape is not None:
+            if tuple(shape[1:]) != tuple(self.input_shape):
+                return (f"instance shape {tuple(shape[1:])} != model "
+                        f"input {tuple(self.input_shape)}")
+            return None
+        if self.kind in TOKEN_KINDS:
+            if len(shape) != 2 or shape[1] < 1:
+                return (f"token ids must be (batch, seq), got shape "
+                        f"{tuple(shape)}")
+            if dtype.kind not in "biu":
+                return f"token ids must be integers, got {dtype}"
+            return None
+        channels = {"mnist": 1, "resnet": ResNet.IN_CHANNELS}[self.kind]
+        if len(shape) != 4 or shape[3] != channels:
+            return (f"images must be (batch, H, W, {channels}), got shape "
+                    f"{tuple(shape)}")
+        return None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The model's inference forward on a batch on its device."""
+        with torch.inference_mode():
+            return self.apply(self.module, x)
+
+    def predict(self, x: np.ndarray) -> np.ndarray:
+        """Host → device, :meth:`forward`, device → host; the outputs
+        as f32 numpy (logits, as the reference's)."""
+        t = torch.as_tensor(np.asarray(x)).to(self.device)
+        return self.forward(t).float().cpu().numpy()
+
+    def warmup(self, batch_sizes) -> int:
+        """Run :meth:`predict` once at each batch bucket (on the card:
+        the first cuDNN and cuBLAS setups of each shape); returns the
+        count warmed, 0 without an ``input_shape``."""
+        if self.input_shape is None:
+            return 0
+        for b in batch_sizes:
+            self.predict(np.zeros((int(b), *self.input_shape),
+                                  np.dtype(self.input_dtype)))
+        return len(batch_sizes)
 
     def generate(self, prompt, true_len, max_new: int, temperature,
                  seed: int, *, greedy: bool, top_k=0, top_p=1.0,
@@ -189,21 +319,21 @@ class LoadedModel:
 
 def load_version(base_path: str, version: int, *,
                  device=None) -> LoadedModel:
-    """Load one transformer version onto ``device`` (default CUDA)."""
+    """Load one version of any servable kind onto ``device`` (default
+    CUDA)."""
     dev = resolve_device(device)
     vdir = os.path.join(base_path, str(version))
     with open(os.path.join(vdir, MODEL_FILE)) as f:
         meta = yaml.safe_load(f)
     kind = meta["kind"]
-    if kind != "transformer":
-        raise NotImplementedError(
-            f"model kind {kind!r} is not ported to kubeflow_tpu_torch yet "
-            "(ROADMAP.md Queue A)")
-    config = TransformerConfig(**(meta.get("config") or {}))
-    model = convert.to_module(config, read_params(vdir, meta), device=dev)
-    return LoadedModel(kind=kind, version=version, lm_config=config,
-                       lm_params=model, max_seq_len=config.max_seq_len,
-                       vocab_size=config.vocab_size)
+    module, apply = build_model(kind, meta.get("config") or {})
+    module = convert.load_servable(kind, module, read_params(vdir, meta),
+                                   device=dev)
+    shape = meta.get("input_shape")
+    return LoadedModel(kind=kind, version=version, module=module,
+                       apply=apply,
+                       input_shape=tuple(shape) if shape else None,
+                       input_dtype=meta.get("input_dtype", "float32"))
 
 
 def find_draft_for(store_root: str, target_name: str,

@@ -1,11 +1,20 @@
-"""LM model server for the port: ``:generate``, unary or through the
-decode engine.
+"""Model server for the port: ``:predict`` for every servable kind, and
+``:generate``, unary or through the decode engine.
 
-PyTorch port of the generate half of ``kubeflow_tpu/serving/server.py``,
-with the same request and response JSON:
+PyTorch port of ``kubeflow_tpu/serving/server.py``, with the same request
+and response JSON and the same status codes:
 
-- ``GET /v1/models``, ``GET /v1/models/<name>``, ``GET /metrics``,
+- ``GET /v1/models``, ``GET /v1/models/<name>``, ``GET /metrics`` (the
+  exemplar suffixes only for a scraper that sends ``X-Kftpu-Exemplars``),
   ``GET /healthz``;
+- ``POST /v1/models/<name>[/versions/<v>]:predict`` with ``{"instances":
+  [...]}`` for the ``mnist``, ``resnet``, ``bert`` and ``transformer``
+  kinds: float64 instances are cast to f32, the batch is padded to a
+  bucket (1, 2, 4, 8, ... up to ``max_batch_size``) and the
+  ``predictions`` sliced back; a missing ``instances``, scalar or ragged
+  instances, a batch over ``max_batch_size`` and a shape other than the
+  export's ``input_shape`` answer 400. ``warmup=True`` runs every bucket
+  once at load for a kind whose export records its ``input_shape``;
 - ``POST /v1/models/<name>[/versions/<v>]:generate`` with
   ``{"prompt_tokens": [[...], ...], "max_new_tokens", "temperature",
   "top_k", "top_p", "seed", "eos_id", "prefix_len", "true_len",
@@ -29,8 +38,14 @@ adds ``speculative: {draft, draft_len, rounds, draft_tokens, accepted,
 acceptance_rate}``; without a draft, or with sampling, streaming,
 ``eos_id`` or ``prefix_len``, it answers 400 with the reference's error.
 
-Not in this slice (ROADMAP.md): ``:predict`` for the non-LM kinds,
-gRPC, tracing spans and the request ledger.
+Every POST opens a ``serving.predict`` or ``serving.generate`` span
+that continues the caller's ``traceparent`` and carries the response's
+``http.status``; engine submits made inside it parent their spans on it
+and key their ledger record by its trace id. A streamed response charges
+the ledger's ``stream_stall`` phase for every write the client takes
+longer than :data:`STREAM_STALL_MIN_S` to drain.
+
+Not in this slice (ROADMAP.md): gRPC.
 """
 
 from __future__ import annotations
@@ -47,6 +62,8 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.models import decode
+from kubeflow_tpu_torch.obs import requests as reqobs
+from kubeflow_tpu_torch.obs.trace import TRACER, extract
 from kubeflow_tpu_torch.serving.engine import (
     DecodeEngine,
     EngineClosed,
@@ -61,10 +78,17 @@ from kubeflow_tpu_torch.serving.model_store import (
 )
 from kubeflow_tpu_torch.utils import DEFAULT_REGISTRY
 from kubeflow_tpu_torch.utils.device import resolve_device
-from kubeflow_tpu_torch.utils.metrics import EXPOSITION_CONTENT_TYPE
+from kubeflow_tpu_torch.utils.metrics import exposition
 
 log = logging.getLogger(__name__)
 
+_requests = DEFAULT_REGISTRY.counter(
+    "kftpu_serving_requests_total", "predict requests")
+_latency = DEFAULT_REGISTRY.gauge(
+    "kftpu_serving_last_latency_seconds", "last predict latency")
+# a streamed-generate write suspended longer than this charges the
+# request ledger's stream_stall phase; below it is scheduling jitter
+STREAM_STALL_MIN_S = 0.05
 _gen_requests = DEFAULT_REGISTRY.counter(
     "kftpu_serving_generate_requests_total", "generate requests")
 _gen_latency = DEFAULT_REGISTRY.gauge(
@@ -184,6 +208,9 @@ def run_generate(model: LoadedModel, body: Dict[str, Any],
     with one, each prompt row is one engine request (row ``i`` samples
     from ``seed + i``) and EOS-finished rows are right-padded with their
     final token. Returns (http status, payload)."""
+    if model.lm_config is None:
+        return 400, {"error": f"model {model_name!r} (kind "
+                              f"{model.kind!r}) does not support generate"}
     err, a = _parse(model, body, max_batch_size, engine is None)
     if err is not None:
         return err
@@ -216,6 +243,10 @@ def run_generate(model: LoadedModel, body: Dict[str, Any],
 
     if stream:
         def steps():
+            # time suspended at a yield is the client not draining (the
+            # writer is parked in its socket write): it charges the rows'
+            # records as stream_stall, on the engine's clock
+            clock = engine.clock
             try:
                 iters = [r.stream() for r in reqs]
                 lasts = [0] * len(iters)
@@ -232,7 +263,13 @@ def run_generate(model: LoadedModel, body: Dict[str, Any],
                             done[i] = True
                     if not fresh:
                         return
+                    ty0 = clock()
                     yield [int(t) for t in lasts]
+                    ty1 = clock()
+                    if ty1 - ty0 >= STREAM_STALL_MIN_S:
+                        for r in reqs:
+                            engine.rledger.stall(r.rid, reqobs.STREAM_STALL,
+                                                 ty0, ty1)
             finally:
                 _gen_latency.set(time.perf_counter() - t0, model=model_name)
 
@@ -386,24 +423,29 @@ def _run_generate_speculative(model: LoadedModel, body: Dict[str, Any],
 
 
 class ModelRepository:
-    """Transformer models under ``<base>/<name>/<version>/``, newest
-    served (or ``pin_version``); with ``decode_slots`` > 0 each version
-    gets one decode engine. ``warmup`` (as in the reference) builds each
-    engine with ``precompile``: both step paths run once before the
-    first request, so no request pays their first call's set-up (on the
-    card: the sampler kernel's build and the first GEMMs'). Every poll
-    pairs each served model with its speculative draft, if the store
-    holds one (:meth:`_attach_draft`)."""
+    """Models under ``<base>/<name>/<version>/``, newest served (or
+    ``pin_version``); with ``decode_slots`` > 0 each transformer version
+    gets one decode engine. ``warmup_batches`` (as in the reference) are
+    the padded batch buckets each loaded version runs once before it is
+    swapped in (kinds whose export records an ``input_shape``), and a
+    non-empty tuple builds each engine with ``precompile``: no request
+    pays a first call's set-up (on the card: cuDNN's and cuBLAS's per
+    shape, the sampler kernel's build). ``warmed`` counts the buckets
+    warmed per ``(name, version)``. Every poll pairs each served LM with
+    its speculative draft, if the store holds one
+    (:meth:`_attach_draft`)."""
 
     def __init__(self, base_path: str, *, decode_slots: int = 0,
                  decode_steps_per_sync: int = 1,
                  pin_version: Optional[int] = None,
-                 poll_interval_s: float = 10.0, warmup: bool = False,
+                 poll_interval_s: float = 10.0,
+                 warmup_batches: Tuple[int, ...] = (),
                  device=None) -> None:
         self.device = resolve_device(device)
         self.base_path = base_path
         self.decode_slots = decode_slots
-        self.warmup = warmup
+        self.warmup_batches = tuple(warmup_batches)
+        self.warmed: Dict[Tuple[str, int], int] = {}
         self.decode_steps_per_sync = decode_steps_per_sync
         self.pin_version = pin_version
         self.poll_interval_s = poll_interval_s
@@ -438,11 +480,14 @@ class ModelRepository:
                 current = self._models.get(name)
             if current is not None and current.version == latest:
                 # drafts pair, change or detach without a version bump
-                self._attach_draft(name, current)
+                if current.lm_config is not None:
+                    self._attach_draft(name, current)
                 continue
             log.info("loading model %s version %d", name, latest)
             loaded = load_version(mdir, latest, device=self.device)
-            self._attach_draft(name, loaded)
+            if loaded.lm_config is not None:
+                self._attach_draft(name, loaded)
+            self._warmup(name, loaded)
             with self._lock:
                 self._models[name] = loaded
                 stale = [k for k in self._engines
@@ -451,6 +496,22 @@ class ModelRepository:
                 retired = [self._engines.pop(k) for k in stale]
             for eng in retired:
                 eng.close()
+
+    def _warmup(self, name: str, loaded: LoadedModel) -> None:
+        """Best-effort: a failed warm-up is logged and the version is
+        served all the same (its first request pays the set-up)."""
+        if not self.warmup_batches:
+            return
+        t0 = time.perf_counter()
+        try:
+            n = loaded.warmup(self.warmup_batches)
+        except Exception:  # noqa: BLE001 — warm-up is best-effort
+            log.exception("warmup failed for %s v%d", name, loaded.version)
+            return
+        self.warmed[(name, loaded.version)] = n
+        if n:
+            log.info("warmed %d batch buckets for %s v%d in %.1fs", n,
+                     name, loaded.version, time.perf_counter() - t0)
 
     def _store_signature(self) -> Any:
         """A cheap change marker for the store (one mtime a model dir),
@@ -526,8 +587,9 @@ class ModelRepository:
                    model: LoadedModel) -> Optional[DecodeEngine]:
         """The version's engine, built on first use; a self-closed engine
         (failed step) is replaced by a fresh one. None when the
-        repository serves unary (``decode_slots`` <= 0)."""
-        if self.decode_slots <= 0:
+        repository serves unary (``decode_slots`` <= 0) or the model is
+        no LM."""
+        if self.decode_slots <= 0 or model.lm_config is None:
             return None
         key = (name, model.version)
         with self._engine_create_lock:
@@ -538,8 +600,8 @@ class ModelRepository:
             eng = DecodeEngine(model.lm_config, model.lm_params,
                                slots=self.decode_slots,
                                steps_per_sync=self.decode_steps_per_sync,
-                               precompile=self.warmup, name=name,
-                               device=self.device)
+                               precompile=bool(self.warmup_batches),
+                               name=name, device=self.device)
             with self._lock:
                 self._engines[key] = eng
             return eng
@@ -584,14 +646,60 @@ class ModelServer:
                  pin_version: Optional[int] = None, warmup: bool = False,
                  decode_slots: int = 0, decode_steps_per_sync: int = 1,
                  device=None) -> None:
+        buckets = tuple(b for b in _PAD_BUCKETS if b <= max_batch_size)
         self.repo = ModelRepository(
             base_path, decode_slots=decode_slots,
             decode_steps_per_sync=decode_steps_per_sync,
             pin_version=pin_version, poll_interval_s=poll_interval_s,
-            warmup=warmup, device=device)
+            warmup_batches=buckets if warmup else (), device=device)
         self.port = port
         self.max_batch_size = max_batch_size
         self._httpd: Optional[ThreadingHTTPServer] = None
+
+    def handle_predict(self, name: str, version: Optional[int],
+                       body: Dict[str, Any]) -> Tuple[int, Dict[str, Any]]:
+        """The reference's ``handle_predict``: its checks, status codes
+        and texts. Shapes and dtypes are checked before the launch
+        (:meth:`LoadedModel.input_error`), so a client error answers 400
+        and an execution fault 500."""
+        model = self.repo.get(name, version)
+        if model is None:
+            return 404, {"error": f"model {name!r}"
+                         f"{f' version {version}' if version else ''} "
+                         "not found"}
+        instances = body.get("instances")
+        if instances is None:
+            return 400, {"error": "request body must contain 'instances'"}
+        try:
+            arr = np.asarray(instances)
+            if arr.ndim == 0 or arr.dtype == object:
+                raise ValueError("instances must be a non-empty array")
+            if arr.dtype == np.float64:
+                arr = arr.astype(np.float32)
+        except Exception as e:  # noqa: BLE001 — any parse failure is a 400
+            return 400, {"error": f"bad instances: {e}"}
+        if arr.shape[0] > self.max_batch_size:
+            return 400, {"error": f"batch {arr.shape[0]} exceeds max "
+                                  f"{self.max_batch_size}"}
+        bad = model.input_error(arr.shape, arr.dtype)
+        if bad is not None:
+            return 400, {"error": bad}
+        t0 = time.perf_counter()
+        padded, n = _pad_batch(arr, self.max_batch_size)
+        try:
+            out = model.predict(padded)[:n]
+        except (TypeError, ValueError) as e:
+            # host-side conversion of the batch (an unsupported dtype)
+            return 400, {"error": f"predict failed: {type(e).__name__}: "
+                                  f"{e}"}
+        except Exception as e:  # noqa: BLE001 — an execution fault
+            return 500, {"error": f"predict failed: {type(e).__name__}: "
+                                  f"{e}"}
+        dt = time.perf_counter() - t0
+        _requests.inc(model=name)
+        _latency.set(dt, model=name)
+        return 200, {"predictions": out.tolist(),
+                     "model_version": str(model.version)}
 
     def handle_generate(self, name: str, version: Optional[int],
                         body: Dict[str, Any], stream: bool = False
@@ -622,10 +730,10 @@ class ModelServer:
                 if path == "/healthz":
                     self._send(200, {"status": "ok"})
                 elif path == "/metrics":
-                    body = DEFAULT_REGISTRY.expose().encode()
+                    body, ctype = exposition(DEFAULT_REGISTRY,
+                                             dict(self.headers))
                     self.send_response(200)
-                    self.send_header("Content-Type",
-                                     EXPOSITION_CONTENT_TYPE)
+                    self.send_header("Content-Type", ctype)
                     self.send_header("Content-Length", str(len(body)))
                     self.end_headers()
                     self.wfile.write(body)
@@ -648,11 +756,12 @@ class ModelServer:
                     self._send(400, {"error": "invalid JSON"})
                     return
                 path = self.path
-                if not (path.startswith("/v1/models/")
-                        and path.endswith(":generate")):
+                verb = next((s for s in (":predict", ":generate")
+                             if path.endswith(s)), None)
+                if verb is None or not path.startswith("/v1/models/"):
                     self._send(404, {"error": "not found"})
                     return
-                target = path[len("/v1/models/"):-len(":generate")]
+                target = path[len("/v1/models/"):-len(verb)]
                 version: Optional[int] = None
                 name = target
                 if "/versions/" in target:
@@ -661,9 +770,22 @@ class ModelServer:
                         self._send(400, {"error": f"bad version {v!r}"})
                         return
                     version = int(v)
-                stream = bool(body.get("stream"))
-                code, payload = server.handle_generate(name, version, body,
-                                                       stream=stream)
+                stream = verb == ":generate" and bool(body.get("stream"))
+                attrs: Dict[str, Any] = {"model": name}
+                if stream:
+                    attrs["stream"] = True
+                # continue the caller's trace (or start one): engine
+                # submits made inside parent their spans on this one
+                with TRACER.span("serving" + verb.replace(":", "."),
+                                 remote=extract(dict(self.headers)),
+                                 attrs=attrs) as sp:
+                    if verb == ":predict":
+                        code, payload = server.handle_predict(name, version,
+                                                              body)
+                    else:
+                        code, payload = server.handle_generate(
+                            name, version, body, stream=stream)
+                    sp.attrs["http.status"] = code
                 if code != 200 or not stream:
                     self._send(code, payload)
                     return

@@ -1,10 +1,11 @@
 """Prometheus-style metrics for the port: counters, gauges, histograms.
 
 A trimmed copy of ``kubeflow_tpu/utils/metrics.py``: the registry, the
-three metric kinds the engine, the server and the step telemetry use,
-``STEP_TIME_BUCKETS``, and the classic 0.0.4 text exposition (the port
-records no trace exemplars yet, so its exposition is the reference's
-without them). Series names, help strings and label keys are the JAX
+three metric kinds the engine, the server, the request ledger and the
+step telemetry use, ``STEP_TIME_BUCKETS``, histogram exemplars (the
+latest ``(trace id, value)`` per bucket, as OpenMetrics-style ``#
+{trace_id="..."} v`` suffixes on the bucket lines) and the 0.0.4 text
+exposition. Series names, help strings and label keys are the JAX
 package's, so the edge poller scrapes a GPU replica unchanged.
 """
 
@@ -51,7 +52,8 @@ class Metric:
         with self._lock:
             return self._values.get(self._key(labels), 0.0)
 
-    def expose(self) -> str:
+    def expose(self, exemplars: bool = True) -> str:
+        del exemplars  # histograms only; accepted for a uniform call
         lines = [f"# HELP {self.name} {self.help}",
                  f"# TYPE {self.name} {self.kind}"]
         with self._lock:
@@ -79,7 +81,9 @@ def _fmt_bound(b: float) -> str:
 
 class Histogram(Metric):
     """Cumulative histogram with ``_bucket{le=...}``/``_sum``/``_count``
-    exposition."""
+    exposition. ``observe(..., exemplar_trace_id=)`` keeps the latest
+    observed ``(trace_id, value)`` per bucket, and the exposition
+    suffixes that bucket's line with ``# {trace_id="..."} v``."""
 
     def __init__(self, name: str, help_: str,
                  buckets: Sequence[float] = DEFAULT_BUCKETS) -> None:
@@ -92,8 +96,12 @@ class Histogram(Metric):
         self.bounds: Tuple[float, ...] = tuple(bounds)
         self._counts: Dict[_Label, List[int]] = {}
         self._sums: Dict[_Label, float] = {}
+        # per label set: bucket index -> latest (trace_id, value)
+        self._exemplars: Dict[_Label, Dict[int, Tuple[str, float]]] = {}
 
-    def observe(self, value: float, **labels: str) -> None:
+    def observe(self, value: float,
+                exemplar_trace_id: Optional[str] = None,
+                **labels: str) -> None:
         key = self._key(labels)
         idx = bisect.bisect_left(self.bounds, value)
         with self._lock:
@@ -102,6 +110,9 @@ class Histogram(Metric):
                 counts = self._counts[key] = [0] * (len(self.bounds) + 1)
             counts[idx] += 1
             self._sums[key] = self._sums.get(key, 0.0) + value
+            if exemplar_trace_id:
+                self._exemplars.setdefault(key, {})[idx] = (
+                    str(exemplar_trace_id), float(value))
 
     def inc(self, amount: float = 1.0, **labels: str) -> None:
         raise TypeError(f"histogram {self.name!r}: use observe(), not inc()")
@@ -114,20 +125,28 @@ class Histogram(Metric):
         with self._lock:
             return float(sum(self._counts.get(self._key(labels), ())))
 
-    def expose(self) -> str:
+    def expose(self, exemplars: bool = True) -> str:
+        """``exemplars=False`` omits the exemplar suffixes, which the
+        classic 0.0.4 text parser rejects."""
         lines = [f"# HELP {self.name} {self.help}",
                  f"# TYPE {self.name} {self.kind}"]
         with self._lock:
-            items = sorted((k, list(v), self._sums.get(k, 0.0))
+            items = sorted((k, list(v), self._sums.get(k, 0.0),
+                            dict(self._exemplars.get(k, {})))
                            for k, v in self._counts.items())
-        for key, counts, total in items:
+        for key, counts, total, bucket_exemplars in items:
             base = format_labels(key)
             acc = 0
             les = [_fmt_bound(b) for b in self.bounds] + ["+Inf"]
-            for le, n in zip(les, counts):
+            for i, (le, n) in enumerate(zip(les, counts)):
                 acc += n
                 lbl = (base + "," if base else "") + f'le="{le}"'
-                lines.append(f"{self.name}_bucket{{{lbl}}} {acc}")
+                line = f"{self.name}_bucket{{{lbl}}} {acc}"
+                ex = bucket_exemplars.get(i) if exemplars else None
+                if ex is not None:
+                    line += (f' # {{trace_id="'
+                             f'{escape_label_value(ex[0])}"}} {ex[1]}')
+                lines.append(line)
             suffix = f"{{{base}}}" if base else ""
             lines.append(f"{self.name}_sum{suffix} {total}")
             lines.append(f"{self.name}_count{suffix} {acc}")
@@ -167,12 +186,36 @@ class Registry:
                                    else Metric(name, help_, kind))
             return self._metrics[name]
 
-    def expose(self) -> str:
+    def expose(self, exemplars: bool = True) -> str:
         with self._lock:
             metrics = list(self._metrics.values())
-        return "\n".join(m.expose() for m in metrics) + "\n"
+        return "\n".join(m.expose(exemplars=exemplars)
+                         for m in metrics) + "\n"
 
 
 DEFAULT_REGISTRY = Registry()
 
 EXPOSITION_CONTENT_TYPE = "text/plain; version=0.0.4"
+
+# exemplar suffixes are valid in neither the classic 0.0.4 text format
+# nor strict OpenMetrics: an HTTP endpoint sends them only to a scraper
+# that asks for them with this header (the reference's policy)
+EXEMPLARS_HEADER = "X-Kftpu-Exemplars"
+
+
+def wants_exemplars(headers: Mapping[str, str]) -> bool:
+    """True when the request opts into the exemplar extension."""
+    for k, v in headers.items():
+        if str(k).lower() == EXEMPLARS_HEADER.lower():
+            return str(v).strip().lower() in ("1", "true", "yes")
+    return False
+
+
+def exposition(registry: Registry,
+               headers: Optional[Mapping[str, str]] = None
+               ) -> Tuple[bytes, str]:
+    """(body, content type) of an HTTP ``/metrics`` response: classic
+    0.0.4 unless the scraper requested the exemplar extension."""
+    body = registry.expose(
+        exemplars=wants_exemplars(headers or {})).encode()
+    return body, EXPOSITION_CONTENT_TYPE

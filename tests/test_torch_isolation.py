@@ -195,3 +195,26 @@ def test_the_lm_slice_is_scanned_and_needs_cuda(tmp_path, monkeypatch):
     assert not (tmp_path / "ckpt").exists()
     loss = lm_example.main(tiny + ["--device", "cpu"])
     assert loss == loss and (tmp_path / "ckpt" / "1").is_dir()
+
+
+def test_the_predict_slice_is_scanned(tmp_path):
+    """The modules of the ``:predict`` and request-ledger slice are among
+    the sources scanned above, and the store loads every kind onto the
+    card unless ``device="cpu"`` is passed."""
+    scanned = {str(p.relative_to(PKG)) for p in _sources()
+               if PKG in p.parents}
+    for mod in ("obs/requests.py", "models/mnist.py", "models/convert.py",
+                "serving/model_store.py", "serving/server.py",
+                "serving/engine.py", "utils/metrics.py"):
+        assert mod in scanned, mod
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is usable")
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.serving import model_store as store
+
+    store.export_model(str(tmp_path / "mnist"), "mnist",
+                       convert.random_mnist_params(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        store.load_version(str(tmp_path / "mnist"), 1)
+    assert store.load_version(str(tmp_path / "mnist"), 1,
+                              device="cpu").input_shape == (28, 28, 1)
