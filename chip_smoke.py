@@ -142,7 +142,29 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
 18. f32 (TF32 off) ``:predict`` parity from the same weights: ResNet-50
     fused against unfused (the same top-1 for 8 images, logits within
     1e-4 of their max-abs) and BERT-base flash against dense (logits
-    within 1e-5).
+    within 1e-5);
+19. the image-classification entry points at the reference's widths:
+    ``examples.resnet.main`` (ResNet-50, 224², batch 128, 3 warm-up and
+    6 timed steps) on synthetic tensors, then from 256 records of
+    shards (~154 MB) through the native loader (required) and the
+    device feed; ``examples.vit.main`` (ViT-B/16, batch 64) and
+    ``examples.mnist.main`` at its defaults (100 steps of 128). The
+    synthetic runs' losses fall, MNIST's accuracy clears 0.9, and none
+    of the seven kernels launches (the reference's defaults); images/s,
+    ms a step and peak memory printed;
+20. the gRPC ``Predict`` core without the transport (this machine has
+    no ``grpc``/``protobuf``) over phase 17's exports: binary decode,
+    the integer cast and padding, ``LoadedModel.predict``, binary
+    encode, each timed, for ResNet-50 fused at batch 8 (f32, uint8 and
+    bf16 pixels) and BERT-base at (1, 128) through the binary codec
+    (its int32 tokens refused by ``Predict`` itself, as the reference
+    refuses them); every output equal to the REST ``:predict``'s, a
+    bf16 round trip bit for bit, bnconv forward 16 launches a ResNet
+    call and flash forward 12 a BERT call. Where ``grpc`` imports, the
+    service runs ``Predict`` and ``Generate`` through ``PredictClient``
+    too; else one line says why it did not. Phase 5 also splits each
+    step's own wall into the telemetry's window, its work after the
+    window and the loop's rest.
 
 Each phase prints its seconds. Phase 2 also holds the bnconv forward and
 dW kernels, and the autograd function's four gradients, against their
@@ -167,7 +189,8 @@ that path, read just after): ``paged_serving`` and ``dense_serving``
 ``resnet_train`` (rows 6-7), and on every row ``lm_entry``,
 ``moe_train`` and ``spec_serving`` (phases 14-16: the reference's dense,
 greedy defaults launch none of the kernels, which those phases require)
-and ``predict`` (phase 17's calls). The flash forward and bnconv forward
+``predict`` (phase 17's calls), ``image_entry`` (phase 19: none) and
+``grpc_core`` (phase 20's calls). The flash forward and bnconv forward
 rows also carry ``predict_shapes``: their times at the inference shapes.
 """
 
@@ -1390,6 +1413,19 @@ def train_phase(device, *, steps=TRAIN_STEPS):
     print(f"train state built: {time.perf_counter() - t0:.1f}s, "
           f"{n_params} params", flush=True)
     telem = make_step_telemetry(tokens_per_step=TRAIN_BATCH * S, sync=True)
+    # the telemetry's work after a step's window (its bookkeeping, and
+    # on step 1 the FLOP counter's read), timed apart so that each
+    # step's own wall splits into window + after + the rest (before the
+    # window and the loop)
+    after = []
+    for hook in ("_read_probe", "_on_step"):
+        def timed(*a, _fn=getattr(telem, hook), _hook=hook, **kw):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                after.append((_hook, time.perf_counter() - t))
+        setattr(telem, hook, timed)
     step = telem.wrap(make_lm_train_step())
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -1407,6 +1443,23 @@ def train_phase(device, *, steps=TRAIN_STEPS):
     # whatever the interpreter does around it (a garbage collection)
     own_med = statistics.median(times[1:])
     telem_med = statistics.median(telem_s[1:])
+    split, i = [], 0
+    for k in range(steps):
+        probe = on_step = 0.0
+        while i < len(after):
+            hook, t = after[i]
+            i += 1
+            if hook == "_read_probe":
+                probe += t
+            else:
+                on_step += t
+                break
+        split.append({"own_ms": times[k] * 1e3,
+                         "window_ms": telem_s[k] * 1e3,
+                         "probe_read_ms": probe * 1e3,
+                         "bookkeeping_ms": on_step * 1e3,
+                         "rest_ms": (times[k] - telem_s[k] - probe
+                                     - on_step) * 1e3})
     check(abs(telem_med - own_med) <= 0.1 * own_med,
           f"train: telemetry steps {telem_s} s vs the phase's own "
           f"{times} s")
@@ -1440,7 +1493,7 @@ def train_phase(device, *, steps=TRAIN_STEPS):
             "grad_norm": float(m["grad_norm"]),
             "telemetry": dict(summary, own_median_step_s=own_med,
                               median_step_s=telem_med, step_s=telem_s,
-                              own_step_s=times,
+                              own_step_s=times, split=split,
                               tokens_per_s=telem._rates()["tokens_per_sec"],
                               flops_per_step=telem.flops_per_step,
                               hbm_peak_gb=hbm["peakBytes"] / 1e9)}
@@ -2238,18 +2291,20 @@ def bert_parity_phase(device):
 # -- phase 13: the BERT entry point, checkpoint/resume and the profiler ------
 
 
-def _bert_main(argv, env):
-    """``examples.bert.main(argv)`` with the env contract ``env`` set
-    around the call; returns its last loss."""
-    from kubeflow_tpu_torch.examples import bert as bert_example
+def _entry_main(module: str, argv, env):
+    """``kubeflow_tpu_torch.examples.<module>.main(argv)`` with the env
+    contract ``env`` set around the call (and the rest of the contract's
+    keys unset); returns its result."""
+    import importlib
 
+    mod = importlib.import_module(f"kubeflow_tpu_torch.examples.{module}")
     keys = ("KFTPU_CHECKPOINT_DIR", "KFTPU_RESULTS_DIR", "KFTPU_JOB_NAME",
             "KFTPU_PROFILE_DIR", "KFTPU_PROFILE_START",
             "KFTPU_PROFILE_STEPS")
     saved = {k: os.environ.pop(k, None) for k in keys}
     os.environ.update(env)
     try:
-        return bert_example.main(argv)
+        return mod.main(argv)
     finally:
         for k in keys:
             os.environ.pop(k, None)
@@ -2293,19 +2348,19 @@ def bert_entry_phase(device):
         env = {"KFTPU_CHECKPOINT_DIR": ckpt, "KFTPU_RESULTS_DIR": results}
         ops.reset_launches()
         t0 = time.perf_counter()
-        _bert_main(argv + ["--steps", "4"], dict(
+        _entry_main("bert", argv + ["--steps", "4"], dict(
             env, KFTPU_JOB_NAME="first", KFTPU_PROFILE_DIR=prof,
             KFTPU_PROFILE_START="1", KFTPU_PROFILE_STEPS="2"))
         t_first = time.perf_counter() - t0
         check(CheckpointManager(ckpt).all_steps() == [2, 4],
               f"bert entry: checkpoints {os.listdir(ckpt)}")
-        resumed = _bert_main(argv + ["--steps", "6"],
-                             dict(env, KFTPU_JOB_NAME="restart"))
-        unbroken = _bert_main(
-            ["--log-every", "1", "--checkpoint-every", "100", "--steps",
-             "6"], {"KFTPU_CHECKPOINT_DIR": os.path.join(work, "ckpt2"),
-                    "KFTPU_RESULTS_DIR": results,
-                    "KFTPU_JOB_NAME": "unbroken"})
+        resumed = _entry_main("bert", argv + ["--steps", "6"],
+                              dict(env, KFTPU_JOB_NAME="restart"))
+        unbroken = _entry_main(
+            "bert", ["--log-every", "1", "--checkpoint-every", "100",
+                     "--steps", "6"],
+            {"KFTPU_CHECKPOINT_DIR": os.path.join(work, "ckpt2"),
+             "KFTPU_RESULTS_DIR": results, "KFTPU_JOB_NAME": "unbroken"})
         launches = ops.launch_counts()
         first = _losses(results, "first")
         restart = _losses(results, "restart")
@@ -2382,24 +2437,6 @@ def _peak_gb(device) -> float:
     return torch.cuda.max_memory_allocated() / 1e9
 
 
-def _lm_main(argv, env):
-    """``examples.lm.main(argv)`` with the env contract ``env`` set
-    around the call; returns its last loss."""
-    from kubeflow_tpu_torch.examples import lm as lm_example
-
-    keys = ("KFTPU_CHECKPOINT_DIR", "KFTPU_RESULTS_DIR", "KFTPU_JOB_NAME",
-            "KFTPU_PROFILE_DIR")
-    saved = {k: os.environ.pop(k, None) for k in keys}
-    os.environ.update(env)
-    try:
-        return lm_example.main(argv)
-    finally:
-        for k in keys:
-            os.environ.pop(k, None)
-            if saved[k] is not None:
-                os.environ[k] = saved[k]
-
-
 def _records(results: str, job: str) -> list:
     with open(os.path.join(results, f"{job}.jsonl")) as f:
         return [json.loads(line) for line in f]
@@ -2435,12 +2472,12 @@ def lm_entry_phase(device, store: str, *, size=(), vocab=32000):
         ops.reset_launches()
         t0 = time.perf_counter()
         flags = ["--device", str(device), *size]
-        _lm_main(flags + ["--steps", "6", "--checkpoint-every", "3",
-                  "--log-every", "1", "--generate", "16", "--export",
-                  os.path.join(store, "lm"), "--draft-layers", "2",
-                  "--draft-distill-steps", "20"],
-                 {"KFTPU_CHECKPOINT_DIR": ckpt_a,
-                  "KFTPU_RESULTS_DIR": results, "KFTPU_JOB_NAME": "a"})
+        _entry_main("lm", flags + [
+            "--steps", "6", "--checkpoint-every", "3", "--log-every", "1",
+            "--generate", "16", "--export", os.path.join(store, "lm"),
+            "--draft-layers", "2", "--draft-distill-steps", "20"],
+                    {"KFTPU_CHECKPOINT_DIR": ckpt_a,
+                     "KFTPU_RESULTS_DIR": results, "KFTPU_JOB_NAME": "a"})
         t_full = time.perf_counter() - t0
         peak_gb = _peak_gb(device)
         launches = ops.launch_counts()
@@ -2470,10 +2507,10 @@ def lm_entry_phase(device, store: str, *, size=(), vocab=32000):
         last = next(r for r in reversed(recs) if "loss" in r)
         # the restart after the last checkpoint: no step, still exports
         again = os.path.join(work, "again", "lm")
-        _lm_main(flags + ["--steps", "6", "--export", again],
-                 {"KFTPU_CHECKPOINT_DIR": ckpt_a,
-                  "KFTPU_RESULTS_DIR": results,
-                  "KFTPU_JOB_NAME": "a-done"})
+        _entry_main("lm", flags + ["--steps", "6", "--export", again],
+                    {"KFTPU_CHECKPOINT_DIR": ckpt_a,
+                     "KFTPU_RESULTS_DIR": results,
+                     "KFTPU_JOB_NAME": "a-done"})
         done = _records(results, "a-done")
         check(done[0].get("done") and done[0]["step"] == 6
               and not any("loss" in r for r in done)
@@ -2482,8 +2519,10 @@ def lm_entry_phase(device, store: str, *, size=(), vocab=32000):
         # 3 steps, then a restart to 6, against the 6-step run
         argv = flags + ["--log-every", "1", "--checkpoint-every", "3"]
         env = {"KFTPU_CHECKPOINT_DIR": ckpt_b, "KFTPU_RESULTS_DIR": results}
-        _lm_main(argv + ["--steps", "3"], dict(env, KFTPU_JOB_NAME="b"))
-        _lm_main(argv + ["--steps", "6"], dict(env, KFTPU_JOB_NAME="b6"))
+        _entry_main("lm", argv + ["--steps", "3"],
+                    dict(env, KFTPU_JOB_NAME="b"))
+        _entry_main("lm", argv + ["--steps", "6"],
+                    dict(env, KFTPU_JOB_NAME="b6"))
         b6 = [r for r in _records(results, "b6") if "loss" in r]
         resumed = {r["step"]: r["loss"] for r in b6}
         check(sorted(resumed) == [4, 5, 6],
@@ -2558,9 +2597,10 @@ def lm_moe_phase(device, *, steps=4, size=()):
     try:
         _reset_peak(device)
         ops.reset_launches()
-        _lm_main(["--device", str(device), *size, "--steps", str(steps),
-                  "--n-experts", "8", "--log-every", "1"],
-                 {"KFTPU_RESULTS_DIR": work, "KFTPU_JOB_NAME": "moe"})
+        _entry_main("lm", ["--device", str(device), *size, "--steps",
+                           str(steps), "--n-experts", "8", "--log-every",
+                           "1"],
+                    {"KFTPU_RESULTS_DIR": work, "KFTPU_JOB_NAME": "moe"})
         launches = ops.launch_counts()
         recs = [r for r in _records(work, "moe") if "loss" in r]
     finally:
@@ -3278,6 +3318,363 @@ def predict_parity_phase(device, *, image: int = 224) -> dict:
     return out
 
 
+# -- phase 19: the image-classification entry points -------------------------
+
+
+IMAGE_ENTRY_STEPS = 6
+SHARD_RECORDS = 256
+MNIST_ACCURACY_FLOOR = 0.9     # chance is 0.1; the CPU run reaches 1.0
+
+
+def _image_run(device, module, argv, results, job, batch) -> dict:
+    """One entry-point run: its result, every step's loss (warm-up steps
+    included, read after the run from the step function's metrics),
+    images/s and ms a step of the timed window, and peak device memory
+    (and the peak less what was allocated before the run)."""
+    import importlib
+
+    import torch
+
+    mod = importlib.import_module(f"kubeflow_tpu_torch.examples.{module}")
+    make = mod.make_image_train_step
+    seen = []
+
+    def spied():
+        step = make()
+
+        def run(*a):
+            state, m = step(*a)
+            seen.append(m["loss"])
+            return state, m
+        return run
+
+    _reset_peak(device)
+    base_gb = (torch.cuda.memory_allocated() / 1e9
+               if torch.device(device).type == "cuda" else 0.0)
+    mod.make_image_train_step = spied
+    t0 = time.perf_counter()
+    try:
+        result = _entry_main(module, [*argv, "--device", str(device)],
+                             {"KFTPU_RESULTS_DIR": results,
+                              "KFTPU_JOB_NAME": job})
+    finally:
+        mod.make_image_train_step = make
+    wall = time.perf_counter() - t0
+    recs = _records(results, job)
+    losses = [float(x) for x in seen]
+    check(losses and all(x == x and abs(x) != float("inf")
+                         for x in losses),
+          f"{job}: losses {losses}")
+    out = {"result": result, "losses": losses, "wall_s": wall,
+           "peak_gb": _peak_gb(device),
+           "run_peak_gb": _peak_gb(device) - base_gb}
+    final = [r for r in recs if r.get("final")]
+    if final:
+        out["images_per_s"] = final[-1]["images_per_sec"]
+    else:   # mnist logs no rate: its log lines' clock between the first
+        first, last = recs[0], recs[-1]      # and the last record
+        out["images_per_s"] = ((last["step"] - first["step"]) * batch
+                               / (last["ts"] - first["ts"]))
+    out["step_ms"] = batch / out["images_per_s"] * 1e3
+    return out
+
+
+def write_image_shards(path: str, n: int, image: int,
+                       classes: int) -> int:
+    """``n`` records of ``[label, pixels...]`` (``image``² x 3 normal
+    pixels, labels in [0, ``classes``)) from a numpy seed, in two shards;
+    returns the bytes written."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.data import write_shards
+
+    rng = np.random.default_rng(SEED + 19)
+    recs = np.empty((n, image * image * 3 + 1), np.float32)
+    recs[:, 0] = rng.integers(0, classes, n)
+    recs[:, 1:] = rng.standard_normal((n, image * image * 3),
+                                      dtype=np.float32)
+    write_shards(path, recs, shards=2)
+    return recs.nbytes
+
+
+def image_entry_phase(device, *, resnet=(), vit=(), mnist=(), image=224,
+                      classes=1000, shards=SHARD_RECORDS,
+                      batch=(128, 64, 128)) -> dict:
+    """Phase 19: ``examples.resnet.main`` (ResNet-50, 224², batch 128;
+    synthetic, then from shards through the native loader and the device
+    feed), ``examples.vit.main`` (ViT-B/16 at its defaults) and
+    ``examples.mnist.main`` (its defaults: 100 steps of 128) on
+    ``device``. The synthetic runs' losses start near ln(classes) and
+    fall (warm-up steps included); MNIST's accuracy
+    clears :data:`MNIST_ACCURACY_FLOOR`; the shard run's loader is
+    native. None of the seven kernels launches (the reference's default
+    configurations: ResNet unfused, ViT's dense attention). ``resnet``,
+    ``vit``, ``mnist``, ``image``, ``classes``, ``shards`` and ``batch``
+    shrink for a rehearsal on the CPU."""
+    import math
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.examples import resnet as resnet_example
+
+    results = tempfile.mkdtemp(prefix="kftpu-images-")
+    steps = ["--steps", str(IMAGE_ENTRY_STEPS), "--log-every", "1"]
+    out = {}
+    try:
+        ops.reset_launches()
+        r = _image_run(device, "resnet", [*steps, *resnet], results,
+                       "resnet", batch[0])
+        check(abs(r["losses"][0] - math.log(classes)) <= 1.5
+              and r["losses"][-1] < r["losses"][0],
+              f"resnet entry: loss did not fall from ln({classes}): "
+              f"{r['losses']}")
+        out["resnet"] = r
+        data_dir = os.path.join(results, "shards")
+        t0 = time.perf_counter()
+        nbytes = write_image_shards(data_dir, shards, image, classes)
+        write_s = time.perf_counter() - t0
+        native = []
+        real_loader = resnet_example.DataLoader
+
+        def loader(*a, **kw):
+            made = real_loader(*a, **kw)
+            native.append(made.native)
+            return made
+
+        resnet_example.DataLoader = loader
+        try:
+            # the default --log-every (10): no loss read a step, so the
+            # feed's host work for batch k+1 overlaps step k on the card
+            r = _image_run(device, "resnet",
+                           ["--steps", str(IMAGE_ENTRY_STEPS), *resnet,
+                            "--data-dir", data_dir],
+                           results, "resnet-shards", batch[0])
+        finally:
+            resnet_example.DataLoader = real_loader
+        check(native == [True], f"resnet from shards: native loader "
+                                f"{native} (the Python twin ran)")
+        r.update(shard_mb=nbytes / 1e6, shard_write_s=write_s)
+        out["resnet_shards"] = r
+        r = _image_run(device, "vit", [*steps, *vit], results, "vit",
+                       batch[1])
+        check(abs(r["losses"][0] - math.log(classes)) <= 1.5
+              and r["losses"][-1] < r["losses"][0],
+              f"vit entry: loss did not fall from ln({classes}): "
+              f"{r['losses']}")
+        out["vit"] = r
+        r = _image_run(device, "mnist", list(mnist), results, "mnist",
+                       batch[2])
+        check(r["result"] >= MNIST_ACCURACY_FLOOR,
+              f"mnist entry: final accuracy {r['result']} < "
+              f"{MNIST_ACCURACY_FLOOR}")
+        out["mnist"] = r
+        launches = ops.launch_counts()
+        check(not any(launches.values()),
+              f"image entry points launched kernels: {launches}")
+        out["launches"] = launches
+    finally:
+        shutil.rmtree(results, ignore_errors=True)
+    return out
+
+
+# -- phase 20: the gRPC service's core on the card ----------------------------
+
+
+GRPC_CALLS = 5
+
+
+def _p50(fn, calls=GRPC_CALLS):
+    """(p50 seconds, last result) of ``calls`` calls of ``fn``."""
+    times, res = [], None
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        res = fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), res
+
+
+def grpc_split(model, arr, max_batch: int, totals: dict, want, *,
+               tokens: bool = False) -> dict:
+    """``Predict``'s core on one request, each part timed alone (p50):
+    binary decode, the integer cast and padding, ``LoadedModel.predict``
+    (host to device, forward, device to host; the forward also by CUDA
+    events), binary encode; then the whole of ``predict_tensor``, its
+    launches counted a call. Token ids (``tokens``) skip ``Predict``'s
+    integer cast, which refuses them as the reference does: they are
+    padded and run through the ``LoadedModel.predict`` REST runs.
+    Returns the split and the decoded outputs."""
+    import torch
+
+    from kubeflow_tpu_torch.serving import grpc_server as gs
+    from kubeflow_tpu_torch.serving.server import _pad_batch
+
+    def prepare(a):
+        return (_pad_batch(a, max_batch) if tokens
+                else gs.predict_inputs(model, a, max_batch))
+
+    def whole():
+        if not tokens:
+            return gs.predict_tensor(model, data, dtype, shape, max_batch)
+        return gs.encode_array(gs.run_predict(model, *prepare(
+            gs.decode_array(data, dtype, shape))))
+
+    data, dtype, shape = gs.encode_array(arr)
+    decode_s, got = _p50(lambda: gs.decode_array(data, dtype, shape))
+    prep_s, (padded, n) = _p50(lambda: prepare(got))
+    predict_s, out = _p50(lambda: counted(
+        totals, lambda: gs.run_predict(model, padded, n), want=want))
+    x = torch.as_tensor(padded).to(model.device)
+    events = []
+    for _ in range(GRPC_CALLS):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        counted(totals, lambda: model.forward(x), want=want)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    forward_ms = statistics.median(s.elapsed_time(e) for s, e in events)
+    encode_s, (odata, odtype, oshape) = _p50(lambda: gs.encode_array(out))
+    wall_s, res = _p50(lambda: counted(totals, whole, want=want))
+    check(res == (odata, odtype, oshape),
+          "the core's response differs from its parts'")
+    return {"request_mb": len(data) / 2 ** 20,
+            "response_mb": len(odata) / 2 ** 20,
+            "decode_ms": decode_s * 1e3, "prep_ms": prep_s * 1e3,
+            "predict_ms": predict_s * 1e3, "forward_ms": forward_ms,
+            "encode_ms": encode_s * 1e3, "wall_ms": wall_s * 1e3,
+            "outputs": gs.decode_array(odata, odtype, oshape)}
+
+
+def grpc_core_phase(device, root: str, *, image=224,
+                    bert_shape=(1, 128)) -> dict:
+    """Phase 20: the gRPC ``Predict`` core without the transport (this
+    machine has no ``grpc``/``protobuf``) over phase 17's exports
+    (``root``) on ``device``: ResNet-50 fused at batch 8 with f32 and
+    with uint8 pixels, and a bf16 pixel batch, through
+    ``predict_tensor``'s parts; BERT-base at (1, 128) through the binary
+    codec and the ``LoadedModel.predict`` the REST path runs (its int32
+    tokens through ``Predict`` itself are refused, INVALID_ARGUMENT, as
+    the reference refuses them: the integer cast makes them floats); a
+    bf16 tensor round trip bit for bit. Every output equals the REST
+    ``:predict``'s on the same inputs (a ``ModelServer`` over the same
+    exports); the bnconv forward launches 16 times a ResNet call and the
+    flash forward 12 times a BERT call. Where ``grpc`` imports, the
+    service also runs ``Predict`` and ``Generate`` through
+    ``PredictClient``."""
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.serving import grpc_server as gs
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    on_card = torch.device(device).type == "cuda"
+    totals = dict.fromkeys(ops.launch_counts(), 0)
+    none = dict(totals)
+    calls = {"resnet50": dict(none, bnconv_fwd=16 * on_card),
+             "bert": dict(none, flash_fwd=12 * on_card)}
+    server = ModelServer(root, port=0, poll_interval_s=3600, device=device)
+    port = server.start()
+    res = {"cases": {}}
+
+    def rest(name, arr):
+        code, body = counted(totals, lambda: _post_status(
+            f"http://127.0.0.1:{port}/v1/models/{name}:predict",
+            {"instances": arr.tolist()}), want=calls[name])
+        check(code == 200, f"REST {name}: {code} {body}")
+        return np.asarray(body["predictions"], np.float32)
+
+    try:
+        rng = np.random.default_rng(SEED + 20)
+        images = rng.standard_normal((8, image, image, 3)).astype(
+            np.float32)
+        pixels = rng.integers(0, 256, (8, image, image, 3)).astype(np.uint8)
+        bf = torch.from_numpy(images).to(torch.bfloat16)
+        bert = server.repo.get("bert")
+        toks = rng.integers(0, bert.module.config.vocab_size,
+                            bert_shape).astype(np.int32)
+        data, dtype, shape = gs.encode_array(toks)
+        try:
+            gs.predict_tensor(bert, data, dtype, shape,
+                              server.max_batch_size)
+            refused = None
+        except gs.RpcFault as e:
+            refused = e.code
+        check(refused == "INVALID_ARGUMENT",
+              f"bert int32 tokens through Predict: {refused}, not the "
+              f"reference's INVALID_ARGUMENT")
+        res["bert_refused"] = refused
+        # (label, model, wire tensor, the same values as REST sends them)
+        for label, name, arr, plain in (
+                ("resnet50 fused 8 f32", "resnet50", images, images),
+                ("resnet50 fused 8 uint8", "resnet50", pixels, pixels),
+                ("resnet50 fused 8 bf16", "resnet50", bf,
+                 bf.float().numpy()),
+                ("bert 1x128", "bert", toks, toks)):
+            r = grpc_split(server.repo.get(name), arr,
+                           server.max_batch_size, totals, calls[name],
+                           tokens=name == "bert")
+            got = r.pop("outputs")
+            want = rest(name, plain)
+            check(got.dtype == np.float32 and got.shape == want.shape
+                  and np.array_equal(got, want),
+                  f"{label}: binary outputs differ from REST's by "
+                  f"{np.abs(got - want).max()}")
+            res["cases"][label] = r
+        # the last case's (BERT's) logits, 64 positions, as bf16
+        logits = torch.from_numpy(got[0, :64]).to(device, torch.bfloat16)
+        back = gs.decode_array(*gs.encode_array(logits))
+        check(back.dtype == torch.bfloat16 and torch.equal(
+            back.view(torch.int16), logits.cpu().view(torch.int16)),
+            "bf16 round trip: bits changed")
+        res["bf16_round_trip"] = tuple(back.shape)
+        try:
+            import grpc
+        except ImportError as e:
+            res["transport"] = (f"not run: grpc is not importable here "
+                                f"({e})")
+        else:
+            res["transport"] = (f"grpc {grpc.__version__}: " +
+                                grpc_transport(server, images, totals,
+                                               calls["resnet50"]))
+    finally:
+        server.stop()
+    res["launches"] = totals
+    return res
+
+
+def grpc_transport(server, images, totals, fused_call) -> str:
+    """``serve_grpc`` over ``server``'s repository: ``Predict`` of the
+    8 images equal to REST's and ``Generate`` of the LM equal to REST's
+    ``:generate``."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.serving import grpc_server as gs
+
+    srv, port = gs.serve_grpc(server.repo, 0)
+    client = gs.PredictClient(f"127.0.0.1:{port}")
+    try:
+        out, _ = counted(totals, lambda: client.predict("resnet50", images),
+                         want=fused_call)
+        code, body = _post_status(
+            f"http://127.0.0.1:{server.port}/v1/models/resnet50:predict",
+            {"instances": images.tolist()})
+        check(code == 200 and np.array_equal(
+            out, np.asarray(body["predictions"], np.float32)),
+            "gRPC Predict differs from REST")
+        prompts = np.arange(16, dtype=np.int32).reshape(2, 8) + 5
+        toks, _ = client.generate("lm", prompts, max_new_tokens=8)
+        code, body = _post_status(
+            f"http://127.0.0.1:{server.port}/v1/models/lm:generate",
+            {"prompt_tokens": prompts.tolist(), "max_new_tokens": 8})
+        check(code == 200 and toks.tolist() == body["tokens"],
+              f"gRPC Generate {toks.tolist()} != REST {body}")
+    finally:
+        client.close()
+        srv.stop(grace=None)
+    return "run: Predict and Generate through PredictClient equal REST's"
+
+
 def main() -> int:
     import torch
 
@@ -3393,6 +3790,14 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
           f" its autograd function registers no flop formula) "
           f"recompiles={tel['recompiles']} "
           f"hbm_peak_gb={tel['hbm_peak_gb']:.2f}", flush=True)
+    for k, r in enumerate(tel["split"], 1):
+        print(f"phase 5 step {k}: own wall {r['own_ms']:.1f} ms = "
+              f"telemetry window {r['window_ms']:.1f} (the call and its "
+              f"sync) + after it {r['probe_read_ms']:.1f} (FLOP counter "
+              f"read) + {r['bookkeeping_ms']:.1f} (_on_step: histogram, "
+              f"HBM sample, span, beacon) + {r['rest_ms']:.1f} (outside "
+              f"both: before the window, where step 1 builds the FLOP "
+              f"counter, and the loop's loss read)", flush=True)
     lap("5")
     torch.cuda.empty_cache()
     par = train_parity_phase(device)
@@ -3603,9 +4008,59 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
           f"(2, 128): max err {ppar['bert']['max_err']:.3e} (limit 1e-5; "
           f"max-abs {ppar['bert']['max_abs']:.4f})", flush=True)
     lap("18")
+    torch.cuda.empty_cache()
+    images = image_entry_phase(device)
+    for label, key, what in (
+            ("examples.resnet.main, ResNet-50 224², batch 128, synthetic",
+             "resnet", "images"),
+            ("examples.resnet.main from shards (native loader, device "
+             "feed, bf16 pixels on the host)", "resnet_shards", "images"),
+            ("examples.vit.main, ViT-B/16 224², batch 64", "vit", "images"),
+            ("examples.mnist.main, 100 steps of 128", "mnist", "accuracy")):
+        r = images[key]
+        extra = (f" accuracy={r['result']:.4f} (floor "
+                 f"{MNIST_ACCURACY_FLOOR})" if what == "accuracy" else "")
+        if key == "resnet_shards":
+            extra = (f" shards {r['shard_mb']:.1f} MB of {SHARD_RECORDS} "
+                     f"records written in {r['shard_write_s']:.2f}s")
+        print(f"phase 19 {label} ({kind} | {ident}): "
+              f"images_per_s={r['images_per_s']:.1f} "
+              f"step_ms={r['step_ms']:.2f} peak_gb={r['peak_gb']:.2f} "
+              f"({r['run_peak_gb']:.3f} above what was allocated before "
+              f"the run) "
+              f"losses={[round(x, 4) for x in r['losses']]} "
+              f"run_s={r['wall_s']:.1f}{extra}", flush=True)
+    print(f"phase 19 launches={images['launches']} (none: ResNet unfused "
+          f"and ViT's dense attention are the reference's defaults)",
+          flush=True)
+    lap("19")
+    torch.cuda.empty_cache()
+    core = grpc_core_phase(device, os.path.join(base, "predict-store"))
+    json_split = {"resnet50 fused 8 f32": "resnet50 fused 8",
+                  "bert 1x128": "bert 1x128"}
+    for label, r in core["cases"].items():
+        j = pred["kinds"].get(json_split.get(label, ""), None)
+        beside = (f"; phase 17's JSON: decode {j['decode_ms']:.2f} ms, "
+                  f"encode {j['encode_ms']:.2f} ms, wall {j['wall_ms']:.2f}"
+                  f" ms" if j else "")
+        print(f"phase 20 gRPC core {label} ({kind} | {ident}): request "
+              f"{r['request_mb']:.2f} MB, response {r['response_mb']:.2f} "
+              f"MB; p50 binary decode {r['decode_ms']:.3f} ms, cast and "
+              f"pad {r['prep_ms']:.3f} ms, LoadedModel.predict "
+              f"{r['predict_ms']:.3f} ms (forward {r['forward_ms']:.3f} "
+              f"ms by CUDA events), binary encode {r['encode_ms']:.3f} ms, "
+              f"core wall {r['wall_ms']:.3f} ms{beside}; outputs equal "
+              f"REST :predict's", flush=True)
+    print(f"phase 20 bert int32 tokens through Predict: "
+          f"{core['bert_refused']} (the reference casts integer inputs to "
+          f"f32); bf16 round trip of {core['bf16_round_trip']} bit for "
+          f"bit; launches={core['launches']}", flush=True)
+    print(f"phase 20 RPC transport: {core['transport']}", flush=True)
+    lap("20")
     for kern in kernels:
         for path, res in (("lm_entry", lm), ("moe_train", moe),
-                          ("spec_serving", spec), ("predict", pred)):
+                          ("spec_serving", spec), ("predict", pred),
+                          ("image_entry", images), ("grpc_core", core)):
             n = res["launches"][kern["name"]]
             kern["launches_by_path"][path] = n
             kern["launches"] += n

@@ -4,7 +4,8 @@ The JAX package (``kubeflow_tpu/``) is the reference: every module here
 mirrors a module there by name and is tested against it. This package
 imports ``torch``, numpy and yaml, never ``jax`` or ``kubeflow_tpu``.
 
-Layout (slices: paged LM serving, LM training, ResNet training):
+Layout (the first slices: paged LM serving, LM training, ResNet
+training; ROADMAP.md lists the rest):
 
 - ``models/transformer.py`` — the decoder LM, with the paged decode cache,
   flash attention and remat;
@@ -21,11 +22,14 @@ Layout (slices: paged LM serving, LM training, ResNet training):
   BN + ReLU + 1x1 conv and its dW of ResNet training), each beside its
   plain PyTorch version;
 - ``ops/_build.py`` — builds ``ops/csrc/*.cu`` with ``nvcc`` at first use;
-- ``serving/`` — page allocator, decode engine, model store, HTTP server;
+- ``serving/`` — page allocator, decode engine, model store, HTTP server,
+  gRPC service;
+- ``data/`` — the shard loader (a native batcher and its Python twin)
+  and the device feed;
 - ``train/`` — optimizers, train state, losses, the LM and image train
   steps.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 
-__all__ = ["models", "ops", "serving", "train", "utils"]
+__all__ = ["data", "models", "ops", "serving", "train", "utils"]

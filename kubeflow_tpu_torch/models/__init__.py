@@ -1,5 +1,5 @@
-"""Models of the port: the decoder LM, the BERT encoder and the ResNet
-family."""
+"""Models of the port: the decoder LM, the BERT encoder, the ViT, the
+ResNet family and the MNIST CNN."""
 
 from kubeflow_tpu_torch.models.bert import (  # noqa: F401
     Bert,
@@ -9,6 +9,7 @@ from kubeflow_tpu_torch.models.bert import (  # noqa: F401
     bert_tiny,
     mask_tokens,
 )
+from kubeflow_tpu_torch.models.mnist import MnistCnn  # noqa: F401
 from kubeflow_tpu_torch.models.resnet import (  # noqa: F401
     ResNet,
     ResNetConfig,
@@ -21,4 +22,11 @@ from kubeflow_tpu_torch.models.transformer import (  # noqa: F401
     Transformer,
     TransformerConfig,
     tiny_config,
+)
+from kubeflow_tpu_torch.models.vit import (  # noqa: F401
+    ViT,
+    ViTConfig,
+    vit_base,
+    vit_large,
+    vit_tiny,
 )

@@ -1,4 +1,5 @@
-"""Carry JAX ``Transformer``, ``Bert`` and ``ResNet`` weights into the port.
+"""Carry JAX ``Transformer``, ``Bert``, ``ViT`` and ``ResNet`` weights into
+the port.
 
 A JAX param tree arrives as numpy: a nested dict (``jax.tree_util`` leaves
 through ``np.asarray``) or the flat ``/``-joined keys of a model-store
@@ -14,7 +15,10 @@ port parameter ``blocks.{i}.<path>`` is JAX leaf ``blocks/<path>[i]`` or
 ``block_{i}/<path>`` with dots for slashes, and top-level names map
 one for one. A JAX ``Bert`` is the same tree plus ``type_embed`` and
 ``mlm_transform`` (:func:`bert_to_module`, :func:`bert_to_trainable`);
-:func:`bert_params` goes back, in either layer layout.
+:func:`bert_params` goes back, in either layer layout. A JAX ``ViT`` is
+the same blocks with ``patch_embed`` (its HWIO kernel kept as flax stores
+it), ``final_norm`` and the ``head`` Dense (:func:`vit_to_module`,
+:func:`vit_to_trainable`); :func:`bert_params` goes back for it too.
 
 A JAX ``ResNet`` arrives as its variables, ``{"params": ...,
 "batch_stats": ...}`` (nested or flat), in the fused (``bn2conv3``) or
@@ -44,6 +48,7 @@ from kubeflow_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
 )
+from kubeflow_tpu_torch.models.vit import ViT, ViTConfig
 from kubeflow_tpu_torch.utils.device import resolve_device
 
 
@@ -201,7 +206,7 @@ def random_bert_params(config: BertConfig,
 
 def bert_params(model: torch.nn.Module, *,
                scan_layers: bool = True) -> Dict[str, Any]:
-    """A port ``Bert`` or ``Transformer``'s parameters as a nested
+    """A port ``Bert``, ``Transformer`` or ``ViT``'s parameters as a nested
     JAX-layout param tree of f32 numpy arrays (the inverse of
     :func:`load_params`), in the scanned or the unrolled layout."""
     flat: Dict[str, Any] = {}
@@ -214,6 +219,36 @@ def bert_params(model: torch.nn.Module, *,
             flat.setdefault(key, []).append(arr)
     return unflatten({k: np.stack(v) if isinstance(v, list) else v
                       for k, v in flat.items()})
+
+
+# -- ViT ---------------------------------------------------------------------
+
+
+def vit_to_module(config: ViTConfig, params: Mapping[str, Any], *,
+                  device) -> ViT:
+    """A loaded, frozen port ``ViT`` in eval mode on ``device``."""
+    model = load_params(ViT(config), params)
+    model = model.to(resolve_device(device)).eval()
+    model.requires_grad_(False)
+    return model
+
+
+def vit_to_trainable(config: ViTConfig, params: Mapping[str, Any], *,
+                     device=None) -> ViT:
+    """A loaded port ``ViT`` on ``device`` (CUDA unless ``"cpu"`` is
+    asked for), in train mode with every parameter trainable."""
+    return load_params(ViT(config), params).to(
+        resolve_device(device)).train()
+
+
+def random_vit_params(config: ViTConfig, seed: int) -> Dict[str, np.ndarray]:
+    """Random f32 ``ViT`` weights (:func:`_random_flat`: the patch
+    kernel, the head and the biases too) in the layout
+    ``config.scan_layers`` names."""
+    with torch.device("meta"):
+        model = ViT(config)
+    return _random_flat(model, config.d_model, seed,
+                        scan_layers=config.scan_layers)
 
 
 # -- ResNet ------------------------------------------------------------------

@@ -32,8 +32,9 @@ class _Conv(nn.Module):
 
 
 class MnistCnn(nn.Module):
-    """``forward(images (B, 28, 28, 1))`` → logits ``(B, num_classes)``
-    f32."""
+    """``forward(images (B, 28, 28, 1), train=True)`` → logits ``(B,
+    num_classes)`` f32. ``train`` is accepted for the image train step's
+    call and ignored: the CNN has no train-only state."""
 
     def __init__(self, num_classes: int = 10) -> None:
         super().__init__()
@@ -42,7 +43,9 @@ class MnistCnn(nn.Module):
         self.fc1 = Dense(7 * 7 * 64, 128, torch.float32)
         self.fc2 = Dense(128, num_classes, torch.float32)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor,
+                train: bool = True) -> torch.Tensor:
+        del train
         x = images.float().permute(0, 3, 1, 2)
         x = F.avg_pool2d(F.relu(self.conv1(x)), 2)
         x = F.avg_pool2d(F.relu(self.conv2(x)), 2)

@@ -45,7 +45,10 @@ and key their ledger record by its trace id. A streamed response charges
 the ledger's ``stream_stall`` phase for every write the client takes
 longer than :data:`STREAM_STALL_MIN_S` to drain.
 
-Not in this slice (ROADMAP.md): gRPC.
+:func:`main` also serves the gRPC prediction service
+(``serving/grpc_server.py``) on ``KFTPU_GRPC_PORT`` (9000; 0 turns it
+off) over the same repository, and serves REST alone, with a warning,
+where ``grpc`` cannot be imported.
 """
 
 from __future__ import annotations
@@ -842,23 +845,37 @@ def parse_pin_version(raw: Optional[str]) -> Optional[int]:
 
 
 def main() -> None:
-    """Serve from the environment (the reference's knobs) on CUDA.
-    ``KFTPU_GRPC_PORT`` is not served by the port yet."""
+    """Serve from the environment (the reference's knobs) on CUDA: REST
+    on ``KFTPU_REST_PORT`` and gRPC on ``KFTPU_GRPC_PORT``."""
     logging.basicConfig(level=logging.INFO)
+    max_batch = int(os.environ.get("KFTPU_MAX_BATCH_SIZE", "8"))
+    grpc_port = int(os.environ.get("KFTPU_GRPC_PORT", "9000"))
     server = ModelServer(
         os.environ.get("KFTPU_MODEL_BASE_PATH", "/models"),
         port=int(os.environ.get("KFTPU_REST_PORT", "8500")),
-        max_batch_size=int(os.environ.get("KFTPU_MAX_BATCH_SIZE", "8")),
+        max_batch_size=max_batch,
         pin_version=parse_pin_version(os.environ.get("KFTPU_MODEL_VERSION")),
         decode_slots=int(os.environ.get("KFTPU_DECODE_SLOTS", "8")),
         decode_steps_per_sync=int(
             os.environ.get("KFTPU_DECODE_STEPS_PER_SYNC", "4")))
     server.start()
+    grpc_server = None  # keep the reference: a collected grpc.Server stops
+    if grpc_port:
+        try:
+            from kubeflow_tpu_torch.serving.grpc_server import serve_grpc
+
+            grpc_server, _ = serve_grpc(server.repo, grpc_port,
+                                        max_batch_size=max_batch)
+        except ImportError as e:
+            log.warning("gRPC disabled (grpc not importable: %s); "
+                        "serving REST only", e)
     try:
         while True:
             time.sleep(3600)
     except KeyboardInterrupt:
         server.stop()
+        if grpc_server is not None:
+            grpc_server.stop(grace=1.0)
 
 
 if __name__ == "__main__":

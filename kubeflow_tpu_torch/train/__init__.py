@@ -1,5 +1,5 @@
-"""Training of the port: the LM, MLM (BERT) and image (ResNet) train steps,
-and checkpoints."""
+"""Training of the port: the LM, MLM (BERT) and image (ResNet, ViT, MNIST)
+train steps, and checkpoints."""
 
 from kubeflow_tpu_torch.train.trainer import (  # noqa: F401
     AdamW,
@@ -10,6 +10,7 @@ from kubeflow_tpu_torch.train.trainer import (  # noqa: F401
     create_bert_train_state,
     create_image_train_state,
     create_train_state,
+    create_vit_train_state,
     global_norm,
     make_image_train_step,
     make_lm_train_step,

@@ -5,7 +5,7 @@ PyTorch port of ``kubeflow_tpu/train/trainer.py``: ``make_optimizer``
 (:126-129), ``chunked_next_token_loss`` (:132-172),
 ``make_lm_train_step`` (:175-236), ``masked_lm_loss`` (:248-254),
 ``make_mlm_train_step`` (:257-291) and ``make_image_train_step``
-(:338-382), with ``optax.sgd`` as :class:`Sgd`. Steps run eagerly on the
+(:338-382, ResNet with its BN statistics, ViT and the MNIST CNN without), with ``optax.sgd`` as :class:`Sgd`. Steps run eagerly on the
 device of the state's parameters; there is no mesh yet (data parallelism
 is ROADMAP Queue A).
 
@@ -235,6 +235,18 @@ def create_image_train_state(config, variables: Mapping[str, Any], tx, *,
 
     model = convert.resnet_to_trainable(config, variables, device=device)
     return TrainState.create(model, tx)
+
+
+def create_vit_train_state(config, params: Mapping[str, Any], tx, *,
+                           device=None) -> TrainState:
+    """A :class:`TrainState` over a trainable port ``ViT`` loaded from a
+    JAX-layout param tree (no ``batch_stats``: the image train step runs
+    it unchanged, as the reference's serves both), on ``device`` (CUDA
+    unless ``"cpu"`` is asked for)."""
+    from kubeflow_tpu_torch.models import convert
+
+    return TrainState.create(
+        convert.vit_to_trainable(config, params, device=device), tx)
 
 
 def softmax_cross_entropy(logits: torch.Tensor,

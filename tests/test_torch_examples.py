@@ -5,6 +5,7 @@ the metrics lines, and the launcher's refusals."""
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -257,3 +258,176 @@ def test_lm_batches_depend_on_the_step_only():
 def test_lm_entry_point_refuses_tp(monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError, match="tp=2"):
         _lm(monkeypatch, tmp_path, "tp", 1, "--tp", "2")
+
+
+# -- the image-classification entry points ------------------------------------
+
+
+def _image_records(capsys):
+    return [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+
+
+@pytest.fixture
+def thin_resnet(monkeypatch):
+    """``resnet18_thin`` in place of ResNet-50, as the reference's
+    ``tests/test_data.py`` runs its entry point on the CPU."""
+    from kubeflow_tpu_torch.examples import resnet as resnet_example
+    from kubeflow_tpu_torch.models.resnet import resnet18_thin
+
+    monkeypatch.setattr(resnet_example, "resnet50",
+                        lambda num_classes=1000: resnet18_thin(num_classes))
+    monkeypatch.delenv("KFTPU_PROFILE_DIR", raising=False)
+    return resnet_example
+
+
+RESNET_TINY = ["--device", "cpu", "--image-size", "32", "--num-classes",
+               "10", "--per-device-batch", "4", "--log-every", "1"]
+
+
+def test_resnet_entry_point_trains_on_the_cpu(thin_resnet, capsys):
+    """Synthetic tensors: after the warm-up, a metrics line a step with
+    a finite loss that falls on the fixed batch, and a final line whose
+    images/s ``main`` returns."""
+    ips = thin_resnet.main(RESNET_TINY + ["--steps", "3"])
+    recs = _image_records(capsys)
+    losses = [r["loss"] for r in recs if "loss" in r]
+    assert [r["step"] for r in recs] == [1, 2, 3, 3]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert recs[-1]["final"] == 1.0 and recs[-1]["images_per_sec"] == ips
+    assert ips > 0 and recs[-1]["images_per_sec_per_chip"] == ips
+
+
+def test_resnet_entry_point_trains_from_shards(thin_resnet, monkeypatch,
+                                               tmp_path, capsys):
+    """``--data-dir``: shards → the native loader → the device feed, the
+    pixels cast to bf16 on the host and the labels split out; warm-up
+    and timed steps take ``warmup + steps`` batches."""
+    from kubeflow_tpu_torch import data
+
+    size, n = 32, 32
+    rng = np.random.default_rng(1)
+    recs = np.concatenate([
+        rng.integers(0, 10, (n, 1)).astype(np.float32),
+        rng.normal(size=(n, size * size * 3)).astype(np.float32)], axis=1)
+    data.write_shards(str(tmp_path), recs, shards=2)
+    loaders, batches = [], []
+    real_loader, real_feed = thin_resnet.DataLoader, thin_resnet.device_feed
+
+    def loader(*a, **kw):
+        made = real_loader(*a, **kw)
+        loaders.append((made, made.native))
+        return made
+
+    def feed(*a, **kw):
+        for batch in real_feed(*a, **kw):
+            batches.append(batch)
+            yield batch
+
+    monkeypatch.setattr(thin_resnet, "DataLoader", loader)
+    monkeypatch.setattr(thin_resnet, "device_feed", feed)
+    ips = thin_resnet.main(RESNET_TINY + ["--steps", "2", "--warmup-steps",
+                                          "1", "--data-dir", str(tmp_path)])
+    (made, native), = loaders
+    # native while it ran; closed (its threads joined) when main returns
+    assert ips > 0 and native and not made.native
+    assert len(batches) == 3
+    for pixels, labels in batches:
+        assert pixels.dtype == torch.bfloat16
+        assert pixels.shape == (4, size, size, 3)
+        assert labels.dtype == torch.int32 and labels.shape == (4,)
+        assert set(labels.tolist()) <= set(range(10))
+    losses = [r["loss"] for r in _image_records(capsys) if "loss" in r]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+
+
+VIT_TINY = ["--device", "cpu", "--image-size", "32", "--patch-size", "8",
+            "--num-classes", "10", "--d-model", "64", "--n-layers", "2",
+            "--n-heads", "4", "--d-ff", "128", "--per-device-batch", "4",
+            "--log-every", "1"]
+
+
+def test_vit_entry_point_trains_on_the_cpu(monkeypatch, capsys):
+    from kubeflow_tpu_torch.examples import vit as vit_example
+
+    monkeypatch.delenv("KFTPU_PROFILE_DIR", raising=False)
+    ips = vit_example.main(VIT_TINY + ["--steps", "4"])
+    recs = _image_records(capsys)
+    losses = [r["loss"] for r in recs if "loss" in r]
+    assert [r["step"] for r in recs] == [1, 2, 3, 4, 4]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert ips > 0 and recs[-1]["images_per_sec"] == ips
+
+
+def test_vit_entry_point_refuses_tp():
+    from kubeflow_tpu_torch.examples import vit as vit_example
+
+    with pytest.raises(NotImplementedError, match="tp=2"):
+        vit_example.main(VIT_TINY + ["--steps", "1", "--tp", "2"])
+
+
+def test_mnist_data_is_the_reference(tmp_path):
+    """``synthetic_mnist`` gives the reference's arrays, and
+    ``load_mnist`` reads idx files as the reference does."""
+    import gzip
+    import struct
+
+    from kubeflow_tpu.examples import mnist as ref_mnist
+    from kubeflow_tpu_torch.examples import mnist as mnist_example
+
+    for n, seed in ((4096, 0), (64, 3)):
+        for a, b in zip(mnist_example.synthetic_mnist(n, seed),
+                        ref_mnist.synthetic_mnist(n, seed)):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+    rng = np.random.default_rng(0)
+    pixels = rng.integers(0, 256, (5, 28, 28)).astype(np.uint8)
+    labels = rng.integers(0, 10, 5).astype(np.uint8)
+    for name, arr in (("train-images-idx3-ubyte.gz", pixels),
+                      ("train-labels-idx1-ubyte.gz", labels)):
+        with gzip.open(tmp_path / name, "wb") as f:
+            f.write(struct.pack(">I", 0x800 | arr.ndim))
+            f.write(struct.pack(">" + "I" * arr.ndim, *arr.shape))
+            f.write(arr.tobytes())
+    for a, b in zip(mnist_example.load_mnist(str(tmp_path)),
+                    ref_mnist.load_mnist(str(tmp_path))):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_mnist_entry_point_draws_the_reference_batches(monkeypatch):
+    """Both entry points' step functions see the same batches:
+    ``RandomState(process_id)`` indices into the same synthetic set."""
+    from kubeflow_tpu.examples import mnist as ref_mnist
+    from kubeflow_tpu_torch.examples import mnist as mnist_example
+
+    seen = {"ref": [], "port": []}
+
+    def recorder(key):
+        def make(*_):
+            def step(state, images, labels):
+                seen[key].append((np.asarray(images), np.asarray(labels)))
+                return state, {"loss": 0.0, "accuracy": 0.5}
+            return step
+        return make
+
+    monkeypatch.setattr(ref_mnist, "make_image_train_step", recorder("ref"))
+    monkeypatch.setattr(mnist_example, "make_image_train_step",
+                        recorder("port"))
+    flags = ["--steps", "3", "--batch-size", "16", "--log-every", "3"]
+    assert ref_mnist.main(flags) == mnist_example.main(
+        flags + ["--device", "cpu"]) == 0.5
+    assert len(seen["port"]) == len(seen["ref"]) == 3
+    for (a, la), (b, lb) in zip(seen["port"], seen["ref"]):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(la, lb)
+
+
+def test_mnist_entry_point_learns_on_the_cpu(capsys):
+    from kubeflow_tpu_torch.examples import mnist as mnist_example
+
+    acc = mnist_example.main(["--device", "cpu", "--steps", "20",
+                              "--batch-size", "32", "--log-every", "10"])
+    recs = _image_records(capsys)
+    assert [r["step"] for r in recs] == [10, 20]
+    assert recs[-1]["accuracy"] == acc and acc >= 0.8
+    assert recs[-1]["loss"] < recs[0]["loss"]

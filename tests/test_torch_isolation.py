@@ -218,3 +218,79 @@ def test_the_predict_slice_is_scanned(tmp_path):
         store.load_version(str(tmp_path / "mnist"), 1)
     assert store.load_version(str(tmp_path / "mnist"), 1,
                               device="cpu").input_shape == (28, 28, 1)
+
+
+IMAGE_SLICE = ("serving/grpc_server.py", "serving/predict_pb2.py",
+               "models/vit.py", "data/loader.py", "data/__init__.py",
+               "examples/resnet.py", "examples/vit.py", "examples/mnist.py")
+
+
+def test_the_grpc_and_image_slice_is_scanned():
+    scanned = {str(p.relative_to(PKG)) for p in _sources()
+               if PKG in p.parents}
+    for mod in IMAGE_SLICE:
+        assert mod in scanned, mod
+
+
+def test_everything_but_the_generated_messages_imports_without_grpc():
+    """The machine with the card has no ``grpc`` or ``protobuf``: with
+    both blocked by a meta-path finder, the ``serving``, ``models``,
+    ``data`` and ``examples`` packages and every submodule of the port
+    but ``serving/predict_pb2.py`` (protoc's output) import, and
+    importing ``grpc_server`` loads neither."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] == 'grpc' or name == 'google.protobuf'"
+        " or name.startswith('google.protobuf.'):\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "for pkg in ('serving', 'models', 'data', 'examples'):\n"
+        "    importlib.import_module('kubeflow_tpu_torch.' + pkg)\n"
+        "import kubeflow_tpu_torch as pkg\n"
+        "n = 0\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    if m.name.endswith('.predict_pb2'):\n"
+        "        continue\n"
+        "    importlib.import_module(m.name)\n"
+        "    n += 1\n"
+        "from kubeflow_tpu_torch.serving import grpc_server\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] == 'grpc'"
+        " or k.startswith('google.protobuf'))\n"
+        "print(n, bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert int(out.stdout.split()[0]) >= 40, out.stdout
+
+
+@pytest.mark.parametrize("entry,tiny", [
+    ("resnet", ["--steps", "1", "--warmup-steps", "0", "--image-size", "32",
+                "--num-classes", "4", "--per-device-batch", "2"]),
+    ("vit", ["--steps", "1", "--image-size", "16", "--patch-size", "8",
+             "--num-classes", "4", "--d-model", "16", "--n-layers", "1",
+             "--n-heads", "2", "--d-ff", "16", "--per-device-batch", "2"]),
+    ("mnist", ["--steps", "1", "--batch-size", "2", "--log-every", "1"]),
+])
+def test_image_entry_points_need_cuda_unless_cpu_is_explicit(
+        monkeypatch, entry, tiny):
+    import importlib
+
+    from kubeflow_tpu_torch.models.resnet import resnet18_thin
+
+    mod = importlib.import_module(f"kubeflow_tpu_torch.examples.{entry}")
+    if entry == "resnet":
+        monkeypatch.setattr(mod, "resnet50",
+                            lambda num_classes=1000: resnet18_thin(
+                                num_classes))
+    monkeypatch.delenv("KFTPU_PROFILE_DIR", raising=False)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main(tiny)
+    # images/s, or MNIST's accuracy
+    out = mod.main(tiny + ["--device", "cpu"])
+    assert (out > 0) if entry != "mnist" else (0.0 <= out <= 1.0)

@@ -305,3 +305,56 @@ def test_make_step_telemetry_from_the_env(monkeypatch):
     monkeypatch.setenv("KFTPU_BEACONS", "0")
     assert make_step_telemetry(client=client,
                                registry=Registry()).beacon_sink is None
+
+
+@pytest.mark.parametrize("sync", [True, False], ids=["sync", "async"])
+def test_wrap_times_the_call_and_its_sync_alone(monkeypatch, tmp_path, sync):
+    """Both packages' ``wrap`` time one window: the wrapped call, plus
+    its device sync when ``sync`` is set (the reference's
+    ``steps.py:381``). The bookkeeping after the window (the HBM sample,
+    the beacon, the step span) runs on the caller's wall clock but not
+    in the step's duration, so a caller timing ``step(...)`` itself
+    reads the window plus that bookkeeping."""
+    CALL, SYNC, HBM, BEACON = 0.100, 0.030, 0.250, 0.125
+    got = {}
+    for name, mod, xp, reg, tracer, coll in (
+            ("ref", ref_steps, ref_xprof, RefRegistry, RefTracer,
+             RefCollector),
+            ("port", steps, xprof, Registry, Tracer, SpanCollector)):
+        clock = ScriptClock()
+
+        def block(out, clock=clock):
+            clock.t += SYNC
+            return out
+
+        def stats(clock=clock):
+            clock.t += HBM
+            return {"bytes_in_use": 1.0, "bytes_limit": 2.0,
+                    "peak_bytes_in_use": 1.0}
+
+        def sink(_, clock=clock):
+            clock.t += BEACON
+
+        def run(state, clock=clock):
+            clock.t += CALL
+            return state + 1, {"loss": 1.0}
+
+        monkeypatch.setattr(mod, "_block", block)
+        telem = mod.StepTelemetry(
+            job="lm", namespace="team", worker=0, clock=clock,
+            registry=reg(), tracer=tracer(coll(), clock=clock),
+            hbm_sampler=xp.HbmSampler(source=stats), beacon_sink=sink,
+            beacon_every=1, span_every=1, dump_dir=str(tmp_path / name),
+            sync=sync, flops_per_step=1.0)
+        step = telem.wrap(run)
+        walls = []
+        for i in range(4):
+            t0 = clock()
+            assert step(i)[0] == i + 1
+            walls.append(clock() - t0)
+        got[name] = ([r.duration for r in telem.recorder.records()], walls)
+    assert got["port"] == got["ref"]
+    window = CALL + (SYNC if sync else 0.0)
+    durations, walls = got["port"]
+    assert durations == pytest.approx([window] * 4, abs=1e-6)
+    assert walls == pytest.approx([window + HBM + BEACON] * 4, abs=1e-6)
