@@ -19,8 +19,9 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
    past the clusters' shared memory, and on random rows at B=8 and 1;
    its ptxas registers printed, a spill fails), and
    the flash forward, dQ and dK/dV kernels (B=2, H=16, D=64, S=2048 and
-   a ragged 1000, causal and not, with and without ``kv_len``, and the
-   training case S=8192 bf16 causal; lse within 1e-5; f32 within 1e-5
+   a ragged 1000, causal and not, with and without ``kv_len``, the
+   training case S=8192 bf16 causal, and the LM entry point's B=8,
+   S=512, H=12 bf16 causal; lse within 1e-5; f32 within 1e-5
    on out and 1e-4 on gradients; bf16 within a norm-relative error of
    4e-4, which a bf16 fault in each output must exceed), timed at the
    training case beside ``scaled_dot_product_attention`` (timed only),
@@ -164,7 +165,25 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
     service runs ``Predict`` and ``Generate`` through ``PredictClient``
     too; else one line says why it did not. Phase 5 also splits each
     step's own wall into the telemetry's window, its work after the
-    window and the loop's rest.
+    window and the loop's rest;
+21. the mesh path: ``torch.cuda.device_count()`` ranks started through
+    the port's ``run_multiprocess`` with the operator's env contract,
+    over NCCL, each on its own card (this file with ``--mesh-rank``).
+    Each rank checks the five collectives on ``dp`` for their values,
+    times them at 64 MB (algorithmic bandwidth; bus bandwidth where
+    n > 1) and reports NCCL's version; holds the three flash kernels
+    against their plain versions at each run's local heads, (8, 512,
+    12 / tp, 64) bf16 causal, on its card; runs ``examples.lm.main`` at
+    its defaults with flash attention through ``launcher_init``'s mesh
+    at dp = world, tp = 1 (and tp = 2 where world >= 2), 3 warm-up and
+    6 timed steps (step p50, tokens/s per card, MFU, peak GB); holds
+    three f32 steps (TF32 off) of the mesh step against three of the
+    mesh-less ``make_lm_train_step`` on the same weights and batches
+    (loss, grad norm, parameters within 1e-5, and each parameter's
+    movement within 2e-3 of its own size); and holds ring and Ulysses
+    over ``tp`` = world against flash (logits over their magnitude,
+    loss, grad norm within 1e-5).
+    The flash rows must launch there.
 
 Each phase prints its seconds. Phase 2 also holds the bnconv forward and
 dW kernels, and the autograd function's four gradients, against their
@@ -189,8 +208,9 @@ that path, read just after): ``paged_serving`` and ``dense_serving``
 ``resnet_train`` (rows 6-7), and on every row ``lm_entry``,
 ``moe_train`` and ``spec_serving`` (phases 14-16: the reference's dense,
 greedy defaults launch none of the kernels, which those phases require)
-``predict`` (phase 17's calls), ``image_entry`` (phase 19: none) and
-``grpc_core`` (phase 20's calls). The flash forward and bnconv forward
+``predict`` (phase 17's calls), ``image_entry`` (phase 19: none),
+``grpc_core`` (phase 20's calls) and ``mesh_train`` (phase 21's entry
+point run, summed over its ranks). The flash forward and bnconv forward
 rows also carry ``predict_shapes``: their times at the inference shapes.
 """
 
@@ -221,6 +241,9 @@ BENCH = dict(vocab_size=32000, d_model=1024, n_layers=8, n_heads=16,
 # the long-context training bench (bench/suite.py:bench_longcontext)
 TRAIN = dict(BENCH, max_seq_len=8192, attention_impl="flash", remat=True)
 TRAIN_BATCH, TRAIN_STEPS = 2, 4
+# (B, S, H, D) of flash in examples/lm.py at its defaults on one rank
+# (per-device batch 8, seq 512, 12 heads of 64); tp splits the heads
+LM_FLASH_SHAPE = (8, 512, 12, 64)
 
 
 class SmokeFailure(RuntimeError):
@@ -814,7 +837,8 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
     """The three flash kernels against their plain versions: causal and
     not, with and without kv_len, f32 and bf16, at S=2048 and a ragged
     1000, then the training path's own case (bf16, causal, S_main) with
-    the plain versions run ``step`` heads at a time. Then each is timed
+    the plain versions run ``step`` heads at a time, and the LM entry
+    point's (``LM_FLASH_SHAPE``, bf16, causal). Then each is timed
     there beside the bound, its plain version and PyTorch's fused
     attention (timed only). ``build_log`` is nvcc's output for
     ``flash_attention.cu``: each kernel's registers and spills are
@@ -856,6 +880,11 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
         for name, err in errs.items():
             worst[owner[name]] = max(worst[owner[name]], err)
         torch.cuda.empty_cache()
+    # the LM entry point's own shape (phases 14 and 21): bf16, causal
+    errs, _ = compare_flash(*LM_FLASH_SHAPE, torch.bfloat16, device,
+                            SEED + 29, causal=True, masked=False)
+    for name, err in errs.items():
+        worst[owner[name]] = max(worst[owner[name]], err)
     # head dims the kernels are not built for (zero-padded to 64 or 128)
     for seed, d_pad in enumerate((32, 80, 96), SEED + 30):
         before = dict(fa.launches)
@@ -900,7 +929,7 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
                   flush=True)
         del wide, wq, wk, wv, wg, wlse, wdelta
         torch.cuda.empty_cache()
-    # the training path's case (the last one compared): dQ is owned by
+    # the training path's case (the last of ``cases``): dQ is owned by
     # one block per q tile, so a repeat call is bit-identical; then timing
     q, k, v, g, lse, delta = main
     check(torch.equal(fa.flash_bwd_dq(q, k, v, g, lse, delta),
@@ -2568,8 +2597,8 @@ def lm_moe_phase(device, *, steps=4, size=()):
     seen = {}
     real = lm_example.make_lm_train_step
 
-    def probed(**kw):
-        step = real(**kw)
+    def probed(*args, **kw):
+        step = real(*args, **kw)
 
         def run(state, tokens):
             if not seen:
@@ -3339,8 +3368,8 @@ def _image_run(device, module, argv, results, job, batch) -> dict:
     make = mod.make_image_train_step
     seen = []
 
-    def spied():
-        step = make()
+    def spied(*args):
+        step = make(*args)
 
         def run(*a):
             state, m = step(*a)
@@ -3673,6 +3702,338 @@ def grpc_transport(server, images, totals, fused_call) -> str:
         client.close()
         srv.stop(grace=None)
     return "run: Predict and Generate through PredictClient equal REST's"
+
+
+# -- phase 21: the mesh, the collectives and the dp x tp LM step ----------------
+
+MESH_WARMUP, MESH_TIMED = 3, 6
+MESH_BENCH_MB = 64.0
+# the f32 parity and ring/ulysses model: two layers at phase 14's widths
+MESH_PARITY = dict(vocab_size=32000, d_model=768, n_layers=2, n_heads=12,
+                   n_kv_heads=12, d_ff=3072, max_seq_len=512,
+                   dtype="float32", remat=False)
+MESH_PARITY_BATCH = 2          # rows a data-parallel rank
+
+
+def _lm_flops(cfg, batch: int, seq: int) -> float:
+    """Analytic train FLOPs of one step over ``batch`` rows:
+    6·N·T + 12·B·L·S²·D (``tests/test_torch_steps.py``'s count)."""
+    D, F, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab_size
+    n_params = V * D + L * (4 * D * D + 3 * D * F + 2 * D) + D
+    return 6.0 * n_params * batch * seq + 12.0 * batch * L * seq ** 2 * D
+
+
+def _mesh_entry(device, out: str, name: str, argv) -> dict:
+    """``examples.lm.main`` at its defaults with ``argv`` (the tp, the
+    attention): every kernel count zeroed just before the run and read
+    just after it; each step's wall timed around a device sync."""
+    import math
+
+    import torch
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.examples import lm as lm_example
+
+    real = lm_example.make_lm_train_step
+    walls = []
+
+    def timed(*a, **kw):
+        step = real(*a, **kw)
+
+        def run(state, tokens):
+            _sync(device)
+            t0 = time.perf_counter()
+            res = step(state, tokens)
+            _sync(device)
+            walls.append(time.perf_counter() - t0)
+            return res
+
+        return run
+
+    steps = MESH_WARMUP + MESH_TIMED
+    results = os.path.join(out, f"results-{name}")
+    lm_example.make_lm_train_step = timed
+    try:
+        _reset_peak(device)
+        ops.reset_launches()
+        _entry_main("lm", ["--device", device.type, *argv, "--steps",
+                           str(steps), "--log-every", "1"],
+                    {"KFTPU_RESULTS_DIR": results,
+                     "KFTPU_JOB_NAME": name})
+        launches = ops.launch_counts()
+    finally:
+        lm_example.make_lm_train_step = real
+    peak = _peak_gb(device)
+    # rank 0 alone logs
+    recs = ([r for r in _records(results, name) if "loss" in r]
+            if torch.distributed.get_rank() == 0 else [])
+    return {"walls_s": walls, "launches": launches, "peak_gb": peak,
+            "losses": [r["loss"] for r in recs],
+            "finite": all(math.isfinite(r["loss"]) for r in recs)}
+
+
+def _max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _moved_err(full, plain, p0) -> float:
+    """The largest, over the parameters, of ||Δ - Δ_plain|| / ||Δ_plain||
+    with Δ = p - p0: the step's movement held relative to its own size,
+    which a skipped or doubled update misses by ~1 where an absolute
+    limit on the parameters would miss it by ~2x."""
+    worst = 0.0
+    for name, p in plain:
+        want = p.detach().float() - p0[name]
+        got = full[name].to(want.device).float() - p0[name]
+        worst = max(worst, float((got - want).norm() /
+                                 want.norm().clamp_min(1e-30)))
+    return worst
+
+
+# the f32 mesh-vs-plain parameter movement limit: a skipped update
+# reads ~0.5-1, a sound one only as finely as the parameters' own f32
+# rounding allows (tests/test_torch_mesh_train.py's MOVED_LIMIT)
+MESH_MOVED_LIMIT = 2e-3
+
+
+def _mesh_parity(device, mesh, cfg, world: int) -> dict:
+    """Three f32 steps of ``make_lm_train_step(mesh)`` on a model built
+    over ``mesh`` against three of the mesh-less step on the same
+    weights and global batches: the largest loss and parameter
+    differences, the largest relative grad-norm difference, and the
+    parameters' movement against the plain step's (:func:`_moved_err`)."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.train import (
+        create_sharded_state,
+        create_train_state,
+        make_lm_train_step,
+        make_optimizer,
+    )
+
+    def tx():
+        return make_optimizer(1e-5, warmup_steps=1, decay_steps=50)
+
+    params = convert.random_params(cfg, 1)
+    state, _ = create_sharded_state(cfg, params, tx(), mesh, device=device)
+    plain = create_train_state(cfg, params, tx(), device=device)
+    del params
+    p0 = {n: p.detach().float().clone()
+          for n, p in plain.module.named_parameters()}
+    step, plain_step = make_lm_train_step(mesh), make_lm_train_step()
+    rng = np.random.default_rng(21)
+    errs = {"loss": 0.0, "grad_norm": 0.0}
+    losses = []
+    for _ in range(3):
+        toks = rng.integers(0, cfg.vocab_size, (MESH_PARITY_BATCH * world,
+                                                cfg.max_seq_len)).astype(
+                                                    np.int32)
+        state, m = step(state, toks)
+        plain, pm = plain_step(plain, toks)
+        losses.append(float(m["loss"]))
+        errs["loss"] = max(errs["loss"],
+                           abs(float(m["loss"]) - float(pm["loss"])))
+        errs["grad_norm"] = max(errs["grad_norm"], abs(
+            float(m["grad_norm"]) / float(pm["grad_norm"]) - 1.0))
+    full = convert.gather_params(state.module)
+    errs["params"] = max(_max_err(full[n], p) for n, p in
+                         plain.module.named_parameters())
+    errs["moved"] = _moved_err(full, plain.module.named_parameters(), p0)
+    errs["losses"] = losses
+    return errs
+
+
+def _seq_parallel_parity(device, mesh, cfg, world: int) -> dict:
+    """Ring and Ulysses over ``tp`` (the sequence split over ``world``
+    ranks) against flash on one rank, same weights, f32: each rank's
+    block of the logits (its largest error, and that error over the
+    flash logits' largest magnitude where it passes 1), and one train
+    step's loss and grad norm."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.train import (
+        create_sharded_state,
+        create_train_state,
+        make_lm_train_step,
+        make_optimizer,
+    )
+
+    params = convert.random_params(cfg, 2)
+    toks = np.random.default_rng(22).integers(
+        0, cfg.vocab_size, (MESH_PARITY_BATCH, cfg.max_seq_len)).astype(
+            np.int32)
+    flash = create_train_state(cfg, params, make_optimizer(1e-5),
+                               device=device)
+    with torch.no_grad():
+        want = flash.module(torch.from_numpy(toks).to(device))
+    _, fm = make_lm_train_step()(flash, toks)
+    del flash
+    n = cfg.max_seq_len // world
+    rank = torch.distributed.get_rank()
+    out = {}
+    for impl in ("ring", "ulysses"):
+        rc = dataclasses.replace(cfg, attention_impl=impl)
+        state, _ = create_sharded_state(rc, params, make_optimizer(1e-5),
+                                        mesh, device=device)
+        with torch.no_grad():
+            got = state.module(torch.from_numpy(toks).to(device))
+        _, m = make_lm_train_step(mesh)(state, toks)
+        ref = want[:, rank * n:(rank + 1) * n]
+        err = _max_err(got, ref)
+        out[impl] = {
+            "logits": err,
+            "logits_scaled": err / max(1.0, float(ref.abs().max())),
+            "loss": abs(float(m["loss"]) - float(fm["loss"])),
+            "grad_norm": abs(float(m["grad_norm"]) /
+                             float(fm["grad_norm"]) - 1.0)}
+        del state, got
+    return out
+
+
+def _sync(device) -> None:
+    import torch
+
+    torch.cuda.synchronize(device)
+
+
+def mesh_rank_main(argv) -> int:
+    """One rank of phase 21, started by :func:`mesh_phase` through the
+    port's ``run_multiprocess`` with the operator's env contract, on
+    card ``rank % cards`` over NCCL: ``chip_smoke.py --mesh-rank OUT``.
+    Writes ``OUT/rank<r>.json``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as tdist
+
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.ops import collectives as col
+    from kubeflow_tpu_torch.parallel import distributed as dist
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from kubeflow_tpu_torch.testing.collective_check import (
+        check_collectives,
+    )
+
+    (out,) = argv
+    penv = dist.from_env()
+    world = penv.num_processes
+    device = torch.device("cuda", penv.process_id % torch.cuda.device_count())
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.initialize(penv, backend="nccl")
+    mesh_dp = create_mesh(MeshConfig(dp=world), device_type="cuda")
+    res = {"rank": penv.process_id, "world": world,
+           "backend": tdist.get_backend(),
+           "nccl": ".".join(map(str, torch.cuda.nccl.version()))}
+    res["collectives"] = check_collectives(mesh_dp, device)
+    res["bench"] = [dataclasses.asdict(r) for r in col.bench_all(
+        mesh_dp, "dp", size_mb=MESH_BENCH_MB, iters=10, device=device)]
+    runs = [("tp1", 1)]
+    if world >= 2:
+        runs.append(("tp2", 2))
+    res["entry"], res["flash"] = {}, {}
+    for name, tp in runs:
+        # the flash kernels at this run's local heads, on this rank's
+        # card, before the run (these launches are not the run's)
+        B, S, H, D = LM_FLASH_SHAPE
+        res["flash"][name], _ = compare_flash(
+            B, S, H // tp, D, torch.bfloat16, device, SEED + 40 + tp,
+            causal=True, masked=False)
+        res["entry"][name] = _mesh_entry(
+            device, out, name, ["--tp", str(tp), "--attention-impl",
+                                "flash"])
+    cfg = TransformerConfig(**MESH_PARITY, attention_impl="flash")
+    res["parity"] = _mesh_parity(device, mesh_dp, cfg, world)
+    mesh_sp = create_mesh(MeshConfig(tp=world), device_type="cuda")
+    res["seq_parallel"] = _seq_parallel_parity(device, mesh_sp, cfg, world)
+    with open(os.path.join(out, f"rank{penv.process_id}.json"), "w") as f:
+        json.dump(res, f)
+    _sync(device)
+    tdist.destroy_process_group()
+    return 0
+
+
+def mesh_phase(device) -> dict:
+    """Phase 21: one rank a card started through the port's harness with
+    the env contract, over NCCL, each on its own card
+    (:func:`mesh_rank_main`). Each rank checks the five collectives on
+    ``dp`` and times them at 64 MB; holds the flash kernels at the
+    run's local heads; runs ``examples.lm.main`` at its defaults with
+    flash attention through ``launcher_init``'s mesh at dp = world, tp
+    = 1 (and tp = 2 where world >= 2), 3 warm-up and 6 timed steps;
+    holds three f32 mesh steps against three mesh-less ones (loss, grad
+    norm, parameters within 1e-5, their movement within
+    ``MESH_MOVED_LIMIT``); and holds ring and Ulysses logits (scaled by
+    their magnitude), loss and grad norm against flash (1e-5)."""
+    import torch
+
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.testing import run_multiprocess
+
+    world = torch.cuda.device_count()
+    out = tempfile.mkdtemp(prefix="kftpu-mesh-")
+    try:
+        procs = run_multiprocess(
+            [os.path.abspath(__file__), "--mesh-rank", out], world,
+            timeout_s=600.0, job_name="mesh-smoke")
+        for r in procs:
+            check(r.returncode == 0,
+                  f"mesh rank {r.process_id} ended {r.returncode}:\n"
+                  f"{r.stderr[-4000:]}")
+        ranks = []
+        for i in range(world):
+            with open(os.path.join(out, f"rank{i}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    # the entry point's defaults
+    lm_cfg = TransformerConfig(**dict(MESH_PARITY, n_layers=12))
+    seq = lm_cfg.max_seq_len
+    batch = LM_FLASH_SHAPE[0]
+    summary = {"world": world, "nccl": ranks[0]["nccl"],
+               "backend": ranks[0]["backend"], "bench": ranks[0]["bench"],
+               "entry": {}, "launches": {}, "flash": ranks[0]["flash"]}
+    for r in ranks:
+        check(all(r["collectives"].values()),
+              f"mesh rank {r['rank']}: collectives {r['collectives']}")
+        par = r["parity"]
+        check(par["loss"] <= 1e-5 and par["grad_norm"] <= 1e-5
+              and par["params"] <= 1e-5
+              and par["moved"] <= MESH_MOVED_LIMIT,
+              f"mesh rank {r['rank']}: f32 mesh vs plain {par}")
+        for impl, e in r["seq_parallel"].items():
+            check(max(e["logits_scaled"], e["loss"], e["grad_norm"])
+                  <= 1e-5, f"mesh rank {r['rank']}: {impl} vs flash {e}")
+    for name in ranks[0]["entry"]:
+        runs = [r["entry"][name] for r in ranks]
+        check(runs[0]["finite"] and len(runs[0]["losses"]) == MESH_WARMUP +
+              MESH_TIMED and all(len(e["walls_s"]) == MESH_WARMUP +
+                                 MESH_TIMED for e in runs),
+              f"mesh {name}: rank 0's losses {runs[0]['losses']}")
+        timed = sorted(max(e["walls_s"][i] for e in runs)
+                       for i in range(MESH_WARMUP, MESH_WARMUP + MESH_TIMED))
+        p50 = statistics.median(timed)
+        rows = batch * world // (2 if name == "tp2" else 1)  # global batch
+        flops = _lm_flops(lm_cfg, rows, seq)
+        summary["entry"][name] = {
+            "step_ms": [round(t * 1e3, 3) for t in timed],
+            "p50_ms": p50 * 1e3,
+            "tokens_per_s_per_card": rows * seq / p50 / world,
+            "mfu": flops / p50 / (BF16_FLOPS * world),
+            "peak_gb": max(e["peak_gb"] for e in runs),
+            "losses": runs[0]["losses"]}
+        for e in runs:
+            for k, n in e["launches"].items():
+                summary["launches"][k] = summary["launches"].get(k, 0) + n
+    summary["parity"] = ranks[0]["parity"]
+    summary["seq_parallel"] = ranks[0]["seq_parallel"]
+    return summary
 
 
 def main() -> int:
@@ -4057,6 +4418,62 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
           f"bit; launches={core['launches']}", flush=True)
     print(f"phase 20 RPC transport: {core['transport']}", flush=True)
     lap("20")
+    torch.cuda.empty_cache()
+    mesh = mesh_phase(device)
+    for kern in kernels:
+        n = mesh["launches"].get(kern["name"], 0)
+        kern["launches_by_path"]["mesh_train"] = n
+        kern["launches"] += n
+    for kern in kernels[2:5]:
+        check(kern["launches_by_path"]["mesh_train"] > 0,
+              f"{kern['name']} never launched on the mesh path")
+    for kern in kernels[:2] + kernels[5:]:
+        check(kern["launches_by_path"]["mesh_train"] == 0,
+              f"{kern['name']} launched on the mesh path")
+    print(f"phase 21 mesh ({kind} | {ident}): {mesh['world']} rank(s), "
+          f"backend {mesh['backend']}, NCCL {mesh['nccl']}; the five "
+          f"collectives on dp held to their values on every rank",
+          flush=True)
+    for b in mesh["bench"]:
+        bus = (f"{b['bus_gb_s']:.2f} GB/s" if b["bus_gb_s"] is not None
+               else "null (n = 1: no byte crosses a link)")
+        print(f"phase 21 {b['op']} {b['size_mb']:.1f} MB over "
+              f"{b['n_devices']} rank(s): {b['mean_s'] * 1e3:.4f} ms, "
+              f"algbw {b['alg_gb_s']:.2f} GB/s, busbw {bus}", flush=True)
+    for name, errs in mesh["flash"].items():
+        B, S, H, D = LM_FLASH_SHAPE
+        tp = 2 if name == "tp2" else 1
+        print(f"phase 21 flash kernels at {name}'s local heads on rank 0's "
+              f"card, (B, S, H, D) = ({B}, {S}, {H // tp}, {D}) bf16 causal:"
+              f" max abs err " + " ".join(f"{k} {v:.2e}" for k, v in
+                                          errs.items()), flush=True)
+    for name, e in mesh["entry"].items():
+        print(f"phase 21 examples.lm.main through launcher_init's mesh, "
+              f"{name}, dp = {mesh['world'] // (2 if name == 'tp2' else 1)}"
+              f" ({kind} | {ident}): d_model 768, 12 layers, 12 heads, "
+              f"d_ff 3072, vocab 32000, seq 512, per-device batch 8, "
+              f"flash, bf16/f32, remat; {MESH_WARMUP} warm-up + "
+              f"{MESH_TIMED} timed steps: step_ms={e['step_ms']} "
+              f"p50_ms={e['p50_ms']:.3f} tokens_per_s_per_card="
+              f"{e['tokens_per_s_per_card']:.1f} mfu={e['mfu']:.4f} "
+              f"(analytic 6NT + 12BLS²D over 989 TFLOP/s a card) "
+              f"peak_gb={e['peak_gb']:.2f} losses={e['losses']}",
+              flush=True)
+    par = mesh["parity"]
+    print(f"phase 21 f32 mesh step vs mesh-less step, 3 steps, 2 layers at "
+          f"phase 14's widths, TF32 off: max loss err {par['loss']:.2e}, "
+          f"max grad_norm rel err {par['grad_norm']:.2e}, max param err "
+          f"{par['params']:.2e} (limits 1e-5), max movement err "
+          f"{par['moved']:.2e} (||Δ - Δ_plain|| / ||Δ_plain||, limit "
+          f"{MESH_MOVED_LIMIT:.0e}); losses {par['losses']}", flush=True)
+    for impl, e in mesh["seq_parallel"].items():
+        print(f"phase 21 {impl} over tp = {mesh['world']} vs flash, f32: "
+              f"logits max err {e['logits']:.2e} ({e['logits_scaled']:.2e}"
+              f" over the logits' magnitude), loss err {e['loss']:.2e}, "
+              f"grad_norm rel err {e['grad_norm']:.2e} (limits 1e-5: the "
+              f"scaled logits, loss, grad_norm)", flush=True)
+    print(f"phase 21 launches={mesh['launches']}", flush=True)
+    lap("21")
     for kern in kernels:
         for path, res in (("lm_entry", lm), ("moe_train", moe),
                           ("spec_serving", spec), ("predict", pred),
@@ -4074,6 +4491,8 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(sys.argv[2:]))
     try:
         sys.exit(main())
     except SmokeFailure as e:

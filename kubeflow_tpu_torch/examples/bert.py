@@ -8,9 +8,13 @@ with checkpoint/resume (``KFTPU_CHECKPOINT_DIR``), the step profiler
 every ``--log-every`` steps. Same flags and defaults as the reference,
 plus ``--device`` (CUDA by default).
 
-Step ``s`` draws its batch from a generator seeded by ``(99, s)``, so a
-run resumed from a checkpoint trains on the batches an unbroken run
-trains on. The weights start from ``random_bert_params(config, 0)``.
+Step ``s`` draws its global batch (``per_device_batch × dp``) from a
+generator seeded by ``(99, s)``, so a run resumed from a checkpoint
+trains on the batches an unbroken run trains on, and each data-parallel
+rank trains on its rows of it (``make_mlm_train_step(mesh)``; the
+encoder is whole on every rank, so a mesh with tp > 1 is refused
+there). Rank 0 alone logs and writes checkpoints. The weights start
+from ``random_bert_params(config, 0)``.
 """
 
 from __future__ import annotations
@@ -23,11 +27,12 @@ import torch
 from kubeflow_tpu_torch.examples.common import (
     checkpoint_dir,
     launcher_init,
-    log_metrics,
+    rank_logger,
 )
 from kubeflow_tpu_torch.models.bert import BertConfig, mask_tokens
 from kubeflow_tpu_torch.models.convert import random_bert_params
 from kubeflow_tpu_torch.ops.sampling import noise_seed
+from kubeflow_tpu_torch.parallel.mesh import data_parallel_size
 from kubeflow_tpu_torch.train import (
     create_bert_train_state,
     make_mlm_train_step,
@@ -67,7 +72,9 @@ def main(argv=None) -> float:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    _, device = launcher_init(tp=args.tp, device=args.device)
+    penv, mesh, device = launcher_init(tp=args.tp, device=args.device)
+    step_fn = make_mlm_train_step(mesh)
+    log = rank_logger(penv)
     config = BertConfig(
         vocab_size=args.vocab_size,
         d_model=args.d_model,
@@ -76,7 +83,7 @@ def main(argv=None) -> float:
         d_ff=args.d_ff,
         max_seq_len=args.seq_len,
     )
-    batch = args.per_device_batch
+    batch = args.per_device_batch * data_parallel_size(mesh)
     tx = make_optimizer(args.learning_rate, warmup_steps=20,
                         decay_steps=args.steps + 1)
     state = create_bert_train_state(config, random_bert_params(config, 0),
@@ -88,12 +95,11 @@ def main(argv=None) -> float:
         ckpt = CheckpointManager(checkpoint_dir())
         state, start_step = ckpt.restore_or_init(state)
     if start_step >= args.steps:
-        log_metrics(start_step, done=True)
+        log(start_step, done=True)
         if ckpt:
             ckpt.close()
         return 0.0
 
-    step_fn = make_mlm_train_step()
     tokens_per_step = batch * args.seq_len
     last_loss = float("nan")
     t_window = time.perf_counter()
@@ -108,7 +114,7 @@ def main(argv=None) -> float:
             dt = time.perf_counter() - t_window
             steps_done = (step + 1 - start_step) % args.log_every or \
                 args.log_every
-            log_metrics(
+            log(
                 step + 1,
                 loss=round(last_loss, 4),
                 tokens_per_sec=round(tokens_per_step * steps_done / dt, 1),
@@ -121,7 +127,7 @@ def main(argv=None) -> float:
     prof.close()
     if ckpt:
         ckpt.close()
-    log_metrics(args.steps, loss=round(last_loss, 4), done=True)
+    log(args.steps, loss=round(last_loss, 4), done=True)
     return last_loss
 
 

@@ -6,11 +6,15 @@ and ``<KFTPU_RESULTS_DIR>/<KFTPU_JOB_NAME>.jsonl`` when the operator sets
 a results directory), ``checkpoint_dir``, ``launcher_init`` and
 ``make_step_telemetry``.
 
-``launcher_init`` parses the operator's env contract and resolves the
-device. It brings up one process on one device: a job of more than one
-process or slice, or with tensor or pipeline parallelism, raises
-``NotImplementedError`` (the mesh is ROADMAP Queue A 7) rather than run
-on one device in silence.
+``launcher_init`` parses the operator's env contract, resolves the
+device (``cuda:(process_id % device count)`` unless the CPU is asked
+for), joins the process group (NCCL on the card, gloo on the CPU) and
+builds the mesh as the reference's does: ``dcn`` over the slices of a
+multi-slice job, ``dp × tp`` from ``auto_mesh_config`` within each. A
+pipeline axis (``pp > 1``) is refused (ROADMAP Queue A 2.1). Entry
+points whose train step takes no mesh of more than one rank (the image
+step) refuse such a mesh there rather than let N processes each train
+alone.
 """
 
 from __future__ import annotations
@@ -25,6 +29,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from kubeflow_tpu_torch.parallel import distributed as dist
+from kubeflow_tpu_torch.parallel.mesh import (
+    MeshConfig,
+    auto_mesh_config,
+    create_mesh,
+)
 from kubeflow_tpu_torch.utils.device import resolve_device
 
 
@@ -57,25 +66,48 @@ def log_metrics(step: int, **metrics: Any) -> None:
             logging.exception("cannot write results to %s", results_dir)
 
 
+def rank_logger(penv: dist.ProcessEnv):
+    """:func:`log_metrics` on rank 0, and a no-op on the other ranks of
+    a job: rank 0 alone logs."""
+    if penv.is_coordinator:
+        return log_metrics
+    return lambda step, **metrics: None
+
+
 def launcher_init(*, pp: int = 1, tp: Optional[int] = None, device=None
-                  ) -> Tuple[dist.ProcessEnv, torch.device]:
-    """The env contract and the device (CUDA unless ``"cpu"`` is asked
-    for) of a single-process job."""
+                  ) -> Tuple[dist.ProcessEnv, Any, torch.device]:
+    """``(env contract, mesh, device)``: the process group up from the
+    env contract and the mesh over every rank, on this rank's device
+    (CUDA unless ``"cpu"`` is asked for). On a multi-slice job
+    (``MEGASCALE_NUM_SLICES > 1``) the mesh gets a ``dcn`` axis across
+    slices, and tp stays within a slice."""
     setup_logging()
     penv = dist.from_env()
-    refused = [what for what, bad in (
-        (f"{penv.num_processes} processes", penv.is_distributed),
-        (f"{penv.num_slices} slices", penv.is_multislice),
-        (f"tp={tp}", (tp or 1) > 1),
-        (f"pp={pp}", pp > 1)) if bad]
-    if refused:
+    if pp > 1:
         raise NotImplementedError(
-            f"{', '.join(refused)}: the port runs one process on one "
-            "device until the mesh is ported (ROADMAP Queue A 7)")
+            f"pp={pp}: the pipeline is not ported yet (ROADMAP Queue A "
+            "2.1)")
     dev = resolve_device(device)
-    logging.info("launcher up: rank %d/%d, device %s", penv.process_id,
-                 penv.num_processes, dev)
-    return penv, dev
+    if dev.type == "cuda":
+        dev = torch.device("cuda",
+                           penv.process_id % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    dist.initialize(penv, backend="nccl" if dev.type == "cuda" else "gloo")
+    world = penv.num_processes
+    if penv.is_multislice:
+        slice_cfg = auto_mesh_config(world // penv.num_slices, pp=pp, tp=tp)
+        mesh = dist.multislice_mesh(penv, pp=slice_cfg.pp, tp=slice_cfg.tp,
+                                    device_type=dev.type)
+        config = MeshConfig(dcn=penv.num_slices, dp=slice_cfg.dp,
+                            pp=slice_cfg.pp, tp=slice_cfg.tp)
+    else:
+        config = auto_mesh_config(world, pp=pp, tp=tp)
+        mesh = create_mesh(config, device_type=dev.type)
+    logging.info(
+        "launcher up: rank %d/%d, device %s, mesh dcn=%d dp=%d pp=%d tp=%d",
+        penv.process_id, penv.num_processes, dev, config.dcn, config.dp,
+        config.pp, config.tp)
+    return penv, mesh, dev
 
 
 def checkpoint_dir(default: str = "") -> str:
@@ -94,8 +126,8 @@ def make_step_telemetry(*, tokens_per_step: int = 0,
     0) beacons go to ``client`` through ``kube_beacon_sink``. The port
     has no Kubernetes client of its own yet, so with none given beacons
     are off and the log says so; the reference builds its
-    ``HttpKubeClient`` there. ``n_chips`` is 1: the port runs one
-    process on one card (:func:`launcher_init`)."""
+    ``HttpKubeClient`` there. ``n_chips`` is the world size: one rank a
+    card."""
     from kubeflow_tpu_torch.obs.steps import (
         ENV_JOB_UID,
         StepTelemetry,
@@ -115,7 +147,7 @@ def make_step_telemetry(*, tokens_per_step: int = 0,
                                     penv.process_id, job_uid=job_uid)
     kwargs.setdefault("beacon_every", 10)
     kwargs.setdefault("span_every", 10)
-    kwargs.setdefault("n_chips", 1)
+    kwargs.setdefault("n_chips", penv.num_processes)
     if "hbm_sampler" not in kwargs:
         kwargs["hbm_sampler"] = HbmSampler(
             namespace=penv.namespace, job=penv.job_name,

@@ -13,14 +13,20 @@ steps. After training it can greedy-sample (``--generate N``), export
 for serving (``--export DIR``) and distill and export a paired
 speculative draft (``--draft-layers L``, ``DIR-draft`` with
 ``draft_of: <name>@1``). Same flags and defaults as the reference, plus
-``--device`` (CUDA by default); ``--tp`` > 1 is refused by
-``launcher_init``.
+``--device`` (CUDA by default) and ``--attention-impl`` (the
+reference's dense default, or ``flash``, which runs the CUDA kernels).
 
-Step ``s`` (from 1) draws its tokens from a generator seeded by
-``(1234, s)``, so a run resumed from a checkpoint trains on the batches
-an unbroken run trains on. The weights start from
-``random_params(config, 0)``; attention is the reference's dense
-default.
+Across processes (the operator's env contract, ``launcher_init``) the
+mesh is ``dp × tp`` (``--tp``; by default the reference's
+``auto_mesh_config``). Step ``s`` (from 1) draws its GLOBAL batch of
+``per_device_batch × dp`` rows from a generator seeded by ``(1234,
+s)``, and each data-parallel rank trains on its rows of it: a run
+resumed from a checkpoint trains on the batches an unbroken run trains
+on, and a run at dp = 2 on the batches of a run at dp = 1. Rank 0 alone
+logs, checkpoints (the gathered state, ``train/checkpoint.py``) and
+samples, exports and distills, from the gathered parameters. MoE
+(``--n-experts``) needs expert parallelism past one rank, and is
+refused there. The weights start from ``random_params(config, 0)``.
 """
 
 from __future__ import annotations
@@ -35,13 +41,19 @@ from kubeflow_tpu_torch.examples.common import (
     checkpoint_dir,
     launcher_init,
     log_metrics,
+    rank_logger,
     make_step_telemetry,
 )
-from kubeflow_tpu_torch.models.convert import bert_params, random_params
+from kubeflow_tpu_torch.models.convert import (
+    bert_params,
+    random_params,
+    unsharded,
+)
 from kubeflow_tpu_torch.models.transformer import TransformerConfig
 from kubeflow_tpu_torch.ops.sampling import noise_seed
+from kubeflow_tpu_torch.parallel.mesh import data_parallel_size
 from kubeflow_tpu_torch.train import (
-    create_train_state,
+    create_sharded_state,
     make_lm_train_step,
     make_optimizer,
 )
@@ -90,9 +102,17 @@ def main(argv=None) -> float:
                         "draft_of pairing)")
     p.add_argument("--draft-distill-steps", type=int, default=200)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--attention-impl", default="dense",
+                   choices=("dense", "flash"))
     args = p.parse_args(argv)
 
-    _, device = launcher_init(tp=args.tp, device=args.device)
+    penv, mesh, device = launcher_init(tp=args.tp, device=args.device)
+    dp = data_parallel_size(mesh)
+    if args.n_experts and dp > 1:
+        raise NotImplementedError(
+            f"--n-experts {args.n_experts} at dp={dp}: experts shard over "
+            "dp through expert parallelism, ROADMAP Queue A 2.2")
+    log = rank_logger(penv)
     config = TransformerConfig(
         vocab_size=args.vocab_size,
         d_model=args.d_model,
@@ -102,12 +122,13 @@ def main(argv=None) -> float:
         d_ff=args.d_ff,
         max_seq_len=args.seq_len,
         n_experts=args.n_experts,
+        attention_impl=args.attention_impl,
     )
-    batch = args.per_device_batch
+    batch = args.per_device_batch * dp
     tx = make_optimizer(args.learning_rate, warmup_steps=20,
                         decay_steps=args.steps + 1)
-    state = create_train_state(config, random_params(config, 0), tx,
-                               device=device)
+    state, _ = create_sharded_state(config, random_params(config, 0), tx,
+                                    mesh, device=device)
 
     ckpt = None
     start_step = 0
@@ -117,14 +138,14 @@ def main(argv=None) -> float:
     if start_step >= args.steps:
         # restarted after the final checkpoint: nothing left to train,
         # but the sample and the exports must still be delivered
-        log_metrics(start_step, done=True)
-        _finish(args, config, state)
+        log(start_step, done=True)
+        _finish(args, config, state, penv.is_coordinator)
         if ckpt:
             ckpt.close()
         return 0.0
 
     telem = make_step_telemetry(tokens_per_step=batch * args.seq_len)
-    step_fn = telem.wrap(make_lm_train_step())
+    step_fn = telem.wrap(make_lm_train_step(mesh))
     prof = StepProfiler.from_env()
     t0 = time.perf_counter()
     tokens_done = 0
@@ -137,24 +158,30 @@ def main(argv=None) -> float:
         if step % args.log_every == 0 or step == args.steps:
             loss = float(metrics["loss"])      # waits for the step
             tps = tokens_done / (time.perf_counter() - t0)
-            log_metrics(step, loss=loss, grad_norm=metrics["grad_norm"],
-                        tokens_per_sec=tps, tokens_per_sec_per_chip=tps,
-                        **{f"step_{k}": v
-                           for k, v in telem.summary().items()})
+            log(step, loss=loss, grad_norm=metrics["grad_norm"],
+                tokens_per_sec=tps,
+                tokens_per_sec_per_chip=tps / penv.num_processes,
+                **{f"step_{k}": v for k, v in telem.summary().items()})
         if ckpt and (step % args.checkpoint_every == 0 or step == args.steps):
             ckpt.save(step, state)
     prof.close()
     if ckpt:
         ckpt.wait()
         ckpt.close()
-    _finish(args, config, state)
+    _finish(args, config, state, penv.is_coordinator)
     return float(metrics["loss"])
 
 
-def _finish(args, config: TransformerConfig, state) -> None:
+def _finish(args, config: TransformerConfig, state, coordinator: bool
+            ) -> None:
     """Post-training side effects, also on the restarted-after-the-final-
-    checkpoint path: the greedy sample, the export, the paired draft."""
-    model = state.module
+    checkpoint path: the greedy sample, the export, the paired draft,
+    by rank 0 from the gathered parameters (every rank gathers)."""
+    if not (args.generate or args.export):
+        return
+    model = unsharded(state.module)
+    if not coordinator:
+        return
     if args.generate:
         from kubeflow_tpu_torch.models.decode import generate
 

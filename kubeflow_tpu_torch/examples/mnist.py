@@ -9,8 +9,9 @@ batch 128 on synthetic class-conditional blobs (the reference's
 as in the reference, so both packages train on the same batches. One
 JSON metrics line every ``--log-every`` steps; ``main`` returns the
 last logged accuracy. Same flags and defaults as the reference, plus
-``--device`` (CUDA by default). The weights start from
-``random_mnist_params(0)``.
+``--device`` (CUDA by default). The image step runs on one rank: a job
+of more than one process is refused before any training. The weights
+start from ``random_mnist_params(0)``.
 """
 
 from __future__ import annotations
@@ -70,14 +71,14 @@ def main(argv=None) -> float:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    penv, device = launcher_init(device=args.device)
+    penv, mesh, device = launcher_init(device=args.device)
+    step_fn = make_image_train_step(mesh)      # one rank: refuses more
     images, labels = (load_mnist(args.data_dir) if args.data_dir
                       else synthetic_mnist())
     tx = make_optimizer(args.learning_rate, warmup_steps=10,
                         decay_steps=args.steps)
     model = load_params(MnistCnn(), random_mnist_params(0))
     state = TrainState.create(model.to(device).train(), tx)
-    step_fn = make_image_train_step()
 
     rng = np.random.RandomState(penv.process_id)
     final_acc = 0.0

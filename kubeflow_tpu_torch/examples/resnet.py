@@ -11,8 +11,9 @@ the pixels cast to bf16 on the host so half the bytes cross. After
 metrics line every ``--log-every`` steps and a final line, and returns
 images/s. Same flags and defaults as the reference, plus ``--device``
 (CUDA by default); the step profiler reads ``KFTPU_PROFILE_DIR``/
-``_START``/``_STEPS``. The weights start from
-``random_resnet_params(config, 0)``.
+``_START``/``_STEPS``. The image step runs on one rank: a job of more
+than one process is refused before any training. The weights start
+from ``random_resnet_params(config, 0)``.
 """
 
 from __future__ import annotations
@@ -49,14 +50,14 @@ def main(argv=None) -> float:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    _, device = launcher_init(device=args.device)
+    _, mesh, device = launcher_init(device=args.device)
+    step_fn = make_image_train_step(mesh)      # one rank: refuses more
     batch = args.per_device_batch
     with torch.device("meta"):
         config = resnet50(num_classes=args.num_classes).config
     tx = make_optimizer(0.1, warmup_steps=10, decay_steps=args.steps + 10)
     state = create_image_train_state(config, random_resnet_params(config, 0),
                                      tx, device=device)
-    step_fn = make_image_train_step()
     size = args.image_size
 
     # the native loader and the device feed on the --data-dir path

@@ -7,9 +7,10 @@ f32 parameters, remat, dense attention) on one synthetic batch of 64
 with the image train step and ``make_optimizer(3e-4)``. One untimed
 step runs first; then one JSON metrics line every ``--log-every`` steps
 and a final line report images/s, which ``main`` returns. Same flags
-and defaults as the reference, plus ``--device`` (CUDA by default);
-``--tp`` > 1 is refused by ``launcher_init``. The weights start from
-``random_vit_params(config, 0)``.
+and defaults as the reference, plus ``--device`` (CUDA by default).
+The image step runs on one rank: a mesh of more than one (more than one
+process, or ``--tp`` > 1) is refused before any training. The weights
+start from ``random_vit_params(config, 0)``.
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ def main(argv=None) -> float:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    _, device = launcher_init(tp=args.tp, device=args.device)
+    _, mesh, device = launcher_init(tp=args.tp, device=args.device)
+    step_fn = make_image_train_step(mesh)      # one rank: refuses more
     batch = args.per_device_batch
     config = ViTConfig(
         image_size=args.image_size, patch_size=args.patch_size,
@@ -55,7 +57,6 @@ def main(argv=None) -> float:
     tx = make_optimizer(3e-4, warmup_steps=10, decay_steps=args.steps + 10)
     state = create_vit_train_state(config, random_vit_params(config, 0), tx,
                                    device=device)
-    step_fn = make_image_train_step()
 
     gen = torch.Generator(device).manual_seed(0)
     images = torch.randn((batch, args.image_size, args.image_size, 3),

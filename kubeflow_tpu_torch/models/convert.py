@@ -49,6 +49,7 @@ from kubeflow_tpu_torch.models.transformer import (
     TransformerConfig,
 )
 from kubeflow_tpu_torch.models.vit import ViT, ViTConfig
+from kubeflow_tpu_torch.parallel import mesh as pmesh
 from kubeflow_tpu_torch.utils.device import resolve_device
 
 
@@ -96,7 +97,9 @@ def load_params(model: torch.nn.Module,
                 params: Mapping[str, Any]) -> torch.nn.Module:
     """Copy a JAX param tree (nested or flat, scanned or unrolled) into a
     port ``Transformer`` or ``Bert`` in place; every port parameter must
-    be found, with its exact shape. Returns ``model``."""
+    be found, with its exact shape. A model built over a mesh takes this
+    rank's block of each full leaf. Returns ``model``."""
+    specs = getattr(model, "param_specs", {})
     flat = flatten(params)
     used = set()
     leaves: Dict[str, torch.Tensor] = {}  # a stacked leaf, converted once
@@ -111,6 +114,8 @@ def load_params(model: torch.nn.Module,
             src = leaves[key]
             if layer is not None:
                 src = src[layer]
+            if pmesh.is_sharded(specs.get(name)):
+                src = pmesh.local_block(src, specs[name], model.mesh)
             if tuple(src.shape) != tuple(p.shape):
                 raise ValueError(f"{key}: shape {tuple(src.shape)} != "
                                  f"port {name} {tuple(p.shape)}")
@@ -133,13 +138,38 @@ def to_module(config: TransformerConfig, params: Mapping[str, Any], *,
 
 
 def to_trainable(config: TransformerConfig, params: Mapping[str, Any], *,
-                 device=None, return_hidden: bool = False) -> Transformer:
+                 device=None, return_hidden: bool = False,
+                 mesh=None) -> Transformer:
     """A loaded port ``Transformer`` on ``device`` (CUDA unless ``"cpu"``
     is asked for), left trainable: every parameter requires a gradient
-    and the module is in train mode."""
+    and the module is in train mode. With ``mesh``, this rank's blocks
+    of the full ``params``."""
     with torch.device(resolve_device(device)):
-        model = Transformer(config, return_hidden=return_hidden)
+        model = Transformer(config, return_hidden=return_hidden, mesh=mesh)
     return load_params(model, params).train()
+
+
+def gather_params(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """Every parameter of ``model`` whole, by name: a model built over a
+    mesh gathers each split one from the ranks that share it (a
+    collective: every rank calls it)."""
+    specs = getattr(model, "param_specs", {})
+    return {name: pmesh.gather_block(p, specs[name], model.mesh)
+            if pmesh.is_sharded(specs.get(name)) else p.detach()
+            for name, p in model.named_parameters()}
+
+
+def unsharded(model: Transformer) -> Transformer:
+    """A plain (mesh-less) copy of a ``Transformer`` built over a mesh,
+    from its gathered parameters, on the same device: what decoding and
+    the export read (a collective, as :func:`gather_params`)."""
+    full = gather_params(model)
+    with torch.device(next(model.parameters()).device):
+        plain = Transformer(model.config, return_hidden=model.return_hidden)
+    with torch.no_grad():
+        for name, p in plain.named_parameters():
+            p.copy_(full[name])
+    return plain
 
 
 def _random_flat(model: torch.nn.Module, d_model: int, seed: int, *,

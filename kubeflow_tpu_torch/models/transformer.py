@@ -75,8 +75,46 @@ forward returns it when asked (``return_aux=True``: the sum over the
 layers, as the reference's train step sums the collection), so nothing
 about it outlives the call.
 
-Not yet ported (later slices, see ROADMAP.md): the blockwise/ring/ulysses
-attention cores.
+``attention_impl="blockwise"`` runs the online-softmax core; ``"ring"``
+and ``"ulysses"`` run their sequence-parallel cores over
+``config.seq_axis`` when the model is built over a mesh, and the
+blockwise core without one, as the reference falls back without a mesh
+(all in ``ops/attention.py``).
+
+Built over a mesh (``Transformer(config, mesh=mesh)``, see
+``parallel/mesh.py``), each rank holds the block of every parameter
+that the reference's rules table (:data:`_PARAM_AXES` through
+``config.rules``, ``spec_for_mesh`` and ``shape_aware_spec``) assigns
+it, and the forward issues the collectives GSPMD derives in the
+reference:
+
+- **Tensor parallelism** over ``tp``: heads, ``mlp`` and ``vocab`` are
+  split. Attention and the MLP take their input through
+  ``copy_to`` and return through ``reduce_from`` (Megatron's f and g:
+  one all-reduce forward and one backward, each). Flash and the other
+  cores run on the rank's ``H/tp`` heads. GQA kv heads that ``tp`` does
+  not divide are replicated, as ``shape_aware_spec`` replicates them;
+  each rank then picks the kv head of each of its q heads by the global
+  head index, and the replicated projections take their input through
+  ``copy_to`` so their gradient sums over ``tp``. The tied embedding's
+  lookup keeps ``jnp.take``'s meaning under the ``vocab`` split: an id
+  in ``[-V, 0)`` wraps before the shard test, each rank gives the rows
+  it owns and zeros elsewhere, the sum over ``tp`` is the row, and an id
+  owned by no shard reads NaN. The unembedding gives this rank's
+  vocabulary block of the logits (the loss is vocab-parallel,
+  ``train/trainer.py``).
+- **Context parallelism** under ``"ring"``/``"ulysses"``: each rank of
+  ``seq_axis`` runs its block of the sequence (positions ``[r S/n,
+  (r+1) S/n)``, RoPE at the global positions), the parameters are
+  whole on every rank of that axis (their gradients sum over it in the
+  train step), and attention exchanges K/V over the axis. The output is
+  this rank's block of the sequence. The reference instead keeps the
+  head-sharded projections and lets GSPMD reshard the sequence around
+  attention; the numbers are the same.
+
+A model built over a mesh of more than one rank trains; decoding from
+it refuses (mesh serving is a later slice), as do MoE layers and a
+pipeline axis.
 """
 
 from __future__ import annotations
@@ -89,12 +127,17 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from kubeflow_tpu_torch.ops import collectives as col
 from kubeflow_tpu_torch.ops.attention import (
     NEG_INF,
+    blockwise_attention,
     flash_attention,
     gqa_repeat,
     reference_attention,
+    ring_attention,
+    ulysses_attention,
 )
+from kubeflow_tpu_torch.parallel import mesh as pmesh
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -112,19 +155,21 @@ def torch_dtype(x: Any) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to kubeflow_tpu_torch yet; see ROADMAP.md "
-        "Queue A")
+# KV tile of the non-flash cores (blockwise, the Ulysses inner loop)
+# when attention_block_k is None: the reference's untuned default
+_UNTUNED_BLOCK_K = 1024
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The reference's fields, one for one, so exports parse unchanged.
 
-    The tile knobs (``attention_block_*``, ``paged_head_block``) are TPU
-    tuning and drive nothing here; ``seq_axis``/``rules``/
-    ``scan_layers`` are accepted for the same reason. ``remat`` recomputes
+    The tile knobs (``attention_block_q``, ``paged_head_block``) are TPU
+    tuning and drive nothing here; ``attention_block_k`` is the KV tile
+    of the blockwise and Ulysses cores (1024 when None, as in the
+    reference). ``seq_axis`` is the mesh axis of ring and Ulysses;
+    ``rules`` map the parameters' logical axes onto a mesh;
+    ``scan_layers`` names the JAX param layout only. ``remat`` recomputes
     each block in the backward of a training forward. ``ragged_decode``
     selects the dense cache's per-row multi-token write; the paged cache
     takes per-row positions for every ``S``.
@@ -151,13 +196,8 @@ class TransformerConfig:
     attention_block_q: Optional[int] = None
     causal: bool = True
     seq_axis: str = "tp"
-    # logical-axis -> mesh-axis sharding rules (the reference's
-    # DEFAULT_RULES); accepted so configs round-trip, unused until mesh
-    # serving is ported
-    rules: Any = (("batch", ("dcn", "dp")), ("stage", ("pp",)),
-                  ("embed", None), ("seq", ("tp",)), ("heads", ("tp",)),
-                  ("kv", None), ("mlp", ("tp",)), ("vocab", ("tp",)),
-                  ("expert", ("dp",)), ("expert_mlp", ("tp",)))
+    # logical-axis -> mesh-axis sharding rules
+    rules: Any = pmesh.DEFAULT_RULES
     ragged_decode: bool = False
     kv_page_size: int = 0
     kv_pages: int = 0
@@ -326,6 +366,10 @@ class _DenseStep:
 
 
 class Attention(nn.Module):
+    # how a model built over a mesh shares out the work (_Split), set by
+    # Transformer; None off a mesh
+    split = None
+
     def __init__(self, c: TransformerConfig) -> None:
         super().__init__()
         self.c = c
@@ -348,34 +392,64 @@ class Attention(nn.Module):
         padding mask, ``(B,)`` int32 on x's device: keys at or past a
         row's length are masked in every attention."""
         c = self.c
+        sp = self.split
+        tp = sp.tp if sp is not None else 1
+        wk, wv = self.k_proj, self.v_proj
+        if tp > 1:
+            x = col.copy_to(x, sp.mesh, "tp")
+            if not sp.kv_sharded:
+                wk = col.copy_to(wk, sp.mesh, "tp")
+                wv = col.copy_to(wv, sp.mesh, "tp")
         q = self._proj(x, self.q_proj)
-        k = self._proj(x, self.k_proj)
-        v = self._proj(x, self.v_proj)
+        k = self._proj(x, wk)
+        v = self._proj(x, wv)
         if isinstance(step, _DenseStep):
             out = self._dense_decode_attend(q, k, v, kv, step)
         elif kv is not None:
             out = self._paged_decode_attend(q, k, v, kv, step)
         else:
-            impl = c.attention_impl
-            if impl == "auto":
-                impl = "flash" if x.device.type == "cuda" else "dense"
-            if kv_len is not None and impl not in ("dense", "flash"):
-                raise ValueError(
-                    f"kv_len padding mask is not supported by "
-                    f"attention_impl={impl!r} (dense and flash only)")
-            if impl not in ("dense", "flash"):
-                raise _not_ported(f"attention_impl={impl!r}")
-            q = apply_rope(q, sin, cos)
-            k = apply_rope(k, sin, cos)
-            k, v = gqa_repeat(q, k, v)
-            if impl == "flash":
-                out = flash_attention(q, k, v, c.causal, kv_len=kv_len)
-            else:
-                out = reference_attention(q, k, v, causal=c.causal,
-                                          kv_len=kv_len)
+            out = self._attend(q, k, v, sin, cos, kv_len)
         B, S = out.shape[:2]
         wo = _compute(self.o_proj, c.dtype)
-        return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+        out = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+        return col.reduce_from(out, sp.mesh, "tp") if tp > 1 else out
+
+    def _attend(self, q, k, v, sin, cos, kv_len):
+        """The training forward's attention core on this rank's heads."""
+        c, sp = self.c, self.split
+        impl = c.attention_impl
+        if impl == "auto":
+            impl = "flash" if q.device.type == "cuda" else "dense"
+        if kv_len is not None and impl not in ("dense", "flash"):
+            raise ValueError(
+                f"kv_len padding mask is not supported by "
+                f"attention_impl={impl!r} (dense and flash only)")
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+        if sp is not None and sp.tp > 1 and not sp.kv_sharded:
+            # replicated kv heads: the one of each local q head, by the
+            # q head's global index
+            H = q.shape[2]
+            head = sp.tp_rank * H + torch.arange(H, device=q.device)
+            group = c.n_heads // c.n_kv_heads
+            k, v = k[:, :, head // group], v[:, :, head // group]
+        block_k = c.attention_block_k or _UNTUNED_BLOCK_K
+        if impl == "ulysses" and sp is not None:
+            return ulysses_attention(q, k, v, mesh=sp.mesh,
+                                     axis_name=c.seq_axis, causal=c.causal,
+                                     block_k=block_k)
+        k, v = gqa_repeat(q, k, v)
+        if impl == "flash":
+            return flash_attention(q, k, v, c.causal, kv_len=kv_len)
+        if impl == "dense":
+            return reference_attention(q, k, v, causal=c.causal,
+                                       kv_len=kv_len)
+        if impl == "ring" and sp is not None:
+            return ring_attention(q, k, v, mesh=sp.mesh,
+                                  axis_name=c.seq_axis, causal=c.causal)
+        # blockwise, and ring/ulysses without a mesh (the reference's
+        # fallback off a mesh)
+        return blockwise_attention(q, k, v, causal=c.causal, block_k=block_k)
 
     def _dense_decode_attend(self, q, k, v, kv, step: _DenseStep):
         ck, cv = kv
@@ -441,6 +515,8 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 
 class Mlp(nn.Module):
+    split = None      # as Attention.split
+
     def __init__(self, c: TransformerConfig) -> None:
         super().__init__()
         self.c = c
@@ -450,10 +526,14 @@ class Mlp(nn.Module):
         self.down_proj = nn.Parameter(torch.empty(F, D, dtype=pd))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.c.dtype
+        dt, sp = self.c.dtype, self.split
+        tp = sp.tp if sp is not None else 1
+        if tp > 1:
+            x = col.copy_to(x, sp.mesh, "tp")
         h = (silu(x @ _compute(self.gate_proj, dt))
              * (x @ _compute(self.up_proj, dt)))
-        return h @ _compute(self.down_proj, dt)
+        y = h @ _compute(self.down_proj, dt)
+        return col.reduce_from(y, sp.mesh, "tp") if tp > 1 else y
 
 
 class MoeMlp(nn.Module):
@@ -561,14 +641,135 @@ def run_blocks(blocks, x, sin, cos, *, remat: bool,
     return (x, total) if return_aux else x
 
 
+# -- parameter sharding: param name -> logical axes -> PartitionSpec ---------
+
+_PARAM_AXES = {
+    "token_embed": ("vocab", "embed"),
+    "q_proj": ("embed", "heads", "kv"),
+    "k_proj": ("embed", "heads", "kv"),
+    "v_proj": ("embed", "heads", "kv"),
+    "o_proj": ("heads", "kv", "embed"),
+    "gate_proj": ("embed", "mlp"),
+    "up_proj": ("embed", "mlp"),
+    "down_proj": ("mlp", "embed"),
+    "router": ("embed", None),
+    "scale": (None,),
+}
+
+_MOE_PARAM_AXES = {
+    "gate_proj": ("expert", "embed", "expert_mlp"),
+    "up_proj": ("expert", "embed", "expert_mlp"),
+    "down_proj": ("expert", "expert_mlp", "embed"),
+}
+
+
+def leaf_logical_axes(name: str, ndim: int) -> Tuple[Optional[str], ...]:
+    """Logical axes of the port parameter ``name`` (``blocks.3.attn.
+    q_proj``, ...) by its last component, as the reference's
+    ``leaf_logical_axes`` matches a param path (the port's layer list
+    has no stacked layer axis). Unknown names replicate."""
+    parts = name.split(".")
+    table = (_MOE_PARAM_AXES if "moe" in parts
+             and parts[-1] in _MOE_PARAM_AXES else _PARAM_AXES)
+    axes = table.get(parts[-1])
+    if axes is None or ndim == 0:
+        return (None,) * ndim
+    if len(axes) != ndim:
+        raise ValueError(f"axes {axes} rank != param {name} rank {ndim}")
+    return tuple(axes)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Split:
+    """How a model built over a mesh shares out its work."""
+
+    mesh: Any
+    tp: int              # tensor-parallel width (1 under context parallel)
+    tp_rank: int
+    seq: int             # context-parallel width (0: not context parallel)
+    seq_rank: int
+    vocab_sharded: bool  # token_embed split over tp (V % tp == 0)
+    kv_sharded: bool     # k/v projections split over tp (KH % tp == 0)
+
+
+def _shard(model: nn.Module, c: TransformerConfig, mesh):
+    """Cut every parameter of ``model`` (built at full shapes) down to
+    this rank's block; returns the :class:`_Split` and each parameter's
+    PartitionSpec fitted to the mesh (its full shape)."""
+    cp = c.attention_impl in ("ring", "ulysses")
+    tp = pmesh.axis_size(mesh, "tp")
+    if pmesh.axis_size(mesh, "pp") > 1:
+        raise NotImplementedError(
+            "a pipeline axis (pp > 1) is ROADMAP Queue A 2.1")
+    if c.n_experts and pmesh.axis_size(mesh, ("dp", "tp")) > 1:
+        raise NotImplementedError(
+            "MoE layers over a mesh of more than one rank need expert "
+            "parallelism, ROADMAP Queue A 2.2")
+    if cp and c.seq_axis != "tp":
+        raise NotImplementedError(
+            f"ring/ulysses over seq_axis={c.seq_axis!r}: the port runs "
+            "context parallelism over 'tp' only")
+    if not cp:
+        pmesh.validate_mesh_for_model(pmesh.mesh_config(mesh),
+                                      n_heads=c.n_heads, d_ff=c.d_ff)
+    specs = {}
+    for name, p in list(model.named_parameters()):
+        spec = pmesh.spec_for_mesh(pmesh.logical_to_mesh_axes(
+            leaf_logical_axes(name, p.dim()), c.rules), mesh)
+        if cp:      # parameters whole along the sequence's axis
+            spec = pmesh.PartitionSpec(*(None if e == c.seq_axis else e
+                                         for e in spec))
+        spec = pmesh.shape_aware_spec(spec, tuple(p.shape), mesh)
+        specs[name] = spec
+        if pmesh.is_sharded(spec):
+            owner, _, leaf = name.rpartition(".")
+            mod = model.get_submodule(owner) if owner else model
+            setattr(mod, leaf, nn.Parameter(p.new_empty(
+                pmesh.local_shape(p.shape, spec, mesh))))
+    split = _Split(
+        mesh=mesh, tp=1 if cp else tp,
+        tp_rank=0 if cp else pmesh.axis_index(mesh, "tp"),
+        seq=tp if cp else 0, seq_rank=pmesh.axis_index(mesh, "tp") if cp
+        else 0,
+        vocab_sharded=pmesh.is_sharded(specs["token_embed"]),
+        kv_sharded=pmesh.is_sharded(specs["blocks.0.attn.k_proj"])
+        if c.n_layers else True)
+    return split, specs
+
+
+def _take_rows_split(table: torch.Tensor, ids: torch.Tensor, V: int,
+                     sp: _Split) -> torch.Tensor:
+    """:func:`take_rows` over a ``vocab`` split over ``tp``: the id
+    wrapped first, each rank's own rows (zeros for ids it does not own),
+    summed over ``tp``; an id no shard owns reads NaN."""
+    Vl = table.shape[0]
+    idx = ids.long()
+    idx = torch.where(idx < 0, idx + V, idx)
+    local = idx - sp.tp_rank * Vl
+    mine = (local >= 0) & (local < Vl)
+    rows = table[local.clamp(0, Vl - 1)]
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    rows = col.reduce_from(rows, sp.mesh, "tp")
+    bad = (idx < 0) | (idx >= V)
+    return rows.masked_fill(bad[..., None], float("nan"))
+
+
 class Transformer(nn.Module):
     """``forward(tokens)`` → logits ``(B, S, V)`` f32 (or the final-norm
     hidden states with ``return_hidden=True``); ``forward(tokens,
     cache)`` runs decode mode over a :class:`DenseKVCache` or a
-    :class:`PagedKVCache` and advances its positions by ``S``."""
+    :class:`PagedKVCache` and advances its positions by ``S``.
+
+    With ``mesh``, each rank holds its block of each parameter (the
+    module docstring); ``param_specs`` gives each parameter's
+    PartitionSpec over the mesh (whole on every rank where it names no
+    axis of more than one rank),
+    and the training forward returns this rank's block of the logits:
+    its vocabulary block under tensor parallelism, its sequence block
+    under context parallelism."""
 
     def __init__(self, config: TransformerConfig,
-                 return_hidden: bool = False) -> None:
+                 return_hidden: bool = False, *, mesh=None) -> None:
         super().__init__()
         config.validate()
         self.config = config
@@ -580,6 +781,14 @@ class Transformer(nn.Module):
         self.final_norm = RMSNorm(config.d_model,
                                   param_dtype=config.param_dtype)
         self._rope: Dict[Tuple[int, torch.device], Tuple] = {}
+        self.mesh = mesh
+        self.split: Optional[_Split] = None
+        self.param_specs: Dict[str, Any] = {}
+        if mesh is not None:
+            self.split, self.param_specs = _shard(self, config, mesh)
+            for mod in self.modules():
+                if isinstance(mod, (Attention, Mlp)):
+                    mod.split = self.split
 
     def _tables(self, n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
         key = (n, torch.device(device))
@@ -651,23 +860,39 @@ class Transformer(nn.Module):
         row from its own position, as ``ragged_decode`` does (the
         speculative verify). ``return_aux`` (training forward) returns
         ``(out, aux)``, ``aux`` the summed MoE load-balance loss."""
-        c = self.config
+        c, sp = self.config, self.split
         B, S = tokens.shape
         dev = tokens.device
         embed = _compute(self.token_embed, c.dtype)
-        x = take_rows(embed, tokens)
+        if cache is not None and sp is not None and (sp.tp > 1 or sp.seq > 1):
+            raise NotImplementedError(
+                "decoding from a model split over a mesh (mesh serving) "
+                "is ROADMAP Queue A 2.4")
         aux: Any = 0.0
         if cache is None:
             sin, cos = self._tables(S, dev)
+            if sp is not None and sp.seq:
+                if S % sp.seq:
+                    raise ValueError(f"seq len {S} does not divide over "
+                                     f"{sp.seq} context-parallel ranks")
+                n = S // sp.seq
+                block = slice(sp.seq_rank * n, (sp.seq_rank + 1) * n)
+                tokens, sin, cos = tokens[:, block], sin[block], cos[block]
+            if sp is not None and sp.tp > 1 and sp.vocab_sharded:
+                x = _take_rows_split(embed, tokens, c.vocab_size, sp)
+            else:
+                x = take_rows(embed, tokens)
             x, aux = run_blocks(self.blocks, x, sin, cos, remat=c.remat,
                                 return_aux=True)
         elif isinstance(cache, DenseKVCache):
+            x = take_rows(embed, tokens)
             step = self._dense_step(cache, S, dev,
                                     ragged or c.ragged_decode)
             for i, blk in enumerate(self.blocks):
                 x, _ = blk(x, None, None, (cache.k[i], cache.v[i]), step)
             cache.positions.add_(S)
         else:
+            x = take_rows(embed, tokens)
             step = self._decode_step(cache, S, dev)
             for i, blk in enumerate(self.blocks):
                 kv = (cache.k[i], cache.v[i], cache.pages, cache.positions)
@@ -676,6 +901,8 @@ class Transformer(nn.Module):
         x = self.final_norm(x)
         if self.return_hidden:
             return (x, aux) if return_aux else x
+        if sp is not None and sp.tp > 1 and sp.vocab_sharded:
+            x = col.copy_to(x, sp.mesh, "tp")
         logits = (x @ embed.t()).float()
         if c.logits_softcap:
             logits = c.logits_softcap * torch.tanh(logits / c.logits_softcap)

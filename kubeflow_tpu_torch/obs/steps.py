@@ -29,7 +29,9 @@ Where the reference leans on XLA, eager PyTorch differs:
   ``torch.utils.flop_counter.FlopCounterMode`` and is the probe (no
   extra run). An explicit ``flops_per_step`` overrides it. The flash
   attention autograd function registers no flop formula, so on CUDA
-  flash paths the count leaves attention out;
+  flash paths the count leaves attention out. The probe counts this
+  rank's work; each of the ``n_chips`` ranks of a step does as much, so
+  the step's FLOPs are ``n_chips`` times the count;
 - peak FLOP/s: from ``torch.cuda.get_device_name`` (H100 SXM 989e12
   bf16 dense; ``KFTPU_PEAK_TFLOPS`` overrides), absent on the CPU;
 - ``sync=True`` blocks with ``torch.cuda.synchronize()``; metrics are
@@ -416,7 +418,7 @@ class StepTelemetry:
 
     def _read_probe(self, counter: Any) -> None:
         try:
-            flops = float(counter.get_total_flops())
+            flops = float(counter.get_total_flops()) * self.n_chips
             self.flops_per_step = flops if flops > 0 else None
         except Exception:  # noqa: BLE001 — telemetry must not fail the step
             self.flops_per_step = None

@@ -6,8 +6,7 @@ once over ``(E, C, D)``, and the results combine back weighted by the
 router gates. Dispatch and combine are one-hot tensors built exactly as
 the reference builds them; tokens past an expert's capacity are dropped
 (they contribute zero). There is no expert-parallel axis yet: the
-reference's AllToAll over the ``ep`` group waits for the mesh (ROADMAP
-Queue A 7).
+reference's AllToAll over the ``ep`` group is ROADMAP Queue A 2.2.
 
 These are plain PyTorch products, as the reference's are XLA einsums:
 no Pallas kernel stands behind them.

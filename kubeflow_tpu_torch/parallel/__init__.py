@@ -1,2 +1,3 @@
-"""Scale-out of the port. So far only the operator's env contract
-(``distributed.py``); meshes and collectives are ROADMAP Queue A 7."""
+"""Scale-out of the port: the operator's env contract and process-group
+start-up (``distributed.py``), and the device mesh with its sharding
+rules (``mesh.py``). The collectives are ``ops/collectives.py``."""

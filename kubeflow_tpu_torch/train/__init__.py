@@ -9,6 +9,7 @@ from kubeflow_tpu_torch.train.trainer import (  # noqa: F401
     chunked_next_token_loss,
     create_bert_train_state,
     create_image_train_state,
+    create_sharded_state,
     create_train_state,
     create_vit_train_state,
     global_norm,
@@ -20,4 +21,6 @@ from kubeflow_tpu_torch.train.trainer import (  # noqa: F401
     masked_lm_loss,
     next_token_loss,
     softmax_cross_entropy,
+    state_partition_specs,
+    state_shardings,
 )

@@ -19,6 +19,14 @@ each tensor into the given state's tensor, on its device, bit for bit.
 
 The step list is read from the directory on every call: a manager sees
 steps that another process wrote.
+
+In a job of several processes rank 0 alone writes. A train state whose
+module is built over a mesh is saved whole: every rank gathers the full
+parameters and optimizer moments (``trainer.state_shardings``, an
+all-gather over each split dim) before rank 0 writes them. ``restore``
+reads the whole state on every rank and copies in this rank's blocks.
+So a checkpoint does not depend on the mesh that wrote it: a job
+written at tp = 2 resumes at tp = 1.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ import threading
 from typing import Any, List, Optional, Tuple
 
 import torch
+
+from kubeflow_tpu_torch.parallel import mesh as pmesh
 
 log = logging.getLogger(__name__)
 
@@ -45,6 +55,35 @@ def _tree(state: Any) -> Any:
         return {"module": dict(state.module.state_dict(keep_vars=True)),
                 "opt_state": state.opt_state, "step": state.step}
     return state
+
+
+def _specs(state: Any) -> Tuple[Any, Any]:
+    """``(specs tree, mesh)`` of a train state built over a mesh, else
+    ``(None, None)``."""
+    from kubeflow_tpu_torch.train.trainer import TrainState, state_shardings
+
+    if isinstance(state, TrainState) and state.mesh is not None:
+        return state_shardings(state, state.mesh), state.mesh
+    return None, None
+
+
+def _each(tree: Any, specs: Any, fn) -> Any:
+    """``fn(tensor, spec)`` on every split tensor of ``tree`` (a part
+    ``specs`` does not describe is left for ``_load_into`` to refuse)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, specs) if pmesh.is_sharded(specs) else tree
+    if isinstance(tree, dict) and isinstance(specs, dict):
+        return {k: _each(v, specs.get(k), fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and isinstance(specs, list) and \
+            len(specs) == len(tree):
+        return [_each(v, s, fn) for v, s in zip(tree, specs)]
+    return tree
+
+
+def _rank() -> int:
+    import torch.distributed as tdist
+
+    return tdist.get_rank() if tdist.is_initialized() else 0
 
 
 def _to_host(tree: Any) -> Any:
@@ -109,9 +148,18 @@ class CheckpointManager:
     def save(self, step: int, state: Any, *, wait: bool = False) -> None:
         """Copy ``state`` to the host now and write it in the background;
         ``wait`` blocks until it is on disk (end of training, tests).
-        A save waits for the one before it."""
+        A save waits for the one before it. Rank 0 alone writes; a state
+        built over a mesh is gathered first, on every rank (call it on
+        all of them)."""
         self.wait()
-        snapshot = _to_host(_tree(state))
+        tree = _tree(state)
+        specs, mesh = _specs(state)
+        if specs is not None:
+            tree = _each(tree, specs,
+                         lambda t, sp: pmesh.gather_block(t, sp, mesh))
+        if _rank() != 0:
+            return
+        snapshot = _to_host(tree)
         self._writer = threading.Thread(
             target=self._write, args=(int(step), snapshot),
             name=f"checkpoint-{step}", daemon=True)
@@ -180,6 +228,10 @@ class CheckpointManager:
         saved = torch.load(
             os.path.join(self.directory, str(step), STATE_FILE),
             map_location="cpu", weights_only=True)
+        specs, mesh = _specs(state)
+        if specs is not None:     # this rank's blocks of the whole state
+            saved = _each(saved, specs,
+                          lambda t, sp: pmesh.local_block(t, sp, mesh))
         tree = _tree(state)
         loaded = _load_into(tree, saved, str(step))
         if tree is not state:          # a train state

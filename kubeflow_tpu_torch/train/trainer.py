@@ -5,9 +5,24 @@ PyTorch port of ``kubeflow_tpu/train/trainer.py``: ``make_optimizer``
 (:126-129), ``chunked_next_token_loss`` (:132-172),
 ``make_lm_train_step`` (:175-236), ``masked_lm_loss`` (:248-254),
 ``make_mlm_train_step`` (:257-291) and ``make_image_train_step``
-(:338-382, ResNet with its BN statistics, ViT and the MNIST CNN without), with ``optax.sgd`` as :class:`Sgd`. Steps run eagerly on the
-device of the state's parameters; there is no mesh yet (data parallelism
-is ROADMAP Queue A).
+(:338-382, ResNet with its BN statistics, ViT and the MNIST CNN
+without), with ``optax.sgd`` as :class:`Sgd`, and
+``state_partition_specs``, ``state_shardings`` and
+``create_sharded_state`` (:39-115). Steps run eagerly on the device of
+the state's parameters.
+
+With a ``mesh`` (``parallel/mesh.py``) the LM and MLM steps take the
+GLOBAL batch, as the reference's do, and each rank trains on its rows of
+it (the ``batch`` rule: ``("dcn", "dp")``). The gradients, with the
+loss for the metrics, are averaged over those axes by ONE all-reduce of
+one flat buffer (every training path of the port is host-bound, so one
+launch, not one per tensor). Under tensor parallelism the loss is
+vocab-parallel (the max, the sum of exponentials and the target logit
+are all-reduced over ``tp``), and the global norm counts a split
+gradient's squares summed over ``tp`` and a replicated one once. Under
+context parallelism (``attention_impl`` ring or Ulysses) each rank's
+loss covers its positions and the gradients sum over ``tp`` in the same
+all-reduce. The image step runs on one rank.
 
 The optimizer is optax's chain written in plain tensor ops, with optax's
 numerics (:class:`AdamW` is bare ``optax.adamw``):
@@ -37,8 +52,12 @@ import math
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as tdist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from kubeflow_tpu_torch.ops.collectives import copy_to
+from kubeflow_tpu_torch.parallel import mesh as pmesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,6 +213,19 @@ class TrainState:
     def device(self) -> torch.device:
         return next(self.module.parameters()).device
 
+    @property
+    def mesh(self):
+        """The mesh the module was built over, or None."""
+        return getattr(self.module, "mesh", None)
+
+    @property
+    def param_specs(self) -> List[Any]:
+        """Each of :attr:`params`'s PartitionSpec over :attr:`mesh`
+        (None off a mesh)."""
+        specs = getattr(self.module, "param_specs", {})
+        return [specs.get(name) for name, p in self.module.named_parameters()
+                if p.requires_grad]
+
     def apply_gradients(self, grads: Sequence[torch.Tensor],
                         grad_norm: Optional[torch.Tensor] = None
                         ) -> "TrainState":
@@ -213,6 +245,71 @@ def create_train_state(config, params: Mapping[str, Any], tx: Optimizer, *,
     model = convert.to_trainable(config, params, device=device,
                                  return_hidden=return_hidden)
     return TrainState.create(model, tx)
+
+
+def state_partition_specs(state: TrainState,
+                          rules=pmesh.DEFAULT_RULES) -> Dict[str, Any]:
+    """A PartitionSpec for every leaf of a train state, in the tree
+    ``train/checkpoint.py`` saves (``{"module": {name: spec},
+    "opt_state": {...}, "step": spec}``): a parameter's from the rules
+    table, its optimizer moments the same, everything else replicated."""
+    from kubeflow_tpu_torch.models.transformer import leaf_logical_axes
+
+    def spec(name, t):
+        return pmesh.logical_to_mesh_axes(
+            leaf_logical_axes(name, t.dim()), rules)
+
+    return _state_tree(state, spec)
+
+
+def state_shardings(state: TrainState, mesh,
+                    rules=pmesh.DEFAULT_RULES) -> Dict[str, Any]:
+    """:func:`state_partition_specs` fitted to ``mesh`` (axes it lacks
+    dropped, dims it cannot divide replicated): what each rank holds.
+    A module built over ``mesh`` answers with its own ``param_specs``."""
+    own = getattr(state.module, "param_specs", {})
+    if own and state.mesh is mesh:
+        return _state_tree(state, lambda name, t: own.get(
+            name, pmesh.PartitionSpec()))
+    specs = state_partition_specs(state, rules)
+
+    def fit(name, t):
+        key = name if name in specs["module"] else None
+        spec = specs["module"][key] if key else pmesh.PartitionSpec()
+        return pmesh.shape_aware_spec(pmesh.spec_for_mesh(spec, mesh),
+                                      tuple(t.shape), mesh)
+
+    return _state_tree(state, fit)
+
+
+def _state_tree(state: TrainState, spec) -> Dict[str, Any]:
+    """``spec(name, tensor)`` over the module's state dict, and the same
+    per parameter for each optimizer list that follows the parameters
+    (``mu``, ``nu``, ``trace``)."""
+    module = {name: spec(name, t) for name, t in
+              state.module.state_dict(keep_vars=True).items()}
+    names = [n for n, p in state.module.named_parameters() if p.requires_grad]
+    opt = {}
+    for key, val in state.opt_state.items():
+        if isinstance(val, list) and len(val) == len(names):
+            opt[key] = [module[n] for n in names]
+        else:
+            opt[key] = pmesh.PartitionSpec()
+    return {"module": module, "opt_state": opt, "step": pmesh.PartitionSpec()}
+
+
+def create_sharded_state(config, params: Mapping[str, Any], tx, mesh, *,
+                         device=None, return_hidden: bool = False
+                         ) -> Tuple[TrainState, Dict[str, Any]]:
+    """A :class:`TrainState` over a port ``Transformer`` built over
+    ``mesh``, holding this rank's blocks of the full JAX-layout
+    ``params``, and its :func:`state_shardings`."""
+    from kubeflow_tpu_torch.models import convert
+
+    model = convert.to_trainable(config, params, device=device,
+                                 return_hidden=return_hidden, mesh=mesh)
+    state = TrainState.create(model, tx)
+    return state, state_shardings(state, mesh)
 
 
 def create_bert_train_state(config, params: Mapping[str, Any],
@@ -256,46 +353,178 @@ def softmax_cross_entropy(logits: torch.Tensor,
     return -torch.gather(logp, -1, labels.long()[..., None])[..., 0].mean()
 
 
-def next_token_loss(logits: torch.Tensor,
-                    tokens: torch.Tensor) -> torch.Tensor:
-    """Causal LM loss: predict ``tokens[:, 1:]`` from ``logits[:, :-1]``."""
-    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
-    tgt = tokens[:, 1:].long()
-    return -torch.gather(logp, -1, tgt[..., None])[..., 0].mean()
+def _take_target(logp: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+    """``jnp.take_along_axis(logp, tgt[..., None], -1)[..., 0]``: a
+    target in ``[-V, 0)`` wraps, any other outside ``[0, V)`` reads NaN
+    (never an out-of-range gather on the card)."""
+    V = logp.shape[-1]
+    t = tgt.long()
+    t = torch.where(t < 0, t + V, t)
+    bad = (t < 0) | (t >= V)
+    ll = torch.gather(logp, -1, t.clamp(0, V - 1)[..., None])[..., 0]
+    return ll.masked_fill(bad, float("nan"))
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-token negative log-likelihood of logits split over the
+    vocabulary: the row max, the sum of exponentials and the target's
+    logit are all-reduced over the group; the backward is local
+    (``softmax - onehot`` on this rank's block)."""
+
+    @staticmethod
+    def forward(ctx, logits, tgt, vocab_size, group):
+        x = logits.float()
+        Vl = x.shape[-1]
+        start = tdist.get_group_rank(group, tdist.get_rank()) * Vl
+        m = x.amax(dim=-1)
+        tdist.all_reduce(m, op=tdist.ReduceOp.MAX, group=group)
+        e = torch.exp(x - m[..., None])
+        se = e.sum(dim=-1)
+        t = tgt.long()
+        t = torch.where(t < 0, t + vocab_size, t)
+        bad = (t < 0) | (t >= vocab_size)
+        local = t - start
+        mine = (local >= 0) & (local < Vl)
+        tl = torch.gather(x, -1, local.clamp(0, Vl - 1)[..., None])[..., 0]
+        tl = torch.where(mine, tl, torch.zeros_like(tl))
+        both = torch.stack([se, tl])
+        tdist.all_reduce(both, group=group)
+        se, tl = both[0], both[1]
+        nll = (m + torch.log(se)) - tl
+        ctx.save_for_backward(e / se[..., None], local, mine)
+        ctx.dtype = logits.dtype
+        return nll.masked_fill(bad, float("nan"))
+
+    @staticmethod
+    def backward(ctx, g):
+        probs, local, mine = ctx.saved_tensors
+        grad = probs * g[..., None]
+        hit = torch.where(mine, -g, torch.zeros_like(g))
+        grad.scatter_add_(-1, local.clamp(0, probs.shape[-1] - 1)[..., None],
+                          hit[..., None])
+        return grad.to(ctx.dtype), None, None, None
+
+
+def _token_ll(logits: torch.Tensor, tgt: torch.Tensor,
+              mesh=None, vocab_size: int = 0) -> torch.Tensor:
+    """Log-likelihood of each target under f32 softmax of ``logits``;
+    with ``mesh``, ``logits`` is this rank's block of a vocabulary of
+    ``vocab_size`` split over ``tp``."""
+    if mesh is None:
+        return _take_target(torch.log_softmax(logits.float(), dim=-1), tgt)
+    return -_VocabParallelNLL.apply(logits, tgt, vocab_size,
+                                    pmesh.axis_group(mesh, "tp"))
+
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor, *,
+                    mesh=None) -> torch.Tensor:
+    """Causal LM loss: predict ``tokens[:, 1:]`` from ``logits[:, :-1]``.
+    With ``mesh``, ``logits`` is this rank's block of a vocabulary split
+    evenly over the mesh's ``tp`` axis (vocab-parallel)."""
+    V = logits.shape[-1] * (pmesh.axis_size(mesh, "tp") if mesh else 1)
+    return -_token_ll(logits[:, :-1], tokens[:, 1:], mesh, V).mean()
 
 
 def _chunk_ll(h: torch.Tensor, embed: torch.Tensor, tgt: torch.Tensor,
-              softcap: float) -> torch.Tensor:
+              softcap: float, mesh, vocab_size: int) -> torch.Tensor:
     logits = (h @ embed.to(h.dtype).t()).float()
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
-    logp = torch.log_softmax(logits, dim=-1)
-    return torch.gather(logp, -1, tgt[..., None]).sum()
+    return _token_ll(logits, tgt, mesh, vocab_size).sum()
+
+
+def _chunked_ll_sum(hidden: torch.Tensor, embed: torch.Tensor,
+                    tgt: torch.Tensor, chunk: int, softcap: float,
+                    mesh=None) -> torch.Tensor:
+    """The summed log-likelihood of ``tgt`` (one per position of
+    ``hidden``) with the vocab projection per ``chunk`` positions,
+    recomputed in the backward."""
+    V = embed.shape[0] * (pmesh.axis_size(mesh, "tp") if mesh else 1)
+    if mesh is not None:
+        hidden = copy_to(hidden, mesh, "tp")
+    total = hidden.new_zeros((), dtype=torch.float32)
+    n = tgt.shape[1]
+    for c0 in range(0, n, chunk):
+        c1 = min(c0 + chunk, n)
+        total = total + checkpoint(_chunk_ll, hidden[:, c0:c1], embed,
+                                   tgt[:, c0:c1], softcap, mesh, V,
+                                   use_reentrant=False)
+    return total
 
 
 def chunked_next_token_loss(hidden: torch.Tensor, embed: torch.Tensor,
                             tokens: torch.Tensor, *, chunk: int = 4096,
-                            softcap: float = 0.0) -> torch.Tensor:
+                            softcap: float = 0.0, mesh=None) -> torch.Tensor:
     """:func:`next_token_loss` from HIDDEN states, with the vocab
     projection done per ``chunk`` positions and recomputed in the
     backward (``torch.utils.checkpoint``), so only ``(B, chunk, V)``
     logits live at once. The head's math: tied-embedding product in
     the activation dtype, f32 softmax, optional softcap. The last chunk
     is short where the reference pads it and masks the padding out;
-    the sum is the same."""
+    the sum is the same. With ``mesh``, ``embed`` is this rank's block
+    of a vocabulary split over ``tp`` and the loss is vocab-parallel."""
     B, S, _ = hidden.shape
-    n = S - 1
-    tgt = tokens[:, 1:].long()
-    total = hidden.new_zeros((), dtype=torch.float32)
-    for c0 in range(0, n, chunk):
-        c1 = min(c0 + chunk, n)
-        total = total + checkpoint(_chunk_ll, hidden[:, c0:c1], embed,
-                                   tgt[:, c0:c1], softcap,
-                                   use_reentrant=False)
-    return -total / (B * n)
+    total = _chunked_ll_sum(hidden[:, :-1], embed, tokens[:, 1:], chunk,
+                            softcap, mesh)
+    return -total / (B * (S - 1))
 
 
-def make_lm_train_step(*, moe_aux_weight: float = 0.01,
+def _batch_axes(rules) -> Tuple[str, ...]:
+    spec = pmesh.logical_to_mesh_axes(("batch",), rules)
+    entry = spec[0] if spec else ()
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+def _my_rows(x, mesh, axes: Tuple[str, ...]) -> torch.Tensor:
+    """This rank's rows of a global batch, split over ``axes``."""
+    x = torch.as_tensor(x)
+    n = pmesh.axis_size(mesh, axes)
+    if x.shape[0] % n:
+        raise ValueError(f"global batch {x.shape[0]} does not divide over "
+                         f"{n} data-parallel ranks")
+    return pmesh.local_block(x, pmesh.PartitionSpec(axes), mesh)
+
+
+def _reduce(grads: Sequence[torch.Tensor], extra: torch.Tensor, mesh,
+            axes: Tuple[str, ...], divide: int):
+    """Sum ``grads`` and the f32 vector ``extra`` over ``axes`` in ONE
+    all-reduce of one flat buffer, then divide by ``divide``; returns
+    the new gradients and ``extra``."""
+    flat = torch.cat([g.reshape(-1).float() for g in grads]
+                     + [extra.reshape(-1).float()])
+    tdist.all_reduce(flat, group=pmesh.axis_group(mesh, axes))
+    flat.div_(divide)
+    out, off = [], 0
+    for g in grads:
+        out.append(flat[off:off + g.numel()].view_as(g).to(g.dtype))
+        off += g.numel()
+    return out, flat[off:]
+
+
+def _split_norm(grads: Sequence[torch.Tensor], specs: Sequence[Any],
+                mesh) -> torch.Tensor:
+    """The global norm of a model split over ``tp``: the squares of a
+    split gradient summed over ``tp``, a replicated one's counted once."""
+    zero = grads[0].new_zeros((), dtype=torch.float32)
+    split = sum((g.float().square().sum() for g, sp in zip(grads, specs)
+                 if pmesh.is_sharded(sp)), zero)
+    whole = sum((g.float().square().sum() for g, sp in zip(grads, specs)
+                 if not pmesh.is_sharded(sp)), zero)
+    if any(pmesh.is_sharded(sp) for sp in specs):
+        tdist.all_reduce(split, group=pmesh.axis_group(mesh, "tp"))
+    return torch.sqrt(split + whole)
+
+
+def _check_mesh(state: TrainState, mesh) -> None:
+    """A module built over a mesh trains only in a step over that mesh
+    (its collectives and loss must agree); a whole module trains in any."""
+    if state.mesh is not None and state.mesh is not mesh:
+        raise ValueError("the step's mesh is not the one the model was "
+                         "built over")
+
+
+def make_lm_train_step(mesh=None, rules=pmesh.DEFAULT_RULES, *,
+                       moe_aux_weight: float = 0.01,
                        loss_chunk: Optional[int] = None,
                        logits_softcap: float = 0.0):
     """The LM train step: ``step(state, tokens) -> (state, metrics)``.
@@ -313,27 +542,59 @@ def make_lm_train_step(*, moe_aux_weight: float = 0.01,
     it. The gradient is that of ``loss + moe_aux_weight * aux``, ``aux``
     the MoE layers' summed load-balance loss (0 without MoE); ``loss``
     in the metrics is the LM loss alone, as the reference reports it.
+
+    ``mesh``: ``tokens`` is the global batch and the state's module is
+    built over ``mesh`` (:func:`create_sharded_state`) or is whole on
+    every rank; see the module docstring for what the step exchanges.
     """
+    axes = _batch_axes(rules)
 
     def step(state: TrainState, tokens) -> Tuple[TrainState, Dict[str, Any]]:
         model = state.module
-        tokens = torch.as_tensor(tokens, device=state.device)
         if loss_chunk and not getattr(model, "return_hidden", False):
             raise ValueError("loss_chunk needs a model that returns hidden "
                              "states (return_hidden=True)")
+        _check_mesh(state, mesh)
+        if mesh is not None:
+            tokens = _my_rows(tokens, mesh, axes)
+        tokens = torch.as_tensor(tokens, device=state.device)
+        sp = getattr(model, "split", None)
+        vocab = mesh if sp is not None and sp.tp > 1 and sp.vocab_sharded \
+            else None
         params = state.params
         out, aux = model(tokens, return_aux=True)
-        if loss_chunk:
-            embed = dict(model.named_parameters())["token_embed"]
+        embed = (dict(model.named_parameters())["token_embed"]
+                 if loss_chunk else None)
+        if sp is not None and sp.seq:
+            # context parallel: this rank's positions predict the next
+            # token, the sequence's last position predicts none
+            B, S = tokens.shape
+            n = S // sp.seq
+            tgt = tokens[:, sp.seq_rank * n + 1:(sp.seq_rank + 1) * n + 1]
+            h = out[:, :tgt.shape[1]]
+            total = (_chunked_ll_sum(h, embed, tgt, loss_chunk,
+                                     logits_softcap) if loss_chunk
+                     else _token_ll(h, tgt).sum())
+            loss = -total / (B * (S - 1))
+        elif loss_chunk:
             loss = chunked_next_token_loss(out, embed, tokens,
                                            chunk=loss_chunk,
-                                           softcap=logits_softcap)
+                                           softcap=logits_softcap,
+                                           mesh=vocab)
         else:
-            loss = next_token_loss(out, tokens)
+            loss = next_token_loss(out, tokens, mesh=vocab)
         grads = torch.autograd.grad(loss + moe_aux_weight * aux, params)
-        grad_norm = global_norm(grads)
+        loss = loss.detach()
+        if mesh is None:
+            grad_norm = global_norm(grads)
+        else:
+            over = axes + (("tp",) if sp is not None and sp.seq else ())
+            grads, extra = _reduce(grads, loss, mesh, over,
+                                   pmesh.axis_size(mesh, axes))
+            loss = extra[0]
+            grad_norm = _split_norm(grads, state.param_specs, mesh)
         state.apply_gradients(grads, grad_norm)
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm,
+        return state, {"loss": loss, "grad_norm": grad_norm,
                        "step": state.step}
 
     return step
@@ -343,43 +604,86 @@ def masked_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
                    weights: torch.Tensor) -> torch.Tensor:
     """The MLM objective: cross-entropy at the weighted positions, over
     ``max(sum(weights), 1)``."""
+    return _masked_ll(logits, labels, weights) / weights.sum().clamp_min(1.0)
+
+
+def _masked_ll(logits, labels, weights) -> torch.Tensor:
+    """Minus the weighted sum of the labels' log-likelihoods."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
-    return -(ll * weights).sum() / weights.sum().clamp_min(1.0)
+    return -(ll * weights).sum()
 
 
-def make_mlm_train_step():
+def make_mlm_train_step(mesh=None, rules=pmesh.DEFAULT_RULES):
     """The masked-LM train step: ``step(state, tokens, labels, weights)
     -> (state, metrics)``. ``tokens`` are the corrupted inputs,
     ``labels`` the originals and ``weights`` mark the masked positions;
     all go to the device of the state's parameters. ``metrics`` holds
     ``loss``, ``grad_norm`` (of the raw gradients) and ``step``, as in
-    :func:`make_lm_train_step`."""
+    :func:`make_lm_train_step`.
+
+    ``mesh``: the inputs are the global batch, each rank trains on its
+    rows, and the loss's denominator is the global batch's weight sum
+    (one all-reduce before the forward). The model is whole on every
+    rank: tensor parallelism for the encoder is not ported (ROADMAP
+    Queue A 2.4)."""
+    axes = _batch_axes(rules)
+    if mesh is not None and pmesh.axis_size(mesh, ("pp", "tp")) > 1:
+        raise NotImplementedError(
+            "the MLM step splits the batch only; tensor and pipeline "
+            "parallelism for the encoder are ROADMAP Queue A 2.4")
 
     def step(state: TrainState, tokens, labels, weights
              ) -> Tuple[TrainState, Dict[str, Any]]:
         dev = state.device
+        if mesh is not None:
+            tokens, labels, weights = (_my_rows(x, mesh, axes)
+                                       for x in (tokens, labels, weights))
         tokens = torch.as_tensor(tokens, device=dev)
         labels = torch.as_tensor(labels, device=dev)
         weights = torch.as_tensor(weights, device=dev, dtype=torch.float32)
         params = state.params
-        loss = masked_lm_loss(state.module(tokens), labels, weights)
+        logits = state.module(tokens)
+        if mesh is None:
+            loss = masked_lm_loss(logits, labels, weights)
+        else:
+            dp = pmesh.axis_size(mesh, axes)
+            wsum = weights.sum()
+            tdist.all_reduce(wsum, group=pmesh.axis_group(mesh, axes))
+            # the dp average of these terms is the global batch's loss
+            loss = _masked_ll(logits, labels, weights) * dp \
+                / wsum.clamp_min(1.0)
         grads = torch.autograd.grad(loss, params)
-        grad_norm = global_norm(grads)
+        loss = loss.detach()
+        if mesh is None:
+            grad_norm = global_norm(grads)
+        else:
+            grads, extra = _reduce(grads, loss, mesh, axes, dp)
+            loss = extra[0]
+            grad_norm = global_norm(grads)
         state.apply_gradients(grads, grad_norm)
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm,
+        return state, {"loss": loss, "grad_norm": grad_norm,
                        "step": state.step}
 
     return step
 
 
-def make_image_train_step():
+def make_image_train_step(mesh=None):
     """The classifier train step: ``step(state, images, labels) ->
     (state, metrics)``, with BN statistics updated by the train-mode
     forward when the module has any. ``metrics`` holds ``loss`` and
     ``accuracy`` (0-dim tensors on the device) and ``step`` (the count
     after this update). ``images`` and ``labels`` go to the device of
-    the state's parameters."""
+    the state's parameters.
+
+    The step runs on one rank: a ``mesh`` of more than one raises.
+    Under the reference's GSPMD the BatchNorm statistics are the global
+    batch's; data parallelism for this step is ROADMAP Queue A 2.3."""
+    if mesh is not None and mesh.size() > 1:
+        raise NotImplementedError(
+            f"the image train step runs on one rank, not a mesh of "
+            f"{mesh.size()}: its data parallelism (BatchNorm statistics "
+            "over the global batch) is ROADMAP Queue A 2.3")
 
     def step(state: TrainState, images, labels
              ) -> Tuple[TrainState, Dict[str, Any]]:

@@ -1,9 +1,15 @@
-"""The port's BERT entry point and launcher on the CPU: train, resume and
-finish through ``examples.bert.main``, the restart after the last step,
-the metrics lines, and the launcher's refusals."""
+"""The port's entry points and launcher on the CPU: train, resume and
+finish through ``examples.bert.main`` and ``examples.lm.main``, the
+restart after the last step, the metrics lines, the launcher's mesh and
+refusals, and the image entry points. A 2-rank gloo gang
+(``tests/torch_gang.py``, suite ``examples``) runs what needs two
+processes: ``launcher_init``'s mesh, ``examples.lm`` at dp = 2 and at
+tp = 2 (its results, checkpoints and export written by rank 0 alone),
+and the refusals of MoE at dp = 2 and of the image entry points."""
 
 import json
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -11,6 +17,7 @@ import torch
 
 from kubeflow_tpu_torch.examples import bert as bert_example
 from kubeflow_tpu_torch.examples.common import launcher_init, log_metrics
+from torch_gang import Gang
 
 torch.set_num_threads(2)
 
@@ -103,31 +110,50 @@ def test_log_metrics_writes_results_dir(monkeypatch, tmp_path, capsys):
     assert out[0]["note"] == "x" and out[1]["done"] == 1.0
 
 
+@pytest.fixture(scope="module")
+def gang(tmp_path_factory):
+    return Gang("examples", 2, tmp_path_factory.mktemp("examples-gang"))
+
+
 @pytest.mark.parametrize("env,kw,what", [
-    ({"KFTPU_NUM_PROCESSES": "2"}, {}, "2 processes"),
-    ({"MEGASCALE_NUM_SLICES": "2"}, {}, "2 slices"),
-    ({}, {"tp": 2}, "tp=2"),
     ({}, {"pp": 2}, "pp=2"),
-], ids=["processes", "slices", "tp", "pp"])
+], ids=["pp"])
 def test_launcher_refuses_what_needs_a_mesh(monkeypatch, env, kw, what):
     for key, val in env.items():
         monkeypatch.setenv(key, val)
-    with pytest.raises(NotImplementedError, match="Queue A 7") as err:
+    with pytest.raises(NotImplementedError, match="Queue A 2.1") as err:
         launcher_init(device="cpu", **kw)
     assert what in str(err.value)
+
+
+@pytest.mark.parametrize("case,sizes", [
+    ("processes", [1, 1, 1, 2]), ("slices", [2, 1, 1, 1]),
+    ("tp", [1, 2, 1, 1]),
+])
+def test_launcher_init_builds_the_mesh(gang, case, sizes):
+    """Two processes: ``auto_mesh_config``'s tp = 2 by default; two
+    slices give ``dcn`` = 2, as ``tests/test_distributed.py:58`` holds
+    the reference's; ``tp=1`` gives dp = 2. Mesh dims ``(dcn, dp, pp,
+    tp)``, each rank on the CPU."""
+    for got in gang.case(f"launcher/{case}"):
+        assert got == {"sizes": sizes, "device": "cpu"}
 
 
 def test_launcher_single_process(monkeypatch):
     monkeypatch.setenv("KFTPU_JOB_NAME", "j")
     monkeypatch.delenv("KFTPU_NUM_PROCESSES", raising=False)
     monkeypatch.delenv("MEGASCALE_NUM_SLICES", raising=False)
-    penv, dev = launcher_init(device="cpu", tp=1)
+    penv, mesh, dev = launcher_init(device="cpu", tp=1)
     assert dev == torch.device("cpu") and penv.job_name == "j"
     assert penv.num_processes == 1 and not penv.is_distributed
+    assert mesh.mesh_dim_names == ("dcn", "dp", "pp", "tp")
+    assert tuple(mesh.mesh.shape) == (1, 1, 1, 1)
 
 
 def test_entry_point_refuses_tp(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="tp=2"):
+    """``--tp 2`` on one process: the reference's answer, from
+    ``auto_mesh_config``."""
+    with pytest.raises(ValueError, match="tp=2 does not divide 1"):
         _run(monkeypatch, tmp_path, "tp", 1, "--tp", "2")
 
 
@@ -256,8 +282,76 @@ def test_lm_batches_depend_on_the_step_only():
 
 
 def test_lm_entry_point_refuses_tp(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="tp=2"):
+    with pytest.raises(ValueError, match="tp=2 does not divide 1"):
         _lm(monkeypatch, tmp_path, "tp", 1, "--tp", "2")
+
+
+def test_lm_at_dp2_equals_one_rank(gang, monkeypatch, tmp_path):
+    """Two ranks at dp = 2 (two rows each) take the losses of one rank
+    at the same global batch of four, within 1e-5."""
+    _lm(monkeypatch, tmp_path, "one", 3, "--per-device-batch", "4")
+    want = _by_key(tmp_path, "one", "loss")
+    gang.case("lm/dp2")
+    got = _by_key(Path(gang.out), "dp2", "loss")
+    assert sorted(got) == [1, 2, 3]
+    for step in got:
+        np.testing.assert_allclose(got[step], want[step], atol=1e-5, rtol=0)
+
+
+def test_lm_rank0_alone_writes(gang):
+    """Rank 0 alone logs, writes the checkpoints and exports; rank 1
+    gathers with it and writes nothing."""
+    from kubeflow_tpu_torch.serving import model_store as store
+
+    r0, r1 = gang.case("lm/dp2")
+    assert (r0["writes"], r0["exports"]) == (2, 1)
+    assert (r1["writes"], r1["exports"]) == (0, 0)
+    assert sorted(os.listdir(Path(gang.out) / "ckpt-dp2")) == ["2", "3"]
+    assert store.list_versions(str(Path(gang.out) / "export-dp2" /
+                                    "lm")) == [1]
+    recs = _records(Path(gang.out), "dp2")
+    assert [r["step"] for r in recs if "loss" in r] == [1, 2, 3]
+    assert len(recs[-2]["sample_tokens"]) == 3
+    assert not any(line.startswith("{") for line in
+                   gang.stdout[1].splitlines())
+
+
+def test_lm_at_tp2_resumes_at_tp1(gang, monkeypatch, tmp_path):
+    """``--tp 2`` trains (two ranks, the vocabulary, heads and MLP split)
+    with the losses of one rank, and its step-2 checkpoint (the gathered
+    state) resumes a one-rank job whose step 3 takes an unbroken run's
+    loss, within 1e-5. At f32 compute: in bf16 a tp-split sum rounds
+    otherwise than a whole one (~2e-3 in the first loss)."""
+    import shutil
+
+    from kubeflow_tpu_torch.examples import lm as lm_example
+    from torch_gang import f32_config
+
+    monkeypatch.setattr(lm_example, "TransformerConfig", f32_config)
+    gang.case("lm/tp2")
+    shutil.copytree(Path(gang.out) / "ckpt-tp2", tmp_path / "resumed")
+    _lm(monkeypatch, tmp_path, "resumed", 3)
+    _lm(monkeypatch, tmp_path, "unbroken", 3)
+    want = _by_key(tmp_path, "unbroken", "loss")
+    got = _by_key(Path(gang.out), "tp2", "loss")
+    got.update(_by_key(tmp_path, "resumed", "loss"))
+    assert sorted(got) == [1, 2, 3]
+    for step in got:
+        np.testing.assert_allclose(got[step], want[step], atol=1e-5, rtol=0)
+
+
+def test_lm_moe_refused_at_dp2(gang):
+    for got in gang.case("lm/moe_dp2"):
+        assert "--n-experts 8 at dp=2" in got and "Queue A 2.2" in got
+
+
+@pytest.mark.parametrize("entry", ["resnet", "vit", "mnist"])
+def test_image_entry_points_refuse_two_processes(gang, entry):
+    """Two processes would each train alone with no gradient exchange:
+    the image step refuses a mesh of more than one rank first."""
+    for got in gang.case("image_refusals"):
+        assert "runs on one rank" in got[entry]
+        assert "Queue A 2.3" in got[entry]
 
 
 # -- the image-classification entry points ------------------------------------
@@ -361,7 +455,7 @@ def test_vit_entry_point_trains_on_the_cpu(monkeypatch, capsys):
 def test_vit_entry_point_refuses_tp():
     from kubeflow_tpu_torch.examples import vit as vit_example
 
-    with pytest.raises(NotImplementedError, match="tp=2"):
+    with pytest.raises(ValueError, match="tp=2 does not divide 1"):
         vit_example.main(VIT_TINY + ["--steps", "1", "--tp", "2"])
 
 

@@ -146,7 +146,7 @@ def test_bert_entry_points_need_cuda_unless_cpu_is_explicit(
         bert_example.main(tiny)
     assert not (tmp_path / "ckpt").exists()
     # the explicit CPU opt-in works
-    assert launcher_init(device="cpu")[1].type == "cpu"
+    assert launcher_init(device="cpu")[2].type == "cpu"
     state = create_bert_train_state(cfg, params, make_optimizer(),
                                     device="cpu")
     assert state.device.type == "cpu"

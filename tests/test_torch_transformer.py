@@ -208,8 +208,14 @@ def test_unported_configs_raise():
     # the dense decode cache is ported: kv_page_size 0 builds it
     assert type(init_cache(tiny_config(), 1, device="cpu")).__name__ == \
         "DenseKVCache"
-    for impl in ("blockwise", "ring"):
-        model = Transformer(dataclasses.replace(tiny_config(),
-                                                attention_impl=impl))
-        with pytest.raises(NotImplementedError, match=impl):
-            model(torch.zeros((1, 4), dtype=torch.int32))
+    # the blockwise core is ported, and ring/ulysses without a mesh fall
+    # back to it, as the reference's do: the dense logits within 1e-5
+    # (tests/test_torch_seq_parallel.py holds them against JAX)
+    params = convert.random_params(tiny_config(), 0)
+    tokens = torch.arange(12, dtype=torch.int32).reshape(2, 6)
+    want = convert.to_module(tiny_config(), params, device="cpu")(tokens)
+    for impl in ("blockwise", "ring", "ulysses"):
+        model = convert.to_module(dataclasses.replace(
+            tiny_config(), attention_impl=impl), params, device="cpu")
+        np.testing.assert_allclose(model(tokens).numpy(), want.numpy(),
+                                   atol=1e-5, rtol=0, err_msg=impl)
