@@ -183,7 +183,24 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
     movement within 2e-3 of its own size); and holds ring and Ulysses
     over ``tp`` = world against flash (logits over their magnitude,
     loss, grad norm within 1e-5).
-    The flash rows must launch there.
+    The flash rows must launch there;
+22. the pipeline, MoE over the mesh and the image step over ``dp``, at
+    world 1 over NCCL through ``launcher_init(pp=1)``'s mesh: the flash
+    kernels held to their plain versions at one pipelined microbatch
+    (2, 512, 12, 64) bf16 causal, and the bnconv kernels at the four
+    ResNet-50 sites at batch 128; ``make_pipelined_lm_train_step`` (4
+    microbatches) at ``examples/lm.py``'s widths with flash, 3 warm-up
+    and 6 timed steps, its flash launches the prediction (12 layers x 4
+    ticks a step, the forward doubled by remat), then three f32 steps
+    (TF32 off) against ``make_lm_train_step`` over the same mesh (loss,
+    grad norm, parameters within 1e-5, movement within 2e-3);
+    ``examples.lm.main --n-experts 8 --attention-impl flash`` for 4
+    steps, and the f32 MoE mesh step against the mesh-less one, dense
+    and capacity 1.25, at the same limits; ResNet-50 fused at batch 128
+    through ``make_image_train_step(mesh)`` with BatchNorm over the
+    global batch, 2 warm-up and 5 timed steps (bnconv forward and dW 16
+    a step), and the f32 mesh step against the mesh-less one (loss 1e-5,
+    running statistics 1e-6).
 
 Each phase prints its seconds. Phase 2 also holds the bnconv forward and
 dW kernels, and the autograd function's four gradients, against their
@@ -209,8 +226,10 @@ that path, read just after): ``paged_serving`` and ``dense_serving``
 ``moe_train`` and ``spec_serving`` (phases 14-16: the reference's dense,
 greedy defaults launch none of the kernels, which those phases require)
 ``predict`` (phase 17's calls), ``image_entry`` (phase 19: none),
-``grpc_core`` (phase 20's calls) and ``mesh_train`` (phase 21's entry
-point run, summed over its ranks). The flash forward and bnconv forward
+``grpc_core`` (phase 20's calls), ``mesh_train`` (phase 21's entry
+point run, summed over its ranks) and ``pipe_moe_image`` (phase 22's
+pipelined LM step, MoE entry point and ResNet step, each zeroed just
+before it and not its f32 parity runs: > 0 on rows 3-7, 0 on rows 1-2). The flash forward and bnconv forward
 rows also carry ``predict_shapes``: their times at the inference shapes.
 """
 
@@ -4036,6 +4055,394 @@ def mesh_phase(device) -> dict:
     return summary
 
 
+# -- phase 22: the pipeline, MoE over the mesh, the image step over dp ------
+
+PIPE_WARMUP, PIPE_TIMED, PIPE_MICRO, PIPE_BATCH = 3, 6, 4, 8
+# examples/lm.py's defaults with flash attention (remat on, bf16 over f32)
+PIPE_LM = dict(vocab_size=32000, d_model=768, n_layers=12, n_heads=12,
+               n_kv_heads=12, d_ff=3072, max_seq_len=512,
+               attention_impl="flash")
+PIPE_IMAGE_BATCH, PIPE_IMAGE_WARMUP, PIPE_IMAGE_TIMED = 128, 2, 5
+PIPE_MOE_STEPS = 4
+# the runs whose launches are the pipe_moe_image path's: the f32 parity
+# runs between them are not the path
+PIPE_MAIN_PARTS = ("pipe_lm", "moe_entry", "resnet")
+
+
+def moe_exchange_bytes(dp: int, *, experts=8, k=2, capacity_factor=1.25,
+                       rows=8, seq=512, d_model=768, d_ff=3072,
+                       el=2) -> dict:
+    """Bytes a rank sends for one MoE layer's forward at
+    ``examples/lm.py``'s widths (``rows`` a rank, bf16 activations) over
+    ``dp`` ranks, from the shapes alone: the capacity dispatch's dense
+    exchange (reduce-scatter of the ``(E, C, D)`` buffer, all-gather of
+    the outputs: ``(dp - 1) / dp`` of it each way, ``C`` from the global
+    token count), an all-to-all of the filled slots alone (each token's
+    ``k`` choices out and back, less this rank's own share; drops
+    ignored), and the dense dispatch's all-gather of the f32 expert
+    weights (``E / dp`` a rank, three matrices). The backward moves as
+    much again."""
+    from kubeflow_tpu_torch.ops.moe import expert_capacity
+
+    tokens = rows * seq
+    C = expert_capacity(tokens * dp, experts, k, capacity_factor)
+    share = (dp - 1) / dp
+    return {"capacity": C,
+            "dense_buffers": 2 * share * experts * C * d_model * el,
+            "filled_slots": 2 * share * tokens * k * d_model * el,
+            "weights": share * experts * 3 * d_model * d_ff * 4}
+
+
+def pipe_kernel_checks(device) -> dict:
+    """The kernels of phase 22's paths against their plain versions at
+    the shapes those paths give them (before the path's counts are
+    zeroed: these launches are not the path's): flash at one pipelined
+    microbatch, (8 / 4, 512, 12, 64) bf16 causal, and the bnconv forward
+    and dW at the four ResNet-50 sites at the rank's batch of 128 (bf16),
+    at phase 2's limits."""
+    import torch
+
+    bf = torch.bfloat16
+    mb = PIPE_BATCH // PIPE_MICRO
+    errs, _ = compare_flash(mb, PIPE_LM["max_seq_len"], PIPE_LM["n_heads"],
+                            PIPE_LM["d_model"] // PIPE_LM["n_heads"], bf,
+                            device, SEED + 70, causal=True, masked=False)
+    flash = {"flash_fwd": max(errs["out"], errs["lse"]),
+             "flash_bwd_dq": errs["dq"],
+             "flash_bwd_dkv": max(errs["dk"], errs["dv"])}
+    bnconv = {"bnconv_fwd": 0.0, "bnconv_dw": 0.0}
+    for i, (M, K, N, _) in enumerate(RESNET50_SITES):
+        errs, _ = compare_bnconv(M * PIPE_IMAGE_BATCH // RESNET_BATCH, K, N,
+                                 bf, device, SEED + 71 + i)
+        for name, err in errs.items():
+            bnconv[name] = max(bnconv[name], err)
+        torch.cuda.empty_cache()
+    return {"flash": flash, "bnconv": bnconv}
+
+
+def _timed_steps(device, step, state, batches, warmup):
+    """Run ``step`` over ``batches`` (tuples of its inputs), each step's
+    wall timed around a device sync; returns (state, walls, metrics)."""
+    walls, metrics = [], []
+    for args in batches:
+        _sync(device)
+        t0 = time.perf_counter()
+        state, m = step(state, *args)
+        _sync(device)
+        walls.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return state, walls[warmup:], metrics
+
+
+def _step_parity(device, make, steps, batch) -> dict:
+    """``steps`` f32 steps of two train states on the same weights and
+    global batches: ``make()`` returns ``(state, step, plain, plain_step,
+    vocab)``. The largest loss and parameter differences, the largest
+    relative grad-norm difference, and the movement against the plain
+    step's (:func:`_moved_err`)."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models import convert
+
+    state, step, plain, plain_step, vocab = make()
+    p0 = {n: p.detach().float().clone()
+          for n, p in plain.module.named_parameters()}
+    rng = np.random.default_rng(SEED + 73)
+    errs = {"loss": 0.0, "grad_norm": 0.0}
+    for _ in range(steps):
+        toks = rng.integers(0, vocab, batch).astype(np.int32)
+        state, m = step(state, toks)
+        plain, pm = plain_step(plain, toks)
+        errs["loss"] = max(errs["loss"],
+                           abs(float(m["loss"]) - float(pm["loss"])))
+        errs["grad_norm"] = max(errs["grad_norm"], abs(
+            float(m["grad_norm"]) / float(pm["grad_norm"]) - 1.0))
+    full = convert.gather_params(state.module)
+    errs["params"] = max(_max_err(full[n], p.detach()) for n, p in
+                         plain.module.named_parameters())
+    errs["moved"] = _moved_err(full, plain.module.named_parameters(), p0)
+    return errs
+
+
+def _pipe_lm_parity(device, mesh) -> dict:
+    """Three f32 steps (TF32 off) of the pipelined step (2 microbatches)
+    against three of ``make_lm_train_step`` over the same mesh: 2 layers
+    at the entry point's widths, 4 rows."""
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.train import (
+        create_sharded_state,
+        make_lm_train_step,
+        make_optimizer,
+        make_pipelined_lm_train_step,
+    )
+
+    cfg = TransformerConfig(**MESH_PARITY, attention_impl="flash")
+
+    def make():
+        params = convert.random_params(cfg, 3)
+        tx = (lambda: make_optimizer(1e-5, warmup_steps=1, decay_steps=50))
+        state, _ = create_sharded_state(cfg, params, tx(), mesh,
+                                        device=device, pipelined=True)
+        plain, _ = create_sharded_state(cfg, params, tx(), mesh,
+                                        device=device)
+        return (state, make_pipelined_lm_train_step(mesh, n_microbatches=2),
+                plain, make_lm_train_step(mesh), cfg.vocab_size)
+
+    return _step_parity(device, make, 3, (4, cfg.max_seq_len))
+
+
+def _moe_mesh_parity(device, mesh, capacity: float) -> dict:
+    """Three f32 steps (TF32 off) of a MoE model built over the mesh
+    (8 experts, top-2; dense dispatch, or capacity at ``capacity``)
+    against three of the same model with no mesh: 2 layers at the entry
+    point's widths, 4 rows."""
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.train import (
+        create_sharded_state,
+        create_train_state,
+        make_lm_train_step,
+        make_optimizer,
+    )
+
+    cfg = TransformerConfig(**MESH_PARITY, attention_impl="flash",
+                            n_experts=8, moe_capacity_factor=capacity)
+
+    def make():
+        params = convert.random_params(cfg, 4)
+        tx = (lambda: make_optimizer(1e-5, warmup_steps=1, decay_steps=50))
+        state, _ = create_sharded_state(cfg, params, tx(), mesh,
+                                        device=device)
+        plain = create_train_state(cfg, params, tx(), device=device)
+        return (state, make_lm_train_step(mesh), plain, make_lm_train_step(),
+                cfg.vocab_size)
+
+    return _step_parity(device, make, 3, (4, cfg.max_seq_len))
+
+
+def _image_mesh_parity(device, mesh) -> dict:
+    """Two f32 steps (TF32 off) of phase 8's small fused ResNet through
+    ``make_image_train_step(mesh)`` (BatchNorm over the global batch)
+    against two without a mesh, from the same weights and batch: the
+    largest loss, running-statistic and parameter differences."""
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.resnet import ResNetConfig
+    from kubeflow_tpu_torch.train import (
+        create_image_train_state,
+        make_image_train_step,
+        make_sgd,
+    )
+
+    cfg = ResNetConfig(stage_sizes=(1, 1, 1, 1), num_classes=100, width=64,
+                       dtype="float32", bn_dtype="float32",
+                       fused_bn_conv=True)
+    variables = randomized_bn(convert.random_resnet_params(cfg, SEED + 74),
+                              SEED + 75)
+    rng = np.random.default_rng(SEED + 76)
+    images = torch.from_numpy(rng.standard_normal(
+        (8, 128, 128, 3), dtype=np.float32)).to(device)
+    labels = torch.from_numpy(rng.integers(0, 100, 8)).to(device)
+    runs = {}
+    for name, m in (("mesh", mesh), ("plain", None)):
+        state = create_image_train_state(cfg, variables, make_sgd(
+            0.1, momentum=0.9), device=device)
+        step = make_image_train_step(m)
+        losses = []
+        for _ in range(2):
+            state, met = step(state, images, labels)
+            losses.append(float(met["loss"]))
+        runs[name] = (losses, {k: t.detach().float().clone() for k, t in
+                               state.module.state_dict().items()})
+    (lm, sm), (lp, sp) = runs["mesh"], runs["plain"]
+    stats = [k for k in sp if k.endswith((".mean", ".var"))]
+    return {"loss": max(abs(a - b) for a, b in zip(lm, lp)),
+            "stats": max(_max_err(sm[k], sp[k]) for k in stats),
+            "params": max(_max_err(sm[k], sp[k]) for k in sp
+                          if k not in stats),
+            "losses": lm}
+
+
+def pipe_moe_image_phase(device) -> dict:
+    """Phase 22 on one card at world 1 (NCCL), through the mesh of
+    ``launcher_init(pp=1)``; every kernel count zeroed just before each
+    run and read just after it. The path's launches are the sum of its
+    three main runs' (``PIPE_MAIN_PARTS``); the f32 parity runs' are
+    kept apart, for the print alone:
+
+    - ``make_pipelined_lm_train_step`` (4 microbatches) at
+      ``examples/lm.py``'s widths with flash, 3 warm-up and 6 timed
+      steps: step p50, tokens/s, peak GB; the flash launches must be the
+      prediction, 12 layers x 4 ticks a step (forward doubled by remat);
+      then three f32 pipelined steps against ``make_lm_train_step`` over
+      the same mesh (:func:`_pipe_lm_parity`);
+    - ``examples.lm.main --n-experts 8 --attention-impl flash`` for 4
+      steps through the mesh (step p50, peak GB), and the f32 MoE mesh
+      step against the mesh-less one, dense and capacity 1.25;
+    - ResNet-50 fused at batch 128 through ``make_image_train_step(
+      mesh)`` with BatchNorm over the global batch, 2 warm-up and 5
+      timed steps (images/s; bnconv forward and dW 16 a step), and the
+      f32 mesh step against the mesh-less one.
+
+    The parity limits: loss, grad norm and parameters 1e-5 and the
+    movement ``MESH_MOVED_LIMIT`` for the LM steps; loss 1e-5 and running
+    statistics 1e-6 for the image step."""
+    import math
+
+    import torch
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.examples.common import launcher_init
+    from kubeflow_tpu_torch.examples.lm import batch_for_step
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.train import (
+        create_sharded_state,
+        make_image_train_step,
+        make_optimizer,
+        make_pipelined_lm_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"checks": pipe_kernel_checks(device)}
+    _, mesh, _ = launcher_init(pp=1, device=device.type)
+    parts = {}
+
+    def part(name):
+        """The launches of the part just run: the counts were zeroed just
+        before it."""
+        parts[name] = ops.launch_counts()
+
+    # the pipelined LM step at the entry point's widths
+    t0 = time.perf_counter()
+    cfg = TransformerConfig(**PIPE_LM)
+    state, _ = create_sharded_state(
+        cfg, convert.random_params(cfg, 0), make_optimizer(
+            3e-4, warmup_steps=20, decay_steps=100), mesh, device=device,
+        pipelined=True)
+    setup_s = time.perf_counter() - t0
+    step = make_pipelined_lm_train_step(mesh, n_microbatches=PIPE_MICRO)
+    n = PIPE_WARMUP + PIPE_TIMED
+    _reset_peak(device)
+    batches = [(batch_for_step(i, PIPE_BATCH, cfg.max_seq_len,
+                               cfg.vocab_size),) for i in range(1, n + 1)]
+    ops.reset_launches()
+    state, walls, mets = _timed_steps(device, step, state, batches,
+                                      PIPE_WARMUP)
+    part("pipe_lm")
+    losses = [m["loss"] for m in mets]
+    check(all(math.isfinite(x) for x in losses)
+          and abs(losses[0] - math.log(cfg.vocab_size)) <= 1.0,
+          f"pipe: losses {losses}")
+    ticks = PIPE_MICRO * n          # M + S - 1 ticks a step, S = 1
+    want = {"flash_fwd": 2 * cfg.n_layers * ticks,
+            "flash_bwd_dq": cfg.n_layers * ticks,
+            "flash_bwd_dkv": cfg.n_layers * ticks}
+    got = {k: parts["pipe_lm"].get(k, 0) for k in want}
+    check(got == want, f"pipe: flash launches {got}, predicted {want}")
+    p50 = statistics.median(walls)
+    res["pipe"] = {"setup_s": setup_s, "step_ms": [w * 1e3 for w in walls],
+                   "p50_ms": p50 * 1e3,
+                   "tokens_per_s": PIPE_BATCH * cfg.max_seq_len / p50,
+                   "mfu": _lm_flops(cfg, PIPE_BATCH, cfg.max_seq_len) / p50
+                   / BF16_FLOPS,
+                   "peak_gb": _peak_gb(device), "losses": losses,
+                   "launches": parts["pipe_lm"], "predicted": want}
+    del state, step, batches
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    res["pipe_parity"] = par = _pipe_lm_parity(device, mesh)
+    part("pipe_parity")
+    check(par["loss"] <= 1e-5 and par["grad_norm"] <= 1e-5
+          and par["params"] <= 1e-5 and par["moved"] <= MESH_MOVED_LIMIT,
+          f"pipe: f32 pipelined vs mesh step {par}")
+    torch.cuda.empty_cache()
+
+    # MoE through the mesh: the entry point, then the f32 parity
+    work = tempfile.mkdtemp(prefix="kftpu-pipe-moe-")
+    try:
+        _reset_peak(device)
+        ops.reset_launches()
+        _entry_main("lm", ["--device", device.type, "--n-experts", "8",
+                           "--attention-impl", "flash", "--steps",
+                           str(PIPE_MOE_STEPS), "--log-every", "1"],
+                    {"KFTPU_RESULTS_DIR": work, "KFTPU_JOB_NAME": "moe"})
+        recs = [r for r in _records(work, "moe") if "loss" in r]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    part("moe_entry")
+    moe_losses = [r["loss"] for r in recs]
+    check(len(moe_losses) == PIPE_MOE_STEPS
+          and all(math.isfinite(x) for x in moe_losses),
+          f"pipe moe: losses {moe_losses}")
+    res["moe"] = {"losses": moe_losses,
+                  "p50_step_s": recs[-1]["step_p50_step_s"],
+                  "tokens_per_s": recs[-1]["tokens_per_sec"],
+                  "peak_gb": _peak_gb(device),
+                  "launches": parts["moe_entry"]}
+    torch.cuda.empty_cache()
+    res["moe_parity"] = {}
+    ops.reset_launches()
+    for label, cf in (("dense", 0.0), ("capacity", 1.25)):
+        par = _moe_mesh_parity(device, mesh, cf)
+        res["moe_parity"][label] = par
+        check(par["loss"] <= 1e-5 and par["grad_norm"] <= 1e-5
+              and par["params"] <= 1e-5
+              and par["moved"] <= MESH_MOVED_LIMIT,
+              f"pipe moe {label}: f32 mesh vs mesh-less {par}")
+        torch.cuda.empty_cache()
+    part("moe_parity")
+
+    # ResNet-50 fused at the rank's batch through the mesh
+    _, state, images, labels = resnet_setup(device, fused=True)
+    images, labels = (images[:PIPE_IMAGE_BATCH].contiguous(),
+                      labels[:PIPE_IMAGE_BATCH].contiguous())
+    stats0 = {k: t.clone() for k, t in state.batch_stats.items()}
+    n = PIPE_IMAGE_WARMUP + PIPE_IMAGE_TIMED
+    _reset_peak(device)
+    step = make_image_train_step(mesh)
+    ops.reset_launches()
+    state, walls, mets = _timed_steps(
+        device, step, state, [(images, labels)] * n, PIPE_IMAGE_WARMUP)
+    part("resnet")
+    img_losses = [m["loss"] for m in mets]
+    check(all(math.isfinite(x) for x in img_losses)
+          and img_losses[-1] < img_losses[0],
+          f"pipe resnet: losses {img_losses}")
+    check(all(not torch.equal(t, stats0[k])
+              for k, t in state.batch_stats.items()),
+          "pipe resnet: running statistics not moved")
+    sites = sum(state.module.config.stage_sizes)
+    for name in ("bnconv_fwd", "bnconv_dw"):
+        check(parts["resnet"].get(name, 0) == sites * n,
+              f"pipe resnet: {name} launched {parts['resnet'].get(name)} "
+              f"times, expected {sites * n}")
+    mean = sum(walls) / len(walls)
+    res["resnet"] = {"step_ms": [w * 1e3 for w in walls],
+                     "mean_step_ms": mean * 1e3,
+                     "images_per_s": PIPE_IMAGE_BATCH / mean,
+                     "peak_gb": _peak_gb(device), "losses": img_losses,
+                     "launches": parts["resnet"]}
+    del state, images, labels
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    res["image_parity"] = par = _image_mesh_parity(device, mesh)
+    part("image_parity")
+    check(par["loss"] <= 1e-5 and par["stats"] <= 1e-6,
+          f"pipe resnet: f32 mesh vs mesh-less step {par}")
+    # the path's launches are its main runs' alone; the f32 parity runs'
+    # are printed beside them, and counted nowhere
+    res["parts"] = parts
+    res["launches"] = {k: sum(parts[p].get(k, 0) for p in PIPE_MAIN_PARTS)
+                       for k in parts["pipe_lm"]}
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -4474,6 +4881,87 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
               f"scaled logits, loss, grad_norm)", flush=True)
     print(f"phase 21 launches={mesh['launches']}", flush=True)
     lap("21")
+    torch.cuda.empty_cache()
+    pipe = pipe_moe_image_phase(device)
+    for kern in kernels:
+        n = pipe["launches"].get(kern["name"], 0)
+        kern["launches_by_path"]["pipe_moe_image"] = n
+        kern["launches"] += n
+        held = {**pipe["checks"]["flash"], **pipe["checks"]["bnconv"]}
+        if kern["name"] in held:
+            kern["max_abs_err"] = max(kern["max_abs_err"],
+                                      held[kern["name"]])
+    for kern in kernels[2:]:
+        check(kern["launches_by_path"]["pipe_moe_image"] > 0,
+              f"{kern['name']} never launched on the pipe_moe_image path")
+    for kern in kernels[:2]:
+        check(kern["launches_by_path"]["pipe_moe_image"] == 0,
+              f"{kern['name']} launched on the pipe_moe_image path")
+    B, S = PIPE_BATCH // PIPE_MICRO, PIPE_LM["max_seq_len"]
+    print(f"phase 22 kernels at the paths' shapes: flash ({B}, {S}, 12, 64) "
+          f"bf16 causal, max abs err " + " ".join(
+              f"{k} {v:.2e}" for k, v in pipe["checks"]["flash"].items())
+          + "; bnconv at the 4 ResNet-50 sites at batch "
+          f"{PIPE_IMAGE_BATCH}, bf16, max abs err " + " ".join(
+              f"{k} {v:.2e}" for k, v in pipe["checks"]["bnconv"].items()),
+          flush=True)
+    r = pipe["pipe"]
+    print(f"phase 22 make_pipelined_lm_train_step ({kind} | {ident}): "
+          f"launcher_init(pp=1), {PIPE_MICRO} microbatches of "
+          f"{PIPE_BATCH // PIPE_MICRO} rows, d_model 768, 12 layers, 12 "
+          f"heads, d_ff 3072, vocab 32000, seq 512, batch {PIPE_BATCH}, "
+          f"flash, bf16/f32, remat; {PIPE_WARMUP} warm-up + {PIPE_TIMED} "
+          f"timed steps: step_ms={r['step_ms']} p50_ms={r['p50_ms']:.3f} "
+          f"tokens_per_s={r['tokens_per_s']:.1f} mfu={r['mfu']:.4f} "
+          f"peak_gb={r['peak_gb']:.2f} state_s={r['setup_s']:.1f} "
+          f"losses={r['losses']} launches={r['launches']} (predicted "
+          f"{r['predicted']})", flush=True)
+    par = pipe["pipe_parity"]
+    print(f"phase 22 f32 pipelined step (2 microbatches) vs "
+          f"make_lm_train_step, same mesh, 3 steps, 2 layers at the "
+          f"entry point's widths, TF32 off: max loss err {par['loss']:.2e}, "
+          f"max grad_norm rel err {par['grad_norm']:.2e}, max param err "
+          f"{par['params']:.2e} (limits 1e-5), movement err "
+          f"{par['moved']:.2e} (limit {MESH_MOVED_LIMIT:.0e})", flush=True)
+    r = pipe["moe"]
+    print(f"phase 22 examples.lm.main --n-experts 8 --attention-impl flash "
+          f"through the mesh ({kind} | {ident}): {PIPE_MOE_STEPS} steps, "
+          f"losses={r['losses']} p50_step_s={r['p50_step_s']} "
+          f"tokens_per_s={r['tokens_per_s']:.1f} peak_gb="
+          f"{r['peak_gb']:.2f} (phase 15, dense attention: p50_step_s="
+          f"{moe['p50_step_s']} peak_gb={moe['peak_gb']:.2f}) "
+          f"launches={r['launches']}", flush=True)
+    for label, par in pipe["moe_parity"].items():
+        print(f"phase 22 f32 MoE mesh step vs mesh-less, {label} dispatch, "
+              f"8 experts top-2, 3 steps, 2 layers, TF32 off: max loss err "
+              f"{par['loss']:.2e}, grad_norm rel err "
+              f"{par['grad_norm']:.2e}, param err {par['params']:.2e} "
+              f"(limits 1e-5), movement err {par['moved']:.2e}", flush=True)
+    r = pipe["resnet"]
+    print(f"phase 22 resnet50 fused through make_image_train_step(mesh), "
+          f"BatchNorm over the global batch ({kind} | {ident}): batch "
+          f"{PIPE_IMAGE_BATCH}, bf16/f32, sgd 0.1 m 0.9, "
+          f"{PIPE_IMAGE_WARMUP} warm-up + {PIPE_IMAGE_TIMED} timed: "
+          f"step_ms={r['step_ms']} images_per_s={r['images_per_s']:.1f} "
+          f"peak_gb={r['peak_gb']:.2f} losses={r['losses']} "
+          f"launches={r['launches']}", flush=True)
+    par = pipe["image_parity"]
+    print(f"phase 22 f32 fused resnet mesh step vs mesh-less, 2 steps, "
+          f"TF32 off: max loss err {par['loss']:.2e} (limit 1e-5), running "
+          f"statistics {par['stats']:.2e} (limit 1e-6), params "
+          f"{par['params']:.2e}", flush=True)
+    for dp in (2, 8):
+        b = moe_exchange_bytes(dp)
+        print(f"phase 22 MoE exchange a rank and layer, forward, at "
+              f"examples/lm.py's widths over dp = {dp} (from the shapes; "
+              f"not timed: one card): capacity {b['capacity']}, dense "
+              f"(E, C, D) reduce-scatter + all-gather "
+              f"{b['dense_buffers'] / 1e6:.2f} MB, filled slots alone "
+              f"{b['filled_slots'] / 1e6:.2f} MB; dense dispatch's f32 "
+              f"expert gather {b['weights'] / 1e6:.2f} MB", flush=True)
+    print(f"phase 22 launches={pipe['launches']} by part "
+          f"{pipe['parts']}", flush=True)
+    lap("22")
     for kern in kernels:
         for path, res in (("lm_entry", lm), ("moe_train", moe),
                           ("spec_serving", spec), ("predict", pred),

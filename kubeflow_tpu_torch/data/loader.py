@@ -17,10 +17,11 @@ permutation per epoch, drop-remainder batching):
   + epoch)``), the reference's batch for batch.
 
 :func:`device_feed` turns either into a device iterator on one explicit
-device (the reference's mesh has no counterpart yet): on CUDA, batch
-k+1 is copied from pinned host memory on a side stream while the
-caller's step runs on batch k, and a batch reaches the caller only after
-the compute stream waits on its copy's event.
+device, or, given the mesh as the reference's takes it, on this rank's
+device with each rank's rows of the global batch: on CUDA, batch k+1 is
+copied from pinned host memory on a side stream while the caller's step
+runs on batch k, and a batch reaches the caller only after the compute
+stream waits on its copy's event.
 """
 
 from __future__ import annotations
@@ -276,6 +277,15 @@ def device_feed(loader, device, *, reshape=None,
     """A device iterator over ``loader``'s batches: batch k+1 is copied
     to ``device`` while the caller computes on batch k.
 
+    ``device`` may be the mesh (``parallel/mesh.py:create_mesh``), as
+    the reference's ``device_feed(loader, mesh)`` takes it: every rank's
+    loader yields the same global batch (the same seed), each rank keeps
+    its rows over the ``batch`` rule's axes on the host, so only they
+    cross, and each leaf lands on this rank's device wrapped as its rows
+    (``parallel/mesh.py:RankRows``): a train step over the mesh takes
+    them as they are. The pipelined step takes a global batch at dp > 1
+    (its microbatches are the global batch's), so feed it a device.
+
     ``reshape`` and then ``transform`` run on the HOST before the copy;
     ``transform`` may return an array or a tuple, list or dict of arrays
     or tensors (split the labels out, cast the pixels to bf16 so half
@@ -290,14 +300,32 @@ def device_feed(loader, device, *, reshape=None,
     used there (``record_stream``) so its memory is not reused while the
     step still reads it. With ``steps`` the feed consumes exactly
     ``steps`` batches from the loader."""
+    from kubeflow_tpu_torch.parallel import mesh as pmesh
+
+    mesh = device if hasattr(device, "mesh_dim_names") else None
+    if mesh is not None:
+        device = (f"cuda:{torch.cuda.current_device()}"
+                  if mesh.device_type == "cuda" else "cpu")
+        rows = pmesh.PartitionSpec(pmesh.batch_axes())
+        n = pmesh.axis_size(mesh, rows[0])
     dev = torch.device(device)
+
+    def mine(t):
+        if t.shape[0] % n:
+            raise ValueError(f"global batch {t.shape[0]} does not divide "
+                             f"over {n} data-parallel ranks")
+        return pmesh.local_block(t, rows, mesh).contiguous()
 
     def host(arr):
         if reshape is not None:
             arr = arr.reshape(reshape)
         if transform is not None:
             arr = transform(arr)
-        return _tree_map(torch.as_tensor, arr)
+        arr = _tree_map(torch.as_tensor, arr)
+        return _tree_map(mine, arr) if mesh is not None else arr
+
+    def marked(out):
+        return _tree_map(pmesh.RankRows, out) if mesh is not None else out
 
     if dev.type == "cuda":
         stream = torch.cuda.Stream(dev)
@@ -317,13 +345,13 @@ def device_feed(loader, device, *, reshape=None,
             current.wait_event(done)
             for t in _leaves(out):
                 t.record_stream(current)
-            return out
+            return marked(out)
     else:
         def put(arr):
             return _tree_map(lambda t: t.to(dev), host(arr))
 
         def hand_over(batch):
-            return batch
+            return marked(batch)
 
     if steps is not None and steps <= 0:
         return

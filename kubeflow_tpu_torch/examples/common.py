@@ -10,11 +10,8 @@ a results directory), ``checkpoint_dir``, ``launcher_init`` and
 device (``cuda:(process_id % device count)`` unless the CPU is asked
 for), joins the process group (NCCL on the card, gloo on the CPU) and
 builds the mesh as the reference's does: ``dcn`` over the slices of a
-multi-slice job, ``dp × tp`` from ``auto_mesh_config`` within each. A
-pipeline axis (``pp > 1``) is refused (ROADMAP Queue A 2.1). Entry
-points whose train step takes no mesh of more than one rank (the image
-step) refuse such a mesh there rather than let N processes each train
-alone.
+multi-slice job, ``dp × pp × tp`` from ``auto_mesh_config`` within
+each (``pp`` the pipeline stages, for ``make_pipelined_lm_train_step``).
 """
 
 from __future__ import annotations
@@ -80,13 +77,9 @@ def launcher_init(*, pp: int = 1, tp: Optional[int] = None, device=None
     env contract and the mesh over every rank, on this rank's device
     (CUDA unless ``"cpu"`` is asked for). On a multi-slice job
     (``MEGASCALE_NUM_SLICES > 1``) the mesh gets a ``dcn`` axis across
-    slices, and tp stays within a slice."""
+    slices, and pp and tp stay within a slice."""
     setup_logging()
     penv = dist.from_env()
-    if pp > 1:
-        raise NotImplementedError(
-            f"pp={pp}: the pipeline is not ported yet (ROADMAP Queue A "
-            "2.1)")
     dev = resolve_device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda",

@@ -25,8 +25,11 @@ resumed from a checkpoint trains on the batches an unbroken run trains
 on, and a run at dp = 2 on the batches of a run at dp = 1. Rank 0 alone
 logs, checkpoints (the gathered state, ``train/checkpoint.py``) and
 samples, exports and distills, from the gathered parameters. MoE
-(``--n-experts``) needs expert parallelism past one rank, and is
-refused there. The weights start from ``random_params(config, 0)``.
+(``--n-experts``) splits its experts over ``dp`` (expert parallelism,
+``models/transformer.py``). The pipeline has no flag here, as the
+reference's has none: it is ``launcher_init(pp=...)`` with
+``make_pipelined_lm_train_step``. The weights start from
+``random_params(config, 0)``.
 """
 
 from __future__ import annotations
@@ -108,10 +111,6 @@ def main(argv=None) -> float:
 
     penv, mesh, device = launcher_init(tp=args.tp, device=args.device)
     dp = data_parallel_size(mesh)
-    if args.n_experts and dp > 1:
-        raise NotImplementedError(
-            f"--n-experts {args.n_experts} at dp={dp}: experts shard over "
-            "dp through expert parallelism, ROADMAP Queue A 2.2")
     log = rank_logger(penv)
     config = TransformerConfig(
         vocab_size=args.vocab_size,

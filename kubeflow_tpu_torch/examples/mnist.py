@@ -5,13 +5,15 @@ PyTorch port of ``kubeflow_tpu/examples/mnist.py``:
 the image train step and ``make_optimizer(1e-3)`` for 100 steps of
 batch 128 on synthetic class-conditional blobs (the reference's
 ``synthetic_mnist``, the same arrays), or on pre-staged idx files with
-``--data-dir``. Step batches are drawn by ``RandomState(process_id)``
-as in the reference, so both packages train on the same batches. One
-JSON metrics line every ``--log-every`` steps; ``main`` returns the
-last logged accuracy. Same flags and defaults as the reference, plus
-``--device`` (CUDA by default). The image step runs on one rank: a job
-of more than one process is refused before any training. The weights
-start from ``random_mnist_params(0)``.
+``--data-dir``. Step batches are drawn as the reference's process 0
+draws them (``RandomState(0)``), so both packages train on the same
+batches. One JSON metrics line every ``--log-every`` steps (rank 0
+alone); ``main`` returns the last logged accuracy. Same flags and
+defaults as the reference, plus ``--device`` (CUDA by default). Across
+processes the mesh is ``dp``: ``--batch-size`` is the global batch,
+every rank draws the same one (the reference's ``RandomState(
+process_id)`` would hand each process a different "global" batch) and
+trains on its rows. The weights start from ``random_mnist_params(0)``.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import struct
 import numpy as np
 import torch
 
-from kubeflow_tpu_torch.examples.common import launcher_init, log_metrics
+from kubeflow_tpu_torch.examples.common import launcher_init, rank_logger
 from kubeflow_tpu_torch.models.convert import load_params, random_mnist_params
 from kubeflow_tpu_torch.models.mnist import MnistCnn
 from kubeflow_tpu_torch.train import (
@@ -71,8 +73,9 @@ def main(argv=None) -> float:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    penv, mesh, device = launcher_init(device=args.device)
-    step_fn = make_image_train_step(mesh)      # one rank: refuses more
+    penv, mesh, device = launcher_init(tp=1, device=args.device)
+    step_fn = make_image_train_step(mesh)
+    log_metrics = rank_logger(penv)
     images, labels = (load_mnist(args.data_dir) if args.data_dir
                       else synthetic_mnist())
     tx = make_optimizer(args.learning_rate, warmup_steps=10,
@@ -80,7 +83,7 @@ def main(argv=None) -> float:
     model = load_params(MnistCnn(), random_mnist_params(0))
     state = TrainState.create(model.to(device).train(), tx)
 
-    rng = np.random.RandomState(penv.process_id)
+    rng = np.random.RandomState(0)       # the global batch, on every rank
     final_acc = 0.0
     for step in range(1, args.steps + 1):
         idx = rng.randint(0, len(images), size=args.batch_size)

@@ -11,9 +11,12 @@ the pixels cast to bf16 on the host so half the bytes cross. After
 metrics line every ``--log-every`` steps and a final line, and returns
 images/s. Same flags and defaults as the reference, plus ``--device``
 (CUDA by default); the step profiler reads ``KFTPU_PROFILE_DIR``/
-``_START``/``_STEPS``. The image step runs on one rank: a job of more
-than one process is refused before any training. The weights start
-from ``random_resnet_params(config, 0)``.
+``_START``/``_STEPS``. Across processes the mesh is ``dp`` (the image
+step splits the batch only): the batch is ``per_device_batch × dp``
+rows, every rank makes the same global batch (the same seed, or the
+same loader order) and trains on its rows, with BatchNorm statistics
+over the global batch; rank 0 alone logs. The weights start from
+``random_resnet_params(config, 0)``.
 """
 
 from __future__ import annotations
@@ -25,9 +28,10 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.data import DataLoader, device_feed, read_shards
-from kubeflow_tpu_torch.examples.common import launcher_init, log_metrics
+from kubeflow_tpu_torch.examples.common import launcher_init, rank_logger
 from kubeflow_tpu_torch.models.convert import random_resnet_params
 from kubeflow_tpu_torch.models.resnet import resnet50
+from kubeflow_tpu_torch.parallel.mesh import data_parallel_size
 from kubeflow_tpu_torch.train import (
     create_image_train_state,
     make_image_train_step,
@@ -50,9 +54,10 @@ def main(argv=None) -> float:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    _, mesh, device = launcher_init(device=args.device)
-    step_fn = make_image_train_step(mesh)      # one rank: refuses more
-    batch = args.per_device_batch
+    penv, mesh, device = launcher_init(tp=1, device=args.device)
+    step_fn = make_image_train_step(mesh)
+    log_metrics = rank_logger(penv)
+    batch = args.per_device_batch * data_parallel_size(mesh)  # global
     with torch.device("meta"):
         config = resnet50(num_classes=args.num_classes).config
     tx = make_optimizer(0.1, warmup_steps=10, decay_steps=args.steps + 10)
@@ -75,7 +80,7 @@ def main(argv=None) -> float:
             return (pixels.reshape(batch, size, size, 3),
                     torch.from_numpy(rec[:, 0].astype(np.int32)))
 
-        feed = device_feed(loader, device, transform=split)
+        feed = device_feed(loader, mesh, transform=split)
     else:
         gen = torch.Generator(device).manual_seed(0)
         images = torch.randn((batch, size, size, 3), generator=gen,
@@ -103,7 +108,7 @@ def main(argv=None) -> float:
                 loss = float(metrics["loss"])
                 ips = step * batch / (time.perf_counter() - t0)
                 log_metrics(step, loss=loss, images_per_sec=ips,
-                            images_per_sec_per_chip=ips)
+                            images_per_sec_per_chip=ips / penv.num_processes)
         float(metrics["loss"])
         prof.close()
     finally:
@@ -111,7 +116,7 @@ def main(argv=None) -> float:
             loader.close()
     ips = args.steps * batch / (time.perf_counter() - t0)
     log_metrics(args.steps, final=True, images_per_sec=ips,
-                images_per_sec_per_chip=ips)
+                images_per_sec_per_chip=ips / penv.num_processes)
     return ips
 
 

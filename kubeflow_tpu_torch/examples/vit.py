@@ -8,8 +8,10 @@ with the image train step and ``make_optimizer(3e-4)``. One untimed
 step runs first; then one JSON metrics line every ``--log-every`` steps
 and a final line report images/s, which ``main`` returns. Same flags
 and defaults as the reference, plus ``--device`` (CUDA by default).
-The image step runs on one rank: a mesh of more than one (more than one
-process, or ``--tp`` > 1) is refused before any training. The weights
+Across processes the mesh is ``dp`` (``--tp`` > 1 is refused by the
+image step: tensor parallelism for ViT is ROADMAP Queue A 2.4): the
+batch is ``per_device_batch × dp`` rows, every rank makes the same
+global batch and trains on its rows, and rank 0 alone logs. The weights
 start from ``random_vit_params(config, 0)``.
 """
 
@@ -20,9 +22,10 @@ import time
 
 import torch
 
-from kubeflow_tpu_torch.examples.common import launcher_init, log_metrics
+from kubeflow_tpu_torch.examples.common import launcher_init, rank_logger
 from kubeflow_tpu_torch.models.convert import random_vit_params
 from kubeflow_tpu_torch.models.vit import ViTConfig
+from kubeflow_tpu_torch.parallel.mesh import data_parallel_size
 from kubeflow_tpu_torch.train import (
     create_vit_train_state,
     make_image_train_step,
@@ -47,9 +50,11 @@ def main(argv=None) -> float:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    _, mesh, device = launcher_init(tp=args.tp, device=args.device)
-    step_fn = make_image_train_step(mesh)      # one rank: refuses more
-    batch = args.per_device_batch
+    penv, mesh, device = launcher_init(
+        tp=1 if args.tp is None else args.tp, device=args.device)
+    step_fn = make_image_train_step(mesh)      # refuses tp > 1
+    log_metrics = rank_logger(penv)
+    batch = args.per_device_batch * data_parallel_size(mesh)  # global
     config = ViTConfig(
         image_size=args.image_size, patch_size=args.patch_size,
         num_classes=args.num_classes, d_model=args.d_model,
@@ -75,12 +80,12 @@ def main(argv=None) -> float:
             loss = float(metrics["loss"])
             ips = step * batch / (time.perf_counter() - t0)
             log_metrics(step, loss=loss, images_per_sec=ips,
-                        images_per_sec_per_chip=ips)
+                        images_per_sec_per_chip=ips / penv.num_processes)
     float(metrics["loss"])
     prof.close()
     ips = args.steps * batch / (time.perf_counter() - t0)
     log_metrics(args.steps, final=True, images_per_sec=ips,
-                images_per_sec_per_chip=ips)
+                images_per_sec_per_chip=ips / penv.num_processes)
     return ips
 
 

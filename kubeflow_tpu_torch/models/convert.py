@@ -93,15 +93,30 @@ def _source_key(name: str, flat: Mapping[str, Any]):
     return unrolled if unrolled[0] in flat else _jax_key(name, True)
 
 
+def _other_stages(flat: Mapping[str, Any], model) -> set:
+    """The unrolled ``block_{i}/...`` keys of layers a stage-built model
+    (one pipeline stage) does not hold: another stage's rank loads them."""
+    held = {name.split(".")[1] for name, _ in model.named_parameters()
+            if name.startswith("blocks.")}
+    return {key for key in flat if key.startswith("block_")
+            and key.split("/")[0][len("block_"):] not in held}
+
+
+def _stage_built(model) -> bool:
+    split = getattr(model, "split", None)
+    return split is not None and getattr(split, "pp", 1) > 1
+
+
 def load_params(model: torch.nn.Module,
                 params: Mapping[str, Any]) -> torch.nn.Module:
     """Copy a JAX param tree (nested or flat, scanned or unrolled) into a
     port ``Transformer`` or ``Bert`` in place; every port parameter must
     be found, with its exact shape. A model built over a mesh takes this
-    rank's block of each full leaf. Returns ``model``."""
+    rank's block of each full leaf: its stage's layers under ``pp``, its
+    experts under ``dp``, its columns under ``tp``. Returns ``model``."""
     specs = getattr(model, "param_specs", {})
     flat = flatten(params)
-    used = set()
+    used = _other_stages(flat, model) if _stage_built(model) else set()
     leaves: Dict[str, torch.Tensor] = {}  # a stacked leaf, converted once
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -115,7 +130,8 @@ def load_params(model: torch.nn.Module,
             if layer is not None:
                 src = src[layer]
             if pmesh.is_sharded(specs.get(name)):
-                src = pmesh.local_block(src, specs[name], model.mesh)
+                src = pmesh.local_block(src, pmesh.tensor_spec(specs[name]),
+                                        model.mesh)
             if tuple(src.shape) != tuple(p.shape):
                 raise ValueError(f"{key}: shape {tuple(src.shape)} != "
                                  f"port {name} {tuple(p.shape)}")
@@ -151,12 +167,47 @@ def to_trainable(config: TransformerConfig, params: Mapping[str, Any], *,
 
 def gather_params(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """Every parameter of ``model`` whole, by name: a model built over a
-    mesh gathers each split one from the ranks that share it (a
-    collective: every rank calls it)."""
+    mesh gathers each split one from the ranks that share it, and a
+    stage-built one every stage's layers (a collective: every rank calls
+    it). The names are the whole model's, in its order."""
     specs = getattr(model, "param_specs", {})
-    return {name: pmesh.gather_block(p, specs[name], model.mesh)
-            if pmesh.is_sharded(specs.get(name)) else p.detach()
-            for name, p in model.named_parameters()}
+    return gather_named({n: p.detach() for n, p in model.named_parameters()},
+                        specs, model)
+
+
+def gather_named(tensors: Mapping[str, torch.Tensor],
+                 specs: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
+    """``tensors`` (a subset of ``model``'s parameters, by name, in its
+    order) gathered whole under ``specs``: each split dim from the ranks
+    that share it, then, for a stage-built model, each stage leaf from
+    every stage (an all-gather over ``pp``), under the names that stage
+    gives it, in the whole model's order. A collective."""
+    mesh = getattr(model, "mesh", None)
+    out: Dict[str, torch.Tensor] = {}
+    for name, t in tensors.items():
+        spec = specs.get(name)
+        if pmesh.is_sharded(spec):
+            t = pmesh.gather_block(t, pmesh.tensor_spec(spec), mesh)
+        out[name] = t
+    if not _stage_built(model):
+        return out
+    from kubeflow_tpu_torch.models.transformer import stage_peer
+
+    pp = model.split.pp
+    per = model.config.n_layers // pp
+    staged = {name: pmesh.gather_block(t[None], pmesh.PartitionSpec("pp"),
+                                       mesh)
+              for name, t in out.items() if pmesh.is_stage_spec(
+                  specs.get(name))}
+    names = list(out)           # the stage's blocks lie together
+    blocks = [n for n in names if n in staged]
+    first = names.index(blocks[0])
+    ordered = {n: out[n] for n in names[:first]}
+    for stage in range(pp):
+        for n in blocks:
+            ordered[stage_peer(n, stage, per)] = staged[n][stage]
+    ordered.update((n, out[n]) for n in names[first + len(blocks):])
+    return ordered
 
 
 def unsharded(model: Transformer) -> Transformer:

@@ -28,21 +28,63 @@ The reference's numerics, where torch's own would differ:
 - the global pool averages in the compute dtype (a bf16 mean is rounded
   to bf16) before the f32 head.
 
+Under data parallelism (``train/trainer.py:make_image_train_step`` over a
+mesh runs the forward inside :func:`global_batch_stats`) both BatchNorm
+sites take the global batch's statistics, as the reference's do under
+GSPMD: each all-reduces its rows' ``[Σx, Σx²]`` over the data axes
+(differentiably: the backward sums the cotangents too) and divides by
+the global count (every rank holds as many rows) before ``E[x²] -
+E[x]²``. The running statistics then come out equal on every rank, and
+the fused site's ``a``/``b`` feed the bnconv kernel as before.
+
 Not yet ported: ``act_compress`` (``ops/act_compress.py``) raises
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from kubeflow_tpu_torch.models.transformer import torch_dtype
+from kubeflow_tpu_torch.ops import collectives as col
 from kubeflow_tpu_torch.ops.bnconv import fused_scale_relu_matmul
+from kubeflow_tpu_torch.parallel import mesh as pmesh
+
+# (mesh, data axes) while a data-parallel step's forward runs
+_GLOBAL_STATS: contextvars.ContextVar = contextvars.ContextVar(
+    "kftpu_bn_global_stats", default=None)
+
+
+@contextlib.contextmanager
+def global_batch_stats(mesh, axes: Sequence[str] = ("dcn", "dp")):
+    """BatchNorm statistics over the global batch split over ``axes`` of
+    ``mesh`` for the forwards run inside."""
+    token = _GLOBAL_STATS.set((mesh, tuple(axes)))
+    try:
+        yield
+    finally:
+        _GLOBAL_STATS.reset(token)
+
+
+def _moments(xf: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(E[x], E[x²])`` of f32 ``xf`` over ``dims``: this rank's rows, or
+    the global batch's inside :func:`global_batch_stats`."""
+    over = _GLOBAL_STATS.get()
+    if over is None:
+        return xf.mean(dim=dims), (xf * xf).mean(dim=dims)
+    mesh, axes = over
+    sums = torch.stack([xf.sum(dim=dims), (xf * xf).sum(dim=dims)])
+    count = xf.numel() // sums.shape[1]      # rows a channel, this rank
+    sums = col.all_reduce_grad(sums, mesh, axes)
+    mean, mean2 = sums / (count * pmesh.axis_size(mesh, axes))
+    return mean, mean2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,9 +166,8 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         xf = x.float()
         if train:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3))
-                                  - mean * mean, 0.0)
+            mean, mean2 = _moments(xf, (0, 2, 3))
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
             _update_running(self, mean, var)
         else:
             mean, var = self.mean, self.var
@@ -172,9 +213,8 @@ class FusedBnReluConv(nn.Module):
         B, C, H, W = x.shape
         rows = x.permute(0, 2, 3, 1).reshape(-1, C)   # a view if NHWC bytes
         if train:
-            xf = rows.float()
-            mean = xf.mean(dim=0)
-            var = (xf * xf).mean(dim=0) - mean * mean
+            mean, mean2 = _moments(rows.float(), (0,))
+            var = mean2 - mean * mean
             _update_running(self, mean, var)
         else:
             mean, var = self.mean, self.var

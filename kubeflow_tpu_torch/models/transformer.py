@@ -112,9 +112,28 @@ reference:
   head-sharded projections and lets GSPMD reshard the sequence around
   attention; the numbers are the same.
 
+- **Expert parallelism** for MoE layers: the experts' weights are split
+  over ``dp`` by their ``expert`` axis and over ``tp`` by their
+  ``expert_mlp`` axis; the router is whole on every rank. The dense
+  dispatch gathers the expert shards over ``dp`` (``all_gather_grad``:
+  the backward reduce-scatters, so an expert's gradient arrives summed
+  over ``dp``), as GSPMD gathers them in the reference, and splits the
+  experts' hidden width over ``tp`` as the MLP does; the combine weights
+  enter that tp-split product through ``copy_to``, so the router's
+  gradient sums the ranks' partial products. The capacity dispatch
+  (``ops/moe.py``) fills the reference's global slots and moves the
+  buffers to the experts' owners. The load-balance loss is the global
+  batch's.
+- **Pipeline stages** over ``pp``: a model built over ``pp > 1`` holds
+  its stage's ``L / pp`` blocks only, under their global names
+  (``blocks.{r L/pp + i}``), and their specs lead with ``"pp"`` (the
+  ``stage`` rule on the reference's stacked layer axis). It trains
+  through ``parallel/pipeline.py:make_pipelined_lm_forward``; its plain
+  forward refuses.
+
 A model built over a mesh of more than one rank trains; decoding from
-it refuses (mesh serving is a later slice), as do MoE layers and a
-pipeline axis.
+it refuses (mesh serving is a later slice). Context parallelism for MoE
+layers and inside the pipeline is not ported, and refuses.
 """
 
 from __future__ import annotations
@@ -547,7 +566,11 @@ class MoeMlp(nn.Module):
     every token (``bsd,edf->bsef``) and the combine masks the outputs.
     Ties between router logits are possible: ``jax.lax.top_k`` and
     ``torch.topk`` may break them differently, so parity tests draw
-    random f32 router logits, where a tie has probability zero."""
+    random f32 router logits, where a tie has probability zero.
+
+    Over a mesh: the module docstring's expert parallelism."""
+
+    split = None      # as Attention.split
 
     def __init__(self, c: TransformerConfig) -> None:
         super().__init__()
@@ -560,39 +583,65 @@ class MoeMlp(nn.Module):
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        c = self.c
+        c, sp = self.c, self.split
         dt, E, K = c.dtype, c.n_experts, c.experts_per_token
-        wg = _compute(self.gate_proj, dt)
-        wu = _compute(self.up_proj, dt)
-        wd = _compute(self.down_proj, dt)
+        mesh = sp.mesh if sp is not None else None
+        tp = sp.tp if sp is not None else 1
+        ep = sp.ep_axis if sp is not None else None
         gate_logits = x.float() @ self.router              # (B, S, E)
         if c.moe_capacity_factor > 0:
             from kubeflow_tpu_torch.ops.moe import capacity_moe
 
             B, S, D = x.shape
+            wg, wu, wd = (_compute(w, dt) for w in (
+                self.gate_proj, self.up_proj, self.down_proj))
 
             def expert_fn(xe):                             # (E, C, D)
+                if tp > 1:
+                    xe = col.copy_to(xe, mesh, "tp")
                 h = torch.einsum("ecd,edf->ecf", xe, wg)
                 u = torch.einsum("ecd,edf->ecf", xe, wu)
-                return torch.einsum("ecf,efd->ecd", silu(h) * u, wd)
+                y = torch.einsum("ecf,efd->ecd", silu(h) * u, wd)
+                return col.reduce_from(y, mesh, "tp") if tp > 1 else y
 
             y, aux = capacity_moe(
                 x.reshape(B * S, D), gate_logits.reshape(B * S, E),
-                expert_fn, k=K, capacity_factor=c.moe_capacity_factor)
+                expert_fn, k=K, capacity_factor=c.moe_capacity_factor,
+                mesh=mesh, axes=sp.data_axes if sp is not None else (),
+                ep_axis=ep)
             return y.reshape(B, S, D), aux
+        wg, wu, wd = self.gate_proj, self.up_proj, self.down_proj
+        if ep is not None:      # every expert's tp shard, on every rank
+            wg, wu, wd = (col.all_gather_grad(w, mesh, ep)
+                          for w in (wg, wu, wd))
+        wg, wu, wd = (_compute(w, dt) for w in (wg, wu, wd))
         weights, idx = torch.topk(gate_logits, K, dim=-1)
         weights = torch.softmax(weights, dim=-1)           # (B, S, K)
         onehot = torch.nn.functional.one_hot(idx, E).float()
         combine = (onehot * weights[..., None]).sum(dim=2).to(dt)
-        h = torch.einsum("bsd,edf->bsef", x, wg)
-        u = torch.einsum("bsd,edf->bsef", x, wu)
+        xe, ce = x, combine
+        if tp > 1:
+            xe = col.copy_to(x, mesh, "tp")
+            ce = col.copy_to(combine, mesh, "tp")
+        h = torch.einsum("bsd,edf->bsef", xe, wg)
+        u = torch.einsum("bsd,edf->bsef", xe, wu)
         h = silu(h) * u
         y = torch.einsum("bsef,efd->bsed", h, wd)
-        y = torch.einsum("bsed,bse->bsd", y, combine)
+        y = torch.einsum("bsed,bse->bsd", y, ce)
+        if tp > 1:
+            y = col.reduce_from(y, mesh, "tp")
         # Switch load balance: E * sum(fraction routed * mean router prob)
         probs = torch.softmax(gate_logits, dim=-1)
-        density = (combine.float() > 0).float().mean(dim=(0, 1))
-        mean_prob = probs.mean(dim=(0, 1))
+        routed = (combine.float() > 0).float()
+        if mesh is None:
+            density = routed.mean(dim=(0, 1))
+            mean_prob = probs.mean(dim=(0, 1))
+        else:
+            from kubeflow_tpu_torch.ops.moe import global_mean
+
+            density, mean_prob = global_mean(
+                torch.stack([routed.sum(dim=(0, 1)), probs.sum(dim=(0, 1))]),
+                x.shape[0] * x.shape[1], mesh, sp.data_axes)
         return y, E * (density * mean_prob).sum()
 
 
@@ -663,19 +712,25 @@ _MOE_PARAM_AXES = {
 }
 
 
-def leaf_logical_axes(name: str, ndim: int) -> Tuple[Optional[str], ...]:
+def leaf_logical_axes(name: str, ndim: int, *, pipelined: bool = False
+                      ) -> Tuple[Optional[str], ...]:
     """Logical axes of the port parameter ``name`` (``blocks.3.attn.
     q_proj``, ...) by its last component, as the reference's
     ``leaf_logical_axes`` matches a param path (the port's layer list
-    has no stacked layer axis). Unknown names replicate."""
+    has no stacked layer axis). Unknown names replicate. ``pipelined``:
+    a block's leaf gets the reference's ``"stage"`` axis in front, the
+    axes of the layer stack it is one layer of (``train/trainer.py:
+    _leaf_axes``)."""
     parts = name.split(".")
     table = (_MOE_PARAM_AXES if "moe" in parts
              and parts[-1] in _MOE_PARAM_AXES else _PARAM_AXES)
     axes = table.get(parts[-1])
     if axes is None or ndim == 0:
-        return (None,) * ndim
-    if len(axes) != ndim:
+        axes = (None,) * ndim
+    elif len(axes) != ndim:
         raise ValueError(f"axes {axes} rank != param {name} rank {ndim}")
+    if pipelined and ndim and parts[0] == "blocks":
+        return ("stage",) + tuple(axes)
     return tuple(axes)
 
 
@@ -690,28 +745,63 @@ class _Split:
     seq_rank: int
     vocab_sharded: bool  # token_embed split over tp (V % tp == 0)
     kv_sharded: bool     # k/v projections split over tp (KH % tp == 0)
+    data_axes: Tuple[str, ...] = ("dcn", "dp")   # the global batch's split
+    ep_axis: Optional[str] = None  # the axis the experts are split over
+    pp: int = 1          # pipeline stages; > 1: this model holds one
+
+
+class StageBlocks(nn.Module):
+    """One pipeline stage's blocks under their global layer indices
+    (children ``"{start}"`` ... ``"{start + n - 1}"``), so parameter names
+    are the whole model's. Iterates, indexes and counts as the
+    ``nn.ModuleList`` of a whole model does."""
+
+    def __init__(self, blocks, start: int) -> None:
+        super().__init__()
+        for i, blk in enumerate(blocks):
+            self.add_module(str(start + i), blk)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __len__(self) -> int:
+        return len(self._modules)
+
+    def __getitem__(self, i: int) -> nn.Module:
+        return list(self._modules.values())[i]
+
+
+def stage_peer(name: str, stage: int, per_stage: int) -> str:
+    """The name stage ``stage``'s rank gives the parameter this rank names
+    ``name`` (``blocks.{i}...``, ``per_stage`` layers a stage): the same
+    position in its stage. Names outside the blocks are their own."""
+    parts = name.split(".")
+    if parts[0] != "blocks":
+        return name
+    parts[1] = str(stage * per_stage + int(parts[1]) % per_stage)
+    return ".".join(parts)
 
 
 def _shard(model: nn.Module, c: TransformerConfig, mesh):
-    """Cut every parameter of ``model`` (built at full shapes) down to
-    this rank's block; returns the :class:`_Split` and each parameter's
-    PartitionSpec fitted to the mesh (its full shape)."""
+    """Cut every parameter of ``model`` (built at full shapes, with its
+    stage's blocks only under ``pp > 1``) down to this rank's block;
+    returns the :class:`_Split` and each parameter's PartitionSpec fitted
+    to the mesh (its full shape; a stage leaf's leads with ``"pp"``)."""
     cp = c.attention_impl in ("ring", "ulysses")
     tp = pmesh.axis_size(mesh, "tp")
-    if pmesh.axis_size(mesh, "pp") > 1:
-        raise NotImplementedError(
-            "a pipeline axis (pp > 1) is ROADMAP Queue A 2.1")
-    if c.n_experts and pmesh.axis_size(mesh, ("dp", "tp")) > 1:
-        raise NotImplementedError(
-            "MoE layers over a mesh of more than one rank need expert "
-            "parallelism, ROADMAP Queue A 2.2")
+    pp = pmesh.axis_size(mesh, "pp")
     if cp and c.seq_axis != "tp":
         raise NotImplementedError(
             f"ring/ulysses over seq_axis={c.seq_axis!r}: the port runs "
             "context parallelism over 'tp' only")
+    if cp and (c.n_experts or pp > 1):
+        raise NotImplementedError(
+            "context parallelism (ring/ulysses) for MoE layers or inside "
+            "the pipeline is not ported (ROADMAP Queue A 2.7)")
     if not cp:
         pmesh.validate_mesh_for_model(pmesh.mesh_config(mesh),
-                                      n_heads=c.n_heads, d_ff=c.d_ff)
+                                      n_heads=c.n_heads, d_ff=c.d_ff,
+                                      n_experts=c.n_experts)
     specs = {}
     for name, p in list(model.named_parameters()):
         spec = pmesh.spec_for_mesh(pmesh.logical_to_mesh_axes(
@@ -720,20 +810,30 @@ def _shard(model: nn.Module, c: TransformerConfig, mesh):
             spec = pmesh.PartitionSpec(*(None if e == c.seq_axis else e
                                          for e in spec))
         spec = pmesh.shape_aware_spec(spec, tuple(p.shape), mesh)
-        specs[name] = spec
         if pmesh.is_sharded(spec):
             owner, _, leaf = name.rpartition(".")
             mod = model.get_submodule(owner) if owner else model
             setattr(mod, leaf, nn.Parameter(p.new_empty(
                 pmesh.local_shape(p.shape, spec, mesh))))
+        if pp > 1 and name.startswith("blocks."):
+            spec = pmesh.PartitionSpec("pp", *spec)
+        specs[name] = spec
+    kv = next((sp for n, sp in specs.items() if n.endswith(".attn.k_proj")),
+              None)
+    gate = next((pmesh.tensor_spec(sp) for n, sp in specs.items()
+                 if n.endswith(".moe.gate_proj")), ())
+    ep = gate[0] if gate else None          # the experts' axis, if split
     split = _Split(
         mesh=mesh, tp=1 if cp else tp,
         tp_rank=0 if cp else pmesh.axis_index(mesh, "tp"),
         seq=tp if cp else 0, seq_rank=pmesh.axis_index(mesh, "tp") if cp
         else 0,
         vocab_sharded=pmesh.is_sharded(specs["token_embed"]),
-        kv_sharded=pmesh.is_sharded(specs["blocks.0.attn.k_proj"])
-        if c.n_layers else True)
+        kv_sharded="tp" in pmesh.spec_axes(kv) if kv is not None else True,
+        data_axes=pmesh.batch_axes(c.rules),
+        ep_axis=ep if isinstance(ep, str) and pmesh.axis_size(mesh, ep) > 1
+        else None,
+        pp=pp)
     return split, specs
 
 
@@ -776,8 +876,18 @@ class Transformer(nn.Module):
         self.return_hidden = return_hidden
         self.token_embed = nn.Parameter(torch.empty(
             config.vocab_size, config.d_model, dtype=config.param_dtype))
-        self.blocks = nn.ModuleList(Block(config)
-                                    for _ in range(config.n_layers))
+        pp = pmesh.axis_size(mesh, "pp") if mesh is not None else 1
+        if pp > 1:      # this rank's pipeline stage only
+            L = config.n_layers
+            if L % pp:
+                raise ValueError(f"layers {L} not divisible by stages {pp}")
+            per = L // pp
+            self.blocks = StageBlocks(
+                [Block(config) for _ in range(per)],
+                pmesh.axis_index(mesh, "pp") * per)
+        else:
+            self.blocks = nn.ModuleList(Block(config)
+                                        for _ in range(config.n_layers))
         self.final_norm = RMSNorm(config.d_model,
                                   param_dtype=config.param_dtype)
         self._rope: Dict[Tuple[int, torch.device], Tuple] = {}
@@ -787,7 +897,7 @@ class Transformer(nn.Module):
         if mesh is not None:
             self.split, self.param_specs = _shard(self, config, mesh)
             for mod in self.modules():
-                if isinstance(mod, (Attention, Mlp)):
+                if isinstance(mod, (Attention, Mlp, MoeMlp)):
                     mod.split = self.split
 
     def _tables(self, n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -854,6 +964,47 @@ class Transformer(nn.Module):
                            read_pages=pages.clamp(0, P - 1),
                            use_kernel=use_kernel)
 
+    def embed_table(self) -> torch.Tensor:
+        """The tied embedding in the compute dtype: cast once a forward
+        and shared by :meth:`embed` and :meth:`head`, so its gradient
+        sums both uses before the cast back, as the reference's one
+        ``astype`` does."""
+        return _compute(self.token_embed, self.config.dtype)
+
+    def embed(self, tokens: torch.Tensor, table: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The training forward up to the blocks: ``(x, sin, cos)`` for
+        this rank's tokens (its sequence block under context
+        parallelism), ``table`` from :meth:`embed_table`."""
+        c, sp = self.config, self.split
+        S = tokens.shape[1]
+        sin, cos = self._tables(S, tokens.device)
+        if sp is not None and sp.seq:
+            if S % sp.seq:
+                raise ValueError(f"seq len {S} does not divide over "
+                                 f"{sp.seq} context-parallel ranks")
+            n = S // sp.seq
+            block = slice(sp.seq_rank * n, (sp.seq_rank + 1) * n)
+            tokens, sin, cos = tokens[:, block], sin[block], cos[block]
+        if sp is not None and sp.tp > 1 and sp.vocab_sharded:
+            return _take_rows_split(table, tokens, c.vocab_size, sp), sin, cos
+        return take_rows(table, tokens), sin, cos
+
+    def head(self, x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+        """The final norm, then the logits (this rank's vocabulary block
+        under tensor parallelism), or the hidden states with
+        ``return_hidden``."""
+        c, sp = self.config, self.split
+        x = self.final_norm(x)
+        if self.return_hidden:
+            return x
+        if sp is not None and sp.tp > 1 and sp.vocab_sharded:
+            x = col.copy_to(x, sp.mesh, "tp")
+        logits = (x @ table.t()).float()
+        if c.logits_softcap:
+            logits = c.logits_softcap * torch.tanh(logits / c.logits_softcap)
+        return logits
+
     def forward(self, tokens: torch.Tensor, cache: Optional[Any] = None,
                 *, ragged: bool = False, return_aux: bool = False):
         """``ragged`` makes a dense-cache multi-token forward write each
@@ -861,52 +1012,39 @@ class Transformer(nn.Module):
         speculative verify). ``return_aux`` (training forward) returns
         ``(out, aux)``, ``aux`` the summed MoE load-balance loss."""
         c, sp = self.config, self.split
+        if sp is not None and sp.pp > 1:
+            raise ValueError(
+                "a model built over pp > 1 holds one pipeline stage: it "
+                "runs through parallel/pipeline.py:make_pipelined_lm_forward")
         B, S = tokens.shape
         dev = tokens.device
-        embed = _compute(self.token_embed, c.dtype)
-        if cache is not None and sp is not None and (sp.tp > 1 or sp.seq > 1):
+        if cache is not None and sp is not None and (sp.tp > 1 or sp.seq > 1
+                                                     or sp.ep_axis):
             raise NotImplementedError(
                 "decoding from a model split over a mesh (mesh serving) "
                 "is ROADMAP Queue A 2.4")
         aux: Any = 0.0
+        table = self.embed_table()
         if cache is None:
-            sin, cos = self._tables(S, dev)
-            if sp is not None and sp.seq:
-                if S % sp.seq:
-                    raise ValueError(f"seq len {S} does not divide over "
-                                     f"{sp.seq} context-parallel ranks")
-                n = S // sp.seq
-                block = slice(sp.seq_rank * n, (sp.seq_rank + 1) * n)
-                tokens, sin, cos = tokens[:, block], sin[block], cos[block]
-            if sp is not None and sp.tp > 1 and sp.vocab_sharded:
-                x = _take_rows_split(embed, tokens, c.vocab_size, sp)
-            else:
-                x = take_rows(embed, tokens)
+            x, sin, cos = self.embed(tokens, table)
             x, aux = run_blocks(self.blocks, x, sin, cos, remat=c.remat,
                                 return_aux=True)
-        elif isinstance(cache, DenseKVCache):
-            x = take_rows(embed, tokens)
+            out = self.head(x, table)
+            return (out, aux) if return_aux else out
+        x = take_rows(table, tokens)
+        if isinstance(cache, DenseKVCache):
             step = self._dense_step(cache, S, dev,
                                     ragged or c.ragged_decode)
             for i, blk in enumerate(self.blocks):
                 x, _ = blk(x, None, None, (cache.k[i], cache.v[i]), step)
-            cache.positions.add_(S)
         else:
-            x = take_rows(embed, tokens)
             step = self._decode_step(cache, S, dev)
             for i, blk in enumerate(self.blocks):
                 kv = (cache.k[i], cache.v[i], cache.pages, cache.positions)
                 x, _ = blk(x, None, None, kv, step)
-            cache.positions.add_(S)
-        x = self.final_norm(x)
-        if self.return_hidden:
-            return (x, aux) if return_aux else x
-        if sp is not None and sp.tp > 1 and sp.vocab_sharded:
-            x = col.copy_to(x, sp.mesh, "tp")
-        logits = (x @ embed.t()).float()
-        if c.logits_softcap:
-            logits = c.logits_softcap * torch.tanh(logits / c.logits_softcap)
-        return (logits, aux) if return_aux else logits
+        cache.positions.add_(S)
+        out = self.head(x, table)
+        return (out, aux) if return_aux else out
 
 
 def tiny_config(**overrides) -> TransformerConfig:

@@ -24,8 +24,13 @@ layouts (``collectives.py:38-59``), over the process group of ``axis``
 The model's collectives are differentiable: :func:`copy_to` (identity
 forward, all-reduce backward: Megatron's f) and :func:`reduce_from`
 (all-reduce forward, identity backward: its g), :func:`ppermute` (the
-backward rotates the other way) and :func:`all_to_all_grad` (the
-backward is the inverse exchange).
+backward rotates the other way), :func:`all_to_all_grad` (the
+backward is the inverse exchange), :func:`all_reduce_grad` (a sum every
+rank uses: all-reduce both ways, the transpose of ``psum``),
+:func:`all_gather_grad` (reduce-scatter backward: MoE's dense dispatch
+gathers the expert shards) and :func:`reduce_scatter_grad` (all-gather
+backward: the capacity dispatch sums its ``(E, C, D)`` buffers onto the
+owners of the experts).
 
 :func:`bench_collective` times one collective on a ``size_mb`` buffer
 per rank (for ``all_gather``, the gathered output) and reports the
@@ -57,20 +62,26 @@ def all_reduce(x: torch.Tensor, mesh, axis: str = "dp") -> torch.Tensor:
     return out
 
 
-def all_gather(x: torch.Tensor, mesh, axis: str = "dp") -> torch.Tensor:
-    group, n = _group(mesh, axis)
+def _gather(x: torch.Tensor, group, n: int) -> torch.Tensor:
     x = x.contiguous()
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
     tdist.all_gather_into_tensor(out, x, group=group)
     return out
 
 
-def reduce_scatter(x: torch.Tensor, mesh, axis: str = "dp") -> torch.Tensor:
-    group, n = _group(mesh, axis)
+def _scatter(x: torch.Tensor, group, n: int) -> torch.Tensor:
     x = x.contiguous()
     out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
     tdist.reduce_scatter_tensor(out, x, group=group)
     return out
+
+
+def all_gather(x: torch.Tensor, mesh, axis: str = "dp") -> torch.Tensor:
+    return _gather(x, *_group(mesh, axis))
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis: str = "dp") -> torch.Tensor:
+    return _scatter(x, *_group(mesh, axis))
 
 
 def _exchange(x: torch.Tensor, group, n: int, split_axis: int,
@@ -167,6 +178,28 @@ class _AllToAll(torch.autograd.Function):
                 None, None, None, None)
 
 
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.args = (group, n)
+        return _gather(x, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(g, *ctx.args), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.args = (group, n)
+        return _scatter(x, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, *ctx.args), None, None
+
+
 def copy_to(x: torch.Tensor, mesh, axis: str = "tp") -> torch.Tensor:
     """Identity forward; the backward sums the gradient over the axis.
     Marks a replicated tensor that each rank uses for its share of a
@@ -198,6 +231,31 @@ def all_to_all_grad(x: torch.Tensor, mesh, axis: str = "dp", *,
     ``split_axis``)."""
     group, n = _group(mesh, axis)
     return _AllToAll.apply(x, group, n, split_axis, concat_axis)
+
+
+def all_reduce_grad(x: torch.Tensor, mesh, axis="dp") -> torch.Tensor:
+    """The sum over the axis (a name or a tuple of names), which every
+    rank then uses: the backward sums the cotangents over the axis too.
+    BatchNorm's and the MoE load-balance loss's global-batch sums. An
+    axis of size 1 is the identity."""
+    return copy_to(reduce_from(x, mesh, axis), mesh, axis)
+
+
+def all_gather_grad(x: torch.Tensor, mesh, axis: str = "dp") -> torch.Tensor:
+    """:func:`all_gather` with a gradient: the backward reduce-scatters
+    the cotangent, so each rank's block gets the sum of every rank's
+    gradient for it (already summed over the axis). An axis of size 1 is
+    the identity."""
+    group, n = _group(mesh, axis)
+    return x if n == 1 else _AllGather.apply(x, group, n)
+
+
+def reduce_scatter_grad(x: torch.Tensor, mesh,
+                        axis: str = "dp") -> torch.Tensor:
+    """:func:`reduce_scatter` with a gradient: the backward all-gathers
+    the cotangent. An axis of size 1 is the identity."""
+    group, n = _group(mesh, axis)
+    return x if n == 1 else _ReduceScatter.apply(x, group, n)
 
 
 # -- microbenchmark -----------------------------------------------------------

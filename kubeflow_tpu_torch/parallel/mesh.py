@@ -23,6 +23,12 @@ process per device:
   a block of; :func:`local_block` cuts that block out of the full array
   and :func:`gather_block` puts the full array back together (an
   all-gather over each sharded dim's group).
+- The ``stage`` rule names ``pp`` on a layer stack's leading axis, as
+  in the reference. The port keeps one tensor a layer, so a rank built
+  over ``pp > 1`` holds its stage's layers whole, and their specs lead
+  with ``"pp"`` for that stacked axis (:func:`is_stage_spec`): the spec
+  of the layer stack the tensor is one layer of. :func:`tensor_spec`
+  gives the tensor's own.
 - ``shard_constraint`` and ``mesh_context`` are not ported: they feed
   GSPMD, which derives the collectives from the shardings. The port's
   model issues each collective itself
@@ -249,6 +255,47 @@ def _filter_spec(spec: PartitionSpec, keep) -> PartitionSpec:
     while out and out[-1] is None:
         out.pop()
     return PartitionSpec(*out)
+
+
+def batch_axes(rules: AxisRules = DEFAULT_RULES) -> Tuple[str, ...]:
+    """The mesh axes the ``batch`` rule splits a global batch over."""
+    spec = logical_to_mesh_axes(("batch",), rules)
+    entry = spec[0] if spec else ()
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+def spec_axes(spec: Optional[PartitionSpec]) -> Tuple[str, ...]:
+    """Every mesh axis ``spec`` names, in order."""
+    out = []
+    for entry in spec or ():
+        if entry is not None:
+            out.extend((entry,) if isinstance(entry, str) else entry)
+    return tuple(out)
+
+
+def is_stage_spec(spec: Optional[PartitionSpec]) -> bool:
+    """Whether ``spec`` is a pipeline stage leaf's: its leading entry is
+    ``pp``, the stacked layer axis (the ``stage`` rule)."""
+    return bool(spec) and spec[0] == "pp"
+
+
+def tensor_spec(spec: Optional[PartitionSpec]) -> Optional[PartitionSpec]:
+    """The spec of the tensor a rank holds: a stage leaf's without its
+    leading ``pp`` (the layer axis the port's one-tensor-a-layer
+    parameters do not have), any other unchanged."""
+    return PartitionSpec(*spec[1:]) if is_stage_spec(spec) else spec
+
+
+@dataclasses.dataclass(frozen=True)
+class RankRows:
+    """This rank's rows of a global batch, as
+    ``data/loader.py:device_feed`` over a mesh yields each leaf: a train
+    step over the mesh takes ``rows`` as they are instead of cutting its
+    rows from a global batch. The wrapper is explicit so that the mark
+    cannot be lost: a tensor made from ``rows`` is a global batch again
+    to the step."""
+
+    rows: torch.Tensor
 
 
 def spec_for_mesh(spec: PartitionSpec, mesh) -> PartitionSpec:

@@ -17,6 +17,7 @@ from kubeflow_tpu_torch.train.trainer import (  # noqa: F401
     make_lm_train_step,
     make_mlm_train_step,
     make_optimizer,
+    make_pipelined_lm_train_step,
     make_sgd,
     masked_lm_loss,
     next_token_loss,

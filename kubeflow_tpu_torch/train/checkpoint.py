@@ -23,10 +23,13 @@ steps that another process wrote.
 In a job of several processes rank 0 alone writes. A train state whose
 module is built over a mesh is saved whole: every rank gathers the full
 parameters and optimizer moments (``trainer.state_shardings``, an
-all-gather over each split dim) before rank 0 writes them. ``restore``
-reads the whole state on every rank and copies in this rank's blocks.
-So a checkpoint does not depend on the mesh that wrote it: a job
-written at tp = 2 resumes at tp = 1.
+all-gather over each split dim: ``tp``, and ``dp`` for MoE experts;
+then, for a pipeline stage's module, an all-gather over ``pp`` of every
+stage's layers, under their global names and in the whole model's
+order) before rank 0 writes them. ``restore`` reads the whole state on
+every rank and copies in this rank's blocks of its own layers. So a
+checkpoint does not depend on the mesh that wrote it: a job written at
+tp = 2 resumes at tp = 1, and one written at dp = 2 × pp = 2 at pp = 1.
 """
 
 from __future__ import annotations
@@ -57,27 +60,73 @@ def _tree(state: Any) -> Any:
     return state
 
 
-def _specs(state: Any) -> Tuple[Any, Any]:
-    """``(specs tree, mesh)`` of a train state built over a mesh, else
-    ``(None, None)``."""
+def _specs(state: Any) -> Any:
+    """The specs tree of a train state built over a mesh, else None."""
     from kubeflow_tpu_torch.train.trainer import TrainState, state_shardings
 
     if isinstance(state, TrainState) and state.mesh is not None:
-        return state_shardings(state, state.mesh), state.mesh
-    return None, None
+        return state_shardings(state, state.mesh)
+    return None
 
 
-def _each(tree: Any, specs: Any, fn) -> Any:
-    """``fn(tensor, spec)`` on every split tensor of ``tree`` (a part
-    ``specs`` does not describe is left for ``_load_into`` to refuse)."""
-    if isinstance(tree, torch.Tensor):
-        return fn(tree, specs) if pmesh.is_sharded(specs) else tree
-    if isinstance(tree, dict) and isinstance(specs, dict):
-        return {k: _each(v, specs.get(k), fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)) and isinstance(specs, list) and \
-            len(specs) == len(tree):
-        return [_each(v, s, fn) for v, s in zip(tree, specs)]
-    return tree
+def _param_names(state) -> List[str]:
+    return [n for n, p in state.module.named_parameters() if p.requires_grad]
+
+
+def _gather_state(tree: Any, specs: Any, state) -> Any:
+    """A mesh-built train state's saved tree, whole: every split tensor
+    gathered, and a stage's layers joined by every stage's (a
+    collective); the optimizer lists in the whole model's order."""
+    from kubeflow_tpu_torch.models.convert import gather_named
+
+    model, own = state.module, specs["module"]
+    names = _param_names(state)
+    opt = {}
+    for key, val in tree["opt_state"].items():
+        if isinstance(val, list) and len(val) == len(names):
+            val = list(gather_named(dict(zip(names, val)), own,
+                                    model).values())
+        opt[key] = val
+    return {"module": gather_named(tree["module"], own, model),
+            "opt_state": opt, "step": tree["step"]}
+
+
+def _local_state(saved: Any, specs: Any, state) -> Any:
+    """This rank's part of a whole saved tree: its own layers (a stage's
+    under ``pp``), and its block of each split tensor."""
+    from kubeflow_tpu_torch.models.transformer import stage_peer
+
+    if not isinstance(saved, dict) or not isinstance(saved.get("module"),
+                                                      dict):
+        return saved             # not a train state's: _load_into refuses
+    model, own = state.module, specs["module"]
+    split = getattr(model, "split", None)
+    pp = getattr(split, "pp", 1)
+    stage = pmesh.axis_index(state.mesh, "pp") if pp > 1 else 0
+    per = model.config.n_layers // pp if pp > 1 else 0
+
+    def mine(name):
+        return stage_peer(name, stage, per) if per else name
+
+    def cut(name, t):
+        spec = pmesh.tensor_spec(own.get(name))
+        return pmesh.local_block(t, spec, state.mesh) \
+            if pmesh.is_sharded(spec) else t
+
+    names = _param_names(state)
+    local = set(names)
+    # the whole model's trainable names, in the saved lists' order
+    order = [n for n in saved["module"] if mine(n) in local]
+    module = {n: cut(n, saved["module"][n])
+              for n in state.module.state_dict(keep_vars=True)
+              if n in saved["module"]}
+    opt = {}
+    for key, val in saved["opt_state"].items():
+        if isinstance(val, list) and len(val) == len(order):
+            by_name = dict(zip(order, val))
+            val = [cut(n, by_name[n]) for n in names]
+        opt[key] = val
+    return {"module": module, "opt_state": opt, "step": saved["step"]}
 
 
 def _rank() -> int:
@@ -153,10 +202,9 @@ class CheckpointManager:
         all of them)."""
         self.wait()
         tree = _tree(state)
-        specs, mesh = _specs(state)
+        specs = _specs(state)
         if specs is not None:
-            tree = _each(tree, specs,
-                         lambda t, sp: pmesh.gather_block(t, sp, mesh))
+            tree = _gather_state(tree, specs, state)
         if _rank() != 0:
             return
         snapshot = _to_host(tree)
@@ -228,10 +276,9 @@ class CheckpointManager:
         saved = torch.load(
             os.path.join(self.directory, str(step), STATE_FILE),
             map_location="cpu", weights_only=True)
-        specs, mesh = _specs(state)
+        specs = _specs(state)
         if specs is not None:     # this rank's blocks of the whole state
-            saved = _each(saved, specs,
-                          lambda t, sp: pmesh.local_block(t, sp, mesh))
+            saved = _local_state(saved, specs, state)
         tree = _tree(state)
         loaded = _load_into(tree, saved, str(step))
         if tree is not state:          # a train state

@@ -4,9 +4,10 @@ PyTorch port of ``kubeflow_tpu/train/trainer.py``: ``make_optimizer``
 (:73-92), ``next_token_loss`` (:118-123), ``softmax_cross_entropy``
 (:126-129), ``chunked_next_token_loss`` (:132-172),
 ``make_lm_train_step`` (:175-236), ``masked_lm_loss`` (:248-254),
-``make_mlm_train_step`` (:257-291) and ``make_image_train_step``
-(:338-382, ResNet with its BN statistics, ViT and the MNIST CNN
-without), with ``optax.sgd`` as :class:`Sgd`, and
+``make_mlm_train_step`` (:257-291), ``make_pipelined_lm_train_step``
+(:294-330) and ``make_image_train_step`` (:338-382, ResNet with its BN
+statistics, ViT and the MNIST CNN without), with ``optax.sgd`` as
+:class:`Sgd`, and
 ``state_partition_specs``, ``state_shardings`` and
 ``create_sharded_state`` (:39-115). Steps run eagerly on the device of
 the state's parameters.
@@ -19,10 +20,15 @@ one flat buffer (every training path of the port is host-bound, so one
 launch, not one per tensor). Under tensor parallelism the loss is
 vocab-parallel (the max, the sum of exponentials and the target logit
 are all-reduced over ``tp``), and the global norm counts a split
-gradient's squares summed over ``tp`` and a replicated one once. Under
+gradient's squares summed over every axis it is split on (``tp``; a
+pipeline stage's over ``pp``; MoE experts' over ``dp``) and a replicated
+one once. An expert's gradient arrives summed over ``dp`` already (the
+dispatch's exchange), so it skips that axis of the all-reduce. Under
 context parallelism (``attention_impl`` ring or Ulysses) each rank's
 loss covers its positions and the gradients sum over ``tp`` in the same
-all-reduce. The image step runs on one rank.
+all-reduce. The pipelined LM step and the image step over the data axes
+are :func:`make_pipelined_lm_train_step` and
+:func:`make_image_train_step`.
 
 The optimizer is optax's chain written in plain tensor ops, with optax's
 numerics (:class:`AdamW` is bare ``optax.adamw``):
@@ -247,37 +253,52 @@ def create_train_state(config, params: Mapping[str, Any], tx: Optimizer, *,
     return TrainState.create(model, tx)
 
 
-def state_partition_specs(state: TrainState,
-                          rules=pmesh.DEFAULT_RULES) -> Dict[str, Any]:
+def state_partition_specs(state: TrainState, rules=pmesh.DEFAULT_RULES,
+                          *, pipelined: bool = False) -> Dict[str, Any]:
     """A PartitionSpec for every leaf of a train state, in the tree
     ``train/checkpoint.py`` saves (``{"module": {name: spec},
     "opt_state": {...}, "step": spec}``): a parameter's from the rules
-    table, its optimizer moments the same, everything else replicated."""
+    table, its optimizer moments the same, everything else replicated.
+    ``pipelined``: a block's leaf gets the ``stage`` axis in front, the
+    spec of the layer stack it is one layer of (``spec[0] == "pp"``, as
+    the reference's scanned leaf has)."""
     from kubeflow_tpu_torch.models.transformer import leaf_logical_axes
 
     def spec(name, t):
         return pmesh.logical_to_mesh_axes(
-            leaf_logical_axes(name, t.dim()), rules)
+            leaf_logical_axes(name, t.dim(), pipelined=pipelined), rules)
 
     return _state_tree(state, spec)
 
 
-def state_shardings(state: TrainState, mesh,
-                    rules=pmesh.DEFAULT_RULES) -> Dict[str, Any]:
+def state_shardings(state: TrainState, mesh, rules=pmesh.DEFAULT_RULES,
+                    *, pipelined: bool = False) -> Dict[str, Any]:
     """:func:`state_partition_specs` fitted to ``mesh`` (axes it lacks
     dropped, dims it cannot divide replicated): what each rank holds.
-    A module built over ``mesh`` answers with its own ``param_specs``."""
+    A module built over ``mesh`` answers with its own ``param_specs``
+    (a stage leaf's leading with ``"pp"`` where ``pp > 1``; with
+    ``pipelined`` at any ``pp``)."""
     own = getattr(state.module, "param_specs", {})
     if own and state.mesh is mesh:
-        return _state_tree(state, lambda name, t: own.get(
-            name, pmesh.PartitionSpec()))
-    specs = state_partition_specs(state, rules)
+        def mine(name, t):
+            spec = own.get(name, pmesh.PartitionSpec())
+            if pipelined and name.startswith("blocks.") and \
+                    not pmesh.is_stage_spec(spec):
+                spec = pmesh.PartitionSpec("pp", *spec)
+            return spec
+
+        return _state_tree(state, mine)
+    specs = state_partition_specs(state, rules, pipelined=pipelined)
 
     def fit(name, t):
         key = name if name in specs["module"] else None
         spec = specs["module"][key] if key else pmesh.PartitionSpec()
+        shape = tuple(t.shape)
+        if pmesh.is_stage_spec(spec):   # the layer stack's leading axis
+            L = state.module.config.n_layers
+            shape = (L,) + shape
         return pmesh.shape_aware_spec(pmesh.spec_for_mesh(spec, mesh),
-                                      tuple(t.shape), mesh)
+                                      shape, mesh)
 
     return _state_tree(state, fit)
 
@@ -299,17 +320,20 @@ def _state_tree(state: TrainState, spec) -> Dict[str, Any]:
 
 
 def create_sharded_state(config, params: Mapping[str, Any], tx, mesh, *,
-                         device=None, return_hidden: bool = False
+                         device=None, return_hidden: bool = False,
+                         pipelined: bool = False
                          ) -> Tuple[TrainState, Dict[str, Any]]:
     """A :class:`TrainState` over a port ``Transformer`` built over
     ``mesh``, holding this rank's blocks of the full JAX-layout
-    ``params``, and its :func:`state_shardings`."""
+    ``params`` (its stage's layers where ``pp > 1``), and its
+    :func:`state_shardings` (``pipelined``: the stage leaves' specs name
+    ``pp``, as the reference's ``pipelined=True``)."""
     from kubeflow_tpu_torch.models import convert
 
     model = convert.to_trainable(config, params, device=device,
                                  return_hidden=return_hidden, mesh=mesh)
     state = TrainState.create(model, tx)
-    return state, state_shardings(state, mesh)
+    return state, state_shardings(state, mesh, pipelined=pipelined)
 
 
 def create_bert_train_state(config, params: Mapping[str, Any],
@@ -470,13 +494,15 @@ def chunked_next_token_loss(hidden: torch.Tensor, embed: torch.Tensor,
 
 
 def _batch_axes(rules) -> Tuple[str, ...]:
-    spec = pmesh.logical_to_mesh_axes(("batch",), rules)
-    entry = spec[0] if spec else ()
-    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+    return pmesh.batch_axes(rules)
 
 
 def _my_rows(x, mesh, axes: Tuple[str, ...]) -> torch.Tensor:
-    """This rank's rows of a global batch, split over ``axes``."""
+    """This rank's rows of a global batch, split over ``axes``; a
+    :class:`~kubeflow_tpu_torch.parallel.mesh.RankRows` (``device_feed``
+    over the mesh) holds them already and gives them up as they are."""
+    if isinstance(x, pmesh.RankRows):
+        return x.rows
     x = torch.as_tensor(x)
     n = pmesh.axis_size(mesh, axes)
     if x.shape[0] % n:
@@ -485,34 +511,68 @@ def _my_rows(x, mesh, axes: Tuple[str, ...]) -> torch.Tensor:
     return pmesh.local_block(x, pmesh.PartitionSpec(axes), mesh)
 
 
-def _reduce(grads: Sequence[torch.Tensor], extra: torch.Tensor, mesh,
-            axes: Tuple[str, ...], divide: int):
-    """Sum ``grads`` and the f32 vector ``extra`` over ``axes`` in ONE
-    all-reduce of one flat buffer, then divide by ``divide``; returns
-    the new gradients and ``extra``."""
-    flat = torch.cat([g.reshape(-1).float() for g in grads]
-                     + [extra.reshape(-1).float()])
-    tdist.all_reduce(flat, group=pmesh.axis_group(mesh, axes))
-    flat.div_(divide)
-    out, off = [], 0
-    for g in grads:
-        out.append(flat[off:off + g.numel()].view_as(g).to(g.dtype))
-        off += g.numel()
-    return out, flat[off:]
+def _reduce(grads: Sequence[torch.Tensor], specs: Sequence[Any],
+            extra: torch.Tensor, mesh, axes: Tuple[str, ...], divide: int):
+    """Sum each gradient over the axes of ``axes`` it is not split on,
+    and the f32 vector ``extra`` over all of them, then divide by
+    ``divide``; returns the new gradients and ``extra``.
+
+    One all-reduce of one flat buffer a distinct set of axes: the
+    replicated and tensor-split leaves (and ``extra``) over ``axes``;
+    expert leaves, split over ``dp``, whose gradient the dispatch's
+    reduce-scatter has already summed over ``dp``, over the rest (none
+    within one slice). A set of size 1 sends nothing."""
+    split = [set(pmesh.spec_axes(sp)) for sp in specs]
+    groups: Dict[Tuple[str, ...], List[int]] = {tuple(axes): []}
+    for i, own in enumerate(split):
+        groups.setdefault(tuple(a for a in axes if a not in own),
+                          []).append(i)
+    out: List[Any] = [None] * len(grads)
+    for over, idx in groups.items():
+        main = over == tuple(axes)
+        parts = [grads[i].reshape(-1).float() for i in idx]
+        if main:
+            parts.append(extra.reshape(-1).float())
+        if not parts:
+            continue
+        flat = torch.cat(parts)
+        if pmesh.axis_size(mesh, over) > 1:
+            tdist.all_reduce(flat, group=pmesh.axis_group(mesh, over))
+        flat.div_(divide)
+        off = 0
+        for i in idx:
+            g = grads[i]
+            out[i] = flat[off:off + g.numel()].view_as(g).to(g.dtype)
+            off += g.numel()
+        if main:
+            extra = flat[off:]
+    return out, extra
 
 
 def _split_norm(grads: Sequence[torch.Tensor], specs: Sequence[Any],
                 mesh) -> torch.Tensor:
-    """The global norm of a model split over ``tp``: the squares of a
-    split gradient summed over ``tp``, a replicated one's counted once."""
+    """The global norm of a model split over the mesh: a gradient's
+    squares summed over every axis it is split on (``tp`` for the
+    tensor-split leaves, ``pp`` for a stage's, ``dp`` for the experts'),
+    a replicated one's counted once. The squares are summed by split
+    pattern, then one all-reduce an axis: a pattern without the axis
+    adds only its axis-rank-0 value, so a replicated sum passes exactly."""
     zero = grads[0].new_zeros((), dtype=torch.float32)
-    split = sum((g.float().square().sum() for g, sp in zip(grads, specs)
-                 if pmesh.is_sharded(sp)), zero)
-    whole = sum((g.float().square().sum() for g, sp in zip(grads, specs)
-                 if not pmesh.is_sharded(sp)), zero)
-    if any(pmesh.is_sharded(sp) for sp in specs):
-        tdist.all_reduce(split, group=pmesh.axis_group(mesh, "tp"))
-    return torch.sqrt(split + whole)
+    buckets: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for g, sp in zip(grads, specs):
+        key = tuple(a for a in pmesh.MESH_AXES if a in pmesh.spec_axes(sp)
+                    and pmesh.axis_size(mesh, a) > 1)
+        buckets[key] = buckets.get(key, zero) + g.float().square().sum()
+    keys = sorted(buckets)
+    sums = torch.stack([buckets[k] for k in keys])
+    for axis in pmesh.MESH_AXES:
+        if not any(axis in k for k in keys):
+            continue
+        mine = torch.tensor([axis in k for k in keys], device=sums.device)
+        if pmesh.axis_index(mesh, axis) != 0:
+            sums = torch.where(mine, sums, torch.zeros_like(sums))
+        tdist.all_reduce(sums, group=pmesh.axis_group(mesh, axis))
+    return torch.sqrt(sums.sum())
 
 
 def _check_mesh(state: TrainState, mesh) -> None:
@@ -589,8 +649,8 @@ def make_lm_train_step(mesh=None, rules=pmesh.DEFAULT_RULES, *,
             grad_norm = global_norm(grads)
         else:
             over = axes + (("tp",) if sp is not None and sp.seq else ())
-            grads, extra = _reduce(grads, loss, mesh, over,
-                                   pmesh.axis_size(mesh, axes))
+            grads, extra = _reduce(grads, state.param_specs, loss, mesh,
+                                   over, pmesh.axis_size(mesh, axes))
             loss = extra[0]
             grad_norm = _split_norm(grads, state.param_specs, mesh)
         state.apply_gradients(grads, grad_norm)
@@ -658,7 +718,8 @@ def make_mlm_train_step(mesh=None, rules=pmesh.DEFAULT_RULES):
         if mesh is None:
             grad_norm = global_norm(grads)
         else:
-            grads, extra = _reduce(grads, loss, mesh, axes, dp)
+            grads, extra = _reduce(grads, [None] * len(grads), loss, mesh,
+                                   axes, dp)
             loss = extra[0]
             grad_norm = global_norm(grads)
         state.apply_gradients(grads, grad_norm)
@@ -668,7 +729,83 @@ def make_mlm_train_step(mesh=None, rules=pmesh.DEFAULT_RULES):
     return step
 
 
-def make_image_train_step(mesh=None):
+def _pipeline_rows(tokens, mesh, axes: Tuple[str, ...],
+                   n_microbatches: int) -> torch.Tensor:
+    """This rank's rows of a global ``(B, S)`` batch for the pipeline,
+    microbatch-major: microbatch ``m`` is the reference's, global rows
+    ``[m B/M, (m+1) B/M)``, and each data-parallel rank takes its block
+    of every microbatch, so a microbatch's tokens in rank order are the
+    reference's in order. A rank's contiguous rows (``device_feed``
+    over the mesh) are not its block of every microbatch, so they are
+    refused at dp > 1; at dp = 1 they are the global batch."""
+    n = pmesh.axis_size(mesh, axes)
+    if isinstance(tokens, pmesh.RankRows):
+        if n > 1:
+            raise ValueError(
+                f"the pipelined step takes the global batch: a rank's rows "
+                f"from device_feed over the mesh are not its block of each "
+                f"microbatch at {n} data-parallel ranks; feed it "
+                f"device_feed(loader, device)")
+        tokens = tokens.rows
+    x = torch.as_tensor(tokens)
+    B, M = x.shape[0], n_microbatches
+    if B % M:
+        raise ValueError(f"batch {B} not divisible by microbatches {M}")
+    if (B // M) % n:
+        raise ValueError(f"microbatch of {B // M} rows does not divide over "
+                         f"{n} data-parallel ranks")
+    x = x.reshape(M, B // M, *x.shape[1:])
+    x = pmesh.local_block(x, pmesh.PartitionSpec(None, axes), mesh)
+    return x.reshape(-1, *x.shape[2:])
+
+
+def make_pipelined_lm_train_step(mesh, *, n_microbatches: int,
+                                 rules=pmesh.DEFAULT_RULES):
+    """The LM train step with the block stack pipelined over ``pp``
+    (``parallel/pipeline.py``): ``step(state, tokens) -> (state,
+    metrics)``, the reference's ``make_pipelined_lm_train_step``.
+
+    ``tokens`` is the global batch; the state's module is built over
+    ``mesh`` (:func:`create_sharded_state`, ``pipelined=True``), so each
+    rank holds its stage. The loss is ``next_token_loss`` over the
+    reassembled logits (vocab-parallel under ``tp``); MoE load-balance
+    losses are not collected on this path, as the reference's docstring
+    says. ``metrics`` are ``loss``, ``grad_norm`` and ``step``, as in
+    :func:`make_lm_train_step`. The gradients (with the loss) are
+    averaged over the data axes as there; a stage's leaves count their
+    squares over ``pp`` in the norm, the replicated leaves once."""
+    axes = _batch_axes(rules)
+
+    def step(state: TrainState, tokens) -> Tuple[TrainState, Dict[str, Any]]:
+        from kubeflow_tpu_torch.parallel.pipeline import (
+            make_pipelined_lm_forward,
+        )
+
+        model = state.module
+        _check_mesh(state, mesh)
+        tokens = torch.as_tensor(
+            _pipeline_rows(tokens, mesh, axes, n_microbatches),
+            device=state.device)
+        sp = model.split
+        vocab = mesh if sp is not None and sp.tp > 1 and sp.vocab_sharded \
+            else None
+        params = state.params
+        fwd = make_pipelined_lm_forward(model, mesh,
+                                        n_microbatches=n_microbatches)
+        loss = next_token_loss(fwd(tokens), tokens, mesh=vocab)
+        grads = torch.autograd.grad(loss, params)
+        specs = state.param_specs
+        grads, extra = _reduce(grads, specs, loss.detach(), mesh, axes,
+                               pmesh.axis_size(mesh, axes))
+        grad_norm = _split_norm(grads, specs, mesh)
+        state.apply_gradients(grads, grad_norm)
+        return state, {"loss": extra[0], "grad_norm": grad_norm,
+                       "step": state.step}
+
+    return step
+
+
+def make_image_train_step(mesh=None, rules=pmesh.DEFAULT_RULES):
     """The classifier train step: ``step(state, images, labels) ->
     (state, metrics)``, with BN statistics updated by the train-mode
     forward when the module has any. ``metrics`` holds ``loss`` and
@@ -676,27 +813,50 @@ def make_image_train_step(mesh=None):
     after this update). ``images`` and ``labels`` go to the device of
     the state's parameters.
 
-    The step runs on one rank: a ``mesh`` of more than one raises.
-    Under the reference's GSPMD the BatchNorm statistics are the global
-    batch's; data parallelism for this step is ROADMAP Queue A 2.3."""
-    if mesh is not None and mesh.size() > 1:
+    ``mesh``: the inputs are the global batch, and each rank trains on
+    its rows (the ``batch`` rule: ``("dcn", "dp")``), as the reference's
+    step does under GSPMD. BatchNorm takes its statistics over the
+    global batch (``models/resnet.py:global_batch_stats``), so the
+    running statistics come out equal on every rank; one all-reduce of
+    one flat buffer over the data axes averages the gradients, the loss
+    and the accuracy. ViT and the MNIST CNN have no cross-row state and
+    need nothing more. The model is whole on every rank: a mesh with
+    ``tp`` or ``pp`` > 1 is refused (tensor parallelism for the image
+    models is ROADMAP Queue A 2.4)."""
+    from kubeflow_tpu_torch.models.resnet import global_batch_stats
+
+    axes = _batch_axes(rules)
+    if mesh is not None and pmesh.axis_size(mesh, ("pp", "tp")) > 1:
         raise NotImplementedError(
-            f"the image train step runs on one rank, not a mesh of "
-            f"{mesh.size()}: its data parallelism (BatchNorm statistics "
-            "over the global batch) is ROADMAP Queue A 2.3")
+            f"the image train step splits the batch only, not a mesh with "
+            f"tp={pmesh.axis_size(mesh, 'tp')} pp="
+            f"{pmesh.axis_size(mesh, 'pp')}: tensor parallelism for the "
+            "image models is ROADMAP Queue A 2.4")
 
     def step(state: TrainState, images, labels
              ) -> Tuple[TrainState, Dict[str, Any]]:
+        if mesh is not None:
+            images, labels = (_my_rows(x, mesh, axes)
+                              for x in (images, labels))
         images = torch.as_tensor(images, device=state.device)
         labels = torch.as_tensor(labels, device=state.device).long()
         params = state.params
-        logits = state.module(images, train=True)
+        if mesh is None:
+            logits = state.module(images, train=True)
+        else:
+            with global_batch_stats(mesh, axes):
+                logits = state.module(images, train=True)
         loss = softmax_cross_entropy(logits, labels)
         with torch.no_grad():
             acc = (logits.argmax(dim=-1) == labels).float().mean()
         grads = torch.autograd.grad(loss, params)
+        loss = loss.detach()
+        if mesh is not None:
+            grads, extra = _reduce(
+                grads, [None] * len(grads), torch.stack([loss, acc]), mesh,
+                axes, pmesh.axis_size(mesh, axes))
+            loss, acc = extra[0], extra[1]
         state.apply_gradients(grads)
-        return state, {"loss": loss.detach(), "accuracy": acc,
-                       "step": state.step}
+        return state, {"loss": loss, "accuracy": acc, "step": state.step}
 
     return step

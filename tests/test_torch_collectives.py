@@ -124,6 +124,30 @@ def test_megatron_f_and_g(gang, mesh_name, axis):
                                    ct[peers].sum(0), rtol=1e-6)
 
 
+@pytest.mark.parametrize("mesh_name,axis", COLLECTIVE_AXES,
+                         ids=[f"{m}-{a}" for m, a in COLLECTIVE_AXES])
+@pytest.mark.parametrize("op", ["all_gather_grad", "reduce_scatter_grad",
+                                "all_reduce_grad"])
+def test_differentiable_gather_scatter_and_sum(gang, mesh_name, axis, op):
+    """Rank ``i``'s input and cotangent are scaled by ``i + 1`` (``S`` the
+    sum of the scales): ``all_gather_grad``'s backward reduce-scatters
+    (row block ``i`` of ``S · ct``), ``reduce_scatter_grad``'s
+    all-gathers (every rank's cotangent block, ``ct``), and
+    ``all_reduce_grad``'s sums the cotangents (``S · ct``)."""
+    mesh = _jax_mesh(mesh_name)
+    n = dict(zip(mesh.axis_names, mesh.devices.shape))[axis]
+    full, ct = collective_input(), collective_input(1)
+    S = n * (n + 1) / 2
+    for rank, got in enumerate(gang.case(f"{mesh_name}/{axis}")):
+        i = _rank_index(mesh, axis, rank)
+        want = {"all_gather_grad": (full, S * block(ct, "rows", n, i)),
+                "reduce_scatter_grad": (S * block(full, "rows", n, i), ct),
+                "all_reduce_grad": (S * full, S * ct)}[op]
+        for have, w in zip(got[op], want):
+            np.testing.assert_allclose(have.numpy(), w, rtol=1e-6,
+                                       atol=1e-6, err_msg=f"rank {rank}")
+
+
 def test_bench_collective_uses_the_reference_bus_factors(gang):
     """Positive bandwidth for every op at n = 4, the bus bandwidth the
     algorithmic one times the reference's NCCL-tests factor."""

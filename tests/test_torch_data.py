@@ -166,3 +166,47 @@ def test_device_feed_transform_splits_and_casts_on_the_host():
             pixels.float().numpy().reshape(8, 12),
             torch.from_numpy(rec[:, 1:].copy()).to(torch.bfloat16)
             .float().numpy())
+
+
+class _FakeMesh:
+    """What the feed reads of a mesh: axis names and sizes, this rank's
+    coordinate, the device type (dp = 2, this rank at dp index 1)."""
+
+    mesh_dim_names = ("dcn", "dp", "pp", "tp")
+    device_type = "cpu"
+
+    def size(self, i):
+        return (1, 2, 1, 1)[i]
+
+    def get_coordinate(self):
+        return [0, 1, 0, 0]
+
+
+def test_device_feed_over_a_mesh_hands_each_rank_its_rows():
+    """``device_feed(loader, mesh)``, as the reference's takes the mesh:
+    each leaf is this rank's rows of the global batch (the second half at
+    dp index 1 of 2), wrapped as ``RankRows`` so the step over the mesh
+    takes them as they are; a global batch the ranks do not divide is
+    refused."""
+    from kubeflow_tpu_torch.parallel.mesh import RankRows
+    from kubeflow_tpu_torch.train.trainer import _my_rows
+
+    recs = _records(32, 13)
+
+    def split(rec):
+        return (torch.from_numpy(rec[:, 1:].copy()),
+                torch.from_numpy(rec[:, 0].astype(np.int32)))
+
+    mesh = _FakeMesh()
+    want = data.PyDataLoader(recs, batch=8, seed=2)
+    for pixels, labels in data.device_feed(
+            data.PyDataLoader(recs, batch=8, seed=2), mesh, transform=split,
+            steps=2):
+        rec = want.next()[0][4:]
+        assert isinstance(pixels, RankRows) and isinstance(labels, RankRows)
+        np.testing.assert_array_equal(pixels.rows.numpy(), rec[:, 1:])
+        np.testing.assert_array_equal(labels.rows.numpy(), rec[:, 0])
+        assert _my_rows(pixels, mesh, ("dcn", "dp")) is pixels.rows
+    with pytest.raises(ValueError, match="does not divide over 2"):
+        next(data.device_feed(data.PyDataLoader(recs, batch=7), mesh,
+                              steps=1))

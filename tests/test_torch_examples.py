@@ -3,9 +3,11 @@ finish through ``examples.bert.main`` and ``examples.lm.main``, the
 restart after the last step, the metrics lines, the launcher's mesh and
 refusals, and the image entry points. A 2-rank gloo gang
 (``tests/torch_gang.py``, suite ``examples``) runs what needs two
-processes: ``launcher_init``'s mesh, ``examples.lm`` at dp = 2 and at
-tp = 2 (its results, checkpoints and export written by rank 0 alone),
-and the refusals of MoE at dp = 2 and of the image entry points."""
+processes: ``launcher_init``'s mesh (with a ``pp`` axis too),
+``examples.lm`` at dp = 2 and at tp = 2 (its results, checkpoints and
+export written by rank 0 alone) and with MoE at dp = 2, and the image
+entry points at dp = 2, each against one rank on the same global batch
+(and ViT's ``--tp 2`` refusal)."""
 
 import json
 import os
@@ -115,15 +117,17 @@ def gang(tmp_path_factory):
     return Gang("examples", 2, tmp_path_factory.mktemp("examples-gang"))
 
 
-@pytest.mark.parametrize("env,kw,what", [
-    ({}, {"pp": 2}, "pp=2"),
+@pytest.mark.parametrize("case,sizes", [
+    ("launcher/pp2", [1, 1, 2, 1]),
 ], ids=["pp"])
-def test_launcher_refuses_what_needs_a_mesh(monkeypatch, env, kw, what):
-    for key, val in env.items():
-        monkeypatch.setenv(key, val)
-    with pytest.raises(NotImplementedError, match="Queue A 2.1") as err:
-        launcher_init(device="cpu", **kw)
-    assert what in str(err.value)
+def test_launcher_refuses_what_needs_a_mesh(gang, case, sizes):
+    """``launcher_init(pp=2)`` on two processes builds the pipeline axis
+    (it refused before the pipeline was ported); on one process
+    ``auto_mesh_config`` refuses it, as the reference's does."""
+    for got in gang.case(case):
+        assert got == {"sizes": sizes, "device": "cpu"}
+    with pytest.raises(ValueError, match="pp=2 does not divide"):
+        launcher_init(device="cpu", pp=2)
 
 
 @pytest.mark.parametrize("case,sizes", [
@@ -340,18 +344,48 @@ def test_lm_at_tp2_resumes_at_tp1(gang, monkeypatch, tmp_path):
         np.testing.assert_allclose(got[step], want[step], atol=1e-5, rtol=0)
 
 
-def test_lm_moe_refused_at_dp2(gang):
-    for got in gang.case("lm/moe_dp2"):
-        assert "--n-experts 8 at dp=2" in got and "Queue A 2.2" in got
+def test_lm_moe_refused_at_dp2(gang, monkeypatch, tmp_path):
+    """``--n-experts 4`` at dp = 2 runs (the layout was refused before
+    expert parallelism; the name is kept): the experts split over dp,
+    and rank 0 logs the losses of one rank at the same global batch of
+    four, within 1e-5 (f32 compute)."""
+    from kubeflow_tpu_torch.examples import lm as lm_example
+    from torch_gang import f32_config
+
+    monkeypatch.setattr(lm_example, "TransformerConfig", f32_config)
+    _lm(monkeypatch, tmp_path, "one", 2, "--n-experts", "4",
+        "--per-device-batch", "4")
+    want = _by_key(tmp_path, "one", "loss")
+    gang.case("lm/moe_dp2")
+    got = _by_key(Path(gang.out), "moe-dp2", "loss")
+    assert sorted(got) == [1, 2]
+    for step in got:
+        np.testing.assert_allclose(got[step], want[step], atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("entry", ["resnet", "vit", "mnist"])
-def test_image_entry_points_refuse_two_processes(gang, entry):
-    """Two processes would each train alone with no gradient exchange:
-    the image step refuses a mesh of more than one rank first."""
-    for got in gang.case("image_refusals"):
-        assert "runs on one rank" in got[entry]
-        assert "Queue A 2.3" in got[entry]
+def test_image_entry_points_refuse_two_processes(gang, entry, monkeypatch,
+                                                 tmp_path):
+    """Two processes at dp = 2 run (the layout was refused before the
+    image step split the batch; the name is kept): rank 0 logs the
+    losses one rank logs on the same global batch, within 1e-5 (f32;
+    ResNet's BatchNorm over the global batch)."""
+    import importlib
+
+    from torch_gang import f32_image_entry, image_entry_argv
+
+    module = importlib.import_module(f"kubeflow_tpu_torch.examples.{entry}")
+    monkeypatch.setenv("KFTPU_RESULTS_DIR", str(tmp_path / "results"))
+    monkeypatch.setenv("KFTPU_JOB_NAME", "one")
+    monkeypatch.delenv("KFTPU_PROFILE_DIR", raising=False)
+    with f32_image_entry(entry):
+        module.main(image_entry_argv(entry, 1))
+    want = _by_key(tmp_path, "one", "loss")
+    assert gang.case(f"image/{entry}") == ["ran", "ran"]
+    got = _by_key(Path(gang.out), f"image-{entry}", "loss")
+    assert sorted(got) == sorted(want) and len(got) >= 2
+    for step in got:
+        np.testing.assert_allclose(got[step], want[step], atol=1e-5, rtol=0)
 
 
 # -- the image-classification entry points ------------------------------------
@@ -425,7 +459,9 @@ def test_resnet_entry_point_trains_from_shards(thin_resnet, monkeypatch,
     # native while it ran; closed (its threads joined) when main returns
     assert ips > 0 and native and not made.native
     assert len(batches) == 3
-    for pixels, labels in batches:
+    for batch in batches:
+        # over the mesh each leaf is wrapped as this rank's rows
+        pixels, labels = (leaf.rows for leaf in batch)
         assert pixels.dtype == torch.bfloat16
         assert pixels.shape == (4, size, size, 3)
         assert labels.dtype == torch.int32 and labels.shape == (4,)
@@ -452,11 +488,15 @@ def test_vit_entry_point_trains_on_the_cpu(monkeypatch, capsys):
     assert ips > 0 and recs[-1]["images_per_sec"] == ips
 
 
-def test_vit_entry_point_refuses_tp():
+def test_vit_entry_point_refuses_tp(gang):
+    """``--tp 2`` on one process: ``auto_mesh_config`` refuses it; on
+    two, the image step refuses tensor parallelism (ROADMAP 2.4)."""
     from kubeflow_tpu_torch.examples import vit as vit_example
 
     with pytest.raises(ValueError, match="tp=2 does not divide 1"):
         vit_example.main(VIT_TINY + ["--steps", "1", "--tp", "2"])
+    for got in gang.case("vit/tp2"):
+        assert "tp=2" in got and "Queue A 2.4" in got
 
 
 def test_mnist_data_is_the_reference(tmp_path):

@@ -197,6 +197,18 @@ def test_mlm_train_step_matches_jax_at_dp2(mlm_gang):
            convert.unflatten(convert.random_bert_params(cfg, 0)))
 
 
+def test_steps_take_device_feed_rows(gang, mlm_gang):
+    """``device_feed(loader, mesh)`` hands each rank its rows wrapped as
+    ``RankRows``: the LM step at dp = 2 x tp = 2 and the MLM step at
+    dp = 2 take them as they are, so their metrics are those of the same
+    global batch passed whole (a batch cut twice would train on a
+    quarter or half of it, or be refused)."""
+    for want, got in ((gang.case("train/default"), gang.case("feed")),
+                      (mlm_gang.case("mlm"), mlm_gang.case("feed"))):
+        for rank, (w, g) in enumerate(zip(want, got)):
+            assert g == w["metrics"], f"rank {rank}"
+
+
 def test_one_rank_mesh_splits_nothing():
     """On one rank the mesh splits nothing: the specs name ``tp`` where
     the rules do, every parameter is whole, and the logits are the

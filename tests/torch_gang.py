@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import os
 import sys
 import traceback
@@ -61,6 +62,37 @@ COLLECTIVE_SPECS = {
     "ppermute": ("rows", "rows"),
 }
 MLM_BATCH, MLM_SEQ = 4, 16
+# the pipeline: pipeline_apply's layer stack and microbatches (M, mb)
+PIPE_L, PIPE_DIN = 8, 16
+PIPE_APPLY = {"4x6": (4, 6), "7x3": (7, 3)}
+# pipelined LM steps: mesh, tiny_config(n_layers=4), 2 microbatches of
+# the global batch of 8
+PIPE_MESHES = {"dp2pp2": dict(dp=2, pp=2), "pp2tp2": dict(pp=2, tp=2)}
+PIPE_LAYERS, PIPE_M, PIPE_BATCH, PIPE_LOGIT_M = 4, 2, 8, 4
+# the full mesh: dp 2 x pp 2 x tp 2, MoE with capacity dispatch
+FULL_CFG = dict(n_layers=4, n_experts=4, moe_capacity_factor=2.0)
+FULL_OPT = dict(learning_rate=1e-2, warmup_steps=1, decay_steps=10)
+FULL_STEPS = 4
+# MoE over dp 2 x tp 2: case -> config and optimizer overrides; "drops"
+# fills 64 slots with 128 choices (capacity 16 of 4 experts)
+MOE_CASES: Dict[str, Dict[str, Any]] = {
+    "dense": {},
+    "capacity": {"cfg": {"moe_capacity_factor": 1.25}},
+    "drops": {"cfg": {"moe_capacity_factor": 0.25},
+              "opt": {"grad_clip": 0.05}},
+    # across two slices: the experts split over dp, replicated over dcn
+    "dcn_dense": {"mesh": dict(dcn=2, dp=2)},
+    "dcn_capacity": {"cfg": {"moe_capacity_factor": 1.25},
+                     "mesh": dict(dcn=2, dp=2)},
+}
+MOE_MESH = dict(dp=2, tp=2)
+MOE_EXPERTS = 4
+# the image step over dp = 4: 8 images, SGD 0.1 with momentum 0.9
+IMAGE_CASES = ("resnet_unfused", "resnet_fused", "vit", "mnist")
+IMAGE_BATCH, IMAGE_STEPS, IMAGE_LR = 8, 3, 0.1
+# fed by device_feed over the mesh: BatchNorm's global statistics show a
+# batch cut twice
+IMAGE_FEED_CASES = ("resnet_unfused", "mnist")
 
 
 def collective_input(seed: int = 0) -> np.ndarray:
@@ -100,6 +132,61 @@ def mlm_inputs(vocab: int):
     return tokens, labels, weights
 
 
+def pipe_stack() -> np.ndarray:
+    return (np.random.default_rng(0).standard_normal(
+        (PIPE_L, PIPE_DIN, PIPE_DIN)) * 0.1).astype(np.float32)
+
+
+def pipe_microbatches(M: int, mb: int) -> np.ndarray:
+    return np.random.default_rng(1).standard_normal(
+        (M, mb, PIPE_DIN)).astype(np.float32)
+
+
+def pipe_tokens(vocab: int, seed: int = 9) -> np.ndarray:
+    return np.random.default_rng(seed).integers(
+        0, vocab, (PIPE_BATCH, TRAIN_SEQ)).astype(np.int32)
+
+
+def image_inputs(case: str):
+    """``(images, labels)`` of the image cases: 8 rows, 32x32x3 (28x28x1
+    for MNIST), ten classes."""
+    rng = np.random.default_rng(8)
+    shape = (28, 28, 1) if case == "mnist" else (32, 32, 3)
+    images = rng.standard_normal((IMAGE_BATCH,) + shape).astype(np.float32)
+    return images, rng.integers(0, 10, IMAGE_BATCH).astype(np.int32)
+
+
+def image_variables(case: str):
+    """The port's config and JAX-layout weights of an image case, from
+    numpy seeds: ResNet (stages 1-1, width 16, f32, the conv stem, bn3's
+    scales drawn at random so the fused sites get a gradient) in the
+    fused layout or unfused from the same weights, ViT tiny (f32,
+    unrolled), the MNIST CNN."""
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.resnet import ResNetConfig
+    from kubeflow_tpu_torch.models.vit import vit_tiny
+
+    if case.startswith("resnet"):
+        fused = case == "resnet_fused"
+        cfg = ResNetConfig(stage_sizes=(1, 1), num_classes=10, width=16,
+                           dtype="float32", bn_dtype="float32", stem="conv",
+                           fused_bn_conv=True)
+        flat = convert.flatten(convert.random_resnet_params(cfg, 7))
+        rng = np.random.default_rng(17)
+        for key in sorted(flat):
+            if key.endswith("bn3/scale"):
+                flat[key] = rng.standard_normal(flat[key].shape).astype(
+                    np.float32)
+        variables = convert.unflatten(flat)
+        if not fused:
+            variables = convert.unfuse_bn_conv(variables)
+        return dataclasses.replace(cfg, fused_bn_conv=fused), variables
+    if case == "vit":
+        cfg = dataclasses.replace(vit_tiny(10), dtype="float32")
+        return cfg, convert.unflatten(convert.random_vit_params(cfg, 0))
+    return None, convert.random_mnist_params(0)
+
+
 def block(x: np.ndarray, how: str, n: int, i: int) -> np.ndarray:
     """Block ``i`` of ``n`` of ``x``: ``rows`` (dim 0), ``cols`` (dim 1)
     or ``all`` (the whole)."""
@@ -111,6 +198,36 @@ def block(x: np.ndarray, how: str, n: int, i: int) -> np.ndarray:
 
 
 # -- rank side --------------------------------------------------------------
+
+
+class FixedLoader:
+    """A loader whose every batch is ``batch`` (an array or a tuple of
+    arrays: a case's global batch), for ``device_feed``."""
+
+    def __init__(self, batch) -> None:
+        self.batch = batch
+
+    def next(self):
+        return self.batch, 0
+
+    def close(self) -> None:
+        pass
+
+
+def fed_steps(step, state, mesh, batch, steps: int = STEPS):
+    """``steps`` steps fed by ``device_feed(loader, mesh)``: each rank's
+    leaves arrive wrapped as its rows (``RankRows``), which the step
+    takes as they are. Returns each step's ``(loss, second metric,
+    step)`` and the final state."""
+    from kubeflow_tpu_torch.data import device_feed
+
+    metrics = []
+    for leaves in device_feed(FixedLoader(batch), mesh, steps=steps):
+        leaves = leaves if isinstance(leaves, tuple) else (leaves,)
+        state, m = step(state, *leaves)
+        second = m["grad_norm"] if "grad_norm" in m else m["accuracy"]
+        metrics.append((float(m["loss"]), float(second), int(m["step"])))
+    return metrics, state
 
 
 def _cpu_mesh(**cfg):
@@ -206,6 +323,19 @@ def _collectives_suite() -> Dict[str, Callable[[], Any]]:
                     block(ct, "cols", n, i)))
                 (col.all_to_all_grad(xg, mesh, axis) * g).sum().backward()
                 out["all_to_all_grad"] = xg.grad
+        # the differentiable sum, gather and scatter, each rank's input
+        # and cotangent scaled by (its index + 1)
+        w = float(i + 1)
+        rows = np.ascontiguousarray(block(full, "rows", n, i))
+        for op, x, g in (
+                ("all_gather_grad", rows, ct * w),
+                ("reduce_scatter_grad", full * w,
+                 np.ascontiguousarray(block(ct, "rows", n, i))),
+                ("all_reduce_grad", full * w, ct * w)):
+            x = torch.from_numpy(np.array(x)).requires_grad_(True)
+            y = getattr(col, op)(x, mesh, axis)
+            (y * torch.from_numpy(np.array(g))).sum().backward()
+            out[op] = (y.detach(), x.grad)
         # Megatron's f and g over the axis: rank-dependent inputs
         x = torch.from_numpy(full[i]).requires_grad_(True)
         y = col.reduce_from(x, mesh, axis)
@@ -298,9 +428,18 @@ def _mesh_train_suite() -> Dict[str, Callable[[], Any]]:
         with torch.no_grad():
             return model(rows)
 
+    def fed():
+        cfg = _lm_config()
+        state, _ = create_sharded_state(
+            cfg, convert.random_params(cfg, 0), make_optimizer(LR, **OPT),
+            mesh, device="cpu")
+        return fed_steps(make_lm_train_step(mesh), state, mesh,
+                         train_tokens("default", cfg.vocab_size))[0]
+
     cases = {f"train/{c}": (lambda c=c: train(c)) for c in TRAIN_CASES}
     cases.update({f"logits/{i}": (lambda i=i: logits(i))
                   for i in LOGIT_IMPLS})
+    cases["feed"] = fed
     return cases
 
 
@@ -331,18 +470,361 @@ def _mlm_suite() -> Dict[str, Callable[[], Any]]:
         return {"metrics": metrics,
                 "params": convert.gather_params(state.module)}
 
-    return {"mlm": mlm}
+    def fed():
+        import dataclasses
+
+        mesh = _cpu_mesh(dp=2)
+        cfg = dataclasses.replace(bert_tiny(), dtype="float32")
+        state = create_bert_train_state(
+            cfg, convert.random_bert_params(cfg, 0),
+            make_optimizer(LR, **OPT), device="cpu")
+        return fed_steps(make_mlm_train_step(mesh), state, mesh,
+                         mlm_inputs(cfg.vocab_size))[0]
+
+    return {"mlm": mlm, "feed": fed}
+
+
+def _pipeline_suite(out: str) -> Dict[str, Callable[[], Any]]:
+    import torch.distributed as tdist
+
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.parallel import pipeline as pl
+    from kubeflow_tpu_torch.parallel.mesh import axis_index
+    from kubeflow_tpu_torch.train import (
+        create_sharded_state,
+        make_optimizer,
+        make_pipelined_lm_train_step,
+    )
+    from kubeflow_tpu_torch.train.checkpoint import CheckpointManager
+
+    meshes = {"pp4": _cpu_mesh(pp=4)}
+    meshes.update({k: _cpu_mesh(**v) for k, v in PIPE_MESHES.items()})
+
+    def stage_fn(ws, x):
+        for w in ws:
+            x = torch.tanh(x @ w)
+        return x
+
+    def apply(shape, grad):
+        mesh = meshes["pp4"]
+        w = pl.split_stages(torch.from_numpy(pipe_stack()), 4)[
+            axis_index(mesh, "pp")].clone().requires_grad_(grad)
+        x = torch.from_numpy(pipe_microbatches(*shape))
+        y = pl.pipeline_apply(stage_fn, w, x, mesh=mesh)
+        if not grad:
+            return y.detach()
+        (y ** 2).sum().backward()
+        return w.grad
+
+    def pipelined_model():
+        cfg = _lm_config(n_layers=PIPE_LAYERS)
+        model = convert.to_trainable(cfg, convert.random_params(cfg, 0),
+                                     device="cpu", mesh=meshes["pp4"])
+        return cfg, pl.make_pipelined_lm_forward(
+            model, meshes["pp4"], n_microbatches=PIPE_LOGIT_M)
+
+    def logits():
+        cfg, fwd = pipelined_model()
+        with torch.no_grad():
+            return fwd(torch.from_numpy(pipe_tokens(cfg.vocab_size)))
+
+    def ragged():
+        _, fwd = pipelined_model()
+        try:
+            fwd(torch.zeros((6, TRAIN_SEQ), dtype=torch.int32))
+        except ValueError as e:
+            return str(e)
+        return "no error"
+
+    def tx():
+        return make_optimizer(LR, **OPT)
+
+    def train(name):
+        mesh = meshes[name]
+        cfg = _lm_config(n_layers=PIPE_LAYERS)
+        state, shard = create_sharded_state(
+            cfg, convert.random_params(cfg, 0), tx(), mesh, device="cpu",
+            pipelined=True)
+        step = make_pipelined_lm_train_step(mesh, n_microbatches=PIPE_M)
+        toks = pipe_tokens(cfg.vocab_size)
+        metrics = []
+        for _ in range(STEPS):
+            state, m = step(state, toks)
+            metrics.append((float(m["loss"]), float(m["grad_norm"]),
+                            int(m["step"])))
+        res = {"metrics": metrics,
+               "params": convert.gather_params(state.module),
+               "specs": {n: tuple(sp) for n, sp in shard["module"].items()},
+               "held": [n for n, _ in state.module.named_parameters()]}
+        if name != "dp2pp2":
+            return res
+        # the gathered checkpoint, restored at the same layout
+        names = [n for n, _ in state.module.named_parameters()]
+        res["mu"] = convert.gather_named(
+            dict(zip(names, state.opt_state["mu"])),
+            state.module.param_specs, state.module)
+        mgr = CheckpointManager(os.path.join(out, "ckpt-pipe"))
+        mgr.save(STEPS, state, wait=True)
+        tdist.barrier()
+        fresh, _ = create_sharded_state(
+            cfg, convert.random_params(cfg, 1), tx(), mesh, device="cpu",
+            pipelined=True)
+        mgr.restore(fresh)
+        same = [torch.equal(a, b) for a, b in zip(
+            fresh.module.parameters(), state.module.parameters())]
+        for key in ("mu", "nu"):
+            same += [torch.equal(a, b) for a, b in zip(
+                fresh.opt_state[key], state.opt_state[key])]
+        res["restored"] = (all(same) and len(same) == 3 * len(names)
+                           and fresh.step == state.step == STEPS
+                           and fresh.opt_state["count"] == STEPS)
+        return res
+
+    cases = {f"apply/{k}": (lambda k=k: apply(PIPE_APPLY[k], False))
+             for k in PIPE_APPLY}
+    cases["apply/grad"] = lambda: apply(PIPE_APPLY["4x6"], True)
+    def fed(name):
+        mesh = meshes[name]
+        cfg = _lm_config(n_layers=PIPE_LAYERS)
+        state, _ = create_sharded_state(
+            cfg, convert.random_params(cfg, 0), tx(), mesh, device="cpu",
+            pipelined=True)
+        step = make_pipelined_lm_train_step(mesh, n_microbatches=PIPE_M)
+        try:
+            return fed_steps(step, state, mesh,
+                             pipe_tokens(cfg.vocab_size))[0]
+        except ValueError as e:
+            return str(e)
+
+    cases["logits"] = logits
+    cases["ragged"] = ragged
+    cases.update({f"train/{k}": (lambda k=k: train(k)) for k in PIPE_MESHES})
+    cases.update({f"feed/{k}": (lambda k=k: fed(k)) for k in PIPE_MESHES})
+    return cases
+
+
+def full_mesh_tokens(vocab: int) -> np.ndarray:
+    return pipe_tokens(vocab, seed=1)
+
+
+def _full_mesh_suite() -> Dict[str, Callable[[], Any]]:
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.train import (
+        create_sharded_state,
+        make_optimizer,
+        make_pipelined_lm_train_step,
+    )
+
+    def full():
+        mesh = _cpu_mesh(dp=2, pp=2, tp=2)
+        cfg = _lm_config(**FULL_CFG)
+        state, _ = create_sharded_state(
+            cfg, convert.random_params(cfg, 0),
+            make_optimizer(FULL_OPT["learning_rate"], warmup_steps=1,
+                           decay_steps=FULL_OPT["decay_steps"]),
+            mesh, device="cpu", pipelined=True)
+        step = make_pipelined_lm_train_step(mesh, n_microbatches=2)
+        toks = full_mesh_tokens(cfg.vocab_size)
+        losses = []
+        for _ in range(FULL_STEPS):
+            state, m = step(state, toks)
+            losses.append(float(m["loss"]))
+        return {"losses": losses}
+
+    return {"full": full}
+
+
+def _moe_mesh_suite(out: str) -> Dict[str, Callable[[], Any]]:
+    import torch.distributed as tdist
+
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.parallel.mesh import PartitionSpec, local_block
+    from kubeflow_tpu_torch.train import (
+        create_sharded_state,
+        make_lm_train_step,
+        make_optimizer,
+    )
+    from kubeflow_tpu_torch.train.checkpoint import CheckpointManager
+
+    meshes = {"dp2tp2": _cpu_mesh(**MOE_MESH),
+              "dcn2dp2": _cpu_mesh(dcn=2, dp=2)}
+    mesh = meshes["dp2tp2"]
+
+    def config(case):
+        return _lm_config(n_experts=MOE_EXPERTS,
+                          **MOE_CASES[case].get("cfg", {}))
+
+    def train(case):
+        cfg = config(case)
+        on = meshes["dcn2dp2" if "mesh" in MOE_CASES[case] else "dp2tp2"]
+
+        def tx():
+            return make_optimizer(LR, **OPT,
+                                  **MOE_CASES[case].get("opt", {}))
+
+        state, _ = create_sharded_state(
+            cfg, convert.random_params(cfg, 0), tx(), on, device="cpu")
+        step = make_lm_train_step(on)
+        toks = train_tokens("default", cfg.vocab_size)
+        metrics = []
+        for _ in range(STEPS):
+            state, m = step(state, toks)
+            metrics.append((float(m["loss"]), float(m["grad_norm"]),
+                            int(m["step"])))
+        res = {"metrics": metrics,
+               "params": convert.gather_params(state.module)}
+        if case == "dense":
+            # the gathered checkpoint (experts over dp, columns over tp),
+            # restored at the same layout
+            mgr = CheckpointManager(os.path.join(out, "ckpt-moe"))
+            mgr.save(STEPS, state, wait=True)
+            tdist.barrier()
+            fresh, _ = create_sharded_state(
+                cfg, convert.random_params(cfg, 1), tx(), on, device="cpu")
+            mgr.restore(fresh)
+            res["restored"] = all(torch.equal(a, b) for a, b in zip(
+                list(fresh.module.parameters()) + fresh.opt_state["mu"]
+                + fresh.opt_state["nu"],
+                list(state.module.parameters()) + state.opt_state["mu"]
+                + state.opt_state["nu"]))
+        return res
+
+    def aux(case):
+        cfg = config(case)
+        model = convert.to_trainable(cfg, convert.random_params(cfg, 0),
+                                     device="cpu", mesh=mesh)
+        rows = local_block(torch.from_numpy(logit_tokens(cfg.vocab_size)),
+                           PartitionSpec(("dcn", "dp")), mesh)
+        with torch.no_grad():
+            logits, total = model(rows, return_aux=True)
+        return {"logits": logits, "aux": float(total)}
+
+    cases = {f"train/{c}": (lambda c=c: train(c)) for c in MOE_CASES}
+    cases.update({f"aux/{c}": (lambda c=c: aux(c))
+                  for c in ("dense", "capacity")})
+    return cases
+
+
+def _image_state(case: str, device="cpu"):
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.mnist import MnistCnn
+    from kubeflow_tpu_torch.train import (
+        TrainState,
+        create_image_train_state,
+        create_vit_train_state,
+        make_sgd,
+    )
+
+    cfg, variables = image_variables(case)
+    tx = make_sgd(IMAGE_LR, momentum=0.9)
+    if case.startswith("resnet"):
+        return create_image_train_state(cfg, variables, tx, device=device)
+    if case == "vit":
+        return create_vit_train_state(cfg, variables, tx, device=device)
+    return TrainState.create(
+        convert.load_params(MnistCnn(), variables).to(device).train(), tx)
+
+
+def _image_mesh_suite() -> Dict[str, Callable[[], Any]]:
+    import copy
+
+    import torch.distributed as tdist
+
+    from kubeflow_tpu_torch.models.resnet import global_batch_stats
+    from kubeflow_tpu_torch.parallel.mesh import PartitionSpec, local_block
+    from kubeflow_tpu_torch.train import (
+        make_image_train_step,
+        softmax_cross_entropy,
+    )
+
+    mesh = _cpu_mesh(dp=4)
+    rows = PartitionSpec(("dcn", "dp"))
+
+    def grads(state, images, labels):
+        """The step's gradients at the state's weights: each rank's rows
+        through a copy of the module (its BN statistics untouched), the
+        loss's gradient averaged over the ranks."""
+        model = copy.deepcopy(state.module)
+        with global_batch_stats(mesh):
+            logits = model(local_block(images, rows, mesh), train=True)
+        loss = softmax_cross_entropy(logits,
+                                     local_block(labels, rows, mesh).long())
+        params = [p for p in model.parameters() if p.requires_grad]
+        out = []
+        for g in torch.autograd.grad(loss, params):
+            tdist.all_reduce(g)
+            out.append(g / 4)
+        return dict(zip([n for n, p in model.named_parameters()
+                         if p.requires_grad], out))
+
+    def train(case):
+        state = _image_state(case)
+        images, labels = (torch.from_numpy(a) for a in image_inputs(case))
+        res = {"grads": grads(state, images, labels), "metrics": []}
+        step = make_image_train_step(mesh)
+        for _ in range(IMAGE_STEPS):
+            state, m = step(state, images, labels)
+            res["metrics"].append((float(m["loss"]), float(m["accuracy"]),
+                                   int(m["step"])))
+        res["state"] = {n: t.detach().clone() for n, t in
+                        state.module.state_dict().items()}
+        return res
+
+    def fed(case):
+        return fed_steps(make_image_train_step(mesh), _image_state(case),
+                         mesh, image_inputs(case), IMAGE_STEPS)[0]
+
+    cases = {f"train/{c}": (lambda c=c: train(c)) for c in IMAGE_CASES}
+    cases.update({f"feed/{c}": (lambda c=c: fed(c))
+                  for c in IMAGE_FEED_CASES})
+    return cases
 
 
 LM_TINY = ["--device", "cpu", "--vocab-size", "128", "--d-model", "32",
            "--n-layers", "3", "--n-heads", "4", "--d-ff", "64", "--seq-len",
            "16", "--per-device-batch", "2", "--log-every", "1"]
-RESNET_TINY = ["--device", "cpu", "--image-size", "32", "--num-classes",
-               "10", "--per-device-batch", "4", "--steps", "1"]
 VIT_TINY = ["--device", "cpu", "--image-size", "32", "--patch-size", "8",
             "--num-classes", "10", "--d-model", "32", "--n-layers", "1",
             "--n-heads", "4", "--d-ff", "64", "--per-device-batch", "4",
             "--steps", "1"]
+# the image entry points at dp = 2, and the argv of one rank on the same
+# global batch: (module, argv at dp = 2, argv at dp = 1)
+IMAGE_ENTRY = {
+    "resnet": ["--device", "cpu", "--image-size", "32", "--num-classes",
+               "10", "--steps", "2", "--warmup-steps", "1", "--log-every",
+               "1"],
+    "vit": ["--device", "cpu", "--image-size", "32", "--patch-size", "8",
+            "--num-classes", "10", "--d-model", "32", "--n-layers", "1",
+            "--n-heads", "4", "--d-ff", "64", "--steps", "2",
+            "--log-every", "1"],
+    "mnist": ["--device", "cpu", "--steps", "3", "--batch-size", "16",
+              "--log-every", "1"],
+}
+IMAGE_ENTRY_BATCH = {"resnet": 2, "vit": 4}   # per device, at dp = 2
+
+
+def image_entry_argv(entry: str, dp: int) -> List[str]:
+    argv = list(IMAGE_ENTRY[entry])
+    if entry in IMAGE_ENTRY_BATCH:
+        argv += ["--per-device-batch", str(IMAGE_ENTRY_BATCH[entry] * 2 // dp)]
+    return argv
+
+
+@contextlib.contextmanager
+def f32_image_entry(entry: str):
+    """The entry point's model at f32 and test size: ``resnet18_thin``
+    (f32 already) over ResNet-50, the ViT config at f32 compute."""
+    from kubeflow_tpu_torch.examples import resnet, vit
+    from kubeflow_tpu_torch.models.resnet import resnet18_thin
+    from kubeflow_tpu_torch.models.vit import ViTConfig
+
+    saved = resnet.resnet50, vit.ViTConfig
+    resnet.resnet50 = lambda num_classes=1000: resnet18_thin(num_classes)
+    vit.ViTConfig = lambda **kw: ViTConfig(**dict(kw, dtype="float32"))
+    try:
+        yield
+    finally:
+        resnet.resnet50, vit.ViTConfig = saved
 
 
 def f32_config(**kw):
@@ -369,6 +851,7 @@ def _env(**values):
 def _examples_suite(out: str) -> Dict[str, Callable[[], Any]]:
     from kubeflow_tpu_torch.examples import common
     from kubeflow_tpu_torch.examples import lm as lm_example
+    from kubeflow_tpu_torch.examples import vit as vit_example
     from kubeflow_tpu_torch.parallel import mesh as pmesh
     from kubeflow_tpu_torch.serving import model_store
     from kubeflow_tpu_torch.train import checkpoint
@@ -420,13 +903,17 @@ def _examples_suite(out: str) -> Dict[str, Callable[[], Any]]:
             return str(e)
         return "no error"
 
-    def image_refusals():
-        from kubeflow_tpu_torch.examples import mnist, resnet, vit
+    def image_run(entry):
+        """The entry point at dp = 2 (``tp=1``: the image step splits the
+        batch only); its results file, which rank 0 alone writes."""
+        import importlib
 
-        return {"resnet": refused(lambda: resnet.main(RESNET_TINY)),
-                "vit": refused(lambda: vit.main(VIT_TINY)),
-                "mnist": refused(lambda: mnist.main(
-                    ["--device", "cpu", "--steps", "1"]))}
+        module = importlib.import_module(
+            f"kubeflow_tpu_torch.examples.{entry}")
+        with _env(KFTPU_RESULTS_DIR=os.path.join(out, "results"),
+                  KFTPU_JOB_NAME=f"image-{entry}"), f32_image_entry(entry):
+            module.main(image_entry_argv(entry, 2))
+        return "ran"
 
     return {
         "launcher/processes": lambda: launcher({}),
@@ -440,9 +927,12 @@ def _examples_suite(out: str) -> Dict[str, Callable[[], Any]]:
         "lm/tp2": lambda: lm_run("tp2", ["--tp", "2", "--steps", "2",
                                          "--checkpoint-every", "1"],
                                  f32=True),
-        "lm/moe_dp2": lambda: refused(lambda: lm_example.main(
-            LM_TINY + ["--tp", "1", "--n-experts", "8", "--steps", "1"])),
-        "image_refusals": image_refusals,
+        "launcher/pp2": lambda: launcher({}, pp=2),
+        "lm/moe_dp2": lambda: lm_run("moe-dp2", [
+            "--tp", "1", "--n-experts", "4", "--steps", "2"], f32=True),
+        "vit/tp2": lambda: refused(lambda: vit_example.main(
+            VIT_TINY + ["--tp", "2"])),
+        **{f"image/{e}": (lambda e=e: image_run(e)) for e in IMAGE_ENTRY},
     }
 
 
@@ -463,6 +953,10 @@ def _run(suite: str, out: str) -> None:
     cases = {"mesh": _mesh_suite, "collectives": _collectives_suite,
              "seq_parallel": _seq_parallel_suite,
              "mesh_train": _mesh_train_suite, "mlm": _mlm_suite,
+             "pipeline": lambda: _pipeline_suite(out),
+             "full_mesh": _full_mesh_suite,
+             "moe_mesh": lambda: _moe_mesh_suite(out),
+             "image_mesh": _image_mesh_suite,
              "examples": lambda: _examples_suite(out)}[suite]()
     for name, fn in cases.items():
         try:
