@@ -1260,7 +1260,7 @@ def _post(url, body, stream):
 
 
 def serve_phase(base: str, cfg, device, *, n_requests=8, prompt_len=300,
-                max_new=64):
+                max_new=64, decode_mesh=None):
     from kubeflow_tpu_torch import ops
     from kubeflow_tpu_torch.serving.server import ModelServer
 
@@ -1269,7 +1269,8 @@ def serve_phase(base: str, cfg, device, *, n_requests=8, prompt_len=300,
     os.environ["KFTPU_PAGED"] = "1"
     os.environ["KFTPU_SAMPLER_IMPL"] = "fused"
     server = ModelServer(base, port=0, decode_slots=8,
-                         decode_steps_per_sync=4, device=device)
+                         decode_steps_per_sync=4, device=device,
+                         decode_mesh=decode_mesh)
     port = server.start()
     url = f"http://127.0.0.1:{port}/v1/models/lm:generate"
     try:
@@ -1362,8 +1363,9 @@ def serve_phase(base: str, cfg, device, *, n_requests=8, prompt_len=300,
 # -- phase 4: kernel vs gather greedy parity in f32 -------------------------
 
 
-def load_f32(base: str, cfg, device):
-    """The export's weights in an f32 model, TF32 off: (config, model)."""
+def load_f32(base: str, cfg, device, mesh=None):
+    """The export's weights in an f32 model, TF32 off: (config, model);
+    with ``mesh``, the model built over it."""
     import dataclasses
 
     import torch
@@ -1382,15 +1384,23 @@ def load_f32(base: str, cfg, device):
         meta = yaml.safe_load(f)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     return cfg32, convert.to_module(cfg32, read_params(vdir, meta),
-                                    device=device)
+                                    device=device, mesh=mesh)
 
 
-def parity_phase(base: str, cfg, device, *, n=4, max_new=24,
-                 prompt_len=200):
+PARITY_PROMPTS = dict(n=4, length=200, max_new=24)
+
+
+def parity_prompts(vocab: int):
+    return prompts_for(PARITY_PROMPTS["n"], PARITY_PROMPTS["length"], vocab,
+                       seed=SEED + 7)
+
+
+def parity_phase(base: str, cfg, device):
     from kubeflow_tpu_torch.serving.engine import DecodeEngine
 
+    max_new = PARITY_PROMPTS["max_new"]
     cfg32, model = load_f32(base, cfg, device)
-    prompts = prompts_for(n, prompt_len, cfg.vocab_size, seed=SEED + 7)
+    prompts = parity_prompts(cfg.vocab_size)
     streams = {}
     for impl in ("kernel", "gather"):
         eng = DecodeEngine(cfg32, model, slots=8, paged=True,
@@ -4443,6 +4453,564 @@ def pipe_moe_image_phase(device) -> dict:
     return res
 
 
+# -- phase 23: serving over a mesh, and the encoders over tp ----------------
+
+# BERT-base and ViT-B/16 widths with 2 layers, f32: the encoder steps at
+# tp = 2 held against their unsplit twins
+ENC_BERT = dict(vocab_size=30522, d_model=768, n_layers=2, n_heads=12,
+                d_ff=3072, max_seq_len=128, attention_impl="flash",
+                remat=False, scan_layers=False)
+ENC_VIT = dict(image_size=224, patch_size=16, num_classes=1000,
+               d_model=768, n_layers=2, n_heads=12, d_ff=3072, remat=False,
+               scan_layers=False)
+ENC_BATCH, ENC_STEPS, ENC_LR = 4, 3, 1e-5
+GLOO_OPS = ("all_reduce", "all_gather", "broadcast")
+
+
+def gloo_on_cuda(device) -> dict:
+    """Each collective the tp path issues, over gloo on CUDA tensors:
+    ``{op: "ok", "wrong values" or the error}`` (every rank calls each)."""
+    import torch
+    import torch.distributed as tdist
+
+    r, n = tdist.get_rank(), tdist.get_world_size()
+    x = torch.full((4,), float(r + 1), device=device)
+
+    def run(op):
+        y = x.clone()
+        if op == "all_reduce":
+            tdist.all_reduce(y)
+            return bool((y == n * (n + 1) / 2).all())
+        if op == "all_gather":
+            y = x.new_empty(4 * n)
+            tdist.all_gather_into_tensor(y, x)
+            return y.view(n, 4)[:, 0].tolist() == [float(i + 1)
+                                                   for i in range(n)]
+        tdist.broadcast(y, src=0)
+        return bool((y == 1).all())
+
+    out = {}
+    for op in GLOO_OPS:
+        try:
+            out[op] = "ok" if run(op) else "wrong values"
+        except Exception as e:  # noqa: BLE001 — the phase prints which
+            out[op] = f"{type(e).__name__}: {e}"
+    return out
+
+
+# phase 4's f32 prompts again, sampled: (temperature, top-k, top-p) and a
+# seed a request, so ``fused_sample`` runs on the gathered row at tp = 2
+MESH_SAMPLED = [(0.8, 0, 0.9), (0.8, 50, 1.0), (0.8, 40, 0.95), (0.8, 0, 1.0)]
+
+
+def mesh_requests(vocab: int) -> dict:
+    """Phase 23's requests as ``:generate`` bodies, one prompt each:
+    ``greedy`` (phase 4's) and ``sampled`` (:data:`MESH_SAMPLED`)."""
+    max_new = PARITY_PROMPTS["max_new"]
+    prompts = parity_prompts(vocab)
+    return {"greedy": [{"prompt_tokens": [p], "max_new_tokens": max_new}
+                       for p in prompts],
+            "sampled": [{"prompt_tokens": [p], "max_new_tokens": max_new,
+                         "temperature": t, "top_k": k, "top_p": tp,
+                         "seed": 100 + i}
+                        for i, (p, (t, k, tp)) in enumerate(
+                            zip(prompts, MESH_SAMPLED))]}
+
+
+def engine_streams(eng, bodies) -> list:
+    """``bodies`` submitted to ``eng`` as the server submits them, run
+    to the end: each request's tokens."""
+    reqs = [eng.submit(b["prompt_tokens"][0], max_new=b["max_new_tokens"],
+                       temperature=b.get("temperature", 0.0),
+                       top_k=b.get("top_k", 0), top_p=b.get("top_p", 1.0),
+                       seed=b.get("seed", 0)) for b in bodies]
+    drain(eng)
+    return [r.result() for r in reqs]
+
+
+def _serve_leader(device, base: str, mesh) -> dict:
+    """Rank 0: ``ModelServer(decode_mesh=)`` over ``base`` (the f32
+    export ``lm32`` alone); :func:`mesh_requests`' greedy, then sampled
+    requests through REST, each round's requests at once. Its streams,
+    walls, engine cache, the tokens its engine sampled, its blocks of
+    the model and the plans it sent."""
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    server = ModelServer(base, port=0, decode_slots=8,
+                         decode_steps_per_sync=4, poll_interval_s=3600,
+                         device=device, decode_mesh=mesh)
+    port = server.start()
+    url = f"http://127.0.0.1:{port}/v1/models/lm32:generate"
+    try:
+        lm = server.repo.get("lm32")
+        eng = server.repo.engine_for("lm32", lm)
+        eng.token_log = []
+        # warm-up: the first programs' cuBLAS handles on both ranks
+        _post(url, {"prompt_tokens": [[1, 2, 3]], "max_new_tokens": 2},
+              False)
+        res = {"shapes": {n: list(p.shape) for n, p in
+                          lm.module.named_parameters()
+                          if n in ("token_embed", "blocks.0.attn.q_proj",
+                                   "blocks.0.mlp.down_proj")}}
+        for name, bodies in mesh_requests(lm.lm_config.vocab_size).items():
+            results, errors = [None] * len(bodies), []
+
+            def run(i):
+                try:
+                    results[i] = _post(url, bodies[i], False)[0]
+                except Exception as e:  # noqa: BLE001 — checked below
+                    errors.append(f"{name} {i}: {type(e).__name__}: {e}")
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(len(bodies))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            check(not errors, "; ".join(errors))
+            res[name] = {"streams": [r["tokens"][0] for r in results],
+                         "wall_s": time.perf_counter() - t0}
+        k = eng._cache.k
+        res.update(cache=list(k.shape),
+                   kv_bytes=2 * k.numel() * k.element_size(),
+                   log=[(op, t.tolist()) for op, t in eng.token_log])
+    finally:
+        server.stop()
+    res["plans"] = server.repo.lockstep.plans_sent
+    return res
+
+
+def _split_serving(device, base: str, mesh) -> dict:
+    """Phase 23's tp = 2 serving, paged (through the kernel) and dense:
+    rank 0 serves (:func:`_serve_leader`), rank 1 follows its plans
+    (``serve_follower``). Each rank's counts run from its server's or
+    follower's start to its end."""
+    import torch.distributed as tdist
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.serving.server import serve_follower
+
+    out = {}
+    for mode in ("paged", "dense"):
+        os.environ["KFTPU_PAGED"] = "1" if mode == "paged" else "0"
+        os.environ["KFTPU_SAMPLER_IMPL"] = "fused"
+        _sync(device)
+        ops.reset_launches()
+        if tdist.get_rank() == 0:
+            res = _serve_leader(device, base, mesh)
+        else:
+            f = serve_follower(base, mesh, device=device, record=True)
+            res = {"log": [(op, t.tolist())
+                           for op, t in f.token_logs[("lm32", 1)]],
+                   "kv_heads": f.models[("lm32", 1)].module.cache_kv_heads}
+        _sync(device)
+        res["launches"] = ops.launch_counts()
+        out[mode] = res
+    return out
+
+
+def _encoder_steps(device, mesh) -> dict:
+    """``ENC_STEPS`` f32 steps of the BERT MLM step (flash on the rank's
+    6 heads) and of the ViT image step, each built over the tp = 2 mesh;
+    rank 0 also runs the unsplit twins and returns the largest
+    differences. Launches counted over the split runs alone."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.bert import BertConfig
+    from kubeflow_tpu_torch.models.vit import ViTConfig
+    from kubeflow_tpu_torch.train import (
+        create_bert_train_state,
+        create_vit_train_state,
+        make_image_train_step,
+        make_mlm_train_step,
+        make_optimizer,
+    )
+
+    rng = np.random.default_rng(11)
+    bcfg = BertConfig(**ENC_BERT, dtype="float32")
+    labels = rng.integers(0, bcfg.vocab_size, (ENC_BATCH, 128)).astype(
+        np.int32)
+    weights = (rng.random(labels.shape) < 0.15).astype(np.float32)
+    tokens = np.where(weights > 0, 103, labels).astype(np.int32)
+    vcfg = ViTConfig(**ENC_VIT, dtype="float32")
+    images = rng.standard_normal((ENC_BATCH, 224, 224, 3)).astype(
+        np.float32)
+    classes = rng.integers(0, 1000, ENC_BATCH).astype(np.int32)
+    models = {
+        "bert": (lambda m: create_bert_train_state(
+            bcfg, convert.random_bert_params(bcfg, 0),
+            make_optimizer(ENC_LR, warmup_steps=1, decay_steps=50),
+            device=device, mesh=m), make_mlm_train_step,
+            (tokens, labels, weights)),
+        "vit": (lambda m: create_vit_train_state(
+            vcfg, convert.random_vit_params(vcfg, 0),
+            make_optimizer(ENC_LR, warmup_steps=1, decay_steps=50),
+            device=device, mesh=m), make_image_train_step,
+            (images, classes))}
+
+    def run(name, m):
+        make_state, make_step, batch = models[name]
+        state = make_state(m)
+        p0 = {k: v.clone()
+              for k, v in convert.gather_params(state.module).items()}
+        step = make_step(m)
+        losses, norms = [], []
+        for _ in range(ENC_STEPS):
+            state, met = step(state, *batch)
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+        return losses, norms, p0, convert.gather_params(state.module)
+
+    out = {"launches": {}}
+    for name in models:
+        _sync(device)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        split = run(name, mesh)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        for k, n in ops.launch_counts().items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+        res = {"losses": split[0], "norms": split[1], "wall_s": wall}
+        if tdist.get_rank() == 0:
+            whole = run(name, None)
+            res["loss"] = max(abs(a - b) for a, b in zip(split[0],
+                                                         whole[0]))
+            res["grad_norm"] = max(abs(a - b) / max(abs(b), 1e-30)
+                                   for a, b in zip(split[1], whole[1]))
+            res["params"] = max(_max_err(split[3][k], whole[3][k])
+                                for k in whole[3])
+            res["moved"] = _moved_err(split[3], list(whole[3].items()),
+                                      whole[2])
+            res["unsplit_losses"] = whole[0]
+            del whole
+        del split
+        torch.cuda.empty_cache()
+        out[name] = res
+    return out
+
+
+def serve_rank_main(argv) -> int:
+    """One rank of phase 23's tp = 2 half: two ranks on the one card,
+    over gloo on CUDA tensors (NCCL refuses two ranks on one card),
+    started by :func:`mesh_serving_phase` through ``run_multiprocess``
+    with the env contract: ``chip_smoke.py --serve-rank OUT BASE``,
+    ``BASE`` holding the f32 export ``lm32`` alone. Checks that gloo
+    carries the path's collectives on CUDA tensors; where it does,
+    serves over the mesh (:func:`_split_serving`) and runs the encoder
+    steps. Writes ``OUT/rank<r>.json``."""
+    import torch
+    import torch.distributed as tdist
+
+    from kubeflow_tpu_torch.parallel import distributed as dist
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+
+    out, base, *where = argv
+    penv = dist.from_env()
+    device = torch.device(where[0] if where else "cuda:0")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.initialize(penv, backend="gloo")
+    res = {"rank": penv.process_id, "gloo": gloo_on_cuda(device)}
+    if all(v == "ok" for v in res["gloo"].values()):
+        mesh = create_mesh(MeshConfig(tp=penv.num_processes),
+                           device_type=device.type)
+        res["serving"] = _split_serving(device, base, mesh)
+        res["encoders"] = _encoder_steps(device, mesh)
+    with open(os.path.join(out, f"rank{penv.process_id}.json"), "w") as f:
+        json.dump(res, f)
+    _sync(device)
+    tdist.destroy_process_group()
+    return 0
+
+
+def mesh_kernel_checks(device) -> dict:
+    """The kernels at phase 23's tp = 2 shapes against their plain
+    versions: the paged kernel on a rank's 8 q heads over its 8 kv heads
+    (f32, as phase 23 serves, and bf16), flash f32 non-causal on BERT's
+    6 heads a rank at seq 128. ``{name: max abs err}``."""
+    import torch
+
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+
+    out = {"paged_decode_attention": 0.0}
+    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 8e-3)):
+        q, k, v, pages, pos, _ = paged_inputs(8, 8, 8, 64, 64, 32, dtype,
+                                              device, seed=SEED + 23)
+        got = pa.paged_decode_attention(q, k, v, pages, pos)
+        want = pa.paged_decode_attention_plain(q, k, v, pages, pos)
+        _sync(device)
+        err = (got.float() - want.float()).abs().max().item()
+        check(bool(torch.isfinite(got.float()).all()) and err <= atol,
+              f"paged QH=KH=8 {dtype}: max abs err {err} > {atol}")
+        out["paged_decode_attention"] = max(out["paged_decode_attention"],
+                                            err)
+    errs, _ = compare_flash(ENC_BATCH, 128, 6, 64, torch.float32, device,
+                            SEED + 23, causal=False, masked=False)
+    out["flash_fwd"] = max(errs["out"], errs["lse"])
+    out["flash_bwd_dq"] = errs["dq"]
+    out["flash_bwd_dkv"] = max(errs["dk"], errs["dv"])
+    return out
+
+
+# replicated kv heads (tp does not divide KH): (H, KH, tp, rank), a
+# rank whose q heads are in one kv head's group, and one whose span two
+REPLICATED_KV = ((16, 2, 4, 1), (12, 3, 2, 0))
+
+
+def replicated_kv_times(device) -> list:
+    """The paged kernel where tp does not divide the kv heads, at phase
+    3's serving rows (B 8, Dh 64, pages of 64, positions 251-363, bf16):
+    one rank's q heads over the slice of the pool's kv heads they read,
+    in place, as ``models/transformer.py:_paged_decode_attend`` hands
+    them over (``kv_window``), against the plain version on the same
+    heads; timed beside the form it replaced (every q head, the rank's
+    among zeros, over the whole pool, then cut), with the bound of the
+    rank's own work."""
+    import torch
+
+    from kubeflow_tpu_torch.models.transformer import kv_window
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+
+    out = []
+    for H, KH, tp, rank in REPLICATED_KV:
+        q, k, v, pages, pos, P = paged_serving_inputs(
+            8, H, KH, 64, 64, 32, torch.bfloat16, device, seed=SEED + 24)
+        n = H // tp
+        mine = slice(rank * n, (rank + 1) * n)
+        qr = q[:, mine].contiguous()
+        kv, off, width = kv_window(rank * n, n, H // KH)
+        ks, vs = k[:, :, kv], v[:, :, kv]
+
+        def windowed():
+            if kv.stop - kv.start > 1 and width > n:
+                wide = qr.new_zeros((qr.shape[0], width, qr.shape[2]))
+                wide[:, off:off + n] = qr
+                return pa.paged_decode_attention(
+                    wide, ks, vs, pages, pos)[:, off:off + n]
+            return pa.paged_decode_attention(qr, ks, vs, pages, pos)
+
+        def padded():
+            wide = torch.zeros_like(q)
+            wide[:, mine] = qr
+            return pa.paged_decode_attention(wide, k, v, pages, pos)[:, mine]
+
+        want = pa.paged_decode_attention_plain(q, k, v, pages, pos)[:, mine]
+        err = (windowed().float() - want.float()).abs().max().item()
+        check(err <= 8e-3, f"paged over a kv window (H {H}, KH {KH}, tp "
+                           f"{tp}): max abs err {err} > 8e-3")
+        nbytes, flops = paged_bytes_ops(qr, ks, pages, pos, P, 64)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS * 1e3
+        out.append({"H": H, "KH": KH, "tp": tp, "rank": rank,
+                    "kv_heads": kv.stop - kv.start,
+                    "q_heads": (width if kv.stop - kv.start > 1
+                                and width > n else n),
+                    "max_abs_err": err, "ms": time_ms(windowed),
+                    "padded_ms": time_ms(padded),
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops
+                    else "operations"})
+    return out
+
+
+def mesh_serving_phase(device, base: str, cfg, want) -> dict:
+    """Phase 23 (``mesh_serving``, ``encoder_tp``). In this process, at
+    world 1 over NCCL: phase 3's export and traffic through
+    ``ModelServer(decode_mesh=parse_serving_mesh("tp=1"))``, and phase
+    4's f32 greedy requests through an engine over that mesh, whose
+    streams must be ``want`` (phase 4's unsplit engine's); then the
+    unsplit engine's streams of :func:`mesh_requests`' sampled requests
+    and its KV bytes, paged and dense. Then two ranks on the one card at
+    tp = 2 over gloo (:func:`serve_rank_main`): ``ModelServer(
+    decode_mesh=)`` on rank 0 and ``serve_follower`` on rank 1 answer
+    the greedy and the sampled requests through REST, paged and dense
+    (streams the unsplit engine's, every rank the same tokens, each
+    rank's KV half the unsplit one's), and three f32 BERT MLM and ViT
+    steps run against the unsplit ones (loss, grad norm, parameters
+    within 1e-5, their movement within ``MESH_MOVED_LIMIT``). Where gloo
+    cannot carry a collective on CUDA tensors, the phase says which, and
+    the tp = 2 numerics rest on the CPU gangs
+    (``tests/test_torch_mesh_serving.py``,
+    ``tests/test_torch_encoder_tp.py``)."""
+    import torch
+
+    from kubeflow_tpu_torch.parallel.mesh import parse_serving_mesh
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+    from kubeflow_tpu_torch.testing import run_multiprocess
+
+    t0 = time.perf_counter()
+    mesh = parse_serving_mesh("tp=1", device_type=device.type)
+    lm_only = tempfile.mkdtemp(prefix="kftpu-mesh-serve-")
+    try:
+        os.symlink(os.path.join(base, "lm"), os.path.join(lm_only, "lm"))
+        serve = serve_phase(lm_only, cfg, device, decode_mesh=mesh)
+    finally:
+        shutil.rmtree(lm_only, ignore_errors=True)
+    reqs = mesh_requests(cfg.vocab_size)
+    unsplit = {}
+    for m in (mesh, None):
+        cfg32, model = load_f32(base, cfg, device, mesh=m)
+        for mode in ("paged", "dense") if m is None else ("paged",):
+            eng = DecodeEngine(cfg32, model, slots=8, paged=mode == "paged",
+                               paged_attention_impl="kernel",
+                               sampler_impl="fused", steps_per_sync=4,
+                               autostart=False, device=device, mesh=m)
+            if m is not None:
+                world1 = engine_streams(eng, reqs["greedy"])
+                check(world1 == want, f"f32 greedy over the tp=1 mesh "
+                                      f"differs from phase 4's unsplit "
+                                      f"engine: {world1} vs {want}")
+            else:
+                k = eng._cache.k
+                unsplit[mode] = {
+                    "sampled": engine_streams(eng, reqs["sampled"]),
+                    "kv_bytes": 2 * k.numel() * k.element_size()}
+            eng.close()
+            del eng
+        del model
+        torch.cuda.empty_cache()
+    checks = mesh_kernel_checks(device)
+    replicated = replicated_kv_times(device)
+    t_world1 = time.perf_counter() - t0
+    out_dir = tempfile.mkdtemp(prefix="kftpu-serve-ranks-")
+    lm32 = os.path.join(out_dir, "models")
+    os.makedirs(lm32)
+    os.symlink(os.path.join(base, "lm32"), os.path.join(lm32, "lm32"))
+    try:
+        procs = run_multiprocess(
+            [os.path.abspath(__file__), "--serve-rank", out_dir, lm32,
+             str(device)], 2, timeout_s=300.0, job_name="serve-smoke")
+        for r in procs:
+            check(r.returncode == 0,
+                  f"serve rank {r.process_id} ended {r.returncode}:\n"
+                  f"{r.stderr[-4000:]}")
+        ranks = []
+        for i in range(2):
+            with open(os.path.join(out_dir, f"rank{i}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    res = {"serve": serve, "world1_streams": world1, "checks": checks,
+           "replicated": replicated, "gloo": ranks[0]["gloo"],
+           "world1_s": t_world1, "mesh_serving": dict(serve["launches"]),
+           "encoder_tp": {}}
+    if "serving" not in ranks[0]:
+        return res
+    tp = 2
+    for mode in ("paged", "dense"):
+        r0, r1 = (r["serving"][mode] for r in ranks)
+        check(r0["greedy"]["streams"] == want,
+              f"tp=2 {mode} f32 greedy streams differ from the unsplit "
+              f"engine's: {r0['greedy']['streams']} vs {want}")
+        check(r0["sampled"]["streams"] == unsplit[mode]["sampled"],
+              f"tp=2 {mode} f32 sampled streams differ from the unsplit "
+              f"engine's: {r0['sampled']['streams']} vs "
+              f"{unsplit[mode]['sampled']}")
+        check(r0["log"] == r1["log"] and r0["log"],
+              f"tp=2 {mode}: the ranks sampled different tokens")
+        heads = r0["cache"][3]
+        check(heads * tp == cfg.n_kv_heads and r1["kv_heads"] == heads,
+              f"tp=2 {mode}: the ranks' caches hold {heads} and "
+              f"{r1['kv_heads']} of {cfg.n_kv_heads} kv heads")
+        check(r0["kv_bytes"] * tp == unsplit[mode]["kv_bytes"],
+              f"tp=2 {mode}: a rank's KV {r0['kv_bytes']} B is not half "
+              f"the unsplit {unsplit[mode]['kv_bytes']} B")
+        launched = {k: r0["launches"][k] + r1["launches"][k]
+                    for k in r0["launches"]}
+        check(launched["fused_sample"] > 0 and (
+            launched["paged_decode_attention"] > 0) == (mode == "paged"),
+            f"tp=2 {mode}: launches {launched}")
+        for k, n in launched.items():
+            res["mesh_serving"][k] = res["mesh_serving"].get(k, 0) + n
+        res[mode] = {"kv_bytes": r0["kv_bytes"], "plans": r0["plans"],
+                     "unsplit_kv_bytes": unsplit[mode]["kv_bytes"],
+                     "launches": launched}
+        for name in ("greedy", "sampled"):
+            w = r0[name]["wall_s"]
+            res[mode][name] = {"wall_s": w, "tokens_per_s": len(want)
+                               * len(want[0]) / w}
+    res["shapes"] = ranks[0]["serving"]["paged"]["shapes"]
+    for name in ("bert", "vit"):
+        e = ranks[0]["encoders"][name]
+        check(e["loss"] <= 1e-5 and e["grad_norm"] <= 1e-5
+              and e["params"] <= 1e-5 and e["moved"] <= MESH_MOVED_LIMIT,
+              f"tp=2 {name} vs unsplit: {e}")
+        res[name] = e
+    for r in ranks:
+        for k, n in r["encoders"]["launches"].items():
+            res["encoder_tp"][k] = res["encoder_tp"].get(k, 0) + n
+    return res
+
+
+def print_mesh_serving(ms: dict, cfg, kind: str, ident: str,
+                       phase3: dict) -> None:
+    """Phase 23's lines."""
+    s = ms["serve"]
+    print(f"phase 23 phase 3's traffic through ModelServer(decode_mesh="
+          f"parse_serving_mesh('tp=1')), world 1 over NCCL ({kind} | "
+          f"{ident}): tokens_per_s={s['tokens_per_s']:.1f} (phase 3, no "
+          f"mesh: {phase3['tokens_per_s']:.1f}) wall_s={s['wall_s']:.3f} "
+          f"ttft_ms_stream={[round(t * 1e3, 1) for t in s['ttft_s']]} "
+          f"(phase 3: {[round(t * 1e3, 1) for t in phase3['ttft_s']]}) "
+          f"launches={s['launches']}", flush=True)
+    print(f"phase 23 f32 greedy over the tp=1 mesh == phase 4's unsplit "
+          f"engine ({len(ms['world1_streams'])} x "
+          f"{len(ms['world1_streams'][0])} tokens); kernels at the tp=2 "
+          f"shapes vs plain: {ms['checks']}; world-1 part "
+          f"{ms['world1_s']:.1f}s", flush=True)
+    for r in ms["replicated"]:
+        print(f"phase 23 paged kernel, kv heads replicated (H {r['H']}, KH "
+              f"{r['KH']}, tp {r['tp']}, rank {r['rank']}: {r['q_heads']} q "
+              f"heads over {r['kv_heads']} kv head(s)), serving rows, bf16 "
+              f"({kind} | {ident}): kernel_ms="
+              f"{r['ms']:.4f} (every q head over the whole pool, as "
+              f"before: {r['padded_ms']:.4f}) bound_ms={r['bound_ms']:.4f} "
+              f"({r['bound_by']}) max_abs_err={r['max_abs_err']:.2e}",
+              flush=True)
+    print(f"phase 23 gloo on CUDA tensors, two ranks on one card: "
+          f"{ms['gloo']}", flush=True)
+    if "bert" not in ms:
+        print("phase 23 tp=2 on the card: skipped, gloo cannot carry "
+              "the collectives above; the tp=2 numerics rest on the CPU "
+              "gangs", flush=True)
+        return
+    for mode in ("paged", "dense"):
+        r = ms[mode]
+        print(f"phase 23 tp=2 ModelServer(decode_mesh=) on rank 0, "
+              f"serve_follower on rank 1, {mode}, f32, two ranks on one "
+              f"card over gloo ({kind} | {ident}): greedy streams == the "
+              f"unsplit engine's (tokens_per_s="
+              f"{r['greedy']['tokens_per_s']:.1f} wall_s="
+              f"{r['greedy']['wall_s']:.3f}), sampled streams == the "
+              f"unsplit engine's (tokens_per_s="
+              f"{r['sampled']['tokens_per_s']:.1f} wall_s="
+              f"{r['sampled']['wall_s']:.3f}), both ranks sampled the same "
+              f"tokens; {r['plans']} plans; a rank's KV cache "
+              f"{r['kv_bytes']} B of the unsplit {r['unsplit_kv_bytes']} B;"
+              f" launches {r['launches']}", flush=True)
+    print(f"phase 23 load_version(mesh=) on a rank: {ms['shapes']}",
+          flush=True)
+    for name in ("bert", "vit"):
+        e = ms[name]
+        print(f"phase 23 f32 {name} step over tp=2 vs unsplit, "
+              f"{ENC_STEPS} steps, 2 layers at base widths, TF32 off: max "
+              f"loss err {e['loss']:.2e}, grad_norm rel err "
+              f"{e['grad_norm']:.2e}, param err {e['params']:.2e} (limits "
+              f"1e-5), movement err {e['moved']:.2e} (limit "
+              f"{MESH_MOVED_LIMIT}); losses {e['losses']}; grad norms "
+              f"{e['norms']}; split run {e['wall_s']:.1f}s", flush=True)
+    print(f"phase 23 launches: mesh_serving={ms['mesh_serving']} "
+          f"encoder_tp={ms['encoder_tp']}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4525,7 +5093,7 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
           f"{serve['ledger_p50_s']} ttft_ms {serve['ledger_ttft_ms']}",
           flush=True)
     lap("3")
-    streams = parity_phase(base, cfg, device)
+    streams = streams4 = parity_phase(base, cfg, device)
     print(f"phase 4 f32 kernel == gather greedy streams "
           f"({len(streams)} x {len(streams[0])} tokens)", flush=True)
     lap("4")
@@ -4962,6 +5530,24 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
     print(f"phase 22 launches={pipe['launches']} by part "
           f"{pipe['parts']}", flush=True)
     lap("22")
+    torch.cuda.empty_cache()
+    ms = mesh_serving_phase(device, base, cfg, streams4)
+    for kern in kernels:
+        for path in ("mesh_serving", "encoder_tp"):
+            n = ms[path].get(kern["name"], 0)
+            kern["launches_by_path"][path] = n
+            kern["launches"] += n
+        if kern["name"] in ms["checks"]:
+            kern["max_abs_err"] = max(kern["max_abs_err"],
+                                      ms["checks"][kern["name"]])
+    for kern in kernels[:2]:
+        check(kern["launches_by_path"]["mesh_serving"] > 0,
+              f"{kern['name']} never launched on the mesh_serving path")
+    for kern in kernels[2:5]:
+        check(kern["launches_by_path"]["encoder_tp"] > 0,
+              f"{kern['name']} never launched on the encoder_tp path")
+    print_mesh_serving(ms, cfg, kind, ident, serve)
+    lap("23")
     for kern in kernels:
         for path, res in (("lm_entry", lm), ("moe_train", moe),
                           ("spec_serving", spec), ("predict", pred),
@@ -4981,6 +5567,8 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--serve-rank"]:
+        sys.exit(serve_rank_main(sys.argv[2:]))
     try:
         sys.exit(main())
     except SmokeFailure as e:

@@ -11,10 +11,13 @@ plus ``--device`` (CUDA by default).
 Step ``s`` draws its global batch (``per_device_batch × dp``) from a
 generator seeded by ``(99, s)``, so a run resumed from a checkpoint
 trains on the batches an unbroken run trains on, and each data-parallel
-rank trains on its rows of it (``make_mlm_train_step(mesh)``; the
-encoder is whole on every rank, so a mesh with tp > 1 is refused
-there). Rank 0 alone logs and writes checkpoints. The weights start
-from ``random_bert_params(config, 0)``.
+rank trains on its rows of it (``make_mlm_train_step(mesh)``). With
+``--tp`` > 1 (or ``auto_mesh_config``'s tp = 2 on an even process count,
+as the reference's) the encoder is built over the mesh: each rank holds
+its block of the heads, the MLP and the vocabulary, the loss is
+vocab-parallel, and the checkpoint is gathered whole. Rank 0 alone logs
+and writes checkpoints. The weights start from
+``random_bert_params(config, 0)``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from kubeflow_tpu_torch.examples.common import (
 from kubeflow_tpu_torch.models.bert import BertConfig, mask_tokens
 from kubeflow_tpu_torch.models.convert import random_bert_params
 from kubeflow_tpu_torch.ops.sampling import noise_seed
-from kubeflow_tpu_torch.parallel.mesh import data_parallel_size
+from kubeflow_tpu_torch.parallel.mesh import axis_size, data_parallel_size
 from kubeflow_tpu_torch.train import (
     create_bert_train_state,
     make_mlm_train_step,
@@ -86,8 +89,9 @@ def main(argv=None) -> float:
     batch = args.per_device_batch * data_parallel_size(mesh)
     tx = make_optimizer(args.learning_rate, warmup_steps=20,
                         decay_steps=args.steps + 1)
-    state = create_bert_train_state(config, random_bert_params(config, 0),
-                                    tx, device=device)
+    state = create_bert_train_state(
+        config, random_bert_params(config, 0), tx, device=device,
+        mesh=mesh if axis_size(mesh, "tp") > 1 else None)
 
     ckpt = None
     start_step = 0

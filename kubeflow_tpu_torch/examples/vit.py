@@ -8,11 +8,13 @@ with the image train step and ``make_optimizer(3e-4)``. One untimed
 step runs first; then one JSON metrics line every ``--log-every`` steps
 and a final line report images/s, which ``main`` returns. Same flags
 and defaults as the reference, plus ``--device`` (CUDA by default).
-Across processes the mesh is ``dp`` (``--tp`` > 1 is refused by the
-image step: tensor parallelism for ViT is ROADMAP Queue A 2.4): the
-batch is ``per_device_batch × dp`` rows, every rank makes the same
-global batch and trains on its rows, and rank 0 alone logs. The weights
-start from ``random_vit_params(config, 0)``.
+Across processes the mesh is ``dp × tp`` (``--tp``, default 1 here
+where the reference picks ``auto_mesh_config``'s): the ViT is built
+over it (each rank its block of the blocks' heads and MLP, as the
+reference's ``--tp``), the batch is ``per_device_batch × dp`` rows,
+every rank makes the same global batch and trains on its data rank's
+rows, and rank 0 alone logs. The weights start from
+``random_vit_params(config, 0)``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 from kubeflow_tpu_torch.examples.common import launcher_init, rank_logger
 from kubeflow_tpu_torch.models.convert import random_vit_params
 from kubeflow_tpu_torch.models.vit import ViTConfig
-from kubeflow_tpu_torch.parallel.mesh import data_parallel_size
+from kubeflow_tpu_torch.parallel.mesh import axis_size, data_parallel_size
 from kubeflow_tpu_torch.train import (
     create_vit_train_state,
     make_image_train_step,
@@ -52,7 +54,7 @@ def main(argv=None) -> float:
 
     penv, mesh, device = launcher_init(
         tp=1 if args.tp is None else args.tp, device=args.device)
-    step_fn = make_image_train_step(mesh)      # refuses tp > 1
+    step_fn = make_image_train_step(mesh)
     log_metrics = rank_logger(penv)
     batch = args.per_device_batch * data_parallel_size(mesh)  # global
     config = ViTConfig(
@@ -60,8 +62,9 @@ def main(argv=None) -> float:
         num_classes=args.num_classes, d_model=args.d_model,
         n_layers=args.n_layers, n_heads=args.n_heads, d_ff=args.d_ff)
     tx = make_optimizer(3e-4, warmup_steps=10, decay_steps=args.steps + 10)
-    state = create_vit_train_state(config, random_vit_params(config, 0), tx,
-                                   device=device)
+    state = create_vit_train_state(
+        config, random_vit_params(config, 0), tx, device=device,
+        mesh=mesh if axis_size(mesh, "tp") > 1 else None)
 
     gen = torch.Generator(device).manual_seed(0)
     images = torch.randn((batch, args.image_size, args.image_size, 3),

@@ -29,11 +29,14 @@ from kubeflow_tpu_torch.models.transformer import (
     RMSNorm,
     TransformerConfig,
     _compute,
+    _take_rows_split,
     rope_tables,
     run_blocks,
+    split_over,
     take_rows,
     torch_dtype,
 )
+from kubeflow_tpu_torch.ops import collectives as col
 
 MASK_TOKEN_ID = 103  # conventionally [MASK] in the BERT vocab
 
@@ -101,9 +104,19 @@ def bert_tiny() -> BertConfig:
 
 class Bert(nn.Module):
     """``forward(tokens, token_types=None, seq_lengths=None)`` → MLM
-    logits ``(B, S, V)`` f32."""
+    logits ``(B, S, V)`` f32.
 
-    def __init__(self, config: BertConfig) -> None:
+    Built over a mesh (``mesh=``), each rank holds its block of every
+    leaf the reference's rules split by name (``models/transformer.py:
+    split_over``): the blocks' heads and MLP, and ``token_embed``'s
+    vocabulary where ``tp`` divides it; ``type_embed`` and
+    ``mlm_transform`` are whole on every rank. The lookup then goes
+    through ``_take_rows_split``, the head's input through ``copy_to``
+    (so ``mlm_transform``'s gradient sums over ``tp``), and the forward
+    returns this rank's vocabulary block of the logits: the MLM loss is
+    vocab-parallel (``train/trainer.py``)."""
+
+    def __init__(self, config: BertConfig, *, mesh=None) -> None:
         super().__init__()
         ec = config.encoder_config()
         ec.validate()
@@ -118,6 +131,7 @@ class Bert(nn.Module):
         self.blocks = nn.ModuleList(Block(ec) for _ in range(config.n_layers))
         self.final_norm = RMSNorm(D, param_dtype=pd)
         self.mlm_transform = nn.Parameter(torch.empty(D, D, dtype=pd))
+        split_over(self, ec, mesh)
 
     def forward(self, tokens: torch.Tensor,
                 token_types: Optional[torch.Tensor] = None,
@@ -131,7 +145,10 @@ class Bert(nn.Module):
         dt, dev = c.dtype, tokens.device
         S = tokens.shape[1]
         embed = _compute(self.token_embed, dt)
-        x = take_rows(embed, tokens)
+        sp = self.split
+        vocab = sp is not None and sp.tp > 1 and sp.vocab_sharded
+        x = (_take_rows_split(embed, tokens, c.vocab_size, sp) if vocab
+             else take_rows(embed, tokens))
         if c.type_vocab_size:
             types = _compute(self.type_embed, dt)
             # no types: every position is segment 0, as the reference's
@@ -150,6 +167,8 @@ class Bert(nn.Module):
         # MLM head: dense transform + tied-embedding decode
         h = torch.nn.functional.gelu(x @ _compute(self.mlm_transform, dt),
                                      approximate="tanh")
+        if vocab:
+            h = col.copy_to(h, sp.mesh, "tp")
         return (h @ embed.t()).float()
 
 

@@ -144,10 +144,13 @@ def load_params(model: torch.nn.Module,
 
 
 def to_module(config: TransformerConfig, params: Mapping[str, Any], *,
-              device) -> Transformer:
-    """A loaded, frozen port ``Transformer`` on ``device``."""
+              device, mesh=None) -> Transformer:
+    """A loaded, frozen port ``Transformer`` on ``device``; with
+    ``mesh``, built over it and holding this rank's blocks of the full
+    ``params`` (the reference's ``shard_lm_params``: the whole model
+    never lands on one card)."""
     with torch.device(resolve_device(device)):
-        model = Transformer(config)
+        model = Transformer(config, mesh=mesh)
     load_params(model, params).eval()
     model.requires_grad_(False)
     return model
@@ -268,10 +271,12 @@ def bert_to_module(config: BertConfig, params: Mapping[str, Any], *,
 
 
 def bert_to_trainable(config: BertConfig, params: Mapping[str, Any], *,
-                      device=None) -> Bert:
+                      device=None, mesh=None) -> Bert:
     """A loaded port ``Bert`` on ``device`` (CUDA unless ``"cpu"`` is
-    asked for), in train mode with every parameter trainable."""
-    return load_params(Bert(config), params).to(
+    asked for), in train mode with every parameter trainable. With
+    ``mesh``, built over it: this rank's blocks of the full ``params``
+    (:func:`bert_params` gathers them back)."""
+    return load_params(Bert(config, mesh=mesh), params).to(
         resolve_device(device)).train()
 
 
@@ -289,9 +294,11 @@ def bert_params(model: torch.nn.Module, *,
                scan_layers: bool = True) -> Dict[str, Any]:
     """A port ``Bert``, ``Transformer`` or ``ViT``'s parameters as a nested
     JAX-layout param tree of f32 numpy arrays (the inverse of
-    :func:`load_params`), in the scanned or the unrolled layout."""
+    :func:`load_params`), in the scanned or the unrolled layout. A model
+    built over a mesh is gathered whole first (:func:`gather_params`, a
+    collective)."""
     flat: Dict[str, Any] = {}
-    for name, p in model.named_parameters():
+    for name, p in gather_params(model).items():
         key, layer = _jax_key(name, scan_layers)
         arr = p.detach().float().cpu().numpy()
         if layer is None:
@@ -315,10 +322,11 @@ def vit_to_module(config: ViTConfig, params: Mapping[str, Any], *,
 
 
 def vit_to_trainable(config: ViTConfig, params: Mapping[str, Any], *,
-                     device=None) -> ViT:
+                     device=None, mesh=None) -> ViT:
     """A loaded port ``ViT`` on ``device`` (CUDA unless ``"cpu"`` is
-    asked for), in train mode with every parameter trainable."""
-    return load_params(ViT(config), params).to(
+    asked for), in train mode with every parameter trainable. With
+    ``mesh``, built over it: this rank's blocks of the full ``params``."""
+    return load_params(ViT(config, mesh=mesh), params).to(
         resolve_device(device)).train()
 
 

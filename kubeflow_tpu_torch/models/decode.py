@@ -18,6 +18,13 @@ Greedy speculative decoding (:func:`speculative_generate`) runs a small
 draft model beside the target over two dense caches and rolls rejected
 proposals back by resetting each row's write position.
 
+A model split over a mesh (``Transformer(config, mesh=)``) decodes
+through every function here when each rank of the mesh makes the same
+calls: its cache holds the rank's kv heads (``cache_kv_heads``), the
+forward issues the collectives, and every rank gets the full logits
+row, so the same seeds sample the same tokens everywhere. The
+speculative draft may be whole (replicated) beside a split target.
+
 Sampling takes its randomness as Gumbel noise ``(B, V)``
 (:func:`kubeflow_tpu_torch.ops.sampling.gumbel_noise`): a categorical
 draw is ``argmax(logits + gumbel)``, the identity ``jax.random.
@@ -48,25 +55,26 @@ Cache = Union[DenseKVCache, PagedKVCache]
 
 
 def init_cache(config: TransformerConfig, batch: int, *,
-               device) -> Cache:
+               device, kv_heads: Optional[int] = None) -> Cache:
     """An empty decode cache for ``batch`` rows.
 
     ``kv_page_size == 0``: the dense cache, zeros at position 0.
     Otherwise the paged cache, every row DISARMED: position
     ``max_seq_len`` and an all-sentinel page table, so writes drop and
     nothing live is read until :func:`arm_slot` points a row at real
-    pages."""
+    pages. ``kv_heads`` (default ``config.n_kv_heads``) is the kv heads
+    the cache holds: a model split over a mesh passes its
+    ``cache_kv_heads``, so each rank's cache holds only its block."""
     c = config
+    KH = c.n_kv_heads if kv_heads is None else int(kv_heads)
     if not c.kv_page_size:
-        shape = (c.n_layers, batch, c.max_seq_len, c.n_kv_heads,
-                 c.head_dim)
+        shape = (c.n_layers, batch, c.max_seq_len, KH, c.head_dim)
         return DenseKVCache(
             k=torch.zeros(shape, dtype=c.dtype, device=device),
             v=torch.zeros(shape, dtype=c.dtype, device=device),
             positions=torch.zeros((batch,), dtype=torch.int32,
                                   device=device))
-    shape = (c.n_layers, c.kv_pages, c.kv_page_size, c.n_kv_heads,
-             c.head_dim)
+    shape = (c.n_layers, c.kv_pages, c.kv_page_size, KH, c.head_dim)
     n_log = c.max_seq_len // c.kv_page_size
     return PagedKVCache(
         k=torch.zeros(shape, dtype=c.dtype, device=device),
@@ -294,7 +302,7 @@ def generate(model: Transformer, prompt: torch.Tensor, *,
             "end would be dropped")
     dev = prompt.device
     cache = init_cache(dataclasses.replace(c, kv_page_size=0), B,
-                       device=dev)
+                       device=dev, kv_heads=model.cache_kv_heads)
 
     def pick(logits, step):
         if greedy:
@@ -420,9 +428,9 @@ def speculative_generate(model: Transformer, draft: Transformer,
                    true_len)
     dev = prompt.device
     t_cache = init_cache(dataclasses.replace(model.config, kv_page_size=0),
-                         B, device=dev)
+                         B, device=dev, kv_heads=model.cache_kv_heads)
     d_cache = init_cache(dataclasses.replace(draft.config, kv_page_size=0),
-                         B, device=dev)
+                         B, device=dev, kv_heads=draft.cache_kv_heads)
     t_logits, t_cache = prefill(model, t_cache, prompt, true_len)
     _, d_cache = prefill(draft, d_cache, prompt, true_len)
     first = torch.argmax(t_logits, dim=-1).to(torch.int32)

@@ -131,9 +131,21 @@ reference:
   through ``parallel/pipeline.py:make_pipelined_lm_forward``; its plain
   forward refuses.
 
-A model built over a mesh of more than one rank trains; decoding from
-it refuses (mesh serving is a later slice). Context parallelism for MoE
-layers and inside the pipeline is not ported, and refuses.
+- **Decoding** on a model split over ``tp`` (mesh serving): every rank
+  runs the same decode forward on its heads and its block of the MLP
+  and of the vocabulary; its cache holds its kv heads
+  (:attr:`Transformer.cache_kv_heads`: ``KH/tp``, or all of them,
+  replicated, where ``tp`` does not divide them). The embedding keeps
+  ``_take_rows_split``; the output projection and the MLP return
+  through ``reduce_from``; the logits' vocabulary blocks are gathered
+  over ``tp`` into the full row on every rank, as GSPMD gathers them
+  under the reference's sampler. With replicated kv heads the paged
+  kernel takes every q head (this rank's among zeros) over the whole
+  pool, so it sees a plain GQA group. Decoding from a MoE model split
+  over a mesh, or from a pipeline stage, refuses (ROADMAP Queue A 2.8).
+
+Context parallelism for MoE layers and inside the pipeline is not
+ported, and refuses.
 """
 
 from __future__ import annotations
@@ -433,6 +445,24 @@ class Attention(nn.Module):
         out = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
         return col.reduce_from(out, sp.mesh, "tp") if tp > 1 else out
 
+    def _replicated_kv(self) -> bool:
+        """Whether ``tp`` splits the q heads but not the kv heads (they
+        do not divide by it): each rank then holds every kv head."""
+        sp = self.split
+        return sp is not None and sp.tp > 1 and not sp.kv_sharded
+
+    def _local_kv(self, k, v):
+        """``k``/``v`` ``(B, T, KH, Dh)`` cut to the kv head of each of
+        this rank's q heads, by the q head's global index, where the kv
+        heads are replicated; unchanged otherwise."""
+        if not self._replicated_kv():
+            return k, v
+        sp, c = self.split, self.c
+        H = c.n_heads // sp.tp
+        head = sp.tp_rank * H + torch.arange(H, device=k.device)
+        idx = head // (c.n_heads // c.n_kv_heads)
+        return k[:, :, idx], v[:, :, idx]
+
     def _attend(self, q, k, v, sin, cos, kv_len):
         """The training forward's attention core on this rank's heads."""
         c, sp = self.c, self.split
@@ -445,13 +475,7 @@ class Attention(nn.Module):
                 f"attention_impl={impl!r} (dense and flash only)")
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
-        if sp is not None and sp.tp > 1 and not sp.kv_sharded:
-            # replicated kv heads: the one of each local q head, by the
-            # q head's global index
-            H = q.shape[2]
-            head = sp.tp_rank * H + torch.arange(H, device=q.device)
-            group = c.n_heads // c.n_kv_heads
-            k, v = k[:, :, head // group], v[:, :, head // group]
+        k, v = self._local_kv(k, v)
         block_k = c.attention_block_k or _UNTUNED_BLOCK_K
         if impl == "ulysses" and sp is not None:
             return ulysses_attention(q, k, v, mesh=sp.mesh,
@@ -483,7 +507,8 @@ class Attention(nn.Module):
             keep = valid[..., None, None]
             ck[rows, dest] = torch.where(keep, k, ck[rows, dest])
             cv[rows, dest] = torch.where(keep, v, cv[rows, dest])
-        return _cache_attend(q, ck, cv, step.q_pos, self.c.head_dim)
+        kc, vc = self._local_kv(ck, cv)
+        return _cache_attend(q, kc, vc, step.q_pos, self.c.head_dim)
 
     def _paged_decode_attend(self, q, k, v, kv, step: _DecodeStep):
         c = self.c
@@ -501,13 +526,43 @@ class Attention(nn.Module):
                 paged_decode_attention,
             )
 
-            out = paged_decode_attention(q[:, 0].contiguous(), ck, cv,
-                                         pages, pos, sm_scale=Dh ** -0.5)
+            q1 = q[:, 0]
+            if not self._replicated_kv():
+                out = paged_decode_attention(q1.contiguous(), ck, cv, pages,
+                                             pos, sm_scale=Dh ** -0.5)
+                return out[:, None]
+            # the pool holds every kv head: the kernel reads the slice of
+            # the kv heads this rank's q heads map to, in place. Within
+            # one kv head they are its group; across more, the q heads
+            # of those kv heads' groups, this rank's among zeros
+            H = q1.shape[1]
+            kv, off, width = kv_window(self.split.tp_rank * H, H,
+                                       c.n_heads // c.n_kv_heads)
+            if kv.stop - kv.start > 1 and width > H:
+                wide = q1.new_zeros((B, width, Dh))
+                wide[:, off:off + H] = q1
+                out = paged_decode_attention(
+                    wide, ck[:, :, kv], cv[:, :, kv], pages, pos,
+                    sm_scale=Dh ** -0.5)[:, off:off + H]
+            else:
+                out = paged_decode_attention(
+                    q1.contiguous(), ck[:, :, kv], cv[:, :, kv], pages, pos,
+                    sm_scale=Dh ** -0.5)
             return out[:, None]
         # gather each row's logical view (B, Smax, KH, Dh)
         kc = ck[step.read_pages].reshape(B, Smax, KH, Dh)
         vc = cv[step.read_pages].reshape(B, Smax, KH, Dh)
+        kc, vc = self._local_kv(kc, vc)
         return _cache_attend(q, kc, vc, step.q_pos, Dh)
+
+
+def kv_window(first: int, n: int, group: int) -> Tuple[slice, int, int]:
+    """The kv heads that q heads ``first .. first + n - 1`` of a GQA
+    layout with ``group`` q heads a kv head read: ``(kv heads, offset,
+    width)``, the contiguous kv heads, and where those q heads sit among
+    the ``width`` q heads of those kv heads' groups."""
+    a, b = first // group, (first + n - 1) // group + 1
+    return slice(a, b), first - a * group, (b - a) * group
 
 
 def _cache_attend(q, kc, vc, q_pos, Dh: int) -> torch.Tensor:
@@ -828,13 +883,29 @@ def _shard(model: nn.Module, c: TransformerConfig, mesh):
         tp_rank=0 if cp else pmesh.axis_index(mesh, "tp"),
         seq=tp if cp else 0, seq_rank=pmesh.axis_index(mesh, "tp") if cp
         else 0,
-        vocab_sharded=pmesh.is_sharded(specs["token_embed"]),
+        vocab_sharded=pmesh.is_sharded(specs.get("token_embed")),
         kv_sharded="tp" in pmesh.spec_axes(kv) if kv is not None else True,
         data_axes=pmesh.batch_axes(c.rules),
         ep_axis=ep if isinstance(ep, str) and pmesh.axis_size(mesh, ep) > 1
         else None,
         pp=pp)
     return split, specs
+
+
+def split_over(model: nn.Module, c: TransformerConfig, mesh) -> None:
+    """Cut ``model`` (a ``Transformer``, or an encoder over its blocks:
+    ``Bert``, ``ViT``) down to this rank's blocks of ``mesh`` by the
+    reference's rules for each leaf name (:func:`_shard`), and hand the
+    split to its attention and MLP layers. Sets ``model.mesh``,
+    ``model.split`` and ``model.param_specs`` (None and ``{}`` without
+    a mesh)."""
+    model.mesh, model.split, model.param_specs = mesh, None, {}
+    if mesh is None:
+        return
+    model.split, model.param_specs = _shard(model, c, mesh)
+    for mod in model.modules():
+        if isinstance(mod, (Attention, Mlp, MoeMlp)):
+            mod.split = model.split
 
 
 def _take_rows_split(table: torch.Tensor, ids: torch.Tensor, V: int,
@@ -891,14 +962,18 @@ class Transformer(nn.Module):
         self.final_norm = RMSNorm(config.d_model,
                                   param_dtype=config.param_dtype)
         self._rope: Dict[Tuple[int, torch.device], Tuple] = {}
-        self.mesh = mesh
-        self.split: Optional[_Split] = None
-        self.param_specs: Dict[str, Any] = {}
-        if mesh is not None:
-            self.split, self.param_specs = _shard(self, config, mesh)
-            for mod in self.modules():
-                if isinstance(mod, (Attention, Mlp, MoeMlp)):
-                    mod.split = self.split
+        split_over(self, config, mesh)
+
+    @property
+    def cache_kv_heads(self) -> int:
+        """The kv heads this rank's decode cache holds: its block of
+        them under tensor parallelism (``KH / tp``), or every one where
+        ``tp`` does not divide them (replicated, as the reference's
+        engine creates the cache through ``shape_aware_spec``)."""
+        sp, KH = self.split, self.config.n_kv_heads
+        if sp is not None and sp.tp > 1 and sp.kv_sharded:
+            return KH // sp.tp
+        return KH
 
     def _tables(self, n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
         key = (n, torch.device(device))
@@ -1012,17 +1087,17 @@ class Transformer(nn.Module):
         speculative verify). ``return_aux`` (training forward) returns
         ``(out, aux)``, ``aux`` the summed MoE load-balance loss."""
         c, sp = self.config, self.split
+        if cache is not None and sp is not None and (
+                sp.pp > 1 or (c.n_experts and (sp.tp > 1 or sp.ep_axis))):
+            raise NotImplementedError(
+                "decoding from a MoE or pipelined model split over a mesh "
+                "is ROADMAP Queue A 2.8")
         if sp is not None and sp.pp > 1:
             raise ValueError(
                 "a model built over pp > 1 holds one pipeline stage: it "
                 "runs through parallel/pipeline.py:make_pipelined_lm_forward")
         B, S = tokens.shape
         dev = tokens.device
-        if cache is not None and sp is not None and (sp.tp > 1 or sp.seq > 1
-                                                     or sp.ep_axis):
-            raise NotImplementedError(
-                "decoding from a model split over a mesh (mesh serving) "
-                "is ROADMAP Queue A 2.4")
         aux: Any = 0.0
         table = self.embed_table()
         if cache is None:
@@ -1031,7 +1106,9 @@ class Transformer(nn.Module):
                                 return_aux=True)
             out = self.head(x, table)
             return (out, aux) if return_aux else out
-        x = take_rows(table, tokens)
+        split_vocab = sp is not None and sp.tp > 1 and sp.vocab_sharded
+        x = (_take_rows_split(table, tokens, c.vocab_size, sp)
+             if split_vocab else take_rows(table, tokens))
         if isinstance(cache, DenseKVCache):
             step = self._dense_step(cache, S, dev,
                                     ragged or c.ragged_decode)
@@ -1043,8 +1120,24 @@ class Transformer(nn.Module):
                 kv = (cache.k[i], cache.v[i], cache.pages, cache.positions)
                 x, _ = blk(x, None, None, kv, step)
         cache.positions.add_(S)
-        out = self.head(x, table)
+        # the full row on every rank, as GSPMD gathers it under the
+        # reference's sampler
+        out = self.full_logits(self.head(x, table))
         return (out, aux) if return_aux else out
+
+    def full_logits(self, out: torch.Tensor) -> torch.Tensor:
+        """``(B, S, V)`` logits from this rank's vocabulary block (what a
+        forward over a ``tp`` split returns): the blocks gathered over
+        ``tp`` in order, the same on every rank (a collective). Whole
+        logits and hidden states pass unchanged."""
+        sp = self.split
+        if (sp is None or sp.tp == 1 or not sp.vocab_sharded
+                or self.return_hidden):
+            return out
+        B, S = out.shape[:2]
+        blocks = col.all_gather(out.contiguous(), sp.mesh, "tp")
+        return blocks.reshape(sp.tp, B, S, -1).permute(1, 2, 0, 3) \
+            .reshape(B, S, -1)
 
 
 def tiny_config(**overrides) -> TransformerConfig:

@@ -31,6 +31,7 @@ from kubeflow_tpu_torch.models.transformer import (
     _compute,
     rope_tables,
     run_blocks,
+    split_over,
     torch_dtype,
 )
 
@@ -117,9 +118,16 @@ class PatchEmbed(nn.Module):
 class ViT(nn.Module):
     """``forward(images (B, H, W, C), train=True)`` → logits ``(B,
     num_classes)`` f32. ``train`` is accepted for the image train
-    step's call and ignored: the ViT has no train-only state."""
+    step's call and ignored: the ViT has no train-only state.
 
-    def __init__(self, config: ViTConfig, in_channels: int = 3) -> None:
+    Built over a mesh (``mesh=``), each rank holds its block of the
+    blocks' heads and MLP, as the reference's rules assign them by leaf
+    name (``models/transformer.py:split_over``); the patch stem, the
+    norms and the head are whole on every rank, and the logits are
+    whole too."""
+
+    def __init__(self, config: ViTConfig, in_channels: int = 3, *,
+                 mesh=None) -> None:
         super().__init__()
         ec = config.encoder_config()
         ec.validate()
@@ -131,6 +139,7 @@ class ViT(nn.Module):
                                   param_dtype=config.param_dtype)
         self.head = Dense(config.d_model, config.num_classes,
                           config.param_dtype)
+        split_over(self, ec, mesh)
 
     def forward(self, images: torch.Tensor,
                 train: bool = True) -> torch.Tensor:

@@ -201,7 +201,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const int* __restrict__ positions, T* __restrict__ out,
     float* __restrict__ ws_acc, float* __restrict__ ws_ml,
     unsigned* __restrict__ counters, int QH, int KH, int Dh, int P, int ps,
-    int n_log, int pps, int n_splits, int n_hb, int lpt, float scale) {
+    int n_log, int pps, int n_splits, int n_hb, int lpt, float scale,
+    long long tok_stride) {
   constexpr int VN = Vec<T>::N;
   constexpr int KK = kKeys / NS;    // keys a lane group takes a stage
   constexpr int SV = NS * VN;       // values a lane holds of a row
@@ -265,7 +266,6 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   // keys of the split up to pos (those past it are never staged)
   const int n_tok = min(min(pps, n_live - page0) * ps, pos + 1 - pos0);
   const int n_st = (n_tok + rows - 1) / rows;
-  const size_t tok_stride = (size_t)KH * Dh;
   // a key's page, or -1 where it is past the split's keys or unmapped
   auto page_of = [&](int t) {
     if (t >= n_tok) return -1;
@@ -489,14 +489,14 @@ int launch_group(dim3 grid, size_t smem, cudaStream_t s, const void* q,
                  const void* positions, void* out, void* ws_acc, void* ws_ml,
                  void* counters, int QH, int KH, int Dh, int P, int ps,
                  int n_log, int pps, int n_splits, int n_hb, int lpt,
-                 float scale) {
+                 float scale, long long tok_stride) {
   paged_decode_kernel<T, G, NS, kMasked><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(pages),
       static_cast<const int*>(positions), static_cast<T*>(out),
       static_cast<float*>(ws_acc), static_cast<float*>(ws_ml),
       static_cast<unsigned*>(counters), QH, KH, Dh, P, ps, n_log, pps,
-      n_splits, n_hb, lpt, scale);
+      n_splits, n_hb, lpt, scale, tok_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -504,7 +504,8 @@ template <typename T, int NS, bool kMasked>
 int launch(const void* q, const void* k, const void* v, const void* pages,
            const void* positions, void* out, void* ws_acc, void* ws_ml,
            void* counters, int B, int QH, int KH, int Dh, int P, int ps,
-           int n_log, int pps, float scale, cudaStream_t s) {
+           int n_log, int pps, float scale, long long tok_stride,
+           cudaStream_t s) {
   const int lpt = row_lanes(Dh, (int)sizeof(T));
   const int group = QH / KH;
   const int n_hb = (group + kMaxGroup - 1) / kMaxGroup;
@@ -515,7 +516,8 @@ int launch(const void* q, const void* k, const void* v, const void* pages,
 #define KFTPU_PAGED_GROUP(G)                                              \
   return launch_group<T, G, NS, kMasked>(                                 \
       grid, smem, s, q, k, v, pages, positions, out, ws_acc, ws_ml,       \
-      counters, QH, KH, Dh, P, ps, n_log, pps, n_splits, n_hb, lpt, scale)
+      counters, QH, KH, Dh, P, ps, n_log, pps, n_splits, n_hb, lpt, scale, \
+      tok_stride)
   if (heads <= 1) KFTPU_PAGED_GROUP(1);
   if (heads <= 2) KFTPU_PAGED_GROUP(2);
   if (heads <= 4) KFTPU_PAGED_GROUP(4);
@@ -536,13 +538,15 @@ extern "C" size_t kftpu_paged_decode_smem_bytes(int group, int Dh, int el,
 // f32, 32 lanes x 1 at bf16). ws_acc: B*KH*n_hb*n_splits*HB*Dh f32, ws_ml:
 // B*KH*n_hb*n_splits*HB*2 f32, with n_hb = ceil(group / 8), HB =
 // min(group, 8), n_splits = ceil(n_log / pps); counters: B*KH*n_hb
-// uint32, zero on entry and left zero on exit. Returns cudaGetLastError()
-// after the launch (0 = cudaSuccess).
+// uint32, zero on entry and left zero on exit. tok_stride: elements from
+// one key row of the pool to the next (KH * Dh for a whole pool; a slice
+// of a pool's kv heads keeps its pool's, and k/v point at its first head).
+// Returns cudaGetLastError() after the launch (0 = cudaSuccess).
 extern "C" int kftpu_paged_decode_attention(
     const void* q, const void* k, const void* v, const void* pages,
     const void* positions, void* out, void* ws_acc, void* ws_ml,
     void* counters, int B, int QH, int KH, int Dh, int P, int ps, int n_log,
-    int pps, float scale, int is_bf16, void* stream) {
+    int pps, float scale, int is_bf16, long long tok_stride, void* stream) {
   if (B == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int el = is_bf16 ? 2 : 4;
@@ -553,7 +557,7 @@ extern "C" int kftpu_paged_decode_attention(
 #define KFTPU_PAGED_LAUNCH(T, NS, MASKED)                                  \
   return launch<T, NS, MASKED>(q, k, v, pages, positions, out, ws_acc,    \
                                ws_ml, counters, B, QH, KH, Dh, P, ps,     \
-                               n_log, pps, scale, s)
+                               n_log, pps, scale, tok_stride, s)
   if (is_bf16) {
     if (ns != 1) return static_cast<int>(cudaErrorInvalidValue);
     if (masked) KFTPU_PAGED_LAUNCH(__nv_bfloat16, 1, true);

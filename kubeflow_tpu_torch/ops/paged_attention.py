@@ -91,7 +91,8 @@ def _lib():
     fn = lib.kftpu_paged_decode_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i] * 8 + [ctypes.c_float, i, p]
+        fn.argtypes = ([p] * 9 + [i] * 8
+                       + [ctypes.c_float, i, ctypes.c_longlong, p])
         fn.restype = ctypes.c_int
         sm = lib.kftpu_paged_decode_smem_bytes
         sm.argtypes = [i, i, i, i]
@@ -144,7 +145,9 @@ def paged_decode_attention(q, k_pages, v_pages, pages, positions, *,
     """Single-token decode attention straight off a paged KV pool.
 
     - ``q``: ``(B, QH, Dh)`` f32/bf16, one rotated query token per row;
-    - ``k_pages``/``v_pages``: the pool ``(P, page_size, KH, Dh)``;
+    - ``k_pages``/``v_pages``: the pool ``(P, page_size, KH, Dh)``, or a
+      slice ``pool[:, :, a:b]`` of its kv heads (read in place: a rank
+      whose q heads map to some of a replicated pool's kv heads);
     - ``pages``: ``(B, n_log)`` int32 page table, sentinel ``P``;
     - ``positions``: ``(B,)`` int32, each row's query position (keys
       ``<= positions[b]`` attend).
@@ -160,12 +163,16 @@ def paged_decode_attention(q, k_pages, v_pages, pages, positions, *,
                                             positions, sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("pages", pages), ("positions", positions)):
+    for name, t in (("q", q), ("pages", pages), ("positions", positions)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     B, QH, Dh = q.shape
     P, ps, KH, _ = k_pages.shape
+    tok = k_pages.stride(1)
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.stride() != (ps * tok, tok, Dh, 1):
+            raise ValueError(f"{name} must be a pool or a slice of its kv "
+                             f"heads; strides {t.stride()}")
     n_log = pages.shape[1]
     el = q.element_size()
     vec = 16 // el
@@ -195,7 +202,7 @@ def paged_decode_attention(q, k_pages, v_pages, pages, positions, *,
             pages.data_ptr(), positions.data_ptr(), out.data_ptr(),
             ws.data_ptr(), ws.data_ptr() + n_part * Dh * 4,
             counters.data_ptr(), B, QH, KH, Dh, P, ps, n_log, pps,
-            float(scale), int(q.dtype == torch.bfloat16), stream)
+            float(scale), int(q.dtype == torch.bfloat16), tok, stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"cudaError {rc}")

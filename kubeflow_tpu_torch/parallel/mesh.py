@@ -29,6 +29,9 @@ process per device:
   with ``"pp"`` for that stacked axis (:func:`is_stage_spec`): the spec
   of the layer stack the tensor is one layer of. :func:`tensor_spec`
   gives the tensor's own.
+- :func:`parse_serving_mesh` reads ``KFTPU_SERVING_MESH`` (``"tp=4"``,
+  ``"dp=2,tp=4"``) into a mesh over the process group, with the
+  reference server's errors.
 - ``shard_constraint`` and ``mesh_context`` are not ported: they feed
   GSPMD, which derives the collectives from the shardings. The port's
   model issues each collective itself
@@ -160,6 +163,32 @@ def create_mesh(config: Optional[MeshConfig] = None, *,
                 groups[axes] = group
     mesh._kftpu_groups = groups
     return mesh
+
+
+def parse_serving_mesh(raw: Optional[str], *, device_type: str = "cuda"):
+    """``"tp=4"`` / ``"dp=2,tp=4"`` → a mesh over every rank of the
+    process group (None when unset): the env-facing twin of
+    :class:`MeshConfig` that ``KFTPU_SERVING_MESH`` names, with the
+    reference's errors (``kubeflow_tpu/serving/server.py:376-399``)."""
+    if not raw:
+        return None
+    kw: Dict[str, int] = {}
+    for part in raw.split(","):
+        k, _, v = part.partition("=")
+        k = k.strip()
+        if k not in MESH_AXES:
+            raise ValueError(f"KFTPU_SERVING_MESH axis {k!r} (want "
+                             "dcn/dp/pp/tp)")
+        if k in kw:
+            raise ValueError(f"KFTPU_SERVING_MESH repeats axis {k!r}")
+        try:
+            kw[k] = int(v)
+        except ValueError:
+            raise ValueError(
+                f"KFTPU_SERVING_MESH axis {k!r} needs an integer size, "
+                f"got {v.strip()!r} (format: 'tp=4' or 'dp=2,tp=4')"
+            ) from None
+    return create_mesh(MeshConfig(**kw), device_type=device_type)
 
 
 def axis_size(mesh, axis: Union[str, Sequence[str]]) -> int:

@@ -55,7 +55,27 @@ spans on it: ``engine.queue_wait``, ``engine.admit`` with its
 the clock reads the engine already takes, and the per-token emit reads
 no clock (one timestamp a sync batch).
 
-Left for later slices (ROADMAP.md): mesh/TP serving.
+Over a mesh (``mesh=``: the reference's multi-chip serving), the model
+is built over it (``Transformer(config, mesh=)``, each rank its block of
+every split leaf) and the cache is created split: each rank's rows or
+pages hold its kv heads (``KH/tp``, or all of them where ``tp`` does
+not divide them), so a rank's pool is ``1/tp`` of the unsplit one's
+bytes. The page allocator, the prefix stores and the page tables are
+host state, the same on every rank. Over ``dp`` > 1 every data rank runs
+the whole batch (the reference splits the slots over ``dp`` under
+GSPMD; the tokens are the same). Two ways to drive it:
+
+- **SPMD**: every rank builds the engine and makes the same calls
+  (``submit``, ``run_once``) in the same order;
+- **lockstep** (``link=``, ``serving/lockstep.py``): rank 0 schedules;
+  before each device program (a ``_program`` method: a row, prefix or
+  batch prefill, a prefill chunk, a decode round, a row copy, a page
+  write, a cache rebuild) it sends the program's plan, and each
+  follower's twin engine runs the same program through :meth:`follow`.
+  A program works on its engine's own cache and its last prefilled row,
+  prefix row and batch, so its arguments are the rank 0 scheduler's
+  decisions alone. The request ledger and the ``engine.*`` spans stay
+  on rank 0.
 
 Environment switches (as in the reference): ``KFTPU_PAGED`` (default
 0), ``KFTPU_ADMIT_BATCH`` (8), ``KFTPU_ENGINE_RECOVERIES`` (2),
@@ -69,6 +89,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import logging
 import os
 import queue
@@ -260,6 +281,43 @@ def _env_int(name: str, default: int) -> int:
     return int(raw) if raw else default
 
 
+def _host(x):
+    """A program argument as a lockstep plan carries it: a tensor as
+    host numpy."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+# the engine's device programs, by name (:meth:`DecodeEngine.follow`)
+_PROGRAMS = set()
+# the programs that sample: they return their tokens
+_SAMPLES = {"_step", "_step_greedy", "_prefill", "_continue",
+            "_prefill_batch", "_chunk"}
+
+
+def _program(fn):
+    """A device program of the engine: it works on the engine's own
+    cache, rows and batch, so its arguments are host values or tensors.
+    Over a lockstep link (``serving/lockstep.py``) the leader sends its
+    name and host arguments before it runs, and :meth:`DecodeEngine.
+    follow` runs it on the other ranks. With ``token_log`` set, the
+    tokens it samples are logged (on every rank: the lockstep tests
+    compare them)."""
+    name = fn.__name__
+    _PROGRAMS.add(name)
+
+    @functools.wraps(fn)
+    def run(self, *args):
+        with (self._link(name, *map(_host, args)) if self._link is not None
+              else contextlib.nullcontext()):
+            out = fn(self, *args)
+        if (self.token_log is not None and name in _SAMPLES
+                and out is not None):
+            self.token_log.append((name, out.cpu().numpy().copy()))
+        return out
+
+    return run
+
+
 class DecodeEngine:
     """One engine per loaded transformer model version.
 
@@ -294,8 +352,11 @@ class DecodeEngine:
                  clock: Optional[Clock] = None,
                  tracer: Optional[Tracer] = None,
                  request_ledger: Optional[reqobs.RequestLedger] = None,
-                 device=None) -> None:
+                 device=None, mesh=None, link=None) -> None:
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._link = link
+        self.token_log: Optional[list] = None
         if paged is None:
             paged = os.environ.get("KFTPU_PAGED", "0") not in ("0", "")
         self.paged = bool(paged)
@@ -371,14 +432,17 @@ class DecodeEngine:
         _slots_g.set(self.slots, model=self.name)
 
         if isinstance(params, Transformer):
+            if params.mesh is not mesh:
+                raise ValueError("the engine's mesh is not the one the "
+                                 "model was built over")
             self._model = params
         else:
             self._model = convert.to_module(config, params,
-                                            device=self.device)
-        self._cache = self._fresh_cache()
-        # test hooks, as in the reference: device-side page surgery
-        self._arm = arm_slot
-        self._copy_page = copy_page
+                                            device=self.device, mesh=mesh)
+        self._cache = self._new_cache(slots)
+        # the last prefilled row, prefix row and batch (the programs'
+        # hand-offs)
+        self._row = self._prefix_row = self._batch = None
 
         itemsize = torch.finfo(self._cfg.dtype).bits // 8
         kv_row = (2 * config.n_layers * config.n_kv_heads
@@ -444,9 +508,40 @@ class DecodeEngine:
         if autostart:
             self.start()
 
-    def _fresh_cache(self):
-        """A zeroed engine cache (paged: every row disarmed)."""
-        return init_cache(self._cfg, self.slots, device=self.device)
+    @_program
+    def _fresh_cache(self) -> None:
+        """A zeroed engine cache (paged: every row disarmed), holding
+        this rank's kv heads on a split model."""
+        self._cache = self._new_cache(self.slots)
+
+    def _new_cache(self, rows: int):
+        return init_cache(self._cfg, rows, device=self.device,
+                          kv_heads=self._model.cache_kv_heads)
+
+    def settings(self) -> dict:
+        """The resolved constructor arguments that shape the engine's
+        programs: a follower rank builds its twin from them."""
+        return {"slots": self.slots, "steps_per_sync": self.steps_per_sync,
+                "prefix_cache_bytes": self._prefix_budget_bytes,
+                "sampler_bound": self.sampler_bound,
+                "sampler_impl": self.sampler_impl,
+                "admit_batch_max": self.admit_batch_max,
+                "paged": self.paged, "kv_page_size": self.kv_page_size,
+                "kv_pages": self.kv_pages,
+                "paged_attention_impl": self.paged_attention_impl,
+                "prefill_chunk_tokens": getattr(
+                    self, "prefill_chunk_tokens", None),
+                "prefill_chunks_per_cycle": getattr(
+                    self, "prefill_chunks_per_cycle", 1),
+                "recoveries": self._recoveries_left, "name": self.name}
+
+    @torch.no_grad()
+    def follow(self, op: str, args) -> None:
+        """Run the leader's program ``op`` with its plan's host
+        arguments on this rank's shard."""
+        if op not in _PROGRAMS:
+            raise ValueError(f"unknown engine program {op!r}")
+        getattr(self, op)(*args)
 
     @torch.no_grad()
     def _precompile_steps(self) -> None:
@@ -456,11 +551,9 @@ class DecodeEngine:
         B = self.slots
         toks = torch.zeros((B,), dtype=torch.int32, device=self.device)
         zeros = np.zeros((B,), np.int64)
-        self._cache, _ = self._step_greedy(self._cache, toks)
-        self._cache, _ = self._step(self._cache, toks, zeros, zeros,
-                                    np.ones((B,), np.float32),
-                                    np.zeros((B,), np.int32),
-                                    np.ones((B,), np.float32))
+        self._step_greedy(toks)
+        self._step(toks, zeros, zeros, np.ones((B,), np.float32),
+                   np.zeros((B,), np.int32), np.ones((B,), np.float32))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -502,82 +595,120 @@ class DecodeEngine:
                              top_p=tp_t, bound=bound)
 
     # -- device programs (instance attributes, so tests inject faults) -----
+    # Each works on the engine's cache (and on its last prefilled row,
+    # prefix row or batch), so a follower rank runs the leader's plan as
+    # it comes: ``getattr(engine, op)(*args)``.
 
-    def _step(self, cache, tokens, seeds, step_idx, temps, top_k, top_p):
-        """``steps_per_sync`` sampled decode steps; returns (cache,
-        (K, B) int32 tokens on the device)."""
+    @_program
+    def _step(self, tokens, seeds, step_idx, temps, top_k, top_p):
+        """``steps_per_sync`` sampled decode steps from ``(B,)`` tokens;
+        returns the ``(K, B)`` int32 tokens on the device."""
         settings = self._sampling(temps, top_k, top_p)
+        tokens = torch.as_tensor(tokens, device=self.device)
         outs = []
         for t in range(self.steps_per_sync):
-            logits, cache = decode_step(self._model, cache, tokens)
+            logits, self._cache = decode_step(self._model, self._cache,
+                                              tokens)
             tokens = self._sample_rows(logits, seeds, step_idx + t, temps,
                                        top_k, top_p, settings=settings)
             outs.append(tokens)
-        return cache, torch.stack(outs)
+        return torch.stack(outs)
 
-    def _step_greedy(self, cache, tokens):
+    @_program
+    def _step_greedy(self, tokens):
         """The all-greedy step: argmax only, no sampler."""
+        tokens = torch.as_tensor(tokens, device=self.device)
         outs = []
         for _ in range(self.steps_per_sync):
-            logits, cache = decode_step(self._model, cache, tokens)
+            logits, self._cache = decode_step(self._model, self._cache,
+                                              tokens)
             tokens = torch.argmax(logits, dim=-1).to(torch.int32)
             outs.append(tokens)
-        return cache, torch.stack(outs)
+        return torch.stack(outs)
 
+    @_program
     def _prefill(self, prompt, true_len, temperature, top_k, top_p, seed,
                  fold):
         """Row prefill of a padded ``(1, S)`` prompt into a fresh 1-row
-        cache, and its next token sampled at ``(seed, fold)``."""
-        cache = init_cache(self._cfg, 1, device=self.device)
-        logits, cache = prefill(self._model, cache, self._on(prompt),
-                                [int(true_len)])
-        tok = self._sample_rows(logits, [seed], [fold], [temperature],
-                                [top_k], [top_p])
-        return tok, cache
+        cache (``self._row``), and its next token sampled at ``(seed,
+        fold)``."""
+        cache = self._new_cache(1)
+        logits, self._row = prefill(self._model, cache, self._on(prompt),
+                                    [int(true_len)])
+        return self._sample_rows(logits, [seed], [fold], [temperature],
+                                 [top_k], [top_p])
 
-    def _continue(self, pcache, suffix, suffix_len, total_len, temperature,
-                  top_k, top_p, seed):
-        """A prefix row continued by a padded ``(1, S)`` suffix, and the
-        first token at ``(seed, 0)``. Continues a COPY: stored prefix
-        rows never change."""
-        row = DenseKVCache(k=pcache.k.clone(), v=pcache.v.clone(),
-                           positions=pcache.positions.clone())
-        logits, row = prefill_continue(self._model, row, self._on(suffix),
-                                       [int(suffix_len)], [int(total_len)])
-        tok = self._sample_rows(logits, [seed], [0], [temperature],
-                                [top_k], [top_p])
-        return tok, row
+    @_program
+    def _continue(self, suffix, suffix_len, total_len, temperature, top_k,
+                  top_p, seed):
+        """The prefix row (``self._prefix_row``) continued by a padded
+        ``(1, S)`` suffix into ``self._row``, and the first token at
+        ``(seed, 0)``. Continues a COPY: stored prefix rows never
+        change."""
+        p = self._prefix_row
+        row = DenseKVCache(k=p.k.clone(), v=p.v.clone(),
+                           positions=p.positions.clone())
+        logits, self._row = prefill_continue(
+            self._model, row, self._on(suffix), [int(suffix_len)],
+            [int(total_len)])
+        return self._sample_rows(logits, [seed], [0], [temperature],
+                                 [top_k], [top_p])
 
+    @_program
     def _prefill_batch(self, prompts, true_lens, temps, top_ks, top_ps,
                        seeds):
         """Burst admission: same-bucket prompts ``(B, S)`` prefill
-        together with ragged lengths; each row's first token at
-        ``(seed, 0)``, as the row path samples it."""
-        cache = init_cache(self._cfg, prompts.shape[0], device=self.device)
-        logits, cache = prefill(self._model, cache, self._on(prompts),
-                                self._on(true_lens))
-        toks = self._sample_rows(logits, seeds, np.zeros_like(seeds), temps,
+        together with ragged lengths into ``self._batch``; each row's
+        first token at ``(seed, 0)``, as the row path samples it."""
+        cache = self._new_cache(prompts.shape[0])
+        logits, self._batch = prefill(self._model, cache, self._on(prompts),
+                                      self._on(true_lens))
+        return self._sample_rows(logits, seeds, np.zeros_like(seeds), temps,
                                  top_ks, top_ps)
-        return toks, cache
 
-    def _insert(self, engine_cache, row_cache, slot: int):
-        """Copy a 1-row cache into ``slot`` of the engine cache."""
-        engine_cache.k[:, slot] = row_cache.k[:, 0]
-        engine_cache.v[:, slot] = row_cache.v[:, 0]
-        engine_cache.positions[slot] = row_cache.positions[0]
-        return engine_cache
+    @_program
+    def _insert(self, slot: int) -> None:
+        """Copy the prefilled row into ``slot`` of the engine cache."""
+        row, cache = self._row, self._cache
+        cache.k[:, slot] = row.k[:, 0]
+        cache.v[:, slot] = row.v[:, 0]
+        cache.positions[slot] = row.positions[0]
 
-    def _insert_rows(self, engine_cache, batch_cache, slot_ids, valid):
-        """Copy every valid batch-prefill row into its slot at once (pad
-        rows stay out)."""
+    @_program
+    def _insert_rows(self, slot_ids, valid) -> None:
+        """Copy every valid row of the prefilled batch into its slot at
+        once (pad rows stay out)."""
         rows = np.flatnonzero(valid)
         src = torch.as_tensor(rows, dtype=torch.long, device=self.device)
         dst = torch.as_tensor(np.asarray(slot_ids)[rows], dtype=torch.long,
                               device=self.device)
-        engine_cache.k[:, dst] = batch_cache.k[:, src]
-        engine_cache.v[:, dst] = batch_cache.v[:, src]
-        engine_cache.positions[dst] = batch_cache.positions[src]
-        return engine_cache
+        batch, cache = self._batch, self._cache
+        cache.k[:, dst] = batch.k[:, src]
+        cache.v[:, dst] = batch.v[:, src]
+        cache.positions[dst] = batch.positions[src]
+
+    @_program
+    def _arm(self, slot: int, start: int, page_row) -> None:
+        """Point one paged row at its pages (``arm_slot``)."""
+        arm_slot(self._cache, slot, start, page_row)
+
+    @_program
+    def _copy_page(self, src: int, dst: int) -> None:
+        """The copy-on-write split of one page (``copy_page``)."""
+        copy_page(self._cache, src, dst)
+
+    @_program
+    def _chunk(self, tokens, slot: int, start: int, n: int, sample):
+        """One padded ``(1, C)`` prompt chunk into ``slot``'s pages from
+        ``start`` (``n`` real tokens). With ``sample`` = (seed, step
+        index, temperature, top-k, top-p), the token after it ``(1,)``;
+        else None."""
+        logits, self._cache = prefill_chunk(
+            self._model, self._cache, self._on(tokens), slot, start, n)
+        if sample is None:
+            return None
+        seed, fold, temp, tk, tp = sample
+        return self._sample_rows(logits, [seed], [fold], [temp], [tk], [tp])
 
     def _on(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.int32), device=self.device)
@@ -646,6 +777,10 @@ class DecodeEngine:
             self._thread.join(timeout=30)
             self._thread = None
         self._fail_all(EngineClosed("decode engine closed"))
+        link, self._link = self._link, None
+        if link is not None:        # the followers drop their twin
+            with link("close"):
+                pass
 
     def _fail_all(self, error: Exception) -> None:
         with self._lock:
@@ -779,11 +914,10 @@ class DecodeEngine:
                 self._ensure_pages(i for i, _ in active)
             tokens = torch.as_tensor(self._tokens, device=self.device)
             if all_greedy:
-                self._cache, toks = self._step_greedy(self._cache, tokens)
+                toks = self._step_greedy(tokens)
             else:
-                self._cache, toks = self._step(
-                    self._cache, tokens, self._seeds, self._stepidx,
-                    self._temps, self._topk, self._topp)
+                toks = self._step(tokens, self._seeds, self._stepidx,
+                                  self._temps, self._topk, self._topp)
             # (K, B): one host sync a round-trip; it also surfaces a
             # device failure while recovery can still replay
             toks = toks.cpu().numpy()
@@ -918,7 +1052,7 @@ class DecodeEngine:
             self.rledger.mark(req.rid, reqobs.PREFILL, self.clock())
             if req.prefix_len:
                 N = req.prefix_len
-                pcache = self._prefix_cache_row(req.prompt[:N])
+                self._prefix_cache_row(req.prompt[:N])
                 suf = S - N
                 sbucket = pow2_bucket(suf, Smax)
                 if N + sbucket > Smax:
@@ -929,38 +1063,39 @@ class DecodeEngine:
                 padded[0, :suf] = req.prompt[N:]
                 with self.tracer.span("engine.prefill", attrs={
                         "prompt_tokens": int(S), "prefix_len": int(N)}):
-                    tok, row = self._continue(pcache, padded, suf, S,
-                                              req.temperature, req.top_k,
-                                              req.top_p, req.seed)
+                    tok = self._continue(padded, suf, S, req.temperature,
+                                         req.top_k, req.top_p, req.seed)
             else:
                 bucket = pow2_bucket(S, Smax)
                 padded = np.zeros((1, bucket), np.int32)
                 padded[0, :S] = req.prompt
                 with self.tracer.span("engine.prefill", attrs={
                         "prompt_tokens": int(S), "bucket": bucket}):
-                    tok, row = self._prefill(padded, S, req.temperature,
-                                             req.top_k, req.top_p,
-                                             req.seed, 0)
-            self._cache = self._insert(self._cache, row, slot)
+                    tok = self._prefill(padded, S, req.temperature,
+                                        req.top_k, req.top_p, req.seed, 0)
+            self._insert(slot)
         self._finalize_admission(req, slot, int(tok[0]))
 
-    def _prefix_cache_row(self, prefix: np.ndarray) -> DenseKVCache:
-        """The 1-row cache holding this prefilled prefix (LRU, byte
-        budget)."""
+    @_program
+    def _prefix_cache_row(self, prefix: np.ndarray) -> None:
+        """The 1-row cache holding this prefilled prefix into
+        ``self._prefix_row`` (LRU, byte budget)."""
         key = (prefix.size, prefix.tobytes())
         cached = self._prefix_store.get(key)
         if cached is not None:
             self._prefix_store.move_to_end(key)
             self.prefix_hits += 1
             _prefix_hits.inc(model=self.name)
-            return cached
+            self._prefix_row = cached
+            return
         self.prefix_misses += 1
         _prefix_misses.inc(model=self.name)
         N = prefix.size
         padded = np.zeros((1, pow2_bucket(N, self.config.max_seq_len)),
                           np.int32)
         padded[0, :N] = prefix
-        _, pcache = self._prefill(padded, N, 0.0, 0, 1.0, 0, 0)
+        self._prefill(padded, N, 0.0, 0, 1.0, 0, 0)
+        pcache = self._prefix_row = self._row
         # evict LRU until the new row fits (submit() routed away prefixes
         # that never can)
         while (self._prefix_store and self.prefix_cache_bytes
@@ -972,7 +1107,6 @@ class DecodeEngine:
             self._prefix_store[key] = pcache
             self.prefix_cache_bytes += self._prefix_row_bytes
         _prefix_bytes_g.set(self.prefix_cache_bytes, model=self.name)
-        return pcache
 
     def _admit_batch(self, bucket: int, members: List[tuple]) -> None:
         """One prefill for same-bucket requests, then the rows' copies
@@ -1013,16 +1147,15 @@ class DecodeEngine:
         for req, _slot in members:
             self.rledger.mark(req.rid, reqobs.PREFILL, p0)
         with ann:
-            toks, bcache = self._prefill_batch(prompts, lens, temps, tks,
-                                               tps, seeds)
+            toks = self._prefill_batch(prompts, lens, temps, tks, tps,
+                                       seeds)
             # the host copy finishes the prefill BEFORE any row lands in
             # the engine cache: its failure surfaces here, the cache
             # intact
             toks = toks.cpu().numpy()
         p1 = self.clock()
         try:
-            self._cache = self._insert_rows(self._cache, bcache, slot_ids,
-                                            valid)
+            self._insert_rows(slot_ids, valid)
         except Exception as e:  # noqa: BLE001 — the cache is half-written
             t_fail = self.clock()
             for req, _ in members:
@@ -1137,13 +1270,13 @@ class DecodeEngine:
             logical = len(shared)
             pool.map_cow(slot, logical, match.tail_page)
             src, dst = pool.cow_split(slot, logical)
-            self._copy_page(self._cache, src, dst)
+            self._copy_page(src, dst)
             self.cow_splits += 1
             _cow_splits_c.inc(model=self.name)
             start += match.tail_len
         pool.ensure(slot, S)  # prompt pages; decode pages grow lazily
         now = self._note_queue_wait(req)
-        self._arm(self._cache, slot, start, pool.table_row(slot))
+        self._arm(slot, start, pool.table_row(slot))
         self._prefilling[slot] = _PrefillJob(
             req=req, slot=slot, tokens=req.prompt, next=start,
             t_admit=now, store_prefix=req.prefix_len)
@@ -1194,12 +1327,11 @@ class DecodeEngine:
             # the record's prefill phase runs from the first chunk to
             # the first token
             self.rledger.mark(req.rid, reqobs.PREFILL, t0)
-        logits, _ = prefill_chunk(self._model, self._cache,
-                                  self._on(padded), job.slot, job.next, n)
+        tok = self._chunk(padded, job.slot, job.next, n, (
+            req.seed, job.fold0, req.temperature, req.top_k, req.top_p)
+            if final else None)
         if final:
-            job.last_tok = int(self._sample_rows(
-                logits, [req.seed], [job.fold0], [req.temperature],
-                [req.top_k], [req.top_p])[0])
+            job.last_tok = int(tok[0])
         job.next += n
         job.chunks += 1
         self.prefill_chunks += 1
@@ -1257,7 +1389,7 @@ class DecodeEngine:
                 # page growth stalls this stream's decode: clock reads on
                 # growth only, never on the per-token emit path
                 t0 = self.clock()
-                self._arm(self._cache, i, int(self._pos_host[i]),
+                self._arm(i, int(self._pos_host[i]),
                           self._pool.table_row(i))
                 self._export_page_gauges()
                 with self._lock:
@@ -1276,7 +1408,7 @@ class DecodeEngine:
         """Free the slot's pages and disarm its row, so later idle-row
         writes drop instead of landing in reallocated pages."""
         self._pool.release_slot(slot)
-        self._arm(self._cache, slot, self.config.max_seq_len,
+        self._arm(slot, self.config.max_seq_len,
                   self._pool.table_row(slot))
         self._pos_host[slot] = 0
         self._slot_budget[slot] = 0
@@ -1309,7 +1441,7 @@ class DecodeEngine:
                     if s is not None]
             self._active = [None] * self.slots
         # a new cache: the failed call may have half-written the old one
-        self._cache = self._fresh_cache()
+        self._fresh_cache()
         replays = [(i, st.req,
                     np.concatenate([st.req.prompt,
                                     np.asarray(st.emitted, np.int32)]),
@@ -1349,7 +1481,7 @@ class DecodeEngine:
         budget = req.prompt.size + req.max_new
         pool.reserve(slot, pool.pages_needed(budget))
         pool.ensure(slot, int(tokens.size))
-        self._arm(self._cache, slot, 0, pool.table_row(slot))
+        self._arm(slot, 0, pool.table_row(slot))
         self._prefilling[slot] = _PrefillJob(
             req=req, slot=slot, tokens=tokens, next=0,
             t_admit=self.clock(), fold0=fold, produced0=produced)
@@ -1365,9 +1497,9 @@ class DecodeEngine:
         padded = np.zeros((1, pow2_bucket(L, self.config.max_seq_len)),
                           np.int32)
         padded[0, :L] = tokens
-        tok, row = self._prefill(padded, L, req.temperature, req.top_k,
-                                 req.top_p, req.seed, fold)
-        self._cache = self._insert(self._cache, row, slot)
+        tok = self._prefill(padded, L, req.temperature, req.top_k,
+                            req.top_p, req.seed, fold)
+        self._insert(slot)
         tok = int(tok[0])
         t_now = self.clock()
         st = _Slot(req=req, produced=produced, t_decode0=t_now,

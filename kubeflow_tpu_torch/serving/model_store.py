@@ -22,10 +22,19 @@ checks requests against. An export with ``draft_of:
 "<model>[@<version>]"`` in its ``model.yaml`` is a speculative-decoding
 draft of that model: :func:`find_draft_for` finds it and the server
 pairs it as one :class:`DraftPair`.
+
+``load_version(..., mesh=)`` loads a ``transformer`` export split over a
+mesh: the LM is built over it on the meta device and each rank keeps
+only its block of every split leaf as it fills it (the reference's
+``shard_lm_params``; from a param tree in memory,
+``models/convert.py:to_module(..., mesh=)`` does the same). Over a
+lockstep mesh a split LM's ``link`` sends each device call's plan to the
+follower ranks first (``serving/server.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import tempfile
@@ -60,14 +69,22 @@ _DEFAULT_INPUT_SHAPES: Dict[str, Tuple[int, ...]] = {
 Apply = Callable[[torch.nn.Module, torch.Tensor], torch.Tensor]
 
 
-def build_model(kind: str, config: Dict[str, Any]
+def _lm_apply(m: Transformer, x: torch.Tensor) -> torch.Tensor:
+    """The LM's inference forward: full logits, its vocabulary blocks
+    gathered over ``tp`` when the model is split over a mesh."""
+    return m.full_logits(m(x))
+
+
+def build_model(kind: str, config: Dict[str, Any], *, mesh=None
                 ) -> Tuple[torch.nn.Module, Apply]:
     """A servable by kind name, without weights (on the meta device):
     ``(module, apply)``, ``apply(module, x)`` its inference forward. As
     the reference's: a ``resnet`` config's stem defaults to ``"conv"``
     here, not to ``ResNetConfig``'s default, because exports made before
     the space-to-depth stem existed hold ``stem_conv`` params; dtype
-    names (``"bfloat16"``) become torch dtypes in the configs."""
+    names (``"bfloat16"``) become torch dtypes in the configs. ``mesh``
+    (the ``transformer`` kind only) builds the LM over it: each rank
+    holds its block of every split leaf."""
     with torch.device("meta"):
         if kind == "mnist":
             return MnistCnn(), lambda m, x: m(x)
@@ -80,9 +97,10 @@ def build_model(kind: str, config: Dict[str, Any]
         if kind == "bert":
             return Bert(BertConfig(**config)), lambda m, x: m(x)
         if kind == "transformer":
-            return (Transformer(TransformerConfig(**config)),
-                    lambda m, x: m(x))
+            return Transformer(TransformerConfig(**config),
+                               mesh=mesh), _lm_apply
     raise ValueError(f"unknown model kind {kind!r}")
+
 
 
 def transformer_export_config(config: TransformerConfig,
@@ -222,6 +240,14 @@ class LoadedModel:
     input_dtype: str = "float32"
     # the paired draft (server.py:ModelRepository._attach_draft), or None
     draft: Optional[DraftPair] = None
+    # an LM split over a lockstep mesh: ``link(op, *args)`` sends each
+    # device call's plan to the follower ranks first (``serving/
+    # server.py:ModelRepository``); None otherwise
+    link: Optional[Callable[..., Any]] = None
+
+    def _lockstep(self, op: str, *args):
+        return (self.link(op, *args) if self.link is not None
+                else contextlib.nullcontext())
 
     @property
     def device(self) -> torch.device:
@@ -281,8 +307,10 @@ class LoadedModel:
     def predict(self, x: np.ndarray) -> np.ndarray:
         """Host → device, :meth:`forward`, device → host; the outputs
         as f32 numpy (logits, as the reference's)."""
-        t = torch.as_tensor(np.asarray(x)).to(self.device)
-        return self.forward(t).float().cpu().numpy()
+        x = np.asarray(x)
+        with self._lockstep("predict", x):
+            t = torch.as_tensor(x).to(self.device)
+            return self.forward(t).float().cpu().numpy()
 
     def warmup(self, batch_sizes) -> int:
         """Run :meth:`predict` once at each batch bucket (on the card:
@@ -304,29 +332,61 @@ class LoadedModel:
         decide, as there, whether the temperature and the filters are
         read at all."""
         dev = self.lm_params.token_embed.device
-        out = decode.generate(
-            self.lm_params,
-            torch.as_tensor(np.asarray(prompt, np.int32), device=dev),
-            max_new_tokens=int(max_new),
-            true_len=torch.as_tensor(np.asarray(true_len, np.int32),
-                                     device=dev),
-            temperature=0.0 if greedy else float(temperature),
-            top_k=int(top_k) if filtered else 0,
-            top_p=float(top_p) if filtered else 1.0,
-            seed=int(seed))
-        return out.cpu().numpy()
+        prompt = np.asarray(prompt, np.int32)
+        true_len = np.asarray(true_len, np.int32)
+        with self._lockstep("generate", prompt, true_len, int(max_new),
+                            float(temperature), int(seed), bool(greedy),
+                            int(top_k), float(top_p), bool(filtered)):
+            out = decode.generate(
+                self.lm_params, torch.as_tensor(prompt, device=dev),
+                max_new_tokens=int(max_new),
+                true_len=torch.as_tensor(true_len, device=dev),
+                temperature=0.0 if greedy else float(temperature),
+                top_k=int(top_k) if filtered else 0,
+                top_p=float(top_p) if filtered else 1.0,
+                seed=int(seed))
+            return out.cpu().numpy()
+
+    def speculate(self, draft: DraftPair, prompt, true_len,
+                  max_new: int, draft_len: int):
+        """Greedy speculative decoding of ``(B, S)`` right-padded prompts
+        with lengths ``(B,)`` through ``draft`` (whole on every rank
+        beside a split target, as the reference keeps it replicated):
+        ``((B, max_new) int32 tokens, stats)``."""
+        dev = self.lm_params.token_embed.device
+        prompt = np.asarray(prompt, np.int32)
+        true_len = np.asarray(true_len, np.int32)
+        with self._lockstep("speculate", draft.ref, prompt, true_len,
+                            int(max_new), int(draft_len)):
+            toks, stats = decode.speculative_generate_jit(
+                self.lm_params, draft.params,
+                torch.as_tensor(prompt, device=dev),
+                max_new_tokens=int(max_new), draft_len=int(draft_len),
+                true_len=torch.as_tensor(true_len, device=dev))
+            return toks.cpu().numpy(), stats
 
 
-def load_version(base_path: str, version: int, *,
-                 device=None) -> LoadedModel:
+def read_kind(base_path: str, version: int) -> str:
+    """The servable kind one version's ``model.yaml`` records."""
+    with open(os.path.join(base_path, str(version), MODEL_FILE)) as f:
+        return yaml.safe_load(f)["kind"]
+
+
+def load_version(base_path: str, version: int, *, device=None,
+                 mesh=None) -> LoadedModel:
     """Load one version of any servable kind onto ``device`` (default
-    CUDA)."""
+    CUDA). ``mesh`` (the ``transformer`` kind only, as in the
+    reference): the LM is built over it and each rank keeps only its
+    block of every split leaf as it reads the export; the other kinds
+    load whole."""
     dev = resolve_device(device)
     vdir = os.path.join(base_path, str(version))
     with open(os.path.join(vdir, MODEL_FILE)) as f:
         meta = yaml.safe_load(f)
     kind = meta["kind"]
-    module, apply = build_model(kind, meta.get("config") or {})
+    module, apply = build_model(
+        kind, meta.get("config") or {},
+        mesh=mesh if kind == "transformer" else None)
     module = convert.load_servable(kind, module, read_params(vdir, meta),
                                    device=dev)
     shape = meta.get("input_shape")

@@ -45,6 +45,21 @@ and key their ledger record by its trace id. A streamed response charges
 the ledger's ``stream_stall`` phase for every write the client takes
 longer than :data:`STREAM_STALL_MIN_S` to drain.
 
+With ``decode_mesh`` (``KFTPU_SERVING_MESH`` in :func:`main`: the
+reference's multi-chip serving), each LM version loads split over the
+mesh (``model_store.py:load_version(mesh=)``: each rank its block of
+every split leaf) and its engine's cache is created split; the other
+kinds load whole on rank 0. Over more than one rank the mesh serves in
+lockstep (``serving/lockstep.py``): rank 0 runs the front ends and the
+scheduler and sends a plan before every program on a split model (a
+load, a version's drop, an engine's creation and its programs, a unary
+or speculative generate, an LM ``:predict``); every other rank runs
+:func:`serve_follower`, a :class:`MeshFollower` with no front end that
+runs each plan on its shard. The speculative draft loads whole on every
+rank beside the split target, as the reference keeps it replicated.
+Rank 0 exits with an error when a follower is gone; a follower exits
+with one when the plans stop.
+
 :func:`main` also serves the gRPC prediction service
 (``serving/grpc_server.py``) on ``KFTPU_GRPC_PORT`` (9000; 0 turns it
 off) over the same repository, and serves REST alone, with a warning,
@@ -53,9 +68,12 @@ where ``grpc`` cannot be imported.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import logging
 import os
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -63,21 +81,29 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
-from kubeflow_tpu_torch.models import decode
 from kubeflow_tpu_torch.obs import requests as reqobs
-from kubeflow_tpu_torch.obs.trace import TRACER, extract
+from kubeflow_tpu_torch.obs.trace import (
+    TRACER,
+    SpanCollector,
+    Tracer,
+    extract,
+)
+from kubeflow_tpu_torch.parallel.mesh import parse_serving_mesh
 from kubeflow_tpu_torch.serving.engine import (
     DecodeEngine,
     EngineClosed,
     pow2_bucket,
 )
+from kubeflow_tpu_torch.serving.lockstep import Lockstep
 from kubeflow_tpu_torch.serving.model_store import (
     DraftPair,
     LoadedModel,
     find_draft_for,
     list_versions,
     load_version,
+    read_kind,
 )
 from kubeflow_tpu_torch.utils import DEFAULT_REGISTRY
 from kubeflow_tpu_torch.utils.device import resolve_device
@@ -392,18 +418,15 @@ def _run_generate_speculative(model: LoadedModel, body: Dict[str, Any],
                               "proposals"}
     padded = np.zeros((arr.shape[0], bucket), np.int32)
     padded[:, :arr.shape[1]] = arr
-    dev = model.lm_params.token_embed.device
     t0 = time.perf_counter()
     try:
-        toks, stats = decode.speculative_generate_jit(
-            model.lm_params, draft.params,
-            torch.as_tensor(padded, device=dev), max_new_tokens=new_bucket,
-            draft_len=draft_len, true_len=torch.as_tensor(lens, device=dev))
+        toks, stats = model.speculate(draft, padded, lens, new_bucket,
+                                      draft_len)
     except ValueError as e:
         return 400, {"error": f"generate failed: {e}"}
     except Exception as e:  # noqa: BLE001 — model or runtime fault
         return 500, {"error": f"generate failed: {type(e).__name__}: {e}"}
-    out = toks.cpu().numpy()[:, :max_new]
+    out = toks[:, :max_new]
     dt = time.perf_counter() - t0
     rate = stats["accepted"] / max(stats["draft_tokens"], 1)
     _gen_requests.inc(model=model_name)
@@ -443,9 +466,17 @@ class ModelRepository:
                  pin_version: Optional[int] = None,
                  poll_interval_s: float = 10.0,
                  warmup_batches: Tuple[int, ...] = (),
-                 device=None) -> None:
+                 device=None, decode_mesh=None) -> None:
         self.device = resolve_device(device)
         self.base_path = base_path
+        # LMs too big for one card serve split over this mesh
+        # (KFTPU_SERVING_MESH): loaded split, their engines' caches
+        # created split; over more than one rank, in lockstep with the
+        # followers (serve_follower)
+        self.decode_mesh = decode_mesh
+        self.lockstep = (Lockstep(device=self.device)
+                         if decode_mesh is not None and decode_mesh.size() > 1
+                         else None)
         self.decode_slots = decode_slots
         self.warmup_batches = tuple(warmup_batches)
         self.warmed: Dict[Tuple[str, int], int] = {}
@@ -487,7 +518,7 @@ class ModelRepository:
                     self._attach_draft(name, current)
                 continue
             log.info("loading model %s version %d", name, latest)
-            loaded = load_version(mdir, latest, device=self.device)
+            loaded = self._load(name, latest)
             if loaded.lm_config is not None:
                 self._attach_draft(name, loaded)
             self._warmup(name, loaded)
@@ -499,6 +530,27 @@ class ModelRepository:
                 retired = [self._engines.pop(k) for k in stale]
             for eng in retired:
                 eng.close()
+            if (current is not None and current.link is not None
+                    and (name, current.version) not in self._pinned):
+                with self.lockstep.program("drop", name, current.version):
+                    pass
+
+    def _load(self, name: str, version: int) -> LoadedModel:
+        """One version, split over ``decode_mesh`` when it is an LM and
+        a mesh is set (the followers load their blocks in lockstep);
+        whole on this rank otherwise, as the reference loads them."""
+        mdir = os.path.join(self.base_path, name)
+        if (self.decode_mesh is None
+                or read_kind(mdir, version) != "transformer"):
+            return load_version(mdir, version, device=self.device)
+        with (self.lockstep.program("load", name, version)
+              if self.lockstep is not None else contextlib.nullcontext()):
+            loaded = load_version(mdir, version, device=self.device,
+                                  mesh=self.decode_mesh)
+        if self.lockstep is not None:
+            loaded.link = functools.partial(self.lockstep.program, "model",
+                                            name, version)
+        return loaded
 
     def _warmup(self, name: str, loaded: LoadedModel) -> None:
         """Best-effort: a failed warm-up is logged and the version is
@@ -581,7 +633,7 @@ class ModelRepository:
         mdir = os.path.join(self.base_path, name)
         if version not in list_versions(mdir):
             return None
-        loaded = load_version(mdir, version, device=self.device)
+        loaded = self._load(name, version)
         with self._lock:
             self._pinned[(name, version)] = loaded
         return loaded
@@ -600,11 +652,31 @@ class ModelRepository:
                 eng = self._engines.get(key)
             if eng is not None and not eng.closed:
                 return eng
-            eng = DecodeEngine(model.lm_config, model.lm_params,
-                               slots=self.decode_slots,
-                               steps_per_sync=self.decode_steps_per_sync,
-                               precompile=bool(self.warmup_batches),
-                               name=name, device=self.device)
+            warm = bool(self.warmup_batches)
+            if model.link is None:
+                eng = DecodeEngine(model.lm_config, model.lm_params,
+                                   slots=self.decode_slots,
+                                   steps_per_sync=self.decode_steps_per_sync,
+                                   precompile=warm, name=name,
+                                   device=self.device,
+                                   mesh=model.lm_params.mesh)
+            else:
+                # lockstep: the followers build the twin from the
+                # leader's resolved settings, and warm it up with it
+                eng = DecodeEngine(
+                    model.lm_config, model.lm_params,
+                    slots=self.decode_slots,
+                    steps_per_sync=self.decode_steps_per_sync, name=name,
+                    device=self.device, mesh=self.decode_mesh,
+                    autostart=False, link=functools.partial(
+                        self.lockstep.program, "engine", name,
+                        model.version))
+                with self.lockstep.program(
+                        "new_engine", name, model.version,
+                        tuple(eng.settings().items()), warm):
+                    if warm:
+                        eng._precompile_steps()
+                eng.start()
             with self._lock:
                 self._engines[key] = eng
             return eng
@@ -641,6 +713,8 @@ class ModelRepository:
             self._engines.clear()
         for eng in engines:
             eng.close()
+        if self.lockstep is not None:
+            self.lockstep.stop()
 
 
 class ModelServer:
@@ -648,13 +722,14 @@ class ModelServer:
                  max_batch_size: int = 8, poll_interval_s: float = 10.0,
                  pin_version: Optional[int] = None, warmup: bool = False,
                  decode_slots: int = 0, decode_steps_per_sync: int = 1,
-                 device=None) -> None:
+                 device=None, decode_mesh=None) -> None:
         buckets = tuple(b for b in _PAD_BUCKETS if b <= max_batch_size)
         self.repo = ModelRepository(
             base_path, decode_slots=decode_slots,
             decode_steps_per_sync=decode_steps_per_sync,
             pin_version=pin_version, poll_interval_s=poll_interval_s,
-            warmup_batches=buckets if warmup else (), device=device)
+            warmup_batches=buckets if warmup else (), device=device,
+            decode_mesh=decode_mesh)
         self.port = port
         self.max_batch_size = max_batch_size
         self._httpd: Optional[ThreadingHTTPServer] = None
@@ -844,20 +919,145 @@ def parse_pin_version(raw: Optional[str]) -> Optional[int]:
     return int(digits)
 
 
-def main() -> None:
-    """Serve from the environment (the reference's knobs) on CUDA: REST
-    on ``KFTPU_REST_PORT`` and gRPC on ``KFTPU_GRPC_PORT``."""
+class MeshFollower:
+    """A follower rank of a lockstep serving mesh: the split LMs, their
+    drafts and their engines that rank 0's plans name, with no front end
+    (``serving/lockstep.py``). :meth:`run` runs one plan. Its engines
+    keep their spans and request records to themselves: the ledger and
+    the ``engine.*`` spans are rank 0's. With ``record``, each engine
+    logs its sampled tokens, kept by key in :attr:`token_logs` when it
+    closes."""
+
+    def __init__(self, base_path: str, mesh, *, device=None,
+                 record: bool = False) -> None:
+        self.base_path = base_path
+        self.mesh = mesh
+        self.device = resolve_device(device)
+        self.record = record
+        self.models: Dict[Tuple[str, int], LoadedModel] = {}
+        self.drafts: Dict[str, DraftPair] = {}
+        self.engines: Dict[Tuple[str, int], DecodeEngine] = {}
+        self.token_logs: Dict[Tuple[str, int], list] = {}
+
+    def _draft(self, ref: str) -> DraftPair:
+        if ref not in self.drafts:
+            name, _, version = ref.rpartition("@")
+            d = load_version(os.path.join(self.base_path, name),
+                             int(version), device=self.device)
+            self.drafts[ref] = DraftPair(config=d.lm_config,
+                                         params=d.lm_params, ref=ref)
+        return self.drafts[ref]
+
+    def run(self, op: str, args: Tuple[Any, ...]) -> None:
+        if op == "noop":
+            return
+        name, version, *rest = args
+        key = (name, version)
+        if op == "load":
+            self.models[key] = load_version(
+                os.path.join(self.base_path, name), version,
+                device=self.device, mesh=self.mesh)
+        elif op == "drop":
+            self.models.pop(key, None)
+        elif op == "model":
+            what, *a = rest
+            model = self.models[key]
+            if what == "generate":
+                prompt, lens, max_new, temp, seed, greedy, tk, tp, filt = a
+                model.generate(prompt, lens, max_new, temp, seed,
+                               greedy=greedy, top_k=tk, top_p=tp,
+                               filtered=filt)
+            elif what == "predict":
+                model.predict(a[0])
+            elif what == "speculate":
+                model.speculate(self._draft(a[0]), *a[1:])
+            else:
+                raise ValueError(f"unknown model program {what!r}")
+        elif op == "new_engine":
+            settings, warm = rest
+            model = self.models[key]
+            eng = DecodeEngine(
+                model.lm_config, model.lm_params, **dict(settings),
+                device=self.device, mesh=self.mesh, autostart=False,
+                tracer=Tracer(collector=SpanCollector()),
+                request_ledger=reqobs.RequestLedger())
+            eng.token_log = [] if self.record else None
+            if warm:
+                eng._precompile_steps()
+            self.engines[key] = eng
+        elif op == "engine":
+            what, *a = rest
+            if what == "close":
+                eng = self.engines.pop(key)
+                self.token_logs.setdefault(key, []).extend(
+                    eng.token_log or ())
+                eng.close()
+            else:
+                self.engines[key].follow(what, a)
+        else:
+            raise ValueError(f"unknown lockstep plan {op!r}")
+
+
+def serve_follower(base_path: str, mesh, *, device=None,
+                   record: bool = False) -> MeshFollower:
+    """A follower rank's serve loop: run rank 0's plans on this rank's
+    shard until it sends ``stop``; returns the :class:`MeshFollower`. A
+    plan that fails, or none within the channel's timeout, raises (the
+    rank exits with an error and the leader's next plan fails)."""
+    ls = Lockstep(device=device)
+    follower = MeshFollower(base_path, mesh, device=device, record=record)
+    while True:
+        op, args = ls.recv()
+        if op == "stop":
+            return follower
+        follower.run(op, args)
+
+
+def serving_mesh_from_env(environ=None, *, device=None):
+    """``(mesh, device)`` from ``KFTPU_SERVING_MESH`` (e.g. ``"tp=2"`` or
+    ``"dp=2,tp=2"``) and the operator's env contract
+    (``parallel/distributed.py:from_env``): the process group up (NCCL
+    on the card, gloo on the CPU), one card a rank. ``(None, device)``,
+    ``device`` as given, when the variable is unset."""
+    from kubeflow_tpu_torch.parallel import distributed as dist
+
+    env = os.environ if environ is None else environ
+    raw = env.get("KFTPU_SERVING_MESH")
+    if not raw:
+        return None, device
+    dev = resolve_device(device)
+    penv = dist.from_env(env)
+    if dev.type == "cuda":
+        dev = torch.device("cuda",
+                           penv.process_id % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    dist.initialize(penv, backend="nccl" if dev.type == "cuda" else "gloo")
+    return parse_serving_mesh(raw, device_type=dev.type), dev
+
+
+def main(device=None) -> None:
+    """Serve from the environment (the reference's knobs) on CUDA unless
+    ``device="cpu"``: REST on ``KFTPU_REST_PORT`` and gRPC on
+    ``KFTPU_GRPC_PORT``. With ``KFTPU_SERVING_MESH`` every rank of the
+    env contract joins the mesh: rank 0 serves, the others follow its
+    plans (:func:`serve_follower`), and rank 0 exits with an error
+    when a follower is gone."""
     logging.basicConfig(level=logging.INFO)
+    base = os.environ.get("KFTPU_MODEL_BASE_PATH", "/models")
+    mesh, device = serving_mesh_from_env(device=device)
+    if mesh is not None and tdist.get_rank() != 0:
+        serve_follower(base, mesh, device=device)
+        return
     max_batch = int(os.environ.get("KFTPU_MAX_BATCH_SIZE", "8"))
     grpc_port = int(os.environ.get("KFTPU_GRPC_PORT", "9000"))
     server = ModelServer(
-        os.environ.get("KFTPU_MODEL_BASE_PATH", "/models"),
-        port=int(os.environ.get("KFTPU_REST_PORT", "8500")),
+        base, port=int(os.environ.get("KFTPU_REST_PORT", "8500")),
         max_batch_size=max_batch,
         pin_version=parse_pin_version(os.environ.get("KFTPU_MODEL_VERSION")),
         decode_slots=int(os.environ.get("KFTPU_DECODE_SLOTS", "8")),
         decode_steps_per_sync=int(
-            os.environ.get("KFTPU_DECODE_STEPS_PER_SYNC", "4")))
+            os.environ.get("KFTPU_DECODE_STEPS_PER_SYNC", "4")),
+        device=device, decode_mesh=mesh)
     server.start()
     grpc_server = None  # keep the reference: a collected grpc.Server stops
     if grpc_port:
@@ -869,13 +1069,17 @@ def main() -> None:
         except ImportError as e:
             log.warning("gRPC disabled (grpc not importable: %s); "
                         "serving REST only", e)
+    ls = server.repo.lockstep
     try:
-        while True:
-            time.sleep(3600)
+        while ls is None or not ls.broken.is_set():
+            time.sleep(3600 if ls is None else 1.0)
     except KeyboardInterrupt:
         server.stop()
         if grpc_server is not None:
             grpc_server.stop(grace=1.0)
+        return
+    log.error("a follower rank of the serving mesh is gone; exiting")
+    sys.exit(1)
 
 
 if __name__ == "__main__":

@@ -337,14 +337,16 @@ def create_sharded_state(config, params: Mapping[str, Any], tx, mesh, *,
 
 
 def create_bert_train_state(config, params: Mapping[str, Any],
-                            tx: Optimizer, *, device=None) -> TrainState:
+                            tx: Optimizer, *, device=None,
+                            mesh=None) -> TrainState:
     """A :class:`TrainState` over a trainable port ``Bert`` loaded from a
     JAX-layout param tree, on ``device`` (CUDA unless ``"cpu"`` is asked
-    for)."""
+    for); with ``mesh``, built over it (this rank's blocks)."""
     from kubeflow_tpu_torch.models import convert
 
     return TrainState.create(
-        convert.bert_to_trainable(config, params, device=device), tx)
+        convert.bert_to_trainable(config, params, device=device, mesh=mesh),
+        tx)
 
 
 def create_image_train_state(config, variables: Mapping[str, Any], tx, *,
@@ -359,15 +361,17 @@ def create_image_train_state(config, variables: Mapping[str, Any], tx, *,
 
 
 def create_vit_train_state(config, params: Mapping[str, Any], tx, *,
-                           device=None) -> TrainState:
+                           device=None, mesh=None) -> TrainState:
     """A :class:`TrainState` over a trainable port ``ViT`` loaded from a
     JAX-layout param tree (no ``batch_stats``: the image train step runs
     it unchanged, as the reference's serves both), on ``device`` (CUDA
-    unless ``"cpu"`` is asked for)."""
+    unless ``"cpu"`` is asked for); with ``mesh``, built over it (this
+    rank's blocks)."""
     from kubeflow_tpu_torch.models import convert
 
     return TrainState.create(
-        convert.vit_to_trainable(config, params, device=device), tx)
+        convert.vit_to_trainable(config, params, device=device, mesh=mesh),
+        tx)
 
 
 def softmax_cross_entropy(logits: torch.Tensor,
@@ -667,11 +671,30 @@ def masked_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
     return _masked_ll(logits, labels, weights) / weights.sum().clamp_min(1.0)
 
 
-def _masked_ll(logits, labels, weights) -> torch.Tensor:
-    """Minus the weighted sum of the labels' log-likelihoods."""
+def _masked_ll(logits, labels, weights, mesh=None) -> torch.Tensor:
+    """Minus the weighted sum of the labels' log-likelihoods; with
+    ``mesh``, ``logits`` is this rank's block of a vocabulary split over
+    ``tp`` (vocab-parallel, as :func:`next_token_loss`)."""
+    if mesh is not None:
+        V = logits.shape[-1] * pmesh.axis_size(mesh, "tp")
+        return -(_token_ll(logits, labels, mesh, V) * weights).sum()
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     return -(ll * weights).sum()
+
+
+def _split_model(state: TrainState):
+    """The state's model split over ``tp``: its ``_Split``, else None."""
+    sp = getattr(state.module, "split", None)
+    return sp if sp is not None and sp.tp > 1 else None
+
+
+def _refuse_pp(mesh, what: str) -> None:
+    if mesh is not None and pmesh.axis_size(mesh, "pp") > 1:
+        raise NotImplementedError(
+            f"the {what} step does not pipeline: pp="
+            f"{pmesh.axis_size(mesh, 'pp')} for the encoders and the "
+            "image models is ROADMAP Queue A 2.8")
 
 
 def make_mlm_train_step(mesh=None, rules=pmesh.DEFAULT_RULES):
@@ -685,13 +708,13 @@ def make_mlm_train_step(mesh=None, rules=pmesh.DEFAULT_RULES):
     ``mesh``: the inputs are the global batch, each rank trains on its
     rows, and the loss's denominator is the global batch's weight sum
     (one all-reduce before the forward). The model is whole on every
-    rank: tensor parallelism for the encoder is not ported (ROADMAP
-    Queue A 2.4)."""
+    rank, or built over the mesh (``create_bert_train_state(...,
+    mesh=)``): under ``tp`` the loss is vocab-parallel where the
+    vocabulary is split, the gradients are averaged as in
+    :func:`make_lm_train_step` and the norm counts each split leaf's
+    squares over ``tp``. ``pp`` > 1 is refused (ROADMAP Queue A 2.8)."""
     axes = _batch_axes(rules)
-    if mesh is not None and pmesh.axis_size(mesh, ("pp", "tp")) > 1:
-        raise NotImplementedError(
-            "the MLM step splits the batch only; tensor and pipeline "
-            "parallelism for the encoder are ROADMAP Queue A 2.4")
+    _refuse_pp(mesh, "MLM")
 
     def step(state: TrainState, tokens, labels, weights
              ) -> Tuple[TrainState, Dict[str, Any]]:
@@ -703,6 +726,9 @@ def make_mlm_train_step(mesh=None, rules=pmesh.DEFAULT_RULES):
         labels = torch.as_tensor(labels, device=dev)
         weights = torch.as_tensor(weights, device=dev, dtype=torch.float32)
         params = state.params
+        sp = _split_model(state)
+        if sp is not None:
+            _check_mesh(state, mesh)
         logits = state.module(tokens)
         if mesh is None:
             loss = masked_lm_loss(logits, labels, weights)
@@ -710,18 +736,20 @@ def make_mlm_train_step(mesh=None, rules=pmesh.DEFAULT_RULES):
             dp = pmesh.axis_size(mesh, axes)
             wsum = weights.sum()
             tdist.all_reduce(wsum, group=pmesh.axis_group(mesh, axes))
+            vocab = mesh if sp is not None and sp.vocab_sharded else None
             # the dp average of these terms is the global batch's loss
-            loss = _masked_ll(logits, labels, weights) * dp \
+            loss = _masked_ll(logits, labels, weights, vocab) * dp \
                 / wsum.clamp_min(1.0)
         grads = torch.autograd.grad(loss, params)
         loss = loss.detach()
         if mesh is None:
             grad_norm = global_norm(grads)
         else:
-            grads, extra = _reduce(grads, [None] * len(grads), loss, mesh,
-                                   axes, dp)
+            specs = state.param_specs
+            grads, extra = _reduce(grads, specs, loss, mesh, axes, dp)
             loss = extra[0]
-            grad_norm = global_norm(grads)
+            grad_norm = (global_norm(grads) if sp is None
+                         else _split_norm(grads, specs, mesh))
         state.apply_gradients(grads, grad_norm)
         return state, {"loss": loss, "grad_norm": grad_norm,
                        "step": state.step}
@@ -808,9 +836,10 @@ def make_pipelined_lm_train_step(mesh, *, n_microbatches: int,
 def make_image_train_step(mesh=None, rules=pmesh.DEFAULT_RULES):
     """The classifier train step: ``step(state, images, labels) ->
     (state, metrics)``, with BN statistics updated by the train-mode
-    forward when the module has any. ``metrics`` holds ``loss`` and
-    ``accuracy`` (0-dim tensors on the device) and ``step`` (the count
-    after this update). ``images`` and ``labels`` go to the device of
+    forward when the module has any. ``metrics`` holds ``loss``,
+    ``accuracy`` and ``grad_norm`` (the global norm of the averaged
+    gradients, which clipping reads; 0-dim tensors on the device) and
+    ``step`` (the count after this update). ``images`` and ``labels`` go to the device of
     the state's parameters.
 
     ``mesh``: the inputs are the global batch, and each rank trains on
@@ -820,18 +849,18 @@ def make_image_train_step(mesh=None, rules=pmesh.DEFAULT_RULES):
     running statistics come out equal on every rank; one all-reduce of
     one flat buffer over the data axes averages the gradients, the loss
     and the accuracy. ViT and the MNIST CNN have no cross-row state and
-    need nothing more. The model is whole on every rank: a mesh with
-    ``tp`` or ``pp`` > 1 is refused (tensor parallelism for the image
-    models is ROADMAP Queue A 2.4)."""
+    need nothing more. Under ``tp`` a ViT built over the mesh
+    (``create_vit_train_state(..., mesh=)``) holds its blocks' heads and
+    MLP split, as the reference's rules assign them; its gradients are
+    averaged as in :func:`make_lm_train_step` and the clipping norm
+    counts each split leaf's squares over ``tp``. ResNet's and the MNIST
+    CNN's leaf names take no split in those rules, so they stay whole
+    and each ``tp`` rank runs its data rank's rows. ``pp`` > 1 is
+    refused (ROADMAP Queue A 2.8)."""
     from kubeflow_tpu_torch.models.resnet import global_batch_stats
 
     axes = _batch_axes(rules)
-    if mesh is not None and pmesh.axis_size(mesh, ("pp", "tp")) > 1:
-        raise NotImplementedError(
-            f"the image train step splits the batch only, not a mesh with "
-            f"tp={pmesh.axis_size(mesh, 'tp')} pp="
-            f"{pmesh.axis_size(mesh, 'pp')}: tensor parallelism for the "
-            "image models is ROADMAP Queue A 2.4")
+    _refuse_pp(mesh, "image")
 
     def step(state: TrainState, images, labels
              ) -> Tuple[TrainState, Dict[str, Any]]:
@@ -841,6 +870,9 @@ def make_image_train_step(mesh=None, rules=pmesh.DEFAULT_RULES):
         images = torch.as_tensor(images, device=state.device)
         labels = torch.as_tensor(labels, device=state.device).long()
         params = state.params
+        sp = _split_model(state)
+        if sp is not None:
+            _check_mesh(state, mesh)
         if mesh is None:
             logits = state.module(images, train=True)
         else:
@@ -853,10 +885,13 @@ def make_image_train_step(mesh=None, rules=pmesh.DEFAULT_RULES):
         loss = loss.detach()
         if mesh is not None:
             grads, extra = _reduce(
-                grads, [None] * len(grads), torch.stack([loss, acc]), mesh,
+                grads, state.param_specs, torch.stack([loss, acc]), mesh,
                 axes, pmesh.axis_size(mesh, axes))
             loss, acc = extra[0], extra[1]
-        state.apply_gradients(grads)
-        return state, {"loss": loss, "accuracy": acc, "step": state.step}
+        grad_norm = (global_norm(grads) if sp is None
+                     else _split_norm(grads, state.param_specs, mesh))
+        state.apply_gradients(grads, grad_norm)
+        return state, {"loss": loss, "accuracy": acc,
+                       "grad_norm": grad_norm, "step": state.step}
 
     return step

@@ -151,6 +151,32 @@ def test_paged_kernel_takes_any_group_and_head_dim(cuda, QH, KH, Dh, dtype,
     assert int(counters.abs().sum()) == 0
 
 
+@pytest.mark.parametrize("kv", [slice(1, 2), slice(2, 4)])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 8e-3)])
+def test_paged_kernel_reads_a_slice_of_the_pools_kv_heads(cuda, kv, dtype,
+                                                          atol):
+    """A rank whose q heads map to some of a replicated pool's kv heads
+    hands the kernel ``pool[:, :, a:b]`` in place: it matches the plain
+    version on a contiguous copy of that slice; a pool laid out token
+    by token across its pages is refused."""
+    n = kv.stop - kv.start
+    q, k, v, pages, positions = _paged_case(
+        cuda, _paged_serving_inputs(2 * n, 4, seed=5), dtype)
+    ks, vs = k[:, :, kv], v[:, :, kv]
+    assert not ks.is_contiguous()
+    got = pa.paged_decode_attention(q, ks, vs, pages, positions)
+    torch.cuda.synchronize()
+    want = pa.paged_decode_attention_plain(q, ks.contiguous(),
+                                           vs.contiguous(), pages, positions)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    # token-major: a page's keys are not one block of the pool
+    kt, vt = (t.transpose(0, 1).contiguous().transpose(0, 1)
+              for t in (ks, vs))
+    with pytest.raises(ValueError, match="slice of its kv heads"):
+        pa.paged_decode_attention(q, kt, vt, pages, positions)
+
+
 def test_sampler_kernel_matches_plain(cuda):
     rng = np.random.default_rng(4)
     logits = torch.from_numpy((3.0 * rng.normal(size=(8, 32000)))

@@ -98,9 +98,9 @@ def test_cow_split_copies_one_page(lm):
     copies = []
     real = eng._copy_page
 
-    def counted(cache, src, dst):
+    def counted(src, dst):
         copies.append((src, dst))
-        return real(cache, src, dst)
+        return real(src, dst)
 
     eng._copy_page = counted
     a = eng.submit(P1, max_new=4, prefix_len=12)

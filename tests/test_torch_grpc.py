@@ -516,7 +516,7 @@ def _run_main(monkeypatch, tmp_path, grpc_port, probe):
 
     class CpuServer(ModelServer):
         def __init__(self, *a, **kw):
-            super().__init__(*a, device="cpu", **kw)
+            super().__init__(*a, **kw)
             made.append(self)
 
     def sleep(_):
@@ -530,7 +530,7 @@ def _run_main(monkeypatch, tmp_path, grpc_port, probe):
                      ("KFTPU_GRPC_PORT", str(grpc_port)),
                      ("KFTPU_DECODE_SLOTS", "0")):
         monkeypatch.setenv(key, val)
-    srv.main()
+    srv.main(device="cpu")
 
 
 def _rest_models(server):

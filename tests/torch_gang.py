@@ -17,6 +17,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import os
 import sys
 import traceback
@@ -225,7 +226,7 @@ def fed_steps(step, state, mesh, batch, steps: int = STEPS):
     for leaves in device_feed(FixedLoader(batch), mesh, steps=steps):
         leaves = leaves if isinstance(leaves, tuple) else (leaves,)
         state, m = step(state, *leaves)
-        second = m["grad_norm"] if "grad_norm" in m else m["accuracy"]
+        second = m["accuracy"] if "accuracy" in m else m["grad_norm"]
         metrics.append((float(m["loss"]), float(second), int(m["step"])))
     return metrics, state
 
@@ -705,7 +706,7 @@ def _moe_mesh_suite(out: str) -> Dict[str, Callable[[], Any]]:
     return cases
 
 
-def _image_state(case: str, device="cpu"):
+def _image_state(case: str, device="cpu", mesh=None):
     from kubeflow_tpu_torch.models import convert
     from kubeflow_tpu_torch.models.mnist import MnistCnn
     from kubeflow_tpu_torch.train import (
@@ -720,9 +721,376 @@ def _image_state(case: str, device="cpu"):
     if case.startswith("resnet"):
         return create_image_train_state(cfg, variables, tx, device=device)
     if case == "vit":
-        return create_vit_train_state(cfg, variables, tx, device=device)
+        return create_vit_train_state(cfg, variables, tx, device=device,
+                                      mesh=mesh)
     return TrainState.create(
         convert.load_params(MnistCnn(), variables).to(device).train(), tx)
+
+
+# -- mesh serving and the encoders over tp ------------------------------------
+
+# a gang's meshes by world size; tiny LMs by kv heads: tp 2 divides 2
+# kv heads, not 1, and tp 4 divides neither
+SERVE_MESHES = {2: {"tp2": dict(tp=2)},
+                4: {"dp2tp2": dict(dp=2, tp=2), "tp4": dict(tp=4)}}
+SERVE_KV = (2, 1)
+# the reference engine test's requests (tests/test_engine.py:340)
+SERVE_REQS = (([5, 11, 17], 6), ([3, 2, 9, 23], 4))
+# the same prompts as one ragged batch for the decode functions: (B, S)
+# padded, true lengths, new tokens (the longest request's)
+DECODE_PROMPT = ([[5, 11, 17, 0], [3, 2, 9, 23]], [3, 4])
+DECODE_NEW = 6
+# the lockstep engine's traffic: a same-bucket burst (ragged), prefix
+# sharers, a sampled row; a step failure on rank 0 at cycle 5
+LOCKSTEP_REQS = (
+    ([7, 3, 19, 4, 1, 2, 3, 4, 5, 6, 7, 8, 9], dict(max_new=5,
+                                                    prefix_len=8)),
+    ([5, 11, 17], dict(max_new=6)),
+    ([3, 2, 9, 23], dict(max_new=4)),
+    ([9, 23, 41], dict(max_new=5)),
+    ([5, 11, 17, 2], dict(max_new=7, temperature=0.8, top_k=20, seed=5)),
+    ([7, 3, 19, 4, 1, 2, 3, 4, 40, 41], dict(max_new=6, prefix_len=8)),
+)
+LOCKSTEP_SLOTS, LOCKSTEP_CYCLES, LOCKSTEP_FAIL_AT = 4, 60, 5
+ENCODER_MESHES = {2: dict(tp=2), 4: dict(dp=2, tp=2)}
+
+
+def serve_lm(kv_heads: int):
+    """The tiny LM config and numpy weights of a mesh-serving case."""
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.transformer import tiny_config
+
+    cfg = tiny_config(n_kv_heads=kv_heads)
+    return cfg, convert.random_params(cfg, kv_heads)
+
+
+def engine_kwargs(mode: str) -> Dict[str, Any]:
+    """Dense, or paged through the kernel's wrapper (its plain version
+    on CPU tensors) with 8-token pages and chunks."""
+    if mode == "dense":
+        return {}
+    return dict(paged=True, kv_page_size=8, prefill_chunk_tokens=8,
+                paged_attention_impl="kernel")
+
+
+def lockstep_workload(eng, *, fail: bool = True) -> Dict[str, Any]:
+    """:data:`LOCKSTEP_REQS` through ``eng`` (``autostart=False``), a
+    fixed number of ``run_once`` cycles, with one injected step failure
+    (recovered by replay); the streams and counters."""
+    reqs = [eng.submit(p, **kw) for p, kw in LOCKSTEP_REQS]
+    for cycle in range(LOCKSTEP_CYCLES):
+        if fail and cycle == LOCKSTEP_FAIL_AT:
+            real = eng._step, eng._step_greedy
+
+            def boom(*a, **k):
+                raise RuntimeError("injected step failure")
+
+            eng._step = eng._step_greedy = boom
+            eng.run_once(timeout=0.01)
+            eng._step, eng._step_greedy = real
+        else:
+            eng.run_once(timeout=0.01)
+    return {"streams": [r.result() for r in reqs],
+            "counters": (eng.recoveries, eng.batch_prefills,
+                         eng.prefix_hits, eng.prefill_chunks)}
+
+
+def _serve_store(out: str) -> str:
+    """Rank 0 exports the kv-2 LM and a 1-layer draft of it; every rank
+    then reads the same store."""
+    import torch.distributed as tdist
+
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.transformer import tiny_config
+    from kubeflow_tpu_torch.serving.model_store import (
+        export_model,
+        transformer_export_config,
+    )
+
+    base = os.path.join(out, "store")
+    if tdist.get_rank() == 0:
+        cfg, params = serve_lm(2)
+        export_model(os.path.join(base, "lm"), "transformer", params,
+                     config=transformer_export_config(cfg))
+        dcfg = tiny_config(n_layers=1)
+        export_model(os.path.join(base, "draft"), "transformer",
+                     convert.random_params(dcfg, 9),
+                     config=transformer_export_config(dcfg), draft_of="lm")
+    tdist.barrier()
+    return base
+
+
+def _post(port: int, path: str, body: Dict[str, Any]):
+    import json
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/models/{path}",
+        json.dumps(body).encode(), {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as f:
+            return f.status, json.loads(f.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _mesh_serving_suite(out: str) -> Dict[str, Callable[[], Any]]:
+    import torch.distributed as tdist
+
+    from kubeflow_tpu_torch.models import convert, decode
+    from kubeflow_tpu_torch.serving import server as srv
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+    from kubeflow_tpu_torch.serving.lockstep import Lockstep
+
+    rank = tdist.get_rank()
+    meshes = {k: _cpu_mesh(**v)
+              for k, v in SERVE_MESHES[tdist.get_world_size()].items()}
+
+    def split_lm(mesh_name, kv):
+        cfg, params = serve_lm(kv)
+        return cfg, convert.to_module(cfg, params, device="cpu",
+                                      mesh=meshes[mesh_name])
+
+    def decoding(mesh_name, kv):
+        """The decode functions on the split model: prefill and step
+        logits over both caches, greedy generate, speculative generate
+        with a whole draft."""
+        cfg, model = split_lm(mesh_name, kv)
+        prompt = torch.tensor(DECODE_PROMPT[0], dtype=torch.int32)
+        lens = torch.tensor(DECODE_PROMPT[1], dtype=torch.int32)
+        out = {"kv_heads": model.cache_kv_heads}
+        for mode, page in (("dense", 0), ("paged", 8)):
+            c = dataclasses.replace(cfg, kv_page_size=page,
+                                    kv_pages=2 * (64 // 8) if page else 0,
+                                    paged_attention_impl="kernel")
+            cache = decode.init_cache(c, 2, device="cpu",
+                                      kv_heads=model.cache_kv_heads)
+            if page:
+                for row in range(2):
+                    decode.arm_slot(cache, row, 0,
+                                    np.arange(8) + 8 * row)
+            first, cache = decode.prefill(model, cache, prompt, lens)
+            step, cache = decode.decode_step(
+                model, cache, torch.argmax(first, -1).to(torch.int32))
+            out[mode] = {"prefill": first, "step": step,
+                         "cache": tuple(cache.k.shape)}
+        out["generate"] = decode.generate(model, prompt,
+                                          max_new_tokens=DECODE_NEW,
+                                          true_len=lens)
+        dcfg, dparams = serve_lm(2)
+        draft = convert.to_module(dataclasses.replace(dcfg, n_layers=1),
+                                  convert.random_params(dataclasses.replace(
+                                      dcfg, n_layers=1), 9), device="cpu")
+        toks, stats = decode.speculative_generate(
+            model, draft, prompt, max_new_tokens=DECODE_NEW, draft_len=3,
+            true_len=lens)
+        out["speculative"] = (toks, stats)
+        return out
+
+    def engine(mesh_name, kv, mode):
+        """SPMD: every rank drives its engine alike (the reference
+        engine test's requests)."""
+        cfg, model = split_lm(mesh_name, kv)
+        eng = DecodeEngine(cfg, model, slots=2, autostart=False,
+                           device="cpu", mesh=meshes[mesh_name],
+                           **engine_kwargs(mode))
+        reqs = [eng.submit(p, max_new=n) for p, n in SERVE_REQS]
+        for _ in range(12):
+            eng.run_once(timeout=0.01)
+        k = eng._cache.k
+        return {"streams": [r.result() for r in reqs],
+                "cache": tuple(k.shape),
+                "kv_bytes": 2 * k.numel() * k.element_size()}
+
+    def lockstep(mode):
+        """Rank 0 schedules, the others follow its plans; every rank
+        logs the tokens it samples."""
+        cfg, model = split_lm(next(iter(meshes)), 2)
+        mesh = meshes[next(iter(meshes))]
+        ls = Lockstep(device="cpu", timeout_s=60)
+        kw = dict(slots=LOCKSTEP_SLOTS, autostart=False, device="cpu",
+                  mesh=mesh, **engine_kwargs(mode))
+        if rank == 0:
+            eng = DecodeEngine(cfg, model, link=functools.partial(
+                ls.program, "engine", "lm", 1), **kw)
+            eng.token_log = []
+            got = lockstep_workload(eng)
+            eng.close()
+            ls.stop()
+            got["plans"] = ls.plans_sent
+        else:
+            eng = DecodeEngine(cfg, model, **kw)
+            eng.token_log = []
+            while True:
+                op, args = ls.recv()
+                if op == "stop":
+                    break
+                if op == "engine" and args[2] != "close":
+                    eng.follow(args[2], args[3:])
+            got = {}
+        got["log"] = eng.token_log
+        return got
+
+    def serve(decode_slots):
+        """A ModelServer over the mesh on rank 0, followers elsewhere:
+        ``:generate`` (engine or unary), speculative, ``:predict`` and
+        gRPC ``Generate``; each rank's blocks of the loaded LM."""
+        base = _serve_store(out)
+        mesh = meshes[next(iter(meshes))]
+        if rank != 0:
+            f = srv.serve_follower(base, mesh, device="cpu", record=True)
+            shapes = {n: tuple(p.shape) for n, p in
+                      f.models[("lm", 1)].module.named_parameters()} \
+                if ("lm", 1) in f.models else {}
+            return {"shapes": shapes,
+                    "logs": {k: v for k, v in f.token_logs.items()}}
+        s = srv.ModelServer(base, port=0, poll_interval_s=3600,
+                            decode_slots=decode_slots, decode_mesh=mesh,
+                            device="cpu")
+        port = s.start()
+        got: Dict[str, Any] = {}
+        try:
+            lm = s.repo.get("lm")
+            got["shapes"] = {n: tuple(p.shape)
+                             for n, p in lm.module.named_parameters()}
+            eng = s.repo.engine_for("lm", lm)
+            if eng is not None:
+                eng.token_log = []
+                got["engine_mesh"] = eng.mesh is mesh
+            prompts = [p for p, _ in SERVE_REQS]
+            got["generate"] = _post(port, "lm:generate", {
+                "prompt_tokens": prompts, "max_new_tokens": 5})
+            got["sampled"] = _post(port, "lm:generate", {
+                "prompt_tokens": [prompts[0]], "max_new_tokens": 4,
+                "temperature": 0.7, "top_k": 10, "seed": 3})
+            if decode_slots == 0:
+                got["speculative"] = _post(port, "lm:generate", {
+                    "prompt_tokens": prompts, "max_new_tokens": 5,
+                    "speculative": True, "draft_len": 3})
+                got["predict"] = _post(port, "lm:predict", {
+                    "instances": [prompts[0]]})
+            from kubeflow_tpu_torch.serving.grpc_server import (
+                PredictClient,
+                serve_grpc,
+            )
+
+            gsrv, gport = serve_grpc(s.repo, 0)
+            client = PredictClient(f"127.0.0.1:{gport}")
+            try:
+                got["grpc"] = client.generate(
+                    "lm", np.asarray([prompts[0]], np.int32),
+                    max_new_tokens=5)[0].tolist()
+                got["grpc_stream"] = [
+                    np.asarray(row).tolist() for row in client.generate_stream(
+                        "lm", np.asarray([prompts[0]], np.int32),
+                        max_new_tokens=5)]
+            finally:
+                client.close()
+                gsrv.stop(grace=None)
+            if eng is not None:
+                got["log"] = list(eng.token_log)
+        finally:
+            s.stop()
+        got["plans"] = s.repo.lockstep.plans_sent
+        return got
+
+    def refused():
+        """Decoding from a MoE model over tp, or from a pipeline stage,
+        refuses by its ROADMAP item."""
+        from kubeflow_tpu_torch.models.transformer import tiny_config
+
+        out = []
+        for cfg, mesh in (
+                (tiny_config(n_experts=4), meshes[next(iter(meshes))]),
+                (tiny_config(), _cpu_mesh(pp=2, **(
+                    {"tp": 2} if tdist.get_world_size() == 4 else {})))):
+            model = convert.to_module(cfg, convert.random_params(cfg, 0),
+                                      device="cpu", mesh=mesh)
+            try:
+                decode.generate(model, torch.tensor([[5, 11, 17]]),
+                                max_new_tokens=2)
+                out.append("no error")
+            except NotImplementedError as e:
+                out.append(str(e))
+        return out
+
+    cases: Dict[str, Callable[[], Any]] = {"refused": refused}
+    for m in meshes:
+        for kv in SERVE_KV:
+            cases[f"decode/{m}/kv{kv}"] = functools.partial(decoding, m, kv)
+            for mode in ("dense", "paged"):
+                cases[f"engine/{m}/kv{kv}/{mode}"] = functools.partial(
+                    engine, m, kv, mode)
+    for mode in ("dense", "paged"):
+        cases[f"lockstep/{mode}"] = functools.partial(lockstep, mode)
+    cases["serve/engine"] = functools.partial(serve, 2)
+    cases["serve/unary"] = functools.partial(serve, 0)
+    return cases
+
+
+def _encoder_tp_suite() -> Dict[str, Callable[[], Any]]:
+    import torch.distributed as tdist
+
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.bert import bert_tiny
+    from kubeflow_tpu_torch.train import (
+        create_bert_train_state,
+        make_image_train_step,
+        make_mlm_train_step,
+        make_optimizer,
+    )
+
+    mesh = _cpu_mesh(**ENCODER_MESHES[tdist.get_world_size()])
+
+    def mlm():
+        cfg = dataclasses.replace(bert_tiny(), dtype="float32")
+        state = create_bert_train_state(
+            cfg, convert.random_bert_params(cfg, 0),
+            make_optimizer(LR, **OPT), device="cpu", mesh=mesh)
+        step = make_mlm_train_step(mesh)
+        batch = mlm_inputs(cfg.vocab_size)
+        metrics = []
+        for _ in range(STEPS):
+            state, m = step(state, *batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"]),
+                            int(m["step"])))
+        return {"metrics": metrics,
+                "shapes": {n: tuple(p.shape)
+                           for n, p in state.module.named_parameters()},
+                "params": convert.gather_params(state.module)}
+
+    def image(case):
+        state = _image_state(case, mesh=mesh)
+        step = make_image_train_step(mesh)
+        images, labels = image_inputs(case)
+        metrics = []
+        for _ in range(IMAGE_STEPS):
+            state, m = step(state, images, labels)
+            metrics.append((float(m["loss"]), float(m["accuracy"]),
+                            int(m["step"]), float(m["grad_norm"])))
+        return {"metrics": metrics,
+                "specs": getattr(state.module, "param_specs", {}),
+                "state": {n: t.detach().clone() for n, t in
+                          convert.gather_named(
+                              dict(state.module.state_dict()),
+                              getattr(state.module, "param_specs", {}),
+                              state.module).items()}}
+
+    def refused():
+        pmesh_ = _cpu_mesh(pp=2, **({"tp": 2} if tdist.get_world_size() == 4
+                                    else {}))
+        out = []
+        for make in (make_mlm_train_step, make_image_train_step):
+            try:
+                make(pmesh_)
+                out.append("no error")
+            except NotImplementedError as e:
+                out.append(str(e))
+        return out
+
+    return {"mlm": mlm, **{f"image/{c}": functools.partial(image, c)
+                           for c in IMAGE_CASES}, "refused": refused}
 
 
 def _image_mesh_suite() -> Dict[str, Callable[[], Any]]:
@@ -783,6 +1151,10 @@ def _image_mesh_suite() -> Dict[str, Callable[[], Any]]:
 LM_TINY = ["--device", "cpu", "--vocab-size", "128", "--d-model", "32",
            "--n-layers", "3", "--n-heads", "4", "--d-ff", "64", "--seq-len",
            "16", "--per-device-batch", "2", "--log-every", "1"]
+BERT_TINY = ["--device", "cpu", "--vocab-size", "128", "--d-model", "32",
+             "--n-layers", "2", "--n-heads", "4", "--d-ff", "64",
+             "--seq-len", "16", "--per-device-batch", "2", "--log-every",
+             "1", "--checkpoint-every", "2"]
 VIT_TINY = ["--device", "cpu", "--image-size", "32", "--patch-size", "8",
             "--num-classes", "10", "--d-model", "32", "--n-layers", "1",
             "--n-heads", "4", "--d-ff", "64", "--per-device-batch", "4",
@@ -896,12 +1268,19 @@ def _examples_suite(out: str) -> Dict[str, Callable[[], Any]]:
             lm_example.TransformerConfig = config
         return dict(counts, loss=loss)
 
-    def refused(fn):
-        try:
-            fn()
-        except NotImplementedError as e:
-            return str(e)
-        return "no error"
+    def bert_tp2():
+        """``examples.bert.main`` at tp = 2 (``auto_mesh_config``'s on
+        two processes) with a checkpoint at step 2: the final loss, and
+        the saved ``token_embed``'s shape (whole, gathered)."""
+        from kubeflow_tpu_torch.examples import bert as bert_example
+
+        ckpt = os.path.join(out, "bert-tp2")
+        with _env(KFTPU_CHECKPOINT_DIR=ckpt, KFTPU_JOB_NAME="bert-tp2"):
+            loss = bert_example.main(BERT_TINY + ["--steps", "2"])
+        torch.distributed.barrier()     # rank 0's save is on disk
+        saved = torch.load(os.path.join(ckpt, "2", checkpoint.STATE_FILE),
+                           map_location="cpu", weights_only=True)
+        return loss, tuple(saved["module"]["token_embed"].shape)
 
     def image_run(entry):
         """The entry point at dp = 2 (``tp=1``: the image step splits the
@@ -930,8 +1309,8 @@ def _examples_suite(out: str) -> Dict[str, Callable[[], Any]]:
         "launcher/pp2": lambda: launcher({}, pp=2),
         "lm/moe_dp2": lambda: lm_run("moe-dp2", [
             "--tp", "1", "--n-experts", "4", "--steps", "2"], f32=True),
-        "vit/tp2": lambda: refused(lambda: vit_example.main(
-            VIT_TINY + ["--tp", "2"])),
+        "vit/tp2": lambda: vit_example.main(VIT_TINY + ["--tp", "2"]),
+        "bert/tp2": lambda: bert_tp2(),
         **{f"image/{e}": (lambda e=e: image_run(e)) for e in IMAGE_ENTRY},
     }
 
@@ -957,6 +1336,8 @@ def _run(suite: str, out: str) -> None:
              "full_mesh": _full_mesh_suite,
              "moe_mesh": lambda: _moe_mesh_suite(out),
              "image_mesh": _image_mesh_suite,
+             "mesh_serving": lambda: _mesh_serving_suite(out),
+             "encoder_tp": _encoder_tp_suite,
              "examples": lambda: _examples_suite(out)}[suite]()
     for name, fn in cases.items():
         try:
