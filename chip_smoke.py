@@ -139,7 +139,8 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
     to host, JSON encode) and peak memory are printed. Before it, both
     kernels are held to their plain versions and timed at the shapes
     ``:predict`` gives them, without autograd (bnconv at the four sites
-    at batch 1 and 8, flash at (1, 128) and (8, 512));
+    at batch 1, 8 and phase 24's batch-prediction chunk of 16, flash at
+    (1, 128) and (8, 512));
 18. f32 (TF32 off) ``:predict`` parity from the same weights: ResNet-50
     fused against unfused (the same top-1 for 8 images, logits within
     1e-4 of their max-abs) and BERT-base flash against dense (logits
@@ -201,6 +202,30 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
     global batch, 2 warm-up and 5 timed steps (bnconv forward and dW 16
     a step), and the f32 mesh step against the mesh-less one (loss 1e-5,
     running statistics 1e-6).
+23. mesh serving and the encoders over ``tp`` (:func:`mesh_serving_phase`);
+24. the elastic plane, batch prediction, the multislice check and
+    Podracer, each part fatal: (a) one gang of two ranks on the card
+    over gloo (this file with ``--elastic-rank``) shrinks an f32 run (2
+    layers at ``examples/lm.py``'s widths, flash, TF32 off) from 2
+    slices to 1 through ``ElasticCoordinator`` (2 steps, the resize, 1
+    step) and holds it to 3 unbroken ``make_lm_train_step`` steps (loss,
+    grad norm, parameters within 1e-5, movement within 2e-3); both ranks
+    re-gang and run the bf16 shrink at ``examples/lm.py``'s widths (12
+    layers, flash, global batch 16): 3 steps at 2 slices, rank 1
+    snapshots and leaves, rank 0 re-enters at world 1 over NCCL,
+    restores the snapshot bit for bit and takes steps 4-6 (``state.step
+    == 4`` after the first), the three spans under the job's trace; then
+    a ``SHUTDOWN`` snapshot, which a fresh process (``--elastic-resume``,
+    started once the gang has ended) resumes at step 7; the snapshot, reshard
+    and resume seconds and the checkpoint's bytes are printed. (b)
+    ``run_batch_predict`` over phase 17's fused ResNet-50 export, 40
+    uint8 images at batch 16: predictions equal to
+    ``LoadedModel.predict`` bit for bit, bnconv forward 48 launches. (c)
+    ``testing/multislice_check`` one rank a card over NCCL, one slice
+    each: ``ok`` and equal losses on every rank, within 1e-5 of plain
+    ``make_lm_train_step`` steps on the same weights and tokens. (d)
+    ``examples.podracer.main`` at its defaults: the learner's clock
+    monotone over 2 → 1 → 2 actor slices.
 
 Each phase prints its seconds. Phase 2 also holds the bnconv forward and
 dW kernels, and the autograd function's four gradients, against their
@@ -229,7 +254,10 @@ greedy defaults launch none of the kernels, which those phases require)
 ``grpc_core`` (phase 20's calls), ``mesh_train`` (phase 21's entry
 point run, summed over its ranks) and ``pipe_moe_image`` (phase 22's
 pipelined LM step, MoE entry point and ResNet step, each zeroed just
-before it and not its f32 parity runs: > 0 on rows 3-7, 0 on rows 1-2). The flash forward and bnconv forward
+before it and not its f32 parity runs: > 0 on rows 3-7, 0 on rows 1-2),
+``mesh_serving`` and ``encoder_tp`` (phase 23), ``elastic`` (phase 24's
+bf16 run over both ranks and the resume: > 0 on rows 3-5, 0 on the rest)
+and ``batch_predict`` (48 on row 6, 0 on the rest). The flash forward and bnconv forward
 rows also carry ``predict_shapes``: their times at the inference shapes.
 """
 
@@ -3045,7 +3073,8 @@ def check_predict_kernels(device) -> dict:
     """The bnconv forward and the flash forward at the shapes ``:predict``
     gives them, under ``torch.inference_mode`` (no autograd): bnconv at
     the four ResNet-50 sites at batch 1 (M = 3136, 784, 196, 49: no
-    multiple of the 128-row tile but the first) and batch 8, flash at
+    multiple of the 128-row tile but the first), batch 8 and phase 24's
+    ``run_batch_predict`` chunk (``BATCH_PREDICT_BATCH``), flash at
     BERT-base's (1, 128) and (8, 512), non-causal; bf16 against the plain
     versions at phase 2's limits, then timed beside bound and plain
     version; bnconv beside a bf16 ``torch.matmul`` of a precomputed y
@@ -3061,7 +3090,7 @@ def check_predict_kernels(device) -> dict:
     bf = torch.bfloat16
     out = {}
     with torch.inference_mode():
-        for batch in (1, 8):
+        for batch in (1, 8, BATCH_PREDICT_BATCH):
             acc = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
                        ops_ms=0.0, matmul_ms=0.0, max_abs_err=0.0)
             for seed, (M, K, N, blocks) in enumerate(RESNET50_SITES,
@@ -5011,6 +5040,599 @@ def print_mesh_serving(ms: dict, cfg, kind: str, ident: str,
           f"encoder_tp={ms['encoder_tp']}", flush=True)
 
 
+# phase 24: the elastic plane at examples/lm.py's widths (bf16, flash);
+# its f32 check at MESH_PARITY's; batch prediction over phase 17's
+# ResNet-50 export; the multislice check; Podracer
+ELASTIC_LM = dict(vocab_size=32000, d_model=768, n_layers=12, n_heads=12,
+                  n_kv_heads=12, d_ff=3072, max_seq_len=512,
+                  attention_impl="flash")
+ELASTIC_ROWS = 8               # examples/lm.py's per-device batch
+ELASTIC_JOB = dict(job="smoke-elastic", namespace="default", uid="phase-24")
+ELASTIC_LIMIT = 1e-5           # phase 21's f32 limits
+BATCH_PREDICT_N, BATCH_PREDICT_BATCH = 40, 16
+# what phase 24's gang and resume run: this file (a CPU rehearsal at
+# small widths points it at a wrapper that shrinks the constants above)
+SCRIPT = os.path.abspath(__file__)
+
+
+def _elastic_tokens(step: int, rows: int, cfg):
+    """The elastic runs' global batch of ``step``: step-keyed, the same
+    on every topology."""
+    import numpy as np
+
+    return np.random.default_rng([24, step]).integers(
+        0, cfg.vocab_size, (rows, cfg.max_seq_len)).astype(np.int32)
+
+
+def _regang(n_slices: int) -> None:
+    """The operator's refreshed env contract for the new world (one rank
+    a slice; a new coordinator address agreed over the old group), then
+    the production re-init (``elastic/coordinator.py:_default_reinit``:
+    every rank leaves the group; a new world of one gets its one-rank
+    NCCL group from the next mesh)."""
+    import torch.distributed as tdist
+
+    from kubeflow_tpu_torch.elastic.coordinator import _default_reinit
+    from kubeflow_tpu_torch.parallel import distributed as dist
+    from kubeflow_tpu_torch.testing.multiprocess import _free_port
+
+    port = [_free_port() if tdist.get_rank() == 0 else None]
+    tdist.broadcast_object_list(port, src=0)
+    os.environ.update({dist.ENV_COORDINATOR: f"127.0.0.1:{port[0]}",
+                       dist.ENV_NUM_PROCESSES: str(n_slices),
+                       dist.ENV_NUM_SLICES: str(n_slices)})
+    _default_reinit(n_slices)
+
+
+def _elastic_coordinator(device, ckpt_dir: str, init_fn, signal=None,
+                         collector=None):
+    from kubeflow_tpu_torch.elastic import ElasticCoordinator, mesh_for_slices
+    from kubeflow_tpu_torch.obs.trace import Tracer
+    from kubeflow_tpu_torch.train import make_lm_train_step
+    from kubeflow_tpu_torch.train.checkpoint import CheckpointManager
+
+    return ElasticCoordinator(
+        manager=CheckpointManager(ckpt_dir), init_fn=init_fn,
+        make_step=make_lm_train_step,
+        mesh_factory=lambda n: mesh_for_slices(n, device_type=device.type),
+        signal=signal, reinit=_regang,
+        tracer=Tracer(collector) if collector is not None else None,
+        device=device,
+        **ELASTIC_JOB)
+
+
+def _elastic_lm(seed: int, *, weights: bool = True):
+    """The bf16 run's config and ``init_fn`` (random weights from a numpy
+    seed, ``examples/lm.py``'s optimizer). Without ``weights`` the
+    ``init_fn`` builds on the meta device only: a process that restores
+    needs no fresh weights."""
+    from kubeflow_tpu_torch.elastic import lm_init_fn
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.train import make_optimizer
+
+    cfg = TransformerConfig(**ELASTIC_LM)
+    return cfg, lm_init_fn(
+        cfg, convert.random_params(cfg, seed) if weights else None,
+        make_optimizer(3e-4, warmup_steps=20, decay_steps=101))
+
+
+def _state_is(state, saved) -> bool:
+    """Whether a train state holds the saved tree bit for bit (module,
+    both moments, the update count and the step)."""
+    import torch
+
+    module = state.module.state_dict()
+    if set(module) != set(saved["module"]) or state.step != saved["step"]:
+        return False
+    if not all(torch.equal(t.cpu(), saved["module"][n])
+               for n, t in module.items()):
+        return False
+    opt = state.opt_state
+    return opt["count"] == saved["opt_state"]["count"] and all(
+        torch.equal(a.cpu(), b) for key in ("mu", "nu")
+        for a, b in zip(opt[key], saved["opt_state"][key]))
+
+
+def _elastic_main(device, out: str) -> dict:
+    """One rank of the bf16 run: 3 steps at 2 slices (one rank each, over
+    gloo), the resize to 1 (rank 1 snapshots and leaves; rank 0 re-enters
+    at world 1 over NCCL, restores and takes steps 4-6), then the
+    ``SHUTDOWN`` snapshot at step 6. Kernel launches counted over it
+    all."""
+    import torch.distributed as tdist
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.elastic import ResizeSignal
+    from kubeflow_tpu_torch.elastic.coordinator import SHUTDOWN
+    from kubeflow_tpu_torch.obs.goodput import checkpoint_save_seconds
+    from kubeflow_tpu_torch.obs.trace import SpanCollector
+
+    t0 = time.perf_counter()
+    cfg, init_fn = _elastic_lm(SEED + 80)
+    collector, signal = SpanCollector(), ResizeSignal()
+    ckpt_dir = os.path.join(out, "ckpt-bf16")
+    coord = _elastic_coordinator(device, ckpt_dir, init_fn, signal,
+                                 collector)
+    rows = ELASTIC_ROWS * 2                # the global batch at 2 slices
+    res = {"setup_s": time.perf_counter() - t0, "losses": [],
+           "step_ms": []}
+
+    ops.reset_launches()
+    state, start = coord.start(2)
+    check(start == 0, f"the first start resumed at {start}")
+
+    def step(n):
+        nonlocal state
+        _sync(device)
+        t = time.perf_counter()
+        state, m = coord.step_fn(state, _elastic_tokens(n, rows, cfg))
+        coord.step = n
+        res["losses"].append(float(m["loss"]))
+        res["step_ms"].append((time.perf_counter() - t) * 1e3)
+
+    for n in (1, 2, 3):
+        step(n)
+    res["world"] = tdist.get_world_size()
+    signal.request(1)
+    old = state
+    try:
+        state, resized = coord.maybe_resize(state)
+    except SystemExit:
+        res.update(left=True, saves=coord.snapshotter.saves,
+                   launches=ops.launch_counts())
+        return res
+    res["left"] = False
+    res["new_world"] = tdist.get_world_size()
+    res["backend"] = tdist.get_backend()
+    _, saved = coord.manager.read(3)
+    res["restored_is_snapshot"] = _state_is(state, saved)
+    res["snapshot_is_state"] = _state_is(old, saved)
+    del old, saved
+    step(4)
+    res["step_after_resize"] = state.step
+    for n in (5, 6):
+        step(n)
+    res["snapshot_bytes"] = os.path.getsize(
+        os.path.join(ckpt_dir, "3", "state.pt"))
+    signal.request(SHUTDOWN)
+    try:
+        coord.maybe_resize(state)
+        res["shutdown"] = False
+    except SystemExit:
+        res["shutdown"] = True
+    res["launches"] = ops.launch_counts()
+    res["saves"] = coord.snapshotter.saves
+    res["save_s"] = checkpoint_save_seconds(ELASTIC_JOB["namespace"],
+                                            ELASTIC_JOB["job"])
+    res["spans"] = [{"name": s.name, "trace_id": s.trace_id,
+                     "parent_id": s.parent_id, "s": s.end - s.start}
+                    for s in collector.spans()]
+    res["trace"] = [coord.trace_id, coord.root_span_id]
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def _elastic_f32(device, out: str) -> dict:
+    """One rank of the f32 run (TF32 off) at MESH_PARITY's widths with
+    flash: 2 steps at 2 slices, the resize, 1 step at 1 slice; rank 0
+    then holds it against 3 unbroken mesh-less steps on the same weights
+    and batches."""
+    from kubeflow_tpu_torch.elastic import ResizeSignal, lm_init_fn
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.train import (
+        create_train_state,
+        make_lm_train_step,
+        make_optimizer,
+    )
+
+    def tx():
+        return make_optimizer(1e-5, warmup_steps=1, decay_steps=50)
+
+    cfg = TransformerConfig(**MESH_PARITY, attention_impl="flash")
+    params = convert.random_params(cfg, SEED + 81)
+    signal = ResizeSignal()
+    coord = _elastic_coordinator(device, os.path.join(out, "ckpt-f32"),
+                                 lm_init_fn(cfg, params, tx()), signal)
+    rows = MESH_PARITY_BATCH * 2
+    state, _ = coord.start(2)
+    metrics = []
+    for n in (1, 2, 3):
+        if n == 3:
+            signal.request(1)
+            try:
+                state, _ = coord.maybe_resize(state)
+            except SystemExit:
+                return {"left": True}
+        state, m = coord.step_fn(state, _elastic_tokens(n, rows, cfg))
+        coord.step = n
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    plain = create_train_state(cfg, params, tx(), device=device)
+    p0 = {n: p.detach().float().clone()
+          for n, p in plain.module.named_parameters()}
+    plain_step = make_lm_train_step()
+    errs = {"left": False, "loss": 0.0, "grad_norm": 0.0, "losses": []}
+    for n, (loss, gnorm) in enumerate(metrics, 1):
+        plain, pm = plain_step(plain, _elastic_tokens(n, rows, cfg))
+        errs["loss"] = max(errs["loss"], abs(loss - float(pm["loss"])))
+        errs["grad_norm"] = max(errs["grad_norm"],
+                                abs(gnorm / float(pm["grad_norm"]) - 1.0))
+        errs["losses"].append(loss)
+    full = convert.gather_params(state.module)
+    errs["params"] = max(_max_err(full[n], p) for n, p in
+                         plain.module.named_parameters())
+    errs["moved"] = _moved_err(full, plain.module.named_parameters(), p0)
+    errs["step"] = state.step
+    return errs
+
+
+def _rejoin(port: int) -> None:
+    """Both ranks back into one gloo group of 2 after the f32 shrink (rank
+    1 left it; rank 0 holds a one-rank group), on a fresh store at
+    ``port``: the two runs share one gang's start-up."""
+    import torch.distributed as tdist
+
+    from kubeflow_tpu_torch.parallel import distributed as dist
+
+    if tdist.is_initialized():
+        tdist.destroy_process_group()
+    os.environ.update({dist.ENV_COORDINATOR: f"127.0.0.1:{port}",
+                       dist.ENV_NUM_PROCESSES: "2",
+                       dist.ENV_NUM_SLICES: "2"})
+    dist.initialize(dist.from_env(), backend="gloo")
+
+
+def elastic_rank_main(argv) -> int:
+    """One rank of phase 24's elastic runs, two ranks on one card over
+    gloo on CUDA tensors (NCCL refuses two ranks on one card), started
+    by :func:`elastic_phase` through ``run_multiprocess`` with the env
+    contract: ``chip_smoke.py --elastic-rank OUT PORT [DEVICE]``. The
+    f32 run (:func:`_elastic_f32`), both ranks back into a group of 2 at
+    ``PORT``, then the bf16 run (:func:`_elastic_main`). Writes
+    ``OUT/rank<r>.json``."""
+    import torch
+    import torch.distributed as tdist
+
+    from kubeflow_tpu_torch.parallel import distributed as dist
+
+    out, port, *where = argv
+    penv = dist.from_env()
+    device = torch.device(where[0] if where else "cuda:0")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.initialize(penv, backend="gloo")
+    res = {"rank": penv.process_id}
+    t0 = time.perf_counter()
+    res["f32"] = _elastic_f32(device, out)
+    res["f32_s"] = time.perf_counter() - t0
+    _rejoin(int(port))
+    res["bf16"] = _elastic_main(device, out)
+    with open(os.path.join(out, f"rank{penv.process_id}.json"), "w") as f:
+        json.dump(res, f)
+    _sync(device)
+    if tdist.is_initialized():
+        tdist.destroy_process_group()
+    return 0
+
+
+def elastic_resume_main(argv) -> int:
+    """The fresh process after the ``SHUTDOWN`` snapshot, started once
+    the gang has ended: ``start(1)`` over the bf16 run's checkpoint must
+    resume at step 6, and step 7 must follow (``chip_smoke.py
+    --elastic-resume OUT [DEVICE]``). Writes ``OUT/resume.json``."""
+    import torch
+    import torch.distributed as tdist
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.obs.trace import SpanCollector
+
+    out, *where = argv
+    device = torch.device(where[0] if where else "cuda:0")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    cfg, init_fn = _elastic_lm(SEED + 80, weights=False)
+    collector = SpanCollector()
+    coord = _elastic_coordinator(device, os.path.join(out, "ckpt-bf16"),
+                                 init_fn, collector=collector)
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    state, start = coord.start(1)
+    state, m = coord.step_fn(state, _elastic_tokens(
+        start + 1, ELASTIC_ROWS * 2, cfg))
+    res = {"start": start, "step": state.step, "loss": float(m["loss"]),
+           "launches": ops.launch_counts(),
+           "spans": [(s.name, s.end - s.start) for s in collector.spans()],
+           "wall_s": time.perf_counter() - t0}
+    with open(os.path.join(out, "resume.json"), "w") as f:
+        json.dump(res, f)
+    _sync(device)
+    if tdist.is_initialized():
+        tdist.destroy_process_group()
+    return 0
+
+
+def elastic_phase(device) -> dict:
+    """Phase 24 (a): one gang of two ranks runs the f32 elastic run and
+    its checks against the unbroken steps, then the bf16 run at
+    ``examples/lm.py``'s widths; once the gang has ended, a fresh
+    process resumes the bf16 run's ``SHUTDOWN`` snapshot. The
+    ``elastic`` launches are the bf16 run's and the resume's."""
+    import math
+
+    from kubeflow_tpu_torch.testing import run_multiprocess
+    from kubeflow_tpu_torch.testing.multiprocess import _free_port
+
+    out = tempfile.mkdtemp(prefix="kftpu-elastic-")
+    try:
+        t0 = time.perf_counter()
+        procs = run_multiprocess(
+            [SCRIPT, "--elastic-rank", out, str(_free_port()), str(device)],
+            2, timeout_s=600.0, job_name="elastic")
+        for r in procs:
+            check(r.returncode == 0, f"elastic rank {r.process_id} of "
+                                     f"{len(procs)} ended {r.returncode}:"
+                                     f"\n{r.stderr[-4000:]}")
+        t1 = time.perf_counter()
+        (r,) = run_multiprocess([SCRIPT, "--elastic-resume", out,
+                                 str(device)], 1, timeout_s=600.0,
+                                job_name="elastic-resume")
+        check(r.returncode == 0, f"the resuming process ended "
+                                 f"{r.returncode}:\n{r.stderr[-4000:]}")
+        res = {"gang_s": t1 - t0, "resume_s": time.perf_counter() - t1}
+        ranks = []
+        for i in range(2):
+            with open(os.path.join(out, f"rank{i}.json")) as f:
+                ranks.append(json.load(f))
+        with open(os.path.join(out, "resume.json")) as f:
+            res["resume"] = json.load(f)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    res["f32"] = [r["f32"] for r in ranks]
+    res["bf16"] = [r["bf16"] for r in ranks]
+    res["f32_s"] = ranks[0]["f32_s"]
+    f0, f1 = res["f32"]
+    check(not f0["left"] and f1["left"],
+          f"f32 run: rank 0 left {f0['left']}, rank 1 left {f1['left']}")
+    check(f0["loss"] <= ELASTIC_LIMIT and f0["grad_norm"] <= ELASTIC_LIMIT
+          and f0["params"] <= ELASTIC_LIMIT
+          and f0["moved"] <= MESH_MOVED_LIMIT and f0["step"] == 3,
+          f"f32 elastic run vs 3 unbroken steps: {f0}")
+    b0, b1 = res["bf16"]
+    check(not b0["left"] and b1["left"] and b1["saves"] == 1,
+          f"bf16 run: rank 0 left {b0['left']}, rank 1 left {b1['left']} "
+          f"after {b1['saves']} snapshot(s)")
+    check(b0["world"] == 2 and b0["new_world"] == 1,
+          f"worlds {b0['world']} -> {b0['new_world']}")
+    check(b0["restored_is_snapshot"] and b0["snapshot_is_state"],
+          "the restored state is not the snapshot bit for bit")
+    check(b0["step_after_resize"] == 4,
+          f"state.step {b0['step_after_resize']} after the first step on "
+          f"the new mesh")
+    check(b0["shutdown"] and b0["saves"] == 2,
+          f"SHUTDOWN: exited {b0['shutdown']}, {b0['saves']} snapshots")
+    check(all(math.isfinite(x) for x in b0["losses"]) and len(
+        b0["losses"]) == 6, f"bf16 losses {b0['losses']}")
+    names = [s["name"] for s in b0["spans"]]
+    check(names == ["elastic.snapshot", "elastic.reshard", "elastic.resume",
+                    "elastic.snapshot"]
+          and all([s["trace_id"], s["parent_id"]] == b0["trace"]
+                  for s in b0["spans"]),
+          f"spans {b0['spans']} under {b0['trace']}")
+    r = res["resume"]
+    check(r["start"] == 6 and r["step"] == 7 and math.isfinite(r["loss"]),
+          f"the fresh process resumed at {r['start']} to step {r['step']}")
+    res["launches"] = {k: b0["launches"][k] + b1["launches"][k]
+                       + r["launches"][k] for k in b0["launches"]}
+    return res
+
+
+def _write_instances(path: str, pixels) -> int:
+    with open(path, "w") as f:
+        for img in pixels:
+            f.write(json.dumps(img.tolist()) + "\n")
+    return os.path.getsize(path)
+
+
+def batch_predict_phase(device, root: str) -> dict:
+    """Phase 24 (b): ``run_batch_predict`` over phase 17's fused
+    ResNet-50 export, 40 instances (raw uint8 pixels) at batch 16, so
+    the last chunk is padded: every prediction equal to
+    ``LoadedModel.predict`` on the same padded chunk, bit for bit, and
+    the bnconv forward launched 16 times a chunk (the ``batch_predict``
+    path)."""
+    import numpy as np
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.serving import batch_predict
+    from kubeflow_tpu_torch.serving import model_store as store
+
+    base = os.path.join(root, "resnet50")
+    tmp = tempfile.mkdtemp(prefix="kftpu-batch-predict-")
+    try:
+        model = store.load_latest(base, device=device)
+        shape = model.input_shape
+        pixels = np.random.default_rng(SEED + 90).integers(
+            0, 256, (BATCH_PREDICT_N, *shape), dtype=np.uint8)
+        inp, outp = os.path.join(tmp, "in.jsonl"), os.path.join(tmp,
+                                                                "out.jsonl")
+        t0 = time.perf_counter()
+        in_bytes = _write_instances(inp, pixels)
+        write_s = time.perf_counter() - t0
+        ops.reset_launches()
+        summary = batch_predict.run_batch_predict(
+            base, inp, outp, batch_size=BATCH_PREDICT_BATCH, device=device)
+        launches = ops.launch_counts()
+        with open(outp) as f:
+            preds = np.asarray([json.loads(line)["prediction"]
+                                for line in f], np.float32)
+        want = []
+        B = BATCH_PREDICT_BATCH
+        for i in range(0, BATCH_PREDICT_N, B):
+            chunk = pixels[i:i + B].astype(np.float32)
+            n = chunk.shape[0]
+            pad = np.zeros((B - n, *shape), np.float32)
+            want.append(model.predict(np.concatenate([chunk, pad]))[:n])
+        want = np.concatenate(want)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    chunks = -(-BATCH_PREDICT_N // B)
+    check(summary["instances"] == BATCH_PREDICT_N and preds.shape ==
+          want.shape and np.isfinite(preds).all(),
+          f"batch predict: {summary}, predictions {preds.shape}")
+    check(np.array_equal(preds, want),
+          f"batch predictions differ from LoadedModel.predict by "
+          f"{float(np.abs(preds - want).max())}")
+    check(launches["bnconv_fwd"] == 16 * chunks and all(
+        n == 0 for k, n in launches.items() if k != "bnconv_fwd"),
+        f"batch predict launched {launches}, not bnconv_fwd {16 * chunks}")
+    return {"summary": summary, "launches": launches, "chunks": chunks,
+            "in_mb": in_bytes / 1e6, "write_s": write_s,
+            "classes": preds.shape[1]}
+
+
+def multislice_phase(device) -> dict:
+    """Phase 24 (c): ``testing/multislice_check`` with one rank a card
+    (one slice each, tp 1) over NCCL through ``run_multiprocess``: every
+    rank prints ``ok`` and the same losses, and those are held against
+    plain ``make_lm_train_step`` steps in this process on the same
+    weights and tokens (f32, TF32 off), within ``ELASTIC_LIMIT``."""
+    import torch
+
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.testing import multislice_check as msc
+    from kubeflow_tpu_torch.testing import run_multiprocess
+    from kubeflow_tpu_torch.train import (
+        create_train_state,
+        make_lm_train_step,
+        make_optimizer,
+    )
+
+    n = torch.cuda.device_count() if device.type == "cuda" else 2
+    t0 = time.perf_counter()
+    procs = run_multiprocess(
+        ["-m", "kubeflow_tpu_torch.testing.multislice_check", "--tp", "1",
+         "--device", device.type], n,
+        env_per_process=[{"MEGASCALE_SLICE_ID": str(i),
+                          "MEGASCALE_NUM_SLICES": str(n)} for i in range(n)],
+        timeout_s=300.0, job_name="multislice-smoke")
+    outs = []
+    for r in procs:
+        check(r.returncode == 0, f"multislice rank {r.process_id} ended "
+                                 f"{r.returncode}:\n{r.stderr[-4000:]}")
+        outs.append(json.loads(r.stdout.strip().splitlines()[-1]))
+    check(all(o["ok"] and o["losses"] == outs[0]["losses"] for o in outs),
+          f"multislice ranks: {outs}")
+    wall_s = time.perf_counter() - t0
+    cfg = TransformerConfig(**msc.CONFIG)
+    state = create_train_state(cfg, convert.random_params(
+        cfg, msc.WEIGHT_SEED), make_optimizer(**msc.OPT), device=device)
+    step, batch, plain = make_lm_train_step(), msc.tokens(cfg.vocab_size), []
+    for _ in range(msc.STEPS):
+        state, metrics = step(state, batch)
+        plain.append(float(metrics["loss"]))
+    err = max(abs(a - b) for a, b in zip(outs[0]["losses"], plain))
+    check(len(outs[0]["losses"]) == len(plain) and err <= ELASTIC_LIMIT,
+          f"multislice losses {outs[0]['losses']} vs plain steps {plain}: "
+          f"max err {err:.2e} > {ELASTIC_LIMIT:.0e}")
+    return {"ranks": outs, "wall_s": wall_s, "plain": plain, "err": err}
+
+
+def podracer_phase(device) -> dict:
+    """Phase 24 (d): ``examples.podracer.main`` at its defaults: the
+    learner's clock monotone over 2 → 1 → 2 actor slices."""
+    from kubeflow_tpu_torch.examples import podracer
+
+    t0 = time.perf_counter()
+    out = podracer.main(["--device", str(device)])
+    out["wall_s"] = time.perf_counter() - t0
+    check(out["learner_monotone"] and out["actor_resizes"] == 2
+          and out["actor_slices"] == 2 and out["learner_steps"] == 9,
+          f"podracer: {out}")
+    return out
+
+
+def phase24(device, base: str, kernels: list, kind: str, ident: str) -> None:
+    """Phase 24's four parts, each fatal, their lines, and the
+    ``elastic`` and ``batch_predict`` paths of the kernel record."""
+    el = elastic_phase(device)
+    bp = batch_predict_phase(device, os.path.join(base, "predict-store"))
+    ms = multislice_phase(device)
+    pod = podracer_phase(device)
+    for kern in kernels:
+        for path, launched in (("elastic", el["launches"]),
+                               ("batch_predict", bp["launches"])):
+            n = launched.get(kern["name"], 0)
+            kern["launches_by_path"][path] = n
+            kern["launches"] += n
+    for kern in kernels[2:5]:
+        check(kern["launches_by_path"]["elastic"] > 0,
+              f"{kern['name']} never launched on the elastic path")
+    for kern in kernels[:2] + kernels[5:]:
+        check(kern["launches_by_path"]["elastic"] == 0,
+              f"{kern['name']} launched on the elastic path")
+    b0, f0, r = el["bf16"][0], el["f32"][0], el["resume"]
+    span = {}
+    for sp in b0["spans"]:
+        span.setdefault(sp["name"], []).append(sp["s"])
+    print(f"phase 24 elastic shrink ({kind} | {ident}): examples/lm.py's "
+          f"widths (d_model 768, 12 layers, 12 heads, d_ff 3072, vocab "
+          f"32000, seq 512), bf16/f32, flash, remat; 2 ranks on one card "
+          f"over gloo (2 slices x dp 1, global batch "
+          f"{ELASTIC_ROWS * 2}) for steps 1-3, then rank 1 leaves and "
+          f"rank 0 re-enters at world 1 over {b0['backend']} for steps "
+          f"4-6: losses={[round(x, 4) for x in b0['losses']]} "
+          f"step_ms={[round(x, 1) for x in b0['step_ms']]}; snapshot "
+          f"span {span['elastic.snapshot'][0]:.3f}s (the save alone "
+          f"{b0['save_s']:.3f}s over both snapshots), reshard span "
+          f"{span['elastic.reshard'][0]:.3f}s (re-init, mesh, restore), "
+          f"resume span {span['elastic.resume'][0]:.6f}s; checkpoint "
+          f"{b0['snapshot_bytes']} bytes; restored state == snapshot == "
+          f"the live state, bit for bit; state.step "
+          f"{b0['step_after_resize']} after the first step on the new "
+          f"mesh; SHUTDOWN snapshot {span['elastic.snapshot'][1]:.3f}s; "
+          f"a fresh process resumed at step {r['start'] + 1} "
+          f"(start(1) restore span {r['spans'][0][1]:.3f}s, start and "
+          f"step 7 {r['wall_s']:.1f}s, the process "
+          f"{el['resume_s']:.1f}s); bf16 run "
+          f"{b0['wall_s']:.1f}s in the gang of {el['gang_s']:.1f}s; "
+          f"launches={el['launches']}", flush=True)
+    print(f"phase 24 f32 elastic run (TF32 off, 2 layers at the widths "
+          f"above, flash): 2 steps at 2 slices, resize, 1 at 1 slice vs 3 "
+          f"unbroken make_lm_train_step steps: max loss err "
+          f"{f0['loss']:.2e}, grad_norm rel err {f0['grad_norm']:.2e}, "
+          f"param err {f0['params']:.2e} (limits {ELASTIC_LIMIT:.0e}), "
+          f"movement err {f0['moved']:.2e} (limit "
+          f"{MESH_MOVED_LIMIT:.0e}); losses {f0['losses']}; "
+          f"{el['f32_s']:.1f}s", flush=True)
+    sm = bp["summary"]
+    print(f"phase 24 run_batch_predict ({kind} | {ident}): phase 17's "
+          f"resnet50 (fused, bf16/f32), {BATCH_PREDICT_N} instances of "
+          f"uint8 pixels as JSON ({bp['in_mb']:.1f} MB, written in "
+          f"{bp['write_s']:.2f}s) at batch {BATCH_PREDICT_BATCH} "
+          f"({bp['chunks']} chunks, the last padded): "
+          f"instances_per_s={sm['instances_per_sec']} "
+          f"wall_s={sm['wall_time_s']} (JSON decode included); "
+          f"predictions == LoadedModel.predict bit for bit; "
+          f"launches={bp['launches']}", flush=True)
+    print(f"phase 24 multislice_check ({kind} | {ident}): "
+          f"{len(ms['ranks'])} rank(s), one slice each, mesh "
+          f"{ms['ranks'][0]['mesh']}: ok on every rank, losses "
+          f"{ms['ranks'][0]['losses']} ({ms['wall_s']:.1f}s); plain "
+          f"make_lm_train_step in this process {ms['plain']}: max err "
+          f"{ms['err']:.2e} (limit {ELASTIC_LIMIT:.0e})", flush=True)
+    print(f"phase 24 examples.podracer.main at its defaults ({kind} | "
+          f"{ident}): learner_steps={pod['learner_steps']} "
+          f"learner_monotone={pod['learner_monotone']} "
+          f"actor_resizes={pod['actor_resizes']} "
+          f"actor_slices={pod['actor_slices']} "
+          f"last_reward={pod['last_reward']:.4f} ({pod['wall_s']:.1f}s)",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -5548,6 +6170,9 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
               f"{kern['name']} never launched on the encoder_tp path")
     print_mesh_serving(ms, cfg, kind, ident, serve)
     lap("23")
+    torch.cuda.empty_cache()
+    phase24(device, base, kernels, kind, ident)
+    lap("24")
     for kern in kernels:
         for path, res in (("lm_entry", lm), ("moe_train", moe),
                           ("spec_serving", spec), ("predict", pred),
@@ -5569,6 +6194,10 @@ if __name__ == "__main__":
         sys.exit(mesh_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--serve-rank"]:
         sys.exit(serve_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--elastic-rank"]:
+        sys.exit(elastic_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--elastic-resume"]:
+        sys.exit(elastic_resume_main(sys.argv[2:]))
     try:
         sys.exit(main())
     except SmokeFailure as e:

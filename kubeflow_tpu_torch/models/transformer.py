@@ -140,9 +140,11 @@ reference:
   through ``reduce_from``; the logits' vocabulary blocks are gathered
   over ``tp`` into the full row on every rank, as GSPMD gathers them
   under the reference's sampler. With replicated kv heads the paged
-  kernel takes every q head (this rank's among zeros) over the whole
-  pool, so it sees a plain GQA group. Decoding from a MoE model split
-  over a mesh, or from a pipeline stage, refuses (ROADMAP Queue A 2.8).
+  kernel reads, in place, the window of the pool's kv heads that this
+  rank's q heads map to (:func:`kv_window`), with this rank's q heads
+  among zeros only where they span more than one kv head. Decoding from
+  a MoE model split over a mesh, or from a pipeline stage, refuses
+  (ROADMAP Queue A 2.8).
 
 Context parallelism for MoE layers and inside the pipeline is not
 ported, and refuses.

@@ -11,7 +11,7 @@ nothing of the JAX package):
 
 The flight recorder (``obs/steps.py``) dumps through both. Shipping
 spans to a trace collector (the reference's ``push_spans``) waits for the
-port's tracing tier (ROADMAP Queue A 4).
+port's tracing tier (ROADMAP Queue A 5).
 """
 
 from __future__ import annotations

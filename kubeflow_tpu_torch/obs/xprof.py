@@ -10,7 +10,7 @@ PyTorch port of the memory half of ``kubeflow_tpu/obs/xprof.py``
 
 On the CPU (no CUDA) the stats are None and the sampler stays silent,
 as the reference's does on CPU backends. The compile ledger
-(``CompileLedger``) waits for ROADMAP Queue A 9: eager PyTorch has no
+(``CompileLedger``) waits for ROADMAP Queue A 3: eager PyTorch has no
 compile events to count.
 
 Series (names, help and labels the reference's):

@@ -396,6 +396,15 @@ def load_version(base_path: str, version: int, *, device=None,
                        input_dtype=meta.get("input_dtype", "float32"))
 
 
+def load_latest(base_path: str, *, device=None) -> Optional[LoadedModel]:
+    """The newest version under ``base_path`` (:func:`load_version`), or
+    None when there is none (the reference's ``load_latest``)."""
+    versions = list_versions(base_path)
+    if not versions:
+        return None
+    return load_version(base_path, versions[-1], device=device)
+
+
 def find_draft_for(store_root: str, target_name: str,
                    target_version: int) -> Optional[Tuple[str, int]]:
     """The store sibling declaring itself this target's draft:

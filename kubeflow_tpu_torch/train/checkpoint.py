@@ -260,10 +260,11 @@ class CheckpointManager:
         """The reference's refresh of a cached step list: here every call
         reads the directory, so there is nothing to refresh."""
 
-    def restore(self, state: Any, step: Optional[int] = None) -> Any:
-        """Copy the checkpoint of ``step`` (default: the latest) into
-        ``state`` in place and return it. A missing explicit step raises
-        ``FileNotFoundError`` naming the steps there are."""
+    def read(self, step: Optional[int] = None) -> Tuple[int, Any]:
+        """``(step, tree)``: the whole saved tree of ``step`` (default:
+        the latest) on the host, as :meth:`save` wrote it. A missing
+        explicit step raises ``FileNotFoundError`` naming the steps
+        there are."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -273,9 +274,17 @@ class CheckpointManager:
             raise FileNotFoundError(
                 f"no checkpoint for step {step} under {self.directory} "
                 f"(have {self.all_steps()})")
-        saved = torch.load(
+        return step, torch.load(
             os.path.join(self.directory, str(step), STATE_FILE),
             map_location="cpu", weights_only=True)
+
+    def restore(self, state: Any, step: Optional[int] = None, *,
+                saved: Any = None) -> Any:
+        """Copy the checkpoint of ``step`` (default: the latest) into
+        ``state`` in place and return it; ``saved``: that step's tree,
+        already :meth:`read`."""
+        if saved is None:
+            step, saved = self.read(step)
         specs = _specs(state)
         if specs is not None:     # this rank's blocks of the whole state
             saved = _local_state(saved, specs, state)

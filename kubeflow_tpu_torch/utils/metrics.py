@@ -1,8 +1,9 @@
 """Prometheus-style metrics for the port: counters, gauges, histograms.
 
 A trimmed copy of ``kubeflow_tpu/utils/metrics.py``: the registry, the
-three metric kinds the engine, the server, the request ledger and the
-step telemetry use, ``STEP_TIME_BUCKETS``, histogram exemplars (the
+three metric kinds the engine, the server, the request ledger, the step
+telemetry and the checkpoint-save histogram use (``Histogram.sum``
+too), ``STEP_TIME_BUCKETS``, histogram exemplars (the
 latest ``(trace id, value)`` per bucket, as OpenMetrics-style ``#
 {trace_id="..."} v`` suffixes on the bucket lines) and the 0.0.4 text
 exposition. Series names, help strings and label keys are the JAX
@@ -124,6 +125,11 @@ class Histogram(Metric):
         """Observation count for the label set (the ``_count`` series)."""
         with self._lock:
             return float(sum(self._counts.get(self._key(labels), ())))
+
+    def sum(self, **labels: str) -> float:
+        """Sum of the observations for the label set (``_sum``)."""
+        with self._lock:
+            return self._sums.get(self._key(labels), 0.0)
 
     def expose(self, exemplars: bool = True) -> str:
         """``exemplars=False`` omits the exemplar suffixes, which the

@@ -94,6 +94,19 @@ IMAGE_BATCH, IMAGE_STEPS, IMAGE_LR = 8, 3, 0.1
 # fed by device_feed over the mesh: BatchNorm's global statistics show a
 # batch cut twice
 IMAGE_FEED_CASES = ("resnet_unfused", "mnist")
+# the elastic shrink: tests/test_elastic.py's tiny model, optimizer and
+# (8, 8) global batch; the port's 4 ranks go from 2 slices x tp 2 to 1
+ELASTIC_CFG = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4,
+                   n_kv_heads=4, d_ff=64, max_seq_len=16, remat=False)
+ELASTIC_OPT = dict(learning_rate=1e-3, warmup_steps=2, decay_steps=20)
+ELASTIC_JOB = dict(job="train", namespace="d", uid="u")
+
+
+def elastic_tokens(step: int) -> np.ndarray:
+    """The elastic run's global batch of ``step``: step-keyed, so the
+    stream is the same on every topology."""
+    return np.random.default_rng([1234, step]).integers(
+        0, 64, (8, 8)).astype(np.int32)
 
 
 def collective_input(seed: int = 0) -> np.ndarray:
@@ -1315,6 +1328,105 @@ def _examples_suite(out: str) -> Dict[str, Callable[[], Any]]:
     }
 
 
+def _elastic_suite(out: str) -> Dict[str, Callable[[], Any]]:
+    """4 ranks: the spec derivation at 2 and 1 slices of tp 2, then a
+    shrink from 2 slices to 1 through the coordinator (ranks 2-3 take
+    part in the snapshot and leave; ranks 0-1 re-enter a fresh gloo
+    group of 2 through the production re-init, from a refreshed env)."""
+    import torch.distributed as tdist
+
+    from kubeflow_tpu_torch.elastic import (
+        ElasticCoordinator,
+        ResizeSignal,
+        lm_init_fn,
+        mesh_for_slices,
+        shardings_for,
+    )
+    from kubeflow_tpu_torch.elastic.coordinator import _default_reinit
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.obs.trace import SpanCollector, Tracer
+    from kubeflow_tpu_torch.parallel import distributed as dist
+    from kubeflow_tpu_torch.testing.multiprocess import _free_port
+    from kubeflow_tpu_torch.train import checkpoint as ckpt
+    from kubeflow_tpu_torch.train import make_lm_train_step, make_optimizer
+
+    cfg = _lm_config(**ELASTIC_CFG)
+    init_fn = lm_init_fn(cfg, convert.random_params(cfg, 0),
+                         make_optimizer(**ELASTIC_OPT))
+
+    def mesh_factory(n):
+        return mesh_for_slices(n, tp=2, device_type="cpu")
+
+    def plain(tree):
+        """Specs as plain tuples (a pickled PartitionSpec nests)."""
+        if isinstance(tree, dict):
+            return {k: plain(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [plain(v) for v in tree]
+        return tuple(tree)
+
+    def specs():
+        abstract = init_fn(None, torch.device("meta"))
+        return {n: plain(shardings_for(abstract, mesh_factory(n)))
+                for n in (2, 1)}
+
+    def whole(state):
+        """The state as its checkpoint saves it (a collective)."""
+        return ckpt._to_host(ckpt._gather_state(
+            ckpt._tree(state), ckpt._specs(state), state))
+
+    def regang(n_slices):
+        """The operator's refreshed env contract (a new coordinator
+        address, agreed over the old group), then the production
+        re-init."""
+        port = [_free_port() if tdist.get_rank() == 0 else None]
+        tdist.broadcast_object_list(port, src=0)
+        os.environ.update({
+            dist.ENV_COORDINATOR: f"127.0.0.1:{port[0]}",
+            dist.ENV_NUM_PROCESSES: str(2 * n_slices),
+            dist.ENV_NUM_SLICES: str(n_slices)})
+        _default_reinit(n_slices)
+
+    def shrink():
+        collector, signal = SpanCollector(), ResizeSignal()
+        coord = ElasticCoordinator(
+            manager=ckpt.CheckpointManager(os.path.join(out, "elastic")),
+            init_fn=init_fn, make_step=make_lm_train_step,
+            mesh_factory=mesh_factory, signal=signal, reinit=regang,
+            tracer=Tracer(collector), device="cpu", **ELASTIC_JOB)
+        state, start = coord.start(2)
+        metrics = []
+
+        def step(n):
+            nonlocal state
+            state, m = coord.step_fn(state, elastic_tokens(n))
+            coord.step = n
+            metrics.append((float(m["loss"]), float(m["grad_norm"]),
+                            int(m["step"])))
+
+        for n in (1, 2, 3):
+            step(n)
+        pre = whole(state)
+        signal.request(1)
+        res = {"start": start, "world": tdist.get_world_size(),
+               "metrics": metrics}
+        try:
+            state, resized = coord.maybe_resize(state)
+        except SystemExit:
+            return {**res, "left": True, "saves": coord.snapshotter.saves}
+        post = whole(state)
+        step(4)
+        return {**res, "left": False, "resized": resized,
+                "saves": coord.snapshotter.saves,
+                "n_slices": coord.n_slices,
+                "new_world": tdist.get_world_size(),
+                "state_step": state.step, "pre": pre, "post": post,
+                "spans": [(s.name, s.trace_id, s.parent_id)
+                          for s in collector.spans()]}
+
+    return {"specs": specs, "shrink": shrink}
+
+
 def _run(suite: str, out: str) -> None:
     from kubeflow_tpu_torch.parallel import distributed as dist
 
@@ -1338,6 +1450,7 @@ def _run(suite: str, out: str) -> None:
              "image_mesh": _image_mesh_suite,
              "mesh_serving": lambda: _mesh_serving_suite(out),
              "encoder_tp": _encoder_tp_suite,
+             "elastic": lambda: _elastic_suite(out),
              "examples": lambda: _examples_suite(out)}[suite]()
     for name, fn in cases.items():
         try:
