@@ -225,7 +225,20 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
     each: ``ok`` and equal losses on every rank, within 1e-5 of plain
     ``make_lm_train_step`` steps on the same weights and tokens. (d)
     ``examples.podracer.main`` at its defaults: the learner's clock
-    monotone over 2 → 1 → 2 actor slices.
+    monotone over 2 → 1 → 2 actor slices;
+25. every mesh composition the reference accepts
+    (:func:`mesh_compose_phase`), each part fatal: (a) the MoE LM of
+    ``examples/lm.py --n-experts 8`` (0.73 B parameters, random weights
+    from a numpy seed, exported bf16 and f32) served at world 1 over
+    NCCL with phase 3's traffic, then at tp = 2 by a gang of two ranks
+    on the card over gloo (this file with ``--compose-rank``), paged and
+    dense: f32 greedy and sampled streams equal to the unsplit engine's,
+    the ranks sampling the same tokens, the bf16 model's teacher-forced
+    logits within twice bf16's own effect; (b) the same gang at pp = 2:
+    BERT-base's MLM step and ResNet-50 fused at the entry points'
+    batches, timed, and their f32 twins against the unsplit steps; (c)
+    ring and Ulysses with 8 experts at tp = 2, f32, against the unsplit
+    step (loss, grad norm, parameters within 1e-5, movement 2e-3).
 
 Each phase prints its seconds. Phase 2 also holds the bnconv forward and
 dW kernels, and the autograd function's four gradients, against their
@@ -256,8 +269,10 @@ point run, summed over its ranks) and ``pipe_moe_image`` (phase 22's
 pipelined LM step, MoE entry point and ResNet step, each zeroed just
 before it and not its f32 parity runs: > 0 on rows 3-7, 0 on rows 1-2),
 ``mesh_serving`` and ``encoder_tp`` (phase 23), ``elastic`` (phase 24's
-bf16 run over both ranks and the resume: > 0 on rows 3-5, 0 on the rest)
-and ``batch_predict`` (48 on row 6, 0 on the rest). The flash forward and bnconv forward
+bf16 run over both ranks and the resume: > 0 on rows 3-5, 0 on the rest),
+``batch_predict`` (48 on row 6, 0 on the rest) and ``mesh_compose``
+(phase 25's runs summed over the processes: > 0 on rows 1-2 from (a),
+on rows 3-5 from (b)'s BERT, on rows 6-7 from (b)'s ResNet). The flash forward and bnconv forward
 rows also carry ``predict_shapes``: their times at the inference shapes.
 """
 
@@ -4557,6 +4572,29 @@ def engine_streams(eng, bodies) -> list:
     return [r.result() for r in reqs]
 
 
+def _round(url: str, bodies: list) -> dict:
+    """``bodies`` posted to ``url`` at once, one thread each: the
+    streams and the round's wall."""
+    results, errors = [None] * len(bodies), []
+
+    def run(i):
+        try:
+            results[i] = _post(url, bodies[i], False)[0]
+        except Exception as e:  # noqa: BLE001 — checked below
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errors, "; ".join(errors))
+    return {"streams": [r["tokens"][0] for r in results],
+            "wall_s": time.perf_counter() - t0}
+
+
 def _serve_leader(device, base: str, mesh) -> dict:
     """Rank 0: ``ModelServer(decode_mesh=)`` over ``base`` (the f32
     export ``lm32`` alone); :func:`mesh_requests`' greedy, then sampled
@@ -4582,24 +4620,7 @@ def _serve_leader(device, base: str, mesh) -> dict:
                           if n in ("token_embed", "blocks.0.attn.q_proj",
                                    "blocks.0.mlp.down_proj")}}
         for name, bodies in mesh_requests(lm.lm_config.vocab_size).items():
-            results, errors = [None] * len(bodies), []
-
-            def run(i):
-                try:
-                    results[i] = _post(url, bodies[i], False)[0]
-                except Exception as e:  # noqa: BLE001 — checked below
-                    errors.append(f"{name} {i}: {type(e).__name__}: {e}")
-
-            t0 = time.perf_counter()
-            threads = [threading.Thread(target=run, args=(i,))
-                       for i in range(len(bodies))]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join()
-            check(not errors, "; ".join(errors))
-            res[name] = {"streams": [r["tokens"][0] for r in results],
-                         "wall_s": time.perf_counter() - t0}
+            res[name] = _round(url, bodies)
         k = eng._cache.k
         res.update(cache=list(k.shape),
                    kv_bytes=2 * k.numel() * k.element_size(),
@@ -4662,14 +4683,15 @@ def _encoder_steps(device, mesh) -> dict:
 
     rng = np.random.default_rng(11)
     bcfg = BertConfig(**ENC_BERT, dtype="float32")
-    labels = rng.integers(0, bcfg.vocab_size, (ENC_BATCH, 128)).astype(
-        np.int32)
+    labels = rng.integers(0, bcfg.vocab_size,
+                          (ENC_BATCH, bcfg.max_seq_len)).astype(np.int32)
     weights = (rng.random(labels.shape) < 0.15).astype(np.float32)
     tokens = np.where(weights > 0, 103, labels).astype(np.int32)
     vcfg = ViTConfig(**ENC_VIT, dtype="float32")
-    images = rng.standard_normal((ENC_BATCH, 224, 224, 3)).astype(
+    size = vcfg.image_size
+    images = rng.standard_normal((ENC_BATCH, size, size, 3)).astype(
         np.float32)
-    classes = rng.integers(0, 1000, ENC_BATCH).astype(np.int32)
+    classes = rng.integers(0, vcfg.num_classes, ENC_BATCH).astype(np.int32)
     models = {
         "bert": (lambda m: create_bert_train_state(
             bcfg, convert.random_bert_params(bcfg, 0),
@@ -5633,6 +5655,542 @@ def phase24(device, base: str, kernels: list, kind: str, ident: str) -> None:
           flush=True)
 
 
+# -- phase 25: every mesh composition the reference accepts -----------------
+
+# the model ``examples/lm.py --n-experts 8`` trains (its defaults: kv
+# heads = heads, max_seq_len = seq_len, dense top-2 dispatch), served
+COMPOSE_MOE = dict(vocab_size=32000, d_model=768, n_layers=12, n_heads=12,
+                   n_kv_heads=12, d_ff=3072, max_seq_len=512, n_experts=8,
+                   experts_per_token=2)
+# (b): examples/bert.py's and examples/resnet.py's per-device batches,
+# BERT at its seq 128; warm-up and timed steps each
+COMPOSE_BERT_BATCH, COMPOSE_BERT_SEQ = 8, 128
+COMPOSE_BERT = dict(max_seq_len=COMPOSE_BERT_SEQ)   # BERT-base otherwise
+COMPOSE_RESNET_BATCH = 128
+COMPOSE_WARMUP, COMPOSE_TIMED = 1, 3
+# bf16 at tp = 2 against the unsplit model, teacher-forced over (a)'s
+# prompts. A free-running greedy stream of random weights leaves the
+# unsplit one at its first near tie, and bf16 itself moves the unsplit
+# model's logits far from its f32 ones (the router's top-2 flips on near
+# ties). So the split may move the logits (norm-relative) and flip the
+# argmax of the unsplit bf16 model no more than this many times as far
+# and as often as bf16 does to the f32 model
+COMPOSE_BF16_NOISE = 2.0
+# the parts of the mesh_compose path, each zeroed just before it
+COMPOSE_PARTS = ("serve_world1", "serve_tp2", "bert_pp2", "resnet_pp2",
+                 "encoders_pp2", "resnet_pp2_f32", "cp_moe")
+CP_IMPLS = ("ring", "ulysses")
+
+
+# (a)'s rounds at tp = 2: (export, requests of mesh_requests)
+COMPOSE_ROUNDS = (("lm32", "greedy"), ("lm32", "sampled"), ("lm", "greedy"))
+
+
+def _compose_leader(device, base: str, mesh) -> dict:
+    """Rank 0 of (a): ``ModelServer(decode_mesh=)`` over ``base`` (the
+    MoE LM's f32 export ``lm32`` and bf16 ``lm``), each round of
+    :data:`COMPOSE_ROUNDS` through REST at once, after a warm-up request
+    a model: streams and walls, the tokens each engine sampled, a rank's
+    block of the experts."""
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    server = ModelServer(base, port=0, decode_slots=8,
+                         decode_steps_per_sync=4, poll_interval_s=3600,
+                         device=device, decode_mesh=mesh)
+    port = server.start()
+    res = {}
+    try:
+        for name in ("lm32", "lm"):
+            url = f"http://127.0.0.1:{port}/v1/models/{name}:generate"
+            lm = server.repo.get(name)
+            eng = server.repo.engine_for(name, lm)
+            eng.token_log = []
+            _post(url, {"prompt_tokens": [[1, 2, 3]], "max_new_tokens": 2},
+                  False)
+            reqs = mesh_requests(lm.lm_config.vocab_size)
+            for model, kind in COMPOSE_ROUNDS:
+                if model == name:
+                    res[f"{name}/{kind}"] = _round(url, reqs[kind])
+            res[name] = {"log": [(op, t.tolist())
+                                 for op, t in eng.token_log]}
+        res["experts"] = list(server.repo.get("lm").module.blocks[0]
+                              .moe.gate_proj.shape)
+    finally:
+        server.stop()
+    return res
+
+
+def _forced_bf16(device, base: str, mesh) -> dict:
+    """The bf16 export's logits at every position of (a)'s greedy
+    prompts, teacher-forced through one decode forward on a dense cache
+    (MoE's serving path): the model split over ``mesh`` on every rank,
+    and on rank 0 the unsplit one at bf16 and at f32; there, the share
+    of positions whose argmax agree, the split's norm-relative error
+    against the unsplit bf16 logits, and the unsplit bf16 logits' own
+    against the f32 ones (bf16's rounding)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as tdist
+    import yaml
+
+    from kubeflow_tpu_torch.models import convert, decode
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.serving.model_store import MODEL_FILE, read_params
+
+    cfg = TransformerConfig(**COMPOSE_MOE)
+    vdir = os.path.join(base, "lm", "1")
+    with open(os.path.join(vdir, MODEL_FILE)) as f:
+        params = read_params(vdir, yaml.safe_load(f))
+    prompts = parity_prompts(cfg.vocab_size)
+    n = min(len(p) for p in prompts)       # every prompt cut to the shortest
+    toks = torch.tensor([p[:n] for p in prompts], dtype=torch.int32,
+                        device=device)
+
+    def forced(model):
+        cache = decode.init_cache(cfg, toks.shape[0], device=device,
+                                  kv_heads=model.cache_kv_heads)
+        with torch.no_grad():
+            return model(toks, cache).float()
+
+    split = forced(convert.to_module(cfg, params, device=device, mesh=mesh))
+    if tdist.get_rank() != 0:
+        return {}
+    whole = forced(convert.to_module(cfg, params, device=device))
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    f32 = forced(convert.to_module(cfg, params, device=device))
+    return {"agree": float((split.argmax(-1) == whole.argmax(-1))
+                           .float().mean()),
+            "bf16_agree": float((whole.argmax(-1) == f32.argmax(-1))
+                                .float().mean()),
+            "norm_err": norm_err(split, whole),
+            "bf16_err": norm_err(whole, f32)}
+
+
+def _compose_serving(device, base: str, mesh) -> dict:
+    """(a) at tp = 2, paged (through the kernel) and dense, the fused
+    sampler: rank 0 serves (:func:`_compose_leader`), rank 1 follows
+    (``serve_follower``). Each rank's launches from its server's or
+    follower's start to its end."""
+    import torch.distributed as tdist
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.serving.server import serve_follower
+
+    out = {"launches": {}}
+    for mode in ("paged", "dense"):
+        os.environ["KFTPU_PAGED"] = "1" if mode == "paged" else "0"
+        os.environ["KFTPU_SAMPLER_IMPL"] = "fused"
+        _sync(device)
+        ops.reset_launches()
+        if tdist.get_rank() == 0:
+            res = _compose_leader(device, base, mesh)
+        else:
+            f = serve_follower(base, mesh, device=device, record=True)
+            res = {name: {"log": [(op, t.tolist()) for op, t in
+                                  f.token_logs[(name, 1)]]}
+                   for name in ("lm32", "lm")}
+        _sync(device)
+        for k, n in ops.launch_counts().items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+        out[mode] = res
+    out["forced"] = _forced_bf16(device, base, mesh)
+    return out
+
+
+def _pp_steps(device, mesh) -> dict:
+    """(b) on one rank of pp = 2, every layer on each: BERT-base through
+    ``make_mlm_train_step(mesh)`` at ``examples/bert.py``'s widths and
+    batch, and ResNet-50 fused through ``make_image_train_step(mesh)``
+    at ``examples/resnet.py``'s batch, bf16, each step timed; then the
+    f32 twins against the unsplit steps (phase 23's 2-layer BERT and ViT
+    at the entry widths, phase 22's small fused ResNet). Launches by
+    part."""
+    import torch
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.examples.bert import batch_for_step
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.bert import BertConfig
+    from kubeflow_tpu_torch.train import (
+        create_bert_train_state,
+        make_image_train_step,
+        make_mlm_train_step,
+        make_optimizer,
+    )
+
+    out = {"launches": {}}
+    n = COMPOSE_WARMUP + COMPOSE_TIMED
+    cfg = BertConfig(**COMPOSE_BERT)
+    state = create_bert_train_state(
+        cfg, convert.random_bert_params(cfg, SEED + 6),
+        make_optimizer(1e-4, warmup_steps=20, decay_steps=101),
+        device=device)
+    batches = [tuple(t.to(device) for t in batch_for_step(
+        i, COMPOSE_BERT_BATCH, COMPOSE_BERT_SEQ, cfg.vocab_size))
+        for i in range(n)]
+    _sync(device)
+    ops.reset_launches()
+    state, walls, mets = _timed_steps(device, make_mlm_train_step(mesh),
+                                      state, batches, COMPOSE_WARMUP)
+    out["launches"]["bert_pp2"] = ops.launch_counts()
+    out["bert"] = {"step_ms": [w * 1e3 for w in walls],
+                   "losses": [m["loss"] for m in mets],
+                   "blocks": len(state.module.blocks)}
+    del state, batches
+    torch.cuda.empty_cache()
+    _, state, images, labels = resnet_setup(device, fused=True)
+    images, labels = (images[:COMPOSE_RESNET_BATCH].contiguous(),
+                      labels[:COMPOSE_RESNET_BATCH].contiguous())
+    _sync(device)
+    ops.reset_launches()
+    state, walls, mets = _timed_steps(
+        device, make_image_train_step(mesh), state,
+        [(images, labels)] * n, COMPOSE_WARMUP)
+    out["launches"]["resnet_pp2"] = ops.launch_counts()
+    out["resnet"] = {"step_ms": [w * 1e3 for w in walls],
+                     "losses": [m["loss"] for m in mets]}
+    del state, images, labels
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    out["encoders"] = _encoder_steps(device, mesh)
+    out["launches"]["encoders_pp2"] = out["encoders"].pop("launches")
+    ops.reset_launches()
+    out["resnet_f32"] = _image_mesh_parity(device, mesh)
+    out["launches"]["resnet_pp2_f32"] = ops.launch_counts()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cp_moe(device, mesh) -> dict:
+    """(c): ring and Ulysses over tp = 2 with ``n_experts=8`` (2 layers at
+    ``examples/lm.py``'s widths, f32, TF32 off): three
+    ``make_lm_train_step(mesh)`` steps against three mesh-less ones
+    (:func:`_mesh_parity`). Launches of both."""
+    import torch
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+
+    out = {}
+    ops.reset_launches()
+    for impl in CP_IMPLS:
+        cfg = TransformerConfig(**MESH_PARITY, n_experts=8,
+                                attention_impl=impl)
+        t0 = time.perf_counter()
+        out[impl] = _mesh_parity(device, mesh, cfg, 1)
+        out[impl]["wall_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+def compose_rank_main(argv) -> int:
+    """One rank of phase 25's gang: two ranks on the one card over gloo
+    (NCCL refuses two ranks on one card), started by
+    :func:`mesh_compose_phase` through ``run_multiprocess``:
+    ``chip_smoke.py --compose-rank OUT BASE [DEVICE]``, ``BASE`` holding
+    the MoE LM's exports ``lm32`` and ``lm``. (a) serving at tp = 2,
+    (b) the MLM and image steps at pp = 2, (c) ring and Ulysses with MoE
+    at tp = 2. Writes ``OUT/rank<r>.json``."""
+    import torch
+    import torch.distributed as tdist
+
+    from kubeflow_tpu_torch.parallel import distributed as dist
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+
+    out, base, *where = argv
+    penv = dist.from_env()
+    device = torch.device(where[0] if where else "cuda:0")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.initialize(penv, backend="gloo")
+    tp2 = create_mesh(MeshConfig(tp=penv.num_processes),
+                      device_type=device.type)
+    pp2 = create_mesh(MeshConfig(pp=penv.num_processes),
+                      device_type=device.type)
+    res = {"rank": penv.process_id}
+    t0 = time.perf_counter()
+    res["serving"] = _compose_serving(device, base, tp2)
+    res["serving_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["pp"] = _pp_steps(device, pp2)
+    res["pp_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["cp_moe"] = _cp_moe(device, tp2)
+    res["cp_s"] = time.perf_counter() - t0
+    with open(os.path.join(out, f"rank{penv.process_id}.json"), "w") as f:
+        json.dump(res, f)
+    _sync(device)
+    tdist.destroy_process_group()
+    return 0
+
+
+def _agree(got: list, want: list) -> float:
+    """The share of positions where two sets of streams hold the same
+    token."""
+    pairs = [(a, b) for g, w in zip(got, want) for a, b in zip(g, w)]
+    return sum(a == b for a, b in pairs) / max(1, len(pairs))
+
+
+def mesh_compose_phase(device, base: str) -> dict:
+    """Phase 25 (``mesh_compose``), each part fatal. (a) The MoE LM of
+    ``examples/lm.py --n-experts 8`` (:data:`COMPOSE_MOE`, random weights
+    from a numpy seed, exported bf16 and, over the same weights file,
+    f32): at world 1 over NCCL phase 3's traffic through
+    ``ModelServer(decode_mesh=tp=1)``; the unsplit engine's greedy f32
+    and bf16 streams, paged and dense. Then a gang of two ranks on the
+    card over gloo (:func:`compose_rank_main`): at tp = 2 rank 0 serves
+    both exports, rank 1 follows, paged and dense; f32 greedy and
+    sampled streams equal to the unsplit engine's, the ranks sampling
+    the same tokens; the bf16 model's teacher-forced logits within
+    :data:`COMPOSE_BF16_NOISE` times bf16's own effect
+    (:func:`_forced_bf16`). (b) At pp = 2 BERT-base and ResNet-50 fused, timed, and
+    their f32 twins against the unsplit steps. (c) Ring and Ulysses
+    with 8 experts at tp = 2 against the unsplit step."""
+    import torch
+
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.parallel.mesh import parse_serving_mesh
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+    from kubeflow_tpu_torch.serving.model_store import MODEL_FILE, read_params
+    from kubeflow_tpu_torch.testing import run_multiprocess
+
+    import math
+
+    import yaml
+
+    cfg = TransformerConfig(**COMPOSE_MOE)         # bf16 over f32 params
+    store = os.path.join(base, "compose")
+    t0 = time.perf_counter()
+    write_export(store, cfg)
+    f32_export(store)
+    res = {"export_s": time.perf_counter() - t0, "parts": {}}
+    mesh = parse_serving_mesh("tp=1", device_type=device.type)
+    lm_only = tempfile.mkdtemp(prefix="kftpu-compose-serve-")
+    try:
+        os.symlink(os.path.join(store, "lm"), os.path.join(lm_only, "lm"))
+        res["world1"] = serve_phase(lm_only, cfg, device, decode_mesh=mesh)
+    finally:
+        shutil.rmtree(lm_only, ignore_errors=True)
+    res["parts"]["serve_world1"] = res["world1"]["launches"]
+    reqs = mesh_requests(cfg.vocab_size)
+    vdir = os.path.join(store, "lm", "1")
+    with open(os.path.join(vdir, MODEL_FILE)) as f:
+        meta = yaml.safe_load(f)
+    unsplit = {}
+    t0 = time.perf_counter()
+    for dtype in ("f32", "bf16"):
+        if dtype == "f32":
+            c, model = load_f32(store, cfg, device)
+        else:
+            c, model = cfg, convert.to_module(cfg, read_params(vdir, meta),
+                                              device=device)
+        for mode in ("paged", "dense"):
+            eng = DecodeEngine(c, model, slots=8, paged=mode == "paged",
+                               paged_attention_impl="kernel",
+                               sampler_impl="fused", steps_per_sync=4,
+                               autostart=False, device=device)
+            for kind in ("greedy", "sampled") if dtype == "f32" else (
+                    "greedy",):
+                unsplit[(dtype, kind, mode)] = engine_streams(eng,
+                                                              reqs[kind])
+            eng.close()
+            del eng
+        del model
+        torch.cuda.empty_cache()
+    res["unsplit_s"] = time.perf_counter() - t0
+    check(unsplit[("f32", "greedy", "paged")]
+          == unsplit[("f32", "greedy", "dense")],
+          "unsplit f32 MoE engine: paged and dense greedy streams differ")
+    out_dir = tempfile.mkdtemp(prefix="kftpu-compose-ranks-")
+    models = os.path.join(out_dir, "models")
+    os.makedirs(models)
+    for name in ("lm", "lm32"):
+        os.symlink(os.path.join(store, name), os.path.join(models, name))
+    t0 = time.perf_counter()
+    try:
+        procs = run_multiprocess(
+            [SCRIPT, "--compose-rank", out_dir, models, str(device)], 2,
+            timeout_s=600.0, job_name="compose-smoke")
+        for r in procs:
+            check(r.returncode == 0,
+                  f"compose rank {r.process_id} ended {r.returncode}:\n"
+                  f"{r.stderr[-4000:]}")
+        ranks = []
+        for i in range(2):
+            with open(os.path.join(out_dir, f"rank{i}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    res["gang_s"] = time.perf_counter() - t0
+    res["ranks"] = ranks
+    r0 = ranks[0]
+
+    def summed(get) -> dict:
+        total = {}
+        for r in ranks:
+            for k, n in get(r).items():
+                total[k] = total.get(k, 0) + n
+        return total
+
+    # (a) tp = 2 serving
+    res["parts"]["serve_tp2"] = summed(lambda r: r["serving"]["launches"])
+    res["tp2"] = {}
+    for mode in ("paged", "dense"):
+        lead = r0["serving"][mode]
+        for kind in ("greedy", "sampled"):
+            got = lead[f"lm32/{kind}"]["streams"]
+            want = unsplit[("f32", kind, mode)]
+            check(got == want, f"tp=2 {mode} f32 MoE {kind} streams differ "
+                               f"from the unsplit engine's: {got} vs {want}")
+        got32 = lead["lm32/greedy"]
+        agree = _agree(lead["lm/greedy"]["streams"],
+                       unsplit[("bf16", "greedy", mode)])
+        for name in ("lm32", "lm"):
+            logs = [r["serving"][mode][name]["log"] for r in ranks]
+            check(logs[0] == logs[1] and logs[0],
+                  f"tp=2 {mode} {name}: the ranks sampled different tokens")
+        tokens = sum(len(t) for t in lead["lm/greedy"]["streams"])
+        res["tp2"][mode] = {
+            "agree": agree,
+            "f32_tokens_per_s": sum(len(t) for t in got32["streams"])
+            / got32["wall_s"],
+            "bf16_tokens_per_s": tokens / lead["lm/greedy"]["wall_s"]}
+    forced = r0["serving"]["forced"]
+    check(1 - forced["agree"] <= COMPOSE_BF16_NOISE * (
+        1 - forced["bf16_agree"]) and forced["norm_err"]
+        <= COMPOSE_BF16_NOISE * forced["bf16_err"],
+          f"tp=2 bf16 MoE logits vs unsplit, teacher-forced: {forced}")
+    res["forced"] = forced
+    check(r0["serving"]["paged"]["experts"] == [
+        cfg.n_experts, cfg.d_model, cfg.d_ff // 2],
+        f"tp=2: a rank's experts {r0['serving']['paged']['experts']}")
+    # (b) pp = 2
+    for part in ("bert_pp2", "resnet_pp2", "encoders_pp2",
+                 "resnet_pp2_f32"):
+        res["parts"][part] = summed(lambda r: r["pp"]["launches"][part])
+    for r in ranks:
+        for name in ("bert", "resnet"):
+            losses = r["pp"][name]["losses"]
+            check(all(math.isfinite(x) for x in losses),
+                  f"pp=2 {name} bf16 losses {losses}")
+        check(r["pp"]["bert"]["blocks"] == 12 or COMPOSE_BERT.get("n_layers"),
+              f"pp=2 BERT holds {r['pp']['bert']['blocks']} blocks")
+    check(ranks[0]["pp"]["bert"]["losses"] == ranks[1]["pp"]["bert"][
+        "losses"], "pp=2: the BERT ranks' losses differ")
+    for name in ("bert", "vit"):
+        e = r0["pp"]["encoders"][name]
+        check(e["loss"] <= 1e-5 and e["grad_norm"] <= 1e-5
+              and e["params"] <= 1e-5 and e["moved"] <= MESH_MOVED_LIMIT,
+              f"pp=2 f32 {name} vs unsplit: {e}")
+    par = r0["pp"]["resnet_f32"]
+    check(par["loss"] <= 1e-5 and par["stats"] <= 1e-6,
+          f"pp=2 f32 fused resnet vs unsplit: {par}")
+    # (c) ring and Ulysses with MoE at tp = 2
+    for impl in CP_IMPLS:
+        e = r0["cp_moe"][impl]
+        check(e["loss"] <= 1e-5 and e["grad_norm"] <= 1e-5
+              and e["params"] <= 1e-5 and e["moved"] <= MESH_MOVED_LIMIT,
+              f"{impl} with MoE at tp=2 vs unsplit: {e}")
+    res["parts"]["cp_moe"] = summed(lambda r: r["cp_moe"]["launches"])
+    res["launches"] = {}
+    for counts in res["parts"].values():
+        for k, n in counts.items():
+            res["launches"][k] = res["launches"].get(k, 0) + n
+    res["unsplit"] = {"/".join(k): v for k, v in unsplit.items()}
+    return res
+
+
+def phase25(device, base: str, kernels: list, kind: str, ident: str) -> None:
+    """Phase 25's parts, their lines, and the ``mesh_compose`` path of
+    the kernel record: > 0 on rows 1-2 from (a)'s serving, on rows 3-5
+    from (b)'s BERT, on rows 6-7 from (b)'s ResNet."""
+    mc = mesh_compose_phase(device, base)
+    parts = mc["parts"]
+    for kern in kernels:
+        n = mc["launches"].get(kern["name"], 0)
+        kern["launches_by_path"]["mesh_compose"] = n
+        kern["launches"] += n
+    for i, kern in enumerate(kernels):
+        if i < 2:
+            got = (parts["serve_world1"].get(kern["name"], 0),
+                   parts["serve_tp2"].get(kern["name"], 0))
+            where = "(a)'s serving at world 1 and tp = 2"
+        else:
+            got = (parts["bert_pp2" if i < 5 else "resnet_pp2"].get(
+                kern["name"], 0),)
+            where = "(b)'s BERT" if i < 5 else "(b)'s ResNet"
+        check(all(n > 0 for n in got),
+              f"{kern['name']} never launched on {where}: {got}")
+    w1 = mc["world1"]
+    r0 = mc["ranks"][0]
+    print(f"phase 25 (a) MoE LM of examples/lm.py --n-experts 8 (d_model "
+          f"768, 12 layers, 12 heads, d_ff 3072, vocab 32000, 8 experts, "
+          f"top-2, dense dispatch; random weights, export "
+          f"{mc['export_s']:.1f}s) served at world 1 over NCCL through "
+          f"ModelServer(decode_mesh=tp=1) ({kind} | {ident}): phase 3's "
+          f"traffic, paged + fused sampler: tokens_per_s="
+          f"{w1['tokens_per_s']:.1f} wall_s={w1['wall_s']:.3f} "
+          f"ttft_ms_stream={[round(t * 1e3, 1) for t in w1['ttft_s']]} "
+          f"launches={w1['launches']}; unsplit engine streams "
+          f"({mc['unsplit_s']:.1f}s)", flush=True)
+    for mode, t in mc["tp2"].items():
+        print(f"phase 25 (a) tp=2 {mode} (2 ranks on one card over gloo, "
+              f"ModelServer + serve_follower, 4 requests of 200 + 24 "
+              f"tokens at once, warmed): f32 greedy and sampled streams == "
+              f"unsplit engine's, every rank the same tokens, f32 greedy "
+              f"tokens_per_s="
+              f"{t['f32_tokens_per_s']:.1f}; bf16 tokens_per_s="
+              f"{t['bf16_tokens_per_s']:.1f}, its free-running greedy "
+              f"streams agreeing with the unsplit bf16 engine's on "
+              f"{t['agree']:.3f} of the positions; a rank's experts "
+              f"{r0['serving']['paged']['experts']}", flush=True)
+    f = mc["forced"]
+    print(f"phase 25 (a) tp=2 bf16 logits at every position of the 4 "
+          f"prompts (cut to the shortest), teacher-forced through one decode forward (dense "
+          f"cache) vs the unsplit bf16 model: argmax agree "
+          f"{f['agree']:.4f}, norm-relative error {f['norm_err']:.2e}; the "
+          f"unsplit bf16 model vs its f32 twin: argmax agree "
+          f"{f['bf16_agree']:.4f}, error {f['bf16_err']:.2e} (limits: "
+          f"{COMPOSE_BF16_NOISE}x its disagreement and error)", flush=True)
+    for r in mc["ranks"]:
+        pp = r["pp"]
+        print(f"phase 25 (b) pp=2 rank {r['rank']} (2 ranks on one card "
+              f"over gloo, every layer on each): BERT-base MLM at batch "
+              f"{COMPOSE_BERT_BATCH} x {COMPOSE_BERT_SEQ}, bf16, flash, "
+              f"remat: step_ms={[round(x, 1) for x in pp['bert']['step_ms']]}"
+              f" losses={[round(x, 4) for x in pp['bert']['losses']]}; "
+              f"ResNet-50 fused at batch {COMPOSE_RESNET_BATCH}, bf16: "
+              f"step_ms={[round(x, 1) for x in pp['resnet']['step_ms']]} "
+              f"losses={[round(x, 4) for x in pp['resnet']['losses']]} "
+              f"({r['pp_s']:.1f}s)", flush=True)
+    enc, par = r0["pp"]["encoders"], r0["pp"]["resnet_f32"]
+    print(f"phase 25 (b) pp=2 f32 vs unsplit, TF32 off: BERT (2 layers at "
+          f"BERT-base widths) loss {enc['bert']['loss']:.2e} grad_norm rel "
+          f"{enc['bert']['grad_norm']:.2e} params "
+          f"{enc['bert']['params']:.2e} movement {enc['bert']['moved']:.2e};"
+          f" ViT (2 layers, ViT-B widths) loss {enc['vit']['loss']:.2e} "
+          f"params {enc['vit']['params']:.2e}; fused ResNet loss "
+          f"{par['loss']:.2e} running statistics {par['stats']:.2e} params "
+          f"{par['params']:.2e} (limits 1e-5, 1e-6 on the statistics)",
+          flush=True)
+    for impl in CP_IMPLS:
+        e = r0["cp_moe"][impl]
+        print(f"phase 25 (c) {impl} over tp=2 with 8 experts (2 layers at "
+              f"examples/lm.py's widths, seq 512, f32, TF32 off) vs the "
+              f"unsplit step, 3 steps: loss {e['loss']:.2e} grad_norm rel "
+              f"{e['grad_norm']:.2e} params {e['params']:.2e} movement "
+              f"{e['moved']:.2e}; losses {e['losses']} "
+              f"({e['wall_s']:.1f}s)", flush=True)
+    print(f"phase 25 launches={mc['launches']} by part {parts}; gang "
+          f"{mc['gang_s']:.1f}s (serving {r0['serving_s']:.1f}s, pp "
+          f"{r0['pp_s']:.1f}s, cp {r0['cp_s']:.1f}s)", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -6173,6 +6731,9 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
     torch.cuda.empty_cache()
     phase24(device, base, kernels, kind, ident)
     lap("24")
+    torch.cuda.empty_cache()
+    phase25(device, base, kernels, kind, ident)
+    lap("25")
     for kern in kernels:
         for path, res in (("lm_entry", lm), ("moe_train", moe),
                           ("spec_serving", spec), ("predict", pred),
@@ -6198,6 +6759,8 @@ if __name__ == "__main__":
         sys.exit(elastic_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--elastic-resume"]:
         sys.exit(elastic_resume_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--compose-rank"]:
+        sys.exit(compose_rank_main(sys.argv[2:]))
     try:
         sys.exit(main())
     except SmokeFailure as e:

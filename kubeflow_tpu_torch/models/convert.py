@@ -148,7 +148,9 @@ def to_module(config: TransformerConfig, params: Mapping[str, Any], *,
     """A loaded, frozen port ``Transformer`` on ``device``; with
     ``mesh``, built over it and holding this rank's blocks of the full
     ``params`` (the reference's ``shard_lm_params``: the whole model
-    never lands on one card)."""
+    never lands on one card). A served model is never pipelined: over
+    ``pp`` > 1 it keeps every block, replicated over the stages, as the
+    reference's ``stage`` rule reaches only pipelined train states."""
     with torch.device(resolve_device(device)):
         model = Transformer(config, mesh=mesh)
     load_params(model, params).eval()
@@ -158,13 +160,14 @@ def to_module(config: TransformerConfig, params: Mapping[str, Any], *,
 
 def to_trainable(config: TransformerConfig, params: Mapping[str, Any], *,
                  device=None, return_hidden: bool = False,
-                 mesh=None) -> Transformer:
+                 mesh=None, pipelined: bool = False) -> Transformer:
     """A loaded port ``Transformer`` on ``device`` (CUDA unless ``"cpu"``
     is asked for), left trainable: every parameter requires a gradient
     and the module is in train mode. With ``mesh``, this rank's blocks
-    of the full ``params``."""
+    of the full ``params`` (``pipelined`` as ``Transformer``'s)."""
     with torch.device(resolve_device(device)):
-        model = Transformer(config, return_hidden=return_hidden, mesh=mesh)
+        model = Transformer(config, return_hidden=return_hidden, mesh=mesh,
+                            pipelined=pipelined)
     return load_params(model, params).train()
 
 

@@ -104,13 +104,20 @@ reference:
   vocabulary block of the logits (the loss is vocab-parallel,
   ``train/trainer.py``).
 - **Context parallelism** under ``"ring"``/``"ulysses"``: each rank of
-  ``seq_axis`` runs its block of the sequence (positions ``[r S/n,
-  (r+1) S/n)``, RoPE at the global positions), the parameters are
-  whole on every rank of that axis (their gradients sum over it in the
-  train step), and attention exchanges K/V over the axis. The output is
-  this rank's block of the sequence. The reference instead keeps the
-  head-sharded projections and lets GSPMD reshard the sequence around
-  attention; the numbers are the same.
+  ``seq_axis`` (any mesh axis, as in the reference) runs its block of
+  the sequence (positions ``[r S/n, (r+1) S/n)``, RoPE at the global
+  positions), the parameters are whole on every rank of that axis
+  (their gradients sum over it in the train step), and attention
+  exchanges K/V over the axis. The output is this rank's block of the
+  sequence. Over ``tp`` the model is then not tensor-parallel; over
+  another axis ``tp`` still splits heads and MLP, and the rows split
+  over the batch rule's axes less the sequence's. Ulysses exchanges a
+  rank's kv heads repeated to its q heads where its tp block of them
+  does not split over the axis. MoE layers route the global batch's
+  tokens in the reference's order (``ops/moe.py``), and inside the
+  pipeline each stage runs its blocks on the rank's positions. The
+  reference instead keeps the head-sharded projections and lets GSPMD
+  reshard the sequence around attention; the numbers are the same.
 
 - **Expert parallelism** for MoE layers: the experts' weights are split
   over ``dp`` by their ``expert`` axis and over ``tp`` by their
@@ -124,12 +131,14 @@ reference:
   (``ops/moe.py``) fills the reference's global slots and moves the
   buffers to the experts' owners. The load-balance loss is the global
   batch's.
-- **Pipeline stages** over ``pp``: a model built over ``pp > 1`` holds
-  its stage's ``L / pp`` blocks only, under their global names
-  (``blocks.{r L/pp + i}``), and their specs lead with ``"pp"`` (the
-  ``stage`` rule on the reference's stacked layer axis). It trains
-  through ``parallel/pipeline.py:make_pipelined_lm_forward``; its plain
-  forward refuses.
+- **Pipeline stages** over ``pp``: a model built with ``pipelined=True``
+  over ``pp > 1`` holds its stage's ``L / pp`` blocks only, under their
+  global names (``blocks.{r L/pp + i}``), and their specs lead with
+  ``"pp"`` (the ``stage`` rule on the reference's stacked layer axis).
+  It trains through ``parallel/pipeline.py:make_pipelined_lm_forward``;
+  its plain forward refuses. Otherwise it keeps every block, replicated
+  over ``pp``, as the reference's unpipelined leaves are (a served
+  model; the MLM and image steps' encoders).
 
 - **Decoding** on a model split over ``tp`` (mesh serving): every rank
   runs the same decode forward on its heads and its block of the MLP
@@ -142,12 +151,10 @@ reference:
   under the reference's sampler. With replicated kv heads the paged
   kernel reads, in place, the window of the pool's kv heads that this
   rank's q heads map to (:func:`kv_window`), with this rank's q heads
-  among zeros only where they span more than one kv head. Decoding from
-  a MoE model split over a mesh, or from a pipeline stage, refuses
-  (ROADMAP Queue A 2.8).
-
-Context parallelism for MoE layers and inside the pipeline is not
-ported, and refuses.
+  among zeros only where they span more than one kv head. MoE layers
+  run each rank's experts on every row and sum the shares
+  (:meth:`MoeMlp._serve`). Decoding from a pipeline stage refuses: a
+  served model keeps every block.
 """
 
 from __future__ import annotations
@@ -479,9 +486,19 @@ class Attention(nn.Module):
         k = apply_rope(k, sin, cos)
         k, v = self._local_kv(k, v)
         block_k = c.attention_block_k or _UNTUNED_BLOCK_K
-        if impl == "ulysses" and sp is not None:
+        if impl == "ulysses" and sp is not None and sp.seq:
+            n = sp.seq
+            if c.n_heads % n or c.n_kv_heads % n:
+                raise ValueError(
+                    f"ulysses needs q heads {c.n_heads} and kv heads "
+                    f"{c.n_kv_heads} divisible by axis size {n}")
+            if k.shape[2] % n:
+                # this rank's kv heads (its tp block of them) do not
+                # split over the axis: exchange them repeated to its q
+                # heads
+                k, v = gqa_repeat(q, k, v)
             return ulysses_attention(q, k, v, mesh=sp.mesh,
-                                     axis_name=c.seq_axis, causal=c.causal,
+                                     axis_name=sp.seq_axis, causal=c.causal,
                                      block_k=block_k)
         k, v = gqa_repeat(q, k, v)
         if impl == "flash":
@@ -489,9 +506,9 @@ class Attention(nn.Module):
         if impl == "dense":
             return reference_attention(q, k, v, causal=c.causal,
                                        kv_len=kv_len)
-        if impl == "ring" and sp is not None:
+        if impl == "ring" and sp is not None and sp.seq:
             return ring_attention(q, k, v, mesh=sp.mesh,
-                                  axis_name=c.seq_axis, causal=c.causal)
+                                  axis_name=sp.seq_axis, causal=c.causal)
         # blockwise, and ring/ulysses without a mesh (the reference's
         # fallback off a mesh)
         return blockwise_attention(q, k, v, causal=c.causal, block_k=block_k)
@@ -625,7 +642,9 @@ class MoeMlp(nn.Module):
     ``torch.topk`` may break them differently, so parity tests draw
     random f32 router logits, where a tie has probability zero.
 
-    Over a mesh: the module docstring's expert parallelism."""
+    Over a mesh: the module docstring's expert parallelism; with
+    ``serving`` (a decode forward) the rows are the same on every rank
+    and :meth:`_serve` runs them."""
 
     split = None      # as Attention.split
 
@@ -638,7 +657,7 @@ class MoeMlp(nn.Module):
         self.up_proj = nn.Parameter(torch.empty(E, D, F, dtype=pd))
         self.down_proj = nn.Parameter(torch.empty(E, F, D, dtype=pd))
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor, serving: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         c, sp = self.c, self.split
         dt, E, K = c.dtype, c.n_experts, c.experts_per_token
@@ -646,6 +665,8 @@ class MoeMlp(nn.Module):
         tp = sp.tp if sp is not None else 1
         ep = sp.ep_axis if sp is not None else None
         gate_logits = x.float() @ self.router              # (B, S, E)
+        if serving and sp is not None:
+            return self._serve(x, gate_logits)
         if c.moe_capacity_factor > 0:
             from kubeflow_tpu_torch.ops.moe import capacity_moe
 
@@ -665,7 +686,9 @@ class MoeMlp(nn.Module):
                 x.reshape(B * S, D), gate_logits.reshape(B * S, E),
                 expert_fn, k=K, capacity_factor=c.moe_capacity_factor,
                 mesh=mesh, axes=sp.data_axes if sp is not None else (),
-                ep_axis=ep)
+                ep_axis=ep, rows=B,
+                seq_axis=sp.seq_axis if sp is not None and sp.seq
+                else None)
             return y.reshape(B, S, D), aux
         wg, wu, wd = self.gate_proj, self.up_proj, self.down_proj
         if ep is not None:      # every expert's tp shard, on every rank
@@ -698,8 +721,59 @@ class MoeMlp(nn.Module):
 
             density, mean_prob = global_mean(
                 torch.stack([routed.sum(dim=(0, 1)), probs.sum(dim=(0, 1))]),
-                x.shape[0] * x.shape[1], mesh, sp.data_axes)
+                x.shape[0] * x.shape[1], mesh, sp.token_axes)
         return y, E * (density * mean_prob).sum()
+
+    def _serve(self, x: torch.Tensor, gate_logits: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The decode forward over a mesh: every rank holds the same rows,
+        so each routes all of them (the capacity dispatch's slots are the
+        reference's without any exchange) and runs only its experts (its
+        ``E / ep`` of them, its ``tp`` block of their hidden width) on
+        them; its share of the combine is summed over ``tp`` and the
+        expert axis. Activations move, never the experts' weights. The
+        load-balance loss is not computed (0): decoding reads none."""
+        c, sp = self.c, self.split
+        dt, E, K = c.dtype, c.n_experts, c.experts_per_token
+        mesh, ep = sp.mesh, sp.ep_axis
+        B, S, D = x.shape
+        El = self.gate_proj.shape[0]
+        first = (pmesh.axis_index(mesh, ep) if ep else 0) * El
+        wg, wu, wd = (_compute(w, dt) for w in (
+            self.gate_proj, self.up_proj, self.down_proj))
+        if c.moe_capacity_factor > 0:
+            from kubeflow_tpu_torch.ops.moe import (
+                capacity_dispatch,
+                expert_capacity,
+            )
+
+            G = B * S
+            C = expert_capacity(G, E, K, c.moe_capacity_factor)
+            dispatch, combine, _ = capacity_dispatch(
+                gate_logits.reshape(G, E), K, C)
+            mine = slice(first, first + El)
+            xe = torch.einsum("gec,gd->ecd", dispatch[:, mine].to(dt),
+                              x.reshape(G, D))
+            h = torch.einsum("ecd,edf->ecf", xe, wg)
+            u = torch.einsum("ecd,edf->ecf", xe, wu)
+            ye = torch.einsum("ecf,efd->ecd", silu(h) * u, wd)
+            y = torch.einsum("gec,ecd->gd", combine[:, mine].to(ye.dtype),
+                             ye).reshape(B, S, D)
+        else:
+            weights, idx = torch.topk(gate_logits, K, dim=-1)
+            weights = torch.softmax(weights, dim=-1)
+            combine = (torch.nn.functional.one_hot(idx, E).float()
+                       * weights[..., None]).sum(dim=2).to(dt)
+            h = torch.einsum("bsd,edf->bsef", x, wg)
+            u = torch.einsum("bsd,edf->bsef", x, wu)
+            ye = torch.einsum("bsef,efd->bsed", silu(h) * u, wd)
+            y = torch.einsum("bsed,bse->bsd", ye,
+                             combine[..., first:first + El])
+        if sp.tp > 1:
+            y = col.reduce_from(y, mesh, "tp")
+        if ep is not None:
+            y = col.reduce_from(y, mesh, ep)
+        return y, x.new_zeros((), dtype=torch.float32)
 
 
 class Block(nn.Module):
@@ -720,7 +794,7 @@ class Block(nn.Module):
         x = x + self.attn(self.attn_norm(x), sin, cos, kv, step, kv_len)
         h = self.mlp_norm(x)
         if hasattr(self, "moe"):
-            y, aux = self.moe(h)
+            y, aux = self.moe(h, serving=kv is not None)
             return x + y, aux
         return x + self.mlp(h), None
 
@@ -796,15 +870,25 @@ class _Split:
     """How a model built over a mesh shares out its work."""
 
     mesh: Any
-    tp: int              # tensor-parallel width (1 under context parallel)
+    tp: int              # tensor-parallel width (1 when tp holds the sequence)
     tp_rank: int
     seq: int             # context-parallel width (0: not context parallel)
     seq_rank: int
     vocab_sharded: bool  # token_embed split over tp (V % tp == 0)
     kv_sharded: bool     # k/v projections split over tp (KH % tp == 0)
-    data_axes: Tuple[str, ...] = ("dcn", "dp")   # the global batch's split
+    # the axes the global batch's rows split over (the batch rule's,
+    # less the sequence's axis)
+    data_axes: Tuple[str, ...] = ("dcn", "dp")
     ep_axis: Optional[str] = None  # the axis the experts are split over
     pp: int = 1          # pipeline stages; > 1: this model holds one
+    seq_axis: Optional[str] = None  # the sequence's axis (context parallel)
+
+    @property
+    def token_axes(self) -> Tuple[str, ...]:
+        """The axes along which ranks hold different tokens: the rows'
+        and, under context parallelism, the sequence's."""
+        return pmesh.mesh_order(self.data_axes + (
+            (self.seq_axis,) if self.seq else ()))
 
 
 class StageBlocks(nn.Module):
@@ -839,33 +923,37 @@ def stage_peer(name: str, stage: int, per_stage: int) -> str:
     return ".".join(parts)
 
 
-def _shard(model: nn.Module, c: TransformerConfig, mesh):
+def _shard(model: nn.Module, c: TransformerConfig, mesh, staged: bool):
     """Cut every parameter of ``model`` (built at full shapes, with its
-    stage's blocks only under ``pp > 1``) down to this rank's block;
+    stage's blocks only when ``staged``) down to this rank's block;
     returns the :class:`_Split` and each parameter's PartitionSpec fitted
-    to the mesh (its full shape; a stage leaf's leads with ``"pp"``)."""
-    cp = c.attention_impl in ("ring", "ulysses")
+    to the mesh (its full shape; a stage leaf's leads with ``"pp"``).
+
+    Under ring/Ulysses the sequence splits over ``config.seq_axis``, any
+    mesh axis (a name the mesh lacks leaves the model unsplit along the
+    sequence, as the reference falls back to blockwise there): the
+    parameters are whole along that axis, the rows split over the batch
+    rule's other axes, and ``tp`` splits heads and MLP unless it is the
+    sequence's axis."""
+    cp_axis = (c.seq_axis if c.attention_impl in ("ring", "ulysses")
+               and c.seq_axis in pmesh.MESH_AXES else None)
     tp = pmesh.axis_size(mesh, "tp")
-    pp = pmesh.axis_size(mesh, "pp")
-    if cp and c.seq_axis != "tp":
-        raise NotImplementedError(
-            f"ring/ulysses over seq_axis={c.seq_axis!r}: the port runs "
-            "context parallelism over 'tp' only")
-    if cp and (c.n_experts or pp > 1):
-        raise NotImplementedError(
-            "context parallelism (ring/ulysses) for MoE layers or inside "
-            "the pipeline is not ported (ROADMAP Queue A 2.7)")
-    if not cp:
-        pmesh.validate_mesh_for_model(pmesh.mesh_config(mesh),
-                                      n_heads=c.n_heads, d_ff=c.d_ff,
-                                      n_experts=c.n_experts)
+    pp = pmesh.axis_size(mesh, "pp") if staged else 1
+    if staged and cp_axis == "pp":
+        raise ValueError("the sequence's axis cannot be the pipeline's "
+                         "(seq_axis='pp' on a pipelined model)")
+    check = pmesh.mesh_config(mesh)
+    if cp_axis is not None:        # that axis splits no parameter
+        check = dataclasses.replace(check, **{cp_axis: 1})
+    pmesh.validate_mesh_for_model(check, n_heads=c.n_heads, d_ff=c.d_ff,
+                                  n_experts=c.n_experts)
+
     specs = {}
     for name, p in list(model.named_parameters()):
         spec = pmesh.spec_for_mesh(pmesh.logical_to_mesh_axes(
             leaf_logical_axes(name, p.dim()), c.rules), mesh)
-        if cp:      # parameters whole along the sequence's axis
-            spec = pmesh.PartitionSpec(*(None if e == c.seq_axis else e
-                                         for e in spec))
+        if cp_axis is not None:    # parameters whole along the sequence's axis
+            spec = pmesh._filter_spec(spec, lambda a: a != cp_axis)
         spec = pmesh.shape_aware_spec(spec, tuple(p.shape), mesh)
         if pmesh.is_sharded(spec):
             owner, _, leaf = name.rpartition(".")
@@ -880,31 +968,34 @@ def _shard(model: nn.Module, c: TransformerConfig, mesh):
     gate = next((pmesh.tensor_spec(sp) for n, sp in specs.items()
                  if n.endswith(".moe.gate_proj")), ())
     ep = gate[0] if gate else None          # the experts' axis, if split
+    tp_cp = cp_axis == "tp"
     split = _Split(
-        mesh=mesh, tp=1 if cp else tp,
-        tp_rank=0 if cp else pmesh.axis_index(mesh, "tp"),
-        seq=tp if cp else 0, seq_rank=pmesh.axis_index(mesh, "tp") if cp
-        else 0,
+        mesh=mesh, tp=1 if tp_cp else tp,
+        tp_rank=0 if tp_cp else pmesh.axis_index(mesh, "tp"),
+        seq=pmesh.axis_size(mesh, cp_axis) if cp_axis else 0,
+        seq_rank=pmesh.axis_index(mesh, cp_axis) if cp_axis else 0,
         vocab_sharded=pmesh.is_sharded(specs.get("token_embed")),
         kv_sharded="tp" in pmesh.spec_axes(kv) if kv is not None else True,
-        data_axes=pmesh.batch_axes(c.rules),
+        data_axes=tuple(a for a in pmesh.batch_axes(c.rules)
+                        if a != cp_axis),
         ep_axis=ep if isinstance(ep, str) and pmesh.axis_size(mesh, ep) > 1
         else None,
-        pp=pp)
+        pp=pp, seq_axis=cp_axis)
     return split, specs
 
 
-def split_over(model: nn.Module, c: TransformerConfig, mesh) -> None:
+def split_over(model: nn.Module, c: TransformerConfig, mesh, *,
+               staged: bool = False) -> None:
     """Cut ``model`` (a ``Transformer``, or an encoder over its blocks:
     ``Bert``, ``ViT``) down to this rank's blocks of ``mesh`` by the
     reference's rules for each leaf name (:func:`_shard`), and hand the
-    split to its attention and MLP layers. Sets ``model.mesh``,
-    ``model.split`` and ``model.param_specs`` (None and ``{}`` without
-    a mesh)."""
+    split to its attention and MLP layers. ``staged``: the model holds
+    one pipeline stage's blocks. Sets ``model.mesh``, ``model.split``
+    and ``model.param_specs`` (None and ``{}`` without a mesh)."""
     model.mesh, model.split, model.param_specs = mesh, None, {}
     if mesh is None:
         return
-    model.split, model.param_specs = _shard(model, c, mesh)
+    model.split, model.param_specs = _shard(model, c, mesh, staged)
     for mod in model.modules():
         if isinstance(mod, (Attention, Mlp, MoeMlp)):
             mod.split = model.split
@@ -942,7 +1033,8 @@ class Transformer(nn.Module):
     under context parallelism."""
 
     def __init__(self, config: TransformerConfig,
-                 return_hidden: bool = False, *, mesh=None) -> None:
+                 return_hidden: bool = False, *, mesh=None,
+                 pipelined: bool = False) -> None:
         super().__init__()
         config.validate()
         self.config = config
@@ -950,7 +1042,7 @@ class Transformer(nn.Module):
         self.token_embed = nn.Parameter(torch.empty(
             config.vocab_size, config.d_model, dtype=config.param_dtype))
         pp = pmesh.axis_size(mesh, "pp") if mesh is not None else 1
-        if pp > 1:      # this rank's pipeline stage only
+        if pp > 1 and pipelined:      # this rank's pipeline stage only
             L = config.n_layers
             if L % pp:
                 raise ValueError(f"layers {L} not divisible by stages {pp}")
@@ -964,7 +1056,7 @@ class Transformer(nn.Module):
         self.final_norm = RMSNorm(config.d_model,
                                   param_dtype=config.param_dtype)
         self._rope: Dict[Tuple[int, torch.device], Tuple] = {}
-        split_over(self, config, mesh)
+        split_over(self, config, mesh, staged=pp > 1 and pipelined)
 
     @property
     def cache_kv_heads(self) -> int:
@@ -1089,11 +1181,6 @@ class Transformer(nn.Module):
         speculative verify). ``return_aux`` (training forward) returns
         ``(out, aux)``, ``aux`` the summed MoE load-balance loss."""
         c, sp = self.config, self.split
-        if cache is not None and sp is not None and (
-                sp.pp > 1 or (c.n_experts and (sp.tp > 1 or sp.ep_axis))):
-            raise NotImplementedError(
-                "decoding from a MoE or pipelined model split over a mesh "
-                "is ROADMAP Queue A 2.8")
         if sp is not None and sp.pp > 1:
             raise ValueError(
                 "a model built over pp > 1 holds one pipeline stage: it "

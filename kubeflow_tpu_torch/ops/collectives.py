@@ -32,6 +32,12 @@ gathers the expert shards) and :func:`reduce_scatter_grad` (all-gather
 backward: the capacity dispatch sums its ``(E, C, D)`` buffers onto the
 owners of the experts).
 
+Gloo carries all-reduce, all-gather and broadcast on CUDA tensors, but
+not point-to-point sends, all-to-all or reduce-scatter (its TCP
+transport is handed the device pointer). Those three stage a CUDA
+tensor through host memory on a gloo group (:func:`_staged`): the way
+two ranks time-share one card, where NCCL refuses them.
+
 :func:`bench_collective` times one collective on a ``size_mb`` buffer
 per rank (for ``all_gather``, the gathered output) and reports the
 algorithmic bandwidth and the NCCL-tests bus bandwidth; at ``n = 1`` no
@@ -54,6 +60,13 @@ def _group(mesh, axis: str):
     return axis_group(mesh, axis), axis_size(mesh, axis)
 
 
+def _staged(x: torch.Tensor, group) -> bool:
+    """Whether ``x`` goes through host memory for a point-to-point,
+    all-to-all or reduce-scatter exchange on ``group``: a CUDA tensor
+    on a gloo group."""
+    return x.is_cuda and tdist.get_backend(group) == "gloo"
+
+
 def all_reduce(x: torch.Tensor, mesh, axis: str = "dp") -> torch.Tensor:
     """Sum over the axis; every rank returns the sum."""
     group, _ = _group(mesh, axis)
@@ -70,6 +83,8 @@ def _gather(x: torch.Tensor, group, n: int) -> torch.Tensor:
 
 
 def _scatter(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    if _staged(x, group):
+        return _scatter(x.cpu(), group, n).to(x.device)
     x = x.contiguous()
     out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
     tdist.reduce_scatter_tensor(out, x, group=group)
@@ -88,7 +103,12 @@ def _exchange(x: torch.Tensor, group, n: int, split_axis: int,
               concat_axis: int) -> torch.Tensor:
     send = torch.stack(x.chunk(n, dim=split_axis)).contiguous()
     recv = torch.empty_like(send)
-    tdist.all_to_all_single(recv, send, group=group)
+    if _staged(send, group):
+        host = torch.empty_like(send, device="cpu")
+        tdist.all_to_all_single(host, send.cpu(), group=group)
+        recv.copy_(host)
+    else:
+        tdist.all_to_all_single(recv, send, group=group)
     return torch.cat(recv.unbind(0), dim=concat_axis)
 
 
@@ -105,6 +125,8 @@ def _rotate(x: torch.Tensor, group, n: int, shift: int) -> torch.Tensor:
     shift %= n
     if shift == 0:
         return x.clone()
+    if _staged(x, group):
+        return _rotate(x.cpu(), group, n, shift).to(x.device)
     me = tdist.get_group_rank(group, tdist.get_rank())
     x = x.contiguous()
     out = torch.empty_like(x)

@@ -41,6 +41,7 @@ process per device:
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -63,8 +64,6 @@ DEFAULT_RULES: AxisRules = (
     ("expert_mlp", ("tp",)),   # within-expert ffn hidden
 )
 
-# the multi-axis groups a model or train step reduces over
-_FLAT_GROUPS = (("dcn", "dp"), ("dcn", "dp", "tp"))
 
 
 class PartitionSpec(tuple):
@@ -152,7 +151,10 @@ def create_mesh(config: Optional[MeshConfig] = None, *,
     mesh = DeviceMesh(device_type, ranks, mesh_dim_names=MESH_AXES)
     me = tdist.get_rank()
     groups: Dict[Tuple[str, ...], object] = {}
-    for axes in _FLAT_GROUPS:
+    live = [a for a, n in zip(MESH_AXES, config.axis_sizes()) if n > 1]
+    flat = [axes for r in range(2, len(live) + 1)
+            for axes in itertools.combinations(live, r)]
+    for axes in flat:
         keep = [MESH_AXES.index(a) for a in axes]
         rest = [i for i in range(4) if i not in keep]
         grid = ranks.permute(*rest, *keep).reshape(-1, int(
@@ -219,17 +221,22 @@ def axis_index(mesh, axis: Union[str, Sequence[str]]) -> int:
 
 def axis_group(mesh, axis: Union[str, Sequence[str]]):
     """The process group of the ranks that differ from this one only
-    along ``axis`` (a name or a tuple of names). Axes of size 1 drop
-    out; a group over two or more axes of size > 1 must be one that
-    :func:`create_mesh` made."""
+    along ``axis`` (a name or a tuple of names, in the mesh's order).
+    Axes of size 1 drop out."""
     axes = (axis,) if isinstance(axis, str) else tuple(axis)
     live = tuple(a for a in axes if axis_size(mesh, a) > 1)
     if len(live) <= 1:
         return mesh.get_group(live[0] if live else axes[0])
-    for flat, group in mesh._kftpu_groups.items():
-        if tuple(a for a in flat if axis_size(mesh, a) > 1) == live:
-            return group
-    raise ValueError(f"no process group over mesh axes {axes}")
+    if live not in mesh._kftpu_groups:
+        raise ValueError(f"no process group over mesh axes {axes}")
+    return mesh._kftpu_groups[live]
+
+
+def mesh_order(axes: Sequence[str]) -> Tuple[str, ...]:
+    """``axes`` without repeats, in the mesh's order (``MESH_AXES``):
+    the order of a group's ranks, so the first is the major one in
+    :func:`axis_index` and in an all-gather over them."""
+    return tuple(a for a in MESH_AXES if a in axes)
 
 
 def logical_to_mesh_axes(logical_axes: Sequence[Optional[str]],

@@ -118,7 +118,11 @@ def make_pipelined_lm_forward(model, mesh, *, n_microbatches: int,
     ``config.remat``: the reference rematerialises every block). MoE
     layers' load-balance losses are not collected on this path, as in
     the reference. The logits are this rank's vocabulary block under
-    tensor parallelism."""
+    tensor parallelism. Under context parallelism (ring/Ulysses) each
+    rank embeds its block of the positions, the stages hand on ``(B/M,
+    S/n, D)`` between the ranks of one sequence coordinate (the ``pp``
+    axis' ring), attention inside a stage exchanges K/V over the
+    sequence's axis, and the logits are this rank's positions."""
     from kubeflow_tpu_torch.models.transformer import run_blocks
 
     c, sp = model.config, model.split
@@ -127,17 +131,14 @@ def make_pipelined_lm_forward(model, mesh, *, n_microbatches: int,
     if n > 1 and (sp is None or sp.pp != n):
         raise ValueError(f"the model is not built over the mesh's {n} "
                          "stages")
-    if sp is not None and sp.seq:
-        raise NotImplementedError(
-            "context parallelism (ring/ulysses) inside the pipeline is not "
-            "ported (ROADMAP Queue A 2.7)")
 
     def forward(tokens: torch.Tensor) -> torch.Tensor:
-        B, S = tokens.shape
+        B = tokens.shape[0]
         if B % M:
             raise ValueError(f"batch {B} not divisible by microbatches {M}")
         table = model.embed_table()
         x, sin, cos = model.embed(tokens, table)
+        S = x.shape[1]          # this rank's positions (its sequence block)
 
         def stage_fn(blocks, h):
             return run_blocks(blocks, h, sin, cos, remat=c.remat)

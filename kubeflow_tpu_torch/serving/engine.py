@@ -61,9 +61,16 @@ every split leaf) and the cache is created split: each rank's rows or
 pages hold its kv heads (``KH/tp``, or all of them where ``tp`` does
 not divide them), so a rank's pool is ``1/tp`` of the unsplit one's
 bytes. The page allocator, the prefix stores and the page tables are
-host state, the same on every rank. Over ``dp`` > 1 every data rank runs
-the whole batch (the reference splits the slots over ``dp`` under
-GSPMD; the tokens are the same). Two ways to drive it:
+host state, the same on every rank. Over ``dp`` or ``pp`` > 1 every rank
+of those axes runs the whole batch on the same rows: the model keeps
+every block (a served model is not pipelined) and its MoE experts stay
+split over ``dp`` (``models/transformer.py:MoeMlp._serve``). The
+reference's engine declares its cache split over the kv heads alone
+(``kubeflow_tpu/serving/engine.py:714-733``: the slot axis replicated
+over ``dp``, as here), and feeds each step host arrays; XLA's
+partitioner then lays the dense cache's slot axis and the positions
+over ``dp`` on the first step's output. The tokens are the same either
+way. Two ways to drive it:
 
 - **SPMD**: every rank builds the engine and makes the same calls
   (``submit``, ``run_once``) in the same order;

@@ -84,7 +84,8 @@ def build_model(kind: str, config: Dict[str, Any], *, mesh=None
     the space-to-depth stem existed hold ``stem_conv`` params; dtype
     names (``"bfloat16"``) become torch dtypes in the configs. ``mesh``
     (the ``transformer`` kind only) builds the LM over it: each rank
-    holds its block of every split leaf."""
+    holds its block of every split leaf, and every block (a served
+    model is not pipelined: ``pp`` replicates it)."""
     with torch.device("meta"):
         if kind == "mnist":
             return MnistCnn(), lambda m, x: m(x)

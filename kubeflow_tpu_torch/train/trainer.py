@@ -24,11 +24,15 @@ gradient's squares summed over every axis it is split on (``tp``; a
 pipeline stage's over ``pp``; MoE experts' over ``dp``) and a replicated
 one once. An expert's gradient arrives summed over ``dp`` already (the
 dispatch's exchange), so it skips that axis of the all-reduce. Under
-context parallelism (``attention_impl`` ring or Ulysses) each rank's
-loss covers its positions and the gradients sum over ``tp`` in the same
-all-reduce. The pipelined LM step and the image step over the data axes
-are :func:`make_pipelined_lm_train_step` and
-:func:`make_image_train_step`.
+context parallelism (``attention_impl`` ring or Ulysses over
+``config.seq_axis``, any mesh axis) each rank's loss covers its
+positions, the rows split over the batch rule's other axes, and the
+gradients sum over the sequence's axis in the same all-reduce. An axis
+that splits neither the rows, the sequence nor a parameter (``pp``
+under the MLM and image steps, as the reference's unpipelined leaves
+carry no ``stage``) replicates the step. The pipelined LM step and the
+image step over the data axes are :func:`make_pipelined_lm_train_step`
+and :func:`make_image_train_step`.
 
 The optimizer is optax's chain written in plain tensor ops, with optax's
 numerics (:class:`AdamW` is bare ``optax.adamw``):
@@ -325,13 +329,16 @@ def create_sharded_state(config, params: Mapping[str, Any], tx, mesh, *,
                          ) -> Tuple[TrainState, Dict[str, Any]]:
     """A :class:`TrainState` over a port ``Transformer`` built over
     ``mesh``, holding this rank's blocks of the full JAX-layout
-    ``params`` (its stage's layers where ``pp > 1``), and its
-    :func:`state_shardings` (``pipelined``: the stage leaves' specs name
-    ``pp``, as the reference's ``pipelined=True``)."""
+    ``params``, and its :func:`state_shardings`. ``pipelined``: the
+    stage leaves' specs name ``pp`` and, where ``pp > 1``, each rank
+    holds its stage's layers, as the reference's ``pipelined=True``;
+    else every layer on every rank, replicated over ``pp``, as the
+    reference's unpipelined state."""
     from kubeflow_tpu_torch.models import convert
 
     model = convert.to_trainable(config, params, device=device,
-                                 return_hidden=return_hidden, mesh=mesh)
+                                 return_hidden=return_hidden, mesh=mesh,
+                                 pipelined=pipelined)
     state = TrainState.create(model, tx)
     return state, state_shardings(state, mesh, pipelined=pipelined)
 
@@ -501,6 +508,40 @@ def _batch_axes(rules) -> Tuple[str, ...]:
     return pmesh.batch_axes(rules)
 
 
+def _row_axes(model, rules) -> Tuple[str, ...]:
+    """The axes a model's rows split over: the batch rule's, less the
+    sequence's axis of a context-parallel model built over a mesh."""
+    sp = getattr(model, "split", None)
+    return sp.data_axes if sp is not None else _batch_axes(rules)
+
+
+def _lm_loss(model, out, tokens, mesh, loss_chunk, softcap):
+    """``next_token_loss`` (chunked with ``loss_chunk``) of ``out``, the
+    model's logits or hidden states for this rank's ``tokens``: its
+    vocabulary block under ``tp``; under context parallelism its block
+    of the positions, each predicting the next token (the sequence's
+    last position predicts none), over the whole rows' count."""
+    sp = getattr(model, "split", None)
+    vocab = mesh if sp is not None and sp.tp > 1 and sp.vocab_sharded \
+        else None
+    embed = (dict(model.named_parameters())["token_embed"]
+             if loss_chunk else None)
+    if sp is not None and sp.seq:
+        B, S = tokens.shape
+        n = S // sp.seq
+        tgt = tokens[:, sp.seq_rank * n + 1:(sp.seq_rank + 1) * n + 1]
+        h = out[:, :tgt.shape[1]]
+        total = (_chunked_ll_sum(h, embed, tgt, loss_chunk, softcap, vocab)
+                 if loss_chunk else _token_ll(
+                     h, tgt, vocab, h.shape[-1] * (sp.tp if vocab else 1))
+                 .sum())
+        return -total / (B * (S - 1))
+    if loss_chunk:
+        return chunked_next_token_loss(out, embed, tokens, chunk=loss_chunk,
+                                       softcap=softcap, mesh=vocab)
+    return next_token_loss(out, tokens, mesh=vocab)
+
+
 def _my_rows(x, mesh, axes: Tuple[str, ...]) -> torch.Tensor:
     """This rank's rows of a global batch, split over ``axes``; a
     :class:`~kubeflow_tpu_torch.parallel.mesh.RankRows` (``device_feed``
@@ -611,50 +652,35 @@ def make_lm_train_step(mesh=None, rules=pmesh.DEFAULT_RULES, *,
     built over ``mesh`` (:func:`create_sharded_state`) or is whole on
     every rank; see the module docstring for what the step exchanges.
     """
-    axes = _batch_axes(rules)
-
     def step(state: TrainState, tokens) -> Tuple[TrainState, Dict[str, Any]]:
         model = state.module
         if loss_chunk and not getattr(model, "return_hidden", False):
             raise ValueError("loss_chunk needs a model that returns hidden "
                              "states (return_hidden=True)")
         _check_mesh(state, mesh)
+        axes = _row_axes(model, rules)
         if mesh is not None:
             tokens = _my_rows(tokens, mesh, axes)
         tokens = torch.as_tensor(tokens, device=state.device)
-        sp = getattr(model, "split", None)
-        vocab = mesh if sp is not None and sp.tp > 1 and sp.vocab_sharded \
-            else None
         params = state.params
         out, aux = model(tokens, return_aux=True)
-        embed = (dict(model.named_parameters())["token_embed"]
-                 if loss_chunk else None)
+        loss = _lm_loss(model, out, tokens, mesh, loss_chunk,
+                        logits_softcap)
+        sp = model.split if mesh is not None else None
         if sp is not None and sp.seq:
-            # context parallel: this rank's positions predict the next
-            # token, the sequence's last position predicts none
-            B, S = tokens.shape
-            n = S // sp.seq
-            tgt = tokens[:, sp.seq_rank * n + 1:(sp.seq_rank + 1) * n + 1]
-            h = out[:, :tgt.shape[1]]
-            total = (_chunked_ll_sum(h, embed, tgt, loss_chunk,
-                                     logits_softcap) if loss_chunk
-                     else _token_ll(h, tgt).sum())
-            loss = -total / (B * (S - 1))
-        elif loss_chunk:
-            loss = chunked_next_token_loss(out, embed, tokens,
-                                           chunk=loss_chunk,
-                                           softcap=logits_softcap,
-                                           mesh=vocab)
-        else:
-            loss = next_token_loss(out, tokens, mesh=vocab)
+            # each sequence rank's loss is a share of its rows', but each
+            # holds the whole batch's aux: it adds its share of that
+            aux = aux / sp.seq
         grads = torch.autograd.grad(loss + moe_aux_weight * aux, params)
         loss = loss.detach()
         if mesh is None:
             grad_norm = global_norm(grads)
         else:
-            over = axes + (("tp",) if sp is not None and sp.seq else ())
+            # summed over the rows' axes and, under context parallelism,
+            # the sequence's; averaged over the rows'
             grads, extra = _reduce(grads, state.param_specs, loss, mesh,
-                                   over, pmesh.axis_size(mesh, axes))
+                                   sp.token_axes if sp is not None else axes,
+                                   pmesh.axis_size(mesh, axes))
             loss = extra[0]
             grad_norm = _split_norm(grads, state.param_specs, mesh)
         state.apply_gradients(grads, grad_norm)
@@ -689,14 +715,6 @@ def _split_model(state: TrainState):
     return sp if sp is not None and sp.tp > 1 else None
 
 
-def _refuse_pp(mesh, what: str) -> None:
-    if mesh is not None and pmesh.axis_size(mesh, "pp") > 1:
-        raise NotImplementedError(
-            f"the {what} step does not pipeline: pp="
-            f"{pmesh.axis_size(mesh, 'pp')} for the encoders and the "
-            "image models is ROADMAP Queue A 2.8")
-
-
 def make_mlm_train_step(mesh=None, rules=pmesh.DEFAULT_RULES):
     """The masked-LM train step: ``step(state, tokens, labels, weights)
     -> (state, metrics)``. ``tokens`` are the corrupted inputs,
@@ -712,9 +730,10 @@ def make_mlm_train_step(mesh=None, rules=pmesh.DEFAULT_RULES):
     mesh=)``): under ``tp`` the loss is vocab-parallel where the
     vocabulary is split, the gradients are averaged as in
     :func:`make_lm_train_step` and the norm counts each split leaf's
-    squares over ``tp``. ``pp`` > 1 is refused (ROADMAP Queue A 2.8)."""
+    squares over ``tp``. Over ``pp`` > 1 every stage rank computes its
+    data rank's rows, as the reference's step replicates over ``pp``
+    (no leaf of the encoders carries the ``stage`` axis there)."""
     axes = _batch_axes(rules)
-    _refuse_pp(mesh, "MLM")
 
     def step(state: TrainState, tokens, labels, weights
              ) -> Tuple[TrainState, Dict[str, Any]]:
@@ -798,11 +817,12 @@ def make_pipelined_lm_train_step(mesh, *, n_microbatches: int,
     rank holds its stage. The loss is ``next_token_loss`` over the
     reassembled logits (vocab-parallel under ``tp``); MoE load-balance
     losses are not collected on this path, as the reference's docstring
-    says. ``metrics`` are ``loss``, ``grad_norm`` and ``step``, as in
+    says. A model under ring/Ulysses is refused, as the reference's step
+    fails on it (its forward runs: ``parallel/pipeline.py``).
+    ``metrics`` are ``loss``, ``grad_norm`` and ``step``, as in
     :func:`make_lm_train_step`. The gradients (with the loss) are
     averaged over the data axes as there; a stage's leaves count their
     squares over ``pp`` in the norm, the replicated leaves once."""
-    axes = _batch_axes(rules)
 
     def step(state: TrainState, tokens) -> Tuple[TrainState, Dict[str, Any]]:
         from kubeflow_tpu_torch.parallel.pipeline import (
@@ -811,16 +831,21 @@ def make_pipelined_lm_train_step(mesh, *, n_microbatches: int,
 
         model = state.module
         _check_mesh(state, mesh)
+        if model.split is not None and model.split.seq:
+            raise NotImplementedError(
+                "ring/ulysses inside the pipelined train step: the "
+                "reference's step fails to lower it (its ring or all-to-all "
+                "in a shard_map nested in the pipeline's), so the port "
+                "refuses it too (ROADMAP, Found in the reference); the "
+                "pipelined forward runs it")
+        axes = _row_axes(model, rules)
         tokens = torch.as_tensor(
             _pipeline_rows(tokens, mesh, axes, n_microbatches),
             device=state.device)
-        sp = model.split
-        vocab = mesh if sp is not None and sp.tp > 1 and sp.vocab_sharded \
-            else None
         params = state.params
         fwd = make_pipelined_lm_forward(model, mesh,
                                         n_microbatches=n_microbatches)
-        loss = next_token_loss(fwd(tokens), tokens, mesh=vocab)
+        loss = _lm_loss(model, fwd(tokens), tokens, mesh, None, 0.0)
         grads = torch.autograd.grad(loss, params)
         specs = state.param_specs
         grads, extra = _reduce(grads, specs, loss.detach(), mesh, axes,
@@ -855,12 +880,11 @@ def make_image_train_step(mesh=None, rules=pmesh.DEFAULT_RULES):
     averaged as in :func:`make_lm_train_step` and the clipping norm
     counts each split leaf's squares over ``tp``. ResNet's and the MNIST
     CNN's leaf names take no split in those rules, so they stay whole
-    and each ``tp`` rank runs its data rank's rows. ``pp`` > 1 is
-    refused (ROADMAP Queue A 2.8)."""
+    and each ``tp`` rank runs its data rank's rows; so does each ``pp``
+    rank (the reference replicates the step over ``pp``)."""
     from kubeflow_tpu_torch.models.resnet import global_batch_stats
 
     axes = _batch_axes(rules)
-    _refuse_pp(mesh, "image")
 
     def step(state: TrainState, images, labels
              ) -> Tuple[TrainState, Dict[str, Any]]:

@@ -18,8 +18,8 @@ the CPU over ``tp=2`` (2 ranks) and ``dp=2 × tp=2`` (4 ranks), at f32:
   in the reference's rules (held here against ``param_partition_specs``),
   train whole on every rank within the image-mesh limits.
 
-The split each port leaf takes is the reference's rule for its name,
-and ``pp`` > 1 still refuses, naming its ROADMAP item.
+The split each port leaf takes is the reference's rule for its name.
+The same steps over ``pp`` are ``tests/test_torch_compose_train.py``'s.
 """
 
 import dataclasses
@@ -174,11 +174,3 @@ def test_image_step_over_tp_matches_jax(gangs, jax_image, n, case):
     assert loss <= LOSS_LIMIT, loss
     assert norm <= LOSS_LIMIT, (r0["metrics"][0][3], want_norm)
     assert err <= PARAM_LIMIT[case], err
-
-
-@pytest.mark.parametrize("n", WORLDS)
-def test_pp_still_refuses_by_name(gangs, n):
-    for got in gangs[n].case("refused"):
-        assert len(got) == 2
-        for msg in got:
-            assert "pp=2" in msg and "Queue A 2.8" in msg

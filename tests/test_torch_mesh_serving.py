@@ -256,14 +256,6 @@ def test_model_server_split_serving(gangs, oracle, n):
                                        np.asarray(logits), atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("n", list(SERVE_MESHES))
-def test_moe_and_pipelined_decoding_refuse_by_name(gangs, n):
-    for got in gangs[n].case("refused"):
-        assert len(got) == 2
-        for msg in got:
-            assert "MoE or pipelined" in msg and "Queue A 2.8" in msg
-
-
 _DIES = textwrap.dedent("""
     import os, sys, time
     import torch

@@ -533,7 +533,8 @@ def _pipeline_suite(out: str) -> Dict[str, Callable[[], Any]]:
     def pipelined_model():
         cfg = _lm_config(n_layers=PIPE_LAYERS)
         model = convert.to_trainable(cfg, convert.random_params(cfg, 0),
-                                     device="cpu", mesh=meshes["pp4"])
+                                     device="cpu", mesh=meshes["pp4"],
+                                     pipelined=True)
         return cfg, pl.make_pipelined_lm_forward(
             model, meshes["pp4"], n_microbatches=PIPE_LOGIT_M)
 
@@ -1008,27 +1009,7 @@ def _mesh_serving_suite(out: str) -> Dict[str, Callable[[], Any]]:
         got["plans"] = s.repo.lockstep.plans_sent
         return got
 
-    def refused():
-        """Decoding from a MoE model over tp, or from a pipeline stage,
-        refuses by its ROADMAP item."""
-        from kubeflow_tpu_torch.models.transformer import tiny_config
-
-        out = []
-        for cfg, mesh in (
-                (tiny_config(n_experts=4), meshes[next(iter(meshes))]),
-                (tiny_config(), _cpu_mesh(pp=2, **(
-                    {"tp": 2} if tdist.get_world_size() == 4 else {})))):
-            model = convert.to_module(cfg, convert.random_params(cfg, 0),
-                                      device="cpu", mesh=mesh)
-            try:
-                decode.generate(model, torch.tensor([[5, 11, 17]]),
-                                max_new_tokens=2)
-                out.append("no error")
-            except NotImplementedError as e:
-                out.append(str(e))
-        return out
-
-    cases: Dict[str, Callable[[], Any]] = {"refused": refused}
+    cases: Dict[str, Callable[[], Any]] = {}
     for m in meshes:
         for kv in SERVE_KV:
             cases[f"decode/{m}/kv{kv}"] = functools.partial(decoding, m, kv)
@@ -1090,20 +1071,8 @@ def _encoder_tp_suite() -> Dict[str, Callable[[], Any]]:
                               getattr(state.module, "param_specs", {}),
                               state.module).items()}}
 
-    def refused():
-        pmesh_ = _cpu_mesh(pp=2, **({"tp": 2} if tdist.get_world_size() == 4
-                                    else {}))
-        out = []
-        for make in (make_mlm_train_step, make_image_train_step):
-            try:
-                make(pmesh_)
-                out.append("no error")
-            except NotImplementedError as e:
-                out.append(str(e))
-        return out
-
     return {"mlm": mlm, **{f"image/{c}": functools.partial(image, c)
-                           for c in IMAGE_CASES}, "refused": refused}
+                           for c in IMAGE_CASES}}
 
 
 def _image_mesh_suite() -> Dict[str, Callable[[], Any]]:
@@ -1427,6 +1396,347 @@ def _elastic_suite(out: str) -> Dict[str, Callable[[], Any]]:
     return {"specs": specs, "shrink": shrink}
 
 
+# -- every mesh the reference accepts -----------------------------------------
+
+# MoE decoding and serving over a mesh: tiny_config with 4 experts, dense
+# or capacity dispatch; by world size, the serving meshes (pp replicates)
+COMPOSE_DISPATCH = {"dense": 0.0, "capacity": 1.25}
+COMPOSE_SERVE_MESHES = {2: {"tp2": dict(tp=2), "pp2": dict(pp=2)},
+                        4: {"dp2tp2": dict(dp=2, tp=2),
+                            "pp2tp2": dict(pp=2, tp=2)},
+                        8: {"dp2tp4": dict(dp=2, tp=4)}}
+# context parallelism with MoE: ring or Ulysses over tp; "drops" fills
+# 64 slots with 128 choices (as MOE_CASES' drops)
+COMPOSE_MOE = {"dense": {}, "capacity": {"moe_capacity_factor": 1.25},
+               "drops": {"moe_capacity_factor": 0.25}}
+COMPOSE_MOE_OPT = {"drops": {"grad_clip": 0.05}}
+CP_IMPLS = ("ring", "ulysses")
+# by world size: the CP-with-MoE mesh, the meshes whose data axis holds
+# the sequence (seq_axis="dp"), and the MLM/image step's pp meshes
+COMPOSE_TRAIN_MESHES = {
+    2: {"moe": {"tp2": dict(tp=2)}, "seq_dp": {"dp2": dict(dp=2)},
+        "pp": {"pp2": dict(pp=2)}},
+    4: {"moe": {"dp2tp2": dict(dp=2, tp=2)},
+        "seq_dp": {"dp2tp2": dict(dp=2, tp=2)},
+        "pp": {"dp2pp2": dict(dp=2, pp=2)}},
+    8: {"moe": {}, "seq_dp": {}, "pp": {"dp2pp2tp2": dict(dp=2, pp=2, tp=2)}}}
+COMPOSE_IMAGE_CASES = ("vit", "resnet_fused", "mnist")
+# ring/Ulysses inside the pipeline (4 ranks): pp 2 x tp 2, the sequence
+# over tp; and over pp itself on a model every rank holds whole
+PIPE_CP_MESH = dict(pp=2, tp=2)
+# the capacity dispatch alone, rows x positions x experts of router
+# logits, capacity 4 of 16 x 2 choices a row block: many drop
+DISPATCH_SHAPE, DISPATCH_K, DISPATCH_C = (4, 8, 4), 2, 4
+ENTRY_PP = ("bert", "vit", "resnet", "mnist")
+
+
+def serve_moe(dispatch: str):
+    """The MoE LM of the serving cases, f32, numpy-seeded."""
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.transformer import tiny_config
+
+    cfg = tiny_config(n_experts=4,
+                      moe_capacity_factor=COMPOSE_DISPATCH[dispatch])
+    return cfg, convert.random_params(cfg, 3)
+
+
+def dispatch_logits() -> np.ndarray:
+    return np.random.default_rng(21).standard_normal(
+        DISPATCH_SHAPE).astype(np.float32)
+
+
+def _compose_serving_suite(out: str) -> Dict[str, Callable[[], Any]]:
+    import torch.distributed as tdist
+
+    from kubeflow_tpu_torch.models import convert, decode
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+    from kubeflow_tpu_torch.serving.lockstep import Lockstep
+
+    rank, world = tdist.get_rank(), tdist.get_world_size()
+    meshes = {k: _cpu_mesh(**v)
+              for k, v in COMPOSE_SERVE_MESHES[world].items()}
+
+    def decoding(mesh_name, dispatch):
+        """The decode functions on the split MoE model: ragged prefill
+        and next-step logits over both caches, greedy generate."""
+        cfg, params = serve_moe(dispatch)
+        model = convert.to_module(cfg, params, device="cpu",
+                                  mesh=meshes[mesh_name])
+        prompt = torch.tensor(DECODE_PROMPT[0], dtype=torch.int32)
+        lens = torch.tensor(DECODE_PROMPT[1], dtype=torch.int32)
+        got = {"blocks": len(model.blocks),
+               "experts": tuple(model.blocks[0].moe.gate_proj.shape)}
+        for mode, page in (("dense", 0), ("paged", 8)):
+            c = dataclasses.replace(cfg, kv_page_size=page,
+                                    kv_pages=2 * (64 // 8) if page else 0,
+                                    paged_attention_impl="kernel")
+            cache = decode.init_cache(c, 2, device="cpu",
+                                      kv_heads=model.cache_kv_heads)
+            if page:
+                for row in range(2):
+                    decode.arm_slot(cache, row, 0, np.arange(8) + 8 * row)
+            first, cache = decode.prefill(model, cache, prompt, lens)
+            step, cache = decode.decode_step(
+                model, cache, torch.argmax(first, -1).to(torch.int32))
+            got[mode] = {"prefill": first, "step": step}
+        got["generate"] = decode.generate(model, prompt,
+                                          max_new_tokens=DECODE_NEW,
+                                          true_len=lens)
+        return got
+
+    def engine(mesh_name, dispatch, mode):
+        cfg, params = serve_moe(dispatch)
+        model = convert.to_module(cfg, params, device="cpu",
+                                  mesh=meshes[mesh_name])
+        eng = DecodeEngine(cfg, model, slots=2, autostart=False,
+                           device="cpu", mesh=meshes[mesh_name],
+                           **engine_kwargs(mode))
+        reqs = [eng.submit(p, max_new=n) for p, n in SERVE_REQS]
+        for _ in range(12):
+            eng.run_once(timeout=0.01)
+        k = eng._cache.k
+        return {"streams": [r.result() for r in reqs],
+                "cache": tuple(k.shape)}
+
+    def lockstep(mesh_name, mode):
+        """Rank 0 schedules the dense LM's lockstep workload over a mesh
+        with a pp axis; the others follow its plans."""
+        cfg, params = serve_lm(2)
+        mesh = meshes[mesh_name]
+        model = convert.to_module(cfg, params, device="cpu", mesh=mesh)
+        ls = Lockstep(device="cpu", timeout_s=60)
+        kw = dict(slots=LOCKSTEP_SLOTS, autostart=False, device="cpu",
+                  mesh=mesh, **engine_kwargs(mode))
+        if rank == 0:
+            eng = DecodeEngine(cfg, model, link=functools.partial(
+                ls.program, "engine", "lm", 1), **kw)
+            eng.token_log = []
+            got = lockstep_workload(eng)
+            eng.close()
+            ls.stop()
+        else:
+            eng = DecodeEngine(cfg, model, **kw)
+            eng.token_log = []
+            while True:
+                op, args = ls.recv()
+                if op == "stop":
+                    break
+                if op == "engine" and args[2] != "close":
+                    eng.follow(args[2], args[3:])
+            got = {}
+        got["log"] = eng.token_log
+        got["blocks"] = len(model.blocks)
+        return got
+
+    cases: Dict[str, Callable[[], Any]] = {}
+    for m in meshes:
+        for d in COMPOSE_DISPATCH:
+            cases[f"decode/{m}/{d}"] = functools.partial(decoding, m, d)
+            for mode in ("dense", "paged"):
+                cases[f"engine/{m}/{d}/{mode}"] = functools.partial(
+                    engine, m, d, mode)
+        if m.startswith("pp"):
+            for mode in ("dense", "paged"):
+                cases[f"lockstep/{m}/{mode}"] = functools.partial(
+                    lockstep, m, mode)
+    return cases
+
+
+def _compose_train_suite(out: str) -> Dict[str, Callable[[], Any]]:
+    import torch.distributed as tdist
+
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.bert import bert_tiny
+    from kubeflow_tpu_torch.ops.moe import capacity_dispatch
+    from kubeflow_tpu_torch.parallel import mesh as pmesh
+    from kubeflow_tpu_torch.train import (
+        create_bert_train_state,
+        create_sharded_state,
+        make_image_train_step,
+        make_lm_train_step,
+        make_mlm_train_step,
+        make_optimizer,
+        make_pipelined_lm_train_step,
+    )
+
+    world = tdist.get_world_size()
+    layout = COMPOSE_TRAIN_MESHES[world]
+    meshes = {k: _cpu_mesh(**v) for kind in layout.values()
+              for k, v in kind.items()}
+    if world == 4:
+        meshes["pp2tp2"] = _cpu_mesh(**PIPE_CP_MESH)
+        meshes["dp4"] = _cpu_mesh(dp=4)
+
+    def lm_steps(cfg, mesh, opt=None):
+        state, _ = create_sharded_state(
+            cfg, convert.random_params(cfg, 0),
+            make_optimizer(LR, **OPT, **(opt or {})), mesh, device="cpu")
+        step = make_lm_train_step(mesh)
+        toks = train_tokens("default", cfg.vocab_size)
+        metrics = []
+        for _ in range(STEPS):
+            state, m = step(state, toks)
+            metrics.append((float(m["loss"]), float(m["grad_norm"]),
+                            int(m["step"])))
+        return {"metrics": metrics,
+                "params": convert.gather_params(state.module),
+                "blocks": len(state.module.blocks)}
+
+    def cp_moe(mesh_name, impl, dispatch):
+        cfg = _lm_config(attention_impl=impl, n_experts=MOE_EXPERTS,
+                         **COMPOSE_MOE[dispatch])
+        return lm_steps(cfg, meshes[mesh_name], COMPOSE_MOE_OPT.get(dispatch))
+
+    def seq_over(mesh_name, impl, axis):
+        cfg = _lm_config(attention_impl=impl, seq_axis=axis)
+        return lm_steps(cfg, meshes[mesh_name])
+
+    def pipe_cp(impl):
+        """The pipelined forward with the sequence over tp (this rank's
+        block of the positions' logits), and the pipelined train step's
+        refusal (the reference's fails to lower)."""
+        from kubeflow_tpu_torch.parallel.pipeline import (
+            make_pipelined_lm_forward,
+        )
+
+        cfg = _lm_config(attention_impl=impl, n_layers=PIPE_LAYERS)
+        mesh = meshes["pp2tp2"]
+        state, _ = create_sharded_state(
+            cfg, convert.random_params(cfg, 0), make_optimizer(LR, **OPT),
+            mesh, device="cpu", pipelined=True)
+        fwd = make_pipelined_lm_forward(state.module, mesh,
+                                        n_microbatches=2)
+        with torch.no_grad():
+            logits = fwd(torch.from_numpy(pipe_tokens(cfg.vocab_size)))
+        try:
+            make_pipelined_lm_train_step(mesh, n_microbatches=2)(
+                state, pipe_tokens(cfg.vocab_size))
+            refused = "no error"
+        except NotImplementedError as e:
+            refused = str(e)
+        return {"logits": logits, "refused": refused,
+                "blocks": len(state.module.blocks)}
+
+    def dispatch(mesh_name):
+        """This rank's block of the router logits through the capacity
+        dispatch of the global batch: the rows over the data axes, each
+        row's positions over tp; the slots each token took."""
+        mesh = meshes[mesh_name]
+        R, S, E = DISPATCH_SHAPE
+        logits = torch.from_numpy(dispatch_logits())
+        spec = pmesh.PartitionSpec(("dcn", "dp"), "tp")
+        mine = pmesh.local_block(logits, spec, mesh)
+        d, c, aux = capacity_dispatch(
+            mine.reshape(-1, E), DISPATCH_K, DISPATCH_C, mesh=mesh,
+            rows=mine.shape[0], seq_axis="tp")
+        return {"dispatch": d.reshape(*mine.shape[:2], E, DISPATCH_C),
+                "combine": c.reshape(*mine.shape[:2], E, DISPATCH_C),
+                "aux": float(aux)}
+
+    def mlm(mesh_name):
+        mesh = meshes[mesh_name]
+        cfg = dataclasses.replace(bert_tiny(), dtype="float32")
+        state = create_bert_train_state(
+            cfg, convert.random_bert_params(cfg, 0),
+            make_optimizer(LR, **OPT), device="cpu", mesh=mesh)
+        step = make_mlm_train_step(mesh)
+        batch = mlm_inputs(cfg.vocab_size)
+        metrics = []
+        for _ in range(STEPS):
+            state, m = step(state, *batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"]),
+                            int(m["step"])))
+        return {"metrics": metrics, "blocks": len(state.module.blocks),
+                "params": convert.gather_params(state.module)}
+
+    def image(case, mesh_name):
+        mesh = meshes[mesh_name]
+        state = _image_state(case, mesh=mesh)
+        step = make_image_train_step(mesh)
+        images, labels = image_inputs(case)
+        metrics = []
+        for _ in range(IMAGE_STEPS):
+            state, m = step(state, images, labels)
+            metrics.append((float(m["loss"]), float(m["accuracy"]),
+                            int(m["step"]), float(m["grad_norm"])))
+        return {"metrics": metrics,
+                "state": {n: t.detach().clone() for n, t in
+                          convert.gather_named(
+                              dict(state.module.state_dict()),
+                              getattr(state.module, "param_specs", {}),
+                              state.module).items()}}
+
+    def entry(name):
+        """The entry point on a launcher mesh with pp = 2 (the
+        reference's ``launcher_init(pp=...)``: its flags have none)."""
+        import importlib
+
+        from kubeflow_tpu_torch.examples import common
+
+        module = importlib.import_module(
+            f"kubeflow_tpu_torch.examples.{name}")
+        real = common.launcher_init
+        seen = []
+
+        def with_pp(**kw):
+            kw["pp"] = 2
+            kw.pop("tp", None)
+            got = real(**kw)
+            seen.append([pmesh.axis_size(got[1], a)
+                         for a in pmesh.MESH_AXES])
+            return got
+
+        module.launcher_init = with_pp
+        try:
+            with _env(KFTPU_RESULTS_DIR=os.path.join(out, "results"),
+                      KFTPU_JOB_NAME=f"pp-{name}"):
+                if name == "bert":
+                    res = module.main(BERT_TINY + ["--steps", "2"])
+                else:
+                    with f32_image_entry(name):
+                        res = module.main(image_entry_argv(name, 1))
+        finally:
+            module.launcher_init = real
+        return {"mesh": seen, "result": float(res)}
+
+    cases: Dict[str, Callable[[], Any]] = {}
+    for m in layout["moe"]:
+        for impl in CP_IMPLS:
+            for d in COMPOSE_MOE:
+                cases[f"cp_moe/{m}/{impl}/{d}"] = functools.partial(
+                    cp_moe, m, impl, d)
+        cases[f"dispatch/{m}"] = functools.partial(dispatch, m)
+    for m in layout["seq_dp"]:
+        for impl in CP_IMPLS:
+            cases[f"seq/{m}/{impl}"] = functools.partial(seq_over, m, impl,
+                                                         "dp")
+    for m in layout["pp"]:
+        cases[f"mlm/{m}"] = functools.partial(mlm, m)
+        for c in COMPOSE_IMAGE_CASES:
+            cases[f"image/{c}/{m}"] = functools.partial(image, c, m)
+    def ulysses_dp4():
+        """Ulysses over dp = 4 with 2 kv heads: the refusal's text."""
+        cfg = _lm_config(attention_impl="ulysses", seq_axis="dp")
+        model = convert.to_trainable(cfg, convert.random_params(cfg, 0),
+                                     device="cpu", mesh=meshes["dp4"])
+        try:
+            model(torch.from_numpy(logit_tokens(cfg.vocab_size)))
+        except ValueError as e:
+            return str(e)
+        return "no error"
+
+    if world == 4:
+        cases["ulysses_dp4"] = ulysses_dp4
+        for impl in CP_IMPLS:
+            cases[f"pipe/{impl}"] = functools.partial(pipe_cp, impl)
+            cases[f"seq/pp2tp2/{impl}"] = functools.partial(
+                seq_over, "pp2tp2", impl, "pp")
+    elif world == 2:
+        for name in ENTRY_PP:
+            cases[f"entry/{name}"] = functools.partial(entry, name)
+    return cases
+
+
 def _run(suite: str, out: str) -> None:
     from kubeflow_tpu_torch.parallel import distributed as dist
 
@@ -1451,7 +1761,9 @@ def _run(suite: str, out: str) -> None:
              "mesh_serving": lambda: _mesh_serving_suite(out),
              "encoder_tp": _encoder_tp_suite,
              "elastic": lambda: _elastic_suite(out),
-             "examples": lambda: _examples_suite(out)}[suite]()
+             "examples": lambda: _examples_suite(out),
+             "compose_serving": lambda: _compose_serving_suite(out),
+             "compose_train": lambda: _compose_train_suite(out)}[suite]()
     for name, fn in cases.items():
         try:
             ran[name] = fn()
