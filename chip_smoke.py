@@ -134,7 +134,7 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
     backward kernel ever; the LM's last-position argmax at (2, 64) equal
     to ``:generate``'s greedy first token; a wrong-shaped ResNet request
     400; an id past BERT's vocabulary the reference's NaN sequence, the
-    card serving on. Each kind's request wall p50 over 5 calls and its
+    card serving on. Each kind's request wall p50 over 3 calls and its
     split (JSON decode, host to device, forward by CUDA events, device
     to host, JSON encode) and peak memory are printed. Before it, both
     kernels are held to their plain versions and timed at the shapes
@@ -238,7 +238,30 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
     BERT-base's MLM step and ResNet-50 fused at the entry points'
     batches, timed, and their f32 twins against the unsplit steps; (c)
     ring and Ulysses with 8 experts at tp = 2, f32, against the unsplit
-    step (loss, grad norm, parameters within 1e-5, movement 2e-3).
+    step (loss, grad norm, parameters within 1e-5, movement 2e-3). The
+    MoE LM's depth is cut to 6 layers (:data:`COMPOSE_MOE`);
+26. the last modules (:func:`last_modules_phase`), each part fatal: (a)
+    the compile ledger: ``make_compile_ledger()`` under a job identity
+    while phase 1's quickest source builds into a fresh directory (one
+    ``kftpu_compile_seconds`` observation within 10% of the build's
+    wall, the library's digest as its fingerprint, its span in the job's
+    trace; a load from disk records nothing); phase 1's own build runs
+    under a ledger too, and its nvcc seconds by source are printed; (b)
+    the tile table: each committed ``sm_90`` paged row's Python
+    shared-memory formula equal to the library's, the kernel at its
+    shape within phase 2's limits of its plain version, the phase-2
+    shape timed within 3% of phase 2's time, and a phase-3-shaped
+    serving run whose every paged resolution comes from the table; (c)
+    ``record_memory_budget`` of the BERT-base MLM step's first call at
+    phase 11's shape, in a process of its own (``--budget-rank``):
+    argument + temp + output within 10% of an ``HbmSampler``'s peak; (d) ``ModelMultiplexer(max_resident=1)`` over
+    phase 17's ResNet-50 (fused) and BERT-base: A, B, A again, each
+    prediction bit for bit a directly loaded model's, the allocated
+    bytes at each fault after an eviction within 5% of those before the
+    first load, 8 threads faulting one cold model one load; (e)
+    ResNet-50 unfused at batch 256 with ``act_compress`` off and on
+    (images/s, peak GB), and the f32 loss gate of
+    ``tests/test_act_compress.py`` on a thin ResNet.
 
 Each phase prints its seconds. Phase 2 also holds the bnconv forward and
 dW kernels, and the autograd function's four gradients, against their
@@ -272,7 +295,9 @@ before it and not its f32 parity runs: > 0 on rows 3-7, 0 on rows 1-2),
 bf16 run over both ranks and the resume: > 0 on rows 3-5, 0 on the rest),
 ``batch_predict`` (48 on row 6, 0 on the rest) and ``mesh_compose``
 (phase 25's runs summed over the processes: > 0 on rows 1-2 from (a),
-on rows 3-5 from (b)'s BERT, on rows 6-7 from (b)'s ResNet). The flash forward and bnconv forward
+on rows 3-5 from (b)'s BERT, on rows 6-7 from (b)'s ResNet) and
+``last_modules`` (phase 26's serving run, BERT step, multiplexed calls
+and ResNet steps: > 0 on rows 1, 3 and 6). The flash forward and bnconv forward
 rows also carry ``predict_shapes``: their times at the inference shapes.
 """
 
@@ -1666,7 +1691,7 @@ def resnet50_train_flops_per_image(stem: str) -> float:
     return 3.0 * fwd
 
 
-def resnet_setup(device, *, fused=True):
+def resnet_setup(device, *, fused=True, act_compress=False):
     """``bench_resnet50``'s configuration on ``device``: (config, train
     state, images, labels). ResNet-50 with bf16 compute and BN over f32
     params, the space_to_depth stem, ``optax.sgd(0.1, momentum=0.9)``;
@@ -1685,7 +1710,8 @@ def resnet_setup(device, *, fused=True):
         ResNetConfig(fused_bn_conv=True), SEED)
     if not fused:
         variables = convert.unfuse_bn_conv(variables)
-    cfg = ResNetConfig(num_classes=1000, fused_bn_conv=fused)
+    cfg = ResNetConfig(num_classes=1000, fused_bn_conv=fused,
+                       act_compress=act_compress)
     state = create_image_train_state(cfg, variables,
                                      make_sgd(0.1, momentum=0.9),
                                      device=device)
@@ -2905,7 +2931,8 @@ def ledger_burst_ttft_ms(led, wave) -> float:
 # -- phase 17: :predict for every servable kind through one ModelServer ------
 
 
-PREDICT_CALLS = 5
+# calls a kind for its p50s: cut from 5 to 3 with phase 26 added
+PREDICT_CALLS = 3
 PREDICT_BUCKETS = (1, 2, 4, 8)
 # bench/suite.py:bench_resnet50's widths and dtypes, the serving stem
 RESNET_SERVING = dict(stage_sizes=[3, 4, 6, 3], num_classes=1000, width=64,
@@ -5658,8 +5685,10 @@ def phase24(device, base: str, kernels: list, kind: str, ident: str) -> None:
 # -- phase 25: every mesh composition the reference accepts -----------------
 
 # the model ``examples/lm.py --n-experts 8`` trains (its defaults: kv
-# heads = heads, max_seq_len = seq_len, dense top-2 dispatch), served
-COMPOSE_MOE = dict(vocab_size=32000, d_model=768, n_layers=12, n_heads=12,
+# heads = heads, max_seq_len = seq_len, dense top-2 dispatch), served;
+# its depth cut from 12 layers to 6, which holds the script's time with
+# phase 26 added (PERF.md §4)
+COMPOSE_MOE = dict(vocab_size=32000, d_model=768, n_layers=6, n_heads=12,
                    n_kv_heads=12, d_ff=3072, max_seq_len=512, n_experts=8,
                    experts_per_token=2)
 # (b): examples/bert.py's and examples/resnet.py's per-device batches,
@@ -6129,7 +6158,8 @@ def phase25(device, base: str, kernels: list, kind: str, ident: str) -> None:
     w1 = mc["world1"]
     r0 = mc["ranks"][0]
     print(f"phase 25 (a) MoE LM of examples/lm.py --n-experts 8 (d_model "
-          f"768, 12 layers, 12 heads, d_ff 3072, vocab 32000, 8 experts, "
+          f"768, {COMPOSE_MOE['n_layers']} layers (depth cut from 12), 12 "
+          f"heads, d_ff 3072, vocab 32000, 8 experts, "
           f"top-2, dense dispatch; random weights, export "
           f"{mc['export_s']:.1f}s) served at world 1 over NCCL through "
           f"ModelServer(decode_mesh=tp=1) ({kind} | {ident}): phase 3's "
@@ -6191,12 +6221,493 @@ def phase25(device, base: str, kernels: list, kind: str, ident: str) -> None:
           f"{r0['pp_s']:.1f}s, cp {r0['cp_s']:.1f}s)", flush=True)
 
 
+# -- phase 26: the last modules ----------------------------------------------
+
+# the job identity phase 26 (a) runs under: the operator's env contract
+LAST_JOB = {"KFTPU_JOB_NAME": "smoke-last-modules",
+            "KFTPU_NAMESPACE": "default", "KFTPU_JOB_UID": "phase-26",
+            "KFTPU_PROCESS_ID": "0"}
+BUILD_WALL_LIMIT = 0.10     # (a) a source's seconds against the phase's wall
+TILE_TIME_LIMIT = 0.03      # (b) the table's split against phase 2's time
+BUDGET_PEAK_LIMIT = 0.10    # (c) argument + temp + output against the peak
+EVICT_MEM_LIMIT = 0.05      # (d) allocated after an eviction against before
+MUX_THREADS = 8             # (d) threads faulting one cold model
+ACT_TIMED = 3               # (e) timed steps each way, after one warm-up
+# (e) the f32 gate of tests/test_act_compress.py: a thin ResNet, 6 steps
+# of SGD 0.05 (momentum 0.9) on 8 images, compressed within 8% of plain
+ACT_THIN = dict(stage_sizes=(1, 1), num_classes=10, width=16,
+                dtype="float32", bn_dtype="float32", stem="conv")
+ACT_THIN_STEPS, ACT_GATE = 6, 0.08
+
+
+def compile_ledger_part(first_build: dict) -> dict:
+    """Phase 26 (a): a ``make_compile_ledger()`` ledger (job identity
+    from :data:`LAST_JOB`) installed before the quickest source of phase
+    1 builds into a fresh directory: one ``kftpu_compile_seconds``
+    observation, its seconds within :data:`BUILD_WALL_LIMIT` of the
+    build call's wall, its fingerprint the library's digest, its span in
+    the job's trace under the job's root; a second build finds the
+    library on disk and records nothing."""
+    from kubeflow_tpu_torch.examples.common import make_compile_ledger
+    from kubeflow_tpu_torch.obs import xprof
+    from kubeflow_tpu_torch.obs.steps import tpujob_trace_ids
+    from kubeflow_tpu_torch.obs.trace import SpanCollector, Tracer
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.utils.metrics import DEFAULT_REGISTRY
+
+    name = (min(first_build, key=first_build.get)[:-len(".cu")]
+            if first_build else "fused_sample")
+    ns, job, uid = (LAST_JOB["KFTPU_NAMESPACE"], LAST_JOB["KFTPU_JOB_NAME"],
+                    LAST_JOB["KFTPU_JOB_UID"])
+    hist = DEFAULT_REGISTRY.histogram("kftpu_compile_seconds")
+    saved = {k: os.environ.get(k) for k in LAST_JOB}
+    os.environ.update(LAST_JOB)
+    fresh = tempfile.mkdtemp(prefix="kftpu-build-")
+    collector = SpanCollector()
+    try:
+        ledger = make_compile_ledger()
+        labels = dict(module=f"{name}.cu", shape_class="all",
+                      generation=ledger.generation, namespace=ns, job=job)
+        n_before = hist.get(**labels)
+        ledger.tracer = Tracer(collector, clock=time.time)
+        try:
+            t0 = time.perf_counter()
+            _build.build([name], build_dir=fresh)
+            wall = time.perf_counter() - t0
+            events = list(ledger.events)
+            _build.build([name], build_dir=fresh)
+            from_disk = len(ledger.events) - len(events)
+        finally:
+            ledger.uninstall()
+        digest = _build._target(name, fresh)[2]
+    finally:
+        shutil.rmtree(fresh, ignore_errors=True)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(len(events) == 1 and from_disk == 0,
+          f"compile ledger: {len(events)} events for one build, "
+          f"{from_disk} for a load from disk")
+    ev = events[0]
+    n_obs = hist.get(**labels) - n_before
+    check(n_obs == 1 and labels["shape_class"] == ev.shape_class,
+          f"kftpu_compile_seconds: {n_obs} new observations of "
+          f"{ev.module}")
+    check(abs(ev.seconds - wall) <= BUILD_WALL_LIMIT * wall,
+          f"compile ledger: {ev.seconds:.3f}s against the build's wall "
+          f"{wall:.3f}s")
+    check(ev.fingerprint == digest,
+          f"compile ledger fingerprint {ev.fingerprint} != digest {digest}")
+    trace_id, root = tpujob_trace_ids(ns, job, uid)
+    spans = [sp for sp in collector.spans()
+             if sp.name == f"compile/{ev.module}"]
+    check(len(spans) == 1 and spans[0].trace_id == trace_id
+          and spans[0].parent_id == root,
+          f"compile span {spans} not under the job's trace {trace_id}")
+    return {"module": ev.module, "seconds": ev.seconds, "wall_s": wall,
+            "fingerprint": ev.fingerprint, "generation": ev.generation,
+            "trace_id": trace_id,
+            "job_seconds": xprof.job_compile_seconds(ns, job)}
+
+
+def tile_table_part(device, base: str, cfg, paged_ms: float) -> dict:
+    """Phase 26 (b): every committed ``sm_90`` ``paged_attn`` row's
+    Python shared-memory formula against the library's
+    ``kftpu_paged_decode_smem_bytes`` at the row's legality point; the
+    kernel at each row's shape against its plain version (bf16 8e-3, f32
+    1e-5, phase 2's limits), resolved from the table; the phase-2 shape
+    timed against phase 2's time; then a phase-3-shaped serving run (4
+    requests of ~300 + 16) under ``record_resolutions``: every paged
+    resolution from the table, none from the fallback."""
+    import collections
+
+    import torch
+
+    from kubeflow_tpu_torch.ops import autotune as at
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+
+    lib = pa._lib()
+    rows = [e for e in at.active_table().entries
+            if e["kernel"] == "paged_attn" and e.get("generation") == "sm_90"]
+    check(rows, "the tile table has no sm_90 paged_attn row")
+    held, timed = [], None
+    for e in rows:
+        group, Dh, el, pps = at.paged_legality_point(e)
+        py = at.paged_smem_bytes(group, Dh, el, pps)
+        lib_b = lib.kftpu_paged_decode_smem_bytes(group, Dh, el, pps)
+        check(py == lib_b, f"{at.entry_key(e)}: Python smem {py} != "
+                           f"library {lib_b}")
+        KH = e.get("n_kv_heads") or 16
+        QH = e.get("n_heads") or KH * group
+        ps = e.get("page_size") or 64
+        dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
+            e["dtype"]]
+        atol = 8e-3 if dtype == torch.bfloat16 else 1e-5
+        q, k, v, pages, pos, P = paged_inputs(8, QH, KH, Dh, ps, 32, dtype,
+                                              device, seed=SEED + QH + KH)
+        with at.record_resolutions() as rec:
+            got = pa.paged_decode_attention(q, k, v, pages, pos)
+        want = pa.paged_decode_attention_plain(q, k, v, pages, pos)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        check(err <= atol, f"{at.entry_key(e)}: max abs err {err} > {atol}")
+        check([(d["source"], d["split_tokens"]) for d in rec]
+              == [("table", e["split_tokens"])],
+              f"{at.entry_key(e)}: resolved {rec}")
+        held.append({"row": at.entry_key(e), "smem_bytes": py,
+                     "split_tokens": e["split_tokens"], "max_abs_err": err})
+        if (dtype, QH, KH, Dh, ps) == (torch.bfloat16, 16, 16, 64, 64):
+            timed = time_ms(lambda: pa.paged_decode_attention(
+                q, k, v, pages, pos))
+    check(timed is not None, "no committed row at phase 2's timed shape")
+    check(abs(timed - paged_ms) <= TILE_TIME_LIMIT * paged_ms,
+          f"the table's split takes {timed:.4f} ms, phase 2's "
+          f"{paged_ms:.4f} ms")
+    with at.record_resolutions() as rec:
+        serve = serve_phase(base, cfg, device, n_requests=4, max_new=16)
+    by_source = collections.Counter(f"{d['kernel']}/{d['source']}"
+                                    for d in rec)
+    paged = by_source["paged_attn/table"]
+    check(paged >= serve["launches"]["paged_decode_attention"] > 0,
+          f"serving: {paged} table resolutions for "
+          f"{serve['launches']['paged_decode_attention']} launches")
+    check(not any(k.endswith("/fallback") for k in by_source),
+          f"serving resolutions by source: {dict(by_source)}")
+    return {"rows": held, "ms": timed, "phase2_ms": paged_ms,
+            "serving": serve, "by_source": dict(by_source),
+            "launches": serve["launches"]}
+
+
+def memory_budget_part(device) -> dict:
+    """Phase 26 (c), in a process of its own (:func:`budget_rank_main`:
+    nothing of the earlier phases is allocated at the call's entry):
+    ``record_memory_budget`` of the first call of the BERT-base MLM step
+    at phase 11's shape (16 x 512, bf16 over f32, flash, remat): argument
+    + temp + output within :data:`BUDGET_PEAK_LIMIT` of an
+    ``HbmSampler``'s peak over the call."""
+    import torch
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.obs.xprof import HbmSampler, record_memory_budget
+    from kubeflow_tpu_torch.train import make_mlm_train_step
+
+    cfg, state, batch = bert_setup(device)
+    step = make_mlm_train_step()
+    torch.cuda.synchronize()
+    entry = torch.cuda.memory_allocated(device)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    budget = record_memory_budget(step, state, *batch,
+                                  module="mlm_train_step")
+    call_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    sample = HbmSampler(device_index=device.index or 0).sample()
+    check(sample is not None, "HbmSampler read nothing on the card")
+    check(set(budget) == {"argument", "temp", "output"},
+          f"memory budget kinds {sorted(budget)}")
+    total = sum(budget.values())
+    peak = sample["peak"]
+    check(abs(total - peak) <= BUDGET_PEAK_LIMIT * peak,
+          f"budget {budget} sums to {total}, the sampler's peak {peak}")
+    del state, batch, step
+    return {"budget": budget, "total": total, "peak": peak,
+            "entry": entry, "call_s": call_s, "launches": launches}
+
+
+def budget_rank_main(argv) -> int:
+    """``chip_smoke.py --budget-rank OUT``: :func:`memory_budget_part` on
+    cuda:0, its result written to ``OUT`` as JSON."""
+    import torch
+
+    (out,) = argv
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(out, "w") as f:
+        json.dump(memory_budget_part(device), f)
+    return 0
+
+
+def memory_budget_process() -> dict:
+    """Run :func:`budget_rank_main` in a child process; its result."""
+    tmp = tempfile.mkdtemp(prefix="kftpu-budget-")
+    out = os.path.join(tmp, "budget.json")
+    try:
+        proc = subprocess.run([sys.executable, SCRIPT, "--budget-rank", out],
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0,
+              f"the memory-budget process failed ({proc.returncode}): "
+              f"{proc.stderr[-3000:]}")
+        with open(out) as f:
+            return json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def multiplex_part(device, base: str) -> dict:
+    """Phase 26 (d): a ``ModelMultiplexer(max_resident=1)`` on the card
+    over phase 17's ResNet-50 (fused) and BERT-base exports: A, B (A
+    paged out), A again (a cold re-fault from disk), each ``predict`` bit
+    for bit a directly loaded ``LoadedModel.predict``'s; the allocator's
+    bytes at each fault after an eviction within :data:`EVICT_MEM_LIMIT`
+    of the bytes before the first model loaded; then
+    :data:`MUX_THREADS` threads faulting the cold model add one load."""
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.serving import model_store as store
+    from kubeflow_tpu_torch.serving.multiplex import ModelMultiplexer
+
+    src = os.path.join(base, "predict-store")
+    root = tempfile.mkdtemp(prefix="kftpu-mux-")
+    names = ("resnet50", "bert")
+    try:
+        for name in names:
+            os.symlink(os.path.join(src, name), os.path.join(root, name))
+        rng = np.random.default_rng(SEED + 260)
+        want, inputs = {}, {}
+        for name in names:
+            direct = store.load_latest(os.path.join(root, name),
+                                       device=device)
+            inputs[name] = (rng.standard_normal(
+                (8, *direct.input_shape)).astype(np.float32)
+                if direct.input_shape else
+                rng.integers(0, 30522, (1, 128)).astype(np.int32))
+            want[name] = direct.predict(inputs[name])
+            del direct
+        torch.cuda.synchronize()
+        mux = ModelMultiplexer(root, max_resident=1, device=device)
+        store_loader = mux.loader
+        at_fault = []
+
+        def loader(name):
+            torch.cuda.synchronize()
+            at_fault.append((name, torch.cuda.memory_allocated(device)))
+            return store_loader(name)
+
+        mux.loader = loader
+        cold, same = [], []
+        ops.reset_launches()
+        for name in ("resnet50", "bert", "resnet50"):
+            with mux.lease(name) as handle:
+                out = handle.predict(inputs[name])
+                cold.append((name, mux.snapshot()["models"][name][
+                    "cold_start_ms"]))
+            del handle
+            same.append(bool(np.array_equal(out, want[name])))
+        launches = ops.launch_counts()
+        loads = mux.snapshot()["multiplex_loads"]
+        got = []
+        threads = [threading.Thread(target=lambda: got.append(
+            mux.get("bert") is not None)) for _ in range(MUX_THREADS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(120.0)
+        check(not any(th.is_alive() for th in threads),
+              "a multiplexer fault hung")
+        snap = mux.snapshot()
+        herd_loads = snap["multiplex_loads"] - loads
+        del mux, got
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(all(same), f"multiplexed predictions equal the direct ones: "
+                     f"{dict(zip(('A', 'B', 'A again'), same))}")
+    base_b = at_fault[0][1]
+    after = [b for _, b in at_fault[1:]]
+    check(all(abs(b - base_b) <= EVICT_MEM_LIMIT * base_b for b in after),
+          f"allocated bytes at each fault {at_fault}: an evicted model "
+          f"kept device memory")
+    check(herd_loads == 1, f"{MUX_THREADS} threads faulting one cold model "
+                           f"added {herd_loads} loads")
+    return {"cold_start_ms": cold, "at_fault": at_fault,
+            "evictions": snap["multiplex_evictions"],
+            "loads": snap["multiplex_loads"], "launches": launches}
+
+
+def act_compress_part(device) -> dict:
+    """Phase 26 (e): ResNet-50 unfused at phase 7's batch 256 (bf16 over
+    f32, same weights) for one warm-up and :data:`ACT_TIMED` timed steps
+    with ``act_compress`` off and on: images/s and the peak GB of the
+    timed steps (peak statistics reset between); then the f32 gate on a
+    thin ResNet (:data:`ACT_THIN`): both runs' losses fall and stay
+    within :data:`ACT_GATE` of each other."""
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.models.resnet import ResNetConfig
+    from kubeflow_tpu_torch.train import (
+        create_image_train_state,
+        make_image_train_step,
+        make_sgd,
+    )
+
+    runs, launches = {}, None
+    for act in (False, True):
+        torch.cuda.empty_cache()
+        cfg, state, images, labels = resnet_setup(device, fused=False,
+                                                  act_compress=act)
+        step = make_image_train_step()
+        state, m = step(state, images, labels)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        ops.reset_launches()
+        losses, times = [], []
+        for _ in range(ACT_TIMED):
+            t0 = time.perf_counter()
+            state, m = step(state, images, labels)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+        launches = ops.launch_counts()
+        step_s = sum(times) / len(times)
+        runs["on" if act else "off"] = {
+            "losses": losses, "step_ms": [t * 1e3 for t in times],
+            "images_per_s": RESNET_BATCH / step_s,
+            "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+        check(all(np.isfinite(losses)), f"act_compress={act}: {losses}")
+        del state, images, labels, step
+    gate = {}
+    rng = np.random.default_rng(SEED + 262)
+    images = torch.from_numpy(rng.standard_normal(
+        (8, 32, 32, 3)).astype(np.float32)).to(device)
+    labels = torch.from_numpy(rng.integers(0, 10, 8)).to(device)
+    for act in (False, True):
+        cfg = ResNetConfig(**ACT_THIN, act_compress=act)
+        state = create_image_train_state(
+            cfg, convert.random_resnet_params(ResNetConfig(**ACT_THIN),
+                                              SEED + 263),
+            make_sgd(0.05, momentum=0.9), device=device)
+        step = make_image_train_step()
+        losses = []
+        for _ in range(ACT_THIN_STEPS):
+            state, m = step(state, images, labels)
+            losses.append(float(m["loss"]))
+        gate["on" if act else "off"] = losses
+    exact, comp = gate["off"], gate["on"]
+    check(exact[-1] < exact[0] and comp[-1] < comp[0],
+          f"thin ResNet losses did not fall: {exact} / {comp}")
+    check(all(abs(e - c) < ACT_GATE * max(abs(e), 1.0)
+              for e, c in zip(exact, comp)),
+          f"act_compress losses {comp} off the plain {exact}")
+    return {"runs": runs, "gate": gate, "launches": launches}
+
+
+def last_modules_phase(device, base: str, cfg, kernels: list,
+                       first_build: dict) -> dict:
+    """Phase 26: (a)-(e) above. The ``last_modules`` path's launches sum
+    (b)'s serving run, (c)'s step (in its own process), (d)'s
+    multiplexed calls and (e)'s steps, each zeroed just before it; the
+    row checks of (b) and the direct loads of (d) are comparisons and
+    are not counted."""
+    import torch
+
+    res = {"compile": compile_ledger_part(first_build)}
+    torch.cuda.empty_cache()
+    res["tiles"] = tile_table_part(device, base, cfg, kernels[0]["ms"])
+    torch.cuda.empty_cache()
+    res["budget"] = memory_budget_process()
+    torch.cuda.empty_cache()
+    res["mux"] = multiplex_part(device, base)
+    torch.cuda.empty_cache()
+    res["act"] = act_compress_part(device)
+    res["launches"] = {}
+    for part in ("tiles", "budget", "mux", "act"):
+        for k, n in res[part]["launches"].items():
+            res["launches"][k] = res["launches"].get(k, 0) + n
+    return res
+
+
+def phase26(device, base: str, cfg, kernels: list, kind: str, ident: str,
+            first_build: dict) -> None:
+    """Phase 26's parts, their lines, and the ``last_modules`` path of
+    the kernel record: > 0 on rows 1 ((b)'s serving), 3 ((c) and (d)'s
+    BERT) and 6 ((d)'s ResNet-50)."""
+    lm = last_modules_phase(device, base, cfg, kernels, first_build)
+    for i, kern in enumerate(kernels):
+        n = lm["launches"].get(kern["name"], 0)
+        kern["launches_by_path"]["last_modules"] = n
+        kern["launches"] += n
+        if i in (0, 2, 5):
+            check(n > 0, f"{kern['name']} never launched on the "
+                         f"last_modules path")
+    kernels[0]["max_abs_err"] = max(
+        [kernels[0]["max_abs_err"]]
+        + [r["max_abs_err"] for r in lm["tiles"]["rows"]])
+    c = lm["compile"]
+    print(f"phase 26 (a) compile ledger ({kind} | {ident}): "
+          f"make_compile_ledger() under job {LAST_JOB['KFTPU_NAMESPACE']}/"
+          f"{LAST_JOB['KFTPU_JOB_NAME']}, {c['module']} built into a fresh "
+          f"directory: one kftpu_compile_seconds observation of "
+          f"{c['seconds']:.3f}s (the build call's wall {c['wall_s']:.3f}s), "
+          f"generation {c['generation']}, fingerprint {c['fingerprint']} "
+          f"== the library's digest, its span in trace {c['trace_id']}; "
+          f"job total {c['job_seconds']:.3f}s; a load from disk recorded "
+          f"nothing; phase 1's nvcc seconds by source {first_build}",
+          flush=True)
+    t = lm["tiles"]
+    s = t["serving"]
+    print(f"phase 26 (b) tile table ({kind} | {ident}): sm_90 paged rows "
+          f"{[(r['row'], r['split_tokens'], r['smem_bytes']) for r in t['rows']]}"
+          f" (Python smem == kftpu_paged_decode_smem_bytes), max abs err "
+          f"{[round(r['max_abs_err'], 6) for r in t['rows']]}; row 1 at "
+          f"phase 2's shape {t['ms']:.4f} ms (phase 2 {t['phase2_ms']:.4f} "
+          f"ms, limit {TILE_TIME_LIMIT:.0%}); a phase-3-shaped serving run "
+          f"(4 requests of ~300 + 16, paged + fused sampler, "
+          f"tokens_per_s={s['tokens_per_s']:.1f}) resolved by source "
+          f"{t['by_source']}; launches={s['launches']}", flush=True)
+    b = lm["budget"]
+    print(f"phase 26 (c) memory budget ({kind} | {ident}): "
+          f"record_memory_budget of the BERT-base MLM step's first call, "
+          f"{BERT_BATCH} x {BERT_SEQ}, bf16/f32, flash, remat "
+          f"({b['call_s']:.2f}s): argument {b['budget']['argument'] / 1e9:.3f}"
+          f" GB, temp {b['budget']['temp'] / 1e9:.3f} GB, output "
+          f"{b['budget']['output'] / 1e9:.6f} GB, sum {b['total'] / 1e9:.3f}"
+          f" GB against the HbmSampler's peak {b['peak'] / 1e9:.3f} GB "
+          f"(allocated at entry {b['entry'] / 1e9:.3f} GB; limit "
+          f"{BUDGET_PEAK_LIMIT:.0%}); launches={b['launches']}", flush=True)
+    m = lm["mux"]
+    print(f"phase 26 (d) ModelMultiplexer(max_resident=1) on the card "
+          f"({kind} | {ident}): phase 17's resnet50 (fused, 8 images) and "
+          f"bert (1 x 128); A, B, A again, each predict == the directly "
+          f"loaded model's bit for bit; cold_start_ms "
+          f"{[(n, round(ms, 1)) for n, ms in m['cold_start_ms']]}; "
+          f"allocated GB at each fault "
+          f"{[(n, round(x / 1e9, 4)) for n, x in m['at_fault']]} (limit "
+          f"{EVICT_MEM_LIMIT:.0%} of the first); {MUX_THREADS} threads "
+          f"faulting bert added 1 load; loads={m['loads']} "
+          f"evictions={m['evictions']}; launches={m['launches']}",
+          flush=True)
+    for label, r in lm["act"]["runs"].items():
+        print(f"phase 26 (e) resnet50 unfused act_compress {label} "
+              f"({kind} | {ident}): batch {RESNET_BATCH}, bf16/f32, "
+              f"space_to_depth stem, sgd 0.1 m 0.9, 1 warm-up + "
+              f"{ACT_TIMED} timed: step_ms={[round(x, 1) for x in r['step_ms']]}"
+              f" images_per_s={r['images_per_s']:.1f} peak_gb="
+              f"{r['peak_gb']:.2f} losses={r['losses']}", flush=True)
+    g = lm["act"]["gate"]
+    print(f"phase 26 (e) f32 thin ResNet (TF32 off), {ACT_THIN_STEPS} "
+          f"steps: losses off {[round(x, 5) for x in g['off']]} on "
+          f"{[round(x, 5) for x in g['on']]} (gate {ACT_GATE} of "
+          f"max(|off|, 1)); on/off images/s "
+          f"{lm['act']['runs']['on']['images_per_s'] / lm['act']['runs']['off']['images_per_s']:.4f}"
+          f", peak GB {lm['act']['runs']['on']['peak_gb']:.2f} / "
+          f"{lm['act']['runs']['off']['peak_gb']:.2f}", flush=True)
+    print(f"phase 26 launches={lm['launches']}", flush=True)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    from kubeflow_tpu_torch.examples.common import make_compile_ledger
     from kubeflow_tpu_torch.models.transformer import TransformerConfig
     from kubeflow_tpu_torch.ops import _build
 
@@ -6208,9 +6719,16 @@ def main() -> int:
     print(f"device: {kind} | {ident}", flush=True)
 
     t0 = time.perf_counter()
-    logs = _build.build(["paged_attention", "fused_sample",
-                         "flash_attention", "bnconv"])
-    print(f"phase 1 build: {time.perf_counter() - t0:.1f}s", flush=True)
+    ledger = make_compile_ledger()
+    try:
+        logs = _build.build(["paged_attention", "fused_sample",
+                             "flash_attention", "bnconv"])
+    finally:
+        ledger.uninstall()
+    first_build = {e.module: round(e.seconds, 3) for e in ledger.events}
+    print(f"phase 1 build: {time.perf_counter() - t0:.1f}s; nvcc seconds "
+          f"by source (compile ledger, in parallel): {first_build}, "
+          f"charged once {ledger.total_seconds():.3f}s", flush=True)
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -6235,12 +6753,14 @@ def main() -> int:
     # the phase-3 export, read again by phase 10
     base = tempfile.mkdtemp(prefix="kftpu-smoke-")
     try:
-        return run_phases(device, kind, ident, cfg, base, kernels, t_start)
+        return run_phases(device, kind, ident, cfg, base, kernels, t_start,
+                          first_build)
     finally:
         shutil.rmtree(base, ignore_errors=True)
 
 
-def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
+def run_phases(device, kind, ident, cfg, base, kernels, t_start,
+               first_build) -> int:
     import torch
 
     laps = [time.perf_counter()]
@@ -6734,6 +7254,9 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start) -> int:
     torch.cuda.empty_cache()
     phase25(device, base, kernels, kind, ident)
     lap("25")
+    torch.cuda.empty_cache()
+    phase26(device, base, cfg, kernels, kind, ident, first_build)
+    lap("26")
     for kern in kernels:
         for path, res in (("lm_entry", lm), ("moe_train", moe),
                           ("spec_serving", spec), ("predict", pred),
@@ -6761,6 +7284,12 @@ if __name__ == "__main__":
         sys.exit(elastic_resume_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--compose-rank"]:
         sys.exit(compose_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--budget-rank"]:
+        try:
+            sys.exit(budget_rank_main(sys.argv[2:]))
+        except SmokeFailure as e:
+            print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+            sys.exit(1)
     try:
         sys.exit(main())
     except SmokeFailure as e:

@@ -4,8 +4,7 @@ The JAX package (``kubeflow_tpu/``) is the reference: every module here
 mirrors a module there by name and is tested against it. This package
 imports ``torch``, numpy and yaml, never ``jax`` or ``kubeflow_tpu``.
 
-Layout (the first slices: paged LM serving, LM training, ResNet
-training; ROADMAP.md lists the rest):
+Layout:
 
 - ``models/transformer.py`` — the decoder LM, with the paged decode cache,
   flash attention and remat;
@@ -21,9 +20,18 @@ training; ROADMAP.md lists the rest):
   (serving; the flash forward, dQ and dK/dV of LM training; the fused
   BN + ReLU + 1x1 conv and its dW of ResNet training), each beside its
   plain PyTorch version;
-- ``ops/_build.py`` — builds ``ops/csrc/*.cu`` with ``nvcc`` at first use;
+- ``ops/_build.py`` — builds ``ops/csrc/*.cu`` with ``nvcc`` at first use
+  (each build announced to the compile ledger, ``obs/xprof.py``);
+- ``ops/autotune.py`` + ``ops/tile_table.json`` — the kernels' tile
+  table (Hopper legality; the paged kernel's split);
+- ``ops/act_compress.py`` — int8 forward-saved conv inputs (ResNet's
+  ``act_compress``);
 - ``serving/`` — page allocator, decode engine, model store, HTTP server,
-  gRPC service;
+  gRPC service, batch prediction, the model multiplexer;
+- ``obs/`` — spans and their push, the request ledger, step telemetry,
+  the compile ledger and memory budgets;
+- ``k8s/``, ``tuning/`` — object builders, a ConfigMap client, and the
+  trial-metrics reporters;
 - ``data/`` — the shard loader (a native batcher and its Python twin)
   and the device feed;
 - ``train/`` — optimizers, train state, losses, the LM and image train

@@ -3,8 +3,11 @@
 PyTorch port of ``kubeflow_tpu/examples/common.py``: ``setup_logging``,
 ``log_metrics`` (the scrape contract: one JSON line a record on stdout,
 and ``<KFTPU_RESULTS_DIR>/<KFTPU_JOB_NAME>.jsonl`` when the operator sets
-a results directory), ``checkpoint_dir``, ``launcher_init`` and
-``make_step_telemetry``.
+a results directory), ``checkpoint_dir``, ``launcher_init``,
+``make_step_telemetry``, ``make_compile_ledger`` (the kernel builds this
+worker pays, ledgered under the job's identity) and
+``report_tuning_metrics`` (a trial's metrics into its study's
+ConfigMap).
 
 ``launcher_init`` parses the operator's env contract, resolves the
 device (``cuda:(process_id % device count)`` unless the CPU is asked
@@ -116,10 +119,11 @@ def make_step_telemetry(*, tokens_per_step: int = 0,
     ``HbmSampler`` of the card's allocator (silent on the CPU).
 
     Inside a TpuJob gang (``KFTPU_JOB_NAME`` set, ``KFTPU_BEACONS`` not
-    0) beacons go to ``client`` through ``kube_beacon_sink``. The port
-    has no Kubernetes client of its own yet, so with none given beacons
-    are off and the log says so; the reference builds its
-    ``HttpKubeClient`` there. ``n_chips`` is the world size: one rank a
+    0) beacons go to ``client`` through ``kube_beacon_sink``. The port's
+    ``k8s/client.py:HttpKubeClient`` carries only the ConfigMap calls of
+    the trial reporters, not the TpuJob status writes a beacon makes, so
+    with no client given beacons are off and the log says so; the
+    reference builds its ``HttpKubeClient`` there. ``n_chips`` is the world size: one rank a
     card."""
     from kubeflow_tpu_torch.obs.steps import (
         ENV_JOB_UID,
@@ -149,3 +153,80 @@ def make_step_telemetry(*, tokens_per_step: int = 0,
         job=penv.job_name, namespace=penv.namespace, uid=job_uid,
         worker=penv.process_id, tokens_per_step=tokens_per_step,
         examples_per_step=examples_per_step, beacon_sink=sink, **kwargs)
+
+
+def make_compile_ledger(*, install: bool = True):
+    """A :class:`~kubeflow_tpu_torch.obs.xprof.CompileLedger` wired from
+    the operator's env contract (job/namespace/uid identity, so compile
+    spans join the job's trace tree) and, by default, subscribed to the
+    kernel builds (``ops/_build.py``): from here on every ``nvcc`` this
+    worker pays becomes a ``kftpu_compile_seconds`` observation and
+    counts toward the job's compile seconds. Call ``.uninstall()`` at
+    shutdown (or use it as a context manager)."""
+    from kubeflow_tpu_torch.obs.steps import ENV_JOB_UID
+    from kubeflow_tpu_torch.obs.xprof import CompileLedger
+
+    penv = dist.from_env()
+    ledger = CompileLedger(
+        namespace=penv.namespace, job=penv.job_name,
+        uid=os.environ.get(ENV_JOB_UID, ""), worker=penv.process_id)
+    if install:
+        ledger.install()
+    return ledger
+
+
+def report_tuning_metrics(step: int, metrics: Dict[str, Any],
+                          *, final: bool = False, client=None,
+                          telemetry=None) -> None:
+    """Publish trial metrics when running inside a study (no-op outside).
+
+    The study controller injects ``KFTPU_TRIAL_NAME`` and
+    ``KFTPU_OBJECTIVE_METRIC``; this appends the objective's step series
+    (what median early stopping reads) and, on ``final``, the metrics the
+    controller harvests. With ``telemetry`` (a
+    :class:`~kubeflow_tpu_torch.obs.steps.StepTelemetry`) the objective
+    series comes from its per-step records and the final report carries
+    its summary. Only process 0 of a gang reports (the workers share the
+    trial's one ConfigMap). Failures only log: a metrics hiccup never
+    kills a training step."""
+    trial = os.environ.get("KFTPU_TRIAL_NAME")
+    if not trial:
+        return
+    if dist.from_env().process_id != 0:
+        return
+    ns = os.environ.get("KFTPU_NAMESPACE", "default")
+    objective = os.environ.get("KFTPU_OBJECTIVE_METRIC", "")
+    try:
+        from kubeflow_tpu_torch.tuning.study import (
+            append_history_points,
+            append_trial_history,
+            report_trial_metrics,
+        )
+
+        if client is None:
+            from kubeflow_tpu_torch.k8s.client import HttpKubeClient
+
+            # one client for the trial's lifetime, not one per step
+            client = getattr(report_tuning_metrics, "_client", None)
+            if client is None:
+                client = HttpKubeClient()
+                report_tuning_metrics._client = client
+        series = (telemetry.objective_series(objective)
+                  if objective and telemetry is not None else [])
+        if series:
+            # the telemetry series is the objective history: nothing
+            # appended from a non-empty series means it is persisted
+            append_history_points(client, ns, trial, series)
+        elif objective and objective in metrics:
+            append_trial_history(client, ns, trial, step,
+                                 float(metrics[objective]))
+        if final:
+            harvest = {k: float(v) for k, v in metrics.items()
+                       if hasattr(v, "__float__")}
+            if telemetry is not None:
+                harvest.update({k: float(v)
+                                for k, v in telemetry.summary().items()
+                                if isinstance(v, (int, float))})
+            report_trial_metrics(client, ns, trial, harvest)
+    except Exception:  # noqa: BLE001
+        logging.exception("trial metrics report failed (continuing)")

@@ -1,1 +1,2 @@
-"""The Kubernetes object builders the port's jobs need (a trimmed copy)."""
+"""The Kubernetes pieces the port's jobs need (trimmed copies): object
+builders, and an HTTP client for the ConfigMaps trial metrics live in."""

@@ -1,9 +1,10 @@
 """Kubernetes object builders: a trimmed copy.
 
-A copy of ``metadata``, ``container`` and ``pod_spec`` from
-``kubeflow_tpu/k8s/objects.py`` (:21, :93, :120), which
-``serving/batch_predict.py:batch_predict_job`` builds its Job from.
-Objects are canonical Kubernetes dicts, as there.
+A copy of ``metadata``, ``config_map``, ``container`` and ``pod_spec``
+from ``kubeflow_tpu/k8s/objects.py`` (:21, :45, :93, :120):
+``serving/batch_predict.py:batch_predict_job`` builds its Job from them,
+``tuning/study.py`` its trial-metrics ConfigMaps. Objects are canonical
+Kubernetes dicts, as there.
 """
 
 from __future__ import annotations
@@ -27,6 +28,15 @@ def metadata(
     if annotations:
         md["annotations"] = dict(annotations)
     return md
+
+
+def config_map(name: str, ns: str, data: Mapping[str, str], **md) -> Obj:
+    return {
+        "apiVersion": "v1",
+        "kind": "ConfigMap",
+        "metadata": metadata(name, ns, **md),
+        "data": dict(data),
+    }
 
 
 def container(

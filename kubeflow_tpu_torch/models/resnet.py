@@ -37,8 +37,11 @@ the global count (every rank holds as many rows) before ``E[x²] -
 E[x]²``. The running statistics then come out equal on every rank, and
 the fused site's ``a``/``b`` feed the bnconv kernel as before.
 
-Not yet ported: ``act_compress`` (``ops/act_compress.py``) raises
-``NotImplementedError``.
+``act_compress`` swaps each bottleneck conv (conv1-3 and the
+projection) for ``ops/act_compress.py:Int8Conv``, which keeps the
+``kernel`` parameter and saves its input as int8 with per-channel
+scales for the backward; it refuses to combine with ``fused_bn_conv``,
+as the reference does.
 """
 
 from __future__ import annotations
@@ -147,6 +150,9 @@ class Conv(nn.Module):
                         padding=pad)
 
 
+_Conv = Conv
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` over the channel dim of an NCHW tensor."""
 
@@ -230,8 +236,14 @@ class BottleneckBlock(nn.Module):
     def __init__(self, in_features: int, filters: int, strides: int, *,
                  dtype: torch.dtype, param_dtype: torch.dtype,
                  bn_dtype: torch.dtype, bn_momentum: float,
-                 bn_epsilon: float, fused_bn_conv: bool):
+                 bn_epsilon: float, fused_bn_conv: bool,
+                 act_compress: bool = False):
         super().__init__()
+        if act_compress:
+            # local: ops/act_compress.py subclasses this module's Conv
+            from kubeflow_tpu_torch.ops.act_compress import Int8Conv as Conv
+        else:
+            Conv = _Conv
         conv = dict(dtype=dtype, param_dtype=param_dtype)
         norm = dict(momentum=bn_momentum, epsilon=bn_epsilon,
                     dtype=bn_dtype, param_dtype=param_dtype)
@@ -296,10 +308,6 @@ class ResNet(nn.Module):
             raise ValueError(
                 "act_compress and fused_bn_conv cannot combine: conv3 "
                 "would lose activation compression inside the fused op")
-        if c.act_compress:
-            raise NotImplementedError(
-                "act_compress (ops/act_compress.py) is not ported to "
-                "kubeflow_tpu_torch yet; see ROADMAP.md Queue A")
         if c.stem not in ("space_to_depth", "conv"):
             raise ValueError(f"unknown stem {c.stem!r}")
         self.config = c
@@ -325,7 +333,8 @@ class ResNet(nn.Module):
                     features, c.width * 2 ** i, 2 if j == 0 and i > 0 else 1,
                     dtype=dtype, param_dtype=pdt, bn_dtype=bn_dtype,
                     bn_momentum=c.bn_momentum, bn_epsilon=c.bn_epsilon,
-                    fused_bn_conv=c.fused_bn_conv)
+                    fused_bn_conv=c.fused_bn_conv,
+                    act_compress=c.act_compress)
                 self.add_module(name, block)
                 self.block_names.append(name)
                 features = c.width * 2 ** i * 4

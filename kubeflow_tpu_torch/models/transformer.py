@@ -204,10 +204,13 @@ _UNTUNED_BLOCK_K = 1024
 class TransformerConfig:
     """The reference's fields, one for one, so exports parse unchanged.
 
-    The tile knobs (``attention_block_q``, ``paged_head_block``) are TPU
-    tuning and drive nothing here; ``attention_block_k`` is the KV tile
-    of the blockwise and Ulysses cores (1024 when None, as in the
-    reference). ``seq_axis`` is the mesh axis of ring and Ulysses;
+    The flash path hands ``attention_block_q``/``attention_block_k`` to
+    ``flash_attention``, which records them as an override in the tile
+    table's resolution (``ops/autotune.py``) and runs the kernels' own
+    64 x 64 tile; ``attention_block_k`` is also the KV tile of the
+    blockwise and Ulysses cores (1024 when None, as in the reference).
+    ``paged_head_block`` drives nothing: the paged kernel takes q heads
+    in blocks of at most 8 itself, and its split comes from the table. ``seq_axis`` is the mesh axis of ring and Ulysses;
     ``rules`` map the parameters' logical axes onto a mesh;
     ``scan_layers`` names the JAX param layout only. ``remat`` recomputes
     each block in the backward of a training forward. ``ragged_decode``
@@ -502,7 +505,8 @@ class Attention(nn.Module):
                                      block_k=block_k)
         k, v = gqa_repeat(q, k, v)
         if impl == "flash":
-            return flash_attention(q, k, v, c.causal, kv_len=kv_len)
+            return flash_attention(q, k, v, c.causal, c.attention_block_q,
+                                   c.attention_block_k, kv_len=kv_len)
         if impl == "dense":
             return reference_attention(q, k, v, causal=c.causal,
                                        kv_len=kv_len)

@@ -9,17 +9,29 @@ nothing of the JAX package):
 - :func:`otlp_lines` / :func:`parse_otlp_lines` round-trip spans as
   newline-delimited JSON in OTLP field names.
 
-The flight recorder (``obs/steps.py``) dumps through both. Shipping
-spans to a trace collector (the reference's ``push_spans``) waits for the
-port's tracing tier (ROADMAP Queue A 5).
+The flight recorder (``obs/steps.py``) dumps through both.
+:func:`push_spans` ships a batch to the ``trace-collector`` service's
+ingest endpoint (a JSON body of the same records; the ndjson shape is
+the file format), best-effort: it logs a failure and never raises into
+the caller.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Any, Dict, Iterable, List
+import logging
+import os
+import urllib.request
+from typing import Any, Dict, Iterable, List, Optional
 
 from kubeflow_tpu_torch.obs.trace import Span
+
+log = logging.getLogger(__name__)
+
+# the trace-collector component's Service and ingest route (the
+# reference's manifests/components/trace_collector.py defaults)
+DEFAULT_COLLECTOR_URL = "http://trace-collector:8095/api/traces:ingest"
+ENV_COLLECTOR_URL = "KFTPU_TRACE_COLLECTOR_URL"
 
 def chrome_trace(spans: Iterable[Span]) -> Dict[str, Any]:
     """Complete-event (``ph: "X"``) trace; one tid per trace_id so
@@ -91,3 +103,23 @@ def parse_otlp_lines(text: str) -> List[Span]:
         except (ValueError, KeyError, TypeError):
             continue
     return out
+
+
+def push_spans(spans: Iterable[Span], url: Optional[str] = None,
+               timeout: float = 5.0) -> bool:
+    """POST a span batch to the trace-collector ingest endpoint
+    (``url``, else ``KFTPU_TRACE_COLLECTOR_URL``, else the in-cluster
+    default). Best-effort by contract: telemetry shipping never fails
+    the workload, so a transport error is logged and returns False."""
+    url = url or os.environ.get(ENV_COLLECTOR_URL) or DEFAULT_COLLECTOR_URL
+    body = json.dumps(
+        {"spans": [_span_record(s) for s in spans]}).encode()
+    req = urllib.request.Request(
+        url, data=body, headers={"Content-Type": "application/json"},
+        method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return 200 <= resp.status < 300
+    except OSError as e:
+        log.warning("span push to %s failed: %s", url, e)
+        return False

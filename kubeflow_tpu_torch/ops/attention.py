@@ -68,14 +68,16 @@ class _FlashAttention(torch.autograd.Function):
     reference, :508-511), then runs the dQ and dK/dV passes."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, kv_len):
+    def forward(ctx, q, k, v, causal, sm_scale, kv_len, block_q, block_k):
         # local: ops/flash_attention.py imports NEG_INF from this module
         from kubeflow_tpu_torch.ops import flash_attention as fa
 
+        _resolve_tiles("flash_fwd", q, causal, block_q, block_k)
         out, lse = fa.flash_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
                                 kv_len=kv_len)
         ctx.save_for_backward(q, k, v, out, lse, kv_len)
         ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.blocks = (block_q, block_k)
         return out
 
     @staticmethod
@@ -87,9 +89,25 @@ class _FlashAttention(torch.autograd.Function):
             g = g.contiguous()
         delta = fa.flash_delta(g, out)
         kw = dict(causal=ctx.causal, sm_scale=ctx.sm_scale, kv_len=kv_len)
+        for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+            _resolve_tiles(kernel, q, ctx.causal, *ctx.blocks)
         dq = fa.flash_bwd_dq(q, k, v, g, lse, delta, **kw)
         dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse, delta, **kw)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _resolve_tiles(kernel: str, q, causal: bool, block_q, block_k):
+    """One flash pass's tile resolution (``autotune.resolve_flash``),
+    recorded for ``autotune.record_resolutions``. The kernels run their
+    compiled 64 x 64 tile whatever resolves: a caller's TPU knobs are
+    recorded as an override, not refused."""
+    from kubeflow_tpu_torch.ops import autotune
+
+    B, S, H, D = q.shape
+    return autotune.resolve_flash(
+        kernel, seq=S, head_dim=D, n_heads=H, n_kv_heads=H, dtype=q.dtype,
+        causal=causal, block_q=block_q, block_k=block_k,
+        generation=autotune.backend_generation(q.device))
 
 
 def flash_attention(q, k, v, causal: bool = True,
@@ -101,14 +119,17 @@ def flash_attention(q, k, v, causal: bool = True,
     q, k and v.
 
     K and V arrive already GQA-repeated. ``block_q``/``block_k`` are the
-    reference's TPU tile knobs and are accepted and ignored: the CUDA
-    kernels take their own 64 x 64 tiles. ``kv_len`` is an optional
+    reference's tile knobs: each pass resolves its kernel key through the
+    tile table (``ops/autotune.py:resolve_flash``, recorded for
+    ``record_resolutions``; explicit knobs as an override), and the CUDA
+    kernels run the 64 x 64 tile they are compiled for, the only legal
+    row on Hopper. ``kv_len`` is an optional
     ``(B,)`` int32 valid length per batch row; keys at or past it are
     masked in the forward and both backward passes (outputs at padded q
     positions are unspecified, as in the reference).
     """
-    del block_q, block_k
-    return _FlashAttention.apply(q, k, v, causal, sm_scale, kv_len)
+    return _FlashAttention.apply(q, k, v, causal, sm_scale, kv_len,
+                                 block_q, block_k)
 
 
 # -- blockwise attention: online softmax over KV blocks -----------------------

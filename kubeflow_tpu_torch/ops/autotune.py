@@ -1,0 +1,562 @@
+"""Kernel autotune plane: shape-keyed tile tables for the CUDA kernels.
+
+PyTorch/CUDA twin of ``kubeflow_tpu/ops/autotune.py``. The vocabulary is
+the reference's: a **kernel key** (``flash_fwd`` / ``flash_bwd_dq`` /
+``flash_bwd_dkv`` / ``paged_attn``) plus a **shape class** (seq bucket,
+head_dim, n_heads / n_kv_heads, dtype, causal, backend generation, page
+size) maps to a committed tile config in ``ops/tile_table.json``; the
+most specific matching row wins (:meth:`TileTable.lookup`); explicit
+knobs win over the table (``source="override"``); a shape class with no
+row takes the analytic fallback; every resolution can be recorded
+(:func:`record_resolutions`).
+
+What differs is the legality and the knobs, which are Hopper's:
+
+- ``generation`` is ``sm_90`` on an H100 (``torch.cuda.
+  get_device_capability``), ``cpu`` without a card;
+- a **flash** row is legal only with the 64 x 64 tile the CUDA kernels
+  are compiled for (``csrc/flash_attention.cu`` ``kBQ``/``kBK``): the
+  reference's ``block_q``/``block_k`` are TPU tile edges. A caller's
+  explicit knobs (a reference config's ``attention_block_q/k``) are
+  recorded as an override and the kernels still run their own tile —
+  never a refusal;
+- a **paged** row's knob is ``split_tokens``, the keys one block of
+  ``csrc/paged_attention.cu`` takes (its split of a row's pages): the
+  port's counterpart of the reference's ``head_block`` (the kernel takes
+  q heads in blocks of at most 8 by itself). A row is legal when the
+  split is a whole number of pages and the block's dynamic shared memory
+  (:func:`paged_smem_bytes`, a copy of the C ``smem_bytes``) fits
+  ``MAX_SMEM_BYTES``, the launch's limit without the opt-in. The
+  fallback is the wrapper's analytic choice: about ``SPLIT_TOKENS``
+  keys, halved while the block would not fit.
+
+An illegal row is rejected at load with a warning (strict loads raise)
+and its shape class takes the fallback: a table row the kernel cannot
+take never reaches a launch.
+
+Nothing here imports torch at module level or touches the card at
+import; :func:`backend_generation` asks the card lazily.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import os
+import warnings
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_attn")
+
+MIN_SEQ_BUCKET = 128
+# the flash kernels' tile: q rows and keys a block (csrc kBQ, kBK)
+FLASH_TILE = (64, 64)
+# dynamic shared memory a launch may take without the opt-in attribute
+MAX_SMEM_BYTES = 48 * 1024
+# the paged wrapper's analytic split: about this many keys a block
+SPLIT_TOKENS = 128
+# the dtypes the CUDA kernels take
+DTYPE_BYTES = {"float32": 4, "bfloat16": 2}
+
+# csrc/paged_attention.cu's block geometry (kThreads, kWarps, kKeys,
+# kMaxGroup), for the Python copy of its shared-memory formula
+_PAGED_THREADS = 128
+_PAGED_WARPS = _PAGED_THREADS // 32
+_PAGED_KEYS = 4
+PAGED_MAX_GROUP = 8
+# where a paged row leaves a field open, it is checked at the widest
+# shape the kernel takes: the most shared memory a block can need
+_PAGED_STRICTEST = {"head_dim": 256, "group": PAGED_MAX_GROUP,
+                    "page_size": 1, "el": 4}
+
+_WILDCARD = (None, "*")
+
+
+def dtype_name(dtype: Any) -> str:
+    """Canonical dtype string for table keys (``torch.bfloat16``,
+    ``np.dtype`` and plain strings all normalize the same way)."""
+    if isinstance(dtype, str):
+        return dtype
+    name = getattr(dtype, "name", None)
+    if name:
+        return str(name)
+    name = getattr(dtype, "__name__", None)
+    if name:
+        return str(name)
+    text = str(dtype)
+    return text[len("torch."):] if text.startswith("torch.") else text
+
+
+def seq_bucket(seq: int) -> int:
+    """Power-of-two shape-class bucket covering ``seq`` (min 128)."""
+    b = MIN_SEQ_BUCKET
+    while b < seq:
+        b *= 2
+    return b
+
+
+def fit_block(seq: int, block: int) -> int:
+    """Largest divisor of ``seq`` that is ≤ ``block`` (the reference's
+    fitting of a table value to the actual shape)."""
+    block = max(1, min(int(block), int(seq)))
+    for b in range(block, 0, -1):
+        if seq % b == 0:
+            return b
+    return 1
+
+
+_GENERATIONS: Dict[Optional[int], str] = {}
+
+
+def backend_generation(device: Any = None) -> str:
+    """Chip-generation component of the shape class: ``sm_<major><minor>``
+    of the CUDA card (``device``, or the current one), ``cpu`` for a CPU
+    device or where there is no card."""
+    import torch
+
+    if device is not None:
+        device = torch.device(device)
+        if device.type != "cuda":
+            return "cpu"
+    if not torch.cuda.is_available():
+        return "cpu"
+    index = device.index if device is not None else None
+    gen = _GENERATIONS.get(index)
+    if gen is None:
+        major, minor = torch.cuda.get_device_capability(index)
+        gen = _GENERATIONS[index] = f"sm_{major}{minor}"
+    return gen
+
+
+# ---------------------------------------------------------------------------
+# Hopper legality: the paged block's shared memory
+# ---------------------------------------------------------------------------
+
+
+def paged_smem_bytes(group: int, head_dim: int, el: int, pps: int) -> int:
+    """Dynamic shared memory of one paged decode block: a copy of
+    ``csrc/paged_attention.cu:smem_bytes`` (the 2-stage K/V ring, or the
+    cross-warp partials it turns into once drained, whichever is larger,
+    then the split's ``pps`` page ids)."""
+    chunks = head_dim * el // 16
+    slices = 2 if chunks > 32 else 1
+    need = -(-chunks // slices)
+    lanes = 1
+    while lanes < need:
+        lanes <<= 1
+    stage_rows = _PAGED_KEYS // slices * (_PAGED_THREADS // lanes)
+    heads = min(group, PAGED_MAX_GROUP)
+    ring = 4 * stage_rows * head_dim * el
+    red = _PAGED_WARPS * heads * (head_dim + 2) * 4
+    return max(ring, red) + pps * 4
+
+
+def paged_legality_point(entry: Dict[str, Any]) -> Tuple[int, int, int, int]:
+    """``(group, head_dim, el, pps)`` a ``paged_attn`` row is checked at:
+    its own fields, and the strictest value where a field is open."""
+    n_heads, n_kv = entry.get("n_heads"), entry.get("n_kv_heads")
+    if n_heads in _WILDCARD or n_kv in _WILDCARD:
+        group = _PAGED_STRICTEST["group"]
+    else:
+        group = max(1, int(n_heads) // max(1, int(n_kv)))
+    head_dim = entry.get("head_dim")
+    if head_dim in _WILDCARD:
+        head_dim = _PAGED_STRICTEST["head_dim"]
+    dtype = entry.get("dtype")
+    el = (DTYPE_BYTES.get(dtype, _PAGED_STRICTEST["el"])
+          if dtype not in _WILDCARD else _PAGED_STRICTEST["el"])
+    page_size = entry.get("page_size")
+    if page_size in _WILDCARD:
+        page_size = _PAGED_STRICTEST["page_size"]
+    pps = max(1, int(entry.get("split_tokens") or 1) // int(page_size))
+    return group, int(head_dim), el, pps
+
+
+# ---------------------------------------------------------------------------
+# Table entries: schema, validation, matching
+# ---------------------------------------------------------------------------
+
+# Entry schema (one JSON object per shape class):
+#   kernel      str, one of KERNELS                          (required)
+#   seq_bucket  int pow2 — required for flash kernels, optional
+#               (wildcard) for paged_attn
+#   head_dim / n_heads / n_kv_heads   int or null (wildcard)
+#   dtype       canonical dtype str or "*"/null
+#   causal      bool or null
+#   generation  backend_generation() slug or "*"/null
+#   page_size   int or null — paged_attn only
+#   block_q / block_k   int — flash kernels (FLASH_TILE only)
+#   split_tokens        int — paged_attn (keys a split block takes)
+#   provenance  str — where the numbers came from
+
+_MATCH_FIELDS = ("head_dim", "n_heads", "n_kv_heads", "dtype", "causal",
+                 "generation", "page_size")
+
+
+def entry_key(entry: Dict[str, Any]) -> str:
+    """Compact human identity for messages and sweep output."""
+    parts = [str(entry.get("kernel", "?"))]
+    sb = entry.get("seq_bucket")
+    parts.append(f"s{sb}" if sb else "s*")
+    for field, tag in (("head_dim", "d"), ("n_heads", "h"),
+                       ("n_kv_heads", "kv"), ("page_size", "p")):
+        v = entry.get(field)
+        if v not in _WILDCARD:
+            parts.append(f"{tag}{v}")
+    dt = entry.get("dtype")
+    parts.append(dt if dt not in _WILDCARD else "*")
+    causal = entry.get("causal")
+    if causal is not None:
+        parts.append("causal" if causal else "bidir")
+    gen = entry.get("generation")
+    if gen not in _WILDCARD:
+        parts.append(str(gen))
+    return "/".join(parts)
+
+
+def _int_field(entry: Dict[str, Any], field: str,
+               errs: List[str]) -> Optional[int]:
+    v = entry.get(field)
+    if v in _WILDCARD:
+        return None
+    if not isinstance(v, int) or isinstance(v, bool) or v < 1:
+        errs.append(f"{field} must be a positive int or null, got {v!r}")
+        return None
+    return v
+
+
+def validate_entry(entry: Dict[str, Any],
+                   smem_limit: int = MAX_SMEM_BYTES) -> List[str]:
+    """All the reasons ``entry`` is illegal on Hopper (empty list =
+    legal): the flash kernels' compiled tile, the paged split's whole
+    pages and its block's shared memory against ``smem_limit``."""
+    errs: List[str] = []
+    kernel = entry.get("kernel")
+    if kernel not in KERNELS:
+        return [f"unknown kernel {kernel!r}; valid: {KERNELS}"]
+    dtype = entry.get("dtype")
+    if dtype not in _WILDCARD and dtype not in DTYPE_BYTES:
+        errs.append(f"unknown dtype {dtype!r}; known: "
+                    f"{sorted(DTYPE_BYTES)} or \"*\"")
+    sb = _int_field(entry, "seq_bucket", errs)
+    if sb is not None and sb & (sb - 1):
+        errs.append(f"seq_bucket {sb} must be a power of two")
+        sb = None
+    _int_field(entry, "head_dim", errs)
+    n_heads = _int_field(entry, "n_heads", errs)
+    n_kv = _int_field(entry, "n_kv_heads", errs)
+    if n_heads is not None and n_kv is not None and n_heads % n_kv:
+        errs.append(f"n_heads {n_heads} is not a multiple of n_kv_heads "
+                    f"{n_kv}")
+
+    if kernel == "paged_attn":
+        st = entry.get("split_tokens")
+        if not isinstance(st, int) or isinstance(st, bool) or st < 1:
+            errs.append(f"split_tokens must be a positive int, got {st!r}")
+            return errs
+        page_size = _int_field(entry, "page_size", errs)
+        if page_size is not None and st % page_size:
+            errs.append(f"split_tokens {st} is not a whole number of "
+                        f"{page_size}-token pages")
+        if errs:
+            return errs
+        group, head_dim, el, pps = paged_legality_point(entry)
+        smem = paged_smem_bytes(group, head_dim, el, pps)
+        if smem > smem_limit:
+            errs.append(f"shared memory {smem} bytes of a split block "
+                        f"(group {group}, head_dim {head_dim}, {el}-byte "
+                        f"dtype, {pps} pages) exceeds the {smem_limit}-byte "
+                        "launch limit")
+        return errs
+
+    # flash kernels: the compiled tile only
+    if sb is None and "seq_bucket must" not in " ".join(errs):
+        errs.append(f"{kernel} entries require a concrete seq_bucket")
+    bq = _int_field(entry, "block_q", errs)
+    bk = _int_field(entry, "block_k", errs)
+    if bq is None or bk is None:
+        if "block_q" not in entry or "block_k" not in entry:
+            errs.append(f"{kernel} entries require block_q and block_k")
+        return errs
+    if (bq, bk) != FLASH_TILE:
+        errs.append(f"block_q x block_k {bq} x {bk} is not the "
+                    f"{FLASH_TILE[0]} x {FLASH_TILE[1]} tile the flash "
+                    "kernels are compiled for (csrc kBQ, kBK)")
+    return errs
+
+
+def _entry_sort_key(entry: Dict[str, Any]) -> Tuple:
+    return (str(entry.get("kernel", "")),
+            entry.get("seq_bucket") or 0,
+            str(entry.get("dtype") or "*"),
+            not bool(entry.get("causal")),
+            str(entry.get("generation") or "*"),
+            entry.get("head_dim") or 0,
+            entry.get("n_heads") or 0)
+
+
+@dataclasses.dataclass
+class TileTable:
+    """A loaded tile table: validated entries plus the rejects."""
+
+    entries: List[Dict[str, Any]]
+    rejected: List[Tuple[Dict[str, Any], List[str]]]
+    path: Optional[str] = None
+    version: int = 1
+
+    def lookup(self, kernel: str, *, seq: int, head_dim: int,
+               n_heads: int, n_kv_heads: int, dtype: Any, causal: bool,
+               generation: str,
+               page_size: Optional[int] = None) -> Optional[Dict[str, Any]]:
+        """Most-specific entry matching the shape class, or None.
+
+        A field matches when the entry pins the same value or carries a
+        wildcard; specificity = count of concretely-matched fields, so
+        a chip-generation-pinned row outranks a ``"*"`` row.
+        """
+        bucket = seq_bucket(seq)
+        want = {"head_dim": head_dim, "n_heads": n_heads,
+                "n_kv_heads": n_kv_heads, "dtype": dtype_name(dtype),
+                "causal": bool(causal), "generation": generation,
+                "page_size": page_size}
+        best, best_score = None, -1
+        for e in self.entries:
+            if e.get("kernel") != kernel:
+                continue
+            esb = e.get("seq_bucket")
+            if esb is not None and esb != bucket:
+                continue
+            score = 1 if esb is not None else 0
+            ok = True
+            for field in _MATCH_FIELDS:
+                ev = e.get(field)
+                if ev in _WILDCARD:
+                    continue
+                if want[field] is None or ev != want[field]:
+                    ok = False
+                    break
+                score += 1
+            if ok and score > best_score:
+                best, best_score = e, score
+        return best
+
+    def to_dict(self) -> Dict[str, Any]:
+        entries = sorted(self.entries, key=_entry_sort_key)
+        return {"version": self.version,
+                "smem_limit_bytes": MAX_SMEM_BYTES,
+                "entries": entries}
+
+
+DEFAULT_TABLE_PATH = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "tile_table.json")
+
+
+def load_table(path: Optional[str] = None, *, strict: bool = False,
+               warn: bool = True) -> TileTable:
+    """Load and validate a tile table.
+
+    Non-strict (the runtime path): an unreadable file or an illegal
+    entry is never a failure — bad rows are dropped with a warning and
+    the fallback serves their shape classes. Strict: any problem raises.
+    """
+    path = path or DEFAULT_TABLE_PATH
+    if not os.path.exists(path):
+        if strict:
+            raise FileNotFoundError(f"tile table missing: {path}")
+        return TileTable([], [], path=path)
+    try:
+        with open(path, encoding="utf-8") as f:
+            raw = json.load(f)
+    except (ValueError, OSError) as e:
+        if strict:
+            raise ValueError(f"tile table {path} is unreadable or not "
+                             f"valid JSON: {e}")
+        if warn:
+            warnings.warn(f"tile table {path} unreadable ({e}); "
+                          "falling back to analytic tile selection",
+                          stacklevel=2)
+        return TileTable([], [({}, [f"table unreadable or not valid "
+                                    f"JSON: {e}"])], path=path)
+    entries: List[Dict[str, Any]] = []
+    rejected: List[Tuple[Dict[str, Any], List[str]]] = []
+    for entry in raw.get("entries", []):
+        errs = validate_entry(entry)
+        if errs:
+            if strict:
+                raise ValueError(
+                    f"tile table {path} entry {entry_key(entry)} is "
+                    f"illegal: {'; '.join(errs)}")
+            if warn:
+                warnings.warn(
+                    f"tile table entry {entry_key(entry)} rejected "
+                    f"({'; '.join(errs)}); the analytic fallback serves "
+                    "this shape class", stacklevel=2)
+            rejected.append((entry, errs))
+        else:
+            entries.append(entry)
+    return TileTable(entries, rejected, path=path,
+                     version=int(raw.get("version", 1)))
+
+
+def save_table(table: TileTable, path: str) -> None:
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(table.to_dict(), f, indent=2, sort_keys=True)
+        f.write("\n")
+
+
+_TABLE_CACHE: Optional[TileTable] = None
+
+
+def active_table() -> TileTable:
+    global _TABLE_CACHE
+    if _TABLE_CACHE is None:
+        _TABLE_CACHE = load_table()
+    return _TABLE_CACHE
+
+
+@contextlib.contextmanager
+def table_override(table) -> Iterator[TileTable]:
+    """Swap the active table for a test or an experiment: accepts a
+    :class:`TileTable` or a path."""
+    global _TABLE_CACHE
+    prev = _TABLE_CACHE
+    _TABLE_CACHE = table if isinstance(table, TileTable) else load_table(
+        table)
+    try:
+        yield _TABLE_CACHE
+    finally:
+        _TABLE_CACHE = prev
+
+
+# ---------------------------------------------------------------------------
+# Resolution: kernel key + shape class -> TileConfig
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TileConfig:
+    """One resolved tile choice plus where it came from (``table``: a
+    committed row, ``fallback``: the analytic choice, ``override``: the
+    caller pinned it)."""
+
+    kernel: str
+    block_q: int = 0
+    block_k: int = 0
+    split_tokens: int = 0
+    source: str = "fallback"
+
+    def as_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {"kernel": self.kernel, "source": self.source}
+        if self.kernel == "paged_attn":
+            d["split_tokens"] = self.split_tokens
+        else:
+            d["block_q"] = self.block_q
+            d["block_k"] = self.block_k
+        return d
+
+
+_RECORDERS: List[List[Dict[str, Any]]] = []
+
+
+@contextlib.contextmanager
+def record_resolutions() -> Iterator[List[Dict[str, Any]]]:
+    """Collect every tile resolution made inside the block."""
+    buf: List[Dict[str, Any]] = []
+    _RECORDERS.append(buf)
+    try:
+        yield buf
+    finally:
+        _RECORDERS.remove(buf)
+
+
+def _record(cfg: TileConfig, shape: Dict[str, Any]) -> TileConfig:
+    if _RECORDERS:
+        d = cfg.as_dict()
+        d["shape"] = shape
+        for buf in _RECORDERS:
+            buf.append(d)
+    return cfg
+
+
+def summarize_resolutions(buf: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """Order-preserving dedup of a recorder buffer."""
+    seen, out = set(), []
+    for d in buf:
+        key = (d["kernel"], d.get("block_q"), d.get("block_k"),
+               d.get("split_tokens"), d["source"])
+        if key in seen:
+            continue
+        seen.add(key)
+        out.append(d)
+    return out
+
+
+def resolve_flash(kernel: str, *, seq: int, head_dim: int, n_heads: int,
+                  n_kv_heads: int, dtype: Any, causal: bool,
+                  block_q: Optional[int] = None,
+                  block_k: Optional[int] = None,
+                  generation: Optional[str] = None) -> TileConfig:
+    """Resolve one flash kernel's ``(block_q, block_k)``.
+
+    Explicit knobs are recorded untouched (``source="override"``; a
+    partial override pins one knob and resolves the other); otherwise the
+    table's most-specific entry; otherwise the fallback, the compiled
+    tile. Whatever is recorded, the kernels run ``FLASH_TILE`` and mask
+    a ragged last tile, so no value is fitted to ``seq`` and none is
+    refused.
+    """
+    if kernel not in KERNELS or kernel == "paged_attn":
+        raise ValueError(f"not a flash kernel key: {kernel!r}")
+    shape = {"seq": seq, "head_dim": head_dim, "n_heads": n_heads,
+             "n_kv_heads": n_kv_heads, "dtype": dtype_name(dtype),
+             "causal": bool(causal)}
+    if block_q is not None and block_k is not None:
+        return _record(TileConfig(kernel, int(block_q), int(block_k),
+                                  source="override"), shape)
+    gen = generation or backend_generation()
+    entry = active_table().lookup(
+        kernel, seq=seq, head_dim=head_dim, n_heads=n_heads,
+        n_kv_heads=n_kv_heads, dtype=dtype, causal=causal, generation=gen)
+    if entry is not None:
+        bq, bk, source = entry["block_q"], entry["block_k"], "table"
+    else:
+        (bq, bk), source = FLASH_TILE, "fallback"
+    if block_q is not None:
+        bq, source = int(block_q), "override"
+    if block_k is not None:
+        bk, source = int(block_k), "override"
+    return _record(TileConfig(kernel, bq, bk, source=source), shape)
+
+
+def resolve_paged(*, max_seq_len: int, page_size: int, n_heads: int,
+                  n_kv_heads: int, head_dim: int, dtype: Any,
+                  split_tokens: Optional[int] = None,
+                  generation: Optional[str] = None) -> TileConfig:
+    """Resolve the paged decode kernel's ``split_tokens``.
+
+    Same precedence as the flash path. A table entry whose split is not
+    a whole number of THIS shape's pages (a row that leaves
+    ``page_size`` open) degrades to the fallback rather than raising.
+    The fallback is ``SPLIT_TOKENS``; the wrapper halves its pages while
+    the block would pass the shared-memory limit.
+    """
+    shape = {"max_seq_len": max_seq_len, "page_size": page_size,
+             "n_heads": n_heads, "n_kv_heads": n_kv_heads,
+             "head_dim": head_dim, "dtype": dtype_name(dtype)}
+    if split_tokens is not None:
+        return _record(TileConfig("paged_attn",
+                                  split_tokens=int(split_tokens),
+                                  source="override"), shape)
+    gen = generation or backend_generation()
+    entry = active_table().lookup(
+        "paged_attn", seq=max_seq_len, head_dim=head_dim,
+        n_heads=n_heads, n_kv_heads=n_kv_heads, dtype=dtype, causal=True,
+        generation=gen, page_size=page_size)
+    st, source = SPLIT_TOKENS, "fallback"
+    if entry is not None:
+        st, source = int(entry["split_tokens"]), "table"
+        if st % page_size:
+            st, source = SPLIT_TOKENS, "fallback"
+    return _record(TileConfig("paged_attn", split_tokens=st, source=source),
+                   shape)

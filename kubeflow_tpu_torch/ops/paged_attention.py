@@ -26,13 +26,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from kubeflow_tpu_torch.ops import autotune
 from kubeflow_tpu_torch.ops.attention import NEG_INF, gqa_repeat
 
 launches = {"paged_decode_attention": 0}
 MAX_HEAD_DIM = 256     # the kernel's widest head (32 lanes x 2 x 16 bytes)
 MAX_HEAD_BLOCK = 8     # q heads a block takes (kMaxGroup in csrc)
-_MAX_SMEM = 48 * 1024  # default dynamic shared memory, no opt-in needed
-_SPLIT_TOKENS = 128    # keys per split block (scripts/port_paged_sweep.py)
+_MAX_SMEM = autotune.MAX_SMEM_BYTES  # dynamic shared memory, no opt-in
 
 
 def _check(q, k_pages, v_pages, pages, positions) -> None:
@@ -100,17 +100,29 @@ def _lib():
     return lib
 
 
-def _pages_per_split(lib, group: int, Dh: int, el: int, ps: int) -> int:
-    """Logical pages per split block: about ``_SPLIT_TOKENS`` keys, fewer
-    where the block's shared memory would pass ``_MAX_SMEM``."""
-    pps = max(1, _SPLIT_TOKENS // ps)
-    while pps > 1 and lib.kftpu_paged_decode_smem_bytes(
-            group, Dh, el, pps) > _MAX_SMEM:
-        pps //= 2
+def _pages_per_split(lib, q, KH: int, ps: int, n_log: int) -> int:
+    """Logical pages per split block, from the tile table's
+    ``split_tokens`` for this shape class (``autotune.resolve_paged``).
+    With no row, the analytic choice: about ``autotune.SPLIT_TOKENS``
+    keys, fewer where the block's shared memory would pass ``_MAX_SMEM``.
+    A row's split is taken as it is: one the block cannot hold raises
+    (``autotune.validate_entry`` keeps such rows out of the table)."""
+    B, QH, Dh = q.shape
+    group, el = QH // KH, q.element_size()
+    cfg = autotune.resolve_paged(
+        max_seq_len=n_log * ps, page_size=ps, n_heads=QH, n_kv_heads=KH,
+        head_dim=Dh, dtype=q.dtype,
+        generation=autotune.backend_generation(q.device))
+    pps = max(1, cfg.split_tokens // ps)
+    if cfg.source == "fallback":
+        while pps > 1 and lib.kftpu_paged_decode_smem_bytes(
+                group, Dh, el, pps) > _MAX_SMEM:
+            pps //= 2
     smem = lib.kftpu_paged_decode_smem_bytes(group, Dh, el, pps)
     if smem > _MAX_SMEM:
-        raise ValueError(f"group {group} x Dh {Dh} x page {ps} needs "
-                         f"{smem} B of shared memory (max {_MAX_SMEM})")
+        raise ValueError(f"group {group} x Dh {Dh} x page {ps} x {pps} "
+                         f"pages ({cfg.source}) needs {smem} B of shared "
+                         f"memory (max {_MAX_SMEM})")
     return pps
 
 
@@ -185,7 +197,7 @@ def paged_decode_attention(q, k_pages, v_pages, pages, positions, *,
             raise ValueError("q/k/v must be 16-byte aligned")
     lib = _lib()
     group = QH // KH
-    pps = _pages_per_split(lib, group, Dh, el, ps)
+    pps = _pages_per_split(lib, q, KH, ps, n_log)
     n_splits = -(-n_log // pps)
     scale = sm_scale if sm_scale is not None else Dh ** -0.5
     out = torch.empty_like(q)

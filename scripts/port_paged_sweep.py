@@ -3,7 +3,10 @@
 against another checkout's kernel.
 
 ``kubeflow_tpu_torch/ops/csrc/paged_attention.cu`` splits each row's
-live pages into blocks of about ``_SPLIT_TOKENS`` keys. Every point is
+live pages into blocks of ``split_tokens`` keys, from the tile table
+(``ops/autotune.py``; a sweep point pins it with a table row for every
+shape). A faster split is a finding for ``PERF.md``, not a table edit
+here. Every point is
 timed with ``chip_smoke.time_ms`` (CUDA events, cold L2, device time
 only) at ``chip_smoke.py``'s two timed shapes of the serving model (B=8,
 QH=KH=16, Dh=64, page 64, 32 logical pages, bf16): phase 2's ragged rows
@@ -25,6 +28,7 @@ Usage (needs CUDA):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import os
@@ -45,6 +49,42 @@ def _smoke():
     return mod
 
 
+@contextlib.contextmanager
+def _split(pa, split):
+    """Run the paged kernel at ``split`` keys a block (None: the tree's
+    own choice). A tree from before the tile table keeps its split in
+    ``_SPLIT_TOKENS``."""
+    if split is None:
+        yield
+        return
+    if hasattr(pa, "_SPLIT_TOKENS"):
+        default = pa._SPLIT_TOKENS
+        pa._SPLIT_TOKENS = split
+        try:
+            yield
+        finally:
+            pa._SPLIT_TOKENS = default
+        return
+    from kubeflow_tpu_torch.ops import autotune
+
+    row = {"kernel": "paged_attn", "generation": "*", "dtype": "*",
+           "split_tokens": split}
+    with autotune.table_override(autotune.TileTable([row], [])):
+        yield
+
+
+def _own_split(pa, q, KH, ps, n_log) -> int:
+    """Keys a block of the tree's own choice takes at this shape."""
+    if hasattr(pa, "_SPLIT_TOKENS"):
+        return pa._SPLIT_TOKENS
+    from kubeflow_tpu_torch.ops import autotune
+
+    return autotune.resolve_paged(
+        max_seq_len=n_log * ps, page_size=ps, n_heads=q.shape[1],
+        n_kv_heads=KH, head_dim=q.shape[2], dtype=q.dtype,
+        generation=autotune.backend_generation(q.device)).split_tokens
+
+
 def _points(splits, tree):
     import torch
 
@@ -56,27 +96,24 @@ def _points(splits, tree):
     one = torch.empty(1, device=dev)
     print(json.dumps({"device": ident, "tree": tree, "shape": "floor",
                       "kernel_ms": smoke.time_ms(one.zero_)}), flush=True)
-    default = pa._SPLIT_TOKENS
-    try:
-        for shape, make in smoke.PAGED_SHAPES.items():
-            q, k, v, pages, pos, P = make(8, 16, 16, 64, 64, 32,
-                                          torch.bfloat16, dev,
-                                          seed=smoke.SEED + 32)
-            want = pa.paged_decode_attention_plain(q, k, v, pages, pos)
-            nbytes, _ = smoke.paged_bytes_ops(q, k, pages, pos, P, 64)
-            for split in splits or (default,):
-                pa._SPLIT_TOKENS = split
+    for shape, make in smoke.PAGED_SHAPES.items():
+        q, k, v, pages, pos, P = make(8, 16, 16, 64, 64, 32,
+                                      torch.bfloat16, dev,
+                                      seed=smoke.SEED + 32)
+        want = pa.paged_decode_attention_plain(q, k, v, pages, pos)
+        nbytes, _ = smoke.paged_bytes_ops(q, k, pages, pos, P, 64)
+        for split in splits or (None,):
+            with _split(pa, split):
                 got = pa.paged_decode_attention(q, k, v, pages, pos)
                 err = (got.float() - want.float()).abs().max().item()
                 ms = smoke.time_ms(
                     lambda: pa.paged_decode_attention(q, k, v, pages, pos))
-                print(json.dumps({
-                    "device": ident, "tree": tree, "shape": shape,
-                    "split_tokens": split, "kernel_ms": ms,
-                    "bound_ms": nbytes / smoke.HBM_BYTES_PER_S * 1e3,
-                    "max_abs_err": err}), flush=True)
-    finally:
-        pa._SPLIT_TOKENS = default
+            print(json.dumps({
+                "device": ident, "tree": tree, "shape": shape,
+                "split_tokens": split or _own_split(pa, q, 16, 64, 32),
+                "kernel_ms": ms,
+                "bound_ms": nbytes / smoke.HBM_BYTES_PER_S * 1e3,
+                "max_abs_err": err}), flush=True)
 
 
 def main() -> int:

@@ -1,0 +1,451 @@
+"""The port's tile table (``kubeflow_tpu_torch/ops/autotune.py``) against
+the reference's ``kubeflow_tpu/ops/autotune.py``.
+
+Mirrors ``tests/test_autotune.py``: seq buckets, ``fit_block``, dtype
+names and entry keys equal the reference's; ``TileTable.lookup`` picks
+the same row for the same entries and queries; overrides, partial
+overrides and the loader's reject-with-warning path behave as there.
+Then Hopper's legality in place of the VMEM estimate: a flash row only
+at the compiled 64 x 64 tile, a paged row's split a whole number of
+pages whose block fits the shared-memory limit, wildcards checked at the
+strictest shape; the committed ``sm_90`` rows reproduce the wrapper's
+analytic choices; and the paged wrapper's split resolves through the
+table. The last tests guard a difference by design: the reference's
+flash path falls back to blockwise attention (or raises with
+``kv_len``) where no tile of 16 or more divides the sequence; the
+port's kernels mask a ragged tile and always take flash.
+"""
+
+import json
+import warnings
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kubeflow_tpu.ops import autotune as jat
+from kubeflow_tpu_torch.ops import autotune as at
+from kubeflow_tpu_torch.ops import paged_attention as pa
+
+LM_SHAPE = dict(head_dim=64, n_heads=16, n_kv_heads=16,
+                dtype=torch.bfloat16, causal=True)
+SERVING = dict(max_seq_len=2048, page_size=64, n_heads=16, n_kv_heads=16,
+               head_dim=64)
+
+
+def _flash_row(**kw):
+    row = {"kernel": "flash_fwd", "seq_bucket": 8192, "head_dim": 64,
+           "n_heads": None, "n_kv_heads": None, "dtype": "bfloat16",
+           "causal": True, "generation": "*", "block_q": 64, "block_k": 64}
+    row.update(kw)
+    return row
+
+
+def _paged_row(**kw):
+    row = {"kernel": "paged_attn", "seq_bucket": None, "head_dim": None,
+           "n_heads": None, "n_kv_heads": None, "page_size": None,
+           "dtype": "*", "causal": None, "generation": "*",
+           "split_tokens": 128}
+    row.update(kw)
+    return row
+
+
+class TestVocabulary:
+    @pytest.mark.parametrize("seq", [1, 127, 128, 129, 512, 513, 6144,
+                                     8192, 8193])
+    def test_seq_bucket_matches_reference(self, seq):
+        assert at.seq_bucket(seq) == jat.seq_bucket(seq)
+
+    @pytest.mark.parametrize("seq,block", [(8192, 1024), (6144, 1024),
+                                           (60, 16), (64, 4096), (17, 64),
+                                           (1031, 1024)])
+    def test_fit_block_matches_reference(self, seq, block):
+        assert at.fit_block(seq, block) == jat.fit_block(seq, block)
+
+    def test_dtype_name(self):
+        assert at.dtype_name(torch.bfloat16) == "bfloat16"
+        assert at.dtype_name(torch.float32) == jat.dtype_name(jnp.float32)
+        assert at.dtype_name(np.dtype("float32")) == "float32"
+        assert at.dtype_name("int8") == "int8"
+
+    @pytest.mark.parametrize("entry", [
+        _flash_row(), _flash_row(causal=False, generation="sm_90"),
+        _paged_row(), _paged_row(head_dim=64, n_heads=16, n_kv_heads=4,
+                                 page_size=64, dtype="float32")],
+        ids=["flash", "flash-sm90", "paged-wild", "paged-pinned"])
+    def test_entry_key_matches_reference(self, entry):
+        assert at.entry_key(entry) == jat.entry_key(entry)
+
+    def test_generation_on_the_cpu(self):
+        assert at.backend_generation(torch.device("cpu")) == "cpu"
+        if not torch.cuda.is_available():
+            assert at.backend_generation() == "cpu"
+
+
+class TestLookupPrecedence:
+    """The same entries and queries through both tables pick the same
+    row (tables built directly: lookup does not validate)."""
+
+    ENTRIES = [
+        _flash_row(),
+        _flash_row(generation="sm_90"),
+        _flash_row(head_dim=None),
+        _flash_row(seq_bucket=512, causal=False, n_heads=12),
+        _flash_row(seq_bucket=512, causal=False),
+        _paged_row(),
+        _paged_row(page_size=64, dtype="bfloat16"),
+        _paged_row(page_size=64, dtype="bfloat16", n_heads=16,
+                   n_kv_heads=16, head_dim=64, generation="sm_90"),
+    ]
+    QUERIES = [
+        ("flash_fwd", dict(seq=8192, head_dim=64, n_heads=16,
+                           n_kv_heads=16, dtype="bfloat16", causal=True,
+                           generation="sm_90")),
+        ("flash_fwd", dict(seq=8000, head_dim=64, n_heads=16,
+                           n_kv_heads=16, dtype="bfloat16", causal=True,
+                           generation="cpu")),
+        ("flash_fwd", dict(seq=8192, head_dim=128, n_heads=8, n_kv_heads=8,
+                           dtype="bfloat16", causal=True, generation="cpu")),
+        ("flash_fwd", dict(seq=512, head_dim=64, n_heads=12, n_kv_heads=12,
+                           dtype="bfloat16", causal=False,
+                           generation="cpu")),
+        ("flash_fwd", dict(seq=512, head_dim=64, n_heads=16, n_kv_heads=16,
+                           dtype="bfloat16", causal=False,
+                           generation="cpu")),
+        ("flash_fwd", dict(seq=4096, head_dim=64, n_heads=16,
+                           n_kv_heads=16, dtype="float32", causal=True,
+                           generation="cpu")),
+        ("paged_attn", dict(seq=2048, head_dim=64, n_heads=16,
+                            n_kv_heads=16, dtype="bfloat16", causal=True,
+                            generation="sm_90", page_size=64)),
+        ("paged_attn", dict(seq=2048, head_dim=64, n_heads=16,
+                            n_kv_heads=16, dtype="bfloat16", causal=True,
+                            generation="cpu", page_size=64)),
+        ("paged_attn", dict(seq=2048, head_dim=96, n_heads=8, n_kv_heads=2,
+                            dtype="float32", causal=True, generation="cpu",
+                            page_size=16)),
+    ]
+
+    @pytest.mark.parametrize("kernel,query", QUERIES,
+                             ids=[f"{k}-{i}" for i, (k, _) in
+                                  enumerate(QUERIES)])
+    def test_same_row_as_reference(self, kernel, query):
+        mine = at.TileTable(self.ENTRIES, []).lookup(kernel, **query)
+        ref = jat.TileTable(self.ENTRIES, []).lookup(kernel, **query)
+        assert mine is ref
+
+    def test_generation_pinned_row_outranks_wildcard(self):
+        entries = [_flash_row(), _flash_row(generation="sm_90",
+                                            provenance="card")]
+        got = at.TileTable(entries, []).lookup(
+            "flash_fwd", seq=8192, head_dim=64, n_heads=16, n_kv_heads=16,
+            dtype=torch.bfloat16, causal=True, generation="sm_90")
+        assert got["provenance"] == "card"
+
+
+class TestResolution:
+    @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq",
+                                        "flash_bwd_dkv"])
+    @pytest.mark.parametrize("seq,n_heads,causal", [(8192, 16, True),
+                                                    (512, 12, True),
+                                                    (512, 12, False)])
+    def test_phase_shapes_resolve_from_the_table_on_sm90(self, kernel, seq,
+                                                         n_heads, causal):
+        cfg = at.resolve_flash(kernel, seq=seq, head_dim=64,
+                               n_heads=n_heads, n_kv_heads=n_heads,
+                               dtype=torch.bfloat16, causal=causal,
+                               generation="sm_90")
+        assert (cfg.source, cfg.block_q, cfg.block_k) == ("table", 64, 64)
+
+    def test_uncovered_shape_falls_back_to_the_compiled_tile(self):
+        cfg = at.resolve_flash("flash_fwd", seq=4096, head_dim=128,
+                               n_heads=8, n_kv_heads=8, dtype=torch.float32,
+                               causal=True, generation="sm_90")
+        assert (cfg.source, cfg.block_q, cfg.block_k) == ("fallback", 64, 64)
+
+    def test_reference_knobs_are_an_override_never_a_refusal(self):
+        """A reference export's TPU tiles (1024 edges) resolve as an
+        override: recorded, not fitted, not refused."""
+        cfg = at.resolve_flash("flash_fwd", seq=8192, block_q=1024,
+                               block_k=1024, generation="sm_90", **LM_SHAPE)
+        ref = jat.resolve_flash("flash_fwd", seq=8192, block_q=1024,
+                                block_k=1024, head_dim=64, n_heads=16,
+                                n_kv_heads=16, dtype=jnp.bfloat16,
+                                causal=True)
+        assert (cfg.source, cfg.block_q, cfg.block_k) == (
+            ref.source, ref.block_q, ref.block_k)
+
+    def test_partial_override_resolves_other_knob(self):
+        cfg = at.resolve_flash("flash_fwd", seq=8192, block_q=256,
+                               generation="sm_90", **LM_SHAPE)
+        assert cfg.source == "override"
+        assert (cfg.block_q, cfg.block_k) == (256, 64)
+
+    def test_paged_serving_shape_resolves_from_the_table(self):
+        for dtype in (torch.bfloat16, torch.float32):
+            cfg = at.resolve_paged(dtype=dtype, generation="sm_90",
+                                   **SERVING)
+            assert (cfg.split_tokens, cfg.source) == (at.SPLIT_TOKENS,
+                                                      "table")
+
+    def test_paged_fallback_is_the_analytic_split(self):
+        with at.table_override(at.TileTable([], [])):
+            cfg = at.resolve_paged(dtype=torch.bfloat16, generation="sm_90",
+                                   **SERVING)
+        assert (cfg.split_tokens, cfg.source) == (at.SPLIT_TOKENS,
+                                                  "fallback")
+
+    def test_paged_override_wins(self):
+        cfg = at.resolve_paged(dtype=torch.bfloat16, split_tokens=256,
+                               generation="sm_90", **SERVING)
+        assert (cfg.split_tokens, cfg.source) == (256, "override")
+
+    def test_paged_row_not_whole_pages_of_this_shape_degrades(self):
+        """A row legal where it leaves page_size open, but not a whole
+        number of THIS shape's pages, degrades to the fallback."""
+        table = at.TileTable([_paged_row(split_tokens=96)], [])
+        with at.table_override(table):
+            cfg = at.resolve_paged(dtype=torch.bfloat16, generation="sm_90",
+                                   **SERVING)
+        assert (cfg.split_tokens, cfg.source) == (at.SPLIT_TOKENS,
+                                                  "fallback")
+
+
+class TestHopperLegality:
+    @pytest.mark.parametrize("bq,bk", [(128, 64), (64, 128), (1024, 1024),
+                                       (32, 32)])
+    def test_flash_row_only_at_the_compiled_tile(self, bq, bk):
+        errs = at.validate_entry(_flash_row(block_q=bq, block_k=bk))
+        assert any("64 x 64" in e for e in errs)
+        assert at.validate_entry(_flash_row()) == []
+
+    def test_flash_row_needs_a_seq_bucket(self):
+        errs = at.validate_entry(_flash_row(seq_bucket=None))
+        assert any("concrete seq_bucket" in e for e in errs)
+        errs = at.validate_entry(_flash_row(seq_bucket=1000))
+        assert any("power of two" in e for e in errs)
+
+    @pytest.mark.parametrize("group,Dh,el,pps", [
+        (1, 64, 2, 2), (1, 64, 4, 2), (16, 64, 2, 1), (4, 96, 2, 4),
+        (8, 256, 4, 1), (1, 256, 2, 16), (2, 128, 4, 8)])
+    def test_smem_formula_matches_the_c_source(self, group, Dh, el, pps):
+        """The Python copy against hand-evaluated csrc ``smem_bytes``:
+        the ring (4 x stage rows x Dh x el) or the cross-warp partials
+        (4 warps x min(group, 8) heads x (Dh + 2) x 4), then pps ids."""
+        chunks = Dh * el // 16
+        slices = 2 if chunks > 32 else 1
+        lanes = 1
+        while lanes < -(-chunks // slices):
+            lanes *= 2
+        rows = 4 // slices * (128 // lanes)
+        want = max(4 * rows * Dh * el, 4 * min(group, 8) * (Dh + 2) * 4)
+        assert at.paged_smem_bytes(group, Dh, el, pps) == want + 4 * pps
+
+    def test_paged_split_must_be_whole_pages(self):
+        errs = at.validate_entry(_paged_row(page_size=64, split_tokens=96))
+        assert any("whole number" in e for e in errs)
+
+    def test_paged_split_past_shared_memory_rejected(self):
+        """A block of 8 q heads at Dh 256, f32, needs 33 KB of partials
+        before its page ids: 5,000 pages of ids pass 48 KB."""
+        row = _paged_row(head_dim=256, n_heads=8, n_kv_heads=1,
+                         page_size=1, dtype="float32", split_tokens=5000)
+        errs = at.validate_entry(row)
+        assert any("shared memory" in e for e in errs)
+        row["split_tokens"] = 256
+        assert at.validate_entry(row) == []
+
+    def test_wildcards_checked_at_the_strictest_shape(self):
+        assert at.paged_legality_point(_paged_row()) == (8, 256, 4, 128)
+        pinned = _paged_row(head_dim=64, n_heads=16, n_kv_heads=16,
+                            page_size=64, dtype="bfloat16")
+        assert at.paged_legality_point(pinned) == (1, 64, 2, 2)
+
+    def test_split_tokens_required(self):
+        row = _paged_row()
+        del row["split_tokens"]
+        assert any("split_tokens" in e for e in at.validate_entry(row))
+
+
+class TestTableIO:
+    def test_committed_table_is_legal_and_canonical(self, tmp_path):
+        table = at.load_table(strict=True)
+        assert table.entries and not table.rejected
+        out = tmp_path / "t.json"
+        at.save_table(table, str(out))
+        assert at.load_table(str(out), strict=True).to_dict() == \
+            table.to_dict()
+        committed = json.load(open(at.DEFAULT_TABLE_PATH))
+        assert committed == table.to_dict()
+        for e in table.entries:
+            assert e["generation"] == "sm_90" and "H100" in e["provenance"]
+
+    def test_committed_paged_rows_reproduce_the_analytic_choice(self):
+        """Each committed paged row's split is what the fallback gives
+        at its shape: pps = SPLIT_TOKENS / page, halved past the limit."""
+        for e in at.load_table().entries:
+            if e["kernel"] != "paged_attn":
+                continue
+            group, Dh, el, _ = at.paged_legality_point(e)
+            pps = at.SPLIT_TOKENS // e["page_size"]
+            while pps > 1 and at.paged_smem_bytes(group, Dh, el, pps) > \
+                    at.MAX_SMEM_BYTES:
+                pps //= 2
+            assert e["split_tokens"] // e["page_size"] == pps
+
+    def test_illegal_entry_rejected_with_warning_then_fallback(self,
+                                                               tmp_path):
+        bad = {"version": 1, "entries": [_flash_row(generation="sm_90",
+                                                    block_q=128,
+                                                    block_k=128)]}
+        path = tmp_path / "bad.json"
+        path.write_text(json.dumps(bad))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            table = at.load_table(str(path))
+        assert not table.entries and len(table.rejected) == 1
+        assert any("rejected" in str(w.message) for w in caught)
+        with at.table_override(table):
+            cfg = at.resolve_flash("flash_fwd", seq=8192,
+                                   generation="sm_90", **LM_SHAPE)
+        assert (cfg.source, cfg.block_q) == ("fallback", 64)
+
+    def test_strict_load_raises_on_illegal(self, tmp_path):
+        path = tmp_path / "bad.json"
+        path.write_text(json.dumps({"entries": [_paged_row(
+            page_size=64, split_tokens=100)]}))
+        with pytest.raises(ValueError, match="whole number"):
+            at.load_table(str(path), strict=True)
+
+    def test_unreadable_table_never_fails_runtime(self, tmp_path):
+        garbage = tmp_path / "garbage.json"
+        garbage.write_text("{not json")
+        directory = tmp_path / "dir.json"
+        directory.mkdir()
+        for path in (garbage, directory):
+            with warnings.catch_warnings(record=True):
+                warnings.simplefilter("always")
+                table = at.load_table(str(path))
+            assert table.entries == [] and table.rejected
+        assert at.load_table(str(tmp_path / "missing.json")).entries == []
+        with pytest.raises(FileNotFoundError):
+            at.load_table(str(tmp_path / "missing.json"), strict=True)
+
+
+class TestRecorder:
+    def test_resolutions_recorded_with_source(self):
+        with at.record_resolutions() as rec:
+            at.resolve_flash("flash_fwd", seq=8192, generation="sm_90",
+                             **LM_SHAPE)
+            at.resolve_flash("flash_fwd", seq=8192, block_q=128,
+                             block_k=128, generation="sm_90", **LM_SHAPE)
+            at.resolve_paged(dtype=torch.bfloat16, generation="sm_90",
+                             **SERVING)
+        summary = at.summarize_resolutions(rec)
+        sources = {(d["kernel"], d["source"]) for d in summary}
+        assert sources == {("flash_fwd", "table"), ("flash_fwd", "override"),
+                           ("paged_attn", "table")}
+
+    def test_summarize_dedupes(self):
+        with at.record_resolutions() as rec:
+            for _ in range(3):
+                at.resolve_flash("flash_fwd", seq=8192, generation="sm_90",
+                                 **LM_SHAPE)
+        assert len(rec) == 3
+        assert len(at.summarize_resolutions(rec)) == 1
+
+    def test_flash_attention_records_each_pass(self):
+        """The port's ``flash_attention`` resolves its three kernel keys
+        (forward, then dQ and dK/dV in the backward), the reference's
+        knobs recorded as an override."""
+        from kubeflow_tpu_torch.ops.attention import flash_attention
+
+        q, k, v = (torch.randn(1, 32, 2, 16, requires_grad=True)
+                   for _ in range(3))
+        with at.record_resolutions() as rec:
+            flash_attention(q, k, v, True, 512, 1024).sum().backward()
+        assert [(d["kernel"], d["source"], d["block_q"], d["block_k"])
+                for d in rec] == [
+            ("flash_fwd", "override", 512, 1024),
+            ("flash_bwd_dq", "override", 512, 1024),
+            ("flash_bwd_dkv", "override", 512, 1024)]
+        assert rec[0]["shape"]["seq"] == 32
+
+
+class _SmemLib:
+    """The wrapper's view of the library: its shared-memory formula."""
+
+    @staticmethod
+    def kftpu_paged_decode_smem_bytes(group, Dh, el, pps):
+        return at.paged_smem_bytes(group, Dh, el, pps)
+
+
+class TestPagedWrapperSplit:
+    def _q(self, QH=16, Dh=64, dtype=torch.bfloat16):
+        return torch.zeros(8, QH, Dh, dtype=dtype)
+
+    def test_table_row_sets_the_pages_per_split(self):
+        table = at.TileTable([_paged_row(split_tokens=256)], [])
+        with at.table_override(table), at.record_resolutions() as rec:
+            pps = pa._pages_per_split(_SmemLib, self._q(), 16, 64, 32)
+        assert pps == 4
+        assert [(d["split_tokens"], d["source"]) for d in rec] == [
+            (256, "table")]
+        assert rec[0]["shape"]["max_seq_len"] == 2048
+
+    def test_fallback_is_the_analytic_choice(self):
+        with at.table_override(at.TileTable([], [])):
+            assert pa._pages_per_split(_SmemLib, self._q(), 16, 64, 32) == 2
+            # page 16: 8 pages of ids, still within the limit
+            assert pa._pages_per_split(_SmemLib, self._q(), 16, 16, 128) == 8
+
+    def test_a_row_the_block_cannot_hold_raises(self):
+        """A row is taken as it is, never replaced: one past the limit
+        (kept out of a loaded table by validate_entry) raises."""
+        table = at.TileTable([_paged_row(split_tokens=5000)], [])
+        with at.table_override(table), pytest.raises(ValueError,
+                                                     match="shared memory"):
+            pa._pages_per_split(_SmemLib, self._q(8, 256, torch.float32),
+                                1, 1, 5000)
+
+
+class TestFitBlockFallbackByDesign:
+    """The reference's flash path takes blockwise attention where
+    ``fit_block(S, 1024) < 16`` and raises there with ``kv_len``; the
+    port's kernels mask a ragged tile and take flash at every S (ROADMAP
+    "Differences by design"). The answers agree all the same."""
+
+    def _below_the_reference_tiles(self, S):
+        assert jat.fit_block(S, jat.MAX_TILE_EDGE) < 16
+
+    def test_short_sequence_runs_flash_and_matches_blockwise(self):
+        from kubeflow_tpu.ops import attention as jatt
+        from kubeflow_tpu_torch.ops.attention import flash_attention
+
+        self._below_the_reference_tiles(8)
+        rng = np.random.default_rng(0)
+        q, k, v = (rng.standard_normal((2, 8, 2, 16)).astype(np.float32)
+                   for _ in range(3))
+        want = jatt.blockwise_attention(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), causal=True,
+                                        block_k=1024)
+        with at.record_resolutions() as rec:
+            got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+        assert rec[0]["kernel"] == "flash_fwd"
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-5)
+
+    def test_kv_len_at_a_short_sequence_runs_where_the_reference_raises(
+            self):
+        from kubeflow_tpu_torch.ops.attention import (
+            flash_attention,
+            reference_attention,
+        )
+
+        self._below_the_reference_tiles(8)
+        q, k, v = (torch.randn(2, 8, 2, 16) for _ in range(3))
+        kv_len = torch.tensor([8, 5], dtype=torch.int32)
+        got = flash_attention(q, k, v, False, kv_len=kv_len)
+        want = reference_attention(q, k, v, causal=False, kv_len=kv_len)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from kubeflow_tpu_torch.ops import attention as att
+from kubeflow_tpu_torch.ops import autotune
 from kubeflow_tpu_torch.ops import bnconv as bc
 from kubeflow_tpu_torch.ops import flash_attention as fa
 from kubeflow_tpu_torch.ops import paged_attention as pa
@@ -112,12 +113,11 @@ def test_paged_kernel_repeats_bit_for_bit_and_resets_its_counters(cuda,
     counters, _ = pa.device_scratch(q.device, 0, 0)
     assert int(counters.abs().sum()) == 0
     assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
-    default = pa._SPLIT_TOKENS
-    try:
-        pa._SPLIT_TOKENS = 64
+    # another split size: a tile-table row of 64 keys for every shape
+    split = {"kernel": "paged_attn", "generation": "*", "dtype": "*",
+             "split_tokens": 64}
+    with autotune.table_override(autotune.TileTable([split], [])):
         other = pa.paged_decode_attention(q, k, v, pages, positions)
-    finally:
-        pa._SPLIT_TOKENS = default
     again = pa.paged_decode_attention(q, k, v, pages, positions)
     torch.cuda.synchronize()
     assert int(counters.abs().sum()) == 0

@@ -154,6 +154,29 @@ def test_bert_entry_points_need_cuda_unless_cpu_is_explicit(
     assert loss == loss and (tmp_path / "ckpt" / "1").is_dir()
 
 
+def test_last_modules_are_scanned_and_load_onto_cuda(tmp_path):
+    """The modules of the last bring-up slice are in the scan above, and
+    the multiplexer's default loader refuses without CUDA unless the CPU
+    is asked for."""
+    scanned = {str(p.relative_to(PKG)) for p in _sources()
+               if PKG in p.parents}
+    assert {"ops/autotune.py", "ops/act_compress.py", "obs/xprof.py",
+            "obs/export.py", "serving/multiplex.py", "k8s/client.py",
+            "tuning/study.py", "examples/common.py"} <= scanned
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is usable")
+    from kubeflow_tpu_torch.models import convert
+    from kubeflow_tpu_torch.serving import model_store as store
+    from kubeflow_tpu_torch.serving.multiplex import ModelMultiplexer
+
+    store.export_model(str(tmp_path / "mnist"), "mnist",
+                       convert.random_mnist_params(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ModelMultiplexer(str(tmp_path), max_resident=1).get("mnist")
+    mux = ModelMultiplexer(str(tmp_path), max_resident=1, device="cpu")
+    assert mux.get("mnist").device.type == "cpu"
+
+
 def test_chip_smoke_refuses_without_cuda(tmp_path):
     """No CPU fallback: without a card the smoke exits non-zero and
     prints no result line; alone in a directory it cannot run at all."""

@@ -240,8 +240,17 @@ def test_batchnorm_is_flaxs(dtype):
 
 
 def test_act_compress_is_not_ported_and_never_combines():
-    with pytest.raises(NotImplementedError, match="act_compress"):
-        ResNet(ResNetConfig(**SMALL, act_compress=True))
+    """``act_compress`` is ported (``ops/act_compress.py``): every
+    bottleneck conv becomes an ``Int8Conv`` with the plain conv's
+    parameters; it still never combines with ``fused_bn_conv``."""
+    from kubeflow_tpu_torch.ops.act_compress import Int8Conv
+
+    model = ResNet(ResNetConfig(**SMALL, act_compress=True))
+    plain = ResNet(ResNetConfig(**SMALL))
+    convs = [m for m in model.modules() if isinstance(m, Conv)]
+    assert sum(isinstance(m, Int8Conv) for m in convs) == 8  # 2 x (3 + proj)
+    assert [n for n, _ in model.named_parameters()] == \
+        [n for n, _ in plain.named_parameters()]
     with pytest.raises(ValueError, match="cannot combine"):
         ResNet(ResNetConfig(**SMALL, act_compress=True, fused_bn_conv=True))
 
