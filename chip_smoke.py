@@ -24,9 +24,11 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
    S=512, H=12 bf16 causal; lse within 1e-5; f32 within 1e-5
    on out and 1e-4 on gradients; bf16 within a norm-relative error of
    4e-4, which a bf16 fault in each output must exceed), timed at the
-   training case beside ``scaled_dot_product_attention`` (timed only),
-   with each flash kernel's ptxas registers and spills (the bf16
-   tensor-core kernels at D=64 must not spill); and BERT's shape (B=16,
+   training case beside ``scaled_dot_product_attention`` (timed only,
+   each backend pinned in turn, the fastest kept), with each flash
+   kernel's ptxas registers and spills (the D=64 kernels,
+   ``flash_fwd_mma_kernel`` and the backward's two wgmma kernels, must
+   each have a line and must not spill); and BERT's shape (B=16,
    S=512, H=12, D=64, bf16, non-causal, with and without ``kv_len``),
    timed unmasked beside ``scaled_dot_product_attention(is_causal=False)``
    (the ``bert_shape`` entry of rows 3-5 of the record);
@@ -210,7 +212,7 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
     slices to 1 through ``ElasticCoordinator`` (2 steps, the resize, 1
     step) and holds it to 3 unbroken ``make_lm_train_step`` steps (loss,
     grad norm, parameters within 1e-5, movement within 2e-3); both ranks
-    re-gang and run the bf16 shrink at ``examples/lm.py``'s widths (12
+    re-gang and run the bf16 shrink at ``examples/lm.py``'s widths (6
     layers, flash, global batch 16): 3 steps at 2 slices, rank 1
     snapshots and leaves, rank 0 re-enters at world 1 over NCCL,
     restores the snapshot bit for bit and takes steps 4-6 (``state.step
@@ -239,7 +241,7 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
     batches, timed, and their f32 twins against the unsplit steps; (c)
     ring and Ulysses with 8 experts at tp = 2, f32, against the unsplit
     step (loss, grad norm, parameters within 1e-5, movement 2e-3). The
-    MoE LM's depth is cut to 6 layers (:data:`COMPOSE_MOE`);
+    MoE LM's depth is cut to 4 layers (:data:`COMPOSE_MOE`);
 26. the last modules (:func:`last_modules_phase`), each part fatal: (a)
     the compile ledger: ``make_compile_ledger()`` under a job identity
     while phase 1's quickest source builds into a fresh directory (one
@@ -303,6 +305,7 @@ rows also carry ``predict_shapes``: their times at the inference shapes.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import queue
@@ -889,6 +892,60 @@ def flash_bytes_ops(B, S, H, D, el, causal):
             "flash_bwd_dkv": (4 * n + 2 * stats + 2 * n, 8 * pairs * D)}
 
 
+# the CUDA kernel each flash wrapper launches for bf16 at D = 64 (the LM,
+# BERT, ViT and MoE LM paths)
+FLASH_D64_KERNELS = {"flash_fwd": "flash_fwd_mma_kernel",
+                     "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel",
+                     "flash_bwd_dkv": "flash_bwd_dkv_wgmma_kernel"}
+
+
+def sdpa_yardstick(q, k, v, g, *, causal):
+    """PyTorch's fused attention on the kernels' inputs, timed as a
+    yardstick only: ``{"flash_fwd": (ms, backend), "backward": (ms,
+    backend)}``, the fastest forward and backward among the backends
+    that take the inputs, each pinned in turn (``sdpa_kernel``: flash,
+    memory-efficient, cuDNN) and printed. q, k and v are read as
+    (B, H, S, D) views; the cotangent is made contiguous in that layout,
+    as a model's own would be. The backward is one call for dq, dk and
+    dv, and rounds P and dS to bf16, which ``flash_faults`` refuses for
+    the port's kernels."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    g_lib = g.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel([backend]):
+                o_lib = sdpa(qt, kt, vt, is_causal=causal)
+                fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal))
+                bwd = time_ms(lambda: torch.autograd.grad(
+                    o_lib, (qt, kt, vt), g_lib, retain_graph=True))
+        except RuntimeError as e:
+            print(f"  sdpa {backend.name}: not taken ({str(e)[:80]})",
+                  flush=True)
+            continue
+        finally:
+            o_lib = None
+        times[backend.name] = (fwd, bwd)
+        print(f"  sdpa {backend.name}: forward {fwd:.4f} ms, backward "
+              f"{bwd:.4f} ms", flush=True)
+    del qt, kt, vt, g_lib
+    torch.cuda.empty_cache()
+    check(bool(times), "no pinned scaled_dot_product_attention backend "
+                       "took the inputs")
+    best = {}
+    for i, key in enumerate(("flash_fwd", "backward")):
+        name = min(times, key=lambda n: times[n][i])
+        best[key] = (times[name][i], name)
+    return best
+
+
 def ptxas_kernels(log: str,
                   pattern: str = r"(flash_[a-z_]+_kernel)I(\w*?Li\d+E)E"
                   ) -> dict:
@@ -943,9 +1000,10 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
             check(st == 0 and ld == 0,
                   f"{name} at D=64 spills ({st} B stored, {ld} B loaded)")
     if build_log:
-        missing = {"flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
-                   "flash_bwd_dkv_mma_kernel"} - {
-                       name for name, variant in regs if variant == "Li64E"}
+        # the kernels the D = 64 paths run: a kernel never compiled must
+        # not pass by its absence
+        missing = set(FLASH_D64_KERNELS.values()) - {
+            name for name, variant in regs if variant == "Li64E"}
         check(not missing, f"no ptxas lines at D=64 for {sorted(missing)} "
                            "in the build log")
     else:
@@ -1028,18 +1086,9 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
           "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv(
               q, k, v, g, lse, delta))}
     # PyTorch's fused attention on the same inputs, as a yardstick only
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
-                  for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
-    o_lib = sdpa(qt, kt, vt, is_causal=True)
-    g_lib = g.transpose(1, 2)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(
-        o_lib, (qt, kt, vt), g_lib, retain_graph=True))
-    library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
-               "flash_bwd_dkv": lib_bwd}
-    del qt, kt, vt, o_lib
-    torch.cuda.empty_cache()
+    lib = sdpa_yardstick(q, k, v, g, causal=True)
+    lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = lib["backward"]
+    library = {name: lib[name][0] for name in ms}
 
     def plain_fn(fn):
         return lambda: over_heads(fn, q, k, v, g, lse, delta, step)
@@ -1070,15 +1119,17 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
               f"{flops / F32_FLOPS * 1e3:.4f}) "
               f"plain_ms={plain[name]:.4f} ({step} heads per call) "
               f"library_ms={library[name]:.4f} (scaled_dot_product_"
-              f"attention {lib_call[name]})", flush=True)
+              f"attention {lib_call[name]}, {lib[name][1]} backend, dO "
+              f"contiguous) [{FLASH_D64_KERNELS[name]}]", flush=True)
         records.append({
-            "name": name, "route": "cuda",
+            "name": name, "kernel": FLASH_D64_KERNELS[name],
+            "route": "cuda",
             "source": "kubeflow_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": f"kubeflow_tpu/ops/attention.py:{line}",
             "max_abs_err": worst[name], "ms": ms[name],
             "plain_ms": plain[name], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library[name]})
+            "library_ms": library[name], "library_backend": lib[name][1]})
     return records
 
 
@@ -2217,16 +2268,9 @@ def check_flash_bert_shape(device) -> dict:
             q, k, v, g, lse, delta, **kw), iters=5, warmup=1),
         "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv_plain(
             q, k, v, g, lse, delta, **kw), iters=5, warmup=1)}
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
-                  for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=False))
-    o_lib = sdpa(qt, kt, vt, is_causal=False)
-    g_lib = g.transpose(1, 2)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(
-        o_lib, (qt, kt, vt), g_lib, retain_graph=True))
-    library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
-               "flash_bwd_dkv": lib_bwd}
+    lib = sdpa_yardstick(q, k, v, g, causal=False)
+    lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = lib["backward"]
+    library = {name: lib[name][0] for name in ms}
     work = flash_bytes_ops(B, S, H, D, 2, False)
     out = {}
     for name in ms:
@@ -2237,16 +2281,18 @@ def check_flash_bert_shape(device) -> dict:
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops
                      else "operations",
-                     "plain_ms": plain[name], "library_ms": library[name]}
+                     "plain_ms": plain[name], "library_ms": library[name],
+                     "library_backend": lib[name][1]}
         print(f"{name} bf16 non-causal B={B} H={H} S={S} D={D} (BERT): "
               f"kernel_ms={ms[name]:.4f} "
               f"({flops / ms[name] / 1e9:.1f} TFLOP/s) "
               f"bound_ms={max(t_bytes, t_ops):.4f} "
               f"plain_ms={plain[name]:.4f} library_ms={library[name]:.4f} "
               f"(scaled_dot_product_attention, is_causal=False, "
-              f"{'forward' if name == 'flash_fwd' else 'backward'})",
-              flush=True)
-    del q, k, v, g, qt, kt, vt, o_lib, case
+              f"{'forward' if name == 'flash_fwd' else 'backward'}, "
+              f"{lib[name][1]} backend, dO contiguous) "
+              f"[{FLASH_D64_KERNELS[name]}]", flush=True)
+    del q, k, v, g, case
     torch.cuda.empty_cache()
     return out
 
@@ -5089,10 +5135,11 @@ def print_mesh_serving(ms: dict, cfg, kind: str, ident: str,
           f"encoder_tp={ms['encoder_tp']}", flush=True)
 
 
-# phase 24: the elastic plane at examples/lm.py's widths (bf16, flash);
-# its f32 check at MESH_PARITY's; batch prediction over phase 17's
-# ResNet-50 export; the multislice check; Podracer
-ELASTIC_LM = dict(vocab_size=32000, d_model=768, n_layers=12, n_heads=12,
+# phase 24: the elastic plane at examples/lm.py's widths (bf16, flash;
+# its depth cut from 12 layers to 6 to hold the script's time); its f32
+# check at MESH_PARITY's; batch prediction over phase 17's ResNet-50
+# export; the multislice check; Podracer
+ELASTIC_LM = dict(vocab_size=32000, d_model=768, n_layers=6, n_heads=12,
                   n_kv_heads=12, d_ff=3072, max_seq_len=512,
                   attention_impl="flash")
 ELASTIC_ROWS = 8               # examples/lm.py's per-device batch
@@ -5628,8 +5675,9 @@ def phase24(device, base: str, kernels: list, kind: str, ident: str) -> None:
     for sp in b0["spans"]:
         span.setdefault(sp["name"], []).append(sp["s"])
     print(f"phase 24 elastic shrink ({kind} | {ident}): examples/lm.py's "
-          f"widths (d_model 768, 12 layers, 12 heads, d_ff 3072, vocab "
-          f"32000, seq 512), bf16/f32, flash, remat; 2 ranks on one card "
+          f"widths (d_model 768, {ELASTIC_LM['n_layers']} layers, 12 "
+          f"heads, d_ff 3072, vocab 32000, seq 512), bf16/f32, flash, "
+          f"remat; 2 ranks on one card "
           f"over gloo (2 slices x dp 1, global batch "
           f"{ELASTIC_ROWS * 2}) for steps 1-3, then rank 1 leaves and "
           f"rank 0 re-enters at world 1 over {b0['backend']} for steps "
@@ -5686,9 +5734,9 @@ def phase24(device, base: str, kernels: list, kind: str, ident: str) -> None:
 
 # the model ``examples/lm.py --n-experts 8`` trains (its defaults: kv
 # heads = heads, max_seq_len = seq_len, dense top-2 dispatch), served;
-# its depth cut from 12 layers to 6, which holds the script's time with
-# phase 26 added (PERF.md §4)
-COMPOSE_MOE = dict(vocab_size=32000, d_model=768, n_layers=6, n_heads=12,
+# its depth cut from 12 layers to 6 with phase 26 added, then to 4 to
+# hold the script's time (PERF.md §4)
+COMPOSE_MOE = dict(vocab_size=32000, d_model=768, n_layers=4, n_heads=12,
                    n_kv_heads=12, d_ff=3072, max_seq_len=512, n_experts=8,
                    experts_per_token=2)
 # (b): examples/bert.py's and examples/resnet.py's per-device batches,
@@ -6478,6 +6526,11 @@ def multiplex_part(device, base: str) -> dict:
                 rng.integers(0, 30522, (1, 128)).astype(np.int32))
             want[name] = direct.predict(inputs[name])
             del direct
+        # the direct models (and earlier phases' cycles) are collected
+        # before the first sample: the collector's timing would otherwise
+        # decide whether they sit in it; what the multiplexer still
+        # references stays counted
+        gc.collect()
         torch.cuda.synchronize()
         mux = ModelMultiplexer(root, max_resident=1, device=device)
         store_loader = mux.loader

@@ -207,7 +207,7 @@ class TransformerConfig:
     The flash path hands ``attention_block_q``/``attention_block_k`` to
     ``flash_attention``, which records them as an override in the tile
     table's resolution (``ops/autotune.py``) and runs the kernels' own
-    64 x 64 tile; ``attention_block_k`` is also the KV tile of the
+    tiles; ``attention_block_k`` is also the KV tile of the
     blockwise and Ulysses cores (1024 when None, as in the reference).
     ``paged_head_block`` drives nothing: the paged kernel takes q heads
     in blocks of at most 8 itself, and its split comes from the table. ``seq_axis`` is the mesh axis of ring and Ulysses;

@@ -4,8 +4,9 @@ Each source is compiled on its own by ``nvcc`` for ``sm_90a`` into a
 library with a plain C interface, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds, not minutes). Libraries land in
 ``kubeflow_tpu_torch/_build/`` (git-ignored), named by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one
-loads from disk. A failed build raises with the compiler's output.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one loads from disk. A failed
+build raises with the compiler's output.
 
 Every ``nvcc`` that runs to a library is announced to ``listeners`` (a
 plain list of callables, each called with one :class:`BuildEvent`): the
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import glob
 import hashlib
 import logging
 import os
@@ -74,9 +76,13 @@ def _target(name: str, build_dir: Optional[str] = None
             ) -> Tuple[str, str, str]:
     """``(source, library path, digest)`` of ``csrc/<name>.cu``."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256()
+    # the source, then every shared header it may include (csrc/*.cuh)
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return src, os.path.join(build_dir or BUILD_DIR,
                              f"lib{name}-{digest}.so"), digest
 

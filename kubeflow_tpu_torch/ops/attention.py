@@ -99,8 +99,8 @@ class _FlashAttention(torch.autograd.Function):
 def _resolve_tiles(kernel: str, q, causal: bool, block_q, block_k):
     """One flash pass's tile resolution (``autotune.resolve_flash``),
     recorded for ``autotune.record_resolutions``. The kernels run their
-    compiled 64 x 64 tile whatever resolves: a caller's TPU knobs are
-    recorded as an override, not refused."""
+    compiled tile (``autotune.flash_tile``) whatever resolves: a caller's
+    TPU knobs are recorded as an override, not refused."""
     from kubeflow_tpu_torch.ops import autotune
 
     B, S, H, D = q.shape
@@ -122,8 +122,8 @@ def flash_attention(q, k, v, causal: bool = True,
     reference's tile knobs: each pass resolves its kernel key through the
     tile table (``ops/autotune.py:resolve_flash``, recorded for
     ``record_resolutions``; explicit knobs as an override), and the CUDA
-    kernels run the 64 x 64 tile they are compiled for, the only legal
-    row on Hopper. ``kv_len`` is an optional
+    kernels run the tile they are compiled for (``autotune.flash_tile``),
+    the only legal row on Hopper. ``kv_len`` is an optional
     ``(B,)`` int32 valid length per batch row; keys at or past it are
     masked in the forward and both backward passes (outputs at padded q
     positions are unspecified, as in the reference).

@@ -14,8 +14,13 @@ What differs is the legality and the knobs, which are Hopper's:
 
 - ``generation`` is ``sm_90`` on an H100 (``torch.cuda.
   get_device_capability``), ``cpu`` without a card;
-- a **flash** row is legal only with the 64 x 64 tile the CUDA kernels
-  are compiled for (``csrc/flash_attention.cu`` ``kBQ``/``kBK``): the
+- a **flash** row is legal only with the tile the CUDA kernel of its
+  key runs at the row's head dim and dtype (:func:`flash_tile`): 64 x 64
+  for the forward and for every backward kernel but the bf16 D <= 64 one
+  (``csrc/flash_attention.cu`` ``kBQ``/``kBK``), whose wgmma kernels own
+  128 rows a block and stream 64 a stage (``kBwdTile``/``kBwdStep``:
+  dQ 128 q rows x 64 keys, dK/dV 64 q rows x 128 keys). A backward row
+  that leaves open a field deciding which kernel runs is illegal. The
   reference's ``block_q``/``block_k`` are TPU tile edges. A caller's
   explicit knobs (a reference config's ``attention_block_q/k``) are
   recorded as an override and the kernels still run their own tile —
@@ -50,8 +55,14 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_attn")
 
 MIN_SEQ_BUCKET = 128
-# the flash kernels' tile: q rows and keys a block (csrc kBQ, kBK)
+# the flash kernels' tile (block_q, block_k): q rows and keys a block
+# (csrc kBQ, kBK), for the forward and the mma.sync and FMA backward
 FLASH_TILE = (64, 64)
+# the bf16 backward at head dims up to WGMMA_HEAD_DIM (padded to it):
+# the wgmma kernels' (block_q, block_k), 128 rows a block and 64 a
+# stage (csrc kBwdTile, kBwdStep)
+WGMMA_HEAD_DIM = 64
+WGMMA_BWD_TILES = {"flash_bwd_dq": (128, 64), "flash_bwd_dkv": (64, 128)}
 # dynamic shared memory a launch may take without the opt-in attribute
 MAX_SMEM_BYTES = 48 * 1024
 # the paged wrapper's analytic split: about this many keys a block
@@ -130,6 +141,32 @@ def backend_generation(device: Any = None) -> str:
 
 
 # ---------------------------------------------------------------------------
+# Hopper legality: the flash kernels' compiled tiles
+# ---------------------------------------------------------------------------
+
+
+def flash_tile(kernel: str, head_dim: int, dtype: Any) -> Tuple[int, int]:
+    """``(block_q, block_k)`` the CUDA kernel of ``kernel`` runs for a
+    ``head_dim``-wide input of ``dtype``: the wgmma tile of the bf16
+    backward at head dims up to ``WGMMA_HEAD_DIM`` (the wrapper pads
+    those to it), else ``FLASH_TILE``."""
+    if (kernel in WGMMA_BWD_TILES and dtype_name(dtype) == "bfloat16"
+            and head_dim <= WGMMA_HEAD_DIM):
+        return WGMMA_BWD_TILES[kernel]
+    return FLASH_TILE
+
+
+def _row_tiles(entry: Dict[str, Any]) -> set:
+    """The tiles the kernel of a flash row's key runs over every shape
+    the row can match (one tile, unless an open field decides)."""
+    head_dim, dtype = entry.get("head_dim"), entry.get("dtype")
+    dims = ((WGMMA_HEAD_DIM, WGMMA_HEAD_DIM + 1) if head_dim in _WILDCARD
+            else (head_dim,))
+    dtypes = tuple(DTYPE_BYTES) if dtype in _WILDCARD else (dtype,)
+    return {flash_tile(entry["kernel"], d, t) for d in dims for t in dtypes}
+
+
+# ---------------------------------------------------------------------------
 # Hopper legality: the paged block's shared memory
 # ---------------------------------------------------------------------------
 
@@ -186,7 +223,7 @@ def paged_legality_point(entry: Dict[str, Any]) -> Tuple[int, int, int, int]:
 #   causal      bool or null
 #   generation  backend_generation() slug or "*"/null
 #   page_size   int or null — paged_attn only
-#   block_q / block_k   int — flash kernels (FLASH_TILE only)
+#   block_q / block_k   int — flash kernels (flash_tile only)
 #   split_tokens        int — paged_attn (keys a split block takes)
 #   provenance  str — where the numbers came from
 
@@ -229,8 +266,9 @@ def _int_field(entry: Dict[str, Any], field: str,
 def validate_entry(entry: Dict[str, Any],
                    smem_limit: int = MAX_SMEM_BYTES) -> List[str]:
     """All the reasons ``entry`` is illegal on Hopper (empty list =
-    legal): the flash kernels' compiled tile, the paged split's whole
-    pages and its block's shared memory against ``smem_limit``."""
+    legal): the flash kernel's compiled tile (:func:`flash_tile`), the
+    paged split's whole pages and its block's shared memory against
+    ``smem_limit``."""
     errs: List[str] = []
     kernel = entry.get("kernel")
     if kernel not in KERNELS:
@@ -279,10 +317,17 @@ def validate_entry(entry: Dict[str, Any],
         if "block_q" not in entry or "block_k" not in entry:
             errs.append(f"{kernel} entries require block_q and block_k")
         return errs
-    if (bq, bk) != FLASH_TILE:
-        errs.append(f"block_q x block_k {bq} x {bk} is not the "
-                    f"{FLASH_TILE[0]} x {FLASH_TILE[1]} tile the flash "
-                    "kernels are compiled for (csrc kBQ, kBK)")
+    if errs:
+        return errs
+    tiles = _row_tiles(entry)
+    if len(tiles) > 1:
+        errs.append(f"{kernel} runs the tiles {sorted(tiles)} over the "
+                    "shapes this row matches: pin head_dim and dtype")
+    elif (bq, bk) not in tiles:
+        (tq, tk), = tiles
+        errs.append(f"block_q x block_k {bq} x {bk} is not the {tq} x {tk} "
+                    f"tile {kernel} is compiled for at this head_dim and "
+                    "dtype (csrc kBQ/kBK, or kBwdTile/kBwdStep)")
     return errs
 
 
@@ -501,10 +546,10 @@ def resolve_flash(kernel: str, *, seq: int, head_dim: int, n_heads: int,
 
     Explicit knobs are recorded untouched (``source="override"``; a
     partial override pins one knob and resolves the other); otherwise the
-    table's most-specific entry; otherwise the fallback, the compiled
-    tile. Whatever is recorded, the kernels run ``FLASH_TILE`` and mask
-    a ragged last tile, so no value is fitted to ``seq`` and none is
-    refused.
+    table's most-specific entry; otherwise the fallback, the tile the
+    kernel runs (:func:`flash_tile`). Whatever is recorded, the kernels
+    run their compiled tile and mask a ragged last tile, so no value is
+    fitted to ``seq`` and none is refused.
     """
     if kernel not in KERNELS or kernel == "paged_attn":
         raise ValueError(f"not a flash kernel key: {kernel!r}")
@@ -521,7 +566,7 @@ def resolve_flash(kernel: str, *, seq: int, head_dim: int, n_heads: int,
     if entry is not None:
         bq, bk, source = entry["block_q"], entry["block_k"], "table"
     else:
-        (bq, bk), source = FLASH_TILE, "fallback"
+        (bq, bk), source = flash_tile(kernel, head_dim, dtype), "fallback"
     if block_q is not None:
         bq, source = int(block_q), "override"
     if block_k is not None:

@@ -73,12 +73,15 @@
 // f32 inputs run on the FMA units (64 x 64 tiles, a 4 x 4 micro-tile a
 // thread), keeping f32 parity with the plain version.
 
-#include <cuda.h>  // CUtensorMap; the encoder is fetched through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 typedef __nv_bfloat16 bf16;
 
@@ -88,8 +91,6 @@ constexpr int kThreads = 256;  // FMA kernels and the fold
 constexpr int kWG = 128;
 constexpr int kTCThreads = 3 * kWG;
 constexpr int kStages = 4;
-constexpr int kSw = 64;               // bf16 values in a 128-byte row
-constexpr int kBox = kSw * kSw * 2;   // a 64 x 64 bf16 TMA box, bytes
 constexpr int kFwdBM = 128, kFwdBN = 128;   // forward output tile
 constexpr int kDwBK = 64, kDwBN = 256;      // dW output tile (K x N)
 constexpr int kDwStep = 64;                 // dW rows of x a stage
@@ -129,169 +130,11 @@ __device__ __forceinline__ uint32_t bn_relu2(uint32_t v, float a0, float b0,
   return *reinterpret_cast<uint32_t*>(&r);
 }
 
-// ---------------------------------------------------------------------------
-// Hopper helpers: mbarriers, TMA, ldmatrix, wgmma
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One 2-D TMA box (coordinates innermost first) into shared memory,
-// completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// One 2-D TMA box from shared memory to global (rows and columns past
-// the tensor's edges are not written), in this thread's bulk group.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          uint32_t src, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group "
-      "[%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// this thread's bulk stores have read their shared memory
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-// ... and have completed
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-// this thread's shared-memory writes, visible to TMA
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// Byte offset of 16-byte chunk `chunk` of row `row` in a tile of
-// 128-byte rows written by TMA with the 128-byte swizzle.
-__device__ __forceinline__ uint32_t sw128(int row, int chunk) {
-  return row * 128 + ((chunk ^ (row & 7)) << 4);
-}
-
 // wgmma descriptor of an N-major (transposed) bf16 B operand in 128-byte
 // swizzled 64 x 64 boxes: 8-row groups of K 1024 bytes apart (SBO), the
 // next 64 columns one box further on (LBO).
 __device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)(kBox >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving reads or writes of the accumulators
-// across the asynchronous wgmma.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 128 f32, the m64n128 fragment) = (accumulate ? d : 0) + A.B:
-// A (64 x 16) in registers (the mma.m16n8k16 A fragment of each warp's
-// 16 rows), B (16 x 128) N-major in shared memory.
-__device__ __forceinline__ void wgmma_m64n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t desc, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,"
-      "%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
-      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,"
-      "%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
-      "{%64,%65,%66,%67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-        "r"(accumulate));
-}
-
-// Shared memory of a wgmma kernel: the ring from a 1024-byte boundary
-// (the 128-byte swizzle's period), as a shared-window address.
-__device__ __forceinline__ uint32_t ring_base(unsigned char* smem) {
-  const uint32_t s = smem_u32(smem);
-  return (s + 1023) & ~1023u;
-}
-
-__device__ __forceinline__ void bar_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+  return wgmma_desc(addr, kBox, 1024);
 }
 
 // ---------------------------------------------------------------------------
@@ -330,13 +173,13 @@ __global__ void __launch_bounds__(kTCThreads, 1)
       mbar_init(full(s), 1);
       mbar_init(empty(s), 8);  // one arrival per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
   if (threadIdx.x >= 2 * kWG) {
     // ---- producer ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    producer_regs();
     if (threadIdx.x == 2 * kWG) {
       int it = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -357,7 +200,7 @@ __global__ void __launch_bounds__(kTCThreads, 1)
     }
   } else {
     // ---- consumers ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    consumer_regs();
     const int wg = threadIdx.x / kWG, tw = threadIdx.x % kWG;
     const int warp = tw / 32, lane = tw % 32, g = lane >> 2, t = lane & 3;
     const int row = wg * 64 + warp * 16 + (lane & 15);  // ldmatrix row
@@ -400,7 +243,7 @@ __global__ void __launch_bounds__(kTCThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          wgmma_m64n128(acc, af[j],
+          wgmma_m64n128_rs(acc, af[j],
                         desc_b(st + kFwdBM * 128 + j * 16 * 128),
                         kc > 0 || j > 0);
         wgmma_commit();
@@ -473,13 +316,13 @@ __global__ void __launch_bounds__(kTCThreads, 1)
       mbar_init(full(s), 1);
       mbar_init(empty(s), 8);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
   if (threadIdx.x >= 2 * kWG) {
     // ---- producer ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    producer_regs();
     if (threadIdx.x == 2 * kWG) {
       const int nbox = min(4, (N - n0 + kSw - 1) / kSw);
       for (int it = 0; it < n_st; ++it) {
@@ -495,7 +338,7 @@ __global__ void __launch_bounds__(kTCThreads, 1)
     }
   } else {
     // ---- consumers ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    consumer_regs();
     const int wg = threadIdx.x / kWG, tw = threadIdx.x % kWG;
     const int warp = tw / 32, lane = tw % 32, g = lane >> 2, t = lane & 3;
     // this thread's two channels (rows g and g + 8 of the warp's 16)
@@ -525,7 +368,7 @@ __global__ void __launch_bounds__(kTCThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        wgmma_m64n128(fresh, af[j],
+        wgmma_m64n128_rs(fresh, af[j],
                       desc_b(st + kBox + 2 * wg * kBox + j * 16 * 128),
                       j > 0);
       wgmma_commit();
@@ -692,59 +535,15 @@ __global__ void __launch_bounds__(kThreads)
 
 long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
-// cuTensorMapEncodeTiled, looked up in libcuda through the runtime's
-// entry-point query (no link against libcuda).
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encoder() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-#if CUDART_VERSION >= 12050
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault) == cudaSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-#endif
-  }
-  return fn;
-}
-
 // A row-major (rows, cols) bf16 matrix as TMA boxes of box_rows rows x 64
 // columns with the 128-byte swizzle (cols % 8 == 0, ptr on 16 bytes);
 // past its edges a box reads zeros.
 bool tensor_map(CUtensorMap* map, const void* ptr, long long rows, int cols,
                 int box_rows) {
-  const EncodeTiledFn enc = encoder();
-  if (enc == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   const cuuint32_t box[2] = {(cuuint32_t)kSw, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(ptr), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 1;
-  return sms;
+  return encode_bf16(map, ptr, 2, dims, strides, box);
 }
 
 }  // namespace

@@ -5,9 +5,11 @@
 // - flash_fwd_mma_kernel (bf16), flash_fwd_kernel (f32)
 //     <- _flash_fwd_kernel (Pallas body :188, pallas_call :345, wrapper
 //        _flash_fwd :306);
-// - flash_bwd_dq_mma_kernel (bf16), flash_bwd_dq_kernel (f32)
+// - flash_bwd_dq_wgmma_kernel (bf16, D = 64), flash_bwd_dq_mma_kernel
+//   (bf16, D = 128), flash_bwd_dq_kernel (f32)
 //     <- _flash_bwd_dq_kernel (:369, call :530, wrapper _flash_bwd :482);
-// - flash_bwd_dkv_mma_kernel (bf16), flash_bwd_dkv_kernel (f32)
+// - flash_bwd_dkv_wgmma_kernel (bf16, D = 64), flash_bwd_dkv_mma_kernel
+//   (bf16, D = 128), flash_bwd_dkv_kernel (f32)
 //     <- _flash_bwd_dkv_kernel (:422, call :560).
 // They compute what the Pallas kernels compute: f32 scores, the finite
 // NEG_INF = -1e30 for masked scores (a row whose keys are all masked
@@ -28,14 +30,13 @@
 // flop/byte ridge. The floor is the causal flops over the bf16
 // tensor-core rate (989 TFLOP/s).
 //
-// Design common to all five kernels:
+// Design common to all the kernels:
 // - Pallas carries acc/m/l across a SEQUENTIAL kv grid axis; Hopper
 //   blocks run in no order. So the forward and dQ use one block per
 //   (batch*head, q tile) that loops over the kv tiles inside the block,
 //   and dK/dV one block per (batch*head, kv tile) that loops over the q
-//   tiles from the first live one (kv tile 0, which walks the most, is
-//   launched first). Each output is owned by one block: no atomics,
-//   deterministic sums.
+//   tiles from the first live one, the heaviest tiles launched first.
+//   Each output is owned by one block: no atomics, deterministic sums.
 // - Causal loop limits are the reference's _last_live_kv (:152) and
 //   _first_live_q (:160); the per-position masks are its
 //   _causal_block_mask and _pad_mask (:167, :177). All kernels use the
@@ -44,14 +45,57 @@
 //   it averages over all S keys, as reference_attention does.
 // - Tiles of 64 q rows by 64 keys (kBK is BLOCK_K of the plain forward).
 //   The causal forward and dQ grids put batch*head on x and walk q tiles
-//   from the last (most kv tiles) to the first.
+//   from the last (most kv tiles) to the first. The wgmma backward
+//   kernels own 128 rows a block (kBwdTile) and stream 64 a stage
+//   (kBwdStep); their grid's y walks a work list from the wrapper
+//   (ops/flash_attention.py:bwd_work), heaviest first.
 // - Inputs are read through their (B, S, H, D) strides (no head-fusing
 //   transpose); the ragged edge is masked, so any S works: keys past S
 //   are zero in shared memory and get P = 0, q rows past S are never
 //   stored and give P = 0 in dK/dV.
 //
-// bf16 (all three passes): the tensor cores (mma.sync m16n8k16, f32
-// accumulate), 4 warps a block.
+// bf16 backward at D = 64 (the LM, BERT, ViT and MoE LM paths): wgmma
+// over a TMA ring fed by a producer warp, the shape of bnconv.cu, with
+// the helpers of hopper.cuh. Three warpgroups a block: two consumers, 64
+// owned rows each, and a producer whose first warp keeps the ring's
+// kBwdStages stages in flight (cp.async.bulk.tensor, 128-byte swizzle,
+// a full/empty mbarrier pair a stage) and hands its registers to the
+// consumers (setmaxnreg). q, k, v and dO are read through 4-D tensor
+// maps over (D, S, H, B) with the caller's strides (views of a fused
+// projection included; the wrapper refuses what a map cannot encode);
+// TMA's zero fill stands in for rows past S.
+// - dK/dV: a block owns 128 keys; K and V stay resident in shared memory;
+//   Q and dO of each 64-row q tile ride the ring, and the producer warp
+//   writes the tile's lse and delta beside them. S^T = K.Q^T and
+//   dP^T = V.dO^T are wgmma m64n64k16 with both operands K-major in
+//   shared memory (by descriptor). P^T and dS^T are made in f32
+//   registers, split into hi + lo bf16 and packed as wgmma's register A
+//   operand for dV += P^T.dO, then dK += dS^T.Q (one set of fresh
+//   fragments, reused): B is the stage's dO or Q read MN-major through
+//   the descriptor's transpose bit, with no transposed copy. That is 6
+//   GEMMs' worth of tensor-core work a tile for the algorithm's 4.
+// - dQ mirrors it: a block owns 128 q rows with Q and dO resident, K and
+//   V ride the ring; S = Q.K^T and dP = dO.V^T from shared memory, dS
+//   (hi + lo) the register A operand of dS.K with K read MN-major from
+//   the stage: 4 GEMMs' worth a tile for the algorithm's 3.
+// - Within a tile, S (S^T) and dP (dP^T) go out as two wgmma groups and
+//   P is made on the SFU (exp_sfu) while dP runs; dK/dV's dV goes out
+//   while dS is made, and is added while dK runs. The two consumer
+//   warpgroups take turns issuing S and dP (named barriers), so one's
+//   element-wise work overlaps the other's products. Every group lands
+//   within its tile, and the branches around wgmma are warp-uniform to
+//   ptxas (indices and loop bounds from a shuffle): otherwise ptxas
+//   serializes every wgmma (its C7515/C7518 notes), 1.2x slower. A
+//   warpgroup whose rows see none of a causal tile (the block's first q
+//   tile for dK/dV's upper keys, its last kv tile for dQ's lower rows)
+//   skips its products and only releases the stage.
+// - Their S sums in another order than the forward's mma.sync and P
+//   comes from ex2, so the backward's P is the forward's to a few f32
+//   ulp, not bit for bit; the limits of chip_smoke.py phase 2 hold it to
+//   its plain version.
+//
+// bf16 forward, and bf16 backward at D = 128: the tensor cores
+// (mma.sync m16n8k16, f32 accumulate), 4 warps a block.
 // - Staging: tiles are copied as bf16 by cp.async.cg (16 bytes a copy;
 //   the zero-fill form for rows past S) into a 2-stage ring, so tile
 //   j + 1 loads while tile j computes. Rows are padded to D + 8 elements:
@@ -66,9 +110,9 @@
 //   row max and sum over the 4 lanes that share a row (shfl_xor). P is
 //   rounded to bf16 in registers and those registers are the A operand of
 //   P.V, with V read by ldmatrix.trans.
-// - dK/dV: each warp owns 16 keys; K and V fragments stay in registers at
-//   D = 64, and are re-read from shared memory at D = 128, where holding
-//   them as well as the dK and dV accumulators would spill. Q, dO, lse and
+// - dK/dV (D = 128): each warp owns 16 keys; K and V fragments are
+//   re-read from shared memory, since holding them as well as the dK and
+//   dV accumulators would spill. Q, dO, lse and
 //   delta of each q tile ride the ring. S^T = K.Q^T and dP^T = V.dO^T run
 //   on the tensor cores from exact bf16 inputs, 16 q columns at a time;
 //   P^T = exp(S^T * scale - lse) and dS^T = P^T * (dP^T - delta) stay in
@@ -78,19 +122,20 @@
 //   and both go through the mma into one f32 accumulator: ~16 mantissa
 //   bits. That is 6 GEMMs' worth of tensor-core work a tile instead of 4;
 //   the bound stays the algorithm's 8*D flops a pair.
-// - dQ, the forward's mirror: each warp owns 16 q rows, Q and dO
-//   fragments in registers at D = 64 (re-read from shared memory at
-//   D = 128), lse and delta of its rows g and g + 8 in registers; K and V
-//   ride the ring. S = Q.K^T (summed in the forward's order: the
-//   forward's S bit for bit) and dP = dO.V^T read K and V non-transposed;
+// - dQ (D = 128), the forward's mirror: each warp owns 16 q rows, Q and
+//   dO fragments re-read from shared memory, lse and delta of its rows g
+//   and g + 8 in registers; K and V ride the ring. S = Q.K^T (summed in
+//   the forward's order: the forward's S bit for bit) and dP = dO.V^T
+//   read K and V non-transposed;
 //   P = exp(S * scale - lse) and dS = P * (dP - delta) stay in f32
 //   registers, and dS, split into hi + lo, is the A operand of dS.K with K
 //   read by ldmatrix.trans: 4 GEMMs' worth a tile for the algorithm's
 //   6*D flops a pair.
-// - Long sums: the tensor cores truncate where an mma adds into its
-//   accumulator, and over S = 8192 that bias moved dV by 4.1e-4 of its
-//   norm, past the 4e-4 limit. So the products of one kv tile (forward,
-//   dQ) or of 16 q rows (dK/dV) go to fresh fragments, and the FMA units
+// - Long sums (all the tensor-core kernels): the tensor cores truncate
+//   where an mma adds into its accumulator, and over S = 8192 that bias
+//   moved dV by 4.1e-4 of its norm, past the 4e-4 limit. So the products
+//   of one kv tile (forward, dQ), of 16 q rows (mma dK/dV) or of one
+//   64-row q tile (wgmma dK/dV) go to fresh fragments, and the FMA units
 //   add those to the running f32 sums, rounding to nearest (the
 //   forward's as O = O * alpha + P.V, 64 output columns at a time).
 // f32 (all three passes): the FMA kernels (the f32 units, 67 TFLOP/s):
@@ -111,12 +156,15 @@
 // scores over 64-wide slices of D and give each block one slice of up to
 // 256 output columns (grid z), recomputing the scores for it: no upper
 // limit on D, at D / 256 times the score work (see the wide kernels).
-// Not yet: wgmma with TMA-staged tiles and a producer warp; in-kernel GQA.
+// Not yet: the forward and the D = 128 backward on wgmma; a persistent
+// grid for the backward; in-kernel GQA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -132,6 +180,26 @@ constexpr int kThreadsTC = 32 * kWarpsTC;
 static_assert(kBQ == 64 && kBK == 64, "the 4 x 4 micro-tiles assume 64");
 static_assert(kBQ == 16 * kWarpsTC && kBK == 16 * kWarpsTC,
               "each warp of a tensor-core kernel owns 16 rows");
+
+// The bf16 backward at D = 64 (the wgmma kernels): two consumer
+// warpgroups and one producer warpgroup; a block owns kBwdTile rows (keys
+// for dK/dV, q rows for dQ), 64 to each consumer warpgroup, and streams
+// the other side kBwdStep rows a stage through a kBwdStages-deep ring.
+constexpr int kWG = 128;
+constexpr int kWgThreads = 3 * kWG;
+constexpr int kBwdTile = 128;
+constexpr int kBwdStep = 64;
+constexpr int kBwdStages = 4;
+constexpr int kStatStride = 2 * kBwdStep;  // a stage's lse, then delta
+// Named barriers kTurnBar + wg: the consumer warpgroups take turns to
+// issue a tile's S and dP products (warpgroup 0 first), so one's
+// element-wise work runs while the other's products do. Each warpgroup
+// takes one turn a stage of the block's range, live or not; warpgroup 1
+// hands no turn on after the last, so every arrival is waited on.
+constexpr int kTurnBar = 1;
+static_assert(kBwdTile == 2 * 64 && kBwdStep == hopper::kSw,
+              "a consumer warpgroup owns one 64-row box; a stage streams "
+              "one box a tensor");
 
 typedef __nv_bfloat16 bf16;
 
@@ -284,6 +352,14 @@ __device__ __forceinline__ void split_bf16(float a, float b, unsigned& hi,
   const float2 hf = __bfloat1622float2(h);
   hi = bf16x2_bits(h);
   lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
+// exp(x) on the SFU: ex2 of x * log2(e), within a few f32 ulp of expf
+// (0 for a masked score's x of about -1e30, 1 for x = 0).
+__device__ __forceinline__ float exp_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
 }
 
 // Max and sum over the 4 lanes of a quad (one row of an mma fragment).
@@ -1383,7 +1459,7 @@ __global__ void __launch_bounds__(kThreadsTC)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dK/dV on the tensor cores.
+// bf16 dK/dV on mma.sync, D = 128 (D = 64 runs flash_bwd_dkv_wgmma_kernel).
 // grid (B*H, n_kv), kThreadsTC threads; warp w owns keys 16w..16w+15 of
 // kv tile j and walks the q tiles. Shared (bf16, rows of D + 8): k, v
 // (kBK each), q and dO rings (2 x kBQ each); f32 lse and delta rings.
@@ -1404,10 +1480,7 @@ __global__ void __launch_bounds__(kThreadsTC)
   constexpr int LDS = D + 8;
   constexpr int KD = D / 16;    // k-steps of S^T = K.Q^T and dP^T = V.dO^T
   constexpr int ND = D / 8;     // 8-wide column tiles of dK and dV
-  constexpr bool kKVRegs = D <= 64;   // K/V fragments held in registers
-  // the q-column loop unrolls only where K/V sit in registers: unrolled at
-  // D = 128 it keeps every iteration's addresses live and spills
-  constexpr int kUnrollC = kKVRegs ? kBQ / 16 : 1;
+  static_assert(D == 128, "D = 64 runs the wgmma kernel");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* vs = ks + kBK * LDS;
@@ -1441,7 +1514,6 @@ __global__ void __launch_bounds__(kThreadsTC)
   for (int n = 0; n < ND; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-  unsigned kf[kKVRegs ? KD : 1][4], vf[kKVRegs ? KD : 1][4];
 
   for (int i = i_start; i < n_q; ++i) {
     const int stage = (i - i_start) & 1;
@@ -1457,16 +1529,6 @@ __global__ void __launch_bounds__(kThreadsTC)
       cp_async_wait<0>();
     }
     __syncthreads();
-    if constexpr (kKVRegs) {
-      if (i == i_start) {
-#pragma unroll
-        for (int kd = 0; kd < KD; ++kd) {
-          const int off = (w0 + (lane & 15)) * LDS + kd * 16 + (lane >> 4) * 8;
-          ldsm_x4(kf[kd], ks + off);
-          ldsm_x4(vf[kd], vs + off);
-        }
-      }
-    }
     const bf16* qt = qs + stage * kBQ * LDS;
     const bf16* gt = gs + stage * kBQ * LDS;
     const float* lt = lse_s + stage * kBQ;
@@ -1475,7 +1537,9 @@ __global__ void __launch_bounds__(kThreadsTC)
     const bool edge = (causal && k0 + kBK - 1 > q0) || q0 + kBQ > S ||
                       k0 + kBK > limit;
 
-#pragma unroll kUnrollC
+    // (not unrolled: unrolled, it keeps every iteration's addresses live
+    // and spills)
+#pragma unroll 1
     for (int c = 0; c < kBQ / 16; ++c) {  // 16 q columns at a time
       // S^T and dP^T: 16 keys x 16 q, as q tiles 0 and 1 of 8
       float st[2][4], dpt[2][4];
@@ -1486,17 +1550,9 @@ __global__ void __launch_bounds__(kThreadsTC)
 #pragma unroll
       for (int kd = 0; kd < KD; ++kd) {
         unsigned ak[4], av[4], rq[4], rg[4];
-        if constexpr (kKVRegs) {
-#pragma unroll
-          for (int x = 0; x < 4; ++x) {
-            ak[x] = kf[kd][x];
-            av[x] = vf[kd][x];
-          }
-        } else {
-          const int off = (w0 + (lane & 15)) * LDS + kd * 16 + (lane >> 4) * 8;
-          ldsm_x4(ak, ks + off);
-          ldsm_x4(av, vs + off);
-        }
+        const int off = (w0 + (lane & 15)) * LDS + kd * 16 + (lane >> 4) * 8;
+        ldsm_x4(ak, ks + off);
+        ldsm_x4(av, vs + off);
         const int boff = (c * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS +
                          kd * 16 + ((lane >> 3) & 1) * 8;
         ldsm_x4(rq, qt + boff);
@@ -1588,7 +1644,7 @@ __global__ void __launch_bounds__(kThreadsTC)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dQ on the tensor cores.
+// bf16 dQ on mma.sync, D = 128 (D = 64 runs flash_bwd_dq_wgmma_kernel).
 // grid (B*H, n_q), kThreadsTC threads; warp w owns q rows 16w..16w+15 of
 // q tile i and walks the kv tiles. Shared (bf16, rows of D + 8): q and dO
 // (kBQ each), k and v rings (2 x kBK each).
@@ -1610,8 +1666,8 @@ __global__ void __launch_bounds__(kThreadsTC)
   constexpr int KD = D / 16;    // k-steps of S = Q.K^T and dP = dO.V^T
   constexpr int ND = D / 8;     // 8-wide column tiles of dQ
   constexpr int NK = kBK / 8;   // 8-wide key tiles of S and dP
-  constexpr int kOut = ND < 8 ? ND : 8;  // dQ tiles a dS.K chunk
-  constexpr bool kQRegs = D <= 64;       // Q/dO fragments held in registers
+  constexpr int kOut = 8;                // dQ tiles a dS.K chunk
+  static_assert(D == 128, "D = 64 runs the wgmma kernel");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* gs = qs + kBQ * LDS;
@@ -1651,7 +1707,6 @@ __global__ void __launch_bounds__(kThreadsTC)
   for (int n = 0; n < ND; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
-  unsigned qf[kQRegs ? KD : 1][4], gf[kQRegs ? KD : 1][4];
 
   for (int j = 0; j < j_end; ++j) {
     const int stage = j & 1;
@@ -1666,16 +1721,6 @@ __global__ void __launch_bounds__(kThreadsTC)
       cp_async_wait<0>();
     }
     __syncthreads();
-    if constexpr (kQRegs) {
-      if (j == 0) {
-#pragma unroll
-        for (int kd = 0; kd < KD; ++kd) {
-          const int off = (w0 + (lane & 15)) * LDS + kd * 16 + (lane >> 4) * 8;
-          ldsm_x4(qf[kd], qs + off);
-          ldsm_x4(gf[kd], gs + off);
-        }
-      }
-    }
     const bf16* kt = ks + stage * kBK * LDS;
     const bf16* vt = vs + stage * kBK * LDS;
     const int k0 = j * kBK;
@@ -1691,17 +1736,9 @@ __global__ void __launch_bounds__(kThreadsTC)
 #pragma unroll
     for (int kd = 0; kd < KD; ++kd) {
       unsigned aq[4], ag[4];
-      if constexpr (kQRegs) {
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          aq[x] = qf[kd][x];
-          ag[x] = gf[kd][x];
-        }
-      } else {
-        const int off = (w0 + (lane & 15)) * LDS + kd * 16 + (lane >> 4) * 8;
-        ldsm_x4(aq, qs + off);
-        ldsm_x4(ag, gs + off);
-      }
+      const int off = (w0 + (lane & 15)) * LDS + kd * 16 + (lane >> 4) * 8;
+      ldsm_x4(aq, qs + off);
+      ldsm_x4(ag, gs + off);
 #pragma unroll
       for (int n = 0; n < NK / 2; ++n) {
         unsigned rk[4], rv[4];
@@ -1793,6 +1830,496 @@ __global__ void __launch_bounds__(kThreadsTC)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dK/dV on wgmma (D = 64).
+// grid (B*H, work items); item y of `work` is (key tile, first q tile,
+// end q tile), heaviest first. Consumer warpgroup wg owns keys
+// kw = k0 + 64 wg .. kw + 63; threads 256..383 are the producer
+// warpgroup, whose first warp feeds the ring. Shared memory from a
+// 1024-byte boundary: K (2 boxes) and V (2 boxes) resident; a ring of
+// kBwdStages stages of (Q box, dO box); each stage's lse and delta
+// (kStatStride floats); the barriers.
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                               const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_v,
+                               const __grid_constant__ CUtensorMap map_g,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               const int* __restrict__ kv_len,
+                               const int* __restrict__ work,
+                               bf16* __restrict__ dk, bf16* __restrict__ dv,
+                               int H, int S, float scale, int causal) {
+  static_assert(D == hopper::kSw, "a head is one 128-byte swizzled row");
+  using namespace hopper;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw;
+  const uint32_t res = ring_base(smem);           // K, then V
+  const uint32_t ring = res + 4 * kBox;           // stage s: Q, dO
+  const uint32_t stats = ring + kBwdStages * 2 * kBox;
+  const uint32_t bars = stats + kBwdStages * kStatStride * 4;
+  float* stats_gen =
+      reinterpret_cast<float*>(smem + (stats - smem_u32(smem)));
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kBwdStages + s); };
+  const uint32_t res_full = bars + 16 * kBwdStages;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int* item = work + 3 * blockIdx.y;
+  const int k0 = item[0] * kBwdTile;
+  const int limit = kv_len ? kv_len[b] : S;
+  // a kv_len == 0 row has every key masked and walks every q tile
+  const bool trim = causal && limit > 0;
+  const int lo = trim ? item[1] : 0;
+  const int hi = trim ? item[2] : (S + kBwdStep - 1) / kBwdStep;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(full(s), 32);  // the producer warp's lanes, lane 0 with bytes
+      mbar_init(empty(s), 8);  // one arrival per consumer warp
+    }
+    mbar_init(res_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the warpgroup's index, warp-uniform in the compiler's view (from a
+  // shuffle): a wgmma under a branch ptxas cannot prove uniform is
+  // serialized
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWG, 0);
+  if (wg == 2) {
+    // ---- producer: TMA for the tiles, plain loads for lse and delta ----
+    producer_regs();
+    const int lane = threadIdx.x - 2 * kWG;
+    if (lane < 32) {
+      if (lane == 0) {
+        mbar_expect_tx(res_full, 4 * kBox);
+        for (int r = 0; r < 2; ++r) {
+          tma_load_4d(res + r * kBox, &map_k, res_full, 0, k0 + 64 * r, h, b);
+          tma_load_4d(res + (2 + r) * kBox, &map_v, res_full, 0, k0 + 64 * r,
+                      h, b);
+        }
+      }
+      const float* lse_row = lse + (long long)bh * S;
+      const float* delta_row = delta + (long long)bh * S;
+      for (int i = lo; i < hi; ++i) {
+        const int it = i - lo, s = it % kBwdStages;
+        const int q0 = i * kBwdStep;
+        mbar_wait(empty(s), ((it / kBwdStages) & 1) ^ 1);
+        float* st = stats_gen + s * kStatStride;
+        for (int r = lane; r < kBwdStep; r += 32) {
+          const bool in = q0 + r < S;  // rows past S: zeros, P masked
+          st[r] = in ? lse_row[q0 + r] : 0.f;
+          st[kBwdStep + r] = in ? delta_row[q0 + r] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(full(s), 2 * kBox);
+          const uint32_t dst = ring + s * 2 * kBox;
+          tma_load_4d(dst, &map_q, full(s), 0, q0, h, b);
+          tma_load_4d(dst + kBox, &map_g, full(s), 0, q0, h, b);
+        } else {
+          mbar_arrive(full(s));
+        }
+      }
+    }
+  } else {
+    // ---- consumers ----
+    consumer_regs();
+    const int tw = threadIdx.x % kWG;
+    const int warp = tw / 32, lane = tw % 32, g = lane >> 2, t = lane & 3;
+    const int kw = k0 + 64 * wg;
+    const bool has_keys = kw < S;
+    // the q tiles this warpgroup computes: from its own first live one
+    // (causal: _first_live_q), none without keys; the loop bounds are
+    // shuffled, so ptxas sees them warp-uniform
+    const int i_lo = __shfl_sync(0xffffffffu, lo, 0);
+    const int i_hi = __shfl_sync(0xffffffffu, hi, 0);
+    const int live_lo = __shfl_sync(
+        0xffffffffu, !has_keys ? hi : trim ? max(lo, kw / kBwdStep) : lo,
+        0);
+    const uint32_t ka = res + wg * kBox, va = res + (2 + wg) * kBox;
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+    };
+    float dka[32], dva[32];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) dka[x] = dva[x] = 0.f;
+    mbar_wait(res_full, 0);
+
+    // turns at issuing S and dP (kTurnBar)
+    auto turn_begin = [&]() { bar_sync(kTurnBar + wg, 2 * kWG); };
+    auto turn_end = [&](bool last) {
+      if (!(last && wg == 1)) bar_arrive(kTurnBar + (wg ^ 1), 2 * kWG);
+    };
+    if (wg == 1) bar_arrive(kTurnBar, 2 * kWG);
+    int i = i_lo;
+    for (; i < live_lo; ++i) {  // stages none of whose products are ours
+      const int it = i - i_lo, s = it % kBwdStages;
+      mbar_wait(full(s), (it / kBwdStages) & 1);
+      turn_begin();
+      turn_end(i == i_hi - 1);
+      release(s);
+    }
+    for (; i < i_hi; ++i) {
+      const int it = i - i_lo, s = it % kBwdStages;
+      mbar_wait(full(s), (it / kBwdStages) & 1);
+      const uint32_t qa = ring + s * 2 * kBox, ga = qa + kBox;
+      const float* st = stats_gen + s * kStatStride;
+      const int q0 = i * kBwdStep;
+
+      // S^T = K.Q^T, then dP^T = V.dO^T (two groups): 64 keys x 64 q,
+      // K-major operands; the first k-step of each starts its sum
+      float sT[32], dpT[32];
+      turn_begin();
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd)
+        wgmma_m64n64_ss(sT, wgmma_desc(ka + 32 * kd, 16, 1024),
+                        wgmma_desc(qa + 32 * kd, 16, 1024), kd > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd)
+        wgmma_m64n64_ss(dpT, wgmma_desc(va + 32 * kd, 16, 1024),
+                        wgmma_desc(ga + 32 * kd, 16, 1024), kd > 0);
+      wgmma_commit();
+      turn_end(i == i_hi - 1);
+
+      // P^T = exp(S^T * scale - lse) in f32 while dP^T runs (in registers
+      // of its own: ptxas serializes wgmma when other instructions write
+      // an accumulator while a group is pending); split into hi + lo bf16
+      // A fragments (k-step kk is q columns 16kk..16kk+15: column group n
+      // gives registers 2(n & 1) and 2(n & 1) + 1 of k-step n / 2)
+      wgmma_wait<1>();
+      fence_regs(sT);
+      float pT[32];
+      const bool edge = (causal && kw + 63 > q0) || q0 + kBwdStep > S ||
+                        kw + 64 > limit;
+      uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int qc = 8 * n + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(st + qc);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lq = (e & 1) ? l2.y : l2.x;
+          float sc = sT[4 * n + e] * scale;
+          if (edge) {
+            const int qpos = q0 + qc + (e & 1);
+            const int kpos = kw + 16 * warp + g + 8 * (e >> 1);
+            sc = mask_score(sc, qpos, kpos, limit, causal);
+            pT[4 * n + e] = qpos < S ? exp_sfu(sc - lq) : 0.f;
+          } else {
+            pT[4 * n + e] = exp_sfu(sc - lq);
+          }
+        }
+        const int kk = n >> 1, r = (n & 1) * 2;
+        split_bf16(pT[4 * n], pT[4 * n + 1], ph[kk][r], pl[kk][r]);
+        split_bf16(pT[4 * n + 2], pT[4 * n + 3], ph[kk][r + 1],
+                   pl[kk][r + 1]);
+      }
+
+      // dV += P^T.dO, then dK += dS^T.Q, two groups: hi and lo of the
+      // tile's 64 q rows into fresh fragments (B read MN-major from the
+      // stage through the transpose bit), which the FMA units add to the
+      // running sums (the tensor cores truncate where they add into an
+      // accumulator). Every group lands within its tile: ptxas
+      // serializes wgmma whose accumulators it cannot see retired.
+      float fresh_v[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBwdStep / 16; ++kk) {
+        const uint64_t bd = wgmma_desc(ga + kk * 16 * 128, kBox, 1024);
+        wgmma_m64n64_rs(fresh_v, ph[kk], bd, kk > 0);
+        wgmma_m64n64_rs(fresh_v, pl[kk], bd, 1);
+      }
+      wgmma_commit();
+
+      // dS^T = P^T (dP^T - delta) in f32 while dV runs, split as P^T
+      wgmma_wait<1>();
+      fence_regs(dpT);
+      uint32_t dh[4][4], dl[4][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(st + kBwdStep + 8 * n + 2 * t);
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[e] = pT[4 * n + e] *
+                  (dpT[4 * n + e] - ((e & 1) ? d2.y : d2.x));
+        const int kk = n >> 1, r = (n & 1) * 2;
+        split_bf16(ds[0], ds[1], dh[kk][r], dl[kk][r]);
+        split_bf16(ds[2], ds[3], dh[kk][r + 1], dl[kk][r + 1]);
+      }
+
+      // dK += dS^T.Q; dV's fragments are added while it runs
+      float fresh_k[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBwdStep / 16; ++kk) {
+        const uint64_t bd = wgmma_desc(qa + kk * 16 * 128, kBox, 1024);
+        wgmma_m64n64_rs(fresh_k, dh[kk], bd, kk > 0);
+        wgmma_m64n64_rs(fresh_k, dl[kk], bd, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(fresh_v);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) dva[x] += fresh_v[x];
+      wgmma_wait<0>();
+      fence_regs(fresh_k);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) dka[x] += fresh_k[x];
+      release(s);
+    }
+
+    if (has_keys) {
+      const long long o_row = (long long)H * D;  // dk, dv: dense (B, S, H, D)
+      const long long base = ((long long)b * S * H + h) * D;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int kpos = kw + 16 * warp + g + 8 * r;
+        if (kpos >= S) continue;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          const long long at = base + kpos * o_row + 8 * n + 2 * t;
+          *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+              __floats2bfloat162_rn(dka[4 * n + 2 * r] * scale,
+                                    dka[4 * n + 2 * r + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+              __floats2bfloat162_rn(dva[4 * n + 2 * r],
+                                    dva[4 * n + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dQ on wgmma (D = 64), dK/dV's mirror.
+// grid (B*H, work items); item y is (q tile, first kv tile, end kv tile),
+// heaviest first. Consumer warpgroup wg owns q rows qw = q0 + 64 wg ..
+// qw + 63, with the lse and delta of its rows g and g + 8 in registers.
+// Shared memory: Q (2 boxes) and dO (2 boxes) resident; a ring of
+// kBwdStages stages of (K box, V box); the barriers.
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v,
+                              const __grid_constant__ CUtensorMap map_g,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              const int* __restrict__ kv_len,
+                              const int* __restrict__ work,
+                              bf16* __restrict__ dq, int H, int S,
+                              float scale, int causal) {
+  static_assert(D == hopper::kSw, "a head is one 128-byte swizzled row");
+  using namespace hopper;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw;
+  const uint32_t res = ring_base(smem);           // Q, then dO
+  const uint32_t ring = res + 4 * kBox;           // stage s: K, V
+  const uint32_t bars = ring + kBwdStages * 2 * kBox;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kBwdStages + s); };
+  const uint32_t res_full = bars + 16 * kBwdStages;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int* item = work + 3 * blockIdx.y;
+  const int q0 = item[0] * kBwdTile;
+  const int limit = kv_len ? kv_len[b] : S;
+  // a kv_len == 0 row has every key masked and walks every kv tile
+  const bool trim = causal && limit > 0;
+  const int lo = trim ? item[1] : 0;
+  const int hi = trim ? item[2] : (S + kBwdStep - 1) / kBwdStep;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // one arrival per consumer warp
+    }
+    mbar_init(res_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the warpgroup's index, warp-uniform in the compiler's view (see the
+  // dK/dV kernel)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWG, 0);
+  if (wg == 2) {
+    // ---- producer ----
+    producer_regs();
+    if (threadIdx.x == 2 * kWG) {
+      mbar_expect_tx(res_full, 4 * kBox);
+      for (int r = 0; r < 2; ++r) {
+        tma_load_4d(res + r * kBox, &map_q, res_full, 0, q0 + 64 * r, h, b);
+        tma_load_4d(res + (2 + r) * kBox, &map_g, res_full, 0, q0 + 64 * r,
+                    h, b);
+      }
+      for (int j = lo; j < hi; ++j) {
+        const int it = j - lo, s = it % kBwdStages;
+        mbar_wait(empty(s), ((it / kBwdStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * kBox);
+        const uint32_t dst = ring + s * 2 * kBox;
+        tma_load_4d(dst, &map_k, full(s), 0, j * kBwdStep, h, b);
+        tma_load_4d(dst + kBox, &map_v, full(s), 0, j * kBwdStep, h, b);
+      }
+    }
+  } else {
+    // ---- consumers ----
+    consumer_regs();
+    const int tw = threadIdx.x % kWG;
+    const int warp = tw / 32, lane = tw % 32, g = lane >> 2, t = lane & 3;
+    const int qw = q0 + 64 * wg;
+    const bool has_rows = qw < S;
+    // the kv tiles this warpgroup computes: up to its own last live one
+    // (causal: _last_live_kv), none without rows; the loop bounds are
+    // shuffled, so ptxas sees them warp-uniform
+    const int j_lo = __shfl_sync(0xffffffffu, lo, 0);
+    const int j_hi = __shfl_sync(0xffffffffu, hi, 0);
+    const int live_hi = __shfl_sync(
+        0xffffffffu, !has_rows ? lo : trim ? min(hi, qw / kBwdStep + 1) : hi,
+        0);
+    const uint32_t qa = res + wg * kBox, ga = res + (2 + wg) * kBox;
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+    };
+    // lse and delta of rows g and g + 8 (rows past S are never stored)
+    float lse_r[2], delta_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = qw + 16 * warp + g + 8 * r;
+      const bool in = qpos < S;
+      lse_r[r] = in ? lse[(long long)bh * S + qpos] : 0.f;
+      delta_r[r] = in ? delta[(long long)bh * S + qpos] : 0.f;
+    }
+    float dqa[32];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) dqa[x] = 0.f;
+    mbar_wait(res_full, 0);
+
+    // turns at issuing S and dP (kTurnBar)
+    auto turn_begin = [&]() { bar_sync(kTurnBar + wg, 2 * kWG); };
+    auto turn_end = [&](bool last) {
+      if (!(last && wg == 1)) bar_arrive(kTurnBar + (wg ^ 1), 2 * kWG);
+    };
+    if (wg == 1) bar_arrive(kTurnBar, 2 * kWG);
+    int j = j_lo;
+    for (; j < live_hi; ++j) {
+      const int it = j - j_lo, s = it % kBwdStages;
+      mbar_wait(full(s), (it / kBwdStages) & 1);
+      const uint32_t kt = ring + s * 2 * kBox, vt = kt + kBox;
+      const int k0 = j * kBwdStep;
+
+      // S = Q.K^T, then dP = dO.V^T (two groups): 64 q rows x 64 keys,
+      // K-major operands; the first k-step of each starts its sum
+      float sc_[32], dp[32];
+      turn_begin();
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd)
+        wgmma_m64n64_ss(sc_, wgmma_desc(qa + 32 * kd, 16, 1024),
+                        wgmma_desc(kt + 32 * kd, 16, 1024), kd > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd)
+        wgmma_m64n64_ss(dp, wgmma_desc(ga + 32 * kd, 16, 1024),
+                        wgmma_desc(vt + 32 * kd, 16, 1024), kd > 0);
+      wgmma_commit();
+      turn_end(j == j_hi - 1);
+
+      // P = exp(S * scale - lse) in f32 while dP runs (in registers of
+      // its own, as dK/dV's P^T), the masks only where the tile needs
+      // them (keys past S: P = 0)
+      wgmma_wait<1>();
+      fence_regs(sc_);
+      float pr[32];
+      const bool edge = (causal && k0 + 63 > qw) || k0 + kBwdStep > S ||
+                        k0 + kBwdStep > limit;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float sc = sc_[4 * n + e] * scale;
+          if (edge) {
+            const int qpos = qw + 16 * warp + g + 8 * r;
+            const int kpos = k0 + 8 * n + 2 * t + (e & 1);
+            sc = mask_score(sc, qpos, kpos, limit, causal);
+            pr[4 * n + e] = kpos < S ? exp_sfu(sc - lse_r[r]) : 0.f;
+          } else {
+            pr[4 * n + e] = exp_sfu(sc - lse_r[r]);
+          }
+        }
+
+      // dS = P (dP - delta) in f32, split into hi + lo A fragments of
+      // dS.K (key group n: k-step n / 2)
+      wgmma_wait<0>();
+      fence_regs(dp);
+      uint32_t dh[4][4], dl[4][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[e] = pr[4 * n + e] * (dp[4 * n + e] - delta_r[e >> 1]);
+        const int kk = n >> 1, r = (n & 1) * 2;
+        split_bf16(ds[0], ds[1], dh[kk][r], dl[kk][r]);
+        split_bf16(ds[2], ds[3], dh[kk][r + 1], dl[kk][r + 1]);
+      }
+
+      // dQ += dS.K: hi and lo into fresh fragments (K read MN-major from
+      // the stage through the transpose bit), added to dQ by the FMA
+      // units; the group lands within its tile (see dK/dV)
+      float fresh[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBwdStep / 16; ++kk) {
+        const uint64_t bd = wgmma_desc(kt + kk * 16 * 128, kBox, 1024);
+        wgmma_m64n64_rs(fresh, dh[kk], bd, kk > 0);
+        wgmma_m64n64_rs(fresh, dl[kk], bd, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(fresh);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) dqa[x] += fresh[x];
+      release(s);
+    }
+    for (; j < j_hi; ++j) {  // stages none of whose products are ours
+      const int it = j - j_lo, s = it % kBwdStages;
+      mbar_wait(full(s), (it / kBwdStages) & 1);
+      turn_begin();
+      turn_end(j == j_hi - 1);
+      release(s);
+    }
+
+    if (has_rows) {
+      const long long o_row = (long long)H * D;  // dq: dense (B, S, H, D)
+      bf16* ob = dq + ((long long)b * S * H + h) * D;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qpos = qw + 16 * warp + g + 8 * r;
+        if (qpos >= S) continue;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(ob + qpos * o_row + 8 * n +
+                                             2 * t) =
+              __floats2bfloat162_rn(dqa[4 * n + 2 * r] * scale,
+                                    dqa[4 * n + 2 * r + 1] * scale);
+      }
+    }
+  }
+}
+
 // Shared memory of each kernel, in bytes.
 size_t fwd_smem(int D) {
   return (size_t)((kBQ + kBK) * (D + 1) + kBK * D + kBQ * kPT) * 4;
@@ -1814,6 +2341,14 @@ size_t dkv_mma_smem(int D) {  // k, v, 2-stage q and dO rings; lse, delta
 }
 size_t dq_mma_smem(int D) {  // q, dO, 2-stage k and v rings
   return (size_t)(2 * kBQ + 4 * kBK) * (D + 8) * sizeof(bf16);
+}
+
+// the wgmma backward: resident tiles, the ring, dK/dV's lse and delta
+// ring (stats), the barriers, and the slack to a 1024-byte boundary
+size_t bwd_wgmma_smem(bool stats) {
+  return 1024 + (size_t)(4 + 2 * kBwdStages) * hopper::kBox +
+         (stats ? (size_t)kBwdStages * kStatStride * sizeof(float) : 0) +
+         (2 * kBwdStages + 1) * 8;
 }
 
 size_t fwd_wide_smem() {  // q, k slices; v columns; p
@@ -1951,6 +2486,69 @@ int launch_dkv_mma(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// q, k, v and dO as 4-D TMA maps over (D, S, H, B), the caller's (b, s,
+// h) element strides, boxes of 64 head columns x 64 rows of one head.
+// False where a map cannot be encoded (the wrapper refuses those first).
+bool bwd_maps(CUtensorMap (&maps)[4], const void* const (&ptrs)[4],
+              const long long* strides, int B, int H, int S) {
+  for (int i = 0; i < 4; ++i) {
+    const long long* st = strides + 3 * i;
+    const cuuint64_t dims[4] = {(cuuint64_t)hopper::kSw, (cuuint64_t)S,
+                                (cuuint64_t)H, (cuuint64_t)B};
+    const cuuint64_t bytes[3] = {(cuuint64_t)st[1] * sizeof(bf16),
+                                 (cuuint64_t)st[2] * sizeof(bf16),
+                                 (cuuint64_t)st[0] * sizeof(bf16)};
+    const cuuint32_t box[4] = {(cuuint32_t)hopper::kSw, (cuuint32_t)kBwdStep,
+                               1, 1};
+    if (!hopper::encode_bf16(&maps[i], ptrs[i], 4, dims, bytes, box))
+      return false;
+  }
+  return true;
+}
+
+int launch_dq_wgmma(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    const void* kv_len, const void* work, int n_work,
+                    void* dq, const long long* strides, int B, int H, int S,
+                    float scale, int causal, cudaStream_t stream) {
+  CUtensorMap maps[4];
+  const void* const ptrs[4] = {q, k, v, dout};
+  if (!bwd_maps(maps, ptrs, strides, B, H, S))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = bwd_wgmma_smem(false);
+  cudaError_t err = allow_smem(flash_bwd_dq_wgmma_kernel<64>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, n_work);
+  flash_bwd_dq_wgmma_kernel<64><<<grid, kWgThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(kv_len),
+      static_cast<const int*>(work), static_cast<bf16*>(dq), H, S, scale,
+      causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     const void* kv_len, const void* work, int n_work,
+                     void* dk, void* dv, const long long* strides, int B,
+                     int H, int S, float scale, int causal,
+                     cudaStream_t stream) {
+  CUtensorMap maps[4];
+  const void* const ptrs[4] = {q, k, v, dout};
+  if (!bwd_maps(maps, ptrs, strides, B, H, S))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = bwd_wgmma_smem(true);
+  cudaError_t err = allow_smem(flash_bwd_dkv_wgmma_kernel<64>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, n_work);
+  flash_bwd_dkv_wgmma_kernel<64><<<grid, kWgThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(kv_len),
+      static_cast<const int*>(work), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, S, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_fwd_wide(const void* q, const void* k, const void* v,
                     const void* kv_len, void* out, void* lse,
@@ -2020,10 +2618,17 @@ int launch_dkv_wide(const void* q, const void* k, const void* v,
 // One dispatch over (dtype, head dim) for the three entry points: BF16
 // launches bf16 inputs at D = 64 and 128 (the tensor-core kernels), FMA
 // f32 inputs, and bf16 ones at D = 256, where the mma kernels' fragments
-// would not fit the registers.
+// would not fit the registers. The backward entry points take bf16 at
+// D = 64 to the wgmma kernels before this dispatch.
 #define KFTPU_FLASH_DISPATCH(BF16, FMA, ...)                             \
   do {                                                                   \
     if (is_bf16 && D == 64) return BF16<bf16, 64>(__VA_ARGS__);          \
+    KFTPU_FLASH_DISPATCH_REST(BF16, FMA, __VA_ARGS__);                   \
+  } while (0)
+
+// ... less bf16 at D = 64 (the backward's wgmma kernels take it).
+#define KFTPU_FLASH_DISPATCH_REST(BF16, FMA, ...)                        \
+  do {                                                                   \
     if (is_bf16 && D == 128) return BF16<bf16, 128>(__VA_ARGS__);        \
     if (is_bf16 && D == 256) return FMA<bf16, 256>(__VA_ARGS__);         \
     if (!is_bf16 && D == 64) return FMA<float, 64>(__VA_ARGS__);         \
@@ -2054,33 +2659,57 @@ extern "C" int kftpu_flash_fwd(const void* q, const void* k, const void* v,
 
 // strides: (b, s, h) of q, k, v and dO; lse and delta are dense (B, H, S)
 // f32; dq is a dense (B, S, H, D) tensor in q's dtype. bf16 rows on 16
-// bytes, as kftpu_flash_fwd.
+// bytes, as kftpu_flash_fwd. bf16 at D = 64 runs the wgmma kernel over
+// `work`: n_work (tile, first, end) int32 triples, heaviest first, of
+// block_q-row q tiles walking block_k-key kv tiles, which must be the
+// kernel's own (kBwdTile, kBwdStep); the strides must be ones a TMA map
+// encodes (the wrapper checks). Other dtypes and head dims ignore work.
 extern "C" int kftpu_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, const void* kv_len,
-                                  void* dq, const long long* strides, int B,
-                                  int H, int S, int D, float scale,
-                                  int causal, int is_bf16, void* stream) {
+                                  void* dq, const long long* strides,
+                                  const void* work, int B, int H, int S,
+                                  int D, int n_work, int block_q,
+                                  int block_k, float scale, int causal,
+                                  int is_bf16, void* stream) {
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (is_bf16 && D == 64) {
+    if (work == nullptr || block_q != kBwdTile || block_k != kBwdStep)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_dq_wgmma(q, k, v, dout, lse, delta, kv_len, work, n_work,
+                           dq, strides, B, H, S, scale, causal, s);
+  }
   KFTPU_FLASH_WIDE(launch_dq_wide, q, k, v, dout, lse, delta, kv_len, dq,
                    strides, B, H, S, D, scale, causal, s);
-  KFTPU_FLASH_DISPATCH(launch_dq_mma, launch_dq, q, k, v, dout, lse, delta,
-                       kv_len, dq, strides, B, H, S, scale, causal, s);
+  KFTPU_FLASH_DISPATCH_REST(launch_dq_mma, launch_dq, q, k, v, dout, lse,
+                            delta, kv_len, dq, strides, B, H, S, scale,
+                            causal, s);
 }
 
-// As kftpu_flash_bwd_dq; dk and dv are dense (B, S, H, D) tensors.
+// As kftpu_flash_bwd_dq; dk and dv are dense (B, S, H, D) tensors, and
+// `work` holds block_k-key kv tiles walking block_q-row q tiles
+// (block_q = kBwdStep, block_k = kBwdTile).
 extern "C" int kftpu_flash_bwd_dkv(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
                                    const void* kv_len, void* dk, void* dv,
-                                   const long long* strides, int B, int H,
-                                   int S, int D, float scale, int causal,
+                                   const long long* strides,
+                                   const void* work, int B, int H, int S,
+                                   int D, int n_work, int block_q,
+                                   int block_k, float scale, int causal,
                                    int is_bf16, void* stream) {
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (is_bf16 && D == 64) {
+    if (work == nullptr || block_q != kBwdStep || block_k != kBwdTile)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_dkv_wgmma(q, k, v, dout, lse, delta, kv_len, work, n_work,
+                            dk, dv, strides, B, H, S, scale, causal, s);
+  }
   KFTPU_FLASH_WIDE(launch_dkv_wide, q, k, v, dout, lse, delta, kv_len, dk,
                    dv, strides, B, H, S, D, scale, causal, s);
-  KFTPU_FLASH_DISPATCH(launch_dkv_mma, launch_dkv, q, k, v, dout, lse, delta,
-                       kv_len, dk, dv, strides, B, H, S, scale, causal, s);
+  KFTPU_FLASH_DISPATCH_REST(launch_dkv_mma, launch_dkv, q, k, v, dout, lse,
+                            delta, kv_len, dk, dv, strides, B, H, S, scale,
+                            causal, s);
 }

@@ -23,7 +23,14 @@ model's call site); ``lse`` and ``delta`` are ``(B, H, S)`` f32;
 
 The bf16 kernels (forward, dQ and dK/dV) stage rows with 16-byte
 copies: their wrappers raise (:func:`check_rows_16b`) on a bf16 input
-whose rows do not start on 16 bytes, rather than copy it.
+whose rows do not start on 16 bytes, rather than copy it. The bf16
+backward at D = 64 (the wgmma kernels) reads q, k, v and dO through TMA
+maps, and its wrappers also refuse what a map cannot encode
+(:func:`check_tma`). Those kernels own 128 rows a block and walk a work
+list (:func:`bwd_work`): one item a block tile with the range of tiles
+it streams, the causal ranges of the reference's ``_first_live_q`` and
+``_last_live_kv``, heaviest first; it is made once a shape and kept on
+the card.
 
 The kernels are built for the head dims of ``HEAD_DIMS``, and past
 the largest for any multiple of ``WIDE_STEP`` (the wide kernels, which
@@ -40,16 +47,23 @@ out zero, so this is exact. No head dim is refused.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from kubeflow_tpu_torch.ops.attention import NEG_INF
+from kubeflow_tpu_torch.ops.autotune import (
+    FLASH_TILE,
+    WGMMA_BWD_TILES,
+    flash_tile,
+)
 
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 HEAD_DIMS = (64, 128, 256)   # the head dims the CUDA kernels are built for
 WIDE_STEP = 64          # past HEAD_DIMS[-1], any multiple of it (kDC in csrc)
 BLOCK_K = 64            # the forward kernel's key tile (kBK in csrc)
+TMA_MAX_STRIDE = 1 << 40  # bytes: a TMA map's strides lie below it
 
 
 def _scale(q: torch.Tensor, sm_scale: Optional[float]) -> float:
@@ -201,8 +215,8 @@ def _lib():
     if lib.kftpu_flash_fwd.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.kftpu_flash_fwd.argtypes = [p] * 7 + [i] * 4 + [f, i, i, p]
-        lib.kftpu_flash_bwd_dq.argtypes = [p] * 9 + [i] * 4 + [f, i, i, p]
-        lib.kftpu_flash_bwd_dkv.argtypes = [p] * 10 + [i] * 4 + [f, i, i, p]
+        lib.kftpu_flash_bwd_dq.argtypes = [p] * 10 + [i] * 7 + [f, i, i, p]
+        lib.kftpu_flash_bwd_dkv.argtypes = [p] * 11 + [i] * 7 + [f, i, i, p]
         for fn in (lib.kftpu_flash_fwd, lib.kftpu_flash_bwd_dq,
                    lib.kftpu_flash_bwd_dkv):
             fn.restype = ctypes.c_int
@@ -225,6 +239,86 @@ def check_rows_16b(tensors) -> None:
                 f"{tuple(t.stride()[:3])} of {el}-byte elements")
 
 
+def tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
+    """``t``'s (b, s, h) element strides as the kernels take them: a dim
+    of one element is never stepped, so its stride (which PyTorch leaves
+    free) is given as one row of the head dim."""
+    return tuple(st if n > 1 else t.shape[-1]
+                 for st, n in zip(t.stride()[:3], t.shape[:3]))
+
+
+def check_tma(tensors) -> None:
+    """The wgmma backward kernels load q, k, v and dO through 4-D TMA
+    maps over (D, S, H, B): raise unless each tensor's base is on 16
+    bytes and its (b, s, h) strides (:func:`tma_strides`, in bytes) are
+    multiples of 16 below ``TMA_MAX_STRIDE``, what such a map encodes."""
+    for t in tensors:
+        el = t.element_size()
+        strides = [st * el for st in tma_strides(t)]
+        if t.data_ptr() % 16 or any(st % 16 or not 0 <= st < TMA_MAX_STRIDE
+                                    for st in strides):
+            raise ValueError(
+                "the wgmma flash backward reads each input through a TMA "
+                "map: its base must be on 16 bytes and its (b, s, h) "
+                f"strides multiples of 16 bytes below 2**40; got base "
+                f"address {t.data_ptr()} and strides {tuple(strides)} "
+                "bytes")
+
+
+def _first_live_q(j: int, block_q: int, block_k: int) -> int:
+    """The reference's ``_first_live_q`` (attention.py :160)."""
+    return (j * block_k) // block_q
+
+
+def _last_live_kv(i: int, block_q: int, block_k: int) -> int:
+    """The reference's ``_last_live_kv`` (attention.py :152)."""
+    return (i * block_q + block_q - 1) // block_k
+
+
+@functools.lru_cache(maxsize=64)
+def bwd_work(kernel: str, S: int, causal: bool
+             ) -> Tuple[Tuple[int, int, int], ...]:
+    """The wgmma backward kernel's work list at sequence length ``S``:
+    one ``(tile, first, end)`` item per block tile of its
+    ``WGMMA_BWD_TILES`` (dK/dV: 128-key tiles streaming 64-row q tiles
+    ``[first, end)``; dQ: 128-row q tiles streaming 64-key kv tiles),
+    heaviest first (most streamed tiles, then the lower tile). Causal
+    ranges start at ``_first_live_q`` (dK/dV) or end after
+    ``_last_live_kv`` (dQ); the kernel walks every tile for a batch row
+    whose ``kv_len`` is 0, whose keys are all masked."""
+    block_q, block_k = WGMMA_BWD_TILES[kernel]
+    n_q, n_kv = -(-S // block_q), -(-S // block_k)
+    if kernel == "flash_bwd_dkv":
+        items = [(j, _first_live_q(j, block_q, block_k) if causal else 0,
+                  n_q) for j in range(n_kv)]
+    else:
+        items = [(i, 0, min(n_kv, _last_live_kv(i, block_q, block_k) + 1)
+                  if causal else n_kv) for i in range(n_q)]
+    return tuple(sorted(items, key=lambda it: (it[1] - it[2], it[0])))
+
+
+@functools.lru_cache(maxsize=64)
+def _work_tensor(kernel: str, S: int, causal: bool,
+                 device: torch.device) -> torch.Tensor:
+    """:func:`bwd_work` as a ``(n, 3)`` int32 tensor on ``device``, made
+    once a shape (the kernels only read it)."""
+    return torch.tensor(bwd_work(kernel, S, causal),
+                        dtype=torch.int32).to(device)
+
+
+def _bwd_route(kernel: str, tensors, causal: bool):
+    """``(block_q, block_k, work pointer, items)`` of one backward
+    launch: the wgmma kernel's tile and work list after :func:`check_tma`
+    where it runs (bf16 at D = 64), else ``FLASH_TILE`` and no list."""
+    q = tensors[0]
+    tile = flash_tile(kernel, q.shape[-1], q.dtype)
+    if tile == FLASH_TILE:
+        return (*tile, None, 0)
+    check_tma(tensors)
+    work = _work_tensor(kernel, q.shape[1], causal, q.device)
+    return (*tile, work.data_ptr(), work.shape[0])
+
+
 def _cuda_args(q, tensors, kv_len, rows_16b=False):
     """Check what the kernels take (with ``rows_16b``, that bf16 rows
     start on 16 bytes); returns (strides array, kv_len pointer, dims) for
@@ -244,8 +338,7 @@ def _cuda_args(q, tensors, kv_len, rows_16b=False):
     if rows_16b and q.dtype == torch.bfloat16:
         check_rows_16b(tensors)
     strides = (ctypes.c_longlong * (3 * len(tensors)))(
-        *[st for t in tensors for st in (t.stride(0), t.stride(1),
-                                         t.stride(2))])
+        *[st for t in tensors for st in tma_strides(t)])
     if kv_len is not None:
         if kv_len.dtype != torch.int32 or not kv_len.is_contiguous():
             raise TypeError("kv_len must be a contiguous int32 tensor")
@@ -316,14 +409,16 @@ def flash_bwd_dq(q, k, v, g, lse, delta, *, causal: bool = True,
     q, k, v, g = pad_head_dim((q, k, v, g), padded_head_dim(D0))
     strides, len_ptr, (B, H, S, D) = _cuda_args(q, (q, k, v, g), kv_len,
                                                 rows_16b=True)
+    block_q, block_k, work, n_work = _bwd_route("flash_bwd_dq",
+                                                (q, k, v, g), causal)
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         _launch("flash_bwd_dq", lib.kftpu_flash_bwd_dq, q.data_ptr(),
                 k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), len_ptr, dq.data_ptr(), strides, B, H, S,
-                D, scale, int(causal), int(q.dtype == torch.bfloat16),
-                _stream(q))
+                delta.data_ptr(), len_ptr, dq.data_ptr(), strides, work, B,
+                H, S, D, n_work, block_q, block_k, scale, int(causal),
+                int(q.dtype == torch.bfloat16), _stream(q))
     return unpad_head_dim((dq,), D0)[0]
 
 
@@ -339,6 +434,8 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal: bool = True,
     q, k, v, g = pad_head_dim((q, k, v, g), padded_head_dim(D0))
     strides, len_ptr, (B, H, S, D) = _cuda_args(q, (q, k, v, g), kv_len,
                                                 rows_16b=True)
+    block_q, block_k, work, n_work = _bwd_route("flash_bwd_dkv",
+                                                (q, k, v, g), causal)
     dk = torch.empty((B, S, H, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, S, H, D), dtype=v.dtype, device=q.device)
     lib = _lib()
@@ -346,6 +443,6 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal: bool = True,
         _launch("flash_bwd_dkv", lib.kftpu_flash_bwd_dkv, q.data_ptr(),
                 k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), len_ptr, dk.data_ptr(), dv.data_ptr(),
-                strides, B, H, S, D, scale, int(causal),
-                int(q.dtype == torch.bfloat16), _stream(q))
+                strides, work, B, H, S, D, n_work, block_q, block_k, scale,
+                int(causal), int(q.dtype == torch.bfloat16), _stream(q))
     return unpad_head_dim((dk, dv), D0)

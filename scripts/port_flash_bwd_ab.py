@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""The port's flash backward kernels timed on one GPU, against another
+checkout's.
+
+``kubeflow_tpu_torch/ops/flash_attention.py``'s ``flash_bwd_dq`` and
+``flash_bwd_dkv`` (and, beside them, ``flash_fwd``) are timed with
+``chip_smoke.time_ms`` (CUDA events, cold L2, device time only) at
+``chip_smoke.py``'s two timed shapes of phase 2, bf16: the LM's
+(B=2, S=8192, H=16, D=64, causal) and BERT-base's (B=16, S=512, H=12,
+D=64, non-causal), on inputs made by ``chip_smoke.flash_inputs`` from
+one seed, with the lse and delta of the tree's own forward. Each point
+prints one JSON line with the card's name and power limit, its ms and
+the bound of its shape (``chip_smoke.flash_bytes_ops``), and the norm
+error of dQ, dK and dV against the tree's plain versions.
+
+Usage (needs CUDA):
+
+- ``python3 scripts/port_flash_bwd_ab.py`` times this checkout;
+- ``python3 scripts/port_flash_bwd_ab.py --against DIR`` times DIR's
+  kernels (another checkout's root, e.g. the parent commit unpacked by
+  ``git archive``) and this checkout's in turns (DIR, this, this, DIR),
+  each in a process of its own.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+SHAPES = {"lm": ((2, 8192, 16, 64), True), "bert": ((16, 512, 12, 64),
+                                                     False)}
+
+
+def _smoke():
+    """This checkout's ``chip_smoke`` (inputs, bounds and timing), loaded
+    by path: with ``--tree`` the package on ``sys.path`` is another's."""
+    spec = importlib.util.spec_from_file_location(
+        "port_flash_bwd_ab_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _points(tree: str) -> None:
+    import torch
+
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    smoke = _smoke()
+    dev = torch.device("cuda", 0)
+    ident = smoke.gpu_identity()
+    for label, ((B, S, H, D), causal) in SHAPES.items():
+        q, k, v, g, _ = smoke.flash_inputs(B, S, H, D, torch.bfloat16, dev,
+                                           smoke.SEED + 1, False)
+        out, lse = fa.flash_fwd(q, k, v, causal=causal)
+        delta = fa.flash_delta(g, out)
+        got = (fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=causal),
+               *fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal=causal))
+        plain = smoke.over_heads(
+            lambda q, k, v, g, lse, delta: (
+                fa.flash_bwd_dq_plain(q, k, v, g, lse, delta, causal=causal),
+                *fa.flash_bwd_dkv_plain(q, k, v, g, lse, delta,
+                                        causal=causal)),
+            q, k, v, g, lse, delta, 4)
+        errs = {name: smoke.norm_err(a, b)
+                for name, a, b in zip(("dq", "dk", "dv"), got, plain)}
+        del got, plain
+        ms = {"flash_fwd": smoke.time_ms(
+                  lambda: fa.flash_fwd(q, k, v, causal=causal)),
+              "flash_bwd_dq": smoke.time_ms(lambda: fa.flash_bwd_dq(
+                  q, k, v, g, lse, delta, causal=causal)),
+              "flash_bwd_dkv": smoke.time_ms(lambda: fa.flash_bwd_dkv(
+                  q, k, v, g, lse, delta, causal=causal))}
+        work = smoke.flash_bytes_ops(B, S, H, D, 2, causal)
+        for name, t in ms.items():
+            nbytes, flops = work[name]
+            bound = max(nbytes / smoke.HBM_BYTES_PER_S,
+                        flops / smoke.BF16_FLOPS) * 1e3
+            print(json.dumps({"device": ident, "tree": tree, "shape": label,
+                              "kernel": name, "kernel_ms": t,
+                              "bound_ms": bound, "norm_err": errs}),
+                  flush=True)
+        del q, k, v, g, out, lse, delta
+        torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", metavar="DIR",
+                    help="time DIR's kernels and this one's in turns")
+    ap.add_argument("--tree", metavar="DIR",
+                    help="time DIR's kernels only (one turn of --against)")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs CUDA", file=sys.stderr)
+        return 1
+    if args.against:
+        other = os.path.abspath(args.against)
+        for tree in (other, ROOT, ROOT, other):
+            rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                 "--tree", tree]).returncode
+            if rc:
+                return rc
+        return 0
+    sys.path.insert(0, os.path.abspath(args.tree or ROOT))
+    _points(args.tree or ROOT)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

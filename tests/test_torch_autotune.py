@@ -6,7 +6,8 @@ names and entry keys equal the reference's; ``TileTable.lookup`` picks
 the same row for the same entries and queries; overrides, partial
 overrides and the loader's reject-with-warning path behave as there.
 Then Hopper's legality in place of the VMEM estimate: a flash row only
-at the compiled 64 x 64 tile, a paged row's split a whole number of
+at the tile its kernel is compiled for (64 x 64, or the bf16 D <= 64
+backward's wgmma tiles), a paged row's split a whole number of
 pages whose block fits the shared-memory limit, wildcards checked at the
 strictest shape; the committed ``sm_90`` rows reproduce the wrapper's
 analytic choices; and the paged wrapper's split resolves through the
@@ -156,7 +157,9 @@ class TestResolution:
                                n_heads=n_heads, n_kv_heads=n_heads,
                                dtype=torch.bfloat16, causal=causal,
                                generation="sm_90")
-        assert (cfg.source, cfg.block_q, cfg.block_k) == ("table", 64, 64)
+        want = {"flash_fwd": (64, 64), "flash_bwd_dq": (128, 64),
+                "flash_bwd_dkv": (64, 128)}[kernel]
+        assert (cfg.source, cfg.block_q, cfg.block_k) == ("table", *want)
 
     def test_uncovered_shape_falls_back_to_the_compiled_tile(self):
         cfg = at.resolve_flash("flash_fwd", seq=4096, head_dim=128,
@@ -266,6 +269,70 @@ class TestHopperLegality:
         row = _paged_row()
         del row["split_tokens"]
         assert any("split_tokens" in e for e in at.validate_entry(row))
+
+
+class TestBackwardTiles:
+    """The legal tile is per kernel key: the forward's 64 x 64, and the
+    bf16 D <= 64 backward's wgmma tiles (dQ 128 q rows x 64 keys, dK/dV
+    64 q rows x 128 keys); the other backward kernels keep 64 x 64."""
+
+    @pytest.mark.parametrize("kernel,tile", [("flash_bwd_dq", (128, 64)),
+                                             ("flash_bwd_dkv", (64, 128))])
+    @pytest.mark.parametrize("head_dim", [64, 32])
+    def test_wgmma_tiles_are_legal(self, kernel, tile, head_dim):
+        row = _flash_row(kernel=kernel, head_dim=head_dim, block_q=tile[0],
+                         block_k=tile[1])
+        assert at.validate_entry(row) == []
+        assert at.flash_tile(kernel, head_dim, torch.bfloat16) == tile
+
+    @pytest.mark.parametrize("kernel,tile", [("flash_bwd_dq", "128 x 64"),
+                                             ("flash_bwd_dkv", "64 x 128")])
+    @pytest.mark.parametrize("bq,bk", [(64, 64), (128, 128)])
+    def test_old_tile_refused_for_the_wgmma_kernels(self, kernel, tile, bq,
+                                                    bk):
+        errs = at.validate_entry(_flash_row(kernel=kernel, block_q=bq,
+                                            block_k=bk))
+        assert any(tile in e for e in errs)
+
+    @pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
+    @pytest.mark.parametrize("head_dim,dtype", [(128, "bfloat16"),
+                                                (256, "bfloat16"),
+                                                (64, "float32"),
+                                                (None, "float32")])
+    def test_other_backward_kernels_keep_64_by_64(self, kernel, head_dim,
+                                                  dtype):
+        row = _flash_row(kernel=kernel, head_dim=head_dim, dtype=dtype)
+        assert at.validate_entry(row) == []
+        wgmma = _flash_row(kernel=kernel, head_dim=head_dim, dtype=dtype,
+                           block_q=128, block_k=128)
+        assert any("64 x 64" in e for e in at.validate_entry(wgmma))
+
+    @pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
+    @pytest.mark.parametrize("field,value", [("head_dim", None),
+                                             ("dtype", "*")])
+    def test_a_row_open_where_the_kernel_changes_is_refused(self, kernel,
+                                                            field, value):
+        row = _flash_row(kernel=kernel, **{field: value})
+        errs = at.validate_entry(row)
+        assert any("pin head_dim and dtype" in e for e in errs)
+
+    @pytest.mark.parametrize("kernel,tile", [("flash_fwd", (64, 64)),
+                                             ("flash_bwd_dq", (128, 64)),
+                                             ("flash_bwd_dkv", (64, 128))])
+    def test_resolve_flash_returns_what_the_kernel_runs(self, kernel, tile):
+        """Without a row the fallback is the kernel's own tile, and the
+        committed row agrees with it; an override is recorded as it is."""
+        with at.table_override(at.TileTable([], [])):
+            cfg = at.resolve_flash(kernel, seq=8192, generation="sm_90",
+                                   **LM_SHAPE)
+        assert (cfg.source, (cfg.block_q, cfg.block_k)) == ("fallback",
+                                                           tile)
+        cfg = at.resolve_flash(kernel, seq=8192, generation="sm_90",
+                               **LM_SHAPE)
+        assert (cfg.source, (cfg.block_q, cfg.block_k)) == ("table", tile)
+        cfg = at.resolve_flash(kernel, seq=8192, block_q=64, block_k=64,
+                               generation="sm_90", **LM_SHAPE)
+        assert (cfg.source, cfg.block_q, cfg.block_k) == ("override", 64, 64)
 
 
 class TestTableIO:

@@ -528,6 +528,80 @@ def test_flash_bf16_kernels_are_deterministic(cuda, D):
         assert torch.equal(a, b)
 
 
+def _hold_bwd(q, k, v, g, *, causal, kv_len=None):
+    """dQ and dK/dV from the kernel forward's lse against their plain
+    versions at the bf16 norm-relative limit (4e-4); returns the kernel
+    outputs (dq, dk, dv) and each output's reading."""
+    kw = dict(causal=causal, kv_len=kv_len)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = fa.flash_delta(g, out)
+    before = dict(fa.launches)
+    got = (fa.flash_bwd_dq(q, k, v, g, lse, delta, **kw),
+           *fa.flash_bwd_dkv(q, k, v, g, lse, delta, **kw))
+    torch.cuda.synchronize()
+    assert fa.launches["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert fa.launches["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    want = (fa.flash_bwd_dq_plain(q, k, v, g, lse, delta, **kw),
+            *fa.flash_bwd_dkv_plain(q, k, v, g, lse, delta, **kw))
+    rels = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        a, b = a.float(), b.float()
+        assert torch.isfinite(a).all(), name
+        rels[name] = ((a - b).norm() / b.norm()).item()
+        assert rels[name] <= 4e-4, f"{name}: norm err {rels[name]} > 4e-4"
+    return got, rels
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_backward_reads_views_of_a_fused_projection(cuda,
+                                                                causal):
+    """The bf16 D = 64 backward loads q, k, v and dO through TMA maps
+    over their strides: q/k/v as views of one fused (B, S, 3, H, D)
+    tensor give the contiguous inputs' result bit for bit, and both hold
+    to the plain versions."""
+    B, S, H, D = 2, 300, 4, 64
+    rng = np.random.default_rng(21)
+    qkv = torch.from_numpy(rng.standard_normal((B, S, 3, H, D)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    g = torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    views = [qkv[:, :, i] for i in range(3)]
+    assert not views[0].is_contiguous()
+    fused, _ = _hold_bwd(*views, g, causal=causal)
+    dense, _ = _hold_bwd(*(t.contiguous() for t in views), g, causal=causal)
+    for a, b in zip(fused, dense):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_backward_ragged_rows_and_kv_len(cuda, causal):
+    """S = 1000 (a ragged last 128-row block tile and 64-row stage) with
+    kv_len rows of 0, 1, a ragged length and the full length: the
+    kv_len = 0 row walks every tile and averages over all S keys."""
+    S = 1000
+    rng = np.random.default_rng(22)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((4, S, 4, 64))
+                                   .astype(np.float32)).to(cuda,
+                                                           torch.bfloat16)
+                  for _ in range(4))
+    lens = torch.tensor([0, 1, 937, S], dtype=torch.int32, device=cuda)
+    _hold_bwd(q, k, v, g, causal=causal, kv_len=lens)
+
+
+def test_flash_wgmma_backward_long_sum_holds_dv(cuda):
+    """dV over S = 8192 q rows, causal: each 64-row q tile's products go
+    to fresh tensor-core fragments added in f32, so the truncation of
+    one long tensor-core sum (4.1e-4 of dV's norm when it carried the
+    whole sum) stays under the 4e-4 limit."""
+    rng = np.random.default_rng(23)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((1, 8192, 2, 64))
+                                   .astype(np.float32)).to(cuda,
+                                                           torch.bfloat16)
+                  for _ in range(4))
+    _, rels = _hold_bwd(q, k, v, g, causal=True)
+    print(f"S=8192 causal norm errors: {rels}")
+
+
 def test_flash_bf16_kernels_refuse_rows_off_16_bytes(cuda):
     """The bf16 forward, dQ and dK/dV stage rows with 16-byte copies: a
     view whose base address or row stride is not a multiple of 16 bytes
