@@ -26,10 +26,11 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
    4e-4, which a bf16 fault in each output must exceed), timed at the
    training case beside ``scaled_dot_product_attention`` (timed only,
    each backend pinned in turn, the fastest kept), with each flash
-   kernel's ptxas registers and spills (the D=64 kernels,
-   ``flash_fwd_mma_kernel`` and the backward's two wgmma kernels, must
-   each have a line and must not spill); and BERT's shape (B=16,
-   S=512, H=12, D=64, bf16, non-causal, with and without ``kv_len``),
+   kernel's ptxas registers and spills (the D=64 kernels, the three
+   wgmma kernels, must each have a line and must not spill, and no
+   flash kernel may carry ptxas's wgmma serialization note); and BERT's
+   shape (B=16, S=512, H=12, D=64, bf16, non-causal, with and without
+   ``kv_len``),
    timed unmasked beside ``scaled_dot_product_attention(is_causal=False)``
    (the ``bert_shape`` entry of rows 3-5 of the record);
 3. serve the full-width engine-bench LM (vocab 32000, d_model 1024, 8
@@ -892,9 +893,14 @@ def flash_bytes_ops(B, S, H, D, el, causal):
             "flash_bwd_dkv": (4 * n + 2 * stats + 2 * n, 8 * pairs * D)}
 
 
+# the bf16 D = 64 forward's ms at phase 17's inference shapes (B, S) under
+# its mma.sync design, on an NVIDIA H100 80GB HBM3 at 700 W: the readings
+# the wgmma design is printed beside
+FLASH_FWD_MMA_MS = {(1, 128): 0.0098, (8, 512): 0.0483}
+
 # the CUDA kernel each flash wrapper launches for bf16 at D = 64 (the LM,
 # BERT, ViT and MoE LM paths)
-FLASH_D64_KERNELS = {"flash_fwd": "flash_fwd_mma_kernel",
+FLASH_D64_KERNELS = {"flash_fwd": "flash_fwd_wgmma_kernel",
                      "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel",
                      "flash_bwd_dkv": "flash_bwd_dkv_wgmma_kernel"}
 
@@ -1006,6 +1012,14 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
             name for name, variant in regs if variant == "Li64E"}
         check(not missing, f"no ptxas lines at D=64 for {sorted(missing)} "
                            "in the build log")
+        # ptxas serializes every wgmma of a kernel it cannot prove safe
+        # to pipeline, and says so only in an info line (~1.2x slower)
+        serialized = [line.strip() for line in build_log.splitlines()
+                      if "C7515" in line or "C7518" in line
+                      or "instructions are serialized" in line]
+        check(not serialized, "ptxas serialized wgmma in flash_attention: "
+                              + " | ".join(serialized))
+        print("  ptxas: no wgmma serialization note", flush=True)
     else:
         print("  ptxas: flash_attention was built before this run (no "
               "compiler log)", flush=True)
@@ -3252,6 +3266,7 @@ def check_predict_kernels(device) -> dict:
             out[f"flash_fwd_b{B}_s{S}"] = rec
             print(f"flash_fwd inference bf16 non-causal B={B} S={S} H=12 "
                   f"D=64: norm err {rel:.2e} kernel_ms={rec['ms']:.4f} "
+                  f"(mma.sync design: {FLASH_FWD_MMA_MS[(B, S)]}) "
                   f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) "
                   f"plain_ms={rec['plain_ms']:.4f} library_ms="
                   f"{rec['library_ms']:.4f} (scaled_dot_product_attention)",

@@ -15,12 +15,13 @@ What differs is the legality and the knobs, which are Hopper's:
 - ``generation`` is ``sm_90`` on an H100 (``torch.cuda.
   get_device_capability``), ``cpu`` without a card;
 - a **flash** row is legal only with the tile the CUDA kernel of its
-  key runs at the row's head dim and dtype (:func:`flash_tile`): 64 x 64
-  for the forward and for every backward kernel but the bf16 D <= 64 one
-  (``csrc/flash_attention.cu`` ``kBQ``/``kBK``), whose wgmma kernels own
-  128 rows a block and stream 64 a stage (``kBwdTile``/``kBwdStep``:
-  dQ 128 q rows x 64 keys, dK/dV 64 q rows x 128 keys). A backward row
-  that leaves open a field deciding which kernel runs is illegal. The
+  key runs at the row's head dim and dtype (:func:`flash_tile`): at bf16
+  and D <= 64 the wgmma kernels own 128 rows a block and stream 64 a
+  stage (``csrc/flash_attention.cu`` ``kWgTile``/``kWgStep``: the
+  forward and dQ 128 q rows x 64 keys, dK/dV 64 q rows x 128 keys);
+  every other kernel (f32, D = 128, D = 256 and past it) runs 64 x 64
+  (``kBQ``/``kBK``). A row that leaves open a field deciding which
+  kernel runs is illegal. The
   reference's ``block_q``/``block_k`` are TPU tile edges. A caller's
   explicit knobs (a reference config's ``attention_block_q/k``) are
   recorded as an override and the kernels still run their own tile —
@@ -56,13 +57,14 @@ KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_attn")
 
 MIN_SEQ_BUCKET = 128
 # the flash kernels' tile (block_q, block_k): q rows and keys a block
-# (csrc kBQ, kBK), for the forward and the mma.sync and FMA backward
+# (csrc kBQ, kBK), for the mma.sync and FMA kernels
 FLASH_TILE = (64, 64)
-# the bf16 backward at head dims up to WGMMA_HEAD_DIM (padded to it):
-# the wgmma kernels' (block_q, block_k), 128 rows a block and 64 a
-# stage (csrc kBwdTile, kBwdStep)
+# bf16 at head dims up to WGMMA_HEAD_DIM (padded to it): the wgmma
+# kernels' (block_q, block_k), 128 rows a block and 64 a stage (csrc
+# kWgTile, kWgStep)
 WGMMA_HEAD_DIM = 64
-WGMMA_BWD_TILES = {"flash_bwd_dq": (128, 64), "flash_bwd_dkv": (64, 128)}
+WGMMA_TILES = {"flash_fwd": (128, 64), "flash_bwd_dq": (128, 64),
+               "flash_bwd_dkv": (64, 128)}
 # dynamic shared memory a launch may take without the opt-in attribute
 MAX_SMEM_BYTES = 48 * 1024
 # the paged wrapper's analytic split: about this many keys a block
@@ -147,12 +149,12 @@ def backend_generation(device: Any = None) -> str:
 
 def flash_tile(kernel: str, head_dim: int, dtype: Any) -> Tuple[int, int]:
     """``(block_q, block_k)`` the CUDA kernel of ``kernel`` runs for a
-    ``head_dim``-wide input of ``dtype``: the wgmma tile of the bf16
-    backward at head dims up to ``WGMMA_HEAD_DIM`` (the wrapper pads
-    those to it), else ``FLASH_TILE``."""
-    if (kernel in WGMMA_BWD_TILES and dtype_name(dtype) == "bfloat16"
+    ``head_dim``-wide input of ``dtype``: the wgmma tile of bf16 at
+    head dims up to ``WGMMA_HEAD_DIM`` (the wrapper pads those to it),
+    else ``FLASH_TILE``."""
+    if (kernel in WGMMA_TILES and dtype_name(dtype) == "bfloat16"
             and head_dim <= WGMMA_HEAD_DIM):
-        return WGMMA_BWD_TILES[kernel]
+        return WGMMA_TILES[kernel]
     return FLASH_TILE
 
 
@@ -327,7 +329,7 @@ def validate_entry(entry: Dict[str, Any],
         (tq, tk), = tiles
         errs.append(f"block_q x block_k {bq} x {bk} is not the {tq} x {tk} "
                     f"tile {kernel} is compiled for at this head_dim and "
-                    "dtype (csrc kBQ/kBK, or kBwdTile/kBwdStep)")
+                    "dtype (csrc kBQ/kBK, or kWgTile/kWgStep)")
     return errs
 
 

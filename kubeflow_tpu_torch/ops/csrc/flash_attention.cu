@@ -2,7 +2,8 @@
 // plain C interface.
 //
 // Replaces: kubeflow_tpu/ops/attention.py
-// - flash_fwd_mma_kernel (bf16), flash_fwd_kernel (f32)
+// - flash_fwd_wgmma_kernel (bf16, D = 64), flash_fwd_mma_kernel (bf16,
+//   D = 128), flash_fwd_kernel (f32)
 //     <- _flash_fwd_kernel (Pallas body :188, pallas_call :345, wrapper
 //        _flash_fwd :306);
 // - flash_bwd_dq_wgmma_kernel (bf16, D = 64), flash_bwd_dq_mma_kernel
@@ -18,8 +19,8 @@
 // rounds P to the V dtype before P.V; the backward recomputes
 // P = exp(s - lse), keeps P and dS = P * (dO.V^T - delta) in f32 for
 // dV = P^T.dO and dK = dS^T.q, and scales dQ and dK once. The FMA
-// kernels score from q pre-scaled in f32, (q * scale).k; the mma kernels
-// scale the f32 product of the bf16 inputs, (q.k) * scale. For D = 64 the
+// kernels score from q pre-scaled in f32, (q * scale).k; the tensor-core
+// kernels (mma.sync and wgmma) scale the f32 product of the bf16 inputs, (q.k) * scale. For D = 64 the
 // scale 0.125 is a power of two and the two are the same number; for
 // D = 128 they differ at the f32 ulp.
 //
@@ -45,25 +46,45 @@
 //   it averages over all S keys, as reference_attention does.
 // - Tiles of 64 q rows by 64 keys (kBK is BLOCK_K of the plain forward).
 //   The causal forward and dQ grids put batch*head on x and walk q tiles
-//   from the last (most kv tiles) to the first. The wgmma backward
-//   kernels own 128 rows a block (kBwdTile) and stream 64 a stage
-//   (kBwdStep); their grid's y walks a work list from the wrapper
-//   (ops/flash_attention.py:bwd_work), heaviest first.
+//   from the last (most kv tiles) to the first. The wgmma kernels own
+//   128 rows a block (kWgTile) and stream 64 a stage (kWgStep); their
+//   grid's y walks a work list from the wrapper
+//   (ops/flash_attention.py:wgmma_work), heaviest first.
 // - Inputs are read through their (B, S, H, D) strides (no head-fusing
 //   transpose); the ragged edge is masked, so any S works: keys past S
 //   are zero in shared memory and get P = 0, q rows past S are never
 //   stored and give P = 0 in dK/dV.
 //
-// bf16 backward at D = 64 (the LM, BERT, ViT and MoE LM paths): wgmma
-// over a TMA ring fed by a producer warp, the shape of bnconv.cu, with
-// the helpers of hopper.cuh. Three warpgroups a block: two consumers, 64
-// owned rows each, and a producer whose first warp keeps the ring's
-// kBwdStages stages in flight (cp.async.bulk.tensor, 128-byte swizzle,
-// a full/empty mbarrier pair a stage) and hands its registers to the
-// consumers (setmaxnreg). q, k, v and dO are read through 4-D tensor
-// maps over (D, S, H, B) with the caller's strides (views of a fused
-// projection included; the wrapper refuses what a map cannot encode);
-// TMA's zero fill stands in for rows past S.
+// bf16 at D = 64 (the LM, BERT, ViT and MoE LM paths, and any D < 64,
+// padded to it), all three passes: wgmma over a TMA ring fed by a
+// producer warp, the shape of bnconv.cu, with the helpers of hopper.cuh.
+// Three warpgroups a block: two consumers, 64 owned rows each, and a
+// producer whose first warp keeps the ring's kWgStages stages in flight
+// (cp.async.bulk.tensor, 128-byte swizzle, a full/empty mbarrier pair a
+// stage) and hands its registers to the consumers (setmaxnreg). q, k, v
+// and dO are read through 4-D tensor maps over (D, S, H, B) with the
+// caller's strides (views of a fused projection included; the wrapper
+// refuses what a map cannot encode); TMA's zero fill stands in for rows
+// past S.
+// - Forward: dQ's geometry and work list. A block owns 128 q rows with Q
+//   resident; K and V ride the ring, 64 keys a stage (BLOCK_K of the
+//   plain forward, so P is rounded at the same running max). S = Q.K^T
+//   is wgmma m64n64k16 with both operands K-major in shared memory; it is
+//   scaled in f32, masked only on edge tiles (causal diagonal, keys past
+//   S to -inf, kv_len), and the online softmax runs on the accumulator
+//   fragments (a row's max and sum over the 4 lanes of a quad, P on the
+//   SFU). P, rounded to bf16 in registers of its own, is the register A
+//   operand of P.V with V read MN-major from the stage through the
+//   transpose bit. P.V goes to fresh fragments and the FMA units add it
+//   as O = O * alpha + P.V (see Long sums). The epilogue divides by
+//   max(l, 1e-30), stores bf16 pairs from registers and lse = m + logf(l)
+//   (lse is held to 1e-5 absolute: logf, not the SFU's lg2). Bound:
+//   operations, 4*D flops a live pair, 2 GEMMs' worth a tile; at D = 64
+//   the pair's one exponential on the SFU (16 a clock an SM) costs about
+//   as much as its 256 flops on the tensor cores. So two blocks share an
+//   SM (kFwdBlocks; setmaxnreg gives the consumers 104 registers, the
+//   producer keeps 24): four consumer warpgroups overlap the two units
+//   better than two do.
 // - dK/dV: a block owns 128 keys; K and V stay resident in shared memory;
 //   Q and dO of each 64-row q tile ride the ring, and the producer warp
 //   writes the tile's lse and delta beside them. S^T = K.Q^T and
@@ -78,24 +99,26 @@
 //   V ride the ring; S = Q.K^T and dP = dO.V^T from shared memory, dS
 //   (hi + lo) the register A operand of dS.K with K read MN-major from
 //   the stage: 4 GEMMs' worth a tile for the algorithm's 3.
-// - Within a tile, S (S^T) and dP (dP^T) go out as two wgmma groups and
-//   P is made on the SFU (exp_sfu) while dP runs; dK/dV's dV goes out
-//   while dS is made, and is added while dK runs. The two consumer
-//   warpgroups take turns issuing S and dP (named barriers), so one's
-//   element-wise work overlaps the other's products. Every group lands
-//   within its tile, and the branches around wgmma are warp-uniform to
-//   ptxas (indices and loop bounds from a shuffle): otherwise ptxas
-//   serializes every wgmma (its C7515/C7518 notes), 1.2x slower. A
-//   warpgroup whose rows see none of a causal tile (the block's first q
-//   tile for dK/dV's upper keys, its last kv tile for dQ's lower rows)
-//   skips its products and only releases the stage.
-// - Their S sums in another order than the forward's mma.sync and P
-//   comes from ex2, so the backward's P is the forward's to a few f32
-//   ulp, not bit for bit; the limits of chip_smoke.py phase 2 hold it to
-//   its plain version.
+// - Within a tile the backward's S (S^T) and dP (dP^T) go out as two
+//   wgmma groups and P is made on the SFU (exp_sfu) while dP runs;
+//   dK/dV's dV goes out while dS is made, and is added while dK runs. In
+//   all three kernels the two consumer warpgroups take turns issuing S
+//   (and dP; named barriers), so one's element-wise work overlaps the
+//   other's products. Every group lands within its tile, and the
+//   branches around wgmma are warp-uniform to ptxas (indices and loop
+//   bounds from a shuffle): otherwise ptxas serializes every wgmma (its
+//   C7515/C7518 notes), 1.2x slower. A warpgroup whose rows see none of a
+//   causal tile (the block's first q tile for dK/dV's upper keys, its
+//   last kv tile for the forward's and dQ's lower rows) skips its
+//   products and only releases the stage.
+// - The backward's P is exp(s - lse) where the forward's was
+//   exp(s - m) / l over running maxima (and dK/dV sums S^T in its own
+//   order), so it is the forward's to a few f32 ulp, not bit for bit;
+//   the limits of chip_smoke.py phase 2 hold each pass to its plain
+//   version.
 //
-// bf16 forward, and bf16 backward at D = 128: the tensor cores
-// (mma.sync m16n8k16, f32 accumulate), 4 warps a block.
+// bf16 at D = 128, all three passes: the tensor cores (mma.sync
+// m16n8k16, f32 accumulate), 4 warps a block.
 // - Staging: tiles are copied as bf16 by cp.async.cg (16 bytes a copy;
 //   the zero-fill form for rows past S) into a 2-stage ring, so tile
 //   j + 1 loads while tile j computes. Rows are padded to D + 8 elements:
@@ -103,8 +126,9 @@
 //   the reads are free of conflicts. Rows must start on 16 bytes; the
 //   wrappers (ops/flash_attention.py) refuse inputs whose base pointer or
 //   (b, s, h) strides break that.
-// - Forward: each warp owns 16 q rows; Q is loaded into registers once
-//   (ldmatrix). S = Q.K^T reads K non-transposed (the "col" B operand);
+// - Forward (D = 128): each warp owns 16 q rows; Q is loaded into
+//   registers once (ldmatrix). S = Q.K^T reads K non-transposed (the
+//   "col" B operand);
 //   the masks (causal diagonal, ragged edge, kv_len) run only on the tiles
 //   that need them; the online softmax runs on the accumulator fragments,
 //   row max and sum over the 4 lanes that share a row (shfl_xor). P is
@@ -156,8 +180,11 @@
 // scores over 64-wide slices of D and give each block one slice of up to
 // 256 output columns (grid z), recomputing the scores for it: no upper
 // limit on D, at D / 256 times the score work (see the wide kernels).
-// Not yet: the forward and the D = 128 backward on wgmma; a persistent
-// grid for the backward; in-kernel GQA.
+// Not yet: D = 128 on wgmma (forward and backward); a persistent grid;
+// in-kernel GQA (the wrapper takes K and V already repeated); the
+// forward's next stage of S issued before this stage's softmax (FA3's
+// intra-warpgroup overlap: its registers do not fit two blocks an SM,
+// and at one block an SM it read slower than two blocks without it).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -181,23 +208,25 @@ static_assert(kBQ == 64 && kBK == 64, "the 4 x 4 micro-tiles assume 64");
 static_assert(kBQ == 16 * kWarpsTC && kBK == 16 * kWarpsTC,
               "each warp of a tensor-core kernel owns 16 rows");
 
-// The bf16 backward at D = 64 (the wgmma kernels): two consumer
-// warpgroups and one producer warpgroup; a block owns kBwdTile rows (keys
-// for dK/dV, q rows for dQ), 64 to each consumer warpgroup, and streams
-// the other side kBwdStep rows a stage through a kBwdStages-deep ring.
+// The bf16 kernels at D = 64 (the wgmma kernels: forward, dQ, dK/dV): two
+// consumer warpgroups and one producer warpgroup; a block owns kWgTile
+// rows (keys for dK/dV, q rows for the forward and dQ), 64 to each
+// consumer warpgroup, and streams the other side kWgStep rows a stage
+// through a kWgStages-deep ring.
 constexpr int kWG = 128;
 constexpr int kWgThreads = 3 * kWG;
-constexpr int kBwdTile = 128;
-constexpr int kBwdStep = 64;
-constexpr int kBwdStages = 4;
-constexpr int kStatStride = 2 * kBwdStep;  // a stage's lse, then delta
+constexpr int kWgTile = 128;
+constexpr int kWgStep = 64;
+constexpr int kWgStages = 4;
+constexpr int kStatStride = 2 * kWgStep;  // a stage's lse, then delta
 // Named barriers kTurnBar + wg: the consumer warpgroups take turns to
-// issue a tile's S and dP products (warpgroup 0 first), so one's
-// element-wise work runs while the other's products do. Each warpgroup
-// takes one turn a stage of the block's range, live or not; warpgroup 1
-// hands no turn on after the last, so every arrival is waited on.
+// issue a tile's S products (and dP's in the backward; warpgroup 0
+// first), so one's element-wise work runs while the other's products do.
+// Each warpgroup takes one turn a stage of the block's range, live or
+// not; warpgroup 1 hands no turn on after the last, so every arrival is
+// waited on.
 constexpr int kTurnBar = 1;
-static_assert(kBwdTile == 2 * 64 && kBwdStep == hopper::kSw,
+static_assert(kWgTile == 2 * 64 && kWgStep == hopper::kSw,
               "a consumer warpgroup owns one 64-row box; a stage streams "
               "one box a tensor");
 
@@ -407,7 +436,7 @@ __device__ __forceinline__ void load_stats(float* lse_dst, float* delta_dst,
 }
 
 // ---------------------------------------------------------------------------
-// Forward on the FMA units (f32 inputs; bf16 runs flash_fwd_mma_kernel):
+// Forward on the FMA units (f32 inputs, and bf16 at D = 256):
 // out = softmax(q k^T * scale) v, lse per row. grid (B*H, n_q); shared:
 // q (kBQ x D+1), k (kBK x D+1), v (kBK x D), p (kBQ x kBK+1), all f32.
 // ---------------------------------------------------------------------------
@@ -1275,7 +1304,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward on the tensor cores.
+// bf16 forward on mma.sync, D = 128 (D = 64 runs flash_fwd_wgmma_kernel).
 // grid (B*H, n_q), kThreadsTC threads; warp w owns q rows 16w..16w+15.
 // Shared (bf16, rows of D + 8): q (kBQ), k and v rings (2 x kBK each).
 // ---------------------------------------------------------------------------
@@ -1291,7 +1320,8 @@ __global__ void __launch_bounds__(kThreadsTC)
   constexpr int KD = D / 16;    // k-steps of S = Q.K^T
   constexpr int ND = D / 8;     // 8-wide column tiles of the output
   constexpr int NK = kBK / 8;   // 8-wide key tiles of S
-  constexpr int kOut = ND < 8 ? ND : 8;  // output tiles a P.V chunk
+  constexpr int kOut = 8;       // output tiles a P.V chunk
+  static_assert(ND % kOut == 0, "whole P.V chunks");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* ks = qs + kBQ * LDS;
@@ -1837,7 +1867,7 @@ __global__ void __launch_bounds__(kThreadsTC)
 // kw = k0 + 64 wg .. kw + 63; threads 256..383 are the producer
 // warpgroup, whose first warp feeds the ring. Shared memory from a
 // 1024-byte boundary: K (2 boxes) and V (2 boxes) resident; a ring of
-// kBwdStages stages of (Q box, dO box); each stage's lse and delta
+// kWgStages stages of (Q box, dO box); each stage's lse and delta
 // (kStatStride floats); the barriers.
 // ---------------------------------------------------------------------------
 
@@ -1859,25 +1889,25 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   unsigned char* smem = smem_raw;
   const uint32_t res = ring_base(smem);           // K, then V
   const uint32_t ring = res + 4 * kBox;           // stage s: Q, dO
-  const uint32_t stats = ring + kBwdStages * 2 * kBox;
-  const uint32_t bars = stats + kBwdStages * kStatStride * 4;
+  const uint32_t stats = ring + kWgStages * 2 * kBox;
+  const uint32_t bars = stats + kWgStages * kStatStride * 4;
   float* stats_gen =
       reinterpret_cast<float*>(smem + (stats - smem_u32(smem)));
   auto full = [&](int s) { return bars + 8 * s; };
-  auto empty = [&](int s) { return bars + 8 * (kBwdStages + s); };
-  const uint32_t res_full = bars + 16 * kBwdStages;
+  auto empty = [&](int s) { return bars + 8 * (kWgStages + s); };
+  const uint32_t res_full = bars + 16 * kWgStages;
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int* item = work + 3 * blockIdx.y;
-  const int k0 = item[0] * kBwdTile;
+  const int k0 = item[0] * kWgTile;
   const int limit = kv_len ? kv_len[b] : S;
   // a kv_len == 0 row has every key masked and walks every q tile
   const bool trim = causal && limit > 0;
   const int lo = trim ? item[1] : 0;
-  const int hi = trim ? item[2] : (S + kBwdStep - 1) / kBwdStep;
+  const int hi = trim ? item[2] : (S + kWgStep - 1) / kWgStep;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kBwdStages; ++s) {
+    for (int s = 0; s < kWgStages; ++s) {
       mbar_init(full(s), 32);  // the producer warp's lanes, lane 0 with bytes
       mbar_init(empty(s), 8);  // one arrival per consumer warp
     }
@@ -1906,14 +1936,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       const float* lse_row = lse + (long long)bh * S;
       const float* delta_row = delta + (long long)bh * S;
       for (int i = lo; i < hi; ++i) {
-        const int it = i - lo, s = it % kBwdStages;
-        const int q0 = i * kBwdStep;
-        mbar_wait(empty(s), ((it / kBwdStages) & 1) ^ 1);
+        const int it = i - lo, s = it % kWgStages;
+        const int q0 = i * kWgStep;
+        mbar_wait(empty(s), ((it / kWgStages) & 1) ^ 1);
         float* st = stats_gen + s * kStatStride;
-        for (int r = lane; r < kBwdStep; r += 32) {
+        for (int r = lane; r < kWgStep; r += 32) {
           const bool in = q0 + r < S;  // rows past S: zeros, P masked
           st[r] = in ? lse_row[q0 + r] : 0.f;
-          st[kBwdStep + r] = in ? delta_row[q0 + r] : 0.f;
+          st[kWgStep + r] = in ? delta_row[q0 + r] : 0.f;
         }
         if (lane == 0) {
           mbar_expect_tx(full(s), 2 * kBox);
@@ -1938,7 +1968,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int i_lo = __shfl_sync(0xffffffffu, lo, 0);
     const int i_hi = __shfl_sync(0xffffffffu, hi, 0);
     const int live_lo = __shfl_sync(
-        0xffffffffu, !has_keys ? hi : trim ? max(lo, kw / kBwdStep) : lo,
+        0xffffffffu, !has_keys ? hi : trim ? max(lo, kw / kWgStep) : lo,
         0);
     const uint32_t ka = res + wg * kBox, va = res + (2 + wg) * kBox;
     auto release = [&](int s) {
@@ -1958,18 +1988,18 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     if (wg == 1) bar_arrive(kTurnBar, 2 * kWG);
     int i = i_lo;
     for (; i < live_lo; ++i) {  // stages none of whose products are ours
-      const int it = i - i_lo, s = it % kBwdStages;
-      mbar_wait(full(s), (it / kBwdStages) & 1);
+      const int it = i - i_lo, s = it % kWgStages;
+      mbar_wait(full(s), (it / kWgStages) & 1);
       turn_begin();
       turn_end(i == i_hi - 1);
       release(s);
     }
     for (; i < i_hi; ++i) {
-      const int it = i - i_lo, s = it % kBwdStages;
-      mbar_wait(full(s), (it / kBwdStages) & 1);
+      const int it = i - i_lo, s = it % kWgStages;
+      mbar_wait(full(s), (it / kWgStages) & 1);
       const uint32_t qa = ring + s * 2 * kBox, ga = qa + kBox;
       const float* st = stats_gen + s * kStatStride;
-      const int q0 = i * kBwdStep;
+      const int q0 = i * kWgStep;
 
       // S^T = K.Q^T, then dP^T = V.dO^T (two groups): 64 keys x 64 q,
       // K-major operands; the first k-step of each starts its sum
@@ -1996,7 +2026,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       wgmma_wait<1>();
       fence_regs(sT);
       float pT[32];
-      const bool edge = (causal && kw + 63 > q0) || q0 + kBwdStep > S ||
+      const bool edge = (causal && kw + 63 > q0) || q0 + kWgStep > S ||
                         kw + 64 > limit;
       uint32_t ph[4][4], pl[4][4];
 #pragma unroll
@@ -2031,7 +2061,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       float fresh_v[32];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBwdStep / 16; ++kk) {
+      for (int kk = 0; kk < kWgStep / 16; ++kk) {
         const uint64_t bd = wgmma_desc(ga + kk * 16 * 128, kBox, 1024);
         wgmma_m64n64_rs(fresh_v, ph[kk], bd, kk > 0);
         wgmma_m64n64_rs(fresh_v, pl[kk], bd, 1);
@@ -2045,7 +2075,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
         const float2 d2 =
-            *reinterpret_cast<const float2*>(st + kBwdStep + 8 * n + 2 * t);
+            *reinterpret_cast<const float2*>(st + kWgStep + 8 * n + 2 * t);
         float ds[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e)
@@ -2060,7 +2090,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       float fresh_k[32];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBwdStep / 16; ++kk) {
+      for (int kk = 0; kk < kWgStep / 16; ++kk) {
         const uint64_t bd = wgmma_desc(qa + kk * 16 * 128, kBox, 1024);
         wgmma_m64n64_rs(fresh_k, dh[kk], bd, kk > 0);
         wgmma_m64n64_rs(fresh_k, dl[kk], bd, 1);
@@ -2105,7 +2135,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // heaviest first. Consumer warpgroup wg owns q rows qw = q0 + 64 wg ..
 // qw + 63, with the lse and delta of its rows g and g + 8 in registers.
 // Shared memory: Q (2 boxes) and dO (2 boxes) resident; a ring of
-// kBwdStages stages of (K box, V box); the barriers.
+// kWgStages stages of (K box, V box); the barriers.
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -2126,22 +2156,22 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   unsigned char* smem = smem_raw;
   const uint32_t res = ring_base(smem);           // Q, then dO
   const uint32_t ring = res + 4 * kBox;           // stage s: K, V
-  const uint32_t bars = ring + kBwdStages * 2 * kBox;
+  const uint32_t bars = ring + kWgStages * 2 * kBox;
   auto full = [&](int s) { return bars + 8 * s; };
-  auto empty = [&](int s) { return bars + 8 * (kBwdStages + s); };
-  const uint32_t res_full = bars + 16 * kBwdStages;
+  auto empty = [&](int s) { return bars + 8 * (kWgStages + s); };
+  const uint32_t res_full = bars + 16 * kWgStages;
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int* item = work + 3 * blockIdx.y;
-  const int q0 = item[0] * kBwdTile;
+  const int q0 = item[0] * kWgTile;
   const int limit = kv_len ? kv_len[b] : S;
   // a kv_len == 0 row has every key masked and walks every kv tile
   const bool trim = causal && limit > 0;
   const int lo = trim ? item[1] : 0;
-  const int hi = trim ? item[2] : (S + kBwdStep - 1) / kBwdStep;
+  const int hi = trim ? item[2] : (S + kWgStep - 1) / kWgStep;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kBwdStages; ++s) {
+    for (int s = 0; s < kWgStages; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), 8);  // one arrival per consumer warp
     }
@@ -2164,12 +2194,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                     h, b);
       }
       for (int j = lo; j < hi; ++j) {
-        const int it = j - lo, s = it % kBwdStages;
-        mbar_wait(empty(s), ((it / kBwdStages) & 1) ^ 1);
+        const int it = j - lo, s = it % kWgStages;
+        mbar_wait(empty(s), ((it / kWgStages) & 1) ^ 1);
         mbar_expect_tx(full(s), 2 * kBox);
         const uint32_t dst = ring + s * 2 * kBox;
-        tma_load_4d(dst, &map_k, full(s), 0, j * kBwdStep, h, b);
-        tma_load_4d(dst + kBox, &map_v, full(s), 0, j * kBwdStep, h, b);
+        tma_load_4d(dst, &map_k, full(s), 0, j * kWgStep, h, b);
+        tma_load_4d(dst + kBox, &map_v, full(s), 0, j * kWgStep, h, b);
       }
     }
   } else {
@@ -2185,7 +2215,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int j_lo = __shfl_sync(0xffffffffu, lo, 0);
     const int j_hi = __shfl_sync(0xffffffffu, hi, 0);
     const int live_hi = __shfl_sync(
-        0xffffffffu, !has_rows ? lo : trim ? min(hi, qw / kBwdStep + 1) : hi,
+        0xffffffffu, !has_rows ? lo : trim ? min(hi, qw / kWgStep + 1) : hi,
         0);
     const uint32_t qa = res + wg * kBox, ga = res + (2 + wg) * kBox;
     auto release = [&](int s) {
@@ -2214,10 +2244,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     if (wg == 1) bar_arrive(kTurnBar, 2 * kWG);
     int j = j_lo;
     for (; j < live_hi; ++j) {
-      const int it = j - j_lo, s = it % kBwdStages;
-      mbar_wait(full(s), (it / kBwdStages) & 1);
+      const int it = j - j_lo, s = it % kWgStages;
+      mbar_wait(full(s), (it / kWgStages) & 1);
       const uint32_t kt = ring + s * 2 * kBox, vt = kt + kBox;
-      const int k0 = j * kBwdStep;
+      const int k0 = j * kWgStep;
 
       // S = Q.K^T, then dP = dO.V^T (two groups): 64 q rows x 64 keys,
       // K-major operands; the first k-step of each starts its sum
@@ -2242,8 +2272,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       wgmma_wait<1>();
       fence_regs(sc_);
       float pr[32];
-      const bool edge = (causal && k0 + 63 > qw) || k0 + kBwdStep > S ||
-                        k0 + kBwdStep > limit;
+      const bool edge = (causal && k0 + 63 > qw) || k0 + kWgStep > S ||
+                        k0 + kWgStep > limit;
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -2282,7 +2312,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       float fresh[32];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBwdStep / 16; ++kk) {
+      for (int kk = 0; kk < kWgStep / 16; ++kk) {
         const uint64_t bd = wgmma_desc(kt + kk * 16 * 128, kBox, 1024);
         wgmma_m64n64_rs(fresh, dh[kk], bd, kk > 0);
         wgmma_m64n64_rs(fresh, dl[kk], bd, 1);
@@ -2295,8 +2325,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       release(s);
     }
     for (; j < j_hi; ++j) {  // stages none of whose products are ours
-      const int it = j - j_lo, s = it % kBwdStages;
-      mbar_wait(full(s), (it / kBwdStages) & 1);
+      const int it = j - j_lo, s = it % kWgStages;
+      mbar_wait(full(s), (it / kWgStages) & 1);
       turn_begin();
       turn_end(j == j_hi - 1);
       release(s);
@@ -2315,6 +2345,259 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                                              2 * t) =
               __floats2bfloat162_rn(dqa[4 * n + 2 * r] * scale,
                                     dqa[4 * n + 2 * r + 1] * scale);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The wgmma forward: blocks an SM, registers, and one stage's softmax.
+// ---------------------------------------------------------------------------
+
+// Two forward blocks an SM (83 KB of shared memory each): at D = 64 a
+// stage's exponentials on the SFU take about as long as its products on
+// the tensor cores, and four consumer warpgroups an SM overlap the two
+// better than one block's two. 384 x 2 threads start with 80 registers
+// each; setmaxnreg moves 56 of the producer warpgroup's to the
+// consumers, whose loop fits in 104 without spilling.
+constexpr int kFwdBlocks = 2;
+constexpr int kFwdLaunchRegs = (65536 / (kWgThreads * kFwdBlocks)) & ~7;
+constexpr int kFwdProducerRegs = 24;
+constexpr int kFwdConsumerRegs = 104;
+static_assert(2 * (kFwdConsumerRegs - kFwdLaunchRegs) <=
+                  kFwdLaunchRegs - kFwdProducerRegs,
+              "setmaxnreg.inc takes only what its block's producer gave up");
+
+// One stage's online softmax from its finished S (read, never written:
+// ptxas serializes wgmma when other instructions write an accumulator).
+// Scale in f32 ((q.k) * scale, as the mma.sync kernels); with `edge`, the
+// masks (rows qrow and qrow + 8, keys kcol + 8 n + {0, 1}; keys past S do
+// not exist: -inf, out of the max, P = 0); the row max over the 4 lanes
+// of a quad; P on the SFU, rounded to bf16 into the A fragments of P.V
+// (key group n: k-step n / 2, registers 2 (n & 1) for row g and
+// 2 (n & 1) + 1 for row g + 8); l sums this thread's f32 values. alpha is
+// the factor that rescales O before this stage's P.V.
+__device__ __forceinline__ void fwd_softmax(
+    const float (&acc)[32], float (&m)[2], float (&l)[2],
+    uint32_t (&pf)[4][4], float (&alpha)[2], int qrow, int kcol, int S,
+    int limit, float scale, int causal, bool edge) {
+  float sv[32];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float sc = acc[4 * n + e] * scale;
+      if (edge) {
+        const int qpos = qrow + 8 * (e >> 1);
+        const int kpos = kcol + 8 * n + (e & 1);
+        sc = kpos < S ? mask_score(sc, qpos, kpos, limit, causal)
+                      : -INFINITY;
+      }
+      sv[4 * n + e] = sc;
+    }
+  float mn[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      mx = fmaxf(mx, fmaxf(sv[4 * n + 2 * r], sv[4 * n + 2 * r + 1]));
+    mn[r] = fmaxf(m[r], quad_max(mx));
+    alpha[r] = exp_sfu(m[r] - mn[r]);
+  }
+  float ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[e] = exp_sfu(sv[4 * n + e] - mn[e >> 1]);
+    ps[0] += p[0] + p[1];
+    ps[1] += p[2] + p[3];
+    const int kk = n >> 1, r = (n & 1) * 2;
+    pf[kk][r] = pack_bf16(p[0], p[1]);
+    pf[kk][r + 1] = pack_bf16(p[2], p[3]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = l[r] * alpha[r] + ps[r];
+    m[r] = mn[r];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 forward on wgmma (D = 64), in dQ's geometry and over dQ's work list.
+// grid (B*H, work items); item y is (q tile, first kv tile, end kv tile),
+// heaviest first. Consumer warpgroup wg owns q rows qw = q0 + 64 wg ..
+// qw + 63; m, l and the output fragments of its rows g and g + 8 stay in
+// registers. Shared memory: Q (2 boxes) resident; a ring of kWgStages
+// stages of (K box, V box); the barriers.
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, kFwdBlocks)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const int* __restrict__ kv_len,
+                           const int* __restrict__ work,
+                           bf16* __restrict__ out, float* __restrict__ lse,
+                           int H, int S, float scale, int causal) {
+  static_assert(D == hopper::kSw, "a head is one 128-byte swizzled row");
+  using namespace hopper;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw;
+  const uint32_t res = ring_base(smem);           // Q
+  const uint32_t ring = res + 2 * kBox;           // stage s: K, V
+  const uint32_t bars = ring + kWgStages * 2 * kBox;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kWgStages + s); };
+  const uint32_t res_full = bars + 16 * kWgStages;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int* item = work + 3 * blockIdx.y;
+  const int q0 = item[0] * kWgTile;
+  const int limit = kv_len ? kv_len[b] : S;
+  // a kv_len == 0 row has every key masked and walks every kv tile
+  const bool trim = causal && limit > 0;
+  const int lo = trim ? item[1] : 0;
+  const int hi = trim ? item[2] : (S + kWgStep - 1) / kWgStep;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // one arrival per consumer warp
+    }
+    mbar_init(res_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the warpgroup's index, warp-uniform in the compiler's view (see the
+  // dK/dV kernel)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWG, 0);
+  if (wg == 2) {
+    // ---- producer ----
+    producer_regs<kFwdProducerRegs>();
+    if (threadIdx.x == 2 * kWG) {
+      mbar_expect_tx(res_full, 2 * kBox);
+      for (int r = 0; r < 2; ++r)
+        tma_load_4d(res + r * kBox, &map_q, res_full, 0, q0 + 64 * r, h, b);
+      for (int j = lo; j < hi; ++j) {
+        const int it = j - lo, s = it % kWgStages;
+        mbar_wait(empty(s), ((it / kWgStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * kBox);
+        const uint32_t dst = ring + s * 2 * kBox;
+        tma_load_4d(dst, &map_k, full(s), 0, j * kWgStep, h, b);
+        tma_load_4d(dst + kBox, &map_v, full(s), 0, j * kWgStep, h, b);
+      }
+    }
+  } else {
+    // ---- consumers ----
+    consumer_regs<kFwdConsumerRegs>();
+    const int tw = threadIdx.x % kWG;
+    const int warp = tw / 32, lane = tw % 32, g = lane >> 2, t = lane & 3;
+    const int qw = q0 + 64 * wg;
+    const bool has_rows = qw < S;
+    // the kv tiles this warpgroup computes: up to its own last live one
+    // (causal: _last_live_kv), none without rows; the loop bounds are
+    // shuffled, so ptxas sees them warp-uniform
+    const int j_lo = __shfl_sync(0xffffffffu, lo, 0);
+    const int j_hi = __shfl_sync(0xffffffffu, hi, 0);
+    const int live_hi = __shfl_sync(
+        0xffffffffu, !has_rows ? lo : trim ? min(hi, qw / kWgStep + 1) : hi,
+        0);
+    const uint32_t qa = res + wg * kBox;
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+    };
+    // rows g and g + 8: the running max, this thread's share of the
+    // running sum (its quad's shares add up at the end), the output
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    float o[32];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) o[x] = 0.f;
+    mbar_wait(res_full, 0);
+
+    // the stage from key k0 needs the masks (fwd_softmax)
+    auto edge = [&](int k0) {
+      return (causal && k0 + 63 > qw) || k0 + kWgStep > S ||
+             k0 + kWgStep > limit;
+    };
+    const int qrow = qw + 16 * warp + g;
+
+    // turns at issuing S (kTurnBar)
+    auto turn_begin = [&]() { bar_sync(kTurnBar + wg, 2 * kWG); };
+    auto turn_end = [&](bool last) {
+      if (!(last && wg == 1)) bar_arrive(kTurnBar + (wg ^ 1), 2 * kWG);
+    };
+    if (wg == 1) bar_arrive(kTurnBar, 2 * kWG);
+    int j = j_lo;
+    for (; j < live_hi; ++j) {
+      const int it = j - j_lo, s = it % kWgStages;
+      mbar_wait(full(s), (it / kWgStages) & 1);
+      const uint32_t kt = ring + s * 2 * kBox;
+      const int k0 = j * kWgStep;
+      // S = Q.K^T: 64 q rows x 64 keys, K-major operands; the first
+      // k-step starts the sum
+      float sc_[32];
+      turn_begin();
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd)
+        wgmma_m64n64_ss(sc_, wgmma_desc(qa + 32 * kd, 16, 1024),
+                        wgmma_desc(kt + 32 * kd, 16, 1024), kd > 0);
+      wgmma_commit();
+      turn_end(j == j_hi - 1);
+      wgmma_wait<0>();
+      fence_regs(sc_);
+      float alpha[2];
+      uint32_t pf[4][4];
+      fwd_softmax(sc_, m, l, pf, alpha, qrow, k0 + 2 * t, S, limit, scale,
+                  causal, edge(k0));
+
+      // O = O * alpha + P.V: the stage's P.V into fresh fragments (V read
+      // MN-major through the transpose bit), added by the FMA units (the
+      // tensor cores truncate where they add into an accumulator); the
+      // group lands within its stage (see dK/dV)
+      float pv[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgStep / 16; ++kk)
+        wgmma_m64n64_rs(pv, pf[kk],
+                        wgmma_desc(kt + kBox + kk * 16 * 128, kBox, 1024),
+                        kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(pv);
+#pragma unroll
+      for (int x = 0; x < 32; ++x)
+        o[x] = fmaf(o[x], alpha[(x >> 1) & 1], pv[x]);
+      release(s);
+    }
+    for (; j < j_hi; ++j) {  // stages none of whose products are ours
+      const int it = j - j_lo, s = it % kWgStages;
+      mbar_wait(full(s), (it / kWgStages) & 1);
+      turn_begin();
+      turn_end(j == j_hi - 1);
+      release(s);
+    }
+
+    if (has_rows) {
+      const long long o_row = (long long)H * D;  // out: dense (B, S, H, D)
+      bf16* ob = out + ((long long)b * S * H + h) * D;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qpos = qrow + 8 * r;
+        const float lc = fmaxf(quad_sum(l[r]), 1e-30f);
+        if (qpos >= S) continue;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(ob + qpos * o_row + 8 * n +
+                                             2 * t) =
+              __floats2bfloat162_rn(o[4 * n + 2 * r] / lc,
+                                    o[4 * n + 2 * r + 1] / lc);
+        if (t == 0) lse[(long long)bh * S + qpos] = m[r] + logf(lc);
       }
     }
   }
@@ -2343,12 +2626,13 @@ size_t dq_mma_smem(int D) {  // q, dO, 2-stage k and v rings
   return (size_t)(2 * kBQ + 4 * kBK) * (D + 8) * sizeof(bf16);
 }
 
-// the wgmma backward: resident tiles, the ring, dK/dV's lse and delta
-// ring (stats), the barriers, and the slack to a 1024-byte boundary
-size_t bwd_wgmma_smem(bool stats) {
-  return 1024 + (size_t)(4 + 2 * kBwdStages) * hopper::kBox +
-         (stats ? (size_t)kBwdStages * kStatStride * sizeof(float) : 0) +
-         (2 * kBwdStages + 1) * 8;
+// the wgmma kernels: `resident` boxes (Q, and dO in dQ; K and V in
+// dK/dV), the ring, dK/dV's lse and delta ring (stats), the barriers, and
+// the slack to a 1024-byte boundary
+size_t wgmma_smem(int resident, bool stats) {
+  return 1024 + (size_t)(resident + 2 * kWgStages) * hopper::kBox +
+         (stats ? (size_t)kWgStages * kStatStride * sizeof(float) : 0) +
+         (2 * kWgStages + 1) * 8;
 }
 
 size_t fwd_wide_smem() {  // q, k slices; v columns; p
@@ -2486,24 +2770,45 @@ int launch_dkv_mma(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// q, k, v and dO as 4-D TMA maps over (D, S, H, B), the caller's (b, s,
-// h) element strides, boxes of 64 head columns x 64 rows of one head.
+// q, k, v (and dO) as 4-D TMA maps over (D, S, H, B), the caller's (b,
+// s, h) element strides, boxes of 64 head columns x 64 rows of one head.
 // False where a map cannot be encoded (the wrapper refuses those first).
-bool bwd_maps(CUtensorMap (&maps)[4], const void* const (&ptrs)[4],
+template <int N>
+bool tma_maps(CUtensorMap (&maps)[N], const void* const (&ptrs)[N],
               const long long* strides, int B, int H, int S) {
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < N; ++i) {
     const long long* st = strides + 3 * i;
     const cuuint64_t dims[4] = {(cuuint64_t)hopper::kSw, (cuuint64_t)S,
                                 (cuuint64_t)H, (cuuint64_t)B};
     const cuuint64_t bytes[3] = {(cuuint64_t)st[1] * sizeof(bf16),
                                  (cuuint64_t)st[2] * sizeof(bf16),
                                  (cuuint64_t)st[0] * sizeof(bf16)};
-    const cuuint32_t box[4] = {(cuuint32_t)hopper::kSw, (cuuint32_t)kBwdStep,
+    const cuuint32_t box[4] = {(cuuint32_t)hopper::kSw, (cuuint32_t)kWgStep,
                                1, 1};
     if (!hopper::encode_bf16(&maps[i], ptrs[i], 4, dims, bytes, box))
       return false;
   }
   return true;
+}
+
+int launch_fwd_wgmma(const void* q, const void* k, const void* v,
+                     const void* kv_len, const void* work, int n_work,
+                     void* out, void* lse, const long long* strides, int B,
+                     int H, int S, float scale, int causal,
+                     cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const void* const ptrs[3] = {q, k, v};
+  if (!tma_maps(maps, ptrs, strides, B, H, S))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = wgmma_smem(2, false);
+  cudaError_t err = allow_smem(flash_fwd_wgmma_kernel<64>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, n_work);
+  flash_fwd_wgmma_kernel<64><<<grid, kWgThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<const int*>(kv_len),
+      static_cast<const int*>(work), static_cast<bf16*>(out),
+      static_cast<float*>(lse), H, S, scale, causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int launch_dq_wgmma(const void* q, const void* k, const void* v,
@@ -2513,9 +2818,9 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
                     float scale, int causal, cudaStream_t stream) {
   CUtensorMap maps[4];
   const void* const ptrs[4] = {q, k, v, dout};
-  if (!bwd_maps(maps, ptrs, strides, B, H, S))
+  if (!tma_maps(maps, ptrs, strides, B, H, S))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = bwd_wgmma_smem(false);
+  const size_t smem = wgmma_smem(4, false);
   cudaError_t err = allow_smem(flash_bwd_dq_wgmma_kernel<64>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, n_work);
@@ -2535,9 +2840,9 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v,
                      cudaStream_t stream) {
   CUtensorMap maps[4];
   const void* const ptrs[4] = {q, k, v, dout};
-  if (!bwd_maps(maps, ptrs, strides, B, H, S))
+  if (!tma_maps(maps, ptrs, strides, B, H, S))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = bwd_wgmma_smem(true);
+  const size_t smem = wgmma_smem(4, true);
   cudaError_t err = allow_smem(flash_bwd_dkv_wgmma_kernel<64>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, n_work);
@@ -2615,18 +2920,10 @@ int launch_dkv_wide(const void* q, const void* k, const void* v,
     }                                                                    \
   } while (0)
 
-// One dispatch over (dtype, head dim) for the three entry points: BF16
-// launches bf16 inputs at D = 64 and 128 (the tensor-core kernels), FMA
-// f32 inputs, and bf16 ones at D = 256, where the mma kernels' fragments
-// would not fit the registers. The backward entry points take bf16 at
-// D = 64 to the wgmma kernels before this dispatch.
-#define KFTPU_FLASH_DISPATCH(BF16, FMA, ...)                             \
-  do {                                                                   \
-    if (is_bf16 && D == 64) return BF16<bf16, 64>(__VA_ARGS__);          \
-    KFTPU_FLASH_DISPATCH_REST(BF16, FMA, __VA_ARGS__);                   \
-  } while (0)
-
-// ... less bf16 at D = 64 (the backward's wgmma kernels take it).
+// One dispatch over (dtype, head dim) for the three entry points, after
+// bf16 at D = 64 has gone to the wgmma kernels: BF16 launches bf16 inputs
+// at D = 128 (the mma.sync kernels), FMA f32 inputs, and bf16 ones at
+// D = 256, where the mma kernels' fragments would not fit the registers.
 #define KFTPU_FLASH_DISPATCH_REST(BF16, FMA, ...)                        \
   do {                                                                   \
     if (is_bf16 && D == 128) return BF16<bf16, 128>(__VA_ARGS__);        \
@@ -2642,28 +2939,36 @@ int launch_dkv_wide(const void* q, const void* k, const void* v,
 // strides: 3 element strides (b, s, h) each of q, k, v; out is a dense
 // (B, S, H, D) tensor in q's dtype, lse a dense (B, H, S) f32 tensor;
 // kv_len is (B,) int32 or null. bf16 rows must start on 16 bytes (the
-// wrapper checks). Returns cudaGetLastError() after the launch
-// (0 = cudaSuccess).
+// wrapper checks). bf16 at D = 64 runs the wgmma kernel over `work`:
+// n_work (tile, first, end) int32 triples, heaviest first, of block_q-row
+// q tiles walking block_k-key kv tiles, which must be the kernel's own
+// (kWgTile, kWgStep); the strides must be ones a TMA map encodes (the
+// wrapper checks). Other dtypes and head dims ignore work. Returns
+// cudaGetLastError() after the launch (0 = cudaSuccess).
 extern "C" int kftpu_flash_fwd(const void* q, const void* k, const void* v,
                                const void* kv_len, void* out, void* lse,
-                               const long long* strides, int B, int H, int S,
-                               int D, float scale, int causal, int is_bf16,
-                               void* stream) {
+                               const long long* strides, const void* work,
+                               int B, int H, int S, int D, int n_work,
+                               int block_q, int block_k, float scale,
+                               int causal, int is_bf16, void* stream) {
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (is_bf16 && D == 64) {
+    if (work == nullptr || block_q != kWgTile || block_k != kWgStep)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_fwd_wgmma(q, k, v, kv_len, work, n_work, out, lse, strides,
+                            B, H, S, scale, causal, s);
+  }
   KFTPU_FLASH_WIDE(launch_fwd_wide, q, k, v, kv_len, out, lse, strides, B, H,
                    S, D, scale, causal, s);
-  KFTPU_FLASH_DISPATCH(launch_fwd_mma, launch_fwd, q, k, v, kv_len, out, lse,
-                       strides, B, H, S, scale, causal, s);
+  KFTPU_FLASH_DISPATCH_REST(launch_fwd_mma, launch_fwd, q, k, v, kv_len, out,
+                            lse, strides, B, H, S, scale, causal, s);
 }
 
 // strides: (b, s, h) of q, k, v and dO; lse and delta are dense (B, H, S)
 // f32; dq is a dense (B, S, H, D) tensor in q's dtype. bf16 rows on 16
-// bytes, as kftpu_flash_fwd. bf16 at D = 64 runs the wgmma kernel over
-// `work`: n_work (tile, first, end) int32 triples, heaviest first, of
-// block_q-row q tiles walking block_k-key kv tiles, which must be the
-// kernel's own (kBwdTile, kBwdStep); the strides must be ones a TMA map
-// encodes (the wrapper checks). Other dtypes and head dims ignore work.
+// bytes; bf16 at D = 64 runs the wgmma kernel over `work`, with the tile
+// and strides checked, as kftpu_flash_fwd.
 extern "C" int kftpu_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, const void* kv_len,
@@ -2675,7 +2980,7 @@ extern "C" int kftpu_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (is_bf16 && D == 64) {
-    if (work == nullptr || block_q != kBwdTile || block_k != kBwdStep)
+    if (work == nullptr || block_q != kWgTile || block_k != kWgStep)
       return static_cast<int>(cudaErrorInvalidValue);
     return launch_dq_wgmma(q, k, v, dout, lse, delta, kv_len, work, n_work,
                            dq, strides, B, H, S, scale, causal, s);
@@ -2689,7 +2994,7 @@ extern "C" int kftpu_flash_bwd_dq(const void* q, const void* k, const void* v,
 
 // As kftpu_flash_bwd_dq; dk and dv are dense (B, S, H, D) tensors, and
 // `work` holds block_k-key kv tiles walking block_q-row q tiles
-// (block_q = kBwdStep, block_k = kBwdTile).
+// (block_q = kWgStep, block_k = kWgTile).
 extern "C" int kftpu_flash_bwd_dkv(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
@@ -2702,7 +3007,7 @@ extern "C" int kftpu_flash_bwd_dkv(const void* q, const void* k,
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (is_bf16 && D == 64) {
-    if (work == nullptr || block_q != kBwdStep || block_k != kBwdTile)
+    if (work == nullptr || block_q != kWgStep || block_k != kWgTile)
       return static_cast<int>(cudaErrorInvalidValue);
     return launch_dkv_wgmma(q, k, v, dout, lse, delta, kv_len, work, n_work,
                             dk, dv, strides, B, H, S, scale, causal, s);

@@ -287,12 +287,19 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
 }
 
 // The producer warpgroup gives up registers, and the consumers take them:
-// one if/else over the warpgroups, so ptxas can see each side's count.
+// one if/else over the warpgroups, so ptxas can see each side's count
+// (it compiles each side to its own). The defaults are one 384-thread
+// block an SM (168 registers a thread at launch). setmaxnreg.inc takes
+// only registers that its own block's setmaxnreg.dec gave back, and
+// waits for them forever otherwise: two consumer warpgroups may add
+// together at most what the producer warpgroup gave up.
+template <int kRegs = 40>
 __device__ __forceinline__ void producer_regs() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
 }
+template <int kRegs = 232>
 __device__ __forceinline__ void consumer_regs() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
 }
 
 // ---------------------------------------------------------------------------

@@ -23,11 +23,11 @@ model's call site); ``lse`` and ``delta`` are ``(B, H, S)`` f32;
 
 The bf16 kernels (forward, dQ and dK/dV) stage rows with 16-byte
 copies: their wrappers raise (:func:`check_rows_16b`) on a bf16 input
-whose rows do not start on 16 bytes, rather than copy it. The bf16
-backward at D = 64 (the wgmma kernels) reads q, k, v and dO through TMA
-maps, and its wrappers also refuse what a map cannot encode
+whose rows do not start on 16 bytes, rather than copy it. At bf16 and
+D = 64 all three passes run wgmma kernels that read q, k, v and dO
+through TMA maps, and the wrappers also refuse what a map cannot encode
 (:func:`check_tma`). Those kernels own 128 rows a block and walk a work
-list (:func:`bwd_work`): one item a block tile with the range of tiles
+list (:func:`wgmma_work`): one item a block tile with the range of tiles
 it streams, the causal ranges of the reference's ``_first_live_q`` and
 ``_last_live_kv``, heaviest first; it is made once a shape and kept on
 the card.
@@ -55,14 +55,14 @@ import torch
 from kubeflow_tpu_torch.ops.attention import NEG_INF
 from kubeflow_tpu_torch.ops.autotune import (
     FLASH_TILE,
-    WGMMA_BWD_TILES,
+    WGMMA_TILES,
     flash_tile,
 )
 
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 HEAD_DIMS = (64, 128, 256)   # the head dims the CUDA kernels are built for
 WIDE_STEP = 64          # past HEAD_DIMS[-1], any multiple of it (kDC in csrc)
-BLOCK_K = 64            # the forward kernel's key tile (kBK in csrc)
+BLOCK_K = 64            # the forward kernels' key tile (kBK, kWgStep in csrc)
 TMA_MAX_STRIDE = 1 << 40  # bytes: a TMA map's strides lie below it
 
 
@@ -214,7 +214,7 @@ def _lib():
     lib = _build.load("flash_attention")
     if lib.kftpu_flash_fwd.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.kftpu_flash_fwd.argtypes = [p] * 7 + [i] * 4 + [f, i, i, p]
+        lib.kftpu_flash_fwd.argtypes = [p] * 8 + [i] * 7 + [f, i, i, p]
         lib.kftpu_flash_bwd_dq.argtypes = [p] * 10 + [i] * 7 + [f, i, i, p]
         lib.kftpu_flash_bwd_dkv.argtypes = [p] * 11 + [i] * 7 + [f, i, i, p]
         for fn in (lib.kftpu_flash_fwd, lib.kftpu_flash_bwd_dq,
@@ -248,17 +248,17 @@ def tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
 
 
 def check_tma(tensors) -> None:
-    """The wgmma backward kernels load q, k, v and dO through 4-D TMA
-    maps over (D, S, H, B): raise unless each tensor's base is on 16
-    bytes and its (b, s, h) strides (:func:`tma_strides`, in bytes) are
-    multiples of 16 below ``TMA_MAX_STRIDE``, what such a map encodes."""
+    """The wgmma kernels load q, k, v (and dO) through 4-D TMA maps over
+    (D, S, H, B): raise unless each tensor's base is on 16 bytes and its
+    (b, s, h) strides (:func:`tma_strides`, in bytes) are multiples of 16
+    below ``TMA_MAX_STRIDE``, what such a map encodes."""
     for t in tensors:
         el = t.element_size()
         strides = [st * el for st in tma_strides(t)]
         if t.data_ptr() % 16 or any(st % 16 or not 0 <= st < TMA_MAX_STRIDE
                                     for st in strides):
             raise ValueError(
-                "the wgmma flash backward reads each input through a TMA "
+                "the wgmma flash kernels read each input through a TMA "
                 "map: its base must be on 16 bytes and its (b, s, h) "
                 f"strides multiples of 16 bytes below 2**40; got base "
                 f"address {t.data_ptr()} and strides {tuple(strides)} "
@@ -276,17 +276,17 @@ def _last_live_kv(i: int, block_q: int, block_k: int) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def bwd_work(kernel: str, S: int, causal: bool
-             ) -> Tuple[Tuple[int, int, int], ...]:
-    """The wgmma backward kernel's work list at sequence length ``S``:
-    one ``(tile, first, end)`` item per block tile of its
-    ``WGMMA_BWD_TILES`` (dK/dV: 128-key tiles streaming 64-row q tiles
-    ``[first, end)``; dQ: 128-row q tiles streaming 64-key kv tiles),
-    heaviest first (most streamed tiles, then the lower tile). Causal
-    ranges start at ``_first_live_q`` (dK/dV) or end after
-    ``_last_live_kv`` (dQ); the kernel walks every tile for a batch row
-    whose ``kv_len`` is 0, whose keys are all masked."""
-    block_q, block_k = WGMMA_BWD_TILES[kernel]
+def wgmma_work(kernel: str, S: int, causal: bool
+               ) -> Tuple[Tuple[int, int, int], ...]:
+    """The wgmma kernel's work list at sequence length ``S``: one
+    ``(tile, first, end)`` item per block tile of its ``WGMMA_TILES``
+    (dK/dV: 128-key tiles streaming 64-row q tiles ``[first, end)``; the
+    forward and dQ: 128-row q tiles streaming 64-key kv tiles), heaviest
+    first (most streamed tiles, then the lower tile). Causal ranges
+    start at ``_first_live_q`` (dK/dV) or end after ``_last_live_kv``
+    (forward, dQ); the kernel walks every tile for a batch row whose
+    ``kv_len`` is 0, whose keys are all masked."""
+    block_q, block_k = WGMMA_TILES[kernel]
     n_q, n_kv = -(-S // block_q), -(-S // block_k)
     if kernel == "flash_bwd_dkv":
         items = [(j, _first_live_q(j, block_q, block_k) if causal else 0,
@@ -300,16 +300,16 @@ def bwd_work(kernel: str, S: int, causal: bool
 @functools.lru_cache(maxsize=64)
 def _work_tensor(kernel: str, S: int, causal: bool,
                  device: torch.device) -> torch.Tensor:
-    """:func:`bwd_work` as a ``(n, 3)`` int32 tensor on ``device``, made
-    once a shape (the kernels only read it)."""
-    return torch.tensor(bwd_work(kernel, S, causal),
+    """:func:`wgmma_work` as a ``(n, 3)`` int32 tensor on ``device``,
+    made once a shape (the kernels only read it)."""
+    return torch.tensor(wgmma_work(kernel, S, causal),
                         dtype=torch.int32).to(device)
 
 
-def _bwd_route(kernel: str, tensors, causal: bool):
-    """``(block_q, block_k, work pointer, items)`` of one backward
-    launch: the wgmma kernel's tile and work list after :func:`check_tma`
-    where it runs (bf16 at D = 64), else ``FLASH_TILE`` and no list."""
+def _wgmma_route(kernel: str, tensors, causal: bool):
+    """``(block_q, block_k, work pointer, items)`` of one launch: the
+    wgmma kernel's tile and work list after :func:`check_tma` where it
+    runs (bf16 at D = 64), else ``FLASH_TILE`` and no list."""
     q = tensors[0]
     tile = flash_tile(kernel, q.shape[-1], q.dtype)
     if tile == FLASH_TILE:
@@ -372,14 +372,16 @@ def flash_fwd(q, k, v, *, causal: bool = True,
     q, k, v = pad_head_dim((q, k, v), padded_head_dim(D0))
     strides, len_ptr, (B, H, S, D) = _cuda_args(q, (q, k, v), kv_len,
                                                 rows_16b=True)
+    block_q, block_k, work, n_work = _wgmma_route("flash_fwd", (q, k, v),
+                                                  causal)
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         _launch("flash_fwd", lib.kftpu_flash_fwd, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), len_ptr, out.data_ptr(), lse.data_ptr(),
-                strides, B, H, S, D, scale, int(causal),
-                int(q.dtype == torch.bfloat16), _stream(q))
+                strides, work, B, H, S, D, n_work, block_q, block_k, scale,
+                int(causal), int(q.dtype == torch.bfloat16), _stream(q))
     return unpad_head_dim((out,), D0)[0], lse
 
 
@@ -409,8 +411,8 @@ def flash_bwd_dq(q, k, v, g, lse, delta, *, causal: bool = True,
     q, k, v, g = pad_head_dim((q, k, v, g), padded_head_dim(D0))
     strides, len_ptr, (B, H, S, D) = _cuda_args(q, (q, k, v, g), kv_len,
                                                 rows_16b=True)
-    block_q, block_k, work, n_work = _bwd_route("flash_bwd_dq",
-                                                (q, k, v, g), causal)
+    block_q, block_k, work, n_work = _wgmma_route("flash_bwd_dq",
+                                                  (q, k, v, g), causal)
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
@@ -434,8 +436,8 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal: bool = True,
     q, k, v, g = pad_head_dim((q, k, v, g), padded_head_dim(D0))
     strides, len_ptr, (B, H, S, D) = _cuda_args(q, (q, k, v, g), kv_len,
                                                 rows_16b=True)
-    block_q, block_k, work, n_work = _bwd_route("flash_bwd_dkv",
-                                                (q, k, v, g), causal)
+    block_q, block_k, work, n_work = _wgmma_route("flash_bwd_dkv",
+                                                  (q, k, v, g), causal)
     dk = torch.empty((B, S, H, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, S, H, D), dtype=v.dtype, device=q.device)
     lib = _lib()

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""The port's flash backward kernels timed on one GPU, against another
-checkout's.
+"""The port's flash kernels timed on one GPU, against another checkout's.
 
-``kubeflow_tpu_torch/ops/flash_attention.py``'s ``flash_bwd_dq`` and
-``flash_bwd_dkv`` (and, beside them, ``flash_fwd``) are timed with
+``kubeflow_tpu_torch/ops/flash_attention.py``'s ``flash_fwd``,
+``flash_bwd_dq`` and ``flash_bwd_dkv`` are timed with
 ``chip_smoke.time_ms`` (CUDA events, cold L2, device time only) at
-``chip_smoke.py``'s two timed shapes of phase 2, bf16: the LM's
-(B=2, S=8192, H=16, D=64, causal) and BERT-base's (B=16, S=512, H=12,
-D=64, non-causal), on inputs made by ``chip_smoke.flash_inputs`` from
-one seed, with the lse and delta of the tree's own forward. Each point
-prints one JSON line with the card's name and power limit, its ms and
-the bound of its shape (``chip_smoke.flash_bytes_ops``), and the norm
-error of dQ, dK and dV against the tree's plain versions.
+``chip_smoke.py``'s timed shapes, bf16 at D=64: phase 2's LM
+(B=2, S=8192, H=16, causal) and BERT-base (B=16, S=512, H=12,
+non-causal), and phase 17's two inference shapes of BERT-base
+``:predict`` (B=8, S=512 and B=1, S=128, H=12, non-causal), on inputs
+made by ``chip_smoke.flash_inputs`` from one seed, the backward from the
+lse and delta of the tree's own forward. Each point prints one JSON line
+with the card's name and power limit, its ms and the bound of its shape
+(``chip_smoke.flash_bytes_ops``), and the errors against the tree's
+plain versions: the norm error of out, dQ, dK and dV and the largest
+absolute error of lse.
 
 Usage (needs CUDA):
 
@@ -19,7 +21,11 @@ Usage (needs CUDA):
 - ``python3 scripts/port_flash_bwd_ab.py --against DIR`` times DIR's
   kernels (another checkout's root, e.g. the parent commit unpacked by
   ``git archive``) and this checkout's in turns (DIR, this, this, DIR),
-  each in a process of its own.
+  each in a process of its own;
+- ``--lm-step`` adds, after each turn's kernel points, phase 5 of
+  ``chip_smoke.py`` (``train_phase``: the seq-8192 LM, 4 steps, 16
+  forward launches a step) run on that tree's package, and prints its
+  step ms on a JSON line.
 """
 
 from __future__ import annotations
@@ -33,8 +39,10 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
-SHAPES = {"lm": ((2, 8192, 16, 64), True), "bert": ((16, 512, 12, 64),
-                                                     False)}
+SHAPES = {"lm": ((2, 8192, 16, 64), True),
+          "bert": ((16, 512, 12, 64), False),
+          "predict_b8": ((8, 512, 12, 64), False),
+          "predict_b1": ((1, 128, 12, 64), False)}
 
 
 def _smoke():
@@ -60,16 +68,18 @@ def _points(tree: str) -> None:
                                            smoke.SEED + 1, False)
         out, lse = fa.flash_fwd(q, k, v, causal=causal)
         delta = fa.flash_delta(g, out)
-        got = (fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=causal),
+        got = (out, fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=causal),
                *fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal=causal))
         plain = smoke.over_heads(
             lambda q, k, v, g, lse, delta: (
+                *fa.flash_fwd_plain(q, k, v, causal=causal),
                 fa.flash_bwd_dq_plain(q, k, v, g, lse, delta, causal=causal),
                 *fa.flash_bwd_dkv_plain(q, k, v, g, lse, delta,
                                         causal=causal)),
             q, k, v, g, lse, delta, 4)
-        errs = {name: smoke.norm_err(a, b)
-                for name, a, b in zip(("dq", "dk", "dv"), got, plain)}
+        errs = {name: smoke.norm_err(a, b) for name, a, b in zip(
+            ("out", "dq", "dk", "dv"), got, plain[:1] + plain[2:])}
+        errs["lse_abs"] = (lse - plain[1]).abs().max().item()
         del got, plain
         ms = {"flash_fwd": smoke.time_ms(
                   lambda: fa.flash_fwd(q, k, v, causal=causal)),
@@ -90,13 +100,33 @@ def _points(tree: str) -> None:
         torch.cuda.empty_cache()
 
 
+def _lm_step(tree: str) -> None:
+    import torch
+
+    smoke = _smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        train = smoke.train_phase(torch.device("cuda", 0))
+    except smoke.SmokeFailure as e:   # one of the phase's checks; go on
+        print(json.dumps({"device": smoke.gpu_identity(), "tree": tree,
+                          "phase": 5, "error": str(e)}), flush=True)
+        return
+    print(json.dumps({"device": smoke.gpu_identity(), "tree": tree,
+                      "phase": 5, "step_ms": train["step_ms"],
+                      "mean_step_ms": train["mean_step_ms"],
+                      "launches": train["launches"]}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", metavar="DIR",
                     help="time DIR's kernels and this one's in turns")
     ap.add_argument("--tree", metavar="DIR",
                     help="time DIR's kernels only (one turn of --against)")
+    ap.add_argument("--lm-step", action="store_true",
+                    help="also run phase 5's LM steps in each turn")
     args = ap.parse_args()
+    extra = ["--lm-step"] if args.lm_step else []
     import torch
 
     if not torch.cuda.is_available():
@@ -106,12 +136,14 @@ def main() -> int:
         other = os.path.abspath(args.against)
         for tree in (other, ROOT, ROOT, other):
             rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                 "--tree", tree]).returncode
+                                 "--tree", tree, *extra]).returncode
             if rc:
                 return rc
         return 0
     sys.path.insert(0, os.path.abspath(args.tree or ROOT))
     _points(args.tree or ROOT)
+    if args.lm_step:
+        _lm_step(args.tree or ROOT)
     return 0
 
 

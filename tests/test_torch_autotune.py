@@ -7,7 +7,7 @@ the same row for the same entries and queries; overrides, partial
 overrides and the loader's reject-with-warning path behave as there.
 Then Hopper's legality in place of the VMEM estimate: a flash row only
 at the tile its kernel is compiled for (64 x 64, or the bf16 D <= 64
-backward's wgmma tiles), a paged row's split a whole number of
+wgmma tiles), a paged row's split a whole number of
 pages whose block fits the shared-memory limit, wildcards checked at the
 strictest shape; the committed ``sm_90`` rows reproduce the wrapper's
 analytic choices; and the paged wrapper's split resolves through the
@@ -157,7 +157,7 @@ class TestResolution:
                                n_heads=n_heads, n_kv_heads=n_heads,
                                dtype=torch.bfloat16, causal=causal,
                                generation="sm_90")
-        want = {"flash_fwd": (64, 64), "flash_bwd_dq": (128, 64),
+        want = {"flash_fwd": (128, 64), "flash_bwd_dq": (128, 64),
                 "flash_bwd_dkv": (64, 128)}[kernel]
         assert (cfg.source, cfg.block_q, cfg.block_k) == ("table", *want)
 
@@ -219,9 +219,13 @@ class TestHopperLegality:
     @pytest.mark.parametrize("bq,bk", [(128, 64), (64, 128), (1024, 1024),
                                        (32, 32)])
     def test_flash_row_only_at_the_compiled_tile(self, bq, bk):
-        errs = at.validate_entry(_flash_row(block_q=bq, block_k=bk))
+        """The f32 forward (the FMA kernel) runs 64 x 64 and nothing
+        else; the bf16 D = 64 forward's own tile is held in
+        ``TestBackwardTiles``."""
+        errs = at.validate_entry(_flash_row(dtype="float32", block_q=bq,
+                                            block_k=bk))
         assert any("64 x 64" in e for e in errs)
-        assert at.validate_entry(_flash_row()) == []
+        assert at.validate_entry(_flash_row(dtype="float32")) == []
 
     def test_flash_row_needs_a_seq_bucket(self):
         errs = at.validate_entry(_flash_row(seq_bucket=None))
@@ -272,12 +276,13 @@ class TestHopperLegality:
 
 
 class TestBackwardTiles:
-    """The legal tile is per kernel key: the forward's 64 x 64, and the
-    bf16 D <= 64 backward's wgmma tiles (dQ 128 q rows x 64 keys, dK/dV
-    64 q rows x 128 keys); the other backward kernels keep 64 x 64."""
+    """The legal tile is per kernel key: the bf16 D <= 64 wgmma tiles
+    (the forward and dQ 128 q rows x 64 keys, dK/dV 64 q rows x 128
+    keys); the other kernels (f32, D = 128 and up) keep 64 x 64."""
 
     @pytest.mark.parametrize("kernel,tile", [("flash_bwd_dq", (128, 64)),
-                                             ("flash_bwd_dkv", (64, 128))])
+                                             ("flash_bwd_dkv", (64, 128)),
+                                             ("flash_fwd", (128, 64))])
     @pytest.mark.parametrize("head_dim", [64, 32])
     def test_wgmma_tiles_are_legal(self, kernel, tile, head_dim):
         row = _flash_row(kernel=kernel, head_dim=head_dim, block_q=tile[0],
@@ -286,7 +291,8 @@ class TestBackwardTiles:
         assert at.flash_tile(kernel, head_dim, torch.bfloat16) == tile
 
     @pytest.mark.parametrize("kernel,tile", [("flash_bwd_dq", "128 x 64"),
-                                             ("flash_bwd_dkv", "64 x 128")])
+                                             ("flash_bwd_dkv", "64 x 128"),
+                                             ("flash_fwd", "128 x 64")])
     @pytest.mark.parametrize("bq,bk", [(64, 64), (128, 128)])
     def test_old_tile_refused_for_the_wgmma_kernels(self, kernel, tile, bq,
                                                     bk):
@@ -294,7 +300,8 @@ class TestBackwardTiles:
                                             block_k=bk))
         assert any(tile in e for e in errs)
 
-    @pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
+    @pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv",
+                                        "flash_fwd"])
     @pytest.mark.parametrize("head_dim,dtype", [(128, "bfloat16"),
                                                 (256, "bfloat16"),
                                                 (64, "float32"),
@@ -307,7 +314,8 @@ class TestBackwardTiles:
                            block_q=128, block_k=128)
         assert any("64 x 64" in e for e in at.validate_entry(wgmma))
 
-    @pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
+    @pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv",
+                                        "flash_fwd"])
     @pytest.mark.parametrize("field,value", [("head_dim", None),
                                              ("dtype", "*")])
     def test_a_row_open_where_the_kernel_changes_is_refused(self, kernel,
@@ -316,7 +324,7 @@ class TestBackwardTiles:
         errs = at.validate_entry(row)
         assert any("pin head_dim and dtype" in e for e in errs)
 
-    @pytest.mark.parametrize("kernel,tile", [("flash_fwd", (64, 64)),
+    @pytest.mark.parametrize("kernel,tile", [("flash_fwd", (128, 64)),
                                              ("flash_bwd_dq", (128, 64)),
                                              ("flash_bwd_dkv", (64, 128))])
     def test_resolve_flash_returns_what_the_kernel_runs(self, kernel, tile):
@@ -376,7 +384,7 @@ class TestTableIO:
         with at.table_override(table):
             cfg = at.resolve_flash("flash_fwd", seq=8192,
                                    generation="sm_90", **LM_SHAPE)
-        assert (cfg.source, cfg.block_q) == ("fallback", 64)
+        assert (cfg.source, cfg.block_q) == ("fallback", 128)
 
     def test_strict_load_raises_on_illegal(self, tmp_path):
         path = tmp_path / "bad.json"

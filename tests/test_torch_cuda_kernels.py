@@ -602,6 +602,75 @@ def test_flash_wgmma_backward_long_sum_holds_dv(cuda):
     print(f"S=8192 causal norm errors: {rels}")
 
 
+def _hold_fwd(q, k, v, *, causal, kv_len=None):
+    """The forward against its plain version: out within the bf16
+    norm-relative limit (4e-4), lse within 1e-5; returns (out, lse) and
+    out's reading."""
+    kw = dict(causal=causal, kv_len=kv_len)
+    before = fa.launches["flash_fwd"]
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_fwd"] == before + 1
+    want, want_lse = fa.flash_fwd_plain(q, k, v, **kw)
+    assert torch.isfinite(out.float()).all()
+    rel = ((out.float() - want.float()).norm()
+           / want.float().norm()).item()
+    assert rel <= 4e-4, f"out: norm err {rel} > 4e-4"
+    err = (lse - want_lse).abs().max().item()
+    assert err <= 1e-5, f"lse: {err} > 1e-5"
+    return (out, lse), rel
+
+
+def _bf16(rng, shape, cuda):
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_forward_reads_views_of_a_fused_projection(cuda,
+                                                               causal):
+    """The bf16 D = 64 forward loads q, k and v through TMA maps over
+    their strides: views of one fused (B, S, 3, H, D) tensor give the
+    contiguous inputs' out and lse bit for bit."""
+    qkv = _bf16(np.random.default_rng(24), (2, 300, 3, 4, 64), cuda)
+    views = [qkv[:, :, i] for i in range(3)]
+    fused, _ = _hold_fwd(*views, causal=causal)
+    dense, _ = _hold_fwd(*(t.contiguous() for t in views), causal=causal)
+    for a, b in zip(fused, dense):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_forward_ragged_rows_and_kv_len(cuda, causal):
+    """S = 1000 (a ragged last 128-row tile and 64-key stage) with
+    kv_len rows of 0, 1, a ragged length and the full length: the
+    kv_len = 0 row walks every tile and averages over all S keys."""
+    rng = np.random.default_rng(25)
+    q, k, v = (_bf16(rng, (4, 1000, 4, 64), cuda) for _ in range(3))
+    lens = torch.tensor([0, 1, 937, 1000], dtype=torch.int32, device=cuda)
+    _hold_fwd(q, k, v, causal=causal, kv_len=lens)
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 129])
+def test_flash_wgmma_forward_short_sequences(cuda, S):
+    """Sequences shorter than a block: the second warpgroup without rows
+    (S <= 64), a Q box wholly past S, one ragged stage."""
+    rng = np.random.default_rng(26 + S)
+    q, k, v = (_bf16(rng, (2, S, 3, 64), cuda) for _ in range(3))
+    for causal in (True, False):
+        _hold_fwd(q, k, v, causal=causal)
+
+
+def test_flash_wgmma_forward_long_sum_holds_out(cuda):
+    """out over S = 8192 keys, causal: each stage's P.V goes to fresh
+    tensor-core fragments added in f32, so the rows that sum 128 stages
+    stay under the 4e-4 limit."""
+    rng = np.random.default_rng(27)
+    q, k, v = (_bf16(rng, (1, 8192, 2, 64), cuda) for _ in range(3))
+    _, rel = _hold_fwd(q, k, v, causal=True)
+    print(f"S=8192 causal out norm error: {rel}")
+
+
 def test_flash_bf16_kernels_refuse_rows_off_16_bytes(cuda):
     """The bf16 forward, dQ and dK/dV stage rows with 16-byte copies: a
     view whose base address or row stride is not a multiple of 16 bytes

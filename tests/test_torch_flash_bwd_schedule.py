@@ -1,7 +1,7 @@
 """The host side of the wgmma flash backward (``ops/flash_attention.py``).
 
 The bf16 D = 64 dQ and dK/dV kernels walk a work list that the wrapper
-computes (:func:`bwd_work`): one item per 128-row block tile with the
+computes (:func:`wgmma_work`): one item per 128-row block tile with the
 range of 64-row tiles it streams. Here each item's range is held against
 the reference's causal loop limits (``kubeflow_tpu/ops/attention.py``
 ``_first_live_q`` and ``_last_live_kv``) at the same block sizes, every
@@ -30,9 +30,9 @@ def test_work_list_ranges_match_the_reference(kernel, causal, S):
     """Each item's streamed range is the reference's at the kernel's
     block sizes: dK/dV from ``_first_live_q`` to the last q tile, dQ
     from 0 to ``_last_live_kv`` + 1 (every tile without causality)."""
-    block_q, block_k = at.WGMMA_BWD_TILES[kernel]
+    block_q, block_k = at.WGMMA_TILES[kernel]
     n_q, n_kv = -(-S // block_q), -(-S // block_k)
-    for tile, first, end in fa.bwd_work(kernel, S, causal):
+    for tile, first, end in fa.wgmma_work(kernel, S, causal):
         if kernel == "flash_bwd_dkv":
             want = (_first_live_q(tile, block_q, block_k) if causal else 0,
                     n_q)
@@ -49,9 +49,9 @@ def test_work_list_ranges_match_the_reference(kernel, causal, S):
 def test_work_list_holds_every_tile_once_heaviest_first(kernel, causal, S):
     """One item per block tile of the kernel's own size, none twice, in
     order of the tiles each streams (most first; ties by tile)."""
-    block_q, block_k = at.WGMMA_BWD_TILES[kernel]
+    block_q, block_k = at.WGMMA_TILES[kernel]
     own = block_k if kernel == "flash_bwd_dkv" else block_q
-    work = fa.bwd_work(kernel, S, causal)
+    work = fa.wgmma_work(kernel, S, causal)
     assert sorted(t for t, _, _ in work) == list(range(-(-S // own)))
     sizes = [end - first for _, first, end in work]
     assert sizes == sorted(sizes, reverse=True)
@@ -61,7 +61,7 @@ def test_work_list_holds_every_tile_once_heaviest_first(kernel, causal, S):
 
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_the_wrapper_runs_the_tile_the_table_resolves(kernel):
-    """The tile a launch takes (``_bwd_route``) is what ``resolve_flash``
+    """The tile a launch takes (``_wgmma_route``) is what ``resolve_flash``
     falls back to for the shape: the wgmma tile for bf16 at D <= 64
     (padded to 64), 64 x 64 otherwise."""
     for D, dtype in ((64, torch.bfloat16), (32, torch.bfloat16),
@@ -73,7 +73,7 @@ def test_the_wrapper_runs_the_tile_the_table_resolves(kernel):
         width = fa.padded_head_dim(D)
         tensors = [torch.zeros(1, 512, 4, width, dtype=dtype, device="meta")
                    for _ in range(4)]
-        block_q, block_k, _, n_work = fa._bwd_route(kernel, tensors, True)
+        block_q, block_k, _, n_work = fa._wgmma_route(kernel, tensors, True)
         assert (cfg.source, cfg.block_q, cfg.block_k) == (
             "fallback", block_q, block_k)
         assert (n_work > 0) == (dtype == torch.bfloat16 and D <= 64)
@@ -203,8 +203,8 @@ def test_fused_projection_view_reaches_the_library(fake_lib, wrapper,
     assert strides[:3] == [1000 * 3 * 2 * 64, 3 * 2 * 64, 64]
     tail = args[-11:]   # B, H, S, D, n_work, block_q, block_k, ...
     assert tail[:4] == (2, 2, 1000, 64)
-    assert tail[4] == len(fa.bwd_work(wrapper, 1000, causal))
-    assert tuple(tail[5:7]) == at.WGMMA_BWD_TILES[wrapper]
+    assert tail[4] == len(fa.wgmma_work(wrapper, 1000, causal))
+    assert tuple(tail[5:7]) == at.WGMMA_TILES[wrapper]
     assert fa.launches[wrapper] == 1
 
 
