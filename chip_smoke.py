@@ -13,7 +13,11 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
    with CUDA events: paged attention at two lengths, ragged rows up to
    2048 tokens and phase 3's 251-363 (bf16 within atol 8e-3, f32 within
    atol 1e-5, GQA included; repeat calls bit-identical, the fused fold's
-   counters back at zero), the sampler (token-identical to its plain
+   counters back at zero; every bf16 Dh-64 case of a group <= 8, pages of
+   16 and a kv-head slice among them, through ``paged_decode_tma_kernel``,
+   whose four variants each need a ptxas line and no spill, and every
+   other case through ``paged_decode_kernel``; timed beside the floor of
+   the timing, a one-element fill), the sampler (token-identical to its plain
    version on the shared adversarial rows of ``tests/sampler_rows.py``
    at V=32000 and 128,256, all at once and each alone, on two of them
    past the clusters' shared memory, and on random rows at B=8 and 1;
@@ -252,8 +256,9 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
     under a ledger too, and its nvcc seconds by source are printed; (b)
     the tile table: each committed ``sm_90`` paged row's Python
     shared-memory formula equal to the library's, the kernel at its
-    shape within phase 2's limits of its plain version, the phase-2
-    shape timed within 3% of phase 2's time, and a phase-3-shaped
+    shape within phase 2's limits of its plain version, at the phase-2
+    shape the row's split within 3% of the split phase 2 ran, the two
+    pinned and timed in turns on one set of inputs, and a phase-3-shaped
     serving run whose every paged resolution comes from the table; (c)
     ``record_memory_budget`` of the BERT-base MLM step's first call at
     phase 11's shape, in a process of its own (``--budget-rank``):
@@ -302,6 +307,10 @@ on rows 3-5 from (b)'s BERT, on rows 6-7 from (b)'s ResNet) and
 ``last_modules`` (phase 26's serving run, BERT step, multiplexed calls
 and ResNet steps: > 0 on rows 1, 3 and 6). The flash forward and bnconv forward
 rows also carry ``predict_shapes``: their times at the inference shapes.
+Row 1 also carries ``tma_launches_by_path``, its launches on
+``paged_decode_tma_kernel`` (> 0 on ``paged_serving``, ``mesh_serving``
+and ``mesh_compose``), ``floor_ms`` and ``shapes`` (phase 2's, the
+serving rows' and phase 2's GQA 16/4 times, each with its bound).
 """
 
 from __future__ import annotations
@@ -388,6 +397,39 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
+def time_turns(fns, rounds: int = 20, warmup: int = 3) -> list:
+    """Mean device time of each of ``fns``, timed as :func:`time_ms` times
+    one call (cold L2, device time only), in turns inside one loop: every
+    other round in reverse order (A, B, B, A, ... for two), so drift over
+    the loop falls on each alike."""
+    import torch
+
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    host_s = 0.0
+    for fn in fns:
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host_s = max(host_s, time.perf_counter() - t0)
+    cycles = int(2 * host_s * 2e9) + 200_000   # clocks <= 2 GHz
+    events = [[] for _ in fns]
+    for r in range(rounds):
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for i in order:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            flush.zero_()
+            torch.cuda._sleep(cycles)
+            start.record()
+            fns[i]()
+            end.record()
+            events[i].append((start, end))
+    torch.cuda.synchronize()
+    return [sum(s.elapsed_time(e) for s, e in ev) / rounds for ev in events]
+
+
 # -- phase 2: kernels against their plain versions ------------------------
 
 
@@ -468,15 +510,79 @@ def paged_serving_inputs(B, QH, KH, Dh, ps, n_log, dtype, device, seed):
 PAGED_SHAPES = {"phase2": paged_inputs, "serving": paged_serving_inputs}
 
 
-def check_paged_kernel(device):
+# the paged TMA kernel's template variants (q heads a block: 1, 2, 4, 8)
+PAGED_TMA_VARIANTS = 4
+
+
+def paged_case(pa, q, k, v, pages, pos, label, atol, *, tma, zero_row):
+    """The paged kernel at one case against its plain version: within
+    ``atol``, finite, a repeat call bit for bit, the fold counters back at
+    0, the all-sentinel last row zeros where ``zero_row``; and the route:
+    each of the two calls through ``paged_decode_tma`` exactly where
+    ``tma``. Returns the max abs error."""
     import torch
 
+    before = dict(pa.launches)
+    got = pa.paged_decode_attention(q, k, v, pages, pos)
+    again = pa.paged_decode_attention(q, k, v, pages, pos)
+    want = pa.paged_decode_attention_plain(q, k.contiguous(), v.contiguous(),
+                                           pages, pos)
+    torch.cuda.synchronize()
+    check(pa.launches["paged_decode_attention"]
+          == before["paged_decode_attention"] + 2,
+          f"paged {label}: the kernel did not launch")
+    tma_calls = pa.launches["paged_decode_tma"] - before["paged_decode_tma"]
+    check(tma_calls == 2 * tma, f"paged {label}: {tma_calls} of 2 calls on "
+                                f"the TMA route, want {2 * tma}")
+    err = (got.float() - want.float()).abs().max().item()
+    check(bool(torch.isfinite(got.float()).all()),
+          f"paged {label}: non-finite output")
+    check(err <= atol, f"paged {label}: max abs err {err} > {atol}")
+    if zero_row:
+        check(got[-1].float().abs().max().item() == 0.0,
+              f"paged {label}: all-sentinel row is not zeros")
+    check(torch.equal(got, again), f"paged {label}: a repeat call differs")
+    counters, _ = pa.device_scratch(q.device, 0, 0)
+    check(int(counters.abs().sum()) == 0,
+          f"paged {label}: fold counters not reset")
+    route = "paged_decode_tma_kernel" if tma else "paged_decode_kernel"
+    print(f"paged_attention {label} ({route}): max_abs_err={err:.3e} (atol "
+          f"{atol}) mean_abs_out={want.float().abs().mean().item():.3e}; "
+          f"repeat call bit-identical", flush=True)
+    return err
+
+
+def check_paged_kernel(device, build_log=""):
+    """The paged kernels against their plain version. bf16 at Dh 64 and
+    groups of at most 8 must take ``paged_decode_tma_kernel`` (phase 2's
+    ragged rows and the serving rows at QH=KH 16 and GQA 16/4, pages of
+    16, a slice of the pool's kv heads); f32, a group of 16, Dh 96 and
+    256 must take ``paged_decode_kernel``. ``build_log`` is nvcc's output
+    for ``paged_attention.cu``: every TMA variant needs a ptxas line and
+    no spill. Times phase 2's and the serving rows (QH=KH 16) and phase
+    2's GQA rows, each with its bound, beside the timing floor (a
+    one-element fill)."""
+    import torch
+
+    from kubeflow_tpu_torch.ops import autotune as at
     from kubeflow_tpu_torch.ops import paged_attention as pa
 
+    regs = ptxas_kernels(build_log, r"(paged_decode_tma_kernel)I(Li\d+E)E")
+    for (name, variant), (n_regs, st, ld) in sorted(regs.items()):
+        print(f"  ptxas {name}<{variant}>: {n_regs} registers, spill "
+              f"stores {st} B, loads {ld} B", flush=True)
+        check(st == 0 and ld == 0, f"{name}<{variant}> spills")
+    if build_log:
+        check(len(regs) == PAGED_TMA_VARIANTS,
+              f"ptxas lines for {len(regs)} of {PAGED_TMA_VARIANTS} "
+              "paged_decode_tma_kernel variants")
+    else:
+        print("  ptxas: paged_attention was built before this run (no "
+              "compiler log)", flush=True)
     results = {}
     # (label, QH, KH, dtype, atol): bf16 tolerance — the plain version
     # rounds scores to bf16 after its einsum (the reference's gather
-    # rounding point) while the kernel keeps them in f32; both round the
+    # rounding point) while the kernels keep them in f32; both round the
     # output to bf16, so they differ by about one bf16 step of an output
     # of magnitude < 1 (3.9e-3); atol is two such steps. f32 differs only
     # by summation order
@@ -488,30 +594,27 @@ def check_paged_kernel(device):
         for label, QH, KH, dtype, atol in cases:
             q, k, v, pages, pos, P = make(8, QH, KH, 64, 64, 32, dtype,
                                           device, seed=SEED + QH + KH)
-            got = pa.paged_decode_attention(q, k, v, pages, pos)
-            want = pa.paged_decode_attention_plain(q, k, v, pages, pos)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            check(bool(torch.isfinite(got.float()).all()),
-                  f"paged {shape} {label}: non-finite output")
-            check(err <= atol,
-                  f"paged {shape} {label}: max abs err {err} > {atol}")
-            if shape == "phase2":
-                check(got[-1].float().abs().max().item() == 0.0,
-                      f"paged {label}: all-sentinel row is not zeros")
-            again = pa.paged_decode_attention(q, k, v, pages, pos)
-            torch.cuda.synchronize()
-            check(torch.equal(got, again),
-                  f"paged {shape} {label}: a repeat call differs")
-            counters, _ = pa.device_scratch(q.device, 0, 0)
-            check(int(counters.abs().sum()) == 0,
-                  f"paged {shape} {label}: fold counters not reset")
-            typical = want.float().abs().mean().item()
-            print(f"paged_attention {shape} {label}: max_abs_err={err:.3e} "
-                  f"(atol {atol}) mean_abs_out={typical:.3e}; repeat call "
-                  f"bit-identical", flush=True)
+            err = paged_case(pa, q, k, v, pages, pos, f"{shape} {label}",
+                             atol, tma=dtype == torch.bfloat16,
+                             zero_row=shape == "phase2")
             results[shape, label] = (q, k, v, pages, pos, P, err)
-    # (label, QH, KH, Dh, dtype, atol): inputs the kernel once refused, a
+    # the TMA route at pages of 16 (one box a page, 128 pages a row) and
+    # over a slice of the pool's kv heads, read in place (kv heads 1-2 of
+    # 4 and their q heads)
+    q, k, v, pages, pos, P = paged_inputs(8, 8, 2, 64, 16, 128,
+                                          torch.bfloat16, device,
+                                          seed=SEED + 16)
+    err = paged_case(pa, q, k, v, pages, pos, "phase2 bf16_p16", 8e-3,
+                     tma=True, zero_row=True)
+    results["phase2", "bf16_p16"] = (q, k, v, pages, pos, P, err)
+    q, k, v, pages, pos, P = paged_serving_inputs(8, 16, 4, 64, 64, 32,
+                                                  torch.bfloat16, device,
+                                                  seed=SEED + 5)
+    err = paged_case(pa, q[:, 4:12].contiguous(), k[:, :, 1:3],
+                     v[:, :, 1:3], pages, pos, "serving bf16_slice", 8e-3,
+                     tma=True, zero_row=False)
+    results["serving", "bf16_slice"] = (q, k, v, pages, pos, P, err)
+    # (label, QH, KH, Dh, dtype, atol): inputs the split kernel takes, a
     # GQA group of 16 (two blocks of 8 q heads), Dh = 96 at bf16 (lanes
     # rounded up to 16), Dh = 256 at f32 (two 16-byte slices a lane)
     wide = [("gqa16_bf16", 32, 2, 64, torch.bfloat16, 8e-3),
@@ -520,30 +623,18 @@ def check_paged_kernel(device):
     for label, QH, KH, Dh, dtype, atol in wide:
         q, k, v, pages, pos, P = paged_inputs(8, QH, KH, Dh, 64, 32, dtype,
                                               device, seed=SEED + QH + Dh)
-        before = pa.launches["paged_decode_attention"]
-        got = pa.paged_decode_attention(q, k, v, pages, pos)
-        again = pa.paged_decode_attention(q, k, v, pages, pos)
-        want = pa.paged_decode_attention_plain(q, k, v, pages, pos)
-        torch.cuda.synchronize()
-        check(pa.launches["paged_decode_attention"] == before + 2,
-              f"paged {label}: the kernel did not launch")
-        err = (got.float() - want.float()).abs().max().item()
-        check(bool(torch.isfinite(got.float()).all()),
-              f"paged {label}: non-finite output")
-        check(err <= atol, f"paged {label}: max abs err {err} > {atol}")
-        check(got[-1].float().abs().max().item() == 0.0,
-              f"paged {label}: all-sentinel row is not zeros")
-        check(torch.equal(got, again), f"paged {label}: a repeat call differs")
-        counters, _ = pa.device_scratch(q.device, 0, 0)
-        check(int(counters.abs().sum()) == 0,
-              f"paged {label}: fold counters not reset")
-        print(f"paged_attention phase2 {label} QH={QH} KH={KH} Dh={Dh}: "
-              f"max_abs_err={err:.3e} (atol {atol}); repeat call "
-              f"bit-identical", flush=True)
+        err = paged_case(pa, q, k, v, pages, pos,
+                         f"phase2 {label} QH={QH} KH={KH} Dh={Dh}", atol,
+                         tma=False, zero_row=True)
         results["phase2", label] = (q, k, v, pages, pos, P, err)
+    one = torch.empty(1, device=device)
+    floor_ms = time_ms(one.zero_)
     timed = {}
-    for shape in PAGED_SHAPES:
-        q, k, v, pages, pos, P, _ = results[shape, "bf16"]
+    for shape, label in (("phase2", "bf16"), ("serving", "bf16"),
+                         ("phase2", "bf16_gqa")):
+        q, k, v, pages, pos, P, _ = results[shape, label]
+        with at.record_resolutions() as rec:
+            pa.paged_decode_attention(q, k, v, pages, pos)
         kernel_ms = time_ms(lambda: pa.paged_decode_attention(
             q, k, v, pages, pos))
         plain_ms = time_ms(lambda: pa.paged_decode_attention_plain(
@@ -551,12 +642,15 @@ def check_paged_kernel(device):
         nbytes, flops = paged_bytes_ops(q, k, pages, pos, P, k.shape[1])
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOPS * 1e3
-        timed[shape] = (kernel_ms, plain_ms, t_bytes, t_ops)
-        print(f"paged_attention {shape} bf16 B=8 QH=KH=16 Dh=64 ps=64 "
-              f"n_log=32 pos={pos.tolist()}: kernel_ms={kernel_ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={max(t_bytes, t_ops):.4f} "
-              f"({nbytes} B)", flush=True)
-    kernel_ms, plain_ms, t_bytes, t_ops = timed["phase2"]
+        timed[shape, label] = (kernel_ms, plain_ms, t_bytes, t_ops,
+                               rec[0]["split_tokens"])
+        print(f"paged_attention {shape} {label} B=8 QH=16 KH={k.shape[2]} "
+              f"Dh=64 ps=64 n_log=32 pos={pos.tolist()}: "
+              f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={max(t_bytes, t_ops):.4f} ({nbytes} B) "
+              f"floor_ms={floor_ms:.4f} (a one-element fill) split_tokens="
+              f"{rec[0]['split_tokens']}", flush=True)
+    kernel_ms, plain_ms, t_bytes, t_ops, split = timed["phase2", "bf16"]
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "kubeflow_tpu_torch/ops/csrc/paged_attention.cu",
             "replaces": "kubeflow_tpu/ops/paged_attention.py:69",
@@ -564,7 +658,11 @@ def check_paged_kernel(device):
             "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "library_ms": None, "floor_ms": floor_ms,
+            "phase2_split_tokens": split,
+            "shapes": {f"{sh}/{lb}": {"ms": t[0], "plain_ms": t[1],
+                                      "bound_ms": max(t[2], t[3])}
+                       for (sh, lb), t in timed.items()}}
 
 
 def sampler_inputs(device, B=8, V=32000, seed=SEED):
@@ -3289,6 +3387,7 @@ def predict_phase(device, base: str, *, image: int = 224,
     import numpy as np
     import torch
 
+    from kubeflow_tpu_torch import ops
     from kubeflow_tpu_torch.models import convert
     from kubeflow_tpu_torch.serving.model_store import build_model
     from kubeflow_tpu_torch.serving.server import ModelServer
@@ -3307,10 +3406,7 @@ def predict_phase(device, base: str, *, image: int = 224,
     def url(name, verb="predict"):
         return f"http://127.0.0.1:{port}/v1/models/{name}:{verb}"
 
-    totals = {name: 0 for name in ("paged_decode_attention", "fused_sample",
-                                   "flash_fwd", "flash_bwd_dq",
-                                   "flash_bwd_dkv", "bnconv_fwd",
-                                   "bnconv_dw")}
+    totals = dict.fromkeys(ops.launch_counts(), 0)
     none = {k: 0 for k in totals}
     # off the card the wrappers take their plain versions: no launches
     on_card = torch.device(device).type == "cuda"
@@ -6207,6 +6303,10 @@ def phase25(device, base: str, kernels: list, kind: str, ident: str) -> None:
         n = mc["launches"].get(kern["name"], 0)
         kern["launches_by_path"]["mesh_compose"] = n
         kern["launches"] += n
+    tma = kernels[0].setdefault("tma_launches_by_path", {})
+    tma["mesh_compose"] = mc["launches"].get("paged_decode_tma", 0)
+    check(tma["mesh_compose"] > 0,
+          "paged_decode_tma_kernel never launched on the mesh_compose path")
     for i, kern in enumerate(kernels):
         if i < 2:
             got = (parts["serve_world1"].get(kern["name"], 0),
@@ -6291,7 +6391,7 @@ LAST_JOB = {"KFTPU_JOB_NAME": "smoke-last-modules",
             "KFTPU_NAMESPACE": "default", "KFTPU_JOB_UID": "phase-26",
             "KFTPU_PROCESS_ID": "0"}
 BUILD_WALL_LIMIT = 0.10     # (a) a source's seconds against the phase's wall
-TILE_TIME_LIMIT = 0.03      # (b) the table's split against phase 2's time
+TILE_TIME_LIMIT = 0.03      # (b) the table's split against phase 2's split
 BUDGET_PEAK_LIMIT = 0.10    # (c) argument + temp + output against the peak
 EVICT_MEM_LIMIT = 0.05      # (d) allocated after an eviction against before
 MUX_THREADS = 8             # (d) threads faulting one cold model
@@ -6375,14 +6475,18 @@ def compile_ledger_part(first_build: dict) -> dict:
             "job_seconds": xprof.job_compile_seconds(ns, job)}
 
 
-def tile_table_part(device, base: str, cfg, paged_ms: float) -> dict:
+def tile_table_part(device, base: str, cfg, phase2_split: int) -> dict:
     """Phase 26 (b): every committed ``sm_90`` ``paged_attn`` row's
-    Python shared-memory formula against the library's
-    ``kftpu_paged_decode_smem_bytes`` at the row's legality point; the
-    kernel at each row's shape against its plain version (bf16 8e-3, f32
-    1e-5, phase 2's limits), resolved from the table; the phase-2 shape
-    timed against phase 2's time; then a phase-3-shaped serving run (4
-    requests of ~300 + 16) under ``record_resolutions``: every paged
+    Python shared-memory formula (the route's at the row's shape) against
+    the library's ``kftpu_paged_decode_smem_bytes`` at the row's legality
+    point; the kernel at each row's shape against its plain version (bf16
+    8e-3, f32 1e-5, phase 2's limits), resolved from the table; at
+    phase 2's timed shape the kernel at the table row's split and at the
+    split phase 2 ran (``phase2_split``), each pinned by a table override
+    as ``scripts/port_paged_sweep.py`` pins it, on one set of inputs and
+    timed in turns in one loop (:func:`time_turns`), within
+    ``TILE_TIME_LIMIT`` of each other; then a phase-3-shaped serving run
+    (4 requests of ~300 + 16) under ``record_resolutions``: every paged
     resolution from the table, none from the fallback."""
     import collections
 
@@ -6422,12 +6526,21 @@ def tile_table_part(device, base: str, cfg, paged_ms: float) -> dict:
         held.append({"row": at.entry_key(e), "smem_bytes": py,
                      "split_tokens": e["split_tokens"], "max_abs_err": err})
         if (dtype, QH, KH, Dh, ps) == (torch.bfloat16, 16, 16, 64, 64):
-            timed = time_ms(lambda: pa.paged_decode_attention(
-                q, k, v, pages, pos))
+            def at_split(split, q=q, k=k, v=v, pages=pages, pos=pos):
+                row = {"kernel": "paged_attn", "generation": "*",
+                       "dtype": "*", "split_tokens": split}
+
+                def fn():
+                    with at.table_override(at.TileTable([row], [])):
+                        pa.paged_decode_attention(q, k, v, pages, pos)
+                return fn
+
+            timed = time_turns([at_split(e["split_tokens"]),
+                                at_split(phase2_split)])
     check(timed is not None, "no committed row at phase 2's timed shape")
-    check(abs(timed - paged_ms) <= TILE_TIME_LIMIT * paged_ms,
-          f"the table's split takes {timed:.4f} ms, phase 2's "
-          f"{paged_ms:.4f} ms")
+    check(abs(timed[0] - timed[1]) <= TILE_TIME_LIMIT * timed[1],
+          f"the table's split takes {timed[0]:.4f} ms, phase 2's "
+          f"({phase2_split} keys) {timed[1]:.4f} ms, timed in turns")
     with at.record_resolutions() as rec:
         serve = serve_phase(base, cfg, device, n_requests=4, max_new=16)
     by_source = collections.Counter(f"{d['kernel']}/{d['source']}"
@@ -6438,7 +6551,8 @@ def tile_table_part(device, base: str, cfg, paged_ms: float) -> dict:
           f"{serve['launches']['paged_decode_attention']} launches")
     check(not any(k.endswith("/fallback") for k in by_source),
           f"serving resolutions by source: {dict(by_source)}")
-    return {"rows": held, "ms": timed, "phase2_ms": paged_ms,
+    return {"rows": held, "ms": timed[0], "phase2_ms": timed[1],
+            "phase2_split": phase2_split,
             "serving": serve, "by_source": dict(by_source),
             "launches": serve["launches"]}
 
@@ -6677,7 +6791,8 @@ def last_modules_phase(device, base: str, cfg, kernels: list,
 
     res = {"compile": compile_ledger_part(first_build)}
     torch.cuda.empty_cache()
-    res["tiles"] = tile_table_part(device, base, cfg, kernels[0]["ms"])
+    res["tiles"] = tile_table_part(device, base, cfg,
+                                   kernels[0]["phase2_split_tokens"])
     torch.cuda.empty_cache()
     res["budget"] = memory_budget_process()
     torch.cuda.empty_cache()
@@ -6704,6 +6819,8 @@ def phase26(device, base: str, cfg, kernels: list, kind: str, ident: str,
         if i in (0, 2, 5):
             check(n > 0, f"{kern['name']} never launched on the "
                          f"last_modules path")
+    kernels[0].setdefault("tma_launches_by_path", {})["last_modules"] = (
+        lm["launches"].get("paged_decode_tma", 0))
     kernels[0]["max_abs_err"] = max(
         [kernels[0]["max_abs_err"]]
         + [r["max_abs_err"] for r in lm["tiles"]["rows"]])
@@ -6724,8 +6841,9 @@ def phase26(device, base: str, cfg, kernels: list, kind: str, ident: str,
           f"{[(r['row'], r['split_tokens'], r['smem_bytes']) for r in t['rows']]}"
           f" (Python smem == kftpu_paged_decode_smem_bytes), max abs err "
           f"{[round(r['max_abs_err'], 6) for r in t['rows']]}; row 1 at "
-          f"phase 2's shape {t['ms']:.4f} ms (phase 2 {t['phase2_ms']:.4f} "
-          f"ms, limit {TILE_TIME_LIMIT:.0%}); a phase-3-shaped serving run "
+          f"phase 2's shape {t['ms']:.4f} ms against {t['phase2_ms']:.4f} "
+          f"ms at phase 2's split ({t['phase2_split']} keys), in turns "
+          f"(limit {TILE_TIME_LIMIT:.0%}); a phase-3-shaped serving run "
           f"(4 requests of ~300 + 16, paged + fused sampler, "
           f"tokens_per_s={s['tokens_per_s']:.1f}) resolved by source "
           f"{t['by_source']}; launches={s['launches']}", flush=True)
@@ -6803,7 +6921,8 @@ def main() -> int:
                 print(f"  [{name}] {line.strip()}", flush=True)
 
     t0 = time.perf_counter()
-    kernels = [check_paged_kernel(device),
+    kernels = [check_paged_kernel(device,
+                                  build_log=logs["paged_attention"]),
                check_sampler_kernel(device, build_log=logs["fused_sample"]),
                *check_flash_kernels(device,
                                     build_log=logs["flash_attention"]),
@@ -6848,6 +6967,11 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start,
         kern["launches_by_path"] = {"paged_serving": kern["launches"]}
         check(kern["launches"] > 0,
               f"{kern['name']} never launched on the serving path")
+    # row 1's launches on its TMA route (bf16, Dh 64, groups <= 8), by path
+    tma = kernels[0]["tma_launches_by_path"] = {
+        "paged_serving": serve["launches"]["paged_decode_tma"]}
+    check(tma["paged_serving"] > 0,
+          "paged_decode_tma_kernel never launched on the serving path")
     ttft = serve["ttft_s"]
     print(f"phase 3 serving ({kind} | {ident}): 8 concurrent "
           f":generate x 64 tokens, prompts ~300: "
@@ -7311,6 +7435,9 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start,
     for kern in kernels[:2]:
         check(kern["launches_by_path"]["mesh_serving"] > 0,
               f"{kern['name']} never launched on the mesh_serving path")
+    tma["mesh_serving"] = ms["mesh_serving"].get("paged_decode_tma", 0)
+    check(tma["mesh_serving"] > 0,
+          "paged_decode_tma_kernel never launched on the mesh_serving path")
     for kern in kernels[2:5]:
         check(kern["launches_by_path"]["encoder_tp"] > 0,
               f"{kern['name']} never launched on the encoder_tp path")

@@ -26,13 +26,18 @@ What differs is the legality and the knobs, which are Hopper's:
   explicit knobs (a reference config's ``attention_block_q/k``) are
   recorded as an override and the kernels still run their own tile —
   never a refusal;
-- a **paged** row's knob is ``split_tokens``, the keys one block of
-  ``csrc/paged_attention.cu`` takes (its split of a row's pages): the
-  port's counterpart of the reference's ``head_block`` (the kernel takes
-  q heads in blocks of at most 8 by itself). A row is legal when the
-  split is a whole number of pages and the block's dynamic shared memory
-  (:func:`paged_smem_bytes`, a copy of the C ``smem_bytes``) fits
-  ``MAX_SMEM_BYTES``, the launch's limit without the opt-in. The
+- a **paged** row's knob is ``split_tokens``, the keys of a split of a
+  row's pages in ``csrc/paged_attention.cu``: the port's counterpart of
+  the reference's ``head_block`` (the kernels take q heads in blocks of
+  at most 8 by themselves). Two kernels share it, chosen by
+  :func:`paged_route` from the dtype, head dim and GQA group:
+  ``paged_decode_tma_kernel`` (bf16, head dim 64, groups to 8; it cuts
+  only rows it does not take whole) and ``paged_decode_kernel`` (the
+  rest). A row is legal when the split is a whole number of pages and
+  the block's dynamic shared memory (:func:`paged_smem_bytes`, a copy of
+  the C ``kftpu_paged_decode_smem_bytes``) fits the route's limit
+  (:func:`paged_smem_limit`): ``OPT_IN_SMEM_BYTES`` for the TMA kernel,
+  which opts in, ``MAX_SMEM_BYTES`` for the other, which does not. The
   fallback is the wrapper's analytic choice: about ``SPLIT_TOKENS``
   keys, halved while the block would not fit.
 
@@ -67,6 +72,9 @@ WGMMA_TILES = {"flash_fwd": (128, 64), "flash_bwd_dq": (128, 64),
                "flash_bwd_dkv": (64, 128)}
 # dynamic shared memory a launch may take without the opt-in attribute
 MAX_SMEM_BYTES = 48 * 1024
+# ... and with it (cudaFuncAttributeMaxDynamicSharedMemorySize): a
+# block's most on Hopper, 227 KB
+OPT_IN_SMEM_BYTES = 232448
 # the paged wrapper's analytic split: about this many keys a block
 SPLIT_TOKENS = 128
 # the dtypes the CUDA kernels take
@@ -78,6 +86,17 @@ _PAGED_THREADS = 128
 _PAGED_WARPS = _PAGED_THREADS // 32
 _PAGED_KEYS = 4
 PAGED_MAX_GROUP = 8
+# the paged kernels: the TMA route (bf16 at head dim 64, groups of at
+# most PAGED_MAX_GROUP q heads) and the split kernel (every other shape)
+PAGED_TMA_KERNEL = "paged_decode_tma_kernel"
+PAGED_SPLIT_KERNEL = "paged_decode_kernel"
+PAGED_TMA_HEAD_DIM = 64
+# csrc/paged_attention.cu's tma:: layout: kStages ring stages of kRows
+# K and V rows (128 bytes each), kConsumerWarps warps' partials of up to
+# 8 heads, a meta int4 and two barriers a stage, the list's kMaxRows rows
+# (5 ints each, one more prefix entry), kMisc ints and kPageCache page ids
+_TMA_STAGES, _TMA_ROWS, _TMA_WARPS = 4, 64, 8
+_TMA_MAX_ROWS, _TMA_MISC, _TMA_PAGE_CACHE = 1024, 5, 2048
 # where a paged row leaves a field open, it is checked at the widest
 # shape the kernel takes: the most shared memory a block can need
 _PAGED_STRICTEST = {"head_dim": 256, "group": PAGED_MAX_GROUP,
@@ -173,11 +192,45 @@ def _row_tiles(entry: Dict[str, Any]) -> set:
 # ---------------------------------------------------------------------------
 
 
+def paged_route(group: int, head_dim: int, el: int) -> str:
+    """The paged kernel that runs at a GQA ``group``, ``head_dim`` and
+    ``el``-byte dtype: a copy of ``csrc/paged_attention.cu:tma_route``."""
+    if (el == 2 and head_dim == PAGED_TMA_HEAD_DIM
+            and group <= PAGED_MAX_GROUP):
+        return PAGED_TMA_KERNEL
+    return PAGED_SPLIT_KERNEL
+
+
+def paged_tma_smem_bytes() -> int:
+    """Dynamic shared memory of one ``paged_decode_tma_kernel`` block, a
+    copy of the C ``tma::kSmem``: the slack to a 1024-byte boundary, the
+    ring, the warps' partials, the stages' meta and barriers, the work
+    list. It does not depend on the split."""
+    ring = _TMA_STAGES * 2 * _TMA_ROWS * PAGED_TMA_HEAD_DIM * 2
+    red = _TMA_WARPS * PAGED_MAX_GROUP * (PAGED_TMA_HEAD_DIM + 2) * 4
+    meta, bars = _TMA_STAGES * 16, _TMA_STAGES * 2 * 8
+    lists = (5 * _TMA_MAX_ROWS + 1 + _TMA_MISC + _TMA_PAGE_CACHE) * 4
+    return 1024 + ring + red + meta + bars + lists
+
+
+def paged_smem_limit(group: int, head_dim: int, el: int) -> int:
+    """The dynamic shared memory the route at this shape may take: the
+    TMA kernel opts in (``OPT_IN_SMEM_BYTES``), the split kernel does not
+    (``MAX_SMEM_BYTES``)."""
+    if paged_route(group, head_dim, el) == PAGED_TMA_KERNEL:
+        return OPT_IN_SMEM_BYTES
+    return MAX_SMEM_BYTES
+
+
 def paged_smem_bytes(group: int, head_dim: int, el: int, pps: int) -> int:
-    """Dynamic shared memory of one paged decode block: a copy of
+    """Dynamic shared memory of one block of the paged kernel that runs
+    at this shape (:func:`paged_route`): the TMA kernel's fixed layout
+    (:func:`paged_tma_smem_bytes`), or a copy of the split kernel's
     ``csrc/paged_attention.cu:smem_bytes`` (the 2-stage K/V ring, or the
     cross-warp partials it turns into once drained, whichever is larger,
     then the split's ``pps`` page ids)."""
+    if paged_route(group, head_dim, el) == PAGED_TMA_KERNEL:
+        return paged_tma_smem_bytes()
     chunks = head_dim * el // 16
     slices = 2 if chunks > 32 else 1
     need = -(-chunks // slices)
@@ -266,11 +319,12 @@ def _int_field(entry: Dict[str, Any], field: str,
 
 
 def validate_entry(entry: Dict[str, Any],
-                   smem_limit: int = MAX_SMEM_BYTES) -> List[str]:
+                   smem_limit: Optional[int] = None) -> List[str]:
     """All the reasons ``entry`` is illegal on Hopper (empty list =
     legal): the flash kernel's compiled tile (:func:`flash_tile`), the
     paged split's whole pages and its block's shared memory against
-    ``smem_limit``."""
+    ``smem_limit`` (by default the limit of the route that runs at the
+    row's legality point, :func:`paged_smem_limit`)."""
     errs: List[str] = []
     kernel = entry.get("kernel")
     if kernel not in KERNELS:
@@ -303,11 +357,14 @@ def validate_entry(entry: Dict[str, Any],
             return errs
         group, head_dim, el, pps = paged_legality_point(entry)
         smem = paged_smem_bytes(group, head_dim, el, pps)
-        if smem > smem_limit:
-            errs.append(f"shared memory {smem} bytes of a split block "
-                        f"(group {group}, head_dim {head_dim}, {el}-byte "
-                        f"dtype, {pps} pages) exceeds the {smem_limit}-byte "
-                        "launch limit")
+        limit = (smem_limit if smem_limit is not None
+                 else paged_smem_limit(group, head_dim, el))
+        if smem > limit:
+            errs.append(f"shared memory {smem} bytes of a "
+                        f"{paged_route(group, head_dim, el)} block (group "
+                        f"{group}, head_dim {head_dim}, {el}-byte dtype, "
+                        f"{pps} pages) exceeds the {limit}-byte launch "
+                        "limit")
         return errs
 
     # flash kernels: the compiled tile only
@@ -391,7 +448,9 @@ class TileTable:
     def to_dict(self) -> Dict[str, Any]:
         entries = sorted(self.entries, key=_entry_sort_key)
         return {"version": self.version,
-                "smem_limit_bytes": MAX_SMEM_BYTES,
+                "smem_limit_bytes": {
+                    PAGED_SPLIT_KERNEL: MAX_SMEM_BYTES,
+                    PAGED_TMA_KERNEL: OPT_IN_SMEM_BYTES},
                 "entries": entries}
 
 

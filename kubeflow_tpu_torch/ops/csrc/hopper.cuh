@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised kernels
-// (bnconv.cu, flash_attention.cu): mbarriers, TMA copies, wgmma and its
-// shared-memory descriptors, setmaxnreg, and the tensor-map encoder.
+// (bnconv.cu, flash_attention.cu, paged_attention.cu's TMA kernel):
+// mbarriers, TMA copies, wgmma and its shared-memory descriptors,
+// setmaxnreg, and the tensor-map encoder.
 //
 // The kernels that use them share one shape: a producer warp keeps TMA
 // copies in flight into a ring of shared-memory stages, each guarded by a
@@ -76,6 +77,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 // count). A store writes only elements inside the tensor.
 // ---------------------------------------------------------------------------
 
+// Bring a tensor map (a __grid_constant__ parameter) into the cache
+// ahead of its first copy.
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
 // One 2-D box (coordinates innermost first) into shared memory.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int c0, int c1) {
@@ -83,6 +92,19 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One 3-D box (coordinates innermost first) into shared memory.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
       : "memory");
 }
 
@@ -336,17 +358,19 @@ inline EncodeTiledFn encoder() {
 // A bf16 tensor of `rank` dims (dims innermost first, strides in bytes
 // of dims 1..rank-1) as TMA boxes of `box` elements a dim, with the
 // 128-byte swizzle (box[0] = 64); past its edges a box reads zeros.
-inline bool encode_bf16(CUtensorMap* map, const void* ptr, int rank,
-                        const cuuint64_t* dims, const cuuint64_t* strides,
-                        const cuuint32_t* box) {
+// `promotion`: how far L2 widens each row it fetches (the paged pools'
+// 128-byte rows, strided by the kv heads, take none).
+inline bool encode_bf16(
+    CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+    const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapL2promotion promotion = CU_TENSOR_MAP_L2_PROMOTION_L2_256B) {
   const EncodeTiledFn enc = encoder();
   if (enc == nullptr) return false;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
              const_cast<void*>(ptr), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+             promotion, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 inline int sm_count() {

@@ -17,21 +17,55 @@
 // rows of a serving batch (a few hundred keys), few dependent steps
 // between the launch and the last byte.
 //
-// Design, and what it does about that bound:
+// Two routes, chosen from dtype, Dh and the GQA group alone:
+// paged_decode_tma_kernel (bf16, Dh = 64, a group of at most 8 q heads:
+// the serving LMs) and paged_decode_kernel (f32, other head dims, larger
+// groups). Neither falls back to the other.
+//
+// paged_decode_tma_kernel, what it does about that bound:
+// - Work sized to the live pages, with no host sync: a persistent grid
+//   (the blocks the SMs hold: two an SM at groups of 1-2, else one)
+//   walks a list of units (row, kv head, range of the row's mapped live
+//   pages) that each block computes from positions and the page table.
+//   Rows of at most kWholeKeys keys that busy the card as they are, or
+//   rows none of which passes 1.5x a block's share, are one unit each
+//   and write out directly; other rows are cut into ranges of
+//   split_tokens keys (the tile table's knob), or of a block's share of
+//   the page loads where that is more, folded in split order by the
+//   range that finishes last. The units, heaviest first, are dealt to the
+//   blocks in rounds, every other round from the last block back. At the
+//   serving shape (B 8, 16 kv heads, 4-6 pages of 64) that is 128 units
+//   and no fold; a dead or sentinel page issues no load.
+// - TMA page loads from a producer warp: one 3-D box of K and one of V
+//   (64 values x up to 64 rows, 128-byte swizzle) a page piece, into a
+//   4-stage ring (16 KB a stage) guarded by full/empty mbarriers: the
+//   loads cost the consumers no instructions and run on across unit
+//   boundaries. The maps are prefetched while the list is built, and the
+//   page table is kept in shared memory where it fits, so the first box
+//   waits for one memory trip after the list.
+// - Eight consumer warps read the swizzled rows: 8 lanes a key row (16
+//   bytes each), the dot in f32 finished by shuffles, each lane group's
+//   online softmax over its keys (2 of a stage's 64), folded at the
+//   unit's end. At a group of 8 or fewer the dots are ~1 flop a byte, so
+//   the FMA units keep up.
+// - Not yet: tensor-core dots for groups past 8 q heads (they take
+//   paged_decode_kernel, a block of 8 a kv head re-reading its pages).
+//
+// paged_decode_kernel, the design before it, kept for the other shapes:
 // - The TPU kernel walks (row, page) on a sequential grid and carries
 //   m/l/acc in VMEM scratch from one grid step to the next. Hopper blocks
 //   run in no order, so the page walk is split (split-KV, as in flash
 //   decoding): grid (B, KH, n_splits), each block takes `pps` consecutive
-//   logical pages of one row and one KV head (the wrapper sizes a split
-//   at about _SPLIT_TOKENS keys, scripts/port_paged_sweep.py). Splits
-//   past the causal frontier exit at once.
+//   logical pages of one row and one KV head (split_tokens keys, from the
+//   tile table; scripts/port_paged_sweep.py). Splits past the causal
+//   frontier exit at once.
 // - One pass over HBM: the block stages its split's page ids in shared
 //   memory, then issues cp.async copies (16 bytes each) of the K AND V
 //   rows of its keys up to pos into a 2-stage ring (8 KB of K and 8 KB
 //   of V a stage: 64 keys at bf16, Dh = 64), both stages before it waits
-//   on either, so a split of 128 such keys (32 KB) is in flight at once;
-//   a longer split streams through the ring, each stage refilled as soon
-//   as it is consumed. Keys on sentinel pages are never staged.
+//   on either; a longer split streams through the ring, each stage
+//   refilled as soon as it is consumed. Keys on sentinel pages are never
+//   staged.
 // - Scores, the softmax and P.V run from shared memory with no block-wide
 //   step between them: each key row is read by Dh*sizeof(T)/16
 //   neighbouring lanes (a lane group), 16 bytes each (conflict-free: a
@@ -56,15 +90,15 @@
 //   the KV head's pages. A key row's lanes are rounded up to a power of
 //   two, the idle ones masked (Dh = 96 at bf16: 12 chunks on 16 lanes),
 //   and at f32 past 128 each lane takes two 16-byte slices of a row, with
-//   half the keys a stage, so the ring stays within 32 KB. The serving
-//   shape (group 1, Dh 64) takes one block of one head and one slice.
-// - Not yet: TMA staging, tensor-core dots for large GQA groups, a
-//   persistent grid.
+//   half the keys a stage, so the ring stays within 32 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -525,16 +559,601 @@ int launch(const void* q, const void* k, const void* v, const void* pages,
 #undef KFTPU_PAGED_GROUP
 }
 
+// ---------------------------------------------------------------------------
+// bf16, Dh = 64, a GQA group of at most 8: paged_decode_tma_kernel
+// ---------------------------------------------------------------------------
+
+namespace tma {
+
+constexpr int kDh = hopper::kSw;             // a key row: 128 bytes
+constexpr int kConsumerWarps = 8;
+constexpr int kConsumers = 32 * kConsumerWarps;
+constexpr int kThreads = kConsumers + 32;    // and the producer warp
+constexpr int kStages = 4;
+constexpr int kRows = 64;                    // key rows a stage holds
+constexpr int kTile = kRows * kDh * 2;       // K (or V) of a stage, bytes
+constexpr int kLanes = kDh * 2 / 16;         // lanes a key row, 16 B each
+constexpr int kSlots = kConsumers / kLanes;  // lane groups
+constexpr int kKK = kRows / kSlots;          // keys a lane group a stage
+constexpr int kMaxRows = 1024;               // batch rows the list holds
+// page ids kept in shared memory for the producer, where B * n_log fits
+constexpr int kPageCache = 2048;
+// rows of at most this many keys are one unit each (no fold) where they
+// are enough units to busy 3/4 of the SMs
+constexpr int kWholeKeys = 512;
+constexpr int kRedStride = kDh + 2;          // acc, m, l of a warp's head
+constexpr int kConsumerBar = 1;              // named barrier, consumers
+// whole, span, full chunks, remainder chunks, the fold's ticket
+constexpr int kMisc = 5;
+
+constexpr size_t kRingBytes = (size_t)kStages * 2 * kTile;
+constexpr size_t kRedBytes =
+    (size_t)kConsumerWarps * kMaxGroup * kRedStride * sizeof(float);
+constexpr size_t kMetaBytes = (size_t)kStages * sizeof(int4);
+constexpr size_t kBarBytes = (size_t)kStages * 2 * 8;
+constexpr size_t kListBytes =
+    (size_t)(5 * kMaxRows + 1 + kMisc + kPageCache) * 4;
+// 1024: the slack to the ring's 1024-byte boundary (the swizzle period)
+constexpr size_t kSmem =
+    1024 + kRingBytes + kRedBytes + kMetaBytes + kBarBytes + kListBytes;
+static_assert(kKK * kSlots == kRows, "a stage's keys split evenly");
+// two blocks an SM (a block's own 1 KB reserved each) where the
+// registers allow it: G <= 2
+static_assert(2 * (kSmem + 1024) <= 233472, "two blocks an SM");
+
+__device__ __forceinline__ int warp_sum(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+__device__ __forceinline__ int warp_max(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+__device__ __forceinline__ int warp_inclusive_scan(int x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  return x;
+}
+
+}  // namespace tma
+
+bool tma_route(int group, int Dh, int el) {
+  return el == 2 && Dh == tma::kDh && group <= kMaxGroup;
+}
+
+// Persistent blocks walk a work list of units: (row b, kv head kh, split
+// sp), each a range of the row's mapped live pages (below its causal
+// frontier, with an id inside the pool; in page-table order). Every
+// block computes the list from positions and the page table, so the
+// host reads neither:
+// - n_b, row b's mapped live pages. `whole`: every row is one unit, when
+//   no row passes kWholeKeys keys and the rows x kv heads busy 3/4 of
+//   the `sms` SMs, or the longest row is within 1.5x a block's share of
+//   all the page loads; otherwise a row is cut into chunks of `span`
+//   pages and a remainder: pps (the tile table's split_tokens), or a
+//   block's share of the loads where that is larger (each unit ends in a
+//   fold step: fewer, longer units a block);
+// - chunk order, heaviest first: the full chunks by (row, split), then
+//   the remainders (with `whole`, the rows) by size, most first, ties by
+//   row; unit u is chunk u / KH at kv head u % KH; round r deals units
+//   r * gridDim.x .. to the blocks, odd rounds from the last block back.
+// The producer warp reads each unit's page ids; its lane 0 issues, for
+// each piece of at most kRows rows of each page up to the position, one
+// TMA box of K and one of V into a stage of the ring, with the piece's
+// first key, its live rows and whether it ends the unit (meta). The maps
+// span the pool as (Dh, KH, P * ps) with the pool's token stride, so a
+// slice of the pool's kv heads is read in place. The consumer warps read
+// the swizzled rows in lane groups of 8 lanes (16 bytes each), each group
+// keeping its online softmax over the keys it takes, as
+// paged_decode_kernel's groups do, folded at the unit's end. A row's only
+// unit writes out; a split row's units write partials, and the last to
+// finish folds them in split order and resets the row's counter.
+template <int G>
+__global__ void __launch_bounds__(tma::kThreads, G <= 2 ? 2 : 1)
+    paged_decode_tma_kernel(
+    const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v,
+    const __nv_bfloat16* __restrict__ q, const int* __restrict__ pages,
+    const int* __restrict__ positions, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ ws_acc, float* __restrict__ ws_ml,
+    unsigned* __restrict__ counters, int B, int QH, int KH, int P, int ps,
+    int n_log, int pps, int n_splits, int sms, float scale) {
+  using namespace tma;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t ring = hopper::ring_base(smem_raw);
+  unsigned char* gring = smem_raw + (ring - hopper::smem_u32(smem_raw));
+  float* red = reinterpret_cast<float*>(gring + kRingBytes);
+  int4* meta = reinterpret_cast<int4*>(gring + kRingBytes + kRedBytes);
+  const uint32_t bars = ring + kRingBytes + kRedBytes + kMetaBytes;
+  int* s_pos = reinterpret_cast<int*>(gring + kRingBytes + kRedBytes +
+                                      kMetaBytes + kBarBytes);
+  int* s_n = s_pos + kMaxRows;      // mapped live pages of each row
+  int* s_F = s_n + kMaxRows;        // full chunks before each row (B + 1)
+  int* s_rem = s_F + kMaxRows + 1;  // rows by remainder, most first
+  int* s_r = s_rem + kMaxRows;      // each row's remainder chunk
+  int* s_misc = s_r + kMaxRows;
+  int* s_pg = s_misc + kMisc;       // the page table, where it fits
+  const bool cached = (long long)B * n_log <= kPageCache;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int group = QH / KH;
+  if (tid == kConsumers) {  // the producer's maps, read during the list
+    hopper::prefetch_tensormap(&map_k);
+    hopper::prefetch_tensormap(&map_v);
+  }
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full(s), 1);
+      hopper::mbar_init(empty(s), kConsumerWarps);
+    }
+    hopper::mbar_fence_init();
+  }
+
+  // -- the work list --------------------------------------------------------
+  // each row's position and mapped live pages, a warp a row (the first 32
+  // page ids are read beside the position)
+  for (int b = warp; b < B; b += tma::kThreads / 32) {
+    const int* prow = pages + (size_t)b * n_log;
+    const int pos = positions[b];
+    int page = lane < n_log ? prow[lane] : -1;
+    const int nl = live_pages(pos, ps, n_log);
+    int cnt = 0;
+    for (int j0 = 0; j0 < nl; j0 += 32) {
+      if (j0 > 0) page = j0 + lane < nl ? prow[j0 + lane] : -1;
+      if (cached && j0 + lane < nl) s_pg[b * n_log + j0 + lane] = page;
+      cnt += __popc(__ballot_sync(
+          kFull, j0 + lane < nl && page >= 0 && page < P));
+    }
+    if (lane == 0) {
+      s_pos[b] = pos;
+      s_n[b] = cnt;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int total = 0, longest = 0, rows = 0;
+    for (int b0 = 0; b0 < B; b0 += 32) {
+      const int n = b0 + lane < B ? s_n[b0 + lane] : 0;
+      total += warp_sum(n);
+      longest = max(longest, warp_max(n));
+      rows += __popc(__ballot_sync(kFull, n > 0));
+    }
+    const long long loads = (long long)total * KH;  // page loads, all
+    const int whole =
+        (longest * ps <= kWholeKeys && 4 * rows * KH >= 3 * sms) ||
+        2LL * longest * gridDim.x <= 3LL * loads;
+    // a split: pps pages, or a block's share of the loads where larger
+    const int span = max(pps, (int)((loads + gridDim.x - 1) / gridDim.x));
+    int carry = 0, n_rem = 0;
+    for (int b0 = 0; b0 < B; b0 += 32) {
+      const int b = b0 + lane;
+      const int n = b < B ? s_n[b] : 0;
+      const int f = whole ? 0 : n / span;
+      const int r = n - f * span;  // the remainder chunk's pages
+      const int incl = warp_inclusive_scan(f);
+      if (b < B) {
+        s_F[b] = carry + incl - f;
+        s_r[b] = r;
+      }
+      carry += __shfl_sync(kFull, incl, 31);
+      n_rem += __popc(__ballot_sync(kFull, r > 0));
+      if (B <= 32) {  // the remainders' order, in registers
+        int rank = 0;
+        for (int o = 0; o < 32; ++o) {
+          const int ro = __shfl_sync(kFull, r, o);
+          rank += ro > r || (ro == r && o < lane);
+        }
+        if (r > 0) s_rem[rank] = b;
+      }
+    }
+    if (lane == 0) {
+      s_F[B] = carry;
+      s_misc[0] = whole;
+      s_misc[1] = span;
+      s_misc[2] = carry;
+      s_misc[3] = n_rem;
+    }
+  }
+  __syncthreads();
+  const int whole = s_misc[0], span = s_misc[1], n_full = s_misc[2];
+  const int n_units = (n_full + s_misc[3]) * KH;
+  if (B > 32) {  // the remainders' order, by the block
+    for (int b = tid; b < B; b += tma::kThreads) {
+      const int r = s_r[b];
+      if (r > 0) {
+        int rank = 0;
+        for (int o = 0; o < B; ++o) {
+          const int ro = s_r[o];
+          rank += ro > r || (ro == r && o < b);
+        }
+        s_rem[rank] = b;
+      }
+    }
+    __syncthreads();
+  }
+  // unit u: row b, kv head kh, split sp of the row's nsp; its mapped live
+  // pages [i0, i1) in the row's order
+  auto decode = [&](int u, int& b, int& kh, int& sp, int& i0, int& i1,
+                    int& nsp) {
+    const int c = u / KH;
+    kh = u - c * KH;
+    if (c < n_full) {  // the last row with s_F[b] <= c
+      int lo = 0, hi = B - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (s_F[mid] <= c) {
+          lo = mid;
+        } else {
+          hi = mid - 1;
+        }
+      }
+      b = lo;
+      sp = c - s_F[b];
+      i0 = sp * span;
+      i1 = i0 + span;
+    } else {
+      b = s_rem[c - n_full];
+      sp = whole ? 0 : s_n[b] / span;
+      i0 = sp * span;
+      i1 = s_n[b];
+    }
+    nsp = whole ? 1 : (s_n[b] + span - 1) / span;
+  };
+
+  // this block's unit of each round: the units, heaviest first, dealt
+  // to the blocks in turn, every other round from the last block back
+  // (the blocks with the heaviest units of one round take the lightest
+  // of the next)
+  auto deal = [&](int round) {
+    const int x = round & 1 ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+    return round * (int)gridDim.x + x;
+  };
+  const int bx = ps < kRows ? ps : kRows;  // rows a box (and a stage)
+  if (warp == kConsumerWarps) {
+    // ---- producer ----
+    int it = 0;
+    for (int round = 0; round * (int)gridDim.x < n_units; ++round) {
+      const int u = deal(round);
+      if (u >= n_units) continue;
+      int b, kh, sp, i0, i1, nsp;
+      decode(u, b, kh, sp, i0, i1, nsp);
+      const int pos = s_pos[b];
+      const int nl = live_pages(pos, ps, n_log);
+      const int* prow = cached ? s_pg + b * n_log : pages + (size_t)b * n_log;
+      int seen = 0;  // mapped pages before this chunk of ids
+      for (int j0 = 0; j0 < nl && seen < i1; j0 += 32) {
+        const int page = j0 + lane < nl ? prow[j0 + lane] : -1;
+        const bool mapped = page >= 0 && page < P;
+        const unsigned m = __ballot_sync(kFull, mapped);
+        const int idx = seen + __popc(m & ((1u << lane) - 1u));
+        unsigned sel =
+            __ballot_sync(kFull, mapped && idx >= i0 && idx < i1);
+        while (sel) {  // warp-uniform
+          const int src = __ffs(sel) - 1;
+          sel &= sel - 1;
+          const int pg = __shfl_sync(kFull, page, src);
+          const bool last_page = __shfl_sync(kFull, idx, src) == i1 - 1;
+          const int key_page = (j0 + src) * ps;
+          for (int t = 0; t < ps && key_page + t <= pos; t += bx) {
+            const int key0 = key_page + t;
+            if (lane == 0) {
+              const int s = it % kStages;
+              hopper::mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+              meta[s] = make_int4(
+                  key0, min(min(bx, ps - t), pos + 1 - key0),
+                  last_page && (t + bx >= ps || key0 + bx > pos), 0);
+              hopper::mbar_expect_tx(full(s), 2u * bx * kDh * 2);
+              const uint32_t dst = ring + s * 2 * kTile;
+              hopper::tma_load_3d(dst, &map_k, full(s), 0, kh, pg * ps + t);
+              hopper::tma_load_3d(dst + kTile, &map_v, full(s), 0, kh,
+                                  pg * ps + t);
+            }
+            ++it;
+          }
+        }
+        seen += __popc(m);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  const int sub = lane & (kLanes - 1);  // this lane's chunk of a row
+  const int slot = tid / kLanes;        // this lane's group
+  // rows with no mapped live page: zeros
+  for (int b = blockIdx.x; b < B; b += gridDim.x)
+    if (s_n[b] == 0)
+      for (int i = tid; i < QH * kDh; i += kConsumers)
+        out[(size_t)b * QH * kDh + i] = from_f32<bf16>(0.f);
+  int it = 0;
+  for (int round = 0; round * (int)gridDim.x < n_units; ++round) {
+    const int u = deal(round);
+    if (u >= n_units) continue;
+    int b, kh, sp, i0, i1, nsp;
+    decode(u, b, kh, sp, i0, i1, nsp);
+    const size_t head0 = (size_t)b * QH + (size_t)kh * group;
+    // this lane's chunk of each q head, kept as bf16 pairs (q is bf16:
+    // nothing is lost, and a group of 8 fits the registers)
+    uint32_t qp[G][4];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const uint4 v = g < group ? *reinterpret_cast<const uint4*>(
+                                      q + (head0 + g) * kDh + sub * 8)
+                                : make_uint4(0u, 0u, 0u, 0u);
+      qp[g][0] = v.x;
+      qp[g][1] = v.y;
+      qp[g][2] = v.z;
+      qp[g][3] = v.w;
+    }
+    float m[G], l[G], acc[G][8];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      m[g] = kNegInf;
+      l[g] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[g][i] = 0.f;
+    }
+    bool last = false;
+    while (!last) {
+      const int s = it % kStages;
+      hopper::mbar_wait(full(s), (it / kStages) & 1);
+      const int4 mt = meta[s];
+      const unsigned char* kt = gring + s * 2 * kTile;
+      const unsigned char* vt = kt + kTile;
+      last = mt.z != 0;
+      ++it;
+      // this lane group's keys r = slot + k * kSlots, one at a time
+#pragma unroll
+      for (int k = 0; k < kKK; ++k) {
+        const int r = slot + k * kSlots;
+        const bool live = r < mt.y;
+        float x[8], sc[G];
+        if (live)
+          Vec<bf16>::load(
+              reinterpret_cast<const bf16*>(kt + hopper::sw128(r, sub)), x);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          sc[g] = 0.f;
+          if (live) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              sc[g] += __uint_as_float(qp[g][j] << 16) * x[2 * j];
+              sc[g] += __uint_as_float(qp[g][j] & 0xffff0000u) * x[2 * j + 1];
+            }
+          }
+        }
+#pragma unroll
+        for (int o = kLanes >> 1; o > 0; o >>= 1)
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            sc[g] += __shfl_xor_sync(kFull, sc[g], o);
+        if (live)
+          Vec<bf16>::load(
+              reinterpret_cast<const bf16*>(vt + hopper::sw128(r, sub)), x);
+        if (k == kKK - 1) {
+          __syncwarp();  // the stage is read: release it
+          if (lane == 0) hopper::mbar_arrive(empty(s));
+        }
+        if (!live) continue;
+        // online softmax step; P rounded to bf16 before P.V at the
+        // running max, l sums the unrounded values
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float sg = sc[g] * scale;
+          const float mx = fmaxf(m[g], sg);
+          const float alpha = expf(m[g] - mx);  // m starts finite: no nan
+          const float p = expf(sg - mx);
+          m[g] = mx;
+          l[g] = l[g] * alpha + p;
+          const float pr = to_f32(from_f32<bf16>(p));
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            acc[g][i] = acc[g][i] * alpha + pr * x[i];
+        }
+      }
+    }
+
+    // fold the lane groups: within the warp (the lanes of one chunk),
+    // then across the consumer warps in shared memory, in one order
+#pragma unroll
+    for (int o = kLanes; o < 32; o <<= 1) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float mb = __shfl_xor_sync(kFull, m[g], o);
+        const float lb = __shfl_xor_sync(kFull, l[g], o);
+        const float mm = fmaxf(m[g], mb);
+        const float wa = expf(m[g] - mm), wb = expf(mb - mm);
+        l[g] = l[g] * wa + lb * wb;
+        m[g] = mm;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float ab = __shfl_xor_sync(kFull, acc[g][i], o);
+          acc[g][i] = acc[g][i] * wa + ab * wb;
+        }
+      }
+    }
+    hopper::bar_sync(kConsumerBar, kConsumers);  // the last unit's reads
+    if (lane < kLanes) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (g < group) {
+          float* rg = red + (warp * group + g) * kRedStride;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) rg[sub * 8 + i] = acc[g][i];
+          if (sub == 0) {
+            rg[kDh] = m[g];
+            rg[kDh + 1] = l[g];
+          }
+        }
+      }
+    }
+    hopper::bar_sync(kConsumerBar, kConsumers);
+    const size_t ub = (size_t)b * KH + kh;  // (row, kv head)
+    const size_t ws = (ub * n_splits + sp) * group;
+    bf16* ob = out + head0 * kDh;
+    for (int i = tid; i < group * kDh; i += kConsumers) {
+      const int g = i / kDh, d = i - g * kDh;
+      float mm = kNegInf;
+#pragma unroll
+      for (int w = 0; w < kConsumerWarps; ++w)
+        mm = fmaxf(mm, red[(w * group + g) * kRedStride + kDh]);
+      float a = 0.f, ls = 0.f;
+#pragma unroll
+      for (int w = 0; w < kConsumerWarps; ++w) {
+        const float* rg = red + (w * group + g) * kRedStride;
+        const float wt = expf(rg[kDh] - mm);
+        a += rg[d] * wt;
+        ls += rg[kDh + 1] * wt;
+      }
+      if (nsp == 1) {
+        ob[i] = from_f32<bf16>(a / fmaxf(ls, 1e-30f));
+      } else {
+        ws_acc[ws * kDh + i] = a;
+        if (d == 0) {
+          ws_ml[(ws + g) * 2] = mm;
+          ws_ml[(ws + g) * 2 + 1] = ls;
+        }
+      }
+    }
+    if (nsp == 1) continue;
+
+    // -- the fold: the last split of (row, kv head) to finish ---------------
+    __threadfence();  // this thread's partials reach L2 before the ticket
+    hopper::bar_sync(kConsumerBar, kConsumers);
+    if (tid == 0)
+      s_misc[4] = atomicAdd(counters + ub, 1u) == (unsigned)(nsp - 1);
+    hopper::bar_sync(kConsumerBar, kConsumers);
+    if (!s_misc[4]) continue;
+    __threadfence();
+    const size_t base = ub * n_splits;
+    for (int i = tid; i < group * kDh; i += kConsumers) {
+      const int g = i / kDh, d = i - g * kDh;
+      float mm = kNegInf;
+      for (int s = 0; s < nsp; ++s)
+        mm = fmaxf(mm, __ldcg(ws_ml + ((base + s) * group + g) * 2));
+      float ls = 0.f, a = 0.f;
+      for (int s = 0; s < nsp; ++s) {  // in split order
+        const size_t j = (base + s) * group + g;
+        const float wt = expf(__ldcg(ws_ml + j * 2) - mm);
+        ls += __ldcg(ws_ml + j * 2 + 1) * wt;
+        a += __ldcg(ws_acc + j * kDh + d) * wt;
+      }
+      ob[i] = from_f32<bf16>(a / fmaxf(ls, 1e-30f));
+    }
+    if (tid == 0) counters[ub] = 0u;  // ready for the next call
+  }
+}
+
+// The grid: the blocks resident on `sms` SMs (two an SM where G <= 2),
+// at most one a unit there can be.
+template <int G>
+int launch_tma(const CUtensorMap& mk, const CUtensorMap& mv, const void* q,
+               const void* pages, const void* positions, void* out,
+               void* ws_acc, void* ws_ml, void* counters, int B, int QH,
+               int KH, int P, int ps, int n_log, int pps, int sms,
+               float scale, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(  // the opt-in
+      paged_decode_tma_kernel<G>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tma::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static int per_sm = 0;  // blocks an SM holds, asked once
+  if (per_sm == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, paged_decode_tma_kernel<G>, tma::kThreads, tma::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const int n_splits = (n_log + pps - 1) / pps;
+  const long long units = (long long)B * KH * n_splits;
+  const int grid = (int)(units < (long long)sms * per_sm ? units
+                                                         : sms * per_sm);
+  paged_decode_tma_kernel<G><<<grid, tma::kThreads, tma::kSmem, s>>>(
+      mk, mv, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const int*>(pages), static_cast<const int*>(positions),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws_acc),
+      static_cast<float*>(ws_ml), static_cast<unsigned*>(counters), B, QH,
+      KH, P, ps, n_log, pps, n_splits, sms, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Dynamic shared memory of one block.
+// Dynamic shared memory of one block of the route that runs at (group,
+// Dh, el): the TMA kernel's fixed layout (past 48 KB: the launch opts in),
+// else paged_decode_kernel's at pps pages a split.
 extern "C" size_t kftpu_paged_decode_smem_bytes(int group, int Dh, int el,
                                                 int pps) {
+  if (tma_route(group, Dh, el)) return tma::kSmem;
   return smem_bytes(group, Dh, el, pps);
 }
 
-// Any q-head group (in blocks of kMaxGroup heads); Dh a multiple of 16
-// bytes of the dtype, at most 256 (32 lanes x 2 slices of 16 bytes at
+// The TMA route's two tensor maps, K then V (2 x sizeof(CUtensorMap) =
+// 256 bytes at `maps`): a pool (P, ps, KH, 64) bf16, or a slice of its kv
+// heads, as (64, KH, P * ps) with heads 128 bytes apart and key rows
+// tok_stride elements apart; boxes of 64 x 1 x min(ps, 64), no L2
+// promotion (on an H100, 1.5-4% faster than 256 bytes at the chip
+// smoke's phase-2 and phase-23 rows, scripts/port_paged_sweep.py).
+// Returns 0, or cudaErrorInvalidValue where a map cannot be encoded.
+extern "C" int kftpu_paged_tma_maps(void* maps, const void* k, const void* v,
+                                    int P, int ps, int KH,
+                                    long long tok_stride) {
+  const cuuint64_t dims[3] = {(cuuint64_t)tma::kDh, (cuuint64_t)KH,
+                              (cuuint64_t)P * (cuuint64_t)ps};
+  const cuuint64_t strides[2] = {(cuuint64_t)tma::kDh * 2,
+                                 (cuuint64_t)tok_stride * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)tma::kDh, 1,
+                             (cuuint32_t)(ps < tma::kRows ? ps : tma::kRows)};
+  CUtensorMap m[2];
+  const CUtensorMapL2promotion none = CU_TENSOR_MAP_L2_PROMOTION_NONE;
+  if (!hopper::encode_bf16(&m[0], k, 3, dims, strides, box, none) ||
+      !hopper::encode_bf16(&m[1], v, 3, dims, strides, box, none))
+    return static_cast<int>(cudaErrorInvalidValue);
+  memcpy(maps, m, sizeof m);
+  return 0;
+}
+
+// bf16, Dh = 64, QH / KH <= 8: paged_decode_tma_kernel on the blocks
+// `sms` SMs hold (at most B * KH * ceil(n_log / pps)), with the maps of
+// kftpu_paged_tma_maps; B at most 1024. The workspace and counters are
+// kftpu_paged_decode_attention's. Returns cudaGetLastError() after the
+// launch (0 = cudaSuccess).
+extern "C" int kftpu_paged_decode_tma(
+    const void* maps, const void* q, const void* pages,
+    const void* positions, void* out, void* ws_acc, void* ws_ml,
+    void* counters, int B, int QH, int KH, int P, int ps, int n_log,
+    int pps, int sms, float scale, void* stream) {
+  if (B == 0) return 0;
+  const int group = QH / KH;
+  if (B > tma::kMaxRows || group > kMaxGroup || sms < 1 || pps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m[2];
+  memcpy(m, maps, sizeof m);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+#define KFTPU_PAGED_TMA(G)                                                 \
+  return launch_tma<G>(m[0], m[1], q, pages, positions, out, ws_acc, ws_ml, \
+                       counters, B, QH, KH, P, ps, n_log, pps, sms, scale, \
+                       s)
+  if (group <= 1) KFTPU_PAGED_TMA(1);
+  if (group <= 2) KFTPU_PAGED_TMA(2);
+  if (group <= 4) KFTPU_PAGED_TMA(4);
+  KFTPU_PAGED_TMA(8);
+#undef KFTPU_PAGED_TMA
+}
+
+
+// paged_decode_kernel: every shape but the TMA route's (bf16, Dh = 64,
+// a group of at most 8 q heads), which it refuses. Any q-head group (in
+// blocks of kMaxGroup heads); Dh a multiple of 16 bytes of the dtype, at
+// most 256 (32 lanes x 2 slices of 16 bytes at
 // f32, 32 lanes x 1 at bf16). ws_acc: B*KH*n_hb*n_splits*HB*Dh f32, ws_ml:
 // B*KH*n_hb*n_splits*HB*2 f32, with n_hb = ceil(group / 8), HB =
 // min(group, 8), n_splits = ceil(n_log / pps); counters: B*KH*n_hb
@@ -550,7 +1169,8 @@ extern "C" int kftpu_paged_decode_attention(
   if (B == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int el = is_bf16 ? 2 : 4;
-  if (Dh % (16 / el) || row_chunks(Dh, el) > 64)
+  if (Dh % (16 / el) || row_chunks(Dh, el) > 64 ||
+      tma_route(QH / KH, Dh, el))
     return static_cast<int>(cudaErrorInvalidValue);
   const int ns = row_slices(Dh, el);
   const bool masked = row_chunks(Dh, el) != ns * row_lanes(Dh, el);

@@ -44,7 +44,8 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-PORT_KERNELS = {"paged_decode_attention": ("paged_decode_kernel",),
+PORT_KERNELS = {"paged_decode_attention": ("paged_decode_kernel",
+                                           "paged_decode_tma_kernel"),
                 "fused_sample": ("fused_sample_kernel",)}
 
 

@@ -16,6 +16,11 @@ name and power limit and the bound of its shape (live K/V bytes over
 3.35 TB/s), and one for the floor of the timing itself: ``time_ms`` of
 a one-element fill, a launch that moves nothing.
 
+With ``--against`` (or ``--tree``) it also times phase 2's rows at GQA
+16/4, at f32 (QH=KH 16 and 16/4), Dh 96 and a GQA group of 16 (the
+shapes ``paged_decode_kernel`` keeps), and phase 23's replicated kv-head
+slices (``chip_smoke.replicated_kv_times``).
+
 Usage (needs CUDA):
 
 - ``python3 scripts/port_paged_sweep.py`` sweeps the split size;
@@ -96,8 +101,10 @@ def _points(splits, tree):
     one = torch.empty(1, device=dev)
     print(json.dumps({"device": ident, "tree": tree, "shape": "floor",
                       "kernel_ms": smoke.time_ms(one.zero_)}), flush=True)
-    for shape, make in smoke.PAGED_SHAPES.items():
-        q, k, v, pages, pos, P = make(8, 16, 16, 64, 64, 32,
+    shapes = [(shape, make, 16) for shape, make in smoke.PAGED_SHAPES.items()]
+    shapes.append(("phase2_gqa", smoke.paged_inputs, 4))
+    for shape, make, KH in shapes:
+        q, k, v, pages, pos, P = make(8, 16, KH, 64, 64, 32,
                                       torch.bfloat16, dev,
                                       seed=smoke.SEED + 32)
         want = pa.paged_decode_attention_plain(q, k, v, pages, pos)
@@ -109,11 +116,36 @@ def _points(splits, tree):
                 ms = smoke.time_ms(
                     lambda: pa.paged_decode_attention(q, k, v, pages, pos))
             print(json.dumps({
-                "device": ident, "tree": tree, "shape": shape,
-                "split_tokens": split or _own_split(pa, q, 16, 64, 32),
+                "device": ident, "tree": tree, "shape": shape, "KH": KH,
+                "split_tokens": split or _own_split(pa, q, KH, 64, 32),
                 "kernel_ms": ms,
                 "bound_ms": nbytes / smoke.HBM_BYTES_PER_S * 1e3,
                 "max_abs_err": err}), flush=True)
+    if not splits:
+        # phase 2's rows on the kernel of the other shapes
+        # (paged_decode_kernel): f32, Dh 96, a GQA group of 16
+        for label, QH, KH, Dh, dtype in (
+                ("f32", 16, 16, 64, torch.float32),
+                ("f32_gqa", 16, 4, 64, torch.float32),
+                ("dh96_bf16", 16, 16, 96, torch.bfloat16),
+                ("gqa16_bf16", 32, 2, 64, torch.bfloat16)):
+            q, k, v, pages, pos, P = smoke.paged_inputs(
+                8, QH, KH, Dh, 64, 32, dtype, dev, seed=smoke.SEED + 32)
+            nbytes, _ = smoke.paged_bytes_ops(q, k, pages, pos, P, 64)
+            print(json.dumps({
+                "device": ident, "tree": tree, "shape": f"phase2_{label}",
+                "KH": KH, "kernel_ms": smoke.time_ms(
+                    lambda: pa.paged_decode_attention(q, k, v, pages, pos)),
+                "bound_ms": nbytes / smoke.HBM_BYTES_PER_S * 1e3}),
+                flush=True)
+        # phase 23's replicated kv heads at serving rows, at the tree's
+        # own split
+        for r in smoke.replicated_kv_times(dev):
+            print(json.dumps({
+                "device": ident, "tree": tree, "shape": "replicated",
+                **{key: r[key] for key in ("H", "KH", "tp", "kv_heads",
+                                           "q_heads", "ms", "bound_ms",
+                                           "max_abs_err")}}), flush=True)
 
 
 def main() -> int:

@@ -237,9 +237,23 @@ class TestHopperLegality:
         (1, 64, 2, 2), (1, 64, 4, 2), (16, 64, 2, 1), (4, 96, 2, 4),
         (8, 256, 4, 1), (1, 256, 2, 16), (2, 128, 4, 8)])
     def test_smem_formula_matches_the_c_source(self, group, Dh, el, pps):
-        """The Python copy against hand-evaluated csrc ``smem_bytes``:
-        the ring (4 x stage rows x Dh x el) or the cross-warp partials
-        (4 warps x min(group, 8) heads x (Dh + 2) x 4), then pps ids."""
+        """The Python copy against hand-evaluated csrc
+        ``kftpu_paged_decode_smem_bytes`` of the route at the shape. The
+        TMA kernel (bf16, Dh 64, group <= 8): 1024 bytes of slack, 4
+        stages of 64 K and 64 V rows of 128 bytes, 8 warps' partials of 8
+        heads x 66 f32, 4 x 16 bytes of meta and 8 barriers, the list's
+        5 x 1024 + 1 + 5 ints and 2048 page ids, whatever pps. The split kernel: the ring
+        (4 x stage rows x Dh x el) or the cross-warp partials (4 warps x
+        min(group, 8) heads x (Dh + 2) x 4), then pps ids."""
+        if (el, Dh) == (2, 64) and group <= 8:
+            want = (1024 + 4 * 2 * 64 * 128 + 8 * 8 * 66 * 4 + 4 * 16
+                    + 8 * 8 + (5 * 1024 + 1 + 5 + 2048) * 4)
+            assert at.paged_route(group, Dh, el) == at.PAGED_TMA_KERNEL
+            assert at.paged_smem_bytes(group, Dh, el, pps) == want
+            assert at.paged_smem_limit(group, Dh, el) == 232448
+            return
+        assert at.paged_route(group, Dh, el) == at.PAGED_SPLIT_KERNEL
+        assert at.paged_smem_limit(group, Dh, el) == 48 * 1024
         chunks = Dh * el // 16
         slices = 2 if chunks > 32 else 1
         lanes = 1
@@ -358,14 +372,15 @@ class TestTableIO:
 
     def test_committed_paged_rows_reproduce_the_analytic_choice(self):
         """Each committed paged row's split is what the fallback gives
-        at its shape: pps = SPLIT_TOKENS / page, halved past the limit."""
+        at its shape: pps = SPLIT_TOKENS / page, halved past the limit of
+        the route that runs there."""
         for e in at.load_table().entries:
             if e["kernel"] != "paged_attn":
                 continue
             group, Dh, el, _ = at.paged_legality_point(e)
             pps = at.SPLIT_TOKENS // e["page_size"]
             while pps > 1 and at.paged_smem_bytes(group, Dh, el, pps) > \
-                    at.MAX_SMEM_BYTES:
+                    at.paged_smem_limit(group, Dh, el):
                 pps //= 2
             assert e["split_tokens"] // e["page_size"] == pps
 

@@ -177,6 +177,102 @@ def test_paged_kernel_reads_a_slice_of_the_pools_kv_heads(cuda, kv, dtype,
         pa.paged_decode_attention(q, kt, vt, pages, positions)
 
 
+def _paged_long_inputs(QH, KH, *, B=8, ps=64, n_log=32, seed=3):
+    """Ragged rows up to the whole context (the chip smoke's phase 2):
+    a full row, rows with their dead pages unmapped, a row with a
+    sentinel page inside its live range (skipped, its keys masked), and
+    an all-sentinel row."""
+    rng = np.random.default_rng(seed)
+    P = B * n_log
+    q = rng.normal(size=(B, QH, 64)).astype(np.float32)
+    k = rng.normal(size=(P, ps, KH, 64)).astype(np.float32)
+    v = rng.normal(size=(P, ps, KH, 64)).astype(np.float32)
+    pages = rng.permutation(P).astype(np.int32).reshape(B, n_log)
+    positions = rng.integers(0, n_log * ps, size=B).astype(np.int32)
+    positions[0] = n_log * ps - 1
+    positions[2] = max(int(positions[2]), 3 * ps)
+    for b in range(1, B, 2):
+        pages[b, positions[b] // ps + 1:] = P
+    pages[2, 1] = P
+    pages[-1], positions[-1] = P, n_log * ps
+    return q, k, v, pages, positions
+
+
+def _tma_case(cuda, inputs, kv=None):
+    q, k, v, pages, positions = _paged_case(cuda, inputs, torch.bfloat16)
+    if kv is not None:
+        k, v = k[:, :, kv], v[:, :, kv]
+    return q, k, v, pages, positions
+
+
+@pytest.mark.parametrize("case", ["ragged_p16", "serving", "long_16_16",
+                                  "long_gqa_16_4", "long_p16", "long_p128",
+                                  "long_p100", "slice", "slice_gqa"])
+def test_paged_tma_route_matches_plain(cuda, case):
+    """bf16 at Dh 64 and groups of at most 8 take ``paged_decode_tma``:
+    rows taken whole (short rows) and cut into split_tokens ranges folded
+    in split order (rows to the whole context), page sizes 16, 64, 100
+    (a page in two pieces, the second box reading past the page) and 128,
+    GQA 16/4, kv-head slices read in place; against the plain version
+    within 8e-3 (two bf16 steps of an output below 1), repeat calls bit
+    for bit, the all-sentinel row zeros, the fold counters back at 0."""
+    inputs = {
+        "ragged_p16": lambda: _paged_inputs(16, 16),
+        "serving": lambda: _paged_serving_inputs(16, 16),
+        "long_16_16": lambda: _paged_long_inputs(16, 16),
+        "long_gqa_16_4": lambda: _paged_long_inputs(16, 4),
+        "long_p16": lambda: _paged_long_inputs(8, 2, ps=16, n_log=128),
+        "long_p128": lambda: _paged_long_inputs(8, 8, ps=128, n_log=16),
+        "long_p100": lambda: _paged_long_inputs(4, 4, ps=100, n_log=20),
+        "slice": lambda: _paged_serving_inputs(16, 4, seed=6),
+        "slice_gqa": lambda: _paged_long_inputs(16, 4, seed=7),
+    }[case]()
+    kv = {"slice": slice(1, 2), "slice_gqa": slice(2, 4)}.get(case)
+    q, k, v, pages, positions = _tma_case(cuda, inputs, kv)
+    if kv is not None:  # the q heads of those kv heads (group 4)
+        q = q[:, 4 * kv.start:4 * kv.stop].contiguous()
+    before = dict(pa.launches)
+    got = pa.paged_decode_attention(q, k, v, pages, positions)
+    again = pa.paged_decode_attention(q, k, v, pages, positions)
+    torch.cuda.synchronize()
+    assert pa.launches["paged_decode_tma"] == before["paged_decode_tma"] + 2
+    assert (pa.launches["paged_decode_attention"]
+            == before["paged_decode_attention"] + 2)
+    want = pa.paged_decode_attention_plain(q, k.contiguous(), v.contiguous(),
+                                           pages, positions)
+    torch.testing.assert_close(got.float(), want.float(), atol=8e-3, rtol=0)
+    assert torch.equal(got, again)
+    dead = positions.cpu().numpy() < 0
+    for b, row in enumerate(pages.cpu().numpy()):
+        if (row == k.shape[0]).all() or dead[b]:
+            assert (got[b] == 0).all()
+    counters, _ = pa.device_scratch(q.device, 0, 0)
+    assert int(counters.abs().sum()) == 0
+
+
+def test_paged_tma_route_at_other_splits_and_grids(cuda, monkeypatch):
+    """The long rows at another split (64 keys: more ranges to fold) and
+    on grids of 1 and 7 blocks (each block walking many units, the ring
+    running on across them; one block takes the rows whole): the same
+    answer within 8e-3, each bit for bit on a repeat call."""
+    q, k, v, pages, positions = _tma_case(cuda, _paged_long_inputs(16, 4))
+    want = pa.paged_decode_attention_plain(q, k, v, pages, positions)
+    split = {"kernel": "paged_attn", "generation": "*", "dtype": "*",
+             "split_tokens": 64}
+    for grid in (None, 1, 7):
+        if grid is not None:
+            monkeypatch.setattr(pa, "_sm_count", lambda index, g=grid: g)
+        with autotune.table_override(autotune.TileTable([split], [])):
+            got = pa.paged_decode_attention(q, k, v, pages, positions)
+            again = pa.paged_decode_attention(q, k, v, pages, positions)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=8e-3,
+                                   rtol=0)
+        assert torch.equal(got, again)
+    counters, _ = pa.device_scratch(q.device, 0, 0)
+    assert int(counters.abs().sum()) == 0
+
+
 def test_sampler_kernel_matches_plain(cuda):
     rng = np.random.default_rng(4)
     logits = torch.from_numpy((3.0 * rng.normal(size=(8, 32000)))
