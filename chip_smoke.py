@@ -22,21 +22,23 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
    at V=32000 and 128,256, all at once and each alone, on two of them
    past the clusters' shared memory, and on random rows at B=8 and 1;
    its ptxas registers printed, a spill fails), and
-   the flash forward, dQ and dK/dV kernels (B=2, H=16, D=64, S=2048 and
+   the flash forward and backward (B=2, H=16, D=64, S=2048 and
    a ragged 1000, causal and not, with and without ``kv_len``, the
    training case S=8192 bf16 causal, and the LM entry point's B=8,
    S=512, H=12 bf16 causal; lse within 1e-5; f32 within 1e-5
    on out and 1e-4 on gradients; bf16 within a norm-relative error of
-   4e-4, which a bf16 fault in each output must exceed), timed at the
-   training case beside ``scaled_dot_product_attention`` (timed only,
-   each backend pinned in turn, the fastest kept), with each flash
-   kernel's ptxas registers and spills (the D=64 kernels, the three
-   wgmma kernels, must each have a line and must not spill, and no
-   flash kernel may carry ptxas's wgmma serialization note); and BERT's
+   4e-4, which a bf16 fault in each output must exceed; a repeat
+   backward bit-identical in dQ, dK and dV), timed at the training case
+   beside ``scaled_dot_product_attention`` (timed only, each backend
+   pinned in turn, the fastest kept), with each flash kernel's ptxas
+   registers and spills (the D=64 kernels, the wgmma forward and the
+   one-pass wgmma backward, must each have a line and must not spill,
+   and no flash kernel may carry ptxas's wgmma serialization note); and
+   BERT's
    shape (B=16, S=512, H=12, D=64, bf16, non-causal, with and without
    ``kv_len``),
    timed unmasked beside ``scaled_dot_product_attention(is_causal=False)``
-   (the ``bert_shape`` entry of rows 3-5 of the record);
+   (the ``bert_shape`` entry of the record's two flash rows);
 3. serve the full-width engine-bench LM (vocab 32000, d_model 1024, 8
    layers, 16 heads, max_seq_len 2048; random weights from a numpy seed,
    written as a model-store export) through the port's ``ModelServer``
@@ -53,11 +55,11 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
 5. train the long-context LM (the same width, seq 8192, batch 2, bf16
    compute over f32 params, flash attention, remat) for 4 steps of
    ``make_lm_train_step`` through the step telemetry
-   (``make_step_telemetry(sync=True)``) and require the three flash
-   kernels to have launched (forward 16 per step with remat, dQ 8,
-   dK/dV 8), a finite loss near ln(32000) that falls, every parameter
-   updated, and the telemetry's median step (of steps 2-4) within 10%
-   of the phase's own
+   (``make_step_telemetry(sync=True)``) and require the flash kernels to
+   have launched (forward 16 per step with remat, the one-pass backward
+   8, the dQ and dK/dV kernels of the other routes none), a finite loss
+   near ln(32000) that falls, every parameter updated, and the
+   telemetry's median step (of steps 2-4) within 10% of the phase's own
    (it also prints the telemetry's tokens/s, MFU from the FLOP probe,
    recompiles and the HBM sampler's peak);
 6. one f32 train step (TF32 off) of a 2-layer model at seq 512 with
@@ -114,7 +116,8 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
     restart to 6 steps, and an unbroken 6-step run; the restart resumes
     at step 4, the step-4 checkpoint restores into a fresh state bit for
     bit, steps 5-6 take the unbroken run's losses within 1e-5 relative,
-    and the trace names the three flash kernels;
+    and the trace names the flash forward, the one-pass backward and
+    its dQ pass, and none of the dQ or dK/dV kernels;
 14. ``examples.lm.main`` at its defaults (d_model 768, 12 layers, vocab
     32000, seq 512, batch 8, dense attention): 6 steps with a
     checkpoint every 3, a 16-token sample, the export and a 2-layer
@@ -179,7 +182,7 @@ of ``kubeflow_tpu``. Phases, each fatal on failure:
     over NCCL, each on its own card (this file with ``--mesh-rank``).
     Each rank checks the five collectives on ``dp`` for their values,
     times them at 64 MB (algorithmic bandwidth; bus bandwidth where
-    n > 1) and reports NCCL's version; holds the three flash kernels
+    n > 1) and reports NCCL's version; holds the flash forward and backward
     against their plain versions at each run's local heads, (8, 512,
     12 / tp, 64) bf16 causal, on its card; runs ``examples.lm.main`` at
     its defaults with flash attention through ``launcher_init``'s mesh
@@ -290,22 +293,24 @@ power limit, the ``{"kernels": [...]}`` record, and ``{"ok": true, ...}``.
 In the record, a kernel's ``launches`` sums the paths that run it and
 ``launches_by_path`` gives each path's own count (zeroed just before
 that path, read just after): ``paged_serving`` and ``dense_serving``
-(rows 1-2), ``lm_train``, ``bert_train`` and ``bert_entry`` (rows 3-5),
-``resnet_train`` (rows 6-7), and on every row ``lm_entry``,
+(rows 1-2), ``lm_train``, ``bert_train`` and ``bert_entry`` (rows 3-4),
+``resnet_train`` (rows 5-6), and on every row ``lm_entry``,
 ``moe_train`` and ``spec_serving`` (phases 14-16: the reference's dense,
 greedy defaults launch none of the kernels, which those phases require)
 ``predict`` (phase 17's calls), ``image_entry`` (phase 19: none),
 ``grpc_core`` (phase 20's calls), ``mesh_train`` (phase 21's entry
 point run, summed over its ranks) and ``pipe_moe_image`` (phase 22's
 pipelined LM step, MoE entry point and ResNet step, each zeroed just
-before it and not its f32 parity runs: > 0 on rows 3-7, 0 on rows 1-2),
-``mesh_serving`` and ``encoder_tp`` (phase 23), ``elastic`` (phase 24's
-bf16 run over both ranks and the resume: > 0 on rows 3-5, 0 on the rest),
-``batch_predict`` (48 on row 6, 0 on the rest) and ``mesh_compose``
+before it and not its f32 parity runs: > 0 on rows 3-6, 0 on rows 1-2),
+``mesh_serving`` and ``encoder_tp`` (phase 23; its f32 encoder steps
+run the dQ and dK/dV kernels, which must launch, so row 4 reads 0
+there), ``elastic`` (phase 24's
+bf16 run over both ranks and the resume: > 0 on rows 3-4, 0 on the rest),
+``batch_predict`` (48 on row 5, 0 on the rest) and ``mesh_compose``
 (phase 25's runs summed over the processes: > 0 on rows 1-2 from (a),
-on rows 3-5 from (b)'s BERT, on rows 6-7 from (b)'s ResNet) and
+on rows 3-4 from (b)'s BERT, on rows 5-6 from (b)'s ResNet) and
 ``last_modules`` (phase 26's serving run, BERT step, multiplexed calls
-and ResNet steps: > 0 on rows 1, 3 and 6). The flash forward and bnconv forward
+and ResNet steps: > 0 on rows 1, 3 and 5). The flash forward and bnconv forward
 rows also carry ``predict_shapes``: their times at the inference shapes.
 Row 1 also carries ``tma_launches_by_path``, its launches on
 ``paged_decode_tma_kernel`` (> 0 on ``paged_serving``, ``mesh_serving``
@@ -849,16 +854,35 @@ def flash_inputs(B, S, H, D, dtype, device, seed, masked):
 
 
 def flash_kernels(q, k, v, g, *, causal, kv_len):
-    """(out, lse, dq, dk, dv, delta) through the three wrappers; delta is
-    the autograd function's plain op."""
+    """(out, lse, dq, dk, dv, delta) through the forward and backward
+    wrappers; delta is the autograd function's plain op."""
     from kubeflow_tpu_torch.ops import flash_attention as fa
 
     kw = dict(causal=causal, kv_len=kv_len)
     out, lse = fa.flash_fwd(q, k, v, **kw)
     delta = fa.flash_delta(g, out)
-    dq = fa.flash_bwd_dq(q, k, v, g, lse, delta, **kw)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse, delta, **kw)
+    dq, dk, dv = fa.flash_bwd(q, k, v, g, lse, delta, **kw)
     return out, lse, dq, dk, dv, delta
+
+
+def flash_launches(q) -> dict:
+    """The flash launches one forward and one backward at q's dtype and
+    head dim count: the fused backward at bf16 and D <= 64, else the dQ
+    and dK/dV kernels."""
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    bwd = (("flash_bwd",) if fa.fused_backward(q)
+           else ("flash_bwd_dq", "flash_bwd_dkv"))
+    return {n: int(n == "flash_fwd" or n in bwd) for n in fa.launches}
+
+
+def check_flash_launched(before: dict, q, label: str) -> None:
+    """One forward and one backward launched since ``before``."""
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    want = {n: before[n] + k for n, k in flash_launches(q).items()}
+    check(fa.launches == want, f"flash {label}: launches {fa.launches}, "
+                               f"expected {want}")
 
 
 def over_heads(fn, q, k, v, g, lse, delta, step):
@@ -982,13 +1006,25 @@ def compare_flash(B, S, H, D, dtype, device, seed, *, causal, masked,
 def flash_bytes_ops(B, S, H, D, el, causal):
     """Bytes each pass must move and flops it must do at (B, S, H, D):
     inputs read once, outputs written once; flops over the live (q, key)
-    pairs, S(S+1)/2 causal (4 D each forward, 6 D dQ, 8 D dK/dV)."""
+    pairs, S(S+1)/2 causal (4 D each forward, 6 D dQ, 8 D dK/dV, and 10 D
+    dQ, dK and dV together). The fused kernel's f32 dQ workspace is how
+    that kernel is built, not work the function needs, so it is not
+    counted: :func:`flash_workspace_bytes` gives its traffic."""
     n = B * S * H * D * el
     stats = B * H * S * 4                      # lse or delta, f32
     pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
     return {"flash_fwd": (3 * n + n + stats, 4 * pairs * D),
+            "flash_bwd": (4 * n + 2 * stats + 3 * n, 10 * pairs * D),
             "flash_bwd_dq": (4 * n + 2 * stats + n, 6 * pairs * D),
             "flash_bwd_dkv": (4 * n + 2 * stats + 2 * n, 8 * pairs * D)}
+
+
+def flash_workspace_bytes(B, S, H, D):
+    """Bytes of the fused backward's f32 dQ workspace, (B, S, H, D), and
+    the least traffic it adds: written once by the adds and read once by
+    the rounding pass. Reported beside the bound, never in it."""
+    size = B * S * H * D * 4
+    return size, 2 * size
 
 
 # the bf16 D = 64 forward's ms at phase 17's inference shapes (B, S) under
@@ -997,10 +1033,17 @@ def flash_bytes_ops(B, S, H, D, el, causal):
 FLASH_FWD_MMA_MS = {(1, 128): 0.0098, (8, 512): 0.0483}
 
 # the CUDA kernel each flash wrapper launches for bf16 at D = 64 (the LM,
-# BERT, ViT and MoE LM paths)
+# BERT, ViT and MoE LM paths): the forward, and the backward in one pass
 FLASH_D64_KERNELS = {"flash_fwd": "flash_fwd_wgmma_kernel",
-                     "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel",
-                     "flash_bwd_dkv": "flash_bwd_dkv_wgmma_kernel"}
+                     "flash_bwd": "flash_bwd_wgmma_kernel"}
+# the kernels line's records in order: the paged and sampler kernels
+# (serving), the flash forward and backward, the bnconv forward and dW
+SERVING_RECORDS, FLASH_RECORDS, BNCONV_RECORDS = (slice(0, 2), slice(2, 4),
+                                                  slice(4, None))
+# the TPU kernel bodies each replaces (kubeflow_tpu/ops/attention.py)
+FLASH_REPLACES = {"flash_fwd": "kubeflow_tpu/ops/attention.py:188",
+                  "flash_bwd": "kubeflow_tpu/ops/attention.py:369"}
+FLASH_ALSO_REPLACES = {"flash_bwd": "kubeflow_tpu/ops/attention.py:422"}
 
 
 def sdpa_yardstick(q, k, v, g, *, causal):
@@ -1082,16 +1125,16 @@ def ptxas_kernels(log: str,
 
 def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
                         build_log=""):
-    """The three flash kernels against their plain versions: causal and
-    not, with and without kv_len, f32 and bf16, at S=2048 and a ragged
-    1000, then the training path's own case (bf16, causal, S_main) with
-    the plain versions run ``step`` heads at a time, and the LM entry
-    point's (``LM_FLASH_SHAPE``, bf16, causal). Then each is timed
-    there beside the bound, its plain version and PyTorch's fused
+    """The flash forward and backward against their plain versions:
+    causal and not, with and without kv_len, f32 and bf16, at S=2048 and
+    a ragged 1000, then the training path's own case (bf16, causal,
+    S_main) with the plain versions run ``step`` heads at a time, and the
+    LM entry point's (``LM_FLASH_SHAPE``, bf16, causal). Then each is
+    timed there beside the bound, its plain version and PyTorch's fused
     attention (timed only). ``build_log`` is nvcc's output for
     ``flash_attention.cu``: each kernel's registers and spills are
     printed, and the bf16 tensor-core kernels at D = 64 (the training
-    path's) must not spill."""
+    path's: the forward and the fused backward) must not spill."""
     import torch
 
     from kubeflow_tpu_torch.ops import flash_attention as fa
@@ -1122,20 +1165,23 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
         print("  ptxas: flash_attention was built before this run (no "
               "compiler log)", flush=True)
 
-    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
-    owner = {"out": "flash_fwd", "lse": "flash_fwd", "dq": "flash_bwd_dq",
-             "dk": "flash_bwd_dkv", "dv": "flash_bwd_dkv"}
+    worst = {"flash_fwd": 0.0, "flash_bwd": 0.0}
+    owner = {"out": "flash_fwd", "lse": "flash_fwd", "dq": "flash_bwd",
+             "dk": "flash_bwd", "dv": "flash_bwd"}
     cases = [(S, dtype, causal, masked)
              for S in (2048, 1000)
              for dtype in (torch.float32, torch.bfloat16)
              for causal in (True, False) for masked in (False, True)]
     cases.append((S_main, torch.bfloat16, True, False))
     for seed, (S, dtype, causal, masked) in enumerate(cases, SEED + 1):
+        before = dict(fa.launches)
         errs, main = compare_flash(B, S, H, D, dtype, device, seed,
                                    causal=causal, masked=masked,
                                    step=step if S == S_main else H)
-        for name, err in errs.items():
-            worst[owner[name]] = max(worst[owner[name]], err)
+        check_flash_launched(before, main[0], f"S={S} {dtype}")
+        if dtype == torch.bfloat16:     # f32 runs the FMA kernels
+            for name, err in errs.items():
+                worst[owner[name]] = max(worst[owner[name]], err)
         torch.cuda.empty_cache()
     # the LM entry point's own shape (phases 14 and 21): bf16, causal
     errs, _ = compare_flash(*LM_FLASH_SHAPE, torch.bfloat16, device,
@@ -1145,10 +1191,9 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
     # head dims the kernels are not built for (zero-padded to 64 or 128)
     for seed, d_pad in enumerate((32, 80, 96), SEED + 30):
         before = dict(fa.launches)
-        compare_flash(B, 1000, 4, d_pad, torch.bfloat16, device, seed,
-                      causal=True, masked=True)
-        check(all(fa.launches[n] == before[n] + 1 for n in before),
-              f"flash D={d_pad}: a kernel did not launch")
+        _, case = compare_flash(B, 1000, 4, d_pad, torch.bfloat16, device,
+                                seed, causal=True, masked=True)
+        check_flash_launched(before, case[0], f"D={d_pad}")
     # D = 256 (its own build, the FMA kernels) and, past it, the wide
     # kernels: D = 320 and 512, f32 and bf16, at S = 1000 with kv_len;
     # then 256 and 512 in bf16 at B=2, H=16, S=2048, causal, timed
@@ -1156,17 +1201,15 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
             [(d, t) for d in (320, 512)
              for t in (torch.float32, torch.bfloat16)], SEED + 34):
         before = dict(fa.launches)
-        compare_flash(B, 1000, 4, d_wide, dtype, device, seed, causal=True,
-                      masked=True)
-        check(all(fa.launches[n] == before[n] + 1 for n in before),
-              f"flash D={d_wide} {dtype}: a kernel did not launch")
+        _, case = compare_flash(B, 1000, 4, d_wide, dtype, device, seed,
+                                causal=True, masked=True)
+        check_flash_launched(before, case[0], f"D={d_wide} {dtype}")
     wide_ms = {}
     for seed, d_wide in ((SEED + 33, 256), (SEED + 38, 512)):
         before = dict(fa.launches)
         _, wide = compare_flash(B, 2048, H, d_wide, torch.bfloat16, device,
                                 seed, causal=True, masked=False, step=4)
-        check(all(fa.launches[n] == before[n] + 1 for n in before),
-              f"flash D={d_wide}: a kernel did not launch")
+        check_flash_launched(before, wide[0], f"D={d_wide}")
         wq, wk, wv, wg, wlse, wdelta = wide
         wide_ms[d_wide] = {
             "flash_fwd": time_ms(lambda: fa.flash_fwd(wq, wk, wv)),
@@ -1186,20 +1229,22 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
                   flush=True)
         del wide, wq, wk, wv, wg, wlse, wdelta
         torch.cuda.empty_cache()
-    # the training path's case (the last of ``cases``): dQ is owned by
-    # one block per q tile, so a repeat call is bit-identical; then timing
+    # the training path's case (the last of ``cases``): dQ's partials
+    # land in a fixed order and dK, dV are owned by one block, so a repeat
+    # call is bit-identical in all three; then timing
     q, k, v, g, lse, delta = main
-    check(torch.equal(fa.flash_bwd_dq(q, k, v, g, lse, delta),
-                      fa.flash_bwd_dq(q, k, v, g, lse, delta)),
-          "flash_bwd_dq: a repeat call differs")
+    first = fa.flash_bwd(q, k, v, g, lse, delta)
+    for name, a, b in zip(("dq", "dk", "dv"), first,
+                          fa.flash_bwd(q, k, v, g, lse, delta)):
+        check(torch.equal(a, b), f"flash_bwd: a repeat call's {name} "
+                                 "differs")
+    del first
     ms = {"flash_fwd": time_ms(lambda: fa.flash_fwd(q, k, v)),
-          "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(
-              q, k, v, g, lse, delta)),
-          "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv(
+          "flash_bwd": time_ms(lambda: fa.flash_bwd(
               q, k, v, g, lse, delta))}
     # PyTorch's fused attention on the same inputs, as a yardstick only
     lib = sdpa_yardstick(q, k, v, g, causal=True)
-    lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = lib["backward"]
+    lib["flash_bwd"] = lib["backward"]
     library = {name: lib[name][0] for name in ms}
 
     def plain_fn(fn):
@@ -1207,19 +1252,15 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
     plain = {
         "flash_fwd": plain_fn(lambda q, k, v, g, lse, delta:
                               fa.flash_fwd_plain(q, k, v)),
-        "flash_bwd_dq": plain_fn(lambda q, k, v, g, lse, delta: (
-            fa.flash_bwd_dq_plain(q, k, v, g, lse, delta),)),
-        "flash_bwd_dkv": plain_fn(lambda q, k, v, g, lse, delta:
-                                  fa.flash_bwd_dkv_plain(q, k, v, g, lse,
-                                                         delta))}
+        "flash_bwd": plain_fn(lambda q, k, v, g, lse, delta: (
+            fa.flash_bwd_dq_plain(q, k, v, g, lse, delta),
+            *fa.flash_bwd_dkv_plain(q, k, v, g, lse, delta)))}
     plain = {name: time_ms(fn, iters=5, warmup=1)
              for name, fn in plain.items()}
     work = flash_bytes_ops(B, S_main, H, D, 2, True)
     records = []
-    lib_call = {"flash_fwd": "forward", "flash_bwd_dq": "backward, dq+dk+dv",
-                "flash_bwd_dkv": "backward, dq+dk+dv"}
-    for name, line in (("flash_fwd", 188), ("flash_bwd_dq", 369),
-                       ("flash_bwd_dkv", 422)):
+    lib_call = {"flash_fwd": "forward", "flash_bwd": "backward, dq+dk+dv"}
+    for name in ("flash_fwd", "flash_bwd"):
         nbytes, flops = work[name]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / BF16_FLOPS * 1e3
@@ -1233,15 +1274,23 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
               f"library_ms={library[name]:.4f} (scaled_dot_product_"
               f"attention {lib_call[name]}, {lib[name][1]} backend, dO "
               f"contiguous) [{FLASH_D64_KERNELS[name]}]", flush=True)
+        if name == "flash_bwd":
+            size, traffic = flash_workspace_bytes(B, S_main, H, D)
+            print(f"flash_bwd dQ workspace (not in the bound): {size} bytes "
+                  f"f32, {traffic} bytes written and read "
+                  f"({traffic / HBM_BYTES_PER_S * 1e3:.4f} ms at the "
+                  f"memory rate)", flush=True)
         records.append({
             "name": name, "kernel": FLASH_D64_KERNELS[name],
             "route": "cuda",
             "source": "kubeflow_tpu_torch/ops/csrc/flash_attention.cu",
-            "replaces": f"kubeflow_tpu/ops/attention.py:{line}",
+            "replaces": FLASH_REPLACES[name],
             "max_abs_err": worst[name], "ms": ms[name],
             "plain_ms": plain[name], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library[name], "library_backend": lib[name][1]})
+            "library_ms": library[name], "library_backend": lib[name][1],
+            **({"also_replaces": FLASH_ALSO_REPLACES[name]}
+               if name in FLASH_ALSO_REPLACES else {})})
     return records
 
 
@@ -1756,8 +1805,9 @@ def train_phase(device, *, steps=TRAIN_STEPS):
           f"train: telemetry {summary}, flops {telem.flops_per_step}")
     hbm = telem.hbm_sampler.beacon_fields()
     check(hbm.get("peakBytes", 0) > 0, f"train: no HBM sample ({hbm})")
-    per_step = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
-                "flash_bwd_dkv": cfg.n_layers}
+    # the fused backward once a layer, and PR 19's pair never
+    per_step = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd": cfg.n_layers,
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     for name, n in per_step.items():
         check(launches[name] == n * steps,
               f"train: {name} launched {launches[name]} times, expected "
@@ -2342,8 +2392,8 @@ BERT_BATCH, BERT_SEQ, BERT_STEPS = 16, 512, 5
 
 
 def check_flash_bert_shape(device) -> dict:
-    """The three flash kernels against their plain versions at BERT's
-    shape (B=16, S=512, H=12, D=64, bf16, non-causal) and the entry
+    """The flash forward and backward against their plain versions at
+    BERT's shape (B=16, S=512, H=12, D=64, bf16, non-causal) and the entry
     point's (B=8, S=128), with and without kv_len, at phase 2's limits;
     then each timed unmasked at BERT's shape beside its
     bound, its plain version and ``scaled_dot_product_attention``
@@ -2354,9 +2404,9 @@ def check_flash_bert_shape(device) -> dict:
     from kubeflow_tpu_torch.ops import flash_attention as fa
 
     B, S, H, D = BERT_BATCH, BERT_SEQ, 12, 64
-    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
-    owner = {"out": "flash_fwd", "lse": "flash_fwd", "dq": "flash_bwd_dq",
-             "dk": "flash_bwd_dkv", "dv": "flash_bwd_dkv"}
+    worst = {"flash_fwd": 0.0, "flash_bwd": 0.0}
+    owner = {"out": "flash_fwd", "lse": "flash_fwd", "dq": "flash_bwd",
+             "dk": "flash_bwd", "dv": "flash_bwd"}
     # the entry point's default (batch 8, seq 128: one 64-row tile pair)
     # first, then BERT's bench shape, the unmasked case last
     for seed, (b, s, masked) in enumerate(
@@ -2369,19 +2419,17 @@ def check_flash_bert_shape(device) -> dict:
     q, k, v, g, lse, delta = case                  # the unmasked case
     kw = dict(causal=False)
     ms = {"flash_fwd": time_ms(lambda: fa.flash_fwd(q, k, v, **kw)),
-          "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(
-              q, k, v, g, lse, delta, **kw)),
-          "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv(
+          "flash_bwd": time_ms(lambda: fa.flash_bwd(
               q, k, v, g, lse, delta, **kw))}
     plain = {
         "flash_fwd": time_ms(lambda: fa.flash_fwd_plain(q, k, v, **kw),
                              iters=5, warmup=1),
-        "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq_plain(
-            q, k, v, g, lse, delta, **kw), iters=5, warmup=1),
-        "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv_plain(
-            q, k, v, g, lse, delta, **kw), iters=5, warmup=1)}
+        "flash_bwd": time_ms(lambda: (
+            fa.flash_bwd_dq_plain(q, k, v, g, lse, delta, **kw),
+            fa.flash_bwd_dkv_plain(q, k, v, g, lse, delta, **kw)),
+            iters=5, warmup=1)}
     lib = sdpa_yardstick(q, k, v, g, causal=False)
-    lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = lib["backward"]
+    lib["flash_bwd"] = lib["backward"]
     library = {name: lib[name][0] for name in ms}
     work = flash_bytes_ops(B, S, H, D, 2, False)
     out = {}
@@ -2404,6 +2452,12 @@ def check_flash_bert_shape(device) -> dict:
               f"{'forward' if name == 'flash_fwd' else 'backward'}, "
               f"{lib[name][1]} backend, dO contiguous) "
               f"[{FLASH_D64_KERNELS[name]}]", flush=True)
+        if name == "flash_bwd":
+            size, traffic = flash_workspace_bytes(B, S, H, D)
+            print(f"flash_bwd dQ workspace (BERT, not in the bound): {size} "
+                  f"bytes f32, {traffic} bytes written and read "
+                  f"({traffic / HBM_BYTES_PER_S * 1e3:.4f} ms at the "
+                  f"memory rate)", flush=True)
     del q, k, v, g, case
     torch.cuda.empty_cache()
     return out
@@ -2458,8 +2512,9 @@ def bert_setup(device):
 
 def bert_phase(device, *, steps=BERT_STEPS):
     """``steps`` steps of ``make_mlm_train_step`` on :func:`bert_setup`'s
-    state and batch. Flash must launch 24 / 12 / 12 times a step
-    (forward with remat, dQ, dK/dV); losses finite, the first within
+    state and batch. Flash must launch 24 / 12 times a step (forward
+    with remat, the one-pass backward) and the dQ and dK/dV kernels
+    never; losses finite, the first within
     ln(30522) +- 1.5, falling; every parameter updated."""
     import math
 
@@ -2488,8 +2543,8 @@ def bert_phase(device, *, steps=BERT_STEPS):
         times.append(time.perf_counter() - t0)
     launches = ops.launch_counts()
     L = cfg.n_layers
-    for name, n in (("flash_fwd", 2 * L), ("flash_bwd_dq", L),
-                    ("flash_bwd_dkv", L)):
+    for name, n in (("flash_fwd", 2 * L), ("flash_bwd", L),
+                    ("flash_bwd_dq", 0), ("flash_bwd_dkv", 0)):
         check(launches[name] == n * steps,
               f"bert: {name} launched {launches[name]} times, expected "
               f"{n * steps} ({n} per step)")
@@ -2610,7 +2665,8 @@ def bert_entry_phase(device):
     unbroken 6-step run. The restart resumes at step 4; a restore of the
     step-4 checkpoint into a fresh state on the card equals the saved
     tensors bit for bit; steps 5-6 take the unbroken run's losses within
-    1e-5 relative; the trace names the three flash kernels."""
+    1e-5 relative; the trace names the flash forward, the one-pass
+    backward and its dQ pass, and none of the dQ or dK/dV kernels."""
     import torch
 
     from kubeflow_tpu_torch import ops
@@ -2690,9 +2746,14 @@ def bert_entry_phase(device):
         with open(traces[0]) as f:
             names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
         kernels = {n: sorted(x for x in names if n in x)
-                   for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+                   for n in ("flash_fwd_wgmma", "flash_bwd_wgmma",
+                             "flash_bwd_dq_out")}
         check(all(kernels.values()),
               f"bert entry: the trace lacks a flash kernel: {kernels}")
+        pair = sorted(x for x in names if "flash_bwd_dkv" in x or (
+            "flash_bwd_dq" in x and "flash_bwd_dq_out" not in x))
+        check(not pair, f"bert entry: the trace holds the dQ or dK/dV "
+                        f"kernels beside the fused backward: {pair}")
         return {"first_losses": first, "restart_losses": restart,
                 "unbroken_losses": want, "rel_err": rel,
                 "param_diff": param_diff, "restored": len(pairs),
@@ -4346,8 +4407,7 @@ def pipe_kernel_checks(device) -> dict:
                             PIPE_LM["d_model"] // PIPE_LM["n_heads"], bf,
                             device, SEED + 70, causal=True, masked=False)
     flash = {"flash_fwd": max(errs["out"], errs["lse"]),
-             "flash_bwd_dq": errs["dq"],
-             "flash_bwd_dkv": max(errs["dk"], errs["dv"])}
+             "flash_bwd": max(errs["dq"], errs["dk"], errs["dv"])}
     bnconv = {"bnconv_fwd": 0.0, "bnconv_dw": 0.0}
     for i, (M, K, N, _) in enumerate(RESNET50_SITES):
         errs, _ = compare_bnconv(M * PIPE_IMAGE_BATCH // RESNET_BATCH, K, N,
@@ -4578,8 +4638,8 @@ def pipe_moe_image_phase(device) -> dict:
           f"pipe: losses {losses}")
     ticks = PIPE_MICRO * n          # M + S - 1 ticks a step, S = 1
     want = {"flash_fwd": 2 * cfg.n_layers * ticks,
-            "flash_bwd_dq": cfg.n_layers * ticks,
-            "flash_bwd_dkv": cfg.n_layers * ticks}
+            "flash_bwd": cfg.n_layers * ticks,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     got = {k: parts["pipe_lm"].get(k, 0) for k in want}
     check(got == want, f"pipe: flash launches {got}, predicted {want}")
     p50 = statistics.median(walls)
@@ -4990,6 +5050,7 @@ def mesh_kernel_checks(device) -> dict:
     errs, _ = compare_flash(ENC_BATCH, 128, 6, 64, torch.float32, device,
                             SEED + 23, causal=False, masked=False)
     out["flash_fwd"] = max(errs["out"], errs["lse"])
+    # f32: the dQ and the dK/dV kernels
     out["flash_bwd_dq"] = errs["dq"]
     out["flash_bwd_dkv"] = max(errs["dk"], errs["dv"])
     return out
@@ -5775,10 +5836,10 @@ def phase24(device, base: str, kernels: list, kind: str, ident: str) -> None:
             n = launched.get(kern["name"], 0)
             kern["launches_by_path"][path] = n
             kern["launches"] += n
-    for kern in kernels[2:5]:
+    for kern in kernels[FLASH_RECORDS]:
         check(kern["launches_by_path"]["elastic"] > 0,
               f"{kern['name']} never launched on the elastic path")
-    for kern in kernels[:2] + kernels[5:]:
+    for kern in kernels[SERVING_RECORDS] + kernels[BNCONV_RECORDS]:
         check(kern["launches_by_path"]["elastic"] == 0,
               f"{kern['name']} launched on the elastic path")
     b0, f0, r = el["bf16"][0], el["f32"][0], el["resume"]
@@ -6295,8 +6356,8 @@ def mesh_compose_phase(device, base: str) -> dict:
 
 def phase25(device, base: str, kernels: list, kind: str, ident: str) -> None:
     """Phase 25's parts, their lines, and the ``mesh_compose`` path of
-    the kernel record: > 0 on rows 1-2 from (a)'s serving, on rows 3-5
-    from (b)'s BERT, on rows 6-7 from (b)'s ResNet."""
+    the kernel record: > 0 on rows 1-2 from (a)'s serving, on rows 3-4
+    from (b)'s BERT, on rows 5-6 from (b)'s ResNet."""
     mc = mesh_compose_phase(device, base)
     parts = mc["parts"]
     for kern in kernels:
@@ -6307,15 +6368,16 @@ def phase25(device, base: str, kernels: list, kind: str, ident: str) -> None:
     tma["mesh_compose"] = mc["launches"].get("paged_decode_tma", 0)
     check(tma["mesh_compose"] > 0,
           "paged_decode_tma_kernel never launched on the mesh_compose path")
+    flash_end = FLASH_RECORDS.stop
     for i, kern in enumerate(kernels):
-        if i < 2:
+        if i < FLASH_RECORDS.start:
             got = (parts["serve_world1"].get(kern["name"], 0),
                    parts["serve_tp2"].get(kern["name"], 0))
             where = "(a)'s serving at world 1 and tp = 2"
         else:
-            got = (parts["bert_pp2" if i < 5 else "resnet_pp2"].get(
+            got = (parts["bert_pp2" if i < flash_end else "resnet_pp2"].get(
                 kern["name"], 0),)
-            where = "(b)'s BERT" if i < 5 else "(b)'s ResNet"
+            where = "(b)'s BERT" if i < flash_end else "(b)'s ResNet"
         check(all(n > 0 for n in got),
               f"{kern['name']} never launched on {where}: {got}")
     w1 = mc["world1"]
@@ -6810,13 +6872,14 @@ def phase26(device, base: str, cfg, kernels: list, kind: str, ident: str,
             first_build: dict) -> None:
     """Phase 26's parts, their lines, and the ``last_modules`` path of
     the kernel record: > 0 on rows 1 ((b)'s serving), 3 ((c) and (d)'s
-    BERT) and 6 ((d)'s ResNet-50)."""
+    BERT) and 5 ((d)'s ResNet-50)."""
     lm = last_modules_phase(device, base, cfg, kernels, first_build)
     for i, kern in enumerate(kernels):
         n = lm["launches"].get(kern["name"], 0)
         kern["launches_by_path"]["last_modules"] = n
         kern["launches"] += n
-        if i in (0, 2, 5):
+        if kern["name"] in ("paged_decode_attention", "flash_fwd",
+                            "bnconv_fwd"):
             check(n > 0, f"{kern['name']} never launched on the "
                          f"last_modules path")
     kernels[0].setdefault("tma_launches_by_path", {})["last_modules"] = (
@@ -6928,7 +6991,7 @@ def main() -> int:
                                     build_log=logs["flash_attention"]),
                *check_bnconv_kernels(device, build_log=logs["bnconv"])]
     bert_shape = check_flash_bert_shape(device)
-    for kern in kernels[2:5]:
+    for kern in kernels[FLASH_RECORDS]:
         kern["bert_shape"] = bert_shape[kern["name"]]
         kern["max_abs_err"] = max(kern["max_abs_err"],
                                   bert_shape[kern["name"]]["max_abs_err"])
@@ -6962,7 +7025,7 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start,
     write_export(base, cfg)
     print(f"export written: {time.perf_counter() - t0:.1f}s", flush=True)
     serve = serve_phase(base, cfg, device)
-    for kern in kernels[:2]:
+    for kern in kernels[SERVING_RECORDS]:
         kern["launches"] = serve["launches"][kern["name"]]
         kern["launches_by_path"] = {"paged_serving": kern["launches"]}
         check(kern["launches"] > 0,
@@ -6992,7 +7055,7 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.empty_cache()
     train = train_phase(device)
-    for kern in kernels[2:5]:
+    for kern in kernels[FLASH_RECORDS]:
         kern["launches"] = train["launches"][kern["name"]]
         kern["launches_by_path"] = {"lm_train": kern["launches"]}
     print(f"phase 5 train ({kind} | {ident}): vocab 32000, d_model 1024, "
@@ -7036,7 +7099,7 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start,
     lap("6")
     torch.cuda.empty_cache()
     res = resnet_phase(device)
-    for kern in kernels[5:]:
+    for kern in kernels[BNCONV_RECORDS]:
         kern["launches"] = res["launches"][kern["name"]]
         kern["launches_by_path"] = {"resnet_train": kern["launches"]}
     print(f"phase 7 resnet50 train ({kind} | {ident}): batch 256, bf16/f32, "
@@ -7068,7 +7131,7 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start,
     torch.backends.cuda.matmul.allow_tf32 = False
     dense = dense_phase(device)
     # "launches" sums the serving paths; each path's own count beside it
-    for kern in kernels[:2]:
+    for kern in kernels[SERVING_RECORDS]:
         n = dense["fused"]["launches"][kern["name"]]
         kern["launches_by_path"]["dense_serving"] = n
         kern["launches"] += n
@@ -7099,7 +7162,7 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start,
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
     bert = bert_phase(device)
-    for kern in kernels[2:5]:
+    for kern in kernels[FLASH_RECORDS]:
         n = bert["launches"][kern["name"]]
         kern["launches_by_path"]["bert_train"] = n
         kern["launches"] += n
@@ -7125,7 +7188,7 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start,
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
     entry = bert_entry_phase(device)
-    for kern in kernels[2:5]:
+    for kern in kernels[FLASH_RECORDS]:
         n = entry["launches"][kern["name"]]
         kern["launches_by_path"]["bert_entry"] = n
         kern["launches"] += n
@@ -7291,10 +7354,10 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start,
         n = mesh["launches"].get(kern["name"], 0)
         kern["launches_by_path"]["mesh_train"] = n
         kern["launches"] += n
-    for kern in kernels[2:5]:
+    for kern in kernels[FLASH_RECORDS]:
         check(kern["launches_by_path"]["mesh_train"] > 0,
               f"{kern['name']} never launched on the mesh path")
-    for kern in kernels[:2] + kernels[5:]:
+    for kern in kernels[SERVING_RECORDS] + kernels[BNCONV_RECORDS]:
         check(kern["launches_by_path"]["mesh_train"] == 0,
               f"{kern['name']} launched on the mesh path")
     print(f"phase 21 mesh ({kind} | {ident}): {mesh['world']} rank(s), "
@@ -7351,10 +7414,10 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start,
         if kern["name"] in held:
             kern["max_abs_err"] = max(kern["max_abs_err"],
                                       held[kern["name"]])
-    for kern in kernels[2:]:
+    for kern in kernels[FLASH_RECORDS.start:]:
         check(kern["launches_by_path"]["pipe_moe_image"] > 0,
               f"{kern['name']} never launched on the pipe_moe_image path")
-    for kern in kernels[:2]:
+    for kern in kernels[SERVING_RECORDS]:
         check(kern["launches_by_path"]["pipe_moe_image"] == 0,
               f"{kern['name']} launched on the pipe_moe_image path")
     B, S = PIPE_BATCH // PIPE_MICRO, PIPE_LM["max_seq_len"]
@@ -7432,15 +7495,18 @@ def run_phases(device, kind, ident, cfg, base, kernels, t_start,
         if kern["name"] in ms["checks"]:
             kern["max_abs_err"] = max(kern["max_abs_err"],
                                       ms["checks"][kern["name"]])
-    for kern in kernels[:2]:
+    for kern in kernels[SERVING_RECORDS]:
         check(kern["launches_by_path"]["mesh_serving"] > 0,
               f"{kern['name']} never launched on the mesh_serving path")
     tma["mesh_serving"] = ms["mesh_serving"].get("paged_decode_tma", 0)
     check(tma["mesh_serving"] > 0,
           "paged_decode_tma_kernel never launched on the mesh_serving path")
-    for kern in kernels[2:5]:
-        check(kern["launches_by_path"]["encoder_tp"] > 0,
-              f"{kern['name']} never launched on the encoder_tp path")
+    # the encoder steps run f32: the flash forward's FMA kernel and the
+    # backward's dQ and dK/dV kernels, not the one-pass bf16 backward
+    enc = ms["encoder_tp"]
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(enc.get(name, 0) > 0,
+              f"{name} never launched on the encoder_tp path ({enc})")
     print_mesh_serving(ms, cfg, kind, ident, serve)
     lap("23")
     torch.cuda.empty_cache()

@@ -65,7 +65,8 @@ def reference_attention(q, k, v, *, causal: bool = True,
 class _FlashAttention(torch.autograd.Function):
     """Forward saves ``(q, k, v, out, lse, kv_len)``; backward computes
     ``delta = Σ_d dO·O`` in f32 as a plain op (XLA's fused reduce in the
-    reference, :508-511), then runs the dQ and dK/dV passes."""
+    reference, :508-511), then dQ, dK and dV in one call
+    (``flash_attention.flash_bwd``: one kernel at bf16 and D <= 64)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, kv_len, block_q, block_k):
@@ -91,8 +92,7 @@ class _FlashAttention(torch.autograd.Function):
         kw = dict(causal=ctx.causal, sm_scale=ctx.sm_scale, kv_len=kv_len)
         for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
             _resolve_tiles(kernel, q, ctx.causal, *ctx.blocks)
-        dq = fa.flash_bwd_dq(q, k, v, g, lse, delta, **kw)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse, delta, **kw)
+        dq, dk, dv = fa.flash_bwd(q, k, v, g, lse, delta, **kw)
         return dq, dk, dv, None, None, None, None, None
 
 

@@ -18,7 +18,8 @@ What differs is the legality and the knobs, which are Hopper's:
   key runs at the row's head dim and dtype (:func:`flash_tile`): at bf16
   and D <= 64 the wgmma kernels own 128 rows a block and stream 64 a
   stage (``csrc/flash_attention.cu`` ``kWgTile``/``kWgStep``: the
-  forward and dQ 128 q rows x 64 keys, dK/dV 64 q rows x 128 keys);
+  forward 128 q rows x 64 keys; the backward, one kernel for dQ and
+  dK/dV, 64 q rows x 128 keys under both keys);
   every other kernel (f32, D = 128, D = 256 and past it) runs 64 x 64
   (``kBQ``/``kBK``). A row that leaves open a field deciding which
   kernel runs is illegal. The
@@ -66,10 +67,13 @@ MIN_SEQ_BUCKET = 128
 FLASH_TILE = (64, 64)
 # bf16 at head dims up to WGMMA_HEAD_DIM (padded to it): the wgmma
 # kernels' (block_q, block_k), 128 rows a block and 64 a stage (csrc
-# kWgTile, kWgStep)
+# kWgTile, kWgStep): the forward's, and the fused backward's (dQ, dK and
+# dV in one kernel)
 WGMMA_HEAD_DIM = 64
-WGMMA_TILES = {"flash_fwd": (128, 64), "flash_bwd_dq": (128, 64),
-               "flash_bwd_dkv": (64, 128)}
+WGMMA_TILES = {"flash_fwd": (128, 64), "flash_bwd": (64, 128)}
+# the wgmma kernel each reference key runs (both backward keys: the fused one)
+WGMMA_KERNEL = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd",
+                "flash_bwd_dkv": "flash_bwd", "flash_bwd": "flash_bwd"}
 # dynamic shared memory a launch may take without the opt-in attribute
 MAX_SMEM_BYTES = 48 * 1024
 # ... and with it (cudaFuncAttributeMaxDynamicSharedMemorySize): a
@@ -171,9 +175,9 @@ def flash_tile(kernel: str, head_dim: int, dtype: Any) -> Tuple[int, int]:
     ``head_dim``-wide input of ``dtype``: the wgmma tile of bf16 at
     head dims up to ``WGMMA_HEAD_DIM`` (the wrapper pads those to it),
     else ``FLASH_TILE``."""
-    if (kernel in WGMMA_TILES and dtype_name(dtype) == "bfloat16"
+    if (kernel in WGMMA_KERNEL and dtype_name(dtype) == "bfloat16"
             and head_dim <= WGMMA_HEAD_DIM):
-        return WGMMA_TILES[kernel]
+        return WGMMA_TILES[WGMMA_KERNEL[kernel]]
     return FLASH_TILE
 
 

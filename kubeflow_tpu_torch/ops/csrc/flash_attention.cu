@@ -6,12 +6,14 @@
 //   D = 128), flash_fwd_kernel (f32)
 //     <- _flash_fwd_kernel (Pallas body :188, pallas_call :345, wrapper
 //        _flash_fwd :306);
-// - flash_bwd_dq_wgmma_kernel (bf16, D = 64), flash_bwd_dq_mma_kernel
-//   (bf16, D = 128), flash_bwd_dq_kernel (f32)
-//     <- _flash_bwd_dq_kernel (:369, call :530, wrapper _flash_bwd :482);
-// - flash_bwd_dkv_wgmma_kernel (bf16, D = 64), flash_bwd_dkv_mma_kernel
-//   (bf16, D = 128), flash_bwd_dkv_kernel (f32)
-//     <- _flash_bwd_dkv_kernel (:422, call :560).
+// - flash_bwd_wgmma_kernel (bf16, D = 64: dQ, dK and dV in one pass, with
+//   flash_bwd_dq_out_kernel, dQ's pass out of its f32 workspace)
+//     <- _flash_bwd_dq_kernel (:369, call :530, wrapper _flash_bwd :482)
+//        and _flash_bwd_dkv_kernel (:422, call :560);
+// - flash_bwd_dq_mma_kernel (bf16, D = 128), flash_bwd_dq_kernel (f32)
+//     <- _flash_bwd_dq_kernel;
+// - flash_bwd_dkv_mma_kernel (bf16, D = 128), flash_bwd_dkv_kernel (f32)
+//     <- _flash_bwd_dkv_kernel.
 // They compute what the Pallas kernels compute: f32 scores, the finite
 // NEG_INF = -1e30 for masked scores (a row whose keys are all masked
 // averages V uniformly, with no inf - inf), an online softmax whose l is
@@ -25,7 +27,8 @@
 // D = 128 they differ at the f32 ulp.
 //
 // What bounds them on H100: operations. Per live (q row, key) pair the
-// forward does 4*D flops, dQ 6*D and dK/dV 8*D, against 2-4 bytes read per
+// forward does 4*D flops, dQ 6*D and dK/dV 8*D (dQ, dK and dV together
+// 10*D: the fused pass makes S, dP, P and dS once), against 2-4 bytes read per
 // D values of a whole tile that is reused 64 times: at S = 8192 the
 // intensity is thousands of flops per byte, far above the card's ~295
 // flop/byte ridge. The floor is the causal flops over the bf16
@@ -37,7 +40,10 @@
 //   (batch*head, q tile) that loops over the kv tiles inside the block,
 //   and dK/dV one block per (batch*head, kv tile) that loops over the q
 //   tiles from the first live one, the heaviest tiles launched first.
-//   Each output is owned by one block: no atomics, deterministic sums.
+//   Each output is owned by one block (no atomics, deterministic sums),
+//   but for the fused backward's dQ: its partials are added across
+//   blocks in a fixed order (below), so a repeat call is bit-identical
+//   too.
 // - Causal loop limits are the reference's _last_live_kv (:152) and
 //   _first_live_q (:160); the per-position masks are its
 //   _causal_block_mask and _pad_mask (:167, :177). All kernels use the
@@ -47,74 +53,132 @@
 // - Tiles of 64 q rows by 64 keys (kBK is BLOCK_K of the plain forward).
 //   The causal forward and dQ grids put batch*head on x and walk q tiles
 //   from the last (most kv tiles) to the first. The wgmma kernels own
-//   128 rows a block (kWgTile) and stream 64 a stage (kWgStep); their
-//   grid's y walks a work list from the wrapper
-//   (ops/flash_attention.py:wgmma_work), heaviest first.
+//   128 rows a block (kWgTile) and stream 64 a stage (kWgStep) over a work
+//   list from the wrapper (ops/flash_attention.py:wgmma_work): the
+//   forward's grid y walks it heaviest first, the backward's persistent
+//   blocks take it in descending kv tile, head by head.
 // - Inputs are read through their (B, S, H, D) strides (no head-fusing
 //   transpose); the ragged edge is masked, so any S works: keys past S
 //   are zero in shared memory and get P = 0, q rows past S are never
 //   stored and give P = 0 in dK/dV.
 //
 // bf16 at D = 64 (the LM, BERT, ViT and MoE LM paths, and any D < 64,
-// padded to it), all three passes: wgmma over a TMA ring fed by a
-// producer warp, the shape of bnconv.cu, with the helpers of hopper.cuh.
-// Three warpgroups a block: two consumers, 64 owned rows each, and a
-// producer whose first warp keeps the ring's kWgStages stages in flight
-// (cp.async.bulk.tensor, 128-byte swizzle, a full/empty mbarrier pair a
-// stage) and hands its registers to the consumers (setmaxnreg). q, k, v
-// and dO are read through 4-D tensor maps over (D, S, H, B) with the
-// caller's strides (views of a fused projection included; the wrapper
-// refuses what a map cannot encode); TMA's zero fill stands in for rows
-// past S.
-// - Forward: dQ's geometry and work list. A block owns 128 q rows with Q
-//   resident; K and V ride the ring, 64 keys a stage (BLOCK_K of the
-//   plain forward, so P is rounded at the same running max). S = Q.K^T
-//   is wgmma m64n64k16 with both operands K-major in shared memory; it is
-//   scaled in f32, masked only on edge tiles (causal diagonal, keys past
-//   S to -inf, kv_len), and the online softmax runs on the accumulator
-//   fragments (a row's max and sum over the 4 lanes of a quad, P on the
-//   SFU). P, rounded to bf16 in registers of its own, is the register A
-//   operand of P.V with V read MN-major from the stage through the
-//   transpose bit. P.V goes to fresh fragments and the FMA units add it
-//   as O = O * alpha + P.V (see Long sums). The epilogue divides by
-//   max(l, 1e-30), stores bf16 pairs from registers and lse = m + logf(l)
-//   (lse is held to 1e-5 absolute: logf, not the SFU's lg2). Bound:
-//   operations, 4*D flops a live pair, 2 GEMMs' worth a tile; at D = 64
-//   the pair's one exponential on the SFU (16 a clock an SM) costs about
-//   as much as its 256 flops on the tensor cores. So two blocks share an
-//   SM (kFwdBlocks; setmaxnreg gives the consumers 104 registers, the
-//   producer keeps 24): four consumer warpgroups overlap the two units
-//   better than two do.
-// - dK/dV: a block owns 128 keys; K and V stay resident in shared memory;
-//   Q and dO of each 64-row q tile ride the ring, and the producer warp
-//   writes the tile's lse and delta beside them. S^T = K.Q^T and
-//   dP^T = V.dO^T are wgmma m64n64k16 with both operands K-major in
-//   shared memory (by descriptor). P^T and dS^T are made in f32
-//   registers, split into hi + lo bf16 and packed as wgmma's register A
-//   operand for dV += P^T.dO, then dK += dS^T.Q (one set of fresh
-//   fragments, reused): B is the stage's dO or Q read MN-major through
-//   the descriptor's transpose bit, with no transposed copy. That is 6
-//   GEMMs' worth of tensor-core work a tile for the algorithm's 4.
-// - dQ mirrors it: a block owns 128 q rows with Q and dO resident, K and
-//   V ride the ring; S = Q.K^T and dP = dO.V^T from shared memory, dS
-//   (hi + lo) the register A operand of dS.K with K read MN-major from
-//   the stage: 4 GEMMs' worth a tile for the algorithm's 3.
-// - Within a tile the backward's S (S^T) and dP (dP^T) go out as two
-//   wgmma groups and P is made on the SFU (exp_sfu) while dP runs;
-//   dK/dV's dV goes out while dS is made, and is added while dK runs. In
-//   all three kernels the two consumer warpgroups take turns issuing S
-//   (and dP; named barriers), so one's element-wise work overlaps the
-//   other's products. Every group lands within its tile, and the
-//   branches around wgmma are warp-uniform to ptxas (indices and loop
+// padded to it): wgmma over a TMA ring fed by a producer warp, the shape
+// of bnconv.cu, with the helpers of hopper.cuh. Three warpgroups a block:
+// two consumers, 64 owned rows each, and a producer whose first warp
+// keeps the ring's kWgStages stages in flight (cp.async.bulk.tensor,
+// 128-byte swizzle, a full/empty mbarrier pair a stage) and hands its
+// registers to the consumers (setmaxnreg). q, k, v and dO are read
+// through 4-D tensor maps over (D, S, H, B) with the caller's strides
+// (views of a fused projection included; the wrapper refuses what a map
+// cannot encode); TMA's zero fill stands in for rows past S.
+// - Forward: a block owns 128 q rows with Q resident; K and V ride the
+//   ring, 64 keys a stage (BLOCK_K of the plain forward, so P is rounded
+//   at the same running max). S = Q.K^T is wgmma m64n64k16 with both
+//   operands K-major in shared memory; it is scaled in f32, masked only
+//   on edge tiles (causal diagonal, keys past S to -inf, kv_len), and the
+//   online softmax runs on the accumulator fragments (a row's max and sum
+//   over the 4 lanes of a quad, P on the SFU). P, rounded to bf16 in
+//   registers of its own, is the register A operand of P.V with V read
+//   MN-major from the stage through the transpose bit. P.V goes to fresh
+//   fragments and the FMA units add it as O = O * alpha + P.V (see Long
+//   sums). The epilogue divides by max(l, 1e-30), stores bf16 pairs from
+//   registers and lse = m + logf(l) (lse is held to 1e-5 absolute: logf,
+//   not the SFU's lg2). Bound: operations, 4*D flops a live pair, 2
+//   GEMMs' worth a tile; at D = 64 the pair's one exponential on the SFU
+//   (16 a clock an SM) costs about as much as its 256 flops on the tensor
+//   cores. So two blocks share an SM (kFwdBlocks; setmaxnreg gives the
+//   consumers 104 registers, the producer keeps 24): four consumer
+//   warpgroups overlap the two units better than two do.
+// - The backward is one kernel for dQ, dK and dV (flash_bwd_wgmma_kernel).
+//   Two passes (one owning keys for dK/dV, one owning q rows for dQ) each
+//   made S, dP, P = exp(S - lse) and dS again: the exponentials twice and
+//   4 of a pair's 10 GEMMs' worth twice. One pass makes them once.
+//   Kept from the dK/dV pass: a block owns 128 keys with K and V resident
+//   in shared memory; Q and dO of each 64-row q tile ride the ring, and
+//   the producer warp writes the tile's lse and delta beside them; each
+//   consumer warpgroup owns 64 keys. S^T = K.Q^T and dP^T = V.dO^T are
+//   wgmma m64n64k16 with both operands K-major in shared memory, two
+//   groups. P^T and dS^T are made in f32 registers, split into hi + lo
+//   bf16 and packed as wgmma's register A operand for dV += P^T.dO, then
+//   dK += dS^T.Q: B is the stage's dO or Q read MN-major through the
+//   descriptor's transpose bit, with no transposed copy.
+//   Added, dQ: each warpgroup writes its dS^T (hi and lo, 32-bit stores
+//   that hit no bank twice) to shared memory in the layout of a TMA K box
+//   (rows are keys; two buffers by q tile), and warpgroup 1 runs
+//   dQ_tile = dS.K over the block's 128 keys with both operands in
+//   shared memory: A is dS^T and B the resident K, each read MN-major
+//   through its transpose bit (wgmma m64n64k16, 16 of them: 128 keys in
+//   hi and lo), into fresh fragments, one f32 sum in a fixed order with no
+//   add across warpgroups. That is 8 GEMMs' worth of tensor-core work a
+//   tile (S^T, dP^T, dV and dK as before, dQ's hi + lo) for the
+//   algorithm's 5. Warpgroup 1 takes the product because it issues a turn
+//   behind warpgroup 0: warpgroup 0's dS^T is in before warpgroup 1 needs
+//   it (an mbarrier a buffer, ds_full), and warpgroup 0 waits only before
+//   it writes a buffer whose last dQ has not landed (ds_free), so neither
+//   stops the other on every tile. (Split by output columns, 32 a
+//   warpgroup, both warpgroups meet at a barrier on every tile, and the
+//   half-tile offset that lets one's element-wise work overlap the
+//   other's products is lost: PERF.md, PR 22, times it and the other
+//   splits tried.)
+//   The partial (64 x 64 f32, 16 KB as two 32-column boxes of 128-byte
+//   rows in the 128-byte swizzle, so warpgroup 1's float2 stores take the
+//   two wavefronts a warp's 256 bytes need) goes to a dense (B, S, H, D)
+//   f32 workspace by TMA (two boxes through an f32 tensor map, rows past
+//   S not written), issued by an adder warp of the producer warpgroup
+//   (kDqBufs of them, one a buffer, so that many adds are in flight): a
+//   tensor store for a q tile's first add, a tensor reduce-add (.add,
+//   f32, rounding to nearest) for the others, so the workspace needs no
+//   zeroing. After the last add, flash_bwd_dq_out_kernel scales the
+//   workspace and rounds it to bf16.
+//   The order of dQ's adds: with ascending q walks that start at
+//   _first_live_q, kv tile j reaches a q tile later than every kv tile
+//   above it, so the adds into each q tile land in descending kv tile.
+//   A counter per (head, q tile) in global memory (counters, zeroed by
+//   the wrapper) holds the adds landed; the adder of kv tile j waits
+//   until it equals the number of live kv tiles above j (bwd_turn),
+//   adds, waits for its copies to complete and releases one more
+//   (red.release after fence.proxy.async); kv tile 0, the last adder of
+//   every q tile, neither waits for its copies nor releases. Where a
+//   wait can occur and why it ends: only in the adders, and only on kv
+//   tiles above their own of the same head. The grid is persistent (one
+//   block an SM; each takes items from counters[0], so items start in
+//   list order), and the list
+//   is ordered head by head and, within a head, in descending kv tile:
+//   every kv tile a block waits on took its item earlier, so it is
+//   running or done, and its adds wait only on kv tiles above it. (The
+//   list's heaviest-first order of the two passes would put kv tile 0
+//   first: it would wait on items not yet taken, which ends only while
+//   every kv tile of a head can run at once.) At the causal LM shape the
+//   lower kv tiles start no earlier and walk more tiles before each q
+//   tile, so by tile order alone an adder would never wait; but each add
+//   takes time to land, and on an H100 (PERF.md, PR 22's timeline,
+//   scripts/port_flash_bwd_timeline.py) 49,438 of the 133,120 adds found
+//   their turn not yet come and the adders spin 42% of their time, while
+//   the consumers stall on the adders' buffers 1.7% of theirs. The likely
+//   cause, not yet tested: the 67 MB workspace is past the 50 MB L2, so
+//   the adds above land late.
+//   Registers: the consumers hold dK and dV (64) and, at a tile's peak,
+//   dK's fresh fragments and its dS A operand (64) and, in warpgroup 1,
+//   dQ's (32): dV's fresh fragments are added, and P^T's operand freed,
+//   before dQ goes out.
+// - Within a tile S^T and dP^T go out as two wgmma groups and P is made
+//   on the SFU (exp_sfu) while dP runs; dV goes out while dS is made and
+//   is added while dK runs, and (warpgroup 1) dK's fragments are added
+//   while dQ runs.
+//   In the forward and the backward the two consumer warpgroups take turns
+//   issuing S (and dP; named barriers), so one's element-wise work
+//   overlaps the other's products. Every group lands within its tile, and
+//   the branches around wgmma are warp-uniform to ptxas (indices and loop
 //   bounds from a shuffle): otherwise ptxas serializes every wgmma (its
 //   C7515/C7518 notes), 1.2x slower. A warpgroup whose rows see none of a
-//   causal tile (the block's first q tile for dK/dV's upper keys, its
-//   last kv tile for the forward's and dQ's lower rows) skips its
-//   products and only releases the stage.
+//   causal tile (the backward's first q tile for a block's upper keys,
+//   the forward's last kv tile for its lower rows) skips its products
+//   (the backward's still writes a zero dS^T, and warpgroup 1 its dQ).
 // - The backward's P is exp(s - lse) where the forward's was
-//   exp(s - m) / l over running maxima (and dK/dV sums S^T in its own
-//   order), so it is the forward's to a few f32 ulp, not bit for bit;
-//   the limits of chip_smoke.py phase 2 hold each pass to its plain
+//   exp(s - m) / l over running maxima (and the backward sums S^T in its
+//   own order), so it is the forward's to a few f32 ulp, not bit for bit;
+//   the limits of chip_smoke.py phase 2 hold each output to its plain
 //   version.
 //
 // bf16 at D = 128, all three passes: the tensor cores (mma.sync
@@ -161,7 +225,9 @@
 //   of one kv tile (forward, dQ), of 16 q rows (mma dK/dV) or of one
 //   64-row q tile (wgmma dK/dV) go to fresh fragments, and the FMA units
 //   add those to the running f32 sums, rounding to nearest (the
-//   forward's as O = O * alpha + P.V, 64 output columns at a time).
+//   forward's as O = O * alpha + P.V, 64 output columns at a time); the
+//   fused backward's dQ partials of 128 keys are added in f32 in L2 by
+//   the bulk reduce.
 // f32 (all three passes): the FMA kernels (the f32 units, 67 TFLOP/s):
 // 256 threads, each owning a 4 x 4 score micro-tile (rows ty*4+r, keys
 // tx+16c) and a 4 x D/16 slice of the output; tiles staged synchronously
@@ -180,15 +246,18 @@
 // scores over 64-wide slices of D and give each block one slice of up to
 // 256 output columns (grid z), recomputing the scores for it: no upper
 // limit on D, at D / 256 times the score work (see the wide kernels).
-// Not yet: D = 128 on wgmma (forward and backward); a persistent grid;
-// in-kernel GQA (the wrapper takes K and V already repeated); the
-// forward's next stage of S issued before this stage's softmax (FA3's
-// intra-warpgroup overlap: its registers do not fit two blocks an SM,
-// and at one block an SM it read slower than two blocks without it).
+// Not yet: D = 128 on wgmma (forward and backward); a persistent grid
+// for the forward; in-kernel GQA (the wrapper takes K and V already
+// repeated); the forward's next stage of S issued before this stage's
+// softmax (FA3's intra-warpgroup overlap: its registers do not fit two
+// blocks an SM, and at one block an SM it read slower than two blocks
+// without it).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <algorithm>
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -1489,7 +1558,7 @@ __global__ void __launch_bounds__(kThreadsTC)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dK/dV on mma.sync, D = 128 (D = 64 runs flash_bwd_dkv_wgmma_kernel).
+// bf16 dK/dV on mma.sync, D = 128 (D = 64 runs flash_bwd_wgmma_kernel).
 // grid (B*H, n_kv), kThreadsTC threads; warp w owns keys 16w..16w+15 of
 // kv tile j and walks the q tiles. Shared (bf16, rows of D + 8): k, v
 // (kBK each), q and dO rings (2 x kBQ each); f32 lse and delta rings.
@@ -1674,7 +1743,7 @@ __global__ void __launch_bounds__(kThreadsTC)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dQ on mma.sync, D = 128 (D = 64 runs flash_bwd_dq_wgmma_kernel).
+// bf16 dQ on mma.sync, D = 128 (D = 64 runs flash_bwd_wgmma_kernel).
 // grid (B*H, n_q), kThreadsTC threads; warp w owns q rows 16w..16w+15 of
 // q tile i and walks the kv tiles. Shared (bf16, rows of D + 8): q and dO
 // (kBQ each), k and v rings (2 x kBK each).
@@ -1861,50 +1930,183 @@ __global__ void __launch_bounds__(kThreadsTC)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dK/dV on wgmma (D = 64).
-// grid (B*H, work items); item y of `work` is (key tile, first q tile,
-// end q tile), heaviest first. Consumer warpgroup wg owns keys
-// kw = k0 + 64 wg .. kw + 63; threads 256..383 are the producer
-// warpgroup, whose first warp feeds the ring. Shared memory from a
-// 1024-byte boundary: K (2 boxes) and V (2 boxes) resident; a ring of
-// kWgStages stages of (Q box, dO box); each stage's lse and delta
-// (kStatStride floats); the barriers.
+// bf16 flash backward in one pass on wgmma (D = 64): dQ, dK and dV.
+// A persistent grid: every block takes items from counters[0] in the
+// order of the list. Item x is head bh = x / n_work, entry x % n_work of
+// `work`: (kv tile, first q tile, end q tile), in descending kv tile (the
+// order dQ's adds land in). Threads 0..255 are two consumer warpgroups
+// (warpgroup wg owns keys kw = k0 + 64 wg .. kw + 63); of the producer
+// warpgroup (256..383) warp 0 takes the items and feeds the ring, warps
+// 1..kDqBufs (the adders) add the q tiles' dQ partials into the f32
+// workspace (B, S, H, D) through map_ws, adder a the tiles of the block's
+// walk whose count is a modulo kDqBufs. Shared memory from a 1024-byte
+// boundary (bwd_bytes_to): K (2 boxes) and V (2 boxes) resident; a ring
+// of kWgStages stages of (Q box, dO box); two buffers of dS^T (hi and lo
+// of each warpgroup's 64 keys: 4 boxes); kDqBufs buffers of a q tile's
+// dQ partial (64 x 64 f32 as two boxes of 32 columns, rows of 128 bytes
+// in the 128-byte swizzle); each stage's lse and delta; the barriers;
+// two item slots.
 // ---------------------------------------------------------------------------
+
+constexpr int kDsBar = 3;   // warpgroup 1's dS^T is in shared memory
+constexpr int kDqBufs = 3;  // dQ partials in flight to the adders
+constexpr int kDqBytes = kWgStep * 64 * 4;  // a q tile's dQ partial, f32
+// full, empty (a stage each); res full, empty; item full, empty, dS
+// full (warpgroup 0's in), dS free (warpgroup 1's dQ read it) (two each);
+// dQ full, empty (a buffer each)
+constexpr int kBwdBars = 2 * kWgStages + 2 + 8 + 2 * kDqBufs;
+static_assert(kDqBufs <= 3, "the adders are the producer warpgroup's "
+                            "warps 1..3");
+
+// Byte offset of part p of the fused backward's shared memory: 0 K and V,
+// 1 the ring, 2 dS^T, 3 dQ, 4 stats, 5 barriers, 6 item slots, 7 the end.
+__host__ __device__ constexpr uint32_t bwd_bytes_to(int p) {
+  return p == 0   ? 0u
+         : p == 1 ? 4u * hopper::kBox
+         : p == 2 ? (4u + 2u * kWgStages) * hopper::kBox
+         : p == 3 ? bwd_bytes_to(2) + 8u * hopper::kBox
+         : p == 4 ? bwd_bytes_to(3) + kDqBufs * kDqBytes
+         : p == 5 ? bwd_bytes_to(4) + kWgStages * kStatStride * 4u
+         : p == 6 ? bwd_bytes_to(5) + kBwdBars * 8u
+                  : bwd_bytes_to(6) + 2u * 4u;
+}
+
+// One item: its head, its 128 keys from k0, the q tiles [lo, hi) it walks.
+struct BwdItem {
+  int bh, b, h, j, k0, lo, hi, trim, limit;
+};
+
+__device__ __forceinline__ BwdItem bwd_item(int x, const int* work,
+                                            int n_work, const int* kv_len,
+                                            int H, int S, int causal) {
+  BwdItem w;
+  w.bh = x / n_work;
+  const int* e = work + 3 * (x % n_work);
+  w.b = w.bh / H;
+  w.h = w.bh % H;
+  w.j = e[0];
+  w.k0 = e[0] * kWgTile;
+  w.limit = kv_len ? kv_len[w.b] : S;
+  // a kv_len == 0 row has every key masked and walks every q tile
+  w.trim = causal && w.limit > 0;
+  w.lo = w.trim ? e[1] : 0;
+  w.hi = w.trim ? e[2] : (S + kWgStep - 1) / kWgStep;
+  return w;
+}
+
+// How many kv tiles add into q tile i before this item's does: the adds
+// land in descending kv tile, from the last kv tile live for the q tile
+// (the reference's _last_live_kv at 64-row q tiles and 128-key kv tiles
+// where the walk is trimmed, else the last kv tile).
+__device__ __forceinline__ int bwd_turn(const BwdItem& w, int i, int S) {
+  const int n_kv = (S + kWgTile - 1) / kWgTile;
+  const int last =
+      w.trim ? min(n_kv - 1, (i * kWgStep + kWgStep - 1) / kWgTile)
+             : n_kv - 1;
+  return last - w.j;
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// After this thread's TMA stores or reduce-adds have completed: order
+// their global writes before one more add on *p, which another block
+// acquires.
+__device__ __forceinline__ void red_release(int* p) {
+  asm volatile(
+      "fence.proxy.async.global;\n"
+      "red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(p)
+      : "memory");
+}
+
+// dS^T (hi and lo bf16 A fragments: k-step kk is q columns 16kk..16kk+15)
+// of this warp's 16 keys into the warpgroup's two boxes at ds_gen: rows
+// are keys, 128-byte swizzle, as TMA lays out a K box. Each 8-column
+// group n is one 16-byte chunk of a row: the 8 rows g of a store land in
+// 8 chunks, the 4 lanes t in its 4 words, so no bank is hit twice.
+__device__ __forceinline__ void store_ds(unsigned char* ds_gen,
+                                         const uint32_t (&dh)[4][4],
+                                         const uint32_t (&dl)[4][4],
+                                         int warp, int g, int t) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int h8 = 0; h8 < 2; ++h8) {
+      const uint32_t at = hopper::sw128(16 * warp + g + 8 * h8, n) + 4 * t;
+      const int kk = n >> 1, r = (n & 1) * 2 + h8;
+      *reinterpret_cast<uint32_t*>(ds_gen + at) = dh[kk][r];
+      *reinterpret_cast<uint32_t*>(ds_gen + hopper::kBox + at) = dl[kk][r];
+    }
+}
+
+// fq (64 q rows x 64 head columns) = dS.K over the block's 128 keys, hi
+// then lo of each 16 keys (one group, a fresh sum): A is the dS^T buffer
+// at ds (warpgroup kb's hi and lo at ds + 2 kb boxes) read MN-major
+// through the transpose bit, B the resident K (box kb at k), MN-major
+// through the transpose bit too.
+__device__ __forceinline__ void dq_product(float (&fq)[32], uint32_t ds,
+                                           uint32_t k) {
+  using namespace hopper;
+  wgmma_fence();
+#pragma unroll
+  for (int kb = 0; kb < 2; ++kb)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bd = wgmma_desc(k + kb * kBox + kk * 16 * 128, kBox,
+                                     1024);
+      const uint32_t a = ds + kb * 2 * kBox + kk * 16 * 128;
+      wgmma_m64n64_ss_tt(fq, wgmma_desc(a, kBox, 1024), bd, kb + kk > 0);
+      wgmma_m64n64_ss_tt(fq, wgmma_desc(a + kBox, kBox, 1024), bd, 1);
+    }
+  wgmma_commit();
+}
 
 template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
-    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
-                               const __grid_constant__ CUtensorMap map_k,
-                               const __grid_constant__ CUtensorMap map_v,
-                               const __grid_constant__ CUtensorMap map_g,
-                               const float* __restrict__ lse,
-                               const float* __restrict__ delta,
-                               const int* __restrict__ kv_len,
-                               const int* __restrict__ work,
-                               bf16* __restrict__ dk, bf16* __restrict__ dv,
-                               int H, int S, float scale, int causal) {
+    flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const __grid_constant__ CUtensorMap map_g,
+                           const __grid_constant__ CUtensorMap map_ws,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           const int* __restrict__ kv_len,
+                           const int* __restrict__ work, int n_work,
+                           int n_items, int* __restrict__ counters,
+                           bf16* __restrict__ dk,
+                           bf16* __restrict__ dv, int H, int S, float scale,
+                           int causal) {
   static_assert(D == hopper::kSw, "a head is one 128-byte swizzled row");
   using namespace hopper;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = smem_raw;
-  const uint32_t res = ring_base(smem);           // K, then V
-  const uint32_t ring = res + 4 * kBox;           // stage s: Q, dO
-  const uint32_t stats = ring + kWgStages * 2 * kBox;
-  const uint32_t bars = stats + kWgStages * kStatStride * 4;
-  float* stats_gen =
-      reinterpret_cast<float*>(smem + (stats - smem_u32(smem)));
+  const uint32_t base = ring_base(smem);
+  const uint32_t res = base + bwd_bytes_to(0);   // K, then V
+  const uint32_t ring = base + bwd_bytes_to(1);  // stage s: Q, dO
+  const uint32_t dsb = base + bwd_bytes_to(2);   // buffer x: wg 0, wg 1
+  const uint32_t dqb = base + bwd_bytes_to(3);   // buffer x: 64 x 64 f32
+  const uint32_t bars = base + bwd_bytes_to(5);
+  auto gen = [&](uint32_t a) { return smem + (a - smem_u32(smem)); };
+  float* stats_gen = reinterpret_cast<float*>(gen(base + bwd_bytes_to(4)));
+  volatile int* slots =
+      reinterpret_cast<volatile int*>(gen(base + bwd_bytes_to(6)));
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (kWgStages + s); };
   const uint32_t res_full = bars + 16 * kWgStages;
-
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int* item = work + 3 * blockIdx.y;
-  const int k0 = item[0] * kWgTile;
-  const int limit = kv_len ? kv_len[b] : S;
-  // a kv_len == 0 row has every key masked and walks every q tile
-  const bool trim = causal && limit > 0;
-  const int lo = trim ? item[1] : 0;
-  const int hi = trim ? item[2] : (S + kWgStep - 1) / kWgStep;
+  const uint32_t res_empty = res_full + 8;
+  auto item_full = [&](int x) { return res_full + 16 + 8 * x; };
+  auto item_empty = [&](int x) { return res_full + 32 + 8 * x; };
+  auto ds_full = [&](int x) { return res_full + 48 + 8 * x; };
+  auto ds_free = [&](int x) { return res_full + 64 + 8 * x; };
+  auto dq_full = [&](int x) { return res_full + 80 + 8 * x; };
+  auto dq_empty = [&](int x) { return res_full + 80 + 8 * (kDqBufs + x); };
+  const int n_q = (S + kWgStep - 1) / kWgStep;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kWgStages; ++s) {
@@ -1912,6 +2114,18 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       mbar_init(empty(s), 8);  // one arrival per consumer warp
     }
     mbar_init(res_full, 1);
+    mbar_init(res_empty, 8);
+    for (int x = 0; x < 2; ++x) {
+      mbar_init(item_full(x), 1);  // the producer's lane 0
+      // the consumer warps and the adders
+      mbar_init(item_empty(x), 8 + kDqBufs);
+      mbar_init(ds_full(x), 4);  // warpgroup 0's warps
+      mbar_init(ds_free(x), 4);  // warpgroup 1's warps
+    }
+    for (int x = 0; x < kDqBufs; ++x) {
+      mbar_init(dq_full(x), 4);   // warpgroup 1's warps
+      mbar_init(dq_empty(x), 1);  // adder x's lane 0
+    }
     mbar_fence_init();
   }
   __syncthreads();
@@ -1920,433 +2134,394 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   // shuffle): a wgmma under a branch ptxas cannot prove uniform is
   // serialized
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWG, 0);
+  const int lane = threadIdx.x % 32;
   if (wg == 2) {
-    // ---- producer: TMA for the tiles, plain loads for lse and delta ----
     producer_regs();
-    const int lane = threadIdx.x - 2 * kWG;
-    if (lane < 32) {
-      if (lane == 0) {
-        mbar_expect_tx(res_full, 4 * kBox);
-        for (int r = 0; r < 2; ++r) {
-          tma_load_4d(res + r * kBox, &map_k, res_full, 0, k0 + 64 * r, h, b);
-          tma_load_4d(res + (2 + r) * kBox, &map_v, res_full, 0, k0 + 64 * r,
-                      h, b);
-        }
-      }
-      const float* lse_row = lse + (long long)bh * S;
-      const float* delta_row = delta + (long long)bh * S;
-      for (int i = lo; i < hi; ++i) {
-        const int it = i - lo, s = it % kWgStages;
-        const int q0 = i * kWgStep;
-        mbar_wait(empty(s), ((it / kWgStages) & 1) ^ 1);
-        float* st = stats_gen + s * kStatStride;
-        for (int r = lane; r < kWgStep; r += 32) {
-          const bool in = q0 + r < S;  // rows past S: zeros, P masked
-          st[r] = in ? lse_row[q0 + r] : 0.f;
-          st[kWgStep + r] = in ? delta_row[q0 + r] : 0.f;
-        }
+    const int pwarp = (threadIdx.x - 2 * kWG) / 32;
+    if (pwarp == 0) {
+      // ---- the items, then TMA for the tiles and loads of lse, delta ----
+      int it = 0;
+      for (int n = 0;; ++n) {
+        int x = 0;
         if (lane == 0) {
-          mbar_expect_tx(full(s), 2 * kBox);
-          const uint32_t dst = ring + s * 2 * kBox;
-          tma_load_4d(dst, &map_q, full(s), 0, q0, h, b);
-          tma_load_4d(dst + kBox, &map_g, full(s), 0, q0, h, b);
-        } else {
-          mbar_arrive(full(s));
+          mbar_wait(item_empty(n & 1), ((n >> 1) & 1) ^ 1);
+          x = atomicAdd(counters, 1);
+          if (x >= n_items) x = -1;
+          slots[n & 1] = x;
+          mbar_arrive(item_full(n & 1));
+        }
+        x = __shfl_sync(0xffffffffu, x, 0);
+        if (x < 0) break;
+        const BwdItem w = bwd_item(x, work, n_work, kv_len, H, S, causal);
+        // K and V wait for the previous item's last products; the item's
+        // first stages go out before them
+        const int pre = min(w.hi - w.lo, kWgStages);
+        auto load_kv = [&]() {
+          mbar_wait(res_empty, (n & 1) ^ 1);
+          mbar_expect_tx(res_full, 4 * kBox);
+          for (int r = 0; r < 2; ++r) {
+            tma_load_4d(res + r * kBox, &map_k, res_full, 0, w.k0 + 64 * r,
+                        w.h, w.b);
+            tma_load_4d(res + (2 + r) * kBox, &map_v, res_full, 0,
+                        w.k0 + 64 * r, w.h, w.b);
+          }
+        };
+        const float* lse_row = lse + (long long)w.bh * S;
+        const float* delta_row = delta + (long long)w.bh * S;
+        for (int i = w.lo; i < w.hi; ++i, ++it) {
+          if (lane == 0 && i == w.lo + pre) load_kv();
+          const int s = it % kWgStages, q0 = i * kWgStep;
+          mbar_wait(empty(s), ((it / kWgStages) & 1) ^ 1);
+          float* st = stats_gen + s * kStatStride;
+          for (int r = lane; r < kWgStep; r += 32) {
+            const bool in = q0 + r < S;  // rows past S: zeros, P masked
+            st[r] = in ? lse_row[q0 + r] : 0.f;
+            st[kWgStep + r] = in ? delta_row[q0 + r] : 0.f;
+          }
+          if (lane == 0) {
+            mbar_expect_tx(full(s), 2 * kBox);
+            const uint32_t dst = ring + s * 2 * kBox;
+            tma_load_4d(dst, &map_q, full(s), 0, q0, w.h, w.b);
+            tma_load_4d(dst + kBox, &map_g, full(s), 0, q0, w.h, w.b);
+          } else {
+            mbar_arrive(full(s));
+          }
+        }
+        if (lane == 0 && w.hi - w.lo <= kWgStages) load_kv();
+        __syncwarp();
+      }
+    } else if (pwarp <= kDqBufs) {
+      // ---- the adders: each q tile's dQ partial into the workspace, in
+      // descending kv tile (the first add stores, so the workspace needs
+      // no zeroing), adder `buf` taking the tiles of dQ buffer buf: up to
+      // kDqBufs adds in flight, each waiting for its copy to complete
+      // before it hands the turn on. A wait here ends: the kv tiles above
+      // this one took their items earlier in the list, so they are
+      // running or done, and their own adds wait only on kv tiles above
+      // them ----
+      const int buf = pwarp - 1;
+      int tq = 0;
+      for (int n = 0;; ++n) {
+        mbar_wait(item_full(n & 1), (n >> 1) & 1);
+        const int x = slots[n & 1];
+        __syncwarp();
+        if (lane == 0) mbar_arrive(item_empty(n & 1));
+        if (x < 0) break;
+        const BwdItem w = bwd_item(x, work, n_work, kv_len, H, S, causal);
+        for (int i = w.lo; i < w.hi; ++i, ++tq) {
+          if (tq % kDqBufs != buf) continue;
+          mbar_wait(dq_full(buf), (tq / kDqBufs) & 1);
+          if (lane == 0) {
+            const int q0 = i * kWgStep;
+            const int turn = bwd_turn(w, i, S);
+            int* count = counters + 1 + (long long)w.bh * n_q + i;
+            if (turn > 0) {
+              while (ld_acquire(count) != turn) {
+              }
+              asm volatile("fence.proxy.async.global;\n" ::: "memory");
+            }
+            const uint32_t src = dqb + buf * kDqBytes;
+            for (int c = 0; c < 2; ++c) {  // 32 head columns a box
+              if (turn == 0)
+                tma_store_4d(&map_ws, src + c * kBox, 32 * c, q0, w.h, w.b);
+              else
+                tma_reduce_add_4d(&map_ws, src + c * kBox, 32 * c, q0, w.h,
+                                  w.b);
+            }
+            bulk_commit();
+            bulk_wait_read();
+            mbar_arrive(dq_empty(buf));
+            if (w.j > 0) {  // kv tile 0 adds last into every q tile
+              bulk_wait();
+              red_release(count);
+            }
+          }
+          __syncwarp();
         }
       }
+      if (lane == 0) bulk_wait();  // kv tile 0's last adds
     }
   } else {
     // ---- consumers ----
     consumer_regs();
     const int tw = threadIdx.x % kWG;
-    const int warp = tw / 32, lane = tw % 32, g = lane >> 2, t = lane & 3;
-    const int kw = k0 + 64 * wg;
-    const bool has_keys = kw < S;
-    // the q tiles this warpgroup computes: from its own first live one
-    // (causal: _first_live_q), none without keys; the loop bounds are
-    // shuffled, so ptxas sees them warp-uniform
-    const int i_lo = __shfl_sync(0xffffffffu, lo, 0);
-    const int i_hi = __shfl_sync(0xffffffffu, hi, 0);
-    const int live_lo = __shfl_sync(
-        0xffffffffu, !has_keys ? hi : trim ? max(lo, kw / kWgStep) : lo,
-        0);
-    const uint32_t ka = res + wg * kBox, va = res + (2 + wg) * kBox;
+    const int warp = tw / 32, g = lane >> 2, t = lane & 3;
     auto release = [&](int s) {
       __syncwarp();
       if (lane == 0) mbar_arrive(empty(s));
     };
-    float dka[32], dva[32];
-#pragma unroll
-    for (int x = 0; x < 32; ++x) dka[x] = dva[x] = 0.f;
-    mbar_wait(res_full, 0);
-
-    // turns at issuing S and dP (kTurnBar)
+    // turns at issuing S and dP (kTurnBar): warpgroup 1 hands the turn on
+    // after each of its tiles, and warpgroup 0 takes the last one after
+    // its loop, so every arrival is waited on
     auto turn_begin = [&]() { bar_sync(kTurnBar + wg, 2 * kWG); };
-    auto turn_end = [&](bool last) {
-      if (!(last && wg == 1)) bar_arrive(kTurnBar + (wg ^ 1), 2 * kWG);
-    };
+    auto turn_end = [&]() { bar_arrive(kTurnBar + (wg ^ 1), 2 * kWG); };
     if (wg == 1) bar_arrive(kTurnBar, 2 * kWG);
-    int i = i_lo;
-    for (; i < live_lo; ++i) {  // stages none of whose products are ours
-      const int it = i - i_lo, s = it % kWgStages;
-      mbar_wait(full(s), (it / kWgStages) & 1);
-      turn_begin();
-      turn_end(i == i_hi - 1);
-      release(s);
-    }
-    for (; i < i_hi; ++i) {
-      const int it = i - i_lo, s = it % kWgStages;
-      mbar_wait(full(s), (it / kWgStages) & 1);
-      const uint32_t qa = ring + s * 2 * kBox, ga = qa + kBox;
-      const float* st = stats_gen + s * kStatStride;
-      const int q0 = i * kWgStep;
+    auto arrive = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // dS^T of q tile tq into its buffer, tq & 1: warpgroup 0 waits until
+    // warpgroup 1's dQ has read the buffer's last tile, and hands its
+    // dS^T on; warpgroup 1 stores its own (its last dQ on the buffer has
+    // landed) and takes warpgroup 0's
+    auto put_ds = [&](const uint32_t (&dh)[4][4], const uint32_t (&dl)[4][4],
+                      int tq) {
+      const int x = tq & 1;
+      if (wg == 0) mbar_wait(ds_free(x), ((tq >> 1) & 1) ^ 1);
+      store_ds(gen(dsb + (4 * x + 2 * wg) * kBox), dh, dl, warp, g, t);
+      fence_async_smem();
+      if (wg == 0) arrive(ds_full(x));
+    };
+    // warpgroup 1: dQ of q tile tq over the block's 128 keys, once both
+    // dS^T halves are in; the buffer is freed and the sum handed to the
+    // adder of buffer tq % kDqBufs
+    auto dq_begin = [&](float (&fq)[32], int tq) {
+      bar_sync(kDsBar, kWG);
+      mbar_wait(ds_full(tq & 1), (tq >> 1) & 1);
+      dq_product(fq, dsb + 4 * (tq & 1) * kBox, res);
+    };
+    // (column group c of the fragment: box c / 4, 16-byte chunk
+    // 2 (c % 4) + t / 2 of its 128-byte row; the 8 rows g of a store land
+    // in 8 chunks, so a warp's 256 bytes take the two wavefronts they need)
+    auto dq_end = [&](const float (&fq)[32], int tq) {
+      arrive(ds_free(tq & 1));
+      const int buf = tq % kDqBufs;
+      mbar_wait(dq_empty(buf), ((tq / kDqBufs) & 1) ^ 1);
+      unsigned char* dst = gen(dqb + buf * kDqBytes);
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+#pragma unroll
+        for (int h8 = 0; h8 < 2; ++h8)
+          *reinterpret_cast<float2*>(
+              dst + (c >> 2) * kBox +
+              sw128(16 * warp + g + 8 * h8, 2 * (c & 3) + (t >> 1)) +
+              8 * (t & 1)) =
+              make_float2(fq[4 * c + 2 * h8], fq[4 * c + 2 * h8 + 1]);
+      fence_async_smem();
+      arrive(dq_full(buf));
+    };
+    int it = 0, tq = 0;
+    for (int n = 0;; ++n) {
+      mbar_wait(item_full(n & 1), (n >> 1) & 1);
+      const int xs = slots[n & 1];
+      __syncwarp();
+      if (lane == 0) mbar_arrive(item_empty(n & 1));
+      const int x = __shfl_sync(0xffffffffu, xs, 0);
+      if (x < 0) break;
+      const BwdItem w = bwd_item(x, work, n_work, kv_len, H, S, causal);
+      const int kw = w.k0 + 64 * wg;
+      const bool has_keys = kw < S;
+      // the q tiles this warpgroup computes: from its own first live one
+      // (causal: _first_live_q), none without keys; the loop bounds are
+      // shuffled, so ptxas sees them warp-uniform
+      const int i_lo = __shfl_sync(0xffffffffu, w.lo, 0);
+      const int i_hi = __shfl_sync(0xffffffffu, w.hi, 0);
+      const int live_lo = __shfl_sync(
+          0xffffffffu,
+          !has_keys ? w.hi : w.trim ? max(w.lo, kw / kWgStep) : w.lo, 0);
+      const uint32_t ka = res + wg * kBox, va = res + (2 + wg) * kBox;
+      float dka[32], dva[32];
+#pragma unroll
+      for (int x2 = 0; x2 < 32; ++x2) dka[x2] = dva[x2] = 0.f;
+      mbar_wait(res_full, n & 1);
 
-      // S^T = K.Q^T, then dP^T = V.dO^T (two groups): 64 keys x 64 q,
-      // K-major operands; the first k-step of each starts its sum
-      float sT[32], dpT[32];
-      turn_begin();
-      wgmma_fence();
+      int i = i_lo;
+      for (; i < live_lo; ++i, ++it, ++tq) {
+        // a tile none of whose products are this warpgroup's (its keys
+        // all above the tile's rows): a zero dS^T
+        const int s = it % kWgStages;
+        mbar_wait(full(s), (it / kWgStages) & 1);
+        turn_begin();
+        turn_end();
+        release(s);
+        uint32_t zero[4][4];
 #pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd)
-        wgmma_m64n64_ss(sT, wgmma_desc(ka + 32 * kd, 16, 1024),
-                        wgmma_desc(qa + 32 * kd, 16, 1024), kd > 0);
-      wgmma_commit();
+        for (int a2 = 0; a2 < 4; ++a2)
 #pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd)
-        wgmma_m64n64_ss(dpT, wgmma_desc(va + 32 * kd, 16, 1024),
-                        wgmma_desc(ga + 32 * kd, 16, 1024), kd > 0);
-      wgmma_commit();
-      turn_end(i == i_hi - 1);
+          for (int c = 0; c < 4; ++c) zero[a2][c] = 0u;
+        put_ds(zero, zero, tq);
+        if (wg == 1) {
+          float fq[32];
+          dq_begin(fq, tq);
+          wgmma_wait<0>();
+          fence_regs(fq);
+          dq_end(fq, tq);
+        }
+      }
+      for (; i < i_hi; ++i, ++it, ++tq) {
+        const int s = it % kWgStages;
+        mbar_wait(full(s), (it / kWgStages) & 1);
+        const uint32_t qa = ring + s * 2 * kBox, ga = qa + kBox;
+        const float* st = stats_gen + s * kStatStride;
+        const int q0 = i * kWgStep;
 
-      // P^T = exp(S^T * scale - lse) in f32 while dP^T runs (in registers
-      // of its own: ptxas serializes wgmma when other instructions write
-      // an accumulator while a group is pending); split into hi + lo bf16
-      // A fragments (k-step kk is q columns 16kk..16kk+15: column group n
-      // gives registers 2(n & 1) and 2(n & 1) + 1 of k-step n / 2)
-      wgmma_wait<1>();
-      fence_regs(sT);
-      float pT[32];
-      const bool edge = (causal && kw + 63 > q0) || q0 + kWgStep > S ||
-                        kw + 64 > limit;
-      uint32_t ph[4][4], pl[4][4];
+        // S^T = K.Q^T, then dP^T = V.dO^T (two groups): 64 keys x 64 q,
+        // K-major operands; the first k-step of each starts its sum
+        float sT[32], dpT[32];
+        turn_begin();
+        wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int qc = 8 * n + 2 * t;
-        const float2 l2 = *reinterpret_cast<const float2*>(st + qc);
+        for (int kd = 0; kd < D / 16; ++kd)
+          wgmma_m64n64_ss(sT, wgmma_desc(ka + 32 * kd, 16, 1024),
+                          wgmma_desc(qa + 32 * kd, 16, 1024), kd > 0);
+        wgmma_commit();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float lq = (e & 1) ? l2.y : l2.x;
-          float sc = sT[4 * n + e] * scale;
-          if (edge) {
-            const int qpos = q0 + qc + (e & 1);
-            const int kpos = kw + 16 * warp + g + 8 * (e >> 1);
-            sc = mask_score(sc, qpos, kpos, limit, causal);
-            pT[4 * n + e] = qpos < S ? exp_sfu(sc - lq) : 0.f;
-          } else {
-            pT[4 * n + e] = exp_sfu(sc - lq);
+        for (int kd = 0; kd < D / 16; ++kd)
+          wgmma_m64n64_ss(dpT, wgmma_desc(va + 32 * kd, 16, 1024),
+                          wgmma_desc(ga + 32 * kd, 16, 1024), kd > 0);
+        wgmma_commit();
+        turn_end();
+
+        // P^T = exp(S^T * scale - lse) in f32 while dP^T runs (in
+        // registers of its own: ptxas serializes wgmma when other
+        // instructions write an accumulator while a group is pending);
+        // split into hi + lo bf16 A fragments (k-step kk is q columns
+        // 16kk..16kk+15: column group n gives registers 2(n & 1) and
+        // 2(n & 1) + 1 of k-step n / 2)
+        wgmma_wait<1>();
+        fence_regs(sT);
+        float pT[32];
+        const bool edge = (causal && kw + 63 > q0) || q0 + kWgStep > S ||
+                          kw + 64 > w.limit;
+        uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+        for (int n8 = 0; n8 < 8; ++n8) {
+          const int qc = 8 * n8 + 2 * t;
+          const float2 l2 = *reinterpret_cast<const float2*>(st + qc);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float lq = (e & 1) ? l2.y : l2.x;
+            float sc = sT[4 * n8 + e] * scale;
+            if (edge) {
+              const int qpos = q0 + qc + (e & 1);
+              const int kpos = kw + 16 * warp + g + 8 * (e >> 1);
+              sc = mask_score(sc, qpos, kpos, w.limit, causal);
+              pT[4 * n8 + e] = qpos < S ? exp_sfu(sc - lq) : 0.f;
+            } else {
+              pT[4 * n8 + e] = exp_sfu(sc - lq);
+            }
+          }
+          const int kk = n8 >> 1, r = (n8 & 1) * 2;
+          split_bf16(pT[4 * n8], pT[4 * n8 + 1], ph[kk][r], pl[kk][r]);
+          split_bf16(pT[4 * n8 + 2], pT[4 * n8 + 3], ph[kk][r + 1],
+                     pl[kk][r + 1]);
+        }
+
+        // dV += P^T.dO, dK += dS^T.Q, each a group of hi and lo over the
+        // tile's 64 q rows into fresh fragments (B read MN-major from the
+        // stage through the transpose bit), which the FMA units add to the
+        // running sums (the tensor cores truncate where they add into an
+        // accumulator). Every group lands within its tile: ptxas
+        // serializes wgmma whose accumulators it cannot see retired.
+        float fresh_v[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWgStep / 16; ++kk) {
+          const uint64_t bd = wgmma_desc(ga + kk * 16 * 128, kBox, 1024);
+          wgmma_m64n64_rs(fresh_v, ph[kk], bd, kk > 0);
+          wgmma_m64n64_rs(fresh_v, pl[kk], bd, 1);
+        }
+        wgmma_commit();
+
+        // dS^T = P^T (dP^T - delta) in f32 while dV runs, split as P^T
+        wgmma_wait<1>();
+        fence_regs(dpT);
+        uint32_t dh[4][4], dl[4][4];
+#pragma unroll
+        for (int n8 = 0; n8 < 8; ++n8) {
+          const float2 d2 = *reinterpret_cast<const float2*>(
+              st + kWgStep + 8 * n8 + 2 * t);
+          float dsv[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dsv[e] = pT[4 * n8 + e] *
+                     (dpT[4 * n8 + e] - ((e & 1) ? d2.y : d2.x));
+          const int kk = n8 >> 1, r = (n8 & 1) * 2;
+          split_bf16(dsv[0], dsv[1], dh[kk][r], dl[kk][r]);
+          split_bf16(dsv[2], dsv[3], dh[kk][r + 1], dl[kk][r + 1]);
+        }
+        // dS^T to shared memory for dQ, then dK += dS^T.Q from the
+        // registers; dV's fragments are added while it runs
+        put_ds(dh, dl, tq);
+        float fresh_k[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWgStep / 16; ++kk) {
+          const uint64_t bd = wgmma_desc(qa + kk * 16 * 128, kBox, 1024);
+          wgmma_m64n64_rs(fresh_k, dh[kk], bd, kk > 0);
+          wgmma_m64n64_rs(fresh_k, dl[kk], bd, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(fresh_v);
+#pragma unroll
+        for (int x2 = 0; x2 < 32; ++x2) dva[x2] += fresh_v[x2];
+        if (wg == 1) {
+          // dQ over the block's keys; dK's fragments are added while it
+          // runs
+          float fq[32];
+          dq_begin(fq, tq);
+          wgmma_wait<1>();
+          fence_regs(fresh_k);
+#pragma unroll
+          for (int x2 = 0; x2 < 32; ++x2) dka[x2] += fresh_k[x2];
+          release(s);
+          wgmma_wait<0>();
+          fence_regs(fq);
+          dq_end(fq, tq);
+        } else {
+          wgmma_wait<0>();
+          fence_regs(fresh_k);
+#pragma unroll
+          for (int x2 = 0; x2 < 32; ++x2) dka[x2] += fresh_k[x2];
+          release(s);
+        }
+      }
+
+      if (has_keys) {
+        // dk, dv: dense (B, S, H, D)
+        const long long o_row = (long long)H * D;
+        const long long ob = ((long long)w.b * S * H + w.h) * D;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int kpos = kw + 16 * warp + g + 8 * r;
+          if (kpos >= S) continue;
+#pragma unroll
+          for (int c = 0; c < D / 8; ++c) {
+            const long long at = ob + kpos * o_row + 8 * c + 2 * t;
+            *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+                __floats2bfloat162_rn(dka[4 * c + 2 * r] * scale,
+                                      dka[4 * c + 2 * r + 1] * scale);
+            *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+                __floats2bfloat162_rn(dva[4 * c + 2 * r],
+                                      dva[4 * c + 2 * r + 1]);
           }
         }
-        const int kk = n >> 1, r = (n & 1) * 2;
-        split_bf16(pT[4 * n], pT[4 * n + 1], ph[kk][r], pl[kk][r]);
-        split_bf16(pT[4 * n + 2], pT[4 * n + 3], ph[kk][r + 1],
-                   pl[kk][r + 1]);
       }
-
-      // dV += P^T.dO, then dK += dS^T.Q, two groups: hi and lo of the
-      // tile's 64 q rows into fresh fragments (B read MN-major from the
-      // stage through the transpose bit), which the FMA units add to the
-      // running sums (the tensor cores truncate where they add into an
-      // accumulator). Every group lands within its tile: ptxas
-      // serializes wgmma whose accumulators it cannot see retired.
-      float fresh_v[32];
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kWgStep / 16; ++kk) {
-        const uint64_t bd = wgmma_desc(ga + kk * 16 * 128, kBox, 1024);
-        wgmma_m64n64_rs(fresh_v, ph[kk], bd, kk > 0);
-        wgmma_m64n64_rs(fresh_v, pl[kk], bd, 1);
-      }
-      wgmma_commit();
-
-      // dS^T = P^T (dP^T - delta) in f32 while dV runs, split as P^T
-      wgmma_wait<1>();
-      fence_regs(dpT);
-      uint32_t dh[4][4], dl[4][4];
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float2 d2 =
-            *reinterpret_cast<const float2*>(st + kWgStep + 8 * n + 2 * t);
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          ds[e] = pT[4 * n + e] *
-                  (dpT[4 * n + e] - ((e & 1) ? d2.y : d2.x));
-        const int kk = n >> 1, r = (n & 1) * 2;
-        split_bf16(ds[0], ds[1], dh[kk][r], dl[kk][r]);
-        split_bf16(ds[2], ds[3], dh[kk][r + 1], dl[kk][r + 1]);
-      }
-
-      // dK += dS^T.Q; dV's fragments are added while it runs
-      float fresh_k[32];
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kWgStep / 16; ++kk) {
-        const uint64_t bd = wgmma_desc(qa + kk * 16 * 128, kBox, 1024);
-        wgmma_m64n64_rs(fresh_k, dh[kk], bd, kk > 0);
-        wgmma_m64n64_rs(fresh_k, dl[kk], bd, 1);
-      }
-      wgmma_commit();
-      wgmma_wait<1>();
-      fence_regs(fresh_v);
-#pragma unroll
-      for (int x = 0; x < 32; ++x) dva[x] += fresh_v[x];
-      wgmma_wait<0>();
-      fence_regs(fresh_k);
-#pragma unroll
-      for (int x = 0; x < 32; ++x) dka[x] += fresh_k[x];
-      release(s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(res_empty);  // K and V read
     }
-
-    if (has_keys) {
-      const long long o_row = (long long)H * D;  // dk, dv: dense (B, S, H, D)
-      const long long base = ((long long)b * S * H + h) * D;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int kpos = kw + 16 * warp + g + 8 * r;
-        if (kpos >= S) continue;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          const long long at = base + kpos * o_row + 8 * n + 2 * t;
-          *reinterpret_cast<__nv_bfloat162*>(dk + at) =
-              __floats2bfloat162_rn(dka[4 * n + 2 * r] * scale,
-                                    dka[4 * n + 2 * r + 1] * scale);
-          *reinterpret_cast<__nv_bfloat162*>(dv + at) =
-              __floats2bfloat162_rn(dva[4 * n + 2 * r],
-                                    dva[4 * n + 2 * r + 1]);
-        }
-      }
-    }
+    if (wg == 0) turn_begin();  // warpgroup 1's last hand-on
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16 dQ on wgmma (D = 64), dK/dV's mirror.
-// grid (B*H, work items); item y is (q tile, first kv tile, end kv tile),
-// heaviest first. Consumer warpgroup wg owns q rows qw = q0 + 64 wg ..
-// qw + 63, with the lse and delta of its rows g and g + 8 in registers.
-// Shared memory: Q (2 boxes) and dO (2 boxes) resident; a ring of
-// kWgStages stages of (K box, V box); the barriers.
-// ---------------------------------------------------------------------------
-
-template <int D>
-__global__ void __launch_bounds__(kWgThreads, 1)
-    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
-                              const __grid_constant__ CUtensorMap map_k,
-                              const __grid_constant__ CUtensorMap map_v,
-                              const __grid_constant__ CUtensorMap map_g,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ delta,
-                              const int* __restrict__ kv_len,
-                              const int* __restrict__ work,
-                              bf16* __restrict__ dq, int H, int S,
-                              float scale, int causal) {
-  static_assert(D == hopper::kSw, "a head is one 128-byte swizzled row");
-  using namespace hopper;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* smem = smem_raw;
-  const uint32_t res = ring_base(smem);           // Q, then dO
-  const uint32_t ring = res + 4 * kBox;           // stage s: K, V
-  const uint32_t bars = ring + kWgStages * 2 * kBox;
-  auto full = [&](int s) { return bars + 8 * s; };
-  auto empty = [&](int s) { return bars + 8 * (kWgStages + s); };
-  const uint32_t res_full = bars + 16 * kWgStages;
-
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int* item = work + 3 * blockIdx.y;
-  const int q0 = item[0] * kWgTile;
-  const int limit = kv_len ? kv_len[b] : S;
-  // a kv_len == 0 row has every key masked and walks every kv tile
-  const bool trim = causal && limit > 0;
-  const int lo = trim ? item[1] : 0;
-  const int hi = trim ? item[2] : (S + kWgStep - 1) / kWgStep;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kWgStages; ++s) {
-      mbar_init(full(s), 1);
-      mbar_init(empty(s), 8);  // one arrival per consumer warp
-    }
-    mbar_init(res_full, 1);
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  // the warpgroup's index, warp-uniform in the compiler's view (see the
-  // dK/dV kernel)
-  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWG, 0);
-  if (wg == 2) {
-    // ---- producer ----
-    producer_regs();
-    if (threadIdx.x == 2 * kWG) {
-      mbar_expect_tx(res_full, 4 * kBox);
-      for (int r = 0; r < 2; ++r) {
-        tma_load_4d(res + r * kBox, &map_q, res_full, 0, q0 + 64 * r, h, b);
-        tma_load_4d(res + (2 + r) * kBox, &map_g, res_full, 0, q0 + 64 * r,
-                    h, b);
-      }
-      for (int j = lo; j < hi; ++j) {
-        const int it = j - lo, s = it % kWgStages;
-        mbar_wait(empty(s), ((it / kWgStages) & 1) ^ 1);
-        mbar_expect_tx(full(s), 2 * kBox);
-        const uint32_t dst = ring + s * 2 * kBox;
-        tma_load_4d(dst, &map_k, full(s), 0, j * kWgStep, h, b);
-        tma_load_4d(dst + kBox, &map_v, full(s), 0, j * kWgStep, h, b);
-      }
-    }
-  } else {
-    // ---- consumers ----
-    consumer_regs();
-    const int tw = threadIdx.x % kWG;
-    const int warp = tw / 32, lane = tw % 32, g = lane >> 2, t = lane & 3;
-    const int qw = q0 + 64 * wg;
-    const bool has_rows = qw < S;
-    // the kv tiles this warpgroup computes: up to its own last live one
-    // (causal: _last_live_kv), none without rows; the loop bounds are
-    // shuffled, so ptxas sees them warp-uniform
-    const int j_lo = __shfl_sync(0xffffffffu, lo, 0);
-    const int j_hi = __shfl_sync(0xffffffffu, hi, 0);
-    const int live_hi = __shfl_sync(
-        0xffffffffu, !has_rows ? lo : trim ? min(hi, qw / kWgStep + 1) : hi,
-        0);
-    const uint32_t qa = res + wg * kBox, ga = res + (2 + wg) * kBox;
-    auto release = [&](int s) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty(s));
-    };
-    // lse and delta of rows g and g + 8 (rows past S are never stored)
-    float lse_r[2], delta_r[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int qpos = qw + 16 * warp + g + 8 * r;
-      const bool in = qpos < S;
-      lse_r[r] = in ? lse[(long long)bh * S + qpos] : 0.f;
-      delta_r[r] = in ? delta[(long long)bh * S + qpos] : 0.f;
-    }
-    float dqa[32];
-#pragma unroll
-    for (int x = 0; x < 32; ++x) dqa[x] = 0.f;
-    mbar_wait(res_full, 0);
-
-    // turns at issuing S and dP (kTurnBar)
-    auto turn_begin = [&]() { bar_sync(kTurnBar + wg, 2 * kWG); };
-    auto turn_end = [&](bool last) {
-      if (!(last && wg == 1)) bar_arrive(kTurnBar + (wg ^ 1), 2 * kWG);
-    };
-    if (wg == 1) bar_arrive(kTurnBar, 2 * kWG);
-    int j = j_lo;
-    for (; j < live_hi; ++j) {
-      const int it = j - j_lo, s = it % kWgStages;
-      mbar_wait(full(s), (it / kWgStages) & 1);
-      const uint32_t kt = ring + s * 2 * kBox, vt = kt + kBox;
-      const int k0 = j * kWgStep;
-
-      // S = Q.K^T, then dP = dO.V^T (two groups): 64 q rows x 64 keys,
-      // K-major operands; the first k-step of each starts its sum
-      float sc_[32], dp[32];
-      turn_begin();
-      wgmma_fence();
-#pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd)
-        wgmma_m64n64_ss(sc_, wgmma_desc(qa + 32 * kd, 16, 1024),
-                        wgmma_desc(kt + 32 * kd, 16, 1024), kd > 0);
-      wgmma_commit();
-#pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd)
-        wgmma_m64n64_ss(dp, wgmma_desc(ga + 32 * kd, 16, 1024),
-                        wgmma_desc(vt + 32 * kd, 16, 1024), kd > 0);
-      wgmma_commit();
-      turn_end(j == j_hi - 1);
-
-      // P = exp(S * scale - lse) in f32 while dP runs (in registers of
-      // its own, as dK/dV's P^T), the masks only where the tile needs
-      // them (keys past S: P = 0)
-      wgmma_wait<1>();
-      fence_regs(sc_);
-      float pr[32];
-      const bool edge = (causal && k0 + 63 > qw) || k0 + kWgStep > S ||
-                        k0 + kWgStep > limit;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          float sc = sc_[4 * n + e] * scale;
-          if (edge) {
-            const int qpos = qw + 16 * warp + g + 8 * r;
-            const int kpos = k0 + 8 * n + 2 * t + (e & 1);
-            sc = mask_score(sc, qpos, kpos, limit, causal);
-            pr[4 * n + e] = kpos < S ? exp_sfu(sc - lse_r[r]) : 0.f;
-          } else {
-            pr[4 * n + e] = exp_sfu(sc - lse_r[r]);
-          }
-        }
-
-      // dS = P (dP - delta) in f32, split into hi + lo A fragments of
-      // dS.K (key group n: k-step n / 2)
-      wgmma_wait<0>();
-      fence_regs(dp);
-      uint32_t dh[4][4], dl[4][4];
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          ds[e] = pr[4 * n + e] * (dp[4 * n + e] - delta_r[e >> 1]);
-        const int kk = n >> 1, r = (n & 1) * 2;
-        split_bf16(ds[0], ds[1], dh[kk][r], dl[kk][r]);
-        split_bf16(ds[2], ds[3], dh[kk][r + 1], dl[kk][r + 1]);
-      }
-
-      // dQ += dS.K: hi and lo into fresh fragments (K read MN-major from
-      // the stage through the transpose bit), added to dQ by the FMA
-      // units; the group lands within its tile (see dK/dV)
-      float fresh[32];
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kWgStep / 16; ++kk) {
-        const uint64_t bd = wgmma_desc(kt + kk * 16 * 128, kBox, 1024);
-        wgmma_m64n64_rs(fresh, dh[kk], bd, kk > 0);
-        wgmma_m64n64_rs(fresh, dl[kk], bd, 1);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(fresh);
-#pragma unroll
-      for (int x = 0; x < 32; ++x) dqa[x] += fresh[x];
-      release(s);
-    }
-    for (; j < j_hi; ++j) {  // stages none of whose products are ours
-      const int it = j - j_lo, s = it % kWgStages;
-      mbar_wait(full(s), (it / kWgStages) & 1);
-      turn_begin();
-      turn_end(j == j_hi - 1);
-      release(s);
-    }
-
-    if (has_rows) {
-      const long long o_row = (long long)H * D;  // dq: dense (B, S, H, D)
-      bf16* ob = dq + ((long long)b * S * H + h) * D;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int qpos = qw + 16 * warp + g + 8 * r;
-        if (qpos >= S) continue;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-          *reinterpret_cast<__nv_bfloat162*>(ob + qpos * o_row + 8 * n +
-                                             2 * t) =
-              __floats2bfloat162_rn(dqa[4 * n + 2 * r] * scale,
-                                    dqa[4 * n + 2 * r + 1] * scale);
-      }
-    }
+// dq = bf16(ws * scale), both (B, S, H, D), four values a thread: the
+// fused backward's last step, once every q tile's adds have landed. A
+// CUDA kernel beside the fused one (a Triton kernel would need its own
+// JIT and launch path for one elementwise pass): the workspace is read
+// once and dq written once.
+__global__ void flash_bwd_dq_out_kernel(const float4* __restrict__ ws,
+                                        uint2* __restrict__ dq, long long n4,
+                                        float scale) {
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       e < n4; e += (long long)gridDim.x * blockDim.x) {
+    const float4 x = ws[e];
+    __nv_bfloat162 lo = __floats2bfloat162_rn(x.x * scale, x.y * scale);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(x.z * scale, x.w * scale);
+    uint2 packed;
+    packed.x = *reinterpret_cast<uint32_t*>(&lo);
+    packed.y = *reinterpret_cast<uint32_t*>(&hi);
+    dq[e] = packed;
   }
 }
 
@@ -2425,7 +2600,7 @@ __device__ __forceinline__ void fwd_softmax(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward on wgmma (D = 64), in dQ's geometry and over dQ's work list.
+// bf16 forward on wgmma (D = 64): a block owns 128 q rows.
 // grid (B*H, work items); item y is (q tile, first kv tile, end kv tile),
 // heaviest first. Consumer warpgroup wg owns q rows qw = q0 + 64 wg ..
 // qw + 63; m, l and the output fragments of its rows g and g + 8 stay in
@@ -2473,7 +2648,7 @@ __global__ void __launch_bounds__(kWgThreads, kFwdBlocks)
   __syncthreads();
 
   // the warpgroup's index, warp-uniform in the compiler's view (see the
-  // dK/dV kernel)
+  // backward)
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWG, 0);
   if (wg == 2) {
     // ---- producer ----
@@ -2559,7 +2734,7 @@ __global__ void __launch_bounds__(kWgThreads, kFwdBlocks)
       // O = O * alpha + P.V: the stage's P.V into fresh fragments (V read
       // MN-major through the transpose bit), added by the FMA units (the
       // tensor cores truncate where they add into an accumulator); the
-      // group lands within its stage (see dK/dV)
+      // group lands within its stage (see the backward)
       float pv[32];
       wgmma_fence();
 #pragma unroll
@@ -2626,14 +2801,14 @@ size_t dq_mma_smem(int D) {  // q, dO, 2-stage k and v rings
   return (size_t)(2 * kBQ + 4 * kBK) * (D + 8) * sizeof(bf16);
 }
 
-// the wgmma kernels: `resident` boxes (Q, and dO in dQ; K and V in
-// dK/dV), the ring, dK/dV's lse and delta ring (stats), the barriers, and
-// the slack to a 1024-byte boundary
-size_t wgmma_smem(int resident, bool stats) {
-  return 1024 + (size_t)(resident + 2 * kWgStages) * hopper::kBox +
-         (stats ? (size_t)kWgStages * kStatStride * sizeof(float) : 0) +
+// the wgmma forward: Q (2 boxes), the ring, the barriers, and the slack to
+// a 1024-byte boundary
+size_t fwd_wgmma_smem() {
+  return 1024 + (size_t)(2 + 2 * kWgStages) * hopper::kBox +
          (2 * kWgStages + 1) * 8;
 }
+// the fused backward (bwd_bytes_to), and the slack to a 1024-byte boundary
+size_t bwd_smem() { return 1024 + bwd_bytes_to(7); }
 
 size_t fwd_wide_smem() {  // q, k slices; v columns; p
   return (size_t)(2 * 64 * kLDC + kBK * (kSlice + 1) + kBQ * kPT) * 4;
@@ -2800,7 +2975,7 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v,
   const void* const ptrs[3] = {q, k, v};
   if (!tma_maps(maps, ptrs, strides, B, H, S))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = wgmma_smem(2, false);
+  const size_t smem = fwd_wgmma_smem();
   cudaError_t err = allow_smem(flash_fwd_wgmma_kernel<64>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, n_work);
@@ -2811,46 +2986,53 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_dq_wgmma(const void* q, const void* k, const void* v,
-                    const void* dout, const void* lse, const void* delta,
-                    const void* kv_len, const void* work, int n_work,
-                    void* dq, const long long* strides, int B, int H, int S,
-                    float scale, int causal, cudaStream_t stream) {
-  CUtensorMap maps[4];
-  const void* const ptrs[4] = {q, k, v, dout};
-  if (!tma_maps(maps, ptrs, strides, B, H, S))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = wgmma_smem(4, false);
-  cudaError_t err = allow_smem(flash_bwd_dq_wgmma_kernel<64>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, n_work);
-  flash_bwd_dq_wgmma_kernel<64><<<grid, kWgThreads, smem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const int*>(kv_len),
-      static_cast<const int*>(work), static_cast<bf16*>(dq), H, S, scale,
-      causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_dkv_wgmma(const void* q, const void* k, const void* v,
+// The fused backward and then dQ's pass out of the workspace, on one
+// stream: a persistent grid of as many blocks as the card holds at once
+// (one an SM), at most one an item.
+int launch_bwd_wgmma(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      const void* kv_len, const void* work, int n_work,
-                     void* dk, void* dv, const long long* strides, int B,
-                     int H, int S, float scale, int causal,
-                     cudaStream_t stream) {
-  CUtensorMap maps[4];
+                     void* counters, void* ws, void* dq, void* dk, void* dv,
+                     const long long* strides, int B, int H, int S,
+                     float scale, int causal, cudaStream_t stream) {
+  CUtensorMap maps[4], map_ws;
   const void* const ptrs[4] = {q, k, v, dout};
   if (!tma_maps(maps, ptrs, strides, B, H, S))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = wgmma_smem(4, true);
-  cudaError_t err = allow_smem(flash_bwd_dkv_wgmma_kernel<64>, smem);
+  {  // the workspace: dense (B, S, H, 64) f32, boxes of 32 columns x 64 rows
+    const cuuint64_t dims[4] = {64, (cuuint64_t)S, (cuuint64_t)H,
+                                (cuuint64_t)B};
+    const cuuint64_t bytes[3] = {(cuuint64_t)H * 64 * 4, 64 * 4,
+                                 (cuuint64_t)S * H * 64 * 4};
+    const cuuint32_t box[4] = {32, (cuuint32_t)kWgStep, 1, 1};
+    if (!hopper::encode_f32(&map_ws, ws, 4, dims, bytes, box))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = bwd_smem();
+  cudaError_t err = allow_smem(flash_bwd_wgmma_kernel<64>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, n_work);
-  flash_bwd_dkv_wgmma_kernel<64><<<grid, kWgThreads, smem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const int*>(kv_len),
-      static_cast<const int*>(work), static_cast<bf16*>(dk),
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, flash_bwd_wgmma_kernel<64>, kWgThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long n_items = (long long)B * H * n_work;
+  const long long sms = hopper::sm_count();
+  const int grid = (int)std::min<long long>(n_items, per_sm * sms);
+  flash_bwd_wgmma_kernel<64><<<grid, kWgThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], map_ws,
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(kv_len), static_cast<const int*>(work), n_work,
+      (int)n_items, static_cast<int*>(counters), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), H, S, scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n4 = (long long)B * S * H * (64 / 4);
+  const int threads = 256;
+  const int blocks =
+      (int)std::min<long long>((n4 + threads - 1) / threads, sms * 8);
+  flash_bwd_dq_out_kernel<<<blocks, threads, 0, stream>>>(
+      static_cast<const float4*>(ws), static_cast<uint2*>(dq), n4, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2967,24 +3149,15 @@ extern "C" int kftpu_flash_fwd(const void* q, const void* k, const void* v,
 
 // strides: (b, s, h) of q, k, v and dO; lse and delta are dense (B, H, S)
 // f32; dq is a dense (B, S, H, D) tensor in q's dtype. bf16 rows on 16
-// bytes; bf16 at D = 64 runs the wgmma kernel over `work`, with the tile
-// and strides checked, as kftpu_flash_fwd.
+// bytes. bf16 at D = 64 is kftpu_flash_bwd's (cudaErrorInvalidValue here).
 extern "C" int kftpu_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, const void* kv_len,
-                                  void* dq, const long long* strides,
-                                  const void* work, int B, int H, int S,
-                                  int D, int n_work, int block_q,
-                                  int block_k, float scale, int causal,
-                                  int is_bf16, void* stream) {
+                                  void* dq, const long long* strides, int B,
+                                  int H, int S, int D, float scale,
+                                  int causal, int is_bf16, void* stream) {
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (is_bf16 && D == 64) {
-    if (work == nullptr || block_q != kWgTile || block_k != kWgStep)
-      return static_cast<int>(cudaErrorInvalidValue);
-    return launch_dq_wgmma(q, k, v, dout, lse, delta, kv_len, work, n_work,
-                           dq, strides, B, H, S, scale, causal, s);
-  }
   KFTPU_FLASH_WIDE(launch_dq_wide, q, k, v, dout, lse, delta, kv_len, dq,
                    strides, B, H, S, D, scale, causal, s);
   KFTPU_FLASH_DISPATCH_REST(launch_dq_mma, launch_dq, q, k, v, dout, lse,
@@ -2992,29 +3165,47 @@ extern "C" int kftpu_flash_bwd_dq(const void* q, const void* k, const void* v,
                             causal, s);
 }
 
-// As kftpu_flash_bwd_dq; dk and dv are dense (B, S, H, D) tensors, and
-// `work` holds block_k-key kv tiles walking block_q-row q tiles
-// (block_q = kWgStep, block_k = kWgTile).
+// As kftpu_flash_bwd_dq; dk and dv are dense (B, S, H, D) tensors.
 extern "C" int kftpu_flash_bwd_dkv(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
                                    const void* kv_len, void* dk, void* dv,
-                                   const long long* strides,
-                                   const void* work, int B, int H, int S,
-                                   int D, int n_work, int block_q,
-                                   int block_k, float scale, int causal,
+                                   const long long* strides, int B, int H,
+                                   int S, int D, float scale, int causal,
                                    int is_bf16, void* stream) {
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (is_bf16 && D == 64) {
-    if (work == nullptr || block_q != kWgStep || block_k != kWgTile)
-      return static_cast<int>(cudaErrorInvalidValue);
-    return launch_dkv_wgmma(q, k, v, dout, lse, delta, kv_len, work, n_work,
-                            dk, dv, strides, B, H, S, scale, causal, s);
-  }
   KFTPU_FLASH_WIDE(launch_dkv_wide, q, k, v, dout, lse, delta, kv_len, dk,
                    dv, strides, B, H, S, D, scale, causal, s);
   KFTPU_FLASH_DISPATCH_REST(launch_dkv_mma, launch_dkv, q, k, v, dout, lse,
                             delta, kv_len, dk, dv, strides, B, H, S, scale,
                             causal, s);
+}
+
+// dQ, dK and dV in one pass: bf16 at D = 64 only. Arguments as
+// kftpu_flash_bwd_dkv, with dq beside dk and dv; the strides must be ones
+// a TMA map encodes (the wrapper checks). `work` is the fused kernel's
+// list for one head: n_work (kv tile, first q tile, end q tile) int32
+// triples in descending kv tile, of block_k-key kv tiles walking
+// block_q-row q tiles, which must be the kernel's own (kWgStep,
+// kWgTile). `counters` is 1 + B * H * ceil(S / block_q) int32 zeros (the
+// item counter, then the adds landed in each (head, q tile)); `ws` a
+// dense (B, S, H, D) f32 workspace, written before it is read. Returns
+// cudaGetLastError() after the launches (0 = cudaSuccess).
+extern "C" int kftpu_flash_bwd(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, const void* kv_len,
+                               void* dq, void* dk, void* dv,
+                               const long long* strides, const void* work,
+                               void* counters, void* ws, int B, int H, int S,
+                               int D, int n_work, int block_q, int block_k,
+                               float scale, int causal, int is_bf16,
+                               void* stream) {
+  if (B == 0 || S == 0) return 0;
+  if (!is_bf16 || D != 64 || work == nullptr || counters == nullptr ||
+      ws == nullptr || block_q != kWgStep || block_k != kWgTile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd_wgmma(q, k, v, dout, lse, delta, kv_len, work, n_work,
+                          counters, ws, dq, dk, dv, strides, B, H, S, scale,
+                          causal, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -130,6 +130,29 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
       "r"(src), "r"(c0), "r"(c1)
       : "memory");
 }
+// One 4-D box from shared memory to global, stored or added (f32 .add:
+// the reduce rounds to nearest) in this thread's bulk group; elements
+// past the tensor's edges are not written.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map,
+                                                  uint32_t src, int c0,
+                                                  int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.tile"
+      ".bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -288,6 +311,29 @@ __device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32],
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d (64 x 64 f32) = (accumulate ? d : 0) + A.B with A (64 x 16) and B
+// (16 x 64) both MN-major in shared memory (the transpose bits: their
+// rows are the contraction).
+__device__ __forceinline__ void wgmma_m64n64_ss_tt(float (&d)[32],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,"
+      "%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // ---------------------------------------------------------------------------
 // Block layout and registers
 // ---------------------------------------------------------------------------
@@ -355,22 +401,37 @@ inline EncodeTiledFn encoder() {
   return fn;
 }
 
-// A bf16 tensor of `rank` dims (dims innermost first, strides in bytes
-// of dims 1..rank-1) as TMA boxes of `box` elements a dim, with the
-// 128-byte swizzle (box[0] = 64); past its edges a box reads zeros.
-// `promotion`: how far L2 widens each row it fetches (the paged pools'
-// 128-byte rows, strided by the kv heads, take none).
+// A tensor of `type` and `rank` dims (dims innermost first, strides in
+// bytes of dims 1..rank-1) as TMA boxes of `box` elements a dim, with the
+// 128-byte swizzle (box[0] of 128 bytes); past its edges a box reads
+// zeros. `promotion`: how far L2 widens each row it fetches (the paged
+// pools' 128-byte rows, strided by the kv heads, take none).
+inline bool encode_tiled(
+    CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
+    const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapL2promotion promotion) {
+  const EncodeTiledFn enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return enc(map, type, (cuuint32_t)rank, const_cast<void*>(ptr), dims,
+             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, promotion,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+// A bf16 tensor (box[0] = 64).
 inline bool encode_bf16(
     CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
     const cuuint64_t* strides, const cuuint32_t* box,
     CUtensorMapL2promotion promotion = CU_TENSOR_MAP_L2_PROMOTION_L2_256B) {
-  const EncodeTiledFn enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-             const_cast<void*>(ptr), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             promotion, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims,
+                      strides, box, promotion);
+}
+// The same for an f32 tensor (box[0] = 32: 128-byte rows).
+inline bool encode_f32(CUtensorMap* map, const void* ptr, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box) {
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, rank, dims,
+                      strides, box, CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
 }
 
 inline int sm_count() {

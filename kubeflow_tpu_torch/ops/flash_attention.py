@@ -1,4 +1,5 @@
-"""Flash attention kernels: the forward (out and lse), dQ and dK/dV passes.
+"""Flash attention kernels: the forward (out and lse) and the backward
+(dQ, dK and dV).
 
 Counterpart of the three Pallas kernels of
 ``kubeflow_tpu/ops/attention.py`` (``_flash_fwd_kernel``,
@@ -7,9 +8,14 @@ live in ``csrc/flash_attention.cu``; its source note says what bounds
 them and how they are laid out. The autograd function that strings them
 together is ``ops/attention.py:flash_attention``.
 
-- :func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv` — the
-  wrappers. A CUDA tensor launches the kernel (or raises); a CPU tensor
-  takes the plain version. No fallback in between.
+- :func:`flash_fwd` and :func:`flash_bwd` — the wrappers. A CUDA tensor
+  launches the kernel (or raises); a CPU tensor takes the plain version.
+  No fallback in between. At bf16 and D <= 64 :func:`flash_bwd` is one
+  kernel for dQ, dK and dV (counted under ``flash_bwd``); elsewhere it
+  launches the dQ kernel and the dK/dV kernel (counted under
+  ``flash_bwd_dq`` and ``flash_bwd_dkv``). :func:`flash_bwd_dq` and
+  :func:`flash_bwd_dkv` compute one part each: at bf16 and D <= 64 they
+  run :func:`flash_bwd` and return their part of it.
 - ``*_plain`` — the plain PyTorch versions: the same arithmetic on
   whole (S, S) score matrices. Scores come from q pre-scaled in f32;
   masked scores are ``NEG_INF`` (finite); the forward's online softmax
@@ -24,13 +30,15 @@ model's call site); ``lse`` and ``delta`` are ``(B, H, S)`` f32;
 The bf16 kernels (forward, dQ and dK/dV) stage rows with 16-byte
 copies: their wrappers raise (:func:`check_rows_16b`) on a bf16 input
 whose rows do not start on 16 bytes, rather than copy it. At bf16 and
-D = 64 all three passes run wgmma kernels that read q, k, v and dO
-through TMA maps, and the wrappers also refuse what a map cannot encode
-(:func:`check_tma`). Those kernels own 128 rows a block and walk a work
-list (:func:`wgmma_work`): one item a block tile with the range of tiles
-it streams, the causal ranges of the reference's ``_first_live_q`` and
-``_last_live_kv``, heaviest first; it is made once a shape and kept on
-the card.
+D = 64 the forward and the fused backward are wgmma kernels that read
+q, k, v and dO through TMA maps, and the wrappers also refuse what a map
+cannot encode (:func:`check_tma`). Those kernels own 128 rows a block
+and walk a work list (:func:`wgmma_work`): one item a block tile with
+the range of tiles it streams, the causal ranges of the reference's
+``_last_live_kv`` (forward) and ``_first_live_q`` (backward); it is made
+once a shape and kept on the card. The backward's list is one head's, in
+descending kv tile: the order in which its blocks add dQ's partials into
+each q tile, which the persistent grid takes head by head.
 
 The kernels are built for the head dims of ``HEAD_DIMS``, and past
 the largest for any multiple of ``WIDE_STEP`` (the wide kernels, which
@@ -55,11 +63,13 @@ import torch
 from kubeflow_tpu_torch.ops.attention import NEG_INF
 from kubeflow_tpu_torch.ops.autotune import (
     FLASH_TILE,
+    WGMMA_HEAD_DIM,
     WGMMA_TILES,
     flash_tile,
 )
 
-launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+launches = {"flash_fwd": 0, "flash_bwd": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
 HEAD_DIMS = (64, 128, 256)   # the head dims the CUDA kernels are built for
 WIDE_STEP = 64          # past HEAD_DIMS[-1], any multiple of it (kDC in csrc)
 BLOCK_K = 64            # the forward kernels' key tile (kBK, kWgStep in csrc)
@@ -215,10 +225,11 @@ def _lib():
     if lib.kftpu_flash_fwd.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.kftpu_flash_fwd.argtypes = [p] * 8 + [i] * 7 + [f, i, i, p]
-        lib.kftpu_flash_bwd_dq.argtypes = [p] * 10 + [i] * 7 + [f, i, i, p]
-        lib.kftpu_flash_bwd_dkv.argtypes = [p] * 11 + [i] * 7 + [f, i, i, p]
-        for fn in (lib.kftpu_flash_fwd, lib.kftpu_flash_bwd_dq,
-                   lib.kftpu_flash_bwd_dkv):
+        lib.kftpu_flash_bwd.argtypes = [p] * 14 + [i] * 7 + [f, i, i, p]
+        lib.kftpu_flash_bwd_dq.argtypes = [p] * 9 + [i] * 4 + [f, i, i, p]
+        lib.kftpu_flash_bwd_dkv.argtypes = [p] * 10 + [i] * 4 + [f, i, i, p]
+        for fn in (lib.kftpu_flash_fwd, lib.kftpu_flash_bwd,
+                   lib.kftpu_flash_bwd_dq, lib.kftpu_flash_bwd_dkv):
             fn.restype = ctypes.c_int
     return lib
 
@@ -279,21 +290,21 @@ def _last_live_kv(i: int, block_q: int, block_k: int) -> int:
 def wgmma_work(kernel: str, S: int, causal: bool
                ) -> Tuple[Tuple[int, int, int], ...]:
     """The wgmma kernel's work list at sequence length ``S``: one
-    ``(tile, first, end)`` item per block tile of its ``WGMMA_TILES``
-    (dK/dV: 128-key tiles streaming 64-row q tiles ``[first, end)``; the
-    forward and dQ: 128-row q tiles streaming 64-key kv tiles), heaviest
-    first (most streamed tiles, then the lower tile). Causal ranges
-    start at ``_first_live_q`` (dK/dV) or end after ``_last_live_kv``
-    (forward, dQ); the kernel walks every tile for a batch row whose
-    ``kv_len`` is 0, whose keys are all masked."""
+    ``(tile, first, end)`` item per block tile of its ``WGMMA_TILES``.
+    The forward: 128-row q tiles streaming 64-key kv tiles, causal ranges
+    ending after ``_last_live_kv``, heaviest first (most streamed tiles,
+    then the lower tile). The backward (``flash_bwd``, one head's list):
+    128-key kv tiles streaming 64-row q tiles, causal ranges starting at
+    ``_first_live_q``, in descending kv tile, the order of dQ's adds. The
+    kernels walk every tile for a batch row whose ``kv_len`` is 0, whose
+    keys are all masked."""
     block_q, block_k = WGMMA_TILES[kernel]
     n_q, n_kv = -(-S // block_q), -(-S // block_k)
-    if kernel == "flash_bwd_dkv":
-        items = [(j, _first_live_q(j, block_q, block_k) if causal else 0,
-                  n_q) for j in range(n_kv)]
-    else:
-        items = [(i, 0, min(n_kv, _last_live_kv(i, block_q, block_k) + 1)
-                  if causal else n_kv) for i in range(n_q)]
+    if kernel == "flash_bwd":
+        return tuple((j, _first_live_q(j, block_q, block_k) if causal
+                      else 0, n_q) for j in reversed(range(n_kv)))
+    items = [(i, 0, min(n_kv, _last_live_kv(i, block_q, block_k) + 1)
+              if causal else n_kv) for i in range(n_q)]
     return tuple(sorted(items, key=lambda it: (it[1] - it[2], it[0])))
 
 
@@ -306,14 +317,22 @@ def _work_tensor(kernel: str, S: int, causal: bool,
                         dtype=torch.int32).to(device)
 
 
+def fused_backward(q: torch.Tensor) -> bool:
+    """Whether the wgmma kernels run for ``q`` (:func:`flash_bwd`'s one
+    pass, and the forward's): bf16 at head dims up to ``WGMMA_HEAD_DIM``
+    (padded to it)."""
+    return (q.dtype == torch.bfloat16
+            and padded_head_dim(q.shape[-1]) == WGMMA_HEAD_DIM)
+
+
 def _wgmma_route(kernel: str, tensors, causal: bool):
     """``(block_q, block_k, work pointer, items)`` of one launch: the
     wgmma kernel's tile and work list after :func:`check_tma` where it
-    runs (bf16 at D = 64), else ``FLASH_TILE`` and no list."""
+    runs (:func:`fused_backward`), else ``FLASH_TILE`` and no list."""
     q = tensors[0]
+    if not fused_backward(q):
+        return (*FLASH_TILE, None, 0)
     tile = flash_tile(kernel, q.shape[-1], q.dtype)
-    if tile == FLASH_TILE:
-        return (*tile, None, 0)
     check_tma(tensors)
     work = _work_tensor(kernel, q.shape[1], causal, q.device)
     return (*tile, work.data_ptr(), work.shape[0])
@@ -398,46 +417,99 @@ def _bwd_check(q, k, v, g, lse, delta, kv_len):
             raise ValueError(f"{name} must be contiguous")
 
 
-def flash_bwd_dq(q, k, v, g, lse, delta, *, causal: bool = True,
-                 sm_scale: Optional[float] = None, kv_len=None
-                 ) -> torch.Tensor:
-    """dQ of flash attention from the forward's ``lse`` and
-    ``delta = Σ_d dO·O`` (both ``(B, H, S)`` f32); ``g`` is dO."""
+def flash_bwd(q, k, v, g, lse, delta, *, causal: bool = True,
+              sm_scale: Optional[float] = None, kv_len=None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dQ, dK, dV)`` of flash attention from the forward's ``lse`` and
+    ``delta = Σ_d dO·O`` (both ``(B, H, S)`` f32); ``g`` is dO. At bf16
+    and D <= 64 one kernel computes all three (one launch of
+    ``flash_bwd``), adding dQ's partials in a fixed order into an f32
+    workspace of its own; elsewhere the dQ and the dK/dV kernels."""
     _bwd_check(q, k, v, g, lse, delta, kv_len)
     if q.device.type == "cpu":
-        return flash_bwd_dq_plain(q, k, v, g, lse, delta, causal=causal,
-                                  sm_scale=sm_scale, kv_len=kv_len)
+        return (flash_bwd_dq_plain(q, k, v, g, lse, delta, causal=causal,
+                                   sm_scale=sm_scale, kv_len=kv_len),
+                *flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal=causal,
+                                     sm_scale=sm_scale, kv_len=kv_len))
+    kw = dict(causal=causal, sm_scale=sm_scale, kv_len=kv_len)
+    if not fused_backward(q):
+        return (_bwd_dq_kernel(q, k, v, g, lse, delta, **kw),
+                *_bwd_dkv_kernel(q, k, v, g, lse, delta, **kw))
     scale, D0 = float(_scale(q, sm_scale)), q.shape[-1]
     q, k, v, g = pad_head_dim((q, k, v, g), padded_head_dim(D0))
     strides, len_ptr, (B, H, S, D) = _cuda_args(q, (q, k, v, g), kv_len,
                                                 rows_16b=True)
-    block_q, block_k, work, n_work = _wgmma_route("flash_bwd_dq",
-                                                  (q, k, v, g), causal)
-    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    block_q, block_k, work, n_work = _wgmma_route("flash_bwd", (q, k, v, g),
+                                                  causal)
+    dev = q.device
+    # the item counter, then the adds landed in each (head, q tile)
+    counters = torch.zeros(1 + B * H * -(-S // block_q), dtype=torch.int32,
+                           device=dev)
+    ws = torch.empty((B, S, H, D), dtype=torch.float32, device=dev)
+    dq, dk, dv = (torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
+                  for _ in range(3))
     lib = _lib()
-    with torch.cuda.device(q.device):
-        _launch("flash_bwd_dq", lib.kftpu_flash_bwd_dq, q.data_ptr(),
+    with torch.cuda.device(dev):
+        _launch("flash_bwd", lib.kftpu_flash_bwd, q.data_ptr(),
                 k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), len_ptr, dq.data_ptr(), strides, work, B,
-                H, S, D, n_work, block_q, block_k, scale, int(causal),
-                int(q.dtype == torch.bfloat16), _stream(q))
-    return unpad_head_dim((dq,), D0)[0]
+                delta.data_ptr(), len_ptr, dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), strides, work, counters.data_ptr(),
+                ws.data_ptr(), B, H, S, D, n_work, block_q, block_k, scale,
+                int(causal), 1, _stream(q))
+    return unpad_head_dim((dq, dk, dv), D0)
+
+
+def flash_bwd_dq(q, k, v, g, lse, delta, *, causal: bool = True,
+                 sm_scale: Optional[float] = None, kv_len=None
+                 ) -> torch.Tensor:
+    """dQ of flash attention; arguments as :func:`flash_bwd`. At bf16 and
+    D <= 64 on the card it is :func:`flash_bwd`'s dQ."""
+    _bwd_check(q, k, v, g, lse, delta, kv_len)
+    kw = dict(causal=causal, sm_scale=sm_scale, kv_len=kv_len)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, g, lse, delta, **kw)
+    if fused_backward(q):
+        return flash_bwd(q, k, v, g, lse, delta, **kw)[0]
+    return _bwd_dq_kernel(q, k, v, g, lse, delta, **kw)
 
 
 def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal: bool = True,
                   sm_scale: Optional[float] = None, kv_len=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(dK, dV)`` of flash attention; arguments as :func:`flash_bwd_dq`."""
+    """``(dK, dV)`` of flash attention; arguments as :func:`flash_bwd`.
+    At bf16 and D <= 64 on the card they are :func:`flash_bwd`'s."""
     _bwd_check(q, k, v, g, lse, delta, kv_len)
+    kw = dict(causal=causal, sm_scale=sm_scale, kv_len=kv_len)
     if q.device.type == "cpu":
-        return flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal=causal,
-                                   sm_scale=sm_scale, kv_len=kv_len)
+        return flash_bwd_dkv_plain(q, k, v, g, lse, delta, **kw)
+    if fused_backward(q):
+        return flash_bwd(q, k, v, g, lse, delta, **kw)[1:]
+    return _bwd_dkv_kernel(q, k, v, g, lse, delta, **kw)
+
+
+def _bwd_dq_kernel(q, k, v, g, lse, delta, *, causal, sm_scale, kv_len):
+    """The dQ kernel of every route but the fused one."""
     scale, D0 = float(_scale(q, sm_scale)), q.shape[-1]
     q, k, v, g = pad_head_dim((q, k, v, g), padded_head_dim(D0))
     strides, len_ptr, (B, H, S, D) = _cuda_args(q, (q, k, v, g), kv_len,
                                                 rows_16b=True)
-    block_q, block_k, work, n_work = _wgmma_route("flash_bwd_dkv",
-                                                  (q, k, v, g), causal)
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        _launch("flash_bwd_dq", lib.kftpu_flash_bwd_dq, q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), len_ptr, dq.data_ptr(), strides, B, H, S,
+                D, scale, int(causal), int(q.dtype == torch.bfloat16),
+                _stream(q))
+    return unpad_head_dim((dq,), D0)[0]
+
+
+def _bwd_dkv_kernel(q, k, v, g, lse, delta, *, causal, sm_scale, kv_len):
+    """The dK/dV kernel of every route but the fused one."""
+    scale, D0 = float(_scale(q, sm_scale)), q.shape[-1]
+    q, k, v, g = pad_head_dim((q, k, v, g), padded_head_dim(D0))
+    strides, len_ptr, (B, H, S, D) = _cuda_args(q, (q, k, v, g), kv_len,
+                                                rows_16b=True)
     dk = torch.empty((B, S, H, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, S, H, D), dtype=v.dtype, device=q.device)
     lib = _lib()
@@ -445,6 +517,6 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal: bool = True,
         _launch("flash_bwd_dkv", lib.kftpu_flash_bwd_dkv, q.data_ptr(),
                 k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), len_ptr, dk.data_ptr(), dv.data_ptr(),
-                strides, work, B, H, S, D, n_work, block_q, block_k, scale,
-                int(causal), int(q.dtype == torch.bfloat16), _stream(q))
+                strides, B, H, S, D, scale, int(causal),
+                int(q.dtype == torch.bfloat16), _stream(q))
     return unpad_head_dim((dk, dv), D0)

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """The port's flash kernels timed on one GPU, against another checkout's.
 
-``kubeflow_tpu_torch/ops/flash_attention.py``'s ``flash_fwd``,
-``flash_bwd_dq`` and ``flash_bwd_dkv`` are timed with
-``chip_smoke.time_ms`` (CUDA events, cold L2, device time only) at
+``kubeflow_tpu_torch/ops/flash_attention.py``'s ``flash_fwd`` and its
+backward are timed with ``chip_smoke.time_ms`` (CUDA events, cold L2,
+device time only): ``flash_bwd`` (dQ, dK and dV from one call) where the
+tree has it, else ``flash_bwd_dq`` and ``flash_bwd_dkv`` and their sum
+as ``flash_bwd``, so a tree with one backward kernel and one with two
+compare call for call. The points are at
 ``chip_smoke.py``'s timed shapes, bf16 at D=64: phase 2's LM
 (B=2, S=8192, H=16, causal) and BERT-base (B=16, S=512, H=12,
 non-causal), and phase 17's two inference shapes of BERT-base
@@ -13,7 +16,9 @@ lse and delta of the tree's own forward. Each point prints one JSON line
 with the card's name and power limit, its ms and the bound of its shape
 (``chip_smoke.flash_bytes_ops``), and the errors against the tree's
 plain versions: the norm error of out, dQ, dK and dV and the largest
-absolute error of lse.
+absolute error of lse. At the LM and BERT shapes each turn also times
+PyTorch's fused backward (``chip_smoke.sdpa_yardstick``: each backend
+pinned in turn, the fastest kept) as a yardstick.
 
 Usage (needs CUDA):
 
@@ -22,10 +27,10 @@ Usage (needs CUDA):
   kernels (another checkout's root, e.g. the parent commit unpacked by
   ``git archive``) and this checkout's in turns (DIR, this, this, DIR),
   each in a process of its own;
-- ``--lm-step`` adds, after each turn's kernel points, phase 5 of
-  ``chip_smoke.py`` (``train_phase``: the seq-8192 LM, 4 steps, 16
-  forward launches a step) run on that tree's package, and prints its
-  step ms on a JSON line.
+- ``--lm-step`` adds, after each turn's kernel points, phase 5 of that
+  tree's own ``chip_smoke.py`` (``train_phase``: the seq-8192 LM, 4
+  steps, 16 forward launches a step, its launch checks the tree's) run
+  on that tree's package, and prints its step ms on a JSON line.
 """
 
 from __future__ import annotations
@@ -45,11 +50,12 @@ SHAPES = {"lm": ((2, 8192, 16, 64), True),
           "predict_b1": ((1, 128, 12, 64), False)}
 
 
-def _smoke():
-    """This checkout's ``chip_smoke`` (inputs, bounds and timing), loaded
-    by path: with ``--tree`` the package on ``sys.path`` is another's."""
+def _smoke(root: str = ROOT):
+    """A checkout's ``chip_smoke`` (this one's by default: inputs, bounds
+    and timing), loaded by path: with ``--tree`` the package on
+    ``sys.path`` is another's."""
     spec = importlib.util.spec_from_file_location(
-        "port_flash_bwd_ab_smoke", os.path.join(ROOT, "chip_smoke.py"))
+        "port_flash_bwd_ab_smoke", os.path.join(root, "chip_smoke.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -63,13 +69,19 @@ def _points(tree: str) -> None:
     smoke = _smoke()
     dev = torch.device("cuda", 0)
     ident = smoke.gpu_identity()
+    one_pass = hasattr(fa, "flash_bwd")
     for label, ((B, S, H, D), causal) in SHAPES.items():
         q, k, v, g, _ = smoke.flash_inputs(B, S, H, D, torch.bfloat16, dev,
                                            smoke.SEED + 1, False)
         out, lse = fa.flash_fwd(q, k, v, causal=causal)
         delta = fa.flash_delta(g, out)
-        got = (out, fa.flash_bwd_dq(q, k, v, g, lse, delta, causal=causal),
-               *fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal=causal))
+        if one_pass:
+            got = (out, *fa.flash_bwd(q, k, v, g, lse, delta,
+                                      causal=causal))
+        else:
+            got = (out, fa.flash_bwd_dq(q, k, v, g, lse, delta,
+                                        causal=causal),
+                   *fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal=causal))
         plain = smoke.over_heads(
             lambda q, k, v, g, lse, delta: (
                 *fa.flash_fwd_plain(q, k, v, causal=causal),
@@ -82,11 +94,16 @@ def _points(tree: str) -> None:
         errs["lse_abs"] = (lse - plain[1]).abs().max().item()
         del got, plain
         ms = {"flash_fwd": smoke.time_ms(
-                  lambda: fa.flash_fwd(q, k, v, causal=causal)),
-              "flash_bwd_dq": smoke.time_ms(lambda: fa.flash_bwd_dq(
-                  q, k, v, g, lse, delta, causal=causal)),
-              "flash_bwd_dkv": smoke.time_ms(lambda: fa.flash_bwd_dkv(
-                  q, k, v, g, lse, delta, causal=causal))}
+                  lambda: fa.flash_fwd(q, k, v, causal=causal))}
+        if one_pass:
+            ms["flash_bwd"] = smoke.time_ms(lambda: fa.flash_bwd(
+                q, k, v, g, lse, delta, causal=causal))
+        else:
+            ms["flash_bwd_dq"] = smoke.time_ms(lambda: fa.flash_bwd_dq(
+                q, k, v, g, lse, delta, causal=causal))
+            ms["flash_bwd_dkv"] = smoke.time_ms(lambda: fa.flash_bwd_dkv(
+                q, k, v, g, lse, delta, causal=causal))
+            ms["flash_bwd"] = ms["flash_bwd_dq"] + ms["flash_bwd_dkv"]
         work = smoke.flash_bytes_ops(B, S, H, D, 2, causal)
         for name, t in ms.items():
             nbytes, flops = work[name]
@@ -96,6 +113,12 @@ def _points(tree: str) -> None:
                               "kernel": name, "kernel_ms": t,
                               "bound_ms": bound, "norm_err": errs}),
                   flush=True)
+        if label in ("lm", "bert"):
+            lib = smoke.sdpa_yardstick(q, k, v, g, causal=causal)
+            print(json.dumps({"device": ident, "tree": tree, "shape": label,
+                              "library": "scaled_dot_product_attention",
+                              "backward_ms": lib["backward"][0],
+                              "backend": lib["backward"][1]}), flush=True)
         del q, k, v, g, out, lse, delta
         torch.cuda.empty_cache()
 
@@ -103,7 +126,7 @@ def _points(tree: str) -> None:
 def _lm_step(tree: str) -> None:
     import torch
 
-    smoke = _smoke()
+    smoke = _smoke(tree)
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         train = smoke.train_phase(torch.device("cuda", 0))

@@ -157,7 +157,7 @@ class TestResolution:
                                n_heads=n_heads, n_kv_heads=n_heads,
                                dtype=torch.bfloat16, causal=causal,
                                generation="sm_90")
-        want = {"flash_fwd": (128, 64), "flash_bwd_dq": (128, 64),
+        want = {"flash_fwd": (128, 64), "flash_bwd_dq": (64, 128),
                 "flash_bwd_dkv": (64, 128)}[kernel]
         assert (cfg.source, cfg.block_q, cfg.block_k) == ("table", *want)
 
@@ -291,10 +291,11 @@ class TestHopperLegality:
 
 class TestBackwardTiles:
     """The legal tile is per kernel key: the bf16 D <= 64 wgmma tiles
-    (the forward and dQ 128 q rows x 64 keys, dK/dV 64 q rows x 128
-    keys); the other kernels (f32, D = 128 and up) keep 64 x 64."""
+    (the forward 128 q rows x 64 keys; dQ and dK/dV, one fused kernel, 64
+    q rows x 128 keys); the other kernels (f32, D = 128 and up) keep
+    64 x 64."""
 
-    @pytest.mark.parametrize("kernel,tile", [("flash_bwd_dq", (128, 64)),
+    @pytest.mark.parametrize("kernel,tile", [("flash_bwd_dq", (64, 128)),
                                              ("flash_bwd_dkv", (64, 128)),
                                              ("flash_fwd", (128, 64))])
     @pytest.mark.parametrize("head_dim", [64, 32])
@@ -304,7 +305,7 @@ class TestBackwardTiles:
         assert at.validate_entry(row) == []
         assert at.flash_tile(kernel, head_dim, torch.bfloat16) == tile
 
-    @pytest.mark.parametrize("kernel,tile", [("flash_bwd_dq", "128 x 64"),
+    @pytest.mark.parametrize("kernel,tile", [("flash_bwd_dq", "64 x 128"),
                                              ("flash_bwd_dkv", "64 x 128"),
                                              ("flash_fwd", "128 x 64")])
     @pytest.mark.parametrize("bq,bk", [(64, 64), (128, 128)])
@@ -339,7 +340,7 @@ class TestBackwardTiles:
         assert any("pin head_dim and dtype" in e for e in errs)
 
     @pytest.mark.parametrize("kernel,tile", [("flash_fwd", (128, 64)),
-                                             ("flash_bwd_dq", (128, 64)),
+                                             ("flash_bwd_dq", (64, 128)),
                                              ("flash_bwd_dkv", (64, 128))])
     def test_resolve_flash_returns_what_the_kernel_runs(self, kernel, tile):
         """Without a row the fallback is the kernel's own tile, and the

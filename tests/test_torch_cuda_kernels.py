@@ -469,18 +469,30 @@ def _flash_inputs(cuda, S, D, dtype, seed):
     return q, k, v, g
 
 
+def _launched_once(before, q):
+    """The forward and one backward launched: the fused kernel at bf16
+    and D <= 64, else the dQ and the dK/dV kernels."""
+    bwd = (("flash_bwd",) if fa.fused_backward(q)
+           else ("flash_bwd_dq", "flash_bwd_dkv"))
+    want = dict(before)
+    for name in ("flash_fwd",) + bwd:
+        want[name] += 1
+    return fa.launches == want
+
+
 @pytest.mark.parametrize("S,D", [(256, 64), (200, 128), (1000, 64),
                                  (512, 128)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_match_plain(cuda, S, D, causal, masked, dtype):
-    """Forward (out, lse), dQ and dK/dV against their plain versions on
-    the same inputs: lse within 1e-5; f32 within 1e-5 (out) and 1e-4
-    (gradients); bf16 within a norm-relative error of 4e-4, the limit of
-    ``chip_smoke.py`` (one bf16 fault such as P left unrounded reads
-    ~2e-3). ``kv_len`` holds a zero row; S = 1000 has a ragged last
-    tile; D = 128 runs the bf16 kernels' shared-memory K/V variant."""
+    """Forward (out, lse) and the backward (dQ, dK, dV) against their
+    plain versions on the same inputs: lse within 1e-5; f32 within 1e-5
+    (out) and 1e-4 (gradients); bf16 within a norm-relative error of
+    4e-4, the limit of ``chip_smoke.py`` (one bf16 fault such as P left
+    unrounded reads ~2e-3). ``kv_len`` holds a zero row; S = 1000 has a
+    ragged last tile; D = 128 runs the bf16 kernels' shared-memory K/V
+    variant."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, g = _flash_inputs(cuda, S, D, dtype, seed=S + D)
     lens = (torch.tensor([0, S - 37], dtype=torch.int32, device=cuda)
@@ -489,10 +501,9 @@ def test_flash_kernels_match_plain(cuda, S, D, causal, masked, dtype):
     before = dict(fa.launches)
     out, lse = fa.flash_fwd(q, k, v, **kw)
     delta = fa.flash_delta(g, out)
-    dq = fa.flash_bwd_dq(q, k, v, g, lse, delta, **kw)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse, delta, **kw)
+    dq, dk, dv = fa.flash_bwd(q, k, v, g, lse, delta, **kw)
     torch.cuda.synchronize()
-    assert all(fa.launches[n] == before[n] + 1 for n in before)
+    assert _launched_once(before, q)
     want = (*fa.flash_fwd_plain(q, k, v, **kw),
             fa.flash_bwd_dq_plain(q, k, v, g, lse, delta, **kw),
             *fa.flash_bwd_dkv_plain(q, k, v, g, lse, delta, **kw))
@@ -510,9 +521,9 @@ def test_flash_kernels_match_plain(cuda, S, D, causal, masked, dtype):
 
 
 def _hold_head_dim(cuda, D, dtype, S=200):
-    """Each pass at head dim D (causal, a zero and a ragged ``kv_len``)
-    launches its kernel once and matches its plain version at the limits
-    of ``test_flash_kernels_match_plain``."""
+    """The forward and the backward at head dim D (causal, a zero and a
+    ragged ``kv_len``) launch their kernels once each and match their
+    plain versions at the limits of ``test_flash_kernels_match_plain``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, g = _flash_inputs(cuda, S, D, dtype, seed=D)
     lens = torch.tensor([0, S - 37], dtype=torch.int32, device=cuda)
@@ -520,10 +531,9 @@ def _hold_head_dim(cuda, D, dtype, S=200):
     before = dict(fa.launches)
     out, lse = fa.flash_fwd(q, k, v, **kw)
     delta = fa.flash_delta(g, out)
-    dq = fa.flash_bwd_dq(q, k, v, g, lse, delta, **kw)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse, delta, **kw)
+    dq, dk, dv = fa.flash_bwd(q, k, v, g, lse, delta, **kw)
     torch.cuda.synchronize()
-    assert all(fa.launches[n] == before[n] + 1 for n in before)
+    assert _launched_once(before, q)
     want = (*fa.flash_fwd_plain(q, k, v, **kw),
             fa.flash_bwd_dq_plain(q, k, v, g, lse, delta, **kw),
             *fa.flash_bwd_dkv_plain(q, k, v, g, lse, delta, **kw))
@@ -586,8 +596,7 @@ def test_flash_kernels_read_strides_and_refuse_what_they_lack(cuda):
     for res, (a, b, c, d) in ((got, strided), (want, (q, k, v, g))):
         out, lse = res[0]
         delta = fa.flash_delta(d, out)
-        res += [fa.flash_bwd_dq(a, b, c, d, lse, delta),
-                *fa.flash_bwd_dkv(a, b, c, d, lse, delta)]
+        res += [*fa.flash_bwd(a, b, c, d, lse, delta)]
     torch.cuda.synchronize()
     for a, b in zip([*got[0], *got[1:]], [*want[0], *want[1:]]):
         assert torch.equal(a, b)
@@ -606,9 +615,9 @@ def test_flash_kernels_read_strides_and_refuse_what_they_lack(cuda):
 
 @pytest.mark.parametrize("D", [64, 128])
 def test_flash_bf16_kernels_are_deterministic(cuda, D):
-    """Two calls of the bf16 forward, dQ and dK/dV on the same inputs
-    give bit-identical outputs: each output tile is owned by one block,
-    with no atomics."""
+    """Two calls of the bf16 forward and backward on the same inputs give
+    bit-identical outputs: each output tile is owned by one block, but
+    the fused backward's dQ, whose partials land in a fixed order."""
     q, k, v, g = _flash_inputs(cuda, 1000, D, torch.bfloat16, seed=13)
     lens = torch.tensor([0, 963], dtype=torch.int32, device=cuda)
     runs = []
@@ -616,27 +625,24 @@ def test_flash_bf16_kernels_are_deterministic(cuda, D):
         out, lse = fa.flash_fwd(q, k, v, kv_len=lens)
         delta = fa.flash_delta(g, out)
         runs.append((out, lse,
-                     fa.flash_bwd_dq(q, k, v, g, lse, delta, kv_len=lens),
-                     *fa.flash_bwd_dkv(q, k, v, g, lse, delta,
-                                       kv_len=lens)))
+                     *fa.flash_bwd(q, k, v, g, lse, delta, kv_len=lens)))
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
 
 
 def _hold_bwd(q, k, v, g, *, causal, kv_len=None):
-    """dQ and dK/dV from the kernel forward's lse against their plain
-    versions at the bf16 norm-relative limit (4e-4); returns the kernel
-    outputs (dq, dk, dv) and each output's reading."""
+    """dQ, dK and dV of the fused kernel (one launch) from the kernel
+    forward's lse against their plain versions at the bf16
+    norm-relative limit (4e-4); returns the kernel outputs (dq, dk, dv)
+    and each output's reading."""
     kw = dict(causal=causal, kv_len=kv_len)
     out, lse = fa.flash_fwd(q, k, v, **kw)
     delta = fa.flash_delta(g, out)
     before = dict(fa.launches)
-    got = (fa.flash_bwd_dq(q, k, v, g, lse, delta, **kw),
-           *fa.flash_bwd_dkv(q, k, v, g, lse, delta, **kw))
+    got = fa.flash_bwd(q, k, v, g, lse, delta, **kw)
     torch.cuda.synchronize()
-    assert fa.launches["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
-    assert fa.launches["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    assert fa.launches == dict(before, flash_bwd=before["flash_bwd"] + 1)
     want = (fa.flash_bwd_dq_plain(q, k, v, g, lse, delta, **kw),
             *fa.flash_bwd_dkv_plain(q, k, v, g, lse, delta, **kw))
     rels = {}
@@ -696,6 +702,82 @@ def test_flash_wgmma_backward_long_sum_holds_dv(cuda):
                   for _ in range(4))
     _, rels = _hold_bwd(q, k, v, g, causal=True)
     print(f"S=8192 causal norm errors: {rels}")
+
+
+def _one_key_limits(q, k, v, g, lse, delta):
+    """Elementwise limits on |kernel - plain| of dQ and dK at S = 1,
+    where each row has one key: P = exp(s - lse) is 1 up to rounding and
+    dS = P (dP - delta) is the difference of two equal sums, so both
+    sides' dQ = scale dS K and dK = scale dS Q are rounding noise and a
+    norm-relative reading says nothing. First-order rounding bounds with
+    u = 2^-23 (twice f32's unit roundoff, for the tensor cores'
+    accumulation) and gamma = D u a D-term f32 sum, each side's error
+    counted: dP differs by 2 gamma sum|dO V|, s by 2 gamma scale
+    sum|Q K|, the exponential by 4u (|s| + |lse|) + 8u; then dS's hi + lo
+    split and both sides' bf16 rounding of the output, 2^-7 |dS| in
+    all."""
+    u = 2.0 ** -23
+    q32, k32, v32, g32 = (t.float() for t in (q, k, v, g))
+    D = q.shape[-1]
+    scale, gamma = D ** -0.5, D * u
+    lse, delta = lse.transpose(1, 2), delta.transpose(1, 2)  # (B, S, H)
+    s = (q32 * k32).sum(-1) * scale
+    p = torch.exp(s - lse)
+    dp = (g32 * v32).sum(-1)
+    d_p = p * (2 * gamma * scale * (q32 * k32).abs().sum(-1)
+               + 4 * u * (s.abs() + lse.abs()) + 8 * u)
+    d_ds = d_p * (dp - delta).abs() + p * 2 * gamma * (g32 * v32).abs().sum(-1)
+    err = (d_ds + 2.0 ** -7 * (p * (dp - delta)).abs())[..., None] * scale
+    return err * k32.abs(), err * q32.abs()
+
+
+def _hold_bwd_one_key(q, k, v, g, *, causal):
+    """The fused kernel at S = 1: dQ and dK within
+    :func:`_one_key_limits` of their plain versions, element by element,
+    dV at the bf16 norm-relative limit (4e-4); returns the kernel outputs
+    and the readings (each side's max |x|, the largest difference and
+    the largest limit)."""
+    out, lse = fa.flash_fwd(q, k, v, causal=causal)
+    delta = fa.flash_delta(g, out)
+    before = dict(fa.launches)
+    got = fa.flash_bwd(q, k, v, g, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches == dict(before, flash_bwd=before["flash_bwd"] + 1)
+    want = (fa.flash_bwd_dq_plain(q, k, v, g, lse, delta, causal=causal),
+            *fa.flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal=causal))
+    limits = _one_key_limits(q, k, v, g, lse, delta)
+    readings = {}
+    for name, a, b, lim in zip(("dq", "dk"), got, want, limits):
+        a, b = a.float(), b.float()
+        assert torch.isfinite(a).all(), name
+        diff = (a - b).abs()
+        readings[name] = {"kernel_max": a.abs().max().item(),
+                          "plain_max": b.abs().max().item(),
+                          "diff_max": diff.max().item(),
+                          "limit_max": lim.max().item()}
+        assert (diff <= lim).all(), f"{name} at S=1: {readings[name]}"
+    dv, want_dv = got[2].float(), want[2].float()
+    rel = ((dv - want_dv).norm() / want_dv.norm()).item()
+    assert rel <= 4e-4, f"dv at S=1: norm err {rel} > 4e-4"
+    readings["dv"] = rel
+    return got, readings
+
+
+@pytest.mark.parametrize("S", [1, 2, 63, 64, 65, 127, 129, 192])
+def test_flash_wgmma_backward_short_sequences(cuda, S):
+    """Sequences of one or two 128-key tiles: one key (S = 1, held by
+    :func:`_hold_bwd_one_key`), the upper warpgroup without keys
+    (S <= 64 past a tile's start), a ragged q tile, one item a head;
+    causal and not, and a repeat call bit for bit."""
+    rng = np.random.default_rng(40 + S)
+    q, k, v, g = (_bf16(rng, (2, S, 3, 64), cuda) for _ in range(4))
+    hold = _hold_bwd_one_key if S == 1 else _hold_bwd
+    for causal in (True, False):
+        got, readings = hold(q, k, v, g, causal=causal)
+        print(f"S={S} causal={causal}: {readings}")
+        again, _ = hold(q, k, v, g, causal=causal)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
 
 
 def _hold_fwd(q, k, v, *, causal, kv_len=None):
@@ -790,6 +872,8 @@ def test_flash_bf16_kernels_refuse_rows_off_16_bytes(cuda):
             fa.flash_bwd_dq(bad, k, v, g, lse, delta)
         with pytest.raises(ValueError, match="16 bytes"):
             fa.flash_bwd_dkv(bad, k, v, g, lse, delta)
+        with pytest.raises(ValueError, match="16 bytes"):
+            fa.flash_bwd(bad, k, v, g, lse, delta)
         assert fa.launches == launched
     wide32 = torch.zeros(B, S, H, D + 1, device=cuda)
     wide32[..., :D].copy_(q.float())

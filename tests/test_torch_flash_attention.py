@@ -80,6 +80,34 @@ def test_gradients_match_pallas(causal, bq, bk):
 
 
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("lens", [None, (40, 64)])
+def test_flash_bwd_matches_pallas_backward(causal, lens):
+    """``flash_bwd`` (dQ, dK and dV from one call) against the
+    reference's ``_flash_bwd`` (its dQ and dK/dV Pallas kernels in
+    interpret mode) on the reference forward's out and lse, f32, with
+    and without ``kv_len``: within 1e-4."""
+    q, k, v, g = _np_qkv(seed=4)
+    jl = None if lens is None else jnp.asarray(np.asarray(lens, np.int32))
+    jq, jk, jv, jg = _jax(q, k, v, g)
+    o, jlse = jatt._flash_fwd(jq, jk, jv, causal=causal, block_q=16,
+                              block_k=16, sm_scale=None, interpret=True,
+                              kv_len=jl)
+    want = jatt._flash_bwd(jq, jk, jv, o, jlse, jg, causal=causal,
+                           block_q=16, block_k=16, sm_scale=None,
+                           interpret=True, kv_len=jl)
+    B, S, H, _ = q.shape
+    tq, tk, tv, tg = _torch(q, k, v, g)
+    lse = torch.from_numpy(np.array(jlse)).reshape(B, H, S)
+    delta = fa.flash_delta(tg, torch.from_numpy(np.array(o)))
+    kv_len = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    got = fa.flash_bwd(tq, tk, tv, tg, lse, delta, causal=causal,
+                       kv_len=kv_len)
+    for a, b, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
+                                   rtol=0, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
 def test_kv_len_matches_pallas(causal):
     """The padding mask in the forward and both backward passes;
     cotangent zero at padded q rows, as ``tests/test_ops.py`` has it."""
@@ -226,6 +254,7 @@ def test_cpu_tensors_count_no_launch_and_checks_raise():
     delta = fa.flash_delta(g, out)
     fa.flash_bwd_dq(q, k, v, g, lse, delta)
     fa.flash_bwd_dkv(q, k, v, g, lse, delta)
+    fa.flash_bwd(q, k, v, g, lse, delta)
     assert fa.launches == before
     with pytest.raises(ValueError, match="GQA"):
         fa.flash_fwd(q, k[:, :, :2], v)
@@ -278,10 +307,10 @@ def test_zero_length_causal_row_follows_the_reference_not_pallas_tiles():
           f"abs {gap:.4f}")
 
 
-@pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_bwd_dq",
-                                     "flash_bwd_dkv"])
+@pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_bwd",
+                                     "flash_bwd_dq", "flash_bwd_dkv"])
 def test_every_kernel_wrapper_asks_for_16_byte_rows(monkeypatch, wrapper):
-    """All three bf16 kernels stage rows with cp.async, so each wrapper
+    """All the bf16 kernels stage rows with 16-byte copies, so each wrapper
     hands its launch arguments to ``_cuda_args`` with ``rows_16b``
     (checked on ``meta`` tensors, which take the kernel branch here)."""
     seen = {}

@@ -1,16 +1,28 @@
-"""The host side of the wgmma flash backward (``ops/flash_attention.py``).
+"""The host side of the wgmma flash kernels (``ops/flash_attention.py``)
+and the schedule of the fused backward.
 
-The bf16 D = 64 dQ and dK/dV kernels walk a work list that the wrapper
-computes (:func:`wgmma_work`): one item per 128-row block tile with the
-range of 64-row tiles it streams. Here each item's range is held against
-the reference's causal loop limits (``kubeflow_tpu/ops/attention.py``
-``_first_live_q`` and ``_last_live_kv``) at the same block sizes, every
-tile appears once, and the heaviest come first. Then the wrappers: with
-the library replaced by a fake, a stride or base that a TMA map cannot
-encode is refused before any launch, a view of a fused projection is
-handed to the library with the kernel's own tile and list, and CPU
-tensors take the plain path and count no launch.
+The bf16 D = 64 forward and the fused backward (dQ, dK and dV in one
+kernel) walk work lists that the wrapper computes (:func:`wgmma_work`):
+one item per 128-row block tile with the range of 64-row tiles it
+streams. Here each item's range is held against the reference's causal
+loop limits (``kubeflow_tpu/ops/attention.py`` ``_first_live_q`` and
+``_last_live_kv``) at the same block sizes, the backward's list covers
+every live (kv tile, q tile) pair once, and its order is dQ's add order.
+
+Then a model of the persistent grid: workers take items from the list
+in order, each tile costs its products, and a kv tile's add into a q
+tile waits until every kv tile above it has added, as the kernel's
+adder does (``csrc/flash_attention.cu:bwd_turn``). It must end without
+deadlock and with every q tile's adds in descending kv tile.
+
+Then the wrappers: with the library replaced by a fake, a stride or base
+that a TMA map cannot encode is refused before any launch, a view of a
+fused projection is handed to the library with the fused kernel's own
+tile, list and buffers, the other routes launch the dQ and dK/dV
+kernels, and CPU tensors take the plain path and count no launch.
 """
+
+import heapq
 
 import numpy as np
 import pytest
@@ -20,20 +32,24 @@ from kubeflow_tpu.ops.attention import _first_live_q, _last_live_kv
 from kubeflow_tpu_torch.ops import autotune as at
 from kubeflow_tpu_torch.ops import flash_attention as fa
 
-KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
+LISTS = ("flash_fwd", "flash_bwd")
+WRAPPERS = ("flash_bwd", "flash_bwd_dq", "flash_bwd_dkv")
+SEQS = [64, 128, 1000, 8192]
+SMS = 132          # an H100's SMs: the persistent grid's workers
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kernel", LISTS)
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("S", [64, 128, 1000, 8192])
+@pytest.mark.parametrize("S", SEQS)
 def test_work_list_ranges_match_the_reference(kernel, causal, S):
     """Each item's streamed range is the reference's at the kernel's
-    block sizes: dK/dV from ``_first_live_q`` to the last q tile, dQ
-    from 0 to ``_last_live_kv`` + 1 (every tile without causality)."""
+    block sizes: the backward from ``_first_live_q`` to the last q tile,
+    the forward from 0 to ``_last_live_kv`` + 1 (every tile without
+    causality)."""
     block_q, block_k = at.WGMMA_TILES[kernel]
     n_q, n_kv = -(-S // block_q), -(-S // block_k)
     for tile, first, end in fa.wgmma_work(kernel, S, causal):
-        if kernel == "flash_bwd_dkv":
+        if kernel == "flash_bwd":
             want = (_first_live_q(tile, block_q, block_k) if causal else 0,
                     n_q)
         else:
@@ -43,27 +59,201 @@ def test_work_list_ranges_match_the_reference(kernel, causal, S):
         assert 0 <= first < end
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kernel", LISTS)
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("S", [64, 128, 1000, 8192])
+@pytest.mark.parametrize("S", SEQS)
 def test_work_list_holds_every_tile_once_heaviest_first(kernel, causal, S):
-    """One item per block tile of the kernel's own size, none twice, in
-    order of the tiles each streams (most first; ties by tile)."""
+    """One item per block tile of the kernel's own size, none twice. The
+    forward's in order of the tiles each streams (most first; ties by
+    tile); the backward's in descending kv tile, the order in which its
+    adds into each q tile land (which, causal, puts the lightest first:
+    see ``test_heaviest_first_backward_list_can_deadlock``)."""
     block_q, block_k = at.WGMMA_TILES[kernel]
-    own = block_k if kernel == "flash_bwd_dkv" else block_q
+    own = block_k if kernel == "flash_bwd" else block_q
     work = fa.wgmma_work(kernel, S, causal)
     assert sorted(t for t, _, _ in work) == list(range(-(-S // own)))
+    if kernel == "flash_bwd":
+        assert [t for t, _, _ in work] == list(reversed(range(len(work))))
+        return
     sizes = [end - first for _, first, end in work]
     assert sizes == sorted(sizes, reverse=True)
     for (t0, f0, e0), (t1, f1, e1) in zip(work, work[1:]):
         assert e0 - f0 > e1 - f1 or t0 < t1
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", SEQS)
+def test_backward_list_covers_every_live_pair_once(causal, S):
+    """The (kv tile, q tile) pairs the fused list walks are the live
+    pairs of both reference passes at its tiles: the dK/dV pass's (q
+    tiles from ``_first_live_q``) and the dQ pass's (kv tiles up to
+    ``_last_live_kv``), each once."""
+    block_q, block_k = at.WGMMA_TILES["flash_bwd"]
+    n_q, n_kv = -(-S // block_q), -(-S // block_k)
+    walked = [(j, i) for j, first, end in fa.wgmma_work("flash_bwd", S,
+                                                        causal)
+              for i in range(first, end)]
+    assert len(walked) == len(set(walked))
+    dkv = {(j, i) for j in range(n_kv)
+           for i in range(_first_live_q(j, block_q, block_k) if causal
+                          else 0, n_q)}
+    dq = {(j, i) for i in range(n_q)
+          for j in range(min(n_kv, _last_live_kv(i, block_q, block_k) + 1)
+                         if causal else n_kv)}
+    assert set(walked) == dkv == dq
+
+
+def kernel_turn(j, i, S, trim):
+    """``csrc/flash_attention.cu:bwd_turn``: the adds into q tile ``i``
+    that land before kv tile ``j``'s, in descending kv tile from the last
+    kv tile live for it."""
+    block_q, block_k = at.WGMMA_TILES["flash_bwd"]
+    n_kv = -(-S // block_k)
+    last = (min(n_kv - 1, (i * block_q + block_q - 1) // block_k) if trim
+            else n_kv - 1)
+    return last - j
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", SEQS)
+def test_kernel_turn_counts_the_kv_tiles_above(causal, S):
+    """The kernel's turn for (kv tile j, q tile i) is the number of
+    items of the list above j that walk q tile i."""
+    work = fa.wgmma_work("flash_bwd", S, causal)
+    for j, first, end in work:
+        for i in range(first, end):
+            above = sum(1 for j2, f2, e2 in work if j2 > j and f2 <= i < e2)
+            assert kernel_turn(j, i, S, causal) == above, (j, i)
+
+
+def _tile_cost(j, i, causal):
+    """A tile's products: both warpgroups' (1), or only the lower
+    warpgroup's on a causal kv tile's first q tile, where the upper
+    warpgroup's keys all lie above the tile's rows (0.5)."""
+    block_q, block_k = at.WGMMA_TILES["flash_bwd"]
+    first = _first_live_q(j, block_q, block_k)
+    upper_live = (j * block_k + 64) // block_q
+    return 0.5 if causal and first <= i < upper_live else 1.0
+
+
+def simulate(S, heads, workers, causal, per_head=None):
+    """The persistent grid on a clock: ``workers`` take items from the
+    list (``heads`` heads of ``per_head``, by default the kernel's list)
+    in order as they come free, walk each item's q tiles in ascending
+    order, and after a tile's products wait until the adds of the kv
+    tiles above theirs have landed (:func:`kernel_turn`), then add at
+    once: an add takes no time here, so its wait share speaks of tile
+    order only. Returns ``(makespan, idle share, wait share, adds)``, ``adds``
+    each (head, q tile)'s kv tiles in the order their adds landed, or
+    raises ``RuntimeError`` if the workers stop with adds pending."""
+    per_head = per_head or fa.wgmma_work("flash_bwd", S, causal)
+    items = [(h, it) for h in range(heads) for it in per_head]
+    nxt, seq, events = 0, 0, []
+    landed, waiting, adds = {}, {}, {}
+    busy = waited = end = 0.0
+    state = {}
+
+    def start_tile(w, t):
+        nonlocal seq, busy
+        h, (j, first, stop), i = state[w]
+        cost = _tile_cost(j, i, causal)
+        busy += cost
+        heapq.heappush(events, (t + cost, seq, w))
+        seq += 1
+
+    def take(w, t):
+        nonlocal nxt, end
+        end = max(end, t)
+        if nxt < len(items):
+            h, it = items[nxt]
+            nxt += 1
+            state[w] = (h, it, it[1])
+            start_tile(w, t)
+
+    def add(w, t):
+        nonlocal waited
+        h, it, i = state[w]
+        landed[(h, i)] = landed.get((h, i), 0) + 1
+        adds.setdefault((h, i), []).append(it[0])
+        if i + 1 < it[2]:
+            state[w] = (h, it, i + 1)
+            start_tile(w, t)
+        else:
+            take(w, t)
+        nxt_w = waiting.pop((h, i, landed[(h, i)]), None)
+        if nxt_w is not None:
+            waited += t - nxt_w[1]
+            add(nxt_w[0], t)
+
+    for w in range(workers):
+        take(w, 0.0)
+    while events:
+        t, _, w = heapq.heappop(events)
+        h, (j, _, _), i = state[w]
+        turn = kernel_turn(j, i, S, causal)
+        if landed.get((h, i), 0) == turn:
+            add(w, t)
+        else:
+            waiting[(h, i, turn)] = (w, t)
+    if waiting or nxt < len(items):
+        raise RuntimeError(f"deadlock: {len(waiting)} adds waiting, "
+                           f"{len(items) - nxt} items never taken")
+    return end, 1 - busy / (workers * end), waited / (workers * end), adds
+
+
+# (S, heads, causal): the LM step's backward (B 2 x H 16), BERT-base's
+# (16 x 12), and a ragged causal and non-causal S
+SCHEDULES = [(8192, 32, True), (512, 192, False), (1000, 8, True),
+             (1000, 8, False)]
+
+
+@pytest.mark.parametrize("S,heads,causal", SCHEDULES)
+def test_persistent_schedule_adds_in_descending_kv_tile(S, heads, causal):
+    """132 workers on the kernel's list end without deadlock, every
+    (head, q tile) gets one add from each live kv tile in descending kv
+    tile, and no add waits. The model lands each add the moment it is
+    made, so that last is a statement about tile order only (each kv
+    tile reaches a q tile after the ones above it): it ignores the time
+    an add takes, and on the card adds do wait (the source note of
+    flash_attention.cu gives the reading). Prints the idle share at the
+    shape."""
+    makespan, idle, wait, adds = simulate(S, heads, SMS, causal)
+    work = fa.wgmma_work("flash_bwd", S, causal)
+    for (h, i), order in adds.items():
+        want = [j for j, first, end in work if first <= i < end]
+        assert order == sorted(want, reverse=True), (h, i, order)
+    n_q = -(-S // at.WGMMA_TILES["flash_bwd"][0])
+    assert len(adds) == heads * n_q
+    assert wait == 0.0
+    print(f"S={S} heads={heads} causal={causal}: makespan {makespan} "
+          f"tiles, idle share {idle:.4f}")
+    if (S, heads) == (8192, 32):
+        # the LM shape: the tail of the last head's heavy kv tiles
+        assert idle < 0.10
+
+
+def test_heaviest_first_backward_list_can_deadlock():
+    """The two-pass order (heaviest first: kv tile 0 first, causal) puts
+    a kv tile before the ones it waits on. With fewer workers than a
+    head's kv tiles every worker can hold an item that waits on one not
+    yet taken; the kernel's list (descending kv tile) ends with the same
+    workers."""
+    S, workers = 8192, 16
+    heavy = tuple(sorted(fa.wgmma_work("flash_bwd", S, True),
+                         key=lambda it: (it[1] - it[2], it[0])))
+    assert heavy[0][0] == 0
+    with pytest.raises(RuntimeError, match="deadlock"):
+        simulate(S, 2, workers, True, per_head=heavy)
+    makespan, _, _, _ = simulate(S, 2, workers, True)
+    assert makespan > 0
+
+
+@pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
 def test_the_wrapper_runs_the_tile_the_table_resolves(kernel):
-    """The tile a launch takes (``_wgmma_route``) is what ``resolve_flash``
-    falls back to for the shape: the wgmma tile for bf16 at D <= 64
-    (padded to 64), 64 x 64 otherwise."""
+    """The tile a launch takes (``_wgmma_route`` of the fused backward)
+    is what ``resolve_flash`` falls back to for each reference key: the
+    fused kernel's tile for bf16 at D <= 64 (padded to 64), 64 x 64
+    otherwise, where no list is made."""
     for D, dtype in ((64, torch.bfloat16), (32, torch.bfloat16),
                      (128, torch.bfloat16), (64, torch.float32)):
         with at.table_override(at.TileTable([], [])):
@@ -73,10 +263,12 @@ def test_the_wrapper_runs_the_tile_the_table_resolves(kernel):
         width = fa.padded_head_dim(D)
         tensors = [torch.zeros(1, 512, 4, width, dtype=dtype, device="meta")
                    for _ in range(4)]
-        block_q, block_k, _, n_work = fa._wgmma_route(kernel, tensors, True)
+        block_q, block_k, _, n_work = fa._wgmma_route("flash_bwd", tensors,
+                                                      True)
         assert (cfg.source, cfg.block_q, cfg.block_k) == (
             "fallback", block_q, block_k)
-        assert (n_work > 0) == (dtype == torch.bfloat16 and D <= 64)
+        fused = dtype == torch.bfloat16 and D <= 64
+        assert (n_work > 0) == fused == fa.fused_backward(tensors[0])
 
 
 class _FakeLib:
@@ -138,7 +330,8 @@ def _bwd_inputs(q):
     """k, v, dO (contiguous) and lse, delta beside ``q`` (meta)."""
     k, v, g = (torch.zeros(q.shape, dtype=q.dtype, device="meta")
                for _ in range(3))
-    stats = torch.zeros(q.shape[0], q.shape[2], q.shape[1], device="meta")
+    stats = torch.zeros(q.shape[0], q.shape[2], q.shape[1],
+                        dtype=torch.float32, device="meta")
     return k, v, g, stats, stats
 
 
@@ -162,7 +355,7 @@ BAD_VIEWS = {
 }
 
 
-@pytest.mark.parametrize("wrapper", KERNELS)
+@pytest.mark.parametrize("wrapper", WRAPPERS)
 @pytest.mark.parametrize("view", sorted(BAD_VIEWS))
 def test_wrapper_refuses_what_a_tma_map_cannot_encode(fake_lib, wrapper,
                                                       view):
@@ -171,7 +364,7 @@ def test_wrapper_refuses_what_a_tma_map_cannot_encode(fake_lib, wrapper,
     q = BAD_VIEWS[view]()
     with pytest.raises(ValueError, match="16 bytes"):
         _call(wrapper, q, *_bwd_inputs(q))
-    assert fake_lib.calls == [] and fa.launches[wrapper] == 0
+    assert fake_lib.calls == [] and not any(fa.launches.values())
 
 
 def test_check_tma_refuses_a_base_off_16_bytes():
@@ -185,30 +378,66 @@ def test_check_tma_refuses_a_base_off_16_bytes():
         fa.check_tma([flat[1:1 + 2 * 64 * 2 * 64].view(2, 64, 2, 64)])
 
 
-@pytest.mark.parametrize("wrapper", KERNELS)
+@pytest.mark.parametrize("wrapper", WRAPPERS)
 @pytest.mark.parametrize("causal", [True, False])
 def test_fused_projection_view_reaches_the_library(fake_lib, wrapper,
                                                    causal):
     """q, k and v as views of one (B, S, 3, H, D) tensor pass the checks
-    and reach the library once, with the kernel's tile and work list."""
+    and reach the fused kernel once, whichever wrapper is called, with
+    its tile, its list, the counters (one item counter, then one a head
+    and q tile) and the workspace; one launch of ``flash_bwd``."""
     qkv = torch.zeros(2, 1000, 3, 2, 64, dtype=torch.bfloat16,
                       device="meta")
     q, k, v = (qkv[:, :, i] for i in range(3))
     g = torch.zeros(2, 1000, 2, 64, dtype=torch.bfloat16, device="meta")
     stats = torch.zeros(2, 2, 1000, device="meta")
-    _call(wrapper, q, k, v, g, stats, stats, causal=causal)
+    seen = []
+    real_zeros, real_empty = torch.zeros, torch.empty
+
+    def zeros(*shape, **kw):
+        seen.append(("zeros", shape, kw.get("dtype")))
+        return real_zeros(*shape, **kw)
+
+    def empty(*shape, **kw):
+        seen.append(("empty", shape[0] if len(shape) == 1 else shape,
+                     kw.get("dtype")))
+        return real_empty(*shape, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch, "zeros", zeros)
+        mp.setattr(torch, "empty", empty)
+        _call(wrapper, q, k, v, g, stats, stats, causal=causal)
     (name, args), = fake_lib.calls
-    assert name == f"kftpu_{wrapper}"
-    strides = list(args[8 if wrapper == "flash_bwd_dq" else 9])
+    assert name == "kftpu_flash_bwd"
+    strides = list(args[10])
     assert strides[:3] == [1000 * 3 * 2 * 64, 3 * 2 * 64, 64]
-    tail = args[-11:]   # B, H, S, D, n_work, block_q, block_k, ...
+    tail = args[14:21]   # B, H, S, D, n_work, block_q, block_k
     assert tail[:4] == (2, 2, 1000, 64)
-    assert tail[4] == len(fa.wgmma_work(wrapper, 1000, causal))
-    assert tuple(tail[5:7]) == at.WGMMA_TILES[wrapper]
-    assert fa.launches[wrapper] == 1
+    assert tail[4] == len(fa.wgmma_work("flash_bwd", 1000, causal))
+    assert tuple(tail[5:7]) == at.WGMMA_TILES["flash_bwd"]
+    assert ("zeros", (1 + 2 * 2 * 16,), torch.int32) in seen
+    assert ("empty", (2, 1000, 2, 64), torch.float32) in seen
+    assert fa.launches == dict(fa.launches, flash_bwd=1, flash_bwd_dq=0,
+                               flash_bwd_dkv=0)
 
 
-@pytest.mark.parametrize("wrapper", KERNELS)
+@pytest.mark.parametrize("D,dtype", [(128, torch.bfloat16),
+                                     (64, torch.float32),
+                                     (256, torch.bfloat16)])
+def test_other_routes_launch_the_dq_and_dkv_kernels(fake_lib, D, dtype):
+    """Past the fused kernel's route ``flash_bwd`` launches the dQ kernel
+    and the dK/dV kernel, each counted under its own name, with no list
+    and no workspace."""
+    q = torch.zeros(1, 256, 2, D, dtype=dtype, device="meta")
+    assert not fa.fused_backward(q)
+    fa.flash_bwd(q, *_bwd_inputs(q))
+    assert [name for name, _ in fake_lib.calls] == [
+        "kftpu_flash_bwd_dq", "kftpu_flash_bwd_dkv"]
+    assert fa.launches == dict(fa.launches, flash_bwd=0, flash_bwd_dq=1,
+                               flash_bwd_dkv=1)
+
+
+@pytest.mark.parametrize("wrapper", WRAPPERS)
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch(fake_lib,
                                                              wrapper):
     rng = np.random.default_rng(5)
@@ -218,5 +447,12 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch(fake_lib,
     out, lse = fa.flash_fwd(q, k, v)
     delta = fa.flash_delta(g, out)
     before = dict(fa.launches)
-    _call(wrapper, q, k, v, g, lse, delta)
+    got = _call(wrapper, q, k, v, g, lse, delta)
     assert fake_lib.calls == [] and fa.launches == before
+    want = (fa.flash_bwd_dq_plain(q, k, v, g, lse, delta),
+            *fa.flash_bwd_dkv_plain(q, k, v, g, lse, delta))
+    got = {"flash_bwd": got, "flash_bwd_dq": (got,)}.get(wrapper, got)
+    part = {"flash_bwd": want, "flash_bwd_dq": want[:1]}.get(wrapper,
+                                                              want[1:])
+    for a, b in zip(got, part):
+        assert torch.equal(a, b)

@@ -1,10 +1,11 @@
 """The host side of the wgmma flash forward (``ops/flash_attention.py``).
 
 The bf16 D = 64 forward walks the work list the wrapper computes
-(:func:`wgmma_work`), dQ's: one item per 128-row q tile with the range
-of 64-key kv tiles it streams. Each item's range is held against the
+(:func:`wgmma_work`): one item per 128-row q tile with the range of
+64-key kv tiles it streams. Each item's range is held against the
 reference's ``_last_live_kv`` (``kubeflow_tpu/ops/attention.py``) at the
-same block sizes, every tile appears once, and the heaviest come first.
+same block sizes, every tile appears once, the heaviest come first, and
+it covers the blocks the backward's list covers.
 Then the wrapper, with the library replaced by the fake of
 ``test_torch_flash_bwd_schedule.py``: a stride or base that a TMA map
 cannot encode is refused before any launch, a view of a fused QKV
@@ -53,12 +54,37 @@ def test_work_list_holds_every_tile_once_heaviest_first(causal, S):
         assert e0 - f0 > e1 - f1 or t0 < t1
 
 
+def _live_blocks(kernel, S, causal):
+    """The 64 x 64 (q rows, keys) blocks a wgmma kernel's list walks, less
+    those wholly past S or wholly above the causal diagonal (which the
+    kernels skip)."""
+    block_q, block_k = at.WGMMA_TILES[kernel]
+    blocks = set()
+    for tile, first, end in fa.wgmma_work(kernel, S, causal):
+        if kernel == "flash_fwd":     # q tiles of 128 rows, 64-key stages
+            rows = range(2 * tile, 2 * tile + 2)
+            keys = range(first, end)
+        else:                         # kv tiles of 128 keys, 64-row stages
+            rows = range(first, end)
+            keys = range(2 * tile, 2 * tile + 2)
+        blocks |= {(r, c) for r in rows for c in keys
+                   if 64 * r < S and 64 * c < S and not (causal and c > r)}
+    return blocks
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S", SEQS)
 def test_forward_walks_dqs_list(causal, S):
-    """The forward and dQ share one geometry, so one list."""
-    assert fa.wgmma_work("flash_fwd", S, causal) == fa.wgmma_work(
-        "flash_bwd_dq", S, causal)
+    """The forward walks the pairs dQ sums over: its list (128-row q
+    tiles streaming 64-key stages) and the one-pass backward's (128-key
+    tiles streaming 64-row q stages), each cut into 64 x 64 blocks, cover
+    the same live blocks, so the backward's P is made over the keys the
+    forward's was."""
+    n = -(-S // 64)
+    want = {(r, c) for r in range(n) for c in range(n)
+            if not (causal and c > r)}
+    assert _live_blocks("flash_fwd", S, causal) == want
+    assert _live_blocks("flash_bwd", S, causal) == want
 
 
 @pytest.mark.parametrize("D,dtype", [(64, torch.bfloat16),
