@@ -837,8 +837,8 @@ def check_sampler_kernel(device, build_log=""):
 
 def flash_inputs(B, S, H, D, dtype, device, seed, masked):
     """q, k, v and a cotangent; with ``masked``, kv_len holds a zero row
-    and a ragged one, and the cotangent is zero at padded q rows, as the
-    masked LM loss weights make it."""
+    and ragged ones (one ragged row at B = 1), and the cotangent is zero
+    at padded q rows, as the masked LM loss weights make it."""
     import torch
 
     gen = torch.Generator(device="cpu").manual_seed(seed)
@@ -846,8 +846,8 @@ def flash_inputs(B, S, H, D, dtype, device, seed, masked):
                   for _ in range(4))
     lens = None
     if masked:
-        lens = torch.tensor([0] + [S - 77] * (B - 1), dtype=torch.int32,
-                            device=device)
+        lens = torch.tensor([0] + [S - 77] * (B - 1) if B > 1 else [S - 77],
+                            dtype=torch.int32, device=device)
         live = torch.arange(S, device=device)[None, :] < lens[:, None]
         g = g * live[:, :, None, None].to(dtype)
     return q, k, v, g, lens
@@ -963,8 +963,9 @@ def compare_flash(B, S, H, D, dtype, device, seed, *, causal, masked,
     lse, delta = got[1], got[5]
     want = over_heads(flash_plain(causal, lens), q, k, v, g, lse, delta,
                       step)
-    lens_txt = f"[0,{S - 77}]" if masked else None
-    label = (f"S={S} D={D} {str(dtype)[6:]} causal={causal} "
+    lens_txt = (lens.tolist() if B <= 2 else f"[0,{S - 77},...]") if masked \
+        else None
+    label = (f"B={B} H={H} S={S} D={D} {str(dtype)[6:]} causal={causal} "
              f"kv_len={lens_txt}")
     want = dict(zip(("out", "lse", "dq", "dk", "dv"), want))
     errs, parts = {}, []
@@ -1032,10 +1033,25 @@ def flash_workspace_bytes(B, S, H, D):
 # the wgmma design is printed beside
 FLASH_FWD_MMA_MS = {(1, 128): 0.0098, (8, 512): 0.0483}
 
+# the bf16 D = 64 forward's ms at phase 17's inference shapes under its
+# first wgmma design (128 rows a block, 64-key stages, two blocks an SM),
+# on an NVIDIA H100 80GB HBM3 at 700 W
+FLASH_FWD_WGMMA1_MS = {(1, 128): 0.0109, (8, 512): 0.0416}
+
 # the CUDA kernel each flash wrapper launches for bf16 at D = 64 (the LM,
 # BERT, ViT and MoE LM paths): the forward, and the backward in one pass
 FLASH_D64_KERNELS = {"flash_fwd": "flash_fwd_wgmma_kernel",
                      "flash_bwd": "flash_bwd_wgmma_kernel"}
+# their builds (ptxas variants: D, then the forward's consumer
+# warpgroups, 1 for 64 q rows an item, 3 for 192)
+FLASH_D64_VARIANTS = {("flash_fwd_wgmma_kernel", "Li64ELi1E"),
+                      ("flash_fwd_wgmma_kernel", "Li64ELi3E"),
+                      ("flash_bwd_wgmma_kernel", "Li64E")}
+# the bf16 D = 64 forward's timed shapes (B, S, H): the LM step, BERT-base,
+# :predict's two; phase 2 holds each causal and not, with kv_len, at the
+# rows a block its shape class resolves
+FWD_TIMED_SHAPES = ((2, 8192, 16), (16, 512, 12), (8, 512, 12),
+                    (1, 128, 12))
 # the kernels line's records in order: the paged and sampler kernels
 # (serving), the flash forward and backward, the bnconv forward and dW
 SERVING_RECORDS, FLASH_RECORDS, BNCONV_RECORDS = (slice(0, 2), slice(2, 4),
@@ -1134,23 +1150,26 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
     attention (timed only). ``build_log`` is nvcc's output for
     ``flash_attention.cu``: each kernel's registers and spills are
     printed, and the bf16 tensor-core kernels at D = 64 (the training
-    path's: the forward and the fused backward) must not spill."""
+    path's: the forward at both of its tiles and the fused backward)
+    must not spill. The forward is also held at ``FWD_TIMED_SHAPES``,
+    causal and not, with kv_len."""
     import torch
 
+    from kubeflow_tpu_torch.ops import autotune
     from kubeflow_tpu_torch.ops import flash_attention as fa
 
     regs = ptxas_kernels(build_log)
     for (name, variant), (n_regs, st, ld) in sorted(regs.items()):
         print(f"  ptxas {name}<{variant}>: {n_regs} registers, spill "
               f"stores {st} B, spill loads {ld} B", flush=True)
-        if "mma" in name and variant == "Li64E":
+        if "mma" in name and variant.startswith("Li64E"):
             check(st == 0 and ld == 0,
-                  f"{name} at D=64 spills ({st} B stored, {ld} B loaded)")
+                  f"{name}<{variant}> spills ({st} B stored, {ld} B "
+                  "loaded)")
     if build_log:
         # the kernels the D = 64 paths run: a kernel never compiled must
         # not pass by its absence
-        missing = set(FLASH_D64_KERNELS.values()) - {
-            name for name, variant in regs if variant == "Li64E"}
+        missing = FLASH_D64_VARIANTS - set(regs)
         check(not missing, f"no ptxas lines at D=64 for {sorted(missing)} "
                            "in the build log")
         # ptxas serializes every wgmma of a kernel it cannot prove safe
@@ -1188,6 +1207,27 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
                             SEED + 29, causal=True, masked=False)
     for name, err in errs.items():
         worst[owner[name]] = max(worst[owner[name]], err)
+    # the forward's timed shapes, causal and not, with kv_len, each at the
+    # rows an item its grid takes on this card (a short grid takes 64)
+    for seed, ((b, s, h), causal) in enumerate(
+            [(shape, c) for shape in FWD_TIMED_SHAPES
+             for c in (True, False)], SEED + 50):
+        tile = autotune.flash_tile("flash_fwd", D, torch.bfloat16,
+                                   batch_heads=b * h, seq=s,
+                                   sms=autotune.sm_count(device))
+        check(tile in autotune.flash_tiles("flash_fwd", D, torch.bfloat16),
+              f"flash_fwd ({b}, {s}, {h}) resolved the tile {tile}")
+        print(f"flash_fwd ({b}, {s}, {h}) causal={causal}: {tile[0]} q rows "
+              f"an item", flush=True)
+        before = dict(fa.launches)
+        errs, case = compare_flash(b, s, h, D, torch.bfloat16, device, seed,
+                                   causal=causal, masked=True,
+                                   step=step if s == S_main else h)
+        check_flash_launched(before, case[0], f"({b}, {s}, {h})")
+        for name, err in errs.items():
+            worst[owner[name]] = max(worst[owner[name]], err)
+        del case
+        torch.cuda.empty_cache()
     # head dims the kernels are not built for (zero-padded to 64 or 128)
     for seed, d_pad in enumerate((32, 80, 96), SEED + 30):
         before = dict(fa.launches)
@@ -2159,15 +2199,20 @@ def dense_warm(eng, prompts, kw) -> None:
 
 
 class StampedQueue(queue.Queue):
-    """A request's token queue that notes when its first item arrives."""
+    """A request's token queue that notes when its first item arrives:
+    ``first_put`` on the script's clock, ``first_put_engine`` on the
+    engine's (``clock``), beside the ledger's stamps."""
 
-    def __init__(self):
+    def __init__(self, clock=time.monotonic):
         super().__init__()
         self.first_put = None
+        self.first_put_engine = None
+        self._clock = clock
 
     def put(self, item, *args, **kwargs):
         if self.first_put is None:
             self.first_put = time.perf_counter()
+            self.first_put_engine = self._clock()
         super().put(item, *args, **kwargs)
 
 
@@ -2179,7 +2224,7 @@ def dense_burst(eng, prompts, kw):
     reqs = [eng.submit(p, max_new=DENSE_NEW, seed=i, **kw)
             for i, p in enumerate(prompts)]
     for r in reqs:              # nothing is queued before the first run_once
-        r.out = StampedQueue()
+        r.out = StampedQueue(eng.clock)
     drain(eng)
     return reqs, [r.result() for r in reqs], t0
 
@@ -2253,12 +2298,18 @@ def dense_run(cfg, model, prompts, device, *, sampler_impl=None,
     # the reference bench's burst TTFT, off the ledger, against the
     # phase's own reading at the requests' queues
     ledger_ttft = ledger_burst_ttft_ms(led, reqs[:DENSE_SLOTS])
+    loop_s, loop_max_s = admission_loop_s(led, reqs[:DENSE_SLOTS])
+    print(f"phase 9 first wave: admission loop {loop_s:.6f} s of host time "
+          f"from the batch's stamp to the 32nd first token's queue put "
+          f"(largest member {loop_max_s:.6f} s); ledger TTFT "
+          f"{ledger_ttft:.2f} ms, queues {max(firsts):.2f} ms", flush=True)
     check(abs(ledger_ttft - max(firsts)) <= 0.05 * max(firsts),
           f"first-wave TTFT: ledger {ledger_ttft:.2f} ms vs queues "
           f"{max(firsts):.2f} ms")
     out = {"tokens_per_s": DENSE_REQUESTS * DENSE_NEW / wall,
            "wall_s": wall, "ttft_ms": max(firsts),
            "ledger_ttft_ms": ledger_ttft,
+           "admission_loop_s": loop_s,
            "ledger_p50_s": ledger_p50(recs),
            "ttft_ms_median": statistics.median(firsts),
            "steps": eng.steps_total - steps0,
@@ -3137,6 +3188,20 @@ def ledger_p50(recs) -> dict:
             for p in phases}
 
 
+def admission_loop_s(led, wave) -> tuple:
+    """Host seconds of the engine's per-member admission loop
+    (``serving/engine.py:_admit_batch``, its ``_emit_first`` calls,
+    which put every member's first token before any member's spans) as
+    the wave saw it: from a member's batch stamp (the ledger's
+    first emit, one stamp a batch) to its first token's queue put, both
+    on the engine's clock. Returns (the gap of the member whose first
+    token reached its queue last, the 32nd; the largest gap)."""
+    gaps = [r.out.first_put_engine - (r.t_submit + led.ttft_ms(r.rid) / 1e3)
+            for r in wave]
+    last = max(range(len(wave)), key=lambda i: wave[i].out.first_put)
+    return gaps[last], max(gaps)
+
+
 def ledger_burst_ttft_ms(led, wave) -> float:
     """The reference bench's burst TTFT off the ledger
     (``bench/suite.py:ledger_burst_ttft_ms``): wall from the wave's first
@@ -3425,7 +3490,8 @@ def check_predict_kernels(device) -> dict:
             out[f"flash_fwd_b{B}_s{S}"] = rec
             print(f"flash_fwd inference bf16 non-causal B={B} S={S} H=12 "
                   f"D=64: norm err {rel:.2e} kernel_ms={rec['ms']:.4f} "
-                  f"(mma.sync design: {FLASH_FWD_MMA_MS[(B, S)]}) "
+                  f"(mma.sync design: {FLASH_FWD_MMA_MS[(B, S)]}; first "
+                  f"wgmma design: {FLASH_FWD_WGMMA1_MS[(B, S)]}) "
                   f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) "
                   f"plain_ms={rec['plain_ms']:.4f} library_ms="
                   f"{rec['library_ms']:.4f} (scaled_dot_product_attention)",

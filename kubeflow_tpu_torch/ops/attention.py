@@ -98,15 +98,16 @@ class _FlashAttention(torch.autograd.Function):
 
 def _resolve_tiles(kernel: str, q, causal: bool, block_q, block_k):
     """One flash pass's tile resolution (``autotune.resolve_flash``),
-    recorded for ``autotune.record_resolutions``. The kernels run their
-    compiled tile (``autotune.flash_tile``) whatever resolves: a caller's
-    TPU knobs are recorded as an override, not refused."""
+    recorded for ``autotune.record_resolutions``. The kernels run the
+    tile of ``autotune.flash_tile`` whatever resolves: a caller's TPU
+    knobs are recorded as an override, not refused."""
     from kubeflow_tpu_torch.ops import autotune
 
     B, S, H, D = q.shape
     return autotune.resolve_flash(
         kernel, seq=S, head_dim=D, n_heads=H, n_kv_heads=H, dtype=q.dtype,
-        causal=causal, block_q=block_q, block_k=block_k,
+        causal=causal, block_q=block_q, block_k=block_k, batch=B,
+        sms=autotune.sm_count(q.device),
         generation=autotune.backend_generation(q.device))
 
 
@@ -122,11 +123,12 @@ def flash_attention(q, k, v, causal: bool = True,
     reference's tile knobs: each pass resolves its kernel key through the
     tile table (``ops/autotune.py:resolve_flash``, recorded for
     ``record_resolutions``; explicit knobs as an override), and the CUDA
-    kernels run the tile they are compiled for (``autotune.flash_tile``),
-    the only legal row on Hopper. ``kv_len`` is an optional
-    ``(B,)`` int32 valid length per batch row; keys at or past it are
-    masked in the forward and both backward passes (outputs at padded q
-    positions are unspecified, as in the reference).
+    kernels run a tile they are compiled for (``autotune.flash_tile``:
+    the forward's rows are those whose grid ends first on the card).
+    ``kv_len`` is an optional ``(B,)`` int32 valid length per batch
+    row; keys at or past it are masked in the forward and both backward
+    passes (outputs at padded q positions are unspecified, as in the
+    reference).
     """
     return _FlashAttention.apply(q, k, v, causal, sm_scale, kv_len,
                                  block_q, block_k)

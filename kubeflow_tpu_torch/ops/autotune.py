@@ -14,19 +14,24 @@ What differs is the legality and the knobs, which are Hopper's:
 
 - ``generation`` is ``sm_90`` on an H100 (``torch.cuda.
   get_device_capability``), ``cpu`` without a card;
-- a **flash** row is legal only with the tile the CUDA kernel of its
-  key runs at the row's head dim and dtype (:func:`flash_tile`): at bf16
-  and D <= 64 the wgmma kernels own 128 rows a block and stream 64 a
-  stage (``csrc/flash_attention.cu`` ``kWgTile``/``kWgStep``: the
-  forward 128 q rows x 64 keys; the backward, one kernel for dQ and
-  dK/dV, 64 q rows x 128 keys under both keys);
-  every other kernel (f32, D = 128, D = 256 and past it) runs 64 x 64
-  (``kBQ``/``kBK``). A row that leaves open a field deciding which
-  kernel runs is illegal. The
-  reference's ``block_q``/``block_k`` are TPU tile edges. A caller's
-  explicit knobs (a reference config's ``attention_block_q/k``) are
-  recorded as an override and the kernels still run their own tile —
-  never a refusal;
+- a **flash** row is legal only with a tile the CUDA kernel of its
+  key is compiled for at the row's head dim and dtype
+  (:func:`flash_tiles`): at bf16 and D <= 64 the forward owns 192 q rows
+  an item (three consumer warpgroups) or 64 (one; two blocks an SM) over
+  64-key stages (``csrc/flash_attention.cu`` ``FwdGeom``, ``kFwdStep``),
+  and the backward, one kernel for dQ and dK/dV, 64 q rows x 128 keys
+  under both keys (``kWgStep``/``kWgTile``); every other kernel (f32,
+  D = 128, D = 256 and past it) runs 64 x 64 (``kBQ``/``kBK``). The
+  forward's rows are the grid's, not a row's: :func:`flash_tile` takes
+  the tile whose grid ends first on the card's SMs
+  (:func:`forward_rounds`): the 64-row tile runs three times the items,
+  two blocks an SM, so it wins where the 192-row tile's last round
+  would leave SMs idle. A row that leaves open a field deciding which
+  kernel runs is illegal. The reference's ``block_q``/``block_k`` are
+  TPU tile edges. A caller's explicit knobs (a reference config's
+  ``attention_block_q/k``) are recorded as an override, and a table
+  row as a table row: the kernels run :func:`flash_tile`'s tile
+  whatever resolves — never a refusal;
 - a **paged** row's knob is ``split_tokens``, the keys of a split of a
   row's pages in ``csrc/paged_attention.cu``: the port's counterpart of
   the reference's ``head_block`` (the kernels take q heads in blocks of
@@ -66,11 +71,19 @@ MIN_SEQ_BUCKET = 128
 # (csrc kBQ, kBK), for the mma.sync and FMA kernels
 FLASH_TILE = (64, 64)
 # bf16 at head dims up to WGMMA_HEAD_DIM (padded to it): the wgmma
-# kernels' (block_q, block_k), 128 rows a block and 64 a stage (csrc
-# kWgTile, kWgStep): the forward's, and the fused backward's (dQ, dK and
-# dV in one kernel)
+# kernels' (block_q, block_k). The forward: 192 q rows an item (csrc
+# FwdGeom<3>) over 64-key stages (kFwdStep), or on a short grid
+# WGMMA_FWD_SHORT_TILE, 64 rows an item (FwdGeom<1>, two blocks an SM).
+# The fused backward (dQ, dK and dV in one kernel): 64-row q stages
+# walked by 128-key blocks (kWgStep, kWgTile)
 WGMMA_HEAD_DIM = 64
-WGMMA_TILES = {"flash_fwd": (128, 64), "flash_bwd": (64, 128)}
+WGMMA_TILES = {"flash_fwd": (192, 64), "flash_bwd": (64, 128)}
+WGMMA_FWD_SHORT_TILE = (64, 64)
+# the forward's rows an item -> (its blocks an SM, csrc FwdGeom's: one
+# 192-row block, two 64-row ones; a round's time relative to a 64-row
+# round, 1.15 at phase 2's non-causal shapes on an NVIDIA H100 80GB HBM3
+# at 700 W, PERF.md §6 row 3)
+FWD_ROUNDS = {192: (1, 1.15), 64: (2, 1.0)}
 # the wgmma kernel each reference key runs (both backward keys: the fused one)
 WGMMA_KERNEL = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd",
                 "flash_bwd_dkv": "flash_bwd", "flash_bwd": "flash_bwd"}
@@ -143,6 +156,7 @@ def fit_block(seq: int, block: int) -> int:
 
 
 _GENERATIONS: Dict[Optional[int], str] = {}
+_SMS: Dict[Optional[int], int] = {}
 
 
 def backend_generation(device: Any = None) -> str:
@@ -165,30 +179,84 @@ def backend_generation(device: Any = None) -> str:
     return gen
 
 
+def sm_count(device: Any) -> Optional[int]:
+    """The SMs of the CUDA card ``device``; None for any other device."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    sms = _SMS.get(device.index)
+    if sms is None:
+        sms = _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return sms
+
+
 # ---------------------------------------------------------------------------
 # Hopper legality: the flash kernels' compiled tiles
 # ---------------------------------------------------------------------------
 
 
-def flash_tile(kernel: str, head_dim: int, dtype: Any) -> Tuple[int, int]:
+def _wgmma(kernel: str, head_dim: int, dtype: Any) -> bool:
+    """Whether ``kernel`` runs a wgmma kernel at this head dim and dtype:
+    bf16 at head dims up to ``WGMMA_HEAD_DIM`` (the wrapper pads those
+    to it)."""
+    return (kernel in WGMMA_KERNEL and dtype_name(dtype) == "bfloat16"
+            and head_dim <= WGMMA_HEAD_DIM)
+
+
+def flash_tiles(kernel: str, head_dim: int, dtype: Any) -> frozenset:
+    """Every ``(block_q, block_k)`` the CUDA kernel of ``kernel`` is
+    compiled for at a ``head_dim``-wide input of ``dtype``: the wgmma
+    forward's two, else the one of :func:`flash_tile`."""
+    if WGMMA_KERNEL.get(kernel) == "flash_fwd" and _wgmma(kernel, head_dim,
+                                                          dtype):
+        return frozenset({WGMMA_TILES["flash_fwd"], WGMMA_FWD_SHORT_TILE})
+    return frozenset({flash_tile(kernel, head_dim, dtype)})
+
+
+def flash_tile(kernel: str, head_dim: int, dtype: Any, *,
+               batch_heads: Optional[int] = None,
+               seq: Optional[int] = None,
+               sms: Optional[int] = None) -> Tuple[int, int]:
     """``(block_q, block_k)`` the CUDA kernel of ``kernel`` runs for a
-    ``head_dim``-wide input of ``dtype``: the wgmma tile of bf16 at
-    head dims up to ``WGMMA_HEAD_DIM`` (the wrapper pads those to it),
-    else ``FLASH_TILE``."""
-    if (kernel in WGMMA_KERNEL and dtype_name(dtype) == "bfloat16"
-            and head_dim <= WGMMA_HEAD_DIM):
-        return WGMMA_TILES[WGMMA_KERNEL[kernel]]
-    return FLASH_TILE
+    ``head_dim``-wide input of ``dtype``: the wgmma tile of bf16 at head
+    dims up to ``WGMMA_HEAD_DIM``, else ``FLASH_TILE``. The wgmma
+    forward given ``batch_heads`` (B * H), ``seq`` and the card's
+    ``sms`` takes ``WGMMA_FWD_SHORT_TILE`` where its grid ends first
+    (:func:`forward_rounds`)."""
+    if not _wgmma(kernel, head_dim, dtype):
+        return FLASH_TILE
+    tile = WGMMA_TILES[WGMMA_KERNEL[kernel]]
+    if (WGMMA_KERNEL[kernel] == "flash_fwd"
+            and None not in (batch_heads, seq, sms)
+            and forward_rounds(WGMMA_FWD_SHORT_TILE[0], batch_heads, seq,
+                               sms)
+            < forward_rounds(tile[0], batch_heads, seq, sms)):
+        return WGMMA_FWD_SHORT_TILE
+    return tile
+
+
+def forward_rounds(rows: int, batch_heads: int, seq: int, sms: int) -> float:
+    """The wgmma forward's grid time at ``rows`` q rows an item, in
+    64-row rounds: the rounds its ``batch_heads * ceil(seq / rows)``
+    items take at ``FWD_ROUNDS``' blocks an SM on ``sms`` SMs, each at
+    its tile's relative cost."""
+    per_sm, cost = FWD_ROUNDS[rows]
+    items = batch_heads * -(-seq // rows)
+    return -(-items // (per_sm * sms)) * cost
 
 
 def _row_tiles(entry: Dict[str, Any]) -> set:
-    """The tiles the kernel of a flash row's key runs over every shape
-    the row can match (one tile, unless an open field decides)."""
+    """The sets of tiles the kernel of a flash row's key is compiled for
+    over every shape the row can match (one set, unless an open field
+    decides)."""
     head_dim, dtype = entry.get("head_dim"), entry.get("dtype")
     dims = ((WGMMA_HEAD_DIM, WGMMA_HEAD_DIM + 1) if head_dim in _WILDCARD
             else (head_dim,))
     dtypes = tuple(DTYPE_BYTES) if dtype in _WILDCARD else (dtype,)
-    return {flash_tile(entry["kernel"], d, t) for d in dims for t in dtypes}
+    return {flash_tiles(entry["kernel"], d, t) for d in dims for t in dtypes}
 
 
 # ---------------------------------------------------------------------------
@@ -282,7 +350,7 @@ def paged_legality_point(entry: Dict[str, Any]) -> Tuple[int, int, int, int]:
 #   causal      bool or null
 #   generation  backend_generation() slug or "*"/null
 #   page_size   int or null — paged_attn only
-#   block_q / block_k   int — flash kernels (flash_tile only)
+#   block_q / block_k   int — flash kernels (a tile of flash_tiles)
 #   split_tokens        int — paged_attn (keys a split block takes)
 #   provenance  str — where the numbers came from
 
@@ -325,7 +393,7 @@ def _int_field(entry: Dict[str, Any], field: str,
 def validate_entry(entry: Dict[str, Any],
                    smem_limit: Optional[int] = None) -> List[str]:
     """All the reasons ``entry`` is illegal on Hopper (empty list =
-    legal): the flash kernel's compiled tile (:func:`flash_tile`), the
+    legal): the flash kernel's compiled tiles (:func:`flash_tiles`), the
     paged split's whole pages and its block's shared memory against
     ``smem_limit`` (by default the limit of the route that runs at the
     row's legality point, :func:`paged_smem_limit`)."""
@@ -384,13 +452,17 @@ def validate_entry(entry: Dict[str, Any],
         return errs
     tiles = _row_tiles(entry)
     if len(tiles) > 1:
-        errs.append(f"{kernel} runs the tiles {sorted(tiles)} over the "
-                    "shapes this row matches: pin head_dim and dtype")
-    elif (bq, bk) not in tiles:
-        (tq, tk), = tiles
-        errs.append(f"block_q x block_k {bq} x {bk} is not the {tq} x {tk} "
-                    f"tile {kernel} is compiled for at this head_dim and "
-                    "dtype (csrc kBQ/kBK, or kWgTile/kWgStep)")
+        errs.append(f"{kernel} runs the tiles "
+                    f"{sorted(sorted(t) for t in tiles)} over the shapes "
+                    "this row matches: pin head_dim and dtype")
+    else:
+        (legal,) = tiles
+        if (bq, bk) not in legal:
+            names = " or ".join(f"{tq} x {tk}" for tq, tk in sorted(legal))
+            errs.append(f"block_q x block_k {bq} x {bk} is not a tile "
+                        f"{kernel} is compiled for at this head_dim and "
+                        f"dtype: {names} (csrc kBQ/kBK, FwdGeom/kFwdStep "
+                        "or kWgStep/kWgTile)")
     return errs
 
 
@@ -606,15 +678,18 @@ def resolve_flash(kernel: str, *, seq: int, head_dim: int, n_heads: int,
                   n_kv_heads: int, dtype: Any, causal: bool,
                   block_q: Optional[int] = None,
                   block_k: Optional[int] = None,
+                  batch: Optional[int] = None,
+                  sms: Optional[int] = None,
                   generation: Optional[str] = None) -> TileConfig:
     """Resolve one flash kernel's ``(block_q, block_k)``.
 
     Explicit knobs are recorded untouched (``source="override"``; a
-    partial override pins one knob and resolves the other); otherwise the
-    table's most-specific entry; otherwise the fallback, the tile the
-    kernel runs (:func:`flash_tile`). Whatever is recorded, the kernels
-    run their compiled tile and mask a ragged last tile, so no value is
-    fitted to ``seq`` and none is refused.
+    partial override pins one knob and resolves the other); otherwise
+    the table's most-specific entry; otherwise the fallback, the tile
+    the kernel runs (:func:`flash_tile`; ``batch`` and the card's
+    ``sms`` decide the forward's rows). Whatever is recorded, the
+    kernels run :func:`flash_tile`'s tile and mask a ragged last tile,
+    so no value is fitted to ``seq`` and none is refused.
     """
     if kernel not in KERNELS or kernel == "paged_attn":
         raise ValueError(f"not a flash kernel key: {kernel!r}")
@@ -631,7 +706,10 @@ def resolve_flash(kernel: str, *, seq: int, head_dim: int, n_heads: int,
     if entry is not None:
         bq, bk, source = entry["block_q"], entry["block_k"], "table"
     else:
-        (bq, bk), source = flash_tile(kernel, head_dim, dtype), "fallback"
+        batch_heads = None if batch is None else batch * n_heads
+        (bq, bk), source = flash_tile(
+            kernel, head_dim, dtype, batch_heads=batch_heads, seq=seq,
+            sms=sms), "fallback"
     if block_q is not None:
         bq, source = int(block_q), "override"
     if block_k is not None:

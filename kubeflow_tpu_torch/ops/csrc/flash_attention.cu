@@ -50,13 +50,15 @@
 //   same expressions, so the backward's P is the forward's. A batch row
 //   with kv_len == 0 has every key masked: its loops cover every tile, so
 //   it averages over all S keys, as reference_attention does.
-// - Tiles of 64 q rows by 64 keys (kBK is BLOCK_K of the plain forward).
-//   The causal forward and dQ grids put batch*head on x and walk q tiles
-//   from the last (most kv tiles) to the first. The wgmma kernels own
-//   128 rows a block (kWgTile) and stream 64 a stage (kWgStep) over a work
-//   list from the wrapper (ops/flash_attention.py:wgmma_work): the
-//   forward's grid y walks it heaviest first, the backward's persistent
-//   blocks take it in descending kv tile, head by head.
+// - Tiles of 64 q rows by 64 keys (kBK, and the wgmma forward's kFwdStep,
+//   is BLOCK_K of the plain forward). The causal forward and dQ grids put
+//   batch*head on x and walk q tiles from the last (most kv tiles) to the
+//   first. The wgmma kernels walk a work list from the wrapper
+//   (ops/flash_attention.py:wgmma_work, one head's) on persistent grids
+//   whose blocks take the items head by head from a counter: the
+//   forward's items are 192 (or 64) q rows streaming 64-key stages,
+//   heaviest first; the backward's blocks own 128 keys (kWgTile)
+//   streaming 64 q rows a stage (kWgStep) in descending kv tile.
 // - Inputs are read through their (B, S, H, D) strides (no head-fusing
 //   transpose); the ragged edge is masked, so any S works: keys past S
 //   are zero in shared memory and get P = 0, q rows past S are never
@@ -64,32 +66,55 @@
 //
 // bf16 at D = 64 (the LM, BERT, ViT and MoE LM paths, and any D < 64,
 // padded to it): wgmma over a TMA ring fed by a producer warp, the shape
-// of bnconv.cu, with the helpers of hopper.cuh. Three warpgroups a block:
-// two consumers, 64 owned rows each, and a producer whose first warp
-// keeps the ring's kWgStages stages in flight (cp.async.bulk.tensor,
-// 128-byte swizzle, a full/empty mbarrier pair a stage) and hands its
-// registers to the consumers (setmaxnreg). q, k, v and dO are read
-// through 4-D tensor maps over (D, S, H, B) with the caller's strides
-// (views of a fused projection included; the wrapper refuses what a map
-// cannot encode); TMA's zero fill stands in for rows past S.
-// - Forward: a block owns 128 q rows with Q resident; K and V ride the
-//   ring, 64 keys a stage (BLOCK_K of the plain forward, so P is rounded
-//   at the same running max). S = Q.K^T is wgmma m64n64k16 with both
-//   operands K-major in shared memory; it is scaled in f32, masked only
-//   on edge tiles (causal diagonal, keys past S to -inf, kv_len), and the
-//   online softmax runs on the accumulator fragments (a row's max and sum
-//   over the 4 lanes of a quad, P on the SFU). P, rounded to bf16 in
-//   registers of its own, is the register A operand of P.V with V read
-//   MN-major from the stage through the transpose bit. P.V goes to fresh
-//   fragments and the FMA units add it as O = O * alpha + P.V (see Long
-//   sums). The epilogue divides by max(l, 1e-30), stores bf16 pairs from
-//   registers and lse = m + logf(l) (lse is held to 1e-5 absolute: logf,
-//   not the SFU's lg2). Bound: operations, 4*D flops a live pair, 2
-//   GEMMs' worth a tile; at D = 64 the pair's one exponential on the SFU
-//   (16 a clock an SM) costs about as much as its 256 flops on the tensor
-//   cores. So two blocks share an SM (kFwdBlocks; setmaxnreg gives the
-//   consumers 104 registers, the producer keeps 24): four consumer
-//   warpgroups overlap the two units better than two do.
+// of bnconv.cu, with the helpers of hopper.cuh: consumer warpgroups of
+// 64 owned rows each and a producer warpgroup whose first warp keeps the
+// ring's stages in flight (cp.async.bulk.tensor, 128-byte swizzle, a
+// full/empty mbarrier pair a stage) and hands its registers to the
+// consumers (setmaxnreg). q, k, v and dO are read through 4-D tensor maps
+// over (D, S, H, B) with the caller's strides (views of a fused
+// projection included; the wrapper refuses what a map cannot encode);
+// TMA's zero fill stands in for rows past S.
+// - Forward (flash_fwd_wgmma_kernel<D, NC>): an item is 64 NC q rows of
+//   one head with Q resident (one box of the item's rows, two buffers, so
+//   the next item's Q loads under this one); K and V ride the ring, 64
+//   keys a stage (kFwdStep: BLOCK_K of the plain forward, so P is rounded
+//   at the same running max), the stage count running on from item to
+//   item, so the next item's first stages load under this one's last.
+//   NC = 3 (192 rows, one block an SM, consumers at 160 registers) is the
+//   rule; NC = 1 (64 rows, two blocks an SM, 232) is the tile table's
+//   choice where the 192-row grid's last round would leave SMs idle
+//   (ops/autotune.py:forward_rounds). The grid is persistent: as many
+//   blocks as the card holds, each taking the next item from a counter
+//   when its producer is free, head by head, so the blocks in flight
+//   read a few heads' K and V from L2 and the heavy and light items of
+//   each head are shared out as the blocks free up.
+//   Inside a warpgroup the stages overlap: S_{j+1} = Q.K_{j+1}^T and
+//   P_j.V_j go out together, the softmax of S_{j+1} runs on the SFU and
+//   FMA units while P_j.V_j is in flight (wgmma_wait<1>), and P_{j+1} is
+//   rounded into P's registers once P_j.V_j has landed. S is wgmma
+//   m64n64k16 with both operands K-major in shared memory, into fresh
+//   fragments (its first k-step only writes them, so they are no input
+//   of the next S and hold P in f32 between stages); the softmax runs in
+//   place on them: the row max over the raw products (scale > 0), each
+//   exponent one FFMA, ex2(s * c - m * c) with c = scale * log2(e), the
+//   masks only on edge stages (causal diagonal, kv_len, keys past S to
+//   -inf; a masked product is kMaskRaw, so a row with no live key
+//   averages V uniformly, as NEG_INF makes the reference's). P, rounded
+//   to bf16, is the register A operand of P.V with V read MN-major from
+//   the stage through the transpose bit. P.V goes to fresh fragments and
+//   the FMA units add it as O = O * alpha + P.V (see Long sums). The
+//   epilogue scales by 1 / max(l, 1e-30), stores bf16 pairs from
+//   registers and lse = m + logf(l) (held to 1e-5 absolute: logf, not
+//   the SFU's lg2). No branch sits between a wgmma's issue and the wait
+//   that retires it, so ptxas sees which group each wait retires (with a
+//   conditional S inside the loop it serialized every wgmma, C7514).
+//   Bound: operations, 4*D flops a live pair, 2 GEMMs' worth a tile; at
+//   D = 64 the pair's one exponential on the SFU (16 a clock an SM) costs
+//   about as much as its 256 flops on the tensor cores, which is what
+//   the in-warpgroup overlap is for. Registers: O (32), P.V's fresh
+//   fragments (32), P (16) and S (32) a thread at the peak, so three
+//   warpgroups fit 160; a 128-key stage (S 64, P 32) would not, and two
+//   warpgroups of it at 240 registers read slower (PERF.md §6 row 3).
 // - The backward is one kernel for dQ, dK and dV (flash_bwd_wgmma_kernel).
 //   Two passes (one owning keys for dK/dV, one owning q rows for dQ) each
 //   made S, dP, P = exp(S - lse) and dS again: the exponentials twice and
@@ -166,15 +191,16 @@
 //   on the SFU (exp_sfu) while dP runs; dV goes out while dS is made and
 //   is added while dK runs, and (warpgroup 1) dK's fragments are added
 //   while dQ runs.
-//   In the forward and the backward the two consumer warpgroups take turns
-//   issuing S (and dP; named barriers), so one's element-wise work
-//   overlaps the other's products. Every group lands within its tile, and
+//   In the backward the two consumer warpgroups take turns issuing S and
+//   dP (named barriers), so one's element-wise work overlaps the other's
+//   products. Every group lands within its tile, and
 //   the branches around wgmma are warp-uniform to ptxas (indices and loop
 //   bounds from a shuffle): otherwise ptxas serializes every wgmma (its
 //   C7515/C7518 notes), 1.2x slower. A warpgroup whose rows see none of a
 //   causal tile (the backward's first q tile for a block's upper keys,
-//   the forward's last kv tile for its lower rows) skips its products
-//   (the backward's still writes a zero dS^T, and warpgroup 1 its dQ).
+//   the forward's last stages for an item's lower rows) skips its
+//   products (the backward's still writes a zero dS^T, and warpgroup 1
+//   its dQ).
 // - The backward's P is exp(s - lse) where the forward's was
 //   exp(s - m) / l over running maxima (and the backward sums S^T in its
 //   own order), so it is the forward's to a few f32 ulp, not bit for bit;
@@ -246,12 +272,9 @@
 // scores over 64-wide slices of D and give each block one slice of up to
 // 256 output columns (grid z), recomputing the scores for it: no upper
 // limit on D, at D / 256 times the score work (see the wide kernels).
-// Not yet: D = 128 on wgmma (forward and backward); a persistent grid
-// for the forward; in-kernel GQA (the wrapper takes K and V already
-// repeated); the forward's next stage of S issued before this stage's
-// softmax (FA3's intra-warpgroup overlap: its registers do not fit two
-// blocks an SM, and at one block an SM it read slower than two blocks
-// without it).
+// Not yet: D = 128 on wgmma (forward and backward); in-kernel GQA (the
+// wrapper takes K and V already repeated); some of the forward's
+// exponentials on the FMA units.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -277,20 +300,20 @@ static_assert(kBQ == 64 && kBK == 64, "the 4 x 4 micro-tiles assume 64");
 static_assert(kBQ == 16 * kWarpsTC && kBK == 16 * kWarpsTC,
               "each warp of a tensor-core kernel owns 16 rows");
 
-// The bf16 kernels at D = 64 (the wgmma kernels: forward, dQ, dK/dV): two
+// The bf16 backward at D = 64 (the wgmma kernel for dQ, dK and dV): two
 // consumer warpgroups and one producer warpgroup; a block owns kWgTile
-// rows (keys for dK/dV, q rows for the forward and dQ), 64 to each
-// consumer warpgroup, and streams the other side kWgStep rows a stage
-// through a kWgStages-deep ring.
+// keys, 64 to each consumer warpgroup, and streams q rows kWgStep a stage
+// through a kWgStages-deep ring. (kWG is every wgmma kernel's warpgroup;
+// the forward's geometry is FwdGeom's.)
 constexpr int kWG = 128;
 constexpr int kWgThreads = 3 * kWG;
 constexpr int kWgTile = 128;
 constexpr int kWgStep = 64;
 constexpr int kWgStages = 4;
 constexpr int kStatStride = 2 * kWgStep;  // a stage's lse, then delta
-// Named barriers kTurnBar + wg: the consumer warpgroups take turns to
-// issue a tile's S products (and dP's in the backward; warpgroup 0
-// first), so one's element-wise work runs while the other's products do.
+// Named barriers kTurnBar + wg: the backward's consumer warpgroups take
+// turns to issue a tile's S and dP products (warpgroup 0 first), so
+// one's element-wise work runs while the other's products do.
 // Each warpgroup takes one turn a stage of the block's range, live or
 // not; warpgroup 1 hands no turn on after the last, so every arrival is
 // waited on.
@@ -2526,72 +2549,105 @@ __global__ void flash_bwd_dq_out_kernel(const float4* __restrict__ ws,
 }
 
 // ---------------------------------------------------------------------------
-// The wgmma forward: blocks an SM, registers, and one stage's softmax.
+// The wgmma forward: its key stage, blocks an SM, registers, one stage's
+// softmax.
 // ---------------------------------------------------------------------------
 
-// Two forward blocks an SM (83 KB of shared memory each): at D = 64 a
-// stage's exponentials on the SFU take about as long as its products on
-// the tensor cores, and four consumer warpgroups an SM overlap the two
-// better than one block's two. 384 x 2 threads start with 80 registers
-// each; setmaxnreg moves 56 of the producer warpgroup's to the
-// consumers, whose loop fits in 104 without spilling.
-constexpr int kFwdBlocks = 2;
-constexpr int kFwdLaunchRegs = (65536 / (kWgThreads * kFwdBlocks)) & ~7;
+// The forward's key stage (BLOCK_K of the plain forward): 64 keys, one box
+// of K and one of V a stage. Its own constant beside the backward's
+// kWgStep: a stage of 128 keys (S 64 registers a thread) leaves three
+// consumer warpgroups' 160 registers no room beside O, P.V's fresh
+// fragments and P (PERF.md §6 row 3 times both).
+constexpr int kFwdStep = 64;
+constexpr int kFwdGroups = kFwdStep / 8;          // 8-key groups of S
 constexpr int kFwdProducerRegs = 24;
-constexpr int kFwdConsumerRegs = 104;
-static_assert(2 * (kFwdConsumerRegs - kFwdLaunchRegs) <=
-                  kFwdLaunchRegs - kFwdProducerRegs,
-              "setmaxnreg.inc takes only what its block's producer gave up");
+static_assert(kFwdStep == hopper::kSw, "S is one wgmma of n = 64 a k-step");
+// A masked score's raw product (causal, kv_len): below every real one,
+// and finite, so a row whose keys are all masked has max == it and P = 1
+// (the reference's NEG_INF row), while one with a live key gets P = 0.
+constexpr float kMaskRaw = -3.0e38f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-// One stage's online softmax from its finished S (read, never written:
-// ptxas serializes wgmma when other instructions write an accumulator).
-// Scale in f32 ((q.k) * scale, as the mma.sync kernels); with `edge`, the
-// masks (rows qrow and qrow + 8, keys kcol + 8 n + {0, 1}; keys past S do
-// not exist: -inf, out of the max, P = 0); the row max over the 4 lanes
-// of a quad; P on the SFU, rounded to bf16 into the A fragments of P.V
-// (key group n: k-step n / 2, registers 2 (n & 1) for row g and
-// 2 (n & 1) + 1 for row g + 8); l sums this thread's f32 values. alpha is
-// the factor that rescales O before this stage's P.V.
-__device__ __forceinline__ void fwd_softmax(
-    const float (&acc)[32], float (&m)[2], float (&l)[2],
-    uint32_t (&pf)[4][4], float (&alpha)[2], int qrow, int kcol, int S,
-    int limit, float scale, int causal, bool edge) {
-  float sv[32];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float sc = acc[4 * n + e] * scale;
-      if (edge) {
-        const int qpos = qrow + 8 * (e >> 1);
-        const int kpos = kcol + 8 * n + (e & 1);
-        sc = kpos < S ? mask_score(sc, qpos, kpos, limit, causal)
-                      : -INFINITY;
-      }
-      sv[4 * n + e] = sc;
-    }
+// The block geometry of NC consumer warpgroups (64 q rows each) and one
+// producer warpgroup. NC = 3: one block an SM; 512 threads start with 128
+// registers, and setmaxnreg moves 96 of the producer's to the three
+// consumers (160 each). NC = 1 (short grids: three times the items): two
+// blocks an SM of 256 threads at 128, consumers at 232. Each consumer
+// warpgroup overlaps its own products with its softmax (the kernel's
+// note).
+template <int NC>
+struct FwdGeom {
+  static_assert(NC == 1 || NC == 3, "64 or 192 q rows an item");
+  static constexpr int kThreads = (NC + 1) * kWG;
+  static constexpr int kBlocks = NC == 1 ? 2 : 1;   // blocks an SM
+  static constexpr int kStages = 4;                 // ring stages
+  static constexpr int kLaunchRegs = (65536 / (kThreads * kBlocks)) & ~7;
+  static constexpr int kConsumerRegs = NC == 1 ? 232 : 160;
+  static_assert(NC * (kConsumerRegs - kLaunchRegs) <=
+                    kLaunchRegs - kFwdProducerRegs,
+                "setmaxnreg.inc takes only what its block's producer gave "
+                "up");
+  // Q (two buffers of NC boxes), the ring (a K box and a V box a stage),
+  // the barriers (full and empty a stage and a Q buffer), the Q buffers'
+  // items, and the slack to a 1024-byte boundary
+  static constexpr size_t kSmem =
+      1024 + (size_t)(2 * NC + 2 * kStages) * hopper::kBox +
+      (2 * kStages + 4) * 8 + 2 * 4;
+  static_assert(kBlocks * (kSmem + 1024) <= 233472,
+                "the blocks an SM share its 228 KB");
+};
+
+// exp2 on the SFU (0 for -inf and for the large negative arguments of
+// masked keys).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One stage's online softmax on its finished S (raw products q.k), in
+// place: S's fragments end holding this stage's P in f32 (fwd_pack
+// rounds them into P.V's operand once the stage before has landed). The
+// max runs on the raw products (scale > 0, so they order as the scaled
+// scores do), and each exponent is one FFMA: exp(s*scale - m*scale) =
+// ex2(s*c - m*c), c = scale * log2(e). With kEdge, the masks: this
+// thread's keys kcol + 8 n + {0, 1} of rows g and g + 8 (r = 0, 1) are
+// live below live[r] (causal, kv_len and S), masked below S (kMaskRaw,
+// and the exponent (x - m) * c: 0 for a row with no live key yet, the
+// reference's uniform row, and -huge for one with), and do not exist
+// past S (-inf: out of the max, P = 0). l sums this thread's f32 values;
+// alpha is the factor that rescales O before this stage's P.V.
+template <bool kEdge>
+__device__ __forceinline__ void fwd_softmax_at(
+    float (&acc)[4 * kFwdGroups], float (&m)[2], float (&l)[2],
+    float (&alpha)[2], const int (&live)[2], int kcol, int S, float c) {
+  // a score as the max and the exponent see it (key offset from kcol)
+  auto x = [&](int n, int e) {
+    const int kpos = kcol + 8 * n + (e & 1);
+    if (!kEdge || kpos < live[e >> 1]) return acc[4 * n + e];
+    return kpos < S ? kMaskRaw : -INFINITY;
+  };
   float mn[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float mx = -INFINITY;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-      mx = fmaxf(mx, fmaxf(sv[4 * n + 2 * r], sv[4 * n + 2 * r + 1]));
+    for (int n = 0; n < kFwdGroups; ++n)
+      mx = fmaxf(mx, fmaxf(x(n, 2 * r), x(n, 2 * r + 1)));
     mn[r] = fmaxf(m[r], quad_max(mx));
-    alpha[r] = exp_sfu(m[r] - mn[r]);
+    alpha[r] = ex2((m[r] - mn[r]) * c);
   }
+  const float mc[2] = {mn[0] * c, mn[1] * c};
   float ps[2] = {0.f, 0.f};
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    float p[4];
+  for (int n = 0; n < kFwdGroups; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) p[e] = exp_sfu(sv[4 * n + e] - mn[e >> 1]);
-    ps[0] += p[0] + p[1];
-    ps[1] += p[2] + p[3];
-    const int kk = n >> 1, r = (n & 1) * 2;
-    pf[kk][r] = pack_bf16(p[0], p[1]);
-    pf[kk][r + 1] = pack_bf16(p[2], p[3]);
-  }
+    for (int e = 0; e < 4; ++e) {
+      const float p = kEdge ? ex2((x(n, e) - mn[e >> 1]) * c)
+                            : ex2(fmaf(acc[4 * n + e], c, -mc[e >> 1]));
+      ps[e >> 1] += p;
+      acc[4 * n + e] = p;
+    }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] = l[r] * alpha[r] + ps[r];
@@ -2599,50 +2655,104 @@ __device__ __forceinline__ void fwd_softmax(
   }
 }
 
+// A stage's P (fwd_softmax_at's f32 values) rounded to bf16 into the A
+// fragments of P.V: key group n is k-step n / 2, registers 2 (n & 1) for
+// row g and 2 (n & 1) + 1 for row g + 8.
+__device__ __forceinline__ void fwd_pack(const float (&p)[4 * kFwdGroups],
+                                         uint32_t (&pf)[kFwdStep / 16][4]) {
+#pragma unroll
+  for (int n = 0; n < kFwdGroups; ++n) {
+    const int kk = n >> 1, r = (n & 1) * 2;
+    pf[kk][r] = pack_bf16(p[4 * n], p[4 * n + 1]);
+    pf[kk][r + 1] = pack_bf16(p[4 * n + 2], p[4 * n + 3]);
+  }
+}
+
+// Item x of the forward: work item x % n_work of head bh = x / n_work,
+// so the items head by head, each head's heaviest first; the blocks in
+// flight share a few heads' K and V in L2. Its q rows from q0, its kv
+// stages [lo, hi): the work item's causal range, or every stage (not
+// causal, or a kv_len == 0 row, whose keys are all masked). The producer
+// and the consumers decode the same items.
+struct FwdItem {
+  int b, h, bh, q0, lo, hi, limit;
+  bool trim;
+};
+__device__ __forceinline__ FwdItem fwd_item(int x, int n_work, int H,
+                                            int S, int rows, int causal,
+                                            const int* work,
+                                            const int* kv_len) {
+  FwdItem w;
+  const int* e = work + 3 * (x % n_work);
+  w.bh = x / n_work;
+  w.b = w.bh / H;
+  w.h = w.bh % H;
+  w.q0 = e[0] * rows;
+  w.limit = kv_len ? kv_len[w.b] : S;
+  w.trim = causal && w.limit > 0;
+  w.lo = w.trim ? e[1] : 0;
+  w.hi = w.trim ? e[2] : (S + kFwdStep - 1) / kFwdStep;
+  return w;
+}
+
 // ---------------------------------------------------------------------------
-// bf16 forward on wgmma (D = 64): a block owns 128 q rows.
-// grid (B*H, work items); item y is (q tile, first kv tile, end kv tile),
-// heaviest first. Consumer warpgroup wg owns q rows qw = q0 + 64 wg ..
-// qw + 63; m, l and the output fragments of its rows g and g + 8 stay in
-// registers. Shared memory: Q (2 boxes) resident; a ring of kWgStages
-// stages of (K box, V box); the barriers.
+// bf16 forward on wgmma (D = 64): a persistent grid whose blocks own 64 NC
+// q rows an item. The n_items = B H n_work items (fwd_item; the work
+// list's items are (q tile, first kv stage, end kv stage), heaviest
+// first) are taken in order by whichever block's producer asks next
+// (counters[0]), so the blocks share the heavy and light items of each
+// head; the last block to finish zeroes counters for the next launch on
+// the stream (counters[1] counts the finished blocks). Consumer
+// warpgroup wg owns q rows qw = q0 + 64 wg .. qw + 63 of an item; m, l
+// and the output fragments of its rows g and g + 8 stay in registers.
+// Shared memory: Q in two buffers (NC boxes each, one TMA box of 64 NC
+// rows), so the producer loads the next item's Q while this one runs; a
+// ring of kStages stages of (K, V), kFwdStep rows each (one TMA box of
+// kFwdStep rows a tensor), its stages counted on from item to item, so
+// the next item's first stages load under this one's last; the barriers;
+// the item of each Q buffer.
 // ---------------------------------------------------------------------------
 
-template <int D>
-__global__ void __launch_bounds__(kWgThreads, kFwdBlocks)
+template <int D, int NC>
+__global__ void __launch_bounds__(FwdGeom<NC>::kThreads, FwdGeom<NC>::kBlocks)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
                            const __grid_constant__ CUtensorMap map_v,
                            const int* __restrict__ kv_len,
-                           const int* __restrict__ work,
+                           const int* __restrict__ work, int n_work,
+                           int n_items, int* __restrict__ counters,
                            bf16* __restrict__ out, float* __restrict__ lse,
                            int H, int S, float scale, int causal) {
   static_assert(D == hopper::kSw, "a head is one 128-byte swizzled row");
   using namespace hopper;
+  using G = FwdGeom<NC>;
+  constexpr int kStages = G::kStages;
+  constexpr int kStageBytes = 2 * kBox;  // K, then V
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = smem_raw;
-  const uint32_t res = ring_base(smem);           // Q
-  const uint32_t ring = res + 2 * kBox;           // stage s: K, V
-  const uint32_t bars = ring + kWgStages * 2 * kBox;
+  const uint32_t res = ring_base(smem);           // Q, two buffers
+  const uint32_t ring = res + 2 * NC * kBox;      // stage s: K, V
+  const uint32_t bars = ring + kStages * kStageBytes;
   auto full = [&](int s) { return bars + 8 * s; };
-  auto empty = [&](int s) { return bars + 8 * (kWgStages + s); };
-  const uint32_t res_full = bars + 16 * kWgStages;
-
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int* item = work + 3 * blockIdx.y;
-  const int q0 = item[0] * kWgTile;
-  const int limit = kv_len ? kv_len[b] : S;
-  // a kv_len == 0 row has every key masked and walks every kv tile
-  const bool trim = causal && limit > 0;
-  const int lo = trim ? item[1] : 0;
-  const int hi = trim ? item[2] : (S + kWgStep - 1) / kWgStep;
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
+  auto q_full = [&](int qb) { return bars + 8 * (2 * kStages + qb); };
+  auto q_empty = [&](int qb) { return bars + 8 * (2 * kStages + 2 + qb); };
+  // the item of Q buffer qb (n_items: no more)
+  volatile int* slots = reinterpret_cast<volatile int*>(
+      smem + (bars + 8 * (2 * kStages + 4) - smem_u32(smem)));
+  auto item = [&](int x) {
+    return fwd_item(x, n_work, H, S, 64 * NC, causal, work, kv_len);
+  };
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kWgStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(full(s), 1);
-      mbar_init(empty(s), 8);  // one arrival per consumer warp
+      mbar_init(empty(s), 4 * NC);  // one arrival per consumer warp
     }
-    mbar_init(res_full, 1);
+    for (int qb = 0; qb < 2; ++qb) {
+      mbar_init(q_full(qb), 1);
+      mbar_init(q_empty(qb), 4 * NC);
+    }
     mbar_fence_init();
   }
   __syncthreads();
@@ -2650,129 +2760,201 @@ __global__ void __launch_bounds__(kWgThreads, kFwdBlocks)
   // the warpgroup's index, warp-uniform in the compiler's view (see the
   // backward)
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWG, 0);
-  if (wg == 2) {
+  if (wg == NC) {
     // ---- producer ----
     producer_regs<kFwdProducerRegs>();
-    if (threadIdx.x == 2 * kWG) {
-      mbar_expect_tx(res_full, 2 * kBox);
-      for (int r = 0; r < 2; ++r)
-        tma_load_4d(res + r * kBox, &map_q, res_full, 0, q0 + 64 * r, h, b);
-      for (int j = lo; j < hi; ++j) {
-        const int it = j - lo, s = it % kWgStages;
-        mbar_wait(empty(s), ((it / kWgStages) & 1) ^ 1);
-        mbar_expect_tx(full(s), 2 * kBox);
-        const uint32_t dst = ring + s * 2 * kBox;
-        tma_load_4d(dst, &map_k, full(s), 0, j * kWgStep, h, b);
-        tma_load_4d(dst + kBox, &map_v, full(s), 0, j * kWgStep, h, b);
+    if (threadIdx.x == NC * kWG) {
+      int it = 0;  // stages loaded, over the block's items
+      for (int n = 0;; ++n) {
+        const int qb = n & 1;
+        mbar_wait(q_empty(qb), ((n >> 1) & 1) ^ 1);
+        const int x = min(atomicAdd(counters, 1), n_items);
+        slots[qb] = x;
+        if (x == n_items) {  // none left: the consumers' signal to stop
+          mbar_arrive(q_full(qb));
+          break;
+        }
+        const FwdItem w = item(x);
+        mbar_expect_tx(q_full(qb), NC * kBox);
+        tma_load_4d(res + qb * NC * kBox, &map_q, q_full(qb), 0, w.q0, w.h,
+                    w.b);
+        for (int j = w.lo; j < w.hi; ++j, ++it) {
+          const int s = it % kStages;
+          mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(full(s), kStageBytes);
+          const uint32_t dst = ring + s * kStageBytes;
+          tma_load_4d(dst, &map_k, full(s), 0, j * kFwdStep, w.h, w.b);
+          tma_load_4d(dst + kBox, &map_v, full(s), 0,
+                      j * kFwdStep, w.h, w.b);
+        }
+      }
+      // every block has taken its last item once all have counted
+      // themselves here: the last one zeroes the counters
+      __threadfence();
+      if (atomicAdd(counters + 1, 1) == (int)gridDim.x - 1) {
+        counters[0] = 0;
+        counters[1] = 0;
       }
     }
   } else {
     // ---- consumers ----
-    consumer_regs<kFwdConsumerRegs>();
+    consumer_regs<G::kConsumerRegs>();
     const int tw = threadIdx.x % kWG;
     const int warp = tw / 32, lane = tw % 32, g = lane >> 2, t = lane & 3;
-    const int qw = q0 + 64 * wg;
-    const bool has_rows = qw < S;
-    // the kv tiles this warpgroup computes: up to its own last live one
-    // (causal: _last_live_kv), none without rows; the loop bounds are
-    // shuffled, so ptxas sees them warp-uniform
-    const int j_lo = __shfl_sync(0xffffffffu, lo, 0);
-    const int j_hi = __shfl_sync(0xffffffffu, hi, 0);
-    const int live_hi = __shfl_sync(
-        0xffffffffu, !has_rows ? lo : trim ? min(hi, qw / kWgStep + 1) : hi,
-        0);
-    const uint32_t qa = res + wg * kBox;
-    auto release = [&](int s) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty(s));
-    };
-    // rows g and g + 8: the running max, this thread's share of the
-    // running sum (its quad's shares add up at the end), the output
-    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-    float o[32];
+    const float c = scale * kLog2e;
+    int it0 = 0;  // stages consumed before this item, over the block's
+    for (int n = 0;; ++n) {
+      const int qb = n & 1;
+      mbar_wait(q_full(qb), (n >> 1) & 1);
+      const int x = __shfl_sync(0xffffffffu, slots[qb], 0);
+      if (x == n_items) break;
+      const FwdItem w = item(x);
+      const int qw = w.q0 + 64 * wg;
+      const bool has_rows = qw < S;
+      // the stages this warpgroup computes: up to its own last live one
+      // (causal: _last_live_kv), none without rows; the loop bounds are
+      // shuffled, so ptxas sees them warp-uniform
+      const int j_lo = __shfl_sync(0xffffffffu, w.lo, 0);
+      const int j_hi = __shfl_sync(0xffffffffu, w.hi, 0);
+      const int live_hi = __shfl_sync(
+          0xffffffffu,
+          !has_rows ? w.lo
+                    : w.trim ? min(w.hi, (qw + 63) / kFwdStep + 1) : w.hi,
+          0);
+      const uint32_t qa = res + qb * NC * kBox + wg * kBox;
+      auto slot = [&](int j) { return (it0 + j - j_lo) % kStages; };
+      auto wait_stage = [&](int j) {
+        mbar_wait(full(slot(j)), ((it0 + j - j_lo) / kStages) & 1);
+      };
+      auto release = [&](uint32_t bar) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar);
+      };
+      // rows g and g + 8: the running max of the raw products, this
+      // thread's share of the running sum (its quad's shares add up at
+      // the end), the output
+      float m[2] = {kMaskRaw, kMaskRaw}, l[2] = {0.f, 0.f};
+      float o[32];
 #pragma unroll
-    for (int x = 0; x < 32; ++x) o[x] = 0.f;
-    mbar_wait(res_full, 0);
-
-    // the stage from key k0 needs the masks (fwd_softmax)
-    auto edge = [&](int k0) {
-      return (causal && k0 + 63 > qw) || k0 + kWgStep > S ||
-             k0 + kWgStep > limit;
-    };
-    const int qrow = qw + 16 * warp + g;
-
-    // turns at issuing S (kTurnBar)
-    auto turn_begin = [&]() { bar_sync(kTurnBar + wg, 2 * kWG); };
-    auto turn_end = [&](bool last) {
-      if (!(last && wg == 1)) bar_arrive(kTurnBar + (wg ^ 1), 2 * kWG);
-    };
-    if (wg == 1) bar_arrive(kTurnBar, 2 * kWG);
-    int j = j_lo;
-    for (; j < live_hi; ++j) {
-      const int it = j - j_lo, s = it % kWgStages;
-      mbar_wait(full(s), (it / kWgStages) & 1);
-      const uint32_t kt = ring + s * 2 * kBox;
-      const int k0 = j * kWgStep;
-      // S = Q.K^T: 64 q rows x 64 keys, K-major operands; the first
-      // k-step starts the sum
-      float sc_[32];
-      turn_begin();
-      wgmma_fence();
+      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      const int qrow = qw + 16 * warp + g;
+      // each row's keys below live[r] are unmasked (causal, kv_len, S)
+      int live[2];
 #pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd)
-        wgmma_m64n64_ss(sc_, wgmma_desc(qa + 32 * kd, 16, 1024),
-                        wgmma_desc(kt + 32 * kd, 16, 1024), kd > 0);
-      wgmma_commit();
-      turn_end(j == j_hi - 1);
-      wgmma_wait<0>();
-      fence_regs(sc_);
-      float alpha[2];
-      uint32_t pf[4][4];
-      fwd_softmax(sc_, m, l, pf, alpha, qrow, k0 + 2 * t, S, limit, scale,
-                  causal, edge(k0));
-
-      // O = O * alpha + P.V: the stage's P.V into fresh fragments (V read
-      // MN-major through the transpose bit), added by the FMA units (the
-      // tensor cores truncate where they add into an accumulator); the
-      // group lands within its stage (see the backward)
+      for (int r = 0; r < 2; ++r)
+        live[r] = min(S, causal ? min(w.limit, qrow + 8 * r + 1) : w.limit);
+      // S of stage j: 64 q rows x kFwdStep keys, K-major operands, into
+      // fresh fragments (sc is no input of the first k-step, so its
+      // registers hold the softmax's P between stages)
+      float sc[4 * kFwdGroups];
+      auto issue_s = [&](int j) {
+        const uint32_t kt = ring + slot(j) * kStageBytes;
+        wgmma_m64n64_ss_new(sc, wgmma_desc(qa, 16, 1024),
+                            wgmma_desc(kt, 16, 1024));
+#pragma unroll
+        for (int kd = 1; kd < D / 16; ++kd)
+          wgmma_m64n64_ss(sc, wgmma_desc(qa + 32 * kd, 16, 1024),
+                          wgmma_desc(kt + 32 * kd, 16, 1024), 1);
+        wgmma_commit();
+      };
+      // stage j's softmax on sc, in place; masks on the stages that need
+      // them
+      auto softmax = [&](float (&alpha)[2], int j) {
+        const int k0 = j * kFwdStep;
+        const bool edge = (causal && k0 + kFwdStep - 1 > qw) ||
+                          k0 + kFwdStep > S || k0 + kFwdStep > w.limit;
+        if (edge)
+          fwd_softmax_at<true>(sc, m, l, alpha, live, k0 + 2 * t, S, c);
+        else
+          fwd_softmax_at<false>(sc, m, l, alpha, live, k0 + 2 * t, S, c);
+      };
+      // P_j.V_j into fresh fragments (V read MN-major through the
+      // transpose bit)
       float pv[32];
-      wgmma_fence();
+      uint32_t pf[kFwdStep / 16][4];
+      auto issue_pv = [&](int j) {
+        const uint32_t vt = ring + slot(j) * kStageBytes + kBox;
+        wgmma_m64n64_rs_new(pv, pf[0], wgmma_desc(vt, kBox, 1024));
 #pragma unroll
-      for (int kk = 0; kk < kWgStep / 16; ++kk)
-        wgmma_m64n64_rs(pv, pf[kk],
-                        wgmma_desc(kt + kBox + kk * 16 * 128, kBox, 1024),
-                        kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(pv);
+        for (int kk = 1; kk < kFwdStep / 16; ++kk)
+          wgmma_m64n64_rs(pv, pf[kk],
+                          wgmma_desc(vt + kk * 16 * 128, kBox, 1024), 1);
+        wgmma_commit();
+      };
+      // O = O * alpha_j + P_j.V_j, added by the FMA units (the tensor
+      // cores truncate where they add into an accumulator); stage j is
+      // done
+      auto add_pv = [&](const float (&alpha)[2], int j) {
 #pragma unroll
-      for (int x = 0; x < 32; ++x)
-        o[x] = fmaf(o[x], alpha[(x >> 1) & 1], pv[x]);
-      release(s);
-    }
-    for (; j < j_hi; ++j) {  // stages none of whose products are ours
-      const int it = j - j_lo, s = it % kWgStages;
-      mbar_wait(full(s), (it / kWgStages) & 1);
-      turn_begin();
-      turn_end(j == j_hi - 1);
-      release(s);
-    }
+        for (int i = 0; i < 32; ++i)
+          o[i] = fmaf(o[i], alpha[(i >> 1) & 1], pv[i]);
+        release(empty(slot(j)));
+      };
 
-    if (has_rows) {
-      const long long o_row = (long long)H * D;  // out: dense (B, S, H, D)
-      bf16* ob = out + ((long long)b * S * H + h) * D;
+      float alpha[2], alpha_next[2];
+      int j = j_lo;
+      if (j < live_hi) {  // stage j_lo's S and softmax: the pipeline's head
+        wait_stage(j);
+        wgmma_fence();
+        issue_s(j);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        softmax(alpha, j);
+        fwd_pack(sc, pf);
+        // Stage j with P_j made and stage j + 1 live: S_{j+1} goes out,
+        // then P_j.V_j; stage j + 1's softmax runs on the SFU and FMA
+        // units while P_j.V_j is in flight (wgmma_wait<1>), and is rounded
+        // into P's registers once it has landed. No branch inside, so
+        // ptxas sees which group each wait retires.
+        for (; j + 1 < live_hi; ++j) {
+          wait_stage(j + 1);
+          wgmma_fence();
+          issue_s(j + 1);
+          issue_pv(j);
+          wgmma_wait<1>();
+          fence_regs(sc);
+          softmax(alpha_next, j + 1);
+          wgmma_wait<0>();
+          fence_regs(pv);
+          add_pv(alpha, j);
+          fwd_pack(sc, pf);
+          alpha[0] = alpha_next[0];
+          alpha[1] = alpha_next[1];
+        }
+        // the last live stage: its P.V alone
+        wgmma_fence();
+        issue_pv(j);
+        wgmma_wait<0>();
+        fence_regs(pv);
+        add_pv(alpha, j);
+        ++j;
+      }
+      release(q_empty(qb));  // this item's S are done: Q is free
+      for (; j < j_hi; ++j) {  // stages none of whose products are ours
+        wait_stage(j);
+        release(empty(slot(j)));
+      }
+      it0 += j_hi - j_lo;
+
+      if (has_rows) {
+        const long long o_row = (long long)H * D;  // out: (B, S, H, D)
+        bf16* ob = out + ((long long)w.b * S * H + w.h) * D;
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int qpos = qrow + 8 * r;
-        const float lc = fmaxf(quad_sum(l[r]), 1e-30f);
-        if (qpos >= S) continue;
+        for (int r = 0; r < 2; ++r) {
+          const int qpos = qrow + 8 * r;
+          const float lc = fmaxf(quad_sum(l[r]), 1e-30f), inv = 1.f / lc;
+          if (qpos >= S) continue;
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-          *reinterpret_cast<__nv_bfloat162*>(ob + qpos * o_row + 8 * n +
-                                             2 * t) =
-              __floats2bfloat162_rn(o[4 * n + 2 * r] / lc,
-                                    o[4 * n + 2 * r + 1] / lc);
-        if (t == 0) lse[(long long)bh * S + qpos] = m[r] + logf(lc);
+          for (int i = 0; i < D / 8; ++i)
+            *reinterpret_cast<__nv_bfloat162*>(ob + qpos * o_row + 8 * i +
+                                               2 * t) =
+                __floats2bfloat162_rn(o[4 * i + 2 * r] * inv,
+                                      o[4 * i + 2 * r + 1] * inv);
+          // the row max in the scaled domain: NEG_INF for a row whose
+          // keys are all masked
+          const float ms = m[r] == kMaskRaw ? kNegInf : m[r] * scale;
+          if (t == 0) lse[(long long)w.bh * S + qpos] = ms + logf(lc);
+        }
       }
     }
   }
@@ -2801,12 +2983,6 @@ size_t dq_mma_smem(int D) {  // q, dO, 2-stage k and v rings
   return (size_t)(2 * kBQ + 4 * kBK) * (D + 8) * sizeof(bf16);
 }
 
-// the wgmma forward: Q (2 boxes), the ring, the barriers, and the slack to
-// a 1024-byte boundary
-size_t fwd_wgmma_smem() {
-  return 1024 + (size_t)(2 + 2 * kWgStages) * hopper::kBox +
-         (2 * kWgStages + 1) * 8;
-}
 // the fused backward (bwd_bytes_to), and the slack to a 1024-byte boundary
 size_t bwd_smem() { return 1024 + bwd_bytes_to(7); }
 
@@ -2946,11 +3122,13 @@ int launch_dkv_mma(const void* q, const void* k, const void* v,
 }
 
 // q, k, v (and dO) as 4-D TMA maps over (D, S, H, B), the caller's (b,
-// s, h) element strides, boxes of 64 head columns x 64 rows of one head.
-// False where a map cannot be encoded (the wrapper refuses those first).
+// s, h) element strides, boxes of 64 head columns x rows[i] rows of one
+// head (kWgStep without rows). False where a map cannot be encoded (the
+// wrapper refuses those first).
 template <int N>
 bool tma_maps(CUtensorMap (&maps)[N], const void* const (&ptrs)[N],
-              const long long* strides, int B, int H, int S) {
+              const long long* strides, int B, int H, int S,
+              const int* rows = nullptr) {
   for (int i = 0; i < N; ++i) {
     const long long* st = strides + 3 * i;
     const cuuint64_t dims[4] = {(cuuint64_t)hopper::kSw, (cuuint64_t)S,
@@ -2958,30 +3136,47 @@ bool tma_maps(CUtensorMap (&maps)[N], const void* const (&ptrs)[N],
     const cuuint64_t bytes[3] = {(cuuint64_t)st[1] * sizeof(bf16),
                                  (cuuint64_t)st[2] * sizeof(bf16),
                                  (cuuint64_t)st[0] * sizeof(bf16)};
-    const cuuint32_t box[4] = {(cuuint32_t)hopper::kSw, (cuuint32_t)kWgStep,
-                               1, 1};
+    const cuuint32_t box[4] = {(cuuint32_t)hopper::kSw,
+                               (cuuint32_t)(rows ? rows[i] : kWgStep), 1, 1};
     if (!hopper::encode_bf16(&maps[i], ptrs[i], 4, dims, bytes, box))
       return false;
   }
   return true;
 }
 
+// The forward at NC consumer warpgroups (64 NC q rows an item): Q read
+// as one box of an item's rows, K and V as one box a stage each; a
+// persistent grid of as many blocks as the card holds at once, at most
+// one an item.
+template <int NC>
 int launch_fwd_wgmma(const void* q, const void* k, const void* v,
                      const void* kv_len, const void* work, int n_work,
-                     void* out, void* lse, const long long* strides, int B,
-                     int H, int S, float scale, int causal,
-                     cudaStream_t stream) {
+                     void* counters, void* out, void* lse,
+                     const long long* strides, int B, int H, int S,
+                     float scale, int causal, cudaStream_t stream) {
+  using G = FwdGeom<NC>;
   CUtensorMap maps[3];
   const void* const ptrs[3] = {q, k, v};
-  if (!tma_maps(maps, ptrs, strides, B, H, S))
+  const int rows[3] = {64 * NC, kFwdStep, kFwdStep};
+  if (!tma_maps(maps, ptrs, strides, B, H, S, rows))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = fwd_wgmma_smem();
-  cudaError_t err = allow_smem(flash_fwd_wgmma_kernel<64>, smem);
+  cudaError_t err = allow_smem(flash_fwd_wgmma_kernel<64, NC>, G::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, n_work);
-  flash_fwd_wgmma_kernel<64><<<grid, kWgThreads, smem, stream>>>(
+  // blocks an SM holds at once (asked once a process)
+  static const int per_sm = [] {
+    int n = 0;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &n, flash_fwd_wgmma_kernel<64, NC>, G::kThreads,
+               G::kSmem) == cudaSuccess ? n : 0;
+  }();
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long n_items = (long long)B * H * n_work;
+  const int grid = (int)std::min<long long>(
+      n_items, (long long)per_sm * hopper::sm_count());
+  flash_fwd_wgmma_kernel<64, NC><<<grid, G::kThreads, G::kSmem, stream>>>(
       maps[0], maps[1], maps[2], static_cast<const int*>(kv_len),
-      static_cast<const int*>(work), static_cast<bf16*>(out),
+      static_cast<const int*>(work), n_work, (int)n_items,
+      static_cast<int*>(counters), static_cast<bf16*>(out),
       static_cast<float*>(lse), H, S, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -3123,23 +3318,35 @@ int launch_dkv_wide(const void* q, const void* k, const void* v,
 // kv_len is (B,) int32 or null. bf16 rows must start on 16 bytes (the
 // wrapper checks). bf16 at D = 64 runs the wgmma kernel over `work`:
 // n_work (tile, first, end) int32 triples, heaviest first, of block_q-row
-// q tiles walking block_k-key kv tiles, which must be the kernel's own
-// (kWgTile, kWgStep); the strides must be ones a TMA map encodes (the
-// wrapper checks). Other dtypes and head dims ignore work. Returns
-// cudaGetLastError() after the launch (0 = cudaSuccess).
+// q tiles walking block_k-key kv stages: block_q 64 or 192 (the kernel
+// at NC = 1 or 3 consumer warpgroups, the tile table's choice), block_k
+// the kernel's kFwdStep; the strides must be ones a TMA map encodes (the
+// wrapper checks) and scale > 0. `counters` is 2 int32 zeros kept for
+// this stream (the kernel leaves them zero). Other dtypes and head dims
+// ignore work and counters. Returns cudaGetLastError() after the launch
+// (0 = cudaSuccess).
 extern "C" int kftpu_flash_fwd(const void* q, const void* k, const void* v,
                                const void* kv_len, void* out, void* lse,
                                const long long* strides, const void* work,
                                int B, int H, int S, int D, int n_work,
                                int block_q, int block_k, float scale,
-                               int causal, int is_bf16, void* stream) {
+                               int causal, int is_bf16, void* stream,
+                               void* counters) {
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (is_bf16 && D == 64) {
-    if (work == nullptr || block_q != kWgTile || block_k != kWgStep)
+    if (work == nullptr || counters == nullptr || block_k != kFwdStep ||
+        !(scale > 0.f))
       return static_cast<int>(cudaErrorInvalidValue);
-    return launch_fwd_wgmma(q, k, v, kv_len, work, n_work, out, lse, strides,
-                            B, H, S, scale, causal, s);
+    if (block_q == 64)
+      return launch_fwd_wgmma<1>(q, k, v, kv_len, work, n_work, counters,
+                                 out, lse, strides, B, H, S, scale, causal,
+                                 s);
+    if (block_q == 192)
+      return launch_fwd_wgmma<3>(q, k, v, kv_len, work, n_work, counters,
+                                 out, lse, strides, B, H, S, scale, causal,
+                                 s);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   KFTPU_FLASH_WIDE(launch_fwd_wide, q, k, v, kv_len, out, lse, strides, B, H,
                    S, D, scale, causal, s);

@@ -19,9 +19,9 @@ together is ``ops/attention.py:flash_attention``.
 - ``*_plain`` — the plain PyTorch versions: the same arithmetic on
   whole (S, S) score matrices. Scores come from q pre-scaled in f32;
   masked scores are ``NEG_INF`` (finite); the forward's online softmax
-  steps over the kernel's key tiles and rounds P to the V dtype before
-  P·V; the backward recomputes ``P = exp(s - lse)`` and keeps dS in
-  f32.
+  steps over the kernels' key blocks (``BLOCK_K``) and rounds P to the V
+  dtype before P·V; the backward recomputes ``P = exp(s - lse)`` and
+  keeps dS in f32.
 
 Tensors are ``(B, S, H, D)`` (K and V already GQA-repeated, as at the
 model's call site); ``lse`` and ``delta`` are ``(B, H, S)`` f32;
@@ -32,13 +32,16 @@ copies: their wrappers raise (:func:`check_rows_16b`) on a bf16 input
 whose rows do not start on 16 bytes, rather than copy it. At bf16 and
 D = 64 the forward and the fused backward are wgmma kernels that read
 q, k, v and dO through TMA maps, and the wrappers also refuse what a map
-cannot encode (:func:`check_tma`). Those kernels own 128 rows a block
-and walk a work list (:func:`wgmma_work`): one item a block tile with
-the range of tiles it streams, the causal ranges of the reference's
-``_last_live_kv`` (forward) and ``_first_live_q`` (backward); it is made
-once a shape and kept on the card. The backward's list is one head's, in
-descending kv tile: the order in which its blocks add dQ's partials into
-each q tile, which the persistent grid takes head by head.
+cannot encode (:func:`check_tma`). The forward owns 192 q rows an item,
+or 64 where that grid ends first on the card's SMs
+(``autotune.flash_tile``), over 64-key stages, on a persistent grid;
+the backward owns 128 keys a block over 64-row q stages. Each walks a
+work list (:func:`wgmma_work`): one item a block tile with the range of
+tiles it streams, the causal ranges of the reference's ``_last_live_kv``
+(forward) and ``_first_live_q`` (backward); it is made once a shape and
+kept on the card. The backward's list is one head's, in descending kv
+tile: the order in which its blocks add dQ's partials into each q tile,
+which the persistent grid takes head by head.
 
 The kernels are built for the head dims of ``HEAD_DIMS``, and past
 the largest for any multiple of ``WIDE_STEP`` (the wide kernels, which
@@ -60,6 +63,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from kubeflow_tpu_torch.ops import autotune
 from kubeflow_tpu_torch.ops.attention import NEG_INF
 from kubeflow_tpu_torch.ops.autotune import (
     FLASH_TILE,
@@ -72,7 +76,7 @@ launches = {"flash_fwd": 0, "flash_bwd": 0, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0}
 HEAD_DIMS = (64, 128, 256)   # the head dims the CUDA kernels are built for
 WIDE_STEP = 64          # past HEAD_DIMS[-1], any multiple of it (kDC in csrc)
-BLOCK_K = 64            # the forward kernels' key tile (kBK, kWgStep in csrc)
+BLOCK_K = 64   # the forward kernels' key block (kBK, kFwdStep in csrc)
 TMA_MAX_STRIDE = 1 << 40  # bytes: a TMA map's strides lie below it
 
 
@@ -163,10 +167,11 @@ def flash_fwd_plain(q, k, v, *, causal: bool = True,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`flash_fwd` (see the module docstring).
 
-    The online softmax runs over key tiles of ``BLOCK_K`` as the kernel
-    (and the Pallas kernel) runs it, so P is rounded to the V dtype at
-    the same running max and a bf16 result can be held to the kernel
-    within f32 summation order."""
+    The online softmax runs over key blocks of ``BLOCK_K``, the blocks
+    every forward kernel steps over (as the Pallas kernel steps over its
+    ``block_k``), so P is rounded to the V dtype at the same running max
+    and a bf16 result can be held to the kernel within f32 summation
+    order."""
     s = _scores(q, k, causal, _scale(q, sm_scale), kv_len)
     B, H, S, T = s.shape
     m = torch.full((B, H, S, 1), NEG_INF, dtype=s.dtype, device=s.device)
@@ -224,7 +229,7 @@ def _lib():
     lib = _build.load("flash_attention")
     if lib.kftpu_flash_fwd.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.kftpu_flash_fwd.argtypes = [p] * 8 + [i] * 7 + [f, i, i, p]
+        lib.kftpu_flash_fwd.argtypes = [p] * 8 + [i] * 7 + [f, i, i, p, p]
         lib.kftpu_flash_bwd.argtypes = [p] * 14 + [i] * 7 + [f, i, i, p]
         lib.kftpu_flash_bwd_dq.argtypes = [p] * 9 + [i] * 4 + [f, i, i, p]
         lib.kftpu_flash_bwd_dkv.argtypes = [p] * 10 + [i] * 4 + [f, i, i, p]
@@ -287,18 +292,20 @@ def _last_live_kv(i: int, block_q: int, block_k: int) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def wgmma_work(kernel: str, S: int, causal: bool
+def wgmma_work(kernel: str, S: int, causal: bool,
+               tile: Optional[Tuple[int, int]] = None
                ) -> Tuple[Tuple[int, int, int], ...]:
     """The wgmma kernel's work list at sequence length ``S``: one
-    ``(tile, first, end)`` item per block tile of its ``WGMMA_TILES``.
-    The forward: 128-row q tiles streaming 64-key kv tiles, causal ranges
-    ending after ``_last_live_kv``, heaviest first (most streamed tiles,
-    then the lower tile). The backward (``flash_bwd``, one head's list):
+    ``(tile, first, end)`` item per block tile of ``tile`` (by default
+    its ``WGMMA_TILES``). The forward: ``block_q``-row q tiles (192, or
+    64 on a short grid) streaming 64-key stages, causal ranges ending
+    after ``_last_live_kv``, heaviest first (most streamed stages, then
+    the lower tile). The backward (``flash_bwd``, one head's list):
     128-key kv tiles streaming 64-row q tiles, causal ranges starting at
     ``_first_live_q``, in descending kv tile, the order of dQ's adds. The
     kernels walk every tile for a batch row whose ``kv_len`` is 0, whose
     keys are all masked."""
-    block_q, block_k = WGMMA_TILES[kernel]
+    block_q, block_k = tile or WGMMA_TILES[kernel]
     n_q, n_kv = -(-S // block_q), -(-S // block_k)
     if kernel == "flash_bwd":
         return tuple((j, _first_live_q(j, block_q, block_k) if causal
@@ -309,12 +316,28 @@ def wgmma_work(kernel: str, S: int, causal: bool
 
 
 @functools.lru_cache(maxsize=64)
-def _work_tensor(kernel: str, S: int, causal: bool,
+def _work_tensor(kernel: str, S: int, causal: bool, tile: Tuple[int, int],
                  device: torch.device) -> torch.Tensor:
     """:func:`wgmma_work` as a ``(n, 3)`` int32 tensor on ``device``,
     made once a shape (the kernels only read it)."""
-    return torch.tensor(wgmma_work(kernel, S, causal),
+    return torch.tensor(wgmma_work(kernel, S, causal, tile),
                         dtype=torch.int32).to(device)
+
+
+_FWD_COUNTERS: dict = {}
+
+
+def _fwd_counters(device: torch.device, stream: int) -> torch.Tensor:
+    """The wgmma forward's two int32 counters for launches on ``stream``
+    (csrc: the items taken and the blocks done; each launch leaves them
+    zero), made once a (device, stream), so launches on other streams
+    never share them."""
+    key = (device, stream)
+    counters = _FWD_COUNTERS.get(key)
+    if counters is None:
+        counters = _FWD_COUNTERS[key] = torch.zeros(2, dtype=torch.int32,
+                                                    device=device)
+    return counters
 
 
 def fused_backward(q: torch.Tensor) -> bool:
@@ -328,13 +351,17 @@ def fused_backward(q: torch.Tensor) -> bool:
 def _wgmma_route(kernel: str, tensors, causal: bool):
     """``(block_q, block_k, work pointer, items)`` of one launch: the
     wgmma kernel's tile and work list after :func:`check_tma` where it
-    runs (:func:`fused_backward`), else ``FLASH_TILE`` and no list."""
+    runs (:func:`fused_backward`), else ``FLASH_TILE`` and no list. The
+    forward's rows are those whose grid ends first on q's card
+    (``autotune.flash_tile``); the backward has one tile."""
     q = tensors[0]
     if not fused_backward(q):
         return (*FLASH_TILE, None, 0)
-    tile = flash_tile(kernel, q.shape[-1], q.dtype)
+    B, S, H, D = q.shape
+    tile = flash_tile(kernel, D, q.dtype, batch_heads=B * H, seq=S,
+                      sms=autotune.sm_count(q.device))
     check_tma(tensors)
-    work = _work_tensor(kernel, q.shape[1], causal, q.device)
+    work = _work_tensor(kernel, S, causal, tile, q.device)
     return (*tile, work.data_ptr(), work.shape[0])
 
 
@@ -391,16 +418,23 @@ def flash_fwd(q, k, v, *, causal: bool = True,
     q, k, v = pad_head_dim((q, k, v), padded_head_dim(D0))
     strides, len_ptr, (B, H, S, D) = _cuda_args(q, (q, k, v), kv_len,
                                                 rows_16b=True)
+    if fused_backward(q) and not scale > 0:
+        raise ValueError(f"the bf16 flash forward takes scale > 0 (its "
+                         f"row max runs on the raw products), got {scale}")
     block_q, block_k, work, n_work = _wgmma_route("flash_fwd", (q, k, v),
                                                   causal)
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    stream = _stream(q)
+    counters = (_fwd_counters(q.device, stream).data_ptr()
+                if fused_backward(q) else None)
     lib = _lib()
     with torch.cuda.device(q.device):
         _launch("flash_fwd", lib.kftpu_flash_fwd, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), len_ptr, out.data_ptr(), lse.data_ptr(),
                 strides, work, B, H, S, D, n_work, block_q, block_k, scale,
-                int(causal), int(q.dtype == torch.bfloat16), _stream(q))
+                int(causal), int(q.dtype == torch.bfloat16), stream,
+                counters)
     return unpad_head_dim((out,), D0)[0], lse
 
 

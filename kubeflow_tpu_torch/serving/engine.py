@@ -1173,6 +1173,12 @@ class DecodeEngine:
             raise _CacheInvalidated(str(e)) from e
         self.batch_prefills += 1
         t1 = self.clock()
+        # every member's first token reaches its queue before any
+        # member's spans and step state: the ledger stamps them all t1,
+        # so the 32nd member's token must not wait on 31 members'
+        # bookkeeping
+        states = [self._emit_first(req, int(toks[i]), t1)
+                  for i, (req, _slot) in enumerate(members)]
         for i, (req, slot) in enumerate(members):
             adm = self.tracer.record(
                 "engine.admit", start=t0, end=t1, parent=req.ctx,
@@ -1183,7 +1189,7 @@ class DecodeEngine:
                 "engine.prefill", start=p0, end=p1, parent=adm,
                 attrs={"prompt_tokens": int(lens[i]), "bucket": bucket,
                        "batched": True, "batch": k})
-            self._finalize_admission(req, slot, int(toks[i]), t1)
+            self._arm_admitted(states[i], slot, int(toks[i]), t1)
 
     def _finalize_admission(self, req: _Request, slot: int, first: int,
                             t: Optional[float] = None) -> None:
@@ -1192,14 +1198,26 @@ class DecodeEngine:
         caller's timestamp (the batch path stamps its members once); the
         row path reads its own."""
         t = t if t is not None else self.clock()
+        self._arm_admitted(self._emit_first(req, first, t), slot, first, t)
+
+    def _emit_first(self, req: _Request, first: int, t: float) -> _Slot:
+        """Put the prefill-sampled first token on the request's queue,
+        stamped ``t``; returns the slot state it starts."""
         st = _Slot(req=req, t_decode0=t)
+        self._emit(st, first, t)
+        return st
+
+    def _arm_admitted(self, st: _Slot, slot: int, first: int,
+                      t: float) -> None:
+        """The first token's span, then the slot's host-side step state
+        unless that token finished the request."""
+        req = st.req
         # the TTFT span: one a request
         self.tracer.record(
             "engine.first_token", start=req.t_submit, end=t,
             parent=req.ctx,
             attrs={"model": self.name,
                    "ttft_ms": round((t - req.t_submit) * 1000.0, 3)})
-        self._emit(st, first, t)
         if not self._finished(st, first, t):
             with self._lock:
                 self._active[slot] = st

@@ -16,9 +16,9 @@ lse and delta of the tree's own forward. Each point prints one JSON line
 with the card's name and power limit, its ms and the bound of its shape
 (``chip_smoke.flash_bytes_ops``), and the errors against the tree's
 plain versions: the norm error of out, dQ, dK and dV and the largest
-absolute error of lse. At the LM and BERT shapes each turn also times
-PyTorch's fused backward (``chip_smoke.sdpa_yardstick``: each backend
-pinned in turn, the fastest kept) as a yardstick.
+absolute error of lse. At every shape each turn also times PyTorch's
+fused attention, forward and backward (``chip_smoke.sdpa_yardstick``:
+each backend pinned in turn, the fastest kept), as a yardstick.
 
 Usage (needs CUDA):
 
@@ -113,12 +113,13 @@ def _points(tree: str) -> None:
                               "kernel": name, "kernel_ms": t,
                               "bound_ms": bound, "norm_err": errs}),
                   flush=True)
-        if label in ("lm", "bert"):
-            lib = smoke.sdpa_yardstick(q, k, v, g, causal=causal)
-            print(json.dumps({"device": ident, "tree": tree, "shape": label,
-                              "library": "scaled_dot_product_attention",
-                              "backward_ms": lib["backward"][0],
-                              "backend": lib["backward"][1]}), flush=True)
+        lib = smoke.sdpa_yardstick(q, k, v, g, causal=causal)
+        print(json.dumps({"device": ident, "tree": tree, "shape": label,
+                          "library": "scaled_dot_product_attention",
+                          "forward_ms": lib["flash_fwd"][0],
+                          "forward_backend": lib["flash_fwd"][1],
+                          "backward_ms": lib["backward"][0],
+                          "backend": lib["backward"][1]}), flush=True)
         del q, k, v, g, out, lse, delta
         torch.cuda.empty_cache()
 

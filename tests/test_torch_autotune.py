@@ -157,9 +157,12 @@ class TestResolution:
                                n_heads=n_heads, n_kv_heads=n_heads,
                                dtype=torch.bfloat16, causal=causal,
                                generation="sm_90")
-        want = {"flash_fwd": (128, 64), "flash_bwd_dq": (64, 128),
+        want = {"flash_fwd": (192, 64), "flash_bwd_dq": (64, 128),
                 "flash_bwd_dkv": (64, 128)}[kernel]
-        assert (cfg.source, cfg.block_q, cfg.block_k) == ("table", *want)
+        # the forward's rows are the grid's (TestForwardRows): it has no
+        # row, and without a batch the fallback is its 192
+        source = "fallback" if kernel == "flash_fwd" else "table"
+        assert (cfg.source, cfg.block_q, cfg.block_k) == (source, *want)
 
     def test_uncovered_shape_falls_back_to_the_compiled_tile(self):
         cfg = at.resolve_flash("flash_fwd", seq=4096, head_dim=128,
@@ -291,13 +294,13 @@ class TestHopperLegality:
 
 class TestBackwardTiles:
     """The legal tile is per kernel key: the bf16 D <= 64 wgmma tiles
-    (the forward 128 q rows x 64 keys; dQ and dK/dV, one fused kernel, 64
-    q rows x 128 keys); the other kernels (f32, D = 128 and up) keep
-    64 x 64."""
+    (the forward 192 or 64 q rows x 64 keys; dQ and dK/dV, one fused
+    kernel, 64 q rows x 128 keys); the other kernels (f32, D = 128 and
+    up) keep 64 x 64."""
 
     @pytest.mark.parametrize("kernel,tile", [("flash_bwd_dq", (64, 128)),
                                              ("flash_bwd_dkv", (64, 128)),
-                                             ("flash_fwd", (128, 64))])
+                                             ("flash_fwd", (192, 64))])
     @pytest.mark.parametrize("head_dim", [64, 32])
     def test_wgmma_tiles_are_legal(self, kernel, tile, head_dim):
         row = _flash_row(kernel=kernel, head_dim=head_dim, block_q=tile[0],
@@ -307,8 +310,8 @@ class TestBackwardTiles:
 
     @pytest.mark.parametrize("kernel,tile", [("flash_bwd_dq", "64 x 128"),
                                              ("flash_bwd_dkv", "64 x 128"),
-                                             ("flash_fwd", "128 x 64")])
-    @pytest.mark.parametrize("bq,bk", [(64, 64), (128, 128)])
+                                             ("flash_fwd", "192 x 64")])
+    @pytest.mark.parametrize("bq,bk", [(128, 64), (128, 128)])
     def test_old_tile_refused_for_the_wgmma_kernels(self, kernel, tile, bq,
                                                     bk):
         errs = at.validate_entry(_flash_row(kernel=kernel, block_q=bq,
@@ -339,12 +342,15 @@ class TestBackwardTiles:
         errs = at.validate_entry(row)
         assert any("pin head_dim and dtype" in e for e in errs)
 
-    @pytest.mark.parametrize("kernel,tile", [("flash_fwd", (128, 64)),
-                                             ("flash_bwd_dq", (64, 128)),
-                                             ("flash_bwd_dkv", (64, 128))])
-    def test_resolve_flash_returns_what_the_kernel_runs(self, kernel, tile):
+    @pytest.mark.parametrize("kernel,tile,committed", [
+        ("flash_fwd", (192, 64), "fallback"),
+        ("flash_bwd_dq", (64, 128), "table"),
+        ("flash_bwd_dkv", (64, 128), "table")])
+    def test_resolve_flash_returns_what_the_kernel_runs(self, kernel, tile,
+                                                        committed):
         """Without a row the fallback is the kernel's own tile, and the
-        committed row agrees with it; an override is recorded as it is."""
+        committed table agrees with it (the forward has no row: its rows
+        are the grid's); an override is recorded as it is."""
         with at.table_override(at.TileTable([], [])):
             cfg = at.resolve_flash(kernel, seq=8192, generation="sm_90",
                                    **LM_SHAPE)
@@ -352,10 +358,83 @@ class TestBackwardTiles:
                                                            tile)
         cfg = at.resolve_flash(kernel, seq=8192, generation="sm_90",
                                **LM_SHAPE)
-        assert (cfg.source, (cfg.block_q, cfg.block_k)) == ("table", tile)
+        assert (cfg.source, (cfg.block_q, cfg.block_k)) == (committed, tile)
         cfg = at.resolve_flash(kernel, seq=8192, block_q=64, block_k=64,
                                generation="sm_90", **LM_SHAPE)
         assert (cfg.source, cfg.block_q, cfg.block_k) == ("override", 64, 64)
+
+
+class TestForwardRows:
+    """The bf16 D <= 64 forward's rows an item, resolved per shape
+    class: the committed table has no row for it, and the fallback
+    takes the tile whose grid ends first on the card's SMs
+    (``forward_rounds``, here an H100 SXM's 132): 64 rows where the
+    192-row tile's last round would leave SMs idle. Without the SM count
+    (no card) it is the 192-row tile."""
+
+    # (batch, seq, heads, causal): the LM step, BERT-base, :predict's
+    # two shapes, the BERT entry point's default, a short single request
+    SHAPES = {"lm": (2, 8192, 16, True), "bert": (16, 512, 12, False),
+              "predict_b8": (8, 512, 12, False),
+              "predict_b1": (1, 128, 12, False),
+              "bert_entry": (8, 128, 12, False),
+              "one_request": (1, 512, 12, True)}
+    # (on 132 SMs, without a card)
+    ROWS = {"lm": (192, 192), "bert": (192, 192), "predict_b8": (64, 192),
+            "predict_b1": (64, 192), "bert_entry": (64, 192),
+            "one_request": (64, 192)}
+
+    @pytest.mark.parametrize("table", [True, False])
+    @pytest.mark.parametrize("name", sorted(SHAPES))
+    def test_rows_by_shape_class(self, name, table):
+        """``resolve_flash`` records the rows the kernel runs
+        (``flash_tile``), from the committed table and from none."""
+        B, S, H, causal = self.SHAPES[name]
+        committed = at.load_table(strict=True)
+        for sms, rows in zip((132, None), self.ROWS[name]):
+            tile = at.flash_tile("flash_fwd", 64, torch.bfloat16,
+                                 batch_heads=B * H, seq=S, sms=sms)
+            with at.table_override(committed if table
+                                   else at.TileTable([], [])):
+                cfg = at.resolve_flash(
+                    "flash_fwd", seq=S, head_dim=64, n_heads=H, n_kv_heads=H,
+                    dtype=torch.bfloat16, causal=causal, batch=B, sms=sms,
+                    generation="sm_90")
+            assert tile == (rows, 64)
+            assert (cfg.block_q, cfg.block_k, cfg.source) == (
+                rows, 64, "fallback")
+            assert tile in at.flash_tiles("flash_fwd", 64, torch.bfloat16)
+
+    @pytest.mark.parametrize("heads,seq,rows", [
+        (96, 512, 64), (192, 512, 192), (1, 8192, 64), (32, 8192, 192),
+        (2048, 128, 64), (29, 576, 64), (30, 576, 192)])
+    def test_short_grid_edge(self, heads, seq, rows):
+        """The fallback's rounds: at S = 512, 96 heads run 768 64-row
+        items in 3 rounds against 288 192-row items in 3 x 1.15 (64
+        rows), 192 heads 6 rounds against 5 x 1.15 (192); one head of
+        8192 fills no round of either (64), 32 heads do (192); at S = 128
+        a 192-row item is a third empty, so 64 rows win at any count; at
+        S = 576, 29 heads: 261 items in 1 round against 87 in 1 x 1.15
+        (64); 30 heads: 270 in 2 against 90 in 1 x 1.15 (192)."""
+        assert at.FWD_ROUNDS == {192: (1, 1.15), 64: (2, 1.0)}
+        tile = at.flash_tile("flash_fwd", 64, torch.bfloat16,
+                             batch_heads=heads, seq=seq, sms=132)
+        assert tile == (rows, 64)
+
+    @pytest.mark.parametrize("head_dim,dtype", [(128, torch.bfloat16),
+                                                (64, torch.float32)])
+    def test_other_forwards_keep_one_tile(self, head_dim, dtype):
+        """Off the wgmma route a short grid changes nothing: 64 x 64."""
+        assert at.flash_tile("flash_fwd", head_dim, dtype, batch_heads=1,
+                             seq=128, sms=132) == (64, 64)
+        assert at.flash_tiles("flash_fwd", head_dim, dtype) == {(64, 64)}
+
+    def test_both_rows_legal_and_the_old_stage_refused(self):
+        for bq in (64, 192):
+            assert at.validate_entry(_flash_row(block_q=bq,
+                                                block_k=64)) == []
+        errs = at.validate_entry(_flash_row(block_q=128, block_k=128))
+        assert any("64 x 64 or 192 x 64" in e for e in errs)
 
 
 class TestTableIO:
@@ -389,7 +468,7 @@ class TestTableIO:
                                                                tmp_path):
         bad = {"version": 1, "entries": [_flash_row(generation="sm_90",
                                                     block_q=128,
-                                                    block_k=128)]}
+                                                    block_k=64)]}
         path = tmp_path / "bad.json"
         path.write_text(json.dumps(bad))
         with warnings.catch_warnings(record=True) as caught:
@@ -400,7 +479,7 @@ class TestTableIO:
         with at.table_override(table):
             cfg = at.resolve_flash("flash_fwd", seq=8192,
                                    generation="sm_90", **LM_SHAPE)
-        assert (cfg.source, cfg.block_q) == ("fallback", 128)
+        assert (cfg.source, cfg.block_q) == ("fallback", 192)
 
     def test_strict_load_raises_on_illegal(self, tmp_path):
         path = tmp_path / "bad.json"
@@ -427,7 +506,7 @@ class TestTableIO:
 class TestRecorder:
     def test_resolutions_recorded_with_source(self):
         with at.record_resolutions() as rec:
-            at.resolve_flash("flash_fwd", seq=8192, generation="sm_90",
+            at.resolve_flash("flash_bwd_dq", seq=8192, generation="sm_90",
                              **LM_SHAPE)
             at.resolve_flash("flash_fwd", seq=8192, block_q=128,
                              block_k=128, generation="sm_90", **LM_SHAPE)
@@ -435,8 +514,8 @@ class TestRecorder:
                              **SERVING)
         summary = at.summarize_resolutions(rec)
         sources = {(d["kernel"], d["source"]) for d in summary}
-        assert sources == {("flash_fwd", "table"), ("flash_fwd", "override"),
-                           ("paged_attn", "table")}
+        assert sources == {("flash_bwd_dq", "table"),
+                           ("flash_fwd", "override"), ("paged_attn", "table")}
 
     def test_summarize_dedupes(self):
         with at.record_resolutions() as rec:

@@ -820,7 +820,7 @@ def test_flash_wgmma_forward_reads_views_of_a_fused_projection(cuda,
 
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_wgmma_forward_ragged_rows_and_kv_len(cuda, causal):
-    """S = 1000 (a ragged last 128-row tile and 64-key stage) with
+    """S = 1000 (a ragged last 64-row item and 64-key stage) with
     kv_len rows of 0, 1, a ragged length and the full length: the
     kv_len = 0 row walks every tile and averages over all S keys."""
     rng = np.random.default_rng(25)
@@ -831,8 +831,8 @@ def test_flash_wgmma_forward_ragged_rows_and_kv_len(cuda, causal):
 
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 129])
 def test_flash_wgmma_forward_short_sequences(cuda, S):
-    """Sequences shorter than a block: the second warpgroup without rows
-    (S <= 64), a Q box wholly past S, one ragged stage."""
+    """Sequences shorter than an item: warpgroups without rows (S <= 64
+    at 192 rows an item), one ragged stage."""
     rng = np.random.default_rng(26 + S)
     q, k, v = (_bf16(rng, (2, S, 3, 64), cuda) for _ in range(3))
     for causal in (True, False):
@@ -847,6 +847,48 @@ def test_flash_wgmma_forward_long_sum_holds_out(cuda):
     q, k, v = (_bf16(rng, (1, 8192, 2, 64), cuda) for _ in range(3))
     _, rel = _hold_fwd(q, k, v, causal=True)
     print(f"S=8192 causal out norm error: {rel}")
+
+
+# the bf16 D = 64 forward's timed shapes (B, S, H) and a ragged one
+FWD_SHAPES = {"lm": (2, 8192, 16), "bert": (16, 512, 12),
+              "predict_b8": (8, 512, 12), "predict_b1": (1, 128, 12),
+              "ragged": (3, 1000, 4)}
+
+
+def _pin_rows(monkeypatch, rows):
+    """Pin the forward's rows an item: the wrapper asks ``flash_tile``
+    at launch, which here answers ``rows`` for the forward."""
+    tile = fa.flash_tile
+
+    def pinned(kernel, *args, **kwargs):
+        if kernel == "flash_fwd":
+            return rows, autotune.WGMMA_TILES["flash_fwd"][1]
+        return tile(kernel, *args, **kwargs)
+
+    monkeypatch.setattr(fa, "flash_tile", pinned)
+
+
+@pytest.mark.parametrize("rows", [64, 192])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", sorted(FWD_SHAPES))
+def test_flash_wgmma_forward_at_the_timed_shapes(cuda, monkeypatch, shape,
+                                                 causal, masked, rows):
+    """The forward at its four timed shapes and a ragged S, causal and
+    not, with kv_len (a zero row and ragged ones; one ragged row at
+    B = 1), at both of its tiles (each pinned): out within the bf16
+    norm-relative limit (4e-4), lse within 1e-5."""
+    B, S, H = FWD_SHAPES[shape]
+    rng = np.random.default_rng(B * S + H)
+    q, k, v = (_bf16(rng, (B, S, H, 64), cuda) for _ in range(3))
+    lens = None
+    if masked:
+        lens = torch.tensor([0] + [max(1, S - 37 * b) for b in range(1, B)]
+                            if B > 1 else [S - 37], dtype=torch.int32,
+                            device=cuda)
+    _pin_rows(monkeypatch, rows)
+    assert fa._wgmma_route("flash_fwd", (q, k, v), causal)[0] == rows
+    _hold_fwd(q, k, v, causal=causal, kv_len=lens)
 
 
 def test_flash_bf16_kernels_refuse_rows_off_16_bytes(cuda):

@@ -229,6 +229,32 @@ def test_burst_insert_failure_closes_the_engine(lm):
         eng.close()
 
 
+def test_burst_puts_every_first_token_before_any_span(lm, monkeypatch):
+    """The batch path puts every member's first token on its queue
+    before it records any member's spans or arms any slot: the ledger
+    stamps the batch once, and the last member's queue must not wait on
+    the others' bookkeeping. The streams are the row path's."""
+    prompts = ([5, 11], [3, 2], [7, 4])
+    eng = _port(lm)
+    reqs = [eng.submit(p, max_new=4) for p in prompts]
+    queued = []
+    record = eng.tracer.record
+
+    def spy(name, *args, **kwargs):
+        if name == "engine.admit":
+            queued.append([r.out.qsize() for r in reqs])
+        return record(name, *args, **kwargs)
+
+    monkeypatch.setattr(eng.tracer, "record", spy)
+    _go(eng, 6)
+    assert eng.batch_prefills == 1
+    assert queued == [[1, 1, 1]] * 3
+    row = _port(lm, admit_batch_max=0)
+    alone = [row.submit(p, max_new=4) for p in prompts]
+    _go(row, 6)
+    assert [r.result() for r in reqs] == [r.result() for r in alone]
+
+
 def test_burst_insert_failure_fails_every_bucket(lm):
     """A failed row copy in the first bucket's burst also ends the
     requests of the buckets queued behind it: they are off the queue and

@@ -18,6 +18,7 @@ import torch
 
 from kubeflow_tpu.ops import attention as jatt
 from kubeflow_tpu_torch.ops import attention as att
+from kubeflow_tpu_torch.ops import autotune as at
 from kubeflow_tpu_torch.ops import flash_attention as fa
 
 torch.set_num_threads(2)
@@ -105,6 +106,61 @@ def test_flash_bwd_matches_pallas_backward(causal, lens):
     for a, b, name in zip(got, want, "qkv"):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
                                    rtol=0, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("lens", [None, (100, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_forward_at_the_kernel_key_block_matches_pallas(causal, lens):
+    """bf16 at D = 64, the wgmma forward's inputs: the plain forward
+    steps over the kernels' 64-key blocks (``BLOCK_K``, the wgmma
+    kernel's ``kFwdStep``), so it rounds P to bf16 at the running max of
+    each 64-key block, as the reference's Pallas forward does at
+    ``block_k=64`` (interpret mode, ``block_q=64``, with and without
+    ``kv_len``). out within a norm-relative 4e-4 (the card's bf16 limit:
+    the two sum q.k in another order, which can move a P across a bf16
+    rounding), lse within 1e-5."""
+    q, k, v, _ = _np_qkv(B=2, S=256, H=2, D=64, seed=7)
+    jl = None if lens is None else jnp.asarray(np.asarray(lens, np.int32))
+    want, want_lse = jatt._flash_fwd(*_jax(q, k, v, dtype=jnp.bfloat16),
+                                     causal=causal, block_q=64, block_k=64,
+                                     sm_scale=None, interpret=True,
+                                     kv_len=jl)
+    tq, tk, tv = _torch(q, k, v, dtype=torch.bfloat16)
+    assert fa.BLOCK_K == at.WGMMA_TILES["flash_fwd"][1] == 64
+    kv_len = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    got, lse = fa.flash_fwd_plain(tq, tk, tv, causal=causal, kv_len=kv_len)
+    want = np.asarray(want, np.float32)
+    live = slice(None) if lens is None else slice(0, 100)
+    got = got.float().numpy()
+    for row, cut in ((0, live), (1, slice(None))):
+        a, b = got[row, cut], want[row, cut]
+        rel = np.linalg.norm(a - b) / np.linalg.norm(b)
+        assert rel <= 4e-4, f"row {row}: norm err {rel}"
+    B, S, H, _ = q.shape
+    lse = lse.numpy().reshape(B, H, S)
+    want_lse = np.asarray(want_lse).reshape(B, H, S)
+    np.testing.assert_allclose(lse[0, :, live], want_lse[0, :, live],
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(lse[1], want_lse[1], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("S", [45, 300])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_forward_key_block_matches_reference(causal, S):
+    """The plain forward over its ``BLOCK_K`` key blocks, f32, on a
+    ragged S (one 64-key block or several with a ragged last) and a
+    ``kv_len`` masking a ragged tail: out within 1e-5 of JAX's
+    ``reference_attention``."""
+    q, k, v, _ = _np_qkv(B=2, S=S, H=2, D=64, seed=8 + S)
+    lens = np.asarray([S, S - 17], np.int32)
+    tq, tk, tv = _torch(q, k, v)
+    kv_len = torch.from_numpy(lens)
+    got, _ = fa.flash_fwd_plain(tq, tk, tv, causal=causal, kv_len=kv_len)
+    ref = np.asarray(jatt.reference_attention(
+        *_jax(q, k, v), causal=causal, kv_len=jnp.asarray(lens)))
+    np.testing.assert_allclose(got.numpy()[0], ref[0], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy()[1, :S - 17], ref[1, :S - 17],
+                               atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("causal", [True, False])

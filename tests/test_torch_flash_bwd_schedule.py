@@ -294,9 +294,10 @@ class _FakeLib:
 def fake_lib(monkeypatch):
     """The wrappers' CUDA branch on ``meta`` tensors (which have no
     device to launch on): ``_cuda_args``'s row check and launch
-    arguments without its device check, the fake library, and launch
-    counters of their own."""
+    arguments without its device check, the fake library, launch
+    counters of their own, and an H100 SXM's ``SMS``."""
     lib = _FakeLib()
+    monkeypatch.setattr(at, "sm_count", lambda device: SMS)
     monkeypatch.setattr(fa, "_cuda_args", _meta_args)
     monkeypatch.setattr(fa, "_lib", lambda: lib)
     monkeypatch.setattr(fa, "_stream", lambda t: 0)
