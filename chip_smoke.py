@@ -1151,8 +1151,9 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
     ``flash_attention.cu``: each kernel's registers and spills are
     printed, and the bf16 tensor-core kernels at D = 64 (the training
     path's: the forward at both of its tiles and the fused backward)
-    must not spill. The forward is also held at ``FWD_TIMED_SHAPES``,
-    causal and not, with kv_len."""
+    must not spill. The forward and the backward are also held at
+    ``FWD_TIMED_SHAPES`` (the LM's, BERT's and ``LM_FLASH_SHAPE`` among
+    them), causal and not, with kv_len."""
     import torch
 
     from kubeflow_tpu_torch.ops import autotune

@@ -128,26 +128,33 @@
 //   bf16 and packed as wgmma's register A operand for dV += P^T.dO, then
 //   dK += dS^T.Q: B is the stage's dO or Q read MN-major through the
 //   descriptor's transpose bit, with no transposed copy.
+//   P^T = exp(S^T scale - lse) is one FFMA an exponent on the SFU's
+//   ex2: ex2(s c - lse log2 e) with c = scale log2 e, the producer having
+//   stored lse log2 e beside delta (lse itself is the forward's); edge
+//   tiles (causal diagonal, kv_len, S) take one branch a tile, not one a
+//   value, and give a masked key the reference's NEG_INF score.
 //   Added, dQ: each warpgroup writes its dS^T (hi and lo, 32-bit stores
 //   that hit no bank twice) to shared memory in the layout of a TMA K box
-//   (rows are keys; two buffers by q tile), and warpgroup 1 runs
+//   (rows are keys; two buffers by q tile), and the tile's owner runs
 //   dQ_tile = dS.K over the block's 128 keys with both operands in
 //   shared memory: A is dS^T and B the resident K, each read MN-major
 //   through its transpose bit (wgmma m64n64k16, 16 of them: 128 keys in
 //   hi and lo), into fresh fragments, one f32 sum in a fixed order with no
 //   add across warpgroups. That is 8 GEMMs' worth of tensor-core work a
 //   tile (S^T, dP^T, dV and dK as before, dQ's hi + lo) for the
-//   algorithm's 5. Warpgroup 1 takes the product because it issues a turn
-//   behind warpgroup 0: warpgroup 0's dS^T is in before warpgroup 1 needs
-//   it (an mbarrier a buffer, ds_full), and warpgroup 0 waits only before
-//   it writes a buffer whose last dQ has not landed (ds_free), so neither
-//   stops the other on every tile. (Split by output columns, 32 a
-//   warpgroup, both warpgroups meet at a barrier on every tile, and the
-//   half-tile offset that lets one's element-wise work overlap the
-//   other's products is lost: PERF.md, PR 22, times it and the other
-//   splits tried.)
+//   algorithm's 5. The owner of the block's q tile tq (counted over its
+//   walk) is warpgroup tq & 1, and so is dS^T buffer tq & 1: each
+//   warpgroup issues 24 products a tile and dQ's 16 on every other one,
+//   32 on average. The owner waits for the other's half (an mbarrier a
+//   buffer, ds_full); the other waits only before it writes a buffer
+//   whose last dQ has not landed (ds_free), two tiles back; no barrier
+//   joins the two warpgroups on every tile. (PR 22's design, all dQ on
+//   one warpgroup, 40 products against 24, with turns and three f32
+//   operations an exponent, read 2.70 ms at the LM, this one 2.34-2.38:
+//   PERF.md, PR 24. Split by output columns, both warpgroups meet at a
+//   barrier on every tile: PR 22 times it and the other splits tried.)
 //   The partial (64 x 64 f32, 16 KB as two 32-column boxes of 128-byte
-//   rows in the 128-byte swizzle, so warpgroup 1's float2 stores take the
+//   rows in the 128-byte swizzle, so the owner's float2 stores take the
 //   two wavefronts a warp's 256 bytes need) goes to a dense (B, S, H, D)
 //   f32 workspace by TMA (two boxes through an f32 tensor map, rows past
 //   S not written), issued by an adder warp of the producer warpgroup
@@ -176,31 +183,40 @@
 //   first: it would wait on items not yet taken, which ends only while
 //   every kv tile of a head can run at once.) At the causal LM shape the
 //   lower kv tiles start no earlier and walk more tiles before each q
-//   tile, so by tile order alone an adder would never wait; but each add
-//   takes time to land, and on an H100 (PERF.md, PR 22's timeline,
-//   scripts/port_flash_bwd_timeline.py) 49,438 of the 133,120 adds found
-//   their turn not yet come and the adders spin 42% of their time, while
-//   the consumers stall on the adders' buffers 1.7% of theirs. The likely
-//   cause, not yet tested: the 67 MB workspace is past the 50 MB L2, so
-//   the adds above land late.
-//   Registers: the consumers hold dK and dV (64) and, at a tile's peak,
-//   dK's fresh fragments and its dS A operand (64) and, in warpgroup 1,
-//   dQ's (32): dV's fresh fragments are added, and P^T's operand freed,
-//   before dQ goes out.
-// - Within a tile S^T and dP^T go out as two wgmma groups and P is made
-//   on the SFU (exp_sfu) while dP runs; dV goes out while dS is made and
-//   is added while dK runs, and (warpgroup 1) dK's fragments are added
-//   while dQ runs.
-//   In the backward the two consumer warpgroups take turns issuing S and
-//   dP (named barriers), so one's element-wise work overlaps the other's
-//   products. Every group lands within its tile, and
-//   the branches around wgmma are warp-uniform to ptxas (indices and loop
-//   bounds from a shuffle): otherwise ptxas serializes every wgmma (its
-//   C7515/C7518 notes), 1.2x slower. A warpgroup whose rows see none of a
-//   causal tile (the backward's first q tile for a block's upper keys,
-//   the forward's last stages for an item's lower rows) skips its
-//   products (the backward's still writes a zero dS^T, and warpgroup 1
-//   its dQ).
+//   tile, so by tile order alone an adder would never wait. On an H100
+//   (PERF.md, PR 24; scripts/port_flash_bwd_timeline.py) the blocks hold
+//   5 heads at once (6 at most): ~10-12 MB of the 67 MB workspace is live,
+//   inside the 50 MB L2, so L2 is not why adds wait; most of the
+//   adders' waiting is the turn check itself (acquire loads of the
+//   counter, ~0.6 us an add in the instrumented copy), and the consumers
+//   stall on the adders' buffers ~0.04 us a ~2.5 us tile.
+//   Registers (232 a consumer thread): dK and dV (64) stay; at a tile's
+//   peak P^T in f32 (for dS), its hi + lo operand, dV's fresh fragments
+//   and dS^T's operand (128); the owner's dQ (32) goes out once dV's are
+//   added, and the next tile's S^T and dP^T (64) once dK's are (the
+//   other warpgroup's beside dK's: 192). Holding them longer, under this
+//   tile's dS or P, needs 32-64 more: those schedules spilled dK and dV
+//   (32-956 bytes) or, with groups pending across the loop's back edge,
+//   had every wgmma serialized (C7514), and read 2.42-4.93 ms at the LM.
+//   The timeline shows the little they could hide: a warpgroup waits
+//   ~0.04 us a tile for all of its own products together, and spends
+//   ~2.0 us of a ~2.3 us tile issuing (the rest: the other's dS^T half,
+//   ~0.2 us, stages and buffers).
+// - Each tile issues the next one's S^T and dP^T (two wgmma groups) at
+//   its end: the owner once dK is added, under its hand-off of dQ; the
+//   other before it adds dK, under that add. P is made on the SFU once
+//   they have landed; dV goes out while dS is made and is added while dK
+//   runs, and (the owner) dK's fragments are added while dQ runs. Every
+//   group lands within its tile, and the branches around wgmma are
+//   warp-uniform to ptxas (indices, loop bounds and the owner's flag
+//   from a shuffle): otherwise ptxas serializes every wgmma
+//   (its C7515/C7518 notes), 1.2x slower. The warpgroups take no turns
+//   at issuing (named barriers a tile read 2.51 ms against 2.35-2.37
+//   without, on the chain before the next tile's S^T and dP^T moved to
+//   this tile's end). A warpgroup whose rows see none of a causal tile (the
+//   backward's first q tile for a block's upper keys, the forward's last
+//   stages for an item's lower rows) skips its products (the backward's
+//   still writes a zero dS^T, and issues the dQ it owns).
 // - The backward's P is exp(s - lse) where the forward's was
 //   exp(s - m) / l over running maxima (and the backward sums S^T in its
 //   own order), so it is the forward's to a few f32 ulp, not bit for bit;
@@ -282,6 +298,7 @@
 
 #include <algorithm>
 #include <stdint.h>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -310,14 +327,8 @@ constexpr int kWgThreads = 3 * kWG;
 constexpr int kWgTile = 128;
 constexpr int kWgStep = 64;
 constexpr int kWgStages = 4;
-constexpr int kStatStride = 2 * kWgStep;  // a stage's lse, then delta
-// Named barriers kTurnBar + wg: the backward's consumer warpgroups take
-// turns to issue a tile's S and dP products (warpgroup 0 first), so
-// one's element-wise work runs while the other's products do.
-// Each warpgroup takes one turn a stage of the block's range, live or
-// not; warpgroup 1 hands no turn on after the last, so every arrival is
-// waited on.
-constexpr int kTurnBar = 1;
+// a stage's lse (times log2 e), then delta
+constexpr int kStatStride = 2 * kWgStep;
 static_assert(kWgTile == 2 * 64 && kWgStep == hopper::kSw,
               "a consumer warpgroup owns one 64-row box; a stage streams "
               "one box a tensor");
@@ -475,11 +486,15 @@ __device__ __forceinline__ void split_bf16(float a, float b, unsigned& hi,
   lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
-// exp(x) on the SFU: ex2 of x * log2(e), within a few f32 ulp of expf
-// (0 for a masked score's x of about -1e30, 1 for x = 0).
-__device__ __forceinline__ float exp_sfu(float x) {
+constexpr float kLog2e = 1.4426950408889634f;
+// the reference's NEG_INF score in the exponent's base-2 domain
+constexpr float kNegInfLog2e = kNegInf * kLog2e;
+
+// exp2 on the SFU (0 for -inf and for the large negative arguments of
+// masked keys).
+__device__ __forceinline__ float ex2(float x) {
   float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
 
@@ -1971,12 +1986,14 @@ __global__ void __launch_bounds__(kThreadsTC)
 // two item slots.
 // ---------------------------------------------------------------------------
 
-constexpr int kDsBar = 3;   // warpgroup 1's dS^T is in shared memory
+// named barrier kDsBar + wg: the owner warpgroup's four warps have
+// stored their dS^T half
+constexpr int kDsBar = 1;
 constexpr int kDqBufs = 3;  // dQ partials in flight to the adders
 constexpr int kDqBytes = kWgStep * 64 * 4;  // a q tile's dQ partial, f32
 // full, empty (a stage each); res full, empty; item full, empty, dS
-// full (warpgroup 0's in), dS free (warpgroup 1's dQ read it) (two each);
-// dQ full, empty (a buffer each)
+// full (the other warpgroup's half in), dS free (the owner's dQ read it)
+// (two each); dQ full, empty (a buffer each)
 constexpr int kBwdBars = 2 * kWgStages + 2 + 8 + 2 * kDqBufs;
 static_assert(kDqBufs <= 3, "the adders are the producer warpgroup's "
                             "warps 1..3");
@@ -2142,11 +2159,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       mbar_init(item_full(x), 1);  // the producer's lane 0
       // the consumer warps and the adders
       mbar_init(item_empty(x), 8 + kDqBufs);
-      mbar_init(ds_full(x), 4);  // warpgroup 0's warps
-      mbar_init(ds_free(x), 4);  // warpgroup 1's warps
+      // buffer x is warpgroup x's (its dQ reads it): full takes the other
+      // warpgroup's warps, free the owner's
+      mbar_init(ds_full(x), 4);
+      mbar_init(ds_free(x), 4);
     }
     for (int x = 0; x < kDqBufs; ++x) {
-      mbar_init(dq_full(x), 4);   // warpgroup 1's warps
+      mbar_init(dq_full(x), 4);   // the owner's warps
       mbar_init(dq_empty(x), 1);  // adder x's lane 0
     }
     mbar_fence_init();
@@ -2198,7 +2217,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           float* st = stats_gen + s * kStatStride;
           for (int r = lane; r < kWgStep; r += 32) {
             const bool in = q0 + r < S;  // rows past S: zeros, P masked
-            st[r] = in ? lse_row[q0 + r] : 0.f;
+            st[r] = in ? lse_row[q0 + r] * kLog2e : 0.f;
             st[kWgStep + r] = in ? delta_row[q0 + r] : 0.f;
           }
           if (lane == 0) {
@@ -2269,59 +2288,65 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     consumer_regs();
     const int tw = threadIdx.x % kWG;
     const int warp = tw / 32, g = lane >> 2, t = lane & 3;
+    const float c = scale * kLog2e;
     auto release = [&](int s) {
       __syncwarp();
       if (lane == 0) mbar_arrive(empty(s));
     };
-    // turns at issuing S and dP (kTurnBar): warpgroup 1 hands the turn on
-    // after each of its tiles, and warpgroup 0 takes the last one after
-    // its loop, so every arrival is waited on
-    auto turn_begin = [&]() { bar_sync(kTurnBar + wg, 2 * kWG); };
-    auto turn_end = [&]() { bar_arrive(kTurnBar + (wg ^ 1), 2 * kWG); };
-    if (wg == 1) bar_arrive(kTurnBar, 2 * kWG);
     auto arrive = [&](uint32_t bar) {
       __syncwarp();
       if (lane == 0) mbar_arrive(bar);
     };
-    // dS^T of q tile tq into its buffer, tq & 1: warpgroup 0 waits until
-    // warpgroup 1's dQ has read the buffer's last tile, and hands its
-    // dS^T on; warpgroup 1 stores its own (its last dQ on the buffer has
-    // landed) and takes warpgroup 0's
+    // q tile tq's dQ, and dS^T buffer tq & 1, are warpgroup tq & 1's (own):
+    // the other warpgroup waits until the owner's dQ has read the
+    // buffer's last tile (ds_free), stores its half and hands it on
+    // (ds_full); the owner stores its own half (its last dQ on the buffer
+    // landed within that tile)
     auto put_ds = [&](const uint32_t (&dh)[4][4], const uint32_t (&dl)[4][4],
-                      int tq) {
+                      int tq, bool own) {
       const int x = tq & 1;
-      if (wg == 0) mbar_wait(ds_free(x), ((tq >> 1) & 1) ^ 1);
+      if (!own) mbar_wait(ds_free(x), ((tq >> 1) & 1) ^ 1);
       store_ds(gen(dsb + (4 * x + 2 * wg) * kBox), dh, dl, warp, g, t);
       fence_async_smem();
-      if (wg == 0) arrive(ds_full(x));
+      if (!own) arrive(ds_full(x));
     };
-    // warpgroup 1: dQ of q tile tq over the block's 128 keys, once both
-    // dS^T halves are in; the buffer is freed and the sum handed to the
-    // adder of buffer tq % kDqBufs
+    // the owner: dQ of q tile tq over the block's 128 keys, once its own
+    // four warps' and the other warpgroup's dS^T halves are in
     auto dq_begin = [&](float (&fq)[32], int tq) {
-      bar_sync(kDsBar, kWG);
+      bar_sync(kDsBar + wg, kWG);
       mbar_wait(ds_full(tq & 1), (tq >> 1) & 1);
       dq_product(fq, dsb + 4 * (tq & 1) * kBox, res);
     };
-    // (column group c of the fragment: box c / 4, 16-byte chunk
-    // 2 (c % 4) + t / 2 of its 128-byte row; the 8 rows g of a store land
-    // in 8 chunks, so a warp's 256 bytes take the two wavefronts they need)
+    // the owner, once dQ has landed: the dS^T buffer is freed and the sum
+    // handed to the adder of buffer tq % kDqBufs (column group cg of the
+    // fragment: box cg / 4, 16-byte chunk 2 (cg % 4) + t / 2 of its 128-byte
+    // row; the 8 rows g of a store land in 8 chunks, so a warp's 256 bytes
+    // take the two wavefronts they need)
     auto dq_end = [&](const float (&fq)[32], int tq) {
       arrive(ds_free(tq & 1));
       const int buf = tq % kDqBufs;
       mbar_wait(dq_empty(buf), ((tq / kDqBufs) & 1) ^ 1);
       unsigned char* dst = gen(dqb + buf * kDqBytes);
 #pragma unroll
-      for (int c = 0; c < 8; ++c)
+      for (int cg = 0; cg < 8; ++cg)
 #pragma unroll
         for (int h8 = 0; h8 < 2; ++h8)
           *reinterpret_cast<float2*>(
-              dst + (c >> 2) * kBox +
-              sw128(16 * warp + g + 8 * h8, 2 * (c & 3) + (t >> 1)) +
+              dst + (cg >> 2) * kBox +
+              sw128(16 * warp + g + 8 * h8, 2 * (cg & 3) + (t >> 1)) +
               8 * (t & 1)) =
-              make_float2(fq[4 * c + 2 * h8], fq[4 * c + 2 * h8 + 1]);
+              make_float2(fq[4 * cg + 2 * h8], fq[4 * cg + 2 * h8 + 1]);
       fence_async_smem();
       arrive(dq_full(buf));
+    };
+    // the owner's dQ on a tile with no products of its own: issued,
+    // landed and handed on
+    auto dq_alone = [&](int tq) {
+      float fq[32];
+      dq_begin(fq, tq);
+      wgmma_wait<0>();
+      fence_regs(fq);
+      dq_end(fq, tq);
     };
     int it = 0, tq = 0;
     for (int n = 0;; ++n) {
@@ -2347,158 +2372,211 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
       for (int x2 = 0; x2 < 32; ++x2) dka[x2] = dva[x2] = 0.f;
       mbar_wait(res_full, n & 1);
+      auto stage_of = [&](int it2) { return it2 % kWgStages; };
+      auto wait_stage = [&](int it2) {
+        mbar_wait(full(stage_of(it2)), (it2 / kWgStages) & 1);
+      };
+      auto q_at = [&](int it2) { return ring + stage_of(it2) * 2 * kBox; };
+      auto stats_at = [&](int it2) {
+        return stats_gen + stage_of(it2) * kStatStride;
+      };
+      // (warp-uniform in ptxas's view: a wgmma under a branch it cannot
+      // prove uniform is serialized)
+      auto owns = [&](int tq2) {
+        return __shfl_sync(0xffffffffu, (tq2 & 1) == wg, 0) != 0;
+      };
 
-      int i = i_lo;
-      for (; i < live_lo; ++i, ++it, ++tq) {
-        // a tile none of whose products are this warpgroup's (its keys
-        // all above the tile's rows): a zero dS^T
-        const int s = it % kWgStages;
-        mbar_wait(full(s), (it / kWgStages) & 1);
-        turn_begin();
-        turn_end();
-        release(s);
-        uint32_t zero[4][4];
+      // S^T = K.Q^T (a = K, b = the stage's Q) or dP^T = V.dO^T (V, dO):
+      // 64 keys x 64 q, K-major operands, one group into fresh fragments
+      // (the first k-step only writes them, so they are no input of the
+      // products)
+      auto issue_ss = [&](float (&d)[32], uint32_t a, uint32_t b) {
+        wgmma_m64n64_ss_new(d, wgmma_desc(a, 16, 1024),
+                            wgmma_desc(b, 16, 1024));
 #pragma unroll
-        for (int a2 = 0; a2 < 4; ++a2)
+        for (int kd = 1; kd < D / 16; ++kd)
+          wgmma_m64n64_ss(d, wgmma_desc(a + 32 * kd, 16, 1024),
+                          wgmma_desc(b + 32 * kd, 16, 1024), 1);
+        wgmma_commit();
+      };
+      // fresh = A.B over the tile's 64 q rows, A the hi and lo fragments
+      // in registers, B the stage's dO (dV) or Q (dK) read MN-major
+      // through the transpose bit: one group into fresh fragments, which
+      // the FMA units add to the running sum (the tensor cores truncate
+      // where they add into an accumulator)
+      auto issue_rs = [&](float (&fresh)[32], const uint32_t (&hi)[4][4],
+                          const uint32_t (&lo)[4][4], uint32_t b) {
+        wgmma_m64n64_rs_new(fresh, hi[0], wgmma_desc(b, kBox, 1024));
+        wgmma_m64n64_rs(fresh, lo[0], wgmma_desc(b, kBox, 1024), 1);
 #pragma unroll
-          for (int c = 0; c < 4; ++c) zero[a2][c] = 0u;
-        put_ds(zero, zero, tq);
-        if (wg == 1) {
-          float fq[32];
-          dq_begin(fq, tq);
-          wgmma_wait<0>();
-          fence_regs(fq);
-          dq_end(fq, tq);
+        for (int kk = 1; kk < kWgStep / 16; ++kk) {
+          const uint64_t bd = wgmma_desc(b + kk * 16 * 128, kBox, 1024);
+          wgmma_m64n64_rs(fresh, hi[kk], bd, 1);
+          wgmma_m64n64_rs(fresh, lo[kk], bd, 1);
         }
-      }
-      for (; i < i_hi; ++i, ++it, ++tq) {
-        const int s = it % kWgStages;
-        mbar_wait(full(s), (it / kWgStages) & 1);
-        const uint32_t qa = ring + s * 2 * kBox, ga = qa + kBox;
-        const float* st = stats_gen + s * kStatStride;
-        const int q0 = i * kWgStep;
-
-        // S^T = K.Q^T, then dP^T = V.dO^T (two groups): 64 keys x 64 q,
-        // K-major operands; the first k-step of each starts its sum
-        float sT[32], dpT[32];
-        turn_begin();
-        wgmma_fence();
-#pragma unroll
-        for (int kd = 0; kd < D / 16; ++kd)
-          wgmma_m64n64_ss(sT, wgmma_desc(ka + 32 * kd, 16, 1024),
-                          wgmma_desc(qa + 32 * kd, 16, 1024), kd > 0);
         wgmma_commit();
+      };
+      auto add_to = [&](float (&sum)[32], float (&fresh)[32]) {
+        fence_regs(fresh);
 #pragma unroll
-        for (int kd = 0; kd < D / 16; ++kd)
-          wgmma_m64n64_ss(dpT, wgmma_desc(va + 32 * kd, 16, 1024),
-                          wgmma_desc(ga + 32 * kd, 16, 1024), kd > 0);
-        wgmma_commit();
-        turn_end();
-
-        // P^T = exp(S^T * scale - lse) in f32 while dP^T runs (in
-        // registers of its own: ptxas serializes wgmma when other
-        // instructions write an accumulator while a group is pending);
-        // split into hi + lo bf16 A fragments (k-step kk is q columns
-        // 16kk..16kk+15: column group n gives registers 2(n & 1) and
-        // 2(n & 1) + 1 of k-step n / 2)
-        wgmma_wait<1>();
-        fence_regs(sT);
-        float pT[32];
+        for (int x2 = 0; x2 < 32; ++x2) sum[x2] += fresh[x2];
+      };
+      // P^T = exp(S^T scale - lse) in f32, in place on the finished S^T
+      // (a wgmma accumulator is a block of registers of its own: P beside
+      // S would take another), one FFMA an exponent: ex2(s c - lse
+      // log2 e), c = scale log2 e, the stage's lse already times log2 e
+      // (the producer's). On edge tiles, masked keys (causal, kv_len,
+      // past S) take the reference's NEG_INF score, ex2(NEG_INF log2 e -
+      // lse log2 e): 0, or 1 on a row whose keys are all masked (lse =
+      // NEG_INF); rows past S get 0. One branch a tile, not one a value.
+      auto make_p = [&](float (&sT)[32], const float* st, int q0) {
         const bool edge = (causal && kw + 63 > q0) || q0 + kWgStep > S ||
                           kw + 64 > w.limit;
-        uint32_t ph[4][4], pl[4][4];
+        if (edge) {
 #pragma unroll
-        for (int n8 = 0; n8 < 8; ++n8) {
-          const int qc = 8 * n8 + 2 * t;
-          const float2 l2 = *reinterpret_cast<const float2*>(st + qc);
+          for (int n8 = 0; n8 < 8; ++n8) {
+            const int qc = 8 * n8 + 2 * t;
+            const float2 l2 = *reinterpret_cast<const float2*>(st + qc);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float lq = (e & 1) ? l2.y : l2.x;
-            float sc = sT[4 * n8 + e] * scale;
-            if (edge) {
+            for (int e = 0; e < 4; ++e) {
+              const float lq = (e & 1) ? l2.y : l2.x;
               const int qpos = q0 + qc + (e & 1);
               const int kpos = kw + 16 * warp + g + 8 * (e >> 1);
-              sc = mask_score(sc, qpos, kpos, w.limit, causal);
-              pT[4 * n8 + e] = qpos < S ? exp_sfu(sc - lq) : 0.f;
-            } else {
-              pT[4 * n8 + e] = exp_sfu(sc - lq);
+              const bool masked = (causal && kpos > qpos) || kpos >= w.limit;
+              float& p = sT[4 * n8 + e];
+              p = qpos >= S ? 0.f
+                            : ex2(masked ? kNegInfLog2e - lq
+                                         : fmaf(p, c, -lq));
             }
           }
+        } else {
+#pragma unroll
+          for (int n8 = 0; n8 < 8; ++n8) {
+            const float2 l2 =
+                *reinterpret_cast<const float2*>(st + 8 * n8 + 2 * t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sT[4 * n8 + e] =
+                  ex2(fmaf(sT[4 * n8 + e], c, (e & 1) ? -l2.y : -l2.x));
+          }
+        }
+      };
+      // P^T split into hi + lo bf16 A fragments (k-step kk is q columns
+      // 16kk..16kk+15: column group n gives registers 2(n & 1) and
+      // 2(n & 1) + 1 of k-step n / 2)
+      auto split_p = [&](const float (&pT)[32], uint32_t (&ph)[4][4],
+                         uint32_t (&pl)[4][4]) {
+#pragma unroll
+        for (int n8 = 0; n8 < 8; ++n8) {
           const int kk = n8 >> 1, r = (n8 & 1) * 2;
           split_bf16(pT[4 * n8], pT[4 * n8 + 1], ph[kk][r], pl[kk][r]);
           split_bf16(pT[4 * n8 + 2], pT[4 * n8 + 3], ph[kk][r + 1],
                      pl[kk][r + 1]);
         }
-
-        // dV += P^T.dO, dK += dS^T.Q, each a group of hi and lo over the
-        // tile's 64 q rows into fresh fragments (B read MN-major from the
-        // stage through the transpose bit), which the FMA units add to the
-        // running sums (the tensor cores truncate where they add into an
-        // accumulator). Every group lands within its tile: ptxas
-        // serializes wgmma whose accumulators it cannot see retired.
-        float fresh_v[32];
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kWgStep / 16; ++kk) {
-          const uint64_t bd = wgmma_desc(ga + kk * 16 * 128, kBox, 1024);
-          wgmma_m64n64_rs(fresh_v, ph[kk], bd, kk > 0);
-          wgmma_m64n64_rs(fresh_v, pl[kk], bd, 1);
-        }
-        wgmma_commit();
-
-        // dS^T = P^T (dP^T - delta) in f32 while dV runs, split as P^T
-        wgmma_wait<1>();
-        fence_regs(dpT);
-        uint32_t dh[4][4], dl[4][4];
+      };
+      // dS^T = P^T (dP^T - delta) in f32, split as P^T
+      auto make_ds = [&](const float (&pT)[32], const float (&dpT)[32],
+                         const float* st, uint32_t (&dh)[4][4],
+                         uint32_t (&dl)[4][4]) {
 #pragma unroll
         for (int n8 = 0; n8 < 8; ++n8) {
           const float2 d2 = *reinterpret_cast<const float2*>(
               st + kWgStep + 8 * n8 + 2 * t);
-          float dsv[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            dsv[e] = pT[4 * n8 + e] *
-                     (dpT[4 * n8 + e] - ((e & 1) ? d2.y : d2.x));
           const int kk = n8 >> 1, r = (n8 & 1) * 2;
-          split_bf16(dsv[0], dsv[1], dh[kk][r], dl[kk][r]);
-          split_bf16(dsv[2], dsv[3], dh[kk][r + 1], dl[kk][r + 1]);
+#pragma unroll
+          for (int h8 = 0; h8 < 2; ++h8)
+            split_bf16(pT[4 * n8 + 2 * h8] * (dpT[4 * n8 + 2 * h8] - d2.x),
+                       pT[4 * n8 + 2 * h8 + 1] *
+                           (dpT[4 * n8 + 2 * h8 + 1] - d2.y),
+                       dh[kk][r + h8], dl[kk][r + h8]);
         }
-        // dS^T to shared memory for dQ, then dK += dS^T.Q from the
-        // registers; dV's fragments are added while it runs
-        put_ds(dh, dl, tq);
-        float fresh_k[32];
+      };
+
+      int i = i_lo;
+      for (; i < live_lo; ++i, ++it, ++tq) {
+        // a tile none of whose products are this warpgroup's (its keys
+        // all above the tile's rows): a zero dS^T, and the owner's dQ
+        wait_stage(it);
+        release(stage_of(it));
+        const bool own = owns(tq);
+        uint32_t zero[4][4];
+#pragma unroll
+        for (int a2 = 0; a2 < 4; ++a2)
+#pragma unroll
+          for (int c2 = 0; c2 < 4; ++c2) zero[a2][c2] = 0u;
+        put_ds(zero, zero, tq, own);
+        if (own) dq_alone(tq);
+      }
+      // S^T (then P^T in place) and dP^T of the tile, issued by the tile
+      // before it (or the head below)
+      float sT[32], dpT[32];
+      auto issue_sdp = [&](int it2) {
+        wait_stage(it2);
         wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kWgStep / 16; ++kk) {
-          const uint64_t bd = wgmma_desc(qa + kk * 16 * 128, kBox, 1024);
-          wgmma_m64n64_rs(fresh_k, dh[kk], bd, kk > 0);
-          wgmma_m64n64_rs(fresh_k, dl[kk], bd, 1);
-        }
-        wgmma_commit();
+        issue_ss(sT, ka, q_at(it2));
+        issue_ss(dpT, va, q_at(it2) + kBox);
+      };
+      // A live tile, its S^T and dP^T landed. In commit order: dV, with
+      // P^T made and split before it; dS^T while dV runs; dK, while dS^T
+      // goes to shared memory; dV added while dK runs; the owner's dQ,
+      // and dK added while it runs; then (has_next) the next tile's S^T
+      // and dP^T, under the owner's hand-off of dQ and the other's add of
+      // dK. Every group lands within the tile, and no register of a
+      // pending group is read or written.
+      auto tile = [&](auto has_next) {
+        constexpr bool next = decltype(has_next)::value;
+        const uint32_t qa = q_at(it), ga = qa + kBox;
+        const bool own = owns(tq);
+        float fresh_v[32], fresh_k[32];
+        uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
+        make_p(sT, stats_at(it), i * kWgStep);
+        split_p(sT, ph, pl);
+        wgmma_fence();
+        issue_rs(fresh_v, ph, pl, ga);
+        make_ds(sT, dpT, stats_at(it), dh, dl);
+        put_ds(dh, dl, tq, own);
+        wgmma_fence();
+        issue_rs(fresh_k, dh, dl, qa);
         wgmma_wait<1>();
-        fence_regs(fresh_v);
-#pragma unroll
-        for (int x2 = 0; x2 < 32; ++x2) dva[x2] += fresh_v[x2];
-        if (wg == 1) {
-          // dQ over the block's keys; dK's fragments are added while it
-          // runs
+        add_to(dva, fresh_v);
+        if (own) {
           float fq[32];
           dq_begin(fq, tq);
           wgmma_wait<1>();
-          fence_regs(fresh_k);
-#pragma unroll
-          for (int x2 = 0; x2 < 32; ++x2) dka[x2] += fresh_k[x2];
-          release(s);
-          wgmma_wait<0>();
+          add_to(dka, fresh_k);
+          release(stage_of(it));
+          if constexpr (next) {
+            issue_sdp(it + 1);
+            wgmma_wait<2>();
+          } else {
+            wgmma_wait<0>();
+          }
           fence_regs(fq);
           dq_end(fq, tq);
         } else {
-          wgmma_wait<0>();
-          fence_regs(fresh_k);
-#pragma unroll
-          for (int x2 = 0; x2 < 32; ++x2) dka[x2] += fresh_k[x2];
-          release(s);
+          if constexpr (next) {
+            issue_sdp(it + 1);
+            wgmma_wait<2>();
+          } else {
+            wgmma_wait<0>();
+          }
+          add_to(dka, fresh_k);
+          release(stage_of(it));
         }
+        if constexpr (next) {
+          wgmma_wait<0>();
+          fence_regs(sT);
+          fence_regs(dpT);
+        }
+        ++i, ++it, ++tq;
+      };
+      if (i < i_hi) {
+        issue_sdp(it);
+        wgmma_wait<0>();
+        fence_regs(sT);
+        fence_regs(dpT);
+        while (i + 1 < i_hi) tile(std::true_type());
+        tile(std::false_type());
       }
 
       if (has_keys) {
@@ -2510,21 +2588,20 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           const int kpos = kw + 16 * warp + g + 8 * r;
           if (kpos >= S) continue;
 #pragma unroll
-          for (int c = 0; c < D / 8; ++c) {
-            const long long at = ob + kpos * o_row + 8 * c + 2 * t;
+          for (int c2 = 0; c2 < D / 8; ++c2) {
+            const long long at = ob + kpos * o_row + 8 * c2 + 2 * t;
             *reinterpret_cast<__nv_bfloat162*>(dk + at) =
-                __floats2bfloat162_rn(dka[4 * c + 2 * r] * scale,
-                                      dka[4 * c + 2 * r + 1] * scale);
+                __floats2bfloat162_rn(dka[4 * c2 + 2 * r] * scale,
+                                      dka[4 * c2 + 2 * r + 1] * scale);
             *reinterpret_cast<__nv_bfloat162*>(dv + at) =
-                __floats2bfloat162_rn(dva[4 * c + 2 * r],
-                                      dva[4 * c + 2 * r + 1]);
+                __floats2bfloat162_rn(dva[4 * c2 + 2 * r],
+                                      dva[4 * c2 + 2 * r + 1]);
           }
         }
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(res_empty);  // K and V read
     }
-    if (wg == 0) turn_begin();  // warpgroup 1's last hand-on
   }
 }
 
@@ -2566,7 +2643,6 @@ static_assert(kFwdStep == hopper::kSw, "S is one wgmma of n = 64 a k-step");
 // and finite, so a row whose keys are all masked has max == it and P = 1
 // (the reference's NEG_INF row), while one with a live key gets P = 0.
 constexpr float kMaskRaw = -3.0e38f;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // The block geometry of NC consumer warpgroups (64 q rows each) and one
 // producer warpgroup. NC = 3: one block an SM; 512 threads start with 128
@@ -2596,14 +2672,6 @@ struct FwdGeom {
   static_assert(kBlocks * (kSmem + 1024) <= 233472,
                 "the blocks an SM share its 228 KB");
 };
-
-// exp2 on the SFU (0 for -inf and for the large negative arguments of
-// masked keys).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // One stage's online softmax on its finished S (raw products q.k), in
 // place: S's fragments end holding this stage's P in f32 (fwd_pack

@@ -631,11 +631,13 @@ def test_flash_bf16_kernels_are_deterministic(cuda, D):
         assert torch.equal(a, b)
 
 
-def _hold_bwd(q, k, v, g, *, causal, kv_len=None):
+def _hold_bwd(q, k, v, g, *, causal, kv_len=None, heads=None):
     """dQ, dK and dV of the fused kernel (one launch) from the kernel
     forward's lse against their plain versions at the bf16
-    norm-relative limit (4e-4); returns the kernel outputs (dq, dk, dv)
-    and each output's reading."""
+    norm-relative limit (4e-4), the plain versions ``heads`` heads a
+    call (all at once by default: they hold (B, H, S, S) f32 scores);
+    returns the kernel outputs (dq, dk, dv) and each output's
+    reading."""
     kw = dict(causal=causal, kv_len=kv_len)
     out, lse = fa.flash_fwd(q, k, v, **kw)
     delta = fa.flash_delta(g, out)
@@ -643,8 +645,16 @@ def _hold_bwd(q, k, v, g, *, causal, kv_len=None):
     got = fa.flash_bwd(q, k, v, g, lse, delta, **kw)
     torch.cuda.synchronize()
     assert fa.launches == dict(before, flash_bwd=before["flash_bwd"] + 1)
-    want = (fa.flash_bwd_dq_plain(q, k, v, g, lse, delta, **kw),
-            *fa.flash_bwd_dkv_plain(q, k, v, g, lse, delta, **kw))
+    step = heads or q.shape[2]
+    parts = []
+    for h in range(0, q.shape[2], step):
+        sl = slice(h, h + step)
+        a = (q[:, :, sl], k[:, :, sl], v[:, :, sl], g[:, :, sl],
+             lse[:, sl], delta[:, sl])
+        parts.append((fa.flash_bwd_dq_plain(*a, **kw),
+                      *fa.flash_bwd_dkv_plain(*a, **kw)))
+    want = tuple(torch.cat(ts, dim=2) for ts in zip(*parts))
+    del parts
     rels = {}
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         a, b = a.float(), b.float()
@@ -889,6 +899,34 @@ def test_flash_wgmma_forward_at_the_timed_shapes(cuda, monkeypatch, shape,
     _pin_rows(monkeypatch, rows)
     assert fa._wgmma_route("flash_fwd", (q, k, v), causal)[0] == rows
     _hold_fwd(q, k, v, causal=causal, kv_len=lens)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", sorted(FWD_SHAPES))
+def test_flash_wgmma_backward_at_the_timed_shapes(cuda, shape, causal,
+                                                  masked):
+    """The one-pass backward at the four timed shapes and a ragged S,
+    causal and not, with kv_len (a zero row and ragged ones; one ragged
+    row at B = 1): its q tiles' dQ alternate between the two consumer
+    warpgroups and its items' walks run from one to 128 q tiles. dQ, dK
+    and dV within the bf16 norm-relative limit (4e-4) of their plain
+    versions (four heads a call), and a repeat call bit for bit."""
+    B, S, H = FWD_SHAPES[shape]
+    rng = np.random.default_rng(B * S + H + 1)
+    q, k, v, g = (_bf16(rng, (B, S, H, 64), cuda) for _ in range(4))
+    lens = None
+    if masked:
+        lens = torch.tensor([0] + [max(1, S - 37 * b) for b in range(1, B)]
+                            if B > 1 else [S - 37], dtype=torch.int32,
+                            device=cuda)
+    got, rels = _hold_bwd(q, k, v, g, causal=causal, kv_len=lens, heads=4)
+    print(f"{shape} causal={causal} masked={masked}: {rels}")
+    out, lse = fa.flash_fwd(q, k, v, causal=causal, kv_len=lens)
+    again = fa.flash_bwd(q, k, v, g, lse, fa.flash_delta(g, out),
+                         causal=causal, kv_len=lens)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
 
 
 def test_flash_bf16_kernels_refuse_rows_off_16_bytes(cuda):

@@ -23,6 +23,8 @@ kernels, and CPU tensors take the plain path and count no launch.
 """
 
 import heapq
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -246,6 +248,212 @@ def test_heaviest_first_backward_list_can_deadlock():
         simulate(S, 2, workers, True, per_head=heavy)
     makespan, _, _, _ = simulate(S, 2, workers, True)
     assert makespan > 0
+
+
+# The block's own protocol (csrc/flash_attention.cu,
+# flash_bwd_wgmma_kernel): a producer fills a ring of STAGES stages; two
+# consumer warpgroups walk the same q tiles of each item, q tile tq of the
+# block's walk (tq counts over its items) owned by warpgroup tq & 1, which
+# issues its dQ from dS^T buffer tq & 1 once the other warpgroup's half is
+# in (ds_full) and frees the buffer when dQ has landed (ds_free), then
+# hands the sum to adder tq % DQ_BUFS (dq_full / dq_empty). Each wait
+# names the completion it needs, as the kernel's parity does: it passes
+# when the barrier has completed that many phases, and a barrier found
+# past it is a parity the hardware would misread.
+STAGES, DQ_BUFS, WG_ROWS = 4, 3, 64
+
+
+class _Barrier:
+    def __init__(self, count):
+        self.count, self.arrived, self.done = count, 0, 0
+
+    def arrive(self):
+        self.arrived += 1
+        if self.arrived == self.count:
+            self.arrived, self.done = 0, self.done + 1
+
+
+def _block_item(entry, S, causal, kv_len):
+    """``csrc:bwd_item``: (kv tile, q tiles [lo, hi), trimmed) of one
+    work-list entry for a batch row of length ``kv_len``."""
+    j, first, end = entry
+    limit = S if kv_len is None else kv_len
+    trim = causal and limit > 0
+    n_q = -(-S // WG_ROWS)
+    return j, (first if trim else 0), (end if trim else n_q), trim
+
+
+def _block_programs(items, S, causal, kv_len):
+    """Each actor's steps for a block that takes ``items``: the producer,
+    the two consumer warpgroups (the kernel's dead tiles, then its live
+    ones) and the adders. A step is ("wait", barrier, completion),
+    ("arrive", barrier) or ("dq", tq, warpgroup, q tile) / ("add", tq, q
+    tile)."""
+    walk = [(j, i) for j, lo, hi, _ in (_block_item(e, S, causal, kv_len)
+                                         for e in items)
+            for i in range(lo, hi)]
+    prod = []
+    for it in range(len(walk)):
+        prod += [("wait", ("empty", it % STAGES), it // STAGES),
+                 ("arrive", ("full", it % STAGES))]
+    wgs = []
+    for wg in (0, 1):
+        steps, it = [], 0
+        for e in items:
+            j, lo, hi, trim = _block_item(e, S, causal, kv_len)
+            kw = j * 2 * WG_ROWS + WG_ROWS * wg
+            live_lo = hi if kw >= S else (max(lo, kw // WG_ROWS) if trim
+                                          else lo)
+            for i in range(lo, hi):
+                tq, s, x = it, it % STAGES, it & 1
+                own, buf = (tq & 1) == wg, tq % DQ_BUFS
+                steps.append(("wait", ("full", s), it // STAGES + 1))
+                if i < live_lo:             # dead: released at once
+                    steps.append(("arrive", ("empty", s)))
+                if not own:
+                    steps += [("wait", ("ds_free", x), tq >> 1),
+                              ("arrive", ("ds_full", x))]
+                else:
+                    steps += [("wait", ("ds_full", x), (tq >> 1) + 1),
+                              ("dq", tq, wg, i)]
+                if i >= live_lo:            # live: released after dK
+                    steps.append(("arrive", ("empty", s)))
+                if own:
+                    steps += [("arrive", ("ds_free", x)),
+                              ("wait", ("dq_empty", buf), tq // DQ_BUFS),
+                              ("arrive", ("dq_full", buf))]
+                it += 1
+        wgs.append(steps)
+    adders = [[step for tq, (j, i) in enumerate(walk) if tq % DQ_BUFS == b
+               for step in (("wait", ("dq_full", b), tq // DQ_BUFS + 1),
+                            ("add", tq, i),
+                            ("arrive", ("dq_empty", b)))]
+              for b in range(DQ_BUFS)]
+    return walk, [prod] + wgs + adders
+
+
+def _run_block(programs, rng):
+    """Runs the actors in a random interleaving; returns the dQ issues
+    and adds in the order they happened, or raises on a deadlock or on
+    a wait that finds its barrier past the completion it names."""
+    bars = {("full", s): _Barrier(1) for s in range(STAGES)}
+    bars.update({("empty", s): _Barrier(2) for s in range(STAGES)})
+    for x in (0, 1):
+        bars[("ds_full", x)] = _Barrier(1)   # the other warpgroup
+        bars[("ds_free", x)] = _Barrier(1)   # the owner
+    for b in range(DQ_BUFS):
+        bars[("dq_full", b)] = _Barrier(1)   # the owner
+        bars[("dq_empty", b)] = _Barrier(1)  # the adder
+    pcs, log = [0] * len(programs), []
+    while True:
+        ready = []
+        for a, prog in enumerate(programs):
+            if pcs[a] == len(prog):
+                continue
+            step = prog[pcs[a]]
+            if step[0] == "wait":
+                done = bars[step[1]].done
+                assert done <= step[2], (
+                    f"actor {a} waits for completion {step[2]} of "
+                    f"{step[1]}, which has {done}: a parity misread")
+                if done < step[2]:
+                    continue
+            ready.append(a)
+        if not ready:
+            break
+        a = ready[rng.integers(len(ready))]
+        step = programs[a][pcs[a]]
+        pcs[a] += 1
+        if step[0] == "arrive":
+            bars[step[1]].arrive()
+        elif step[0] in ("dq", "add"):
+            log.append(step)
+    stuck = [a for a, prog in enumerate(programs) if pcs[a] < len(prog)]
+    if stuck:
+        raise RuntimeError(f"deadlock: actors {stuck} stopped at "
+                           f"{[programs[a][pcs[a]] for a in stuck]}")
+    return log
+
+
+# (S, causal, kv_len, which of the head's work-list entries one block
+# takes, in list order): the LM's highest and lowest kv tiles, a ragged
+# S with the upper warpgroup of the last kv tile keyless, kv_len trimming
+# nothing (0) or some keys, and BERT's non-causal items
+BLOCK_CASES = [(8192, True, None, (0, 1, 62, 63)),
+               (1000, True, None, (0, 1, 2, 6, 7)),
+               (1000, False, None, (0, 3, 7)),
+               (1000, True, 0, (0, 7)),
+               (1000, True, 937, (0, 4, 7)),
+               (512, False, None, (0, 1, 2, 3))]
+
+
+@pytest.mark.parametrize("S,causal,kv_len,picks", BLOCK_CASES)
+def test_dq_alternates_between_the_warpgroups(S, causal, kv_len, picks):
+    """Under random interleavings of one block's producer, consumer
+    warpgroups and adders, every q tile of its walk has its dQ issued
+    exactly once, by warpgroup tq & 1 (so each warpgroup issues dQ on
+    every other tile: 32 products a tile each, on average), the adds
+    leave each adder in its tiles' order, and no wait deadlocks or finds
+    its barrier a phase past the one its parity names."""
+    work = fa.wgmma_work("flash_bwd", S, causal)
+    items = [work[k] for k in picks]
+    walk, programs = _block_programs(items, S, causal, kv_len)
+    rng = np.random.default_rng(S + len(picks))
+    for _ in range(8):
+        log = _run_block(programs, rng)
+        dq = [step for step in log if step[0] == "dq"]
+        assert sorted(tq for _, tq, _, _ in dq) == list(range(len(walk)))
+        for _, tq, wg, i in dq:
+            assert wg == tq & 1 and i == walk[tq][1], (tq, wg, i)
+        owners = [wg for _, _, wg, _ in sorted(dq, key=lambda d: d[1])]
+        assert abs(owners.count(0) - owners.count(1)) <= 1
+        for b in range(DQ_BUFS):
+            adds = [step[1] for step in log
+                    if step[0] == "add" and step[1] % DQ_BUFS == b]
+            assert adds == list(range(b, len(walk), DQ_BUFS))
+
+
+def test_block_model_finds_a_misread_parity():
+    """The model's check bites: an owner that frees its dS^T buffer
+    before its dQ is issued lets the other warpgroup run a phase ahead,
+    which the model reports (or the block deadlocks), rather than
+    passing."""
+    work = fa.wgmma_work("flash_bwd", 1000, False)
+    walk, programs = _block_programs(work[:2], 1000, False, None)
+    for wg in (1, 2):
+        prog = programs[wg]
+        for k, step in enumerate(prog):
+            if step[0] == "dq":
+                free = next(m for m in range(k, len(prog))
+                            if prog[m][0] == "arrive"
+                            and prog[m][1][0] == "ds_free")
+                prog.insert(k - 1, prog.pop(free))
+                break
+    caught = 0
+    for seed in range(20):
+        try:
+            _run_block(programs, np.random.default_rng(seed))
+        except (AssertionError, RuntimeError):
+            caught += 1
+    assert caught > 0
+
+
+def test_timeline_stamps_find_the_kernel():
+    """``scripts/port_flash_bwd_timeline.py`` instruments the package's
+    fused backward: each of its anchors is found exactly once in
+    ``csrc/flash_attention.cu``, so the timeline measures the kernel the
+    package builds."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "port_flash_bwd_timeline",
+        os.path.join(root, "scripts", "port_flash_bwd_timeline.py"))
+    timeline = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timeline)
+    with open(os.path.join(root, "kubeflow_tpu_torch", "ops", "csrc",
+                           "flash_attention.cu")) as f:
+        src = f.read()
+    out = timeline.instrumented_source(src)
+    assert out.count("gtime()") > 2 * len(timeline.OWN)
 
 
 @pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
