@@ -1176,7 +1176,7 @@ def check_flash_kernels(device, *, B=2, H=16, D=64, S_main=8192, step=4,
         # ptxas serializes every wgmma of a kernel it cannot prove safe
         # to pipeline, and says so only in an info line (~1.2x slower)
         serialized = [line.strip() for line in build_log.splitlines()
-                      if "C7515" in line or "C7518" in line
+                      if any(f"C751{k}" in line for k in (3, 4, 5, 8))
                       or "instructions are serialized" in line]
         check(not serialized, "ptxas serialized wgmma in flash_attention: "
                               + " | ".join(serialized))
@@ -1839,9 +1839,14 @@ def train_phase(device, *, steps=TRAIN_STEPS):
                          "bookkeeping_ms": on_step * 1e3,
                          "rest_ms": (times[k] - telem_s[k] - probe
                                      - on_step) * 1e3})
+    # on a miss, each step's split says where the host time went: inside
+    # the telemetry's window, in its probe read or bookkeeping after it,
+    # or outside both (the rest)
     check(abs(telem_med - own_med) <= 0.1 * own_med,
-          f"train: telemetry steps {telem_s} s vs the phase's own "
-          f"{times} s")
+          f"train: telemetry median {telem_med * 1e3:.1f} ms vs the "
+          f"phase's own {own_med * 1e3:.1f} ms (steps 2..); per step "
+          + "; ".join(", ".join(f"{k} {v:.1f}" for k, v in d.items())
+                      for d in split))
     check(summary["recompiles"] == 0 and telem.flops_per_step,
           f"train: telemetry {summary}, flops {telem.flops_per_step}")
     hbm = telem.hbm_sampler.beacon_fields()

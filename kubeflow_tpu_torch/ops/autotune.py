@@ -82,7 +82,11 @@ WGMMA_FWD_SHORT_TILE = (64, 64)
 # the forward's rows an item -> (its blocks an SM, csrc FwdGeom's: one
 # 192-row block, two 64-row ones; a round's time relative to a 64-row
 # round, 1.15 at phase 2's non-causal shapes on an NVIDIA H100 80GB HBM3
-# at 700 W, PERF.md §6 row 3)
+# at 700 W, PERF.md §6 row 3; the hand-off design reads 1.07 and 1.08
+# at the two :predict shapes and 1.17 at BERT-base's, the one timed
+# shape whose grids differ in rounds (5 against 6): any cost in (1, 1.2)
+# picks the faster tile at every timed shape,
+# scripts/port_flash_bwd_ab.py --rows)
 FWD_ROUNDS = {192: (1, 1.15), 64: (2, 1.0)}
 # the wgmma kernel each reference key runs (both backward keys: the fused one)
 WGMMA_KERNEL = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd",

@@ -84,37 +84,79 @@
 //   rule; NC = 1 (64 rows, two blocks an SM, 232) is the tile table's
 //   choice where the 192-row grid's last round would leave SMs idle
 //   (ops/autotune.py:forward_rounds). The grid is persistent: as many
-//   blocks as the card holds, each taking the next item from a counter
-//   when its producer is free, head by head, so the blocks in flight
-//   read a few heads' K and V from L2 and the heavy and light items of
-//   each head are shared out as the blocks free up.
+//   blocks as the card holds, block b's first item is item b and the rest
+//   come from a counter, taken when its producer is free, head by head,
+//   so the blocks in flight read a few heads' K and V from L2 and the
+//   heavy and light items of each head are shared out as they free up.
+//   The ring: a full and an empty mbarrier a stage (K and V together; the
+//   empty one counts each consumer warp's release after its P.V lands;
+//   K and V on barriers of their own, K's slot freed once S has landed,
+//   read 5% slower at the LM shape: the stage waits the timeline shows,
+//   ~190 ns a stage for the outer warpgroups, follow the middle one's
+//   pace and not the ring's refills),
+//   a full and an empty one a Q buffer, and each Q buffer's item as the
+//   producer decoded it (kFwdSlot), so no consumer reads the work list
+//   or kv_len from global memory.
 //   Inside a warpgroup the stages overlap: S_{j+1} = Q.K_{j+1}^T and
 //   P_j.V_j go out together, the softmax of S_{j+1} runs on the SFU and
 //   FMA units while P_j.V_j is in flight (wgmma_wait<1>), and P_{j+1} is
 //   rounded into P's registers once P_j.V_j has landed. S is wgmma
-//   m64n64k16 with both operands K-major in shared memory, into fresh
-//   fragments (its first k-step only writes them, so they are no input
-//   of the next S and hold P in f32 between stages); the softmax runs in
-//   place on them: the row max over the raw products (scale > 0), each
-//   exponent one FFMA, ex2(s * c - m * c) with c = scale * log2(e), the
-//   masks only on edge stages (causal diagonal, kv_len, keys past S to
-//   -inf; a masked product is kMaskRaw, so a row with no live key
-//   averages V uniformly, as NEG_INF makes the reference's). P, rounded
-//   to bf16, is the register A operand of P.V with V read MN-major from
-//   the stage through the transpose bit. P.V goes to fresh fragments and
-//   the FMA units add it as O = O * alpha + P.V (see Long sums). The
-//   epilogue scales by 1 / max(l, 1e-30), stores bf16 pairs from
-//   registers and lse = m + logf(l) (held to 1e-5 absolute: logf, not
-//   the SFU's lg2). No branch sits between a wgmma's issue and the wait
-//   that retires it, so ptxas sees which group each wait retires (with a
-//   conditional S inside the loop it serialized every wgmma, C7514).
+//   m64n64k16 with both operands K-major in shared memory (descriptors
+//   made once: a slot's and a k-step's offsets add to the address
+//   field), into fresh fragments (its first k-step only writes them, so
+//   they are no input of the next S and hold P in f32 between stages);
+//   the softmax runs in place on them: the row max over the raw products
+//   (scale > 0), each exponent one FFMA, 2^(s * c - m * c) with c = scale
+//   * log2(e), the masks only on edge stages (causal diagonal, kv_len,
+//   keys past S to -inf; a masked product is kMaskRaw, so a row with no
+//   live key averages V uniformly, as NEG_INF makes the reference's). P,
+//   rounded to bf16, is the register A operand of P.V with V read
+//   MN-major from the stage through the transpose bit. P.V goes to fresh
+//   fragments and the FMA units add it as O = O * alpha + P.V (see Long
+//   sums). The epilogue scales by 1 / max(l, 1e-30), writes O in bf16
+//   into one of the warpgroup's two staging boxes, which one thread
+//   stores by TMA once a named barrier has seen all four warps' writes
+//   and the other box's last store read, and stores lse = m + logf(l)
+//   from registers (held to 1e-5 absolute: logf, not the SFU's lg2). It
+//   took ~0.6 us an item as bf16 pairs stored from registers; one box
+//   behind a second barrier (its last store read before anyone writes)
+//   held the warps in step and read 1% slower at the LM shape, 7% faster
+//   at BERT's (PERF.md §6). No branch sits between a wgmma's
+//   issue and the
+//   wait that retires it, so ptxas sees which group each wait retires
+//   (with a conditional S inside the loop it serialized every wgmma,
+//   C7514).
+//   Items hand off: where a warpgroup's last stage is its item's (the
+//   ring's next stage is the next item's first) and the next item has
+//   stages for it, the next item's first S goes out with this item's last
+//   P.V and its softmax runs under it, then the epilogue; the next item's
+//   steady loop starts with its P made. A warpgroup whose last stage comes
+//   earlier (a causal item's lower rows, whose next stage is up to NC - 1
+//   stages on) drains: its last P.V goes out at once and its epilogue runs
+//   while the ring fills (handing off there too held the lowest
+//   warpgroup's slot until the next item's first stage, which a 3-stage
+//   ring never loads: tests/test_torch_flash_fwd_schedule.py's block
+//   model). Each warpgroup decides alone: the probe "has the next Q
+//   landed" was tried, read by each warp at its own moment, and hung the
+//   block (the warps of a warpgroup must issue the same wgmma); with one
+//   thread's answer read after a named barrier it ran, but slower at the
+//   short shapes. Block b's first item is item b, and a grid of one round
+//   is told "none left" with no atomic: no global atomic stands before a
+//   block's first loads.
+//   Every exponent goes through the SFU's ex2. One or two 8-key groups of
+//   a stage's exponents through a polynomial 2^x on the FMA units (a
+//   Cody-Waite split and a degree-5 minimax polynomial) read 6% and 11%
+//   slower at the LM shape on an H100 (PERF.md §6, its coefficients
+//   there): ~11 instructions for one MUFU issue cost more than the SFU
+//   time they free, as the stage is not SFU-bound alone but issue- and
+//   latency-bound with the three warpgroups' softmaxes in phase.
 //   Bound: operations, 4*D flops a live pair, 2 GEMMs' worth a tile; at
 //   D = 64 the pair's one exponential on the SFU (16 a clock an SM) costs
-//   about as much as its 256 flops on the tensor cores, which is what
-//   the in-warpgroup overlap is for. Registers: O (32), P.V's fresh
-//   fragments (32), P (16) and S (32) a thread at the peak, so three
-//   warpgroups fit 160; a 128-key stage (S 64, P 32) would not, and two
-//   warpgroups of it at 240 registers read slower (PERF.md §6 row 3).
+//   about as much as its 256 flops on the tensor cores. Registers: O
+//   (32), P.V's fresh fragments (32), P (16) and S (32) a thread at the
+//   peak, so three warpgroups fit 160; a 128-key stage (S 64, P 32) would
+//   not, and two warpgroups of it at 240 registers read slower (PERF.md
+//   §6 row 3).
 // - The backward is one kernel for dQ, dK and dV (flash_bwd_wgmma_kernel).
 //   Two passes (one owning keys for dK/dV, one owning q rows for dQ) each
 //   made S, dP, P = exp(S - lse) and dS again: the exponentials twice and
@@ -289,8 +331,7 @@
 // 256 output columns (grid z), recomputing the scores for it: no upper
 // limit on D, at D / 256 times the score work (see the wide kernels).
 // Not yet: D = 128 on wgmma (forward and backward); in-kernel GQA (the
-// wrapper takes K and V already repeated); some of the forward's
-// exponentials on the FMA units.
+// wrapper takes K and V already repeated).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -2643,14 +2684,18 @@ static_assert(kFwdStep == hopper::kSw, "S is one wgmma of n = 64 a k-step");
 // and finite, so a row whose keys are all masked has max == it and P = 1
 // (the reference's NEG_INF row), while one with a live key gets P = 0.
 constexpr float kMaskRaw = -3.0e38f;
+// A Q buffer's item in shared memory, as the producer decoded it: x, then
+// b, h, q0, lo, hi, limit, trim (the consumers read it there, not the work
+// list and kv_len from global memory)
+constexpr int kFwdSlot = 8;
 
 // The block geometry of NC consumer warpgroups (64 q rows each) and one
 // producer warpgroup. NC = 3: one block an SM; 512 threads start with 128
 // registers, and setmaxnreg moves 96 of the producer's to the three
 // consumers (160 each). NC = 1 (short grids: three times the items): two
 // blocks an SM of 256 threads at 128, consumers at 232. Each consumer
-// warpgroup overlaps its own products with its softmax (the kernel's
-// note).
+// warpgroup overlaps its own products with its softmax, stage to stage
+// and item to item (the kernel's note).
 template <int NC>
 struct FwdGeom {
   static_assert(NC == 1 || NC == 3, "64 or 192 q rows an item");
@@ -2664,11 +2709,12 @@ struct FwdGeom {
                 "setmaxnreg.inc takes only what its block's producer gave "
                 "up");
   // Q (two buffers of NC boxes), the ring (a K box and a V box a stage),
-  // the barriers (full and empty a stage and a Q buffer), the Q buffers'
-  // items, and the slack to a 1024-byte boundary
+  // O's staging boxes (two a consumer warpgroup), the barriers (full and
+  // empty a stage and a Q buffer), the Q buffers' items (kFwdSlot ints
+  // each), and the slack to a 1024-byte boundary
   static constexpr size_t kSmem =
-      1024 + (size_t)(2 * NC + 2 * kStages) * hopper::kBox +
-      (2 * kStages + 4) * 8 + 2 * 4;
+      1024 + (size_t)(4 * NC + 2 * kStages) * hopper::kBox +
+      (2 * kStages + 4) * 8 + 2 * kFwdSlot * 4;
   static_assert(kBlocks * (kSmem + 1024) <= 233472,
                 "the blocks an SM share its 228 KB");
 };
@@ -2741,7 +2787,8 @@ __device__ __forceinline__ void fwd_pack(const float (&p)[4 * kFwdGroups],
 // flight share a few heads' K and V in L2. Its q rows from q0, its kv
 // stages [lo, hi): the work item's causal range, or every stage (not
 // causal, or a kv_len == 0 row, whose keys are all masked). The producer
-// and the consumers decode the same items.
+// decodes each item into its Q buffer's slot (kFwdSlot), where the
+// consumers read it.
 struct FwdItem {
   int b, h, bh, q0, lo, hi, limit;
   bool trim;
@@ -2763,22 +2810,37 @@ __device__ __forceinline__ FwdItem fwd_item(int x, int n_work, int H,
   return w;
 }
 
+// Item x as one consumer warpgroup sees it (the kernel's view): the
+// block's item number n picks Q buffer qb; its rows from qw (has_rows:
+// any below S); the ring holds its stages [j_lo, j_hi) from ring index
+// it0, and the warpgroup computes [j_lo, live_hi); each row's keys below
+// live[r] are unmasked. x == n_items: no more items.
+struct FwdView {
+  FwdItem w;
+  uint64_t qdesc;  // its Q box's K-major descriptor (this warpgroup's)
+  int x, qb, qw, j_lo, j_hi, live_hi, it0;
+  int live[2];
+  bool has_rows;
+};
+
 // ---------------------------------------------------------------------------
 // bf16 forward on wgmma (D = 64): a persistent grid whose blocks own 64 NC
 // q rows an item. The n_items = B H n_work items (fwd_item; the work
 // list's items are (q tile, first kv stage, end kv stage), heaviest
-// first) are taken in order by whichever block's producer asks next
-// (counters[0]), so the blocks share the heavy and light items of each
-// head; the last block to finish zeroes counters for the next launch on
-// the stream (counters[1] counts the finished blocks). Consumer
+// first) are taken in order: block b's first is item b, and each later
+// one is gridDim.x plus the count its producer draws (counters[0]), so
+// the blocks share the heavy and light items of each head; the last
+// block to finish zeroes counters for the next launch on the stream
+// (counters[1] counts the finished blocks). Consumer
 // warpgroup wg owns q rows qw = q0 + 64 wg .. qw + 63 of an item; m, l
 // and the output fragments of its rows g and g + 8 stay in registers.
 // Shared memory: Q in two buffers (NC boxes each, one TMA box of 64 NC
 // rows), so the producer loads the next item's Q while this one runs; a
 // ring of kStages stages of (K, V), kFwdStep rows each (one TMA box of
 // kFwdStep rows a tensor), its stages counted on from item to item, so
-// the next item's first stages load under this one's last; the barriers;
-// the item of each Q buffer.
+// the next item's first stages load under this one's last; two staging
+// boxes of O a consumer warpgroup; the barriers; the item of each Q
+// buffer.
 // ---------------------------------------------------------------------------
 
 template <int D, int NC>
@@ -2786,11 +2848,12 @@ __global__ void __launch_bounds__(FwdGeom<NC>::kThreads, FwdGeom<NC>::kBlocks)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
                            const __grid_constant__ CUtensorMap map_v,
+                           const __grid_constant__ CUtensorMap map_o,
                            const int* __restrict__ kv_len,
                            const int* __restrict__ work, int n_work,
                            int n_items, int* __restrict__ counters,
-                           bf16* __restrict__ out, float* __restrict__ lse,
-                           int H, int S, float scale, int causal) {
+                           float* __restrict__ lse, int H, int S,
+                           float scale, int causal) {
   static_assert(D == hopper::kSw, "a head is one 128-byte swizzled row");
   using namespace hopper;
   using G = FwdGeom<NC>;
@@ -2800,12 +2863,13 @@ __global__ void __launch_bounds__(FwdGeom<NC>::kThreads, FwdGeom<NC>::kBlocks)
   unsigned char* smem = smem_raw;
   const uint32_t res = ring_base(smem);           // Q, two buffers
   const uint32_t ring = res + 2 * NC * kBox;      // stage s: K, V
-  const uint32_t bars = ring + kStages * kStageBytes;
+  const uint32_t ostage = ring + kStages * kStageBytes;  // O, 2 boxes a wg
+  const uint32_t bars = ostage + 2 * NC * kBox;
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (kStages + s); };
   auto q_full = [&](int qb) { return bars + 8 * (2 * kStages + qb); };
   auto q_empty = [&](int qb) { return bars + 8 * (2 * kStages + 2 + qb); };
-  // the item of Q buffer qb (n_items: no more)
+  // the item of Q buffer qb at slots[kFwdSlot qb] (n_items: no more)
   volatile int* slots = reinterpret_cast<volatile int*>(
       smem + (bars + 8 * (2 * kStages + 4) - smem_u32(smem)));
   auto item = [&](int x) {
@@ -2836,13 +2900,28 @@ __global__ void __launch_bounds__(FwdGeom<NC>::kThreads, FwdGeom<NC>::kBlocks)
       for (int n = 0;; ++n) {
         const int qb = n & 1;
         mbar_wait(q_empty(qb), ((n >> 1) & 1) ^ 1);
-        const int x = min(atomicAdd(counters, 1), n_items);
-        slots[qb] = x;
+        // the block's first item is its own index (the grid has at most
+        // n_items blocks), so its loads start with no atomic's round trip;
+        // the others come from the counter, past the grid's first round
+        const int x = n == 0 ? (int)blockIdx.x
+                      : (int)gridDim.x >= n_items
+                          ? n_items  // one round: none left, no atomic
+                          : min((int)gridDim.x + atomicAdd(counters, 1),
+                                n_items);
+        volatile int* slot = slots + kFwdSlot * qb;
+        slot[0] = x;
         if (x == n_items) {  // none left: the consumers' signal to stop
           mbar_arrive(q_full(qb));
           break;
         }
         const FwdItem w = item(x);
+        slot[1] = w.b;
+        slot[2] = w.h;
+        slot[3] = w.q0;
+        slot[4] = w.lo;
+        slot[5] = w.hi;
+        slot[6] = w.limit;
+        slot[7] = w.trim;
         mbar_expect_tx(q_full(qb), NC * kBox);
         tma_load_4d(res + qb * NC * kBox, &map_q, q_full(qb), 0, w.q0, w.h,
                     w.b);
@@ -2870,161 +2949,257 @@ __global__ void __launch_bounds__(FwdGeom<NC>::kThreads, FwdGeom<NC>::kBlocks)
     const int tw = threadIdx.x % kWG;
     const int warp = tw / 32, lane = tw % 32, g = lane >> 2, t = lane & 3;
     const float c = scale * kLog2e;
-    int it0 = 0;  // stages consumed before this item, over the block's
-    for (int n = 0;; ++n) {
-      const int qb = n & 1;
-      mbar_wait(q_full(qb), (n >> 1) & 1);
-      const int x = __shfl_sync(0xffffffffu, slots[qb], 0);
-      if (x == n_items) break;
-      const FwdItem w = item(x);
-      const int qw = w.q0 + 64 * wg;
-      const bool has_rows = qw < S;
-      // the stages this warpgroup computes: up to its own last live one
-      // (causal: _last_live_kv), none without rows; the loop bounds are
-      // shuffled, so ptxas sees them warp-uniform
-      const int j_lo = __shfl_sync(0xffffffffu, w.lo, 0);
-      const int j_hi = __shfl_sync(0xffffffffu, w.hi, 0);
-      const int live_hi = __shfl_sync(
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // the block's item n as this warpgroup sees it, its stages from ring
+    // index it0 (waits for its Q buffer); the loop bounds and the item are
+    // shuffled, so ptxas sees them warp-uniform
+    auto view = [&](int n, int it0) {
+      FwdView v;
+      v.qb = n & 1;
+      v.qdesc = wgmma_desc(res + v.qb * NC * kBox + wg * kBox, 16, 1024);
+      v.it0 = it0;
+      mbar_wait(q_full(v.qb), (n >> 1) & 1);
+      volatile int* slot = slots + kFwdSlot * v.qb;
+      v.x = __shfl_sync(0xffffffffu, slot[0], 0);
+      const bool more = v.x < n_items;
+      v.w.b = slot[1];
+      v.w.h = slot[2];
+      v.w.bh = v.w.b * H + v.w.h;
+      v.w.q0 = slot[3];
+      v.w.lo = more ? slot[4] : 0;
+      v.w.hi = slot[5];
+      v.w.limit = slot[6];
+      v.w.trim = slot[7] != 0;
+      v.qw = v.w.q0 + 64 * wg;
+      v.has_rows = more && v.qw < S;
+      v.j_lo = __shfl_sync(0xffffffffu, v.w.lo, 0);
+      v.j_hi = __shfl_sync(0xffffffffu, more ? v.w.hi : v.w.lo, 0);
+      // up to its own last live stage (causal: _last_live_kv), none
+      // without rows
+      v.live_hi = __shfl_sync(
           0xffffffffu,
-          !has_rows ? w.lo
-                    : w.trim ? min(w.hi, (qw + 63) / kFwdStep + 1) : w.hi,
+          !v.has_rows ? v.w.lo
+                      : v.w.trim ? min(v.w.hi, (v.qw + 63) / kFwdStep + 1)
+                                 : v.w.hi,
           0);
-      const uint32_t qa = res + qb * NC * kBox + wg * kBox;
-      auto slot = [&](int j) { return (it0 + j - j_lo) % kStages; };
-      auto wait_stage = [&](int j) {
-        mbar_wait(full(slot(j)), ((it0 + j - j_lo) / kStages) & 1);
-      };
-      auto release = [&](uint32_t bar) {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(bar);
-      };
-      // rows g and g + 8: the running max of the raw products, this
-      // thread's share of the running sum (its quad's shares add up at
-      // the end), the output
-      float m[2] = {kMaskRaw, kMaskRaw}, l[2] = {0.f, 0.f};
-      float o[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] = 0.f;
-      const int qrow = qw + 16 * warp + g;
       // each row's keys below live[r] are unmasked (causal, kv_len, S)
-      int live[2];
+      const int qrow = v.qw + 16 * warp + g;
 #pragma unroll
       for (int r = 0; r < 2; ++r)
-        live[r] = min(S, causal ? min(w.limit, qrow + 8 * r + 1) : w.limit);
-      // S of stage j: 64 q rows x kFwdStep keys, K-major operands, into
-      // fresh fragments (sc is no input of the first k-step, so its
-      // registers hold the softmax's P between stages)
-      float sc[4 * kFwdGroups];
-      auto issue_s = [&](int j) {
-        const uint32_t kt = ring + slot(j) * kStageBytes;
-        wgmma_m64n64_ss_new(sc, wgmma_desc(qa, 16, 1024),
-                            wgmma_desc(kt, 16, 1024));
+        v.live[r] = min(S, causal ? min(v.w.limit, qrow + 8 * r + 1)
+                                  : v.w.limit);
+      return v;
+    };
+    auto wait_ring = [&](int r) {
+      mbar_wait(full(r % kStages), (r / kStages) & 1);
+    };
+    // the ring's descriptors at slot 0: K K-major, V MN-major (a slot's
+    // and a k-step's offsets add to the address field, bytes / 16)
+    const uint64_t kdesc0 = wgmma_desc(ring, 16, 1024);
+    const uint64_t vdesc0 = wgmma_desc(ring + kBox, kBox, 1024);
+    auto slot_desc = [&](uint64_t d0, int r) {
+      return d0 + (uint64_t)((r % kStages) * (kStageBytes >> 4));
+    };
+    // S of the stage at ring index r of item v: 64 q rows x kFwdStep keys,
+    // K-major operands, into fresh fragments (sc is no input of the first
+    // k-step, so its registers hold the softmax's P between stages); a
+    // k-step of 16 moves both 32 bytes along their rows
+    float sc[4 * kFwdGroups];
+    auto issue_s = [&](const FwdView& v, int r) {
+      const uint64_t kd = slot_desc(kdesc0, r);
+      wgmma_m64n64_ss_new(sc, v.qdesc, kd);
 #pragma unroll
-        for (int kd = 1; kd < D / 16; ++kd)
-          wgmma_m64n64_ss(sc, wgmma_desc(qa + 32 * kd, 16, 1024),
-                          wgmma_desc(kt + 32 * kd, 16, 1024), 1);
-        wgmma_commit();
-      };
-      // stage j's softmax on sc, in place; masks on the stages that need
-      // them
-      auto softmax = [&](float (&alpha)[2], int j) {
-        const int k0 = j * kFwdStep;
-        const bool edge = (causal && k0 + kFwdStep - 1 > qw) ||
-                          k0 + kFwdStep > S || k0 + kFwdStep > w.limit;
-        if (edge)
-          fwd_softmax_at<true>(sc, m, l, alpha, live, k0 + 2 * t, S, c);
-        else
-          fwd_softmax_at<false>(sc, m, l, alpha, live, k0 + 2 * t, S, c);
-      };
-      // P_j.V_j into fresh fragments (V read MN-major through the
-      // transpose bit)
-      float pv[32];
-      uint32_t pf[kFwdStep / 16][4];
-      auto issue_pv = [&](int j) {
-        const uint32_t vt = ring + slot(j) * kStageBytes + kBox;
-        wgmma_m64n64_rs_new(pv, pf[0], wgmma_desc(vt, kBox, 1024));
+      for (int k = 1; k < D / 16; ++k)
+        wgmma_m64n64_ss(sc, v.qdesc + 2 * k, kd + 2 * k, 1);
+      wgmma_commit();
+    };
+    // stage j's softmax on sc, in place, into the running m and l; masks
+    // on the stages that need them
+    auto softmax = [&](const FwdView& v, float (&m)[2], float (&l)[2],
+                       float (&alpha)[2], int j) {
+      const int k0 = j * kFwdStep;
+      const bool edge = (causal && k0 + kFwdStep - 1 > v.qw) ||
+                        k0 + kFwdStep > S || k0 + kFwdStep > v.w.limit;
+      if (edge)
+        fwd_softmax_at<true>(sc, m, l, alpha, v.live, k0 + 2 * t, S, c);
+      else
+        fwd_softmax_at<false>(sc, m, l, alpha, v.live, k0 + 2 * t, S, c);
+    };
+    // P_j.V_j of the stage at ring index r into fresh fragments (V read
+    // MN-major through the transpose bit)
+    float pv[32];
+    uint32_t pf[kFwdStep / 16][4];
+    auto issue_pv = [&](int r) {
+      const uint64_t vd = slot_desc(vdesc0, r);
+      wgmma_m64n64_rs_new(pv, pf[0], vd);
 #pragma unroll
-        for (int kk = 1; kk < kFwdStep / 16; ++kk)
-          wgmma_m64n64_rs(pv, pf[kk],
-                          wgmma_desc(vt + kk * 16 * 128, kBox, 1024), 1);
-        wgmma_commit();
-      };
-      // O = O * alpha_j + P_j.V_j, added by the FMA units (the tensor
-      // cores truncate where they add into an accumulator); stage j is
-      // done
-      auto add_pv = [&](const float (&alpha)[2], int j) {
+      for (int kk = 1; kk < kFwdStep / 16; ++kk)  // 16 rows: 2048 bytes
+        wgmma_m64n64_rs(pv, pf[kk], vd + 128 * kk, 1);
+      wgmma_commit();
+    };
+    // rows g and g + 8: the running max of the raw products, this
+    // thread's share of the running sum (its quad's shares add up at the
+    // end), the output
+    float m[2] = {kMaskRaw, kMaskRaw}, l[2] = {0.f, 0.f};
+    float o[32];
 #pragma unroll
-        for (int i = 0; i < 32; ++i)
-          o[i] = fmaf(o[i], alpha[(i >> 1) & 1], pv[i]);
-        release(empty(slot(j)));
-      };
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    // O = O * alpha_j + P_j.V_j, added by the FMA units (the tensor cores
+    // truncate where they add into an accumulator); the stage at ring
+    // index r is done
+    auto add_pv = [&](const float (&alpha)[2], int r) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        o[i] = fmaf(o[i], alpha[(i >> 1) & 1], pv[i]);
+      release(empty(r % kStages));
+    };
+    // item v's rows out, then O is zero for the next item: O / l in bf16
+    // into one of the warpgroup's two staging boxes (its 64 rows, 128-byte
+    // swizzled as a TMA box: row r's 16-byte chunk i at chunk i ^ (r & 7)),
+    // which one thread stores by TMA; lse from registers
+    int n_out = 0;  // this warpgroup's boxes stored: box n_out & 1 is next
+    auto epilogue = [&](const FwdView& v) {
+      if (v.has_rows) {
+        const uint32_t ot = ostage + (2 * wg + (n_out & 1)) * kBox;
+        unsigned char* const obox = smem + (ot - smem_u32(smem));
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = 16 * warp + g + 8 * r, qpos = v.qw + row;
+          const float lc = fmaxf(quad_sum(l[r]), 1e-30f), inv = 1.f / lc;
+#pragma unroll
+          for (int i = 0; i < D / 8; ++i)
+            *reinterpret_cast<uint32_t*>(obox + row * 128 +
+                                         ((i ^ g) << 4) + 4 * t) =
+                pack_bf16(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
+          // the row max in the scaled domain: NEG_INF for a row whose
+          // keys are all masked
+          const float ms = m[r] == kMaskRaw ? kNegInf : m[r] * scale;
+          if (t == 0 && qpos < S)
+            lse[(long long)v.w.bh * S + qpos] = ms + logf(lc);
+        }
+        // the box's writes visible to TMA, and the other box's last store
+        // has read it (so no warp past this barrier overwrites a box a
+        // store still reads); then one TMA store of the box (rows past S
+        // are not written)
+        fence_async_smem();
+        if (tw == 0) bulk_wait_read();
+        bar_sync(1 + wg, kWG);
+        if (tw == 0) {
+          tma_store_4d(&map_o, ot, 0, v.qw, v.w.h, v.w.b);
+          bulk_commit();
+        }
+        ++n_out;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    };
 
-      float alpha[2], alpha_next[2];
-      int j = j_lo;
-      if (j < live_hi) {  // stage j_lo's S and softmax: the pipeline's head
-        wait_stage(j);
-        wgmma_fence();
-        issue_s(j);
-        wgmma_wait<0>();
-        fence_regs(sc);
-        softmax(alpha, j);
-        fwd_pack(sc, pf);
+    float alpha[2] = {1.f, 1.f}, alpha_next[2] = {1.f, 1.f};
+    // carried: the hand-off made the P of this item's first stage (in pf,
+    // with m, l and alpha)
+    bool carried = false;
+    FwdView cur = view(0, 0);
+    for (int n = 0; cur.x < n_items; ++n) {
+      auto rix = [&](int j) { return cur.it0 + j - cur.j_lo; };
+      const int it_end = rix(cur.j_hi);  // the next item's first stage
+      if (cur.j_lo < cur.live_hi) {
+        int j = cur.j_lo;
+        // the first stage's S and softmax alone, unless the hand-off made
+        // them (shuffled: warp-uniform to ptxas, as every branch around a
+        // wgmma)
+        if (__shfl_sync(0xffffffffu, !carried, 0)) {
+          wait_ring(rix(j));
+          wgmma_fence();
+          issue_s(cur, rix(j));
+          wgmma_wait<0>();
+          fence_regs(sc);
+          softmax(cur, m, l, alpha, j);
+          fwd_pack(sc, pf);
+        }
         // Stage j with P_j made and stage j + 1 live: S_{j+1} goes out,
         // then P_j.V_j; stage j + 1's softmax runs on the SFU and FMA
         // units while P_j.V_j is in flight (wgmma_wait<1>), and is rounded
         // into P's registers once it has landed. No branch inside, so
         // ptxas sees which group each wait retires.
-        for (; j + 1 < live_hi; ++j) {
-          wait_stage(j + 1);
+        for (; j + 1 < cur.live_hi; ++j) {
+          wait_ring(rix(j + 1));
           wgmma_fence();
-          issue_s(j + 1);
-          issue_pv(j);
+          issue_s(cur, rix(j + 1));
+          issue_pv(rix(j));
           wgmma_wait<1>();
           fence_regs(sc);
-          softmax(alpha_next, j + 1);
+          softmax(cur, m, l, alpha_next, j + 1);
           wgmma_wait<0>();
           fence_regs(pv);
-          add_pv(alpha, j);
+          add_pv(alpha, rix(j));
           fwd_pack(sc, pf);
           alpha[0] = alpha_next[0];
           alpha[1] = alpha_next[1];
         }
-        // the last live stage: its P.V alone
-        wgmma_fence();
-        issue_pv(j);
-        wgmma_wait<0>();
-        fence_regs(pv);
-        add_pv(alpha, j);
-        ++j;
-      }
-      release(q_empty(qb));  // this item's S are done: Q is free
-      for (; j < j_hi; ++j) {  // stages none of whose products are ours
-        wait_stage(j);
-        release(empty(slot(j)));
-      }
-      it0 += j_hi - j_lo;
-
-      if (has_rows) {
-        const long long o_row = (long long)H * D;  // out: (B, S, H, D)
-        bf16* ob = out + ((long long)w.b * S * H + w.h) * D;
+        release(q_empty(cur.qb));  // this item's S are done: Q is free
+        // The hand-off, where the ring's next stage is the next item's
+        // first (this warpgroup computes the item's last stage) and the
+        // next item has stages for this warpgroup: the next item's first S
+        // goes out with this item's last P.V, and its softmax runs under
+        // it; then the epilogue. A warpgroup whose last stage comes earlier
+        // (a causal item's lower rows, whose next stage is up to NC - 1
+        // stages on) drains instead: its last P.V goes out at once, and its
+        // epilogue runs while the ring fills. Each branch retires its own
+        // groups.
+        const bool drains = cur.live_hi < cur.j_hi;
+        FwdView nxt;
+        if (!drains) nxt = view(n + 1, it_end);
+        const bool hand_off = __shfl_sync(
+            0xffffffffu, !drains && nxt.j_lo < nxt.live_hi, 0);
+        float m_next[2] = {kMaskRaw, kMaskRaw}, l_next[2] = {0.f, 0.f};
+        if (hand_off) {
+          wait_ring(it_end);
+          wgmma_fence();
+          issue_s(nxt, it_end);
+          issue_pv(rix(j));
+          wgmma_wait<1>();
+          fence_regs(sc);
+          softmax(nxt, m_next, l_next, alpha_next, nxt.j_lo);
+          wgmma_wait<0>();
+          fence_regs(pv);
+          add_pv(alpha, rix(j));
+        } else {
+          wgmma_fence();
+          issue_pv(rix(j));
+          wgmma_wait<0>();
+          fence_regs(pv);
+          add_pv(alpha, rix(j));
+        }
+        for (int s = cur.live_hi; s < cur.j_hi; ++s) {  // none of ours
+          wait_ring(rix(s));
+          release(empty(rix(s) % kStages));
+        }
+        if (hand_off) fwd_pack(sc, pf);  // P.V's registers are free
+        epilogue(cur);
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const int qpos = qrow + 8 * r;
-          const float lc = fmaxf(quad_sum(l[r]), 1e-30f), inv = 1.f / lc;
-          if (qpos >= S) continue;
-#pragma unroll
-          for (int i = 0; i < D / 8; ++i)
-            *reinterpret_cast<__nv_bfloat162*>(ob + qpos * o_row + 8 * i +
-                                               2 * t) =
-                __floats2bfloat162_rn(o[4 * i + 2 * r] * inv,
-                                      o[4 * i + 2 * r + 1] * inv);
-          // the row max in the scaled domain: NEG_INF for a row whose
-          // keys are all masked
-          const float ms = m[r] == kMaskRaw ? kNegInf : m[r] * scale;
-          if (t == 0) lse[(long long)w.bh * S + qpos] = ms + logf(lc);
+          m[r] = m_next[r];
+          l[r] = l_next[r];
+          alpha[r] = alpha_next[r];
         }
+        carried = hand_off;
+        cur = drains ? view(n + 1, it_end) : nxt;
+      } else {  // none of this item's products are ours, nor its rows
+        // (a warpgroup with rows has live stages: a causal item's start at
+        // stage 0, the others run to its end)
+        release(q_empty(cur.qb));
+        for (int s = cur.j_lo; s < cur.j_hi; ++s) {
+          wait_ring(rix(s));
+          release(empty(rix(s) % kStages));
+        }
+        carried = false;
+        cur = view(n + 1, it_end);
       }
     }
+    if (tw == 0) bulk_wait_read();  // the last store has read its box
   }
 }
 
@@ -3213,7 +3388,8 @@ bool tma_maps(CUtensorMap (&maps)[N], const void* const (&ptrs)[N],
 }
 
 // The forward at NC consumer warpgroups (64 NC q rows an item): Q read
-// as one box of an item's rows, K and V as one box a stage each; a
+// as one box of an item's rows, K and V as one box a stage each, O
+// written as one box of a warpgroup's 64 rows; a
 // persistent grid of as many blocks as the card holds at once, at most
 // one an item.
 template <int NC>
@@ -3223,10 +3399,15 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v,
                      const long long* strides, int B, int H, int S,
                      float scale, int causal, cudaStream_t stream) {
   using G = FwdGeom<NC>;
-  CUtensorMap maps[3];
-  const void* const ptrs[3] = {q, k, v};
-  const int rows[3] = {64 * NC, kFwdStep, kFwdStep};
-  if (!tma_maps(maps, ptrs, strides, B, H, S, rows))
+  CUtensorMap maps[4];
+  const void* const ptrs[4] = {q, k, v, out};
+  // q, k, v at the caller's strides; out (B, S, H, D) contiguous
+  const long long st[12] = {strides[0], strides[1], strides[2],
+                            strides[3], strides[4], strides[5],
+                            strides[6], strides[7], strides[8],
+                            (long long)S * H * 64, (long long)H * 64, 64};
+  const int rows[4] = {64 * NC, kFwdStep, kFwdStep, 64};
+  if (!tma_maps(maps, ptrs, st, B, H, S, rows))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = allow_smem(flash_fwd_wgmma_kernel<64, NC>, G::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -3242,10 +3423,10 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v,
   const int grid = (int)std::min<long long>(
       n_items, (long long)per_sm * hopper::sm_count());
   flash_fwd_wgmma_kernel<64, NC><<<grid, G::kThreads, G::kSmem, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<const int*>(kv_len),
+      maps[0], maps[1], maps[2], maps[3], static_cast<const int*>(kv_len),
       static_cast<const int*>(work), n_work, (int)n_items,
-      static_cast<int*>(counters), static_cast<bf16*>(out),
-      static_cast<float*>(lse), H, S, scale, causal);
+      static_cast<int*>(counters), static_cast<float*>(lse), H, S, scale,
+      causal);
   return static_cast<int>(cudaGetLastError());
 }
 

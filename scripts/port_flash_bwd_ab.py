@@ -30,7 +30,16 @@ Usage (needs CUDA):
 - ``--lm-step`` adds, after each turn's kernel points, phase 5 of that
   tree's own ``chip_smoke.py`` (``train_phase``: the seq-8192 LM, 4
   steps, 16 forward launches a step, its launch checks the tree's) run
-  on that tree's package, and prints its step ms on a JSON line.
+  on that tree's package, and prints its step ms on a JSON line;
+- ``--rows`` adds, after each turn's kernel points, the forward's round
+  costs at the non-causal timed shapes: ``flash_fwd`` with its items
+  forced to 192 and to 64 q rows (``flash_tile`` patched in the
+  wrapper), timed in the order 192, 64, 64, 192, and each geometry's
+  fastest time over the rounds its grid takes
+  (``ops/autotune.py:forward_rounds``' item and block counts on the
+  card's SMs) gives a round's cost. The ratio of a 192-row round's to a
+  64-row round's is ``FWD_ROUNDS``' relative cost; one JSON line a
+  shape.
 """
 
 from __future__ import annotations
@@ -124,6 +133,42 @@ def _points(tree: str) -> None:
         torch.cuda.empty_cache()
 
 
+def _round_costs(tree: str) -> None:
+    import torch
+
+    from kubeflow_tpu_torch.ops import autotune
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    smoke = _smoke()
+    dev = torch.device("cuda", 0)
+    sms = autotune.sm_count(dev)
+    real = fa.flash_tile
+    for label, ((B, S, H, D), causal) in SHAPES.items():
+        if causal:
+            continue
+        q, k, v, _, _ = smoke.flash_inputs(B, S, H, D, torch.bfloat16, dev,
+                                           smoke.SEED + 1, False)
+        ms = {192: [], 64: []}
+        try:
+            for rows in (192, 64, 64, 192):
+                fa.flash_tile = lambda *a, _r=rows, **kw: (_r, 64)
+                ms[rows].append(smoke.time_ms(
+                    lambda: fa.flash_fwd(q, k, v, causal=False)))
+        finally:
+            fa.flash_tile = real
+        rounds = {rows: -(-B * H * -(-S // rows)
+                          // (autotune.FWD_ROUNDS[rows][0] * sms))
+                  for rows in ms}
+        cost = {rows: min(ms[rows]) / rounds[rows] for rows in ms}
+        print(json.dumps({"device": smoke.gpu_identity(), "tree": tree,
+                          "shape": label, "sms": sms, "ms": ms,
+                          "rounds": rounds, "round_ms": cost,
+                          "relative_192": cost[192] / cost[64]}),
+              flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
 def _lm_step(tree: str) -> None:
     import torch
 
@@ -149,8 +194,11 @@ def main() -> int:
                     help="time DIR's kernels only (one turn of --against)")
     ap.add_argument("--lm-step", action="store_true",
                     help="also run phase 5's LM steps in each turn")
+    ap.add_argument("--rows", action="store_true",
+                    help="also time the forward's round costs in each turn")
     args = ap.parse_args()
-    extra = ["--lm-step"] if args.lm_step else []
+    extra = (["--lm-step"] if args.lm_step else []) + (
+        ["--rows"] if args.rows else [])
     import torch
 
     if not torch.cuda.is_available():
@@ -166,6 +214,8 @@ def main() -> int:
         return 0
     sys.path.insert(0, os.path.abspath(args.tree or ROOT))
     _points(args.tree or ROOT)
+    if args.rows:
+        _round_costs(args.tree or ROOT)
     if args.lm_step:
         _lm_step(args.tree or ROOT)
     return 0

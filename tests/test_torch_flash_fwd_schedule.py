@@ -16,6 +16,10 @@ no list, a scale the kernel cannot take is refused, and CPU tensors
 take the plain path and count no launch.
 """
 
+import importlib.util
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -23,7 +27,8 @@ import torch
 from kubeflow_tpu.ops.attention import _last_live_kv
 from kubeflow_tpu_torch.ops import autotune as at
 from kubeflow_tpu_torch.ops import flash_attention as fa
-from test_torch_flash_bwd_schedule import BAD_VIEWS, fake_lib  # noqa: F401
+from test_torch_flash_bwd_schedule import (  # noqa: F401
+    BAD_VIEWS, _Barrier, fake_lib)
 
 SEQS = [64, 128, 1000, 8192]
 # the forward's two tiles: 192 q rows an item, and a short grid's 64
@@ -218,6 +223,37 @@ def test_launch_arguments_at_the_timed_shapes(fake_lib, B, S, H, rows):
     assert n_work == -(-S // rows)
 
 
+# the timed shapes (B, S, H, causal) and the rows their grids take on 132
+# SMs; a 192-row round's cost against a 64-row round's as measured for
+# the hand-off design (PERF.md §6 row 3: 1.07 and 1.08 at :predict's
+# shapes, 1.17 at BERT's) and the committed FWD_ROUNDS'
+TIMED_ROWS = {(2, 8192, 16, True): 192, (16, 512, 12, False): 192,
+              (8, 512, 12, False): 64, (1, 128, 12, False): 64}
+
+
+@pytest.mark.parametrize("cost", [1.08, 1.17, None])
+@pytest.mark.parametrize("shape", sorted(TIMED_ROWS))
+def test_forward_rounds_pick_the_faster_tile_at_the_timed_shapes(
+        monkeypatch, shape, cost):
+    """At each timed shape ``forward_rounds`` picks the tile the card
+    timed faster (192 rows at the LM and BERT, 64 at :predict's two) under
+    the round costs measured for this design and under the committed
+    ``FWD_ROUNDS`` (None), and the work list is that tile's: one item a
+    q tile, each streaming its causal range of 64-key stages."""
+    if cost is not None:
+        monkeypatch.setattr(at, "FWD_ROUNDS", {192: (1, cost), 64: (2, 1.0)})
+    B, S, H, causal = shape
+    rows = at.flash_tile("flash_fwd", 64, torch.bfloat16, batch_heads=B * H,
+                         seq=S, sms=132)[0]
+    assert rows == TIMED_ROWS[shape]
+    work = fa.wgmma_work("flash_fwd", S, causal, (rows, 64))
+    assert len(work) == -(-S // rows)
+    for tile, first, end in work:
+        assert first == 0
+        assert end == (min(-(-S // 64), (tile * rows + rows - 1) // 64 + 1)
+                       if causal else -(-S // 64))
+
+
 @pytest.mark.parametrize("scale", [0.0, -0.125])
 def test_a_scale_the_kernel_cannot_take_is_refused(fake_lib, scale):
     """The bf16 forward's row max runs on the raw products, which order
@@ -248,3 +284,299 @@ def test_counters_kept_per_device_and_stream(fake_lib):
     f32 = [t.float() for t in (q, k, v)]
     fa.flash_fwd(*f32)
     assert fake_lib.calls[-1][1][19] is None
+
+
+# ---------------------------------------------------------------------------
+# The forward's block protocol (csrc flash_fwd_wgmma_kernel<64, NC>): a
+# producer that takes items and fills a ring of FWD_STAGES stages, and NC
+# consumer warpgroups that either hand an item off to the next (the next
+# item's first S waited for while the last P.V's slot is still held) or
+# drain it. Steps as in test_torch_flash_bwd_schedule.py's block model:
+# ("wait", barrier, completion), ("arrive", barrier), or a record. An
+# actor is an iterator of its steps.
+# ---------------------------------------------------------------------------
+
+
+FWD_STAGES = 4
+
+
+def _fwd_item(entry, S, causal, kv_len, rows):
+    """``csrc:fwd_item``: (q0, stages [lo, hi), trimmed) of one work-list
+    entry for a batch row of length ``kv_len``."""
+    tile, first, end = entry
+    limit = S if kv_len is None else kv_len
+    trim = causal and limit > 0
+    return (tile * rows, first if trim else 0,
+            end if trim else -(-S // 64), trim)
+
+
+def _fwd_programs(items, S, causal, kv_len, nc, hand_off_any=False):
+    """The producer and each consumer warpgroup of a block that takes
+    ``items`` (work-list entries) in order, as the kernel orders its
+    waits and releases; a consumer records ("s", item, stage) for each S
+    it issues and ("out", item) for each epilogue. It hands off where its
+    last stage is the item's; with ``hand_off_any`` also where its last
+    stage comes before the item's (after releasing the stages past it),
+    which the kernel does not do."""
+    its = [_fwd_item(e, S, causal, kv_len, 64 * nc) for e in items]
+    prod, it = [], 0
+    for n in range(len(its) + 1):     # the last: "no more items"
+        prod += [("wait", ("q_empty", n & 1), n >> 1),
+                 ("arrive", ("q_full", n & 1))]
+        if n == len(its):
+            break
+        for _ in range(its[n][1], its[n][2]):
+            prod += [("wait", ("empty", it % FWD_STAGES), it // FWD_STAGES),
+                     ("arrive", ("full", it % FWD_STAGES))]
+            it += 1
+
+    def full(r):
+        return ("wait", ("full", r % FWD_STAGES), r // FWD_STAGES + 1)
+
+    def empty(r):
+        return ("arrive", ("empty", r % FWD_STAGES))
+
+    def consumer(wg):
+        def view(n):
+            """(lo, hi, live_hi, rows) of item n, or None past the last."""
+            if n == len(its):
+                return None
+            q0, lo, hi, trim = its[n]
+            qw = q0 + 64 * wg
+            live_hi = (lo if qw >= S else
+                       min(hi, (qw + 63) // 64 + 1) if trim else hi)
+            return lo, hi, live_hi, qw < S
+
+        steps = [("wait", ("q_full", 0), 1)]
+        carried, it0 = False, 0
+        for n in range(len(its)):
+            lo, hi, live_hi, rows = view(n)
+            it_end = it0 + hi - lo
+            nxt = ("wait", ("q_full", (n + 1) & 1), ((n + 1) >> 1) + 1)
+            skip = [s for s in range(live_hi, hi) for s in (
+                full(it0 + s - lo), empty(it0 + s - lo))]
+            if lo < live_hi:
+                assert rows
+                if not carried:
+                    steps += [full(it0), ("s", n, lo)]
+                for j in range(lo, live_hi - 1):
+                    r = it0 + j - lo
+                    steps += [full(r + 1), ("s", n, j + 1), empty(r)]
+                steps.append(("arrive", ("q_empty", n & 1)))
+                last = empty(it0 + live_hi - 1 - lo)
+                drains = live_hi < hi and not hand_off_any
+                v = view(n + 1)
+                carried = not drains and v is not None and v[0] < v[2]
+                if drains:
+                    steps += [last, *skip, ("out", n), nxt]
+                elif carried:
+                    steps += [*(skip if live_hi < hi else []), nxt,
+                              full(it_end), ("s", n + 1, v[0]), last,
+                              ("out", n)]
+                else:
+                    steps += [nxt, last, *skip, ("out", n)]
+            else:             # no products and no rows of this item
+                assert not rows
+                steps += [("arrive", ("q_empty", n & 1)), *skip, nxt]
+                carried = False
+            it0 = it_end
+        return iter(steps)
+
+    return its, [iter(prod)] + [consumer(wg) for wg in range(nc)]
+
+
+def _run_fwd_block(actors, nc, rng):
+    """Runs the actors in a random interleaving; returns each consumer's
+    records, or raises on a deadlock or a wait that finds its barrier
+    past the completion it names."""
+    bars = {("full", s): _Barrier(1) for s in range(FWD_STAGES)}
+    bars.update({("empty", s): _Barrier(nc) for s in range(FWD_STAGES)})
+    for qb in (0, 1):
+        bars[("q_full", qb)] = _Barrier(1)
+        bars[("q_empty", qb)] = _Barrier(nc)
+    steps = [next(a, None) for a in actors]
+    logs = [[] for _ in actors]
+    while True:
+        ready = []
+        for a, step in enumerate(steps):
+            if step is None:
+                continue
+            if step[0] == "wait":
+                done = bars[step[1]].done
+                assert done <= step[2], (
+                    f"actor {a} waits for completion {step[2]} of "
+                    f"{step[1]}, which has {done}: a parity misread")
+                if done < step[2]:
+                    continue
+            ready.append(a)
+        if not ready:
+            break
+        a = ready[rng.integers(len(ready))]
+        step = steps[a]
+        if step[0] == "arrive":
+            bars[step[1]].arrive()
+        elif step[0] != "wait":
+            logs[a].append(step)
+        steps[a] = next(actors[a], None)
+    stuck = [a for a, step in enumerate(steps) if step is not None]
+    if stuck:
+        raise RuntimeError(f"deadlock: actors {stuck} stopped at "
+                           f"{[steps[a] for a in stuck]}")
+    return logs[1:]
+
+
+# (S, causal, kv_len, rows an item, which of the head's work-list entries
+# one block takes, in list order): the LM's heaviest and lightest items,
+# a ragged causal S, BERT's items (the third with one warpgroup keyless),
+# :predict's two-stage items at 64 rows, kv_len trimming nothing (0) or
+# some keys
+FWD_BLOCK_CASES = [(8192, True, None, 192, (0, 1, 41, 42)),
+                   (1000, True, None, 192, (0, 1, 2, 3, 4, 5)),
+                   (512, False, None, 192, (0, 1, 2)),
+                   (128, False, None, 64, (0, 1)),
+                   (512, False, None, 64, (0, 3, 5, 7)),
+                   (1000, True, 0, 192, (0, 5)),
+                   (1000, True, 937, 64, (0, 7, 15))]
+
+
+@pytest.mark.parametrize("S,causal,kv_len,rows,picks", FWD_BLOCK_CASES)
+def test_forward_hand_off_runs_every_stage_once(S, causal, kv_len, rows,
+                                                picks):
+    """Under random interleavings of one block's producer and consumer
+    warpgroups, each warpgroup issues S once for each stage of each item
+    it has live keys in, in order, and writes out each item it has rows
+    in, in order; no wait deadlocks or finds its barrier a phase past the
+    one its parity names (a hand-off holds the last stage's slot while it
+    waits for the next item's first stage)."""
+    nc = rows // 64
+    work = fa.wgmma_work("flash_fwd", S, causal, (rows, 64))
+    picked = [work[k] for k in picks]
+    rng = np.random.default_rng(S + len(picks))
+    for _ in range(8):
+        its, actors = _fwd_programs(picked, S, causal, kv_len, nc)
+        logs = _run_fwd_block(actors, nc, rng)
+        for wg, log in enumerate(logs):
+            want_s, want_out = [], []
+            for n, (q0, lo, hi, trim) in enumerate(its):
+                qw = q0 + 64 * wg
+                if qw >= S:
+                    continue
+                live_hi = min(hi, (qw + 63) // 64 + 1) if trim else hi
+                want_s += [("s", n, j) for j in range(lo, live_hi)]
+                want_out.append(("out", n))
+            assert [s for s in log if s[0] == "s"] == want_s
+            assert [s for s in log if s[0] == "out"] == want_out
+
+
+def test_forward_model_finds_a_hand_off_that_holds_the_ring(monkeypatch):
+    """The model's check bites: at three ring stages a causal block of
+    192-row items deadlocks if a warpgroup whose last stage comes before
+    the item's hands off too (the lowest holds its last stage's slot
+    while it waits for the next item's first stage, three stages on,
+    which the producer can only load into that slot), and runs with the
+    kernel's rule, where that warpgroup drains."""
+    monkeypatch.setattr(sys.modules[__name__], "FWD_STAGES", 3)
+    work = fa.wgmma_work("flash_fwd", 8192, True, (192, 64))
+    _, actors = _fwd_programs(work[:3], 8192, True, None, 3,
+                              hand_off_any=True)
+    with pytest.raises(RuntimeError, match="deadlock"):
+        _run_fwd_block(actors, 3, np.random.default_rng(0))
+    _, actors = _fwd_programs(work[:3], 8192, True, None, 3)
+    _run_fwd_block(actors, 3, np.random.default_rng(0))
+
+
+# ---------------------------------------------------------------------------
+# The forward's lse over a long causal row, summed as the kernel's stage
+# softmax sums it.
+# ---------------------------------------------------------------------------
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "kubeflow_tpu_torch", "ops", "csrc", "flash_attention.cu")
+# csrc kMaskRaw, kLog2e
+MASK_RAW, LOG2E = -3.0e38, 1.4426950408889634
+
+
+def _fma(a, b, c):
+    """f32 fmaf: the product exact in f64, one rounding to f32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def kernel_softmax_lse(s: torch.Tensor, rows: torch.Tensor, scale: float,
+                       causal: bool = True) -> torch.Tensor:
+    """lse of q rows ``rows`` from their raw f32 products ``s`` (R, S) as
+    one consumer warpgroup's threads make it (csrc ``fwd_softmax_at``):
+    64-key stages, the running max on the raw products, alpha and each
+    key's exponent by exp2 in f32, the exponent one FFMA (s c - m c) on a
+    non-edge stage and (x - m) c on an edge stage, each of a quad's four
+    threads summing its own keys (8 n + 2 t + {0, 1}) in key order into
+    its l (l alpha + sum, one fmaf), then the quad sum and m scale +
+    log l."""
+    R, S = s.shape
+    c = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    m = torch.full((R,), MASK_RAW, dtype=torch.float32)
+    ls = torch.zeros(R, 4, dtype=torch.float32)
+    keys = torch.arange(S)
+    live = (keys[None, :] <= rows[:, None]) if causal else torch.ones(
+        R, S, dtype=torch.bool)
+    # each thread's keys in the order it sums them (key order)
+    cols = torch.tensor([[8 * n + 2 * t + e for n in range(8)
+                          for e in (0, 1)] for t in range(4)])
+    for k0 in range(0, S, 64):
+        blk = s[:, k0:k0 + 64]
+        lv = live[:, k0:k0 + 64]
+        edge = not bool(lv.all())
+        x = torch.where(lv, blk, torch.tensor(MASK_RAW))
+        mn = torch.maximum(m, x.max(dim=1).values)
+        alpha = torch.exp2((m - mn) * c)
+        if edge:
+            arg = (x - mn[:, None]) * c
+        else:
+            arg = _fma(blk, c.expand_as(blk), -(mn * c)[:, None].expand_as(
+                blk))
+        p = torch.exp2(arg)[:, cols]
+        ps = torch.zeros(R, 4, dtype=torch.float32)
+        for i in range(cols.shape[1]):
+            ps = ps + p[:, :, i]
+        ls = _fma(ls, alpha[:, None].expand_as(ls), ps)
+        m = mn
+    lc = (ls[:, 0] + ls[:, 1]) + (ls[:, 2] + ls[:, 3])
+    return m * torch.tensor(scale, dtype=torch.float32) + torch.log(lc)
+
+
+def test_long_causal_rows_lse_through_the_stage_softmax():
+    """At the LM's S = 8192, causal, D = 64, rows that see 8192, 4097
+    and 200 keys: lse summed as the kernel's stage softmax sums it is
+    within phase 2's 1e-5 of the exact (f64) one."""
+    rng = np.random.default_rng(25)
+    S, D = 8192, 64
+    rows = torch.tensor([8191, 4096, 199])
+    q = torch.from_numpy(rng.standard_normal((3, D))).bfloat16().float()
+    k = torch.from_numpy(rng.standard_normal((S, D))).bfloat16().float()
+    s = (q.double() @ k.double().T).float()
+    got = kernel_softmax_lse(s, rows, D ** -0.5)
+    keys = torch.arange(S)
+    want = torch.stack([torch.logsumexp(s[i, keys <= r].double() * D ** -0.5,
+                                        0) for i, r in enumerate(rows)])
+    err = (got.double() - want).abs().max().item()
+    assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("exp_spans", [False, True])
+def test_timeline_stamps_find_the_forward(exp_spans):
+    """``scripts/port_flash_fwd_timeline.py`` instruments the package's
+    forward as the hand-off design: each of its anchors is found exactly
+    once (in the kernel, and with ``exp_spans`` in the softmax too), so
+    the timeline measures the kernel the package builds."""
+    spec = importlib.util.spec_from_file_location(
+        "port_flash_fwd_timeline",
+        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+            __file__))), "scripts", "port_flash_fwd_timeline.py"))
+    timeline = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timeline)
+    with open(CSRC) as f:
+        src = f.read()
+    out = timeline.instrumented_source(src, exp_spans)
+    # a span per anchor (its stage and item counts beside) and the
+    # hand-off block's; with exp_spans one more in the softmax
+    assert out.count("KFTPU_ADD(") > len(timeline.KERNEL_STAMPS.items)
+    assert ("kftpu_gtime_after(mc" in out) == exp_spans
