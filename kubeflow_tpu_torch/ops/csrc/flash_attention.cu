@@ -175,8 +175,9 @@
 //   stored lse log2 e beside delta (lse itself is the forward's); edge
 //   tiles (causal diagonal, kv_len, S) take one branch a tile, not one a
 //   value, and give a masked key the reference's NEG_INF score.
-//   Added, dQ: each warpgroup writes its dS^T (hi and lo, 32-bit stores
-//   that hit no bank twice) to shared memory in the layout of a TMA K box
+//   Added, dQ: each warpgroup writes its dS^T (hi and lo, one stmatrix of
+//   four 8 x 8 matrices a k-step, conflict-free in the 128-byte swizzle)
+//   to shared memory in the layout of a TMA K box
 //   (rows are keys; two buffers by q tile), and the tile's owner runs
 //   dQ_tile = dS.K over the block's 128 keys with both operands in
 //   shared memory: A is dS^T and B the resident K, each read MN-major
@@ -259,6 +260,21 @@
 //   backward's first q tile for a block's upper keys, the forward's last
 //   stages for an item's lower rows) skips its products (the backward's
 //   still writes a zero dS^T, and issues the dQ it owns).
+// - The consumers are bound by the instructions they issue, not by the
+//   tensor cores (~1.1 us of a tile's products at 1.83 GHz) or shared
+//   memory (~270 KB a tile at 128 B a clock, ~1.15 us). So the tile
+//   spends few of them (scripts/port_flash_bwd_timeline.py's SASS
+//   census, PERF.md §6): every wgmma descriptor is an add to one address
+//   field (kmajor_desc, mnmajor_desc: no descriptor register lives
+//   across the loop), dS^T goes out by stmatrix, and the hi + lo split
+//   turns hi back to f32 by a shift and a mask: a thread's steady tile
+//   loop holds 769 static instructions where it held 1022, and the LM
+//   backward reads 8.6% faster on an H100. Every dQ on one warpgroup
+//   (the other then runs up to two tiles ahead, its element-wise work
+//   under the owner's products, the warpgroups out of phase) read 4%
+//   slower at the LM and 2% faster at BERT than this alternation: the
+//   owner's chain, every tile's dQ and its hand-off, is then the tile's
+//   time.
 // - The backward's P is exp(s - lse) where the forward's was
 //   exp(s - m) / l over running maxima (and the backward sums S^T in its
 //   own order), so it is the forward's to a few f32 ulp, not bit for bit;
@@ -518,13 +534,14 @@ __device__ __forceinline__ unsigned pack_bf16(float a, float b) {
 }
 
 // a ~ hi + lo with hi = bf16(a), lo = bf16(a - hi) (a - hi is exact in
-// f32): about 16 mantissa bits in two bf16 operands.
+// f32): about 16 mantissa bits in two bf16 operands. hi's halves go back
+// to f32 by a shift and a mask of its bits (a bf16 is an f32's upper
+// half): six instructions a pair, where __bfloat1622float2 took eight.
 __device__ __forceinline__ void split_bf16(float a, float b, unsigned& hi,
                                            unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bf16x2_bits(h);
-  lo = pack_bf16(a - hf.x, b - hf.y);
+  hi = pack_bf16(a, b);
+  lo = pack_bf16(a - __uint_as_float(hi << 16),
+                 b - __uint_as_float(hi & 0xffff0000u));
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -2107,30 +2124,53 @@ __device__ __forceinline__ void red_release(int* p) {
 }
 
 // dS^T (hi and lo bf16 A fragments: k-step kk is q columns 16kk..16kk+15)
-// of this warp's 16 keys into the warpgroup's two boxes at ds_gen: rows
-// are keys, 128-byte swizzle, as TMA lays out a K box. Each 8-column
-// group n is one 16-byte chunk of a row: the 8 rows g of a store land in
-// 8 chunks, the 4 lanes t in its 4 words, so no bank is hit twice.
-__device__ __forceinline__ void store_ds(unsigned char* ds_gen,
+// of this warp's 16 keys into the warpgroup's two boxes from ds (shared
+// window): rows are keys, 128-byte swizzle, as TMA lays out a K box. One
+// stmatrix of four 8 x 8 matrices a k-step and box: matrix m of k-step kk
+// is rows 8 (m & 1) + 0..7 of the warp's 16 and 16-byte chunk
+// 2 kk + (m >> 1), the fragment's register m; lane 8 m + r gives its row
+// r's address (ds_offset), and the 8 rows of a matrix land in 8 distinct
+// chunks of the swizzle, so no bank is hit twice.
+__device__ __forceinline__ uint32_t ds_offset(int warp, int lane, int kk) {
+  return hopper::sw128(16 * warp + 8 * ((lane >> 3) & 1) + (lane & 7),
+                       2 * kk + (lane >> 4));
+}
+__device__ __forceinline__ void store_ds(uint32_t ds,
                                          const uint32_t (&dh)[4][4],
                                          const uint32_t (&dl)[4][4],
-                                         int warp, int g, int t) {
+                                         int warp, int lane) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int h8 = 0; h8 < 2; ++h8) {
-      const uint32_t at = hopper::sw128(16 * warp + g + 8 * h8, n) + 4 * t;
-      const int kk = n >> 1, r = (n & 1) * 2 + h8;
-      *reinterpret_cast<uint32_t*>(ds_gen + at) = dh[kk][r];
-      *reinterpret_cast<uint32_t*>(ds_gen + hopper::kBox + at) = dl[kk][r];
-    }
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t at = ds + ds_offset(warp, lane, kk);
+    hopper::stsm_x4(at, dh[kk][0], dh[kk][1], dh[kk][2], dh[kk][3]);
+    hopper::stsm_x4(at + hopper::kBox, dl[kk][0], dl[kk][1], dl[kk][2],
+                    dl[kk][3]);
+  }
+}
+
+// Offsets of a wgmma descriptor's address field (16-byte units): a box,
+// a k-step of 16 rows MN-major (2048 bytes) or of 16 columns K-major (32
+// bytes). The fused backward keeps one address field (its shared
+// memory's base) and makes every descriptor by hopper::wgmma_desc16 on
+// it plus these: one add each, where wgmma_desc on a pointer took five
+// operations, and no descriptor holds a register across the tile loop
+// (made once as 64-bit values, they spilled). K-major operands have
+// lbo 16 bytes, MN-major ones one box.
+constexpr uint32_t kBox16 = hopper::kBox / 16;
+constexpr uint32_t kRows16 = 16 * 128 / 16;
+constexpr uint32_t kCols16 = 32 / 16;
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t a16) {
+  return hopper::wgmma_desc16(a16, 16, 1024);
+}
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t a16) {
+  return hopper::wgmma_desc16(a16, hopper::kBox, 1024);
 }
 
 // fq (64 q rows x 64 head columns) = dS.K over the block's 128 keys, hi
 // then lo of each 16 keys (one group, a fresh sum): A is the dS^T buffer
-// at ds (warpgroup kb's hi and lo at ds + 2 kb boxes) read MN-major
-// through the transpose bit, B the resident K (box kb at k), MN-major
-// through the transpose bit too.
+// from address field ds (warpgroup kb's hi and lo at boxes 2 kb and
+// 2 kb + 1) read MN-major through the transpose bit, B the resident K
+// (box kb from address field k), MN-major through the transpose bit too.
 __device__ __forceinline__ void dq_product(float (&fq)[32], uint32_t ds,
                                            uint32_t k) {
   using namespace hopper;
@@ -2139,11 +2179,10 @@ __device__ __forceinline__ void dq_product(float (&fq)[32], uint32_t ds,
   for (int kb = 0; kb < 2; ++kb)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t bd = wgmma_desc(k + kb * kBox + kk * 16 * 128, kBox,
-                                     1024);
-      const uint32_t a = ds + kb * 2 * kBox + kk * 16 * 128;
-      wgmma_m64n64_ss_tt(fq, wgmma_desc(a, kBox, 1024), bd, kb + kk > 0);
-      wgmma_m64n64_ss_tt(fq, wgmma_desc(a + kBox, kBox, 1024), bd, 1);
+      const uint64_t bd = mnmajor_desc(k + kb * kBox16 + kk * kRows16);
+      const uint32_t a = ds + 2 * kb * kBox16 + kk * kRows16;
+      wgmma_m64n64_ss_tt(fq, mnmajor_desc(a), bd, kb + kk > 0);
+      wgmma_m64n64_ss_tt(fq, mnmajor_desc(a + kBox16), bd, 1);
     }
   wgmma_commit();
 }
@@ -2347,16 +2386,21 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                       int tq, bool own) {
       const int x = tq & 1;
       if (!own) mbar_wait(ds_free(x), ((tq >> 1) & 1) ^ 1);
-      store_ds(gen(dsb + (4 * x + 2 * wg) * kBox), dh, dl, warp, g, t);
+      store_ds(dsb + (4 * x + 2 * wg) * kBox, dh, dl, warp, lane);
       fence_async_smem();
       if (!own) arrive(ds_full(x));
     };
+    // address fields (16-byte units) of the resident K and V (this
+    // warpgroup's boxes from k16 and k16 + 2 boxes), the ring's stage 0
+    // (Q, then dO) and dS^T buffer 0
+    const uint32_t res16 = res >> 4, k16 = res16 + wg * kBox16;
+    const uint32_t ring16 = ring >> 4, ds16 = dsb >> 4;
     // the owner: dQ of q tile tq over the block's 128 keys, once its own
     // four warps' and the other warpgroup's dS^T halves are in
     auto dq_begin = [&](float (&fq)[32], int tq) {
       bar_sync(kDsBar + wg, kWG);
       mbar_wait(ds_full(tq & 1), (tq >> 1) & 1);
-      dq_product(fq, dsb + 4 * (tq & 1) * kBox, res);
+      dq_product(fq, ds16 + 4 * (tq & 1) * kBox16, res16);
     };
     // the owner, once dQ has landed: the dS^T buffer is freed and the sum
     // handed to the adder of buffer tq % kDqBufs (column group cg of the
@@ -2408,7 +2452,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       const int live_lo = __shfl_sync(
           0xffffffffu,
           !has_keys ? w.hi : w.trim ? max(w.lo, kw / kWgStep) : w.lo, 0);
-      const uint32_t ka = res + wg * kBox, va = res + (2 + wg) * kBox;
       float dka[32], dva[32];
 #pragma unroll
       for (int x2 = 0; x2 < 32; ++x2) dka[x2] = dva[x2] = 0.f;
@@ -2417,7 +2460,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       auto wait_stage = [&](int it2) {
         mbar_wait(full(stage_of(it2)), (it2 / kWgStages) & 1);
       };
-      auto q_at = [&](int it2) { return ring + stage_of(it2) * 2 * kBox; };
       auto stats_at = [&](int it2) {
         return stats_gen + stage_of(it2) * kStatStride;
       };
@@ -2426,18 +2468,21 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       auto owns = [&](int tq2) {
         return __shfl_sync(0xffffffffu, (tq2 & 1) == wg, 0) != 0;
       };
+      // a stage's Q box's address field (its dO box is one box on)
+      auto stage16 = [&](int it2) {
+        return ring16 + stage_of(it2) * (2 * kBox16);
+      };
 
       // S^T = K.Q^T (a = K, b = the stage's Q) or dP^T = V.dO^T (V, dO):
       // 64 keys x 64 q, K-major operands, one group into fresh fragments
       // (the first k-step only writes them, so they are no input of the
       // products)
       auto issue_ss = [&](float (&d)[32], uint32_t a, uint32_t b) {
-        wgmma_m64n64_ss_new(d, wgmma_desc(a, 16, 1024),
-                            wgmma_desc(b, 16, 1024));
+        wgmma_m64n64_ss_new(d, kmajor_desc(a), kmajor_desc(b));
 #pragma unroll
         for (int kd = 1; kd < D / 16; ++kd)
-          wgmma_m64n64_ss(d, wgmma_desc(a + 32 * kd, 16, 1024),
-                          wgmma_desc(b + 32 * kd, 16, 1024), 1);
+          wgmma_m64n64_ss(d, kmajor_desc(a + kd * kCols16),
+                          kmajor_desc(b + kd * kCols16), 1);
         wgmma_commit();
       };
       // fresh = A.B over the tile's 64 q rows, A the hi and lo fragments
@@ -2447,11 +2492,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       // where they add into an accumulator)
       auto issue_rs = [&](float (&fresh)[32], const uint32_t (&hi)[4][4],
                           const uint32_t (&lo)[4][4], uint32_t b) {
-        wgmma_m64n64_rs_new(fresh, hi[0], wgmma_desc(b, kBox, 1024));
-        wgmma_m64n64_rs(fresh, lo[0], wgmma_desc(b, kBox, 1024), 1);
+        wgmma_m64n64_rs_new(fresh, hi[0], mnmajor_desc(b));
+        wgmma_m64n64_rs(fresh, lo[0], mnmajor_desc(b), 1);
 #pragma unroll
         for (int kk = 1; kk < kWgStep / 16; ++kk) {
-          const uint64_t bd = wgmma_desc(b + kk * 16 * 128, kBox, 1024);
+          const uint64_t bd = mnmajor_desc(b + kk * kRows16);
           wgmma_m64n64_rs(fresh, hi[kk], bd, 1);
           wgmma_m64n64_rs(fresh, lo[kk], bd, 1);
         }
@@ -2554,8 +2599,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       auto issue_sdp = [&](int it2) {
         wait_stage(it2);
         wgmma_fence();
-        issue_ss(sT, ka, q_at(it2));
-        issue_ss(dpT, va, q_at(it2) + kBox);
+        issue_ss(sT, k16, stage16(it2));
+        issue_ss(dpT, k16 + 2 * kBox16, stage16(it2) + kBox16);
       };
       // A live tile, its S^T and dP^T landed. In commit order: dV, with
       // P^T made and split before it; dS^T while dV runs; dK, while dS^T
@@ -2566,14 +2611,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       // pending group is read or written.
       auto tile = [&](auto has_next) {
         constexpr bool next = decltype(has_next)::value;
-        const uint32_t qa = q_at(it), ga = qa + kBox;
+        const uint32_t qa = stage16(it);  // Q; dO one box on
         const bool own = owns(tq);
         float fresh_v[32], fresh_k[32];
         uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
         make_p(sT, stats_at(it), i * kWgStep);
         split_p(sT, ph, pl);
         wgmma_fence();
-        issue_rs(fresh_v, ph, pl, ga);
+        issue_rs(fresh_v, ph, pl, qa + kBox16);
         make_ds(sT, dpT, stats_at(it), dh, dl);
         put_ds(dh, dl, tq, own);
         wgmma_fence();

@@ -187,6 +187,19 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
       : "r"(addr));
 }
 
+// Four 8 x 8 bf16 matrices from registers into shared memory: register j
+// holds matrix j in the mma fragment layout (row lane / 4, columns
+// 2 (lane % 4) and the next), and lane 8 j + r gives the address of
+// matrix j's row r (16 bytes).
+__device__ __forceinline__ void stsm_x4(uint32_t addr, uint32_t r0,
+                                        uint32_t r1, uint32_t r2,
+                                        uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      ::"r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
 // Byte offset of 16-byte chunk `chunk` of row `row` in a tile of
 // 128-byte rows written by TMA with the 128-byte swizzle.
 __device__ __forceinline__ uint32_t sw128(int row, int chunk) {
@@ -207,6 +220,16 @@ __device__ __forceinline__ uint32_t sw128(int row, int chunk) {
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+// The same descriptor from its address field a16 (a shared-window
+// address / 16, under 2^14) and compile-time lbo and sbo: the leading
+// byte offset joins the field by an add, so a kernel that keeps one
+// address field and adds constant offsets (a box, a k-step) makes each
+// descriptor with one add and holds no descriptor in registers.
+__device__ __forceinline__ uint64_t wgmma_desc16(uint32_t a16, uint32_t lbo,
+                                                 uint32_t sbo) {
+  return (uint64_t)(a16 + ((lbo >> 4) << 16)) |
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 

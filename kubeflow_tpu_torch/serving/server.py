@@ -1035,6 +1035,20 @@ def serving_mesh_from_env(environ=None, *, device=None):
     return parse_serving_mesh(raw, device_type=dev.type), dev
 
 
+def leave_mesh(*, barrier: bool) -> None:
+    """Tear down the process group :func:`serving_mesh_from_env` brought
+    up, before the interpreter exits: a gloo group left to the
+    interpreter's teardown can abort the rank ("terminate called without
+    an active exception") while a peer is still leaving. ``barrier``
+    first where every rank is alive and leaving (the leader stopped, its
+    follower got ``stop``); not where a peer is gone."""
+    if not tdist.is_initialized():
+        return
+    if barrier:
+        tdist.barrier()
+    tdist.destroy_process_group()
+
+
 def main(device=None) -> None:
     """Serve from the environment (the reference's knobs) on CUDA unless
     ``device="cpu"``: REST on ``KFTPU_REST_PORT`` and gRPC on
@@ -1047,6 +1061,7 @@ def main(device=None) -> None:
     mesh, device = serving_mesh_from_env(device=device)
     if mesh is not None and tdist.get_rank() != 0:
         serve_follower(base, mesh, device=device)
+        leave_mesh(barrier=True)
         return
     max_batch = int(os.environ.get("KFTPU_MAX_BATCH_SIZE", "8"))
     grpc_port = int(os.environ.get("KFTPU_GRPC_PORT", "9000"))
@@ -1077,8 +1092,11 @@ def main(device=None) -> None:
         server.stop()
         if grpc_server is not None:
             grpc_server.stop(grace=1.0)
+        if mesh is not None:
+            leave_mesh(barrier=True)
         return
     log.error("a follower rank of the serving mesh is gone; exiting")
+    leave_mesh(barrier=False)
     sys.exit(1)
 
 

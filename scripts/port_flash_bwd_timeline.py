@@ -23,15 +23,32 @@ stamps, each block's:
   for a stage (``stage``), for the next tile's S^T and dP^T (``sdp``,
   issued at the end of this one), for dV's products (``dv``), for dK's
   (``dk``), for the other warpgroup's dS^T half (``ds``: the owner of
-  the tile's dQ), for dQ's products (``dq``: the owner's), for buffers
-  (``buffer``: the dS^T buffer's last dQ, the adder's dQ buffer), and
+  the tile's dQ, warpgroup tq & 1), for dQ's products (``dq``: the
+  owner's), for buffers (``buffer``: the other's wait for a dS^T
+  buffer's last dQ, the owner's for the adder's dQ buffer), and
   ``issue``: the tile's time less those waits, the warpgroup issuing
-  element-wise work and products. ``kv_us`` (µs an item): the wait for
-  the item's K and V, which load once the previous item's last
-  products are done; ``item_us``: an item's time, taken to consumed;
+  element-wise work and products. ``ew``: the element-wise span, from
+  the tile's S^T and dP^T landed to its dK issued (P, dV issued, dS,
+  the dS^T half stored; the other's buffer wait inside it);
+  ``both_ew``: the time of it the other warpgroup was in its own span
+  too, when neither warpgroup issues products (the one that ends first
+  counts it; ``both_ew_us`` sums the two a tile). ``kv_us`` (µs an
+  item): the wait for the item's K and V, which load once the previous
+  item's last products are done; ``item_us``: an item's time, taken to
+  consumed;
 - ``heads``: the (batch, head) pairs whose items are in flight at once
   over the grid, the most and the median over the items' starts (each
   head's f32 dQ workspace is S x 64 x 4 bytes, 2 MB at the LM's S).
+
+Before the stamps, one JSON line holds the kernel's census
+(:func:`sass_census`): ptxas's report for it (registers, spills) and
+its SASS instructions by class (``wgmma``, FFMA, FADD or FMUL, MUFU,
+conversions and permutes, shared-memory stores and loads, barriers,
+other), from ``cuobjdump -sass`` of the library built as the package
+builds it: the whole kernel, the steady tile loop, and that loop less
+the edge tiles' path of P (``steady``, over ``tiles`` tiles: a
+thread's instructions a tile). ``--census-only`` stops there;
+``--sass FILE`` writes the kernel's SASS.
 
 With ``--tree DIR`` the kernel of another checkout (its
 ``kubeflow_tpu_torch/ops/csrc/``) is instrumented instead, with the
@@ -43,8 +60,9 @@ The instrumented copy is built into the git-ignored
 ``kubeflow_tpu_torch/_build/timeline/``; the package's own library is
 not touched.
 
-Usage (needs CUDA): ``python3 scripts/port_flash_bwd_timeline.py
-[--tree DIR]``.
+Usage (needs CUDA and the CUDA toolkit's ``cuobjdump``): ``python3
+scripts/port_flash_bwd_timeline.py [--tree DIR] [--census-only]
+[--sass FILE]``.
 """
 
 from __future__ import annotations
@@ -65,7 +83,7 @@ sys.path.insert(0, ROOT)
 MAX_BLOCKS, SLOTS, MAX_ITEMS = 1024, 32, 64
 # per-warpgroup slots (8 + 12 wg + k); ``tile`` is the live tiles' time
 SPANS = ("stage", "sdp", "dv", "dk", "ds", "dq", "buffer", "kv", "tile",
-         "tiles")
+         "tiles", "ew", "both_ew")
 SLOT = {name: k for k, name in enumerate(SPANS)}
 WAITS = SPANS[:SPANS.index("kv")]   # a tile's waits
 
@@ -140,16 +158,20 @@ COMMON = [
 ]
 
 # this checkout's consumer loop: one span a wait, and the tile's time
-TILE_START = ("        const uint32_t qa = q_at(it), ga = qa + kBox;\n"
+TILE_START = ("        const uint32_t qa = stage16(it);"
+              "  // Q; dO one box on\n"
               "        const bool own = owns(tq);\n"
               "        float fresh_v[32], fresh_k[32];\n")
+# the element-wise span's end: dK issued, P, dS and the dS^T half made
+EW_END = "        issue_rs(fresh_k, dh, dl, qa);\n"
 TILE_END = "        ++i, ++it, ++tq;\n      };\n"
 # the tile's end: the next tile's S^T and dP^T go out, then the owner
 # waits for its dQ (the other for its dK), then for S^T and dP^T
 NEXT = "            issue_sdp(it + 1);\n"
 OWN = [
     _span("stage", "        wait_stage(it2);\n",
-          "        wgmma_fence();\n        issue_ss(sT, ka, q_at(it2));\n",
+          "        wgmma_fence();\n"
+          "        issue_ss(sT, k16, stage16(it2));\n",
           "t_st"),
     _span("dv", "        wgmma_wait<1>();\n",
           "        add_to(dva, fresh_v);\n", "t_dv"),
@@ -170,7 +192,23 @@ OWN = [
                     "((tq >> 1) & 1) ^ 1);\n", "", "t_bf"),
     _span("buffer", "      mbar_wait(dq_empty(buf), "
                     "((tq / kDqBufs) & 1) ^ 1);\n", "", "t_bq"),
-    (TILE_START, "        const unsigned long long t_tile = gtime();\n", ""),
+    (TILE_START, "        const unsigned long long t_tile = gtime();\n"
+                 "        if (tw == 0) kftpu_ew[wg] = t_tile;\n", ""),
+    # each warpgroup's element-wise span, and the time of it the other
+    # warpgroup spent in its own at once (counted by the one that ends
+    # first, which finds the other's start still set)
+    (EW_END, "", "        if (tw == 0) {\n"
+                 "          const unsigned long long t_ew = gtime();\n"
+                 "          const unsigned long long t_o = kftpu_ew[wg ^ 1];\n"
+                 "          kftpu_ew[wg] = 0;\n"
+                 f"          {_slot('ew')} += t_ew - t_tile;\n"
+                 "          if (t_o)\n"
+                 f"            {_slot('both_ew')} += t_ew - (t_o > t_tile ? "
+                 "t_o : t_tile);\n        }\n"),
+    ("  const int n_q = (S + kWgStep - 1) / kWgStep;\n", "",
+     "  // a warpgroup's element-wise span's start, 0 outside it\n"
+     "  volatile __shared__ unsigned long long kftpu_ew[2];\n"
+     "  if (threadIdx.x < 2) kftpu_ew[threadIdx.x] = 0;\n"),
     (TILE_END, "        if (tw == 0) {\n"
                f"          {_slot('tile')} += gtime() - t_tile;\n"
                f"          {_slot('tiles')} += 1;\n        }}\n" + TILE_END),
@@ -225,6 +263,175 @@ def build(tree: str) -> str:
     return so
 
 
+KERNEL = "flash_bwd_wgmma_kernel"
+# SASS opcodes (the mnemonic before its first '.') by class; the rest
+# (integer, moves, predicates, branches, uniform-datapath work) is "other"
+CLASSES = {
+    "wgmma": ("HGMMA",),
+    "ffma": ("FFMA",),
+    "fadd_fmul": ("FADD", "FMUL"),
+    "mufu": ("MUFU",),
+    "convert_permute": ("F2F", "F2FP", "PRMT", "I2F", "F2I", "I2FP",
+                        "F2IP"),
+    "shared_stores": ("STS", "STSM"),
+    "shared_loads": ("LDS", "LDSM"),
+    "barriers": ("BAR", "SYNCS", "WARPGROUP", "DEPBAR", "MEMBAR", "FENCE",
+                 "WARPSYNC", "ERRBAR", "CCTL"),
+}
+OPCLASS = {op: name for name, ops in CLASSES.items() for op in ops}
+
+
+def compile_kernel(tree: str, label: str) -> tuple:
+    """``tree``'s ``csrc/flash_attention.cu`` built as it stands, with the
+    package's flags (``-Xptxas -v`` among them), into the timeline's
+    build directory; returns ``(library, compiler log)``."""
+    from kubeflow_tpu_torch.ops import _build
+
+    csrc = os.path.join(tree, "kubeflow_tpu_torch", "ops", "csrc")
+    out_dir = os.path.join(_build.BUILD_DIR, "timeline", f"census_{label}")
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, "libflash_attention.so")
+    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
+                           os.path.join(csrc, "flash_attention.cu")],
+                          check=True, capture_output=True, text=True)
+    return so, done.stdout + done.stderr
+
+
+def ptxas_lines(log: str) -> list:
+    """The compiler's lines for the fused backward's kernel: from its
+    ``Compiling entry function`` line to its ``Used ... registers``."""
+    lines, on = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            on = KERNEL in line
+        if on:
+            lines.append(line.split("ptxas info    :")[-1].strip())
+            if "Used" in line and "registers" in line:
+                on = False
+    return lines
+
+
+def sass_of(so: str) -> list:
+    """``(address, opcode, text)`` of each SASS instruction of the fused
+    backward's kernel in ``so`` (``cuobjdump -sass``)."""
+    import re
+
+    from kubeflow_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", so], check=True,
+                          capture_output=True, text=True).stdout
+    out, on = [], False
+    for line in text.splitlines():
+        if "Function :" in line:
+            on = KERNEL in line
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if on and m:
+            body = re.sub(r"^@!?U?P\w+\s+", "", m.group(2).strip())
+            out.append((int(m.group(1), 16), body.split()[0].split(".")[0],
+                        body))
+    return out
+
+
+def _branch_target(text: str):
+    import re
+
+    m = re.search(r"(0x[0-9a-f]+)\s*$", text)
+    return int(m.group(1), 16) if m else None
+
+
+def tile_loop(sass: list) -> tuple:
+    """The steady tile loop's ``[start, end]`` addresses: of the loops (a
+    backward branch before the kernel's last ``EXIT`` and its target: the
+    retry stubs of the barrier waits after it jump back into the body)
+    that hold no other loop with ``wgmma`` in it, the one with the most
+    ``wgmma``."""
+    last_exit = max((a for a, op, _ in sass if op == "EXIT"), default=0)
+    loops = []
+    for addr, op, text in sass:
+        target = _branch_target(text) if op == "BRA" else None
+        if target is not None and target < addr < last_exit:
+            loops.append((target, addr))
+
+    def wgmma(lo, hi):
+        return sum(1 for a, op, _ in sass if lo <= a <= hi and op == "HGMMA")
+
+    inner = [(lo, hi) for lo, hi in loops if wgmma(lo, hi) and not any(
+        (lo2, hi2) != (lo, hi) and lo <= lo2 and hi2 <= hi and wgmma(lo2, hi2)
+        for lo2, hi2 in loops)]
+    return max(inner, key=lambda r: wgmma(*r)) if inner else None
+
+
+# the masked score's exponent (kNegInfLog2e) marks make_p's edge path
+MASKED = "-1.44269504977487275908e+30"
+
+
+def edge_blocks(sass: list, span) -> list:
+    """``[start, end]`` ranges inside ``span`` that a steady tile jumps
+    over: skipped by a forward branch, holding the masked exponent (the
+    edge tiles' path of P) and no ``wgmma``."""
+    out = []
+    for addr, op, text in sass:
+        target = _branch_target(text) if op == "BRA" else None
+        if target is None or not span[0] <= addr < target <= span[1]:
+            continue
+        inside = [(op2, t) for a, op2, t in sass if addr < a < target]
+        if (any(MASKED in t for _, t in inside)
+                and not any(op2 == "HGMMA" for op2, _ in inside)):
+            out.append((addr + 16, target - 16))
+    # the outermost skipped ranges only
+    return [r for r in out if not any(o != r and o[0] <= r[0] and
+                                      r[1] <= o[1] for o in out)]
+
+
+def census(sass: list, span=None, skip=()) -> dict:
+    """SASS instructions by class (:data:`CLASSES`), over ``span`` (a
+    ``[start, end]`` of addresses) or the whole kernel, less the ranges
+    in ``skip``, and the opcodes of class "other" that occur most."""
+    from collections import Counter
+
+    counts = dict.fromkeys([*CLASSES, "other"], 0)
+    other = Counter()
+    for addr, op, _ in sass:
+        if span is not None and not span[0] <= addr <= span[1]:
+            continue
+        if any(lo <= addr <= hi for lo, hi in skip):
+            continue
+        counts[OPCLASS.get(op, "other")] += 1
+        if op not in OPCLASS:
+            other[op] += 1
+    counts["total"] = sum(counts.values())
+    counts["other_top"] = dict(other.most_common(12))
+    return counts
+
+
+def sass_census(tree: str, label: str, sass_out: str = "") -> dict:
+    """The kernel's ptxas report and its SASS census: the whole kernel,
+    its steady tile loop (one iteration's static instructions a thread;
+    where the body branches by role, both roles are in it), and that
+    loop less make_p's edge path (``steady``: the instructions a thread
+    issues for the loop's tiles, barrier retries aside). ``tiles``: the
+    tiles one iteration covers, counted by their 32 exponentials each.
+    The kernel's SASS goes to ``sass_out`` if given."""
+    so, log = compile_kernel(tree, label)
+    sass = sass_of(so)
+    if sass_out:
+        with open(sass_out, "w") as f:
+            f.writelines(f"{a:06x} {text}\n" for a, _, text in sass)
+    loop = tile_loop(sass)
+    out = {"ptxas": ptxas_lines(log), "kernel": census(sass),
+           "tile_loop": None}
+    if loop:
+        edges = edge_blocks(sass, loop)
+        steady = census(sass, loop, edges)
+        out.update(tile_loop=census(sass, loop),
+                   tile_loop_span=[f"{loop[0]:#x}", f"{loop[1]:#x}"],
+                   edge_spans=[[f"{lo:#x}", f"{hi:#x}"] for lo, hi in edges],
+                   steady=steady, tiles=max(round(steady["mufu"] / 32), 1))
+    return out
+
+
 def heads_in_flight(items) -> tuple:
     """The most and the median count of distinct heads whose items are in
     flight, sampled at each item's start; ``items`` (head, start, end)."""
@@ -243,6 +450,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", metavar="DIR", default=ROOT,
                     help="instrument DIR's kernel (the stamps it shares)")
+    ap.add_argument("--sass", metavar="FILE", default="",
+                    help="write the tile loop's SASS to FILE")
+    ap.add_argument("--census-only", action="store_true",
+                    help="print the SASS census and stop")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs CUDA", file=sys.stderr)
@@ -255,12 +466,19 @@ def main() -> int:
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     own = os.path.abspath(args.tree) == ROOT
+    dev = torch.device("cuda", 0)
+    ident = smoke.gpu_identity()
+    print(json.dumps({"device": ident, "tree": os.path.abspath(args.tree),
+                      "census": sass_census(args.tree,
+                                            "own" if own else "tree",
+                                            args.sass)}),
+          flush=True)
+    if args.census_only:
+        return 0
     lib = ctypes.CDLL(build(args.tree))
     lib.kftpu_flash_bwd_stamps.argtypes = [ctypes.c_void_p] * 2
     lib.kftpu_flash_bwd_stamps_reset.argtypes = [ctypes.c_void_p] * 2
     _build._libs["flash_attention"] = lib      # the wrapper's library
-    dev = torch.device("cuda", 0)
-    ident = smoke.gpu_identity()
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=dev)
     zeros = np.zeros((MAX_BLOCKS, SLOTS), np.uint64)
     zeros[:, 1] = np.iinfo(np.uint64).max     # the first add: a minimum
@@ -331,9 +549,17 @@ def main() -> int:
                 waits = sum(col[name] for name in WAITS)
                 run[f"wg{wg}_issue_us"] = float(np.median(
                     (col["tile"] - waits) / tiles) / 1e3)
-                for name in WAITS:
+                for name in (*WAITS, "ew", "both_ew"):
                     run[f"wg{wg}_{name}_us"] = float(np.median(
                         col[name] / tiles) / 1e3)
+            if own:
+                # the time a tile both warpgroups were in their
+                # element-wise spans at once (each overlap is counted by
+                # one of them)
+                both = sum(b[:, 8 + 12 * wg + SLOT["both_ew"]]
+                           for wg in (0, 1)).astype(np.float64)
+                tiles = np.maximum(b[:, 8 + SLOT["tiles"]], 1)
+                run["both_ew_us"] = float(np.median(both / tiles) / 1e3)
             runs.append(run)
         print(json.dumps({"device": ident, "tree": os.path.abspath(args.tree),
                           "shape": label, "B": B, "S": S, "H": H,

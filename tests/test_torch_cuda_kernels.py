@@ -714,6 +714,26 @@ def test_flash_wgmma_backward_long_sum_holds_dv(cuda):
     print(f"S=8192 causal norm errors: {rels}")
 
 
+def test_flash_wgmma_backward_compiles_without_spills(cuda, tmp_path):
+    """The fused backward's consumers work at the edge of their 232
+    registers: its descriptors are adds to one address field, so none
+    holds a register across the tile loop (made once per kernel, they
+    spilled 60 bytes). ptxas, run as the package builds the library,
+    reports no spill and no stack for ``flash_bwd_wgmma_kernel``."""
+    import re
+
+    from kubeflow_tpu_torch.ops import _build
+
+    log = _build.build(["flash_attention"], build_dir=str(tmp_path))
+    text = log["flash_attention"]
+    at = [m.start() for m in re.finditer(
+        r"Compiling entry function '[^']*flash_bwd_wgmma_kernel", text)]
+    assert len(at) == 1, text[-2000:]
+    entry = text[at[0]:].split("Compiling entry function")[1]
+    assert "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill " \
+           "loads" in entry, entry
+
+
 def _one_key_limits(q, k, v, g, lse, delta):
     """Elementwise limits on |kernel - plain| of dQ and dK at S = 1,
     where each row has one key: P = exp(s - lse) is 1 up to rounding and

@@ -412,6 +412,53 @@ def test_dq_alternates_between_the_warpgroups(S, causal, kv_len, picks):
                     if step[0] == "add" and step[1] % DQ_BUFS == b]
             assert adds == list(range(b, len(walk), DQ_BUFS))
 
+def _lead(programs, favour):
+    """Run the block, always stepping actor ``favour`` when it can move
+    (the rest in turn); returns the most dS^T halves handed on
+    (ds_full arrivals) beyond the dQ issued that read them."""
+    bars = {("full", s): _Barrier(1) for s in range(STAGES)}
+    bars.update({("empty", s): _Barrier(2) for s in range(STAGES)})
+    for x in (0, 1):
+        bars[("ds_full", x)] = _Barrier(1)
+        bars[("ds_free", x)] = _Barrier(1)
+    for b in range(DQ_BUFS):
+        bars[("dq_full", b)] = _Barrier(1)
+        bars[("dq_empty", b)] = _Barrier(1)
+    pcs, handed, issued, lead = [0] * len(programs), 0, 0, 0
+    while True:
+        for a in [favour] + [a for a in range(len(programs)) if a != favour]:
+            if pcs[a] == len(programs[a]):
+                continue
+            step = programs[a][pcs[a]]
+            if step[0] == "wait" and bars[step[1]].done < step[2]:
+                continue
+            pcs[a] += 1
+            if step[0] == "arrive":
+                bars[step[1]].arrive()
+                handed += step[1][0] == "ds_full"
+            issued += step[0] == "dq"
+            lead = max(lead, handed - issued)
+            break
+        else:
+            break
+    assert all(pc == len(p) for pc, p in zip(pcs, programs))
+    return lead
+
+
+@pytest.mark.parametrize("S,causal,kv_len,picks", BLOCK_CASES)
+def test_the_warpgroups_stay_within_a_tile(S, causal, kv_len, picks):
+    """With dQ on alternate q tiles each warpgroup waits for the other's
+    dS^T half every other tile, so whichever actor runs first (the
+    producer, either consumer, an adder), no half is handed on more
+    than one tile before the dQ that reads it: the two warpgroups run in
+    phase. (Every dQ on one warpgroup let the other run two tiles ahead,
+    out of phase, and read slower at the LM shape: PERF.md §6.)"""
+    work = fa.wgmma_work("flash_bwd", S, causal)
+    walk, programs = _block_programs([work[k] for k in picks], S, causal,
+                                     kv_len)
+    assert [_lead(programs, a) for a in range(len(programs))] == [1] * len(
+        programs)
+
 
 def test_block_model_finds_a_misread_parity():
     """The model's check bites: an owner that frees its dS^T buffer

@@ -195,3 +195,12 @@ def test_initialize_distributed_requires_coordinator():
     with pytest.raises(RuntimeError, match="KFTPU_COORDINATOR_ADDRESS") as got:
         dist.initialize(dist.ProcessEnv(None, 2, 1), timeout_s=1)
     assert str(got.value) == str(want.value)
+
+
+def test_every_rank_leaves_its_process_group(gang):
+    """Each rank ends the suite at a barrier and tears its gloo group
+    down itself (``torch_gang.leave_group``). Left to the interpreter's
+    teardown, the group aborted a rank whose peers were still leaving
+    (rc -6, "terminate called without an active exception"), which
+    failed every test of the gang under ``-n 6``."""
+    assert gang.left() == [True] * 4

@@ -277,6 +277,7 @@ _DIES = textwrap.dedent("""
     while not ls.broken.is_set() and time.monotonic() < deadline:
         time.sleep(0.1)
     print("broken" if ls.broken.is_set() else "hung")
+    srv.leave_mesh(barrier=False)   # as server.main leaves a broken mesh
 """)
 
 
@@ -314,13 +315,16 @@ _MAIN = textwrap.dedent("""
     srv.ModelServer = Server
     srv.time.sleep = probe
     srv.main(device="cpu")
+    print(json.dumps({"left": not srv.tdist.is_initialized()}))
 """)
 
 
 def test_main_serves_over_the_env_mesh(tmp_path, oracle):
     """``server.main`` on every rank of a gang with
     ``KFTPU_SERVING_MESH=tp=2``: rank 0 serves ``:generate`` with the
-    oracle's tokens, rank 1 follows, and both end when rank 0 stops."""
+    oracle's tokens, rank 1 follows, and both end when rank 0 stops,
+    each with its process group torn down (``server.leave_mesh``: a
+    gloo group left to the interpreter's teardown aborted followers)."""
     import json
     import os
 
@@ -336,8 +340,12 @@ def test_main_serves_over_the_env_mesh(tmp_path, oracle):
         "KFTPU_DECODE_SLOTS": "2", "KFTPU_REPO": repo})
     assert lead.returncode == 0, lead.stderr[-3000:]
     assert follower.returncode == 0, follower.stderr[-3000:]
-    out = json.loads(lead.stdout.strip().splitlines()[-1])
+    *_, out, left = [json.loads(line)
+                     for line in lead.stdout.strip().splitlines()]
     assert out["mesh"] == 2
+    assert left == {"left": True}
+    assert json.loads(follower.stdout.strip().splitlines()[-1]) == {
+        "left": True}
     code, body = out["got"]
     assert code == 200 and body["tokens"] == oracle[2]["five"]
 

@@ -1770,6 +1770,22 @@ def _run(suite: str, out: str) -> None:
         except Exception:  # noqa: BLE001 — reported to the test, per case
             ran[name] = {"error": traceback.format_exc()}
     torch.save(ran, os.path.join(out, f"rank{penv.process_id}.pt"))
+    leave_group(os.path.join(out, f"rank{penv.process_id}.left"))
+
+
+def leave_group(mark: str) -> None:
+    """Every rank done, then the process group torn down before the
+    interpreter exits: a gloo group left to the interpreter's teardown
+    aborted a rank whose peers were still leaving ("terminate called
+    without an active exception", rc -6). Then writes the file ``mark``
+    (no process group left), which :meth:`Gang.left` reads."""
+    import torch.distributed as tdist
+
+    if tdist.is_initialized():
+        tdist.barrier()
+        tdist.destroy_process_group()
+    with open(mark, "w") as f:
+        f.write(str(tdist.is_initialized()))
 
 
 # -- test side --------------------------------------------------------------
@@ -1804,6 +1820,20 @@ class Gang:
                                       weights_only=False)
                            for i in range(self.n)]
         return self._ranks
+
+    def left(self) -> List[bool]:
+        """Whether each rank, in rank order, ended with its process group
+        torn down (:func:`leave_group`)."""
+        self.results()
+        marks = []
+        for i in range(self.n):
+            path = os.path.join(self.out, f"rank{i}.left")
+            if not os.path.exists(path):
+                marks.append(False)
+                continue
+            with open(path) as f:
+                marks.append(f.read() == "False")
+        return marks
 
     def case(self, name: str) -> List[Any]:
         """The case's result on every rank, in rank order; a rank's error
